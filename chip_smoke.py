@@ -14,7 +14,22 @@ Phases, each printing one line (or a few) before the last:
    anchors, bf16, kernel path) with random weights from seed 0 answers
    three requests of 8, 5 and 11 images with the flip test; checks shapes,
    finiteness, that every kernel launched, and the kernel path against the
-   plain path on the card; times the forward at batch 8 and 64.
+   plain path on the card; times the forward at batch 8 and 64;
+4. train kernels: each kernel of the slot train step (and the per-tile
+   forms of affine_dot / conv3x3) against its plain version on the card at
+   the shapes the CU-Net-8 @256 train step gives it (batch 24, ghost-BN
+   tile 2);
+5. training: CU-Net-8 @256 (bf16, bn_tile 2, bn_dtype "compute", RMSprop)
+   at batch 24 from the port's init (seed 0), numpy images and Gaussian
+   target heatmaps: slot 1 alone, kernel path against plain path under a
+   cotangent on each output in turn (every input cotangent, weight
+   gradient, output and running-stat update, held to a plain-vs-plain
+   control); one kernel-path step against one plain-path step from
+   the same state (loss, grad-norm ratio, per-leaf cosine against a
+   plain-vs-plain control, head grads, BN running stats), a bit-identical
+   repeat, three kernel-path train_steps
+   that launch every kernel, and the step time, img/s and peak memory of
+   both paths.
 
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is ``{"ok": true, "device": {...}}``. Any
@@ -35,16 +50,42 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 SOURCE = "cunet_tpu_torch/csrc/buf_kernels.cu"
+TRAIN_SOURCE = "cunet_tpu_torch/csrc/train_kernels.cu"
 REPLACES = {
     "affine_dot": "cunet_tpu/kernels/fused_model_buf.py:52",
     "conv3x3": "cunet_tpu/kernels/fused_hourglass.py:75",
     "maxpool2": "cunet_tpu/kernels/fused_hourglass.py:312",
     "upsample2": "cunet_tpu/kernels/fused_hourglass.py:329",
+    "bn_stats": "cunet_tpu/kernels/train_slot.py:179",
+    "affine_dx": "cunet_tpu/kernels/train_slot.py:541",
+    "affine_dw": "cunet_tpu/kernels/train_slot.py:549",
+    "bn_bwd": "cunet_tpu/kernels/train_slot.py:557",
+    "conv3x3_dx": "cunet_tpu/kernels/train_slot.py:732",
+    "conv3x3_dw": "cunet_tpu/kernels/train_slot.py:732",
+    "maxpool2_bwd": "cunet_tpu/kernels/train_slot.py:814",
+    "upsample2_bwd": "cunet_tpu/kernels/train_slot.py:847",
+    "sum_rows": "cunet_tpu/kernels/train_slot.py:854",
 }
 # the bf16 output rounds at 2^-8 of its magnitude
 REL_BOUND, ABS_BOUND = 2e-2, 1e-2
+# a float32 result of an n-term reduction, summed in another order, moves
+# by O(sqrt(n) * 2^-24) of its scale; 1e-5 * sqrt(n) leaves a margin ~170
+SUM_REL_PER_SQRT_N = 1e-5
 PATH_REL_L2 = 3e-2   # kernel path vs plain path: 8 bf16 slots of rounding
 BATCH = 8
+TRAIN_BATCH, BN_TILE = 24, 2
+# kernel train step vs plain train step on the card (PARITY.md:274-288):
+# elementwise grads are chaotic at depth, so aggregate bands. The per-leaf
+# cosine is chaotic too at this init: the plain path against itself, with
+# the stem BN bias moved by CONTROL_NUDGE (below one bf16 ulp of the O(1)
+# activations), measures 0.13 on an H100. So the kernel path's mean cosine
+# is held against that control, measured in the same run, minus a margin.
+LOSS_REL = 1e-2
+GRAD_NORM_RATIO = (0.85, 1.18)
+CONTROL_NUDGE = 1e-4
+COSINE_MARGIN = 0.05
+HEADS_REL_L2 = 5e-2
+BN_STATE_REL_L2 = 1e-2
 
 
 class SmokeFailure(RuntimeError):
@@ -262,6 +303,393 @@ def phase_serving(torch, ops, gpu):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 4: train kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def train_kernel_cases(torch, tops, bops, gen):
+    """(kernel, label, make_out, call(fn, out), bound) at the CU-Net-8 @256
+    train shapes (c=128, g=32, Cb=128, cls=16, h0=64, batch 24, tile 2).
+    bound is ("bf16",), ("exact",) or ("sum", n) for an n-term reduction."""
+    from cunet_tpu_torch.kernels.train_slot import _affine_vec
+
+    dev = "cuda"
+    c, g, cb, cls, h0, n = 128, 32, 128, 16, 64, TRAIN_BATCH
+    tiles = n // BN_TILE
+
+    def randn(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=gen) * scale).to(dev, dtype)
+
+    def vec(x):
+        k = x.shape[1]
+        st = torch.empty(tiles, 2, k, device=dev)
+        tops.bn_stats_plain(x, st)
+        bn = torch.stack([torch.rand(k, generator=gen) + 0.5,
+                          torch.randn(k, generator=gen) * 0.3]).to(dev)
+        return st, bn, _affine_vec(st, bn, 1e-5)
+
+    def f32(*shape):
+        return lambda: torch.empty(*shape, device=dev)
+
+    def bf16(*shape):
+        return lambda: torch.empty(*shape, device=dev, dtype=torch.bfloat16)
+
+    m64 = n * h0 * h0
+    down64 = randn(m64, c + g + g)            # [y | fifo | out32]
+    x2 = down64[:, :c + 2 * g]                # K=192 adapter input
+    st2, bn2, v2 = vec(x2)
+    w_a = randn(192, c, scale=192 ** -0.5)
+    d_ahead = randn(m64, c)
+    y_out = randn(m64, c)
+    sth, bnh, vh = vec(y_out)
+    w_h = randn(c, cls, scale=c ** -0.5)
+    d_head = randn(m64, cls)
+    cases = [
+        (tops.bn_stats, "r=64 K=160", f32(tiles, 2, 160),
+         lambda f, o: f(down64[:, :160], o), ("sum", 2 * h0 * h0)),
+        (bops.affine_dot, "K=192->128 r=64 per-tile", bf16(m64, c),
+         lambda f, o: f(x2, v2, w_a, o), ("bf16",)),
+        (tops.affine_dx, "K=192->128 r=64", f32(m64, 192),
+         lambda f, o: f(d_ahead, w_a, x2, v2, o), ("sum", c)),
+        (tops.affine_dx, "head 128->16 r=64", f32(m64, c),
+         lambda f, o: f(d_head, w_h, y_out, vh, o), ("sum", cls)),
+        (tops.affine_dw, "K=192->128 r=64", f32(192, c),
+         lambda f, o: f(x2, v2, d_ahead, o), ("sum", m64)),
+        (tops.affine_dw, "head 128->16 r=64", f32(c, cls),
+         lambda f, o: f(y_out, vh, d_head, o), ("sum", m64)),
+    ]
+    d_a = randn(m64, 192, dtype=torch.float32)
+    cases.append((tops.bn_bwd, "K=192 r=64", f32(m64, 192),
+                  lambda f, o: f(x2, d_a, st2, bn2, 1e-5, o,
+                                 torch.empty(2, 192, device=dev)),
+                  ("sum", 2 * h0 * h0)))
+    for r in (64, 4):
+        m = n * r * r
+        yb = randn(m, cb)
+        _, _, vb = vec(yb)
+        w3 = randn(9 * cb, g, scale=(9 * cb) ** -0.5)
+        d_o = randn(m, g)
+        cases += [
+            (bops.conv3x3, f"Cb=128->32 r={r} per-tile prologue",
+             bf16(m, g), lambda f, o, yb=yb, w3=w3, vb=vb, r=r:
+             f(yb, w3, n, r, r, o, vec=vb) if f is bops.conv3x3
+             else f(yb, w3, n, r, r, o, vb), ("bf16",)),
+            (tops.conv3x3_dx, f"32->128 r={r}", f32(m, cb),
+             lambda f, o, yb=yb, w3=w3, vb=vb, d_o=d_o, r=r:
+             f(d_o, w3, n, r, r, yb, vb, o), ("sum", 9 * g)),
+            (tops.conv3x3_dw, f"(9*128, 32) r={r}", f32(9 * cb, g),
+             lambda f, o, yb=yb, vb=vb, d_o=d_o, r=r:
+             f(yb, vb, d_o, n, r, r, o), ("sum", m)),
+        ]
+    ahead = randn(m64, c)
+    d_pool = randn(m64 // 4, c, dtype=torch.float32)
+    cases.append((tops.maxpool2_bwd, "64->32", bf16(m64, c),
+                  lambda f, o: f(ahead, d_pool, n, 64, 64, o), ("exact",)))
+    d_up = randn(n * 64, c, dtype=torch.float32)
+    cases.append((tops.upsample2_bwd, "8->4", bf16(n * 16, c),
+                  lambda f, o: f(d_up, n, 4, 4, o), ("bf16",)))
+    part = randn(48, 192, c, dtype=torch.float32)
+    cases.append((tops.sum_rows, "48 x (192*128) dW chunks", f32(192, c),
+                  lambda f, o: f(part, o), ("sum", 48)))
+    return cases
+
+
+def phase_train_kernels(torch, tops, bops):
+    gen = torch.Generator().manual_seed(0)
+    results = {}
+    plain_of = {**bops.PLAIN, **tops.PLAIN}
+    for kern, label, make_out, call, bound in train_kernel_cases(
+            torch, tops, bops, gen):
+        name = kern.__name__
+        k_out, p_out = make_out(), make_out()
+        call(kern, k_out)
+        call(plain_of[kern], p_out)
+        torch.cuda.synchronize()
+        got, want = k_out.float(), p_out.float()
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        if bound[0] == "bf16":
+            lim = REL_BOUND * scale + ABS_BOUND
+        elif bound[0] == "exact":
+            lim = 0.0
+        else:
+            lim = SUM_REL_PER_SQRT_N * bound[1] ** 0.5 * scale + 1e-6
+        ms = cuda_time_ms(lambda: call(kern, k_out))
+        plain_ms = cuda_time_ms(lambda: call(plain_of[kern], p_out))
+        print(f"train kernel {name} [{label}]: max_abs_err {err:.4g} "
+              f"(bound {lim:.4g}, {bound[0]}"
+              f"{'' if len(bound) == 1 else f' n={bound[1]}'}), "
+              f"{ms:.4f} ms vs plain {plain_ms:.4f} ms", flush=True)
+        require(np.isfinite(err) and err <= lim,
+                f"{name} [{label}] disagrees with its plain version: "
+                f"{err} > {lim}")
+        r = results.setdefault(name, {"max_abs_err": 0.0})
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r.setdefault("ms", ms)          # first case = main-path headline
+        r.setdefault("plain_ms", plain_ms)
+        r.setdefault("shape", label)
+    return results
+
+
+# ---------------------------------------------------------------------------
+# phase 5: training
+# ---------------------------------------------------------------------------
+
+
+def gaussian_heatmaps(rng, n, joints, size, sigma=1.0):
+    """(n, size, size, joints) float32 Gaussian target heatmaps at random
+    joint positions, rendered with numpy."""
+    centres = rng.uniform(4, size - 4, (n, joints, 2))
+    grid = np.arange(size, dtype=np.float32)
+    gx = np.exp(-(grid[None, None, :] - centres[..., 0:1]) ** 2
+                / (2 * sigma ** 2))
+    gy = np.exp(-(grid[None, None, :] - centres[..., 1:2]) ** 2
+                / (2 * sigma ** 2))
+    hm = gy[:, :, :, None] * gx[:, :, None, :]          # (n, J, y, x)
+    return hm.transpose(0, 2, 3, 1).astype(np.float32)
+
+
+def _grads(torch, cfg, params, state, x, t):
+    """One forward + backward from float32 copies of ``params``: (loss,
+    grads, new bn_state)."""
+    from cunet_tpu_torch.models import apply_cu_net
+    from cunet_tpu_torch.train import intermediate_mse
+
+    ps = {k: v.detach().clone().requires_grad_(True)
+          for k, v in params.items()}
+    outs, new_state = apply_cu_net(ps, state, x, cfg=cfg, train=True)
+    loss = intermediate_mse(outs, t)
+    loss.backward()
+    return loss.item(), {k: v.grad for k, v in ps.items()}, new_state
+
+
+def _rel_l2(torch, a, b, keys):
+    num = sum(((a[k].float() - b[k].float()) ** 2).sum() for k in keys)
+    den = sum((b[k].float() ** 2).sum() for k in keys)
+    return (num / den).sqrt().item()
+
+
+def slot_rel_errors(torch, cfg, params, state, n, h0, i, device, gen):
+    """Slot ``i`` (>= 1) of the train step alone, from one slot input and
+    one set of FIFO entries, on three paths: the kernel path, the plain
+    path with its BN affine in float32 (the reference: it rounds where the
+    kernels round) and the plain path as configured (the control).
+
+    Groups: the forward outputs; the running-statistics updates; and, for
+    each output alone under a random cotangent, every input cotangent (the
+    slot input and each FIFO entry: what reaches the earlier slots' out32
+    and inter_out) and every weight gradient, a missing gradient counting
+    as zero. Returns ``(kernel, control)``, each {group: {name: relative
+    L2 against the reference}}."""
+    from cunet_tpu_torch.models import apply_slot_train, empty_fifos
+
+    dt = getattr(torch, cfg.compute_dtype)
+    nb, c, g, L = cfg.num_blocks, cfg.init_chan_num, cfg.growth_rate, \
+        min(i, cfg.order)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen).to(device, dt)
+
+    # FIFO entries in empty_fifos order: down 0..nb-1, neck, up 0..nb-1
+    pos_res = ([(f"down.{j}", h0 >> j) for j in range(nb)]
+               + [("neck", h0 >> nb)]
+               + [(f"up.{j}", h0 >> j) for j in range(nb)])
+    names = (["d_y"] + [f"d_inter_fifo.{k}" for k in range(L)]
+             + [f"d_fifo.{p}.{k}" for p, _ in pos_res for k in range(L)])
+    inputs = ([rand(n, h0, h0, c).relu() for _ in range(1 + L)]
+              + [rand(n, r, r, g) for _, r in pos_res for _ in range(L)])
+    out_names = (["y_out", "head", "inter_out"]
+                 + [f"out32.{p}" for p, _ in pos_res])
+    cts = []
+
+    def run(run_cfg):
+        ps = {k: v.detach().clone().requires_grad_(True)
+              for k, v in params.items()}
+        xs = [t.clone().requires_grad_(True) for t in inputs]
+        it = iter(xs[1:])
+        fifos = empty_fifos(cfg)
+        fifos["intermedia"] = [next(it) for _ in range(L)]
+        fifos["down"] = [[next(it) for _ in range(L)] for _ in range(nb)]
+        fifos["neck"] = [next(it) for _ in range(L)]
+        fifos["up"] = [[next(it) for _ in range(L)] for _ in range(nb)]
+        y_out, nf, hm, upd = apply_slot_train(ps, state, xs[0], fifos,
+                                              cfg=run_cfg, i=i)
+        outs = ([y_out, hm, nf["intermedia"][-1]]
+                + [f[-1] for f in nf["down"]] + [nf["neck"][-1]]
+                + [f[-1] for f in nf["up"]])
+        if not cts:
+            cts.extend(rand(*o.shape) for o in outs)
+        leaves = dict(zip(names, xs))
+        leaves.update((f"dW.{k}", v) for k, v in ps.items())
+        got = {"forward outputs": {k: o.detach()
+                                   for k, o in zip(out_names, outs)},
+               "running-stat updates": {k: v - state[k]
+                                        for k, v in upd.items()}}
+        for on, o, ct in zip(out_names, outs, cts):
+            gr = torch.autograd.grad(o, list(leaves.values()), ct,
+                                     allow_unused=True, retain_graph=True)
+            got[f"grads from {on}"] = {k: d for k, d in zip(leaves, gr)
+                                       if d is not None}
+        return got
+
+    def rel(a, b):              # a missing gradient is a zero one
+        if b is None or not b.any():
+            return 0.0 if a is None or not a.any() else float("inf")
+        a = torch.zeros_like(b) if a is None else a
+        return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+    def against(got, ref):
+        return {grp: {k: rel(got[grp].get(k), ref[grp].get(k))
+                      for k in set(got[grp]) | set(ref[grp])}
+                for grp in ref}
+
+    kern = run(cfg)
+    ref = run(dataclasses.replace(cfg, use_pallas=False, bn_dtype="float32"))
+    ctl = run(dataclasses.replace(cfg, use_pallas=False))
+    return against(kern, ref), against(ctl, ref)
+
+
+def check_slot(torch, cfg, params, state):
+    """Slot 1 of the flagship train step alone at full width (the
+    intermedia adapter, every block position, one FIFO entry each): per
+    group of ``slot_rel_errors``, the kernel path's largest error against
+    the float32-affine plain path must not exceed the control's (the plain
+    path with the configured bf16 affine, a correct implementation). In
+    bf16 the two plain paths flip ReLU masks and pool winners apart, and
+    the flips grow with depth, so a fixed bound would be loose for deep
+    outputs or fail at shallow ones; a dropped or doubled cotangent path
+    gives 1 on the leaves it feeds."""
+    kern, ctl = slot_rel_errors(torch, cfg, params, state, TRAIN_BATCH, 64,
+                                1, "cuda", torch.Generator().manual_seed(2))
+    for grp, rels in kern.items():
+        worst = max(rels, key=rels.get)
+        bound = max(ctl[grp].values())
+        print(f"training: slot 1 alone, kernel vs plain (f32 BN affine): "
+              f"{grp}: {len(rels)} tensors, max rel L2 {rels[worst]:.4g} "
+              f"({worst}); control (plain, bf16 affine) {bound:.4g}",
+              flush=True)
+        require(rels[worst] <= bound,
+                f"slot 1 {grp}: kernel path {worst} off the plain path by "
+                f"{rels[worst]} > control {bound}")
+
+
+def time_train(torch, st, batch, cfg, steps=5):
+    from cunet_tpu_torch.train import train_step
+
+    train_step(st, batch, cfg=cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        train_step(st, batch, cfg=cfg)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times)), torch.cuda.max_memory_allocated()
+
+
+def phase_training(torch, tops, bops, gpu):
+    from cunet_tpu_torch import ModelConfig, TrainConfig
+    from cunet_tpu_torch.models import init_cu_net
+    from cunet_tpu_torch.train import create_train_state, train_step
+
+    cfg = ModelConfig(layer_num=8, order=1, class_num=16, loss_num=8,
+                      compute_dtype="bfloat16", remat="none",
+                      use_pallas=True, bn_tile=BN_TILE, bn_dtype="compute")
+    plain_cfg = dataclasses.replace(cfg, use_pallas=False)
+    params, state = init_cu_net(cfg, torch.Generator().manual_seed(0),
+                                device="cuda")
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.rand(TRAIN_BATCH, 256, 256, 3).astype(
+        np.float32)).cuda()
+    t = torch.from_numpy(gaussian_heatmaps(rng, TRAIN_BATCH, 16, 64)).cuda()
+
+    # ---- one slot alone: every cotangent path, kernel against plain ----
+    check_slot(torch, cfg, params, state)
+
+    # ---- kernel step against plain step, from identical state ----
+    lk, gk, sk = _grads(torch, cfg, params, state, x, t)
+    lp, gp, sp = _grads(torch, plain_cfg, params, state, x, t)
+    nudged = dict(params)
+    nudged["stem.norm.bias"] = params["stem.norm.bias"] + CONTROL_NUDGE
+    _, gq, _ = _grads(torch, plain_cfg, nudged, state, x, t)
+    loss_rel = abs(lk - lp) / abs(lp)
+    norm = lambda g: sum((v.float() ** 2).sum() for v in g.values()).sqrt()
+    ratio = (norm(gk) / norm(gp)).item()
+
+    def cosines(ga):
+        return [torch.nn.functional.cosine_similarity(
+            ga[k].flatten().float(), gp[k].flatten().float(), dim=0).item()
+            for k in ga if gp[k].abs().max() > 0]
+
+    cos, cos_ctl = cosines(gk), np.mean(cosines(gq))
+    del gq
+    heads = [k for k in gk if k.startswith("heads.")]
+    heads_rel = _rel_l2(torch, gk, gp, heads)
+    bn_rel = _rel_l2(torch, sk, sp, list(sp))
+    worst_bn = max(sp, key=lambda k: _rel_l2(torch, sk, sp, [k]))
+    print(f"training: kernel vs plain step on the card: loss {lk:.6g} vs "
+          f"{lp:.6g} (rel {loss_rel:.3g}, bound {LOSS_REL}); grad-norm "
+          f"ratio {ratio:.4f} (band {GRAD_NORM_RATIO}); mean per-leaf cosine "
+          f"{np.mean(cos):.4f} (min {np.min(cos):.4f}; control, plain vs "
+          f"plain with the stem BN bias +{CONTROL_NUDGE}: {cos_ctl:.4f}; "
+          f"bound >= control - {COSINE_MARGIN}); heads.* grads rel L2 "
+          f"{heads_rel:.4g} (bound "
+          f"{HEADS_REL_L2}); BN running stats rel L2 {bn_rel:.4g} (bound "
+          f"{BN_STATE_REL_L2}; worst leaf {worst_bn} "
+          f"{_rel_l2(torch, sk, sp, [worst_bn]):.4g})", flush=True)
+    require(np.isfinite(lk) and loss_rel <= LOSS_REL,
+            f"kernel-path loss {lk} vs plain {lp}")
+    require(GRAD_NORM_RATIO[0] <= ratio <= GRAD_NORM_RATIO[1],
+            f"grad-norm ratio {ratio}")
+    require(np.mean(cos) >= cos_ctl - COSINE_MARGIN,
+            f"mean cosine {np.mean(cos)} below the control {cos_ctl}")
+    require(heads_rel <= HEADS_REL_L2, f"heads.* grads rel L2 {heads_rel}")
+    require(bn_rel <= BN_STATE_REL_L2, f"BN running stats rel L2 {bn_rel}")
+
+    # ---- determinism: the same kernel step again ----
+    lk2, gk2, _ = _grads(torch, cfg, params, state, x, t)
+    same = lk2 == lk and all(torch.equal(gk[k], gk2[k]) for k in gk)
+    print(f"training: repeated kernel step bit-identical: {same}",
+          flush=True)
+    require(same, "the kernel train step is not deterministic")
+    del gk, gp, gk2, sk, sp
+
+    # ---- three train steps through the kernels: the main path ----
+    tcfg = TrainConfig(lr=2.5e-4, batch_size=TRAIN_BATCH)
+    st = create_train_state(params, state, tcfg)
+    before = {k: v.detach().clone() for k, v in st.params.items()}
+    batch = {"image": x, "heatmap": t}
+    bops.reset_launch_counts()
+    tops.reset_launch_counts()
+    losses = []
+    for _ in range(3):
+        st, m = train_step(st, batch, cfg=cfg)
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    launches = {**bops.launch_counts(), **tops.launch_counts()}
+    moved = sum(not torch.equal(before[k], v.detach())
+                for k, v in st.params.items())
+    print(f"training: 3 kernel-path steps, losses {losses}; "
+          f"{moved}/{len(before)} params changed; launches {launches}",
+          flush=True)
+    require(all(np.isfinite(losses)), f"non-finite loss {losses}")
+    require(moved > 0, "no parameter changed")
+    for name, count in launches.items():
+        require(count > 0, f"kernel {name} never launched in training")
+
+    # ---- timing: kernel path, then plain path ----
+    ms_k, mem_k = time_train(torch, st, batch, cfg)
+    st_p = create_train_state(params, state, tcfg)
+    ms_p, mem_p = time_train(torch, st_p, batch, plain_cfg)
+    for path, ms, mem in (("kernel", ms_k, mem_k), ("plain", ms_p, mem_p)):
+        print(f"training: {path} path, batch {TRAIN_BATCH}: median step "
+              f"{ms:.3f} ms, {TRAIN_BATCH / ms * 1e3:.1f} img/s, peak "
+              f"memory {mem / 2 ** 30:.2f} GiB ({gpu})", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -272,6 +700,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from cunet_tpu_torch.kernels import buf_ops as ops
     from cunet_tpu_torch.kernels import build
+    from cunet_tpu_torch.kernels import train_ops as tops
 
     # ---- phase 1: build ----
     gpu = subprocess.run(
@@ -293,6 +722,8 @@ def main() -> int:
     try:
         kernels = phase_kernels(torch, ops)
         launches = phase_serving(torch, ops, gpu)
+        train_kernels = phase_train_kernels(torch, tops, ops)
+        train_launches = phase_training(torch, tops, ops, gpu)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -300,12 +731,24 @@ def main() -> int:
         print("chip_smoke: FAILED: jax was imported", file=sys.stderr)
         return 1
 
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES[name], "launches": launches[name],
-         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-         "plain_ms": r["plain_ms"], "shape": r["shape"]}
-        for name, r in kernels.items()]}), flush=True)
+    rows = []
+    for name in list(kernels) + [k for k in train_kernels
+                                 if k not in kernels]:
+        r = kernels.get(name) or train_kernels[name]
+        row = {"name": name, "route": "cuda",
+               "source": SOURCE if name in launches else TRAIN_SOURCE,
+               "replaces": REPLACES[name],
+               "launches": launches.get(name, train_launches[name]),
+               "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+               "plain_ms": r["plain_ms"], "shape": r["shape"],
+               "train_launches": train_launches[name]}
+        if name in kernels and name in train_kernels:
+            t = train_kernels[name]
+            row.update(train_ms=t["ms"], train_plain_ms=t["plain_ms"],
+                       train_shape=t["shape"],
+                       max_abs_err=max(r["max_abs_err"], t["max_abs_err"]))
+        rows.append(row)
+    print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,15 +1,16 @@
-"""cunet_tpu_torch — the CU-Net eval forward in PyTorch, with hand-written
-CUDA kernels for an NVIDIA H100 (sm_90a).
+"""cunet_tpu_torch — CU-Net serving and training in PyTorch, with
+hand-written CUDA kernels for an NVIDIA H100 (sm_90a).
 
 A port of ``cunet_tpu`` (JAX/Pallas on a TPU), which stays in the repository
 as the reference. Module names mirror the JAX package: ``ops.layers``,
 ``ops.bottleneck``, ``models.cu_net``, ``kernels.model_buf`` (the counterpart
-of ``kernels/fused_model_buf.py``), ``evaluation.decode``, ``serving``.
+of ``kernels/fused_model_buf.py``), ``kernels.train_slot``, ``train``,
+``evaluation.decode``, ``serving``.
 The configuration dataclasses and the crop geometry are imported from
 ``cunet_tpu.config`` and ``cunet_tpu.geometry``, whose imports need no JAX;
 nothing in this package imports JAX.
 """
 
-from cunet_tpu.config import ModelConfig
+from cunet_tpu.config import ModelConfig, TrainConfig
 
-__all__ = ["ModelConfig"]
+__all__ = ["ModelConfig", "TrainConfig"]

@@ -1,10 +1,13 @@
-// Hand-written Hopper kernels for the CU-Net eval forward over channel-plane
-// buffers (cunet_tpu_torch/kernels/model_buf.py drives them).
+// Hand-written Hopper kernels of the CU-Net forward over channel-plane
+// buffers: the eval forward (cunet_tpu_torch/kernels/model_buf.py) and, with
+// per-tile ghost-BN prologues, the slot train forward and its recompute
+// (cunet_tpu_torch/kernels/train_slot.py).
 //
 // Built by nvcc into one shared library with a plain C interface and loaded
 // with ctypes (cunet_tpu_torch/kernels/build.py):
-//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-//        -Xcompiler -fPIC -o libcunet_buf.so buf_kernels.cu
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -c
+//        -Xcompiler -fPIC buf_kernels.cu   (one object per source, linked
+//   with -shared into one library)
 //
 // Every matrix operand is a strided 2-D view (row stride ``ld`` in elements,
 // unit column stride) so a kernel reads ``buf[:, :k]`` and writes
@@ -15,157 +18,22 @@
 // Each entry point launches on the stream it is given and returns
 // cudaGetLastError() so the wrapper can raise on a refused launch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
-
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+#include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;  // 8 warps per block
-constexpr int kWarps = kThreads / 32;
-constexpr int BM = 128;        // output rows per block
-constexpr int BK = 32;         // reduction depth per shared-memory stage
-constexpr int kPad = 8;        // bf16 row padding of the smem tiles
-
-// Output view: row m of an (M, N) result lands at
-//   ptr + (m / rows_per_img) * img_stride + (m % rows_per_img) * ld.
-// A plain 2-D view has rows_per_img == M; the head writes one slot of the
-// (N, A, h, w, cls) output, whose images are img_stride apart.
-struct OutView {
-  bf16* ptr;
-  long long ld;
-  long long rows_per_img;
-  long long img_stride;
-};
-
-__device__ __forceinline__ bf16* out_row(const OutView& o, long long m) {
-  const long long img = m / o.rows_per_img;
-  return o.ptr + img * o.img_stride + (m - img * o.rows_per_img) * o.ld;
-}
-
-// Eight bf16 values as one 16-byte vector (raw bits, so the union stays
-// trivially constructible).
-union Pack8 {
-  uint4 v;
-  unsigned short u[8];
-};
-
-__device__ __forceinline__ float lo(const Pack8& p, int t) {
-  return __bfloat162float(__ushort_as_bfloat16(p.u[t]));
-}
-
-__device__ __forceinline__ unsigned short hi(float f) {
-  return __bfloat16_as_ushort(__float2bfloat16(f));
-}
-
-// Tile shapes shared by the two GEMM kernels: BM x BN per block, the 8 warps
-// laid out WARPS_M x WARPS_N, each warp owning FM x FN 16x16 fragments.
-template <int BN, int WARPS_N>
-struct Tiles {
-  static constexpr int WARPS_M = kWarps / WARPS_N;
-  static constexpr int WM = BM / WARPS_M;
-  static constexpr int WN = BN / WARPS_N;
-  static constexpr int FM = WM / 16;
-  static constexpr int FN = WN / 16;
-  static_assert(FM >= 1 && FN >= 1, "tile too small for 16x16 fragments");
-};
-
-template <int BN, int WARPS_N>
-struct Smem {
-  __align__(128) bf16 a[BM][BK + kPad];
-  __align__(128) bf16 b[BK][BN + kPad];
-  __align__(128) float stage[kWarps][16 * 16];
-};
-
-// One BK-deep step of the block's tile product from shared memory.
-template <int BN, int WARPS_N>
-__device__ __forceinline__ void mma_stage(
-    Smem<BN, WARPS_N>& s, int wm, int wn,
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> (
-        &acc)[Tiles<BN, WARPS_N>::FM][Tiles<BN, WARPS_N>::FN]) {
-  using T = Tiles<BN, WARPS_N>;
-#pragma unroll
-  for (int kk = 0; kk < BK; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[T::FM];
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[T::FN];
-#pragma unroll
-    for (int i = 0; i < T::FM; ++i)
-      wmma::load_matrix_sync(fa[i], &s.a[wm * T::WM + i * 16][kk], BK + kPad);
-#pragma unroll
-    for (int j = 0; j < T::FN; ++j)
-      wmma::load_matrix_sync(fb[j], &s.b[kk][wn * T::WN + j * 16], BN + kPad);
-#pragma unroll
-    for (int i = 0; i < T::FM; ++i)
-#pragma unroll
-      for (int j = 0; j < T::FN; ++j)
-        wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-  }
-}
-
-// Rows [k0, k0+BK) x cols [n0, n0+BN) of a row-major (K, N) bf16 weight into
-// shared memory; zero outside the matrix.
-template <int BN, int WARPS_N>
-__device__ __forceinline__ void load_b(Smem<BN, WARPS_N>& s,
-                                       const bf16* __restrict__ w, int ldw,
-                                       int k0, int K, int n0, int N) {
-  for (int c = threadIdx.x; c < BK * BN / 8; c += kThreads) {
-    const int r = c / (BN / 8), nc = (c % (BN / 8)) * 8;
-    const int k = k0 + r, n = n0 + nc;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (k < K && n < N)
-      v = *reinterpret_cast<const uint4*>(w + (long long)k * ldw + n);
-    *reinterpret_cast<uint4*>(&s.b[r][nc]) = v;
-  }
-}
-
-// Accumulators -> bf16 output rows, through a per-warp 16x16 f32 stage.
-// With BIAS_RELU the epilogue is relu(acc + bias[n]) (the folded BN2).
-template <int BN, int WARPS_N, bool BIAS_RELU>
-__device__ __forceinline__ void store_tile(
-    Smem<BN, WARPS_N>& s, int wm, int wn, long long m0, int n0, long long M,
-    int N, const float* __restrict__ bias, const OutView& out,
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> (
-        &acc)[Tiles<BN, WARPS_N>::FM][Tiles<BN, WARPS_N>::FN]) {
-  using T = Tiles<BN, WARPS_N>;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* st = s.stage[warp];
-  const int r = lane / 2, cc = (lane % 2) * 8;
-#pragma unroll
-  for (int i = 0; i < T::FM; ++i) {
-#pragma unroll
-    for (int j = 0; j < T::FN; ++j) {
-      wmma::store_matrix_sync(st, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const long long m = m0 + wm * T::WM + i * 16 + r;
-      const int n = n0 + wn * T::WN + j * 16 + cc;
-      if (m < M && n < N) {
-        Pack8 o;
-#pragma unroll
-        for (int t = 0; t < 8; ++t) {
-          float v = st[r * 16 + cc + t];
-          if (BIAS_RELU) v = fmaxf(v + bias[n + t], 0.f);
-          o.u[t] = hi(v);
-        }
-        *reinterpret_cast<uint4*>(out_row(out, m) + n) = o.v;
-      }
-      __syncwarp();
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
 // K1 affine_dot:
-//   out[m, n] = epi( sum_{k<K} bf16(relu(x[m,k]*inv[k] + shift[k])) * W[k,n] )
+//   out[m, n] = epi( sum_{k<K} bf16(relu(x[m,k]*inv[t,k] + shift[t,k])) W[k,n] )
+// with t = m / tile_rows the ghost-BN tile of row m (train) or 0 (eval:
+// tile_rows = M, one [inv; shift] pair).
 // ---------------------------------------------------------------------------
 template <int BN, int WARPS_N, bool BIAS_RELU>
 __global__ void __launch_bounds__(kThreads)
     affine_dot_kernel(const bf16* __restrict__ x, long long ldx, long long M,
                       int K, const float* __restrict__ inv,
-                      const float* __restrict__ shift,
+                      const float* __restrict__ shift, long long vstride,
+                      long long tile_rows,
                       const bf16* __restrict__ w, int ldw, int N,
                       const float* __restrict__ bias, OutView out) {
   using T = Tiles<BN, WARPS_N>;
@@ -192,9 +60,10 @@ __global__ void __launch_bounds__(kThreads)
       if (m < M && k < K) {
         Pack8 in;
         in.v = *reinterpret_cast<const uint4*>(x + m * ldx + k);
+        const long long vo = (m / tile_rows) * vstride + k;
 #pragma unroll
         for (int t = 0; t < 8; ++t) {
-          const float f = lo(in, t) * inv[k + t] + shift[k + t];
+          const float f = affine(lo(in, t), inv[vo + t], shift[vo + t]);
           o.u[t] = hi(fmaxf(f, 0.f));
         }
       }
@@ -211,12 +80,18 @@ __global__ void __launch_bounds__(kThreads)
 // ---------------------------------------------------------------------------
 // K2 conv3x3: SAME 3x3 conv of (B*H*W, C) rows as an implicit GEMM of depth
 // 9*C against the HWIO weight viewed as (9*C, G). Zero padding is per image.
+// With PRO, each in-image input vector first goes through the ghost-BN
+// prologue relu(y*inv[t] + shift[t]) in f32 and is rounded to bf16 (t is the
+// tile of the source row, which is the tile of the output row: a tile holds
+// whole images); the padding stays zero.
 // ---------------------------------------------------------------------------
-template <int BN, int WARPS_N>
+template <int BN, int WARPS_N, bool PRO>
 __global__ void __launch_bounds__(kThreads)
     conv3x3_kernel(const bf16* __restrict__ y, long long ldy, long long M,
                    int H, int W, int C, const bf16* __restrict__ w, int G,
-                   OutView out) {
+                   const float* __restrict__ inv,
+                   const float* __restrict__ shift, long long vstride,
+                   long long tile_rows, OutView out) {
   using T = Tiles<BN, WARPS_N>;
   __shared__ Smem<BN, WARPS_N> s;
   const int warp = threadIdx.x / 32;
@@ -242,9 +117,20 @@ __global__ void __launch_bounds__(kThreads)
           const long long img = m / hw;
           const int p = (int)(m - img * hw);
           const int yy = p / W + dy, xx = p % W + dx;
-          if (yy >= 0 && yy < H && xx >= 0 && xx < W)
-            v = *reinterpret_cast<const uint4*>(
-                y + (img * hw + (long long)yy * W + xx) * ldy + c0 + kc);
+          if (yy >= 0 && yy < H && xx >= 0 && xx < W) {
+            const long long src = img * hw + (long long)yy * W + xx;
+            v = *reinterpret_cast<const uint4*>(y + src * ldy + c0 + kc);
+            if (PRO) {
+              Pack8 in, o;
+              in.v = v;
+              const long long vo = (src / tile_rows) * vstride + c0 + kc;
+#pragma unroll
+              for (int t = 0; t < 8; ++t)
+                o.u[t] = hi(
+                    fmaxf(affine(lo(in, t), inv[vo + t], shift[vo + t]), 0.f));
+              v = o.v;
+            }
+          }
         }
         *reinterpret_cast<uint4*>(&s.a[r][kc]) = v;
       }
@@ -320,27 +206,39 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+struct VecArgs {
+  const float* inv;
+  const float* shift;
+  long long vstride;
+  long long tile_rows;
+};
+
 template <int BN, int WARPS_N>
 void launch_affine_dot(const bf16* x, long long ldx, long long M, int K,
-                       const float* inv, const float* shift, const bf16* w,
-                       int ldw, int N, const float* bias, OutView out,
-                       cudaStream_t stream) {
+                       VecArgs v, const bf16* w, int ldw, int N,
+                       const float* bias, OutView out, cudaStream_t stream) {
   const dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((N + BN - 1) / BN));
   if (bias)
     affine_dot_kernel<BN, WARPS_N, true><<<grid, kThreads, 0, stream>>>(
-        x, ldx, M, K, inv, shift, w, ldw, N, bias, out);
+        x, ldx, M, K, v.inv, v.shift, v.vstride, v.tile_rows, w, ldw, N, bias,
+        out);
   else
     affine_dot_kernel<BN, WARPS_N, false><<<grid, kThreads, 0, stream>>>(
-        x, ldx, M, K, inv, shift, w, ldw, N, bias, out);
+        x, ldx, M, K, v.inv, v.shift, v.vstride, v.tile_rows, w, ldw, N, bias,
+        out);
 }
 
 template <int BN, int WARPS_N>
 void launch_conv3x3(const bf16* y, long long ldy, long long M, int H, int W,
-                    int C, const bf16* w, int G, OutView out,
+                    int C, const bf16* w, int G, VecArgs v, OutView out,
                     cudaStream_t stream) {
   const dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((G + BN - 1) / BN));
-  conv3x3_kernel<BN, WARPS_N><<<grid, kThreads, 0, stream>>>(y, ldy, M, H, W,
-                                                             C, w, G, out);
+  if (v.inv)
+    conv3x3_kernel<BN, WARPS_N, true><<<grid, kThreads, 0, stream>>>(
+        y, ldy, M, H, W, C, w, G, v.inv, v.shift, v.vstride, v.tile_rows, out);
+  else
+    conv3x3_kernel<BN, WARPS_N, false><<<grid, kThreads, 0, stream>>>(
+        y, ldy, M, H, W, C, w, G, v.inv, v.shift, v.vstride, v.tile_rows, out);
 }
 
 unsigned elementwise_blocks(long long total) {
@@ -354,43 +252,47 @@ unsigned elementwise_blocks(long long total) {
 extern "C" {
 
 int cunet_affine_dot(const void* x, long long ldx, long long M, int K,
-                     const void* inv, const void* shift, const void* w,
-                     int ldw, int N, const void* bias, void* out,
-                     long long ldo, long long rows_per_img,
-                     long long img_stride, void* stream) {
+                     const void* inv, const void* shift, long long vstride,
+                     long long tile_rows, const void* w, int ldw, int N,
+                     const void* bias, void* out, long long ldo,
+                     long long rows_per_img, long long img_stride,
+                     void* stream) {
   const OutView ov{static_cast<bf16*>(out), ldo, rows_per_img, img_stride};
+  const VecArgs v{static_cast<const float*>(inv),
+                  static_cast<const float*>(shift), vstride, tile_rows};
   const auto* xp = static_cast<const bf16*>(x);
   const auto* wp = static_cast<const bf16*>(w);
-  const auto* ip = static_cast<const float*>(inv);
-  const auto* sp = static_cast<const float*>(shift);
   const auto* bp = static_cast<const float*>(bias);
   const auto st = static_cast<cudaStream_t>(stream);
   if (N <= 16)
-    launch_affine_dot<16, 1>(xp, ldx, M, K, ip, sp, wp, ldw, N, bp, ov, st);
+    launch_affine_dot<16, 1>(xp, ldx, M, K, v, wp, ldw, N, bp, ov, st);
   else if (N <= 32)
-    launch_affine_dot<32, 2>(xp, ldx, M, K, ip, sp, wp, ldw, N, bp, ov, st);
+    launch_affine_dot<32, 2>(xp, ldx, M, K, v, wp, ldw, N, bp, ov, st);
   else if (N <= 64)
-    launch_affine_dot<64, 2>(xp, ldx, M, K, ip, sp, wp, ldw, N, bp, ov, st);
+    launch_affine_dot<64, 2>(xp, ldx, M, K, v, wp, ldw, N, bp, ov, st);
   else
-    launch_affine_dot<128, 2>(xp, ldx, M, K, ip, sp, wp, ldw, N, bp, ov, st);
+    launch_affine_dot<128, 2>(xp, ldx, M, K, v, wp, ldw, N, bp, ov, st);
   return (int)cudaGetLastError();
 }
 
 int cunet_conv3x3(const void* y, long long ldy, long long M, int H, int W,
-                  int C, const void* w, int G, void* out, long long ldo,
-                  void* stream) {
+                  int C, const void* w, int G, const void* inv,
+                  const void* shift, long long vstride, long long tile_rows,
+                  void* out, long long ldo, void* stream) {
   const OutView ov{static_cast<bf16*>(out), ldo, M, 0};
+  const VecArgs v{static_cast<const float*>(inv),
+                  static_cast<const float*>(shift), vstride, tile_rows};
   const auto* yp = static_cast<const bf16*>(y);
   const auto* wp = static_cast<const bf16*>(w);
   const auto st = static_cast<cudaStream_t>(stream);
   if (G <= 16)
-    launch_conv3x3<16, 1>(yp, ldy, M, H, W, C, wp, G, ov, st);
+    launch_conv3x3<16, 1>(yp, ldy, M, H, W, C, wp, G, v, ov, st);
   else if (G <= 32)
-    launch_conv3x3<32, 2>(yp, ldy, M, H, W, C, wp, G, ov, st);
+    launch_conv3x3<32, 2>(yp, ldy, M, H, W, C, wp, G, v, ov, st);
   else if (G <= 64)
-    launch_conv3x3<64, 2>(yp, ldy, M, H, W, C, wp, G, ov, st);
+    launch_conv3x3<64, 2>(yp, ldy, M, H, W, C, wp, G, v, ov, st);
   else
-    launch_conv3x3<128, 2>(yp, ldy, M, H, W, C, wp, G, ov, st);
+    launch_conv3x3<128, 2>(yp, ldy, M, H, W, C, wp, G, v, ov, st);
   return (int)cudaGetLastError();
 }
 
@@ -412,10 +314,6 @@ int cunet_upsample2(const void* x, long long ldx, void* out, long long ldo,
       static_cast<const bf16*>(x), ldx, static_cast<bf16*>(out), ldo, B, H, W,
       C);
   return (int)cudaGetLastError();
-}
-
-const char* cunet_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
 }  // extern "C"

@@ -1,0 +1,674 @@
+// Hand-written Hopper kernels of the CU-Net slot TRAIN step: the ghost-BN
+// statistics of the forward and every kernel of the recompute backward
+// (cunet_tpu_torch/kernels/train_ops.py wraps them, kernels/train_slot.py
+// drives them). They replace the in-kernel jnp pieces of the TPU kernels
+// cunet_tpu/kernels/train_slot.py::slot_train_fwd / slot_train_bwd:
+//   bn_stats      <- _stats                   (per-tile mean, biased var)
+//   dx (1x1/3x3)  <- _dot_dx + relu mask of _affine_bwd, and the d_z2 half
+//                    of _conv3x3_bwd (transposed 3x3, flipped taps)
+//   dw (1x1/3x3)  <- _dot_dw, and the dW3 half of _conv3x3_bwd
+//   bn_bwd        <- the BN-jacobian of _affine_bwd (two sums per tile)
+//   maxpool2_bwd  <- _pool_bwd (first-winner routing)
+//   upsample2_bwd <- _upsample_bwd (2x2 sum)
+//   sum_rows      <- the f32 accumulation across TPU grid steps (_mk_acc)
+//
+// On a TPU the grid walks the batch tiles in order and carries weight-grad
+// sums in VMEM from one step to the next. Here blocks run in no order, so
+// every reduction over rows (BN sums, dW) is written as per-block f32
+// partials and summed by a second pass in a fixed order: two identical
+// steps give bit-identical gradients (no float atomics anywhere).
+//
+// Operands are strided 2-D views (row stride in elements, unit column
+// stride, 16-byte aligned, widths multiples of 8), as in buf_kernels.cu.
+// Each entry point launches on the stream it is given and returns
+// cudaGetLastError().
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kStatRows = 32;   // row stripes of a per-tile reduction block
+constexpr int kStatCols = 64;   // channels of a per-tile reduction block
+
+__device__ __forceinline__ void load8f(const float* p, float (&v)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+__device__ __forceinline__ void store8f(float* p, const float (&v)[8]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+// ---------------------------------------------------------------------------
+// F1 bn_stats: out[t, 0, k] = mean, out[t, 1, k] = biased variance of
+// x[t*tile_rows : (t+1)*tile_rows, k], two passes (mean, then centred
+// squares) as _stats computes them. Grid (T, ceil(K/64)); a block's 256
+// threads are 8 channel vectors x 32 row stripes, reduced in a fixed order.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads)
+    bn_stats_kernel(const bf16* __restrict__ x, long long ldx,
+                    long long tile_rows, int K, float* __restrict__ out) {
+  __shared__ float red[kStatRows][kStatCols];
+  __shared__ float mean_s[kStatCols];
+  const int t = blockIdx.x;
+  const int cv = threadIdx.x % 8, rs = threadIdx.x / 8;
+  const int k = blockIdx.y * kStatCols + cv * 8;
+  const bool on = k < K;
+  const bf16* base = x + (long long)t * tile_rows * ldx + k;
+
+  float acc[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc[i] = 0.f;
+  if (on)
+    for (long long r = rs; r < tile_rows; r += kStatRows) {
+      Pack8 p;
+      p.v = *reinterpret_cast<const uint4*>(base + r * ldx);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc[i] += lo(p, i);
+    }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) red[rs][cv * 8 + i] = acc[i];
+  __syncthreads();
+  if (threadIdx.x < kStatCols) {
+    float s = 0.f;
+    for (int i = 0; i < kStatRows; ++i) s += red[i][threadIdx.x];
+    mean_s[threadIdx.x] = s / (float)tile_rows;
+  }
+  __syncthreads();
+
+  float mu[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    mu[i] = mean_s[cv * 8 + i];
+    acc[i] = 0.f;
+  }
+  if (on)
+    for (long long r = rs; r < tile_rows; r += kStatRows) {
+      Pack8 p;
+      p.v = *reinterpret_cast<const uint4*>(base + r * ldx);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float d = lo(p, i) - mu[i];
+        acc[i] += d * d;
+      }
+    }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) red[rs][cv * 8 + i] = acc[i];
+  __syncthreads();
+  if (threadIdx.x < kStatCols) {
+    const int kk = blockIdx.y * kStatCols + threadIdx.x;
+    float s = 0.f;
+    for (int i = 0; i < kStatRows; ++i) s += red[i][threadIdx.x];
+    if (kk < K) {
+      out[((long long)t * 2) * K + kk] = mean_s[threadIdx.x];
+      out[((long long)t * 2 + 1) * K + kk] = s / (float)tile_rows;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// B2 bn_bwd: backward of a = x*ig + shift through ghost-BN statistics, per
+// tile t (m = tile_rows rows, xh = (x - mu) * rstd, ig = rstd * gamma):
+//   sg = sum d_a*xh, sb = sum d_a            (written to part[t] = [sg; sb])
+//   d_x (+)= ig * (d_a - sb/m - xh * sg/m)
+// Same block shape as bn_stats; the second pass re-reads the tile.
+// ---------------------------------------------------------------------------
+template <bool ACC>
+__global__ void __launch_bounds__(kThreads)
+    bn_bwd_kernel(const bf16* __restrict__ x, long long ldx,
+                  const float* __restrict__ da, long long ldd,
+                  long long tile_rows, int K, const float* __restrict__ stats,
+                  const float* __restrict__ gamma, float eps,
+                  float* __restrict__ dx, long long lddx,
+                  float* __restrict__ part) {
+  __shared__ float red[2][kStatRows][kStatCols];
+  __shared__ float sg_s[kStatCols], sb_s[kStatCols];
+  const int t = blockIdx.x;
+  const int cv = threadIdx.x % 8, rs = threadIdx.x / 8;
+  const int k = blockIdx.y * kStatCols + cv * 8;
+  const bool on = k < K;
+  const long long r0 = (long long)t * tile_rows;
+
+  float mu[8], rstd[8], sg[8], sb[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    mu[i] = on ? stats[((long long)t * 2) * K + k + i] : 0.f;
+    rstd[i] = on ? rsqrtf(stats[((long long)t * 2 + 1) * K + k + i] + eps)
+                 : 0.f;
+    sg[i] = 0.f;
+    sb[i] = 0.f;
+  }
+  if (on)
+    for (long long r = r0 + rs; r < r0 + tile_rows; r += kStatRows) {
+      Pack8 p;
+      p.v = *reinterpret_cast<const uint4*>(x + r * ldx + k);
+      float d[8];
+      load8f(da + r * ldd + k, d);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        sg[i] += d[i] * ((lo(p, i) - mu[i]) * rstd[i]);
+        sb[i] += d[i];
+      }
+    }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    red[0][rs][cv * 8 + i] = sg[i];
+    red[1][rs][cv * 8 + i] = sb[i];
+  }
+  __syncthreads();
+  if (threadIdx.x < kStatCols) {
+    const int kk = blockIdx.y * kStatCols + threadIdx.x;
+    float a = 0.f, b = 0.f;
+    for (int i = 0; i < kStatRows; ++i) {
+      a += red[0][i][threadIdx.x];
+      b += red[1][i][threadIdx.x];
+    }
+    sg_s[threadIdx.x] = a;
+    sb_s[threadIdx.x] = b;
+    if (kk < K) {
+      part[((long long)t * 2) * K + kk] = a;
+      part[((long long)t * 2 + 1) * K + kk] = b;
+    }
+  }
+  __syncthreads();
+  if (!on) return;
+  const float inv_m = 1.f / (float)tile_rows;
+  float ig[8], mb[8], mg[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    ig[i] = rstd[i] * gamma[k + i];
+    mb[i] = sb_s[cv * 8 + i] * inv_m;
+    mg[i] = sg_s[cv * 8 + i] * inv_m;
+  }
+  for (long long r = r0 + rs; r < r0 + tile_rows; r += kStatRows) {
+    Pack8 p;
+    p.v = *reinterpret_cast<const uint4*>(x + r * ldx + k);
+    float d[8], o[8];
+    load8f(da + r * ldd + k, d);
+    if (ACC) load8f(dx + r * lddx + k, o);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float xh = (lo(p, i) - mu[i]) * rstd[i];
+      const float v = ig[i] * (d[i] - mb[i] - xh * mg[i]);
+      o[i] = ACC ? o[i] + v : v;
+    }
+    store8f(dx + r * lddx + k, o);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// B1 / B4 dx: the activation-gradient GEMM of a stage, masked by its ReLU.
+//   out[m, k] = [x[m,k]*inv[t,k] + shift[t,k] > 0] *
+//               sum_tap sum_n dY[src(m, tap), n] * Wt[tap*K + k, n]
+// taps == 1: a 1x1 stage (src = m, Wt = the (K, N) weight, read transposed).
+// taps == 9: the transposed 3x3 conv, src = the pixel at minus the tap's
+// offset in the same image (zero outside it), Wt = the packed (9*K, N)
+// weight. The ReLU mask is recomputed from the stage input x with the
+// forward's f32 prologue, so d_a never needs the forward's activations.
+// ---------------------------------------------------------------------------
+template <int BN, int WARPS_N>
+__global__ void __launch_bounds__(kThreads)
+    dx_kernel(const bf16* __restrict__ dy, long long ldd, long long M, int N,
+              int H, int W, int taps, const bf16* __restrict__ w, int ldw,
+              int K, const bf16* __restrict__ x, long long ldx,
+              const float* __restrict__ inv, const float* __restrict__ shift,
+              long long vstride, long long tile_rows, float* __restrict__ out,
+              long long ldo) {
+  using T = Tiles<BN, WARPS_N>;
+  __shared__ Smem<BN, WARPS_N> s;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
+  const long long m0 = (long long)blockIdx.x * BM;
+  const int k0 = blockIdx.y * BN;
+  const long long hw = (long long)H * W;
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[T::FM][T::FN];
+#pragma unroll
+  for (int i = 0; i < T::FM; ++i)
+#pragma unroll
+    for (int j = 0; j < T::FN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+
+  for (int tap = 0; tap < taps; ++tap) {
+    const int dyo = taps == 1 ? 0 : tap / 3 - 1;
+    const int dxo = taps == 1 ? 0 : tap % 3 - 1;
+    for (int n0 = 0; n0 < N; n0 += BK) {
+      for (int c = threadIdx.x; c < BM * BK / 8; c += kThreads) {
+        const int r = c / (BK / 8), nc = (c % (BK / 8)) * 8;
+        const long long m = m0 + r;
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (m < M && n0 + nc < N) {
+          long long src = m;
+          bool ok = true;
+          if (taps != 1) {
+            const long long img = m / hw;
+            const int p = (int)(m - img * hw);
+            const int yy = p / W - dyo, xx = p % W - dxo;
+            ok = yy >= 0 && yy < H && xx >= 0 && xx < W;
+            src = img * hw + (long long)yy * W + xx;
+          }
+          if (ok)
+            v = *reinterpret_cast<const uint4*>(dy + src * ldd + n0 + nc);
+        }
+        *reinterpret_cast<uint4*>(&s.a[r][nc]) = v;
+      }
+      // B[kk][col] = Wt[tap*K + k0 + col, n0 + kk]: 8 consecutive n of one
+      // weight row per thread, scattered down a shared-memory column
+      for (int c = threadIdx.x; c < BN * BK / 8; c += kThreads) {
+        const int col = c / (BK / 8), kc = (c % (BK / 8)) * 8;
+        const int k = k0 + col, n = n0 + kc;
+        Pack8 p;
+        p.v = make_uint4(0u, 0u, 0u, 0u);
+        if (k < K && n < N)
+          p.v = *reinterpret_cast<const uint4*>(
+              w + ((long long)tap * K + k) * ldw + n);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) s.b[kc + i][col] = __ushort_as_bfloat16(p.u[i]);
+      }
+      __syncthreads();
+      mma_stage(s, wm, wn, acc);
+      __syncthreads();
+    }
+  }
+
+  float* st = s.stage[warp];
+  const int r = lane / 2, cc = (lane % 2) * 8;
+#pragma unroll
+  for (int i = 0; i < T::FM; ++i) {
+#pragma unroll
+    for (int j = 0; j < T::FN; ++j) {
+      wmma::store_matrix_sync(st, acc[i][j], 16, wmma::mem_row_major);
+      __syncwarp();
+      const long long m = m0 + wm * T::WM + i * 16 + r;
+      const int k = k0 + wn * T::WN + j * 16 + cc;
+      if (m < M && k < K) {
+        Pack8 xv;
+        xv.v = *reinterpret_cast<const uint4*>(x + m * ldx + k);
+        const long long vo = (m / tile_rows) * vstride + k;
+        float o[8];
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const float z = affine(lo(xv, q), inv[vo + q], shift[vo + q]);
+          o[q] = z > 0.f ? st[r * 16 + cc + q] : 0.f;
+        }
+        store8f(out + m * ldo + k, o);
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// B3 / B5 dw: the weight-gradient GEMM of a stage, one row chunk per block.
+//   part[s, tap*K + k, n] = sum_{m in chunk s} z[src(m, tap), k] * dY[m, n]
+// with z = bf16(relu(x*inv[t] + shift[t])) recomputed in the prologue (the
+// forward's activation), src = m (taps == 1) or the pixel at plus the
+// tap's offset (taps == 9, zero outside the image). The z tile is staged
+// row-major in shared memory and read as a column-major WMMA A operand
+// (z^T). sum_rows adds the chunks in order.
+// ---------------------------------------------------------------------------
+template <int BN, int WARPS_N>
+struct SmemT {
+  __align__(128) bf16 a[BK][BM + kPad];
+  __align__(128) bf16 b[BK][BN + kPad];
+  __align__(128) float stage[kWarps][16 * 16];
+};
+
+template <int BN, int WARPS_N>
+__global__ void __launch_bounds__(kThreads)
+    dw_kernel(const bf16* __restrict__ x, long long ldx, long long M, int K,
+              int H, int W, int taps, const float* __restrict__ inv,
+              const float* __restrict__ shift, long long vstride,
+              long long tile_rows, const bf16* __restrict__ dy, long long ldd,
+              int N, long long chunk, float* __restrict__ part) {
+  using T = Tiles<BN, WARPS_N>;
+  __shared__ SmemT<BN, WARPS_N> s;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
+  const int ktiles = (K + BM - 1) / BM;
+  const int tap = blockIdx.x / ktiles;
+  const int k0 = (blockIdx.x % ktiles) * BM;
+  const int n0 = blockIdx.y * BN;
+  const long long rb = (long long)blockIdx.z * chunk;
+  const long long re = rb + chunk < M ? rb + chunk : M;
+  const int dyo = taps == 1 ? 0 : tap / 3 - 1;
+  const int dxo = taps == 1 ? 0 : tap % 3 - 1;
+  const long long hw = (long long)H * W;
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[T::FM][T::FN];
+#pragma unroll
+  for (int i = 0; i < T::FM; ++i)
+#pragma unroll
+    for (int j = 0; j < T::FN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+
+  for (long long mb = rb; mb < re; mb += BK) {
+    for (int c = threadIdx.x; c < BK * BM / 8; c += kThreads) {
+      const int r = c / (BM / 8), kc = (c % (BM / 8)) * 8;
+      const long long m = mb + r;
+      Pack8 o;
+      o.v = make_uint4(0u, 0u, 0u, 0u);
+      if (m < re && k0 + kc < K) {
+        long long src = m;
+        bool ok = true;
+        if (taps != 1) {
+          const long long img = m / hw;
+          const int p = (int)(m - img * hw);
+          const int yy = p / W + dyo, xx = p % W + dxo;
+          ok = yy >= 0 && yy < H && xx >= 0 && xx < W;
+          src = img * hw + (long long)yy * W + xx;
+        }
+        if (ok) {
+          Pack8 in;
+          in.v = *reinterpret_cast<const uint4*>(x + src * ldx + k0 + kc);
+          const long long vo = (src / tile_rows) * vstride + k0 + kc;
+#pragma unroll
+          for (int q = 0; q < 8; ++q)
+            o.u[q] = hi(
+                fmaxf(affine(lo(in, q), inv[vo + q], shift[vo + q]), 0.f));
+        }
+      }
+      *reinterpret_cast<uint4*>(&s.a[r][kc]) = o.v;
+    }
+    for (int c = threadIdx.x; c < BK * BN / 8; c += kThreads) {
+      const int r = c / (BN / 8), nc = (c % (BN / 8)) * 8;
+      const long long m = mb + r;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (m < re && n0 + nc < N)
+        v = *reinterpret_cast<const uint4*>(dy + m * ldd + n0 + nc);
+      *reinterpret_cast<uint4*>(&s.b[r][nc]) = v;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>
+          fa[T::FM];
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
+          fb[T::FN];
+#pragma unroll
+      for (int i = 0; i < T::FM; ++i)
+        wmma::load_matrix_sync(fa[i], &s.a[kk][wm * T::WM + i * 16],
+                               BM + kPad);
+#pragma unroll
+      for (int j = 0; j < T::FN; ++j)
+        wmma::load_matrix_sync(fb[j], &s.b[kk][wn * T::WN + j * 16],
+                               BN + kPad);
+#pragma unroll
+      for (int i = 0; i < T::FM; ++i)
+#pragma unroll
+        for (int j = 0; j < T::FN; ++j)
+          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+  float* base = part + (long long)blockIdx.z * taps * K * N;
+  float* st = s.stage[warp];
+  const int r = lane / 2, cc = (lane % 2) * 8;
+#pragma unroll
+  for (int i = 0; i < T::FM; ++i) {
+#pragma unroll
+    for (int j = 0; j < T::FN; ++j) {
+      wmma::store_matrix_sync(st, acc[i][j], 16, wmma::mem_row_major);
+      __syncwarp();
+      const int k = k0 + wm * T::WM + i * 16 + r;
+      const int n = n0 + wn * T::WN + j * 16 + cc;
+      if (k < K && n < N) {
+        float o[8];
+#pragma unroll
+        for (int q = 0; q < 8; ++q) o[q] = st[r * 16 + cc + q];
+        store8f(base + ((long long)tap * K + k) * N + n, o);
+      }
+      __syncwarp();
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// sum_rows: out[r] = sum_s in[s, r], s in order (the second pass of every
+// row reduction above).
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads)
+    sum_rows_kernel(const float* __restrict__ in, int S, long long R,
+                    float* __restrict__ out) {
+  for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x; r < R;
+       r += (long long)gridDim.x * blockDim.x) {
+    float a = 0.f;
+    for (int s = 0; s < S; ++s) a += in[(long long)s * R + r];
+    out[r] = a;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// B6 maxpool2_bwd: each pooled cotangent goes to the first (row-major)
+// element of its 2x2 window equal to the window max of the recomputed
+// ahead; the other three get zero. B7 upsample2_bwd: each low-resolution
+// cotangent is the f32 sum of its 2x2 replicas. One thread per 8 channels.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads)
+    maxpool2_bwd_kernel(const bf16* __restrict__ a, long long lda,
+                        const float* __restrict__ dp, long long ldp,
+                        bf16* __restrict__ o, long long ldo, int B, int H,
+                        int W, int C) {
+  const int cg = C / 8, Ho = H / 2, Wo = W / 2;
+  const long long total = (long long)B * Ho * Wo * cg;
+  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       idx < total; idx += (long long)gridDim.x * blockDim.x) {
+    const int c = (int)(idx % cg) * 8;
+    long long q = idx / cg;
+    const int ox = (int)(q % Wo);
+    q /= Wo;
+    const int oy = (int)(q % Ho);
+    const long long b = q / Ho;
+    const long long r00 = (b * H + 2 * oy) * W + 2 * ox;
+    const long long rows[4] = {r00, r00 + 1, r00 + W, r00 + W + 1};
+    Pack8 v[4], out[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      v[u].v = *reinterpret_cast<const uint4*>(a + rows[u] * lda + c);
+    float d[8];
+    load8f(dp + ((b * Ho + oy) * Wo + ox) * ldp + c, d);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float mx = fmaxf(fmaxf(lo(v[0], i), lo(v[1], i)),
+                             fmaxf(lo(v[2], i), lo(v[3], i)));
+      bool taken = false;
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const bool win = !taken && lo(v[u], i) == mx;
+        taken = taken || win;
+        out[u].u[i] = hi(win ? d[i] : 0.f);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      *reinterpret_cast<uint4*>(o + rows[u] * ldo + c) = out[u].v;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    upsample2_bwd_kernel(const float* __restrict__ d, long long ldd,
+                         bf16* __restrict__ o, long long ldo, int B, int H,
+                         int W, int C) {
+  const int cg = C / 8, Wh = 2 * W;
+  const long long total = (long long)B * H * W * cg;
+  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       idx < total; idx += (long long)gridDim.x * blockDim.x) {
+    const int c = (int)(idx % cg) * 8;
+    long long q = idx / cg;
+    const int ix = (int)(q % W);
+    q /= W;
+    const int iy = (int)(q % H);
+    const long long b = q / H;
+    const long long r0 = (b * 2 * H + 2 * iy) * Wh + 2 * ix;
+    float s[8], t[8];
+    load8f(d + r0 * ldd + c, s);
+    load8f(d + (r0 + 1) * ldd + c, t);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) s[i] += t[i];
+    load8f(d + (r0 + Wh) * ldd + c, t);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) s[i] += t[i];
+    load8f(d + (r0 + Wh + 1) * ldd + c, t);
+    Pack8 out;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) out.u[i] = hi(s[i] + t[i]);
+    *reinterpret_cast<uint4*>(o + ((b * H + iy) * W + ix) * ldo + c) = out.v;
+  }
+}
+
+unsigned grid_blocks(long long total) {
+  const long long blocks = (total + kThreads - 1) / kThreads;
+  return (unsigned)(blocks < (1LL << 20) ? (blocks > 0 ? blocks : 1)
+                                         : (1LL << 20));
+}
+
+struct VecArgs {
+  const float* inv;
+  const float* shift;
+  long long vstride;
+  long long tile_rows;
+};
+
+template <int BN, int WARPS_N>
+void launch_dx(const bf16* dy, long long ldd, long long M, int N, int H, int W,
+               int taps, const bf16* w, int ldw, int K, const bf16* x,
+               long long ldx, VecArgs v, float* out, long long ldo,
+               cudaStream_t st) {
+  const dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((K + BN - 1) / BN));
+  dx_kernel<BN, WARPS_N><<<grid, kThreads, 0, st>>>(
+      dy, ldd, M, N, H, W, taps, w, ldw, K, x, ldx, v.inv, v.shift, v.vstride,
+      v.tile_rows, out, ldo);
+}
+
+template <int BN, int WARPS_N>
+void launch_dw(const bf16* x, long long ldx, long long M, int K, int H, int W,
+               int taps, VecArgs v, const bf16* dy, long long ldd, int N,
+               long long chunk, float* part, cudaStream_t st) {
+  const dim3 grid((unsigned)(taps * ((K + BM - 1) / BM)),
+                  (unsigned)((N + BN - 1) / BN),
+                  (unsigned)((M + chunk - 1) / chunk));
+  dw_kernel<BN, WARPS_N><<<grid, kThreads, 0, st>>>(
+      x, ldx, M, K, H, W, taps, v.inv, v.shift, v.vstride, v.tile_rows, dy,
+      ldd, N, chunk, part);
+}
+
+}  // namespace
+
+extern "C" {
+
+int cunet_bn_stats(const void* x, long long ldx, long long M,
+                   long long tile_rows, int K, void* out, void* stream) {
+  const dim3 grid((unsigned)(M / tile_rows),
+                  (unsigned)((K + kStatCols - 1) / kStatCols));
+  bn_stats_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x), ldx, tile_rows, K, static_cast<float*>(out));
+  return (int)cudaGetLastError();
+}
+
+int cunet_bn_bwd(const void* x, long long ldx, const void* da, long long ldd,
+                 long long M, long long tile_rows, int K, const void* stats,
+                 const void* gamma, float eps, void* dx, long long lddx,
+                 int accumulate, void* part, void* stream) {
+  const dim3 grid((unsigned)(M / tile_rows),
+                  (unsigned)((K + kStatCols - 1) / kStatCols));
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* xp = static_cast<const bf16*>(x);
+  const auto* dp = static_cast<const float*>(da);
+  const auto* sp = static_cast<const float*>(stats);
+  const auto* gp = static_cast<const float*>(gamma);
+  auto* op = static_cast<float*>(dx);
+  auto* pp = static_cast<float*>(part);
+  if (accumulate)
+    bn_bwd_kernel<true><<<grid, kThreads, 0, st>>>(
+        xp, ldx, dp, ldd, tile_rows, K, sp, gp, eps, op, lddx, pp);
+  else
+    bn_bwd_kernel<false><<<grid, kThreads, 0, st>>>(
+        xp, ldx, dp, ldd, tile_rows, K, sp, gp, eps, op, lddx, pp);
+  return (int)cudaGetLastError();
+}
+
+int cunet_dx(const void* dy, long long ldd, long long M, int N, int H, int W,
+             int taps, const void* w, int ldw, int K, const void* x,
+             long long ldx, const void* inv, const void* shift,
+             long long vstride, long long tile_rows, void* out, long long ldo,
+             void* stream) {
+  const VecArgs v{static_cast<const float*>(inv),
+                  static_cast<const float*>(shift), vstride, tile_rows};
+  const auto* dp = static_cast<const bf16*>(dy);
+  const auto* wp = static_cast<const bf16*>(w);
+  const auto* xp = static_cast<const bf16*>(x);
+  auto* op = static_cast<float*>(out);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (K <= 16)
+    launch_dx<16, 1>(dp, ldd, M, N, H, W, taps, wp, ldw, K, xp, ldx, v, op,
+                     ldo, st);
+  else if (K <= 32)
+    launch_dx<32, 2>(dp, ldd, M, N, H, W, taps, wp, ldw, K, xp, ldx, v, op,
+                     ldo, st);
+  else if (K <= 64)
+    launch_dx<64, 2>(dp, ldd, M, N, H, W, taps, wp, ldw, K, xp, ldx, v, op,
+                     ldo, st);
+  else
+    launch_dx<128, 2>(dp, ldd, M, N, H, W, taps, wp, ldw, K, xp, ldx, v, op,
+                      ldo, st);
+  return (int)cudaGetLastError();
+}
+
+int cunet_dw(const void* x, long long ldx, long long M, int K, int H, int W,
+             int taps, const void* inv, const void* shift, long long vstride,
+             long long tile_rows, const void* dy, long long ldd, int N,
+             long long chunk, void* part, void* stream) {
+  const VecArgs v{static_cast<const float*>(inv),
+                  static_cast<const float*>(shift), vstride, tile_rows};
+  const auto* xp = static_cast<const bf16*>(x);
+  const auto* dp = static_cast<const bf16*>(dy);
+  auto* pp = static_cast<float*>(part);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (N <= 16)
+    launch_dw<16, 1>(xp, ldx, M, K, H, W, taps, v, dp, ldd, N, chunk, pp, st);
+  else if (N <= 32)
+    launch_dw<32, 2>(xp, ldx, M, K, H, W, taps, v, dp, ldd, N, chunk, pp, st);
+  else if (N <= 64)
+    launch_dw<64, 2>(xp, ldx, M, K, H, W, taps, v, dp, ldd, N, chunk, pp, st);
+  else
+    launch_dw<128, 2>(xp, ldx, M, K, H, W, taps, v, dp, ldd, N, chunk, pp, st);
+  return (int)cudaGetLastError();
+}
+
+int cunet_sum_rows(const void* in, int S, long long R, void* out,
+                   void* stream) {
+  sum_rows_kernel<<<grid_blocks(R), kThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(in), S, R, static_cast<float*>(out));
+  return (int)cudaGetLastError();
+}
+
+int cunet_maxpool2_bwd(const void* a, long long lda, const void* dp,
+                       long long ldp, void* out, long long ldo, int B, int H,
+                       int W, int C, void* stream) {
+  const long long total = (long long)B * (H / 2) * (W / 2) * (C / 8);
+  maxpool2_bwd_kernel<<<grid_blocks(total), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(a), lda, static_cast<const float*>(dp), ldp,
+      static_cast<bf16*>(out), ldo, B, H, W, C);
+  return (int)cudaGetLastError();
+}
+
+int cunet_upsample2_bwd(const void* d, long long ldd, void* out,
+                        long long ldo, int B, int H, int W, int C,
+                        void* stream) {
+  const long long total = (long long)B * H * W * (C / 8);
+  upsample2_bwd_kernel<<<grid_blocks(total), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(d), ldd, static_cast<bf16*>(out), ldo, B, H,
+      W, C);
+  return (int)cudaGetLastError();
+}
+
+const char* cunet_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

@@ -1,8 +1,11 @@
-"""The four Hopper kernels of the eval forward, each beside its plain version.
+"""The four Hopper kernels of the forward, each beside its plain version.
 
 Every wrapper takes strided 2-D views into the channel-plane buffers of
-:mod:`cunet_tpu_torch.kernels.model_buf` (row stride free, unit column
-stride) and writes its result into the ``out`` view it is given, in place.
+:mod:`cunet_tpu_torch.kernels.model_buf` (eval) and
+:mod:`cunet_tpu_torch.kernels.train_slot` (train; ``affine_dot`` and
+``conv3x3`` then take per-tile ghost-BN vectors) (row stride free, unit
+column stride) and writes its result into the ``out`` view it is given, in
+place.
 On a CPU tensor a wrapper computes the plain PyTorch version; on a CUDA
 tensor it launches the kernel or raises. ``<wrapper>.launches`` counts the
 kernel launches and nothing else.
@@ -78,9 +81,39 @@ def _rows(out: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 
+def tile_affine(x, vec):
+    """``x * inv + shift`` in float32 for x (M, K): ``vec`` is one (2, >=K)
+    [inv; shift] pair, or (T, 2, >=K) pairs, one per group of M/T rows."""
+    k = x.shape[1]
+    if vec.dim() == 2:
+        return x.float() * vec[0, :k] + vec[1, :k]
+    t = vec.shape[0]
+    xt = x.float().reshape(t, -1, k)
+    return (xt * vec[:, 0, None, :k] + vec[:, 1, None, :k]).reshape(-1, k)
+
+
+def _vec_args(vec, m, k):
+    """(inv, shift pointers, per-tile element stride, rows per tile) of an
+    eval (2, >=K) vector or per-tile (T, 2, >=K) vectors."""
+    if vec.dim() == 2:
+        return vec[0].data_ptr(), vec[1].data_ptr(), 0, m
+    t = vec.shape[0]
+    if m % t:
+        raise ValueError(f"{m} rows do not split into {t} BN tiles")
+    return vec[0, 0].data_ptr(), vec[0, 1].data_ptr(), vec.stride(0), m // t
+
+
+def _check_tile_vec(vec, k, m, what="vec"):
+    if vec.dim() not in (2, 3) or vec.shape[-2] != 2 or vec.shape[-1] < k:
+        raise ValueError(f"{what} must be (2, >={k}) or (T, 2, >={k}), got "
+                         f"{tuple(vec.shape)}")
+    if vec.dim() == 3 and m % vec.shape[0]:
+        raise ValueError(f"{m} rows do not split into {vec.shape[0]} tiles")
+
+
 def affine_dot_plain(x, vec, w, out, bias=None):
     k = x.shape[1]
-    y = torch.relu(x.float() * vec[0, :k] + vec[1, :k]).to(x.dtype)
+    y = torch.relu(tile_affine(x, vec)).to(x.dtype)
     acc = y.float() @ w[:k].float()
     if bias is not None:
         acc = torch.relu(acc + bias)
@@ -110,10 +143,11 @@ def affine_dot(x, vec, w, out, *, bias=None):
     m, k = x.shape
     n = w.shape[1]
     rows = _rows(out)[0]
-    if rows != m or out.shape[-1] != n or w.shape[0] < k or vec.shape[1] < k:
+    if rows != m or out.shape[-1] != n or w.shape[0] < k:
         raise ValueError(f"affine_dot shapes: x {tuple(x.shape)}, vec "
                          f"{tuple(vec.shape)}, w {tuple(w.shape)}, out "
                          f"{tuple(out.shape)}")
+    _check_tile_vec(vec, k, m)
     if x.device.type == "cpu":
         return affine_dot_plain(x, vec, w, out, bias)
     _check_view(x, "x")
@@ -125,9 +159,10 @@ def affine_dot(x, vec, w, out, *, bias=None):
     if bias is not None:
         _check_vec(bias, "bias", n)
     _, rows_per_img, img_stride, ldo = _rows(out)
+    inv, shift, vstride, tile_rows = _vec_args(vec, m, k)
     lib = build.lib()
     code = lib.cunet_affine_dot(
-        x.data_ptr(), x.stride(0), m, k, vec[0].data_ptr(), vec[1].data_ptr(),
+        x.data_ptr(), x.stride(0), m, k, inv, shift, vstride, tile_rows,
         w.data_ptr(), n, n, 0 if bias is None else bias.data_ptr(),
         out.data_ptr(), ldo, rows_per_img, img_stride, _stream(x))
     build.check(code, "affine_dot")
@@ -145,8 +180,10 @@ def pack_w3(w3: torch.Tensor) -> torch.Tensor:
     return w3.reshape(9 * w3.shape[2], w3.shape[3]).contiguous()
 
 
-def conv3x3_plain(y, w3p, b, h, w, out):
+def conv3x3_plain(y, w3p, b, h, w, out, vec=None):
     c, g = y.shape[1], w3p.shape[1]
+    if vec is not None:
+        y = torch.relu(tile_affine(y, vec)).to(y.dtype)
     x4 = y.reshape(b, h, w, c).permute(0, 3, 1, 2).float()
     wt = w3p.view(3, 3, c, g).permute(3, 2, 0, 1).float()
     o = F.conv2d(x4, wt, padding=1)
@@ -154,10 +191,14 @@ def conv3x3_plain(y, w3p, b, h, w, out):
     return out
 
 
-def conv3x3(y, w3p, b, h, w, out):
+def conv3x3(y, w3p, b, h, w, out, *, vec=None):
     """3x3 SAME conv of ``y`` (b*h*w, Cb) into ``out`` (b*h*w, G), f32
     accumulation, zero padding per image (flattened images never bleed into
-    each other). ``w3p`` is ``pack_w3`` of the HWIO weight.
+    each other). ``w3p`` is ``pack_w3`` of the HWIO weight. With ``vec``
+    ((T, 2, Cb) per-tile [inv; shift] of a ghost-BN train stage) the input
+    rows first go through ``relu(y * inv + shift)`` in f32, rounded to
+    bf16, so that relu(BN2(yb)) never lands in memory; the zero padding
+    stays zero after that prologue.
 
     Replaces ``cunet_tpu/kernels/fused_hourglass.py::_conv3x3`` (all four of
     its TPU forms: taps, onedot, scatter, dycol). Design: one implicit GEMM
@@ -176,16 +217,24 @@ def conv3x3(y, w3p, b, h, w, out):
         raise ValueError(f"conv3x3 shapes: y {tuple(y.shape)}, w "
                          f"{tuple(w3p.shape)}, out {tuple(out.shape)}, "
                          f"image {b}x{h}x{w}")
+    if vec is not None:
+        _check_tile_vec(vec, c, m)
     if y.device.type == "cpu":
-        return conv3x3_plain(y, w3p, b, h, w, out)
+        return conv3x3_plain(y, w3p, b, h, w, out, vec)
     _check_view(y, "y")
     _check_view(out, "out")
     _check_view(w3p, "w3")
     if not w3p.is_contiguous():
         raise ValueError("w3 must be contiguous")
+    inv = shift = vstride = 0
+    tile_rows = m
+    if vec is not None:
+        _check_vec(vec, "vec", c)
+        inv, shift, vstride, tile_rows = _vec_args(vec, m, c)
     lib = build.lib()
     code = lib.cunet_conv3x3(y.data_ptr(), y.stride(0), m, h, w, c,
-                             w3p.data_ptr(), g, out.data_ptr(), out.stride(0),
+                             w3p.data_ptr(), g, inv, shift, vstride,
+                             tile_rows, out.data_ptr(), out.stride(0),
                              _stream(y))
     build.check(code, "conv3x3")
     conv3x3.launches += 1

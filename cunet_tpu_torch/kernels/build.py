@@ -1,9 +1,9 @@
 """Build and load the hand-written CUDA kernels of ``cunet_tpu_torch/csrc``.
 
-The sources are compiled by ``nvcc`` into one shared library with a plain C
-interface, loaded with ``ctypes``: no PyTorch header is compiled, which
-keeps the build short (an extension built against PyTorch's headers
-compiles them all). The build runs at the first CUDA launch (never at
+The sources are compiled by ``nvcc``, one process per source started
+together, and linked into one shared library with a plain C interface,
+loaded with ``ctypes``: no PyTorch header is compiled, which keeps the build
+short (an extension built against PyTorch's headers compiles them all). The build runs at the first CUDA launch (never at
 import: a machine without a card has no ``nvcc``) into
 ``cunet_tpu_torch/_build/``, named by a hash of the sources and flags, so an
 edited source rebuilds and an unchanged one loads the library already there.
@@ -23,10 +23,11 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("buf_kernels.cu",)
+SOURCES = ("buf_kernels.cu", "train_kernels.cu")
+HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _lib = None
@@ -45,7 +46,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 
@@ -62,30 +63,54 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    # build to a temporary name, then rename: a concurrent process never
-    # loads a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objs = [str(Path(work) / f"{Path(s).stem}.o") for s in SOURCES]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(CSRC / s)]
+                for s, o in zip(SOURCES, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for c in cmds]
+        for cmd, proc in zip(cmds, procs):
+            _finish(cmd, proc)
+        # link to a temporary name, then rename: a concurrent process never
+        # loads a half-written library
+        tmp = str(Path(work) / "lib.so")
+        cmd = [nvcc, "-shared", "-o", tmp, *objs]
+        _finish(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True))
+        os.replace(tmp, out)
     build_seconds = time.perf_counter() - t0
     return out
 
 
+def _finish(cmd, proc) -> None:
+    stdout, stderr = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{stdout}\n{stderr}")
+
+
 def _declare(lib):
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.cunet_affine_dot.argtypes = [P, L, L, I, P, P, P, I, I, P, P, L, L, L, P]
-    lib.cunet_conv3x3.argtypes = [P, L, L, I, I, I, P, I, P, L, P]
-    lib.cunet_maxpool2.argtypes = [P, L, P, L, I, I, I, I, P]
-    lib.cunet_upsample2.argtypes = [P, L, P, L, I, I, I, I, P]
-    for fn in (lib.cunet_affine_dot, lib.cunet_conv3x3, lib.cunet_maxpool2,
-               lib.cunet_upsample2):
+    F = ctypes.c_float
+    sigs = {
+        "cunet_affine_dot": [P, L, L, I, P, P, L, L, P, I, I, P, P, L, L, L,
+                             P],
+        "cunet_conv3x3": [P, L, L, I, I, I, P, I, P, P, L, L, P, L, P],
+        "cunet_maxpool2": [P, L, P, L, I, I, I, I, P],
+        "cunet_upsample2": [P, L, P, L, I, I, I, I, P],
+        "cunet_bn_stats": [P, L, L, L, I, P, P],
+        "cunet_bn_bwd": [P, L, P, L, L, L, I, P, P, F, P, L, I, P, P],
+        "cunet_dx": [P, L, L, I, I, I, I, P, I, I, P, L, P, P, L, L, P, L, P],
+        "cunet_dw": [P, L, L, I, I, I, I, P, P, L, L, P, L, I, L, P, P],
+        "cunet_sum_rows": [P, I, L, P, P],
+        "cunet_maxpool2_bwd": [P, L, P, L, P, L, I, I, I, I, P],
+        "cunet_upsample2_bwd": [P, L, P, L, I, I, I, I, P],
+    }
+    for name, argtypes in sigs.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
         fn.restype = I
     lib.cunet_error_string.argtypes = [I]
     lib.cunet_error_string.restype = ctypes.c_char_p

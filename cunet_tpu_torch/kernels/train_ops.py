@@ -1,0 +1,502 @@
+"""The Hopper kernels of the slot train step, each beside its plain version.
+
+Counterparts of the in-kernel pieces of ``cunet_tpu/kernels/train_slot.py``
+(see ``csrc/train_kernels.cu`` for the map). The forward's two GEMM stages
+reuse ``buf_ops.affine_dot`` (F2) and ``buf_ops.conv3x3`` (F3) with per-tile
+ghost-BN vectors; this module adds the statistics (F1) and the backward
+(B1-B7). A stage is ``out = relu(bn(x)) @ W`` with BN statistics per tile of
+``M / T`` rows, and ``vec`` is its (T, 2, K) float32 [inv; shift] with
+``inv = rstd * gamma``, ``shift = beta - mean * inv``.
+
+As in :mod:`cunet_tpu_torch.kernels.buf_ops`: on a CPU tensor a wrapper
+computes its plain PyTorch version; on a CUDA tensor it launches its kernel
+or raises; ``<wrapper>.launches`` counts its launches and nothing else.
+Reductions over rows (BN sums, weight gradients) write per-block partials
+that ``sum_rows`` adds in a fixed order, so the results are deterministic.
+
+What bounds them on the H100: all are bandwidth passes except the weight-
+and activation-gradient GEMMs, whose flop/byte is that of the forward 1x1
+(about 77-91 at the flagship widths, below the card's ~295 bf16 flop/byte),
+so the designs, like the forward's, read each operand once per pass and
+recompute the BN+ReLU activation in the prologue instead of storing it.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from cunet_tpu_torch.kernels import build
+from cunet_tpu_torch.kernels.buf_ops import (
+    _check_tile_vec,
+    _check_view,
+    _stream,
+    _vec_args,
+    tile_affine,
+)
+
+DW_CHUNK = 2048          # rows per weight-gradient partial (a multiple of 32)
+
+
+def _check_f32(t: torch.Tensor, name: str, dev: torch.device) -> None:
+    """A float32 kernel operand on ``dev``: unit column stride, widths, row
+    strides and the base pointer on 8-element / 16-byte bounds."""
+    if t.device != dev:
+        raise ValueError(f"{name} is on {t.device}, expected {dev}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} has dtype {t.dtype}, the kernel takes f32")
+    if t.stride(-1) != 1 or t.shape[-1] % 8 \
+            or any(s % 8 for s in t.stride()[:-1]) or t.data_ptr() % 16:
+        raise ValueError(f"{name}: needs unit column stride, width and row "
+                         f"strides multiples of 8, 16-byte alignment; got "
+                         f"shape {tuple(t.shape)} strides {t.stride()}")
+
+
+def _check_contig_f32(t: torch.Tensor, name: str, dev: torch.device) -> None:
+    if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous float32 tensor on "
+                         f"{dev}")
+
+
+def _tiles(m: int, stats: torch.Tensor) -> int:
+    t = stats.shape[0]
+    if m % t:
+        raise ValueError(f"{m} rows do not split into {t} BN tiles")
+    return m // t
+
+
+# ---------------------------------------------------------------------------
+# F1 bn_stats
+# ---------------------------------------------------------------------------
+
+
+def bn_stats_plain(x, out):
+    t, k = out.shape[0], x.shape[1]
+    xt = x.float().reshape(t, -1, k)
+    mu = xt.mean(dim=1)
+    out[:, 0] = mu
+    out[:, 1] = ((xt - mu[:, None]) ** 2).mean(dim=1)
+    return out
+
+
+def bn_stats(x, out):
+    """Per-tile float32 mean and biased variance of ``x`` (M, K) into
+    ``out`` (T, 2, K): tile t is rows [t*M/T, (t+1)*M/T). Two passes, the
+    mean and then the centred squares, as ``_stats`` computes them; the
+    input is the bf16 stage input itself, so the statistics are those of
+    the rounded values.
+
+    Replaces ``cunet_tpu/kernels/train_slot.py::_stats``. Bound by reading
+    x twice (the second pass mostly from L2). Design: one block per (tile,
+    64 channels), 32 row stripes of 16-byte loads, a fixed-order reduction
+    in shared memory.
+    """
+    m, k = x.shape
+    if out.dim() != 3 or tuple(out.shape[1:]) != (2, k) or m % out.shape[0]:
+        raise ValueError(f"bn_stats shapes: x {tuple(x.shape)}, out "
+                         f"{tuple(out.shape)}")
+    if x.device.type == "cpu":
+        return bn_stats_plain(x, out)
+    _check_view(x, "x")
+    _check_contig_f32(out, "out", x.device)
+    code = build.lib().cunet_bn_stats(x.data_ptr(), x.stride(0), m,
+                                      m // out.shape[0], k, out.data_ptr(),
+                                      _stream(x))
+    build.check(code, "bn_stats")
+    bn_stats.launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# sum_rows: the second pass of every row reduction
+# ---------------------------------------------------------------------------
+
+
+def sum_rows_plain(part, out):
+    out.copy_(part.sum(dim=0).view(out.shape))
+    return out
+
+
+def sum_rows(part, out):
+    """``out = part.sum(0)`` for contiguous float32 ``part`` (S, ...), the
+    partials summed in order.
+
+    Replaces the f32 accumulation of weight and BN-parameter gradients
+    across the TPU's sequential grid steps (``train_slot.py::_mk_acc``).
+    Bound by reading the partials once; one thread per output element.
+    """
+    if part[0].numel() != out.numel():
+        raise ValueError(f"sum_rows shapes: part {tuple(part.shape)}, out "
+                         f"{tuple(out.shape)}")
+    if part.device.type == "cpu":
+        return sum_rows_plain(part, out)
+    _check_contig_f32(part, "part", part.device)
+    _check_contig_f32(out, "out", part.device)
+    code = build.lib().cunet_sum_rows(part.data_ptr(), part.shape[0],
+                                      out.numel(), out.data_ptr(),
+                                      _stream(part))
+    build.check(code, "sum_rows")
+    sum_rows.launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# B1 affine_dx / B4 conv3x3_dx
+# ---------------------------------------------------------------------------
+
+
+def affine_dx_plain(dy, w, x, vec, out):
+    k = x.shape[1]
+    d = dy.float() @ w[:k].float().t()
+    out.copy_(torch.where(tile_affine(x, vec) > 0, d, 0.0))
+    return out
+
+
+def _dx(name, dy, w, x, vec, out, b, h, wd, taps):
+    m, n = dy.shape
+    k = x.shape[1]
+    _check_view(dy, "dy")
+    _check_view(w, "w")
+    _check_view(x, "x")
+    if not w.is_contiguous():
+        raise ValueError("w must be contiguous")
+    _check_f32(out, "out", dy.device)
+    _check_contig_f32(vec, "vec", dy.device)
+    inv, shift, vstride, tile_rows = _vec_args(vec, m, k)
+    code = build.lib().cunet_dx(
+        dy.data_ptr(), dy.stride(0), m, n, h, wd, taps, w.data_ptr(),
+        w.shape[1], k, x.data_ptr(), x.stride(0), inv, shift, vstride,
+        tile_rows, out.data_ptr(), out.stride(0), _stream(dy))
+    build.check(code, name)
+
+
+def affine_dx(dy, w, x, vec, out):
+    """``out = (dy @ w[:K]^T) * [x*inv + shift > 0]`` in float32 for
+    dy (M, N) bf16, w (>=K, N), x (M, K) the stage input and ``vec`` its
+    per-tile (T, 2, >=K) vectors: the cotangent of a stage's pre-ReLU
+    activation.
+
+    Replaces ``cunet_tpu/kernels/train_slot.py::_dot_dx`` with the ReLU
+    mask of ``_affine_bwd``. Bound like the forward 1x1 by reading dy and x
+    and writing the f32 result. Design: the forward's 128-row WMMA tiles
+    with W read transposed into shared memory, f32 accumulation, and the
+    mask recomputed from x in the epilogue (the forward's activation is
+    never stored). Its BN-jacobian sums are taken by ``bn_bwd``, which
+    reads d_a anyway.
+    """
+    m, n = dy.shape
+    k = x.shape[1]
+    if x.shape[0] != m or w.shape[0] < k or w.shape[1] != n \
+            or tuple(out.shape) != (m, k):
+        raise ValueError(f"affine_dx shapes: dy {tuple(dy.shape)}, w "
+                         f"{tuple(w.shape)}, x {tuple(x.shape)}, out "
+                         f"{tuple(out.shape)}")
+    _check_tile_vec(vec, k, m)
+    if dy.device.type == "cpu":
+        return affine_dx_plain(dy, w, x, vec, out)
+    _dx("affine_dx", dy, w, x, vec, out, 1, 1, 1, 1)
+    affine_dx.launches += 1
+    return out
+
+
+def conv3x3_dx_plain(dy, w3p, b, h, w, x, vec, out):
+    cb, g = x.shape[1], dy.shape[1]
+    d4 = dy.float().reshape(b, h, w, g).permute(0, 3, 1, 2)
+    wt = w3p.float().view(3, 3, cb, g).permute(3, 2, 0, 1)
+    dz = F.conv_transpose2d(d4, wt, padding=1)
+    dz = dz.permute(0, 2, 3, 1).reshape(b * h * w, cb)
+    out.copy_(torch.where(tile_affine(x, vec) > 0, dz, 0.0))
+    return out
+
+
+def conv3x3_dx(dy, w3p, b, h, w, x, vec, out):
+    """The transposed 3x3 conv of ``dy`` (b*h*w, G) through the packed
+    weight ``w3p`` (9*Cb, G), masked by relu(BN2(x)) > 0 of the conv's
+    input x (b*h*w, Cb): the float32 cotangent of BN2's pre-ReLU output.
+
+    Replaces the d_z2 half of ``cunet_tpu/kernels/train_slot.py::
+    _conv3x3_bwd`` (all its TPU forms). Design: the ``affine_dx`` core as
+    an implicit GEMM of depth 9*G, each 128-row block gathering dy rows at
+    minus each tap's offset (zero outside the image), flipped taps read
+    from the forward weight; no padded or shifted copy exists.
+    """
+    m, g = dy.shape
+    cb = x.shape[1]
+    if m != b * h * w or x.shape[0] != m or tuple(w3p.shape) != (9 * cb, g) \
+            or tuple(out.shape) != (m, cb):
+        raise ValueError(f"conv3x3_dx shapes: dy {tuple(dy.shape)}, w "
+                         f"{tuple(w3p.shape)}, x {tuple(x.shape)}, out "
+                         f"{tuple(out.shape)}, image {b}x{h}x{w}")
+    _check_tile_vec(vec, cb, m)
+    if dy.device.type == "cpu":
+        return conv3x3_dx_plain(dy, w3p, b, h, w, x, vec, out)
+    _dx("conv3x3_dx", dy, w3p, x, vec, out, b, h, w, 9)
+    conv3x3_dx.launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# B3 affine_dw / B5 conv3x3_dw
+# ---------------------------------------------------------------------------
+
+
+def affine_dw_plain(x, vec, dy, out):
+    z = torch.relu(tile_affine(x, vec)).to(x.dtype).float()
+    out.copy_(z.t() @ dy.float())
+    return out
+
+
+def _dw(name, x, vec, dy, out, b, h, wd, taps):
+    m, k = x.shape
+    n = dy.shape[1]
+    _check_view(x, "x")
+    _check_view(dy, "dy")
+    _check_contig_f32(out, "out", x.device)
+    _check_contig_f32(vec, "vec", x.device)
+    inv, shift, vstride, tile_rows = _vec_args(vec, m, k)
+    splits = -(-m // DW_CHUNK)
+    part = torch.empty(splits, taps * k, n, device=x.device,
+                       dtype=torch.float32)
+    code = build.lib().cunet_dw(
+        x.data_ptr(), x.stride(0), m, k, h, wd, taps, inv, shift, vstride,
+        tile_rows, dy.data_ptr(), dy.stride(0), n, DW_CHUNK, part.data_ptr(),
+        _stream(x))
+    build.check(code, name)
+    sum_rows(part, out)
+
+
+def affine_dw(x, vec, dy, out):
+    """``out = bf16(relu(x*inv + shift))^T @ dy`` in float32, (K, N), for
+    x (M, K), per-tile ``vec`` and dy (M, N): a 1x1 stage's weight
+    gradient, summed over all rows.
+
+    Replaces ``cunet_tpu/kernels/train_slot.py::_dot_dw`` (and the
+    cross-step dW accumulation). Bound by reading x and dy once. Design:
+    each block owns a 128 x BN tile of dW and a chunk of ``DW_CHUNK`` rows,
+    recomputes the activation in its prologue, stages it row-major and
+    feeds it to WMMA as a column-major (transposed) operand; ``sum_rows``
+    adds the chunk partials in order.
+    """
+    m, k = x.shape
+    n = dy.shape[1]
+    if dy.shape[0] != m or tuple(out.shape) != (k, n):
+        raise ValueError(f"affine_dw shapes: x {tuple(x.shape)}, dy "
+                         f"{tuple(dy.shape)}, out {tuple(out.shape)}")
+    _check_tile_vec(vec, k, m)
+    if x.device.type == "cpu":
+        return affine_dw_plain(x, vec, dy, out)
+    _dw("affine_dw", x, vec, dy, out, 1, 1, 1, 1)
+    affine_dw.launches += 1
+    return out
+
+
+def conv3x3_dw_plain(x, vec, dy, b, h, w, out):
+    cb, g = x.shape[1], dy.shape[1]
+    z = torch.relu(tile_affine(x, vec)).to(x.dtype).float()
+    z4 = z.reshape(b, h, w, cb).permute(0, 3, 1, 2)
+    d4 = dy.float().reshape(b, h, w, g).permute(0, 3, 1, 2)
+    dw = torch.nn.grad.conv2d_weight(z4, (g, cb, 3, 3), d4, padding=1)
+    out.copy_(dw.permute(2, 3, 1, 0).reshape(9 * cb, g))
+    return out
+
+
+def conv3x3_dw(x, vec, dy, b, h, w, out):
+    """Weight gradient of the 3x3 conv in the packed (9*Cb, G) layout:
+    ``out[tap*Cb + c] = sum_m z[m + offset(tap), c] * dy[m]`` with
+    z = bf16(relu(x*inv + shift)) of the conv input x (b*h*w, Cb) (zero
+    outside the image) and dy (b*h*w, G).
+
+    Replaces the dW3 half of ``cunet_tpu/kernels/train_slot.py::
+    _conv3x3_bwd``. Design: the ``affine_dw`` core with 9 taps, a tap per
+    block column, the shifted rows gathered in the prologue.
+    """
+    m, cb = x.shape
+    g = dy.shape[1]
+    if m != b * h * w or dy.shape[0] != m or tuple(out.shape) != (9 * cb, g):
+        raise ValueError(f"conv3x3_dw shapes: x {tuple(x.shape)}, dy "
+                         f"{tuple(dy.shape)}, out {tuple(out.shape)}, "
+                         f"image {b}x{h}x{w}")
+    _check_tile_vec(vec, cb, m)
+    if x.device.type == "cpu":
+        return conv3x3_dw_plain(x, vec, dy, b, h, w, out)
+    _dw("conv3x3_dw", x, vec, dy, out, b, h, w, 9)
+    conv3x3_dw.launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# B2 bn_bwd
+# ---------------------------------------------------------------------------
+
+
+def bn_bwd_plain(x, d_a, stats, bn, eps, d_x, dbn, accumulate=False):
+    t, k = stats.shape[0], x.shape[1]
+    xt = x.float().reshape(t, -1, k)
+    da = d_a.reshape(t, -1, k)
+    rstd = torch.rsqrt(stats[:, 1, None] + eps)
+    xh = (xt - stats[:, 0, None]) * rstd
+    sb = da.sum(dim=1, keepdim=True)
+    sg = (da * xh).sum(dim=1, keepdim=True)
+    rows = xt.shape[1]
+    dx = rstd * bn[0, :k] * (da - sb / rows - xh * (sg / rows))
+    dx = dx.reshape(-1, k)
+    if accumulate:
+        d_x += dx
+    else:
+        d_x.copy_(dx)
+    dbn.copy_(torch.cat([sg, sb], dim=1).sum(dim=0))
+    return d_x
+
+
+def bn_bwd(x, d_a, stats, bn, eps, d_x, dbn, *, accumulate=False):
+    """Ghost-BN backward of a stage: with per tile (rows m, xh = (x - mu)
+    * rstd, ig = rstd * gamma), ``d_x (+)= ig * (d_a - sum(d_a)/m - xh *
+    sum(d_a*xh)/m)`` and ``dbn = [sum_t sum(d_a*xh); sum_t sum(d_a)]``
+    ([d_gamma; d_beta]). x (M, K) is the stage input, d_a (M, K) float32
+    the pre-ReLU cotangent, stats (T, 2, K) the forward's [mean; biased
+    var], bn (2, >=K) [gamma; beta]; d_x an (M, K) float32 view, written
+    or, with ``accumulate``, added to (the stage's channel range of the
+    block's input cotangent).
+
+    Replaces the BN-jacobian of ``cunet_tpu/kernels/train_slot.py::
+    _affine_bwd`` (the classic two-sum BN backward). Bound by reading x and
+    d_a twice (once per pass, the second mostly from L2). Design: one block
+    per (tile, 64 channels), the two sums reduced in a fixed order and
+    written as per-tile partials, ``sum_rows`` adds them over tiles.
+    """
+    m, k = x.shape
+    if tuple(d_a.shape) != (m, k) or tuple(d_x.shape) != (m, k) \
+            or tuple(stats.shape[1:]) != (2, k) or bn.shape[-1] < k \
+            or tuple(dbn.shape) != (2, k):
+        raise ValueError(f"bn_bwd shapes: x {tuple(x.shape)}, d_a "
+                         f"{tuple(d_a.shape)}, stats {tuple(stats.shape)}, "
+                         f"bn {tuple(bn.shape)}, d_x {tuple(d_x.shape)}, "
+                         f"dbn {tuple(dbn.shape)}")
+    tile_rows = _tiles(m, stats)
+    if x.device.type == "cpu":
+        return bn_bwd_plain(x, d_a, stats, bn, eps, d_x, dbn, accumulate)
+    dev = x.device
+    _check_view(x, "x")
+    _check_f32(d_a, "d_a", dev)
+    _check_f32(d_x, "d_x", dev)
+    _check_contig_f32(stats, "stats", dev)
+    _check_contig_f32(bn, "bn", dev)
+    _check_contig_f32(dbn, "dbn", dev)
+    part = torch.empty(stats.shape[0], 2, k, device=dev, dtype=torch.float32)
+    code = build.lib().cunet_bn_bwd(
+        x.data_ptr(), x.stride(0), d_a.data_ptr(), d_a.stride(0), m,
+        tile_rows, k, stats.data_ptr(), bn[0].data_ptr(), float(eps),
+        d_x.data_ptr(), d_x.stride(0), int(accumulate), part.data_ptr(),
+        _stream(x))
+    build.check(code, "bn_bwd")
+    bn_bwd.launches += 1
+    sum_rows(part, dbn)
+    return d_x
+
+
+# ---------------------------------------------------------------------------
+# B6 maxpool2_bwd / B7 upsample2_bwd
+# ---------------------------------------------------------------------------
+
+
+def maxpool2_bwd_plain(ahead, d_pool, b, h, w, out):
+    c = ahead.shape[1]
+    a6 = ahead.float().reshape(b, h // 2, 2, w // 2, 2, c)
+    quads = [a6[:, :, i, :, j] for i in range(2) for j in range(2)]
+    mx = torch.maximum(torch.maximum(quads[0], quads[1]),
+                       torch.maximum(quads[2], quads[3]))
+    dp = d_pool.float().reshape(b, h // 2, w // 2, c)
+    taken = torch.zeros_like(mx, dtype=torch.bool)
+    parts = []
+    for q in quads:
+        win = (q == mx) & ~taken
+        taken |= win
+        parts.append(torch.where(win, dp, 0.0))
+    d6 = torch.stack([torch.stack(parts[0:2], dim=3),
+                      torch.stack(parts[2:4], dim=3)], dim=2)
+    out.copy_(d6.reshape(b * h * w, c))
+    return out
+
+
+def maxpool2_bwd(ahead, d_pool, b, h, w, out):
+    """Backward of the 2x2/2 max pool: ``d_pool`` ((b*h/2*w/2, C) float32)
+    goes to the first (row-major) element of each window equal to the
+    window max of ``ahead`` (b*h*w, C), the pool's recomputed input; the
+    rest of ``out`` (b*h*w, C) is zero.
+
+    Replaces ``cunet_tpu/kernels/train_slot.py::_pool_bwd``. Like it, the
+    winner comes from the backward's own recompute of ahead and never from
+    comparing with the forward's saved pooled values, so a rounding-
+    divergent recompute cannot zero a window and an exact tie cannot count
+    twice. Pure data movement; one thread per 8 channels of a window.
+    """
+    m, c = ahead.shape
+    if m != b * h * w or h % 2 or w % 2 or tuple(out.shape) != (m, c) \
+            or tuple(d_pool.shape) != (m // 4, c):
+        raise ValueError(f"maxpool2_bwd shapes: ahead {tuple(ahead.shape)}, "
+                         f"d_pool {tuple(d_pool.shape)}, out "
+                         f"{tuple(out.shape)}, image {b}x{h}x{w}")
+    if ahead.device.type == "cpu":
+        return maxpool2_bwd_plain(ahead, d_pool, b, h, w, out)
+    _check_view(ahead, "ahead")
+    _check_view(out, "out")
+    _check_f32(d_pool, "d_pool", ahead.device)
+    code = build.lib().cunet_maxpool2_bwd(
+        ahead.data_ptr(), ahead.stride(0), d_pool.data_ptr(),
+        d_pool.stride(0), out.data_ptr(), out.stride(0), b, h, w, c,
+        _stream(ahead))
+    build.check(code, "maxpool2_bwd")
+    maxpool2_bwd.launches += 1
+    return out
+
+
+def upsample2_bwd_plain(d_up, b, h, w, out):
+    c = d_up.shape[1]
+    d = d_up.float().reshape(b, h, 2, w, 2, c).sum(dim=(2, 4))
+    out.copy_(d.reshape(b * h * w, c))
+    return out
+
+
+def upsample2_bwd(d_up, b, h, w, out):
+    """Backward of the 2x nearest upsample: ``out`` (b*h*w, C) is the f32
+    sum of the 2x2 replicas in ``d_up`` ((b*2h*2w, C) float32), rounded to
+    ``out``'s dtype.
+
+    Replaces ``cunet_tpu/kernels/train_slot.py::_upsample_bwd``. Pure data
+    movement; one thread per 8 channels of a low-resolution pixel.
+    """
+    c = d_up.shape[1]
+    if d_up.shape[0] != 4 * b * h * w or tuple(out.shape) != (b * h * w, c):
+        raise ValueError(f"upsample2_bwd shapes: d_up {tuple(d_up.shape)}, "
+                         f"out {tuple(out.shape)}, image {b}x{h}x{w}")
+    if d_up.device.type == "cpu":
+        return upsample2_bwd_plain(d_up, b, h, w, out)
+    _check_f32(d_up, "d_up", d_up.device)
+    _check_view(out, "out")
+    code = build.lib().cunet_upsample2_bwd(
+        d_up.data_ptr(), d_up.stride(0), out.data_ptr(), out.stride(0), b, h,
+        w, c, _stream(d_up))
+    build.check(code, "upsample2_bwd")
+    upsample2_bwd.launches += 1
+    return out
+
+
+KERNELS = (bn_stats, affine_dx, conv3x3_dx, affine_dw, conv3x3_dw, bn_bwd,
+           maxpool2_bwd, upsample2_bwd, sum_rows)
+PLAIN = {bn_stats: bn_stats_plain, affine_dx: affine_dx_plain,
+         conv3x3_dx: conv3x3_dx_plain, affine_dw: affine_dw_plain,
+         conv3x3_dw: conv3x3_dw_plain, bn_bwd: bn_bwd_plain,
+         maxpool2_bwd: maxpool2_bwd_plain, upsample2_bwd: upsample2_bwd_plain,
+         sum_rows: sum_rows_plain}
+
+
+def reset_launch_counts() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def launch_counts() -> dict:
+    return {k.__name__: k.launches for k in KERNELS}
+
+
+reset_launch_counts()

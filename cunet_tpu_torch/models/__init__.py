@@ -1,5 +1,6 @@
 from cunet_tpu_torch.models.cu_net import (
     apply_cu_net,
+    apply_slot_train,
     dense_block_channels,
     empty_fifos,
     init_cu_net,
@@ -9,6 +10,7 @@ from cunet_tpu_torch.models.cu_net import (
 
 __all__ = [
     "apply_cu_net",
+    "apply_slot_train",
     "dense_block_channels",
     "empty_fifos",
     "init_cu_net",

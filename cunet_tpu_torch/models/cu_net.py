@@ -1,4 +1,4 @@
-"""Order-K coupled U-Net (CU-Net), eval forward in PyTorch.
+"""Order-K coupled U-Net (CU-Net) in PyTorch: eval and train forwards.
 
 Counterpart of ``cunet_tpu/models/cu_net.py``. ``layer_num`` (K) U-Nets
 share one set of per-position dense blocks; U-Net ``i`` uses layer slot
@@ -12,14 +12,17 @@ checkpoint of either package maps one to one
 (:mod:`cunet_tpu_torch.tools.from_jax`). Activations are NHWC and conv
 weights HWIO, as in the JAX package.
 
-Two forwards, chosen by the config as in JAX:
+Paths, chosen by the config as in JAX:
 
-- the plain layer-by-layer forward (``use_pallas=False``), a direct
-  translation of the JAX lax path;
-- the kernel forward (``use_pallas=True, pallas_whole_model=True``): the
-  stem in plain PyTorch, then the whole post-stem stack over channel-plane
-  buffers through the hand-written kernels
-  (:mod:`cunet_tpu_torch.kernels.model_buf`).
+- the plain layer-by-layer forward (``use_pallas=False``), eval or train,
+  a direct translation of the JAX lax path (gradients by autograd);
+- the eval kernel forward (``use_pallas=True, pallas_whole_model=True``):
+  the stem in plain PyTorch, then the whole post-stem stack over
+  channel-plane buffers through the hand-written kernels
+  (:mod:`cunet_tpu_torch.kernels.model_buf`);
+- the train kernel path (``use_pallas=True, bn_tile > 0``): the stem in
+  plain PyTorch, then each slot through the slot train kernels and their
+  recompute backward (:mod:`cunet_tpu_torch.kernels.train_slot`).
 
 The JAX ``lax.scan`` over steady-state slots and its stacked-slot storage
 exist to cut XLA compile time; here every slot runs in a plain loop.
@@ -41,6 +44,7 @@ from cunet_tpu_torch.ops import (
     relu,
     upsample_nearest_2x,
 )
+from cunet_tpu_torch.ops.layers import running_update
 
 # ---------------------------------------------------------------------------
 # parameter layout and init
@@ -127,6 +131,18 @@ def init_cu_net(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 # ---------------------------------------------------------------------------
 # plain layer-by-layer forward
 # ---------------------------------------------------------------------------
+#
+# Every function takes ``train`` and ``upd``: in train mode each BN writes
+# its new running statistics into ``upd`` under its state keys, the flat
+# counterpart of the JAX state patches (``_apply_dense_block`` :423,
+# ``_merge_block_patches`` :465); ``apply_cu_net`` merges them over the old
+# state.
+
+
+def _bn_nd(cfg: ModelConfig):
+    """BN affine dtype per config (None = float32, torch parity)."""
+    return getattr(torch, cfg.compute_dtype) if cfg.bn_dtype == "compute" \
+        else None
 
 
 def _bn(params, state, prefix):
@@ -136,17 +152,37 @@ def _bn(params, state, prefix):
             {"mean": state[f"{prefix}.mean"], "var": state[f"{prefix}.var"]})
 
 
-def _apply_bottleneck(params, state, prefix, feats: Sequence[torch.Tensor]):
+def _patch(upd, prefix, new_state):
+    upd[f"{prefix}.mean"] = new_state["mean"]
+    upd[f"{prefix}.var"] = new_state["var"]
+
+
+def _norm(params, state, prefix, x, *, cfg, train, upd):
+    """Train- or eval-mode BN at ``prefix``, with the config's affine dtype
+    and ghost tile; records the new running stats in train mode."""
+    y, ns = batch_norm(x, *_bn(params, state, prefix), train=train,
+                       norm_dtype=_bn_nd(cfg), tile=cfg.bn_tile)
+    if train:
+        _patch(upd, prefix, ns)
+    return y
+
+
+def _apply_bottleneck(params, state, prefix, feats: Sequence[torch.Tensor],
+                      *, cfg, train=False, upd=None):
     """BN -> ReLU -> 1x1 over a virtual concat (``prefix`` is the unit)."""
     norm_p, norm_s = _bn(params, state, f"{prefix}.norm")
-    return dense_bottleneck(feats, {"norm": norm_p,
-                                    "conv": params[f"{prefix}.conv"]}, norm_s)
+    out, ns = dense_bottleneck(
+        feats, {"norm": norm_p, "conv": params[f"{prefix}.conv"]}, norm_s,
+        train=train, norm_dtype=_bn_nd(cfg), tile=cfg.bn_tile)
+    if train:
+        _patch(upd, f"{prefix}.norm", ns)
+    return out
 
 
-def _apply_dense_layer(params, state, prefix, feats):
+def _apply_dense_layer(params, state, prefix, feats, **kw):
     """Bottleneck 1x1, then BN -> ReLU -> 3x3 conv to ``growth_rate``."""
-    b = _apply_bottleneck(params, state, f"{prefix}.bottleneck", feats)
-    y = relu(batch_norm(b, *_bn(params, state, f"{prefix}.norm2")))
+    b = _apply_bottleneck(params, state, f"{prefix}.bottleneck", feats, **kw)
+    y = relu(_norm(params, state, f"{prefix}.norm2", b, **kw))
     return conv2d(y, params[f"{prefix}.conv2"], stride=1, padding=1)
 
 
@@ -169,43 +205,48 @@ def empty_fifos(cfg: ModelConfig) -> Dict:
 
 
 def _apply_dense_block(params, state, prefix, feats, i: int, fifo: List, *,
-                       cfg, requires_skip: bool):
+                       cfg, requires_skip: bool, train=False, upd=None):
     """Block position ``prefix`` at slot ``i``: returns ((ahead, skip|None),
     new_fifo)."""
+    kw = dict(cfg=cfg, train=train, upd=upd)
     x = list(feats) + list(fifo)
-    out = _apply_dense_layer(params, state, f"{prefix}.layers.{i}", x)
+    out = _apply_dense_layer(params, state, f"{prefix}.layers.{i}", x, **kw)
     new_fifo = _fifo_push(fifo, out, i, cfg.order)
     x = x + [out]
-    ahead = _apply_bottleneck(params, state, f"{prefix}.adapters_ahead.{i}", x)
+    ahead = _apply_bottleneck(params, state, f"{prefix}.adapters_ahead.{i}",
+                              x, **kw)
     skip = None
     if requires_skip:
         skip = _apply_bottleneck(params, state,
-                                 f"{prefix}.adapters_skip.{i}", x)
+                                 f"{prefix}.adapters_skip.{i}", x, **kw)
     return (ahead, skip), new_fifo
 
 
-def _apply_hourglass(params, state, x, i: int, fifos: Dict, *, cfg):
+def _apply_hourglass(params, state, x, i: int, fifos: Dict, *, cfg,
+                     train=False, upd=None):
     """num_blocks x (down block -> max pool), neck, num_blocks x (upsample ->
     up block). Returns (x, fifos)."""
+    kw = dict(cfg=cfg, train=train, upd=upd)
     skips = []
     for j in range(cfg.num_blocks):
         (x, skip), fifos["down"][j] = _apply_dense_block(
-            params, state, f"hg.down.{j}", [x], i, fifos["down"][j], cfg=cfg,
-            requires_skip=True)
+            params, state, f"hg.down.{j}", [x], i, fifos["down"][j],
+            requires_skip=True, **kw)
         skips.append(skip)
         x = max_pool_2x2(x)
     (x, _), fifos["neck"] = _apply_dense_block(
-        params, state, "hg.neck", [x], i, fifos["neck"], cfg=cfg,
-        requires_skip=False)
+        params, state, "hg.neck", [x], i, fifos["neck"], requires_skip=False,
+        **kw)
     for j in reversed(range(cfg.num_blocks)):
         x = upsample_nearest_2x(x)
         (x, _), fifos["up"][j] = _apply_dense_block(
             params, state, f"hg.up.{j}", [x, skips[j]], i, fifos["up"][j],
-            cfg=cfg, requires_skip=False)
+            requires_skip=False, **kw)
     return x, fifos
 
 
-def _apply_intermedia(params, state, x, i: int, fifo: List, *, cfg):
+def _apply_intermedia(params, state, x, i: int, fifo: List, *, cfg,
+                      train=False, upd=None):
     """Cross-U-Net input adapter: identity at i == 0 (seeding the FIFO),
     else an adapter over [x] + FIFO."""
     if i == 0:
@@ -213,20 +254,22 @@ def _apply_intermedia(params, state, x, i: int, fifo: List, *, cfg):
             fifo = fifo + [x]
         return x, fifo
     out = _apply_bottleneck(params, state, f"intermedia.adapters.{i - 1}",
-                            [x] + list(fifo))
+                            [x] + list(fifo), cfg=cfg, train=train, upd=upd)
     return out, _fifo_push(fifo, out, i, cfg.order)
 
 
-def _apply_head(params, state, prefix, y):
+def _apply_head(params, state, prefix, y, *, cfg, train=False, upd=None):
     """Head: BN -> ReLU -> 1x1 conv to ``class_num`` heatmaps."""
-    z = relu(batch_norm(y, *_bn(params, state, f"{prefix}.norm")))
+    z = relu(_norm(params, state, f"{prefix}.norm", y, cfg=cfg, train=train,
+                   upd=upd))
     return conv2d(z, params[f"{prefix}.conv"], stride=1, padding=0)
 
 
-def _apply_stem(params, state, x):
+def _apply_stem(params, state, x, *, cfg, train=False, upd=None):
     """conv 7x7/2 -> BN -> ReLU -> max pool 2x2."""
     y = conv2d(x, params["stem.conv"], stride=2, padding=3)
-    y = relu(batch_norm(y, *_bn(params, state, "stem.norm")))
+    y = relu(_norm(params, state, "stem.norm", y, cfg=cfg, train=train,
+                   upd=upd))
     return max_pool_2x2(y)
 
 
@@ -306,28 +349,180 @@ def slot_args(params, state, cfg: ModelConfig) -> List[Dict]:
 
 
 # ---------------------------------------------------------------------------
+# kernel train path
+# ---------------------------------------------------------------------------
+
+
+def fused_train_ok(cfg: ModelConfig) -> bool:
+    """Whether training runs the whole-slot train kernels (ghost-BN tiles;
+    ``bn_tile == 0`` is the per-bottleneck train kernel, still to port)."""
+    return cfg.use_pallas and cfg.bn_tile > 0
+
+
+def _slot_bn_prefixes(cfg: ModelConfig, i: int, h0: int):
+    """(state prefixes, resolution) of each statistic of slot ``i`` in the
+    train kernels' emission order: [intermedia] + per position (bottleneck,
+    norm2, ahead) + head. A down block's skip adapter normalizes the same
+    input as its ahead adapter, so the ahead statistic updates both."""
+    nb = cfg.num_blocks
+    out = [((f"intermedia.adapters.{i - 1}.norm",), h0)] if i > 0 else []
+    pos = ([(f"hg.down.{j}", h0 >> j, True) for j in range(nb)]
+           + [("hg.neck", h0 >> nb, False)]
+           + [(f"hg.up.{j}", h0 >> j, False) for j in reversed(range(nb))])
+    for pre, res, skip in pos:
+        adapters = (f"{pre}.adapters_ahead.{i}.norm",) + (
+            (f"{pre}.adapters_skip.{i}.norm",) if skip else ())
+        out += [((f"{pre}.layers.{i}.bottleneck.norm",), res),
+                ((f"{pre}.layers.{i}.norm2",), res), (adapters, res)]
+    return out + [((f"heads.{i}.norm",), h0)]
+
+
+def _slot_state_from_stats(state, stats, cfg: ModelConfig, i: int, h0: int):
+    """New running statistics of slot ``i`` from the kernels' per-tile
+    (T, 2, C) [mean; biased var]: the tile-averaged mean and tile-averaged
+    unbiased variance enter with momentum 0.1 (the ghost-BN rule of
+    ``ops.layers.batch_norm``). Returns {state key: tensor}."""
+    prefixes = _slot_bn_prefixes(cfg, i, h0)
+    if len(prefixes) != len(stats):
+        raise ValueError(f"{len(stats)} statistics for {len(prefixes)} BNs")
+    upd = {}
+    with torch.no_grad():
+        for (pres, res), st in zip(prefixes, stats):
+            cnt = cfg.bn_tile * res * res
+            for pre in pres:
+                _patch(upd, pre, running_update(
+                    {"mean": state[f"{pre}.mean"],
+                     "var": state[f"{pre}.var"]},
+                    st[:, 0], st[:, 1], cnt))
+    return upd
+
+
+def _write_slot_state(upd, slot_upd, cfg: ModelConfig, i: int) -> None:
+    """Merge one slot's new statistics; head state changes only at anchored
+    slots (the reference never runs the other heads)."""
+    anchored = (i + 1) in cfg.anchors
+    for key, val in slot_upd.items():
+        if anchored or not key.startswith("heads."):
+            upd[key] = val
+
+
+def _fused_slot_train(params, state, y, fifos, *, cfg: ModelConfig,
+                      i: int):
+    """Slot ``i`` through the train kernels. Returns (y_out, new_fifos,
+    head_out, slot_state_updates)."""
+    from cunet_tpu_torch.kernels.train_slot import (
+        fused_slot_train,
+        marshal_slot,
+    )
+
+    nb = cfg.num_blocks
+    has_inter = i > 0
+    L = min(i, cfg.order)
+    W = marshal_slot(_slot_subtree(params, i), nb)
+    fifos_t = ([fifos["down"][j] for j in range(nb)] + [fifos["neck"]]
+               + [fifos["up"][j] for j in reversed(range(nb))])
+    y_out, hm, inter_out, out32s, stats = fused_slot_train(
+        y, fifos["intermedia"] if has_inter else [], fifos_t, W, cfg=cfg,
+        L=L, has_inter=has_inter)
+    slot_upd = _slot_state_from_stats(state, stats, cfg, i, y.shape[1])
+    if cfg.order == 0:
+        return y_out, fifos, hm, slot_upd
+
+    def push(fifo, out):
+        return list(fifo) + [out] if i < cfg.order else list(fifo[1:]) + [out]
+
+    new_f = {
+        "intermedia": (push(fifos["intermedia"], inter_out) if has_inter
+                       else list(fifos["intermedia"]) + [y]),
+        "down": [push(fifos["down"][j], out32s[j]) for j in range(nb)],
+        "neck": push(fifos["neck"], out32s[nb]),
+        "up": [push(fifos["up"][j], out32s[2 * nb - j]) for j in range(nb)],
+    }
+    return y_out, new_f, hm, slot_upd
+
+
+def apply_slot_train(params, state, y, fifos, *, cfg: ModelConfig, i: int):
+    """Slot ``i`` of the train forward alone, on the config's path (the
+    slot train kernels with ``use_pallas``, else layer by layer), its head
+    run whatever the anchors. ``y`` is the slot input and ``fifos`` the
+    FIFO entries it reads (``empty_fifos`` structure). Returns (y_out,
+    new_fifos, head, {state key: new running statistics of the slot}); the
+    caller's ``fifos`` are not changed. Holds one slot of the kernel path
+    against the plain path on inputs and cotangents of the caller's
+    choosing."""
+    _check_train_cfg(cfg, None)
+    if fused_train_ok(cfg):
+        return _fused_slot_train(params, state, y, fifos, cfg=cfg, i=i)
+    upd: Dict[str, torch.Tensor] = {}
+    kw = dict(cfg=cfg, train=True, upd=upd)
+    fifos = {k: list(v) for k, v in fifos.items()}
+    y, fifos["intermedia"] = _apply_intermedia(
+        params, state, y, i, fifos["intermedia"], **kw)
+    y, fifos = _apply_hourglass(params, state, y, i, fifos, **kw)
+    return y, fifos, _apply_head(params, state, f"heads.{i}", y, **kw), upd
+
+
+# ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
 
 
+def _check_train_cfg(cfg: ModelConfig, quant) -> None:
+    if cfg.drop_rate > 0:
+        raise NotImplementedError(
+            "dropout (drop_rate > 0) is not ported yet (ROADMAP queue A "
+            "item 8)")
+    if quant is not None and quant.enabled:
+        raise NotImplementedError(
+            "quantized training is not ported yet (ROADMAP queue A item 9)")
+    if cfg.use_pallas and not cfg.bn_tile:
+        raise NotImplementedError(
+            "use_pallas with bn_tile=0 trains through the per-bottleneck "
+            "train kernel (train_bottleneck.py), not ported yet; set "
+            "bn_tile > 0 or use_pallas=False")
+    if not cfg.use_pallas and cfg.remat != "none":
+        raise NotImplementedError(
+            f"remat={cfg.remat!r} on the plain train path is not ported yet "
+            "(it is to map to torch.utils.checkpoint); use remat='none'")
+
+
 def apply_cu_net(params, state, x: torch.Tensor, *, cfg: ModelConfig,
-                 train: bool = False, slots=None):
-    """Eval forward: stem -> K x (intermedia -> hourglass [-> head if
-    anchored]).
+                 train: bool = False, slots=None, quant=None):
+    """Forward: stem -> K x (intermedia -> hourglass [-> head if anchored]).
 
     Args:
       x: (N, H, W, 3) NHWC input, cast to ``cfg.compute_dtype``.
-      slots: kernel-path weights from
+      train: batch statistics (per ``cfg.bn_tile`` images) and new running
+        statistics; gradients reach float32 ``params`` by autograd. With
+        ``cfg.use_pallas`` every slot runs the train kernels
+        (:mod:`cunet_tpu_torch.kernels.train_slot`).
+      slots: eval kernel-path weights from
         :func:`cunet_tpu_torch.kernels.model_buf.marshal_slots`, reused
         across calls; built from ``params``/``state`` when None.
+      quant: a ``QuantConfig``; quantized training is not ported and
+        raises.
     Returns:
       (list of (N, H/4, W/4, class_num) heatmaps, one per loss anchor in
-      U-Net order, state) -- the state is unchanged in eval.
+      U-Net order, state) -- the state is unchanged in eval, and in train
+      a new dict with every BN's updated running statistics.
     """
     if train:
-        raise NotImplementedError("the torch port runs the eval forward only")
+        _check_train_cfg(cfg, quant)
     x = x.to(getattr(torch, cfg.compute_dtype))
-    y = _apply_stem(params, state, x)
+    upd: Dict[str, torch.Tensor] = {}
+    kw = dict(cfg=cfg, train=train, upd=upd)
+    y = _apply_stem(params, state, x, **kw)
+    outs: List[torch.Tensor] = []
+    fifos = empty_fifos(cfg)
+
+    if train and fused_train_ok(cfg):
+        for i in range(cfg.layer_num):
+            y, fifos, hm, slot_upd = _fused_slot_train(
+                params, state, y, fifos, cfg=cfg, i=i)
+            _write_slot_state(upd, slot_upd, cfg, i)
+            if (i + 1) in cfg.anchors:
+                outs.append(hm)
+        return outs, {**state, **upd}
 
     if cfg.use_pallas:
         if not cfg.pallas_whole_model:
@@ -345,12 +540,10 @@ def apply_cu_net(params, state, x: torch.Tensor, *, cfg: ModelConfig,
         out = model_buf_infer(y, slots, cfg)
         return [out[:, k] for k in range(out.shape[1])], state
 
-    fifos = empty_fifos(cfg)
-    outs: List[torch.Tensor] = []
     for i in range(cfg.layer_num):
         y, fifos["intermedia"] = _apply_intermedia(
-            params, state, y, i, fifos["intermedia"], cfg=cfg)
-        y, fifos = _apply_hourglass(params, state, y, i, fifos, cfg=cfg)
+            params, state, y, i, fifos["intermedia"], **kw)
+        y, fifos = _apply_hourglass(params, state, y, i, fifos, **kw)
         if (i + 1) in cfg.anchors:
-            outs.append(_apply_head(params, state, f"heads.{i}", y))
-    return outs, state
+            outs.append(_apply_head(params, state, f"heads.{i}", y, **kw))
+    return outs, ({**state, **upd} if train else state)

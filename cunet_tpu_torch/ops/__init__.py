@@ -1,4 +1,5 @@
-"""Eval-mode NN ops on NHWC tensors (counterpart of ``cunet_tpu.ops``)."""
+"""NN ops on NHWC tensors, eval and train mode (counterpart of
+``cunet_tpu.ops``)."""
 
 from cunet_tpu_torch.ops.bottleneck import dense_bottleneck
 from cunet_tpu_torch.ops.layers import (

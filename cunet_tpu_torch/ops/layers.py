@@ -1,19 +1,23 @@
-"""Eval-mode NN ops on NHWC tensors: conv, batch-norm, pooling, upsampling.
+"""NN ops on NHWC tensors: conv, batch-norm, pooling, upsampling.
 
 Counterpart of ``cunet_tpu/ops/layers.py``. Layout stays NHWC with HWIO conv
 weights at every public function, so the port and the JAX package compare
-like with like. Numerics follow the JAX eval path: BN statistics and the
-normalize in float32 with eps 1e-5, the result cast back to the input dtype.
-Train-mode BN (batch statistics, ghost tiles, running-stat updates) belongs
-to the training port.
+like with like. Numerics follow the JAX package: BN statistics in float32
+with eps 1e-5 and momentum 0.1 (biased variance normalizes, the unbiased
+one updates the running statistics), the affine in float32 or, with
+``norm_dtype``, in that narrower dtype; the result is cast back to the
+input dtype.
 """
 
 from __future__ import annotations
+
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.1
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
@@ -38,19 +42,92 @@ def bn_inference_scale_shift(params: dict, state: dict, *,
     return inv, params["bias"].float() - state["mean"].float() * inv
 
 
+def narrow_dtype(norm_dtype) -> Optional[torch.dtype]:
+    """The affine dtype of ``norm_dtype``: None for float32 (or None)."""
+    if norm_dtype is None or norm_dtype == torch.float32:
+        return None
+    return norm_dtype
+
+
+def batch_stats(x32: torch.Tensor, tile: int
+                ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """(mean, biased var, count) of a float32 (N, H, W, C) tensor over
+    (N, H, W), or per contiguous group of ``tile`` images ((T, C) each)."""
+    n, h, w, c = x32.shape
+    if tile and tile < n:
+        if n % tile:
+            raise ValueError(f"batch {n} not divisible by bn_tile {tile}")
+        xt = x32.reshape(n // tile, tile * h * w, c)
+        return (xt.mean(dim=1), xt.var(dim=1, unbiased=False),
+                tile * h * w)
+    xt = x32.reshape(n * h * w, c)
+    return xt.mean(dim=0), xt.var(dim=0, unbiased=False), n * h * w
+
+
+def running_update(state: dict, mean: torch.Tensor, var: torch.Tensor,
+                   cnt: int, momentum: float = BN_MOMENTUM) -> dict:
+    """New running statistics from batch (or per-tile) mean and biased
+    variance: the tile-averaged mean and tile-averaged unbiased variance
+    enter with weight ``momentum`` (``cunet_tpu/ops/layers.py:88-108``)."""
+    with torch.no_grad():
+        unbiased = var * (cnt / max(cnt - 1, 1))
+        if mean.dim() == 2:
+            mean, unbiased = mean.mean(dim=0), unbiased.mean(dim=0)
+        return {"mean": (1 - momentum) * state["mean"] + momentum * mean,
+                "var": (1 - momentum) * state["var"] + momentum * unbiased}
+
+
 def batch_norm(x: torch.Tensor, params: dict, state: dict, *,
-               eps: float = BN_EPS) -> torch.Tensor:
-    """Eval BatchNorm over the channel (last) axis with running statistics:
-    ``(x - mean) * inv + bias`` in float32, cast back to ``x.dtype``."""
-    inv = torch.rsqrt(state["var"].float() + eps) * params["scale"].float()
-    y = (x.float() - state["mean"].float()) * inv + params["bias"].float()
-    return y.to(x.dtype)
+               train: bool = False, eps: float = BN_EPS,
+               momentum: float = BN_MOMENTUM, norm_dtype=None,
+               tile: int = 0) -> Tuple[torch.Tensor, dict]:
+    """BatchNorm over the channel (last) axis; returns ``(y, new_state)``.
+
+    Eval uses the running statistics and returns ``state`` unchanged.
+    Train normalizes with the batch statistics (per group of ``tile``
+    images when ``0 < tile < N``, ghost BN) and returns the updated running
+    statistics; gradients flow through the statistics by autograd.
+
+    ``norm_dtype``: None (or float32) runs the affine in float32; a
+    narrower dtype casts ``inv`` and ``shift`` to it and runs the affine
+    there (``cfg.bn_dtype="compute"``), statistics staying float32.
+    """
+    scale, bias = params["scale"].float(), params["bias"].float()
+    n, h, w, c = x.shape
+    x32 = x.float()
+    nd = narrow_dtype(norm_dtype)
+    if train and tile and tile < n:
+        mean, var, cnt = batch_stats(x32, tile)
+        new_state = running_update(state, mean, var, cnt, momentum)
+        inv = torch.rsqrt(var + eps) * scale              # (T, C)
+        shift = bias - mean * inv
+        xs = x.to(nd) if nd else x32
+        if nd:
+            inv, shift = inv.to(nd), shift.to(nd)
+        t = n // tile
+        y = xs.reshape(t, tile * h * w, c) * inv[:, None] + shift[:, None]
+        return y.reshape(n, h, w, c).to(x.dtype), new_state
+    if train:
+        mean, var, cnt = batch_stats(x32, 0)
+        new_state = running_update(state, mean, var, cnt, momentum)
+    else:
+        mean, var = state["mean"].float(), state["var"].float()
+        new_state = state
+    inv = torch.rsqrt(var + eps) * scale
+    if nd:
+        shift = (bias - mean * inv).to(nd)
+        y = x.to(nd) * inv.to(nd) + shift
+    else:
+        y = (x32 - mean) * inv + bias
+    return y.to(x.dtype), new_state
 
 
 def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
-    """2x2/stride-2 max pool, NHWC."""
-    n, h, w, c = x.shape
-    return x.reshape(n, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4))
+    """2x2/stride-2 max pool, NHWC. Its gradient goes to the first
+    (row-major) maximum of each window, as XLA's select-and-scatter routes
+    it (``amax`` would split it among ties)."""
+    y = F.max_pool2d(x.permute(0, 3, 1, 2), 2)
+    return y.permute(0, 2, 3, 1)
 
 
 def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:

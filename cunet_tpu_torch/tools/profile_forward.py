@@ -32,17 +32,18 @@ FLAGSHIP = ModelConfig(layer_num=8, order=1, class_num=16, loss_num=8,
                        pallas_whole_model=True)
 
 
-def breakdown(pred: Predictor, batch: int, iters: int) -> dict:
-    x = torch.rand(batch, 256, 256, 3, generator=torch.Generator()
-                   .manual_seed(1)).to("cuda", pred.dtype)
+def profile_window(fn, iters: int) -> dict:
+    """Run ``fn`` three times to warm up, then ``iters`` times under
+    ``torch.profiler``: host wall time per call, device time summed by
+    kernel name, launches per call and the device's busy share."""
     for _ in range(3):
-        pred.forward(x)
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
-            pred.forward(x)
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = collections.Counter()
@@ -53,17 +54,32 @@ def breakdown(pred: Predictor, batch: int, iters: int) -> dict:
             launches[evt.name] += 1
     device_ms = sum(by_name.values())
     return {
-        "batch": batch,
         "iters": iters,
-        "wall_ms_per_forward": wall_ms / iters,
-        "device_ms_per_forward": device_ms / iters,
+        "wall_ms_per_call": wall_ms / iters,
+        "device_ms_per_call": device_ms / iters,
         "device_busy_share": device_ms / wall_ms,
         "kernels": [
-            {"name": name, "ms_per_forward": ms / iters,
-             "launches_per_forward": launches[name] / iters,
+            {"name": name, "ms_per_call": ms / iters,
+             "launches_per_call": launches[name] / iters,
              "share_of_device": ms / device_ms}
             for name, ms in by_name.most_common()],
     }
+
+
+def print_report(label: str, r: dict, top: int = 12) -> None:
+    print(f"{label}: wall {r['wall_ms_per_call']:.3f} ms/call, device "
+          f"{r['device_ms_per_call']:.3f} ms, busy "
+          f"{r['device_busy_share']:.3f}")
+    for k in r["kernels"][:top]:
+        print(f"  {k['ms_per_call']:8.3f} ms {k['share_of_device']:6.3f}"
+              f" x{k['launches_per_call']:6.1f}  {k['name'][:90]}")
+
+
+def gpu_name() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip()
 
 
 def main(argv=None) -> int:
@@ -74,23 +90,18 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_forward: no CUDA device")
-    gpu = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        check=True, capture_output=True, text=True).stdout.strip()
+    gpu = gpu_name()
     params, state = init_cu_net(FLAGSHIP, torch.Generator().manual_seed(0))
     report = {"gpu": gpu, "torch": torch.__version__, "runs": []}
     for batch in args.batch:
         pred = Predictor(FLAGSHIP, params, state, device="cuda",
                          batch_size=batch)
-        r = breakdown(pred, batch, args.iters)
+        x = torch.rand(batch, 256, 256, 3, generator=torch.Generator()
+                       .manual_seed(1)).to("cuda", pred.dtype)
+        r = dict(batch=batch, **profile_window(lambda: pred.forward(x),
+                                               args.iters))
         report["runs"].append(r)
-        print(f"batch {batch} ({gpu}): wall {r['wall_ms_per_forward']:.3f} "
-              f"ms/forward, device {r['device_ms_per_forward']:.3f} ms, "
-              f"busy {r['device_busy_share']:.3f}")
-        for k in r["kernels"][:12]:
-            print(f"  {k['ms_per_forward']:8.3f} ms {k['share_of_device']:6.3f}"
-                  f" x{k['launches_per_forward']:6.1f}  {k['name'][:90]}")
+        print_report(f"forward batch {batch} ({gpu})", r)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(report, f, indent=1)

@@ -1,0 +1,23 @@
+"""Training: loss, state and optimizer, train and eval steps (counterpart of
+``cunet_tpu.train``)."""
+
+from cunet_tpu_torch.train.loss import intermediate_mse
+from cunet_tpu_torch.train.state import (
+    TrainState,
+    create_train_state,
+    get_lr,
+    make_optimizer,
+    set_lr,
+)
+from cunet_tpu_torch.train.step import eval_step, train_step
+
+__all__ = [
+    "TrainState",
+    "create_train_state",
+    "eval_step",
+    "get_lr",
+    "intermediate_mse",
+    "make_optimizer",
+    "set_lr",
+    "train_step",
+]

@@ -1,6 +1,7 @@
 """Torch port on the card: each CUDA kernel against its plain version at the
-small test widths (c=16, g=8, Cb=16), and the kernel forward against the
-plain forward. Skips without a CUDA device. Imports no JAX, so it runs on a
+small test widths (c=16, g=8, Cb=16; widths down to 8, ragged row tiles),
+the kernel forward against the plain forward, and a two-slot kernel train
+step against the plain train step. Skips without a CUDA device. Imports no JAX, so it runs on a
 machine without it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py
@@ -124,3 +125,190 @@ def test_kernel_forward_matches_plain_forward(gen, order):
     for a, b in zip(fused, plain):
         rel = ((a.float() - b.float()).norm() / b.float().norm()).item()
         assert rel <= 3e-2, rel
+
+
+# ---------------------------------------------------------------------------
+# the slot train kernels
+# ---------------------------------------------------------------------------
+
+from cunet_tpu_torch.kernels import train_ops  # noqa: E402
+from cunet_tpu_torch.kernels.train_slot import _affine_vec  # noqa: E402
+
+
+def _close_sum(got, want, n):
+    """float32 outputs of an n-term reduction: sums taken in another order
+    differ by O(sqrt(n) * 2^-24) of the result's scale; 1e-5 * sqrt(n)
+    leaves a margin of ~170."""
+    got, want = got.float(), want.float()
+    bound = 1e-5 * max(n, 1) ** 0.5 * want.abs().max().item() + 1e-6
+    assert (got - want).abs().max().item() <= bound
+
+
+def _train_vec(gen, x, tiles):
+    """Per-tile statistics, BN params and [inv; shift] vectors of x."""
+    k = x.shape[1]
+    bn = torch.stack([torch.rand(k, generator=gen) + 0.5,
+                      torch.randn(k, generator=gen) * 0.3]).cuda()
+    st = torch.empty(tiles, 2, k, device="cuda")
+    train_ops.bn_stats_plain(x, st)
+    return st, bn, _affine_vec(st, bn, 1e-5)
+
+
+def _both(kernel, make_out, call):
+    """(kernel result, plain result) on fresh outputs; one launch counted."""
+    before = kernel.launches
+    k_out, p_out = make_out(), make_out()
+    call(kernel, k_out)
+    call(train_ops.PLAIN.get(kernel, buf_ops.PLAIN.get(kernel)), p_out)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    return k_out, p_out
+
+
+# rows: 3 tiles of 2 images of 6x6 = 216 rows (a ragged last 128-row tile);
+# widths down to 8
+@pytest.mark.parametrize("k", [8, 24, 136])
+def test_bn_stats(gen, k):
+    x = _bf16(gen, 216, k + 16)[:, 8:8 + k]
+    got, want = _both(train_ops.bn_stats,
+                      lambda: torch.empty(3, 2, k, device="cuda"),
+                      lambda f, o: f(x, o))
+    _close_sum(got, want, 72)
+
+
+@pytest.mark.parametrize("k,n", [(8, 8), (40, 16), (200, 136)])
+def test_affine_dot_per_tile(gen, k, n):
+    x = _bf16(gen, 216, k)
+    _, _, vec = _train_vec(gen, x, 3)
+    w = _bf16(gen, k, n) * k ** -0.5
+    _check(buf_ops.affine_dot, lambda f, o: f(x, vec, w, o[:, 8:8 + n]),
+           _bf16(gen, 216, n + 16), lambda o: o[:, 8:8 + n])
+
+
+@pytest.mark.parametrize("cb,g,r", [(16, 8, 6), (16, 8, 2), (48, 24, 4)])
+def test_conv3x3_bn_prologue(gen, cb, g, r):
+    n = 6
+    y = _bf16(gen, n * r * r, cb)
+    _, _, vec = _train_vec(gen, y, 3)
+    w3 = _bf16(gen, 9 * cb, g) * (9 * cb) ** -0.5
+    _check(buf_ops.conv3x3,
+           lambda f, o: f(y, w3, n, r, r, o[:, 16:16 + g], vec=vec),
+           _bf16(gen, n * r * r, 16 + g + 8), lambda o: o[:, 16:16 + g])
+
+
+@pytest.mark.parametrize("k,n", [(8, 8), (40, 16), (200, 136)])
+def test_affine_dx_dw(gen, k, n):
+    m = 216
+    x = _bf16(gen, m, k + 8)[:, :k]
+    _, _, vec = _train_vec(gen, x, 3)
+    w = (_bf16(gen, k, n) * k ** -0.5).contiguous()
+    dy = _bf16(gen, m, n)
+    got, want = _both(train_ops.affine_dx,
+                      lambda: torch.empty(m, k + 8, device="cuda")[:, :k],
+                      lambda f, o: f(dy, w, x, vec, o))
+    _close_sum(got, want, n)
+    got, want = _both(train_ops.affine_dw,
+                      lambda: torch.empty(k, n, device="cuda"),
+                      lambda f, o: f(x, vec, dy, o))
+    _close_sum(got, want, m)
+
+
+@pytest.mark.parametrize("cb,g,r", [(16, 8, 6), (16, 8, 2), (48, 24, 4)])
+def test_conv3x3_dx_dw(gen, cb, g, r):
+    n = 6
+    m = n * r * r
+    yb = _bf16(gen, m, cb)
+    _, _, vec = _train_vec(gen, yb, 3)
+    w3 = (_bf16(gen, 9 * cb, g) * (9 * cb) ** -0.5).contiguous()
+    d_o = _bf16(gen, m, g)
+    got, want = _both(train_ops.conv3x3_dx,
+                      lambda: torch.empty(m, cb, device="cuda"),
+                      lambda f, o: f(d_o, w3, n, r, r, yb, vec, o))
+    _close_sum(got, want, 9 * g)
+    got, want = _both(train_ops.conv3x3_dw,
+                      lambda: torch.empty(9 * cb, g, device="cuda"),
+                      lambda f, o: f(yb, vec, d_o, n, r, r, o))
+    _close_sum(got, want, m)
+
+
+@pytest.mark.parametrize("k,accumulate", [(8, False), (40, True),
+                                          (136, False)])
+def test_bn_bwd(gen, k, accumulate):
+    m = 216
+    x = _bf16(gen, m, k)
+    st, bn, _ = _train_vec(gen, x, 3)
+    d_a = torch.randn(m, k + 8, generator=gen).cuda()[:, :k]
+    base = torch.randn(m, k, generator=gen).cuda()
+    outs = {}
+    for name, fn in (("kernel", train_ops.bn_bwd),
+                     ("plain", train_ops.bn_bwd_plain)):
+        d_x, dbn = base.clone(), torch.empty(2, k, device="cuda")
+        if name == "kernel":
+            fn(x, d_a, st, bn, 1e-5, d_x, dbn, accumulate=accumulate)
+        else:
+            fn(x, d_a, st, bn, 1e-5, d_x, dbn, accumulate)
+        outs[name] = (d_x, dbn)
+    torch.cuda.synchronize()
+    _close_sum(outs["kernel"][0], outs["plain"][0], 72)
+    _close_sum(outs["kernel"][1], outs["plain"][1], m)
+
+
+@pytest.mark.parametrize("r", [8, 2])
+def test_maxpool2_bwd_and_upsample2_bwd(gen, r):
+    n, c = 3, 16
+    ahead = _bf16(gen, n * r * r, c)
+    ahead[::5] = ahead[1::5][:ahead[::5].shape[0]]     # some exact ties
+    d_pool = torch.randn(n * r * r // 4, c + 8, generator=gen).cuda()[:, :c]
+    got, want = _both(train_ops.maxpool2_bwd,
+                      lambda: torch.empty(n * r * r, c, device="cuda",
+                                          dtype=torch.bfloat16),
+                      lambda f, o: f(ahead, d_pool, n, r, r, o))
+    assert torch.equal(got, want)
+    d_up = torch.randn(n * 4 * r * r, c, generator=gen).cuda()
+    got, want = _both(train_ops.upsample2_bwd,
+                      lambda: torch.empty(n * r * r, c, device="cuda",
+                                          dtype=torch.bfloat16),
+                      lambda f, o: f(d_up, n, r, r, o))
+    _close(got, want)
+
+
+def _train_grads(cfg, params, state, x, t):
+    from cunet_tpu_torch.train import intermediate_mse
+
+    ps = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+    outs, new_state = apply_cu_net(ps, state, x, cfg=cfg, train=True)
+    loss = intermediate_mse(outs, t)
+    loss.backward()
+    return loss.item(), {k: v.grad for k, v in ps.items()}, new_state
+
+
+def test_kernel_train_step_matches_plain_and_repeats(gen):
+    """Two slots, bf16, ghost tile 2: the kernel path's loss, grads and BN
+    state against the plain path on the card (bf16 rounding points differ:
+    the kernels' BN affine runs in f32), and bit-identical on a repeat."""
+    cfg = ModelConfig(layer_num=2, order=1, loss_num=2, neck_size=2,
+                      growth_rate=8, init_chan_num=16, class_num=8,
+                      num_blocks=2, compute_dtype="bfloat16", use_pallas=True,
+                      bn_tile=2, bn_dtype="compute", remat="none")
+    params, state = init_cu_net(cfg, gen, device="cuda")
+    x = torch.rand(4, 64, 64, 3, generator=gen).cuda()
+    t = torch.rand(4, 16, 16, 8, generator=gen).cuda()
+    buf_ops.reset_launch_counts()
+    train_ops.reset_launch_counts()
+    lk, gk, sk = _train_grads(cfg, params, state, x, t)
+    assert all(buf_ops.launch_counts().values())
+    assert all(train_ops.launch_counts().values())
+    lk2, gk2, _ = _train_grads(cfg, params, state, x, t)
+    assert lk2 == lk and all(torch.equal(gk[k], gk2[k]) for k in gk)
+    lp, gp, sp = _train_grads(dataclasses.replace(cfg, use_pallas=False),
+                              params, state, x, t)
+    assert abs(lk - lp) <= 1e-2 * abs(lp)
+    norm = lambda g: torch.sqrt(sum((v.float() ** 2).sum() for v in g.values()))
+    assert 0.85 <= (norm(gk) / norm(gp)).item() <= 1.18
+    cos = [torch.nn.functional.cosine_similarity(
+        gk[k].flatten(), gp[k].flatten(), dim=0).item()
+        for k in gk if gp[k].abs().max() > 0]
+    assert sum(cos) / len(cos) > 0.5
+    for k in sp:
+        rel = ((sk[k] - sp[k]).norm() / sp[k].norm()).item()
+        assert rel <= 1e-2, (k, rel)

@@ -177,8 +177,9 @@ class TestOps:
         tp = {k: _t(v) for k, v in p.items()}
         ts = {k: _t(v) for k, v in s.items()}
         want, _ = jax_layers.batch_norm(jnp.asarray(x), p, s, train=False)
-        np.testing.assert_allclose(layers.batch_norm(_t(x), tp, ts).numpy(),
-                                   np.asarray(want), **TOL)
+        got, new_state = layers.batch_norm(_t(x), tp, ts)
+        assert new_state is ts
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
         for a, b in zip(layers.bn_inference_scale_shift(tp, ts),
                         jax_layers.bn_inference_scale_shift(p, s)):
             np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
@@ -187,7 +188,7 @@ class TestOps:
         x = torch.randn(1, 2, 2, 4, dtype=torch.bfloat16)
         p = {"scale": torch.ones(4), "bias": torch.zeros(4)}
         s = {"mean": torch.zeros(4), "var": torch.ones(4)}
-        assert layers.batch_norm(x, p, s).dtype == torch.bfloat16
+        assert layers.batch_norm(x, p, s)[0].dtype == torch.bfloat16
 
     def test_pool_upsample_relu(self):
         x = RNG(8).randn(2, 8, 8, 4).astype(np.float32)
@@ -208,7 +209,7 @@ class TestOps:
              "var": rng.uniform(0.5, 1.5, 32).astype(np.float32)}
         want, _ = jax_bottleneck.dense_bottleneck(
             [jnp.asarray(f) for f in feats], p, s, train=False)
-        got = bottleneck.dense_bottleneck(
+        got, _ = bottleneck.dense_bottleneck(
             [_t(f) for f in feats],
             {"norm": {k: _t(v) for k, v in p["norm"].items()},
              "conv": _t(p["conv"])},

@@ -29,7 +29,18 @@ Phases, each printing one line (or a few) before the last:
    plain-vs-plain control, head grads, BN running stats), a bit-identical
    repeat, three kernel-path train_steps
    that launch every kernel, and the step time, img/s and peak memory of
-   both paths.
+   both paths;
+6. int8 serving: the three int8 kernels against their plain versions at
+   the CU-Net-8 @256 int8 shapes and ragged ones (bit-identical); a
+   Predictor for the quantized CU-Net-8 (``bench.py``'s int8
+   configuration: W1/I8/G8, ``int8_infer``, ``int8_impl="pallas"``;
+   ``quant_eval_params`` of the port's init, seed 0) answers the three
+   requests on the int8 kernel path (the main path), which must launch the
+   int8 kernels; the same forward on the int8 kernels' plain versions is
+   bit-identical; the plain path on ``int8_matmul_dequant`` (the second
+   path) is bit-identical to ``int8_impl="lax"``; the kernel path against
+   the plain path beside a same-run control; forward times at batch 8 and
+   64 beside the float kernel path's.
 
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is ``{"ok": true, "device": {...}}``. Any
@@ -51,7 +62,11 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 SOURCE = "cunet_tpu_torch/csrc/buf_kernels.cu"
 TRAIN_SOURCE = "cunet_tpu_torch/csrc/train_kernels.cu"
+INT8_SOURCE = "cunet_tpu_torch/csrc/quant_kernels.cu"
 REPLACES = {
+    "affine_dot_i8": "cunet_tpu/kernels/fused_model_buf.py:83",
+    "conv3x3_i8": "cunet_tpu/kernels/fused_model_buf.py:316",
+    "int8_matmul_dequant": "cunet_tpu/kernels/quant_matmul.py:50",
     "affine_dot": "cunet_tpu/kernels/fused_model_buf.py:52",
     "conv3x3": "cunet_tpu/kernels/fused_hourglass.py:75",
     "maxpool2": "cunet_tpu/kernels/fused_hourglass.py:312",
@@ -86,6 +101,9 @@ CONTROL_NUDGE = 1e-4
 COSINE_MARGIN = 0.05
 HEADS_REL_L2 = 5e-2
 BN_STATE_REL_L2 = 1e-2
+# int8 kernel path vs plain path: the mean over anchors of their relative
+# L2 may exceed the same-run control's by this much (PERF.md, section 6)
+INT8_PATH_MARGIN = 0.05
 
 
 class SmokeFailure(RuntimeError):
@@ -290,17 +308,18 @@ def phase_serving(torch, ops, gpu):
     require(np.isfinite(rel) and rel <= PATH_REL_L2,
             f"kernel path disagrees with the plain path: {rel}")
 
+    times = {}
     for batch in (BATCH, 64):
         p = pred if batch == BATCH else Predictor(
             cfg, params, state, device="cuda", batch_size=batch)
-        ms = time_forward(torch, p, batch)
+        times[batch] = ms = time_forward(torch, p, batch)
         print(f"serving: forward batch {batch}: {ms:.3f} ms, "
               f"{batch / ms * 1e3:.1f} img/s (kernel path; {gpu})",
               flush=True)
     ms = time_forward(torch, plain, BATCH)
     print(f"serving: forward batch {BATCH}: {ms:.3f} ms, "
           f"{BATCH / ms * 1e3:.1f} img/s (plain path; {gpu})", flush=True)
-    return launches
+    return launches, times
 
 
 # ---------------------------------------------------------------------------
@@ -690,6 +709,290 @@ def phase_training(torch, tops, bops, gpu):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 6: int8 serving
+# ---------------------------------------------------------------------------
+
+
+def int8_kernel_cases(torch, gen):
+    """(kernel name, label, destination, view selector, call(fn, out)) of
+    the three int8 kernels at the CU-Net-8 @256 int8 main-path shapes
+    (c=128, g=32, Cb=128, cls=16, h0=64, batch 8; every bottleneck and
+    adapter K), plus ragged cases: K not a multiple of 32, M not a multiple
+    of the 128-row tile, Cb not a multiple of 16, unaligned int8 rows."""
+    dev = "cuda"
+    c, g, cb, cls, h0, n = 128, 32, 128, 16, 64, BATCH
+    s = 128.0                                   # 2^(bits_i - 1), bits_i 8
+
+    def bf16(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(
+            dev, torch.bfloat16)
+
+    def signs(k, m):                            # binarized weights
+        return torch.randint(-1, 2, (k, m), generator=gen,
+                             dtype=torch.int8).to(dev)
+
+    def codes(*shape):
+        return torch.randint(-127, 128, shape, generator=gen,
+                             dtype=torch.int8).to(dev)
+
+    def vec(k, lo=0.5, hi=1.5, shift=0.5):
+        inv = torch.rand(k, generator=gen) * (hi - lo) + lo
+        return torch.stack([inv, torch.randn(k, generator=gen) * shift]).to(
+            dev)
+
+    m64 = n * h0 * h0
+    down = bf16(m64, c + g + g, scale=0.5)     # [y | fifo | out32]
+    up = bf16(m64, 2 * c + g + g, scale=0.5)   # [up_y | skip | fifo | out32]
+    cases = []
+    # affine_dot_i8: bottlenecks (BN2 + q8 epilogue into int8 rows) at every
+    # bottleneck K, adapters (bf16 into buffer views) at every adapter K
+    for k, src in ((128, down), (160, down), (256, up), (288, up)):
+        v, w, v2 = vec(k), signs(k, cb), vec(cb, 0.01, 0.05, 0.3)
+        cases.append(("affine_dot_i8", f"K={k}->128 +BN2,q8 r=64",
+                      codes(m64, cb), lambda b: b,
+                      lambda f, b, src=src, k=k, v=v, w=w, v2=v2:
+                      f(src[:, :k], v, w, b, s=s, vec2=v2)))
+    for k, src in ((192, down), (160, down), (320, up), (288, up)):
+        v, w = vec(k), signs(k, c)
+        dst = bf16(m64, 2 * c + g + g)
+        cases.append(("affine_dot_i8", f"K={k}->128 r=64", dst,
+                      lambda b: b[:, c:2 * c],
+                      lambda f, b, src=src, k=k, v=v, w=w:
+                      f(src[:, :k], v, w, b[:, c:2 * c], s=s)))
+    # head K=128 -> 16 into anchor slot 3 of the stacked head output
+    vh, wh = vec(c), signs(c, cls)
+    heads = bf16(n, 8, h0, h0, cls)
+    cases.append(("affine_dot_i8", "head K=128->16 r=64", heads,
+                  lambda b: b[:, 3],
+                  lambda f, b: f(down[:, :c], vh, wh,
+                                 b[:, 3].view(n, h0 * h0, cls), s=s)))
+    # ragged: K=40, M=1000 (7.8 row tiles), N=24, both epilogues
+    xr = bf16(1000, 48, scale=0.5)
+    vr, wr, v2r = vec(48), signs(48, 24), vec(24, 0.01, 0.05, 0.3)
+    cases.append(("affine_dot_i8", "ragged K=40->24 M=1000 +BN2,q8",
+                  codes(1000, 24), lambda b: b,
+                  lambda f, b: f(xr[:, :40], vr, wr, b, s=s, vec2=v2r)))
+    cases.append(("affine_dot_i8", "ragged K=40->24 M=1000",
+                  bf16(1000, 40), lambda b: b[:, 8:32],
+                  lambda f, b: f(xr[:, :40], vr, wr, b[:, 8:32], s=s)))
+    # conv3x3_i8: Cb=128 -> 32 into the out32 slot at r=64 and r=4
+    for r in (64, 4):
+        m = n * r * r
+        y = codes(m, cb).clamp_(min=0)          # relu'd codes
+        w3 = signs(9 * cb, g)
+        cases.append(("conv3x3_i8", f"Cb=128->32 r={r}", bf16(m, c + 2 * g),
+                      lambda b: b[:, c + g:],
+                      lambda f, b, y=y, w3=w3, r=r:
+                      f(y, w3, n, r, r, b[:, c + g:], s=s)))
+    # ragged conv: Cb=24 (byte loads), 3 images of 6x6 (M=108), G=8
+    yr, w3r = codes(108, 24), signs(9 * 24, 8)
+    cases.append(("conv3x3_i8", "ragged Cb=24->8 r=6 M=108", bf16(108, 16),
+                  lambda b: b[:, 8:],
+                  lambda f, b: f(yr, w3r, 3, 6, 6, b[:, 8:], s=s)))
+    # int8_matmul_dequant: the plain path's 1x1 convs at every K
+    ones = torch.ones(c, device=dev)
+    for k in (128, 160, 192, 256, 288, 320):
+        x, w = codes(m64, k).clamp_(min=0), signs(k, c)
+        cases.append(("int8_matmul_dequant", f"K={k}->128 r=64", None, None,
+                      lambda f, x=x, w=w: f(x, w, ones, 1 / s)))
+    # ragged: K=20 (unaligned 20-byte rows), M=1000, N=24, column scales
+    xq, wq = codes(1000, 20), codes(20, 24)
+    cs = torch.rand(24, generator=gen).to(dev)
+    cases.append(("int8_matmul_dequant", "ragged K=20->24 M=1000", None,
+                  None, lambda f: f(xq, wq, cs, 1 / s)))
+    return cases
+
+
+def phase_int8_kernels(torch, qops):
+    """Each int8 kernel against its plain version on the same operands:
+    the outputs must be bit-identical (integer products accumulate exactly
+    in any order; every float rounding point is shared)."""
+    gen = torch.Generator().manual_seed(3)
+    results = {}
+    for name, label, dst, sel, call in int8_kernel_cases(torch, gen):
+        kern = getattr(qops, name)
+        plain = qops.PLAIN[kern]
+        if dst is None:                          # returns a new tensor
+            got = call(kern)
+            want = torch.empty_like(got)
+            call(lambda *a: plain(*a, want))
+            run_k, run_p = (lambda: call(kern)), (lambda: call(
+                lambda *a: plain(*a, want)))
+            untouched = True
+        else:
+            k_buf, p_buf = dst.clone(), dst.clone()
+            call(kern, k_buf)
+            call(plain, p_buf)
+            got, want = sel(k_buf), sel(p_buf)
+            outside = k_buf.clone()
+            sel(outside).copy_(sel(dst))
+            untouched = torch.equal(outside, dst)
+            run_k, run_p = (lambda: call(kern, k_buf)), (
+                lambda: call(plain, p_buf))
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        err = (got.float() - want.float()).abs().max().item()
+        ms = cuda_time_ms(run_k)
+        plain_ms = cuda_time_ms(run_p)
+        print(f"int8 kernel {name} [{label}]: bit-identical {same} "
+              f"(max_abs_err {err:.4g}), outside view untouched "
+              f"{untouched}, {ms:.4f} ms vs plain {plain_ms:.4f} ms",
+              flush=True)
+        require(same, f"{name} [{label}] differs from its plain version: "
+                f"max_abs_err {err}")
+        require(untouched, f"{name} [{label}] wrote outside its view")
+        r = results.setdefault(name, {"max_abs_err": 0.0})
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r.setdefault("ms", ms)          # first case = main-path headline
+        r.setdefault("plain_ms", plain_ms)
+        r.setdefault("shape", label)
+    return results
+
+
+def _rel(a, b):
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def phase_int8_serving(torch, ops, qops, gpu, float_ms):
+    """CU-Net-8 @256 bf16, quantized W1/I8/G8 (``bench.py``'s int8
+    configuration), params ``quant_eval_params`` of the port's init (seed
+    0): serving on the int8 kernel path (the main path), the bit-identical
+    check of its int8 kernels at every launch of a request, the plain
+    path with ``int8_impl="pallas"`` (kernel #10) against ``"lax"``, the
+    kernel path against the plain path beside a same-run control, and
+    timing."""
+    from cunet_tpu_torch import ModelConfig, QuantConfig
+    from cunet_tpu_torch.kernels import model_buf
+    from cunet_tpu_torch.models import init_cu_net
+    from cunet_tpu_torch.serving import Predictor
+    from cunet_tpu_torch.train import quant_eval_params
+
+    cfg = ModelConfig(layer_num=8, order=1, class_num=16, loss_num=8,
+                      compute_dtype="bfloat16", use_pallas=True,
+                      pallas_whole_model=True)
+    plain_cfg = dataclasses.replace(cfg, use_pallas=False)
+    quant = QuantConfig(bits_w=1, bits_i=8, bits_g=8, enabled=True,
+                        int8_infer=True, int8_impl="pallas")
+    lax = dataclasses.replace(quant, int8_impl="lax")
+    params, state = init_cu_net(cfg, torch.Generator().manual_seed(0))
+    qparams = quant_eval_params(params, quant)
+    values = {float(u) for k, v in qparams.items() if k.endswith("conv2")
+              for u in v.unique()}
+    require(values <= {-1.0, 0.0, 1.0}, f"quantized 3x3 weights {values}")
+
+    def predictor(c, q, batch=BATCH, flip=True):
+        return Predictor(c, qparams, state, device="cuda", batch_size=batch,
+                         flip_test=flip, quant=q)
+
+    pred = predictor(cfg, quant)
+    rng = np.random.RandomState(0)
+    requests = [rng.rand(k, 256, 256, 3).astype(np.float32)
+                for k in (8, 5, 11)]
+
+    # ---- the main path: int8 serving on the kernels ----
+    ops.reset_launch_counts()
+    qops.reset_launch_counts()
+    answers = [(pred.heatmaps(imgs), pred.predict(imgs))
+               for imgs in requests]
+    torch.cuda.synchronize()
+    launches = {**ops.launch_counts(), **qops.launch_counts()}
+    print(f"int8 serving: launches on the main path {launches}", flush=True)
+    for imgs, (hm, pts) in zip(requests, answers):
+        k = imgs.shape[0]
+        print(f"int8 serving: request of {k}: heatmaps {hm.shape} "
+              f"max|hm| {np.abs(hm).max():.4g}, landmarks {pts.shape}",
+              flush=True)
+        require(hm.shape == (k, 64, 64, 16), f"heatmaps shape {hm.shape}")
+        require(pts.shape == (k, 16, 2), f"landmarks shape {pts.shape}")
+        require(np.isfinite(hm).all() and np.isfinite(pts).all(),
+                "non-finite output")
+        require(np.abs(hm).max() > 0, "all-zero heatmaps")
+    for name in ("affine_dot_i8", "conv3x3_i8", "affine_dot", "maxpool2",
+                 "upsample2"):
+        require(launches[name] > 0,
+                f"kernel {name} never launched on the int8 main path")
+    require(launches["int8_matmul_dequant"] == 0,
+            "int8_matmul_dequant launched on the whole-model path")
+
+    # ---- the same forward with the int8 kernels' plain versions ----
+    got = answers[0][0]
+    saved = (model_buf.affine_dot_i8, model_buf.conv3x3_i8)
+    model_buf.affine_dot_i8 = qops.PLAIN[qops.affine_dot_i8]
+    model_buf.conv3x3_i8 = qops.PLAIN[qops.conv3x3_i8]
+    try:
+        want = pred.heatmaps(requests[0])
+    finally:
+        model_buf.affine_dot_i8, model_buf.conv3x3_i8 = saved
+    print(f"int8 serving: kernel path vs the same path on the int8 "
+          f"kernels' plain versions, request of 8: bit-identical "
+          f"{np.array_equal(got, want)}", flush=True)
+    require(np.array_equal(got, want),
+            "the int8 kernels' forward differs from their plain versions'")
+
+    # ---- the plain path on kernel #10: the second path ----
+    plain_k = predictor(plain_cfg, quant)
+    qops.reset_launch_counts()
+    hm_k = plain_k.heatmaps(requests[0])
+    torch.cuda.synchronize()
+    plain_launches = qops.launch_counts()
+    hm_l = predictor(plain_cfg, lax).heatmaps(requests[0])
+    print(f"int8 plain path: launches {plain_launches}; int8_impl "
+          f"'pallas' vs 'lax' bit-identical {np.array_equal(hm_k, hm_l)}",
+          flush=True)
+    require(plain_launches["int8_matmul_dequant"] > 0,
+            "int8_matmul_dequant never launched on the plain int8 path")
+    require(np.array_equal(hm_k, hm_l),
+            "the plain int8 path on int8_matmul_dequant differs from lax")
+
+    # ---- kernel path against the plain path, beside a control ----
+    # Each anchor of one request of 8, no flip test. The binarized model is
+    # chaotic at this init (a rounding difference anywhere decorrelates
+    # the later heatmaps, PERF.md section 6), so the kernel path is held,
+    # as the training phase's slot check is, against a control measured
+    # here: the plain path with its BN affine in bf16 (bn_dtype "compute")
+    # against the plain path with its float32 affine (the reference).
+    from cunet_tpu_torch.models import apply_cu_net
+
+    qp, st = pred.params, pred.bn_state
+    x = torch.from_numpy(requests[0]).to("cuda", torch.bfloat16)
+    ctl_cfg = dataclasses.replace(plain_cfg, bn_dtype="compute")
+    with torch.inference_mode():
+        outs = [apply_cu_net(qp, st, x, cfg=c, quant=q, slots=sl)[0]
+                for c, q, sl in ((cfg, quant, pred._slots),
+                                 (plain_cfg, lax, None),
+                                 (ctl_cfg, lax, None))]
+    k_rel, c_rel = [], []
+    for a in range(len(cfg.anchors)):
+        kk, pp, cc = (o[a].float().cpu().numpy() for o in outs)
+        k_rel.append(_rel(kk, pp))
+        c_rel.append(_rel(cc, pp))
+    print(f"int8 serving: kernel path vs plain path (lax, f32 BN affine), "
+          f"request of 8, relative L2 per anchor "
+          f"{[round(v, 4) for v in k_rel]} (mean {np.mean(k_rel):.4f}); "
+          f"control (plain, bf16 BN affine) {[round(v, 4) for v in c_rel]} "
+          f"(mean {np.mean(c_rel):.4f}); bound: mean <= control mean + "
+          f"{INT8_PATH_MARGIN}", flush=True)
+    require(np.isfinite(k_rel).all()
+            and np.mean(k_rel) <= np.mean(c_rel) + INT8_PATH_MARGIN,
+            f"int8 kernel path off the plain path: mean relative L2 "
+            f"{np.mean(k_rel)} > control {np.mean(c_rel)} + "
+            f"{INT8_PATH_MARGIN}")
+
+    # ---- timing ----
+    for label, c, q, batch in (("kernel", cfg, quant, BATCH),
+                               ("kernel", cfg, quant, 64),
+                               ("plain lax", plain_cfg, lax, BATCH),
+                               ("plain lax", plain_cfg, lax, 64),
+                               ("plain pallas", plain_cfg, quant, BATCH)):
+        p = predictor(c, q, batch, flip=False)
+        ms = time_forward(torch, p, batch)
+        print(f"int8 serving: forward batch {batch}: {ms:.3f} ms, "
+              f"{batch / ms * 1e3:.1f} img/s (int8 {label} path; float "
+              f"kernel path {float_ms[batch]:.3f} ms; {gpu})", flush=True)
+    return launches, plain_launches
+
+
 def main() -> int:
     import torch
 
@@ -700,6 +1003,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from cunet_tpu_torch.kernels import buf_ops as ops
     from cunet_tpu_torch.kernels import build
+    from cunet_tpu_torch.kernels import quant_ops as qops
     from cunet_tpu_torch.kernels import train_ops as tops
 
     # ---- phase 1: build ----
@@ -721,9 +1025,12 @@ def main() -> int:
 
     try:
         kernels = phase_kernels(torch, ops)
-        launches = phase_serving(torch, ops, gpu)
+        launches, float_ms = phase_serving(torch, ops, gpu)
         train_kernels = phase_train_kernels(torch, tops, ops)
         train_launches = phase_training(torch, tops, ops, gpu)
+        int8_kernels = phase_int8_kernels(torch, qops)
+        int8_launches, plain_launches = phase_int8_serving(
+            torch, ops, qops, gpu, float_ms)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -748,6 +1055,14 @@ def main() -> int:
                        train_shape=t["shape"],
                        max_abs_err=max(r["max_abs_err"], t["max_abs_err"]))
         rows.append(row)
+    for name, r in int8_kernels.items():
+        rows.append({"name": name, "route": "cuda", "source": INT8_SOURCE,
+                     "replaces": REPLACES[name],
+                     "launches": (int8_launches[name] if
+                                  name != "int8_matmul_dequant" else
+                                  plain_launches[name]),
+                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                     "plain_ms": r["plain_ms"], "shape": r["shape"]})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,12 +5,13 @@ A port of ``cunet_tpu`` (JAX/Pallas on a TPU), which stays in the repository
 as the reference. Module names mirror the JAX package: ``ops.layers``,
 ``ops.bottleneck``, ``models.cu_net``, ``kernels.model_buf`` (the counterpart
 of ``kernels/fused_model_buf.py``), ``kernels.train_slot``, ``train``,
-``evaluation.decode``, ``serving``.
+``evaluation.decode``, ``serving``, ``quant`` (WAGE quantization),
+``kernels.quant_matmul`` and ``kernels.quant_ops`` (the int8 forward).
 The configuration dataclasses and the crop geometry are imported from
 ``cunet_tpu.config`` and ``cunet_tpu.geometry``, whose imports need no JAX;
 nothing in this package imports JAX.
 """
 
-from cunet_tpu.config import ModelConfig, TrainConfig
+from cunet_tpu.config import ModelConfig, QuantConfig, TrainConfig
 
-__all__ = ["ModelConfig", "TrainConfig"]
+__all__ = ["ModelConfig", "QuantConfig", "TrainConfig"]

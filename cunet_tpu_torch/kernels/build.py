@@ -23,7 +23,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("buf_kernels.cu", "train_kernels.cu")
+SOURCES = ("buf_kernels.cu", "train_kernels.cu", "quant_kernels.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -107,6 +107,10 @@ def _declare(lib):
         "cunet_sum_rows": [P, I, L, P, P],
         "cunet_maxpool2_bwd": [P, L, P, L, P, L, I, I, I, I, P],
         "cunet_upsample2_bwd": [P, L, P, L, I, I, I, I, P],
+        "cunet_affine_dot_i8": [P, L, L, I, P, P, P, I, I, F, P, P, P, L, L,
+                                L, P],
+        "cunet_conv3x3_i8": [P, L, L, I, I, I, P, I, F, P, L, P],
+        "cunet_int8_matmul_dequant": [P, L, L, I, P, I, I, P, F, P, L, P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

@@ -16,6 +16,15 @@ A dense stage reads ``buf[:, :K]``, writes its 3x3 output into the
 between slots is one g-wide in-buffer column copy. The buffers hold the
 whole batch and persist across the K slots, because the FIFO entries live
 in them from one slot to the next.
+
+With slots marshalled for int8 (the int8 branch of ``fused_model_buf_infer``) the
+quantized model runs on the int8 kernels of
+:mod:`cunet_tpu_torch.kernels.quant_ops`: each bottleneck quantizes its
+input to int8, multiplies by the {-1, 0, +1} weight with int32
+accumulation, applies BN2's full affine and ReLU to the float32 result and
+quantizes it again for the int8 3x3 conv; adapters and heads are int8
+products too. The intermedia adapters stay float (``affine_dot``), and
+pool, upsample and the FIFO copies are unchanged.
 """
 
 from __future__ import annotations
@@ -32,19 +41,37 @@ from cunet_tpu_torch.kernels.buf_ops import (
     pack_w3,
     upsample2,
 )
+from cunet_tpu_torch.kernels.quant_ops import affine_dot_i8, conv3x3_i8
+from cunet_tpu_torch.quant.wage import scale_s
 
 
 def marshal_slots(slot_args: Sequence[Dict], cfg: ModelConfig,
-                  dtype=torch.bfloat16) -> List[Dict]:
+                  dtype=torch.bfloat16, quant_bits_i: int = 0) -> List[Dict]:
     """Kernel operands from ``cu_net.slot_args``: matrices in ``dtype``, BN
     vectors in float32, vectors and matrices zero-padded to the steady-state
     input width of their position so that growth-phase slots read a prefix
-    of the same padded weight (as ``fused_model_buf_infer`` marshals them)."""
+    of the same padded weight (as ``fused_model_buf_infer`` marshals them).
+
+    With ``quant_bits_i`` (``slot_args(..., fold=False)`` of
+    ``quant_eval_params`` weights) the bottleneck, adapter, head and 3x3
+    matrices are rounded to int8, the intermedia matrices stay in ``dtype``
+    and each block keeps BN2's full (2, Cb) [inv2; shift2] as ``vec2``.
+    Each slot's ``s`` is the activation quantizer's scale 2^(bits_i-1), or
+    None for the float model: it selects ``model_buf_infer``'s mode."""
     nb, order = cfg.num_blocks, cfg.order
     c, g = cfg.init_chan_num, cfg.growth_rate
 
-    def mat(w):
+    def float_mat(w):
         return (w[0, 0] if w.dim() == 4 else w).to(dtype)
+
+    def mat(w):
+        if quant_bits_i:
+            return torch.round(w[0, 0] if w.dim() == 4 else w).to(torch.int8)
+        return float_mat(w)
+
+    def w3_mat(w3):
+        p = pack_w3(w3)
+        return torch.round(p).to(torch.int8) if quant_bits_i else p.to(dtype)
 
     def pad_vec(vec, k):
         return torch.nn.functional.pad(vec.float(), (0, k - vec.shape[1]))
@@ -56,6 +83,7 @@ def marshal_slots(slot_args: Sequence[Dict], cfg: ModelConfig,
         return (2 * c if pos > nb else c) + order * g
 
     ki = c + order * c
+    s_q = scale_s(quant_bits_i) if quant_bits_i else None
     out = []
     for sa in slot_args:
         blocks = []
@@ -64,11 +92,14 @@ def marshal_slots(slot_args: Sequence[Dict], cfg: ModelConfig,
             b = {
                 "vec_b": pad_vec(ws["vec_b"], kb),
                 "w_b": pad_mat(mat(ws["w_b"]), kb).contiguous(),
-                "shift2": ws["vec2"][1].float().contiguous(),
-                "w3": pack_w3(ws["w3"].to(dtype)),
+                "w3": w3_mat(ws["w3"]),
                 "vec_a": pad_vec(ws["vec_a"], kb + g),
                 "w_a": pad_mat(mat(ws["w_a"]), kb + g).contiguous(),
             }
+            if quant_bits_i:
+                b["vec2"] = ws["vec2"].float().contiguous()
+            else:
+                b["shift2"] = ws["vec2"][1].float().contiguous()
             if "w_s" in ws:
                 b["vec_s"] = pad_vec(ws["vec_s"], kb + g)
                 b["w_s"] = pad_mat(mat(ws["w_s"]), kb + g).contiguous()
@@ -76,10 +107,11 @@ def marshal_slots(slot_args: Sequence[Dict], cfg: ModelConfig,
         inter = None
         if sa["inter"] is not None:
             vec, w = sa["inter"]
-            inter = (pad_vec(vec, ki), pad_mat(mat(w), ki).contiguous())
+            inter = (pad_vec(vec, ki), pad_mat(float_mat(w), ki).contiguous())
         vec, w = sa["head"]
         out.append({"inter": inter, "blocks": blocks,
-                    "head": (vec.float().contiguous(), mat(w).contiguous())})
+                    "head": (vec.float().contiguous(), mat(w).contiguous()),
+                    "s": s_q})
     return out
 
 
@@ -87,15 +119,18 @@ def model_buf_infer(y_stem: torch.Tensor, slots: Sequence[Dict],
                     cfg: ModelConfig) -> torch.Tensor:
     """Post-stem forward of all K slots. ``y_stem`` is the (N, h0, h0, c)
     stem output; returns the anchored heads stacked as
-    (N, len(cfg.anchors), h0, h0, class_num) in ``y_stem.dtype``."""
+    (N, len(cfg.anchors), h0, h0, class_num) in ``y_stem.dtype``. Slots
+    marshalled with ``quant_bits_i`` run the quantized model on the int8
+    kernels."""
     n, h0, _, c = y_stem.shape
     nb, order, K = cfg.num_blocks, cfg.order, cfg.layer_num
     g, cb = cfg.growth_rate, cfg.bottleneck_chan
     anchors = cfg.anchors
     dev, dtype = y_stem.device, y_stem.dtype
+    s_q = slots[0]["s"]
 
-    def empty(rows, cols):
-        return torch.empty(rows, cols, device=dev, dtype=dtype)
+    def empty(rows, cols, dt=dtype):
+        return torch.empty(rows, cols, device=dev, dtype=dt)
 
     res = [h0 >> j for j in range(nb + 1)]
     # traversal order: down j = buffer j, neck = nb, up j = nb+1+(nb-1-j)
@@ -104,7 +139,10 @@ def model_buf_infer(y_stem: torch.Tensor, slots: Sequence[Dict],
             + [empty(n * res[j] ** 2, 2 * c + order * g + g)
                for j in reversed(range(nb))])
     inter = empty(n * h0 * h0, c + order * c)
-    y2_scratch = empty(n * h0 * h0, cb)      # relu(BN2(bottleneck)) rows
+    # relu(BN2(bottleneck)) rows: the 3x3 conv's input (int8 codes in the
+    # quantized model)
+    y2_scratch = empty(n * h0 * h0, cb,
+                       dtype if s_q is None else torch.int8)
     ahead_scratch = empty(n * h0 * h0, c)    # ahead before pool / upsample
     out = torch.empty(n, len(anchors), h0, h0, cfg.class_num, device=dev,
                       dtype=dtype)
@@ -118,22 +156,35 @@ def model_buf_infer(y_stem: torch.Tensor, slots: Sequence[Dict],
                 buf[:, base + width * (s + 1):base + width * (s + 2)])
         buf[:, base + width * (order - 1):base + width * order].copy_(src)
 
+    if s_q is not None:
+        def adapter(x, vec, w, out):
+            affine_dot_i8(x, vec, w, out, s=s_q)
+
+        def layer(x, ws, res_, out):
+            y2 = y2_scratch[:x.shape[0]]
+            affine_dot_i8(x, ws["vec_b"], ws["w_b"], y2, s=s_q,
+                          vec2=ws["vec2"])
+            conv3x3_i8(y2, ws["w3"], n, res_, res_, out, s=s_q)
+    else:
+        adapter = affine_dot
+
+        def layer(x, ws, res_, out):
+            y2 = y2_scratch[:x.shape[0]]
+            affine_dot(x, ws["vec_b"], ws["w_b"], y2, bias=ws["shift2"])
+            conv3x3(y2, ws["w3"], n, res_, res_, out)
+
     def dense(i, pos, ws, res_, is_up, ahead_out):
         """One block at buffer ``pos``; ahead -> ``ahead_out``."""
         link = min(i, order)
         buf = bufs[pos]
         base = 2 * c if is_up else c
         kin = base + link * g
-        m = n * res_ * res_
-        y2 = y2_scratch[:m]
-        affine_dot(buf[:, :kin], ws["vec_b"], ws["w_b"], y2,
-                   bias=ws["shift2"])
-        conv3x3(y2, ws["w3"], n, res_, res_, buf[:, kin:kin + g])
-        affine_dot(buf[:, :kin + g], ws["vec_a"], ws["w_a"], ahead_out)
+        layer(buf[:, :kin], ws, res_, buf[:, kin:kin + g])
+        adapter(buf[:, :kin + g], ws["vec_a"], ws["w_a"], ahead_out)
         if "w_s" in ws:
             up_buf = bufs[nb + 1 + (nb - 1 - pos)]
-            affine_dot(buf[:, :kin + g], ws["vec_s"], ws["w_s"],
-                       up_buf[:, c:2 * c])
+            adapter(buf[:, :kin + g], ws["vec_s"], ws["w_s"],
+                    up_buf[:, c:2 * c])
         # growth phase (i < order) leaves out32 where it landed, at FIFO
         # position ``link``; steady state rotates it in
         if order > 0 and i >= order:
@@ -176,6 +227,6 @@ def model_buf_infer(y_stem: torch.Tensor, slots: Sequence[Dict],
         if (i + 1) in anchors:
             vec, w = sl["head"]
             a = anchors.index(i + 1)
-            affine_dot(inter[:, :c], vec, w,
-                       out[:, a].view(n, h0 * h0, cfg.class_num))
+            adapter(inter[:, :c], vec, w,
+                    out[:, a].view(n, h0 * h0, cfg.class_num))
     return out

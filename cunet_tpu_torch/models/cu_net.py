@@ -19,13 +19,22 @@ Paths, chosen by the config as in JAX:
 - the eval kernel forward (``use_pallas=True, pallas_whole_model=True``):
   the stem in plain PyTorch, then the whole post-stem stack over
   channel-plane buffers through the hand-written kernels
-  (:mod:`cunet_tpu_torch.kernels.model_buf`);
+  (:mod:`cunet_tpu_torch.kernels.model_buf`); with an int8 ``QuantConfig``
+  (``int8_infer=True, int8_impl="pallas"``) the same buffers through the
+  int8 kernels;
 - the train kernel path (``use_pallas=True, bn_tile > 0``): the stem in
   plain PyTorch, then each slot through the slot train kernels and their
   recompute backward (:mod:`cunet_tpu_torch.kernels.train_slot`).
 
 The JAX ``lax.scan`` over steady-state slots and its stacked-slot storage
 exist to cut XLA compile time; here every slot runs in a plain loop.
+
+Quantized eval (``quant``, weights from
+:func:`cunet_tpu_torch.train.quant_step.quant_eval_params`) follows the JAX
+package: the activation quantizer before every 3x3 conv and every head, and
+with ``int8_infer`` also before every block 1x1 conv, which then runs as an
+integer product (:func:`_int8_bottleneck_infer`); intermedia adapters are
+never quantized.
 """
 
 from __future__ import annotations
@@ -34,7 +43,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from cunet_tpu.config import ModelConfig
+from cunet_tpu.config import ModelConfig, QuantConfig
 from cunet_tpu_torch.ops import (
     batch_norm,
     bn_inference_scale_shift,
@@ -45,6 +54,7 @@ from cunet_tpu_torch.ops import (
     upsample_nearest_2x,
 )
 from cunet_tpu_torch.ops.layers import running_update
+from cunet_tpu_torch.quant.wage import quan_input
 
 # ---------------------------------------------------------------------------
 # parameter layout and init
@@ -167,9 +177,42 @@ def _norm(params, state, prefix, x, *, cfg, train, upd):
     return y
 
 
+def _int8_bottleneck_infer(params, state, prefix, feats, quant: QuantConfig):
+    """Eval BN -> ReLU -> quantize to int8 (bits_i) -> integer 1x1 conv with
+    the {-1, 0, +1} weights of ``quant_eval_params``, dequantized.
+
+    ``int8_impl="pallas"`` runs the product on the
+    ``int8_matmul_dequant`` kernel on a CUDA tensor; ``"lax"`` runs its
+    float32 product, exact for these integers. Both compute the same
+    numbers bit for bit (``cunet_tpu/models/cu_net.py::
+    _int8_bottleneck_infer``)."""
+    from cunet_tpu_torch.kernels.quant_matmul import (
+        int8_matmul_dequant,
+        quantize_activations_i8,
+    )
+
+    inv, shift = bn_inference_scale_shift(
+        *_bn(params, state, f"{prefix}.norm"))
+    x = torch.cat(list(feats), dim=-1)
+    y = torch.relu(x.float() * inv + shift)
+    y_i8, x_scale = quantize_activations_i8(y, quant.bits_i)
+    w2 = params[f"{prefix}.conv"][0, 0]          # (K, Cout)
+    k, cout = w2.shape
+    if quant.int8_impl == "lax":
+        out = (y_i8.reshape(-1, k).float() @ w2.float()) * x_scale
+    else:
+        out = int8_matmul_dequant(
+            y_i8.reshape(-1, k), torch.round(w2).to(torch.int8),
+            torch.ones(cout, device=x.device), x_scale)
+    return out.reshape(*x.shape[:-1], cout).to(x.dtype)
+
+
 def _apply_bottleneck(params, state, prefix, feats: Sequence[torch.Tensor],
-                      *, cfg, train=False, upd=None):
-    """BN -> ReLU -> 1x1 over a virtual concat (``prefix`` is the unit)."""
+                      *, cfg, train=False, upd=None, quant=None):
+    """BN -> ReLU -> 1x1 over a virtual concat (``prefix`` is the unit);
+    with an ``int8_infer`` quant config, the int8 bottleneck (eval only)."""
+    if quant is not None and quant.int8_infer and not train:
+        return _int8_bottleneck_infer(params, state, prefix, feats, quant)
     norm_p, norm_s = _bn(params, state, f"{prefix}.norm")
     out, ns = dense_bottleneck(
         feats, {"norm": norm_p, "conv": params[f"{prefix}.conv"]}, norm_s,
@@ -179,10 +222,20 @@ def _apply_bottleneck(params, state, prefix, feats: Sequence[torch.Tensor],
     return out
 
 
-def _apply_dense_layer(params, state, prefix, feats, **kw):
-    """Bottleneck 1x1, then BN -> ReLU -> 3x3 conv to ``growth_rate``."""
-    b = _apply_bottleneck(params, state, f"{prefix}.bottleneck", feats, **kw)
-    y = relu(_norm(params, state, f"{prefix}.norm2", b, **kw))
+def _quantize_input(y, quant):
+    """The activation quantizer before a 3x3 conv or a head (bits_i <= 15)."""
+    if quant is not None and quant.bits_i <= 15:
+        return quan_input(y, quant.bits_i)
+    return y
+
+
+def _apply_dense_layer(params, state, prefix, feats, *, quant=None, **kw):
+    """Bottleneck 1x1, then BN -> ReLU [-> quantize] -> 3x3 conv to
+    ``growth_rate``."""
+    b = _apply_bottleneck(params, state, f"{prefix}.bottleneck", feats,
+                          quant=quant, **kw)
+    y = _quantize_input(
+        relu(_norm(params, state, f"{prefix}.norm2", b, **kw)), quant)
     return conv2d(y, params[f"{prefix}.conv2"], stride=1, padding=1)
 
 
@@ -205,10 +258,11 @@ def empty_fifos(cfg: ModelConfig) -> Dict:
 
 
 def _apply_dense_block(params, state, prefix, feats, i: int, fifo: List, *,
-                       cfg, requires_skip: bool, train=False, upd=None):
+                       cfg, requires_skip: bool, train=False, upd=None,
+                       quant=None):
     """Block position ``prefix`` at slot ``i``: returns ((ahead, skip|None),
     new_fifo)."""
-    kw = dict(cfg=cfg, train=train, upd=upd)
+    kw = dict(cfg=cfg, train=train, upd=upd, quant=quant)
     x = list(feats) + list(fifo)
     out = _apply_dense_layer(params, state, f"{prefix}.layers.{i}", x, **kw)
     new_fifo = _fifo_push(fifo, out, i, cfg.order)
@@ -223,10 +277,10 @@ def _apply_dense_block(params, state, prefix, feats, i: int, fifo: List, *,
 
 
 def _apply_hourglass(params, state, x, i: int, fifos: Dict, *, cfg,
-                     train=False, upd=None):
+                     train=False, upd=None, quant=None):
     """num_blocks x (down block -> max pool), neck, num_blocks x (upsample ->
     up block). Returns (x, fifos)."""
-    kw = dict(cfg=cfg, train=train, upd=upd)
+    kw = dict(cfg=cfg, train=train, upd=upd, quant=quant)
     skips = []
     for j in range(cfg.num_blocks):
         (x, skip), fifos["down"][j] = _apply_dense_block(
@@ -258,11 +312,14 @@ def _apply_intermedia(params, state, x, i: int, fifo: List, *, cfg,
     return out, _fifo_push(fifo, out, i, cfg.order)
 
 
-def _apply_head(params, state, prefix, y, *, cfg, train=False, upd=None):
-    """Head: BN -> ReLU -> 1x1 conv to ``class_num`` heatmaps."""
+def _apply_head(params, state, prefix, y, *, cfg, train=False, upd=None,
+                quant=None):
+    """Head: BN -> ReLU [-> quantize] -> 1x1 conv to ``class_num``
+    heatmaps."""
     z = relu(_norm(params, state, f"{prefix}.norm", y, cfg=cfg, train=train,
                    upd=upd))
-    return conv2d(z, params[f"{prefix}.conv"], stride=1, padding=0)
+    return conv2d(_quantize_input(z, quant), params[f"{prefix}.conv"],
+                  stride=1, padding=0)
 
 
 def _apply_stem(params, state, x, *, cfg, train=False, upd=None):
@@ -304,15 +361,18 @@ def _fold_bn_vec(params, state, prefix) -> torch.Tensor:
     return torch.stack(bn_inference_scale_shift(*_bn(params, state, prefix)))
 
 
-def _hg_wset(bp, bs, prefix, skip: bool):
+def _hg_wset(bp, bs, prefix, skip: bool, fold_vec2: bool = True):
     """Folded weights of one block position for one slot (``bp``/``bs`` are
     ``_slot_subtree`` dicts, ``prefix`` the position). BN2's scale folds
     into w_b's output columns (the 1x1 conv is linear and has a single
-    consumer), leaving an add + ReLU for the kernel epilogue."""
+    consumer), leaving an add + ReLU for the kernel epilogue. The int8
+    model keeps BN2's full affine instead (``fold_vec2=False``): its
+    weights must stay in {-1, 0, +1}."""
     vec2 = _fold_bn_vec(bp, bs, f"{prefix}.layers.norm2")
-    w_b = bp[f"{prefix}.layers.bottleneck.conv"] \
-        * vec2[0][None, None, None, :]
-    vec2 = torch.stack([torch.ones_like(vec2[0]), vec2[1]])
+    w_b = bp[f"{prefix}.layers.bottleneck.conv"]
+    if fold_vec2:
+        w_b = w_b * vec2[0][None, None, None, :]
+        vec2 = torch.stack([torch.ones_like(vec2[0]), vec2[1]])
     d = {
         "vec_b": _fold_bn_vec(bp, bs, f"{prefix}.layers.bottleneck.norm"),
         "w_b": w_b,
@@ -327,18 +387,21 @@ def _hg_wset(bp, bs, prefix, skip: bool):
     return d
 
 
-def slot_args(params, state, cfg: ModelConfig) -> List[Dict]:
+def slot_args(params, state, cfg: ModelConfig, fold: bool = True
+              ) -> List[Dict]:
     """Per-slot folded weights in buffer traversal order (down 0..nb-1,
     neck, up nb-1..0), the intermedia adapter and the head: the argument
-    list of the JAX ``fused_model_buf_infer``."""
+    list of the JAX ``fused_model_buf_infer``. ``fold=False`` keeps BN2's
+    scale out of the bottleneck weights (the int8 model)."""
     nb = cfg.num_blocks
     out = []
     for i in range(cfg.layer_num):
         p = _slot_subtree(params, i)
         s = _slot_subtree(state, i)
-        blocks = ([_hg_wset(p, s, f"hg.down.{j}", True) for j in range(nb)]
-                  + [_hg_wset(p, s, "hg.neck", False)]
-                  + [_hg_wset(p, s, f"hg.up.{j}", False)
+        blocks = ([_hg_wset(p, s, f"hg.down.{j}", True, fold)
+                   for j in range(nb)]
+                  + [_hg_wset(p, s, "hg.neck", False, fold)]
+                  + [_hg_wset(p, s, f"hg.up.{j}", False, fold)
                      for j in reversed(range(nb))])
         inter = None
         if i > 0:
@@ -467,12 +530,53 @@ def apply_slot_train(params, state, y, fifos, *, cfg: ModelConfig, i: int):
 # ---------------------------------------------------------------------------
 
 
+def _active(quant: Optional[QuantConfig]) -> Optional[QuantConfig]:
+    """``quant`` if it is an enabled config, else None."""
+    return quant if quant is not None and quant.enabled else None
+
+
+def whole_model_eval(cfg: ModelConfig, quant=None) -> bool:
+    """Whether an eval forward runs the whole-model kernels: float with no
+    quant config, int8 with ``int8_infer`` and ``int8_impl="pallas"``
+    (``cunet_tpu/models/cu_net.py::apply_cu_net``'s dispatch). Every other
+    enabled quant config runs the plain path, with ``use_pallas=False``
+    (with ``use_pallas`` it raises: JAX runs it on unported kernels)."""
+    quant = _active(quant)
+    return cfg.use_pallas and (quant is None or (
+        quant.int8_infer and quant.int8_impl == "pallas"))
+
+
+def _check_eval_quant(cfg: ModelConfig, quant: QuantConfig) -> None:
+    if cfg.use_pallas and not (cfg.pallas_whole_model and quant.int8_infer
+                               and quant.int8_impl == "pallas"):
+        raise NotImplementedError(
+            "a quantized eval with use_pallas runs the whole-model int8 "
+            "kernels only with pallas_whole_model=True, int8_infer and "
+            "int8_impl='pallas'; elsewhere the JAX package sends the "
+            "bottlenecks through its per-bottleneck eval kernels "
+            "(fused_bottleneck.py, TPU kernel #6, not ported yet); use "
+            "use_pallas=False")
+
+
+def eval_slots(params, state, cfg: ModelConfig, quant=None):
+    """Kernel operands of the whole-model eval forward (BN folded, padded,
+    int8 matrices for an int8 ``quant``), built once and reused across
+    calls through ``apply_cu_net(..., slots=)``."""
+    from cunet_tpu_torch.kernels.model_buf import marshal_slots
+
+    quant = _active(quant)
+    return marshal_slots(
+        slot_args(params, state, cfg, fold=quant is None), cfg,
+        dtype=getattr(torch, cfg.compute_dtype),
+        quant_bits_i=quant.bits_i if quant is not None else 0)
+
+
 def _check_train_cfg(cfg: ModelConfig, quant) -> None:
     if cfg.drop_rate > 0:
         raise NotImplementedError(
             "dropout (drop_rate > 0) is not ported yet (ROADMAP queue A "
             "item 8)")
-    if quant is not None and quant.enabled:
+    if _active(quant) is not None:
         raise NotImplementedError(
             "quantized training is not ported yet (ROADMAP queue A item 9)")
     if cfg.use_pallas and not cfg.bn_tile:
@@ -496,18 +600,25 @@ def apply_cu_net(params, state, x: torch.Tensor, *, cfg: ModelConfig,
         statistics; gradients reach float32 ``params`` by autograd. With
         ``cfg.use_pallas`` every slot runs the train kernels
         (:mod:`cunet_tpu_torch.kernels.train_slot`).
-      slots: eval kernel-path weights from
-        :func:`cunet_tpu_torch.kernels.model_buf.marshal_slots`, reused
-        across calls; built from ``params``/``state`` when None.
-      quant: a ``QuantConfig``; quantized training is not ported and
-        raises.
+      slots: eval kernel-path weights from :func:`eval_slots` (for the
+        same ``quant``), reused across calls; built from ``params`` /
+        ``state`` when None.
+      quant: an enabled ``QuantConfig`` runs the quantized model in eval
+        (``params`` from ``quant_eval_params``): activation quantizers
+        before every 3x3 conv and head, and with ``int8_infer`` int8 block
+        1x1 convs, on the int8 kernels when :func:`whole_model_eval`, else
+        on the plain path (``use_pallas=False``). Other quant configs with
+        ``use_pallas`` and quantized training are not ported and raise.
     Returns:
       (list of (N, H/4, W/4, class_num) heatmaps, one per loss anchor in
       U-Net order, state) -- the state is unchanged in eval, and in train
       a new dict with every BN's updated running statistics.
     """
+    quant = _active(quant)
     if train:
         _check_train_cfg(cfg, quant)
+    elif quant is not None:
+        _check_eval_quant(cfg, quant)
     x = x.to(getattr(torch, cfg.compute_dtype))
     upd: Dict[str, torch.Tensor] = {}
     kw = dict(cfg=cfg, train=train, upd=upd)
@@ -524,26 +635,24 @@ def apply_cu_net(params, state, x: torch.Tensor, *, cfg: ModelConfig,
                 outs.append(hm)
         return outs, {**state, **upd}
 
-    if cfg.use_pallas:
+    if not train and whole_model_eval(cfg, quant):
         if not cfg.pallas_whole_model:
             raise NotImplementedError(
                 "the per-slot and per-block kernels (pallas_whole_model="
                 "False) are not ported; use pallas_whole_model=True")
-        from cunet_tpu_torch.kernels.model_buf import (
-            marshal_slots,
-            model_buf_infer,
-        )
+        from cunet_tpu_torch.kernels.model_buf import model_buf_infer
 
         if slots is None:
-            slots = marshal_slots(slot_args(params, state, cfg), cfg,
-                                  dtype=y.dtype)
+            slots = eval_slots(params, state, cfg, quant)
         out = model_buf_infer(y, slots, cfg)
         return [out[:, k] for k in range(out.shape[1])], state
 
     for i in range(cfg.layer_num):
         y, fifos["intermedia"] = _apply_intermedia(
             params, state, y, i, fifos["intermedia"], **kw)
-        y, fifos = _apply_hourglass(params, state, y, i, fifos, **kw)
+        y, fifos = _apply_hourglass(params, state, y, i, fifos, quant=quant,
+                                    **kw)
         if (i + 1) in cfg.anchors:
-            outs.append(_apply_head(params, state, f"heads.{i}", y, **kw))
+            outs.append(_apply_head(params, state, f"heads.{i}", y,
+                                    quant=quant, **kw))
     return outs, ({**state, **upd} if train else state)

@@ -6,7 +6,10 @@ the same shapes), optionally mirror-ensembles with the flip test, and
 decodes heatmaps to landmark coordinates with the reference-exact
 quarter-pixel decode. With ``cfg.use_pallas`` and
 ``cfg.pallas_whole_model`` the forward runs the hand-written kernels; the
-folded kernel weights are marshalled once, here, not per request.
+folded kernel weights are marshalled once, here, not per request. With an
+int8 ``quant`` config (``int8_infer=True``) and weights from
+``quant_eval_params`` it serves the quantized model, on the int8 kernels
+when ``int8_impl="pallas"``.
 """
 
 from __future__ import annotations
@@ -19,7 +22,8 @@ import torch
 from cunet_tpu.config import ModelConfig
 from cunet_tpu.geometry import MPII_FLIP_PAIRS, flip_test_merge
 from cunet_tpu_torch.evaluation import final_preds
-from cunet_tpu_torch.models import apply_cu_net, init_cu_net, slot_args
+from cunet_tpu_torch.models import apply_cu_net, init_cu_net
+from cunet_tpu_torch.models.cu_net import eval_slots, whole_model_eval
 
 
 class Predictor:
@@ -34,6 +38,8 @@ class Predictor:
       batch_size: fixed forward batch; requests are padded/chunked to it.
       flip_test: mirror ensemble (MPII protocol).
       flip_pairs: left/right channel table for the flip test.
+      quant: a ``QuantConfig`` for the quantized model (``params`` must
+        then be ``quant_eval_params`` output).
     """
 
     def __init__(
@@ -47,8 +53,10 @@ class Predictor:
         flip_test: bool = False,
         flip_pairs=MPII_FLIP_PAIRS,
         seed: int = 0,
+        quant=None,
     ):
         self.cfg = cfg
+        self.quant = quant
         self.device = torch.device(device)
         self.batch_size = batch_size
         self.flip_test = flip_test
@@ -60,12 +68,8 @@ class Predictor:
         self.bn_state = {k: v.to(self.device) for k, v in bn_state.items()}
         self.dtype = getattr(torch, cfg.compute_dtype)
         self._slots = None
-        if cfg.use_pallas:
-            from cunet_tpu_torch.kernels.model_buf import marshal_slots
-
-            self._slots = marshal_slots(
-                slot_args(self.params, self.bn_state, cfg), cfg,
-                dtype=self.dtype)
+        if whole_model_eval(cfg, quant):
+            self._slots = eval_slots(self.params, self.bn_state, cfg, quant)
 
     @classmethod
     def from_jax_params(cls, cfg: ModelConfig, params_np, state_np, *,
@@ -81,7 +85,7 @@ class Predictor:
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """One fixed-batch forward: (B, H, W, 3) -> last head's heatmaps."""
         outs, _ = apply_cu_net(self.params, self.bn_state, x, cfg=self.cfg,
-                               slots=self._slots)
+                               slots=self._slots, quant=self.quant)
         return outs[-1]
 
     def _run(self, chunk: np.ndarray) -> np.ndarray:

@@ -1,10 +1,12 @@
 """Device-time breakdown of the CU-Net-8 @256 eval forward on one GPU.
 
-    python -m cunet_tpu_torch.tools.profile_forward [--batch 8 64]
+    python -m cunet_tpu_torch.tools.profile_forward [--batch 8 64] [--int8]
         [--out chiprun_out/profile_forward.json]
 
 For each batch size: the forward (kernel path, bf16, random weights from
-seed 0) is warmed up, then ``--iters`` forwards run under
+seed 0; with ``--int8`` the quantized W1/I8/G8 model of ``bench.py``'s int8
+configuration, weights ``quant_eval_params`` of the same init, on the int8
+kernels) is warmed up, then ``--iters`` forwards run under
 ``torch.profiler``. Prints the host wall time per forward, the device time
 summed by kernel name (the card runs one stream, so kernels do not
 overlap), and the device's busy and idle shares of the window. Needs a CUDA
@@ -23,13 +25,16 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from cunet_tpu.config import ModelConfig
+from cunet_tpu.config import ModelConfig, QuantConfig
 from cunet_tpu_torch.models import init_cu_net
 from cunet_tpu_torch.serving import Predictor
+from cunet_tpu_torch.train.quant_step import quant_eval_params
 
 FLAGSHIP = ModelConfig(layer_num=8, order=1, class_num=16, loss_num=8,
                        compute_dtype="bfloat16", use_pallas=True,
                        pallas_whole_model=True)
+INT8 = QuantConfig(bits_w=1, bits_i=8, bits_g=8, enabled=True,
+                   int8_infer=True, int8_impl="pallas")
 
 
 def profile_window(fn, iters: int) -> dict:
@@ -86,22 +91,29 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batch", type=int, nargs="+", default=[8, 64])
     ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--int8", action="store_true",
+                    help="the quantized model on the int8 kernels")
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_forward: no CUDA device")
     gpu = gpu_name()
     params, state = init_cu_net(FLAGSHIP, torch.Generator().manual_seed(0))
-    report = {"gpu": gpu, "torch": torch.__version__, "runs": []}
+    quant = INT8 if args.int8 else None
+    if quant is not None:
+        params = quant_eval_params(params, quant)
+    report = {"gpu": gpu, "torch": torch.__version__, "int8": args.int8,
+              "runs": []}
     for batch in args.batch:
         pred = Predictor(FLAGSHIP, params, state, device="cuda",
-                         batch_size=batch)
+                         batch_size=batch, quant=quant)
         x = torch.rand(batch, 256, 256, 3, generator=torch.Generator()
                        .manual_seed(1)).to("cuda", pred.dtype)
         r = dict(batch=batch, **profile_window(lambda: pred.forward(x),
                                                args.iters))
         report["runs"].append(r)
-        print_report(f"forward batch {batch} ({gpu})", r)
+        print_report(f"{'int8 ' if args.int8 else ''}forward batch {batch} "
+                     f"({gpu})", r)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(report, f, indent=1)

@@ -9,6 +9,7 @@ from cunet_tpu_torch.train.state import (
     make_optimizer,
     set_lr,
 )
+from cunet_tpu_torch.train.quant_step import quant_eval_params, quant_eval_step
 from cunet_tpu_torch.train.step import eval_step, train_step
 
 __all__ = [
@@ -18,6 +19,8 @@ __all__ = [
     "get_lr",
     "intermediate_mse",
     "make_optimizer",
+    "quant_eval_params",
+    "quant_eval_step",
     "set_lr",
     "train_step",
 ]

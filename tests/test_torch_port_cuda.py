@@ -1,8 +1,11 @@
 """Torch port on the card: each CUDA kernel against its plain version at the
 small test widths (c=16, g=8, Cb=16; widths down to 8, ragged row tiles),
-the kernel forward against the plain forward, and a two-slot kernel train
-step against the plain train step. Skips without a CUDA device. Imports no JAX, so it runs on a
-machine without it:
+the kernel forward against the plain forward, a two-slot kernel train
+step against the plain train step, and the int8 kernels bit-identical to
+their plain versions (K tails, ragged rows, unaligned int8 rows, the
+head's image-major view), alone and in the quantized forward. Skips
+without a CUDA device. Imports no JAX, so it runs on a machine without
+it:
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_port_cuda.py
 """
@@ -13,7 +16,7 @@ import pytest
 import torch
 
 from cunet_tpu.config import ModelConfig
-from cunet_tpu_torch.kernels import buf_ops
+from cunet_tpu_torch.kernels import buf_ops, quant_ops
 from cunet_tpu_torch.models import apply_cu_net, init_cu_net
 
 pytestmark = pytest.mark.cuda
@@ -45,14 +48,18 @@ def _close(got, want):
 
 def _check(kernel, call, dst, sel):
     """Kernel and plain version into clones of ``dst``; compare the view
-    ``sel`` and check nothing outside it moved."""
+    ``sel`` (an int8 kernel bit for bit) and check nothing outside it
+    moved."""
     k_buf, p_buf = dst.clone(), dst.clone()
     before = kernel.launches
     call(kernel, k_buf)
-    call(buf_ops.PLAIN[kernel], p_buf)
+    call({**buf_ops.PLAIN, **quant_ops.PLAIN}[kernel], p_buf)
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
-    _close(sel(k_buf), sel(p_buf))
+    if kernel in quant_ops.PLAIN:
+        assert torch.equal(sel(k_buf), sel(p_buf))
+    else:
+        _close(sel(k_buf), sel(p_buf))
     sel(k_buf).copy_(sel(dst))
     assert torch.equal(k_buf, dst)
 
@@ -312,3 +319,134 @@ def test_kernel_train_step_matches_plain_and_repeats(gen):
     for k in sp:
         rel = ((sk[k] - sp[k]).norm() / sp[k].norm()).item()
         assert rel <= 1e-2, (k, rel)
+
+
+# ---------------------------------------------------------------------------
+# the int8 kernels (bit-identical to their plain versions)
+# ---------------------------------------------------------------------------
+
+from cunet_tpu.config import QuantConfig  # noqa: E402
+from cunet_tpu_torch.kernels import model_buf  # noqa: E402
+from cunet_tpu_torch.train.quant_step import quant_eval_params  # noqa: E402
+
+INT8 = QuantConfig(bits_w=1, bits_i=8, bits_g=8, enabled=True,
+                   int8_infer=True, int8_impl="pallas")
+
+
+def _signs(gen, k, n):
+    return torch.randint(-1, 2, (k, n), generator=gen,
+                         dtype=torch.int8).cuda()
+
+
+def _codes(gen, *shape):
+    return torch.randint(-127, 128, shape, generator=gen,
+                         dtype=torch.int8).cuda()
+
+
+# K tails (24, 40: not multiples of 32), 200 rows (a ragged row tile), N
+# from 8 to 136 (two column blocks)
+@pytest.mark.parametrize("k,n,q8", [(24, 16, False), (40, 24, True),
+                                    (16, 8, True), (200, 136, False)])
+def test_affine_dot_i8(gen, k, n, q8):
+    m = 200
+    x = _bf16(gen, m, k + 8) * 0.5
+    v, w = _vec(gen, k + 8), _signs(gen, k + 8, n)
+    if q8:
+        v2 = _vec(gen, n) * torch.tensor([[0.05], [1.0]], device="cuda")
+        _check(quant_ops.affine_dot_i8,
+                     lambda f, o: f(x[:, :k], v, w, o, s=128.0, vec2=v2),
+                     _codes(gen, m, n), lambda o: o)
+    else:
+        _check(quant_ops.affine_dot_i8,
+                     lambda f, o: f(x[:, :k], v, w, o[:, 8:8 + n], s=128.0),
+                     _bf16(gen, m, n + 16), lambda o: o[:, 8:8 + n])
+
+
+def test_affine_dot_i8_head_slot(gen):
+    b, hw, k, cls = 2, 64, 16, 8
+    x, v, w = _bf16(gen, b * hw, k), _vec(gen, k), _signs(gen, k, cls)
+    _check(quant_ops.affine_dot_i8,
+                 lambda f, o: f(x, v, w, o[:, 2].view(b, hw, cls), s=128.0),
+                 _bf16(gen, b, 3, 8, 8, cls), lambda o: o[:, 2])
+
+
+# Cb=24 (not a multiple of 16: byte loads), 3 images of r x r (ragged
+# row tiles), G up to 40 (two column blocks of 32)
+@pytest.mark.parametrize("cb,g,r", [(16, 8, 8), (24, 8, 2), (48, 40, 5)])
+def test_conv3x3_i8(gen, cb, g, r):
+    n = 3
+    y = _codes(gen, n * r * r, cb).clamp_(min=0)
+    w3 = _signs(gen, 9 * cb, g)
+    _check(quant_ops.conv3x3_i8,
+                 lambda f, o: f(y, w3, n, r, r, o[:, 16:16 + g], s=128.0),
+                 _bf16(gen, n * r * r, 16 + g + 8), lambda o: o[:, 16:16 + g])
+
+
+# K=20: 20-byte rows, unaligned for 16-byte loads
+@pytest.mark.parametrize("m,k,n", [(200, 20, 24), (64, 32, 16),
+                                   (300, 136, 130)])
+def test_int8_matmul_dequant(gen, m, k, n):
+    x, w = _codes(gen, m, k), _codes(gen, k, n)
+    cs = torch.rand(n, generator=gen).cuda()
+    before = quant_ops.int8_matmul_dequant.launches
+    got = quant_ops.int8_matmul_dequant(x, w, cs, 1 / 128)
+    want = torch.empty_like(got)
+    quant_ops.PLAIN[quant_ops.int8_matmul_dequant](x, w, cs, 1 / 128, want)
+    torch.cuda.synchronize()
+    assert quant_ops.int8_matmul_dequant.launches == before + 1
+    assert torch.equal(got, want)
+
+
+def test_int8_wrappers_raise_on_what_the_kernels_do_not_take(gen):
+    x = _bf16(gen, 64, 16)
+    v, w = _vec(gen, 16), _signs(gen, 16, 8)
+    out, codes = _bf16(gen, 64, 8), _codes(gen, 64, 8)
+    with pytest.raises(TypeError):            # float32 x: no silent cast
+        quant_ops.affine_dot_i8(x.float(), v, w, out, s=128.0)
+    with pytest.raises(TypeError):            # bf16 weights
+        quant_ops.affine_dot_i8(x, v, w.bfloat16(), out, s=128.0)
+    with pytest.raises(ValueError):           # BN2 epilogue into bf16
+        quant_ops.affine_dot_i8(x, v, w, out.view(64, 1, 8), s=128.0,
+                                vec2=_vec(gen, 8))
+    with pytest.raises(ValueError):           # weights on the CPU
+        quant_ops.affine_dot_i8(x, v, w.cpu(), out, s=128.0)
+    with pytest.raises(TypeError):            # bf16 conv input
+        quant_ops.conv3x3_i8(x, _signs(gen, 144, 8), 1, 8, 8, out, s=128.0)
+    with pytest.raises(ValueError):           # float32 column scales
+        quant_ops.int8_matmul_dequant(codes, w[:8], torch.ones(
+            8, device="cuda").double(), 1 / 128)
+    with pytest.raises(ValueError):           # CUDA int8 rows, CPU weights
+        quant_ops.int8_matmul_dequant(codes, w[:8].cpu(), torch.ones(
+            8, device="cuda"), 1 / 128)
+
+
+def test_int8_forward_kernels_match_plain_versions_exactly(gen):
+    """The whole-model int8 forward on the card is bit-identical with the
+    int8 kernels swapped for their plain versions, launches them, and the
+    plain path on int8_matmul_dequant is bit-identical to its lax form."""
+    cfg = ModelConfig(layer_num=3, order=1, loss_num=3, neck_size=2,
+                      growth_rate=8, init_chan_num=16, class_num=8,
+                      num_blocks=2, compute_dtype="bfloat16", use_pallas=True,
+                      pallas_whole_model=True)
+    params, state = init_cu_net(cfg, gen, device="cuda")
+    params = quant_eval_params(params, INT8)
+    x = torch.rand(3, 64, 64, 3, generator=gen).cuda()
+    quant_ops.reset_launch_counts()
+    fused, _ = apply_cu_net(params, state, x, cfg=cfg, quant=INT8)
+    counts = quant_ops.launch_counts()
+    assert counts["affine_dot_i8"] and counts["conv3x3_i8"]
+    saved = (model_buf.affine_dot_i8, model_buf.conv3x3_i8)
+    model_buf.affine_dot_i8 = quant_ops.affine_dot_i8_plain
+    model_buf.conv3x3_i8 = quant_ops.conv3x3_i8_plain
+    try:
+        plain, _ = apply_cu_net(params, state, x, cfg=cfg, quant=INT8)
+    finally:
+        model_buf.affine_dot_i8, model_buf.conv3x3_i8 = saved
+    assert all(torch.equal(a, b) for a, b in zip(fused, plain))
+    assert all(a.abs().max() > 0 for a in fused)
+    flat = dataclasses.replace(cfg, use_pallas=False)
+    k8, _ = apply_cu_net(params, state, x, cfg=flat, quant=INT8)
+    assert quant_ops.int8_matmul_dequant.launches > 0
+    lax, _ = apply_cu_net(params, state, x, cfg=flat,
+                          quant=dataclasses.replace(INT8, int8_impl="lax"))
+    assert all(torch.equal(a, b) for a, b in zip(k8, lax))

@@ -40,12 +40,39 @@ Phases, each printing one line (or a few) before the last:
    bit-identical; the plain path on ``int8_matmul_dequant`` (the second
    path) is bit-identical to ``int8_impl="lax"``; the kernel path against
    the plain path beside a same-run control; forward times at batch 8 and
-   64 beside the float kernel path's.
+   64 beside the float kernel path's;
+7. dropout training, CU-Net-8 @256 with drop_rate 0.2 (``bench.py``'s
+   ``cu_net8_256_train_drop0.2``): the dropout-mask kernel against the
+   plain masks at the train shapes (batch 24, tile 2): on ones
+   bit-identical to the plain tile masks at every traversal position
+   (r = 64..4, 12 tiles, a negative seed), conv3x3 plus mask bit-identical
+   to the undropped kernel output times the plain mask, the backward form
+   bit-identical, the drop fraction of a full out32; then the kernel step
+   against the plain step from the same state and seeds in phase 5's
+   bands, a bit-identical repeat, three ``train_step``s from a generator
+   on the kernel path (the main path: every kernel and the mask kernel
+   launch), step times of both paths;
+8. quantized training, the same model with ``QuantConfig(bits_w=1,
+   bits_i=8, bits_g=8, enabled=True)`` (``cu_net8_256_quant_w1i8g8_train``):
+   the QuanInput options of the train kernels against their plain
+   versions (the quantized prologues within phase 4's bounds, the
+   straight-through gate exact on values that straddle 1.0 after bf16
+   rounding), and the quantizer of each quantized prologue bit for bit
+   through products made exact (identity and one-hot weights, {0, 1}
+   cotangents); then ``quant_train_step``'s kernel step against its plain
+   step, each comparison held to at most CONTROL_FACTOR times a
+   plain-vs-plain control of the same run (the quantized model is chaotic
+   in bf16; ``cunet_tpu_torch/tools/plant_faults.py`` shows which limit
+   each dropped option breaks), a bit-identical repeat, three
+   ``quant_train_step``s on the kernel path (every kernel and every
+   QuanInput option launches), step times.
 
 The line before the last is a JSON object with each kernel's launches,
-error and times; the last line is ``{"ok": true, "device": {...}}``. Any
-failed check ends the run with a non-zero exit and no result line. There is
-no CPU fallback: without a CUDA device the script exits non-zero.
+error, times, the least time the card could take for the same work and
+the time of one PyTorch call computing the same function where there is
+one; the last line is ``{"ok": true, "device": {...}}``. Any failed check
+ends the run with a non-zero exit and no result line. There is no CPU
+fallback: without a CUDA device the script exits non-zero.
 """
 
 from __future__ import annotations
@@ -80,7 +107,19 @@ REPLACES = {
     "maxpool2_bwd": "cunet_tpu/kernels/train_slot.py:814",
     "upsample2_bwd": "cunet_tpu/kernels/train_slot.py:847",
     "sum_rows": "cunet_tpu/kernels/train_slot.py:854",
+    "drop_mask": "cunet_tpu/kernels/train_slot.py:226",
+    "affine_dot[bits_i]": "cunet_tpu/kernels/train_slot.py:198",
+    "conv3x3[bits_i]": "cunet_tpu/kernels/train_slot.py:198",
+    "affine_dx[ste]": "cunet_tpu/kernels/train_slot.py:218",
+    "conv3x3_dx[ste]": "cunet_tpu/kernels/train_slot.py:218",
+    "affine_dw[bits_i]": "cunet_tpu/kernels/train_slot.py:585",
+    "conv3x3_dw[bits_i]": "cunet_tpu/kernels/train_slot.py:198",
 }
+# published peaks of one H100 SXM at its 700 W limit (NVIDIA's data
+# sheet): HBM bytes/s, and dense operations/s by type ("f32" = float32
+# outside the tensor cores)
+PEAK_BYTES = 3.35e12
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
 # the bf16 output rounds at 2^-8 of its magnitude
 REL_BOUND, ABS_BOUND = 2e-2, 1e-2
 # a float32 result of an n-term reduction, summed in another order, moves
@@ -101,13 +140,51 @@ CONTROL_NUDGE = 1e-4
 COSINE_MARGIN = 0.05
 HEADS_REL_L2 = 5e-2
 BN_STATE_REL_L2 = 1e-2
+# a kernel step held to a same-run control (quantized training) may differ
+# from the plain step by at most this many times the control's difference
+CONTROL_FACTOR = 2.0
 # int8 kernel path vs plain path: the mean over anchors of their relative
 # L2 may exceed the same-run control's by this much (PERF.md, section 6)
 INT8_PATH_MARGIN = 0.05
+DROP_RATE = 0.2
+DROP_FRACTION_TOL = 0.005
 
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+def sz(*dims, e=2):
+    """Bytes of a tensor of shape ``dims`` and element size ``e``."""
+    n = e
+    for d in dims:
+        n *= d
+    return n
+
+
+def work(nbytes, ops=0, kind="bf16"):
+    """What a kernel call must do: bytes it moves (each input read once,
+    each output written once), operations and their type."""
+    return nbytes, ops, kind
+
+
+def bound(w):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    operations over the peak rate of their type."""
+    nbytes, ops, kind = w
+    tb, to = nbytes / PEAK_BYTES * 1e3, ops / PEAK_OPS[kind] * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def record(results, name, err, ms, plain_ms, label, w, lib_ms):
+    """Fold one case into ``results[name]``: the worst error; the first
+    case's (the main-path headline's) times, bound and library time."""
+    r = results.setdefault(name, {"max_abs_err": 0.0})
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+    if "ms" not in r:
+        bms, by = bound(w)
+        r.update(ms=ms, plain_ms=plain_ms, shape=label, bound_ms=bms,
+                 bound_by=by, library_ms=lib_ms)
 
 
 def require(cond, msg):
@@ -145,8 +222,10 @@ def cuda_time_ms(fn, iters=20):
 
 def kernel_cases(torch, gen):
     """(kernel name, label, callable(fn, out), destination buffer, view
-    selector) at the flagship's main-path shapes: c=128, g=32, Cb=128,
-    cls=16, h0=64, batch 8."""
+    selector, work, library call or None) at the flagship's main-path
+    shapes: c=128, g=32, Cb=128, cls=16, h0=64, batch 8."""
+    import torch.nn.functional as F
+
     dev = "cuda"
     c, g, cb, cls, h0, n = 128, 32, 128, 16, 64, 8
 
@@ -166,11 +245,17 @@ def kernel_cases(torch, gen):
     heads = randn(n, 8, h0, h0, cls)          # (N, A, h, w, cls)
     cases = []
 
+    def dot_work(k, nout, bias=False):
+        return work(sz(m64, k) + sz(k, nout) + sz(2, k, e=4)
+                    + (sz(nout, e=4) if bias else 0) + sz(m64, nout),
+                    2 * m64 * k * nout)
+
     # K1: adapter K=192 -> 128 written into the up buffer's skip slot
     v, w = vec(192), randn(192, c, scale=192 ** -0.5)
     cases.append(("affine_dot", "K=192->128 r=64", up64,
                   lambda b: b[:, c:2 * c],
-                  lambda f, b: f(down64, v, w, b[:, c:2 * c])))
+                  lambda f, b: f(down64, v, w, b[:, c:2 * c]),
+                  dot_work(192, c), None))
     # K1: bottleneck K=160 -> 128 with the shift+ReLU epilogue
     v2, w2 = vec(160), randn(160, cb, scale=160 ** -0.5)
     bias = (torch.randn(cb, generator=gen) * 0.5).to(dev)
@@ -178,41 +263,54 @@ def kernel_cases(torch, gen):
     cases.append(("affine_dot", "K=160->128 +shift,relu r=64", y2dst,
                   lambda b: b[:, :cb],
                   lambda f, b: f(down64[:, :160], v2, w2, b[:, :cb],
-                                 bias=bias)))
+                                 bias=bias), dot_work(160, cb, True), None))
     # K1: head K=128 -> 16 into anchor slot 3 of the stacked head output
     v3, w3 = vec(c), randn(c, cls, scale=c ** -0.5)
     cases.append(("affine_dot", "head K=128->16 r=64", heads,
                   lambda b: b[:, 3],
                   lambda f, b: f(inter[:, :c], v3, w3,
-                                 b[:, 3].view(n, h0 * h0, cls))))
-    # K2: 3x3 conv into the out32 slot, at r=64 and r=4
+                                 b[:, 3].view(n, h0 * h0, cls)),
+                  dot_work(c, cls), None))
+    # K2: 3x3 conv into the out32 slot, at r=64 and r=4 (the library
+    # call: cuDNN on the same rows viewed as channels-last NCHW)
     for r in (64, 4):
         m = n * r * r
         y2 = torch.relu(randn(m, cb))
         wk = randn(9 * cb, g, scale=(9 * cb) ** -0.5)
+        w_oihw = wk.view(3, 3, cb, g).permute(3, 2, 0, 1).contiguous()
         dst = randn(m, c + g + g)
         cases.append(("conv3x3", f"Cb=128->32 r={r}", dst,
                       lambda b: b[:, c + g:c + 2 * g],
                       lambda f, b, y2=y2, wk=wk, r=r:
-                      f(y2, wk, n, r, r, b[:, c + g:c + 2 * g])))
+                      f(y2, wk, n, r, r, b[:, c + g:c + 2 * g]),
+                      work(sz(m, cb) + sz(9 * cb, g) + sz(m, g),
+                           2 * m * 9 * cb * g),
+                      lambda y2=y2, w_oihw=w_oihw, r=r:
+                      F.conv2d(nchw(y2, r), w_oihw, padding=1)))
     # K3: pool 64 -> 32 into the next down buffer
     ahead = randn(m64, c)
     down32 = randn(n * 32 * 32, c + g + g)
     cases.append(("maxpool2", "64->32", down32, lambda b: b[:, :c],
-                  lambda f, b: f(ahead, n, 64, 64, b[:, :c])))
+                  lambda f, b: f(ahead, n, 64, 64, b[:, :c]),
+                  work(sz(m64, c) + sz(m64 // 4, c), 3 * m64 // 4 * c,
+                       "f32"),
+                  lambda: F.max_pool2d(nchw(ahead, 64), 2)))
     # K4: upsample 4 -> 8 and 32 -> 64 into the next up buffer
     for r in (32, 4):
         x = randn(n * r * r, c)
         dst = randn(n * 4 * r * r, 2 * c + g + g)
         cases.append(("upsample2", f"{r}->{2 * r}", dst, lambda b: b[:, :c],
-                      lambda f, b, x=x, r=r: f(x, n, r, r, b[:, :c])))
+                      lambda f, b, x=x, r=r: f(x, n, r, r, b[:, :c]),
+                      work(sz(n * r * r, c) + sz(4 * n * r * r, c)),
+                      lambda x=x, r=r: F.interpolate(
+                          nchw(x, r), scale_factor=2, mode="nearest")))
     return cases
 
 
 def phase_kernels(torch, ops):
     gen = torch.Generator().manual_seed(0)
     results = {}
-    for name, label, dst, sel, call in kernel_cases(torch, gen):
+    for name, label, dst, sel, call, w, lib in kernel_cases(torch, gen):
         kern = getattr(ops, name)
         plain = ops.PLAIN[kern]
         k_buf, p_buf = dst.clone(), dst.clone()
@@ -221,25 +319,24 @@ def phase_kernels(torch, ops):
         torch.cuda.synchronize()
         got, want = sel(k_buf).float(), sel(p_buf).float()
         err = (got - want).abs().max().item()
-        bound = REL_BOUND * want.abs().max().item() + ABS_BOUND
+        bound_ = REL_BOUND * want.abs().max().item() + ABS_BOUND
         # everything outside the destination view must be untouched
         outside = k_buf.clone()
         sel(outside).copy_(sel(dst))
         untouched = torch.equal(outside, dst)
         ms = cuda_time_ms(lambda: call(kern, k_buf))
         plain_ms = cuda_time_ms(lambda: call(plain, p_buf))
+        lib_ms = None if lib is None else cuda_time_ms(lib)
         print(f"kernel {name} [{label}]: max_abs_err {err:.4g} (bound "
-              f"{bound:.4g}), outside view untouched {untouched}, "
-              f"{ms:.4f} ms vs plain {plain_ms:.4f} ms", flush=True)
-        require(np.isfinite(err) and err <= bound,
+              f"{bound_:.4g}), outside view untouched {untouched}, "
+              f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, library "
+              f"{lib_ms if lib_ms is None else f'{lib_ms:.4f} ms'}, "
+              f"bound {bound(w)[0]:.4f} ms ({bound(w)[1]})", flush=True)
+        require(np.isfinite(err) and err <= bound_,
                 f"{name} [{label}] disagrees with its plain version: "
-                f"{err} > {bound}")
+                f"{err} > {bound_}")
         require(untouched, f"{name} [{label}] wrote outside its view")
-        r = results.setdefault(name, {"max_abs_err": 0.0})
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-        r.setdefault("ms", ms)          # first case = main-path headline
-        r.setdefault("plain_ms", plain_ms)
-        r.setdefault("shape", label)
+        record(results, name, err, ms, plain_ms, label, w, lib_ms)
     return results
 
 
@@ -327,12 +424,40 @@ def phase_serving(torch, ops, gpu):
 # ---------------------------------------------------------------------------
 
 
-def train_kernel_cases(torch, tops, bops, gen):
-    """(kernel, label, make_out, call(fn, out), bound) at the CU-Net-8 @256
-    train shapes (c=128, g=32, Cb=128, cls=16, h0=64, batch 24, tile 2).
-    bound is ("bf16",), ("exact",) or ("sum", n) for an n-term reduction."""
+def nchw(t, r):
+    """(B*r*r, C) channel-plane rows as a (B, C, r, r) NCHW view."""
+    return t.view(-1, r, r, t.shape[1]).permute(0, 3, 1, 2)
+
+
+def empty_of(torch, dtype, *shape):
+    """A maker of fresh outputs of ``shape`` on the card."""
+    return lambda: torch.empty(*shape, device="cuda", dtype=dtype)
+
+
+def tile_vec(torch, tops, x, gen):
+    """Ghost-BN statistics of x (M, K) per tile at the train shapes, a random
+    BN (weight in [0.5, 1.5), bias 0.3 N(0, 1)) and their (T, 2, K) float32
+    [inv; shift] vectors: (stats, bn, vec)."""
     from cunet_tpu_torch.kernels.train_slot import _affine_vec
 
+    k = x.shape[1]
+    st = torch.empty(TRAIN_BATCH // BN_TILE, 2, k, device="cuda")
+    tops.bn_stats_plain(x, st)
+    bn = torch.stack([torch.rand(k, generator=gen) + 0.5,
+                      torch.randn(k, generator=gen) * 0.3]).to("cuda")
+    return st, bn, _affine_vec(st, bn, 1e-5)
+
+
+def vec_bytes(k):
+    """Bytes of the per-tile (T, 2, K) float32 vectors at the train shapes."""
+    return sz(TRAIN_BATCH // BN_TILE, 2, k, e=4)
+
+
+def train_kernel_cases(torch, tops, bops, gen):
+    """(kernel, label, make_out, call(fn, out), bound, work, library call or
+    None) at the CU-Net-8 @256 train shapes (c=128, g=32, Cb=128, cls=16,
+    h0=64, batch 24, tile 2). bound is ("bf16",), ("exact",) or ("sum", n)
+    for an n-term reduction."""
     dev = "cuda"
     c, g, cb, cls, h0, n = 128, 32, 128, 16, 64, TRAIN_BATCH
     tiles = n // BN_TILE
@@ -341,18 +466,13 @@ def train_kernel_cases(torch, tops, bops, gen):
         return (torch.randn(*shape, generator=gen) * scale).to(dev, dtype)
 
     def vec(x):
-        k = x.shape[1]
-        st = torch.empty(tiles, 2, k, device=dev)
-        tops.bn_stats_plain(x, st)
-        bn = torch.stack([torch.rand(k, generator=gen) + 0.5,
-                          torch.randn(k, generator=gen) * 0.3]).to(dev)
-        return st, bn, _affine_vec(st, bn, 1e-5)
+        return tile_vec(torch, tops, x, gen)
 
     def f32(*shape):
-        return lambda: torch.empty(*shape, device=dev)
+        return empty_of(torch, torch.float32, *shape)
 
     def bf16(*shape):
-        return lambda: torch.empty(*shape, device=dev, dtype=torch.bfloat16)
+        return empty_of(torch, torch.bfloat16, *shape)
 
     m64 = n * h0 * h0
     down64 = randn(m64, c + g + g)            # [y | fifo | out32]
@@ -364,90 +484,139 @@ def train_kernel_cases(torch, tops, bops, gen):
     sth, bnh, vh = vec(y_out)
     w_h = randn(c, cls, scale=c ** -0.5)
     d_head = randn(m64, cls)
+
+    def dx_work(k, nout):          # dy, w, x, vec -> f32 (m, k)
+        return work(sz(m64, nout) + sz(k, nout) + sz(m64, k) + vec_bytes(k)
+                    + sz(m64, k, e=4), 2 * m64 * k * nout)
+
+    def dw_work(k, nout):          # x, vec, dy -> f32 (k, nout)
+        return work(sz(m64, k) + vec_bytes(k) + sz(m64, nout)
+                    + sz(k, nout, e=4), 2 * m64 * k * nout)
+
+    x160 = down64[:, :160]
     cases = [
         (tops.bn_stats, "r=64 K=160", f32(tiles, 2, 160),
-         lambda f, o: f(down64[:, :160], o), ("sum", 2 * h0 * h0)),
+         lambda f, o: f(x160, o), ("sum", 2 * h0 * h0),
+         work(sz(m64, 160) + sz(tiles, 2, 160, e=4), 3 * m64 * 160, "f32"),
+         lambda: torch.var_mean(x160.view(tiles, -1, 160), dim=1,
+                                correction=0)),
         (bops.affine_dot, "K=192->128 r=64 per-tile", bf16(m64, c),
-         lambda f, o: f(x2, v2, w_a, o), ("bf16",)),
+         lambda f, o: f(x2, v2, w_a, o), ("bf16",),
+         work(sz(m64, 192) + sz(192, c) + vec_bytes(192) + sz(m64, c),
+              2 * m64 * 192 * c), None),
         (tops.affine_dx, "K=192->128 r=64", f32(m64, 192),
-         lambda f, o: f(d_ahead, w_a, x2, v2, o), ("sum", c)),
+         lambda f, o: f(d_ahead, w_a, x2, v2, o), ("sum", c),
+         dx_work(192, c), None),
         (tops.affine_dx, "head 128->16 r=64", f32(m64, c),
-         lambda f, o: f(d_head, w_h, y_out, vh, o), ("sum", cls)),
+         lambda f, o: f(d_head, w_h, y_out, vh, o), ("sum", cls),
+         dx_work(c, cls), None),
         (tops.affine_dw, "K=192->128 r=64", f32(192, c),
-         lambda f, o: f(x2, v2, d_ahead, o), ("sum", m64)),
+         lambda f, o: f(x2, v2, d_ahead, o), ("sum", m64),
+         dw_work(192, c), None),
         (tops.affine_dw, "head 128->16 r=64", f32(c, cls),
-         lambda f, o: f(y_out, vh, d_head, o), ("sum", m64)),
+         lambda f, o: f(y_out, vh, d_head, o), ("sum", m64),
+         dw_work(c, cls), None),
     ]
     d_a = randn(m64, 192, dtype=torch.float32)
     cases.append((tops.bn_bwd, "K=192 r=64", f32(m64, 192),
                   lambda f, o: f(x2, d_a, st2, bn2, 1e-5, o,
                                  torch.empty(2, 192, device=dev)),
-                  ("sum", 2 * h0 * h0)))
+                  ("sum", 2 * h0 * h0),
+                  work(sz(m64, 192) + 2 * sz(m64, 192, e=4) + vec_bytes(192),
+                       8 * m64 * 192, "f32"), None))
     for r in (64, 4):
         m = n * r * r
         yb = randn(m, cb)
         _, _, vb = vec(yb)
         w3 = randn(9 * cb, g, scale=(9 * cb) ** -0.5)
+        w_oihw = w3.view(3, 3, cb, g).permute(3, 2, 0, 1).contiguous()
         d_o = randn(m, g)
+        conv_ops = 2 * m * 9 * cb * g
         cases += [
             (bops.conv3x3, f"Cb=128->32 r={r} per-tile prologue",
              bf16(m, g), lambda f, o, yb=yb, w3=w3, vb=vb, r=r:
-             f(yb, w3, n, r, r, o, vec=vb) if f is bops.conv3x3
-             else f(yb, w3, n, r, r, o, vb), ("bf16",)),
+             f(yb, w3, n, r, r, o, vec=vb), ("bf16",),
+             work(sz(m, cb) + vec_bytes(cb) + sz(9 * cb, g) + sz(m, g),
+                  conv_ops),
+             None),
             (tops.conv3x3_dx, f"32->128 r={r}", f32(m, cb),
              lambda f, o, yb=yb, w3=w3, vb=vb, d_o=d_o, r=r:
-             f(d_o, w3, n, r, r, yb, vb, o), ("sum", 9 * g)),
+             f(d_o, w3, n, r, r, yb, vb, o), ("sum", 9 * g),
+             work(sz(m, g) + sz(9 * cb, g) + sz(m, cb) + vec_bytes(cb)
+                  + sz(m, cb, e=4), conv_ops),
+             lambda d_o=d_o, w_oihw=w_oihw, r=r:
+             torch.nn.grad.conv2d_input((n, cb, r, r), w_oihw,
+                                        nchw(d_o, r), padding=1)),
             (tops.conv3x3_dw, f"(9*128, 32) r={r}", f32(9 * cb, g),
              lambda f, o, yb=yb, vb=vb, d_o=d_o, r=r:
-             f(yb, vb, d_o, n, r, r, o), ("sum", m)),
+             f(yb, vb, d_o, n, r, r, o), ("sum", m),
+             work(sz(m, cb) + vec_bytes(cb) + sz(m, g) + sz(9 * cb, g, e=4),
+                  conv_ops),
+             lambda yb=yb, d_o=d_o, r=r:
+             torch.nn.grad.conv2d_weight(nchw(yb, r), (g, cb, 3, 3),
+                                         nchw(d_o, r), padding=1)),
         ]
     ahead = randn(m64, c)
     d_pool = randn(m64 // 4, c, dtype=torch.float32)
     cases.append((tops.maxpool2_bwd, "64->32", bf16(m64, c),
-                  lambda f, o: f(ahead, d_pool, n, 64, 64, o), ("exact",)))
+                  lambda f, o: f(ahead, d_pool, n, 64, 64, o), ("exact",),
+                  work(sz(m64, c) + sz(m64 // 4, c, e=4) + sz(m64, c),
+                       4 * m64 * c, "f32"), None))
     d_up = randn(n * 64, c, dtype=torch.float32)
     cases.append((tops.upsample2_bwd, "8->4", bf16(n * 16, c),
-                  lambda f, o: f(d_up, n, 4, 4, o), ("bf16",)))
+                  lambda f, o: f(d_up, n, 4, 4, o), ("bf16",),
+                  work(sz(n * 64, c, e=4) + sz(n * 16, c), 3 * n * 16 * c,
+                       "f32"),
+                  lambda: torch.nn.functional.avg_pool2d(
+                      nchw(d_up, 8), 2, divisor_override=1)))
     part = randn(48, 192, c, dtype=torch.float32)
     cases.append((tops.sum_rows, "48 x (192*128) dW chunks", f32(192, c),
-                  lambda f, o: f(part, o), ("sum", 48)))
+                  lambda f, o: f(part, o), ("sum", 48),
+                  work(sz(48, 192, c, e=4) + sz(192, c, e=4), 48 * 192 * c,
+                       "f32"), lambda: torch.sum(part, 0)))
     return cases
+
+
+def check_case(torch, plain_of, results, prefix, kern, label, make_out,
+               call, bnd, w, lib, name=None):
+    """Kernel against plain version on fresh outputs, within ``bnd``;
+    records error, times, bound and library time under ``name``."""
+    name = name or kern.__name__
+    k_out, p_out = make_out(), make_out()
+    call(kern, k_out)
+    call(plain_of[kern], p_out)
+    torch.cuda.synchronize()
+    got, want = k_out.float(), p_out.float()
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    if bnd[0] == "bf16":
+        lim = REL_BOUND * scale + ABS_BOUND
+    elif bnd[0] == "exact":
+        lim = 0.0
+    else:
+        lim = SUM_REL_PER_SQRT_N * bnd[1] ** 0.5 * scale + 1e-6
+    ms = cuda_time_ms(lambda: call(kern, k_out))
+    plain_ms = cuda_time_ms(lambda: call(plain_of[kern], p_out))
+    lib_ms = None if lib is None else cuda_time_ms(lib)
+    print(f"{prefix} {name} [{label}]: max_abs_err {err:.4g} "
+          f"(bound {lim:.4g}, {bnd[0]}"
+          f"{'' if len(bnd) == 1 else f' n={bnd[1]}'}), "
+          f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, library "
+          f"{lib_ms if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+          f"{bound(w)[0]:.4f} ms ({bound(w)[1]})", flush=True)
+    require(np.isfinite(err) and err <= lim,
+            f"{name} [{label}] disagrees with its plain version: "
+            f"{err} > {lim}")
+    record(results, name, err, ms, plain_ms, label, w, lib_ms)
+    return k_out, p_out
 
 
 def phase_train_kernels(torch, tops, bops):
     gen = torch.Generator().manual_seed(0)
     results = {}
     plain_of = {**bops.PLAIN, **tops.PLAIN}
-    for kern, label, make_out, call, bound in train_kernel_cases(
-            torch, tops, bops, gen):
-        name = kern.__name__
-        k_out, p_out = make_out(), make_out()
-        call(kern, k_out)
-        call(plain_of[kern], p_out)
-        torch.cuda.synchronize()
-        got, want = k_out.float(), p_out.float()
-        err = (got - want).abs().max().item()
-        scale = want.abs().max().item()
-        if bound[0] == "bf16":
-            lim = REL_BOUND * scale + ABS_BOUND
-        elif bound[0] == "exact":
-            lim = 0.0
-        else:
-            lim = SUM_REL_PER_SQRT_N * bound[1] ** 0.5 * scale + 1e-6
-        ms = cuda_time_ms(lambda: call(kern, k_out))
-        plain_ms = cuda_time_ms(lambda: call(plain_of[kern], p_out))
-        print(f"train kernel {name} [{label}]: max_abs_err {err:.4g} "
-              f"(bound {lim:.4g}, {bound[0]}"
-              f"{'' if len(bound) == 1 else f' n={bound[1]}'}), "
-              f"{ms:.4f} ms vs plain {plain_ms:.4f} ms", flush=True)
-        require(np.isfinite(err) and err <= lim,
-                f"{name} [{label}] disagrees with its plain version: "
-                f"{err} > {lim}")
-        r = results.setdefault(name, {"max_abs_err": 0.0})
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-        r.setdefault("ms", ms)          # first case = main-path headline
-        r.setdefault("plain_ms", plain_ms)
-        r.setdefault("shape", label)
+    for case in train_kernel_cases(torch, tops, bops, gen):
+        check_case(torch, plain_of, results, "train kernel", *case)
     return results
 
 
@@ -469,15 +638,20 @@ def gaussian_heatmaps(rng, n, joints, size, sigma=1.0):
     return hm.transpose(0, 2, 3, 1).astype(np.float32)
 
 
-def _grads(torch, cfg, params, state, x, t):
-    """One forward + backward from float32 copies of ``params``: (loss,
-    grads, new bn_state)."""
+def _grads(torch, cfg, params, state, x, t, quant=None, **kw):
+    """One forward + backward from float32 copies of ``params`` (with
+    ``quant``, the masters, through ``quantize_params`` of them): (loss,
+    grads, new bn_state). ``kw`` goes to ``apply_cu_net`` (drop_seeds)."""
     from cunet_tpu_torch.models import apply_cu_net
+    from cunet_tpu_torch.quant import quantize_params, selected_conv_predicate
     from cunet_tpu_torch.train import intermediate_mse
 
     ps = {k: v.detach().clone().requires_grad_(True)
           for k, v in params.items()}
-    outs, new_state = apply_cu_net(ps, state, x, cfg=cfg, train=True)
+    run = ps if quant is None else quantize_params(
+        ps, quant, selected_conv_predicate(ps, "reference"))
+    outs, new_state = apply_cu_net(run, state, x, cfg=cfg, train=True,
+                                   quant=quant, **kw)
     loss = intermediate_mse(outs, t)
     loss.backward()
     return loss.item(), {k: v.grad for k, v in ps.items()}, new_state
@@ -593,120 +767,524 @@ def check_slot(torch, cfg, params, state):
                 f"{rels[worst]} > control {bound}")
 
 
-def time_train(torch, st, batch, cfg, steps=5):
-    from cunet_tpu_torch.train import train_step
-
-    train_step(st, batch, cfg=cfg)
+def time_train(torch, step, steps=5):
+    """Median host time of ``steps`` synchronised calls of ``step()`` after
+    one warm-up, and the peak device memory over them."""
+    step()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     times = []
     for _ in range(steps):
         t0 = time.perf_counter()
-        train_step(st, batch, cfg=cfg)
+        step()
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return float(np.median(times)), torch.cuda.max_memory_allocated()
 
 
-def phase_training(torch, tops, bops, gpu):
-    from cunet_tpu_torch import ModelConfig, TrainConfig
+def step_metrics(torch, g, s, l, gp, sp, lp):
+    """A step's (loss, grads, BN state) against the plain step's: relative
+    loss difference, grad-norm ratio, mean per-leaf cosine, ``heads.*``
+    grads and BN running stats relative L2, and the worst BN leaf."""
+    norm = lambda gr: sum((v.float() ** 2).sum()  # noqa: E731
+                          for v in gr.values()).sqrt()
+    cos = [torch.nn.functional.cosine_similarity(
+        g[k].flatten().float(), gp[k].flatten().float(), dim=0).item()
+        for k in g if gp[k].abs().max() > 0]
+    heads = [k for k in g if k.startswith("heads.")]
+    conv3 = [k for k in g if k.endswith("conv2")]
+    worst = max(sp, key=lambda k: _rel_l2(torch, s, sp, [k]))
+    return dict(loss=abs(l - lp) / abs(lp),
+                ratio=(norm(g) / norm(gp)).item(), cos=float(np.mean(cos)),
+                cos_min=float(np.min(cos)),
+                heads=_rel_l2(torch, g, gp, heads),
+                conv3=_rel_l2(torch, g, gp, conv3),
+                bn=_rel_l2(torch, s, sp, list(sp)), worst_bn=worst,
+                worst_bn_rel=_rel_l2(torch, s, sp, [worst]))
+
+
+def step_limits(c, controlled):
+    """The limits of a kernel step's ``step_metrics`` given the control's
+    ``c``. Without ``controlled``: phase 5's bands, the cosine at least the
+    control's minus COSINE_MARGIN. With it (a model chaotic in bf16, whose
+    control is the plain path with its BN affine in float32) each limit is
+    scaled to the control's own value: the loss difference, ``heads.*`` and
+    BN errors at most the control's plus the band and at most
+    CONTROL_FACTOR times the control's; the cosine at least the control's
+    minus the margin and at least its 1 / CONTROL_FACTOR; the grad-norm
+    ratio within the band around the control's."""
+    if not controlled:
+        return dict(loss=LOSS_REL, heads=HEADS_REL_L2, bn=BN_STATE_REL_L2,
+                    ratio=GRAD_NORM_RATIO, cos=c["cos"] - COSINE_MARGIN)
+    f = CONTROL_FACTOR
+    return dict(loss=min(c["loss"] + LOSS_REL, f * c["loss"]),
+                heads=min(c["heads"] + HEADS_REL_L2, f * c["heads"]),
+                bn=min(c["bn"] + BN_STATE_REL_L2, f * c["bn"]),
+                ratio=(c["ratio"] * GRAD_NORM_RATIO[0],
+                       c["ratio"] * GRAD_NORM_RATIO[1]),
+                cos=max(c["cos"] - COSINE_MARGIN, c["cos"] / f))
+
+
+def step_failures(k, lim):
+    """The limits of ``step_limits`` that the kernel step's metrics ``k``
+    break, each as 'metric value vs limit'."""
+    bad = []
+    if not (np.isfinite(k["loss"]) and k["loss"] <= lim["loss"]):
+        bad.append(f"loss rel {k['loss']:.4g} > {lim['loss']:.4g}")
+    if not lim["ratio"][0] <= k["ratio"] <= lim["ratio"][1]:
+        bad.append(f"grad-norm ratio {k['ratio']:.4f} outside "
+                   f"({lim['ratio'][0]:.4f}, {lim['ratio'][1]:.4f})")
+    if not k["cos"] >= lim["cos"]:
+        bad.append(f"mean cosine {k['cos']:.4f} < {lim['cos']:.4f}")
+    for key, what in (("heads", "heads.* grads rel L2"),
+                      ("bn", "BN running stats rel L2")):
+        if not k[key] <= lim[key]:
+            bad.append(f"{what} {k[key]:.4g} > {lim[key]:.4g}")
+    return bad
+
+
+def reference_steps(torch, cfg, params, state, x, t, controlled=False, **kw):
+    """The plain step's (loss, grads, BN state) and the control's
+    ``step_metrics`` against it (see ``step_limits``)."""
+    plain_cfg = dataclasses.replace(cfg, use_pallas=False)
+    lp, gp, sp = _grads(torch, plain_cfg, params, state, x, t, **kw)
+    if controlled:
+        lq, gq, sq = _grads(torch, dataclasses.replace(
+            plain_cfg, bn_dtype="float32"), params, state, x, t, **kw)
+    else:
+        nudged = dict(params)
+        nudged["stem.norm.bias"] = params["stem.norm.bias"] + CONTROL_NUDGE
+        lq, gq, sq = _grads(torch, plain_cfg, nudged, state, x, t, **kw)
+    return (lp, gp, sp), step_metrics(torch, gq, sq, lq, gp, sp, lp)
+
+
+def compare_steps(torch, label, cfg, params, state, x, t, controlled=False,
+                  **kw):
+    """One kernel-path step against one plain-path step from the same state
+    (and the same dropout seeds or quantizer, ``kw``), beside a control of
+    the same run, within ``step_limits``; then the same kernel step again,
+    bit for bit."""
+    lk, gk, sk = _grads(torch, cfg, params, state, x, t, **kw)
+    (lp, gp, sp), c = reference_steps(torch, cfg, params, state, x, t,
+                                      controlled, **kw)
+    k = step_metrics(torch, gk, sk, lk, gp, sp, lp)
+    lim = step_limits(c, controlled)
+    print(f"{label}: kernel vs plain step on the card: loss {lk:.6g} vs "
+          f"{lp:.6g} (rel {k['loss']:.3g}, bound {lim['loss']:.3g}); "
+          f"grad-norm ratio {k['ratio']:.4f} (band "
+          f"({lim['ratio'][0]:.4f}, {lim['ratio'][1]:.4f})); mean per-leaf "
+          f"cosine {k['cos']:.4f} (min {k['cos_min']:.4f}; bound >= "
+          f"{lim['cos']:.4f}); heads.* grads rel L2 "
+          f"{k['heads']:.4g} (bound {lim['heads']:.4g}); BN running stats "
+          f"rel L2 {k['bn']:.4g} (bound {lim['bn']:.4g}; worst leaf "
+          f"{k['worst_bn']} {k['worst_bn_rel']:.4g}); control ("
+          f"{'plain, f32 BN affine' if controlled else 'plain, stem BN'}"
+          f"{'' if controlled else f' bias +{CONTROL_NUDGE}'}): loss rel "
+          f"{c['loss']:.3g}, ratio {c['ratio']:.4f}, cosine {c['cos']:.4f}, "
+          f"heads {c['heads']:.4g}, BN {c['bn']:.4g}", flush=True)
+    bad = step_failures(k, lim)
+    require(not bad, f"{label}: kernel step off the plain step: "
+            f"{'; '.join(bad)}")
+    lk2, gk2, _ = _grads(torch, cfg, params, state, x, t, **kw)
+    same = lk2 == lk and all(torch.equal(gk[n], gk2[n]) for n in gk)
+    print(f"{label}: repeated kernel step bit-identical: {same}", flush=True)
+    require(same, f"{label}: the kernel train step is not deterministic")
+
+
+def flagship_train(torch):
+    """CU-Net-8 @256 training (bf16, ghost-BN tile 2, bn_dtype "compute",
+    kernel path) from the port's init, seed 0, and its batch of 24 numpy
+    images and Gaussian target heatmaps."""
+    from cunet_tpu_torch import ModelConfig
     from cunet_tpu_torch.models import init_cu_net
-    from cunet_tpu_torch.train import create_train_state, train_step
 
     cfg = ModelConfig(layer_num=8, order=1, class_num=16, loss_num=8,
                       compute_dtype="bfloat16", remat="none",
                       use_pallas=True, bn_tile=BN_TILE, bn_dtype="compute")
-    plain_cfg = dataclasses.replace(cfg, use_pallas=False)
-    params, state = init_cu_net(cfg, torch.Generator().manual_seed(0),
-                                device="cuda")
+    params, state = init_cu_net(cfg, torch.Generator().manual_seed(0))
     rng = np.random.RandomState(0)
     x = torch.from_numpy(rng.rand(TRAIN_BATCH, 256, 256, 3).astype(
         np.float32)).cuda()
     t = torch.from_numpy(gaussian_heatmaps(rng, TRAIN_BATCH, 16, 64)).cuda()
+    return cfg, params, state, {"image": x, "heatmap": t}
+
+
+def main_path_steps(torch, label, step, params_of, counters):
+    """Three steps of the main path (``step()``), the launch counters of
+    ``counters`` (modules with reset_launch_counts / launch_counts, or
+    callables returning counts) set to 0 just before and read just after:
+    every count must be positive, the losses finite and some parameter
+    must move. Returns the counts."""
+    before = {k: v.detach().clone() for k, v in params_of().items()}
+    for m in counters:
+        if hasattr(m, "reset_launch_counts"):
+            m.reset_launch_counts()
+    losses = [float(step()["loss"]) for _ in range(3)]
+    torch.cuda.synchronize()
+    launches = {}
+    for m in counters:
+        launches.update(m.launch_counts() if hasattr(m, "launch_counts")
+                        else m())
+    moved = sum(not torch.equal(before[k], v.detach())
+                for k, v in params_of().items())
+    print(f"{label}: 3 kernel-path steps, losses {losses}; {moved}/"
+          f"{len(before)} params changed; launches {launches}", flush=True)
+    require(all(np.isfinite(losses)), f"{label}: non-finite loss {losses}")
+    require(moved > 0, f"{label}: no parameter changed")
+    for name, count in launches.items():
+        require(count > 0, f"{label}: kernel {name} never launched")
+    return launches
+
+
+def report_times(torch, label, kernel_step, plain_step, gpu):
+    for path, fn in (("kernel", kernel_step), ("plain", plain_step)):
+        ms, mem = time_train(torch, fn)
+        print(f"{label}: {path} path, batch {TRAIN_BATCH}: median step "
+              f"{ms:.3f} ms, {TRAIN_BATCH / ms * 1e3:.1f} img/s, peak "
+              f"memory {mem / 2 ** 30:.2f} GiB ({gpu})", flush=True)
+
+
+def phase_training(torch, tops, bops, gpu):
+    from cunet_tpu_torch import TrainConfig
+    from cunet_tpu_torch.train import create_train_state, train_step
+
+    cfg, params, state, batch = flagship_train(torch)
+    plain_cfg = dataclasses.replace(cfg, use_pallas=False)
+    x, t = batch["image"], batch["heatmap"]
 
     # ---- one slot alone: every cotangent path, kernel against plain ----
     check_slot(torch, cfg, params, state)
-
     # ---- kernel step against plain step, from identical state ----
-    lk, gk, sk = _grads(torch, cfg, params, state, x, t)
-    lp, gp, sp = _grads(torch, plain_cfg, params, state, x, t)
-    nudged = dict(params)
-    nudged["stem.norm.bias"] = params["stem.norm.bias"] + CONTROL_NUDGE
-    _, gq, _ = _grads(torch, plain_cfg, nudged, state, x, t)
-    loss_rel = abs(lk - lp) / abs(lp)
-    norm = lambda g: sum((v.float() ** 2).sum() for v in g.values()).sqrt()
-    ratio = (norm(gk) / norm(gp)).item()
-
-    def cosines(ga):
-        return [torch.nn.functional.cosine_similarity(
-            ga[k].flatten().float(), gp[k].flatten().float(), dim=0).item()
-            for k in ga if gp[k].abs().max() > 0]
-
-    cos, cos_ctl = cosines(gk), np.mean(cosines(gq))
-    del gq
-    heads = [k for k in gk if k.startswith("heads.")]
-    heads_rel = _rel_l2(torch, gk, gp, heads)
-    bn_rel = _rel_l2(torch, sk, sp, list(sp))
-    worst_bn = max(sp, key=lambda k: _rel_l2(torch, sk, sp, [k]))
-    print(f"training: kernel vs plain step on the card: loss {lk:.6g} vs "
-          f"{lp:.6g} (rel {loss_rel:.3g}, bound {LOSS_REL}); grad-norm "
-          f"ratio {ratio:.4f} (band {GRAD_NORM_RATIO}); mean per-leaf cosine "
-          f"{np.mean(cos):.4f} (min {np.min(cos):.4f}; control, plain vs "
-          f"plain with the stem BN bias +{CONTROL_NUDGE}: {cos_ctl:.4f}; "
-          f"bound >= control - {COSINE_MARGIN}); heads.* grads rel L2 "
-          f"{heads_rel:.4g} (bound "
-          f"{HEADS_REL_L2}); BN running stats rel L2 {bn_rel:.4g} (bound "
-          f"{BN_STATE_REL_L2}; worst leaf {worst_bn} "
-          f"{_rel_l2(torch, sk, sp, [worst_bn]):.4g})", flush=True)
-    require(np.isfinite(lk) and loss_rel <= LOSS_REL,
-            f"kernel-path loss {lk} vs plain {lp}")
-    require(GRAD_NORM_RATIO[0] <= ratio <= GRAD_NORM_RATIO[1],
-            f"grad-norm ratio {ratio}")
-    require(np.mean(cos) >= cos_ctl - COSINE_MARGIN,
-            f"mean cosine {np.mean(cos)} below the control {cos_ctl}")
-    require(heads_rel <= HEADS_REL_L2, f"heads.* grads rel L2 {heads_rel}")
-    require(bn_rel <= BN_STATE_REL_L2, f"BN running stats rel L2 {bn_rel}")
-
-    # ---- determinism: the same kernel step again ----
-    lk2, gk2, _ = _grads(torch, cfg, params, state, x, t)
-    same = lk2 == lk and all(torch.equal(gk[k], gk2[k]) for k in gk)
-    print(f"training: repeated kernel step bit-identical: {same}",
-          flush=True)
-    require(same, "the kernel train step is not deterministic")
-    del gk, gp, gk2, sk, sp
+    compare_steps(torch, "training", cfg, params, state, x, t)
 
     # ---- three train steps through the kernels: the main path ----
     tcfg = TrainConfig(lr=2.5e-4, batch_size=TRAIN_BATCH)
     st = create_train_state(params, state, tcfg)
-    before = {k: v.detach().clone() for k, v in st.params.items()}
-    batch = {"image": x, "heatmap": t}
-    bops.reset_launch_counts()
-    tops.reset_launch_counts()
-    losses = []
-    for _ in range(3):
-        st, m = train_step(st, batch, cfg=cfg)
-        losses.append(float(m["loss"]))
-    torch.cuda.synchronize()
-    launches = {**bops.launch_counts(), **tops.launch_counts()}
-    moved = sum(not torch.equal(before[k], v.detach())
-                for k, v in st.params.items())
-    print(f"training: 3 kernel-path steps, losses {losses}; "
-          f"{moved}/{len(before)} params changed; launches {launches}",
-          flush=True)
-    require(all(np.isfinite(losses)), f"non-finite loss {losses}")
-    require(moved > 0, "no parameter changed")
-    for name, count in launches.items():
-        require(count > 0, f"kernel {name} never launched in training")
+    launches = main_path_steps(
+        torch, "training", lambda: train_step(st, batch, cfg=cfg)[1],
+        lambda: st.params, (bops, tops))
 
     # ---- timing: kernel path, then plain path ----
-    ms_k, mem_k = time_train(torch, st, batch, cfg)
     st_p = create_train_state(params, state, tcfg)
-    ms_p, mem_p = time_train(torch, st_p, batch, plain_cfg)
-    for path, ms, mem in (("kernel", ms_k, mem_k), ("plain", ms_p, mem_p)):
-        print(f"training: {path} path, batch {TRAIN_BATCH}: median step "
-              f"{ms:.3f} ms, {TRAIN_BATCH / ms * 1e3:.1f} img/s, peak "
-              f"memory {mem / 2 ** 30:.2f} GiB ({gpu})", flush=True)
+    report_times(torch, "training", lambda: train_step(st, batch, cfg=cfg),
+                 lambda: train_step(st_p, batch, cfg=plain_cfg), gpu)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phases 7 and 8: dropout and quantized training
+# ---------------------------------------------------------------------------
+
+
+def drop_mask_checks(torch, dops, results):
+    """The mask kernel at the train shapes (batch 24, tile 2, g=32): on
+    ones it leaves the plain tile masks bit for bit at every traversal
+    position with its resolution, a negative seed among them; conv3x3's
+    out32 with the mask applied equals the undropped kernel output times
+    the plain mask; the backward form equals its plain version; a full
+    r=64 out32 drops DROP_RATE of its elements."""
+    from cunet_tpu_torch.kernels import buf_ops, train_ops
+    from cunet_tpu_torch.ops import dropmask
+
+    n, g, cb, nb = TRAIN_BATCH, 32, 128, 4
+    gen = torch.Generator().manual_seed(4)
+    plain = dops.PLAIN[dops.drop_mask]
+    for pos in range(2 * nb + 1):
+        r = 64 >> (pos if pos <= nb else 2 * nb - pos)
+        m, tile_rows = n * r * r, BN_TILE * r * r
+        for seed in (-1234567, 2 ** 31 - 1) if pos in (0, nb) else (-99,):
+            ones = torch.ones(m, g, device="cuda", dtype=torch.bfloat16)
+            dops.drop_mask(ones, seed, pos, DROP_RATE, tile_rows)
+            want = dropmask.rows_mask(seed, pos, m, g, tile_rows, DROP_RATE,
+                                      torch.bfloat16, "cuda")
+            require(torch.equal(ones, want),
+                    f"mask kernel on ones differs from the plain masks at "
+                    f"position {pos}, r={r}, seed {seed}")
+            if pos == 0 and seed < 0:
+                frac = (ones == 0).float().mean().item()
+                print(f"drop_mask: drop fraction of one r=64 out32 "
+                      f"({m} x {g}): {frac:.5f} (rate {DROP_RATE} +- "
+                      f"{DROP_FRACTION_TOL})", flush=True)
+                require(abs(frac - DROP_RATE) <= DROP_FRACTION_TOL,
+                        f"drop fraction {frac}")
+    print("drop_mask: on ones bit-identical to the plain tile masks at "
+          "positions 0..8 (r = 64..4, 12 tiles, negative seeds)", flush=True)
+
+    # the forward's use: conv3x3 into the out32 view, then the mask
+    r, pos, seed = 64, 1, -31
+    m, tile_rows = n * r * r, BN_TILE * r * r
+    yb = torch.randn(m, cb, generator=gen).to("cuda", torch.bfloat16)
+    vb = tile_vec(torch, train_ops, yb, gen)[2]
+    w3 = (torch.randn(9 * cb, g, generator=gen) * (9 * cb) ** -0.5).to(
+        "cuda", torch.bfloat16)
+    buf = torch.zeros(m, 3 * g + 128, device="cuda", dtype=torch.bfloat16)
+    out32 = buf[:, 128 + g:128 + 2 * g]
+    buf_ops.conv3x3(yb, w3, n, r, r, out32, vec=vb)
+    undropped = out32.clone()
+    dops.drop_mask(out32, seed, pos, DROP_RATE, tile_rows)
+    torch.cuda.synchronize()
+    want = undropped * dropmask.rows_mask(seed, pos, m, g, tile_rows,
+                                          DROP_RATE, torch.bfloat16, "cuda")
+    same = torch.equal(out32, want)
+    print(f"drop_mask: conv3x3 + mask at r=64 bit-identical to the undropped "
+          f"conv times the plain mask: {same}", flush=True)
+    require(same, "conv3x3 + mask differs from conv3x3 times the plain mask")
+
+    # timed cases: forward in place on the out32 view, backward from f32
+    d = torch.randn(m, g + 96, generator=gen).cuda()[:, 64:64 + g]
+    fwd_w = work(2 * sz(m, g))
+    bwd_w = work(sz(m, g, e=4) + sz(m, g))
+    cases = [("forward r=64 in place", lambda f, o: f(o, seed, pos,
+              DROP_RATE, tile_rows), lambda: undropped.clone(), fwd_w),
+             ("backward r=64 f32->bf16", lambda f, o: f(
+                 d, seed, pos, DROP_RATE, tile_rows, o),
+              lambda: torch.empty(m, g, device="cuda",
+                                  dtype=torch.bfloat16), bwd_w)]
+    for label, call, make_out, w in cases:
+        k_out, p_out = make_out(), make_out()
+        call(dops.drop_mask, k_out)
+        call(plain, p_out)
+        torch.cuda.synchronize()
+        same = torch.equal(k_out, p_out)
+        ms = cuda_time_ms(lambda: call(dops.drop_mask, k_out))
+        plain_ms = cuda_time_ms(lambda: call(plain, p_out))
+        print(f"drop kernel drop_mask [{label}]: bit-identical {same}, "
+              f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, bound "
+              f"{bound(w)[0]:.4f} ms ({bound(w)[1]})", flush=True)
+        require(same, f"drop_mask [{label}] differs from its plain version")
+        record(results, "drop_mask", 0.0, ms, plain_ms, label, w, None)
+
+
+def phase_dropout_training(torch, tops, bops, dops, gpu):
+    """Phase 7: the mask kernel's checks, then CU-Net-8 @256 training with
+    drop_rate DROP_RATE: kernel step against plain step from the same
+    seeds, three train_steps from a generator (the main path), times."""
+    from cunet_tpu_torch import TrainConfig
+    from cunet_tpu_torch.ops.dropmask import draw_slot_seeds
+    from cunet_tpu_torch.train import create_train_state, train_step
+
+    results = {}
+    drop_mask_checks(torch, dops, results)
+    cfg, params, state, batch = flagship_train(torch)
+    cfg = dataclasses.replace(cfg, drop_rate=DROP_RATE)
+    plain_cfg = dataclasses.replace(cfg, use_pallas=False)
+    seeds = draw_slot_seeds(torch.Generator().manual_seed(5), cfg.layer_num)
+    compare_steps(torch, "dropout training", cfg, params, state,
+                  batch["image"], batch["heatmap"], drop_seeds=seeds)
+
+    tcfg = TrainConfig(lr=2.5e-4, batch_size=TRAIN_BATCH)
+    st = create_train_state(params, state, tcfg)
+    gen = torch.Generator().manual_seed(6)
+    launches = main_path_steps(
+        torch, "dropout training",
+        lambda: train_step(st, batch, cfg=cfg, generator=gen)[1],
+        lambda: st.params, (bops, tops, dops))
+    st_p = create_train_state(params, state, tcfg)
+    gen_p = torch.Generator().manual_seed(6)
+    report_times(torch, "dropout training",
+                 lambda: train_step(st, batch, cfg=cfg, generator=gen),
+                 lambda: train_step(st_p, batch, cfg=plain_cfg,
+                                    generator=gen_p), gpu)
+    return results, launches
+
+
+def option_kernel_cases(torch, tops, bops, gen):
+    """The QuanInput options at the train shapes (bits_i=8, batch 24, tile
+    2): (kernel, label, make_out, call, bound, work, library, row name).
+    The gate cases' stage inputs straddle 1.0 after bf16 rounding: x on the
+    bf16 grid around 1 and an affine of 1 - 2^-10 shift, so x = 1.0 gives
+    z = 0.99902 in float32, 1.0 in bf16 (gated) and x = 0.99609375 gives
+    z = 0.99511 (passes)."""
+    dev = "cuda"
+    c, g, cb, cls, h0, n = 128, 32, 128, 16, 64, TRAIN_BATCH
+    m64 = n * h0 * h0
+
+    def vec(x):
+        return tile_vec(torch, tops, x, gen)[2]
+
+    def f32(*shape):
+        return empty_of(torch, torch.float32, *shape)
+
+    def bf16(*shape):
+        return empty_of(torch, torch.bfloat16, *shape)
+
+    def straddle(m, k):
+        grid = torch.tensor([0.98828125, 0.9921875, 0.99609375, 1.0,
+                             1.0078125, 0.5, -0.25, 1.5])
+        idx = torch.randint(0, len(grid), (m, k), generator=gen)
+        x = grid[idx].to(dev, torch.bfloat16)
+        v = torch.stack([torch.ones(k), torch.full((k,), -2.0 ** -10)])
+        return x, v.to(dev)
+
+    yb = (torch.randn(m64, cb, generator=gen) * 2).to(dev, torch.bfloat16)
+    vb = vec(yb)
+    w3 = (torch.randn(9 * cb, g, generator=gen) * (9 * cb) ** -0.5).to(
+        dev, torch.bfloat16)
+    d_o = torch.randn(m64, g, generator=gen).to(dev, torch.bfloat16)
+    y_out = (torch.randn(m64, c, generator=gen) * 2).to(dev, torch.bfloat16)
+    vh = vec(y_out)
+    w_h = (torch.randn(c, cls, generator=gen) * c ** -0.5).to(
+        dev, torch.bfloat16)
+    d_head = torch.randn(m64, cls, generator=gen).to(dev, torch.bfloat16)
+    xs3, vs3 = straddle(m64, cb)
+    xsh, vsh = straddle(m64, c)
+    conv_ops = 2 * m64 * 9 * cb * g
+    q = 8
+    return [
+        (bops.conv3x3, "Cb=128->32 r=64 quan(relu(BN2)) prologue",
+         bf16(m64, g), lambda f, o: f(yb, w3, n, h0, h0, o, vec=vb,
+                                      bits_i=q), ("bf16",),
+         work(sz(m64, cb) + vec_bytes(cb) + sz(9 * cb, g) + sz(m64, g),
+              conv_ops),
+         None, "conv3x3[bits_i]"),
+        (bops.affine_dot, "head 128->16 r=64 quantized", bf16(m64, cls),
+         lambda f, o: f(y_out, vh, w_h, o, bits_i=q), ("bf16",),
+         work(sz(m64, c) + vec_bytes(c) + sz(c, cls) + sz(m64, cls),
+              2 * m64 * c * cls), None, "affine_dot[bits_i]"),
+        (tops.conv3x3_dw, "(9*128, 32) r=64 quantized z", f32(9 * cb, g),
+         lambda f, o: f(yb, vb, d_o, n, h0, h0, o, bits_i=q), ("sum", m64),
+         work(sz(m64, cb) + vec_bytes(cb) + sz(m64, g) + sz(9 * cb, g, e=4),
+              conv_ops), None, "conv3x3_dw[bits_i]"),
+        (tops.affine_dw, "head 128->16 r=64 quantized z", f32(c, cls),
+         lambda f, o: f(y_out, vh, d_head, o, bits_i=q), ("sum", m64),
+         work(sz(m64, c) + vec_bytes(c) + sz(m64, cls) + sz(c, cls, e=4),
+              2 * m64 * c * cls), None, "affine_dw[bits_i]"),
+        (tops.conv3x3_dx, "32->128 r=64 STE gate, straddling 1.0",
+         f32(m64, cb), lambda f, o: f(d_o, w3, n, h0, h0, xs3, vs3, o,
+                                      ste=True), ("sum", 9 * g),
+         work(sz(m64, g) + sz(9 * cb, g) + sz(m64, cb) + sz(2, cb, e=4)
+              + sz(m64, cb, e=4), conv_ops), None, "conv3x3_dx[ste]"),
+        (tops.affine_dx, "head 128->16 r=64 STE gate, straddling 1.0",
+         f32(m64, c), lambda f, o: f(d_head, w_h, xsh, vsh, o, ste=True),
+         ("sum", cls),
+         work(sz(m64, cls) + sz(c, cls) + sz(m64, c) + sz(2, c, e=4)
+              + sz(m64, c, e=4), 2 * m64 * c * cls), None, "affine_dx[ste]"),
+    ]
+
+
+def quan_exact_checks(torch, tops, bops, gen):
+    """QuanInput's quantizer in the four quantized prologues, bit for bit,
+    at the r=64 train shapes (bits_i=8). Each product is made exact: an
+    identity 1x1 and one-hot 3x3 taps give outputs that are one quantized
+    activation each; a {0, 1} cotangent gives dW sums of multiples of 2^-7
+    below 2^17, which float32 holds exactly in any order. So each kernel
+    output must equal a float64 reference built from the plain quantizer
+    (``quantize_act``). Prints how many activations sit on a rounding tie
+    or above the clip and how many outputs a round-half-even or a floor
+    quantizer would change: what the check tells apart."""
+    from cunet_tpu_torch.kernels.buf_ops import quantize_act, tile_affine
+
+    q, n, cb, g, cls, r = 8, TRAIN_BATCH, 128, 32, 16, 64
+    m = n * r * r
+    x = (torch.randn(m, cb, generator=gen) * 2).to("cuda", torch.bfloat16)
+    v = tile_vec(torch, tops, x, gen)[2]
+    z = torch.relu(tile_affine(x, v)).to(torch.bfloat16)
+    zq = quantize_act(z, q)
+    s, lim = 2.0 ** (q - 1), 1 - 2.0 ** (1 - q)
+    y = z.float().clamp(max=lim) * s
+    print(f"quantizer exact: {m} x {cb} activations, "
+          f"{int((y.frac() == 0.5).sum())} on a rounding tie, "
+          f"{int((z.float() > lim).sum())} above the clip; a round-half-even "
+          f"quantizer would change {int((y.round() / s != zq.float()).sum())} "
+          f"of them, a floor quantizer "
+          f"{int((y.floor() / s != zq.float()).sum())}", flush=True)
+
+    padded = torch.nn.functional.pad(zq.view(n, r, r, cb).double(),
+                                     (0, 0, 1, 1, 1, 1))
+
+    def tap(t):                 # z at (row + ky - 1, col + kx - 1), 0 outside
+        ky, kx = divmod(t, 3)
+        return padded[:, ky:ky + r, kx:kx + r].reshape(m, cb)
+
+    def bits(p):
+        return (torch.rand(m, p, generator=gen) < 0.5).to(
+            "cuda", torch.bfloat16)
+
+    cases = []
+    out = torch.empty(m, cb, device="cuda", dtype=torch.bfloat16)
+    eye = torch.eye(cb, device="cuda", dtype=torch.bfloat16)
+    bops.affine_dot(x, v, eye, out, bits_i=q)
+    cases.append(("affine_dot identity 128->128", out, zq))
+    for grp in range(cb // g):               # output o reads channel grp*g+o
+        w3 = torch.zeros(9, cb, g, device="cuda", dtype=torch.bfloat16)
+        taps = [(o + grp) % 9 for o in range(g)]
+        w3[taps, [grp * g + o for o in range(g)], list(range(g))] = 1
+        out = torch.empty(m, g, device="cuda", dtype=torch.bfloat16)
+        bops.conv3x3(x, w3.view(9 * cb, g), n, r, r, out, vec=v, bits_i=q)
+        want = torch.stack([tap(t)[:, grp * g + o]
+                            for o, t in enumerate(taps)], 1)
+        cases.append((f"conv3x3 one-hot taps, channels {grp * g}.."
+                      f"{grp * g + g - 1}", out, want))
+    dy = bits(cls)
+    out = torch.empty(cb, cls, device="cuda")
+    tops.affine_dw(x, v, dy, out, bits_i=q)
+    cases.append(("affine_dw {0,1} cotangent 128->16", out,
+                  zq.double().t() @ dy.double()))
+    dy = bits(g)
+    out = torch.empty(9 * cb, g, device="cuda")
+    tops.conv3x3_dw(x, v, dy, n, r, r, out, bits_i=q)
+    cases.append(("conv3x3_dw {0,1} cotangent (9*128, 32)", out, torch.cat(
+        [tap(t).t() @ dy.double() for t in range(9)])))
+    torch.cuda.synchronize()
+    for label, got, want in cases:
+        diff = int((got.double() != want.double()).sum())
+        print(f"quantizer exact: {label}: {diff} of {got.numel()} outputs "
+              f"differ from the plain quantizer's", flush=True)
+        require(diff == 0, f"quantizer exact [{label}]: {diff} outputs "
+                f"differ")
+
+
+def phase_quant_training(torch, tops, bops, dops, gpu):
+    """Phase 8: the QuanInput options against their plain versions, then
+    CU-Net-8 @256 through quant_train_step (W1/I8/G8): kernel step against
+    plain step held to a same-run control, three quant_train_steps (the
+    main path), times."""
+    from cunet_tpu_torch import QuantConfig, TrainConfig
+    from cunet_tpu_torch.quant import preprocess_masters
+    from cunet_tpu_torch.quant import selected_conv_predicate
+    from cunet_tpu_torch.train import create_train_state, quant_train_step
+
+    gen = torch.Generator().manual_seed(7)
+    plain_of = {**bops.PLAIN, **tops.PLAIN}
+    results = {}
+    for case in option_kernel_cases(torch, tops, bops, gen):
+        kern, label, make_out, call, bnd, w, lib, name = case
+        got, want = check_case(torch, plain_of, results, "option kernel",
+                               kern, label, make_out, call, bnd, w, lib,
+                               name=name)
+        if name.endswith("[ste]"):
+            passed = (got != 0).float().mean().item()
+            same = torch.equal(got == 0, want == 0)
+            print(f"option kernel {name}: gate bit-identical to the plain "
+                  f"version {same} (passes {passed:.4f} of the elements)",
+                  flush=True)
+            require(same, f"{name}: the STE gate differs from its plain "
+                    f"version")
+            require(0.05 < passed < 0.95, f"{name}: degenerate gate")
+    quan_exact_checks(torch, tops, bops, gen)
+
+    quant = QuantConfig(bits_w=1, bits_i=8, bits_g=8, enabled=True)
+    cfg, params, state, batch = flagship_train(torch)
+    plain_cfg = dataclasses.replace(cfg, use_pallas=False)
+    masters = preprocess_masters(params, quant,
+                                 selected_conv_predicate(params, "reference"))
+    compare_steps(torch, "quantized training", cfg, masters, state,
+                  batch["image"], batch["heatmap"], controlled=True,
+                  quant=quant)
+
+    tcfg = TrainConfig(lr=2.5e-4, batch_size=TRAIN_BATCH)
+    st = create_train_state(params, state, tcfg)
+    launches = main_path_steps(
+        torch, "quantized training",
+        lambda: quant_train_step(st, batch, cfg=cfg, qcfg=quant)[1],
+        lambda: st.params, (bops, tops, bops.option_counts,
+                            tops.option_counts))
+    st_p = create_train_state(params, state, tcfg)
+    report_times(torch, "quantized training",
+                 lambda: quant_train_step(st, batch, cfg=cfg, qcfg=quant),
+                 lambda: quant_train_step(st_p, batch, cfg=plain_cfg,
+                                          qcfg=quant), gpu)
+    return results, launches
 
 
 # ---------------------------------------------------------------------------
@@ -715,8 +1293,8 @@ def phase_training(torch, tops, bops, gpu):
 
 
 def int8_kernel_cases(torch, gen):
-    """(kernel name, label, destination, view selector, call(fn, out)) of
-    the three int8 kernels at the CU-Net-8 @256 int8 main-path shapes
+    """(kernel name, label, destination, view selector, call(fn, out),
+    work) of the three int8 kernels at the CU-Net-8 @256 int8 main-path shapes
     (c=128, g=32, Cb=128, cls=16, h0=64, batch 8; every bottleneck and
     adapter K), plus ragged cases: K not a multiple of 32, M not a multiple
     of the 128-row tile, Cb not a multiple of 16, unaligned int8 rows."""
@@ -747,35 +1325,45 @@ def int8_kernel_cases(torch, gen):
     cases = []
     # affine_dot_i8: bottlenecks (BN2 + q8 epilogue into int8 rows) at every
     # bottleneck K, adapters (bf16 into buffer views) at every adapter K
+    def dot_i8(m, k, nout, out_e, v2=False):   # bf16 x, vec, int8 w
+        return work(sz(m, k) + sz(2, k, e=4) + sz(k, nout, e=1)
+                    + (sz(2, nout, e=4) if v2 else 0) + sz(m, nout, e=out_e),
+                    2 * m * k * nout, "int8")
+
     for k, src in ((128, down), (160, down), (256, up), (288, up)):
         v, w, v2 = vec(k), signs(k, cb), vec(cb, 0.01, 0.05, 0.3)
         cases.append(("affine_dot_i8", f"K={k}->128 +BN2,q8 r=64",
                       codes(m64, cb), lambda b: b,
                       lambda f, b, src=src, k=k, v=v, w=w, v2=v2:
-                      f(src[:, :k], v, w, b, s=s, vec2=v2)))
+                      f(src[:, :k], v, w, b, s=s, vec2=v2),
+                      dot_i8(m64, k, cb, 1, True)))
     for k, src in ((192, down), (160, down), (320, up), (288, up)):
         v, w = vec(k), signs(k, c)
         dst = bf16(m64, 2 * c + g + g)
         cases.append(("affine_dot_i8", f"K={k}->128 r=64", dst,
                       lambda b: b[:, c:2 * c],
                       lambda f, b, src=src, k=k, v=v, w=w:
-                      f(src[:, :k], v, w, b[:, c:2 * c], s=s)))
+                      f(src[:, :k], v, w, b[:, c:2 * c], s=s),
+                      dot_i8(m64, k, c, 2)))
     # head K=128 -> 16 into anchor slot 3 of the stacked head output
     vh, wh = vec(c), signs(c, cls)
     heads = bf16(n, 8, h0, h0, cls)
     cases.append(("affine_dot_i8", "head K=128->16 r=64", heads,
                   lambda b: b[:, 3],
                   lambda f, b: f(down[:, :c], vh, wh,
-                                 b[:, 3].view(n, h0 * h0, cls), s=s)))
+                                 b[:, 3].view(n, h0 * h0, cls), s=s),
+                  dot_i8(m64, c, cls, 2)))
     # ragged: K=40, M=1000 (7.8 row tiles), N=24, both epilogues
     xr = bf16(1000, 48, scale=0.5)
     vr, wr, v2r = vec(48), signs(48, 24), vec(24, 0.01, 0.05, 0.3)
     cases.append(("affine_dot_i8", "ragged K=40->24 M=1000 +BN2,q8",
                   codes(1000, 24), lambda b: b,
-                  lambda f, b: f(xr[:, :40], vr, wr, b, s=s, vec2=v2r)))
+                  lambda f, b: f(xr[:, :40], vr, wr, b, s=s, vec2=v2r),
+                  dot_i8(1000, 40, 24, 1, True)))
     cases.append(("affine_dot_i8", "ragged K=40->24 M=1000",
                   bf16(1000, 40), lambda b: b[:, 8:32],
-                  lambda f, b: f(xr[:, :40], vr, wr, b[:, 8:32], s=s)))
+                  lambda f, b: f(xr[:, :40], vr, wr, b[:, 8:32], s=s),
+                  dot_i8(1000, 40, 24, 2)))
     # conv3x3_i8: Cb=128 -> 32 into the out32 slot at r=64 and r=4
     for r in (64, 4):
         m = n * r * r
@@ -784,23 +1372,33 @@ def int8_kernel_cases(torch, gen):
         cases.append(("conv3x3_i8", f"Cb=128->32 r={r}", bf16(m, c + 2 * g),
                       lambda b: b[:, c + g:],
                       lambda f, b, y=y, w3=w3, r=r:
-                      f(y, w3, n, r, r, b[:, c + g:], s=s)))
+                      f(y, w3, n, r, r, b[:, c + g:], s=s),
+                      work(sz(m, cb, e=1) + sz(9 * cb, g, e=1) + sz(m, g),
+                           2 * m * 9 * cb * g, "int8")))
     # ragged conv: Cb=24 (byte loads), 3 images of 6x6 (M=108), G=8
     yr, w3r = codes(108, 24), signs(9 * 24, 8)
     cases.append(("conv3x3_i8", "ragged Cb=24->8 r=6 M=108", bf16(108, 16),
                   lambda b: b[:, 8:],
-                  lambda f, b: f(yr, w3r, 3, 6, 6, b[:, 8:], s=s)))
+                  lambda f, b: f(yr, w3r, 3, 6, 6, b[:, 8:], s=s),
+                  work(sz(108, 24, e=1) + sz(216, 8, e=1) + sz(108, 8),
+                       2 * 108 * 216 * 8, "int8")))
     # int8_matmul_dequant: the plain path's 1x1 convs at every K
     ones = torch.ones(c, device=dev)
+
+    def mm_i8(m, k, nout):                     # int8 x, w, f32 scales, out
+        return work(sz(m, k, e=1) + sz(k, nout, e=1) + sz(nout, e=4)
+                    + sz(m, nout, e=4), 2 * m * k * nout, "int8")
+
     for k in (128, 160, 192, 256, 288, 320):
         x, w = codes(m64, k).clamp_(min=0), signs(k, c)
         cases.append(("int8_matmul_dequant", f"K={k}->128 r=64", None, None,
-                      lambda f, x=x, w=w: f(x, w, ones, 1 / s)))
+                      lambda f, x=x, w=w: f(x, w, ones, 1 / s),
+                      mm_i8(m64, k, c)))
     # ragged: K=20 (unaligned 20-byte rows), M=1000, N=24, column scales
     xq, wq = codes(1000, 20), codes(20, 24)
     cs = torch.rand(24, generator=gen).to(dev)
     cases.append(("int8_matmul_dequant", "ragged K=20->24 M=1000", None,
-                  None, lambda f: f(xq, wq, cs, 1 / s)))
+                  None, lambda f: f(xq, wq, cs, 1 / s), mm_i8(1000, 20, 24)))
     return cases
 
 
@@ -810,7 +1408,7 @@ def phase_int8_kernels(torch, qops):
     in any order; every float rounding point is shared)."""
     gen = torch.Generator().manual_seed(3)
     results = {}
-    for name, label, dst, sel, call in int8_kernel_cases(torch, gen):
+    for name, label, dst, sel, call, w in int8_kernel_cases(torch, gen):
         kern = getattr(qops, name)
         plain = qops.PLAIN[kern]
         if dst is None:                          # returns a new tensor
@@ -842,11 +1440,7 @@ def phase_int8_kernels(torch, qops):
         require(same, f"{name} [{label}] differs from its plain version: "
                 f"max_abs_err {err}")
         require(untouched, f"{name} [{label}] wrote outside its view")
-        r = results.setdefault(name, {"max_abs_err": 0.0})
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-        r.setdefault("ms", ms)          # first case = main-path headline
-        r.setdefault("plain_ms", plain_ms)
-        r.setdefault("shape", label)
+        record(results, name, err, ms, plain_ms, label, w, None)
     return results
 
 
@@ -1003,6 +1597,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from cunet_tpu_torch.kernels import buf_ops as ops
     from cunet_tpu_torch.kernels import build
+    from cunet_tpu_torch.kernels import drop_ops as dops
     from cunet_tpu_torch.kernels import quant_ops as qops
     from cunet_tpu_torch.kernels import train_ops as tops
 
@@ -1031,38 +1626,52 @@ def main() -> int:
         int8_kernels = phase_int8_kernels(torch, qops)
         int8_launches, plain_launches = phase_int8_serving(
             torch, ops, qops, gpu, float_ms)
+        drop_kernels, drop_launches = phase_dropout_training(
+            torch, tops, ops, dops, gpu)
+        option_kernels, quant_launches = phase_quant_training(
+            torch, tops, ops, dops, gpu)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-    if "jax" in sys.modules:
-        print("chip_smoke: FAILED: jax was imported", file=sys.stderr)
+    if "jax" in sys.modules or "cunet_tpu" in sys.modules:
+        print("chip_smoke: FAILED: the JAX package was imported",
+              file=sys.stderr)
         return 1
+
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "shape")
+
+    def row(name, source, r, n_launches, **extra):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": REPLACES[name], "launches": n_launches,
+                **{k: r[k] for k in keys}, **extra}
 
     rows = []
     for name in list(kernels) + [k for k in train_kernels
                                  if k not in kernels]:
         r = kernels.get(name) or train_kernels[name]
-        row = {"name": name, "route": "cuda",
-               "source": SOURCE if name in launches else TRAIN_SOURCE,
-               "replaces": REPLACES[name],
-               "launches": launches.get(name, train_launches[name]),
-               "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-               "plain_ms": r["plain_ms"], "shape": r["shape"],
-               "train_launches": train_launches[name]}
+        extra = {"train_launches": train_launches[name],
+                 "dropout_train_launches": drop_launches[name],
+                 "quant_train_launches": quant_launches[name]}
         if name in kernels and name in train_kernels:
             t = train_kernels[name]
-            row.update(train_ms=t["ms"], train_plain_ms=t["plain_ms"],
-                       train_shape=t["shape"],
-                       max_abs_err=max(r["max_abs_err"], t["max_abs_err"]))
-        rows.append(row)
+            extra.update(train_ms=t["ms"], train_plain_ms=t["plain_ms"],
+                         train_bound_ms=t["bound_ms"],
+                         train_library_ms=t["library_ms"],
+                         train_shape=t["shape"])
+            r = dict(r, max_abs_err=max(r["max_abs_err"], t["max_abs_err"]))
+        rows.append(row(name, SOURCE if name in launches else TRAIN_SOURCE,
+                        r, launches.get(name, train_launches[name]),
+                        **extra))
     for name, r in int8_kernels.items():
-        rows.append({"name": name, "route": "cuda", "source": INT8_SOURCE,
-                     "replaces": REPLACES[name],
-                     "launches": (int8_launches[name] if
-                                  name != "int8_matmul_dequant" else
-                                  plain_launches[name]),
-                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                     "plain_ms": r["plain_ms"], "shape": r["shape"]})
+        rows.append(row(name, INT8_SOURCE, r, int8_launches[name]
+                        if name != "int8_matmul_dequant"
+                        else plain_launches[name]))
+    rows.append(row("drop_mask", TRAIN_SOURCE, drop_kernels["drop_mask"],
+                    drop_launches["drop_mask"]))
+    for name, r in option_kernels.items():
+        rows.append(row(name, SOURCE if name.split("[")[0] in launches
+                        else TRAIN_SOURCE, r, quant_launches[name]))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,12 +6,12 @@ as the reference. Module names mirror the JAX package: ``ops.layers``,
 ``ops.bottleneck``, ``models.cu_net``, ``kernels.model_buf`` (the counterpart
 of ``kernels/fused_model_buf.py``), ``kernels.train_slot``, ``train``,
 ``evaluation.decode``, ``serving``, ``quant`` (WAGE quantization),
-``kernels.quant_matmul`` and ``kernels.quant_ops`` (the int8 forward).
-The configuration dataclasses and the crop geometry are imported from
-``cunet_tpu.config`` and ``cunet_tpu.geometry``, whose imports need no JAX;
-nothing in this package imports JAX.
+``kernels.quant_matmul`` and ``kernels.quant_ops`` (the int8 forward),
+``ops.dropmask`` (the counter-hash dropout masks). The configuration
+dataclasses (``config``) and the crop geometry (``geometry``) are the
+port's own copies: nothing in this package imports JAX or ``cunet_tpu``.
 """
 
-from cunet_tpu.config import ModelConfig, QuantConfig, TrainConfig
+from cunet_tpu_torch.config import ModelConfig, QuantConfig, TrainConfig
 
 __all__ = ["ModelConfig", "QuantConfig", "TrainConfig"]

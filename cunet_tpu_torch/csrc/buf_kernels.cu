@@ -26,14 +26,15 @@ namespace {
 // K1 affine_dot:
 //   out[m, n] = epi( sum_{k<K} bf16(relu(x[m,k]*inv[t,k] + shift[t,k])) W[k,n] )
 // with t = m / tile_rows the ghost-BN tile of row m (train) or 0 (eval:
-// tile_rows = M, one [inv; shift] pair).
+// tile_rows = M, one [inv; shift] pair). With bits > 0 the bf16 prologue
+// value goes through the QuanInput quantizer (``quan``; the train head).
 // ---------------------------------------------------------------------------
 template <int BN, int WARPS_N, bool BIAS_RELU>
 __global__ void __launch_bounds__(kThreads)
     affine_dot_kernel(const bf16* __restrict__ x, long long ldx, long long M,
                       int K, const float* __restrict__ inv,
                       const float* __restrict__ shift, long long vstride,
-                      long long tile_rows,
+                      long long tile_rows, int bits,
                       const bf16* __restrict__ w, int ldw, int N,
                       const float* __restrict__ bias, OutView out) {
   using T = Tiles<BN, WARPS_N>;
@@ -62,10 +63,8 @@ __global__ void __launch_bounds__(kThreads)
         in.v = *reinterpret_cast<const uint4*>(x + m * ldx + k);
         const long long vo = (m / tile_rows) * vstride + k;
 #pragma unroll
-        for (int t = 0; t < 8; ++t) {
-          const float f = affine(lo(in, t), inv[vo + t], shift[vo + t]);
-          o.u[t] = hi(fmaxf(f, 0.f));
-        }
+        for (int t = 0; t < 8; ++t)
+          o.u[t] = act(lo(in, t), inv[vo + t], shift[vo + t], bits);
       }
       *reinterpret_cast<uint4*>(&s.a[r][kc]) = o.v;
     }
@@ -83,7 +82,9 @@ __global__ void __launch_bounds__(kThreads)
 // With PRO, each in-image input vector first goes through the ghost-BN
 // prologue relu(y*inv[t] + shift[t]) in f32 and is rounded to bf16 (t is the
 // tile of the source row, which is the tile of the output row: a tile holds
-// whole images); the padding stays zero.
+// whole images); the padding stays zero. With bits > 0 the prologue value
+// also goes through the QuanInput quantizer (the train forward's
+// quan(relu(BN2)) before the 3x3 conv).
 // ---------------------------------------------------------------------------
 template <int BN, int WARPS_N, bool PRO>
 __global__ void __launch_bounds__(kThreads)
@@ -91,7 +92,7 @@ __global__ void __launch_bounds__(kThreads)
                    int H, int W, int C, const bf16* __restrict__ w, int G,
                    const float* __restrict__ inv,
                    const float* __restrict__ shift, long long vstride,
-                   long long tile_rows, OutView out) {
+                   long long tile_rows, int bits, OutView out) {
   using T = Tiles<BN, WARPS_N>;
   __shared__ Smem<BN, WARPS_N> s;
   const int warp = threadIdx.x / 32;
@@ -126,8 +127,7 @@ __global__ void __launch_bounds__(kThreads)
               const long long vo = (src / tile_rows) * vstride + c0 + kc;
 #pragma unroll
               for (int t = 0; t < 8; ++t)
-                o.u[t] = hi(
-                    fmaxf(affine(lo(in, t), inv[vo + t], shift[vo + t]), 0.f));
+                o.u[t] = act(lo(in, t), inv[vo + t], shift[vo + t], bits);
               v = o.v;
             }
           }
@@ -211,6 +211,7 @@ struct VecArgs {
   const float* shift;
   long long vstride;
   long long tile_rows;
+  int bits;
 };
 
 template <int BN, int WARPS_N>
@@ -220,12 +221,12 @@ void launch_affine_dot(const bf16* x, long long ldx, long long M, int K,
   const dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((N + BN - 1) / BN));
   if (bias)
     affine_dot_kernel<BN, WARPS_N, true><<<grid, kThreads, 0, stream>>>(
-        x, ldx, M, K, v.inv, v.shift, v.vstride, v.tile_rows, w, ldw, N, bias,
-        out);
+        x, ldx, M, K, v.inv, v.shift, v.vstride, v.tile_rows, v.bits, w, ldw,
+        N, bias, out);
   else
     affine_dot_kernel<BN, WARPS_N, false><<<grid, kThreads, 0, stream>>>(
-        x, ldx, M, K, v.inv, v.shift, v.vstride, v.tile_rows, w, ldw, N, bias,
-        out);
+        x, ldx, M, K, v.inv, v.shift, v.vstride, v.tile_rows, v.bits, w, ldw,
+        N, bias, out);
 }
 
 template <int BN, int WARPS_N>
@@ -235,10 +236,12 @@ void launch_conv3x3(const bf16* y, long long ldy, long long M, int H, int W,
   const dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((G + BN - 1) / BN));
   if (v.inv)
     conv3x3_kernel<BN, WARPS_N, true><<<grid, kThreads, 0, stream>>>(
-        y, ldy, M, H, W, C, w, G, v.inv, v.shift, v.vstride, v.tile_rows, out);
+        y, ldy, M, H, W, C, w, G, v.inv, v.shift, v.vstride, v.tile_rows,
+        v.bits, out);
   else
     conv3x3_kernel<BN, WARPS_N, false><<<grid, kThreads, 0, stream>>>(
-        y, ldy, M, H, W, C, w, G, v.inv, v.shift, v.vstride, v.tile_rows, out);
+        y, ldy, M, H, W, C, w, G, v.inv, v.shift, v.vstride, v.tile_rows,
+        v.bits, out);
 }
 
 unsigned elementwise_blocks(long long total) {
@@ -253,13 +256,13 @@ extern "C" {
 
 int cunet_affine_dot(const void* x, long long ldx, long long M, int K,
                      const void* inv, const void* shift, long long vstride,
-                     long long tile_rows, const void* w, int ldw, int N,
-                     const void* bias, void* out, long long ldo,
+                     long long tile_rows, int bits, const void* w, int ldw,
+                     int N, const void* bias, void* out, long long ldo,
                      long long rows_per_img, long long img_stride,
                      void* stream) {
   const OutView ov{static_cast<bf16*>(out), ldo, rows_per_img, img_stride};
   const VecArgs v{static_cast<const float*>(inv),
-                  static_cast<const float*>(shift), vstride, tile_rows};
+                  static_cast<const float*>(shift), vstride, tile_rows, bits};
   const auto* xp = static_cast<const bf16*>(x);
   const auto* wp = static_cast<const bf16*>(w);
   const auto* bp = static_cast<const float*>(bias);
@@ -278,10 +281,10 @@ int cunet_affine_dot(const void* x, long long ldx, long long M, int K,
 int cunet_conv3x3(const void* y, long long ldy, long long M, int H, int W,
                   int C, const void* w, int G, const void* inv,
                   const void* shift, long long vstride, long long tile_rows,
-                  void* out, long long ldo, void* stream) {
+                  int bits, void* out, long long ldo, void* stream) {
   const OutView ov{static_cast<bf16*>(out), ldo, M, 0};
   const VecArgs v{static_cast<const float*>(inv),
-                  static_cast<const float*>(shift), vstride, tile_rows};
+                  static_cast<const float*>(shift), vstride, tile_rows, bits};
   const auto* yp = static_cast<const bf16*>(y);
   const auto* wp = static_cast<const bf16*>(w);
   const auto st = static_cast<cudaStream_t>(stream);

@@ -60,6 +60,51 @@ __device__ __forceinline__ float affine(float x, float a, float b) {
   return __fadd_rn(__fmul_rn(x, a), b);
 }
 
+// f rounded to bf16 and back: the value a bf16 activation holds.
+__device__ __forceinline__ float bf16r(float f) {
+  return __bfloat162float(__float2bfloat16(f));
+}
+
+// The activation quantizer Q(C(x, bits), bits) of QuanInput (WAGE; the
+// plain version is cunet_tpu_torch/quant/wage.py): clip to
+// +-(1 - 2^-(bits-1)) for 3 <= bits <= 15 (+-1 for bits 1, 2), then sign
+// (bits 1), round half away from zero (bits 2) or round(x * S) / S with
+// S = 2^(bits-1). bits 0 or > 15: the identity. Every step is exact in f32
+// for |x| <= 1 (S and 1/S are powers of two, so the plain version's
+// division by S is this multiply by 1/S), so it agrees with the plain
+// version bit for bit.
+__device__ __forceinline__ float quan(float x, int bits) {
+  if (bits <= 0 || bits > 15) return x;
+  const float s = bits <= 2 ? 1.f : (float)(1 << (bits - 1));
+  const float inv_s = __frcp_rn(s);
+  const float lim = bits <= 2 ? 1.f : 1.f - inv_s;
+  x = fminf(fmaxf(x, -lim), lim);
+  const float sgn = x > 0.f ? 1.f : (x < 0.f ? -1.f : 0.f);
+  if (bits == 1) return sgn;
+  const float y = __fmul_rn(fabsf(x), s);
+  return __fmul_rn(__fmul_rn(sgn, floorf(__fadd_rn(y, 0.5f))), inv_s);
+}
+
+// The relu(BN) prologue of a GEMM operand: f32 affine, ReLU, one bf16
+// rounding; with bits (QuanInput) the rounded value is quantized and
+// rounded again (exact for bits <= 8).
+__device__ __forceinline__ unsigned short act(float x, float a, float b,
+                                              int bits) {
+  const float z = fmaxf(affine(x, a, b), 0.f);
+  return hi(bits ? quan(bf16r(z), bits) : z);
+}
+
+// murmur3's fmix32 finalizer (the dropout masks' counter hash,
+// cunet_tpu_torch/ops/dropmask.py).
+__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
+  h ^= h >> 16;
+  h *= 0x85EBCA6Bu;
+  h ^= h >> 13;
+  h *= 0xC2B2AE35u;
+  h ^= h >> 16;
+  return h;
+}
+
 // Tile shapes shared by the two GEMM kernels: BM x BN per block, the 8 warps
 // laid out WARPS_M x WARPS_N, each warp owning FM x FN 16x16 fragments.
 template <int BN, int WARPS_N>

@@ -11,6 +11,10 @@
 //   maxpool2_bwd  <- _pool_bwd (first-winner routing)
 //   upsample2_bwd <- _upsample_bwd (2x2 sum)
 //   sum_rows      <- the f32 accumulation across TPU grid steps (_mk_acc)
+//   drop_mask     <- the dropout mask of _seed_mask applied to an out32
+//                    (forward) or to its cotangent (backward)
+// and, as options of dx / dw, QuanInput's straight-through gate
+// (_ste_mask) and quantizer (_quan).
 //
 // On a TPU the grid walks the batch tiles in order and carries weight-grad
 // sums in VMEM from one step to the next. Here blocks run in no order, so
@@ -208,6 +212,8 @@ __global__ void __launch_bounds__(kThreads)
 // offset in the same image (zero outside it), Wt = the packed (9*K, N)
 // weight. The ReLU mask is recomputed from the stage input x with the
 // forward's f32 prologue, so d_a never needs the forward's activations.
+// With ste (QuanInput's straight-through estimator) the gate also needs the
+// bf16 activation below 1: 0 < z < 1, z the value the quantizer read.
 // ---------------------------------------------------------------------------
 template <int BN, int WARPS_N>
 __global__ void __launch_bounds__(kThreads)
@@ -215,8 +221,8 @@ __global__ void __launch_bounds__(kThreads)
               int H, int W, int taps, const bf16* __restrict__ w, int ldw,
               int K, const bf16* __restrict__ x, long long ldx,
               const float* __restrict__ inv, const float* __restrict__ shift,
-              long long vstride, long long tile_rows, float* __restrict__ out,
-              long long ldo) {
+              long long vstride, long long tile_rows, int ste,
+              float* __restrict__ out, long long ldo) {
   using T = Tiles<BN, WARPS_N>;
   __shared__ Smem<BN, WARPS_N> s;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -291,7 +297,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int q = 0; q < 8; ++q) {
           const float z = affine(lo(xv, q), inv[vo + q], shift[vo + q]);
-          o[q] = z > 0.f ? st[r * 16 + cc + q] : 0.f;
+          const bool pass = z > 0.f && (!ste || bf16r(z) < 1.f);
+          o[q] = pass ? st[r * 16 + cc + q] : 0.f;
         }
         store8f(out + m * ldo + k, o);
       }
@@ -307,7 +314,8 @@ __global__ void __launch_bounds__(kThreads)
 // forward's activation), src = m (taps == 1) or the pixel at plus the
 // tap's offset (taps == 9, zero outside the image). The z tile is staged
 // row-major in shared memory and read as a column-major WMMA A operand
-// (z^T). sum_rows adds the chunks in order.
+// (z^T). sum_rows adds the chunks in order. With bits > 0, z is the
+// QuanInput-quantized activation (dW against what the forward's GEMM read).
 // ---------------------------------------------------------------------------
 template <int BN, int WARPS_N>
 struct SmemT {
@@ -321,8 +329,8 @@ __global__ void __launch_bounds__(kThreads)
     dw_kernel(const bf16* __restrict__ x, long long ldx, long long M, int K,
               int H, int W, int taps, const float* __restrict__ inv,
               const float* __restrict__ shift, long long vstride,
-              long long tile_rows, const bf16* __restrict__ dy, long long ldd,
-              int N, long long chunk, float* __restrict__ part) {
+              long long tile_rows, int bits, const bf16* __restrict__ dy,
+              long long ldd, int N, long long chunk, float* __restrict__ part) {
   using T = Tiles<BN, WARPS_N>;
   __shared__ SmemT<BN, WARPS_N> s;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -365,8 +373,7 @@ __global__ void __launch_bounds__(kThreads)
           const long long vo = (src / tile_rows) * vstride + k0 + kc;
 #pragma unroll
           for (int q = 0; q < 8; ++q)
-            o.u[q] = hi(
-                fmaxf(affine(lo(in, q), inv[vo + q], shift[vo + q]), 0.f));
+            o.u[q] = act(lo(in, q), inv[vo + q], shift[vo + q], bits);
         }
       }
       *reinterpret_cast<uint4*>(&s.a[r][kc]) = o.v;
@@ -518,6 +525,52 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// drop_mask: the scaled dropout mask {0, scale} of one out32 view, applied
+// (_seed_mask). Element (m, c) of the (M, G) view lies in ghost-BN tile
+// t = m / tile_rows at index i = (m % tile_rows) * G + c and is kept iff
+//   fmix32(i ^ fmix32(key ^ M1 * (t + 1))) & 0x7FFFFFFF < thr
+// with key = fmix32(seed ^ GOLD * (pos + 1)) from the host: the bits of
+// cunet_tpu_torch/ops/dropmask.py::tile_mask. Forward (F32_IN false): the
+// bf16 view in place, bf16(x * m) (both factors bf16, so the f32 product
+// is exact and rounds once, as a bf16 multiply does). Backward: f32 in,
+// bf16(d * m) out. One thread per 8 columns of a row.
+// ---------------------------------------------------------------------------
+template <bool F32_IN>
+__global__ void __launch_bounds__(kThreads)
+    drop_mask_kernel(const void* in, long long ldi,  // in == out forward
+                     bf16* out, long long ldo, long long M,
+                     int G, long long tile_rows, uint32_t key, uint32_t thr,
+                     float scale) {
+  const int cg = G / 8;
+  const long long total = M * cg;
+  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       idx < total; idx += (long long)gridDim.x * blockDim.x) {
+    const long long m = idx / cg;
+    const int c = (int)(idx % cg) * 8;
+    const long long t = m / tile_rows;
+    const uint32_t k = fmix32(key ^ (0x85EBCA6Bu * (uint32_t)(t + 1)));
+    const uint32_t base = (uint32_t)((m - t * tile_rows) * G + c);
+    float v[8];
+    if (F32_IN) {
+      load8f(static_cast<const float*>(in) + m * ldi + c, v);
+    } else {
+      Pack8 p;
+      p.v = *reinterpret_cast<const uint4*>(static_cast<const bf16*>(in) +
+                                            m * ldi + c);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) v[q] = lo(p, q);
+    }
+    Pack8 o;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const bool keep = (fmix32((base + q) ^ k) & 0x7FFFFFFFu) < thr;
+      o.u[q] = hi(__fmul_rn(v[q], keep ? scale : 0.f));
+    }
+    *reinterpret_cast<uint4*>(out + m * ldo + c) = o.v;
+  }
+}
+
 unsigned grid_blocks(long long total) {
   const long long blocks = (total + kThreads - 1) / kThreads;
   return (unsigned)(blocks < (1LL << 20) ? (blocks > 0 ? blocks : 1)
@@ -529,6 +582,7 @@ struct VecArgs {
   const float* shift;
   long long vstride;
   long long tile_rows;
+  int bits;  // QuanInput bits of a dw prologue, or the ste flag of a dx
 };
 
 template <int BN, int WARPS_N>
@@ -539,7 +593,7 @@ void launch_dx(const bf16* dy, long long ldd, long long M, int N, int H, int W,
   const dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((K + BN - 1) / BN));
   dx_kernel<BN, WARPS_N><<<grid, kThreads, 0, st>>>(
       dy, ldd, M, N, H, W, taps, w, ldw, K, x, ldx, v.inv, v.shift, v.vstride,
-      v.tile_rows, out, ldo);
+      v.tile_rows, v.bits, out, ldo);
 }
 
 template <int BN, int WARPS_N>
@@ -550,8 +604,8 @@ void launch_dw(const bf16* x, long long ldx, long long M, int K, int H, int W,
                   (unsigned)((N + BN - 1) / BN),
                   (unsigned)((M + chunk - 1) / chunk));
   dw_kernel<BN, WARPS_N><<<grid, kThreads, 0, st>>>(
-      x, ldx, M, K, H, W, taps, v.inv, v.shift, v.vstride, v.tile_rows, dy,
-      ldd, N, chunk, part);
+      x, ldx, M, K, H, W, taps, v.inv, v.shift, v.vstride, v.tile_rows,
+      v.bits, dy, ldd, N, chunk, part);
 }
 
 }  // namespace
@@ -592,10 +646,10 @@ int cunet_bn_bwd(const void* x, long long ldx, const void* da, long long ldd,
 int cunet_dx(const void* dy, long long ldd, long long M, int N, int H, int W,
              int taps, const void* w, int ldw, int K, const void* x,
              long long ldx, const void* inv, const void* shift,
-             long long vstride, long long tile_rows, void* out, long long ldo,
-             void* stream) {
+             long long vstride, long long tile_rows, int ste, void* out,
+             long long ldo, void* stream) {
   const VecArgs v{static_cast<const float*>(inv),
-                  static_cast<const float*>(shift), vstride, tile_rows};
+                  static_cast<const float*>(shift), vstride, tile_rows, ste};
   const auto* dp = static_cast<const bf16*>(dy);
   const auto* wp = static_cast<const bf16*>(w);
   const auto* xp = static_cast<const bf16*>(x);
@@ -618,10 +672,10 @@ int cunet_dx(const void* dy, long long ldd, long long M, int N, int H, int W,
 
 int cunet_dw(const void* x, long long ldx, long long M, int K, int H, int W,
              int taps, const void* inv, const void* shift, long long vstride,
-             long long tile_rows, const void* dy, long long ldd, int N,
-             long long chunk, void* part, void* stream) {
+             long long tile_rows, int bits, const void* dy, long long ldd,
+             int N, long long chunk, void* part, void* stream) {
   const VecArgs v{static_cast<const float*>(inv),
-                  static_cast<const float*>(shift), vstride, tile_rows};
+                  static_cast<const float*>(shift), vstride, tile_rows, bits};
   const auto* xp = static_cast<const bf16*>(x);
   const auto* dp = static_cast<const bf16*>(dy);
   auto* pp = static_cast<float*>(part);
@@ -664,6 +718,22 @@ int cunet_upsample2_bwd(const void* d, long long ldd, void* out,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(d), ldd, static_cast<bf16*>(out), ldo, B, H,
       W, C);
+  return (int)cudaGetLastError();
+}
+
+int cunet_drop_mask(const void* in, long long ldi, int f32_in, void* out,
+                    long long ldo, long long M, int G, long long tile_rows,
+                    unsigned int key, unsigned int thr, float scale,
+                    void* stream) {
+  const auto st = static_cast<cudaStream_t>(stream);
+  auto* op = static_cast<bf16*>(out);
+  const unsigned blocks = grid_blocks(M * (G / 8));
+  if (f32_in)
+    drop_mask_kernel<true><<<blocks, kThreads, 0, st>>>(
+        in, ldi, op, ldo, M, G, tile_rows, key, thr, scale);
+  else
+    drop_mask_kernel<false><<<blocks, kThreads, 0, st>>>(
+        in, ldi, op, ldo, M, G, tile_rows, key, thr, scale);
   return (int)cudaGetLastError();
 }
 

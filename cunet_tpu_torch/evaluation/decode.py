@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from cunet_tpu.geometry import transform_preds_1indexed
+from cunet_tpu_torch.geometry import transform_preds_1indexed
 
 
 def get_preds(scores: np.ndarray) -> np.ndarray:

@@ -8,7 +8,8 @@ column stride) and writes its result into the ``out`` view it is given, in
 place.
 On a CPU tensor a wrapper computes the plain PyTorch version; on a CUDA
 tensor it launches the kernel or raises. ``<wrapper>.launches`` counts the
-kernel launches and nothing else.
+kernel launches and nothing else; ``<wrapper>.option_launches`` those of
+them with the QuanInput option on (``option_counts``).
 
 All four are bound on the H100 by memory traffic, not by the tensor cores:
 a 1x1 of K=192 -> 128 does about 77 flop per byte of x read and out
@@ -26,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from cunet_tpu_torch.kernels import build
+from cunet_tpu_torch.quant.wage import clip_c, quant_q
 
 
 # ---------------------------------------------------------------------------
@@ -103,6 +105,21 @@ def _vec_args(vec, m, k):
     return vec[0, 0].data_ptr(), vec[0, 1].data_ptr(), vec.stride(0), m // t
 
 
+def _check_bits(bits_i: int) -> None:
+    if not 0 <= bits_i <= 15:
+        raise ValueError(f"bits_i must be 0 (off) or 1..15, got {bits_i}")
+
+
+def quantize_act(z, bits_i: int):
+    """QuanInput's quantizer ``Q(C(z, bits_i), bits_i)`` on an activation
+    ``z`` (computed in float32, rounded back to z's dtype: exact for
+    bits_i <= 8); ``bits_i == 0`` is the identity. The plain version of the
+    kernels' ``quan``."""
+    if not bits_i:
+        return z
+    return quant_q(clip_c(z.float(), bits_i), bits_i).to(z.dtype)
+
+
 def _check_tile_vec(vec, k, m, what="vec"):
     if vec.dim() not in (2, 3) or vec.shape[-2] != 2 or vec.shape[-1] < k:
         raise ValueError(f"{what} must be (2, >={k}) or (T, 2, >={k}), got "
@@ -111,9 +128,9 @@ def _check_tile_vec(vec, k, m, what="vec"):
         raise ValueError(f"{m} rows do not split into {vec.shape[0]} tiles")
 
 
-def affine_dot_plain(x, vec, w, out, bias=None):
+def affine_dot_plain(x, vec, w, out, bias=None, bits_i=0):
     k = x.shape[1]
-    y = torch.relu(tile_affine(x, vec)).to(x.dtype)
+    y = quantize_act(torch.relu(tile_affine(x, vec)).to(x.dtype), bits_i)
     acc = y.float() @ w[:k].float()
     if bias is not None:
         acc = torch.relu(acc + bias)
@@ -121,7 +138,7 @@ def affine_dot_plain(x, vec, w, out, bias=None):
     return out
 
 
-def affine_dot(x, vec, w, out, *, bias=None):
+def affine_dot(x, vec, w, out, *, bias=None, bits_i=0):
     """``out = epi(relu(x * vec[0] + vec[1]) @ w[:K])`` for x (M, K).
 
     The concat-free BN-fold + ReLU + 1x1 conv of every bottleneck, adapter,
@@ -130,7 +147,9 @@ def affine_dot(x, vec, w, out, *, bias=None):
     read (growth-phase slots read a prefix of the padded weight). ``epi`` is
     the identity, or ``relu(. + bias)`` for the bottleneck's folded BN2.
     ``out`` is an (M, N) view or an image-major (B, P, N) view with
-    B*P == M (one slot of the stacked head output).
+    B*P == M (one slot of the stacked head output). With ``bits_i`` (1-15)
+    the bf16 activation goes through QuanInput's quantizer
+    (``quantize_act``) before the product: the quantized train head.
 
     Replaces ``cunet_tpu/kernels/fused_model_buf.py::_affine_dot`` and
     ``fused_hourglass.py::_bottleneck_val``. Bound on the H100 by reading x
@@ -148,8 +167,9 @@ def affine_dot(x, vec, w, out, *, bias=None):
                          f"{tuple(vec.shape)}, w {tuple(w.shape)}, out "
                          f"{tuple(out.shape)}")
     _check_tile_vec(vec, k, m)
+    _check_bits(bits_i)
     if x.device.type == "cpu":
-        return affine_dot_plain(x, vec, w, out, bias)
+        return affine_dot_plain(x, vec, w, out, bias, bits_i)
     _check_view(x, "x")
     _check_view(out, "out")
     _check_view(w, "w")
@@ -163,10 +183,11 @@ def affine_dot(x, vec, w, out, *, bias=None):
     lib = build.lib()
     code = lib.cunet_affine_dot(
         x.data_ptr(), x.stride(0), m, k, inv, shift, vstride, tile_rows,
-        w.data_ptr(), n, n, 0 if bias is None else bias.data_ptr(),
+        bits_i, w.data_ptr(), n, n, 0 if bias is None else bias.data_ptr(),
         out.data_ptr(), ldo, rows_per_img, img_stride, _stream(x))
     build.check(code, "affine_dot")
     affine_dot.launches += 1
+    affine_dot.option_launches += bits_i > 0
     return out
 
 
@@ -180,10 +201,10 @@ def pack_w3(w3: torch.Tensor) -> torch.Tensor:
     return w3.reshape(9 * w3.shape[2], w3.shape[3]).contiguous()
 
 
-def conv3x3_plain(y, w3p, b, h, w, out, vec=None):
+def conv3x3_plain(y, w3p, b, h, w, out, vec=None, bits_i=0):
     c, g = y.shape[1], w3p.shape[1]
     if vec is not None:
-        y = torch.relu(tile_affine(y, vec)).to(y.dtype)
+        y = quantize_act(torch.relu(tile_affine(y, vec)).to(y.dtype), bits_i)
     x4 = y.reshape(b, h, w, c).permute(0, 3, 1, 2).float()
     wt = w3p.view(3, 3, c, g).permute(3, 2, 0, 1).float()
     o = F.conv2d(x4, wt, padding=1)
@@ -191,14 +212,15 @@ def conv3x3_plain(y, w3p, b, h, w, out, vec=None):
     return out
 
 
-def conv3x3(y, w3p, b, h, w, out, *, vec=None):
+def conv3x3(y, w3p, b, h, w, out, *, vec=None, bits_i=0):
     """3x3 SAME conv of ``y`` (b*h*w, Cb) into ``out`` (b*h*w, G), f32
     accumulation, zero padding per image (flattened images never bleed into
     each other). ``w3p`` is ``pack_w3`` of the HWIO weight. With ``vec``
     ((T, 2, Cb) per-tile [inv; shift] of a ghost-BN train stage) the input
     rows first go through ``relu(y * inv + shift)`` in f32, rounded to
     bf16, so that relu(BN2(yb)) never lands in memory; the zero padding
-    stays zero after that prologue.
+    stays zero after that prologue; with ``bits_i`` (1-15, train only)
+    the rounded value goes through QuanInput's quantizer too.
 
     Replaces ``cunet_tpu/kernels/fused_hourglass.py::_conv3x3`` (all four of
     its TPU forms: taps, onedot, scatter, dycol). Design: one implicit GEMM
@@ -219,8 +241,11 @@ def conv3x3(y, w3p, b, h, w, out, *, vec=None):
                          f"image {b}x{h}x{w}")
     if vec is not None:
         _check_tile_vec(vec, c, m)
+    _check_bits(bits_i)
+    if bits_i and vec is None:
+        raise ValueError("conv3x3 quantizes only with a BN prologue (vec)")
     if y.device.type == "cpu":
-        return conv3x3_plain(y, w3p, b, h, w, out, vec)
+        return conv3x3_plain(y, w3p, b, h, w, out, vec, bits_i)
     _check_view(y, "y")
     _check_view(out, "out")
     _check_view(w3p, "w3")
@@ -234,10 +259,11 @@ def conv3x3(y, w3p, b, h, w, out, *, vec=None):
     lib = build.lib()
     code = lib.cunet_conv3x3(y.data_ptr(), y.stride(0), m, h, w, c,
                              w3p.data_ptr(), g, inv, shift, vstride,
-                             tile_rows, out.data_ptr(), out.stride(0),
+                             tile_rows, bits_i, out.data_ptr(), out.stride(0),
                              _stream(y))
     build.check(code, "conv3x3")
     conv3x3.launches += 1
+    conv3x3.option_launches += bits_i > 0
     return out
 
 
@@ -313,15 +339,35 @@ def upsample2(x, b, h, w, out):
 KERNELS = (affine_dot, conv3x3, maxpool2, upsample2)
 PLAIN = {affine_dot: affine_dot_plain, conv3x3: conv3x3_plain,
          maxpool2: maxpool2_plain, upsample2: upsample2_plain}
+OPTIONS = {affine_dot: "bits_i", conv3x3: "bits_i"}
+
+
+def reset_counts(kernels, options=()) -> None:
+    """Zero ``launches`` of each wrapper of ``kernels`` and
+    ``option_launches`` of each of ``options``."""
+    for k in kernels:
+        k.launches = 0
+    for k in options:
+        k.option_launches = 0
+
+
+def count_options(options: dict) -> dict:
+    """Launches with an option on, keyed ``name[option]``, of the wrappers
+    of ``options`` ({wrapper: option name})."""
+    return {f"{k.__name__}[{o}]": k.option_launches
+            for k, o in options.items()}
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS:
-        k.launches = 0
+    reset_counts(KERNELS, OPTIONS)
 
 
 def launch_counts() -> dict:
     return {k.__name__: k.launches for k in KERNELS}
+
+
+def option_counts() -> dict:
+    return count_options(OPTIONS)
 
 
 reset_launch_counts()

@@ -95,15 +95,18 @@ def _declare(lib):
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     F = ctypes.c_float
     sigs = {
-        "cunet_affine_dot": [P, L, L, I, P, P, L, L, P, I, I, P, P, L, L, L,
-                             P],
-        "cunet_conv3x3": [P, L, L, I, I, I, P, I, P, P, L, L, P, L, P],
+        "cunet_affine_dot": [P, L, L, I, P, P, L, L, I, P, I, I, P, P, L, L,
+                             L, P],
+        "cunet_conv3x3": [P, L, L, I, I, I, P, I, P, P, L, L, I, P, L, P],
         "cunet_maxpool2": [P, L, P, L, I, I, I, I, P],
         "cunet_upsample2": [P, L, P, L, I, I, I, I, P],
         "cunet_bn_stats": [P, L, L, L, I, P, P],
         "cunet_bn_bwd": [P, L, P, L, L, L, I, P, P, F, P, L, I, P, P],
-        "cunet_dx": [P, L, L, I, I, I, I, P, I, I, P, L, P, P, L, L, P, L, P],
-        "cunet_dw": [P, L, L, I, I, I, I, P, P, L, L, P, L, I, L, P, P],
+        "cunet_dx": [P, L, L, I, I, I, I, P, I, I, P, L, P, P, L, L, I, P, L,
+                     P],
+        "cunet_dw": [P, L, L, I, I, I, I, P, P, L, L, I, P, L, I, L, P, P],
+        "cunet_drop_mask": [P, L, I, P, L, L, I, L, ctypes.c_uint,
+                            ctypes.c_uint, F, P],
         "cunet_sum_rows": [P, I, L, P, P],
         "cunet_maxpool2_bwd": [P, L, P, L, P, L, I, I, I, I, P],
         "cunet_upsample2_bwd": [P, L, P, L, I, I, I, I, P],

@@ -33,7 +33,7 @@ from typing import Dict, List, Sequence
 
 import torch
 
-from cunet_tpu.config import ModelConfig
+from cunet_tpu_torch.config import ModelConfig
 from cunet_tpu_torch.kernels.buf_ops import (
     affine_dot,
     conv3x3,

@@ -10,7 +10,8 @@ ghost-BN vectors; this module adds the statistics (F1) and the backward
 
 As in :mod:`cunet_tpu_torch.kernels.buf_ops`: on a CPU tensor a wrapper
 computes its plain PyTorch version; on a CUDA tensor it launches its kernel
-or raises; ``<wrapper>.launches`` counts its launches and nothing else.
+or raises; ``<wrapper>.launches`` counts its launches and nothing else,
+``<wrapper>.option_launches`` those with QuanInput's option on.
 Reductions over rows (BN sums, weight gradients) write per-block partials
 that ``sum_rows`` adds in a fixed order, so the results are deterministic.
 
@@ -28,10 +29,14 @@ import torch.nn.functional as F
 
 from cunet_tpu_torch.kernels import build
 from cunet_tpu_torch.kernels.buf_ops import (
+    _check_bits,
     _check_tile_vec,
     _check_view,
     _stream,
     _vec_args,
+    count_options,
+    quantize_act,
+    reset_counts,
     tile_affine,
 )
 
@@ -145,14 +150,24 @@ def sum_rows(part, out):
 # ---------------------------------------------------------------------------
 
 
-def affine_dx_plain(dy, w, x, vec, out):
+def _gate(x, vec, ste):
+    """The backward's ReLU gate z > 0 of z = x*inv + shift; with ``ste``
+    QuanInput's straight-through gate too: z, rounded to x's dtype (the
+    value the quantizer read), below 1."""
+    z = tile_affine(x, vec)
+    if not ste:
+        return z > 0
+    return (z > 0) & (z.to(x.dtype).float() < 1)
+
+
+def affine_dx_plain(dy, w, x, vec, out, ste=False):
     k = x.shape[1]
     d = dy.float() @ w[:k].float().t()
-    out.copy_(torch.where(tile_affine(x, vec) > 0, d, 0.0))
+    out.copy_(torch.where(_gate(x, vec, ste), d, 0.0))
     return out
 
 
-def _dx(name, dy, w, x, vec, out, b, h, wd, taps):
+def _dx(name, dy, w, x, vec, out, b, h, wd, taps, ste):
     m, n = dy.shape
     k = x.shape[1]
     _check_view(dy, "dy")
@@ -166,21 +181,22 @@ def _dx(name, dy, w, x, vec, out, b, h, wd, taps):
     code = build.lib().cunet_dx(
         dy.data_ptr(), dy.stride(0), m, n, h, wd, taps, w.data_ptr(),
         w.shape[1], k, x.data_ptr(), x.stride(0), inv, shift, vstride,
-        tile_rows, out.data_ptr(), out.stride(0), _stream(dy))
+        tile_rows, int(ste), out.data_ptr(), out.stride(0), _stream(dy))
     build.check(code, name)
 
 
-def affine_dx(dy, w, x, vec, out):
+def affine_dx(dy, w, x, vec, out, *, ste=False):
     """``out = (dy @ w[:K]^T) * [x*inv + shift > 0]`` in float32 for
     dy (M, N) bf16, w (>=K, N), x (M, K) the stage input and ``vec`` its
     per-tile (T, 2, >=K) vectors: the cotangent of a stage's pre-ReLU
-    activation.
+    activation. With ``ste`` the mask is QuanInput's too (the quantized
+    head): it passes only where 0 < bf16(z) < 1.
 
     Replaces ``cunet_tpu/kernels/train_slot.py::_dot_dx`` with the ReLU
-    mask of ``_affine_bwd``. Bound like the forward 1x1 by reading dy and x
-    and writing the f32 result. Design: the forward's 128-row WMMA tiles
-    with W read transposed into shared memory, f32 accumulation, and the
-    mask recomputed from x in the epilogue (the forward's activation is
+    mask of ``_affine_bwd`` (and ``_ste_mask``). Bound like the forward
+    1x1 by reading dy and x and writing the f32 result. Design: the
+    forward's 128-row WMMA tiles with W read transposed into shared
+    memory, f32 accumulation, and the mask recomputed from x in the epilogue (the forward's activation is
     never stored). Its BN-jacobian sums are taken by ``bn_bwd``, which
     reads d_a anyway.
     """
@@ -193,26 +209,28 @@ def affine_dx(dy, w, x, vec, out):
                          f"{tuple(out.shape)}")
     _check_tile_vec(vec, k, m)
     if dy.device.type == "cpu":
-        return affine_dx_plain(dy, w, x, vec, out)
-    _dx("affine_dx", dy, w, x, vec, out, 1, 1, 1, 1)
+        return affine_dx_plain(dy, w, x, vec, out, ste)
+    _dx("affine_dx", dy, w, x, vec, out, 1, 1, 1, 1, ste)
     affine_dx.launches += 1
+    affine_dx.option_launches += bool(ste)
     return out
 
 
-def conv3x3_dx_plain(dy, w3p, b, h, w, x, vec, out):
+def conv3x3_dx_plain(dy, w3p, b, h, w, x, vec, out, ste=False):
     cb, g = x.shape[1], dy.shape[1]
     d4 = dy.float().reshape(b, h, w, g).permute(0, 3, 1, 2)
     wt = w3p.float().view(3, 3, cb, g).permute(3, 2, 0, 1)
     dz = F.conv_transpose2d(d4, wt, padding=1)
     dz = dz.permute(0, 2, 3, 1).reshape(b * h * w, cb)
-    out.copy_(torch.where(tile_affine(x, vec) > 0, dz, 0.0))
+    out.copy_(torch.where(_gate(x, vec, ste), dz, 0.0))
     return out
 
 
-def conv3x3_dx(dy, w3p, b, h, w, x, vec, out):
+def conv3x3_dx(dy, w3p, b, h, w, x, vec, out, *, ste=False):
     """The transposed 3x3 conv of ``dy`` (b*h*w, G) through the packed
     weight ``w3p`` (9*Cb, G), masked by relu(BN2(x)) > 0 of the conv's
-    input x (b*h*w, Cb): the float32 cotangent of BN2's pre-ReLU output.
+    input x (b*h*w, Cb): the float32 cotangent of BN2's pre-ReLU output;
+    with ``ste`` also QuanInput's gate (0 < bf16(z2) < 1).
 
     Replaces the d_z2 half of ``cunet_tpu/kernels/train_slot.py::
     _conv3x3_bwd`` (all its TPU forms). Design: the ``affine_dx`` core as
@@ -229,9 +247,10 @@ def conv3x3_dx(dy, w3p, b, h, w, x, vec, out):
                          f"{tuple(out.shape)}, image {b}x{h}x{w}")
     _check_tile_vec(vec, cb, m)
     if dy.device.type == "cpu":
-        return conv3x3_dx_plain(dy, w3p, b, h, w, x, vec, out)
-    _dx("conv3x3_dx", dy, w3p, x, vec, out, b, h, w, 9)
+        return conv3x3_dx_plain(dy, w3p, b, h, w, x, vec, out, ste)
+    _dx("conv3x3_dx", dy, w3p, x, vec, out, b, h, w, 9, ste)
     conv3x3_dx.launches += 1
+    conv3x3_dx.option_launches += bool(ste)
     return out
 
 
@@ -240,13 +259,14 @@ def conv3x3_dx(dy, w3p, b, h, w, x, vec, out):
 # ---------------------------------------------------------------------------
 
 
-def affine_dw_plain(x, vec, dy, out):
-    z = torch.relu(tile_affine(x, vec)).to(x.dtype).float()
+def affine_dw_plain(x, vec, dy, out, bits_i=0):
+    z = quantize_act(torch.relu(tile_affine(x, vec)).to(x.dtype),
+                     bits_i).float()
     out.copy_(z.t() @ dy.float())
     return out
 
 
-def _dw(name, x, vec, dy, out, b, h, wd, taps):
+def _dw(name, x, vec, dy, out, b, h, wd, taps, bits_i):
     m, k = x.shape
     n = dy.shape[1]
     _check_view(x, "x")
@@ -259,16 +279,17 @@ def _dw(name, x, vec, dy, out, b, h, wd, taps):
                        dtype=torch.float32)
     code = build.lib().cunet_dw(
         x.data_ptr(), x.stride(0), m, k, h, wd, taps, inv, shift, vstride,
-        tile_rows, dy.data_ptr(), dy.stride(0), n, DW_CHUNK, part.data_ptr(),
-        _stream(x))
+        tile_rows, bits_i, dy.data_ptr(), dy.stride(0), n, DW_CHUNK,
+        part.data_ptr(), _stream(x))
     build.check(code, name)
     sum_rows(part, out)
 
 
-def affine_dw(x, vec, dy, out):
+def affine_dw(x, vec, dy, out, *, bits_i=0):
     """``out = bf16(relu(x*inv + shift))^T @ dy`` in float32, (K, N), for
     x (M, K), per-tile ``vec`` and dy (M, N): a 1x1 stage's weight
-    gradient, summed over all rows.
+    gradient, summed over all rows. With ``bits_i`` (1-15) the activation
+    is QuanInput-quantized (``quantize_act``): dW of the quantized head.
 
     Replaces ``cunet_tpu/kernels/train_slot.py::_dot_dw`` (and the
     cross-step dW accumulation). Bound by reading x and dy once. Design:
@@ -283,16 +304,19 @@ def affine_dw(x, vec, dy, out):
         raise ValueError(f"affine_dw shapes: x {tuple(x.shape)}, dy "
                          f"{tuple(dy.shape)}, out {tuple(out.shape)}")
     _check_tile_vec(vec, k, m)
+    _check_bits(bits_i)
     if x.device.type == "cpu":
-        return affine_dw_plain(x, vec, dy, out)
-    _dw("affine_dw", x, vec, dy, out, 1, 1, 1, 1)
+        return affine_dw_plain(x, vec, dy, out, bits_i)
+    _dw("affine_dw", x, vec, dy, out, 1, 1, 1, 1, bits_i)
     affine_dw.launches += 1
+    affine_dw.option_launches += bits_i > 0
     return out
 
 
-def conv3x3_dw_plain(x, vec, dy, b, h, w, out):
+def conv3x3_dw_plain(x, vec, dy, b, h, w, out, bits_i=0):
     cb, g = x.shape[1], dy.shape[1]
-    z = torch.relu(tile_affine(x, vec)).to(x.dtype).float()
+    z = quantize_act(torch.relu(tile_affine(x, vec)).to(x.dtype),
+                     bits_i).float()
     z4 = z.reshape(b, h, w, cb).permute(0, 3, 1, 2)
     d4 = dy.float().reshape(b, h, w, g).permute(0, 3, 1, 2)
     dw = torch.nn.grad.conv2d_weight(z4, (g, cb, 3, 3), d4, padding=1)
@@ -300,11 +324,12 @@ def conv3x3_dw_plain(x, vec, dy, b, h, w, out):
     return out
 
 
-def conv3x3_dw(x, vec, dy, b, h, w, out):
+def conv3x3_dw(x, vec, dy, b, h, w, out, *, bits_i=0):
     """Weight gradient of the 3x3 conv in the packed (9*Cb, G) layout:
     ``out[tap*Cb + c] = sum_m z[m + offset(tap), c] * dy[m]`` with
     z = bf16(relu(x*inv + shift)) of the conv input x (b*h*w, Cb) (zero
-    outside the image) and dy (b*h*w, G).
+    outside the image) and dy (b*h*w, G); with ``bits_i`` (1-15) z is
+    QuanInput-quantized, the values the forward's conv read.
 
     Replaces the dW3 half of ``cunet_tpu/kernels/train_slot.py::
     _conv3x3_bwd``. Design: the ``affine_dw`` core with 9 taps, a tap per
@@ -317,10 +342,12 @@ def conv3x3_dw(x, vec, dy, b, h, w, out):
                          f"{tuple(dy.shape)}, out {tuple(out.shape)}, "
                          f"image {b}x{h}x{w}")
     _check_tile_vec(vec, cb, m)
+    _check_bits(bits_i)
     if x.device.type == "cpu":
-        return conv3x3_dw_plain(x, vec, dy, b, h, w, out)
-    _dw("conv3x3_dw", x, vec, dy, out, b, h, w, 9)
+        return conv3x3_dw_plain(x, vec, dy, b, h, w, out, bits_i)
+    _dw("conv3x3_dw", x, vec, dy, out, b, h, w, 9, bits_i)
     conv3x3_dw.launches += 1
+    conv3x3_dw.option_launches += bits_i > 0
     return out
 
 
@@ -488,15 +515,20 @@ PLAIN = {bn_stats: bn_stats_plain, affine_dx: affine_dx_plain,
          conv3x3_dw: conv3x3_dw_plain, bn_bwd: bn_bwd_plain,
          maxpool2_bwd: maxpool2_bwd_plain, upsample2_bwd: upsample2_bwd_plain,
          sum_rows: sum_rows_plain}
+OPTIONS = {affine_dx: "ste", conv3x3_dx: "ste", affine_dw: "bits_i",
+           conv3x3_dw: "bits_i"}
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS:
-        k.launches = 0
+    reset_counts(KERNELS, OPTIONS)
 
 
 def launch_counts() -> dict:
     return {k.__name__: k.launches for k in KERNELS}
+
+
+def option_counts() -> dict:
+    return count_options(OPTIONS)
 
 
 reset_launch_counts()

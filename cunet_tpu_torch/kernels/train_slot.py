@@ -43,20 +43,34 @@ intermedia -- recomputing each block from its buffer, as ``_run_up`` :1033,
 ``_run_down`` :1175 and ``_block_bwd_generic`` :917 do. Weight gradients
 come back in float32 for the float32 master parameters.
 
-Not carried over: dropout (``drop="seed"|"masks"``) and QuanInput
-(``bits_i``), options of the TPU kernels that wait for their own PRs, and
-the TPU-only knobs (``CUNET_TRAIN_CONV3X3``, ``CUNET_CONV_BWD``,
+The two options of the TPU kernels:
+
+- dropout (``drop="seed"``): the slot's int32 seed and the rate ride in
+  ``SlotMeta``; ``drop_ops.drop_mask`` multiplies each out32 by its mask
+  right after the conv (before its statistics and before it is saved, so
+  the saved out32s are post-dropout), and the backward regenerates the
+  same mask for the conv's cotangent (``_seed_mask`` :226, :296-300,
+  :949-952);
+- QuanInput (``bits_i``): the conv3x3 prologue and the head's quantize
+  their bf16 activation (``_quan`` :198, :294, :356); the backward takes
+  dW against the quantized values and adds the straight-through gate
+  0 < z < 1 to the ReLU mask (:953-959, ``_stage_bwd`` :585). Intermedia,
+  bottleneck and adapter stages are never quantized.
+
+Not carried over: precomputed threefry masks (``drop="masks"``) and the
+TPU-only knobs (``CUNET_TRAIN_CONV3X3``, ``CUNET_CONV_BWD``,
 ``CUNET_TRAIN_CONV_CHUNK``, ``CUNET_TSBWD_*``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
-from cunet_tpu.config import ModelConfig
+from cunet_tpu_torch.config import ModelConfig
+from cunet_tpu_torch.kernels.drop_ops import drop_mask
 from cunet_tpu_torch.kernels.buf_ops import (
     affine_dot,
     conv3x3,
@@ -108,7 +122,8 @@ def _wset_keys(skip: bool):
 @dataclasses.dataclass(frozen=True)
 class SlotMeta:
     """Static description of one slot call (``make_meta`` + ``finalize_meta``
-    of the JAX kernel)."""
+    of the JAX kernel). ``bits_i``: QuanInput bits (0 = off); ``seed``: the
+    slot's int32 dropout seed (None = no dropout) with ``drop_rate``."""
 
     num_blocks: int
     L: int
@@ -120,6 +135,18 @@ class SlotMeta:
     h: int
     dtype: torch.dtype
     eps: float = BN_EPS
+    bits_i: int = 0
+    drop_rate: float = 0.0
+    seed: Optional[int] = None
+
+    def drop(self, x, pos: int, res: int, out=None):
+        """The dropout mask of position ``pos`` on an out32 view ``x`` at
+        resolution ``res`` (in place), or onto ``out`` from the float32
+        cotangent ``x``; the identity without dropout."""
+        if self.seed is None:
+            return x
+        return drop_mask(x, self.seed, pos, self.drop_rate,
+                         self.bt * res * res, out)
 
     @property
     def plan(self) -> List[Dict]:
@@ -329,7 +356,8 @@ def slot_train_fwd(meta: SlotMeta, y, inter_fifo, fifos, W):
         affine_dot(buf[:, :k1], _affine_vec(s1, w["bn1"], eps), w["w_b"], ybm)
         s2 = _stats_of(ybm, tiles)
         conv3x3(ybm, w["w3"], n, res, res, buf[:, k1:k2],
-                vec=_affine_vec(s2, w["bn2"], eps))
+                vec=_affine_vec(s2, w["bn2"], eps), bits_i=meta.bits_i)
+        meta.drop(buf[:, k1:k2], pos, res)
         out32s[pos].copy_(buf[:, k1:k2])
         # x2 = [x_cat | out32]: x_cat's statistics are s1, per channel
         sa = torch.cat([s1, _stats_of(buf[:, k1:k2], tiles)], dim=2)
@@ -359,7 +387,8 @@ def slot_train_fwd(meta: SlotMeta, y, inter_fifo, fifos, W):
     stats.append(sh)
     bn_h, w_h = W["head"]
     head = torch.empty(m0, w_h.shape[1], device=dev, dtype=dt)
-    affine_dot(y_out, _affine_vec(sh, bn_h, eps), w_h, head)
+    affine_dot(y_out, _affine_vec(sh, bn_h, eps), w_h, head,
+               bits_i=meta.bits_i)
 
     if [s.shape[2] for s in stats] != stat_widths(meta):
         raise RuntimeError("slot statistics out of emission order")
@@ -444,12 +473,12 @@ def slot_train_bwd(meta: SlotMeta, saved: _Saved, W, cts):
         buf[:, p["k1"]:p["k2"]].copy_(saved.out32s[pos])
         return buf
 
-    def stage_bwd(x, s, bn, w, dy, d_x, gw, gbn, accumulate, d_a):
-        """out = relu(bn(x)) @ w: weight and BN-param grads, and the input
-        cotangent into (or onto) d_x."""
+    def stage_bwd(x, s, bn, w, dy, d_x, gw, gbn, accumulate, d_a, bits_i=0):
+        """out = [quan](relu(bn(x))) @ w: weight and BN-param grads, and the
+        input cotangent into (or onto) d_x."""
         v = _affine_vec(s, bn, eps)
-        affine_dx(dy, w, x, v, d_a)
-        affine_dw(x, v, dy, gw)
+        affine_dx(dy, w, x, v, d_a, ste=bits_i > 0)
+        affine_dw(x, v, dy, gw, bits_i=bits_i)
         bn_bwd(x, d_a, s, bn, eps, d_x, gbn, accumulate=accumulate)
 
     def block_bwd(pos, buf, d_ahead, d_skip):
@@ -470,15 +499,18 @@ def slot_train_bwd(meta: SlotMeta, saved: _Saved, W, cts):
         d_o = d_x2[:, k1:k2]
         if d_out32s[pos] is not None:
             d_o = d_o + d_out32s[pos].reshape(m, g).float()
-        d_o = compute(d_o)
+        # the saved out32 is post-dropout: the conv's cotangent is d_o * mask
+        d_o = (compute(d_o) if meta.seed is None
+               else meta.drop(d_o, pos, res, empty(m, g, dt)))
         # recompute the bottleneck output, then 3x3 conv + BN2 backward
         v1 = _affine_vec(s1, w["bn1"], eps)
         ybm = yb[:m]
         affine_dot(buf[:, :k1], v1, w["w_b"], ybm)
         v2 = _affine_vec(s2, w["bn2"], eps)
         d_a2, d_yb = empty(m, cb), empty(m, cb)
-        conv3x3_dx(d_o, w["w3"], n, res, res, ybm, v2, d_a2)
-        conv3x3_dw(ybm, v2, d_o, n, res, res, gw["w3"])
+        conv3x3_dx(d_o, w["w3"], n, res, res, ybm, v2, d_a2,
+                   ste=meta.bits_i > 0)
+        conv3x3_dw(ybm, v2, d_o, n, res, res, gw["w3"], bits_i=meta.bits_i)
         bn_bwd(ybm, d_a2, s2, w["bn2"], eps, d_yb, gw["bn2"])
         stage_bwd(buf[:, :k1], s1, w["bn1"], w["w_b"], compute(d_yb),
                   d_x2[:, :k1], gw["w_b"], gw["bn1"], True, d_a[:, :k1])
@@ -496,7 +528,7 @@ def slot_train_bwd(meta: SlotMeta, saved: _Saved, W, cts):
     if d_head is not None:
         stage_bwd(y_out, s_head, bn_h, w_h,
                   compute(d_head.reshape(m0, w_h.shape[1])), d_y, g_wh,
-                  g_bnh, True, empty(m0, c))
+                  g_bnh, True, empty(m0, c), meta.bits_i)
     dW["head"] = (g_bnh, g_wh)
 
     # ---- up path, neck ----
@@ -610,21 +642,29 @@ class _SlotTrain(torch.autograd.Function):
 
 
 def fused_slot_train(y, inter_fifo, fifos, W, *, cfg: ModelConfig, L: int,
-                     has_inter: bool):
+                     has_inter: bool, bits_i: int = 0,
+                     drop_seed: Optional[int] = None):
     """Whole-slot train forward with the recompute backward as its
     gradient. ``y`` (N, h0, h0, c) is the slot input, ``inter_fifo`` the L
     intermedia FIFO entries (empty without the intermedia adapter),
     ``fifos`` the per-position FIFO entries in traversal order, ``W`` the
     ``marshal_slot`` weights (float32 masters). Requires cfg.bn_tile > 0
-    (the BN statistics group). Returns (y_out, head, inter_out|None,
+    (the BN statistics group). ``bits_i`` > 0 runs QuanInput (bits > 15
+    are none); ``drop_seed`` (an int32) runs dropout at ``cfg.drop_rate``
+    with masks regenerated from it. Returns (y_out, head, inter_out|None,
     out32s tuple, stats tuple), stats per-tile (T, 2, C) float32 in
     emission order."""
     if cfg.bn_tile <= 0:
         raise ValueError("the slot train kernels need cfg.bn_tile > 0")
+    if drop_seed is not None and not 0.0 < cfg.drop_rate < 1.0:
+        raise ValueError(f"drop_seed given with drop_rate {cfg.drop_rate}")
     meta = SlotMeta(num_blocks=cfg.num_blocks, L=L, has_inter=has_inter,
                     bt=cfg.bn_tile, chan=cfg.init_chan_num,
                     growth=cfg.growth_rate, cb=cfg.bottleneck_chan,
-                    h=y.shape[1], dtype=getattr(torch, cfg.compute_dtype))
+                    h=y.shape[1], dtype=getattr(torch, cfg.compute_dtype),
+                    bits_i=bits_i if 0 < bits_i <= 15 else 0,
+                    drop_rate=cfg.drop_rate if drop_seed is not None else 0.0,
+                    seed=None if drop_seed is None else int(drop_seed))
     npos = len(meta.plan)
     if len(fifos) != npos or any(len(f) != L for f in fifos) \
             or len(inter_fifo) != (L if has_inter else 0):

@@ -34,7 +34,16 @@ Quantized eval (``quant``, weights from
 package: the activation quantizer before every 3x3 conv and every head, and
 with ``int8_infer`` also before every block 1x1 conv, which then runs as an
 integer product (:func:`_int8_bottleneck_infer`); intermedia adapters are
-never quantized.
+never quantized. Quantized training (weights ``quantize_params`` of the
+masters, :func:`cunet_tpu_torch.train.quant_step.quant_train_step`) puts
+the quantizer at the same two points, on either train path.
+
+Dropout (``drop_rate > 0``, ``drop_impl="prng"``) multiplies each dense
+layer's 3x3 conv output by a counter-hash mask
+(:mod:`cunet_tpu_torch.ops.dropmask`) from one int32 seed per slot
+(``apply_cu_net(..., drop_seeds=)``), at traversal position down j -> j,
+neck -> nb, up j -> 2nb - j and per ghost-BN tile, so both train paths and
+the JAX package draw the same masks from the same seeds.
 """
 
 from __future__ import annotations
@@ -43,7 +52,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from cunet_tpu.config import ModelConfig, QuantConfig
+from cunet_tpu_torch.config import ModelConfig, QuantConfig
 from cunet_tpu_torch.ops import (
     batch_norm,
     bn_inference_scale_shift,
@@ -53,6 +62,7 @@ from cunet_tpu_torch.ops import (
     relu,
     upsample_nearest_2x,
 )
+from cunet_tpu_torch.ops import dropmask
 from cunet_tpu_torch.ops.layers import running_update
 from cunet_tpu_torch.quant.wage import quan_input
 
@@ -114,12 +124,12 @@ def param_shapes(cfg: ModelConfig) -> Tuple[Dict[str, tuple], Dict[str, tuple]]:
 
 
 def init_cu_net(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
-                device="cpu"):
+                device="cuda"):
     """Random (params, state) with the JAX init's shapes and distributions:
     conv weights U(-1/sqrt(fan_in), +1/sqrt(fan_in)), BN scale U(0, 1), BN
     bias 0, running mean 0, running var 1. Drawn in float32 on the CPU from
     ``generator`` (the numbers differ from JAX's for the same seed), then
-    moved to ``device``."""
+    moved to ``device`` (the card unless the caller asks for the CPU)."""
     p_shapes, s_shapes = param_shapes(cfg)
     params = {}
     for key, shape in p_shapes.items():
@@ -229,14 +239,20 @@ def _quantize_input(y, quant):
     return y
 
 
-def _apply_dense_layer(params, state, prefix, feats, *, quant=None, **kw):
+def _apply_dense_layer(params, state, prefix, feats, *, quant=None,
+                       drop=None, **kw):
     """Bottleneck 1x1, then BN -> ReLU [-> quantize] -> 3x3 conv to
-    ``growth_rate``."""
+    ``growth_rate`` [-> dropout: ``drop`` = (seed, traversal position)]."""
     b = _apply_bottleneck(params, state, f"{prefix}.bottleneck", feats,
                           quant=quant, **kw)
     y = _quantize_input(
         relu(_norm(params, state, f"{prefix}.norm2", b, **kw)), quant)
-    return conv2d(y, params[f"{prefix}.conv2"], stride=1, padding=1)
+    y = conv2d(y, params[f"{prefix}.conv2"], stride=1, padding=1)
+    if drop is not None:
+        cfg = kw["cfg"]
+        y = y * dropmask.batch_mask(*drop, y.shape, cfg.bn_tile,
+                                    cfg.drop_rate, y.dtype, y.device)
+    return y
 
 
 def _fifo_push(fifo: List, out, i: int, order: int) -> List:
@@ -259,12 +275,13 @@ def empty_fifos(cfg: ModelConfig) -> Dict:
 
 def _apply_dense_block(params, state, prefix, feats, i: int, fifo: List, *,
                        cfg, requires_skip: bool, train=False, upd=None,
-                       quant=None):
+                       quant=None, drop=None):
     """Block position ``prefix`` at slot ``i``: returns ((ahead, skip|None),
     new_fifo)."""
     kw = dict(cfg=cfg, train=train, upd=upd, quant=quant)
     x = list(feats) + list(fifo)
-    out = _apply_dense_layer(params, state, f"{prefix}.layers.{i}", x, **kw)
+    out = _apply_dense_layer(params, state, f"{prefix}.layers.{i}", x,
+                             drop=drop, **kw)
     new_fifo = _fifo_push(fifo, out, i, cfg.order)
     x = x + [out]
     ahead = _apply_bottleneck(params, state, f"{prefix}.adapters_ahead.{i}",
@@ -277,25 +294,32 @@ def _apply_dense_block(params, state, prefix, feats, i: int, fifo: List, *,
 
 
 def _apply_hourglass(params, state, x, i: int, fifos: Dict, *, cfg,
-                     train=False, upd=None, quant=None):
+                     train=False, upd=None, quant=None, drop_seed=None):
     """num_blocks x (down block -> max pool), neck, num_blocks x (upsample ->
-    up block). Returns (x, fifos)."""
+    up block). ``drop_seed``: slot ``i``'s dropout seed (``_drop_handles``
+    of the JAX package: position down j -> j, neck -> nb, up j -> 2nb - j).
+    Returns (x, fifos)."""
     kw = dict(cfg=cfg, train=train, upd=upd, quant=quant)
+    nb = cfg.num_blocks
+
+    def drop(pos):
+        return None if drop_seed is None else (drop_seed, pos)
+
     skips = []
-    for j in range(cfg.num_blocks):
+    for j in range(nb):
         (x, skip), fifos["down"][j] = _apply_dense_block(
             params, state, f"hg.down.{j}", [x], i, fifos["down"][j],
-            requires_skip=True, **kw)
+            requires_skip=True, drop=drop(j), **kw)
         skips.append(skip)
         x = max_pool_2x2(x)
     (x, _), fifos["neck"] = _apply_dense_block(
         params, state, "hg.neck", [x], i, fifos["neck"], requires_skip=False,
-        **kw)
-    for j in reversed(range(cfg.num_blocks)):
+        drop=drop(nb), **kw)
+    for j in reversed(range(nb)):
         x = upsample_nearest_2x(x)
         (x, _), fifos["up"][j] = _apply_dense_block(
             params, state, f"hg.up.{j}", [x, skips[j]], i, fifos["up"][j],
-            requires_skip=False, **kw)
+            requires_skip=False, drop=drop(2 * nb - j), **kw)
     return x, fifos
 
 
@@ -469,10 +493,19 @@ def _write_slot_state(upd, slot_upd, cfg: ModelConfig, i: int) -> None:
             upd[key] = val
 
 
+def quant_kernel_bits(quant) -> int:
+    """bits_i of the slot train kernels; 0 = no activation quantization.
+    Weight quantization happens outside the model (``quantize_params``),
+    so the kernels add only the two QuanInput points."""
+    quant = _active(quant)
+    return 0 if quant is None else int(quant.bits_i)
+
+
 def _fused_slot_train(params, state, y, fifos, *, cfg: ModelConfig,
-                      i: int):
-    """Slot ``i`` through the train kernels. Returns (y_out, new_fifos,
-    head_out, slot_state_updates)."""
+                      i: int, bits_i: int = 0, drop_seed=None):
+    """Slot ``i`` through the train kernels (QuanInput at ``bits_i``,
+    dropout from ``drop_seed``). Returns (y_out, new_fifos, head_out,
+    slot_state_updates)."""
     from cunet_tpu_torch.kernels.train_slot import (
         fused_slot_train,
         marshal_slot,
@@ -486,7 +519,7 @@ def _fused_slot_train(params, state, y, fifos, *, cfg: ModelConfig,
                + [fifos["up"][j] for j in reversed(range(nb))])
     y_out, hm, inter_out, out32s, stats = fused_slot_train(
         y, fifos["intermedia"] if has_inter else [], fifos_t, W, cfg=cfg,
-        L=L, has_inter=has_inter)
+        L=L, has_inter=has_inter, bits_i=bits_i, drop_seed=drop_seed)
     slot_upd = _slot_state_from_stats(state, stats, cfg, i, y.shape[1])
     if cfg.order == 0:
         return y_out, fifos, hm, slot_upd
@@ -571,14 +604,17 @@ def eval_slots(params, state, cfg: ModelConfig, quant=None):
         quant_bits_i=quant.bits_i if quant is not None else 0)
 
 
-def _check_train_cfg(cfg: ModelConfig, quant) -> None:
+def _check_train_cfg(cfg: ModelConfig, drop_seeds) -> None:
     if cfg.drop_rate > 0:
-        raise NotImplementedError(
-            "dropout (drop_rate > 0) is not ported yet (ROADMAP queue A "
-            "item 8)")
-    if _active(quant) is not None:
-        raise NotImplementedError(
-            "quantized training is not ported yet (ROADMAP queue A item 9)")
+        if cfg.drop_impl == "masks":
+            raise NotImplementedError(
+                "drop_impl='masks' (threefry masks) needs JAX's threefry "
+                "bits and is not ported; use drop_impl='prng'")
+        if drop_seeds is None or len(drop_seeds) != cfg.layer_num:
+            raise ValueError(
+                f"drop_rate > 0 in train mode needs drop_seeds, one int32 "
+                f"per slot ({cfg.layer_num}); train_step draws them from "
+                f"its generator")
     if cfg.use_pallas and not cfg.bn_tile:
         raise NotImplementedError(
             "use_pallas with bn_tile=0 trains through the per-bottleneck "
@@ -591,7 +627,8 @@ def _check_train_cfg(cfg: ModelConfig, quant) -> None:
 
 
 def apply_cu_net(params, state, x: torch.Tensor, *, cfg: ModelConfig,
-                 train: bool = False, slots=None, quant=None):
+                 train: bool = False, slots=None, quant=None,
+                 drop_seeds=None):
     """Forward: stem -> K x (intermedia -> hourglass [-> head if anchored]).
 
     Args:
@@ -603,12 +640,17 @@ def apply_cu_net(params, state, x: torch.Tensor, *, cfg: ModelConfig,
       slots: eval kernel-path weights from :func:`eval_slots` (for the
         same ``quant``), reused across calls; built from ``params`` /
         ``state`` when None.
-      quant: an enabled ``QuantConfig`` runs the quantized model in eval
-        (``params`` from ``quant_eval_params``): activation quantizers
-        before every 3x3 conv and head, and with ``int8_infer`` int8 block
-        1x1 convs, on the int8 kernels when :func:`whole_model_eval`, else
-        on the plain path (``use_pallas=False``). Other quant configs with
-        ``use_pallas`` and quantized training are not ported and raise.
+      quant: an enabled ``QuantConfig`` runs the quantized model
+        (``params`` from ``quant_eval_params`` in eval, ``quantize_params``
+        of the masters in train): activation quantizers before every 3x3
+        conv and head (in train on either path, in the slot kernels with
+        ``use_pallas``), and in eval with ``int8_infer`` int8 block 1x1
+        convs, on the int8 kernels when :func:`whole_model_eval`, else on
+        the plain path (``use_pallas=False``). Other eval quant configs
+        with ``use_pallas`` are not ported and raise.
+      drop_seeds: with ``cfg.drop_rate > 0`` in train mode, one int32
+        dropout seed per slot (``ops.dropmask.draw_slot_seeds``); ignored
+        in eval.
     Returns:
       (list of (N, H/4, W/4, class_num) heatmaps, one per loss anchor in
       U-Net order, state) -- the state is unchanged in eval, and in train
@@ -616,7 +658,7 @@ def apply_cu_net(params, state, x: torch.Tensor, *, cfg: ModelConfig,
     """
     quant = _active(quant)
     if train:
-        _check_train_cfg(cfg, quant)
+        _check_train_cfg(cfg, drop_seeds)
     elif quant is not None:
         _check_eval_quant(cfg, quant)
     x = x.to(getattr(torch, cfg.compute_dtype))
@@ -626,10 +668,13 @@ def apply_cu_net(params, state, x: torch.Tensor, *, cfg: ModelConfig,
     outs: List[torch.Tensor] = []
     fifos = empty_fifos(cfg)
 
+    seeds = (drop_seeds if train and cfg.drop_rate > 0
+             else [None] * cfg.layer_num)
     if train and fused_train_ok(cfg):
         for i in range(cfg.layer_num):
             y, fifos, hm, slot_upd = _fused_slot_train(
-                params, state, y, fifos, cfg=cfg, i=i)
+                params, state, y, fifos, cfg=cfg, i=i,
+                bits_i=quant_kernel_bits(quant), drop_seed=seeds[i])
             _write_slot_state(upd, slot_upd, cfg, i)
             if (i + 1) in cfg.anchors:
                 outs.append(hm)
@@ -651,7 +696,7 @@ def apply_cu_net(params, state, x: torch.Tensor, *, cfg: ModelConfig,
         y, fifos["intermedia"] = _apply_intermedia(
             params, state, y, i, fifos["intermedia"], **kw)
         y, fifos = _apply_hourglass(params, state, y, i, fifos, quant=quant,
-                                    **kw)
+                                    drop_seed=seeds[i], **kw)
         if (i + 1) in cfg.anchors:
             outs.append(_apply_head(params, state, f"heads.{i}", y,
                                     quant=quant, **kw))

@@ -25,7 +25,7 @@ from typing import Callable, Dict
 
 import torch
 
-from cunet_tpu.config import QuantConfig
+from cunet_tpu_torch.config import QuantConfig
 from cunet_tpu_torch.quant.wage import (
     binarize_weight,
     fake_quant_weight,

@@ -19,8 +19,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from cunet_tpu.config import ModelConfig
-from cunet_tpu.geometry import MPII_FLIP_PAIRS, flip_test_merge
+from cunet_tpu_torch.config import ModelConfig
+from cunet_tpu_torch.geometry import MPII_FLIP_PAIRS, flip_test_merge
 from cunet_tpu_torch.evaluation import final_preds
 from cunet_tpu_torch.models import apply_cu_net, init_cu_net
 from cunet_tpu_torch.models.cu_net import eval_slots, whole_model_eval
@@ -63,7 +63,7 @@ class Predictor:
         self.flip_pairs = flip_pairs
         if params is None or bn_state is None:
             params, bn_state = init_cu_net(
-                cfg, torch.Generator().manual_seed(seed))
+                cfg, torch.Generator().manual_seed(seed), device=self.device)
         self.params = {k: v.to(self.device) for k, v in params.items()}
         self.bn_state = {k: v.to(self.device) for k, v in bn_state.items()}
         self.dtype = getattr(torch, cfg.compute_dtype)

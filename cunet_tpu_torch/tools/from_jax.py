@@ -21,7 +21,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from cunet_tpu.config import ModelConfig
+from cunet_tpu_torch.config import ModelConfig
 
 
 def flatten_tree(tree) -> Dict[str, np.ndarray]:
@@ -65,10 +65,11 @@ def _check(flat, shapes, what):
             f"({len(wrong)})")
 
 
-def from_jax(params_np, state_np, cfg: ModelConfig, *, device="cpu"
+def from_jax(params_np, state_np, cfg: ModelConfig, *, device="cuda"
              ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """(params, bn_state) JAX trees with numpy leaves -> (params, state)
-    flat dicts of float32 tensors on ``device``.
+    flat dicts of float32 tensors on ``device`` (the card unless the caller
+    asks for the CPU).
 
     Every leaf is checked against the shapes the port expects for ``cfg``
     (no leaf missing, none left over, none of another shape); a mismatch

@@ -25,7 +25,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from cunet_tpu.config import ModelConfig, QuantConfig
+from cunet_tpu_torch.config import ModelConfig, QuantConfig
 from cunet_tpu_torch.models import init_cu_net
 from cunet_tpu_torch.serving import Predictor
 from cunet_tpu_torch.train.quant_step import quant_eval_params

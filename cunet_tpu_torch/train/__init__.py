@@ -9,7 +9,11 @@ from cunet_tpu_torch.train.state import (
     make_optimizer,
     set_lr,
 )
-from cunet_tpu_torch.train.quant_step import quant_eval_params, quant_eval_step
+from cunet_tpu_torch.train.quant_step import (
+    quant_eval_params,
+    quant_eval_step,
+    quant_train_step,
+)
 from cunet_tpu_torch.train.step import eval_step, train_step
 
 __all__ = [
@@ -21,6 +25,7 @@ __all__ = [
     "make_optimizer",
     "quant_eval_params",
     "quant_eval_step",
+    "quant_train_step",
     "set_lr",
     "train_step",
 ]

@@ -1,21 +1,30 @@
-"""Quantized (WAGE / BIN) evaluation (counterpart of the eval half of
+"""Quantized (WAGE / BIN) training and evaluation (counterpart of
 ``cunet_tpu/train/quant_step.py``).
+
+``quant_train_step`` is the reference's per-batch protocol (quantize,
+forward, backward, restore, correct the gradients, step) as one step: the
+masters are preprocessed (meancenter, clamp, round to bits_g) and written
+back into the optimizer's parameter tensors, the forward runs on
+``quantize_params`` of them, whose autograd carries the XNOR and
+gradient-quantization corrections, and RMSprop steps on the masters. The
+activation quantizers run on either train path, inside the slot train
+kernels with ``use_pallas=True, bn_tile > 0``.
 
 ``quant_eval_params`` quantizes the weights once for a whole evaluation;
 ``quant_eval_step`` runs the eval forward on them with the activation
 quantizers on. With ``QuantConfig(int8_infer=True)`` the 1x1 convs and the
 3x3 convs run as integer products (the whole-model int8 kernels with
 ``use_pallas=True, pallas_whole_model=True, int8_impl="pallas"``, else the
-plain path). Quantized training is not ported yet.
+plain path).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
-from cunet_tpu.config import ModelConfig, QuantConfig
+from cunet_tpu_torch.config import ModelConfig, QuantConfig
 from cunet_tpu_torch.models import apply_cu_net
 from cunet_tpu_torch.quant import (
     preprocess_masters,
@@ -23,6 +32,37 @@ from cunet_tpu_torch.quant import (
     selected_conv_predicate,
 )
 from cunet_tpu_torch.train.loss import intermediate_mse
+from cunet_tpu_torch.train.state import TrainState
+from cunet_tpu_torch.train.step import step_drop_seeds
+
+
+def quant_train_step(state: TrainState, batch: Dict[str, torch.Tensor], *,
+                     cfg: ModelConfig, qcfg: QuantConfig,
+                     policy: str = "reference",
+                     generator: Optional[torch.Generator] = None):
+    """One quantized optimization step (``qcfg`` enabled; the JAX
+    package's ``quant_train_step``). Updates ``state`` in place: the
+    selected master weights become their preprocessed values (written into
+    the same tensors, so RMSprop's per-tensor state follows them), then
+    take one RMSprop step on the gradients through ``quantize_params``.
+    Returns ``(state, {"loss", "last_out"})``; with dropout, ``generator``
+    gives the step's mask seeds."""
+    pred = selected_conv_predicate(state.params, policy)
+    with torch.no_grad():
+        for key, m in preprocess_masters(state.params, qcfg, pred).items():
+            if m is not state.params[key]:
+                state.params[key].copy_(m)
+    state.opt.zero_grad(set_to_none=True)
+    outs, new_bn = apply_cu_net(
+        quantize_params(state.params, qcfg, pred), state.bn_state,
+        batch["image"], cfg=cfg, train=True, quant=qcfg,
+        drop_seeds=step_drop_seeds(cfg, generator))
+    loss = intermediate_mse(outs, batch["heatmap"])
+    loss.backward()
+    state.opt.step()
+    state.bn_state = {k: v.detach() for k, v in new_bn.items()}
+    state.step += 1
+    return state, {"loss": loss.detach(), "last_out": outs[-1].detach()}
 
 
 def quant_eval_params(params: Dict[str, torch.Tensor], qcfg: QuantConfig,

@@ -14,7 +14,7 @@ from typing import Dict
 
 import torch
 
-from cunet_tpu.config import TrainConfig
+from cunet_tpu_torch.config import TrainConfig
 
 
 @dataclasses.dataclass

@@ -1,9 +1,11 @@
 """Torch port on the card: each CUDA kernel against its plain version at the
 small test widths (c=16, g=8, Cb=16; widths down to 8, ragged row tiles),
 the kernel forward against the plain forward, a two-slot kernel train
-step against the plain train step, and the int8 kernels bit-identical to
+step against the plain train step, the int8 kernels bit-identical to
 their plain versions (K tails, ragged rows, unaligned int8 rows, the
-head's image-major view), alone and in the quantized forward. Skips
+head's image-major view), alone and in the quantized forward, and the
+train kernels' options: the dropout-mask kernel bit for bit, QuanInput's
+prologues and straight-through gate, a two-slot step with each. Skips
 without a CUDA device. Imports no JAX, so it runs on a machine without
 it:
 
@@ -15,8 +17,8 @@ import dataclasses
 import pytest
 import torch
 
-from cunet_tpu.config import ModelConfig
-from cunet_tpu_torch.kernels import buf_ops, quant_ops
+from cunet_tpu_torch.config import ModelConfig
+from cunet_tpu_torch.kernels import buf_ops, drop_ops, quant_ops
 from cunet_tpu_torch.models import apply_cu_net, init_cu_net
 
 pytestmark = pytest.mark.cuda
@@ -48,15 +50,16 @@ def _close(got, want):
 
 def _check(kernel, call, dst, sel):
     """Kernel and plain version into clones of ``dst``; compare the view
-    ``sel`` (an int8 kernel bit for bit) and check nothing outside it
-    moved."""
+    ``sel`` (an int8 kernel and the mask kernel bit for bit) and check
+    nothing outside it moved."""
     k_buf, p_buf = dst.clone(), dst.clone()
     before = kernel.launches
     call(kernel, k_buf)
-    call({**buf_ops.PLAIN, **quant_ops.PLAIN}[kernel], p_buf)
+    call({**buf_ops.PLAIN, **quant_ops.PLAIN, **drop_ops.PLAIN}[kernel],
+         p_buf)
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
-    if kernel in quant_ops.PLAIN:
+    if kernel in quant_ops.PLAIN or kernel in drop_ops.PLAIN:
         assert torch.equal(sel(k_buf), sel(p_buf))
     else:
         _close(sel(k_buf), sel(p_buf))
@@ -325,7 +328,7 @@ def test_kernel_train_step_matches_plain_and_repeats(gen):
 # the int8 kernels (bit-identical to their plain versions)
 # ---------------------------------------------------------------------------
 
-from cunet_tpu.config import QuantConfig  # noqa: E402
+from cunet_tpu_torch.config import QuantConfig  # noqa: E402
 from cunet_tpu_torch.kernels import model_buf  # noqa: E402
 from cunet_tpu_torch.train.quant_step import quant_eval_params  # noqa: E402
 
@@ -450,3 +453,129 @@ def test_int8_forward_kernels_match_plain_versions_exactly(gen):
     lax, _ = apply_cu_net(params, state, x, cfg=flat,
                           quant=dataclasses.replace(INT8, int8_impl="lax"))
     assert all(torch.equal(a, b) for a, b in zip(k8, lax))
+
+
+# ---------------------------------------------------------------------------
+# the slot train kernels' options: QuanInput and dropout
+# ---------------------------------------------------------------------------
+
+from cunet_tpu_torch.ops import dropmask  # noqa: E402
+
+
+@pytest.mark.parametrize("cb,g,r", [(16, 8, 6), (48, 24, 4)])
+def test_quantized_prologues(gen, cb, g, r):
+    """conv3x3 / affine_dot with bits_i=8, and the dW kernels with bits_i:
+    kernel against plain version (the quantized bf16 activations are the
+    same values; sums in another order)."""
+    n = 6
+    m = n * r * r
+    y = _bf16(gen, m, cb) * 2
+    _, _, vec = _train_vec(gen, y, 3)
+    w3 = (_bf16(gen, 9 * cb, g) * (9 * cb) ** -0.5).contiguous()
+    _check(buf_ops.conv3x3,
+           lambda f, o: f(y, w3, n, r, r, o[:, 16:16 + g], vec=vec,
+                          bits_i=8),
+           _bf16(gen, m, 16 + g + 8), lambda o: o[:, 16:16 + g])
+    w = (_bf16(gen, cb, g) * cb ** -0.5).contiguous()
+    _check(buf_ops.affine_dot, lambda f, o: f(y, vec, w, o, bits_i=8),
+           _bf16(gen, m, g), lambda o: o)
+    d_o = _bf16(gen, m, g)
+    got, want = _both(train_ops.conv3x3_dw,
+                      lambda: torch.empty(9 * cb, g, device="cuda"),
+                      lambda f, o: f(y, vec, d_o, n, r, r, o, bits_i=8))
+    _close_sum(got, want, m)
+    got, want = _both(train_ops.affine_dw,
+                      lambda: torch.empty(cb, g, device="cuda"),
+                      lambda f, o: f(y, vec, d_o, o, bits_i=4))
+    _close_sum(got, want, m)
+
+
+def test_ste_gate_exact(gen):
+    """affine_dx / conv3x3_dx with ste: the same elements pass as in the
+    plain version, on activations placed at and around 1.0 after bf16
+    rounding (0.99999 rounds to 1.0 and is gated)."""
+    n, r, cb, g = 6, 4, 16, 8
+    m = n * r * r
+    x = torch.full((m, cb), 0.5, device="cuda", dtype=torch.bfloat16)
+    z = torch.tensor([0.99999, 0.999, 0.99609375, 0.998, 1.0, 1.2, -0.5,
+                      0.3] * 2, device="cuda")
+    vec = torch.stack([torch.ones(cb, device="cuda"), z - 0.5])
+    w3 = (_bf16(gen, 9 * cb, g) * 0.2).contiguous()
+    d_o = _bf16(gen, m, g)
+    got, want = _both(train_ops.conv3x3_dx,
+                      lambda: torch.empty(m, cb, device="cuda"),
+                      lambda f, o: f(d_o, w3, n, r, r, x, vec, o, ste=True))
+    assert torch.equal(got == 0, want == 0)
+    assert torch.equal((got[0] != 0).cpu(), torch.tensor(
+        [0, 0, 1, 1, 0, 0, 0, 1] * 2, dtype=torch.bool))
+    _close_sum(got, want, 9 * g)
+    w = (_bf16(gen, cb, g) * 0.2).contiguous()
+    got, want = _both(train_ops.affine_dx,
+                      lambda: torch.empty(m, cb, device="cuda"),
+                      lambda f, o: f(d_o, w, x, vec, o, ste=True))
+    assert torch.equal(got == 0, want == 0)
+
+
+@pytest.mark.parametrize("g,r,rate", [(8, 6, 0.25), (32, 4, 0.2),
+                                      (24, 2, 0.5)])
+def test_drop_mask_bit_identical(gen, g, r, rate):
+    """Forward in place on a strided bf16 view and backward from a strided
+    float32 cotangent, bit-identical to the plain version; on a ones view
+    the forward leaves the plain tile masks."""
+    n, bt = 6, 2
+    m, tile_rows = n * r * r, bt * r * r
+    for seed, pos in ((7, 0), (-123456, 8), (2 ** 31 - 1, 4)):
+        _check(drop_ops.drop_mask,
+               lambda f, o: f(o[:, 16:16 + g], seed, pos, rate, tile_rows),
+               _bf16(gen, m, 16 + g + 8), lambda o: o[:, 16:16 + g])
+        ones = torch.ones(m, g, device="cuda", dtype=torch.bfloat16)
+        drop_ops.drop_mask(ones, seed, pos, rate, tile_rows)
+        assert torch.equal(ones, dropmask.rows_mask(
+            seed, pos, m, g, tile_rows, rate, torch.bfloat16, "cuda"))
+        d = torch.randn(m, g + 8, generator=gen).cuda()[:, 4:4 + g]
+        outs = [torch.empty(m, g, device="cuda", dtype=torch.bfloat16)
+                for _ in range(2)]
+        drop_ops.drop_mask(d, seed, pos, rate, tile_rows, outs[0])
+        drop_ops.PLAIN[drop_ops.drop_mask](d, seed, pos, rate, tile_rows,
+                                           outs[1])
+        assert torch.equal(outs[0], outs[1])
+
+
+def _option_grads(cfg, params, state, x, t, **kw):
+    from cunet_tpu_torch.train import intermediate_mse
+
+    ps = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+    outs, new_state = apply_cu_net(ps, state, x, cfg=cfg, train=True, **kw)
+    loss = intermediate_mse(outs, t)
+    loss.backward()
+    return loss.item(), {k: v.grad for k, v in ps.items()}
+
+
+@pytest.mark.parametrize("option", ["dropout", "quant"])
+def test_kernel_train_step_with_option(gen, option):
+    """Two slots, bf16, ghost tile 2, with dropout 0.2 (seeds per slot) or
+    QuanInput (bits_i=8): the kernel path launches the option's kernels,
+    repeats bit for bit, and its loss is within 1e-2 of the plain path's."""
+    cfg = ModelConfig(layer_num=2, order=1, loss_num=2, neck_size=2,
+                      growth_rate=8, init_chan_num=16, class_num=8,
+                      num_blocks=2, compute_dtype="bfloat16", use_pallas=True,
+                      bn_tile=2, bn_dtype="compute", remat="none",
+                      drop_rate=0.2 if option == "dropout" else 0.0)
+    params, state = init_cu_net(cfg, gen, device="cuda")
+    x = torch.rand(4, 64, 64, 3, generator=gen).cuda()
+    t = torch.rand(4, 16, 16, 8, generator=gen).cuda()
+    kw = (dict(drop_seeds=[11, -12]) if option == "dropout" else
+          dict(quant=QuantConfig(bits_w=1, bits_i=8, bits_g=8,
+                                 enabled=True)))
+    drop_ops.reset_launch_counts()
+    buf_ops.reset_launch_counts()
+    lk, gk = _option_grads(cfg, params, state, x, t, **kw)
+    if option == "dropout":
+        assert drop_ops.drop_mask.launches == 2 * 2 * 5   # fwd+bwd, 5 blocks
+    else:
+        assert buf_ops.conv3x3.option_launches > 0
+    lk2, gk2 = _option_grads(cfg, params, state, x, t, **kw)
+    assert lk2 == lk and all(torch.equal(gk[k], gk2[k]) for k in gk)
+    lp, _ = _option_grads(dataclasses.replace(cfg, use_pallas=False), params,
+                          state, x, t, **kw)
+    assert abs(lk - lp) <= 1e-2 * abs(lp)

@@ -44,9 +44,8 @@ from cunet_tpu_torch.models.cu_net import (
     whole_model_eval,
 )
 from cunet_tpu_torch.serving import Predictor
-from cunet_tpu_torch.tools.from_jax import from_jax
 
-from torch_port_util import images, np_weights, small_cfg
+from torch_port_util import from_jax, images, np_weights, small_cfg
 
 INT8 = QuantConfig(bits_w=1, bits_i=8, bits_g=8, enabled=True,
                    int8_infer=True, int8_impl="pallas")

@@ -21,9 +21,9 @@ from cunet_tpu.models import init_cu_net as jax_init_cu_net
 from cunet_tpu.models.cu_net import stack_steady
 from cunet_tpu_torch.kernels import buf_ops
 from cunet_tpu_torch.models import apply_cu_net, init_cu_net, param_shapes
-from cunet_tpu_torch.tools.from_jax import flatten_tree, from_jax
+from cunet_tpu_torch.tools.from_jax import flatten_tree
 
-from torch_port_util import TOL, images, np_weights, small_cfg
+from torch_port_util import TOL, from_jax, images, np_weights, small_cfg
 
 # (layer_num, order): steady state from slot 1; growth phase with FIFO
 # rotation; no coupling at all
@@ -75,7 +75,7 @@ def test_kernel_forward_matches_plain_forward_bf16():
 
 def test_per_slot_kernels_are_not_ported():
     cfg = small_cfg(2, 1, use_pallas=True, pallas_whole_model=False)
-    params, state = init_cu_net(cfg)
+    params, state = init_cu_net(cfg, device="cpu")
     with pytest.raises(NotImplementedError):
         apply_cu_net(params, state, torch.zeros(1, 32, 32, 3), cfg=cfg)
 
@@ -119,7 +119,8 @@ def test_bridge_rejects_stacked_and_mismatched_trees():
 def test_init_matches_jax_layout_and_distributions():
     cfg = small_cfg(4, 2)
     jp, js = jax_init_cu_net(jax.random.PRNGKey(0), cfg)
-    params, state = init_cu_net(cfg, torch.Generator().manual_seed(0))
+    params, state = init_cu_net(cfg, torch.Generator().manual_seed(0),
+                                device="cpu")
     p_shapes, s_shapes = param_shapes(cfg)
     for tree, got, shapes in ((jp, params, p_shapes), (js, state, s_shapes)):
         flat = flatten_tree(jax.tree_util.tree_map(np.asarray, tree))

@@ -30,13 +30,12 @@ from cunet_tpu.train.quant_step import quant_eval_params as jax_qep
 from cunet_tpu.train.quant_step import quant_eval_step as jax_quant_eval_step
 from cunet_tpu_torch.models import apply_cu_net, init_cu_net
 from cunet_tpu_torch.quant import transforms, wage
-from cunet_tpu_torch.tools.from_jax import from_jax
 from cunet_tpu_torch.train.quant_step import (
     quant_eval_params,
     quant_eval_step,
 )
 
-from torch_port_util import images, np_weights, small_cfg
+from torch_port_util import from_jax, images, np_weights, small_cfg
 
 BITS = (1, 2, 4, 8)
 SIM = QuantConfig(bits_w=1, bits_i=8, bits_g=8, enabled=True)
@@ -298,7 +297,8 @@ def test_quant_eval_step_matches_jax(sim_model):
 
 def test_disabled_quant_config_is_the_float_model():
     cfg = small_cfg(2, 1)
-    params, state = init_cu_net(cfg, torch.Generator().manual_seed(0))
+    params, state = init_cu_net(cfg, torch.Generator().manual_seed(0),
+                                device="cpu")
     x = torch.from_numpy(images())
     a, _ = apply_cu_net(params, state, x, cfg=cfg)
     b, _ = apply_cu_net(params, state, x, cfg=cfg,

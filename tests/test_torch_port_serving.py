@@ -106,15 +106,25 @@ def test_decode_matches_jax_exactly():
 
 
 def test_port_imports_no_jax():
-    """The port and everything it imports stay free of JAX."""
+    """Every module of the port, and ``chip_smoke``, imports with JAX and
+    the JAX package (``cunet_tpu``, jax-free modules included) blocked by a
+    ``sys.meta_path`` finder, and none of them is loaded afterwards."""
     code = (
-        "import sys\n"
-        "import cunet_tpu_torch, cunet_tpu_torch.serving\n"
-        "import cunet_tpu_torch.kernels.model_buf\n"
-        "import cunet_tpu_torch.tools.from_jax\n"
-        "bad = sorted(m for m in sys.modules\n"
-        "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax'))\n"
+        "import importlib, importlib.abc, pkgutil, sys\n"
+        "BLOCKED = ('jax', 'jaxlib', 'flax', 'optax', 'cunet_tpu')\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in BLOCKED:\n"
+        "            raise ImportError(f'blocked import of {name}')\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import cunet_tpu_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(\n"
+        "    cunet_tpu_torch.__path__, 'cunet_tpu_torch.')]\n"
+        "for name in mods + ['chip_smoke']:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)\n"
         "assert not bad, bad\n"
+        "assert len(mods) > 30, mods\n"
     )
     root = Path(__file__).resolve().parent.parent
     proc = subprocess.run([sys.executable, "-c", code], cwd=root,

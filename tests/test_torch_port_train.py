@@ -41,7 +41,7 @@ from cunet_tpu.train import make_optimizer as jax_make_optimizer
 from cunet_tpu.train.loss import intermediate_mse as jax_mse
 from cunet_tpu_torch.kernels import buf_ops, train_ops
 from cunet_tpu_torch.models import apply_cu_net
-from cunet_tpu_torch.tools.from_jax import flatten_tree, from_jax
+from cunet_tpu_torch.tools.from_jax import flatten_tree
 from cunet_tpu_torch.train import (
     create_train_state,
     eval_step,
@@ -52,7 +52,7 @@ from cunet_tpu_torch.train import (
     train_step,
 )
 
-from torch_port_util import images, np_weights, small_cfg
+from torch_port_util import from_jax, images, np_weights, small_cfg
 
 FWD = dict(rtol=5e-4, atol=5e-4)
 GRAD = dict(rtol=3e-3, atol=3e-3)
@@ -207,6 +207,29 @@ def test_slot_check_catches_a_dropped_cotangent(monkeypatch):
     assert max(kern["grads from inter_out"].values()) <= GRAD["rtol"]
 
 
+def test_step_limits_scale_with_the_control():
+    """The card smoke's limits for a step held to a control: each at most
+    CONTROL_FACTOR times the control's difference (or the band above it,
+    where tighter); ``step_failures`` names every limit broken."""
+    import chip_smoke as cs
+
+    f = cs.CONTROL_FACTOR
+    c = dict(loss=1.2e-3, ratio=1.14, cos=0.075, heads=2.3e-3, bn=0.028)
+    lim = cs.step_limits(c, controlled=True)
+    assert lim["loss"] == pytest.approx(f * c["loss"])
+    assert lim["heads"] == pytest.approx(f * c["heads"])
+    assert lim["bn"] == pytest.approx(c["bn"] + cs.BN_STATE_REL_L2)
+    assert lim["cos"] == pytest.approx(c["cos"] / f)
+    assert lim["ratio"] == pytest.approx(
+        tuple(c["ratio"] * b for b in cs.GRAD_NORM_RATIO))
+    k = dict(c, loss=1.4e-3, cos=0.064, heads=2.6e-3)
+    assert cs.step_failures(k, lim) == []
+    bad = cs.step_failures(dict(k, ratio=8.5, heads=1.1e-2,
+                                loss=float("nan")), lim)
+    assert [b.split(" ")[0] for b in bad] == ["loss", "grad-norm", "heads.*"]
+    assert cs.step_limits(c, controlled=False)["loss"] == cs.LOSS_REL
+
+
 # ---------------------------------------------------------------------------
 # train_step and the optimizer
 # ---------------------------------------------------------------------------
@@ -323,8 +346,7 @@ def test_eval_step_matches_jax():
     dict(use_pallas=True, bn_tile=0),        # the per-bottleneck kernel
     dict(remat="bottleneck"),                # torch.utils.checkpoint, later
     dict(remat="block"),
-    dict(drop_rate=0.2),                     # dropout, later
-    dict(drop_rate=0.2, use_pallas=True),
+    dict(drop_rate=0.2, drop_impl="masks"),  # threefry masks: not ported
 ])
 def test_unported_train_options_raise(change):
     cfg = dataclasses.replace(_cfg(2, 1), **change)
@@ -332,16 +354,6 @@ def test_unported_train_options_raise(change):
     with pytest.raises(NotImplementedError):
         apply_cu_net(params, state, torch.zeros(2, SIZE, SIZE, 3), cfg=cfg,
                      train=True)
-
-
-def test_quant_train_raises():
-    from cunet_tpu.config import QuantConfig
-
-    cfg = _cfg(2, 1)
-    params, state = from_jax(*np_weights(cfg), cfg=cfg)
-    with pytest.raises(NotImplementedError):
-        apply_cu_net(params, state, torch.zeros(2, SIZE, SIZE, 3), cfg=cfg,
-                     train=True, quant=QuantConfig(enabled=True))
 
 
 def test_cpu_train_step_launches_no_kernel():

@@ -38,10 +38,10 @@ from cunet_tpu.train.loss import intermediate_mse as jax_mse
 from cunet_tpu_torch.kernels import buf_ops, train_ops, train_slot
 from cunet_tpu_torch.models import apply_cu_net
 from cunet_tpu_torch.ops import bottleneck, layers
-from cunet_tpu_torch.tools.from_jax import flatten_tree, from_jax
+from cunet_tpu_torch.tools.from_jax import flatten_tree
 from cunet_tpu_torch.train import intermediate_mse
 
-from torch_port_util import images, np_weights, small_cfg
+from torch_port_util import from_jax, images, np_weights, small_cfg
 
 VAL = dict(rtol=2e-4, atol=2e-4)
 GRAD = dict(rtol=1e-3, atol=1e-3)

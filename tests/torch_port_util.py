@@ -2,20 +2,37 @@
 
 Weights are drawn with numpy into the JAX package's own tree structure, then
 handed to both packages: to JAX as they are, to the port through
-``cunet_tpu_torch.tools.from_jax``. The draws keep activations of order one
-through every slot (the JAX init shrinks them by orders of magnitude per
-slot, which would let a fixed absolute tolerance pass anything).
+``cunet_tpu_torch.tools.from_jax`` (on the CPU: the port's entry points
+default to the card). The draws keep activations of order one through every
+slot (the JAX init shrinks them by orders of magnitude per slot, which would
+let a fixed absolute tolerance pass anything). The tests build the JAX
+package's configs; ``port_cfg`` turns one into the port's own.
 """
+
+import dataclasses
 
 import jax
 import numpy as np
 
 from cunet_tpu.config import ModelConfig
 from cunet_tpu.models import init_cu_net as jax_init_cu_net
+from cunet_tpu_torch import config as port_config
+from cunet_tpu_torch.tools import from_jax as _bridge
 
 SMALL = dict(neck_size=2, growth_rate=8, init_chan_num=16, class_num=4,
              num_blocks=2)
 TOL = dict(rtol=2e-4, atol=2e-4)
+
+
+def port_cfg(cfg):
+    """The port's config (``cunet_tpu_torch.config``) of the same class
+    name and fields as the JAX package's ``cfg``."""
+    return getattr(port_config, type(cfg).__name__)(**dataclasses.asdict(cfg))
+
+
+def from_jax(params_np, state_np, cfg, *, device="cpu"):
+    """``cunet_tpu_torch.tools.from_jax.from_jax`` onto the CPU."""
+    return _bridge.from_jax(params_np, state_np, port_cfg(cfg), device=device)
 
 
 def small_cfg(layer_num=4, order=1, **kw) -> ModelConfig:

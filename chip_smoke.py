@@ -65,7 +65,22 @@ Phases, each printing one line (or a few) before the last:
    in bf16; ``cunet_tpu_torch/tools/plant_faults.py`` shows which limit
    each dropped option breaks), a bit-identical repeat, three
    ``quant_train_step``s on the kernel path (every kernel and every
-   QuanInput option launches), step times.
+   QuanInput option launches), step times;
+9. whole-batch BN training, the same model at ``bn_tile=0`` (the JAX CLI's
+   default) with ``use_pallas``: every bottleneck and adapter on the four
+   kernels of TPU kernel #7 (``csrc/bottleneck_kernels.cu``). Each kernel
+   against its plain version at M = 24*64*64 and 24*4*4 over the up-block
+   adapter's four feature groups (K = 128+128+32+32 -> 128), every float32
+   reduction held per feature group, and three planted faults of the
+   statistics kernel that those limits must catch; the autograd
+   Function against itself on the plain versions; the kernel step against
+   the plain step in phase 5's bands; ``remat`` "layer" and "block" equal
+   to "none" bit for bit (cuDNN deterministic); three kernel-path
+   ``train_step``s (the main path: the four kernels launch, no slot
+   kernel does); dropout 0.2 through the mask kernel bit for bit the step
+   with the plain mask, one dropout step (the mask kernel launches), one
+   W1/I8/G8 ``quant_train_step``; step times, img/s and peak memory of
+   both paths and of each remat policy, the dropout step's time.
 
 The line before the last is a JSON object with each kernel's launches,
 error, times, the least time the card could take for the same work and
@@ -90,6 +105,7 @@ ROOT = Path(__file__).resolve().parent
 SOURCE = "cunet_tpu_torch/csrc/buf_kernels.cu"
 TRAIN_SOURCE = "cunet_tpu_torch/csrc/train_kernels.cu"
 INT8_SOURCE = "cunet_tpu_torch/csrc/quant_kernels.cu"
+TB_SOURCE = "cunet_tpu_torch/csrc/bottleneck_kernels.cu"
 REPLACES = {
     "affine_dot_i8": "cunet_tpu/kernels/fused_model_buf.py:83",
     "conv3x3_i8": "cunet_tpu/kernels/fused_model_buf.py:316",
@@ -114,6 +130,11 @@ REPLACES = {
     "conv3x3_dx[ste]": "cunet_tpu/kernels/train_slot.py:218",
     "affine_dw[bits_i]": "cunet_tpu/kernels/train_slot.py:585",
     "conv3x3_dw[bits_i]": "cunet_tpu/kernels/train_slot.py:198",
+    "train_bottleneck.stats": "cunet_tpu/kernels/train_bottleneck.py:49",
+    "train_bottleneck.apply": "cunet_tpu/kernels/train_bottleneck.py:66",
+    "train_bottleneck.bwd_reduce":
+        "cunet_tpu/kernels/train_bottleneck.py:92",
+    "train_bottleneck.bwd_dx": "cunet_tpu/kernels/train_bottleneck.py:134",
 }
 # published peaks of one H100 SXM at its 700 W limit (NVIDIA's data
 # sheet): HBM bytes/s, and dense operations/s by type ("f32" = float32
@@ -577,6 +598,17 @@ def train_kernel_cases(torch, tops, bops, gen):
     return cases
 
 
+def limit(bnd, scale):
+    """The largest |kernel - plain| a result of largest magnitude ``scale``
+    may show: ("bf16",) a bf16 output, ("exact",) nothing rounds, ("sum",
+    n) a float32 n-term reduction."""
+    if bnd[0] == "bf16":
+        return REL_BOUND * scale + ABS_BOUND
+    if bnd[0] == "exact":
+        return 0.0
+    return SUM_REL_PER_SQRT_N * bnd[1] ** 0.5 * scale + 1e-6
+
+
 def check_case(torch, plain_of, results, prefix, kern, label, make_out,
                call, bnd, w, lib, name=None):
     """Kernel against plain version on fresh outputs, within ``bnd``;
@@ -588,13 +620,7 @@ def check_case(torch, plain_of, results, prefix, kern, label, make_out,
     torch.cuda.synchronize()
     got, want = k_out.float(), p_out.float()
     err = (got - want).abs().max().item()
-    scale = want.abs().max().item()
-    if bnd[0] == "bf16":
-        lim = REL_BOUND * scale + ABS_BOUND
-    elif bnd[0] == "exact":
-        lim = 0.0
-    else:
-        lim = SUM_REL_PER_SQRT_N * bnd[1] ** 0.5 * scale + 1e-6
+    lim = limit(bnd, want.abs().max().item())
     ms = cuda_time_ms(lambda: call(kern, k_out))
     plain_ms = cuda_time_ms(lambda: call(plain_of[kern], p_out))
     lib_ms = None if lib is None else cuda_time_ms(lib)
@@ -1587,6 +1613,399 @@ def phase_int8_serving(torch, ops, qops, gpu, float_ms):
     return launches, plain_launches
 
 
+# ---------------------------------------------------------------------------
+# phase 9: whole-batch BN training on the per-bottleneck train kernel
+# ---------------------------------------------------------------------------
+
+TB_WIDTHS = (128, 128, 32, 32)   # the up-block adapter: [x, skip, fifo, out]
+
+
+def tb_operands(torch, gen, r, dev="cuda"):
+    """The adapter's operands at resolution r, batch 24: four feature
+    tensors (the fifo entry a strided view of a wider buffer, as a FIFO
+    slice is), the forward's [inv; shift], the backward's [mean;
+    inv_sigma; scale] and bias, float32 weights, a bf16 output cotangent
+    and red = [mean g_y; mean g_y x_hat] from the plain reduce."""
+    from cunet_tpu_torch.kernels import train_bottleneck as tbk
+
+    m, k, cout = TRAIN_BATCH * r * r, sum(TB_WIDTHS), 128
+
+    def bf16(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(*shape, generator=gen) * scale + shift).to(
+            dev, torch.bfloat16)
+
+    feats = [bf16(m, c, scale=1 + i, shift=0.2 * i)
+             for i, c in enumerate(TB_WIDTHS)]
+    feats[2] = torch.cat([feats[2], bf16(m, 64)], 1)[:, :TB_WIDTHS[2]]
+    scale = (torch.rand(k, generator=gen) + 0.5).to(dev)
+    bias = (torch.randn(k, generator=gen) * 0.3).to(dev)
+    w = (torch.randn(k, cout, generator=gen) * k ** -0.5).to(dev)
+    sums = tbk.stats_plain(feats, torch.empty(2, k, device=dev))
+    mean = sums[0] / m
+    var = sums[1] / m - mean * mean
+    inv_sigma = torch.rsqrt(var + 1e-5)
+    vec = torch.stack([inv_sigma * scale, bias - mean * inv_sigma * scale])
+    stat = torch.stack([mean, inv_sigma, scale])
+    g = bf16(m, cout)
+    dw, red = torch.empty(k, cout, device=dev), torch.empty(2, k, device=dev)
+    tbk.bwd_reduce_plain(feats, g, stat, bias, w, dw, red)
+    return dict(m=m, k=k, cout=cout, feats=feats, vec=vec, stat=stat,
+                bias=bias, w=w, w16=w.bfloat16(), g=g, red=red / m)
+
+
+def tb_cases(torch, o):
+    """(name, call(fn) -> outputs, bounds, work, library call or None) of
+    the four kernels on the operands ``o``. bounds: per output ("bf16",) or
+    ("sum", n, split), held per feature group (``tb_pieces``)."""
+    m, k, cout = o["m"], o["k"], o["cout"]
+    f, dev = o["feats"], o["feats"][0].device
+    feat_bytes = sz(m, k)
+    small = sz(3, k, e=4) + sz(k, e=4) + sz(k, cout, e=4)   # stat, bias, w
+    cat = torch.cat(f, 1)
+
+    def dxs():
+        buf = torch.empty(m, k + 8, device=dev, dtype=torch.bfloat16)
+        offs = np.cumsum((0,) + TB_WIDTHS)
+        return [buf[:, a:b] for a, b in zip(offs[:-1], offs[1:])]
+
+    return [
+        ("stats", lambda fn: [fn(f, torch.empty(2, k, device=dev))],
+         [("sum", m, "cols")],
+         work(feat_bytes + sz(2, k, e=4), 3 * m * k, "f32"),
+         lambda: torch.var_mean(cat, dim=0, correction=0)),
+        ("apply", lambda fn: [fn(f, o["vec"], o["w16"], torch.empty(
+            m, cout, device=dev, dtype=torch.bfloat16))], [("bf16",)],
+         work(feat_bytes + sz(2, k, e=4) + sz(k, cout) + sz(m, cout),
+              2 * m * k * cout), None),
+        ("bwd_reduce", lambda fn: list(fn(
+            f, o["g"], o["stat"], o["bias"], o["w"],
+            torch.empty(k, cout, device=dev), torch.empty(2, k, device=dev))),
+         [("sum", m, "rows"), ("sum", m, "cols")],
+         work(feat_bytes + sz(m, cout) + small + sz(k, cout, e=4)
+              + sz(2, k, e=4), 4 * m * k * cout, "f32"), None),
+        ("bwd_dx", lambda fn: list(fn(f, o["g"], o["stat"], o["bias"],
+                                      o["red"], o["w"], dxs())),
+         [("bf16",)] * len(TB_WIDTHS),
+         work(feat_bytes + sz(m, cout) + small + sz(2, k, e=4)
+              + feat_bytes, 2 * m * k * cout, "f32"), None),
+    ]
+
+
+def tb_pieces(t, bnd):
+    """The parts of a #7 output that each meet their own limit: a float32
+    reduction ("sum", n, split) one per feature group, over its columns
+    ("cols", each row of a [sum; sum of squares] pair apart) or its rows
+    ("rows", dW); any other output whole. So the sums of a group of small
+    values answer to their own scale, not to that of a larger group's sums
+    of squares."""
+    if len(bnd) < 3:
+        return [t]
+    offs = np.cumsum((0,) + TB_WIDTHS)
+    spans = list(zip(offs[:-1], offs[1:]))
+    t = t.reshape(-1, t.shape[-1])
+    if bnd[2] == "rows":
+        return [t[a:b] for a, b in spans]
+    return [t[i, a:b] for i in range(t.shape[0]) for a, b in spans]
+
+
+def output_errors(torch, got, want, bounds):
+    """(max |k - p| over the outputs, the largest share of its limit that
+    a piece's error takes, True if every piece is within its limit)."""
+    worst, share, ok = 0.0, 0.0, True
+    for a, b, bnd in zip(got, want, bounds):
+        for pa, pb in zip(tb_pieces(a.float(), bnd),
+                          tb_pieces(b.float(), bnd)):
+            err = (pa - pb).abs().max().item()
+            lim = limit(bnd, pb.abs().max().item())
+            worst, share = max(worst, err), max(share, err / lim)
+            ok = ok and bool(np.isfinite(err)) and err <= lim
+    return worst, share, ok
+
+
+def stats_faults(torch, tbk, o):
+    """Three planted faults of the statistics kernel at the operands ``o``
+    (group 0 zero-mean, of unit scale, beside groups of up to 4x its scale
+    and shift): group 0 read at half its row stride, one row chunk of
+    group 0 lost, group 0's sum row zeroed. Each must break the per-group
+    limits. Returns (name, error, share of the whole-output limit, share
+    of the per-group limit) per fault."""
+    f, m, k = o["feats"], o["m"], o["k"]
+    want = tbk.stats_plain(f, torch.empty(2, k, device=f[0].device))
+    bnd = ("sum", m, "cols")
+    f0 = f[0]
+    lost = f0.clone()
+    lost[:tbk.row_chunk(m)] = 0
+    faults = [("group 0 at half its row stride",
+               [f0.as_strided(f0.shape, (f0.stride(0) // 2, 1))] + f[1:]),
+              ("one row chunk of group 0 lost", [lost] + f[1:]),
+              ("group 0's sum row zeroed", f)]
+    out = []
+    for name, feats in faults:
+        got = tbk.stats(feats, torch.empty(2, k, device=f0.device))
+        if name.endswith("zeroed"):
+            got[0, :TB_WIDTHS[0]] = 0
+        err = (got - want).abs().max().item()
+        whole = err / limit(bnd, want.abs().max().item())
+        out.append((name, err, whole, output_errors(torch, [got], [want],
+                                                    [bnd])[1]))
+    return out
+
+
+def phase_bn0_kernels(torch, tbk):
+    """Each kernel of #7 against its plain version at r=64 (the main
+    path's largest call) and r=4, timed with its plain version and, for
+    the statistics, ``torch.var_mean`` over the same values."""
+    gen = torch.Generator().manual_seed(9)
+    results = {}
+    for r in (64, 4):
+        o = tb_operands(torch, gen, r)
+        label = f"K=128+128+32+32->128 r={r}"
+        for name, call, bounds, w, lib in tb_cases(torch, o):
+            kern = getattr(tbk, name)
+            got, want = call(kern), call(tbk.PLAIN[kern])
+            torch.cuda.synchronize()
+            err, share, ok = output_errors(torch, got, want, bounds)
+            ms = cuda_time_ms(lambda: call(kern))
+            plain_ms = cuda_time_ms(lambda: call(tbk.PLAIN[kern]))
+            lib_ms = None if lib is None else cuda_time_ms(lib)
+            print(f"bn0 kernel train_bottleneck.{name} [{label}]: "
+                  f"max_abs_err {err:.4g} (at most {share:.3g} of a "
+                  f"{'/'.join(b[0] for b in bounds)} limit: {ok}), "
+                  f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, library "
+                  f"{lib_ms if lib_ms is None else f'{lib_ms:.4f} ms'}, "
+                  f"bound {bound(w)[0]:.4f} ms ({bound(w)[1]})", flush=True)
+            require(ok, f"train_bottleneck.{name} [{label}] disagrees with "
+                    f"its plain version")
+            record(results, f"train_bottleneck.{name}", err, ms, plain_ms,
+                   label, w, lib_ms)
+        if r == 64:
+            for fault, err, whole, share in stats_faults(torch, tbk, o):
+                print(f"bn0 planted fault of stats [{label}]: {fault}: "
+                      f"max_abs_err {err:.4g}, {whole:.3g} of the "
+                      f"whole-output limit, {share:.3g} of the per-group "
+                      f"limit", flush=True)
+                require(share > 1, f"the stats check misses a planted "
+                        f"fault: {fault}")
+    return results
+
+
+def tb_function_grads(torch, tbk, o, ct, plain):
+    """The autograd Function's output and gradients on operands ``o``
+    under cotangent ``ct``, with the module's kernels or (``plain``) their
+    plain versions swapped in."""
+    saved = {k.__name__: getattr(tbk, k.__name__) for k in tbk.KERNELS}
+    if plain:
+        for k in tbk.KERNELS:
+            setattr(tbk, k.__name__, tbk.PLAIN[k])
+    try:
+        n = TRAIN_BATCH
+        r = int(round((o["m"] // n) ** 0.5))
+        fs = [x.contiguous().view(n, r, r, -1).requires_grad_(True)
+              for x in o["feats"]]
+        sc = o["stat"][2].clone().requires_grad_(True)
+        b = o["bias"].clone().requires_grad_(True)
+        w = o["w"].view(1, 1, o["k"], o["cout"]).clone().requires_grad_(True)
+        out, _, _ = tbk.fused_train_bottleneck(fs, sc, b, w)
+        out.backward(ct)
+        torch.cuda.synchronize()
+        return [out] + [x.grad for x in fs] + [sc.grad, b.grad, w.grad]
+    finally:
+        for name, fn in saved.items():
+            setattr(tbk, name, fn)
+
+
+def check_tb_function(torch, tbk):
+    """(b): the Function's forward and backward on the kernels against the
+    same Function on the plain versions, one r=64 adapter call."""
+    o = tb_operands(torch, torch.Generator().manual_seed(10), 64)
+    ct = o["g"].view(TRAIN_BATCH, 64, 64, -1)
+    got = tb_function_grads(torch, tbk, o, ct, plain=False)
+    want = tb_function_grads(torch, tbk, o, ct, plain=True)
+    names = (["out"] + [f"d_feature.{i}" for i in range(len(TB_WIDTHS))]
+             + ["d_scale", "d_bias", "d_w"])
+    bounds = [("bf16",)] * (1 + len(TB_WIDTHS)) + [
+        ("sum", o["m"], "cols")] * 2 + [("sum", o["m"], "rows")]
+    for name, a, b, bnd in zip(names, got, want, bounds):
+        err, share, ok = output_errors(torch, [a], [b], [bnd])
+        print(f"bn0 Function, kernels vs plain versions, r=64: {name} "
+              f"max_abs_err {err:.4g} (at most {share:.3g} of a {bnd[0]} "
+              f"limit: {ok})", flush=True)
+        require(ok, f"the #7 autograd Function's {name} disagrees with the "
+                f"plain versions'")
+
+
+def one_step(torch, label, step, counters):
+    """One step of a recipe on the #7 path: finite loss, every kernel of
+    ``counters`` (modules with launch counters) launched."""
+    counts = {}
+    for m in counters:
+        m.reset_launch_counts()
+    loss = float(step()["loss"])
+    torch.cuda.synchronize()
+    for m in counters:
+        counts.update(m.launch_counts())
+    print(f"{label}: one kernel-path step, loss {loss:.6g}; launches "
+          f"{counts}", flush=True)
+    require(np.isfinite(loss), f"{label}: non-finite loss {loss}")
+    require(all(counts.values()), f"{label}: a kernel never launched")
+
+
+def paired_step_times(torch, steps, rounds=10):
+    """Host ms of single synchronised calls of each of ``steps`` (label ->
+    step), one warm-up each, then ``rounds`` rounds in ABBA order so that
+    a drift of the host's speed falls on both alike: {label: [ms, ...]}."""
+    for fn in steps.values():
+        fn()
+    torch.cuda.synchronize()
+    times = {k: [] for k in steps}
+    for r in range(rounds):
+        for k in (list(steps) if r % 2 == 0 else list(steps)[::-1]):
+            t0 = time.perf_counter()
+            steps[k]()
+            torch.cuda.synchronize()
+            times[k].append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def bn0_dropout(torch, cfg, params, state, x, t, dops):
+    """The bn_tile=0 kernel path at drop rate DROP_RATE: its dropout runs
+    the mask kernel forward and backward, bit for bit the step with the
+    plain mask swapped in (cuDNN deterministic)."""
+    from cunet_tpu_torch.ops.dropmask import draw_slot_seeds
+
+    seeds = draw_slot_seeds(torch.Generator().manual_seed(7), cfg.layer_num)
+    kernel = dops.drop_mask
+    torch.backends.cudnn.deterministic = True
+    try:
+        lk, gk, _ = _grads(torch, cfg, params, state, x, t,
+                           drop_seeds=seeds)
+        dops.drop_mask = dops.PLAIN[kernel]
+        lp, gp, _ = _grads(torch, cfg, params, state, x, t,
+                           drop_seeds=seeds)
+    finally:
+        dops.drop_mask = kernel
+        torch.backends.cudnn.deterministic = False
+    same = lk == lp and all(torch.equal(gk[k], gp[k]) for k in gk)
+    print(f"bn0 dropout training: mask kernel vs plain mask, loss and grads "
+          f"bit-identical {same}", flush=True)
+    require(same, "bn0 dropout: the mask kernel changes the step")
+
+
+def step_memory(torch, cfg, params, state, batch):
+    """(loss, grads, peak device memory) of one train_step from a fresh
+    train state."""
+    from cunet_tpu_torch import TrainConfig
+    from cunet_tpu_torch.train import create_train_state, train_step
+
+    st = create_train_state(params, state,
+                            TrainConfig(lr=2.5e-4, batch_size=TRAIN_BATCH))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _, mets = train_step(st, batch, cfg=cfg)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return float(mets["loss"]), {k: v.grad for k, v in st.params.items()}, \
+        peak
+
+
+def phase_bn0_training(torch, tbk, tops, bops, dops, gpu):
+    """Phase 9 (b)-(f): CU-Net-8 @256 at bn_tile=0 on the #7 kernels."""
+    from cunet_tpu_torch import QuantConfig, TrainConfig
+    from cunet_tpu_torch.train import (
+        create_train_state,
+        quant_train_step,
+        train_step,
+    )
+
+    check_tb_function(torch, tbk)
+    cfg, params, state, batch = flagship_train(torch)
+    cfg = dataclasses.replace(cfg, bn_tile=0)
+    plain_cfg = dataclasses.replace(cfg, use_pallas=False)
+    x, t = batch["image"], batch["heatmap"]
+
+    # (c) and (d) with cuDNN's deterministic algorithms: the 3x3 convs'
+    # backward is cuDNN's on this path, and the checks are bit for bit
+    torch.backends.cudnn.deterministic = True
+    try:
+        compare_steps(torch, "bn0 training", cfg, params, state, x, t)
+        l0, g0, peak0 = step_memory(torch, cfg, params, state, batch)
+        for remat in ("layer", "block"):
+            lr, gr, peak = step_memory(torch, dataclasses.replace(
+                cfg, remat=remat), params, state, batch)
+            same = lr == l0 and all(torch.equal(gr[k], g0[k]) for k in g0)
+            print(f"bn0 training: remat={remat!r} vs 'none' on the kernel "
+                  f"path: loss and grads bit-identical {same}; peak memory "
+                  f"of one step {peak / 2 ** 30:.2f} GiB ('none' "
+                  f"{peak0 / 2 ** 30:.2f} GiB; {gpu})", flush=True)
+            require(same, f"bn0 training: remat={remat!r} changes the step")
+            del gr
+        del g0
+    finally:
+        torch.backends.cudnn.deterministic = False
+    lb, gb, peak = step_memory(torch, dataclasses.replace(
+        plain_cfg, remat="bottleneck"), params, state, batch)
+    print(f"bn0 training: plain path remat='bottleneck': loss {lb:.6g}, "
+          f"peak memory of one step {peak / 2 ** 30:.2f} GiB ({gpu})",
+          flush=True)
+    require(np.isfinite(lb), "plain remat='bottleneck' step: non-finite")
+    del gb
+
+    # (e) the main path: three steps, then one each of dropout and W1/I8/G8
+    tcfg = TrainConfig(lr=2.5e-4, batch_size=TRAIN_BATCH)
+    st = create_train_state(params, state, tcfg)
+    bops.reset_launch_counts()
+    tops.reset_launch_counts()
+    launches = main_path_steps(
+        torch, "bn0 training", lambda: train_step(st, batch, cfg=cfg)[1],
+        lambda: st.params, (tbk,))
+    others = {k: v for k, v in {**bops.launch_counts(),
+                                **tops.launch_counts()}.items()
+              if v and k != "sum_rows"}
+    require(not others, f"bn0 training launched slot kernels: {others}")
+    st_d = create_train_state(params, state, tcfg)
+    gen = torch.Generator().manual_seed(6)
+    drop_cfg = dataclasses.replace(cfg, drop_rate=DROP_RATE)
+    bn0_dropout(torch, drop_cfg, params, state, x, t, dops)
+    one_step(torch, "bn0 dropout training",
+             lambda: train_step(st_d, batch, cfg=drop_cfg, generator=gen)[1],
+             (tbk, dops))
+    st_q = create_train_state(params, state, tcfg)
+    quant = QuantConfig(bits_w=1, bits_i=8, bits_g=8, enabled=True)
+    one_step(torch, "bn0 quantized training",
+             lambda: quant_train_step(st_q, batch, cfg=cfg, qcfg=quant)[1],
+             (tbk,))
+    del st_q
+
+    # (f) step times and peak memory, kernel path then plain path
+    kernel = dops.drop_mask
+
+    def drop_step(mask_fn):
+        def run():
+            dops.drop_mask = mask_fn
+            try:
+                return train_step(st_d, batch, cfg=drop_cfg, generator=gen)
+            finally:
+                dops.drop_mask = kernel
+        return run
+
+    times = paired_step_times(torch, {
+        "the mask kernel": drop_step(kernel),
+        "the plain mask": drop_step(dops.PLAIN[kernel])})
+    wins = sum(a < b for a, b in zip(*times.values()))
+    parts = [f"with {k} median {np.median(v):.3f} ms ("
+             + ", ".join(f"{ms:.1f}" for ms in v) + ")"
+             for k, v in times.items()]
+    print(f"bn0 dropout training, batch {TRAIN_BATCH}, steps in ABBA "
+          f"order: {'; '.join(parts)}; the mask kernel faster in {wins} of "
+          f"{len(times['the mask kernel'])} pairs ({gpu})", flush=True)
+    del st_d
+    st_p = create_train_state(params, state, tcfg)
+    report_times(torch, "bn0 training", lambda: train_step(st, batch,
+                                                           cfg=cfg),
+                 lambda: train_step(st_p, batch, cfg=plain_cfg), gpu)
+    return {f"train_bottleneck.{k}": v for k, v in launches.items()}
+
+
 def main() -> int:
     import torch
 
@@ -1599,6 +2018,7 @@ def main() -> int:
     from cunet_tpu_torch.kernels import build
     from cunet_tpu_torch.kernels import drop_ops as dops
     from cunet_tpu_torch.kernels import quant_ops as qops
+    from cunet_tpu_torch.kernels import train_bottleneck as tbk
     from cunet_tpu_torch.kernels import train_ops as tops
 
     # ---- phase 1: build ----
@@ -1630,6 +2050,8 @@ def main() -> int:
             torch, tops, ops, dops, gpu)
         option_kernels, quant_launches = phase_quant_training(
             torch, tops, ops, dops, gpu)
+        tb_kernels = phase_bn0_kernels(torch, tbk)
+        tb_launches = phase_bn0_training(torch, tbk, tops, ops, dops, gpu)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1672,6 +2094,8 @@ def main() -> int:
     for name, r in option_kernels.items():
         rows.append(row(name, SOURCE if name.split("[")[0] in launches
                         else TRAIN_SOURCE, r, quant_launches[name]))
+    for name, r in tb_kernels.items():
+        rows.append(row(name, TB_SOURCE, r, tb_launches[name]))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,7 +23,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("buf_kernels.cu", "train_kernels.cu", "quant_kernels.cu")
+SOURCES = ("buf_kernels.cu", "train_kernels.cu", "quant_kernels.cu",
+           "bottleneck_kernels.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -114,6 +115,11 @@ def _declare(lib):
                                 L, P],
         "cunet_conv3x3_i8": [P, L, L, I, I, I, P, I, F, P, L, P],
         "cunet_int8_matmul_dequant": [P, L, L, I, P, I, I, P, F, P, L, P],
+        "cunet_tb_fill_table": [P, I, P, P],
+        "cunet_tb_stats": [P, I, L, I, L, P, P],
+        "cunet_tb_apply": [P, I, L, I, P, P, P, I, P, L, P],
+        "cunet_tb_bwd_reduce": [P, I, L, I, P, L, I, P, P, P, L, P, P, P],
+        "cunet_tb_bwd_dx": [P, I, L, I, P, L, I, P, P, P, P, P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

@@ -6,7 +6,9 @@ Counterpart of the dense-layer dropout inside
 regenerated from (seed, traversal position, ghost-BN tile, element index)
 wherever it is needed, so neither the forward nor the recompute backward
 stores it. The bits are those of :mod:`cunet_tpu_torch.ops.dropmask`, the
-JAX package's for the same int32 seed.
+JAX package's for the same int32 seed. ``dropout`` applies the same kernel
+on the layer-by-layer kernel path (``bn_tile=0``), where JAX multiplies by
+the plain mask.
 
 As in :mod:`cunet_tpu_torch.kernels.buf_ops`: on a CPU tensor the wrapper
 computes its plain PyTorch version; on a CUDA tensor it launches its kernel
@@ -72,6 +74,37 @@ def drop_mask(x, seed, pos, rate, tile_rows, out=None):
     build.check(code, "drop_mask")
     drop_mask.launches += 1
     return dst
+
+
+class _Dropout(torch.autograd.Function):
+    """``y * mask`` with the mask regenerated by ``drop_mask`` in the
+    forward and in the backward: nothing is saved, and both products are
+    the compute-dtype products of the plain ``y * batch_mask(...)`` and of
+    its autograd backward, bit for bit."""
+
+    @staticmethod
+    def forward(ctx, y, seed, pos, rate, tile_rows):
+        ctx.mask = (seed, pos, rate, tile_rows)
+        out = y.clone(memory_format=torch.contiguous_format)
+        drop_mask(out.view(-1, out.shape[-1]), seed, pos, rate, tile_rows)
+        return out
+
+    @staticmethod
+    def backward(ctx, d):
+        d = d.clone(memory_format=torch.contiguous_format)
+        drop_mask(d.view(-1, d.shape[-1]), *ctx.mask)
+        return d, None, None, None, None
+
+
+def dropout(y, seed, pos, rate, tile_images):
+    """Dropout of an NHWC dense-layer output ``y`` at traversal position
+    ``pos`` with ghost-BN tiles of ``tile_images`` images (0: the whole
+    batch, one tile), through the mask kernel in the forward and the
+    backward: the layer-by-layer kernel path's dropout, equal to
+    ``y * ops.dropmask.batch_mask(seed, pos, y.shape, tile_images, rate,
+    y.dtype)`` and its gradient."""
+    n, h, w, _ = y.shape
+    return _Dropout.apply(y, seed, pos, rate, (tile_images or n) * h * w)
 
 
 KERNELS = (drop_mask,)

@@ -1,0 +1,450 @@
+"""Train-mode concat-free bottleneck with a recompute backward: TPU kernel
+#7 on the H100.
+
+Counterpart of ``cunet_tpu/kernels/train_bottleneck.py``. With
+``use_pallas=True, bn_tile=0`` every bottleneck and adapter of the train
+forward runs ``fused_train_bottleneck``: BN with whole-batch statistics ->
+ReLU -> 1x1 conv over the virtual concat of its features, whose backward
+recomputes the normalized activations instead of saving them (activation
+memory O(1) in dense-layer count; the reference's
+``_EfficientDensenetBottleneckFn``). Four hand-written kernels of
+``csrc/bottleneck_kernels.cu``, each beside its plain version:
+
+- ``stats``: per-channel float32 sum and sum of squares over all rows;
+- ``apply``: relu(x * inv + shift) in float32, rounded to the feature
+  dtype, times the weight rounded to it, float32 accumulation;
+- ``bwd_reduce``: dW = r^T g and the BN sums [sum g_y; sum g_y x_hat] with
+  g_y = [y > 0] (g W^T), r and y recomputed from x;
+- ``bwd_dx``: the input cotangents, recomputing again.
+
+The features are separate tensors viewed as (M, c_k), M = N*H*W; every
+kernel reads them through a feature table in device memory
+(``feature_table``) and never builds the concat. The Function fills one
+table for the forward's two kernels and one for the backward's two; a
+wrapper called without one fills its own. As
+in :mod:`cunet_tpu_torch.kernels.train_ops`: on a CPU tensor a wrapper
+computes its plain version, on a CUDA tensor it launches its kernel or
+raises; ``<wrapper>.launches`` counts its launches and nothing else; the row
+reductions write per-block partials that ``train_ops.sum_rows`` adds in a
+fixed order.
+
+The arithmetic is the TPU kernel's, which differs from the plain
+``ops.bottleneck.dense_bottleneck`` on purpose: a single-pass variance
+(``sumsq / M - mean^2``), the forward affine always in float32, and a
+backward against the unrounded float32 W^T whose ReLU gate reads
+``x_hat * scale + bias``.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import torch
+
+from cunet_tpu_torch.kernels import build
+from cunet_tpu_torch.kernels.buf_ops import _check_view, _stream, reset_counts
+from cunet_tpu_torch.kernels.train_ops import _check_contig_f32, sum_rows
+from cunet_tpu_torch.ops.layers import BN_EPS
+
+ROW_CHUNK = 2048         # most rows per partial of a row reduction
+CHUNKS = 32              # partials aimed at where M allows (fills the card)
+TABLE_COLS = 6           # x ptr, x row stride, width, offset, dx ptr, dx ld
+
+
+def row_tile(m: int, cap: int = 1024) -> int:
+    """The TPU kernel's row tile: the largest multiple of 8 up to ``cap``
+    dividing ``m``, 0 if none (the caller then takes the plain path)."""
+    best = 0
+    t = 8
+    while t <= min(m, cap):
+        if m % t == 0:
+            best = t
+        t += 8
+    return best
+
+
+def _widths(xs: Sequence[torch.Tensor]):
+    """(offsets, total width) of the virtual concat of ``xs``."""
+    offs, off = [], 0
+    for x in xs:
+        offs.append(off)
+        off += x.shape[1]
+    return offs, off
+
+
+def _check_rows(xs, m):
+    if not xs or any(x.dim() != 2 or x.shape[0] != m for x in xs):
+        raise ValueError(f"features must be (M, c_k) views of {m} rows, got "
+                         f"{[tuple(x.shape) for x in xs]}")
+
+
+def feature_table(xs, dxs=None) -> torch.Tensor:
+    """The feature table of the CUDA views ``xs`` (and of their cotangents
+    ``dxs``) in device memory: one row of TABLE_COLS int64 per group
+    [pointer, row stride, width, column offset, dx pointer, dx row stride],
+    written by one fill launch on the current stream. It holds pointers:
+    valid while the tensors it was built from live, for those tensors
+    only."""
+    offs, _ = _widths(xs)
+    rows = []
+    for k, (x, off) in enumerate(zip(xs, offs)):
+        _check_view(x, f"features[{k}]")
+        dx = (0, 0)
+        if dxs is not None:
+            _check_view(dxs[k], f"dx[{k}]")
+            dx = (dxs[k].data_ptr(), dxs[k].stride(0))
+        rows.append([x.data_ptr(), x.stride(0), x.shape[1], off, *dx])
+    host = torch.tensor(rows, dtype=torch.int64)
+    dev = torch.empty(len(xs) * TABLE_COLS, dtype=torch.int64,
+                      device=xs[0].device)
+    code = build.lib().cunet_tb_fill_table(host.data_ptr(), len(xs),
+                                           dev.data_ptr(), _stream(dev))
+    build.check(code, "train_bottleneck.feature_table")
+    return dev
+
+
+def _table_of(xs, table):
+    """``table`` checked against ``xs``, or a new one for them."""
+    if table is None:
+        return feature_table(xs)
+    if table.device != xs[0].device or table.dtype != torch.int64 \
+            or table.numel() != len(xs) * TABLE_COLS:
+        raise ValueError(f"feature table {table.dtype} {tuple(table.shape)} "
+                         f"on {table.device} does not fit {len(xs)} groups "
+                         f"on {xs[0].device}")
+    return table
+
+
+def row_chunk(m: int) -> int:
+    """Rows per partial of a row reduction over M rows: M / CHUNKS rounded
+    up to a multiple of 64, within [64, ROW_CHUNK], so a small M still
+    spreads over enough blocks. A function of M alone: the same call sums
+    in the same order every time."""
+    return min(ROW_CHUNK, max(64, -(-m // (64 * CHUNKS)) * 64))
+
+
+def _partials(m, *shape, device):
+    return torch.empty(-(-m // row_chunk(m)), *shape, device=device,
+                       dtype=torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# stats
+# ---------------------------------------------------------------------------
+
+
+def stats_plain(xs, out, table=None):
+    offs, _ = _widths(xs)
+    for x, off in zip(xs, offs):
+        x32 = x.float()
+        out[0, off:off + x.shape[1]] = x32.sum(dim=0)
+        out[1, off:off + x.shape[1]] = (x32 * x32).sum(dim=0)
+    return out
+
+
+def stats(xs, out, table=None):
+    """``out`` (2, Ctot) float32 = [sum; sum of squares] over the M rows of
+    each column of the virtual concat of ``xs`` ((M, c_k) views), read
+    through ``table`` (``feature_table(xs)``, filled here when None; the
+    plain versions take and ignore it).
+
+    Replaces ``cunet_tpu/kernels/train_bottleneck.py::_stats_kernel``.
+    Bound by reading the features once (62.9 MB at K=320, M=98,304: 18.8 us
+    on the H100). Design: one block per (chunk of ``row_chunk(M)`` rows, 64
+    columns), 32 row stripes of 16-byte loads per 8 columns, a fixed-order
+    reduction in shared memory, the chunk partials added by ``sum_rows``.
+    """
+    m = xs[0].shape[0]
+    _check_rows(xs, m)
+    ctot = _widths(xs)[1]
+    if tuple(out.shape) != (2, ctot):
+        raise ValueError(f"stats out {tuple(out.shape)}, expected (2, {ctot})")
+    if xs[0].device.type == "cpu":
+        return stats_plain(xs, out)
+    _check_contig_f32(out, "out", xs[0].device)
+    table = _table_of(xs, table)
+    part = _partials(m, 2, ctot, device=out.device)
+    code = build.lib().cunet_tb_stats(table.data_ptr(), len(xs), m, ctot,
+                                      row_chunk(m), part.data_ptr(),
+                                      _stream(out))
+    build.check(code, "train_bottleneck.stats")
+    stats.launches += 1
+    return sum_rows(part, out)
+
+
+# ---------------------------------------------------------------------------
+# apply
+# ---------------------------------------------------------------------------
+
+
+def apply_plain(xs, vec, w, out, table=None):
+    offs, _ = _widths(xs)
+    acc = None
+    for x, off in zip(xs, offs):
+        c = x.shape[1]
+        y = torch.relu(x.float() * vec[0, off:off + c] + vec[1, off:off + c])
+        part = y.to(x.dtype).float() @ w[off:off + c].float()
+        acc = part if acc is None else acc + part
+    out.copy_(acc.to(out.dtype))
+    return out
+
+
+def apply(xs, vec, w, out, table=None):
+    """``out`` (M, Cout) = sum_k bf16(relu(x_k * inv_k + shift_k)) @ w_k,
+    ``vec`` the (2, Ctot) float32 [inv; shift], the affine in float32, ``w``
+    the (Ctot, Cout) weight already rounded to the feature dtype, float32
+    accumulation, one rounding of the result to ``out``'s dtype; ``table``
+    as in ``stats``.
+
+    Replaces ``cunet_tpu/kernels/train_bottleneck.py::_apply_kernel``.
+    Bound by reading the features and writing out (88 MB at K=320 -> 128,
+    M=98,304: 26.3 us). Design: ``affine_dot``'s (csrc/buf_kernels.cu)
+    128-row bf16 WMMA tiles with the prologue in f32 registers, each A
+    vector read from its group's tensor through the feature table.
+    """
+    m = xs[0].shape[0]
+    _check_rows(xs, m)
+    ctot = _widths(xs)[1]
+    n = w.shape[1]
+    if tuple(w.shape) != (ctot, n) or tuple(out.shape) != (m, n) \
+            or tuple(vec.shape) != (2, ctot):
+        raise ValueError(f"apply shapes: Ctot {ctot}, vec "
+                         f"{tuple(vec.shape)}, w {tuple(w.shape)}, out "
+                         f"{tuple(out.shape)}")
+    if xs[0].device.type == "cpu":
+        return apply_plain(xs, vec, w, out)
+    _check_view(w, "w")
+    _check_view(out, "out")
+    if not w.is_contiguous():
+        raise ValueError("w must be contiguous")
+    _check_contig_f32(vec, "vec", out.device)
+    table = _table_of(xs, table)
+    code = build.lib().cunet_tb_apply(
+        table.data_ptr(), len(xs), m, ctot, vec[0].data_ptr(),
+        vec[1].data_ptr(), w.data_ptr(), n, out.data_ptr(), out.stride(0),
+        _stream(out))
+    build.check(code, "train_bottleneck.apply")
+    apply.launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# backward: bwd_reduce and bwd_dx
+# ---------------------------------------------------------------------------
+
+
+def _recompute(x, stat, bias, off):
+    """(x_hat, y) of one group from its forward statistics, one rounding
+    per operation: x_hat = (x - mean) * inv_sigma, y = x_hat * scale +
+    bias."""
+    c = x.shape[1]
+    xh = (x.float() - stat[0, off:off + c]) * stat[1, off:off + c]
+    return xh, xh * stat[2, off:off + c] + bias[off:off + c]
+
+
+def bwd_reduce_plain(xs, g, stat, bias, w, dw, sums, table=None):
+    offs, _ = _widths(xs)
+    g32 = g.float()
+    for x, off in zip(xs, offs):
+        c = x.shape[1]
+        xh, y = _recompute(x, stat, bias, off)
+        dw[off:off + c] = torch.relu(y).t() @ g32
+        gy = torch.where(y > 0, g32 @ w[off:off + c].t(), 0.0)
+        sums[0, off:off + c] = gy.sum(dim=0)
+        sums[1, off:off + c] = (gy * xh).sum(dim=0)
+    return dw, sums
+
+
+def _check_bwd(xs, g, stat, bias, w, m, ctot):
+    n = g.shape[1]
+    if tuple(g.shape) != (m, n) or tuple(w.shape) != (ctot, n) \
+            or tuple(stat.shape) != (3, ctot) or tuple(bias.shape) != (ctot,):
+        raise ValueError(f"backward shapes: Ctot {ctot}, g {tuple(g.shape)}, "
+                         f"w {tuple(w.shape)}, stat {tuple(stat.shape)}, bias "
+                         f"{tuple(bias.shape)}")
+    if g.device.type == "cpu":
+        return
+    dev = g.device
+    _check_view(g, "g")
+    for t, name in ((stat, "stat"), (bias, "bias"), (w, "w")):
+        _check_contig_f32(t, name, dev)
+
+
+def bwd_reduce(xs, g, stat, bias, w, dw, sums, table=None):
+    """The reductions of the backward over all M rows, for features ``xs``,
+    the output cotangent ``g`` (M, Cout), ``stat`` (3, Ctot) float32
+    [mean; inv_sigma; scale], ``bias`` (Ctot,) and the float32 weight ``w``
+    (Ctot, Cout), unrounded: ``dw`` (Ctot, Cout) = relu(y)^T g and ``sums``
+    (2, Ctot) = [sum g_y; sum g_y * x_hat], with x_hat = (x - mean) *
+    inv_sigma, y = x_hat * scale + bias, g_y = [y > 0] (g @ w^T), all in
+    float32; ``table`` as in ``stats`` (its dx columns unused).
+
+    Replaces ``cunet_tpu/kernels/train_bottleneck.py::_bwd_reduce_kernel``.
+    Bound by operations: 4 M Ctot Cout float32 flops (16.1 GFLOP at K=320
+    -> 128, M=98,304: 240 us at 67 TFLOP/s). Design: one launch, two kinds
+    of block per (chunk of ``row_chunk(M)`` rows, 64 columns): a 64x64 dW tile
+    whose A operand is relu(y) recomputed in the stage prologue, and the
+    g W^T tile walked over the chunk with the gate and the two sums in its
+    epilogue; float32 FMA on the CUDA cores (the TPU kernel's precision),
+    per-chunk partials added by ``sum_rows``.
+    """
+    m = xs[0].shape[0]
+    _check_rows(xs, m)
+    ctot = _widths(xs)[1]
+    _check_bwd(xs, g, stat, bias, w, m, ctot)
+    n = g.shape[1]
+    if tuple(dw.shape) != (ctot, n) or tuple(sums.shape) != (2, ctot):
+        raise ValueError(f"bwd_reduce outputs: dw {tuple(dw.shape)}, sums "
+                         f"{tuple(sums.shape)}")
+    if g.device.type == "cpu":
+        return bwd_reduce_plain(xs, g, stat, bias, w, dw, sums)
+    _check_contig_f32(dw, "dw", g.device)
+    _check_contig_f32(sums, "sums", g.device)
+    table = _table_of(xs, table)
+    dw_part = _partials(m, ctot, n, device=g.device)
+    sums_part = _partials(m, 2, ctot, device=g.device)
+    code = build.lib().cunet_tb_bwd_reduce(
+        table.data_ptr(), len(xs), m, ctot, g.data_ptr(),
+        g.stride(0), n, stat.data_ptr(), bias.data_ptr(), w.data_ptr(),
+        row_chunk(m), dw_part.data_ptr(), sums_part.data_ptr(), _stream(g))
+    build.check(code, "train_bottleneck.bwd_reduce")
+    bwd_reduce.launches += 1
+    sum_rows(dw_part, dw)
+    sum_rows(sums_part, sums)
+    return dw, sums
+
+
+def bwd_dx_plain(xs, g, stat, bias, red, w, dxs, table=None):
+    offs, _ = _widths(xs)
+    g32 = g.float()
+    for x, dx, off in zip(xs, dxs, offs):
+        c = x.shape[1]
+        xh, y = _recompute(x, stat, bias, off)
+        gy = torch.where(y > 0, g32 @ w[off:off + c].t(), 0.0)
+        v = stat[2, off:off + c] * stat[1, off:off + c] * (
+            gy - red[0, off:off + c] - xh * red[1, off:off + c])
+        dx.copy_(v.to(dx.dtype))
+    return dxs
+
+
+def bwd_dx(xs, g, stat, bias, red, w, dxs, table=None):
+    """The input cotangents ``dxs`` ((M, c_k) views, each in its feature's
+    dtype): scale * inv_sigma * (g_y - red[0] - x_hat * red[1]) with
+    ``red`` (2, Ctot) = [mean g_y; mean g_y * x_hat] (``bwd_reduce``'s sums
+    over M) and the rest as in ``bwd_reduce``; ``table`` is
+    ``feature_table(xs, dxs)``, filled here when None.
+
+    Replaces ``cunet_tpu/kernels/train_bottleneck.py::_bwd_dx_kernel``.
+    Bound by operations: 2 M Ctot Cout float32 flops (8.1 GFLOP at K=320
+    -> 128: 120 us). Design: ``bwd_reduce``'s g W^T tile per 64 rows x 64
+    columns, the recompute, gate and BN jacobian in its epilogue, each
+    column's result written to its group's dx tensor (through the table).
+    """
+    m = xs[0].shape[0]
+    _check_rows(xs, m)
+    ctot = _widths(xs)[1]
+    _check_bwd(xs, g, stat, bias, w, m, ctot)
+    if tuple(red.shape) != (2, ctot) or len(dxs) != len(xs) \
+            or any(tuple(d.shape) != tuple(x.shape) for d, x in zip(dxs, xs)):
+        raise ValueError(f"bwd_dx shapes: red {tuple(red.shape)}, dx "
+                         f"{[tuple(d.shape) for d in dxs]}")
+    if g.device.type == "cpu":
+        return bwd_dx_plain(xs, g, stat, bias, red, w, dxs)
+    _check_contig_f32(red, "red", g.device)
+    table = feature_table(xs, dxs) if table is None \
+        else _table_of(xs, table)
+    code = build.lib().cunet_tb_bwd_dx(
+        table.data_ptr(), len(xs), m, ctot, g.data_ptr(),
+        g.stride(0), g.shape[1], stat.data_ptr(), bias.data_ptr(),
+        red.data_ptr(), w.data_ptr(), _stream(g))
+    build.check(code, "train_bottleneck.bwd_dx")
+    bwd_dx.launches += 1
+    return dxs
+
+
+KERNELS = (stats, apply, bwd_reduce, bwd_dx)
+PLAIN = {stats: stats_plain, apply: apply_plain, bwd_reduce: bwd_reduce_plain,
+         bwd_dx: bwd_dx_plain}
+
+
+def reset_launch_counts() -> None:
+    reset_counts(KERNELS)
+
+
+def launch_counts() -> dict:
+    return {k.__name__: k.launches for k in KERNELS}
+
+
+reset_launch_counts()
+
+
+# ---------------------------------------------------------------------------
+# the autograd Function
+# ---------------------------------------------------------------------------
+
+
+def _rows2d(features):
+    n, h, wd, _ = features[0].shape
+    m = n * h * wd
+    return m, [f.reshape(m, f.shape[-1]) for f in features]
+
+
+class _FusedTrainBottleneck(torch.autograd.Function):
+    """Saves the inputs, the parameters and the batch mean and variance,
+    nothing else (the JAX custom VJP's residuals); the backward recomputes
+    the rest. The cotangents of mean and var are dropped: they feed the
+    running averages only."""
+
+    @staticmethod
+    def forward(ctx, eps, scale, bias, w, *features):
+        m, xs = _rows2d(features)
+        dtype, dev = features[0].dtype, features[0].device
+        ctot = _widths(xs)[1]
+        table = feature_table(xs) if dev.type == "cuda" else None
+        sums = stats(xs, torch.empty(2, ctot, device=dev,
+                                     dtype=torch.float32), table=table)
+        mean = sums[0] / m
+        var = sums[1] / m - mean * mean
+        inv = torch.rsqrt(var + eps) * scale
+        vec = torch.stack([inv, bias - mean * inv])
+        w2 = w[0, 0].to(dtype).contiguous()
+        out = torch.empty(m, w.shape[3], device=dev, dtype=dtype)
+        apply(xs, vec, w2, out, table=table)
+        ctx.eps = eps
+        ctx.save_for_backward(*features, scale, bias, w, mean, var)
+        ctx.mark_non_differentiable(mean, var)
+        return out.reshape(*features[0].shape[:3], -1), mean, var
+
+    @staticmethod
+    def backward(ctx, g_out, g_mean, g_var):
+        *features, scale, bias, w, mean, var = ctx.saved_tensors
+        m, xs = _rows2d(features)
+        dev = g_out.device
+        ctot, cout = w.shape[2], w.shape[3]
+        stat = torch.stack([mean, torch.rsqrt(var + ctx.eps),
+                            scale.float()])
+        bias32 = bias.float().contiguous()
+        w2 = w[0, 0].float().contiguous()
+        g2 = g_out.reshape(m, cout).contiguous()
+        dw = torch.empty(ctot, cout, device=dev, dtype=torch.float32)
+        sums = torch.empty(2, ctot, device=dev, dtype=torch.float32)
+        dxs = [torch.empty_like(x, memory_format=torch.contiguous_format)
+               for x in xs]
+        table = feature_table(xs, dxs) if dev.type == "cuda" else None
+        bwd_reduce(xs, g2, stat, bias32, w2, dw, sums, table=table)
+        bwd_dx(xs, g2, stat, bias32, sums / m, w2, dxs, table=table)
+        return (None, sums[1].to(scale.dtype), sums[0].to(bias.dtype),
+                dw.view(1, 1, ctot, cout).to(w.dtype),
+                *(dx.view(f.shape) for dx, f in zip(dxs, features)))
+
+
+def fused_train_bottleneck(features: Sequence[torch.Tensor], scale, bias, w,
+                           eps: float = BN_EPS) -> List[torch.Tensor]:
+    """Train-mode fused bottleneck over NHWC ``features`` sharing N, H, W;
+    ``scale``, ``bias`` (Ctot,) and ``w`` (1, 1, Ctot, Cout) float32.
+
+    Returns (out (N, H, W, Cout) in the features' dtype, batch mean, biased
+    batch variance); the statistics feed the running averages outside.
+    Differentiable in the features, scale, bias and w, with O(1) saved
+    activations (recompute backward)."""
+    return _FusedTrainBottleneck.apply(eps, scale, bias, w, *features)

@@ -24,7 +24,21 @@ Paths, chosen by the config as in JAX:
   int8 kernels;
 - the train kernel path (``use_pallas=True, bn_tile > 0``): the stem in
   plain PyTorch, then each slot through the slot train kernels and their
-  recompute backward (:mod:`cunet_tpu_torch.kernels.train_slot`).
+  recompute backward (:mod:`cunet_tpu_torch.kernels.train_slot`);
+- whole-batch BN training on the kernels (``use_pallas=True, bn_tile=0``):
+  the plain layer-by-layer train forward with every bottleneck and adapter
+  on the per-bottleneck train kernel and its recompute backward
+  (:mod:`cunet_tpu_torch.kernels.train_bottleneck`); BN2, the 3x3 convs,
+  the stem, the pools and the heads stay plain PyTorch, as they stay
+  ``lax`` in the JAX package.
+
+Activation checkpointing (``remat``, train mode, the layer-by-layer paths)
+maps JAX's ``jax.checkpoint`` policies to ``torch.utils.checkpoint``:
+``"bottleneck"`` each plain bottleneck (the per-bottleneck kernel subsumes
+it), ``"layer"`` each dense layer's bottleneck + BN2 + 3x3 conv, ``"block"``
+each slot's intermedia adapter and hourglass. A checkpointed region writes
+its running statistics once, from the first forward, and the recompute
+draws no seed: the dropout masks are hashes of the slot's seed.
 
 The JAX ``lax.scan`` over steady-state slots and its stacked-slot storage
 exist to cut XLA compile time; here every slot runs in a plain loop.
@@ -43,7 +57,9 @@ layer's 3x3 conv output by a counter-hash mask
 (:mod:`cunet_tpu_torch.ops.dropmask`) from one int32 seed per slot
 (``apply_cu_net(..., drop_seeds=)``), at traversal position down j -> j,
 neck -> nb, up j -> 2nb - j and per ghost-BN tile, so both train paths and
-the JAX package draw the same masks from the same seeds.
+the JAX package draw the same masks from the same seeds. On the
+layer-by-layer kernel path (``bn_tile=0``) the mask kernel applies it,
+forward and backward (:func:`cunet_tpu_torch.kernels.drop_ops.dropout`).
 """
 
 from __future__ import annotations
@@ -51,6 +67,7 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from cunet_tpu_torch.config import ModelConfig, QuantConfig
 from cunet_tpu_torch.ops import (
@@ -58,6 +75,8 @@ from cunet_tpu_torch.ops import (
     bn_inference_scale_shift,
     conv2d,
     dense_bottleneck,
+    dense_bottleneck_remat,
+    dense_bottleneck_train_pallas,
     max_pool_2x2,
     relu,
     upsample_nearest_2x,
@@ -219,14 +238,25 @@ def _int8_bottleneck_infer(params, state, prefix, feats, quant: QuantConfig):
 
 def _apply_bottleneck(params, state, prefix, feats: Sequence[torch.Tensor],
                       *, cfg, train=False, upd=None, quant=None):
-    """BN -> ReLU -> 1x1 over a virtual concat (``prefix`` is the unit);
-    with an ``int8_infer`` quant config, the int8 bottleneck (eval only)."""
+    """BN -> ReLU -> 1x1 over a virtual concat (``prefix`` is the unit), in
+    the JAX package's dispatch order: with an ``int8_infer`` quant config
+    the int8 bottleneck (eval only); in train mode with ``use_pallas`` and
+    ``bn_tile=0`` the per-bottleneck train kernel (it subsumes
+    ``remat="bottleneck"``); else with ``remat="bottleneck"`` the plain one
+    under checkpointing; else the plain one."""
     if quant is not None and quant.int8_infer and not train:
         return _int8_bottleneck_infer(params, state, prefix, feats, quant)
     norm_p, norm_s = _bn(params, state, f"{prefix}.norm")
-    out, ns = dense_bottleneck(
-        feats, {"norm": norm_p, "conv": params[f"{prefix}.conv"]}, norm_s,
-        train=train, norm_dtype=_bn_nd(cfg), tile=cfg.bn_tile)
+    p = {"norm": norm_p, "conv": params[f"{prefix}.conv"]}
+    if train and cfg.use_pallas and not cfg.bn_tile:
+        out, ns = dense_bottleneck_train_pallas(feats, p, norm_s)
+    elif train and cfg.remat == "bottleneck":
+        out, ns = dense_bottleneck_remat(feats, p, norm_s, train=True,
+                                         norm_dtype=_bn_nd(cfg),
+                                         tile=cfg.bn_tile)
+    else:
+        out, ns = dense_bottleneck(feats, p, norm_s, train=train,
+                                   norm_dtype=_bn_nd(cfg), tile=cfg.bn_tile)
     if train:
         _patch(upd, f"{prefix}.norm", ns)
     return out
@@ -239,17 +269,44 @@ def _quantize_input(y, quant):
     return y
 
 
-def _apply_dense_layer(params, state, prefix, feats, *, quant=None,
-                       drop=None, **kw):
+def _checkpointed(fn, upd, *args):
+    """``fn(*args, stats)`` under ``torch.utils.checkpoint``: its outputs'
+    history is recomputed in the backward, not saved. ``stats`` is a fresh
+    dict on every run; the first run's running statistics go into ``upd``,
+    the recompute's are dropped. No RNG state is kept: nothing inside
+    draws random numbers."""
+    def run(*a):
+        stats: Dict[str, torch.Tensor] = {}
+        return fn(*a, stats), stats
+
+    out, stats = checkpoint(run, *args, use_reentrant=False,
+                            preserve_rng_state=False)
+    upd.update(stats)
+    return out
+
+
+def _apply_dense_layer(params, state, prefix, feats, *, cfg, train=False,
+                       upd=None, quant=None, drop=None):
     """Bottleneck 1x1, then BN -> ReLU [-> quantize] -> 3x3 conv to
-    ``growth_rate`` [-> dropout: ``drop`` = (seed, traversal position)]."""
-    b = _apply_bottleneck(params, state, f"{prefix}.bottleneck", feats,
-                          quant=quant, **kw)
-    y = _quantize_input(
-        relu(_norm(params, state, f"{prefix}.norm2", b, **kw)), quant)
-    y = conv2d(y, params[f"{prefix}.conv2"], stride=1, padding=1)
-    if drop is not None:
-        cfg = kw["cfg"]
+    ``growth_rate`` [-> dropout: ``drop`` = (seed, traversal position)];
+    with ``remat="layer"`` in train mode all but the dropout checkpointed."""
+    def body(feats, upd):
+        kw = dict(cfg=cfg, train=train, upd=upd)
+        b = _apply_bottleneck(params, state, f"{prefix}.bottleneck", feats,
+                              quant=quant, **kw)
+        y = _quantize_input(
+            relu(_norm(params, state, f"{prefix}.norm2", b, **kw)), quant)
+        return conv2d(y, params[f"{prefix}.conv2"], stride=1, padding=1)
+
+    if train and cfg.remat == "layer":
+        y = _checkpointed(body, upd, list(feats))
+    else:
+        y = body(feats, upd)
+    if drop is not None and cfg.use_pallas:     # the bn_tile=0 kernel path
+        from cunet_tpu_torch.kernels.drop_ops import dropout
+
+        y = dropout(y, *drop, cfg.drop_rate, cfg.bn_tile)
+    elif drop is not None:
         y = y * dropmask.batch_mask(*drop, y.shape, cfg.bn_tile,
                                     cfg.drop_rate, y.dtype, y.device)
     return y
@@ -442,7 +499,8 @@ def slot_args(params, state, cfg: ModelConfig, fold: bool = True
 
 def fused_train_ok(cfg: ModelConfig) -> bool:
     """Whether training runs the whole-slot train kernels (ghost-BN tiles;
-    ``bn_tile == 0`` is the per-bottleneck train kernel, still to port)."""
+    with ``bn_tile == 0`` the layer-by-layer forward runs the per-bottleneck
+    train kernel instead, ``_apply_bottleneck``)."""
     return cfg.use_pallas and cfg.bn_tile > 0
 
 
@@ -615,15 +673,6 @@ def _check_train_cfg(cfg: ModelConfig, drop_seeds) -> None:
                 f"drop_rate > 0 in train mode needs drop_seeds, one int32 "
                 f"per slot ({cfg.layer_num}); train_step draws them from "
                 f"its generator")
-    if cfg.use_pallas and not cfg.bn_tile:
-        raise NotImplementedError(
-            "use_pallas with bn_tile=0 trains through the per-bottleneck "
-            "train kernel (train_bottleneck.py), not ported yet; set "
-            "bn_tile > 0 or use_pallas=False")
-    if not cfg.use_pallas and cfg.remat != "none":
-        raise NotImplementedError(
-            f"remat={cfg.remat!r} on the plain train path is not ported yet "
-            "(it is to map to torch.utils.checkpoint); use remat='none'")
 
 
 def apply_cu_net(params, state, x: torch.Tensor, *, cfg: ModelConfig,
@@ -635,8 +684,11 @@ def apply_cu_net(params, state, x: torch.Tensor, *, cfg: ModelConfig,
       x: (N, H, W, 3) NHWC input, cast to ``cfg.compute_dtype``.
       train: batch statistics (per ``cfg.bn_tile`` images) and new running
         statistics; gradients reach float32 ``params`` by autograd. With
-        ``cfg.use_pallas`` every slot runs the train kernels
-        (:mod:`cunet_tpu_torch.kernels.train_slot`).
+        ``cfg.use_pallas`` every slot runs the slot train kernels
+        (:mod:`cunet_tpu_torch.kernels.train_slot`), or with ``bn_tile=0``
+        every bottleneck and adapter the per-bottleneck train kernel
+        (:mod:`cunet_tpu_torch.kernels.train_bottleneck`); ``cfg.remat``
+        checkpoints the layer-by-layer paths.
       slots: eval kernel-path weights from :func:`eval_slots` (for the
         same ``quant``), reused across calls; built from ``params`` /
         ``state`` when None.
@@ -693,10 +745,22 @@ def apply_cu_net(params, state, x: torch.Tensor, *, cfg: ModelConfig,
         return [out[:, k] for k in range(out.shape[1])], state
 
     for i in range(cfg.layer_num):
-        y, fifos["intermedia"] = _apply_intermedia(
-            params, state, y, i, fifos["intermedia"], **kw)
-        y, fifos = _apply_hourglass(params, state, y, i, fifos, quant=quant,
+        def slot(y, fifos, upd, i=i):
+            """Slot i's intermedia adapter and hourglass on a copy of the
+            FIFOs (a checkpoint's recompute must find its inputs as they
+            were)."""
+            fifos = {k: [list(f) for f in v] if k in ("down", "up")
+                     else list(v) for k, v in fifos.items()}
+            kw = dict(cfg=cfg, train=train, upd=upd)
+            y, fifos["intermedia"] = _apply_intermedia(
+                params, state, y, i, fifos["intermedia"], **kw)
+            return _apply_hourglass(params, state, y, i, fifos, quant=quant,
                                     drop_seed=seeds[i], **kw)
+
+        if train and cfg.remat == "block":
+            y, fifos = _checkpointed(slot, upd, y, fifos)
+        else:
+            y, fifos = slot(y, fifos, upd)
         if (i + 1) in cfg.anchors:
             outs.append(_apply_head(params, state, f"heads.{i}", y,
                                     quant=quant, **kw))

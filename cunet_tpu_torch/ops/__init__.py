@@ -1,7 +1,11 @@
 """NN ops on NHWC tensors, eval and train mode (counterpart of
 ``cunet_tpu.ops``)."""
 
-from cunet_tpu_torch.ops.bottleneck import dense_bottleneck
+from cunet_tpu_torch.ops.bottleneck import (
+    dense_bottleneck,
+    dense_bottleneck_remat,
+    dense_bottleneck_train_pallas,
+)
 from cunet_tpu_torch.ops.layers import (
     BN_EPS,
     batch_norm,
@@ -18,6 +22,8 @@ __all__ = [
     "bn_inference_scale_shift",
     "conv2d",
     "dense_bottleneck",
+    "dense_bottleneck_remat",
+    "dense_bottleneck_train_pallas",
     "max_pool_2x2",
     "relu",
     "upsample_nearest_2x",

@@ -8,6 +8,9 @@ statistics are per group too (per ghost tile with ``tile``). This is the
 plain layer-by-layer version; the kernel paths run the same arithmetic over
 contiguous channel slices of their buffers
 (:mod:`cunet_tpu_torch.kernels.buf_ops`, :mod:`cunet_tpu_torch.kernels.train_ops`).
+Two train-mode forms sit beside it: ``dense_bottleneck_train_pallas`` (the
+per-bottleneck train kernel, whole-batch statistics) and
+``dense_bottleneck_remat`` (this one under activation checkpointing).
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ from __future__ import annotations
 from typing import Sequence, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from cunet_tpu_torch.ops.layers import (
     BN_EPS,
@@ -85,3 +89,44 @@ def dense_bottleneck(features: Sequence[torch.Tensor], params: dict,
         acc = part if acc is None else acc + part
         off += c
     return acc.reshape(n, h, wd, -1).to(dtype), new_state
+
+
+def dense_bottleneck_train_pallas(features: Sequence[torch.Tensor],
+                                  params: dict, state: dict, *,
+                                  eps: float = BN_EPS,
+                                  momentum: float = BN_MOMENTUM
+                                  ) -> Tuple[torch.Tensor, dict]:
+    """Train mode through the per-bottleneck train kernel
+    (:func:`cunet_tpu_torch.kernels.train_bottleneck.fused_train_bottleneck`:
+    whole-batch statistics, O(1) saved activations, recompute backward);
+    returns ``(out, new_state)``. Where M = N*H*W has no row tile (not a
+    multiple of 8) it takes ``dense_bottleneck`` with a float32 affine and
+    whole-batch statistics, as ``cunet_tpu/ops/bottleneck.py`` does."""
+    from cunet_tpu_torch.kernels.train_bottleneck import (
+        fused_train_bottleneck,
+        row_tile,
+    )
+
+    n, h, wd, _ = features[0].shape
+    if row_tile(n * h * wd) == 0:
+        return dense_bottleneck(features, params, state, train=True, eps=eps,
+                                momentum=momentum)
+    out, mean, var = fused_train_bottleneck(
+        list(features), params["norm"]["scale"], params["norm"]["bias"],
+        params["conv"], eps)
+    return out, running_update(state, mean, var, n * h * wd, momentum)
+
+
+def dense_bottleneck_remat(features: Sequence[torch.Tensor], params: dict,
+                           state: dict, *, train: bool, **kw
+                           ) -> Tuple[torch.Tensor, dict]:
+    """``dense_bottleneck`` under ``torch.utils.checkpoint``: nothing
+    between the inputs and the 1x1 output is saved for the backward, the
+    BN / ReLU intermediates are recomputed (``jax.checkpoint`` in the JAX
+    package). The new running statistics carry no autograd history. No
+    RNG state is kept: nothing inside draws random numbers (the same rule
+    as the model's checkpointed layers and slots)."""
+    return checkpoint(
+        lambda *feats: dense_bottleneck(feats, params, state, train=train,
+                                        **kw),
+        *features, use_reentrant=False, preserve_rng_state=False)

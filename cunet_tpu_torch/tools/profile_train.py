@@ -1,7 +1,7 @@
 """Device-time breakdown of the CU-Net-8 @256 train step on one GPU.
 
     python -m cunet_tpu_torch.tools.profile_train [--plain] [--drop RATE]
-        [--quant] [--out profile_train.json]
+        [--quant] [--bn_tile T] [--out profile_train.json]
 
 The train step (kernel path, or the plain path with ``--plain``; bf16,
 ghost-BN tile 2, ``bn_dtype="compute"``, RMSprop) from the port's init
@@ -9,9 +9,13 @@ ghost-BN tile 2, ``bn_dtype="compute"``, RMSprop) from the port's init
 three steps run under ``torch.profiler``. ``--drop RATE`` trains with
 dense-layer dropout (seeds from a generator, one set per step);
 ``--quant`` runs ``quant_train_step`` with ``QuantConfig(bits_w=1,
-bits_i=8, bits_g=8, enabled=True)``. Prints the host wall time per step,
-the device time summed by kernel name, launches per step and the device's
-busy share. Needs a CUDA device; there is no CPU fallback.
+bits_i=8, bits_g=8, enabled=True)``; ``--bn_tile 0`` trains with
+whole-batch BN statistics (the kernel path then runs every bottleneck and
+adapter on the per-bottleneck train kernel). Prints the host wall time per
+step, the device time by category (the hand-written kernels, cuDNN and
+cuBLAS, the optimizer's fused update, the rest of torch) and by kernel
+name, launches per step and the device's busy share. Needs a CUDA device;
+there is no CPU fallback.
 """
 
 from __future__ import annotations
@@ -41,6 +45,35 @@ FLAGSHIP = ModelConfig(layer_num=8, order=1, class_num=16, loss_num=8,
                        use_pallas=True, bn_tile=2, bn_dtype="compute")
 W1I8G8 = QuantConfig(bits_w=1, bits_i=8, bits_g=8, enabled=True)
 BATCH, ITERS = 24, 3
+LIBRARY = ("cudnn", "cublas", "xmma", "cutlass", "gemm", "conv", "sm90_")
+
+
+def category(name: str) -> str:
+    """The layer a device kernel belongs to, from its (demangled) name:
+    the port's own kernels live in an anonymous namespace at top level."""
+    low = name.lower()
+    if name.startswith("Optimizer.step"):
+        return "optimizer step span (overlaps its kernels)"
+    if name.startswith("void (anonymous namespace)::") \
+            or name.startswith("(anonymous namespace)::"):
+        return "hand-written kernels"
+    if "multi_tensor_apply" in low or "foreach" in low:
+        return "optimizer (RMSprop)"
+    if not low.startswith("void at::") and any(k in low for k in LIBRARY):
+        return "cuDNN / cuBLAS"
+    return "torch glue"
+
+
+def print_categories(r: dict) -> None:
+    cats = {}
+    for k in r["kernels"]:
+        c = cats.setdefault(category(k["name"]), [0.0, 0.0])
+        c[0] += k["ms_per_call"]
+        c[1] += k["launches_per_call"]
+    r["categories"] = {c: {"ms_per_call": v[0], "launches_per_call": v[1]}
+                       for c, v in cats.items()}
+    for c, (ms, n) in sorted(cats.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {c}: {ms:.3f} ms device, {n:.0f} launches per step")
 
 
 def main(argv=None) -> int:
@@ -51,12 +84,14 @@ def main(argv=None) -> int:
                     help="dense-layer dropout rate")
     ap.add_argument("--quant", action="store_true",
                     help="W1/I8/G8 quantized training")
+    ap.add_argument("--bn_tile", type=int, default=FLAGSHIP.bn_tile,
+                    help="ghost-BN tile in images; 0 = whole-batch BN")
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: no CUDA device")
     cfg = dataclasses.replace(FLAGSHIP, use_pallas=not args.plain,
-                              drop_rate=args.drop)
+                              drop_rate=args.drop, bn_tile=args.bn_tile)
     gpu = gpu_name()
     params, state = init_cu_net(cfg, torch.Generator().manual_seed(0))
     rng = np.random.RandomState(0)
@@ -76,11 +111,12 @@ def main(argv=None) -> int:
             return train_step(st, batch, cfg=cfg, generator=gen)
     path = "plain" if args.plain else "kernel"
     variant = (["drop"] if args.drop else []) + (
-        ["quant"] if args.quant else [])
+        ["quant"] if args.quant else []) + [f"bn_tile {args.bn_tile}"]
     r = dict(batch=BATCH, path=path, drop=args.drop, quant=args.quant,
-             **profile_window(step, ITERS))
+             bn_tile=args.bn_tile, **profile_window(step, ITERS))
     print_report(f"train step {path} path{''.join(' +' + v for v in variant)}"
                  f", batch {BATCH} ({gpu})", r, top=20)
+    print_categories(r)
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"gpu": gpu, "torch": torch.__version__, **r}, f,

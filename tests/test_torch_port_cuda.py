@@ -13,6 +13,7 @@ it:
 """
 
 import dataclasses
+import itertools
 
 import pytest
 import torch
@@ -579,3 +580,210 @@ def test_kernel_train_step_with_option(gen, option):
     lp, _ = _option_grads(dataclasses.replace(cfg, use_pallas=False), params,
                           state, x, t, **kw)
     assert abs(lk - lp) <= 1e-2 * abs(lp)
+
+
+# ---------------------------------------------------------------------------
+# the per-bottleneck train kernel (TPU kernel #7) and its bn_tile=0 step
+# ---------------------------------------------------------------------------
+
+from cunet_tpu_torch.kernels import train_bottleneck as tbk  # noqa: E402
+
+
+def _tb_operands(gen, m, widths, cout):
+    """Features (the second one a strided view of a wider buffer, when
+    there are two or more), BN parameters, weights, the forward's vectors
+    and statistics, and a bf16 output cotangent."""
+    feats = [_bf16(gen, m, c) * (1 + k) + 0.2 * k
+             for k, c in enumerate(widths)]
+    if len(feats) > 1:
+        feats[1] = torch.cat([feats[1], _bf16(gen, m, 8)], 1)[:, :widths[1]]
+    ctot = sum(widths)
+    scale = (torch.rand(ctot, generator=gen) + 0.5).cuda()
+    bias = (torch.randn(ctot, generator=gen) * 0.3).cuda()
+    w = (torch.randn(ctot, cout, generator=gen) * ctot ** -0.5).cuda()
+    sums = tbk.stats_plain(feats, torch.empty(2, ctot, device="cuda"))
+    mean = sums[0] / m
+    var = sums[1] / m - mean * mean
+    inv_sigma = torch.rsqrt(var + 1e-5)
+    vec = torch.stack([inv_sigma * scale, bias - mean * inv_sigma * scale])
+    stat = torch.stack([mean, inv_sigma, scale])
+    return feats, vec, stat, bias, w, _bf16(gen, m, cout)
+
+
+def _close_group_sums(got, want, n, widths, rows=False):
+    """A float32 n-term reduction over the columns of several feature
+    groups, each group's part (its rows of dW with ``rows``, else each row
+    of its [sum; sum of squares] columns) held to its own scale, so a
+    group of small values answers to them and not to a larger group's."""
+    offs = [0] + list(itertools.accumulate(widths))
+    for a, b in zip(offs[:-1], offs[1:]):
+        if rows:
+            _close_sum(got[a:b], want[a:b], n)
+        else:
+            for i in range(got.shape[0]):
+                _close_sum(got[i, a:b], want[i, a:b], n)
+
+
+# rows: a ragged 64-row tile and a ragged ROW_CHUNK; 20 groups: more than
+# one launch of the table fill; the last: the up-block adapter at r=64
+@pytest.mark.parametrize("m,widths,cout", [
+    (216, [8], 8), (1000, [16, 24, 8, 8], 16), (2056, [40, 16], 136),
+    (216, [8] * 20, 16), (98304, [128, 128, 32, 32], 128)])
+def test_train_bottleneck_kernels(gen, m, widths, cout):
+    feats, vec, stat, bias, w, g = _tb_operands(gen, m, widths, cout)
+    ctot = sum(widths)
+    before = tbk.launch_counts()
+    got, want = (fn(feats, torch.empty(2, ctot, device="cuda"))
+                 for fn in (tbk.stats, tbk.stats_plain))
+    _close_group_sums(got, want, m, widths)
+    outs = [torch.empty(m, cout, device="cuda", dtype=torch.bfloat16)
+            for _ in range(2)]
+    tbk.apply(feats, vec, w.bfloat16(), outs[0])
+    tbk.apply_plain(feats, vec, w.bfloat16(), outs[1])
+    _close(outs[0], outs[1])
+    red = []
+    for fn in (tbk.bwd_reduce, tbk.bwd_reduce_plain):
+        dw, sums = torch.empty(ctot, cout, device="cuda"), \
+            torch.empty(2, ctot, device="cuda")
+        red.append(fn(feats, g, stat, bias, w, dw, sums))
+    torch.cuda.synchronize()
+    _close_group_sums(red[0][0], red[1][0], m, widths, rows=True)
+    _close_group_sums(red[0][1], red[1][1], m, widths)
+    dxs = []
+    for fn in (tbk.bwd_dx, tbk.bwd_dx_plain):
+        buf = torch.zeros(m, ctot + 8, device="cuda", dtype=torch.bfloat16)
+        offs = [0] + list(torch.tensor(widths).cumsum(0))
+        views = [buf[:, int(a):int(b)] for a, b in zip(offs[:-1], offs[1:])]
+        fn(feats, g, stat, bias, red[1][1] / m, w, views)
+        dxs.append(buf)
+    torch.cuda.synchronize()
+    for k, (a, b) in enumerate(zip(offs[:-1], offs[1:])):
+        _close(dxs[0][:, int(a):int(b)], dxs[1][:, int(a):int(b)])
+    assert torch.equal(dxs[0][:, ctot:], dxs[1][:, ctot:])
+    after = tbk.launch_counts()
+    assert all(after[k] == before[k] + 1 for k in after)
+
+
+def test_train_bottleneck_wrappers_raise(gen):
+    feats, vec, _, _, w, _ = _tb_operands(gen, 64, [16, 8], 8)
+    out = torch.empty(64, 8, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(TypeError):           # float32 features
+        tbk.apply([f.float() for f in feats], vec, w.bfloat16(), out)
+    with pytest.raises(ValueError):          # a width not a multiple of 8
+        tbk.stats([feats[0][:, :12]], torch.empty(2, 12, device="cuda"))
+    with pytest.raises(ValueError):          # rows differ
+        tbk.stats([feats[0], feats[1][:32]],
+                  torch.empty(2, 24, device="cuda"))
+
+
+def _bn0_cfg(**kw):
+    return ModelConfig(layer_num=2, order=1, loss_num=2, neck_size=2,
+                       growth_rate=8, init_chan_num=16, class_num=8,
+                       num_blocks=2, compute_dtype="bfloat16", use_pallas=True,
+                       bn_tile=0, bn_dtype="compute", remat="none", **kw)
+
+
+def test_bn_tile0_kernel_step_matches_plain_and_remat(gen):
+    """Two slots, bf16, whole-batch BN: every bottleneck and adapter on the
+    four kernels; the step repeats bit for bit, is within the train bands
+    of the plain path's (the kernels' bottleneck affine runs in float32),
+    and remat "layer" / "block" give the same loss and grads bit for bit
+    (cuDNN deterministic)."""
+    cfg = _bn0_cfg()
+    params, state = init_cu_net(cfg, gen, device="cuda")
+    x = torch.rand(4, 64, 64, 3, generator=gen).cuda()
+    t = torch.rand(4, 16, 16, 8, generator=gen).cuda()
+    torch.backends.cudnn.deterministic = True
+    try:
+        _bn0_checks(cfg, params, state, x, t)
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def _bn0_checks(cfg, params, state, x, t):
+    buf_ops.reset_launch_counts()
+    train_ops.reset_launch_counts()
+    tbk.reset_launch_counts()
+    lk, gk, sk = _train_grads(cfg, params, state, x, t)
+    counts = tbk.launch_counts()
+    assert counts["stats"] == counts["apply"] == 25       # per bottleneck
+    assert counts["bwd_reduce"] == counts["bwd_dx"] == 25
+    assert not any(buf_ops.launch_counts().values())
+    lp, gp, sp = _train_grads(dataclasses.replace(cfg, use_pallas=False),
+                              params, state, x, t)
+    assert abs(lk - lp) <= 1e-2 * abs(lp)
+    norm = lambda g: torch.sqrt(sum((v.float() ** 2).sum() for v in g.values()))
+    assert 0.85 <= (norm(gk) / norm(gp)).item() <= 1.18
+    for k in sp:
+        rel = ((sk[k] - sp[k]).norm() / sp[k].norm()).item()
+        assert rel <= 1e-2, (k, rel)
+    for remat in ("none", "layer", "block"):
+        lr, gr, _ = _train_grads(dataclasses.replace(cfg, remat=remat),
+                                 params, state, x, t)
+        assert lr == lk
+        assert all(torch.equal(gr[k], gk[k]) for k in gr), remat
+
+
+def test_train_bottleneck_shared_table(gen):
+    """The four kernels reading one filled feature table (the Function's
+    use) give the bits they give when each fills its own."""
+    widths, m, cout = [16, 24, 8], 1000, 16
+    feats, vec, stat, bias, w, g = _tb_operands(gen, m, widths, cout)
+    ctot = sum(widths)
+    dxs = {name: [torch.empty(m, c, device="cuda", dtype=torch.bfloat16)
+                  for c in widths] for name in ("own", "shared")}
+    outs = {}
+    for name, table in (("own", None),
+                        ("shared", tbk.feature_table(feats,
+                                                     dxs["shared"]))):
+        st = tbk.stats(feats, torch.empty(2, ctot, device="cuda"),
+                       table=table)
+        out = torch.empty(m, cout, device="cuda", dtype=torch.bfloat16)
+        tbk.apply(feats, vec, w.bfloat16(), out, table=table)
+        dw, sums = torch.empty(ctot, cout, device="cuda"), \
+            torch.empty(2, ctot, device="cuda")
+        tbk.bwd_reduce(feats, g, stat, bias, w, dw, sums, table=table)
+        tbk.bwd_dx(feats, g, stat, bias, sums / m, w, dxs[name], table=table)
+        outs[name] = [st, out, dw, sums] + dxs[name]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(outs["own"], outs["shared"]))
+    with pytest.raises(ValueError):          # a table of two groups for three
+        tbk.stats(feats, torch.empty(2, ctot, device="cuda"),
+                  table=tbk.feature_table(feats[:2]))
+
+
+def test_bn_tile0_dropout_runs_the_mask_kernel(gen):
+    """Dropout on the bn_tile=0 kernel path: the mask kernel launches in
+    the forward and the backward, and the step is bit for bit the step
+    with the plain mask swapped in (cuDNN deterministic)."""
+    cfg = _bn0_cfg(drop_rate=0.2)
+    params, state = init_cu_net(cfg, gen, device="cuda")
+    x = torch.rand(4, 64, 64, 3, generator=gen).cuda()
+    t = torch.rand(4, 16, 16, 8, generator=gen).cuda()
+    seeds = dropmask.draw_slot_seeds(torch.Generator().manual_seed(1), 2)
+
+    def step():
+        from cunet_tpu_torch.train import intermediate_mse
+
+        ps = {k: v.detach().clone().requires_grad_(True)
+              for k, v in params.items()}
+        outs, _ = apply_cu_net(ps, state, x, cfg=cfg, train=True,
+                               drop_seeds=seeds)
+        loss = intermediate_mse(outs, t)
+        loss.backward()
+        return loss.item(), {k: v.grad for k, v in ps.items()}
+
+    kernel = drop_ops.drop_mask
+    torch.backends.cudnn.deterministic = True
+    try:
+        drop_ops.reset_launch_counts()
+        lk, gk = step()
+        n = drop_ops.launch_counts()["drop_mask"]
+        assert n > 0 and n % 2 == 0          # each layer's forward + backward
+        drop_ops.drop_mask = drop_ops.PLAIN[kernel]
+        lp, gp = step()
+    finally:
+        drop_ops.drop_mask = kernel
+        torch.backends.cudnn.deterministic = False
+    assert lk == lp
+    assert all(torch.equal(gk[k], gp[k]) for k in gk)

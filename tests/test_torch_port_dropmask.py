@@ -140,3 +140,24 @@ def test_drop_mask_plain_forward_and_backward(dt):
     assert drop_ops.drop_mask.launches == 0
     with pytest.raises(ValueError):
         drop_ops.drop_mask(d, -3, 4, 0.25, 48)
+
+
+@pytest.mark.parametrize("tile_images", [0, 2])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+def test_dropout_function_equals_plain_product(dt, tile_images):
+    """``drop_ops.dropout`` (the layer-by-layer kernel path's dropout, an
+    autograd Function over the mask op) gives ``y * batch_mask`` and its
+    gradient bit for bit, from an NHWC view as the 3x3 conv returns it,
+    and leaves its input as it was."""
+    gen = torch.Generator().manual_seed(3)
+    y = torch.randn(4, 3, 8, 6, generator=gen).to(dt).permute(0, 2, 3, 1)
+    y0 = y.clone()
+    yk, yp = y.clone().requires_grad_(True), y.clone().requires_grad_(True)
+    got = drop_ops.dropout(yk, -7, 3, 0.2, tile_images)
+    want = yp * dropmask.batch_mask(-7, 3, y.shape, tile_images, 0.2, dt)
+    assert torch.equal(got, want)
+    ct = torch.randn(y.shape, generator=gen).to(dt)
+    got.backward(ct)
+    want.backward(ct)
+    assert torch.equal(yk.grad, yp.grad)
+    assert torch.equal(y, y0)

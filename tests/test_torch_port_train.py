@@ -343,9 +343,6 @@ def test_eval_step_matches_jax():
 
 
 @pytest.mark.parametrize("change", [
-    dict(use_pallas=True, bn_tile=0),        # the per-bottleneck kernel
-    dict(remat="bottleneck"),                # torch.utils.checkpoint, later
-    dict(remat="block"),
     dict(drop_rate=0.2, drop_impl="masks"),  # threefry masks: not ported
 ])
 def test_unported_train_options_raise(change):

@@ -82,6 +82,23 @@ Phases, each printing one line (or a few) before the last:
    W1/I8/G8 ``quant_train_step``; step times, img/s and peak memory of
    both paths and of each remat policy, the dropout step's time.
 
+10. per-slot and per-bottleneck eval (TPU kernels #4 and #6, both on the
+   feature-table product ``table_dot`` of ``csrc/eval_kernels.cu``): the
+   product against its plain version at the CU-Net-8 @256 shapes of
+   batch 8 and 64 (a bottleneck with BN2's ``shift2`` epilogue, the
+   down-block adapter pair in its dual form, an up-block adapter, the
+   intermedia adapter, heads of 16 and 68 classes; features as separate
+   tensors); a Predictor with JAX's default flags (``pallas_hourglass``:
+   every slot on #4's kernels, the main path) answers the three requests,
+   launching ``table_dot`` 159 times per forward and ``affine_dot`` never,
+   held to the plain path (relative L2) and to the whole-model path on
+   the same weights (bit for bit), timed at batch 8 and 64 beside the
+   whole-model path; the int8 model with ``use_pallas`` layer by layer
+   (its 1x1 convs on #10, its down blocks' adapter pairs on the float
+   dual kernel); the 68-class head (the 300-W face model) on the
+   whole-model float and int8 paths, the per-slot path and the slot train
+   step; an f32 model on a kernel path raises.
+
 The line before the last is a JSON object with each kernel's launches,
 error, times, the least time the card could take for the same work and
 the time of one PyTorch call computing the same function where there is
@@ -106,6 +123,7 @@ SOURCE = "cunet_tpu_torch/csrc/buf_kernels.cu"
 TRAIN_SOURCE = "cunet_tpu_torch/csrc/train_kernels.cu"
 INT8_SOURCE = "cunet_tpu_torch/csrc/quant_kernels.cu"
 TB_SOURCE = "cunet_tpu_torch/csrc/bottleneck_kernels.cu"
+EVAL_SOURCE = "cunet_tpu_torch/csrc/eval_kernels.cu"
 REPLACES = {
     "affine_dot_i8": "cunet_tpu/kernels/fused_model_buf.py:83",
     "conv3x3_i8": "cunet_tpu/kernels/fused_model_buf.py:316",
@@ -135,6 +153,15 @@ REPLACES = {
     "train_bottleneck.bwd_reduce":
         "cunet_tpu/kernels/train_bottleneck.py:92",
     "train_bottleneck.bwd_dx": "cunet_tpu/kernels/train_bottleneck.py:134",
+    "table_dot": "cunet_tpu/kernels/fused_hourglass.py:229",
+    "table_dot[dual]": "cunet_tpu/kernels/fused_bottleneck.py:178",
+    "table_dot[shift2]": "cunet_tpu/kernels/fused_hourglass.py:254",
+}
+# the feature-table product serves two TPU kernels: #4's 1x1 stages (above)
+# and #6 (these)
+ALSO_REPLACES = {
+    "table_dot": "cunet_tpu/kernels/fused_bottleneck.py:76",
+    "table_dot[dual]": "cunet_tpu/kernels/fused_hourglass.py:279",
 }
 # published peaks of one H100 SXM at its 700 W limit (NVIDIA's data
 # sheet): HBM bytes/s, and dense operations/s by type ("f32" = float32
@@ -2006,6 +2033,300 @@ def phase_bn0_training(torch, tbk, tops, bops, dops, gpu):
     return {f"train_bottleneck.{k}": v for k, v in launches.items()}
 
 
+
+# ---------------------------------------------------------------------------
+# phase 10: the per-slot eval (#4) and the per-bottleneck eval (#6)
+# ---------------------------------------------------------------------------
+
+FACE_CLASSES = 68     # the 300-W face model's landmarks
+
+
+def table_dot_cases(torch, gen, n):
+    """(row name, label, make_out, call, work) of the feature-table product
+    at the CU-Net-8 @256 shapes of batch ``n`` (c=128, g=32, Cb=128,
+    r=64), each feature a tensor of its own (a FIFO entry a slice of a
+    wider one): a down block's bottleneck with BN2's ``shift2`` epilogue,
+    its adapter pair (dual), an up block's adapter, the intermedia adapter
+    and the heads of 16 and 68 classes (a column prefix of the padded
+    weight)."""
+    dev = "cuda"
+    c, g, cb, h0 = 128, 32, 128, 64
+    m = n * h0 * h0
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(
+            dev, torch.bfloat16)
+
+    def vec(k):
+        return torch.stack([torch.rand(k, generator=gen) + 0.5,
+                            torch.randn(k, generator=gen) * 0.5]).to(dev)
+
+    def empty(cols):
+        return lambda: torch.empty(m, cols, device=dev, dtype=torch.bfloat16)
+
+    def dot_work(ks, nout, outs=1, bias=False):
+        k = sum(ks)
+        return work(sum(sz(m, kk) for kk in ks)
+                    + outs * (sz(k, nout) + sz(2, k, e=4) + sz(m, nout))
+                    + (sz(nout, e=4) if bias else 0),
+                    2 * outs * m * k * nout)
+
+    wide = randn(m, c + g + g)
+    y, fifo, out32 = randn(m, c), wide[:, c:c + g], randn(m, g)
+    up, skip, inter_f = randn(m, c), randn(m, c), randn(m, c)
+    cases = []
+    v, w = vec(2 * c + g + g), randn(2 * c + g + g, c, scale=320 ** -0.5)
+    cases.append(("table_dot", f"up adapter K=320->128 r=64 batch {n}",
+                  empty(c), lambda f, o: f([up, skip, fifo, out32], v, w, o),
+                  dot_work((c, c, g, g), c)))
+    vi, wi = vec(2 * c), randn(2 * c, c, scale=256 ** -0.5)
+    cases.append(("table_dot", f"intermedia K=256->128 r=64 batch {n}",
+                  empty(c), lambda f, o: f([y, inter_f], vi, wi, o),
+                  dot_work((c, c), c)))
+    vh, wh = vec(c), randn(c, 72, scale=c ** -0.5)
+    for cls in (16, FACE_CLASSES):
+        cases.append(("table_dot", f"head K=128->{cls} r=64 batch {n}",
+                      empty(cls), lambda f, o: f([y], vh, wh, o),
+                      dot_work((c,), cls)))
+    vb, wb = vec(c + g), randn(c + g, cb, scale=160 ** -0.5)
+    b2 = (torch.randn(cb, generator=gen) * 0.5).to(dev)
+    cases.append(("table_dot[shift2]",
+                  f"bottleneck K=160->128 +shift2 r=64 batch {n}", empty(cb),
+                  lambda f, o: f([y, fifo], vb, wb, o, bias=b2),
+                  dot_work((c, g), cb, bias=True)))
+    va, wa = vec(c + g + g), randn(c + g + g, c, scale=192 ** -0.5)
+    vs, ws = vec(c + g + g), randn(c + g + g, c, scale=192 ** -0.5)
+    cases.append(("table_dot[dual]",
+                  f"adapter pair K=192->2x128 r=64 batch {n}", empty(2 * c),
+                  lambda f, o: f([y, fifo, out32], va, wa, o[:, :c],
+                                 vec_s=vs, w_s=ws, out_s=o[:, c:]),
+                  dot_work((c, g, g), c, outs=2)))
+    return cases
+
+
+def phase_eval_kernels(torch, eops):
+    """Phase 10 (a): the feature-table product against its plain version
+    (within the bf16 bound) at batch 8, the main-path headline, and 64."""
+    gen = torch.Generator().manual_seed(10)
+    results = {}
+    for n in (BATCH, 64):
+        for name, label, make_out, call, w in table_dot_cases(torch, gen, n):
+            check_case(torch, eops.PLAIN, results, "eval kernel",
+                       eops.table_dot, label, make_out, call, ("bf16",), w,
+                       None, name=name)
+    return results
+
+
+def phase_slot_serving(torch, ops, eops, gpu, float_ms):
+    """Phase 10 (b): CU-Net-8 @256 served with JAX's default flags
+    (``use_pallas``, ``pallas_hourglass``): every slot on #4's kernels.
+    The main path answers the three requests; it is held to the plain path
+    and to the whole-model path (#1) on the same weights, then timed at
+    batch 8 and 64 beside the whole-model path's times of this run."""
+    from cunet_tpu_torch import ModelConfig
+    from cunet_tpu_torch.models import init_cu_net
+    from cunet_tpu_torch.models.cu_net import eval_path
+    from cunet_tpu_torch.serving import Predictor
+
+    cfg = ModelConfig(layer_num=8, order=1, class_num=16, loss_num=8,
+                      compute_dtype="bfloat16", use_pallas=True)
+    require(eval_path(cfg) == "hourglass", "default flags: not the slot path")
+    params, state = init_cu_net(cfg, torch.Generator().manual_seed(0))
+    pred = Predictor(cfg, params, state, device="cuda", batch_size=BATCH,
+                     flip_test=True)
+    rng = np.random.RandomState(0)
+    requests = [rng.rand(k, 256, 256, 3).astype(np.float32)
+                for k in (8, 5, 11)]
+
+    ops.reset_launch_counts()
+    eops.reset_launch_counts()
+    answers = [(pred.heatmaps(imgs), pred.predict(imgs))
+               for imgs in requests]
+    torch.cuda.synchronize()
+    launches = {**ops.launch_counts(), **eops.launch_counts(),
+                **eops.option_counts()}
+    forwards = 2 * 2 * sum(-(-imgs.shape[0] // BATCH) for imgs in requests)
+    print(f"slot serving: launches on the main path {launches} in "
+          f"{forwards} forwards", flush=True)
+    for imgs, (hm, pts) in zip(requests, answers):
+        k = imgs.shape[0]
+        require(hm.shape == (k, 64, 64, 16), f"heatmaps shape {hm.shape}")
+        require(pts.shape == (k, 16, 2), f"landmarks shape {pts.shape}")
+        require(np.isfinite(hm).all() and np.isfinite(pts).all(),
+                "non-finite output")
+    require(launches.pop("affine_dot") == 0,
+            "the slot path launched the whole-model path's affine_dot")
+    for name, count in launches.items():
+        require(count > 0, f"kernel {name} never launched on the slot path")
+    require(launches["table_dot"] == 159 * forwards,
+            f"table_dot launches {launches['table_dot']}, expected 159 per "
+            f"forward")
+
+    want = Predictor(dataclasses.replace(cfg, use_pallas=False), params,
+                     state, device="cuda", batch_size=BATCH,
+                     flip_test=True).heatmaps(requests[0])
+    got = answers[0][0]
+    rel = _rel(got, want)
+    whole = Predictor(dataclasses.replace(cfg, pallas_whole_model=True),
+                      params, state, device="cuda", batch_size=BATCH,
+                      flip_test=True).heatmaps(requests[0])
+    same = np.array_equal(got, whole)
+    print(f"slot serving: slot path vs plain path, request of 8: relative "
+          f"L2 {rel:.4g} (bound {PATH_REL_L2}); vs the whole-model path: "
+          f"bit-identical {same} (relative L2 {_rel(got, whole):.4g})",
+          flush=True)
+    require(np.isfinite(rel) and rel <= PATH_REL_L2,
+            f"slot path disagrees with the plain path: {rel}")
+    require(same, "the slot path differs from the whole-model path")
+
+    times = {}
+    for batch in (BATCH, 64):
+        p = pred if batch == BATCH else Predictor(
+            cfg, params, state, device="cuda", batch_size=batch)
+        times[batch] = ms = time_forward(torch, p, batch)
+        w = Predictor(dataclasses.replace(cfg, pallas_whole_model=True),
+                      params, state, device="cuda", batch_size=batch)
+        whole_ms = time_forward(torch, w, batch)
+        print(f"slot serving: forward batch {batch}: {ms:.3f} ms, "
+              f"{batch / ms * 1e3:.1f} img/s (slot path); whole-model path "
+              f"{whole_ms:.3f} ms now, {float_ms[batch]:.3f} ms in phase 3 "
+              f"({gpu})", flush=True)
+    return {k: launches[k] for k in ("table_dot", "table_dot[dual]",
+                                     "table_dot[shift2]")}, forwards, times
+
+
+def phase_quant_layer_eval(torch, eops, qops, gpu):
+    """Phase 10 (c): the int8 model (W1/I8/G8, ``int8_infer``,
+    ``int8_impl="pallas"``) with ``use_pallas`` and the default flags runs
+    layer by layer: its block 1x1 convs on #10, its down blocks' adapter
+    pairs on the float dual kernel (JAX's quirk), its intermedia adapters
+    on the single form; deterministic, finite. The binarized model at
+    random init is chaotic (PERF.md), so no elementwise bound."""
+    from cunet_tpu_torch import ModelConfig, QuantConfig
+    from cunet_tpu_torch.models import apply_cu_net, init_cu_net
+    from cunet_tpu_torch.train import quant_eval_params
+
+    cfg = ModelConfig(layer_num=8, order=1, class_num=16, loss_num=8,
+                      compute_dtype="bfloat16", use_pallas=True)
+    quant = QuantConfig(bits_w=1, bits_i=8, bits_g=8, enabled=True,
+                        int8_infer=True, int8_impl="pallas")
+    params, state = init_cu_net(cfg, torch.Generator().manual_seed(0))
+    qp = quant_eval_params(params, quant)
+    x = torch.rand(BATCH, 256, 256, 3, generator=torch.Generator()
+                   .manual_seed(1)).to("cuda", torch.bfloat16)
+    eops.reset_launch_counts()
+    qops.reset_launch_counts()
+    with torch.inference_mode():
+        outs, _ = apply_cu_net(qp, state, x, cfg=cfg, quant=quant)
+        again, _ = apply_cu_net(qp, state, x, cfg=cfg, quant=quant)
+    torch.cuda.synchronize()
+    counts = {**eops.launch_counts(), **eops.option_counts(),
+              **qops.launch_counts()}
+    nb, k = cfg.num_blocks, cfg.layer_num
+    print(f"int8 eval with use_pallas (two forwards): launches {counts}",
+          flush=True)
+    require(counts["table_dot[dual]"] == 2 * nb * k,
+            "the int8 model's down-block adapter pairs did not run the dual "
+            "kernel")
+    require(counts["table_dot"] == 2 * (nb * k + k - 1),
+            f"table_dot launches {counts['table_dot']}")
+    require(counts["int8_matmul_dequant"] == 2 * k * (3 * nb + 2),
+            f"int8_matmul_dequant launches {counts['int8_matmul_dequant']}")
+    require(all(o.shape == (BATCH, 64, 64, 16) and torch.isfinite(o).all()
+                for o in outs), "int8 eval: bad output")
+    require(all(torch.equal(a, b) for a, b in zip(outs, again)),
+            "int8 eval with use_pallas is not deterministic")
+    return counts["table_dot[dual]"] // 2
+
+
+def phase_face_heads(torch, ops, eops, qops, tops, gpu):
+    """Phase 10 (d): the 68-class head (the 300-W face model) on every
+    kernel path with a head: the whole-model float and int8 paths, the
+    per-slot path and the slot train step; and (e) the bf16 limit: an f32
+    model on a kernel path raises."""
+    from cunet_tpu_torch import ModelConfig, QuantConfig
+    from cunet_tpu_torch.kernels import model_buf
+    from cunet_tpu_torch.models import apply_cu_net, init_cu_net
+    from cunet_tpu_torch.train import quant_eval_params
+
+    cfg = ModelConfig(layer_num=8, order=1, class_num=FACE_CLASSES,
+                      loss_num=8, compute_dtype="bfloat16", use_pallas=True)
+    params, state = init_cu_net(cfg, torch.Generator().manual_seed(0))
+    x = torch.rand(BATCH, 256, 256, 3, generator=torch.Generator()
+                   .manual_seed(1)).to("cuda", torch.bfloat16)
+    shape = (BATCH, 64, 64, FACE_CLASSES)
+    with torch.inference_mode():
+        plain, _ = apply_cu_net(params, state, x, cfg=dataclasses.replace(
+            cfg, use_pallas=False))
+        for label, c in (("per-slot", cfg), ("whole-model", dataclasses
+                                              .replace(cfg,
+                                                       pallas_whole_model=True))):
+            outs, _ = apply_cu_net(params, state, x, cfg=c)
+            rel = max(_rel(a.float().cpu().numpy(), b.float().cpu().numpy())
+                      for a, b in zip(outs, plain))
+            print(f"face heads: {label} path, {FACE_CLASSES} classes: "
+                  f"shapes {tuple(outs[-1].shape)}, worst anchor relative "
+                  f"L2 to the plain path {rel:.4g} (bound {PATH_REL_L2})",
+                  flush=True)
+            require(all(tuple(o.shape) == shape for o in outs) and np.isfinite(rel)
+                    and rel <= PATH_REL_L2, f"face heads: {label} path off")
+        quant = QuantConfig(bits_w=1, bits_i=8, bits_g=8, enabled=True,
+                            int8_infer=True, int8_impl="pallas")
+        qp = quant_eval_params(params, quant)
+        whole = dataclasses.replace(cfg, pallas_whole_model=True)
+        q8, _ = apply_cu_net(qp, state, x, cfg=whole, quant=quant)
+        saved = (model_buf.affine_dot_i8, model_buf.conv3x3_i8)
+        model_buf.affine_dot_i8 = qops.PLAIN[qops.affine_dot_i8]
+        model_buf.conv3x3_i8 = qops.PLAIN[qops.conv3x3_i8]
+        try:
+            q8p, _ = apply_cu_net(qp, state, x, cfg=whole, quant=quant)
+        finally:
+            model_buf.affine_dot_i8, model_buf.conv3x3_i8 = saved
+    same = all(torch.equal(a, b) for a, b in zip(q8, q8p))
+    print(f"face heads: int8 whole-model path, {FACE_CLASSES} classes: "
+          f"shapes {tuple(q8[-1].shape)}, bit-identical to its plain "
+          f"versions {same}", flush=True)
+    require(same and all(tuple(o.shape) == shape for o in q8),
+            "face heads: int8 whole-model path off")
+
+    tcfg = dataclasses.replace(cfg, remat="none", bn_tile=BN_TILE,
+                               bn_dtype="compute")
+    rng = np.random.RandomState(0)
+    xt = torch.from_numpy(rng.rand(TRAIN_BATCH, 256, 256, 3).astype(
+        np.float32)).cuda()
+    t = torch.from_numpy(gaussian_heatmaps(rng, TRAIN_BATCH, FACE_CLASSES,
+                                           64)).cuda()
+    ops.reset_launch_counts()
+    tops.reset_launch_counts()
+    lk, gk, _ = _grads(torch, tcfg, params, state, xt, t)
+    heads_launched = tops.affine_dx.launches > 0 and ops.affine_dot.launches
+    lp, gp, _ = _grads(torch, dataclasses.replace(tcfg, use_pallas=False),
+                       params, state, xt, t)
+    heads = [k for k in gk if k.startswith("heads.")]
+    hrel = _rel_l2(torch, gk, gp, heads)
+    lrel = abs(lk - lp) / abs(lp)
+    print(f"face heads: slot-kernel train step, {FACE_CLASSES} classes, "
+          f"batch {TRAIN_BATCH}: loss {lk:.6g} vs plain {lp:.6g} (rel "
+          f"{lrel:.3g}, bound {LOSS_REL}), heads.* grads rel L2 {hrel:.4g} "
+          f"(bound {HEADS_REL_L2})", flush=True)
+    require(heads_launched and lrel <= LOSS_REL and hrel <= HEADS_REL_L2
+            and gk["heads.7.conv"].shape == (1, 1, 128, FACE_CLASSES),
+            "face heads: slot-kernel train step off the plain step")
+    del gk, gp
+
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    for c in (f32, dataclasses.replace(f32, pallas_whole_model=True)):
+        try:
+            apply_cu_net(params, state, x[:1].float(), cfg=c)
+        except NotImplementedError as e:
+            require("bfloat16" in str(e), f"f32 guard message: {e}")
+        else:
+            require(False, "an f32 model ran on the CUDA kernel path")
+    print("bf16 limit: an f32 model with use_pallas raises "
+          "NotImplementedError on the card (per-slot and whole-model)",
+          flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -2017,6 +2338,7 @@ def main() -> int:
     from cunet_tpu_torch.kernels import buf_ops as ops
     from cunet_tpu_torch.kernels import build
     from cunet_tpu_torch.kernels import drop_ops as dops
+    from cunet_tpu_torch.kernels import eval_ops as eops
     from cunet_tpu_torch.kernels import quant_ops as qops
     from cunet_tpu_torch.kernels import train_bottleneck as tbk
     from cunet_tpu_torch.kernels import train_ops as tops
@@ -2052,6 +2374,11 @@ def main() -> int:
             torch, tops, ops, dops, gpu)
         tb_kernels = phase_bn0_kernels(torch, tbk)
         tb_launches = phase_bn0_training(torch, tbk, tops, ops, dops, gpu)
+        eval_kernels = phase_eval_kernels(torch, eops)
+        slot_launches, slot_forwards, slot_ms = phase_slot_serving(
+            torch, ops, eops, gpu, float_ms)
+        int8_duals = phase_quant_layer_eval(torch, eops, qops, gpu)
+        phase_face_heads(torch, ops, eops, qops, tops, gpu)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2096,6 +2423,15 @@ def main() -> int:
                         else TRAIN_SOURCE, r, quant_launches[name]))
     for name, r in tb_kernels.items():
         rows.append(row(name, TB_SOURCE, r, tb_launches[name]))
+    for name, r in eval_kernels.items():
+        extra = {"launches_per_forward":
+                 slot_launches[name] / slot_forwards,
+                 "slot_forward_ms": slot_ms}
+        if name in ALSO_REPLACES:
+            extra["also_replaces"] = ALSO_REPLACES[name]
+        if name == "table_dot[dual]":
+            extra["int8_eval_launches"] = int8_duals
+        rows.append(row(name, EVAL_SOURCE, r, slot_launches[name], **extra))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

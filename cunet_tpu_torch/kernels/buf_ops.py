@@ -63,6 +63,16 @@ def _check_vec(t: torch.Tensor, name: str, width: int) -> None:
         raise ValueError(f"{name} has {t.shape[-1]} columns, needs {width}")
 
 
+def pad_cols(w: torch.Tensor, mult: int = 8) -> torch.Tensor:
+    """``w`` with zero columns appended up to a multiple of ``mult``: every
+    kernel operand of this module moves 8-wide vectors, so a head of 68
+    classes (the 300-W face model) runs on a (C, 72) weight into a 72-wide
+    output whose first 68 columns are the heatmaps. ``w`` itself when its
+    width is a multiple already."""
+    extra = -w.shape[-1] % mult
+    return F.pad(w, (0, extra)) if extra else w
+
+
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 

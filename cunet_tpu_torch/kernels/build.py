@@ -24,7 +24,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("buf_kernels.cu", "train_kernels.cu", "quant_kernels.cu",
-           "bottleneck_kernels.cu")
+           "bottleneck_kernels.cu", "eval_kernels.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -120,6 +120,8 @@ def _declare(lib):
         "cunet_tb_apply": [P, I, L, I, P, P, P, I, P, L, P],
         "cunet_tb_bwd_reduce": [P, I, L, I, P, L, I, P, P, P, L, P, P, P],
         "cunet_tb_bwd_dx": [P, I, L, I, P, L, I, P, P, P, P, P],
+        "cunet_table_dot": [P, P, P, I, L, P, P, P, P, P, P, I, I, P, P, L,
+                            L, L, P, L, P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

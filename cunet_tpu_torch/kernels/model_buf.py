@@ -39,6 +39,7 @@ from cunet_tpu_torch.kernels.buf_ops import (
     conv3x3,
     maxpool2,
     pack_w3,
+    pad_cols,
     upsample2,
 )
 from cunet_tpu_torch.kernels.quant_ops import affine_dot_i8, conv3x3_i8
@@ -57,7 +58,9 @@ def marshal_slots(slot_args: Sequence[Dict], cfg: ModelConfig,
     matrices are rounded to int8, the intermedia matrices stay in ``dtype``
     and each block keeps BN2's full (2, Cb) [inv2; shift2] as ``vec2``.
     Each slot's ``s`` is the activation quantizer's scale 2^(bits_i-1), or
-    None for the float model: it selects ``model_buf_infer``'s mode."""
+    None for the float model: it selects ``model_buf_infer``'s mode. The
+    head weight gets zero columns up to a multiple of 8 (``pad_cols``: 68
+    classes run as 72)."""
     nb, order = cfg.num_blocks, cfg.order
     c, g = cfg.init_chan_num, cfg.growth_rate
 
@@ -110,7 +113,8 @@ def marshal_slots(slot_args: Sequence[Dict], cfg: ModelConfig,
             inter = (pad_vec(vec, ki), pad_mat(float_mat(w), ki).contiguous())
         vec, w = sa["head"]
         out.append({"inter": inter, "blocks": blocks,
-                    "head": (vec.float().contiguous(), mat(w).contiguous()),
+                    "head": (vec.float().contiguous(),
+                             pad_cols(mat(w)).contiguous()),
                     "s": s_q})
     return out
 
@@ -119,7 +123,8 @@ def model_buf_infer(y_stem: torch.Tensor, slots: Sequence[Dict],
                     cfg: ModelConfig) -> torch.Tensor:
     """Post-stem forward of all K slots. ``y_stem`` is the (N, h0, h0, c)
     stem output; returns the anchored heads stacked as
-    (N, len(cfg.anchors), h0, h0, class_num) in ``y_stem.dtype``. Slots
+    (N, len(cfg.anchors), h0, h0, class_num) in ``y_stem.dtype`` (a view
+    of the padded head width). Slots
     marshalled with ``quant_bits_i`` run the quantized model on the int8
     kernels."""
     n, h0, _, c = y_stem.shape
@@ -144,7 +149,9 @@ def model_buf_infer(y_stem: torch.Tensor, slots: Sequence[Dict],
     y2_scratch = empty(n * h0 * h0, cb,
                        dtype if s_q is None else torch.int8)
     ahead_scratch = empty(n * h0 * h0, c)    # ahead before pool / upsample
-    out = torch.empty(n, len(anchors), h0, h0, cfg.class_num, device=dev,
+    # the heads write the padded width of their weights (``pad_cols``)
+    cls_pad = slots[0]["head"][1].shape[1]
+    out = torch.empty(n, len(anchors), h0, h0, cls_pad, device=dev,
                       dtype=dtype)
     y0 = y_stem.reshape(n * h0 * h0, c)
 
@@ -227,6 +234,5 @@ def model_buf_infer(y_stem: torch.Tensor, slots: Sequence[Dict],
         if (i + 1) in anchors:
             vec, w = sl["head"]
             a = anchors.index(i + 1)
-            adapter(inter[:, :c], vec, w,
-                    out[:, a].view(n, h0 * h0, cfg.class_num))
-    return out
+            adapter(inter[:, :c], vec, w, out[:, a].view(n, h0 * h0, cls_pad))
+    return out[..., :cfg.class_num]

@@ -76,6 +76,7 @@ from cunet_tpu_torch.kernels.buf_ops import (
     conv3x3,
     maxpool2,
     pack_w3,
+    pad_cols,
     upsample2,
 )
 from cunet_tpu_torch.kernels.train_ops import (
@@ -386,9 +387,12 @@ def slot_train_fwd(meta: SlotMeta, y, inter_fifo, fifos, W):
     sh = _stats_of(y_out, tiles)
     stats.append(sh)
     bn_h, w_h = W["head"]
-    head = torch.empty(m0, w_h.shape[1], device=dev, dtype=dt)
-    affine_dot(y_out, _affine_vec(sh, bn_h, eps), w_h, head,
+    # the head runs at its padded width (68 classes as 72, ``pad_cols``)
+    w_hp = pad_cols(w_h)
+    head = torch.empty(m0, w_hp.shape[1], device=dev, dtype=dt)
+    affine_dot(y_out, _affine_vec(sh, bn_h, eps), w_hp, head,
                bits_i=meta.bits_i)
+    head = head[:, :w_h.shape[1]]
 
     if [s.shape[2] for s in stats] != stat_widths(meta):
         raise RuntimeError("slot statistics out of emission order")
@@ -523,13 +527,14 @@ def slot_train_bwd(meta: SlotMeta, saved: _Saved, W, cts):
     d_y = (torch.zeros(m0, c, device=dev, dtype=f32) if d_y_out is None
            else d_y_out.reshape(m0, c).to(f32, copy=True))
     bn_h, w_h = W["head"]
+    ncls, w_hp = w_h.shape[1], pad_cols(w_h)   # the forward's padded head
     g_bnh = torch.zeros(bn_h.shape, device=dev, dtype=f32)
-    g_wh = torch.zeros(w_h.shape, device=dev, dtype=f32)
+    g_wh = torch.zeros(w_hp.shape, device=dev, dtype=f32)
     if d_head is not None:
-        stage_bwd(y_out, s_head, bn_h, w_h,
-                  compute(d_head.reshape(m0, w_h.shape[1])), d_y, g_wh,
-                  g_bnh, True, empty(m0, c), meta.bits_i)
-    dW["head"] = (g_bnh, g_wh)
+        d_hp = pad_cols(compute(d_head.reshape(m0, ncls))).contiguous()
+        stage_bwd(y_out, s_head, bn_h, w_hp, d_hp, d_y, g_wh, g_bnh, True,
+                  empty(m0, c), meta.bits_i)
+    dW["head"] = (g_bnh, g_wh[:, :ncls])
 
     # ---- up path, neck ----
     d_ahead = compute(d_y)

@@ -12,16 +12,30 @@ checkpoint of either package maps one to one
 (:mod:`cunet_tpu_torch.tools.from_jax`). Activations are NHWC and conv
 weights HWIO, as in the JAX package.
 
-Paths, chosen by the config as in JAX:
+Paths, chosen by the config as in JAX (:func:`eval_path` names the eval
+ones):
 
 - the plain layer-by-layer forward (``use_pallas=False``), eval or train,
   a direct translation of the JAX lax path (gradients by autograd);
-- the eval kernel forward (``use_pallas=True, pallas_whole_model=True``):
-  the stem in plain PyTorch, then the whole post-stem stack over
-  channel-plane buffers through the hand-written kernels
-  (:mod:`cunet_tpu_torch.kernels.model_buf`); with an int8 ``QuantConfig``
-  (``int8_infer=True, int8_impl="pallas"``) the same buffers through the
-  int8 kernels;
+- the whole-model eval forward (``use_pallas=True,
+  pallas_whole_model=True``): the stem in plain PyTorch, then the whole
+  post-stem stack over channel-plane buffers through the hand-written
+  kernels (:mod:`cunet_tpu_torch.kernels.model_buf`); with an int8
+  ``QuantConfig`` (``int8_infer=True, int8_impl="pallas"``) the same
+  buffers through the int8 kernels;
+- the per-slot eval forward (``use_pallas=True`` and the default
+  ``pallas_hourglass=True``, unquantized): the stem in plain PyTorch, then
+  every slot through the hourglass kernels
+  (:mod:`cunet_tpu_torch.kernels.hourglass`), whose FIFO entries go back to
+  memory between slots (:func:`_fused_slot_eval_hg`);
+- the layer-by-layer eval with ``use_pallas`` otherwise
+  (``pallas_hourglass=False``, or any quantized eval outside the
+  whole-model int8 path): every bottleneck and intermedia adapter on the
+  per-bottleneck eval kernel and each down block's adapter pair on its
+  dual form (:mod:`cunet_tpu_torch.kernels.bottleneck_infer`), the 3x3
+  convs, pools, upsamples and heads plain, as in JAX. JAX's scan runs its
+  per-block kernel (``fused_block.py``, not ported) on two or more steady
+  slots with ``use_scan``; that case raises;
 - the train kernel path (``use_pallas=True, bn_tile > 0``): the stem in
   plain PyTorch, then each slot through the slot train kernels and their
   recompute backward (:mod:`cunet_tpu_torch.kernels.train_slot`);
@@ -43,12 +57,20 @@ draws no seed: the dropout masks are hashes of the slot's seed.
 The JAX ``lax.scan`` over steady-state slots and its stacked-slot storage
 exist to cut XLA compile time; here every slot runs in a plain loop.
 
+The hand-written kernels take bfloat16 only: ``use_pallas`` on a CUDA
+device with another ``compute_dtype`` raises (:func:`check_kernel_dtype`);
+on the CPU the kernels' plain versions run in any dtype.
+``conv3x3_impl="scatter"`` runs every dense layer's 3x3 conv as JAX's
+scatter form (:func:`cunet_tpu_torch.ops.layers.conv3x3_scatter`).
+
 Quantized eval (``quant``, weights from
 :func:`cunet_tpu_torch.train.quant_step.quant_eval_params`) follows the JAX
 package: the activation quantizer before every 3x3 conv and every head, and
 with ``int8_infer`` also before every block 1x1 conv, which then runs as an
 integer product (:func:`_int8_bottleneck_infer`); intermedia adapters are
-never quantized. Quantized training (weights ``quantize_params`` of the
+never quantized, and with ``use_pallas`` neither are the down blocks'
+adapter pairs, which JAX sends to its float dual kernel whatever the
+quantization (:func:`_apply_dual_adapters`). Quantized training (weights ``quantize_params`` of the
 masters, :func:`cunet_tpu_torch.train.quant_step.quant_train_step`) puts
 the quantizer at the same two points, on either train path.
 
@@ -74,7 +96,9 @@ from cunet_tpu_torch.ops import (
     batch_norm,
     bn_inference_scale_shift,
     conv2d,
+    conv3x3_scatter,
     dense_bottleneck,
+    dense_bottleneck_infer_pallas,
     dense_bottleneck_remat,
     dense_bottleneck_train_pallas,
     max_pool_2x2,
@@ -239,17 +263,21 @@ def _int8_bottleneck_infer(params, state, prefix, feats, quant: QuantConfig):
 def _apply_bottleneck(params, state, prefix, feats: Sequence[torch.Tensor],
                       *, cfg, train=False, upd=None, quant=None):
     """BN -> ReLU -> 1x1 over a virtual concat (``prefix`` is the unit), in
-    the JAX package's dispatch order: with an ``int8_infer`` quant config
-    the int8 bottleneck (eval only); in train mode with ``use_pallas`` and
-    ``bn_tile=0`` the per-bottleneck train kernel (it subsumes
-    ``remat="bottleneck"``); else with ``remat="bottleneck"`` the plain one
-    under checkpointing; else the plain one."""
+    the JAX package's dispatch order (``cu_net.py:290-312``): with an
+    ``int8_infer`` quant config the int8 bottleneck (eval only); in train
+    mode with ``use_pallas`` and ``bn_tile=0`` the per-bottleneck train
+    kernel (it subsumes ``remat="bottleneck"``); else with
+    ``remat="bottleneck"`` the plain one under checkpointing; in eval with
+    ``use_pallas`` the per-bottleneck eval kernel (float32 affine whatever
+    ``bn_dtype``); else the plain one."""
     if quant is not None and quant.int8_infer and not train:
         return _int8_bottleneck_infer(params, state, prefix, feats, quant)
     norm_p, norm_s = _bn(params, state, f"{prefix}.norm")
     p = {"norm": norm_p, "conv": params[f"{prefix}.conv"]}
     if train and cfg.use_pallas and not cfg.bn_tile:
         out, ns = dense_bottleneck_train_pallas(feats, p, norm_s)
+    elif not train and cfg.use_pallas:
+        out, ns = dense_bottleneck_infer_pallas(feats, p, norm_s)
     elif train and cfg.remat == "bottleneck":
         out, ns = dense_bottleneck_remat(feats, p, norm_s, train=True,
                                          norm_dtype=_bn_nd(cfg),
@@ -260,6 +288,33 @@ def _apply_bottleneck(params, state, prefix, feats: Sequence[torch.Tensor],
     if train:
         _patch(upd, f"{prefix}.norm", ns)
     return out
+
+
+def _apply_dual_adapters(params, state, prefix, i: int, feats, *, cfg,
+                         train=False, upd=None, quant=None):
+    """The ahead and skip adapters of down block ``prefix`` at slot ``i``
+    over the same features. In eval with ``use_pallas`` both come from one
+    launch of the dual eval kernel, float even for an ``int8_infer`` model
+    (JAX's ``_apply_dual_adapters``, ``cu_net.py:396-411``, ignores
+    ``quant`` there, while its neck and up adapters run int8); else two
+    ``_apply_bottleneck`` calls."""
+    ahead, skip = (f"{prefix}.adapters_ahead.{i}",
+                   f"{prefix}.adapters_skip.{i}")
+    if not train and cfg.use_pallas:
+        from cunet_tpu_torch.kernels.bottleneck_infer import (
+            fused_dual_bottleneck_infer,
+        )
+
+        inv_a, sh_a = bn_inference_scale_shift(
+            *_bn(params, state, f"{ahead}.norm"))
+        inv_s, sh_s = bn_inference_scale_shift(
+            *_bn(params, state, f"{skip}.norm"))
+        return fused_dual_bottleneck_infer(
+            list(feats), inv_a, sh_a, params[f"{ahead}.conv"], inv_s, sh_s,
+            params[f"{skip}.conv"])
+    kw = dict(cfg=cfg, train=train, upd=upd, quant=quant)
+    return (_apply_bottleneck(params, state, ahead, feats, **kw),
+            _apply_bottleneck(params, state, skip, feats, **kw))
 
 
 def _quantize_input(y, quant):
@@ -296,6 +351,8 @@ def _apply_dense_layer(params, state, prefix, feats, *, cfg, train=False,
                               quant=quant, **kw)
         y = _quantize_input(
             relu(_norm(params, state, f"{prefix}.norm2", b, **kw)), quant)
+        if cfg.conv3x3_impl == "scatter":
+            return conv3x3_scatter(y, params[f"{prefix}.conv2"])
         return conv2d(y, params[f"{prefix}.conv2"], stride=1, padding=1)
 
     if train and cfg.remat == "layer":
@@ -341,13 +398,12 @@ def _apply_dense_block(params, state, prefix, feats, i: int, fifo: List, *,
                              drop=drop, **kw)
     new_fifo = _fifo_push(fifo, out, i, cfg.order)
     x = x + [out]
+    if requires_skip:
+        return _apply_dual_adapters(params, state, prefix, i, x,
+                                    **kw), new_fifo
     ahead = _apply_bottleneck(params, state, f"{prefix}.adapters_ahead.{i}",
                               x, **kw)
-    skip = None
-    if requires_skip:
-        skip = _apply_bottleneck(params, state,
-                                 f"{prefix}.adapters_skip.{i}", x, **kw)
-    return (ahead, skip), new_fifo
+    return (ahead, None), new_fifo
 
 
 def _apply_hourglass(params, state, x, i: int, fifos: Dict, *, cfg,
@@ -605,6 +661,7 @@ def apply_slot_train(params, state, y, fifos, *, cfg: ModelConfig, i: int):
     against the plain path on inputs and cotangents of the caller's
     choosing."""
     _check_train_cfg(cfg, None)
+    check_kernel_dtype(cfg, y.device)
     if fused_train_ok(cfg):
         return _fused_slot_train(params, state, y, fifos, cfg=cfg, i=i)
     upd: Dict[str, torch.Tensor] = {}
@@ -626,33 +683,54 @@ def _active(quant: Optional[QuantConfig]) -> Optional[QuantConfig]:
     return quant if quant is not None and quant.enabled else None
 
 
-def whole_model_eval(cfg: ModelConfig, quant=None) -> bool:
-    """Whether an eval forward runs the whole-model kernels: float with no
-    quant config, int8 with ``int8_infer`` and ``int8_impl="pallas"``
-    (``cunet_tpu/models/cu_net.py::apply_cu_net``'s dispatch). Every other
-    enabled quant config runs the plain path, with ``use_pallas=False``
-    (with ``use_pallas`` it raises: JAX runs it on unported kernels)."""
+def eval_path(cfg: ModelConfig, quant=None) -> str:
+    """The eval forward's path, chosen as ``cunet_tpu/models/cu_net.py::
+    apply_cu_net`` chooses it (:1478-1528): ``"whole_model"`` (#1, float
+    with no quant config, int8 with ``int8_infer`` and
+    ``int8_impl="pallas"``), ``"hourglass"`` (#4 for every slot,
+    unquantized, the default flags), else ``"layers"`` (layer by layer;
+    with ``use_pallas`` every bottleneck on #6)."""
     quant = _active(quant)
-    return cfg.use_pallas and (quant is None or (
-        quant.int8_infer and quant.int8_impl == "pallas"))
+    if not cfg.use_pallas:
+        return "layers"
+    if cfg.pallas_whole_model and (quant is None or (
+            quant.int8_infer and quant.int8_impl == "pallas")):
+        return "whole_model"
+    if cfg.pallas_hourglass and quant is None:
+        return "hourglass"
+    return "layers"
 
 
-def _check_eval_quant(cfg: ModelConfig, quant: QuantConfig) -> None:
-    if cfg.use_pallas and not (cfg.pallas_whole_model and quant.int8_infer
-                               and quant.int8_impl == "pallas"):
+def check_kernel_dtype(cfg: ModelConfig, device) -> None:
+    """Raise ``NotImplementedError`` where ``cfg`` would run a CUDA kernel
+    path (``use_pallas`` on a CUDA ``device``, train or eval) with a
+    ``compute_dtype`` other than bfloat16: every hand-written kernel takes
+    bf16 operands only. On the CPU the kernels' plain versions run in any
+    dtype."""
+    if cfg.use_pallas and torch.device(device).type == "cuda" \
+            and cfg.compute_dtype != "bfloat16":
         raise NotImplementedError(
-            "a quantized eval with use_pallas runs the whole-model int8 "
-            "kernels only with pallas_whole_model=True, int8_infer and "
-            "int8_impl='pallas'; elsewhere the JAX package sends the "
-            "bottlenecks through its per-bottleneck eval kernels "
-            "(fused_bottleneck.py, TPU kernel #6, not ported yet); use "
-            "use_pallas=False")
+            f"the CUDA kernels take bfloat16 only: use_pallas on {device} "
+            f"needs compute_dtype='bfloat16', got {cfg.compute_dtype!r} "
+            f"(use_pallas=False runs it on the plain path)")
+
+
+def _check_scan_eval(cfg: ModelConfig) -> None:
+    """JAX runs two or more steady slots under ``use_scan`` with
+    ``pallas_hourglass=False`` on its per-block eval kernel, which is not
+    ported."""
+    if cfg.use_scan and cfg.layer_num - max(cfg.order, 1) >= 2:
+        raise NotImplementedError(
+            "use_pallas with pallas_hourglass=False and use_scan runs the "
+            "steady slots on the per-block eval kernel (fused_block.py::"
+            "fused_dense_block_infer, TPU kernel #5), which is not ported; "
+            "use pallas_hourglass=True or use_scan=False")
 
 
 def eval_slots(params, state, cfg: ModelConfig, quant=None):
-    """Kernel operands of the whole-model eval forward (BN folded, padded,
-    int8 matrices for an int8 ``quant``), built once and reused across
-    calls through ``apply_cu_net(..., slots=)``."""
+    """Kernel operands of the whole-model and per-slot eval forwards (BN
+    folded, padded, int8 matrices for an int8 ``quant``), built once and
+    reused across calls through ``apply_cu_net(..., slots=)``."""
     from cunet_tpu_torch.kernels.model_buf import marshal_slots
 
     quant = _active(quant)
@@ -660,6 +738,46 @@ def eval_slots(params, state, cfg: ModelConfig, quant=None):
         slot_args(params, state, cfg, fold=quant is None), cfg,
         dtype=getattr(torch, cfg.compute_dtype),
         quant_bits_i=quant.bits_i if quant is not None else 0)
+
+
+def _fused_slot_eval_hg(y, fifos, slot, *, cfg: ModelConfig, i: int):
+    """Slot ``i`` on the per-slot eval kernels (``slot`` is its entry of
+    :func:`eval_slots`), with the FIFO bookkeeping of JAX's
+    ``_fused_slot_eval_hg`` (``cu_net.py:936-1000``): slot 0 has no
+    intermedia adapter and seeds the intermedia FIFO with its input; growth
+    slots (i < order) append their outputs, steady slots pop the oldest and
+    push; ``order=0`` keeps no FIFO and emits no layer outputs. Returns
+    (y_out, new_fifos, head)."""
+    from cunet_tpu_torch.kernels.hourglass import fused_hourglass_infer
+
+    nb, order = cfg.num_blocks, cfg.order
+    has_inter = i > 0
+    emit = order > 0
+    block_fifos = ([fifos["down"][j] for j in range(nb)] + [fifos["neck"]]
+                   + [fifos["up"][j] for j in reversed(range(nb))])
+    inter_vec, inter_w = slot["inter"] if has_inter else (None, None)
+    vec_h, w_h = slot["head"]
+    outs = fused_hourglass_infer(
+        y, fifos["intermedia"] if has_inter else [], inter_vec, inter_w,
+        block_fifos, slot["blocks"], vec_h, w_h[:, :cfg.class_num],
+        num_blocks=nb, n_fifo=min(i, order), emit_layer_out=emit)
+    y_out, hm = outs[0], outs[1]
+    if not emit:
+        return y_out, fifos, hm
+
+    def push(fifo, out):
+        return list(fifo) + [out] if i < order else list(fifo[1:]) + [out]
+
+    if has_inter:
+        new_inter, louts = push(fifos["intermedia"], outs[2]), outs[3:]
+    else:
+        new_inter, louts = list(fifos["intermedia"]) + [y], outs[2:]
+    return y_out, {
+        "intermedia": new_inter,
+        "down": [push(fifos["down"][j], louts[j]) for j in range(nb)],
+        "neck": push(fifos["neck"], louts[nb]),
+        "up": [push(fifos["up"][j], louts[2 * nb - j]) for j in range(nb)],
+    }, hm
 
 
 def _check_train_cfg(cfg: ModelConfig, drop_seeds) -> None:
@@ -690,16 +808,17 @@ def apply_cu_net(params, state, x: torch.Tensor, *, cfg: ModelConfig,
         (:mod:`cunet_tpu_torch.kernels.train_bottleneck`); ``cfg.remat``
         checkpoints the layer-by-layer paths.
       slots: eval kernel-path weights from :func:`eval_slots` (for the
-        same ``quant``), reused across calls; built from ``params`` /
-        ``state`` when None.
+        same ``quant``), reused across calls by the whole-model and
+        per-slot eval paths; built from ``params`` / ``state`` when None.
       quant: an enabled ``QuantConfig`` runs the quantized model
         (``params`` from ``quant_eval_params`` in eval, ``quantize_params``
         of the masters in train): activation quantizers before every 3x3
         conv and head (in train on either path, in the slot kernels with
         ``use_pallas``), and in eval with ``int8_infer`` int8 block 1x1
-        convs, on the int8 kernels when :func:`whole_model_eval`, else on
-        the plain path (``use_pallas=False``). Other eval quant configs
-        with ``use_pallas`` are not ported and raise.
+        convs, on the whole-model int8 kernels with ``pallas_whole_model``
+        and ``int8_impl="pallas"``, else layer by layer (with
+        ``use_pallas`` the float bottlenecks and adapter pairs on the
+        per-bottleneck eval kernels).
       drop_seeds: with ``cfg.drop_rate > 0`` in train mode, one int32
         dropout seed per slot (``ops.dropmask.draw_slot_seeds``); ignored
         in eval.
@@ -707,12 +826,20 @@ def apply_cu_net(params, state, x: torch.Tensor, *, cfg: ModelConfig,
       (list of (N, H/4, W/4, class_num) heatmaps, one per loss anchor in
       U-Net order, state) -- the state is unchanged in eval, and in train
       a new dict with every BN's updated running statistics.
+
+    Raises ``NotImplementedError`` for ``use_pallas`` on a CUDA tensor with
+    another dtype than bfloat16 (:func:`check_kernel_dtype`), and for the
+    eval that JAX runs on its unported per-block kernel (#5:
+    ``pallas_hourglass=False`` with ``use_scan`` and two or more steady
+    slots, unquantized).
     """
     quant = _active(quant)
+    check_kernel_dtype(cfg, x.device)
+    path = None if train else eval_path(cfg, quant)
     if train:
         _check_train_cfg(cfg, drop_seeds)
-    elif quant is not None:
-        _check_eval_quant(cfg, quant)
+    elif path == "layers" and cfg.use_pallas and quant is None:
+        _check_scan_eval(cfg)
     x = x.to(getattr(torch, cfg.compute_dtype))
     upd: Dict[str, torch.Tensor] = {}
     kw = dict(cfg=cfg, train=train, upd=upd)
@@ -732,17 +859,20 @@ def apply_cu_net(params, state, x: torch.Tensor, *, cfg: ModelConfig,
                 outs.append(hm)
         return outs, {**state, **upd}
 
-    if not train and whole_model_eval(cfg, quant):
-        if not cfg.pallas_whole_model:
-            raise NotImplementedError(
-                "the per-slot and per-block kernels (pallas_whole_model="
-                "False) are not ported; use pallas_whole_model=True")
+    if path in ("whole_model", "hourglass") and slots is None:
+        slots = eval_slots(params, state, cfg, quant)
+    if path == "whole_model":
         from cunet_tpu_torch.kernels.model_buf import model_buf_infer
 
-        if slots is None:
-            slots = eval_slots(params, state, cfg, quant)
         out = model_buf_infer(y, slots, cfg)
         return [out[:, k] for k in range(out.shape[1])], state
+    if path == "hourglass":
+        for i in range(cfg.layer_num):
+            y, fifos, hm = _fused_slot_eval_hg(y, fifos, slots[i], cfg=cfg,
+                                               i=i)
+            if (i + 1) in cfg.anchors:
+                outs.append(hm)
+        return outs, state
 
     for i in range(cfg.layer_num):
         def slot(y, fifos, upd, i=i):

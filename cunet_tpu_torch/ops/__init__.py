@@ -3,6 +3,7 @@
 
 from cunet_tpu_torch.ops.bottleneck import (
     dense_bottleneck,
+    dense_bottleneck_infer_pallas,
     dense_bottleneck_remat,
     dense_bottleneck_train_pallas,
 )
@@ -11,6 +12,7 @@ from cunet_tpu_torch.ops.layers import (
     batch_norm,
     bn_inference_scale_shift,
     conv2d,
+    conv3x3_scatter,
     max_pool_2x2,
     relu,
     upsample_nearest_2x,
@@ -21,7 +23,9 @@ __all__ = [
     "batch_norm",
     "bn_inference_scale_shift",
     "conv2d",
+    "conv3x3_scatter",
     "dense_bottleneck",
+    "dense_bottleneck_infer_pallas",
     "dense_bottleneck_remat",
     "dense_bottleneck_train_pallas",
     "max_pool_2x2",

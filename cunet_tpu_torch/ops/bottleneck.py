@@ -10,7 +10,9 @@ contiguous channel slices of their buffers
 (:mod:`cunet_tpu_torch.kernels.buf_ops`, :mod:`cunet_tpu_torch.kernels.train_ops`).
 Two train-mode forms sit beside it: ``dense_bottleneck_train_pallas`` (the
 per-bottleneck train kernel, whole-batch statistics) and
-``dense_bottleneck_remat`` (this one under activation checkpointing).
+``dense_bottleneck_remat`` (this one under activation checkpointing); and
+one eval form, ``dense_bottleneck_infer_pallas`` (the per-bottleneck eval
+kernel).
 """
 
 from __future__ import annotations
@@ -89,6 +91,22 @@ def dense_bottleneck(features: Sequence[torch.Tensor], params: dict,
         acc = part if acc is None else acc + part
         off += c
     return acc.reshape(n, h, wd, -1).to(dtype), new_state
+
+
+def dense_bottleneck_infer_pallas(features: Sequence[torch.Tensor],
+                                  params: dict, state: dict
+                                  ) -> Tuple[torch.Tensor, dict]:
+    """Eval mode through the per-bottleneck eval kernel
+    (:func:`cunet_tpu_torch.kernels.bottleneck_infer.fused_bottleneck_infer`):
+    the running statistics folded into float32 (inv, shift), whatever the
+    model's ``bn_dtype`` (``cunet_tpu/ops/bottleneck.py:130-140``); returns
+    ``(out, state)``."""
+    from cunet_tpu_torch.kernels.bottleneck_infer import fused_bottleneck_infer
+    from cunet_tpu_torch.ops.layers import bn_inference_scale_shift
+
+    inv, shift = bn_inference_scale_shift(params["norm"], state)
+    return fused_bottleneck_infer(list(features), inv, shift,
+                                  params["conv"]), state
 
 
 def dense_bottleneck_train_pallas(features: Sequence[torch.Tensor],

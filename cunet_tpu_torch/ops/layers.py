@@ -33,6 +33,29 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     return y.permute(0, 2, 3, 1)
 
 
+def conv3x3_scatter(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """3x3 SAME conv as one wide product and nine shifted adds
+    (``cunet_tpu/ops/layers.py::conv3x3_scatter``, ``conv3x3_impl=
+    "scatter"``). ``t = x @ W'`` with ``W'`` (Cin, 9*Cout) tap-major gives
+    every tap's partial, rounded once to x's dtype (float32 accumulation);
+    each output then sums its nine spatially shifted tap slices in x's
+    dtype, one rounding per add, as the JAX form does (its product has no
+    ``preferred_element_type``). At float32 this equals ``conv2d``; at bf16
+    it rounds elsewhere. NHWC input, HWIO weight; differentiable."""
+    n, h, wd, cin = x.shape
+    cout = w.shape[-1]
+    w_sc = w.permute(2, 0, 1, 3).reshape(cin, 9 * cout).to(x.dtype)
+    t = (x.reshape(-1, cin).float() @ w_sc.float()).to(x.dtype)
+    tp = F.pad(t.reshape(n, h, wd, 9 * cout), (0, 0, 1, 1, 1, 1))
+    acc = None
+    for dy in range(3):
+        for dx in range(3):
+            d = dy * 3 + dx
+            sl = tp[:, dy:dy + h, dx:dx + wd, d * cout:(d + 1) * cout]
+            acc = sl if acc is None else acc + sl
+    return acc
+
+
 def bn_inference_scale_shift(params: dict, state: dict, *,
                              eps: float = BN_EPS):
     """Fold an eval BN into per-channel float32 (inv, shift).

@@ -4,12 +4,15 @@ Counterpart of ``cunet_tpu/serving.py``. The predictor runs the eval forward
 at a fixed batch size (ragged requests are padded to it, so every call has
 the same shapes), optionally mirror-ensembles with the flip test, and
 decodes heatmaps to landmark coordinates with the reference-exact
-quarter-pixel decode. With ``cfg.use_pallas`` and
-``cfg.pallas_whole_model`` the forward runs the hand-written kernels; the
-folded kernel weights are marshalled once, here, not per request. With an
-int8 ``quant`` config (``int8_infer=True``) and weights from
-``quant_eval_params`` it serves the quantized model, on the int8 kernels
-when ``int8_impl="pallas"``.
+quarter-pixel decode. With ``cfg.use_pallas`` (bf16) the forward runs the
+hand-written kernels: with the default flags every slot on the per-slot
+hourglass kernels, as JAX's ``Predictor`` runs them, and with
+``cfg.pallas_whole_model`` the whole-model eval kernels; the folded kernel
+weights of either are marshalled once, here, not per request. With an int8
+``quant`` config (``int8_infer=True``) and weights from
+``quant_eval_params`` it serves the quantized model, on the whole-model
+int8 kernels with ``pallas_whole_model`` and ``int8_impl="pallas"``, else
+layer by layer (with ``use_pallas`` on the per-bottleneck eval kernels).
 """
 
 from __future__ import annotations
@@ -23,15 +26,20 @@ from cunet_tpu_torch.config import ModelConfig
 from cunet_tpu_torch.geometry import MPII_FLIP_PAIRS, flip_test_merge
 from cunet_tpu_torch.evaluation import final_preds
 from cunet_tpu_torch.models import apply_cu_net, init_cu_net
-from cunet_tpu_torch.models.cu_net import eval_slots, whole_model_eval
+from cunet_tpu_torch.models.cu_net import (
+    check_kernel_dtype,
+    eval_path,
+    eval_slots,
+)
 
 
 class Predictor:
     """Landmark predictor.
 
     Args:
-      cfg: model architecture (bf16 + use_pallas + pallas_whole_model for
-        the kernel path on the card).
+      cfg: model architecture (bf16 + use_pallas for the kernel paths on
+        the card: per slot with the default flags, the whole model with
+        ``pallas_whole_model``).
       params/bn_state: flat tensor dicts (``cunet_tpu_torch.models``
         layout); default = random init from ``seed``.
       device: where the forward runs, e.g. ``"cuda"`` or ``"cpu"``.
@@ -58,6 +66,7 @@ class Predictor:
         self.cfg = cfg
         self.quant = quant
         self.device = torch.device(device)
+        check_kernel_dtype(cfg, self.device)
         self.batch_size = batch_size
         self.flip_test = flip_test
         self.flip_pairs = flip_pairs
@@ -68,7 +77,7 @@ class Predictor:
         self.bn_state = {k: v.to(self.device) for k, v in bn_state.items()}
         self.dtype = getattr(torch, cfg.compute_dtype)
         self._slots = None
-        if whole_model_eval(cfg, quant):
+        if eval_path(cfg, quant) in ("whole_model", "hourglass"):
             self._slots = eval_slots(self.params, self.bn_state, cfg, quant)
 
     @classmethod

@@ -1,22 +1,29 @@
 """Device-time breakdown of the CU-Net-8 @256 eval forward on one GPU.
 
     python -m cunet_tpu_torch.tools.profile_forward [--batch 8 64] [--int8]
+        [--path whole_model|hourglass|layers]
         [--out chiprun_out/profile_forward.json]
 
 For each batch size: the forward (kernel path, bf16, random weights from
 seed 0; with ``--int8`` the quantized W1/I8/G8 model of ``bench.py``'s int8
-configuration, weights ``quant_eval_params`` of the same init, on the int8
-kernels) is warmed up, then ``--iters`` forwards run under
+configuration, weights ``quant_eval_params`` of the same init) is warmed
+up, then ``--iters`` forwards run under
 ``torch.profiler``. Prints the host wall time per forward, the device time
 summed by kernel name (the card runs one stream, so kernels do not
-overlap), and the device's busy and idle shares of the window. Needs a CUDA
-device; there is no CPU fallback.
+overlap), and the device's busy and idle shares of the window. ``--path``
+picks the eval path by its flags: ``whole_model`` (``pallas_whole_model``,
+the whole-model kernels, float or int8), ``hourglass`` (JAX's default
+flags: every slot on the per-slot kernels; an int8 model runs layer by
+layer there) or ``layers`` (``pallas_hourglass=False, use_scan=False``:
+the per-bottleneck kernels). Needs a CUDA device; there is no CPU
+fallback.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import json
 import subprocess
 import time
@@ -27,12 +34,19 @@ from torch.profiler import ProfilerActivity, profile
 
 from cunet_tpu_torch.config import ModelConfig, QuantConfig
 from cunet_tpu_torch.models import init_cu_net
+from cunet_tpu_torch.models.cu_net import eval_path
 from cunet_tpu_torch.serving import Predictor
 from cunet_tpu_torch.train.quant_step import quant_eval_params
 
 FLAGSHIP = ModelConfig(layer_num=8, order=1, class_num=16, loss_num=8,
                        compute_dtype="bfloat16", use_pallas=True,
                        pallas_whole_model=True)
+PATHS = {
+    "whole_model": FLAGSHIP,
+    "hourglass": dataclasses.replace(FLAGSHIP, pallas_whole_model=False),
+    "layers": dataclasses.replace(FLAGSHIP, pallas_whole_model=False,
+                                  pallas_hourglass=False, use_scan=False),
+}
 INT8 = QuantConfig(bits_w=1, bits_i=8, bits_g=8, enabled=True,
                    int8_infer=True, int8_impl="pallas")
 
@@ -93,27 +107,30 @@ def main(argv=None) -> int:
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--int8", action="store_true",
                     help="the quantized model on the int8 kernels")
+    ap.add_argument("--path", choices=sorted(PATHS), default="whole_model",
+                    help="the eval path, chosen by its config flags")
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_forward: no CUDA device")
     gpu = gpu_name()
-    params, state = init_cu_net(FLAGSHIP, torch.Generator().manual_seed(0))
+    cfg = PATHS[args.path]
+    params, state = init_cu_net(cfg, torch.Generator().manual_seed(0))
     quant = INT8 if args.int8 else None
     if quant is not None:
         params = quant_eval_params(params, quant)
     report = {"gpu": gpu, "torch": torch.__version__, "int8": args.int8,
-              "runs": []}
+              "path": eval_path(cfg, quant), "runs": []}
     for batch in args.batch:
-        pred = Predictor(FLAGSHIP, params, state, device="cuda",
+        pred = Predictor(cfg, params, state, device="cuda",
                          batch_size=batch, quant=quant)
         x = torch.rand(batch, 256, 256, 3, generator=torch.Generator()
                        .manual_seed(1)).to("cuda", pred.dtype)
         r = dict(batch=batch, **profile_window(lambda: pred.forward(x),
                                                args.iters))
         report["runs"].append(r)
-        print_report(f"{'int8 ' if args.int8 else ''}forward batch {batch} "
-                     f"({gpu})", r)
+        print_report(f"{'int8 ' if args.int8 else ''}forward, "
+                     f"{report['path']} path, batch {batch} ({gpu})", r)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(report, f, indent=1)

@@ -787,3 +787,258 @@ def test_bn_tile0_dropout_runs_the_mask_kernel(gen):
         torch.backends.cudnn.deterministic = False
     assert lk == lp
     assert all(torch.equal(gk[k], gp[k]) for k in gk)
+
+
+# ---------------------------------------------------------------------------
+# the eval feature-table kernel: per-bottleneck (#6) and per-slot (#4)
+# eval, and the face head and bf16 limit on every kernel path
+# ---------------------------------------------------------------------------
+
+from cunet_tpu_torch.kernels import bottleneck_infer, eval_ops  # noqa: E402
+from cunet_tpu_torch.models.cu_net import (  # noqa: E402
+    _fused_slot_eval_hg,
+    empty_fifos,
+    eval_slots,
+)
+
+SMALL = dict(neck_size=2, growth_rate=8, init_chan_num=16, num_blocks=2,
+             compute_dtype="bfloat16", use_pallas=True)
+
+
+@pytest.mark.parametrize("widths,m,n", [((16, 8, 8), 300, 16),
+                                        ((32,), 128, 68),
+                                        ((16, 16, 8, 8), 2 * 8 * 8, 136)])
+@pytest.mark.parametrize("mode", ["single", "shift2", "dual"])
+def test_table_dot(gen, widths, m, n, mode):
+    """Separate features (the first a strided view of a wider buffer, as
+    a FIFO slice is), any row count, N tails (68), a column prefix of a
+    wider weight; each output view written and nothing around it."""
+    wide = _bf16(gen, m, widths[0] + 24)
+    feats = [wide[:, 8:8 + widths[0]]] + [_bf16(gen, m, c)
+                                          for c in widths[1:]]
+    k = sum(widths)
+    v, vs = _vec(gen, k + 8), _vec(gen, k + 8)
+    w = _bf16(gen, k + 8, n + 8) * k ** -0.5
+    ws = _bf16(gen, k + 8, n + 8) * k ** -0.5
+    kw = {}
+    if mode == "shift2":
+        kw["bias"] = (torch.randn(n, generator=gen) * 0.5).cuda()
+    dst = _bf16(gen, m, n + 16)
+    dst_s = _bf16(gen, m, n + 8)
+    got, want = dst.clone(), dst.clone()
+    got_s, want_s = dst_s.clone(), dst_s.clone()
+    if mode == "dual":
+        kw_k = dict(vec_s=vs, w_s=ws, out_s=got_s[:, :n])
+        kw_p = dict(vec_s=vs, w_s=ws, out_s=want_s[:, :n])
+    else:
+        kw_k = kw_p = kw
+    eval_ops.reset_launch_counts()
+    eval_ops.table_dot(feats, v, w, got[:, 8:8 + n], **kw_k)
+    eval_ops.table_dot_plain(feats, v, w, want[:, 8:8 + n], **kw_p)
+    torch.cuda.synchronize()
+    assert eval_ops.table_dot.launches == 1
+    assert eval_ops.option_counts() == {
+        "table_dot[dual]": int(mode == "dual"),
+        "table_dot[shift2]": int(mode == "shift2")}
+    _close(got[:, 8:8 + n], want[:, 8:8 + n])
+    got[:, 8:8 + n].copy_(dst[:, 8:8 + n])
+    assert torch.equal(got, dst)
+    if mode == "dual":
+        _close(got_s[:, :n], want_s[:, :n])
+        assert torch.equal(got_s[:, n:], dst_s[:, n:])
+
+
+def test_table_dot_raises_on_what_the_kernel_does_not_take(gen):
+    x, v = _bf16(gen, 64, 16), _vec(gen, 16)
+    w, out = _bf16(gen, 16, 8), _bf16(gen, 64, 8)
+    with pytest.raises(TypeError):
+        eval_ops.table_dot([x.float()], v, w, out)
+    with pytest.raises(ValueError):          # a group width off 8
+        eval_ops.table_dot([x[:, :12]], v, w, out)
+    with pytest.raises(ValueError):          # vec not float32
+        eval_ops.table_dot([x], v.bfloat16(), w, out)
+    with pytest.raises(ValueError):          # a CPU output
+        eval_ops.table_dot([x], v, w, out.cpu())
+
+
+def test_bottleneck_infer_kernels_match_plain(gen):
+    feats = [_bf16(gen, 3, 5, 5, c) for c in (16, 8, 8)]   # M = 75
+    inv, shift = _vec(gen, 32)
+    w_a, w_s = (torch.randn(1, 1, 32, 16, generator=gen).cuda() * 0.2
+                for _ in range(2))
+    inv_s, sh_s = _vec(gen, 32)
+    eval_ops.reset_launch_counts()
+    one = bottleneck_infer.fused_bottleneck_infer(feats, inv, shift, w_a)
+    two = bottleneck_infer.fused_dual_bottleneck_infer(
+        feats, inv, shift, w_a, inv_s, sh_s, w_s)
+    assert eval_ops.table_dot.launches == 2
+    assert eval_ops.table_dot.dual_launches == 1
+    cpu = [f.cpu() for f in feats]
+    _close(one, bottleneck_infer.fused_bottleneck_infer(
+        cpu, inv.cpu(), shift.cpu(), w_a.cpu()).cuda())
+    assert torch.equal(two[0], one)
+    _close(two[1], bottleneck_infer.fused_bottleneck_infer(
+        cpu, inv_s.cpu(), sh_s.cpu(), w_s.cpu()).cuda())
+
+
+def _rel(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+@pytest.mark.parametrize("order", [1, 2])
+def test_slot_kernels_match_plain_and_count_launches(gen, order):
+    """One steady slot on the card against the same slot on the CPU (the
+    plain versions): its ~37 launches by kind, and every output."""
+    cfg = ModelConfig(layer_num=4, order=order, loss_num=2, class_num=8,
+                      **SMALL)
+    params, state = init_cu_net(cfg, gen, device="cuda")
+    slot = eval_slots(params, state, cfg)[3]
+    n, h0, nb = 2, 16, cfg.num_blocks
+    y = _bf16(gen, n, h0, h0, 16)
+    fifos = empty_fifos(cfg)
+    fifos["intermedia"] = [_bf16(gen, n, h0, h0, 16) for _ in range(order)]
+    for key, res in (("down", [h0 >> j for j in range(nb)]),
+                     ("up", [h0 >> j for j in range(nb)])):
+        fifos[key] = [[_bf16(gen, n, r, r, 8) for _ in range(order)]
+                      for r in res]
+    fifos["neck"] = [_bf16(gen, n, h0 >> nb, h0 >> nb, 8)
+                     for _ in range(order)]
+    eval_ops.reset_launch_counts()
+    buf_ops.reset_launch_counts()
+    got = _fused_slot_eval_hg(y, fifos, slot, cfg=cfg, i=3)
+    torch.cuda.synchronize()
+    npos = 2 * nb + 1
+    assert eval_ops.table_dot.launches == 1 + 2 * npos + 1
+    assert eval_ops.option_counts() == {"table_dot[dual]": nb,
+                                        "table_dot[shift2]": npos}
+    assert buf_ops.launch_counts() == {"affine_dot": 0, "conv3x3": npos,
+                                       "maxpool2": nb, "upsample2": nb}
+    to_cpu = lambda t: t.cpu()  # noqa: E731
+    cpu_slot = {"inter": tuple(map(to_cpu, slot["inter"])),
+                "head": tuple(map(to_cpu, slot["head"])),
+                "blocks": [{k: to_cpu(v) for k, v in b.items()}
+                           for b in slot["blocks"]]}
+    cpu_fifos = {k: [[to_cpu(t) for t in e] for e in v] if k in ("down", "up")
+                 else [to_cpu(t) for t in v] for k, v in fifos.items()}
+    want = _fused_slot_eval_hg(y.cpu(), cpu_fifos, cpu_slot, cfg=cfg, i=3)
+    assert _rel(got[0], want[0].cuda()) <= 3e-2
+    assert _rel(got[2], want[2].cuda()) <= 3e-2
+    for a, b in zip(got[1]["down"] + got[1]["up"],
+                    want[1]["down"] + want[1]["up"]):
+        assert _rel(a[-1], b[-1].cuda()) <= 3e-2
+
+
+@pytest.mark.parametrize("order", [0, 1, 2])
+def test_slot_path_forward_matches_plain_and_whole_model(gen, order):
+    """The default flags run every slot on #4's kernels: against the plain
+    path, and against the whole-model path (#1) on the same slots, whose
+    1x1 products walk the same reduction in the same order."""
+    cfg = ModelConfig(layer_num=4, order=order, loss_num=2, class_num=8,
+                      **SMALL)
+    params, state = init_cu_net(cfg, gen, device="cuda")
+    x = torch.rand(3, 64, 64, 3, generator=gen).cuda()
+    slots = eval_slots(params, state, cfg)
+    eval_ops.reset_launch_counts()
+    buf_ops.reset_launch_counts()
+    per_slot, _ = apply_cu_net(params, state, x, cfg=cfg, slots=slots)
+    assert eval_ops.table_dot.launches > 0
+    counts = buf_ops.launch_counts()
+    assert counts.pop("affine_dot") == 0 and all(counts.values())
+    whole, _ = apply_cu_net(params, state, x, slots=slots,
+                            cfg=dataclasses.replace(cfg,
+                                                    pallas_whole_model=True))
+    plain, _ = apply_cu_net(params, state, x, cfg=dataclasses.replace(
+        cfg, use_pallas=False))
+    for a, b, p in zip(per_slot, whole, plain):
+        assert torch.equal(a, b)
+        assert _rel(a, p) <= 3e-2
+
+
+def test_layer_eval_runs_the_bottleneck_kernels(gen):
+    cfg = ModelConfig(layer_num=3, order=1, loss_num=3, class_num=8,
+                      pallas_hourglass=False, use_scan=False, **SMALL)
+    params, state = init_cu_net(cfg, gen, device="cuda")
+    x = torch.rand(2, 64, 64, 3, generator=gen).cuda()
+    eval_ops.reset_launch_counts()
+    buf_ops.reset_launch_counts()
+    got, _ = apply_cu_net(params, state, x, cfg=cfg)
+    nb, k = cfg.num_blocks, cfg.layer_num
+    # per slot: 2nb+1 bottlenecks, nb dual adapter pairs, nb+1 single
+    # adapters; the intermedia adapters of slots 1..K-1
+    assert eval_ops.table_dot.launches == k * (2 * (2 * nb + 1)) + k - 1
+    assert eval_ops.table_dot.dual_launches == nb * k
+    assert not any(buf_ops.launch_counts().values())
+    plain, _ = apply_cu_net(params, state, x, cfg=dataclasses.replace(
+        cfg, use_pallas=False))
+    for a, b in zip(got, plain):
+        assert _rel(a, b) <= 3e-2
+
+
+def test_int8_eval_runs_dual_and_int8_kernels(gen):
+    """``int8_infer`` with ``use_pallas`` but not the whole-model path:
+    the block 1x1 convs on #10, the down blocks' adapter pairs on the float
+    dual kernel, the intermedia adapters on the single form."""
+    cfg = ModelConfig(layer_num=3, order=1, loss_num=3, class_num=8,
+                      **SMALL)
+    params, state = init_cu_net(cfg, gen, device="cuda")
+    params = quant_eval_params(params, INT8)
+    x = torch.rand(2, 64, 64, 3, generator=gen).cuda()
+    eval_ops.reset_launch_counts()
+    quant_ops.reset_launch_counts()
+    got, _ = apply_cu_net(params, state, x, cfg=cfg, quant=INT8)
+    nb, k = cfg.num_blocks, cfg.layer_num
+    assert eval_ops.table_dot.dual_launches == nb * k
+    assert eval_ops.table_dot.launches == nb * k + k - 1
+    # bottlenecks (2nb+1) and neck / up adapters (nb+1) per slot on #10
+    assert quant_ops.int8_matmul_dequant.launches == k * (3 * nb + 2)
+    again, _ = apply_cu_net(params, state, x, cfg=cfg, quant=INT8)
+    for a, b in zip(got, again):
+        assert torch.isfinite(a.float()).all() and torch.equal(a, b)
+
+
+def test_face_head_on_every_kernel_path(gen):
+    """68 classes (the 300-W model): the whole-model float and int8 paths,
+    the per-slot path and a slot-kernel train step run, each head 68 wide
+    and the float paths near the plain path."""
+    cfg = ModelConfig(layer_num=3, order=1, loss_num=3, class_num=68,
+                      **SMALL)
+    params, state = init_cu_net(cfg, gen, device="cuda")
+    x = torch.rand(2, 64, 64, 3, generator=gen).cuda()
+    plain, _ = apply_cu_net(params, state, x, cfg=dataclasses.replace(
+        cfg, use_pallas=False))
+    for c in (cfg, dataclasses.replace(cfg, pallas_whole_model=True)):
+        got, _ = apply_cu_net(params, state, x, cfg=c)
+        for a, b in zip(got, plain):
+            assert a.shape == (2, 16, 16, 68) and _rel(a, b) <= 3e-2
+    qp = quant_eval_params(params, INT8)
+    quant_ops.reset_launch_counts()
+    q8, _ = apply_cu_net(qp, state, x, quant=INT8,
+                         cfg=dataclasses.replace(cfg, pallas_whole_model=True))
+    assert quant_ops.affine_dot_i8.launches > 0
+    assert all(a.shape == (2, 16, 16, 68) and torch.isfinite(a).all()
+               for a in q8)
+    tcfg = dataclasses.replace(cfg, bn_tile=1, remat="none")
+    t = torch.rand(2, 16, 16, 68, generator=gen).cuda()
+    lk, gk, _ = _train_grads(tcfg, params, state, x, t)
+    lp, gp, _ = _train_grads(dataclasses.replace(tcfg, use_pallas=False),
+                             params, state, x, t)
+    assert abs(lk - lp) <= 1e-2 * abs(lp)
+    for key in ("heads.2.conv", "heads.0.conv"):
+        assert gk[key].shape == (1, 1, 16, 68)
+        assert _rel(gk[key], gp[key]) <= 5e-2
+
+
+def test_f32_kernel_path_raises(gen):
+    cfg = ModelConfig(layer_num=2, order=1, loss_num=2, class_num=8,
+                      **{**SMALL, "compute_dtype": "float32"})
+    params, state = init_cu_net(cfg, gen, device="cuda")
+    x = torch.rand(1, 64, 64, 3, generator=gen).cuda()
+    for c in (cfg, dataclasses.replace(cfg, pallas_whole_model=True)):
+        with pytest.raises(NotImplementedError, match="bfloat16"):
+            apply_cu_net(params, state, x, cfg=c)
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        apply_cu_net(params, state, x, cfg=dataclasses.replace(
+            cfg, bn_tile=1), train=True)
+    outs, _ = apply_cu_net(params, state, x, cfg=dataclasses.replace(
+        cfg, use_pallas=False))
+    assert outs[-1].dtype == torch.float32

@@ -39,9 +39,9 @@ from cunet_tpu_torch.kernels.model_buf import marshal_slots
 from cunet_tpu_torch.models import apply_cu_net
 from cunet_tpu_torch.models.cu_net import (
     _int8_bottleneck_infer,
+    eval_path,
     eval_slots,
     slot_args,
-    whole_model_eval,
 )
 from cunet_tpu_torch.serving import Predictor
 
@@ -334,18 +334,22 @@ def test_int8_marshalling_and_dispatch():
                                 dtype=torch.float32)
     assert all(sl["s"] is None for sl in float_slots)
     assert float_slots[1]["blocks"][0]["w_b"].dtype == torch.float32
-    assert whole_model_eval(cfg, INT8) and whole_model_eval(cfg)
-    assert not whole_model_eval(cfg, LAX)
-    assert not whole_model_eval(cfg, QuantConfig(enabled=True))
-    # every other quant config with use_pallas: JAX runs it through its
-    # per-bottleneck eval kernels (#6), not ported, so it raises
+    assert eval_path(cfg, INT8) == eval_path(cfg) == "whole_model"
+    assert eval_path(cfg, LAX) == "layers"
+    assert eval_path(cfg, QuantConfig(enabled=True)) == "layers"
+    # every other quant config with use_pallas runs layer by layer, its
+    # float bottlenecks and adapter pairs on the per-bottleneck eval kernels
+    # (#6), as JAX runs them (held against JAX in
+    # tests/test_torch_port_eval_bottleneck.py)
     x = torch.zeros(1, 32, 32, 3)
     for q in (LAX, QuantConfig(bits_w=1, bits_i=8, bits_g=8, enabled=True),
               INT8):
         c = cfg if q is not INT8 else dataclasses.replace(
             cfg, pallas_whole_model=False)
-        with pytest.raises(NotImplementedError):
-            apply_cu_net(params, state, x, cfg=c, quant=q)
+        assert eval_path(c, q) == "layers"
+        outs, _ = apply_cu_net(params, state, x, cfg=c, quant=q)
+        assert [tuple(o.shape) for o in outs] == [(1, 8, 8, 4)] * 3
+        assert all(torch.isfinite(o).all() for o in outs)
 
 
 def test_int8_predictor_serves_the_quantized_model():

@@ -74,10 +74,21 @@ def test_kernel_forward_matches_plain_forward_bf16():
 
 
 def test_per_slot_kernels_are_not_ported():
-    cfg = small_cfg(2, 1, use_pallas=True, pallas_whole_model=False)
+    """The one eval JAX runs on a kernel the port lacks: with
+    ``pallas_hourglass=False`` and ``use_scan``, two or more steady slots
+    go to the per-block kernel (``fused_block.py``, #5). The port raises,
+    naming it; without the scan, or with one steady slot, the same flags
+    run layer by layer on the per-bottleneck kernel (#6)."""
+    cfg = small_cfg(4, 1, use_pallas=True, pallas_hourglass=False)
     params, state = init_cu_net(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        apply_cu_net(params, state, torch.zeros(1, 32, 32, 3), cfg=cfg)
+    x = torch.zeros(1, 32, 32, 3)
+    with pytest.raises(NotImplementedError, match="#5"):
+        apply_cu_net(params, state, x, cfg=cfg)
+    short = small_cfg(2, 1, use_pallas=True, pallas_hourglass=False)
+    for c in (dataclasses.replace(cfg, use_scan=False), short):
+        p, s = init_cu_net(c, device="cpu")
+        outs, _ = apply_cu_net(p, s, x, cfg=c)
+        assert len(outs) == len(c.anchors)
 
 
 @pytest.mark.parametrize("layer_num,order", CONFIGS)

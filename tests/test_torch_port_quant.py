@@ -271,12 +271,15 @@ def test_quant_eval_matches_jax_float_simulation(sim_model):
     flt, _ = apply_cu_net(params, state, torch.from_numpy(x), cfg=cfg)
     assert not np.allclose(flt[-1].numpy(), np.asarray(want[-1]), rtol=0.1)
     # with use_pallas JAX runs the float simulation's bottlenecks on its
-    # per-bottleneck eval kernel (#6), which is not ported: it raises
-    with pytest.raises(NotImplementedError, match="kernel #6"):
-        apply_cu_net(params, state, torch.from_numpy(x),
-                     cfg=dataclasses.replace(cfg, use_pallas=True,
-                                             pallas_whole_model=True),
-                     quant=SIM)
+    # per-bottleneck eval kernel (#6); so does the port (its plain version
+    # on the CPU), to the same numbers
+    pcfg = dataclasses.replace(cfg, use_pallas=True, pallas_whole_model=True)
+    want_k, _ = jax_apply_cu_net(qp, sn, x, cfg=pcfg, train=False,
+                                 quant=SIM)
+    got_k, _ = apply_cu_net(params, state, torch.from_numpy(x), cfg=pcfg,
+                            quant=SIM)
+    for g, w in zip(got_k, want_k):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **MODEL_TOL)
 
 
 def test_quant_eval_step_matches_jax(sim_model):

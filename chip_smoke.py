@@ -98,6 +98,22 @@ Phases, each printing one line (or a few) before the last:
    dual kernel); the 68-class head (the 300-W face model) on the
    whole-model float and int8 paths, the per-slot path and the slot train
    step; an f32 model on a kernel path raises.
+11. per-block eval (TPU kernel #5) and the value-carried whole-model
+   evals (#3, #2): ``table_dot``'s three forms of #5 at the CU-Net-8 @256
+   shapes of batch 8 and 64 against their plain versions (``[up]``, an up
+   block's adapter reading feature 0 through a folded 2x upsample, and
+   ``[pool]``, a down block's adapter pair storing the ahead output 2x2
+   pooled, each also bit for bit its two-launch composition with
+   ``upsample2`` / ``maxpool2``; ``[scale]``, a bottleneck with BN2's full
+   affine); ``fused_dense_block_infer`` for a down, the neck and an up
+   block against its plain versions; a Predictor with ``pallas_hourglass
+   =False`` under ``use_scan`` (slot 0 layer by layer, slots 1-7 on #5:
+   the main path) answers the three requests with 29 hand-written
+   launches on each steady slot and no ``maxpool2`` or ``upsample2``
+   there, held to the plain path at batch 8 and 64 and timed beside the
+   per-slot and whole-model paths; #3 and #2 on the whole-model kernels,
+   their anchored heads bit for bit the whole-model path's, every head of
+   #3 near its plain versions.
 
 The line before the last is a JSON object with each kernel's launches,
 error, times, the least time the card could take for the same work and
@@ -124,6 +140,8 @@ TRAIN_SOURCE = "cunet_tpu_torch/csrc/train_kernels.cu"
 INT8_SOURCE = "cunet_tpu_torch/csrc/quant_kernels.cu"
 TB_SOURCE = "cunet_tpu_torch/csrc/bottleneck_kernels.cu"
 EVAL_SOURCE = "cunet_tpu_torch/csrc/eval_kernels.cu"
+BLOCK_SOURCE = "cunet_tpu_torch/kernels/fused_block.py"
+MODEL_SOURCE = "cunet_tpu_torch/kernels/fused_model.py"
 REPLACES = {
     "affine_dot_i8": "cunet_tpu/kernels/fused_model_buf.py:83",
     "conv3x3_i8": "cunet_tpu/kernels/fused_model_buf.py:316",
@@ -156,6 +174,12 @@ REPLACES = {
     "table_dot": "cunet_tpu/kernels/fused_hourglass.py:229",
     "table_dot[dual]": "cunet_tpu/kernels/fused_bottleneck.py:178",
     "table_dot[shift2]": "cunet_tpu/kernels/fused_hourglass.py:254",
+    "table_dot[up]": "cunet_tpu/kernels/fused_block.py:128",
+    "table_dot[scale]": "cunet_tpu/kernels/fused_block.py:148",
+    "table_dot[pool]": "cunet_tpu/kernels/fused_block.py:178",
+    "fused_dense_block_infer": "cunet_tpu/kernels/fused_block.py:207",
+    "fused_model_loop_infer": "cunet_tpu/kernels/fused_model.py:418",
+    "fused_model_infer": "cunet_tpu/kernels/fused_model.py:138",
 }
 # the feature-table product serves two TPU kernels: #4's 1x1 stages (above)
 # and #6 (these)
@@ -393,17 +417,25 @@ def phase_kernels(torch, ops):
 # ---------------------------------------------------------------------------
 
 
-def time_forward(torch, pred, batch, iters=10):
-    x = torch.rand(batch, 256, 256, 3, generator=torch.Generator()
-                   .manual_seed(1)).to("cuda", pred.dtype)
-    for _ in range(3):
-        pred.forward(x)
+def wall_ms(torch, fn, iters=10, warmup=3):
+    """Wall time of one ``fn()`` over ``iters`` calls after ``warmup``,
+    the card synchronized at both ends: a whole forward of a few hundred
+    launches, which the host's launch rate may bound (a CUDA graph, as in
+    ``cuda_time_ms``, would hide that)."""
+    for _ in range(warmup):
+        fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(iters):
-        pred.forward(x)
+        fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) / iters * 1e3
+
+
+def time_forward(torch, pred, batch, iters=10):
+    x = torch.rand(batch, 256, 256, 3, generator=torch.Generator()
+                   .manual_seed(1)).to("cuda", pred.dtype)
+    return wall_ms(torch, lambda: pred.forward(x), iters)
 
 
 def phase_serving(torch, ops, gpu):
@@ -2144,7 +2176,8 @@ def phase_slot_serving(torch, ops, eops, gpu, float_ms):
                for imgs in requests]
     torch.cuda.synchronize()
     launches = {**ops.launch_counts(), **eops.launch_counts(),
-                **eops.option_counts()}
+                **{k: v for k, v in eops.option_counts().items()
+                   if k in ("table_dot[dual]", "table_dot[shift2]")}}
     forwards = 2 * 2 * sum(-(-imgs.shape[0] // BATCH) for imgs in requests)
     print(f"slot serving: launches on the main path {launches} in "
           f"{forwards} forwards", flush=True)
@@ -2327,6 +2360,425 @@ def phase_face_heads(torch, ops, eops, qops, tops, gpu):
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the per-block eval (#5) and the whole-model evals #3 and #2
+# ---------------------------------------------------------------------------
+
+
+def block_option_cases(torch, ops, eops, gen, n):
+    """(row name, label, make_out, call, work, composition) of
+    ``table_dot``'s three forms of #5 at the CU-Net-8 @256 shapes of batch
+    ``n`` (c=128, g=32, Cb=128, r=64, order 1): an up block's adapter,
+    K=320 -> 128, reading feature 0 at r=32 through the folded upsample;
+    a down block's adapter pair, K=192 -> 2 x 128, storing the ahead
+    output pooled (its rows first, then the skip's) and the bottleneck,
+    K=160 -> 128, with BN2's full affine. ``composition(out)`` computes
+    the same through the launches the form folds (``upsample2`` then
+    ``table_dot``; ``table_dot`` then ``maxpool2``), or is None."""
+    dev = "cuda"
+    c, g, cb, r = 128, 32, 128, 64
+    m = n * r * r
+    hw = (r, r)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(
+            dev, torch.bfloat16)
+
+    def vec(k):
+        return torch.stack([torch.rand(k, generator=gen) + 0.5,
+                            torch.randn(k, generator=gen) * 0.5]).to(dev)
+
+    def empty(rows, cols):
+        return lambda: torch.empty(rows, cols, device=dev,
+                                   dtype=torch.bfloat16)
+
+    y, half, skip = randn(m, c), randn(m // 4, c), randn(m, c)
+    fifo, out32 = randn(m, g), randn(m, g)
+    cases = []
+
+    k = 2 * c + 2 * g
+    vu, wu = vec(k), randn(k, c, scale=k ** -0.5)
+    ups = (True, False, False, False)
+
+    def up_comp(o):
+        full = torch.empty(m, c, device=dev, dtype=torch.bfloat16)
+        ops.upsample2(half, n, r // 2, r // 2, full)
+        eops.table_dot([full, skip, fifo, out32], vu, wu, o)
+
+    cases.append(("table_dot[up]",
+                  f"up adapter K=320->128 r=64, feature 0 from r=32, "
+                  f"batch {n}", empty(m, c),
+                  lambda f, o: f([half, skip, fifo, out32], vu, wu, o,
+                                 up=ups, hw=hw),
+                  work(sz(m // 4, c) + sz(m, c) + 2 * sz(m, g) + sz(k, c)
+                       + sz(2, k, e=4) + sz(m, c), 2 * m * k * c), up_comp))
+
+    k = c + 2 * g
+    va, wa = vec(k), randn(k, c, scale=k ** -0.5)
+    vs, ws = vec(k), randn(k, c, scale=k ** -0.5)
+    q = m // 4
+
+    def pool_comp(o):
+        unpooled = torch.empty(m, c, device=dev, dtype=torch.bfloat16)
+        eops.table_dot([y, fifo, out32], va, wa, unpooled, vec_s=vs, w_s=ws,
+                       out_s=o[q:])
+        ops.maxpool2(unpooled, n, r, r, o[:q])
+
+    cases.append(("table_dot[pool]",
+                  f"adapter pair K=192->2x128 r=64, ahead pooled, batch {n}",
+                  empty(q + m, c),
+                  lambda f, o: f([y, fifo, out32], va, wa, o[:q], vec_s=vs,
+                                 w_s=ws, out_s=o[q:], pool=True, hw=hw),
+                  work(sz(m, k) + 2 * (sz(k, c) + sz(2, k, e=4))
+                       + sz(q, c) + sz(m, c), 2 * 2 * m * k * c), pool_comp))
+
+    k = c + g
+    vb, wb, v2 = vec(k), randn(k, cb, scale=k ** -0.5), vec(cb)
+    cases.append(("table_dot[scale]",
+                  f"bottleneck K=160->128 +BN2 affine r=64 batch {n}",
+                  empty(m, cb),
+                  lambda f, o: f([y, fifo], vb, wb, o, vec2=v2),
+                  work(sz(m, k) + sz(k, cb) + sz(2, k, e=4) + sz(2, cb, e=4)
+                       + sz(m, cb), 2 * m * k * cb), None))
+    return cases
+
+
+def phase_block_kernels(torch, ops, eops):
+    """Phase 11 (a): table_dot's #5 forms against their plain versions
+    (within the bf16 bound), ``[up]`` and ``[pool]`` also bit for bit
+    their two-launch compositions, at batch 8 (the headline) and 64."""
+    gen = torch.Generator().manual_seed(11)
+    results = {}
+    for n in (BATCH, 64):
+        for name, label, make_out, call, w, comp in block_option_cases(
+                torch, ops, eops, gen, n):
+            k_out, _ = check_case(torch, eops.PLAIN, results, "block kernel",
+                                  eops.table_dot, label, make_out, call,
+                                  ("bf16",), w, None, name=name)
+            if comp is None:
+                continue
+            c_out = make_out()
+            comp(c_out)
+            torch.cuda.synchronize()
+            same = torch.equal(k_out, c_out)
+            comp_ms = cuda_time_ms(lambda: comp(c_out))
+            print(f"block kernel {name} [{label}]: bit for bit its "
+                  f"two-launch composition {same} ({comp_ms:.4f} ms)",
+                  flush=True)
+            require(same, f"{name} [{label}] differs from its two-launch "
+                          f"composition")
+    return results
+
+
+def phase_block_functions(torch, ops, eops):
+    """Phase 11 (b): ``fused_dense_block_infer`` for down block 0 (pooled,
+    with its skip and the intermedia pre-stage), the neck and up block 0
+    (upsampled, with the head) of a steady slot of CU-Net-8 @256 at batch
+    8, on the operands ``block_slots`` marshals, against the same function
+    on the kernels' plain versions, each output within the bf16 bound of
+    its own magnitude; the down block is the row's headline."""
+    from cunet_tpu_torch import ModelConfig
+    from cunet_tpu_torch.kernels import fused_block
+    from cunet_tpu_torch.models import init_cu_net
+    from cunet_tpu_torch.models.cu_net import block_slots
+    from cunet_tpu_torch.tools.eval_bounds import block_work
+
+    cfg = ModelConfig(layer_num=8, order=1, class_num=16, loss_num=8,
+                      compute_dtype="bfloat16", use_pallas=True,
+                      pallas_hourglass=False)
+    params, state = init_cu_net(cfg, torch.Generator().manual_seed(0))
+    slot = block_slots(params, state, cfg)[1]
+    blocks = slot["blocks"]
+    gen = torch.Generator().manual_seed(12)
+    n, c, g, nb = BATCH, 128, 32, cfg.num_blocks
+
+    def feat(r, ch):
+        return torch.randn(n, r, r, ch, generator=gen).to(
+            "cuda", torch.bfloat16)
+
+    def args(pos):
+        ws = blocks[pos]
+        skip = (ws["vec_s"], ws["w_s"]) if "w_s" in ws else ()
+        return (ws["vec_b"], ws["w_b"], ws["vec2"], ws["w3"], ws["vec_a"],
+                ws["w_a"]) + skip
+
+    rn = 64 >> nb
+    vec_p, w_p = slot["inter"]
+    vec_h, w_h = slot["head"]
+    pre = dict(pre_features=[feat(64, c), feat(64, c)], pre_vec=vec_p,
+               pre_w=w_p)
+    head = dict(head_vec=vec_h, head_w=w_h[:, :cfg.class_num])
+    # (kind, label, features, operands, options, output names, work)
+    cases = [("down", "down block 0 r=64, pooled, pre-stage",
+              [feat(64, c), feat(64, g)], args(0),
+              dict(pool_ahead=True, **pre),
+              ("ahead", "skip", "layer_out", "pre_out"),
+              block_work(cfg, n, pre=True)),
+             ("neck", f"neck r={rn}", [feat(rn, c), feat(rn, g)], args(nb),
+              {}, ("ahead", "layer_out"), block_work(cfg, n, "neck")),
+             ("up", "up block 0 r=64, upsampled, head",
+              [feat(32, c), feat(64, c), feat(64, g)], args(2 * nb),
+              dict(upsample_first=True, **head),
+              ("ahead", "layer_out", "head_out"),
+              block_work(cfg, n, "up", head=True))]
+    saved = (fused_block.table_dot, fused_block.conv3x3)
+    plain = (eops.table_dot_plain, ops.conv3x3_plain)
+    results = {}
+    for kind, label, feats, a, kw, names, bw in cases:
+        def run(f=feats, a=a, kw=kw):
+            return fused_block.fused_dense_block_infer(f, *a, **kw)
+
+        got = run()
+        fused_block.table_dot, fused_block.conv3x3 = plain
+        try:
+            want = run()
+            torch.cuda.synchronize()
+            plain_ms = cuda_time_ms(run, iters=5)
+        finally:
+            fused_block.table_dot, fused_block.conv3x3 = saved
+        require(len(got) == len(names) and len(want) == len(names),
+                f"fused_dense_block_infer [{label}] returned {len(got)} "
+                f"outputs, expected {names}")
+        errs = {k: (o.float() - p.float()).abs().max().item()
+                for k, o, p in zip(names, got, want)}
+        lims = {k: limit(("bf16",), p.float().abs().max().item())
+                for k, p in zip(names, want)}
+        ms = cuda_time_ms(run)
+        w = work(bw.nbytes, bw.ops)
+        per = ", ".join(f"{k} {errs[k]:.4g} (bound {lims[k]:.4g})"
+                        for k in names)
+        print(f"block function fused_dense_block_infer [{label}, batch {n}]"
+              f": max_abs_err {per}, bf16; {ms:.4f} ms vs plain "
+              f"{plain_ms:.4f} ms, library None, bound {bound(w)[0]:.4f} ms "
+              f"({bound(w)[1]})", flush=True)
+        bad = [k for k in names
+               if not (np.isfinite(errs[k]) and errs[k] <= lims[k])]
+        require(not bad, f"fused_dense_block_infer [{label}] disagrees with "
+                         f"its plain versions in {bad}: {errs} > {lims}")
+        record(results, "fused_dense_block_infer", max(errs.values()), ms,
+               plain_ms, f"{label}, batch {n}", w, None)
+    return results
+
+
+def phase_block_serving(torch, ops, eops, gpu):
+    """Phase 11 (c): CU-Net-8 @256 with ``use_pallas,
+    pallas_hourglass=False`` and ``use_scan`` (JAX's ``--use_pallas`` with
+    the per-block kernels): slot 0 layer by layer (#6), slots 1-7 on #5.
+    The main path answers the three requests; each steady slot is counted
+    alone; held to the plain path at batch 8 and 64, then timed at both
+    beside the per-slot and whole-model paths in this run."""
+    from cunet_tpu_torch import ModelConfig
+    from cunet_tpu_torch.kernels import fused_block
+    from cunet_tpu_torch.models import apply_cu_net, cu_net, init_cu_net
+    from cunet_tpu_torch.serving import Predictor
+
+    cfg = ModelConfig(layer_num=8, order=1, class_num=16, loss_num=8,
+                      compute_dtype="bfloat16", use_pallas=True,
+                      pallas_hourglass=False)
+    require(cu_net.eval_path(cfg) == "blocks",
+            "pallas_hourglass=False under use_scan: not the block path")
+    params, state = init_cu_net(cfg, torch.Generator().manual_seed(0))
+    pred = Predictor(cfg, params, state, device="cuda", batch_size=BATCH,
+                     flip_test=True)
+    rng = np.random.RandomState(0)
+    requests = [rng.rand(k, 256, 256, 3).astype(np.float32)
+                for k in (8, 5, 11)]
+
+    def counts():
+        return {**ops.launch_counts(), **eops.launch_counts(),
+                **eops.option_counts()}
+
+    per_slot, blocks = [], []
+    slot_eval, block_fn = cu_net._fused_slot_eval, \
+        fused_block.fused_dense_block_infer
+
+    def counted_slot(*a, **k):
+        before = counts()
+        out = slot_eval(*a, **k)
+        after = counts()
+        per_slot.append({key: after[key] - before[key] for key in after})
+        return out
+
+    def counted_block(*a, **k):
+        blocks.append(1)
+        return block_fn(*a, **k)
+
+    ops.reset_launch_counts()
+    eops.reset_launch_counts()
+    cu_net._fused_slot_eval = counted_slot
+    fused_block.fused_dense_block_infer = counted_block
+    try:
+        answers = [(pred.heatmaps(imgs), pred.predict(imgs))
+                   for imgs in requests]
+        torch.cuda.synchronize()
+    finally:
+        cu_net._fused_slot_eval = slot_eval
+        fused_block.fused_dense_block_infer = block_fn
+    launches = counts()
+    launches["fused_dense_block_infer"] = len(blocks)
+    forwards = 2 * 2 * sum(-(-imgs.shape[0] // BATCH) for imgs in requests)
+    steady = cfg.layer_num - max(cfg.order, 1)
+    print(f"block serving: launches on the main path {launches} in "
+          f"{forwards} forwards; one steady slot: {per_slot[0]}", flush=True)
+    for imgs, (hm, pts) in zip(requests, answers):
+        k = imgs.shape[0]
+        require(hm.shape == (k, 64, 64, 16), f"heatmaps shape {hm.shape}")
+        require(pts.shape == (k, 16, 2), f"landmarks shape {pts.shape}")
+        require(np.isfinite(hm).all() and np.isfinite(pts).all(),
+                "non-finite output")
+    nb, npos = cfg.num_blocks, 2 * cfg.num_blocks + 1
+    want_slot = {"affine_dot": 0, "conv3x3": npos, "maxpool2": 0,
+                 "upsample2": 0, "table_dot": 2 + 2 * npos,
+                 "table_dot[dual]": nb, "table_dot[shift2]": 0,
+                 "table_dot[scale]": npos, "table_dot[up]": 2 * nb,
+                 "table_dot[pool]": nb}
+    require(len(per_slot) == steady * forwards,
+            f"{len(per_slot)} steady slots in {forwards} forwards")
+    require(all(d == want_slot for d in per_slot),
+            f"a steady slot's launches differ from {want_slot}")
+    hand = sum(want_slot[k] for k in ("affine_dot", "conv3x3", "maxpool2",
+                                      "upsample2", "table_dot"))
+    require(hand == 29, f"{hand} hand-written launches per steady slot")
+    require(len(blocks) == npos * steady * forwards,
+            f"{len(blocks)} fused_dense_block_infer calls")
+    for name in ("table_dot", "conv3x3", "table_dot[dual]",
+                 "table_dot[scale]", "table_dot[up]", "table_dot[pool]"):
+        require(launches[name] > 0,
+                f"kernel {name} never launched on the block path")
+
+    plain_cfg = dataclasses.replace(cfg, use_pallas=False)
+    want = Predictor(plain_cfg, params, state, device="cuda",
+                     batch_size=BATCH, flip_test=True).heatmaps(requests[0])
+    rel8 = _rel(answers[0][0], want)
+    x = torch.rand(64, 256, 256, 3, generator=torch.Generator()
+                   .manual_seed(2)).to("cuda", torch.bfloat16)
+    with torch.inference_mode():
+        got64, _ = apply_cu_net(params, state, x, cfg=cfg)
+        want64, _ = apply_cu_net(params, state, x, cfg=plain_cfg)
+    rel64 = max(_rel(a.float().cpu().numpy(), b.float().cpu().numpy())
+                for a, b in zip(got64, want64))
+    del got64, want64, x
+    print(f"block serving: block path vs plain path: request of 8 relative "
+          f"L2 {rel8:.4g}, batch 64 worst anchor {rel64:.4g} (bound "
+          f"{PATH_REL_L2})", flush=True)
+    require(np.isfinite(rel8) and rel8 <= PATH_REL_L2
+            and np.isfinite(rel64) and rel64 <= PATH_REL_L2,
+            f"the block path disagrees with the plain path: {rel8}, {rel64}")
+
+    times = {}
+    others = {"per-slot": dataclasses.replace(cfg, pallas_hourglass=True),
+              "whole-model": dataclasses.replace(cfg,
+                                                 pallas_whole_model=True)}
+    for batch in (BATCH, 64):
+        p = Predictor(cfg, params, state, device="cuda", batch_size=batch)
+        times[batch] = ms = time_forward(torch, p, batch)
+        parts = []
+        for label, c in others.items():
+            o = Predictor(c, params, state, device="cuda", batch_size=batch)
+            parts.append(f"{label} path {time_forward(torch, o, batch):.3f}"
+                         f" ms")
+        print(f"block serving: forward batch {batch}: {ms:.3f} ms, "
+              f"{batch / ms * 1e3:.1f} img/s (block path); "
+              f"{', '.join(parts)} ({gpu})", flush=True)
+    return launches, forwards, times
+
+
+def phase_fused_models(torch, ops, gpu):
+    """Phase 11 (d): #3 (every slot's head) and #2 (the anchored heads) at
+    CU-Net-8 @256 batch 8 on the whole-model kernels: their anchored heads
+    bit for bit the whole-model path's on the same slots and stem output;
+    every head of #3 against #3 on the kernels' plain versions (relative
+    L2 within the path bound; the worst element against the bf16 bound);
+    times of both and of their plain versions."""
+    from cunet_tpu_torch import ModelConfig
+    from cunet_tpu_torch.kernels import fused_model, model_buf
+    from cunet_tpu_torch.models import apply_cu_net, init_cu_net
+    from cunet_tpu_torch.models.cu_net import _apply_stem, eval_slots
+    from cunet_tpu_torch.tools.eval_bounds import model_work
+
+    cfg = ModelConfig(layer_num=8, order=1, class_num=16, loss_num=8,
+                      compute_dtype="bfloat16", use_pallas=True,
+                      pallas_whole_model=True)
+    params, state = init_cu_net(cfg, torch.Generator().manual_seed(0))
+    x = torch.rand(BATCH, 256, 256, 3, generator=torch.Generator()
+                   .manual_seed(1)).to("cuda", torch.bfloat16)
+    names = ("affine_dot", "conv3x3", "maxpool2", "upsample2")
+    saved = {k: getattr(model_buf, k) for k in names}
+    results = {}
+    with torch.inference_mode():
+        slots = eval_slots(params, state, cfg)
+        whole, _ = apply_cu_net(params, state, x, cfg=cfg, slots=slots)
+        y = _apply_stem(params, state, x, cfg=cfg)
+        fns = {"fused_model_loop_infer": fused_model.fused_model_loop_infer,
+               "fused_model_infer": fused_model.fused_model_infer}
+        calls = dict.fromkeys(fns, 0)
+
+        def drive(name):
+            calls[name] += 1
+            return fns[name](y, slots, cfg)
+
+        launches, outs, plain_outs, times = {}, {}, {}, {}
+        for name, fn in fns.items():
+            # the drive of each function, counted; the timing and the plain
+            # comparison below call it directly
+            calls[name] = 0
+            ops.reset_launch_counts()
+            outs[name] = drive(name)
+            torch.cuda.synchronize()
+            launches[name] = dict(ops.launch_counts())
+            times[name] = wall_ms(torch, lambda fn=fn: fn(y, slots, cfg),
+                                  iters=5, warmup=1)
+            for k in names:
+                setattr(model_buf, k, ops.PLAIN[getattr(ops, k)])
+            try:
+                plain_outs[name] = fn(y, slots, cfg)
+                plain_ms = wall_ms(torch, lambda fn=fn: fn(y, slots, cfg),
+                                   iters=2, warmup=0)
+            finally:
+                for k, v in saved.items():
+                    setattr(model_buf, k, v)
+            times[name] = (times[name], plain_ms)
+    every, unrolled = outs["fused_model_loop_infer"], outs["fused_model_infer"]
+    require(tuple(every.shape) == (BATCH, 8, 64, 64, 16)
+            and len(unrolled) == len(cfg.anchors), "fused model shapes")
+    same = all(torch.equal(every[:, a - 1], w) and torch.equal(u, w)
+               for a, w, u in zip(cfg.anchors, whole, unrolled))
+    rels = [_rel(every[:, i].float().cpu().numpy(),
+                 plain_outs["fused_model_loop_infer"][:, i].float().cpu()
+                 .numpy()) for i in range(cfg.layer_num)]
+    errs = {}
+    for name in fns:
+        k_o, p_o = outs[name], plain_outs[name]
+        if isinstance(k_o, tuple):
+            k_o, p_o = torch.stack(k_o, 1), torch.stack(p_o, 1)
+        errs[name] = (k_o.float() - p_o.float()).abs().max().item()
+        lim = limit(("bf16",), p_o.float().abs().max().item())
+        w = model_work(cfg, BATCH, every_head=name == "fused_model_loop_infer")
+        wk = work(w.nbytes, w.ops)
+        ms, plain_ms = times[name]
+        print(f"fused model {name} [CU-Net-8 @256 post-stem, batch {BATCH}]"
+              f": {calls[name]} call(s) driven, kernel launches per call "
+              f"{launches[name]}, max_abs_err {errs[name]:.4g} "
+              f"against its plain versions (bf16 bound {lim:.4g}), "
+              f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, library None, bound "
+              f"{bound(wk)[0]:.4f} ms ({bound(wk)[1]}) ({gpu})", flush=True)
+        require(np.isfinite(errs[name]) and errs[name] <= lim,
+                f"{name}'s heads disagree with its plain versions: "
+                f"{errs[name]} > {lim}")
+        record(results, name, errs[name], ms, plain_ms,
+               f"CU-Net-8 @256 post-stem, batch {BATCH}", wk, None)
+        results[name].update(calls=calls[name], kernel_launches_per_call=sum(
+            launches[name].values()))
+    print(f"fused model: anchored heads of #3 and #2 bit for bit the "
+          f"whole-model path's {same}; #3's heads against its plain "
+          f"versions: relative L2 {max(rels):.4g} at worst (bound "
+          f"{PATH_REL_L2})", flush=True)
+    require(same, "#3 / #2 anchored heads differ from the whole-model path")
+    require(all(np.isfinite(r) and r <= PATH_REL_L2 for r in rels),
+            f"#3's heads disagree with its plain versions: {rels}")
+    return results
+
+
 def main() -> int:
     import torch
 
@@ -2379,6 +2831,11 @@ def main() -> int:
             torch, ops, eops, gpu, float_ms)
         int8_duals = phase_quant_layer_eval(torch, eops, qops, gpu)
         phase_face_heads(torch, ops, eops, qops, tops, gpu)
+        block_kernels = phase_block_kernels(torch, ops, eops)
+        block_fns = phase_block_functions(torch, ops, eops)
+        block_launches, block_forwards, block_ms = phase_block_serving(
+            torch, ops, eops, gpu)
+        model_fns = phase_fused_models(torch, ops, gpu)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2432,6 +2889,16 @@ def main() -> int:
         if name == "table_dot[dual]":
             extra["int8_eval_launches"] = int8_duals
         rows.append(row(name, EVAL_SOURCE, r, slot_launches[name], **extra))
+    block_extra = {"block_forward_ms": block_ms}
+    for name, r in {**block_kernels, **block_fns}.items():
+        rows.append(row(name, BLOCK_SOURCE if name in block_fns
+                        else EVAL_SOURCE, r, block_launches[name],
+                        launches_per_forward=block_launches[name]
+                        / block_forwards, **block_extra))
+    for name, r in model_fns.items():
+        rows.append(row(name, MODEL_SOURCE, r, r["calls"],
+                        kernel_launches_per_call=r["kernel_launches_per_call"]
+                        ))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

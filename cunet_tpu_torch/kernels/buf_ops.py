@@ -138,12 +138,14 @@ def _check_tile_vec(vec, k, m, what="vec"):
         raise ValueError(f"{m} rows do not split into {vec.shape[0]} tiles")
 
 
-def affine_dot_plain(x, vec, w, out, bias=None, bits_i=0):
+def affine_dot_plain(x, vec, w, out, bias=None, bits_i=0, scale=None):
+    """With ``bias`` the epilogue ``relu(acc + bias)``, and with ``scale``
+    too ``relu(acc * scale + bias)`` (BN2's full affine, float32)."""
     k = x.shape[1]
     y = quantize_act(torch.relu(tile_affine(x, vec)).to(x.dtype), bits_i)
     acc = y.float() @ w[:k].float()
     if bias is not None:
-        acc = torch.relu(acc + bias)
+        acc = torch.relu((acc if scale is None else acc * scale) + bias)
     out.copy_(acc.view(out.shape).to(out.dtype))
     return out
 

@@ -120,8 +120,8 @@ def _declare(lib):
         "cunet_tb_apply": [P, I, L, I, P, P, P, I, P, L, P],
         "cunet_tb_bwd_reduce": [P, I, L, I, P, L, I, P, P, P, L, P, P, P],
         "cunet_tb_bwd_dx": [P, I, L, I, P, L, I, P, P, P, P, P],
-        "cunet_table_dot": [P, P, P, I, L, P, P, P, P, P, P, I, I, P, P, L,
-                            L, L, P, L, P],
+        "cunet_table_dot": [P, P, P, I, I, I, I, L, P, P, P, P, P, P, I, I,
+                            I, P, P, I, P, L, L, L, P, L, P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

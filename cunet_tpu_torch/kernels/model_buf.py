@@ -29,7 +29,7 @@ pool, upsample and the FIFO copies are unchanged.
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -47,7 +47,8 @@ from cunet_tpu_torch.quant.wage import scale_s
 
 
 def marshal_slots(slot_args: Sequence[Dict], cfg: ModelConfig,
-                  dtype=torch.bfloat16, quant_bits_i: int = 0) -> List[Dict]:
+                  dtype=torch.bfloat16, quant_bits_i: int = 0,
+                  bn2_affine: bool = False) -> List[Dict]:
     """Kernel operands from ``cu_net.slot_args``: matrices in ``dtype``, BN
     vectors in float32, vectors and matrices zero-padded to the steady-state
     input width of their position so that growth-phase slots read a prefix
@@ -56,11 +57,12 @@ def marshal_slots(slot_args: Sequence[Dict], cfg: ModelConfig,
     With ``quant_bits_i`` (``slot_args(..., fold=False)`` of
     ``quant_eval_params`` weights) the bottleneck, adapter, head and 3x3
     matrices are rounded to int8, the intermedia matrices stay in ``dtype``
-    and each block keeps BN2's full (2, Cb) [inv2; shift2] as ``vec2``.
-    Each slot's ``s`` is the activation quantizer's scale 2^(bits_i-1), or
-    None for the float model: it selects ``model_buf_infer``'s mode. The
-    head weight gets zero columns up to a multiple of 8 (``pad_cols``: 68
-    classes run as 72)."""
+    and each block keeps BN2's full (2, Cb) [inv2; shift2] as ``vec2``;
+    ``bn2_affine`` keeps it so for the float model too (``slot_args(...,
+    fold=False)`` for the per-block eval, #5). Each slot's ``s`` is the
+    activation quantizer's scale 2^(bits_i-1), or None for the float
+    model: it selects ``model_buf_infer``'s mode. The head weight gets zero
+    columns up to a multiple of 8 (``pad_cols``: 68 classes run as 72)."""
     nb, order = cfg.num_blocks, cfg.order
     c, g = cfg.init_chan_num, cfg.growth_rate
 
@@ -99,7 +101,7 @@ def marshal_slots(slot_args: Sequence[Dict], cfg: ModelConfig,
                 "vec_a": pad_vec(ws["vec_a"], kb + g),
                 "w_a": pad_mat(mat(ws["w_a"]), kb + g).contiguous(),
             }
-            if quant_bits_i:
+            if quant_bits_i or bn2_affine:
                 b["vec2"] = ws["vec2"].float().contiguous()
             else:
                 b["shift2"] = ws["vec2"][1].float().contiguous()
@@ -120,17 +122,18 @@ def marshal_slots(slot_args: Sequence[Dict], cfg: ModelConfig,
 
 
 def model_buf_infer(y_stem: torch.Tensor, slots: Sequence[Dict],
-                    cfg: ModelConfig) -> torch.Tensor:
+                    cfg: ModelConfig,
+                    heads: Optional[Sequence[int]] = None) -> torch.Tensor:
     """Post-stem forward of all K slots. ``y_stem`` is the (N, h0, h0, c)
-    stem output; returns the anchored heads stacked as
-    (N, len(cfg.anchors), h0, h0, class_num) in ``y_stem.dtype`` (a view
-    of the padded head width). Slots
+    stem output; returns the heads of the 1-indexed slots ``heads``
+    (default ``cfg.anchors``) stacked as (N, len(heads), h0, h0, class_num)
+    in ``y_stem.dtype`` (a view of the padded head width). Slots
     marshalled with ``quant_bits_i`` run the quantized model on the int8
     kernels."""
     n, h0, _, c = y_stem.shape
     nb, order, K = cfg.num_blocks, cfg.order, cfg.layer_num
     g, cb = cfg.growth_rate, cfg.bottleneck_chan
-    anchors = cfg.anchors
+    anchors = tuple(cfg.anchors if heads is None else heads)
     dev, dtype = y_stem.device, y_stem.dtype
     s_q = slots[0]["s"]
 

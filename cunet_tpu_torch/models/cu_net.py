@@ -28,14 +28,19 @@ ones):
   every slot through the hourglass kernels
   (:mod:`cunet_tpu_torch.kernels.hourglass`), whose FIFO entries go back to
   memory between slots (:func:`_fused_slot_eval_hg`);
+- the per-block eval forward (``use_pallas=True,
+  pallas_hourglass=False`` with ``use_scan`` over two or more steady
+  slots, unquantized): the slots before ``max(order, 1)`` layer by layer
+  as below, then every steady slot on the per-block kernels
+  (:mod:`cunet_tpu_torch.kernels.fused_block`, #5), the intermedia adapter
+  riding the first down block and the head the last up block
+  (:func:`_fused_slot_eval`), as JAX's scan body runs them;
 - the layer-by-layer eval with ``use_pallas`` otherwise
-  (``pallas_hourglass=False``, or any quantized eval outside the
-  whole-model int8 path): every bottleneck and intermedia adapter on the
-  per-bottleneck eval kernel and each down block's adapter pair on its
-  dual form (:mod:`cunet_tpu_torch.kernels.bottleneck_infer`), the 3x3
-  convs, pools, upsamples and heads plain, as in JAX. JAX's scan runs its
-  per-block kernel (``fused_block.py``, not ported) on two or more steady
-  slots with ``use_scan``; that case raises;
+  (``pallas_hourglass=False`` without that scan, or any quantized eval
+  outside the whole-model int8 path): every bottleneck and intermedia
+  adapter on the per-bottleneck eval kernel and each down block's adapter
+  pair on its dual form (:mod:`cunet_tpu_torch.kernels.bottleneck_infer`),
+  the 3x3 convs, pools, upsamples and heads plain, as in JAX;
 - the train kernel path (``use_pallas=True, bn_tile > 0``): the stem in
   plain PyTorch, then each slot through the slot train kernels and their
   recompute backward (:mod:`cunet_tpu_torch.kernels.train_slot`);
@@ -55,7 +60,8 @@ its running statistics once, from the first forward, and the recompute
 draws no seed: the dropout masks are hashes of the slot's seed.
 
 The JAX ``lax.scan`` over steady-state slots and its stacked-slot storage
-exist to cut XLA compile time; here every slot runs in a plain loop.
+exist to cut XLA compile time; here every slot runs in a plain loop, and
+``use_scan`` only chooses the kernels, as it does in JAX.
 
 The hand-written kernels take bfloat16 only: ``use_pallas`` on a CUDA
 device with another ``compute_dtype`` raises (:func:`check_kernel_dtype`);
@@ -685,19 +691,27 @@ def _active(quant: Optional[QuantConfig]) -> Optional[QuantConfig]:
 
 def eval_path(cfg: ModelConfig, quant=None) -> str:
     """The eval forward's path, chosen as ``cunet_tpu/models/cu_net.py::
-    apply_cu_net`` chooses it (:1478-1528): ``"whole_model"`` (#1, float
-    with no quant config, int8 with ``int8_infer`` and
+    apply_cu_net`` chooses it (:1478-1528, :1227-1234): ``"whole_model"``
+    (#1, float with no quant config, int8 with ``int8_infer`` and
     ``int8_impl="pallas"``), ``"hourglass"`` (#4 for every slot,
-    unquantized, the default flags), else ``"layers"`` (layer by layer;
-    with ``use_pallas`` every bottleneck on #6)."""
+    unquantized, the default flags), ``"blocks"`` (unquantized,
+    ``pallas_hourglass=False`` and ``use_scan`` over two or more steady
+    slots: #5 for each steady slot, the slots before it layer by layer),
+    else ``"layers"`` (layer by layer; with ``use_pallas`` every
+    bottleneck on #6). A quantized scan runs layer by layer, JAX's quirk:
+    its quantized scan body is ``_scan_block``, not #5."""
     quant = _active(quant)
     if not cfg.use_pallas:
         return "layers"
     if cfg.pallas_whole_model and (quant is None or (
             quant.int8_infer and quant.int8_impl == "pallas")):
         return "whole_model"
-    if cfg.pallas_hourglass and quant is None:
+    if quant is not None:
+        return "layers"
+    if cfg.pallas_hourglass:
         return "hourglass"
+    if cfg.use_scan and cfg.layer_num - max(cfg.order, 1) >= 2:
+        return "blocks"
     return "layers"
 
 
@@ -715,18 +729,6 @@ def check_kernel_dtype(cfg: ModelConfig, device) -> None:
             f"(use_pallas=False runs it on the plain path)")
 
 
-def _check_scan_eval(cfg: ModelConfig) -> None:
-    """JAX runs two or more steady slots under ``use_scan`` with
-    ``pallas_hourglass=False`` on its per-block eval kernel, which is not
-    ported."""
-    if cfg.use_scan and cfg.layer_num - max(cfg.order, 1) >= 2:
-        raise NotImplementedError(
-            "use_pallas with pallas_hourglass=False and use_scan runs the "
-            "steady slots on the per-block eval kernel (fused_block.py::"
-            "fused_dense_block_infer, TPU kernel #5), which is not ported; "
-            "use pallas_hourglass=True or use_scan=False")
-
-
 def eval_slots(params, state, cfg: ModelConfig, quant=None):
     """Kernel operands of the whole-model and per-slot eval forwards (BN
     folded, padded, int8 matrices for an int8 ``quant``), built once and
@@ -738,6 +740,90 @@ def eval_slots(params, state, cfg: ModelConfig, quant=None):
         slot_args(params, state, cfg, fold=quant is None), cfg,
         dtype=getattr(torch, cfg.compute_dtype),
         quant_bits_i=quant.bits_i if quant is not None else 0)
+
+
+def block_slots(params, state, cfg: ModelConfig):
+    """Kernel operands of the per-block eval (#5): :func:`eval_slots`'
+    marshalling of the float model with BN2 unfolded (``slot_args(...,
+    fold=False)``): each block keeps its raw bottleneck weight and BN2's
+    (2, Cb) [inv2; shift2] as ``vec2``, as JAX's ``_fused_block_slot``
+    passes them (``cu_net.py:875-883``). Built once and reused through
+    ``apply_cu_net(..., slots=)``."""
+    from cunet_tpu_torch.kernels.model_buf import marshal_slots
+
+    return marshal_slots(slot_args(params, state, cfg, fold=False), cfg,
+                         dtype=getattr(torch, cfg.compute_dtype),
+                         bn2_affine=True)
+
+
+def path_slots(params, state, cfg: ModelConfig, quant=None):
+    """The kernel operands the eval path of ``cfg`` and ``quant`` reads
+    (:func:`eval_slots` or :func:`block_slots`), or None for the
+    layer-by-layer path, which reads ``params`` directly."""
+    path = eval_path(cfg, quant)
+    if path in ("whole_model", "hourglass"):
+        return eval_slots(params, state, cfg, quant)
+    if path == "blocks":
+        return block_slots(params, state, cfg)
+    return None
+
+
+def _fused_slot_eval(y, fifos, slot, *, cfg: ModelConfig, head: bool):
+    """A steady slot on the per-block eval kernels (``slot`` is its entry
+    of :func:`block_slots`), as JAX's ``_fused_slot_eval``
+    (``cu_net.py:1146-1181``) runs it: one :func:`fused_dense_block_infer`
+    per block position, the intermedia adapter riding down block 0 as its
+    pre-stage (its output pushed to the intermedia FIFO when ``order >
+    0``), the pools folded into the down blocks' stores, the upsamples into
+    the up blocks' reads, and with ``head`` the head riding up block 0
+    (JAX computes every steady slot's head and keeps the anchored ones; the
+    port runs only those). Every FIFO pops its oldest entry and pushes the
+    block's out32; ``order=0`` keeps none. Returns (y_out, new_fifos,
+    head or None)."""
+    from cunet_tpu_torch.kernels.fused_block import fused_dense_block_infer
+
+    nb, emit = cfg.num_blocks, cfg.order > 0
+    blocks = slot["blocks"]
+
+    def push(fifo, outs):
+        return list(fifo[1:]) + [outs[0]] if emit else list(fifo)
+
+    def block(pos, feats, fifo, **kw):
+        ws = blocks[pos]
+        skip = (ws["vec_s"], ws["w_s"]) if "w_s" in ws else ()
+        return list(fused_dense_block_infer(
+            list(feats) + list(fifo), ws["vec_b"], ws["w_b"], ws["vec2"],
+            ws["w3"], ws["vec_a"], ws["w_a"], *skip, emit_layer_out=emit,
+            **kw))
+
+    inter = list(fifos["intermedia"])
+    vec_p, w_p = slot["inter"]
+    down, skips = [], []
+    for j in range(nb):
+        pre = {} if j else dict(pre_features=[y] + inter, pre_vec=vec_p,
+                                pre_w=w_p, emit_pre_out=emit)
+        outs = block(j, [y], fifos["down"][j], pool_ahead=True, **pre)
+        y, skip = outs[0], outs[1]
+        skips.append(skip)
+        down.append(push(fifos["down"][j], outs[2:]))
+        if j == 0 and emit:
+            inter = inter[1:] + [outs[-1]]
+    outs = block(nb, [y], fifos["neck"])
+    y, neck = outs[0], push(fifos["neck"], outs[1:])
+    up, hm = [None] * nb, None
+    for j in reversed(range(nb)):
+        kw = {}
+        if j == 0 and head:
+            vec_h, w_h = slot["head"]
+            kw = dict(head_vec=vec_h, head_w=w_h[:, :cfg.class_num])
+        outs = block(2 * nb - j, [y, skips[j]], fifos["up"][j],
+                     upsample_first=True, **kw)
+        y = outs[0]
+        up[j] = push(fifos["up"][j], outs[1:])
+        if kw:
+            hm = outs[-1]
+    return y, {"intermedia": inter, "down": down, "neck": neck,
+               "up": up}, hm
 
 
 def _fused_slot_eval_hg(y, fifos, slot, *, cfg: ModelConfig, i: int):
@@ -807,9 +893,10 @@ def apply_cu_net(params, state, x: torch.Tensor, *, cfg: ModelConfig,
         every bottleneck and adapter the per-bottleneck train kernel
         (:mod:`cunet_tpu_torch.kernels.train_bottleneck`); ``cfg.remat``
         checkpoints the layer-by-layer paths.
-      slots: eval kernel-path weights from :func:`eval_slots` (for the
-        same ``quant``), reused across calls by the whole-model and
-        per-slot eval paths; built from ``params`` / ``state`` when None.
+      slots: eval kernel-path weights from :func:`path_slots` (for the
+        same ``quant``: :func:`eval_slots` for the whole-model and
+        per-slot paths, :func:`block_slots` for the per-block path), reused
+        across calls; built from ``params`` / ``state`` when None.
       quant: an enabled ``QuantConfig`` runs the quantized model
         (``params`` from ``quant_eval_params`` in eval, ``quantize_params``
         of the masters in train): activation quantizers before every 3x3
@@ -828,18 +915,13 @@ def apply_cu_net(params, state, x: torch.Tensor, *, cfg: ModelConfig,
       a new dict with every BN's updated running statistics.
 
     Raises ``NotImplementedError`` for ``use_pallas`` on a CUDA tensor with
-    another dtype than bfloat16 (:func:`check_kernel_dtype`), and for the
-    eval that JAX runs on its unported per-block kernel (#5:
-    ``pallas_hourglass=False`` with ``use_scan`` and two or more steady
-    slots, unquantized).
+    another dtype than bfloat16 (:func:`check_kernel_dtype`).
     """
     quant = _active(quant)
     check_kernel_dtype(cfg, x.device)
     path = None if train else eval_path(cfg, quant)
     if train:
         _check_train_cfg(cfg, drop_seeds)
-    elif path == "layers" and cfg.use_pallas and quant is None:
-        _check_scan_eval(cfg)
     x = x.to(getattr(torch, cfg.compute_dtype))
     upd: Dict[str, torch.Tensor] = {}
     kw = dict(cfg=cfg, train=train, upd=upd)
@@ -859,8 +941,8 @@ def apply_cu_net(params, state, x: torch.Tensor, *, cfg: ModelConfig,
                 outs.append(hm)
         return outs, {**state, **upd}
 
-    if path in ("whole_model", "hourglass") and slots is None:
-        slots = eval_slots(params, state, cfg, quant)
+    if not train and slots is None:
+        slots = path_slots(params, state, cfg, quant)
     if path == "whole_model":
         from cunet_tpu_torch.kernels.model_buf import model_buf_infer
 
@@ -874,7 +956,16 @@ def apply_cu_net(params, state, x: torch.Tensor, *, cfg: ModelConfig,
                 outs.append(hm)
         return outs, state
 
+    start = max(cfg.order, 1)
     for i in range(cfg.layer_num):
+        if path == "blocks" and i >= start:
+            anchored = (i + 1) in cfg.anchors
+            y, fifos, hm = _fused_slot_eval(y, fifos, slots[i], cfg=cfg,
+                                            head=anchored)
+            if anchored:
+                outs.append(hm)
+            continue
+
         def slot(y, fifos, upd, i=i):
             """Slot i's intermedia adapter and hourglass on a copy of the
             FIFOs (a checkpoint's recompute must find its inputs as they

@@ -6,9 +6,11 @@ the same shapes), optionally mirror-ensembles with the flip test, and
 decodes heatmaps to landmark coordinates with the reference-exact
 quarter-pixel decode. With ``cfg.use_pallas`` (bf16) the forward runs the
 hand-written kernels: with the default flags every slot on the per-slot
-hourglass kernels, as JAX's ``Predictor`` runs them, and with
-``cfg.pallas_whole_model`` the whole-model eval kernels; the folded kernel
-weights of either are marshalled once, here, not per request. With an int8
+hourglass kernels, as JAX's ``Predictor`` runs them, with
+``cfg.pallas_whole_model`` the whole-model eval kernels, and with
+``pallas_hourglass=False`` under ``use_scan`` the steady slots on the
+per-block kernels; the folded kernel weights of each are marshalled once,
+here, not per request. With an int8
 ``quant`` config (``int8_infer=True``) and weights from
 ``quant_eval_params`` it serves the quantized model, on the whole-model
 int8 kernels with ``pallas_whole_model`` and ``int8_impl="pallas"``, else
@@ -26,11 +28,7 @@ from cunet_tpu_torch.config import ModelConfig
 from cunet_tpu_torch.geometry import MPII_FLIP_PAIRS, flip_test_merge
 from cunet_tpu_torch.evaluation import final_preds
 from cunet_tpu_torch.models import apply_cu_net, init_cu_net
-from cunet_tpu_torch.models.cu_net import (
-    check_kernel_dtype,
-    eval_path,
-    eval_slots,
-)
+from cunet_tpu_torch.models.cu_net import check_kernel_dtype, path_slots
 
 
 class Predictor:
@@ -39,7 +37,7 @@ class Predictor:
     Args:
       cfg: model architecture (bf16 + use_pallas for the kernel paths on
         the card: per slot with the default flags, the whole model with
-        ``pallas_whole_model``).
+        ``pallas_whole_model``, per block with ``pallas_hourglass=False``).
       params/bn_state: flat tensor dicts (``cunet_tpu_torch.models``
         layout); default = random init from ``seed``.
       device: where the forward runs, e.g. ``"cuda"`` or ``"cpu"``.
@@ -76,9 +74,7 @@ class Predictor:
         self.params = {k: v.to(self.device) for k, v in params.items()}
         self.bn_state = {k: v.to(self.device) for k, v in bn_state.items()}
         self.dtype = getattr(torch, cfg.compute_dtype)
-        self._slots = None
-        if eval_path(cfg, quant) in ("whole_model", "hourglass"):
-            self._slots = eval_slots(self.params, self.bn_state, cfg, quant)
+        self._slots = path_slots(self.params, self.bn_state, cfg, quant)
 
     @classmethod
     def from_jax_params(cls, cfg: ModelConfig, params_np, state_np, *,

@@ -12,8 +12,9 @@ The functions are those of the TPU kernels (``cunet_tpu/kernels``): the
 post-stem forward of all slots (#1 ``fused_model_buf_infer``, #2
 ``fused_model_infer``, #3 ``fused_model_loop_infer``; #3 writes every
 slot's heads), one steady slot (#4 ``fused_hourglass_infer``), one dense
-block (#5 ``fused_dense_block_infer``, the down block at r=64 with its
-pool) and one bottleneck or adapter pair (#6). Counting only: it runs on
+block of each kind (#5 ``fused_dense_block_infer``: the down block at r=64
+with its pool, the neck, the up block at r=64 with its upsample) and one
+bottleneck or adapter pair (#6). Counting only: it runs on
 the CPU and measures nothing.
 """
 
@@ -113,19 +114,45 @@ def model_work(cfg: ModelConfig, n: int, every_head: bool = False) -> Work:
     return total
 
 
-def block_work(cfg: ModelConfig, n: int) -> Work:
-    """One steady down block at r=64 in one launch (#5): [y, fifo] in; the
-    pooled ahead, the skip and the out32 out."""
+def block_work(cfg: ModelConfig, n: int, kind: str = "down",
+               pre: bool = False, head: bool = False) -> Work:
+    """One steady block in one call (#5, BN2 unfolded: its two float32
+    vectors read): ``down`` at r=64 ([y, fifo] in; the pooled ahead, the
+    skip and the out32 out), ``neck`` at r = 64 >> num_blocks ([y, fifo]
+    in; ahead and out32 out), ``up`` at r=64 ([y at r/2, skip, fifo] in:
+    the upsample folded into the read; ahead and out32 out). ``pre`` (a
+    down block): the intermedia pre-stage over [y, its FIFO] makes feature
+    0 and writes pre_out; ``head`` (an up block): the head over the ahead
+    output writes the heatmaps (down block 0 and up block 0 of a steady
+    slot carry them)."""
     c, g, cb = cfg.init_chan_num, cfg.growth_rate, cfg.bottleneck_chan
-    m = n * 64 * 64
-    kb = c + cfg.order * g
+    r = 64 >> cfg.num_blocks if kind == "neck" else 64
+    m = n * r * r
+    fifo = cfg.order * g
+    kb = (2 * c if kind == "up" else c) + fifo
+    outs = 2 if kind == "down" else 1
     w = Work()
-    w.acts += 2 * m * kb + 2 * (m // 4) * c + 2 * m * c   # in; pooled, skip
-    w.weights += 2 * kb * cb + 8 * kb + 4 * cb
+    if kind == "up":
+        w.acts += 2 * (m // 4) * c + 2 * m * (c + fifo)
+    else:
+        w.acts += 2 * m * kb
+    w.acts += 2 * (m // 4 if kind == "down" else m) * c      # ahead
+    w.acts += 2 * m * c if kind == "down" else 0              # skip
+    w.weights += 2 * kb * cb + 8 * kb + 8 * cb
     w.ops += 2 * m * kb * cb
     w.conv3x3(m, cb, g)
-    w.weights += 2 * (2 * (kb + g) * c + 8 * (kb + g))
-    w.ops += 2 * 2 * m * (kb + g) * c
+    w.weights += outs * (2 * (kb + g) * c + 8 * (kb + g))
+    w.ops += 2 * outs * m * (kb + g) * c
+    if pre:
+        # [y, its FIFO] in where y was; pre_out (feature 0) out
+        kp = (1 + cfg.order) * c
+        w.acts += 2 * m * kp
+        w.weights += 2 * kp * c + 8 * kp
+        w.ops += 2 * m * kp * c
+    if head:
+        w.acts += 2 * m * cfg.class_num                       # heatmaps
+        w.weights += 2 * c * cfg.class_num + 8 * c
+        w.ops += 2 * m * c * cfg.class_num
     return w
 
 
@@ -142,6 +169,12 @@ def main(argv=None) -> int:
                 model_work(cfg, n, every_head=True),
             "#4 one steady slot": slot_work(cfg, n, 1),
             "#5 one down block r=64, pooled": block_work(cfg, n),
+            "#5 down block 0 r=64, pooled, with the pre-stage":
+                block_work(cfg, n, pre=True),
+            "#5 the neck r=4": block_work(cfg, n, "neck"),
+            "#5 one up block r=64, upsampled": block_work(cfg, n, "up"),
+            "#5 up block 0 r=64, upsampled, with the head":
+                block_work(cfg, n, "up", head=True),
         }
         six = Work()
         six.dot(n * 64 * 64, [c, g, g], c, outs=2)

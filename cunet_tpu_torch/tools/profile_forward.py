@@ -1,7 +1,7 @@
 """Device-time breakdown of the CU-Net-8 @256 eval forward on one GPU.
 
     python -m cunet_tpu_torch.tools.profile_forward [--batch 8 64] [--int8]
-        [--path whole_model|hourglass|layers]
+        [--path whole_model|hourglass|blocks|layers]
         [--out chiprun_out/profile_forward.json]
 
 For each batch size: the forward (kernel path, bf16, random weights from
@@ -14,8 +14,10 @@ overlap), and the device's busy and idle shares of the window. ``--path``
 picks the eval path by its flags: ``whole_model`` (``pallas_whole_model``,
 the whole-model kernels, float or int8), ``hourglass`` (JAX's default
 flags: every slot on the per-slot kernels; an int8 model runs layer by
-layer there) or ``layers`` (``pallas_hourglass=False, use_scan=False``:
-the per-bottleneck kernels). Needs a CUDA device; there is no CPU
+layer there), ``blocks`` (``pallas_hourglass=False`` under ``use_scan``:
+slot 0 layer by layer, the steady slots on the per-block kernels) or
+``layers`` (``pallas_hourglass=False, use_scan=False``: the
+per-bottleneck kernels). Needs a CUDA device; there is no CPU
 fallback.
 """
 
@@ -44,6 +46,8 @@ FLAGSHIP = ModelConfig(layer_num=8, order=1, class_num=16, loss_num=8,
 PATHS = {
     "whole_model": FLAGSHIP,
     "hourglass": dataclasses.replace(FLAGSHIP, pallas_whole_model=False),
+    "blocks": dataclasses.replace(FLAGSHIP, pallas_whole_model=False,
+                                  pallas_hourglass=False),
     "layers": dataclasses.replace(FLAGSHIP, pallas_whole_model=False,
                                   pallas_hourglass=False, use_scan=False),
 }

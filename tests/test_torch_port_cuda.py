@@ -3,9 +3,13 @@ small test widths (c=16, g=8, Cb=16; widths down to 8, ragged row tiles),
 the kernel forward against the plain forward, a two-slot kernel train
 step against the plain train step, the int8 kernels bit-identical to
 their plain versions (K tails, ragged rows, unaligned int8 rows, the
-head's image-major view), alone and in the quantized forward, and the
+head's image-major view), alone and in the quantized forward, the
 train kernels' options: the dropout-mask kernel bit for bit, QuanInput's
-prologues and straight-through gate, a two-slot step with each. Skips
+prologues and straight-through gate, a two-slot step with each; the
+feature-table kernel's forms and the eval paths over it: per slot (#4),
+per bottleneck (#6), per block (#5, with the upsample and the pool
+folded into the product), and the value-carried whole-model evals (#3,
+#2). Skips
 without a CUDA device. Imports no JAX, so it runs on a machine without
 it:
 
@@ -838,8 +842,7 @@ def test_table_dot(gen, widths, m, n, mode):
     torch.cuda.synchronize()
     assert eval_ops.table_dot.launches == 1
     assert eval_ops.option_counts() == {
-        "table_dot[dual]": int(mode == "dual"),
-        "table_dot[shift2]": int(mode == "shift2")}
+        f"table_dot[{o}]": int(mode == o) for o in eval_ops.OPTIONS}
     _close(got[:, 8:8 + n], want[:, 8:8 + n])
     got[:, 8:8 + n].copy_(dst[:, 8:8 + n])
     assert torch.equal(got, dst)
@@ -909,8 +912,9 @@ def test_slot_kernels_match_plain_and_count_launches(gen, order):
     torch.cuda.synchronize()
     npos = 2 * nb + 1
     assert eval_ops.table_dot.launches == 1 + 2 * npos + 1
-    assert eval_ops.option_counts() == {"table_dot[dual]": nb,
-                                        "table_dot[shift2]": npos}
+    assert eval_ops.option_counts() == {
+        "table_dot[dual]": nb, "table_dot[shift2]": npos,
+        "table_dot[scale]": 0, "table_dot[up]": 0, "table_dot[pool]": 0}
     assert buf_ops.launch_counts() == {"affine_dot": 0, "conv3x3": npos,
                                        "maxpool2": nb, "upsample2": nb}
     to_cpu = lambda t: t.cpu()  # noqa: E731
@@ -1042,3 +1046,168 @@ def test_f32_kernel_path_raises(gen):
     outs, _ = apply_cu_net(params, state, x, cfg=dataclasses.replace(
         cfg, use_pallas=False))
     assert outs[-1].dtype == torch.float32
+
+
+# ---------------------------------------------------------------------------
+# the per-block eval (#5): table_dot's upsampled read, pooled store and
+# BN2-affine epilogue; the path over them; the whole-model evals #3 and #2
+# ---------------------------------------------------------------------------
+
+from cunet_tpu_torch.kernels import fused_model  # noqa: E402
+from cunet_tpu_torch.models.cu_net import (  # noqa: E402
+    _apply_stem,
+    _fused_slot_eval,
+    block_slots,
+)
+
+
+@pytest.mark.parametrize("n,r", [(3, 8), (2, 16), (1, 64)])
+def test_table_dot_up_and_pool_are_their_compositions(gen, n, r):
+    """``[up]`` bit for bit ``upsample2`` then ``table_dot``; ``[pool]``
+    (single and dual) bit for bit ``maxpool2`` of the unpooled kernel
+    output; ragged last row tiles (3 x 8 x 8 = 192 rows) included."""
+    c, g, m = 16, 8, n * r * r
+    half, skip, fifo = (_bf16(gen, m // 4, c), _bf16(gen, m, c),
+                        _bf16(gen, m, g))
+    k = 2 * c + g
+    v, vs = _vec(gen, k), _vec(gen, k)
+    w, ws = _bf16(gen, k, c) * k ** -0.5, _bf16(gen, k, c) * k ** -0.5
+    full = torch.empty(m, c, device="cuda", dtype=torch.bfloat16)
+    buf_ops.upsample2(half, n, r // 2, r // 2, full)
+    want = torch.empty(m, c, device="cuda", dtype=torch.bfloat16)
+    eval_ops.table_dot([full, skip, fifo], v, w, want)
+    got = torch.empty_like(want)
+    eval_ops.reset_launch_counts()
+    eval_ops.table_dot([half, skip, fifo], v, w, got, up=(True, False, False),
+                       hw=(r, r))
+    assert eval_ops.option_counts()["table_dot[up]"] == 1
+    assert torch.equal(got, want)
+
+    feats = [skip, fifo]
+    v, vs = v[:, c:].contiguous(), vs[:, c:].contiguous()
+    unpooled, s_want = (torch.empty(m, c, device="cuda",
+                                    dtype=torch.bfloat16) for _ in range(2))
+    eval_ops.table_dot(feats, v, w[c:], unpooled, vec_s=vs, w_s=ws[c:],
+                       out_s=s_want)
+    pooled = torch.empty(m // 4, c, device="cuda", dtype=torch.bfloat16)
+    buf_ops.maxpool2(unpooled, n, r, r, pooled)
+    dst = _bf16(gen, m // 4, c + 16)
+    s_got = torch.empty_like(s_want)
+    got = dst.clone()
+    eval_ops.table_dot(feats, v, w[c:], got[:, 8:8 + c], vec_s=vs,
+                       w_s=ws[c:], out_s=s_got, pool=True, hw=(r, r))
+    assert torch.equal(got[:, 8:8 + c], pooled) and torch.equal(s_got, s_want)
+    got[:, 8:8 + c].copy_(dst[:, 8:8 + c])
+    assert torch.equal(got, dst)
+    one = torch.empty(m // 4, c, device="cuda", dtype=torch.bfloat16)
+    eval_ops.table_dot(feats, v, w[c:], one, pool=True, hw=(r, r))
+    assert torch.equal(one, pooled)
+    assert eval_ops.option_counts()["table_dot[pool]"] == 2
+
+
+@pytest.mark.parametrize("n_out", [16, 68])
+def test_table_dot_scale_epilogue(gen, n_out):
+    """BN2's full affine on the float32 sum (#5's bottleneck) against the
+    plain version, with an N tail."""
+    m = 2 * 8 * 8 + 8
+    feats = [_bf16(gen, m, 16), _bf16(gen, m, 8)]
+    v, w = _vec(gen, 24), _bf16(gen, 24, n_out) * 24 ** -0.5
+    v2 = _vec(gen, n_out)
+    got, want = (torch.empty(m, n_out, device="cuda", dtype=torch.bfloat16)
+                 for _ in range(2))
+    eval_ops.reset_launch_counts()
+    eval_ops.table_dot(feats, v, w, got, vec2=v2)
+    eval_ops.table_dot_plain(feats, v, w, want, vec2=v2)
+    assert eval_ops.option_counts()["table_dot[scale]"] == 1
+    _close(got, want)
+    assert (got.float() >= 0).all()
+
+
+def test_table_dot_pool_raises_past_the_tile(gen):
+    x, v, w = _bf16(gen, 2 * 128 * 128, 16), _vec(gen, 16), _bf16(gen, 16, 8)
+    out = torch.empty(128 * 128 // 2, 8, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="2 \\* W"):
+        eval_ops.table_dot([x], v, w, out, pool=True, hw=(128, 128))
+
+
+@pytest.mark.parametrize("order", [0, 1, 2])
+def test_block_path_matches_plain_and_counts_launches(gen, order):
+    """``pallas_hourglass=False`` under ``use_scan``: the steady slots on
+    #5's kernels, each block's pool and upsample folded in (no
+    ``maxpool2`` or ``upsample2`` launch on them); against the plain
+    path, and one steady slot against the same slot on the CPU."""
+    cfg = ModelConfig(layer_num=order + 3, order=order, loss_num=order + 3,
+                      class_num=8, pallas_hourglass=False, **SMALL)
+    params, state = init_cu_net(cfg, gen, device="cuda")
+    x = torch.rand(3, 64, 64, 3, generator=gen).cuda()
+    slots = block_slots(params, state, cfg)
+    nb, start = cfg.num_blocks, max(order, 1)
+    steady = cfg.layer_num - start
+    y = _apply_stem(params, state, x.to(torch.bfloat16), cfg=cfg)
+    fifos = empty_fifos(cfg)
+    fifos["intermedia"] = [_bf16(gen, *y.shape) for _ in range(order)]
+    for key in ("down", "up"):
+        fifos[key] = [[_bf16(gen, 3, 16 >> j, 16 >> j, 8)
+                       for _ in range(order)] for j in range(nb)]
+    fifos["neck"] = [_bf16(gen, 3, 16 >> nb, 16 >> nb, 8)
+                     for _ in range(order)]
+    eval_ops.reset_launch_counts()
+    buf_ops.reset_launch_counts()
+    one = _fused_slot_eval(y, fifos, slots[start], cfg=cfg, head=True)
+    torch.cuda.synchronize()
+    npos = 2 * nb + 1
+    # pre + per position (bottleneck, adapters) + head; conv3x3 per position
+    assert eval_ops.table_dot.launches == 1 + 2 * npos + 1
+    assert eval_ops.option_counts() == {
+        "table_dot[dual]": nb, "table_dot[shift2]": 0,
+        "table_dot[scale]": npos, "table_dot[up]": 2 * nb,
+        "table_dot[pool]": nb}
+    assert buf_ops.launch_counts() == {"affine_dot": 0, "conv3x3": npos,
+                                       "maxpool2": 0, "upsample2": 0}
+    cpu = [{k: (tuple(t.cpu() for t in v) if isinstance(v, tuple) else
+                [{kk: t.cpu() for kk, t in b.items()} for b in v]
+                if k == "blocks" else v) for k, v in slots[start].items()}]
+    cpu_f = {k: [[t.cpu() for t in e] for e in v] if k in ("down", "up")
+             else [t.cpu() for t in v] for k, v in fifos.items()}
+    want = _fused_slot_eval(y.cpu(), cpu_f, cpu[0], cfg=cfg, head=True)
+    assert _rel(one[0], want[0].cuda()) <= 3e-2
+    assert _rel(one[2], want[2].cuda()) <= 3e-2
+
+    eval_ops.reset_launch_counts()
+    buf_ops.reset_launch_counts()
+    got, _ = apply_cu_net(params, state, x, cfg=cfg, slots=slots)
+    counts = buf_ops.launch_counts()
+    # the prefix slots run layer by layer (#6, cuDNN convs, torch pools)
+    assert counts == {"affine_dot": 0, "conv3x3": steady * npos,
+                      "maxpool2": 0, "upsample2": 0}
+    assert eval_ops.option_counts()["table_dot[pool]"] == steady * nb
+    plain, _ = apply_cu_net(params, state, x, cfg=dataclasses.replace(
+        cfg, use_pallas=False))
+    for a, p in zip(got, plain):
+        assert a.shape == (3, 16, 16, 8) and _rel(a, p) <= 3e-2
+
+
+@pytest.mark.parametrize("order", [0, 1, 2])
+def test_fused_model_evals_are_the_whole_model_path(gen, order):
+    """#3's every-slot heads and #2's anchored heads: their anchored heads
+    bit for bit the whole-model path's (the same kernels in the same
+    order), every head near the plain path's slot heads."""
+    cfg = ModelConfig(layer_num=4, order=order, loss_num=2, class_num=8,
+                      pallas_whole_model=True, **SMALL)
+    params, state = init_cu_net(cfg, gen, device="cuda")
+    x = torch.rand(2, 64, 64, 3, generator=gen).cuda()
+    slots = eval_slots(params, state, cfg)
+    whole, _ = apply_cu_net(params, state, x, cfg=cfg, slots=slots)
+    y = _apply_stem(params, state, x.to(torch.bfloat16), cfg=cfg)
+    buf_ops.reset_launch_counts()
+    every = fused_model.fused_model_loop_infer(y, slots, cfg)
+    assert buf_ops.affine_dot.launches > 0
+    unrolled = fused_model.fused_model_infer(y, slots, cfg)
+    assert every.shape == (2, 4, 16, 16, 8) and len(unrolled) == 2
+    for a, w, u in zip(cfg.anchors, whole, unrolled):
+        assert torch.equal(every[:, a - 1], w) and torch.equal(u, w)
+    plain_cfg = dataclasses.replace(cfg, use_pallas=False,
+                                    loss_num=cfg.layer_num)
+    plain, _ = apply_cu_net(params, state, x, cfg=plain_cfg)
+    for i, p in enumerate(plain):
+        assert _rel(every[:, i], p) <= 3e-2

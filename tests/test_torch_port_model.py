@@ -6,6 +6,8 @@
   CPU) against JAX ``apply_cu_net(use_pallas=True,
   pallas_whole_model=True)``, which runs ``fused_model_buf_infer`` in
   interpret mode here;
+- the scanned eval with ``pallas_hourglass=False`` on the port's per-block
+  kernels against JAX's, which runs ``fused_block.py`` (#5) there;
 - the bridge maps every leaf of the JAX trees, and nothing else.
 """
 
@@ -73,22 +75,33 @@ def test_kernel_forward_matches_plain_forward_bf16():
         assert rel < 3e-2, rel
 
 
-def test_per_slot_kernels_are_not_ported():
-    """The one eval JAX runs on a kernel the port lacks: with
-    ``pallas_hourglass=False`` and ``use_scan``, two or more steady slots
-    go to the per-block kernel (``fused_block.py``, #5). The port raises,
-    naming it; without the scan, or with one steady slot, the same flags
-    run layer by layer on the per-bottleneck kernel (#6)."""
+def test_per_slot_kernels_are_not_ported(monkeypatch):
+    """JAX's scanned eval with ``pallas_hourglass=False`` runs its per-block
+    kernel (``fused_block.py``, #5) on two or more steady slots; the port
+    runs its own (``kernels/fused_block.py``) there, one call per block
+    position of each steady slot, and matches JAX. Without the scan, or
+    with one steady slot, the same flags run layer by layer on the
+    per-bottleneck kernel (#6), as in JAX."""
+    from cunet_tpu_torch.kernels import fused_block
+    from cunet_tpu_torch.models.cu_net import eval_path
+
     cfg = small_cfg(4, 1, use_pallas=True, pallas_hourglass=False)
-    params, state = init_cu_net(cfg, device="cpu")
+    calls = []
+    orig = fused_block.fused_dense_block_infer
+    monkeypatch.setattr(fused_block, "fused_dense_block_infer",
+                        lambda *a, **k: calls.append(1) or orig(*a, **k))
+    assert eval_path(cfg) == "blocks"
+    for g, w in zip(*_both(cfg, images())):
+        np.testing.assert_allclose(g, w, **TOL)
+    assert len(calls) == 3 * (2 * cfg.num_blocks + 1)
     x = torch.zeros(1, 32, 32, 3)
-    with pytest.raises(NotImplementedError, match="#5"):
-        apply_cu_net(params, state, x, cfg=cfg)
     short = small_cfg(2, 1, use_pallas=True, pallas_hourglass=False)
     for c in (dataclasses.replace(cfg, use_scan=False), short):
+        assert eval_path(c) == "layers"
         p, s = init_cu_net(c, device="cpu")
         outs, _ = apply_cu_net(p, s, x, cfg=c)
         assert len(outs) == len(c.anchors)
+    assert len(calls) == 3 * (2 * cfg.num_blocks + 1)
 
 
 @pytest.mark.parametrize("layer_num,order", CONFIGS)

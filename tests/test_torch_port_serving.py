@@ -125,6 +125,8 @@ def test_port_imports_no_jax():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)\n"
         "assert not bad, bad\n"
         "assert len(mods) > 30, mods\n"
+        "assert {'cunet_tpu_torch.kernels.fused_block',\n"
+        "        'cunet_tpu_torch.kernels.fused_model'} <= set(mods), mods\n"
     )
     root = Path(__file__).resolve().parent.parent
     proc = subprocess.run([sys.executable, "-c", code], cwd=root,

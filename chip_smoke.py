@@ -200,6 +200,7 @@ SUM_REL_PER_SQRT_N = 1e-5
 PATH_REL_L2 = 3e-2   # kernel path vs plain path: 8 bf16 slots of rounding
 BATCH = 8
 TRAIN_BATCH, BN_TILE = 24, 2
+CONV_RES = (64, 32, 16, 8, 4)   # the 3x3 convs' resolutions, CU-Net-8 @256
 # kernel train step vs plain train step on the card (PARITY.md:274-288):
 # elementwise grads are chaotic at depth, so aggregate bands. The per-leaf
 # cosine is chaotic too at this init: the plain path against itself, with
@@ -343,22 +344,24 @@ def kernel_cases(torch, gen):
                   lambda f, b: f(inter[:, :c], v3, w3,
                                  b[:, 3].view(n, h0 * h0, cls)),
                   dot_work(c, cls), None))
-    # K2: 3x3 conv into the out32 slot, at r=64 and r=4 (the library
-    # call: cuDNN on the same rows viewed as channels-last NCHW)
-    for r in (64, 4):
-        m = n * r * r
-        y2 = torch.relu(randn(m, cb))
-        wk = randn(9 * cb, g, scale=(9 * cb) ** -0.5)
-        w_oihw = wk.view(3, 3, cb, g).permute(3, 2, 0, 1).contiguous()
-        dst = randn(m, c + g + g)
-        cases.append(("conv3x3", f"Cb=128->32 r={r}", dst,
-                      lambda b: b[:, c + g:c + 2 * g],
-                      lambda f, b, y2=y2, wk=wk, r=r:
-                      f(y2, wk, n, r, r, b[:, c + g:c + 2 * g]),
-                      work(sz(m, cb) + sz(9 * cb, g) + sz(m, g),
-                           2 * m * 9 * cb * g),
-                      lambda y2=y2, w_oihw=w_oihw, r=r:
-                      F.conv2d(nchw(y2, r), w_oihw, padding=1)))
+    # K2: 3x3 conv into the out32 slot at every resolution of the forward,
+    # batch 8 then 64, r=64 first (the kernels line records it); the
+    # library call: cuDNN on the same rows viewed as channels-last NCHW
+    for nb in (n, 64):
+        for r in CONV_RES:
+            m = nb * r * r
+            y2 = torch.relu(randn(m, cb))
+            wk = randn(9 * cb, g, scale=(9 * cb) ** -0.5)
+            w_oihw = wk.view(3, 3, cb, g).permute(3, 2, 0, 1).contiguous()
+            dst = randn(m, c + g + g)
+            cases.append(("conv3x3", f"Cb=128->32 r={r} batch {nb}", dst,
+                          lambda b: b[:, c + g:c + 2 * g],
+                          lambda f, b, y2=y2, wk=wk, r=r, nb=nb:
+                          f(y2, wk, nb, r, r, b[:, c + g:c + 2 * g]),
+                          work(sz(m, cb) + sz(9 * cb, g) + sz(m, g),
+                               2 * m * 9 * cb * g),
+                          lambda y2=y2, w_oihw=w_oihw, r=r:
+                          F.conv2d(nchw(y2, r), w_oihw, padding=1)))
     # K3: pool 64 -> 32 into the next down buffer
     ahead = randn(m64, c)
     down32 = randn(n * 32 * 32, c + g + g)
@@ -604,7 +607,7 @@ def train_kernel_cases(torch, tops, bops, gen):
                   ("sum", 2 * h0 * h0),
                   work(sz(m64, 192) + 2 * sz(m64, 192, e=4) + vec_bytes(192),
                        8 * m64 * 192, "f32"), None))
-    for r in (64, 4):
+    for r in CONV_RES:
         m = n * r * r
         yb = randn(m, cb)
         _, _, vb = vec(yb)
@@ -1215,6 +1218,26 @@ def option_kernel_cases(torch, tops, bops, gen):
     xsh, vsh = straddle(m64, c)
     conv_ops = 2 * m64 * 9 * cb * g
     q = 8
+    # the quantized conv and its dW at the lower resolutions, after r=64
+    lower = []
+    for r in CONV_RES[1:]:
+        m = n * r * r
+        y_r = (torch.randn(m, cb, generator=gen) * 2).to(dev, torch.bfloat16)
+        v_r = vec(y_r)
+        d_r = torch.randn(m, g, generator=gen).to(dev, torch.bfloat16)
+        ops_r = 2 * m * 9 * cb * g
+        lower += [
+            (bops.conv3x3, f"Cb=128->32 r={r} quan(relu(BN2)) prologue",
+             bf16(m, g), lambda f, o, y_r=y_r, v_r=v_r, r=r:
+             f(y_r, w3, n, r, r, o, vec=v_r, bits_i=q), ("bf16",),
+             work(sz(m, cb) + vec_bytes(cb) + sz(9 * cb, g) + sz(m, g),
+                  ops_r), None, "conv3x3[bits_i]"),
+            (tops.conv3x3_dw, f"(9*128, 32) r={r} quantized z",
+             f32(9 * cb, g), lambda f, o, y_r=y_r, v_r=v_r, d_r=d_r, r=r:
+             f(y_r, v_r, d_r, n, r, r, o, bits_i=q), ("sum", m),
+             work(sz(m, cb) + vec_bytes(cb) + sz(m, g)
+                  + sz(9 * cb, g, e=4), ops_r), None, "conv3x3_dw[bits_i]"),
+        ]
     return [
         (bops.conv3x3, "Cb=128->32 r=64 quan(relu(BN2)) prologue",
          bf16(m64, g), lambda f, o: f(yb, w3, n, h0, h0, o, vec=vb,
@@ -1244,7 +1267,7 @@ def option_kernel_cases(torch, tops, bops, gen):
          ("sum", cls),
          work(sz(m64, cls) + sz(c, cls) + sz(m64, c) + sz(2, c, e=4)
               + sz(m64, c, e=4), 2 * m64 * c * cls), None, "affine_dx[ste]"),
-    ]
+    ] + lower
 
 
 def quan_exact_checks(torch, tops, bops, gen):
@@ -1319,16 +1342,9 @@ def quan_exact_checks(torch, tops, bops, gen):
                 f"differ")
 
 
-def phase_quant_training(torch, tops, bops, dops, gpu):
-    """Phase 8: the QuanInput options against their plain versions, then
-    CU-Net-8 @256 through quant_train_step (W1/I8/G8): kernel step against
-    plain step held to a same-run control, three quant_train_steps (the
-    main path), times."""
-    from cunet_tpu_torch import QuantConfig, TrainConfig
-    from cunet_tpu_torch.quant import preprocess_masters
-    from cunet_tpu_torch.quant import selected_conv_predicate
-    from cunet_tpu_torch.train import create_train_state, quant_train_step
-
+def phase_option_kernels(torch, tops, bops):
+    """Phase 8's kernel half: each QuanInput option against its plain
+    version (the gates bit for bit), then the quantizer's exact checks."""
     gen = torch.Generator().manual_seed(7)
     plain_of = {**bops.PLAIN, **tops.PLAIN}
     results = {}
@@ -1347,6 +1363,20 @@ def phase_quant_training(torch, tops, bops, dops, gpu):
                     f"version")
             require(0.05 < passed < 0.95, f"{name}: degenerate gate")
     quan_exact_checks(torch, tops, bops, gen)
+    return results
+
+
+def phase_quant_training(torch, tops, bops, dops, gpu):
+    """Phase 8: the QuanInput options against their plain versions, then
+    CU-Net-8 @256 through quant_train_step (W1/I8/G8): kernel step against
+    plain step held to a same-run control, three quant_train_steps (the
+    main path), times."""
+    from cunet_tpu_torch import QuantConfig, TrainConfig
+    from cunet_tpu_torch.quant import preprocess_masters
+    from cunet_tpu_torch.quant import selected_conv_predicate
+    from cunet_tpu_torch.train import create_train_state, quant_train_step
+
+    results = phase_option_kernels(torch, tops, bops)
 
     quant = QuantConfig(bits_w=1, bits_i=8, bits_g=8, enabled=True)
     cfg, params, state, batch = flagship_train(torch)

@@ -18,7 +18,7 @@
 // Each entry point launches on the stream it is given and returns
 // cudaGetLastError() so the wrapper can raise on a refused launch.
 
-#include "common.cuh"
+#include "halo.cuh"
 
 namespace {
 
@@ -77,71 +77,254 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// K2 conv3x3: SAME 3x3 conv of (B*H*W, C) rows as an implicit GEMM of depth
-// 9*C against the HWIO weight viewed as (9*C, G). Zero padding is per image.
-// With PRO, each in-image input vector first goes through the ghost-BN
-// prologue relu(y*inv[t] + shift[t]) in f32 and is rounded to bf16 (t is the
-// tile of the source row, which is the tile of the output row: a tile holds
-// whole images); the padding stays zero. With bits > 0 the prologue value
-// also goes through the QuanInput quantizer (the train forward's
-// quan(relu(BN2)) before the 3x3 conv).
+// K2 conv3x3: SAME 3x3 conv of (B*H*W, C) rows,
+//   out[m, n] = sum_{tap, c} pro(y[src(m, tap), c]) * W[tap*C + c, n]
+// with the HWIO weight viewed as (9*C, G) and zero where src(m, tap) lies
+// outside m's image. With PRO each input element first goes through the
+// ghost-BN prologue relu(y*inv[t] + shift[t]) in f32, rounded to bf16 (t
+// is the BN tile of the source row; a BN tile holds whole images), and with
+// bits > 0 through QuanInput's quantizer; the padding stays zero.
+//
+// Design (the plan is the wrapper's, kernels/buf_ops.py::conv3x3_plan):
+// - Persistent blocks of 12 warps walk tiles of bm output rows (and column
+//   groups of NT*8 outputs where G > 64). The weight slice of a (column
+//   group, channel chunk) sits in shared memory, loaded once per block when
+//   one slice is the whole weight (9 x 128 x 32 bf16, 72 KB, on the main
+//   path), under a 16-byte XOR swizzle so that ldmatrix reads it without
+//   bank conflicts.
+// - A tile's input is one halo tile (halo.cuh): loaded with cp.async while
+//   the previous tile computes (two stages where they fit), the prologue
+//   applied once per element when it has landed. The 9 taps read shifted
+//   windows of it, so an input row comes from L2 once per tile, not 9
+//   times, and the prologue runs once per element, not once per tap.
+// - The product is mma.sync m16n8k16 fed by ldmatrix. The taps' A operands
+//   are windows at row offsets of +-1 and +-W, with out-of-image rows
+//   pointed at a zero row: wgmma's shared-memory operand (8-row core
+//   matrices at fixed strides) cannot express either.
+// - A warp owns 32 rows (two m16 tiles share each weight fragment it
+//   reads): bm/32 warps split the rows and 12/(bm/32) the 9*C reduction
+//   (small M: at bm = 32 each of the 12 warps takes 9*C/12 of the depth).
+//   Their partial sums meet in shared memory and are added in warp order:
+//   deterministic, no atomics, one launch. Results leave as 16-byte bf16
+//   stores into the strided output view.
+// Bound by bytes (3.2 us at r=64 batch 8, Cb=128 -> G=32); measured 17.1
+// us there and 117 at batch 64 on an H100 80GB HBM3 at 700 W (PERF.md,
+// PR 8), where removing the loads, the weight reads or the epilogue each
+// saves 5-20 % and wgmma with A from registers was slower.
 // ---------------------------------------------------------------------------
-template <int BN, int WARPS_N, bool PRO>
-__global__ void __launch_bounds__(kThreads)
-    conv3x3_kernel(const bf16* __restrict__ y, long long ldy, long long M,
-                   int H, int W, int C, const bf16* __restrict__ w, int G,
+constexpr int kConvWarps = 12;    // warps of a conv3x3 block
+constexpr int kConvMT = 2;        // m16 row tiles of a warp
+constexpr int kConvThreads = kConvWarps * 32;
+constexpr int kConvWarpRows = 16 * kConvMT;
+
+struct ConvPlan {
+  int bm;           // output rows per tile: 32, 64 or 128
+  int kc;           // input channels per chunk, a multiple of 16
+  int nchunk;       // chunks over the channels zero-padded to 16
+  int ncol;         // column groups of NT*8 outputs
+  int stages;       // halo buffers: 2 (double-buffered) or 1
+  int zero_off;     // shared-memory byte offsets: the zero row,
+  int stage_off;    //   the first stage,
+  int stage_bytes;  //   bytes per stage (halo tile, later partial sums)
+};
+
+// The 16-byte column swizzle of a weight slice with NT 16-byte chunks per
+// row: eight consecutive rows of one chunk land in eight bank groups.
+template <int NT>
+__device__ __forceinline__ int wswz(int k) {
+  if (NT == 8) return k & 7;
+  if (NT == 4) return (k >> 1) & 3;
+  if (NT == 2 || NT == 6) return (k >> 2) & 1;
+  return 0;  // odd NT: the row stride alone spreads the rows
+}
+
+template <int NT, bool PRO>
+__global__ void __launch_bounds__(kConvThreads)
+    conv3x3_kernel(const bf16* __restrict__ y, long long ldy, int M, int H,
+                   int W, int C, const bf16* __restrict__ w, int G,
                    const float* __restrict__ inv,
                    const float* __restrict__ shift, long long vstride,
-                   long long tile_rows, int bits, OutView out) {
-  using T = Tiles<BN, WARPS_N>;
-  __shared__ Smem<BN, WARPS_N> s;
-  const int warp = threadIdx.x / 32;
-  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-  const long long m0 = (long long)blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const long long hw = (long long)H * W;
+                   int tile_rows, int bits, OutView out, ConvPlan p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int GB = NT * 8;
+  constexpr int RS = GB + 4;  // f32 row stride of the partial sums
+  const int tiles = (M + p.bm - 1) / p.bm;
+  const int items = tiles * p.ncol;
+  if ((int)blockIdx.x >= items) return;
+  const uint32_t s0 = smem_u32(smem);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm_n = p.bm / kConvWarpRows, wk_n = kConvWarps / wm_n;
+  const int wm = warp % wm_n, wk = warp / wm_n;
+  const int kst = p.kc >> 4, steps = 9 * kst;
+  const int s_lo = wk * steps / wk_n, s_hi = (wk + 1) * steps / wk_n;
+  const int hstride = (p.kc + kHaloPad) * 2;
+  const int halo_rows = p.bm + 2 * W + 2;
+  const int hw = H * W;
+  const int Q = ((items - 1 - (int)blockIdx.x) / (int)gridDim.x + 1) *
+                p.nchunk;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[T::FM][T::FN];
-#pragma unroll
-  for (int i = 0; i < T::FM; ++i)
-#pragma unroll
-    for (int j = 0; j < T::FN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+  for (int i = tid; i < p.kc / 8; i += kConvThreads)
+    *reinterpret_cast<uint4*>(smem + p.zero_off + i * 16) =
+        make_uint4(0u, 0u, 0u, 0u);
 
-  for (int tap = 0; tap < 9; ++tap) {
-    const int dy = tap / 3 - 1, dx = tap % 3 - 1;
-    for (int c0 = 0; c0 < C; c0 += BK) {
-      for (int c = threadIdx.x; c < BM * BK / 8; c += kThreads) {
-        const int r = c / (BK / 8), kc = (c % (BK / 8)) * 8;
-        const long long m = m0 + r;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (m < M && c0 + kc < C) {
-          const long long img = m / hw;
-          const int p = (int)(m - img * hw);
-          const int yy = p / W + dy, xx = p % W + dx;
-          if (yy >= 0 && yy < H && xx >= 0 && xx < W) {
-            const long long src = img * hw + (long long)yy * W + xx;
-            v = *reinterpret_cast<const uint4*>(y + src * ldy + c0 + kc);
-            if (PRO) {
-              Pack8 in, o;
-              in.v = v;
-              const long long vo = (src / tile_rows) * vstride + c0 + kc;
-#pragma unroll
-              for (int t = 0; t < 8; ++t)
-                o.u[t] = act(lo(in, t), inv[vo + t], shift[vo + t], bits);
-              v = o.v;
-            }
-          }
-        }
-        *reinterpret_cast<uint4*>(&s.a[r][kc]) = v;
-      }
-      // weight rows tap*C + [c0, c0+BK), masked at C
-      load_b(s, w + (long long)tap * C * G, G, c0, C, n0, G);
-      __syncthreads();
-      mma_stage(s, wm, wn, acc);
+  // stage q of this block: its (tile, column group) item and channel chunk
+  struct Stage {
+    int tile, col, chunk;
+  };
+  const auto item = [&](int q) {
+    const int it = (int)blockIdx.x + (q / p.nchunk) * (int)gridDim.x;
+    return Stage{it % tiles, it / tiles, q % p.nchunk};
+  };
+  const auto issue_halo = [&](int q) {
+    const Stage sq = item(q);
+    load_halo(s0 + p.stage_off + (q % p.stages) * p.stage_bytes, y, ldy, M,
+              C, sq.tile * p.bm - W - 1, halo_rows, sq.chunk * p.kc, p.kc,
+              tid, kConvThreads);
+    cp_async_commit();
+  };
+  const auto issue_weight = [&](int col, int chunk) {
+    for (int i = tid; i < 9 * p.kc * NT; i += kConvThreads) {
+      const int r = i / NT, j = i - (i / NT) * NT;
+      const int tap = r / p.kc, c = chunk * p.kc + (r - tap * p.kc);
+      const int n = col * GB + j * 8;
+      const bool ok = c < C && n < G;
+      cp_async16(s0 + (r * NT + (j ^ wswz<NT>(r))) * 16,
+                 ok ? w + ((long long)tap * C + c) * G + n : w, ok ? 16 : 0);
+    }
+    cp_async_commit();
+  };
+
+  // this lane's ldmatrix coordinates: A rows wm*32 + (l & 15) + 16i, at
+  // byte offset (l >> 4) * 16; B weight row (mat & 1) * 8 + (l & 7) of
+  // chunk mat >> 1
+  const int a_row = wm * kConvWarpRows + (lane & 15);
+  const int a_ofs = (lane >> 4) * 16;
+  const int b_mat = lane >> 3;
+  const int b_row = (b_mat & 1) * 8 + (lane & 7);
+
+  float acc[kConvMT][NT][4];
+  int wkey = -1;
+  if (p.stages == 2) issue_halo(0);
+  for (int q = 0; q < Q; ++q) {
+    const Stage sq = item(q);
+    const int tile = sq.tile, col = sq.col, chunk = sq.chunk;
+    if (p.stages == 1) issue_halo(q);
+    const int key = col * p.nchunk + chunk;
+    if (key != wkey) {
+      issue_weight(col, chunk);
+      wkey = key;
+    }
+    if (p.stages == 2 && q + 1 < Q) {
+      issue_halo(q + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    unsigned char* hs = smem + p.stage_off + (q % p.stages) * p.stage_bytes;
+    const int m0 = tile * p.bm;
+    if (PRO) {
+      halo_prologue(reinterpret_cast<bf16*>(hs), M, C, m0 - W - 1,
+                    halo_rows, chunk * p.kc, p.kc, inv, shift, vstride,
+                    tile_rows, bits, tid, kConvThreads);
       __syncthreads();
     }
+    if (chunk == 0) {
+#pragma unroll
+      for (int i = 0; i < kConvMT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+    }
+
+    // the lane's two A rows (a_row and a_row + 16): image position
+    int yy[kConvMT], xx[kConvMT];
+    bool in_range[kConvMT];
+#pragma unroll
+    for (int i = 0; i < kConvMT; ++i) {
+      const int m = m0 + a_row + 16 * i;
+      in_range[i] = m < M;
+      const int pix = in_range[i] ? m % hw : 0;
+      yy[i] = pix / W;
+      xx[i] = pix - yy[i] * W;
+    }
+    const uint32_t hbase = smem_u32(hs), zbase = s0 + p.zero_off;
+    for (int tap = s_lo / kst; tap * kst < s_hi; ++tap) {
+      const int k_lo = s_lo > tap * kst ? s_lo - tap * kst : 0;
+      const int k_hi = s_hi < (tap + 1) * kst ? s_hi - tap * kst : kst;
+      uint32_t abase[kConvMT];
+#pragma unroll
+      for (int i = 0; i < kConvMT; ++i) {
+        const int hr = tap_row(a_row + 16 * i, yy[i], xx[i], in_range[i],
+                               tap / 3 - 1, tap % 3 - 1, H, W);
+        abase[i] =
+            (hr < 0 ? zbase : hbase + (uint32_t)(hr * hstride)) + a_ofs;
+      }
+      const int rb = tap * p.kc + b_row;
+#pragma unroll 2
+      for (int kk = k_lo; kk < k_hi; ++kk) {
+        uint32_t a[kConvMT][4];
+#pragma unroll
+        for (int i = 0; i < kConvMT; ++i) ldsm_x4(a[i], abase[i] + kk * 32);
+        const int kr = rb + kk * 16;
+#pragma unroll
+        for (int jp = 0; jp < NT / 2; ++jp) {
+          const int j = 2 * jp + (b_mat >> 1);
+          uint32_t b[4];
+          ldsm_x4_t(b, s0 + (kr * NT + (j ^ wswz<NT>(kr))) * 16);
+#pragma unroll
+          for (int i = 0; i < kConvMT; ++i) {
+            mma16816(acc[i][2 * jp], a[i], b[0], b[1]);
+            mma16816(acc[i][2 * jp + 1], a[i], b[2], b[3]);
+          }
+        }
+        if (NT & 1) {
+          uint32_t b0, b1;
+          ldsm_x2_t(b0, b1, s0 + (kr * NT + ((NT - 1) ^ wswz<NT>(kr))) * 16);
+#pragma unroll
+          for (int i = 0; i < kConvMT; ++i) mma16816(acc[i][NT - 1], a[i], b0, b1);
+        }
+      }
+    }
+
+    if (chunk == p.nchunk - 1) {
+      // partial sums into this (now read) stage, added in warp order
+      __syncthreads();
+      float* red = reinterpret_cast<float*>(hs);
+      float* rw = red + (wk * p.bm + wm * kConvWarpRows + (lane >> 2)) * RS +
+                  2 * (lane & 3);
+#pragma unroll
+      for (int i = 0; i < kConvMT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          *reinterpret_cast<float2*>(rw + 16 * i * RS + 8 * j) =
+              make_float2(acc[i][j][0], acc[i][j][1]);
+          *reinterpret_cast<float2*>(rw + (16 * i + 8) * RS + 8 * j) =
+              make_float2(acc[i][j][2], acc[i][j][3]);
+        }
+      __syncthreads();
+      for (int i = tid; i < p.bm * NT; i += kConvThreads) {
+        const int r = i / NT, j = i - (i / NT) * NT;
+        const int n = col * GB + j * 8;
+        if (m0 + r >= M || n >= G) continue;
+        float v[8];
+        const float* src = red + r * RS + j * 8;
+        load8(src, v);
+        for (int k = 1; k < wk_n; ++k) {
+          float u[8];
+          load8(src + k * p.bm * RS, u);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) v[e] += u[e];
+        }
+        Pack8 o;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) o.u[e] = hi(v[e]);
+        *reinterpret_cast<uint4*>(out_row(out, m0 + r) + n) = o.v;
+      }
+    }
+    __syncthreads();
   }
-  store_tile<BN, WARPS_N, false>(s, wm, wn, m0, n0, M, G, nullptr, out, acc);
 }
 
 // ---------------------------------------------------------------------------
@@ -229,19 +412,37 @@ void launch_affine_dot(const bf16* x, long long ldx, long long M, int K,
         N, bias, out);
 }
 
-template <int BN, int WARPS_N>
-void launch_conv3x3(const bf16* y, long long ldy, long long M, int H, int W,
-                    int C, const bf16* w, int G, VecArgs v, OutView out,
-                    cudaStream_t stream) {
-  const dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((G + BN - 1) / BN));
-  if (v.inv)
-    conv3x3_kernel<BN, WARPS_N, true><<<grid, kThreads, 0, stream>>>(
-        y, ldy, M, H, W, C, w, G, v.inv, v.shift, v.vstride, v.tile_rows,
-        v.bits, out);
-  else
-    conv3x3_kernel<BN, WARPS_N, false><<<grid, kThreads, 0, stream>>>(
-        y, ldy, M, H, W, C, w, G, v.inv, v.shift, v.vstride, v.tile_rows,
-        v.bits, out);
+// Launch a persistent kernel on at most as many blocks as fit on the card
+// at once (never more than ``items``), with ``smem`` bytes of dynamic shared
+// memory. The result does not depend on the grid: a tile is computed the
+// same way by whichever block takes it.
+template <typename Kernel, typename... Args>
+int launch_persistent(Kernel kern, int items, int threads, int smem,
+                      cudaStream_t st, Args... args) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  int per_sm = 0, dev = 0, nsm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
+                                                    smem);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
+  const int grid = items < per_sm * nsm ? items : per_sm * nsm;
+  kern<<<grid, threads, smem, st>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+template <int NT>
+int launch_conv3x3(const bf16* y, long long ldy, int M, int H, int W, int C,
+                   const bf16* w, int G, VecArgs v, OutView out,
+                   const ConvPlan& p, int smem, cudaStream_t st) {
+  const int items = (M + p.bm - 1) / p.bm * p.ncol;
+  auto kern = v.inv ? conv3x3_kernel<NT, true> : conv3x3_kernel<NT, false>;
+  return launch_persistent(kern, items, kConvThreads, smem, st, y, ldy, M, H, W,
+                           C, w, G, v.inv, v.shift, v.vstride,
+                           (int)v.tile_rows, v.bits, out, p);
 }
 
 unsigned elementwise_blocks(long long total) {
@@ -281,22 +482,27 @@ int cunet_affine_dot(const void* x, long long ldx, long long M, int K,
 int cunet_conv3x3(const void* y, long long ldy, long long M, int H, int W,
                   int C, const void* w, int G, const void* inv,
                   const void* shift, long long vstride, long long tile_rows,
-                  int bits, void* out, long long ldo, void* stream) {
+                  int bits, void* out, long long ldo, int bm, int kc,
+                  int nchunk, int nt, int ncol, int stages, int zero_off,
+                  int stage_off, int stage_bytes, int smem, void* stream) {
   const OutView ov{static_cast<bf16*>(out), ldo, M, 0};
   const VecArgs v{static_cast<const float*>(inv),
                   static_cast<const float*>(shift), vstride, tile_rows, bits};
+  const ConvPlan p{bm, kc, nchunk, ncol, stages, zero_off, stage_off,
+                   stage_bytes};
   const auto* yp = static_cast<const bf16*>(y);
   const auto* wp = static_cast<const bf16*>(w);
   const auto st = static_cast<cudaStream_t>(stream);
-  if (G <= 16)
-    launch_conv3x3<16, 1>(yp, ldy, M, H, W, C, wp, G, v, ov, st);
-  else if (G <= 32)
-    launch_conv3x3<32, 2>(yp, ldy, M, H, W, C, wp, G, v, ov, st);
-  else if (G <= 64)
-    launch_conv3x3<64, 2>(yp, ldy, M, H, W, C, wp, G, v, ov, st);
-  else
-    launch_conv3x3<128, 2>(yp, ldy, M, H, W, C, wp, G, v, ov, st);
-  return (int)cudaGetLastError();
+  const int m = (int)M;
+  switch (nt) {
+#define CUNET_CONV_NT(n) \
+  case n:                \
+    return launch_conv3x3<n>(yp, ldy, m, H, W, C, wp, G, v, ov, p, smem, st);
+    CUNET_CONV_NT(1) CUNET_CONV_NT(2) CUNET_CONV_NT(3) CUNET_CONV_NT(4)
+    CUNET_CONV_NT(5) CUNET_CONV_NT(6) CUNET_CONV_NT(7) CUNET_CONV_NT(8)
+#undef CUNET_CONV_NT
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 int cunet_maxpool2(const void* x, long long ldx, void* out, long long ldo,

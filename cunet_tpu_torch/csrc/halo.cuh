@@ -1,0 +1,160 @@
+// Pieces shared by the two 3x3-conv kernels, conv3x3 (buf_kernels.cu) and
+// conv3x3_dw (train_kernels.cu): asynchronous 16-byte copies into shared
+// memory (cp.async), ldmatrix loads of 8x8 bf16 tiles, the m16n8k16 bf16
+// tensor-core product (mma.sync), and the halo tile both kernels stage.
+//
+// A halo tile holds rows [g0, g0 + rows) of an (M, C) bf16 channel-plane
+// matrix, channels [c0, c0 + kc), at a row stride of kc + kHaloPad
+// elements: 16 bytes more than the data, so the eight 16-byte rows that
+// one ldmatrix tile reads fall in eight different bank groups whatever
+// row they start at. For output rows [m0, m0 + bm) of an image-major
+// (B, H, W) grid the tile starts at g0 = m0 - W - 1 and holds
+// bm + 2W + 2 rows: every source row m + dy*W + dx of a 3x3 tap is then
+// the tile row (m - m0) + W + 1 + dy*W + dx. A tap whose source lies
+// outside the image (the SAME padding, and every border between two
+// images flattened into one tile) reads a zero row instead: each lane of
+// an ldmatrix gives its own row address, so the padding costs no
+// branch in the product and no padded copy in memory.
+
+#pragma once
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kHaloPad = 8;   // bf16 elements of padding per halo row
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; src_bytes 0 writes zeros
+// (src is then not read, but must still be a valid address).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x2_t(uint32_t& r0, uint32_t& r1,
+                                          uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r0), "=r"(r1)
+      : "r"(addr));
+}
+
+// d += a (16x16, row-major) * b (16x8, column-major), bf16 in, f32 sums.
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+// Issue the copies of a halo tile into shared memory at ``dst``: rows
+// outside [0, M) are left unwritten (no valid tap reads them), channels at
+// or past C are zero-filled (the k16 steps run over them).
+__device__ __forceinline__ void load_halo(uint32_t dst,
+                                          const bf16* __restrict__ x,
+                                          long long ldx, int M, int C, int g0,
+                                          int rows, int c0, int kc, int tid,
+                                          int nthr) {
+  const int vecs = kc / 8;
+  const int stride = (kc + kHaloPad) * 2;
+  const int r_lo = g0 < 0 ? -g0 : 0;
+  const int r_hi = M - g0 < rows ? M - g0 : rows;
+  const int n = (r_hi - r_lo) * vecs;
+  for (int i = tid; i < n; i += nthr) {
+    const int r = r_lo + i / vecs, v = i % vecs;
+    const int c = c0 + v * 8;
+    const bool ok = c < C;
+    cp_async16(dst + r * stride + v * 16,
+               ok ? x + (long long)(g0 + r) * ldx + c : x, ok ? 16 : 0);
+  }
+}
+
+// The ghost-BN prologue on a landed halo tile, in place: every element of
+// a row in [0, M) and a channel below C becomes
+// act(x, inv[t, c], shift[t, c], bits) with t the BN tile of its row, once
+// per element. Zero-filled channel padding stays zero. Each thread keeps
+// one 8-channel vector and walks rows, so its inv/shift values are
+// reloaded only where the BN tile changes.
+__device__ __forceinline__ void halo_prologue(
+    bf16* s, int M, int C, int g0, int rows, int c0, int kc,
+    const float* __restrict__ inv, const float* __restrict__ shift,
+    long long vstride, int tile_rows, int bits, int tid, int nthr) {
+  const int vecs = kc / 8;
+  const int stripes = nthr / vecs;
+  const int v = tid % vecs, r0 = tid / vecs;
+  const int c = c0 + v * 8;
+  if (r0 >= stripes || c >= C) return;
+  const int r_lo = g0 < 0 ? -g0 : 0;
+  const int r_hi = M - g0 < rows ? M - g0 : rows;
+  int t_have = -1;
+  float a[8], b[8];
+  for (int r = r_lo + r0; r < r_hi; r += stripes) {
+    const int t = (g0 + r) / tile_rows;
+    if (t != t_have) {
+      const long long vo = (long long)t * vstride + c;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        a[q] = inv[vo + q];
+        b[q] = shift[vo + q];
+      }
+      t_have = t;
+    }
+    uint4* p = reinterpret_cast<uint4*>(s + r * (kc + kHaloPad) + v * 8);
+    Pack8 in, o;
+    in.v = *p;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) o.u[q] = act(lo(in, q), a[q], b[q], bits);
+    *p = o.v;
+  }
+}
+
+// Row ``r`` (0 <= r < rows) of a tile starting at output row m0 seen
+// through tap (dy, dx): the halo row it reads, or -1 where the source is
+// outside its image or the row itself is not in [m0, row_end).
+__device__ __forceinline__ int tap_row(int r, int yy, int xx, bool in_range,
+                                       int dy, int dx, int H, int W) {
+  const int sy = yy + dy, sx = xx + dx;
+  if (!in_range || sy < 0 || sy >= H || sx < 0 || sx >= W) return -1;
+  return r + W + 1 + dy * W + dx;
+}
+
+}  // namespace

@@ -6,7 +6,8 @@
 //   bn_stats      <- _stats                   (per-tile mean, biased var)
 //   dx (1x1/3x3)  <- _dot_dx + relu mask of _affine_bwd, and the d_z2 half
 //                    of _conv3x3_bwd (transposed 3x3, flipped taps)
-//   dw (1x1/3x3)  <- _dot_dw, and the dW3 half of _conv3x3_bwd
+//   dw (1x1)      <- _dot_dw
+//   conv3x3_dw    <- the dW3 half of _conv3x3_bwd (halo tiles, mma.sync)
 //   bn_bwd        <- the BN-jacobian of _affine_bwd (two sums per tile)
 //   maxpool2_bwd  <- _pool_bwd (first-winner routing)
 //   upsample2_bwd <- _upsample_bwd (2x2 sum)
@@ -27,7 +28,7 @@
 // Each entry point launches on the stream it is given and returns
 // cudaGetLastError().
 
-#include "common.cuh"
+#include "halo.cuh"
 
 namespace {
 
@@ -308,14 +309,13 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// B3 / B5 dw: the weight-gradient GEMM of a stage, one row chunk per block.
-//   part[s, tap*K + k, n] = sum_{m in chunk s} z[src(m, tap), k] * dY[m, n]
+// B3 dw: the weight-gradient GEMM of a 1x1 stage, one row chunk per block.
+//   part[s, k, n] = sum_{m in chunk s} z[m, k] * dY[m, n]
 // with z = bf16(relu(x*inv[t] + shift[t])) recomputed in the prologue (the
-// forward's activation), src = m (taps == 1) or the pixel at plus the
-// tap's offset (taps == 9, zero outside the image). The z tile is staged
-// row-major in shared memory and read as a column-major WMMA A operand
-// (z^T). sum_rows adds the chunks in order. With bits > 0, z is the
-// QuanInput-quantized activation (dW against what the forward's GEMM read).
+// forward's activation). The z tile is staged row-major in shared memory
+// and read as a column-major WMMA A operand (z^T). sum_rows adds the chunks
+// in order. With bits > 0, z is the QuanInput-quantized activation (dW
+// against what the forward's GEMM read).
 // ---------------------------------------------------------------------------
 template <int BN, int WARPS_N>
 struct SmemT {
@@ -327,23 +327,18 @@ struct SmemT {
 template <int BN, int WARPS_N>
 __global__ void __launch_bounds__(kThreads)
     dw_kernel(const bf16* __restrict__ x, long long ldx, long long M, int K,
-              int H, int W, int taps, const float* __restrict__ inv,
-              const float* __restrict__ shift, long long vstride,
-              long long tile_rows, int bits, const bf16* __restrict__ dy,
-              long long ldd, int N, long long chunk, float* __restrict__ part) {
+              const float* __restrict__ inv, const float* __restrict__ shift,
+              long long vstride, long long tile_rows, int bits,
+              const bf16* __restrict__ dy, long long ldd, int N,
+              long long chunk, float* __restrict__ part) {
   using T = Tiles<BN, WARPS_N>;
   __shared__ SmemT<BN, WARPS_N> s;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-  const int ktiles = (K + BM - 1) / BM;
-  const int tap = blockIdx.x / ktiles;
-  const int k0 = (blockIdx.x % ktiles) * BM;
+  const int k0 = blockIdx.x * BM;
   const int n0 = blockIdx.y * BN;
   const long long rb = (long long)blockIdx.z * chunk;
   const long long re = rb + chunk < M ? rb + chunk : M;
-  const int dyo = taps == 1 ? 0 : tap / 3 - 1;
-  const int dxo = taps == 1 ? 0 : tap % 3 - 1;
-  const long long hw = (long long)H * W;
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[T::FM][T::FN];
 #pragma unroll
@@ -358,23 +353,12 @@ __global__ void __launch_bounds__(kThreads)
       Pack8 o;
       o.v = make_uint4(0u, 0u, 0u, 0u);
       if (m < re && k0 + kc < K) {
-        long long src = m;
-        bool ok = true;
-        if (taps != 1) {
-          const long long img = m / hw;
-          const int p = (int)(m - img * hw);
-          const int yy = p / W + dyo, xx = p % W + dxo;
-          ok = yy >= 0 && yy < H && xx >= 0 && xx < W;
-          src = img * hw + (long long)yy * W + xx;
-        }
-        if (ok) {
-          Pack8 in;
-          in.v = *reinterpret_cast<const uint4*>(x + src * ldx + k0 + kc);
-          const long long vo = (src / tile_rows) * vstride + k0 + kc;
+        Pack8 in;
+        in.v = *reinterpret_cast<const uint4*>(x + m * ldx + k0 + kc);
+        const long long vo = (m / tile_rows) * vstride + k0 + kc;
 #pragma unroll
-          for (int q = 0; q < 8; ++q)
-            o.u[q] = act(lo(in, q), inv[vo + q], shift[vo + q], bits);
-        }
+        for (int q = 0; q < 8; ++q)
+          o.u[q] = act(lo(in, q), inv[vo + q], shift[vo + q], bits);
       }
       *reinterpret_cast<uint4*>(&s.a[r][kc]) = o.v;
     }
@@ -410,7 +394,7 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
   }
 
-  float* base = part + (long long)blockIdx.z * taps * K * N;
+  float* base = part + (long long)blockIdx.z * K * N;
   float* st = s.stage[warp];
   const int r = lane / 2, cc = (lane % 2) * 8;
 #pragma unroll
@@ -425,11 +409,192 @@ __global__ void __launch_bounds__(kThreads)
         float o[8];
 #pragma unroll
         for (int q = 0; q < 8; ++q) o[q] = st[r * 16 + cc + q];
-        store8f(base + ((long long)tap * K + k) * N + n, o);
+        store8f(base + (long long)k * N + n, o);
       }
       __syncwarp();
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// B5 conv3x3_dw: the 3x3 conv's weight gradient in the packed layout,
+//   part[p, tap*C + c, n] = sum_{m in run p} z[src(m, tap), c] * dY[m, n]
+// with z = bf16(relu(x*inv[t] + shift[t])) (QuanInput-quantized with
+// bits > 0), zero where src(m, tap) lies outside m's image; sum_rows adds
+// the runs' partials in order.
+//
+// Design (the plan is the wrapper's, kernels/train_ops.py::
+// conv3x3_dw_plan): block (p, cy, gz) owns run p of whole 128-row steps
+// (the runs depend on M alone, so the sums and their order do too), the
+// 128 channels cy and the NT*8 columns gz. Per step it stages one halo
+// tile of z (halo.cuh; the prologue and quantizer applied once per
+// element) and the step's dy rows, both with cp.async, the next step's
+// loading while this one computes. Twelve warps, one kernel row each
+// (dy = warp/4 - 1) and two 16-channel tiles each (warp % 4), accumulate
+// all three taps of their row from the one tile: dW_tap^T += dY^T z_tap
+// as mma.sync m16n8k16, z_tap^T and dY read by ldmatrix.trans, the dY
+// fragments shared by the warp's three taps and two channel tiles, the
+// taps' rows shifted or pointed at the zero row per lane. Each block keeps
+// its 9 x 128 x 32 sums in registers (96 a thread) and writes one partial.
+// Bound by reading x and dy (9.4 us at r=64 batch 24); measured 70 us
+// there without sum_rows on an H100 80GB HBM3 at 700 W (PERF.md, PR 8):
+// ~31 of it the products, ~19 the prologue, ~10 the loads.
+// ---------------------------------------------------------------------------
+constexpr int kDwWarps = 12;
+constexpr int kDwThreads = kDwWarps * 32;
+
+struct DwPlan {
+  int run_rows;     // rows of a block's run: a multiple of br
+  int br;           // rows per step, a multiple of 16
+  int kc;           // channels per block, a multiple of 16 (<= 128)
+  int stages;       // 2 (double-buffered) or 1
+  int zero_off;     // shared-memory byte offsets: the zero row,
+  int stage_off;    //   the first stage,
+  int stage_bytes;  //   bytes per stage,
+  int dy_off;       //   the dy rows within a stage
+};
+
+template <int NT>
+__global__ void __launch_bounds__(kDwThreads, 1)
+    conv3x3_dw_kernel(const bf16* __restrict__ x, long long ldx, int M, int H,
+                      int W, int C, const float* __restrict__ inv,
+                      const float* __restrict__ shift, long long vstride,
+                      int tile_rows, int bits, const bf16* __restrict__ dy,
+                      long long ldd, int G, float* __restrict__ part,
+                      DwPlan p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int GB = NT * 8;
+  constexpr int DS = (NT & 1 ? NT : NT + 1) * 16;  // dy row stride, bytes
+  const uint32_t s0 = smem_u32(smem);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int ky = warp >> 2, cq = warp & 3;
+  const int c0 = blockIdx.y * p.kc, n0 = blockIdx.z * GB;
+  const int r_begin = blockIdx.x * p.run_rows;
+  const int r_end = M - r_begin < p.run_rows ? M : r_begin + p.run_rows;
+  const int nsteps = (r_end - r_begin + p.br - 1) / p.br;
+  const int hw = H * W;
+  const int hstride = (p.kc + kHaloPad) * 2;
+  const int halo_rows = p.br + 2 * W + 2;
+  const bool busy = 2 * cq < p.kc / 16;  // this warp has a channel tile
+
+  for (int i = tid; i < p.kc / 8; i += kDwThreads)
+    *reinterpret_cast<uint4*>(smem + p.zero_off + i * 16) =
+        make_uint4(0u, 0u, 0u, 0u);
+
+  const auto issue = [&](int st) {
+    const int m0 = r_begin + st * p.br;
+    const uint32_t base = s0 + p.stage_off + (st % p.stages) * p.stage_bytes;
+    load_halo(base, x, ldx, M, C, m0 - W - 1, halo_rows, c0, p.kc, tid,
+              kDwThreads);
+    // dy rows [m0, m0 + br) x columns [n0, n0 + GB), zero past the run or G
+    for (int i = tid; i < p.br * NT; i += kDwThreads) {
+      const int r = i / NT, j = i - (i / NT) * NT;
+      const int m = m0 + r, n = n0 + j * 8;
+      const bool ok = m < r_end && n < G;
+      cp_async16(base + p.dy_off + r * DS + j * 16,
+                 ok ? dy + (long long)m * ldd + n : dy, ok ? 16 : 0);
+    }
+    cp_async_commit();
+  };
+
+  float acc[3][2][NT][4];
+#pragma unroll
+  for (int d = 0; d < 3; ++d)
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[d][t][j][e] = 0.f;
+
+  // ldmatrix.trans lane coordinates. z^T (A): pixel row (l & 7) +
+  // (mat >> 1) * 8, channel offset (mat & 1) * 8. dY (B): pixel row
+  // (mat & 1) * 8 + (l & 7), 16-byte column chunk 2 * jp + (mat >> 1).
+  const int mat = lane >> 3;
+  const int a_pix = (lane & 7) + (mat >> 1) * 8;
+  const int a_ofs = (mat & 1) * 16;
+  const int b_pix = (mat & 1) * 8 + (lane & 7);
+
+  if (p.stages == 2) issue(0);
+  for (int st = 0; st < nsteps; ++st) {
+    if (p.stages == 1) issue(st);
+    if (p.stages == 2 && st + 1 < nsteps) {
+      issue(st + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    unsigned char* hs = smem + p.stage_off + (st % p.stages) * p.stage_bytes;
+    const int m0 = r_begin + st * p.br;
+    halo_prologue(reinterpret_cast<bf16*>(hs), M, C, m0 - W - 1, halo_rows,
+                  c0, p.kc, inv, shift, vstride, tile_rows, bits, tid,
+                  kDwThreads);
+    __syncthreads();
+    const uint32_t hbase = smem_u32(hs), zbase = s0 + p.zero_off;
+    const uint32_t dbase = hbase + p.dy_off;
+    if (busy) {
+#pragma unroll 1
+      for (int pr = 0; pr < p.br; pr += 16) {
+        uint32_t b[NT][2];
+#pragma unroll
+        for (int jp = 0; jp < NT / 2; ++jp) {
+          uint32_t t4[4];
+          ldsm_x4_t(t4, dbase + (pr + b_pix) * DS + (2 * jp + (mat >> 1)) * 16);
+          b[2 * jp][0] = t4[0];
+          b[2 * jp][1] = t4[1];
+          b[2 * jp + 1][0] = t4[2];
+          b[2 * jp + 1][1] = t4[3];
+        }
+        if (NT & 1)
+          ldsm_x2_t(b[NT - 1][0], b[NT - 1][1],
+                    dbase + (pr + b_pix) * DS + (NT - 1) * 16);
+        const int r = pr + a_pix, m = m0 + r;
+        const bool in_range = m < r_end;
+        const int pix = in_range ? m % hw : 0;
+        const int yy = pix / W, xx = pix - (pix / W) * W;
+#pragma unroll
+        for (int d = 0; d < 3; ++d) {
+          const int hr = tap_row(r, yy, xx, in_range, ky - 1, d - 1, H, W);
+          const uint32_t ab =
+              (hr < 0 ? zbase : hbase + (uint32_t)(hr * hstride)) + a_ofs;
+#pragma unroll
+          for (int t = 0; t < 2; ++t) {
+            const int ct = 2 * cq + t;
+            if (ct * 16 >= p.kc) continue;
+            uint32_t a[4];
+            ldsm_x4_t(a, ab + ct * 32);
+#pragma unroll
+            for (int j = 0; j < NT; ++j)
+              mma16816(acc[d][t][j], a, b[j][0], b[j][1]);
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  if (!busy) return;
+  float* base = part + (long long)blockIdx.x * 9 * C * G;
+  const int g = lane >> 2, q2 = 2 * (lane & 3);
+#pragma unroll
+  for (int d = 0; d < 3; ++d)
+#pragma unroll
+    for (int t = 0; t < 2; ++t)
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int tap = ky * 3 + d;
+        const int c = c0 + (2 * cq + t) * 16 + g;
+        const int n = n0 + 8 * j + q2;
+        if (n >= G) continue;
+        if (c < C)
+          *reinterpret_cast<float2*>(base + ((long long)tap * C + c) * G + n) =
+              make_float2(acc[d][t][j][0], acc[d][t][j][1]);
+        if (c + 8 < C)
+          *reinterpret_cast<float2*>(base + ((long long)tap * C + c + 8) * G +
+                                     n) =
+              make_float2(acc[d][t][j][2], acc[d][t][j][3]);
+      }
 }
 
 // ---------------------------------------------------------------------------
@@ -441,8 +606,17 @@ __global__ void __launch_bounds__(kThreads)
                     float* __restrict__ out) {
   for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x; r < R;
        r += (long long)gridDim.x * blockDim.x) {
+    // eight loads in flight, then added in order: the sum is the same
     float a = 0.f;
-    for (int s = 0; s < S; ++s) a += in[(long long)s * R + r];
+    int s = 0;
+    for (; s + 8 <= S; s += 8) {
+      float v[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) v[u] = in[(long long)(s + u) * R + r];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) a += v[u];
+    }
+    for (; s < S; ++s) a += in[(long long)s * R + r];
     out[r] = a;
   }
 }
@@ -597,15 +771,30 @@ void launch_dx(const bf16* dy, long long ldd, long long M, int N, int H, int W,
 }
 
 template <int BN, int WARPS_N>
-void launch_dw(const bf16* x, long long ldx, long long M, int K, int H, int W,
-               int taps, VecArgs v, const bf16* dy, long long ldd, int N,
-               long long chunk, float* part, cudaStream_t st) {
-  const dim3 grid((unsigned)(taps * ((K + BM - 1) / BM)),
+void launch_dw(const bf16* x, long long ldx, long long M, int K, VecArgs v,
+               const bf16* dy, long long ldd, int N, long long chunk,
+               float* part, cudaStream_t st) {
+  const dim3 grid((unsigned)((K + BM - 1) / BM),
                   (unsigned)((N + BN - 1) / BN),
                   (unsigned)((M + chunk - 1) / chunk));
   dw_kernel<BN, WARPS_N><<<grid, kThreads, 0, st>>>(
-      x, ldx, M, K, H, W, taps, v.inv, v.shift, v.vstride, v.tile_rows,
-      v.bits, dy, ldd, N, chunk, part);
+      x, ldx, M, K, v.inv, v.shift, v.vstride, v.tile_rows, v.bits, dy, ldd,
+      N, chunk, part);
+}
+
+template <int NT>
+int launch_conv3x3_dw(const bf16* x, long long ldx, int M, int H, int W,
+                      int C, VecArgs v, const bf16* dy, long long ldd, int G,
+                      float* part, const DwPlan& p, dim3 grid, int smem,
+                      cudaStream_t st) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      conv3x3_dw_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return (int)e;
+  conv3x3_dw_kernel<NT><<<grid, kDwThreads, smem, st>>>(
+      x, ldx, M, H, W, C, v.inv, v.shift, v.vstride, (int)v.tile_rows,
+      v.bits, dy, ldd, G, part, p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -670,8 +859,8 @@ int cunet_dx(const void* dy, long long ldd, long long M, int N, int H, int W,
   return (int)cudaGetLastError();
 }
 
-int cunet_dw(const void* x, long long ldx, long long M, int K, int H, int W,
-             int taps, const void* inv, const void* shift, long long vstride,
+int cunet_dw(const void* x, long long ldx, long long M, int K,
+             const void* inv, const void* shift, long long vstride,
              long long tile_rows, int bits, const void* dy, long long ldd,
              int N, long long chunk, void* part, void* stream) {
   const VecArgs v{static_cast<const float*>(inv),
@@ -681,14 +870,43 @@ int cunet_dw(const void* x, long long ldx, long long M, int K, int H, int W,
   auto* pp = static_cast<float*>(part);
   const auto st = static_cast<cudaStream_t>(stream);
   if (N <= 16)
-    launch_dw<16, 1>(xp, ldx, M, K, H, W, taps, v, dp, ldd, N, chunk, pp, st);
+    launch_dw<16, 1>(xp, ldx, M, K, v, dp, ldd, N, chunk, pp, st);
   else if (N <= 32)
-    launch_dw<32, 2>(xp, ldx, M, K, H, W, taps, v, dp, ldd, N, chunk, pp, st);
+    launch_dw<32, 2>(xp, ldx, M, K, v, dp, ldd, N, chunk, pp, st);
   else if (N <= 64)
-    launch_dw<64, 2>(xp, ldx, M, K, H, W, taps, v, dp, ldd, N, chunk, pp, st);
+    launch_dw<64, 2>(xp, ldx, M, K, v, dp, ldd, N, chunk, pp, st);
   else
-    launch_dw<128, 2>(xp, ldx, M, K, H, W, taps, v, dp, ldd, N, chunk, pp, st);
+    launch_dw<128, 2>(xp, ldx, M, K, v, dp, ldd, N, chunk, pp, st);
   return (int)cudaGetLastError();
+}
+
+int cunet_conv3x3_dw(const void* x, long long ldx, long long M, int H, int W,
+                     int C, const void* inv, const void* shift,
+                     long long vstride, long long tile_rows, int bits,
+                     const void* dy, long long ldd, int G, void* part,
+                     int runs, int run_rows, int br, int kc, int nt,
+                     int stages, int zero_off, int stage_off,
+                     int stage_bytes, int dy_off, int smem, void* stream) {
+  const VecArgs v{static_cast<const float*>(inv),
+                  static_cast<const float*>(shift), vstride, tile_rows, bits};
+  const DwPlan p{run_rows, br, kc, stages, zero_off, stage_off, stage_bytes,
+                 dy_off};
+  const dim3 grid((unsigned)runs, (unsigned)((C + kc - 1) / kc),
+                  (unsigned)((G + nt * 8 - 1) / (nt * 8)));
+  const auto* xp = static_cast<const bf16*>(x);
+  const auto* dp = static_cast<const bf16*>(dy);
+  auto* pp = static_cast<float*>(part);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const int m = (int)M;
+  switch (nt) {
+#define CUNET_DW_NT(n)                                                     \
+  case n:                                                                  \
+    return launch_conv3x3_dw<n>(xp, ldx, m, H, W, C, v, dp, ldd, G, pp, p, \
+                                grid, smem, st);
+    CUNET_DW_NT(1) CUNET_DW_NT(2) CUNET_DW_NT(3) CUNET_DW_NT(4)
+#undef CUNET_DW_NT
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 int cunet_sum_rows(const void* in, int S, long long R, void* out,

@@ -23,6 +23,8 @@ concat, no staging copy).
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 import torch.nn.functional as F
 
@@ -53,6 +55,12 @@ def _check_view(t: torch.Tensor, name: str) -> None:
                          f"{t.stride()[:-1]} must be multiples of 8")
     if t.data_ptr() % 16:
         raise ValueError(f"{name} is not 16-byte aligned")
+
+
+def _check_rows(m: int) -> None:
+    """The 3x3-conv kernels index rows with 32-bit integers."""
+    if m >= 2 ** 31:
+        raise ValueError(f"{m} rows: the conv kernels take fewer than 2^31")
 
 
 def _check_vec(t: torch.Tensor, name: str, width: int) -> None:
@@ -224,6 +232,102 @@ def conv3x3_plain(y, w3p, b, h, w, out, vec=None, bits_i=0):
     return out
 
 
+# Shared memory one block may hold on the H100 (227 KB), and the tile count
+# the forward aims for before it takes a smaller row tile: about one tile
+# per SM of the card's 132, a constant, so the plan (and the order of every
+# sum) depends on the shapes alone.
+SMEM_LIMIT = 232_448
+CONV_TILES = 128
+# conv3x3's block: warps, and output rows a warp owns (csrc/buf_kernels.cu
+# kConvWarps, kConvMT * 16)
+CONV_WARPS = 12
+CONV_WARP_ROWS = 32
+
+
+def _up(x: int, mult: int) -> int:
+    return -(-x // mult) * mult
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvPlan:
+    """How ``conv3x3``'s kernel cuts an (m, Cb) -> (m, G) conv over images
+    of width w: tiles of ``bm`` output rows, each computed by
+    ``CONV_WARPS`` warps of ``CONV_WARP_ROWS`` rows, of which
+    ``row_warps`` split the rows and ``k_warps`` the 9*Cb reduction; the
+    channels (zero-padded to 16) in ``nchunk`` chunks of ``kc``; the
+    outputs in ``ncol`` groups of ``nt * 8``; ``stages`` halo buffers of
+    ``stage_bytes`` (a halo tile of ``halo_rows`` rows, later the warps'
+    partial sums); the byte offsets of the zero row and the first stage
+    after the weight slice; ``smem`` bytes in all."""
+    bm: int
+    kc: int
+    nchunk: int
+    nt: int
+    ncol: int
+    stages: int
+    halo_rows: int
+    zero_off: int
+    stage_off: int
+    stage_bytes: int
+    smem: int
+
+    @property
+    def row_warps(self) -> int:
+        return self.bm // CONV_WARP_ROWS
+
+    @property
+    def k_warps(self) -> int:
+        return CONV_WARPS // self.row_warps
+
+    def tiles(self, m: int) -> int:
+        return -(-m // self.bm)
+
+    def k_range(self, wk: int) -> range:
+        """The k16 steps (tap-major, ``kc // 16`` per tap) of warp row
+        ``wk`` of the reduction, out of ``9 * kc // 16``."""
+        steps = 9 * self.kc // 16
+        return range(wk * steps // self.k_warps,
+                     (wk + 1) * steps // self.k_warps)
+
+
+def _conv_layout(bm, kc, stages, nt, cbp, w) -> ConvPlan:
+    gb = 8 * nt
+    halo_rows = bm + 2 * w + 2
+    w_bytes = 9 * kc * gb * 2
+    zero_bytes = _up(2 * kc, 128)
+    # the halo tile (rows padded by 16 bytes) or, after the product, the
+    # f32 partial sums of every warp's rows (stride gb + 4)
+    red_bytes = CONV_WARPS * CONV_WARP_ROWS * (gb + 4) * 4
+    stage_bytes = _up(max(halo_rows * (kc + 8) * 2, red_bytes), 128)
+    stage_off = w_bytes + zero_bytes
+    return ConvPlan(bm=bm, kc=kc, nchunk=-(-cbp // kc), nt=nt, ncol=0,
+                    stages=stages, halo_rows=halo_rows, zero_off=w_bytes,
+                    stage_off=stage_off, stage_bytes=stage_bytes,
+                    smem=stage_off + stages * stage_bytes)
+
+
+def conv3x3_plan(m: int, h: int, w: int, cb: int, g: int) -> ConvPlan:
+    """The kernel plan of ``conv3x3`` at these shapes (a function of them
+    alone). The largest row tile of 128, 64, 32 that still gives
+    ``CONV_TILES`` tiles (else 32), the whole weight resident (one chunk)
+    and two halo stages where they fit in ``SMEM_LIMIT``; else one stage,
+    a smaller tile, then smaller channel chunks."""
+    cbp = _up(cb, 16)
+    nt = min(-(-g // 8), 8)
+    ncol = -(-g // (8 * nt))
+    tiles = [bm for bm in (128, 64, 32)
+             if CONV_WARP_ROWS <= bm <= CONV_WARPS * CONV_WARP_ROWS]
+    bm0 = next((bm for bm in tiles if -(-m // bm) >= CONV_TILES), tiles[-1])
+    for kc in range(min(cbp, 256), 0, -16):
+        for stages in (2, 1):
+            for bm in (b for b in tiles if b <= bm0):
+                plan = _conv_layout(bm, kc, stages, nt, cbp, w)
+                if plan.smem <= SMEM_LIMIT:
+                    return dataclasses.replace(plan, ncol=ncol)
+    raise ValueError(f"conv3x3: no tiling of Cb={cb}, G={g}, W={w} fits "
+                     f"{SMEM_LIMIT} bytes of shared memory")
+
+
 def conv3x3(y, w3p, b, h, w, out, *, vec=None, bits_i=0):
     """3x3 SAME conv of ``y`` (b*h*w, Cb) into ``out`` (b*h*w, G), f32
     accumulation, zero padding per image (flattened images never bleed into
@@ -235,15 +339,23 @@ def conv3x3(y, w3p, b, h, w, out, *, vec=None, bits_i=0):
     the rounded value goes through QuanInput's quantizer too.
 
     Replaces ``cunet_tpu/kernels/fused_hourglass.py::_conv3x3`` (all four of
-    its TPU forms: taps, onedot, scatter, dycol). Design: one implicit GEMM
-    of depth 9*Cb, so no im2col copy exists; each 128-row block gathers its
-    shifted input rows tap by tap (the 9x re-reads of a row hit L1/L2, not
-    HBM), masks the per-image border to zero, and writes the bf16 result
-    into the buffer's ``out32`` slot. Bound on the H100 by latency, not by
-    bytes or flops: a block walks its 9*Cb/32 reduction stages in series
-    with no copy/compute overlap: about 55 us per launch even at 4x4 on
-    an H100 80GB HBM3 at 700 W (PERF.md); pipelining those stages is the
-    next step.
+    its TPU forms: taps, onedot, scatter, dycol) and, with ``vec``,
+    ``cunet_tpu/kernels/train_slot.py::_conv3x3_t``. Bound on the H100 by
+    bytes: reading y and writing out (at Cb=128 -> G=32 the conv does ~230
+    flop per byte, under the card's ~295 bf16 flop/byte). Design
+    (``csrc/buf_kernels.cu``, plan ``conv3x3_plan``): persistent blocks
+    hold the packed weight in shared memory (72 KB on the main path,
+    loaded once per block) and walk tiles of up to 128 output rows; each
+    tile's input is one halo tile (the rows plus one image row and pixel
+    either side) loaded with cp.async while the previous tile computes,
+    the prologue applied once per element as it lands; the nine taps read
+    shifted windows of it through ldmatrix into mma.sync, with rows outside
+    the image pointed at a zero row; at small M the warps split the 9*Cb
+    reduction and add their sums in a fixed order. On an H100 80GB HBM3 at
+    700 W (PERF.md section 6, PR 8): 17.1 us at r=64 batch 8 (bound 3.2,
+    ``F.conv2d`` 25.0), 117 us at batch 64 (bound 25.1, ``F.conv2d`` 104;
+    no single part of the tile's work dominates), 6.7-7.9 us at r <= 32
+    batch 8, 65 us per tile at batch 24.
     """
     m, c = y.shape
     g = w3p.shape[1]
@@ -263,16 +375,18 @@ def conv3x3(y, w3p, b, h, w, out, *, vec=None, bits_i=0):
     _check_view(w3p, "w3")
     if not w3p.is_contiguous():
         raise ValueError("w3 must be contiguous")
+    _check_rows(m)
     inv = shift = vstride = 0
     tile_rows = m
     if vec is not None:
         _check_vec(vec, "vec", c)
         inv, shift, vstride, tile_rows = _vec_args(vec, m, c)
-    lib = build.lib()
-    code = lib.cunet_conv3x3(y.data_ptr(), y.stride(0), m, h, w, c,
-                             w3p.data_ptr(), g, inv, shift, vstride,
-                             tile_rows, bits_i, out.data_ptr(), out.stride(0),
-                             _stream(y))
+    p = conv3x3_plan(m, h, w, c, g)
+    code = build.lib().cunet_conv3x3(
+        y.data_ptr(), y.stride(0), m, h, w, c, w3p.data_ptr(), g, inv, shift,
+        vstride, tile_rows, bits_i, out.data_ptr(), out.stride(0), p.bm,
+        p.kc, p.nchunk, p.nt, p.ncol, p.stages, p.zero_off, p.stage_off,
+        p.stage_bytes, p.smem, _stream(y))
     build.check(code, "conv3x3")
     conv3x3.launches += 1
     conv3x3.option_launches += bits_i > 0

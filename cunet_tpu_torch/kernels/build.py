@@ -25,7 +25,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("buf_kernels.cu", "train_kernels.cu", "quant_kernels.cu",
            "bottleneck_kernels.cu", "eval_kernels.cu")
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "halo.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -98,14 +98,17 @@ def _declare(lib):
     sigs = {
         "cunet_affine_dot": [P, L, L, I, P, P, L, L, I, P, I, I, P, P, L, L,
                              L, P],
-        "cunet_conv3x3": [P, L, L, I, I, I, P, I, P, P, L, L, I, P, L, P],
+        "cunet_conv3x3": [P, L, L, I, I, I, P, I, P, P, L, L, I, P, L,
+                          *[I] * 10, P],
         "cunet_maxpool2": [P, L, P, L, I, I, I, I, P],
         "cunet_upsample2": [P, L, P, L, I, I, I, I, P],
         "cunet_bn_stats": [P, L, L, L, I, P, P],
         "cunet_bn_bwd": [P, L, P, L, L, L, I, P, P, F, P, L, I, P, P],
         "cunet_dx": [P, L, L, I, I, I, I, P, I, I, P, L, P, P, L, L, I, P, L,
                      P],
-        "cunet_dw": [P, L, L, I, I, I, I, P, P, L, L, I, P, L, I, L, P, P],
+        "cunet_dw": [P, L, L, I, P, P, L, L, I, P, L, I, L, P, P],
+        "cunet_conv3x3_dw": [P, L, L, I, I, I, P, P, L, L, I, P, L, I, P,
+                             *[I] * 11, P],
         "cunet_drop_mask": [P, L, I, P, L, L, I, L, ctypes.c_uint,
                             ctypes.c_uint, F, P],
         "cunet_sum_rows": [P, I, L, P, P],

@@ -24,12 +24,16 @@ recompute the BN+ReLU activation in the prologue instead of storing it.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 import torch.nn.functional as F
 
 from cunet_tpu_torch.kernels import build
 from cunet_tpu_torch.kernels.buf_ops import (
+    SMEM_LIMIT,
     _check_bits,
+    _check_rows,
     _check_tile_vec,
     _check_view,
     _stream,
@@ -38,9 +42,15 @@ from cunet_tpu_torch.kernels.buf_ops import (
     quantize_act,
     reset_counts,
     tile_affine,
+    _up,
 )
 
-DW_CHUNK = 2048          # rows per weight-gradient partial (a multiple of 32)
+DW_CHUNK = 2048          # rows per affine_dw partial (a multiple of 32)
+# conv3x3_dw: rows per pipelined step, and the most row runs (partials) it
+# cuts M into, a constant near the card's 132 SMs so that the runs, and the
+# order of every sum, depend on the shapes alone
+DW_STEP_ROWS = 128
+DW_RUNS = 128
 
 
 def _check_f32(t: torch.Tensor, name: str, dev: torch.device) -> None:
@@ -266,23 +276,12 @@ def affine_dw_plain(x, vec, dy, out, bits_i=0):
     return out
 
 
-def _dw(name, x, vec, dy, out, b, h, wd, taps, bits_i):
-    m, k = x.shape
-    n = dy.shape[1]
+def _dw_operands(x, vec, dy, out):
     _check_view(x, "x")
     _check_view(dy, "dy")
     _check_contig_f32(out, "out", x.device)
     _check_contig_f32(vec, "vec", x.device)
-    inv, shift, vstride, tile_rows = _vec_args(vec, m, k)
-    splits = -(-m // DW_CHUNK)
-    part = torch.empty(splits, taps * k, n, device=x.device,
-                       dtype=torch.float32)
-    code = build.lib().cunet_dw(
-        x.data_ptr(), x.stride(0), m, k, h, wd, taps, inv, shift, vstride,
-        tile_rows, bits_i, dy.data_ptr(), dy.stride(0), n, DW_CHUNK,
-        part.data_ptr(), _stream(x))
-    build.check(code, name)
-    sum_rows(part, out)
+    return _vec_args(vec, x.shape[0], x.shape[1])
 
 
 def affine_dw(x, vec, dy, out, *, bits_i=0):
@@ -307,7 +306,15 @@ def affine_dw(x, vec, dy, out, *, bits_i=0):
     _check_bits(bits_i)
     if x.device.type == "cpu":
         return affine_dw_plain(x, vec, dy, out, bits_i)
-    _dw("affine_dw", x, vec, dy, out, 1, 1, 1, 1, bits_i)
+    inv, shift, vstride, tile_rows = _dw_operands(x, vec, dy, out)
+    part = torch.empty(-(-m // DW_CHUNK), k, n, device=x.device,
+                       dtype=torch.float32)
+    code = build.lib().cunet_dw(
+        x.data_ptr(), x.stride(0), m, k, inv, shift, vstride, tile_rows,
+        bits_i, dy.data_ptr(), dy.stride(0), n, DW_CHUNK, part.data_ptr(),
+        _stream(x))
+    build.check(code, "affine_dw")
+    sum_rows(part, out)
     affine_dw.launches += 1
     affine_dw.option_launches += bits_i > 0
     return out
@@ -324,6 +331,63 @@ def conv3x3_dw_plain(x, vec, dy, b, h, w, out, bits_i=0):
     return out
 
 
+@dataclasses.dataclass(frozen=True)
+class DwPlan:
+    """How ``conv3x3_dw``'s kernel cuts the rows, channels and outputs: M in
+    ``runs`` runs of ``run_rows`` rows (the last one shorter), each walked in
+    steps of ``br`` rows and summed into one partial; the channels
+    (zero-padded to 16) in blocks of ``kc``, the outputs in groups of
+    ``nt * 8``; ``stages`` buffers of ``stage_bytes``, each a halo tile of
+    ``halo_rows`` rows and, at ``dy_off``, a step's dy rows; the zero row
+    at 0, the first stage at ``stage_off``; ``smem`` bytes in all."""
+    runs: int
+    run_rows: int
+    br: int
+    kc: int
+    nt: int
+    stages: int
+    halo_rows: int
+    zero_off: int
+    stage_off: int
+    stage_bytes: int
+    dy_off: int
+    smem: int
+
+    def grid(self, cb: int, g: int):
+        return self.runs, -(-cb // self.kc), -(-g // (8 * self.nt))
+
+    def run(self, p: int, m: int) -> range:
+        return range(p * self.run_rows, min(m, (p + 1) * self.run_rows))
+
+
+def conv3x3_dw_plan(m: int, h: int, w: int, cb: int, g: int) -> DwPlan:
+    """The kernel plan of ``conv3x3_dw`` at these shapes (a function of them
+    alone): M in at most ``DW_RUNS`` runs of whole ``DW_STEP_ROWS``-row
+    steps; 128 channels a block (fewer where a halo tile of a wide image
+    would not fit), at most 32 outputs; two stages where they fit in
+    ``SMEM_LIMIT``, else one."""
+    br = DW_STEP_ROWS
+    steps = -(-m // br)
+    run_rows = -(-steps // DW_RUNS) * br
+    nt = min(-(-g // 8), 4)
+    ds = (nt if nt % 2 else nt + 1) * 16        # dy row stride, bytes
+    halo_rows = br + 2 * w + 2
+    for kc in range(min(_up(cb, 16), 128), 0, -16):
+        dy_off = _up(halo_rows * (kc + 8) * 2, 128)
+        stage_bytes = _up(dy_off + br * ds, 128)
+        zero = _up(2 * kc, 128)
+        for stages in (2, 1):
+            if zero + stages * stage_bytes <= SMEM_LIMIT:
+                return DwPlan(runs=-(-m // run_rows), run_rows=run_rows,
+                              br=br, kc=kc, nt=nt, stages=stages,
+                              halo_rows=halo_rows, zero_off=0,
+                              stage_off=zero, stage_bytes=stage_bytes,
+                              dy_off=dy_off,
+                              smem=zero + stages * stage_bytes)
+    raise ValueError(f"conv3x3_dw: no tiling of W={w} fits {SMEM_LIMIT} "
+                     f"bytes of shared memory")
+
+
 def conv3x3_dw(x, vec, dy, b, h, w, out, *, bits_i=0):
     """Weight gradient of the 3x3 conv in the packed (9*Cb, G) layout:
     ``out[tap*Cb + c] = sum_m z[m + offset(tap), c] * dy[m]`` with
@@ -332,8 +396,21 @@ def conv3x3_dw(x, vec, dy, b, h, w, out, *, bits_i=0):
     QuanInput-quantized, the values the forward's conv read.
 
     Replaces the dW3 half of ``cunet_tpu/kernels/train_slot.py::
-    _conv3x3_bwd``. Design: the ``affine_dw`` core with 9 taps, a tap per
-    block column, the shifted rows gathered in the prologue.
+    _conv3x3_bwd``. Bound on the H100 by reading x and dy once (~9.4 us at
+    batch 24, r=64). Design (``csrc/train_kernels.cu``, plan
+    ``conv3x3_dw_plan``): a block owns a run of whole 128-row steps; per
+    step it stages one halo tile of z (the rows plus one image row and
+    pixel either side, the prologue and quantizer applied once per
+    element) and the step's dy rows with cp.async, the next step loading
+    while this one computes; twelve warps, one kernel row and two 16-channel
+    tiles each, accumulate all nine taps from that one tile with
+    ldmatrix.trans and mma.sync, and the block writes one (9*Cb, G)
+    partial; ``sum_rows`` adds the runs' partials in order. The runs depend
+    on M alone, so two calls give the same bits. On an H100 80GB HBM3 at
+    700 W (PERF.md section 6, PR 8): 76 us at r=64 batch 24 with its
+    ``sum_rows`` (bound 9.4, ``conv2d_weight`` on a stored z 39: the
+    mma.sync products take ~31 us, the prologue ~19, the loads ~10), 15.5
+    us at r <= 8.
     """
     m, cb = x.shape
     g = dy.shape[1]
@@ -345,7 +422,18 @@ def conv3x3_dw(x, vec, dy, b, h, w, out, *, bits_i=0):
     _check_bits(bits_i)
     if x.device.type == "cpu":
         return conv3x3_dw_plain(x, vec, dy, b, h, w, out, bits_i)
-    _dw("conv3x3_dw", x, vec, dy, out, b, h, w, 9, bits_i)
+    inv, shift, vstride, tile_rows = _dw_operands(x, vec, dy, out)
+    _check_rows(m)
+    p = conv3x3_dw_plan(m, h, w, cb, g)
+    part = torch.empty(p.runs, 9 * cb, g, device=x.device,
+                       dtype=torch.float32)
+    code = build.lib().cunet_conv3x3_dw(
+        x.data_ptr(), x.stride(0), m, h, w, cb, inv, shift, vstride,
+        tile_rows, bits_i, dy.data_ptr(), dy.stride(0), g, part.data_ptr(),
+        p.runs, p.run_rows, p.br, p.kc, p.nt, p.stages, p.zero_off,
+        p.stage_off, p.stage_bytes, p.dy_off, p.smem, _stream(x))
+    build.check(code, "conv3x3_dw")
+    sum_rows(part, out)
     conv3x3_dw.launches += 1
     conv3x3_dw.option_launches += bits_i > 0
     return out

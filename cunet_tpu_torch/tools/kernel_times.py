@@ -1,0 +1,92 @@
+"""Device times of a checkout's hand-written kernels at the smoke's cases
+and of its per-slot forward, for comparing two checkouts on one card.
+
+    python -m cunet_tpu_torch.tools.kernel_times [--root DIR]
+
+Runs the kernel phases of the ``chip_smoke.py`` beside this file on the
+kernels of ``--root`` (default: the checkout holding this file; its
+``cunet_tpu_torch`` is imported and its kernels built): phase 2 (the
+forward kernels, ``conv3x3`` at every resolution at batch 8 and 64),
+phase 4 (the train kernels at batch 24, ``conv3x3`` per tile and
+``conv3x3_dx`` / ``conv3x3_dw`` at every resolution), phase 8's option
+kernels (``conv3x3[bits_i]`` and ``conv3x3_dw[bits_i]`` at every
+resolution), phase 10 (``table_dot``'s forms) and phase 11 (a) (``[up]``,
+``[pool]``, ``[scale]``; a checkout needs them): each case against
+its plain version, timed by CUDA-graph replay beside its library call and
+bound. Then the per-slot forward of CU-Net-8 @256 (JAX's default flags) at
+batch 8 and 64, three wall-clock times each. The cases come from this
+checkout, so two checkouts are timed on the same cases. To compare a change
+with its parent, unpack the parent with ``git archive`` into a gitignored
+directory and run this once per checkout in one call, in the order parent,
+change, change, parent. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parents[2]
+
+
+def _smoke():
+    """This checkout's ``chip_smoke.py``, loaded by path: its cases time
+    whichever ``cunet_tpu_torch`` is imported."""
+    spec = importlib.util.spec_from_file_location("kernel_times_smoke",
+                                                  HERE / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", type=Path, default=HERE)
+    args = ap.parse_args(argv)
+    root = str(args.root.resolve())
+    cs = _smoke()
+    sys.path.insert(0, root)
+    for name in [m for m in sys.modules
+                 if m == "cunet_tpu_torch" or m.startswith("cunet_tpu_torch.")]:
+        del sys.modules[name]
+    import torch
+
+    from cunet_tpu_torch import ModelConfig
+    from cunet_tpu_torch.kernels import buf_ops, build, eval_ops, train_ops
+    from cunet_tpu_torch.models import init_cu_net
+    from cunet_tpu_torch.serving import Predictor
+
+    if not torch.cuda.is_available():
+        print("kernel_times: no CUDA device", file=sys.stderr)
+        return 1
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], check=True,
+                         capture_output=True, text=True).stdout.strip())
+    print(f"checkout {root}", flush=True)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    build.lib()
+    print(f"build {time.perf_counter() - t0:.1f} s", flush=True)
+    cs.phase_kernels(torch, buf_ops)
+    cs.phase_train_kernels(torch, train_ops, buf_ops)
+    cs.phase_option_kernels(torch, train_ops, buf_ops)
+    cs.phase_eval_kernels(torch, eval_ops)
+    cs.phase_block_kernels(torch, buf_ops, eval_ops)
+    cfg = ModelConfig(layer_num=8, order=1, class_num=16, loss_num=8,
+                      compute_dtype="bfloat16", use_pallas=True)
+    params, state = init_cu_net(cfg, torch.Generator().manual_seed(0))
+    for batch in (cs.BATCH, 64):
+        pred = Predictor(cfg, params, state, device="cuda", batch_size=batch)
+        ms = [cs.time_forward(torch, pred, batch) for _ in range(3)]
+        print(f"per-slot forward batch {batch}: "
+              f"{' '.join(f'{m:.3f}' for m in ms)} ms", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,278 @@
+"""The host-side plans of the port's two 3x3-conv kernels, on the CPU.
+
+``buf_ops.conv3x3_plan`` (the forward) and ``train_ops.conv3x3_dw_plan``
+(the weight gradient) decide how the kernels cut rows, the reduction,
+channels and outputs, and lay out shared memory. These tests hold their
+invariants at the main path's shapes and at the tails the card tests use:
+every output row in one tile, every reduction step in one warp, every
+(tap, channel, output) and every row counted once in dW, shared memory
+within the H100's 227 KB, and a plan that is a function of the shapes
+alone. A numpy mirror of the kernels' index map (halo tile, tap rows, the
+zero row) then computes the conv and its weight gradient from exactly the
+rows the kernels read, with the halo rows no tap may read set to NaN, and
+is held against PyTorch's conv.
+"""
+
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from cunet_tpu_torch.kernels import buf_ops, train_ops
+
+# (images, r, Cb, G): CU-Net-8 @256 at batch 8, 24 and 64 at every conv
+# resolution, and the card tests' tails (channels 16-512, outputs 8-72,
+# widths not dividing a tile)
+MAIN = [(n, r, 128, 32) for n in (8, 24, 64) for r in (64, 32, 16, 8, 4)]
+TAILS = [(3, 8, 16, 8), (3, 2, 16, 8), (3, 4, 48, 24), (5, 6, 128, 32),
+         (4, 12, 128, 40), (16, 32, 48, 8), (2, 20, 24, 16), (2, 8, 512, 64),
+         (2, 16, 128, 72), (4, 8, 256, 32), (1, 128, 128, 64),
+         (1, 300, 16, 8)]
+SHAPES = MAIN + TAILS
+
+
+def _id(s):
+    return "n{}-r{}-cb{}-g{}".format(*s)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=_id)
+def test_conv3x3_plan_covers_rows_steps_channels_and_outputs_once(shape):
+    n, r, cb, g = shape
+    m = n * r * r
+    p = buf_ops.conv3x3_plan(m, r, r, cb, g)
+    assert p.bm in (32, 64, 128)
+    assert p.row_warps * p.k_warps == buf_ops.CONV_WARPS
+    # tiles [t*bm, (t+1)*bm) cover [0, m) and no tile is past it
+    assert (p.tiles(m) - 1) * p.bm < m <= p.tiles(m) * p.bm
+    # the k_warps ranges partition the 9*kc/16 steps of a chunk (a warp
+    # with none adds zeros)
+    steps = [s for wk in range(p.k_warps) for s in p.k_range(wk)]
+    assert steps == list(range(9 * p.kc // 16))
+    # chunks cover the channels (zero-padded to 16), groups the outputs
+    cbp = -(-cb // 16) * 16
+    assert p.kc % 16 == 0 and (p.nchunk - 1) * p.kc < cbp <= p.nchunk * p.kc
+    assert 1 <= p.nt <= 8
+    assert (p.ncol - 1) * 8 * p.nt < g <= p.ncol * 8 * p.nt
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=_id)
+def test_conv3x3_plan_fits_shared_memory(shape):
+    n, r, cb, g = shape
+    p = buf_ops.conv3x3_plan(n * r * r, r, r, cb, g)
+    gb = 8 * p.nt
+    assert p.smem <= buf_ops.SMEM_LIMIT == 232_448
+    assert p.halo_rows == p.bm + 2 * r + 2
+    assert p.zero_off == 9 * p.kc * gb * 2              # the weight slice
+    assert p.stage_off >= p.zero_off + 2 * p.kc          # the zero row
+    assert p.stage_bytes >= p.halo_rows * (p.kc + 8) * 2
+    assert p.stage_bytes >= (buf_ops.CONV_WARPS * buf_ops.CONV_WARP_ROWS
+                             * (gb + 4) * 4)             # partial sums
+    assert p.smem == p.stage_off + p.stages * p.stage_bytes
+    assert all(v % 128 == 0 for v in (p.zero_off, p.stage_off,
+                                      p.stage_bytes))
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=_id)
+def test_conv3x3_dw_plan_counts_every_row_and_tap_once(shape):
+    n, r, cb, g = shape
+    m = n * r * r
+    p = train_ops.conv3x3_dw_plan(m, r, r, cb, g)
+    # the runs partition the rows in whole steps, at most DW_RUNS of them
+    assert p.run_rows % p.br == 0 and p.runs <= train_ops.DW_RUNS
+    rows = [i for q in range(p.runs) for i in p.run(q, m)]
+    assert rows == list(range(m))
+    # block (y, z), warp (ky, cq), its tiles t and lanes cover every
+    # (tap, channel, output) of the (9*Cb, G) result once
+    gy, gz = p.grid(cb, g)[1:]
+    hits = np.zeros((9, cb, g), int)
+    for y in range(gy):
+        for z in range(gz):
+            for ky in range(3):
+                for cq in range(4):
+                    for t in range(2):
+                        if (2 * cq + t) * 16 >= p.kc:
+                            continue
+                        c = y * p.kc + (2 * cq + t) * 16 + np.arange(16)
+                        c = c[c < cb]
+                        o = z * 8 * p.nt + np.arange(8 * p.nt)
+                        o = o[o < g]
+                        for d in range(3):
+                            hits[np.ix_([3 * ky + d], c, o)] += 1
+    assert (hits == 1).all()
+    assert p.smem <= buf_ops.SMEM_LIMIT
+    assert p.dy_off >= p.halo_rows * (p.kc + 8) * 2
+    assert p.stage_bytes >= p.dy_off + p.br * 16 * p.nt
+
+
+def test_plans_are_functions_of_the_shapes_alone(monkeypatch):
+    """No device query: the same shapes give the same plans, and with every
+    CUDA query broken the plans still come out (so the split of the sums,
+    and their bits, cannot depend on the card)."""
+    want = [(buf_ops.conv3x3_plan(n * r * r, r, r, cb, g),
+             train_ops.conv3x3_dw_plan(n * r * r, r, r, cb, g))
+            for n, r, cb, g in SHAPES]
+
+    def broken(*a, **k):
+        raise AssertionError("a plan asked the device")
+
+    for name in ("get_device_properties", "device_count", "current_device",
+                 "is_available"):
+        monkeypatch.setattr(torch.cuda, name, broken)
+    got = [(buf_ops.conv3x3_plan(n * r * r, r, r, cb, g),
+            train_ops.conv3x3_dw_plan(n * r * r, r, r, cb, g))
+           for n, r, cb, g in SHAPES]
+    assert got == want
+
+
+def test_conv3x3_plan_at_the_main_path():
+    """The main path's tiles: 128 rows and two stages where M is large, the
+    reduction split over the warps where M is small (batch 8, r <= 16),
+    the whole 9 x 128 x 32 weight resident."""
+    def plan(n, r):
+        return buf_ops.conv3x3_plan(n * r * r, r, r, 128, 32)
+
+    assert (plan(8, 64).bm, plan(64, 64).bm, plan(24, 64).bm) == (128,) * 3
+    assert all(plan(8, r).k_warps == buf_ops.CONV_WARPS for r in (16, 8, 4))
+    assert all(plan(n, r).nchunk == 1 and plan(n, r).stages == 2
+               for n, r, _, _ in MAIN)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' index map, mirrored in numpy
+# ---------------------------------------------------------------------------
+
+
+def _halo(x, g0, rows, kc, c0):
+    """The halo tile the kernels stage: rows [g0, g0 + rows) of x, channels
+    [c0, c0 + kc) zero-padded past x's width; rows outside x are never
+    written, so NaN here."""
+    m, c = x.shape
+    t = np.full((rows, kc), np.nan)
+    lo, hi = max(0, -g0), min(rows, m - g0)
+    t[lo:hi] = 0.0
+    w = max(0, min(kc, c - c0))
+    t[lo:hi, :w] = x[g0 + lo:g0 + hi, c0:c0 + w]
+    return t
+
+
+def _tap_row(r, m, in_range, h, w, dy, dx):
+    """halo.cuh's tap_row: the halo row that row r (output row m) reads
+    through tap (dy, dx), or -1 for the zero row."""
+    pix = m % (h * w)
+    yy, xx = pix // w, pix % w
+    sy, sx = yy + dy, xx + dx
+    if not in_range or sy < 0 or sy >= h or sx < 0 or sx >= w:
+        return -1
+    return r + w + 1 + dy * w + dx
+
+
+def _gather(halo, r, m, in_range, h, w, dy, dx):
+    hr = _tap_row(r, m, in_range, h, w, dy, dx)
+    return np.zeros(halo.shape[1]) if hr < 0 else halo[hr]
+
+
+def _mirror_conv(y, w3p, b, h, w):
+    m, cb = y.shape
+    g = w3p.shape[1]
+    p = buf_ops.conv3x3_plan(m, h, w, cb, g)
+    wpad = np.zeros((9, p.nchunk * p.kc, g))
+    wpad[:, :cb] = w3p.reshape(9, cb, g)
+    out = np.zeros((m, g))
+    for tile in range(p.tiles(m)):
+        m0 = tile * p.bm
+        for chunk in range(p.nchunk):
+            c0 = chunk * p.kc
+            halo = _halo(y, m0 - w - 1, p.halo_rows, p.kc, c0)
+            assert halo.shape[0] == p.bm + 2 * w + 2
+            for r in range(p.bm):
+                if m0 + r >= m:
+                    continue
+                for tap in range(9):
+                    a = _gather(halo, r, m0 + r, True, h, w, tap // 3 - 1,
+                                tap % 3 - 1)
+                    out[m0 + r] += a @ wpad[tap, c0:c0 + p.kc]
+    return out
+
+
+def _mirror_dw(x, dy, b, h, w):
+    m, cb = x.shape
+    g = dy.shape[1]
+    p = train_ops.conv3x3_dw_plan(m, h, w, cb, g)
+    parts = []
+    for q in range(p.runs):
+        run = p.run(q, m)
+        acc = np.zeros((9, cb, g))
+        for m0 in range(run.start, run.stop, p.br):
+            for y in range(p.grid(cb, g)[1]):
+                c0 = y * p.kc
+                halo = _halo(x, m0 - w - 1, p.halo_rows, p.kc, c0)
+                for r in range(p.br):
+                    mm = m0 + r
+                    in_range = mm < run.stop
+                    d = dy[mm] if in_range else np.zeros(g)
+                    for tap in range(9):
+                        a = _gather(halo, r, mm, in_range, h, w,
+                                    tap // 3 - 1, tap % 3 - 1)
+                        kc = min(p.kc, cb - c0)
+                        acc[tap, c0:c0 + kc] += np.outer(a[:kc], d)
+        parts.append(acc.reshape(9 * cb, g))
+    return np.sum(parts, axis=0), len(parts)
+
+
+# (images, r, Cb, G): tiles spanning images and W not dividing a tile, a
+# channel tail (24), two chunks (256 at kc 128 in dW), small and larger M
+MIRROR = [(3, 2, 16, 8), (2, 6, 24, 8), (3, 5, 16, 16), (2, 12, 16, 8),
+          (2, 4, 256, 8)]
+
+
+@pytest.mark.parametrize("shape", MIRROR, ids=_id)
+def test_index_map_mirror_computes_the_conv(shape):
+    n, r, cb, g = shape
+    rng = np.random.RandomState(sum(shape))
+    y = rng.randn(n * r * r, cb)
+    w3p = rng.randn(9 * cb, g)
+    got = _mirror_conv(y, w3p, n, r, r)
+    assert np.isfinite(got).all()        # no NaN halo row was read
+    want = F.conv2d(torch.from_numpy(y).reshape(n, r, r, cb)
+                    .permute(0, 3, 1, 2),
+                    torch.from_numpy(w3p).reshape(3, 3, cb, g)
+                    .permute(3, 2, 0, 1), padding=1)
+    np.testing.assert_allclose(
+        got, want.permute(0, 2, 3, 1).reshape(-1, g).numpy(), atol=1e-9)
+
+
+@pytest.mark.parametrize("shape", MIRROR + [(3, 10, 16, 8)], ids=_id)
+def test_index_map_mirror_computes_the_weight_gradient(shape):
+    n, r, cb, g = shape
+    rng = np.random.RandomState(sum(shape) + 1)
+    x = rng.randn(n * r * r, cb)
+    dy = rng.randn(n * r * r, g)
+    got, runs = _mirror_dw(x, dy, n, r, r)
+    assert np.isfinite(got).all()
+    want = torch.nn.grad.conv2d_weight(
+        torch.from_numpy(x).reshape(n, r, r, cb).permute(0, 3, 1, 2),
+        (g, cb, 3, 3),
+        torch.from_numpy(dy).reshape(n, r, r, g).permute(0, 3, 1, 2),
+        padding=1)
+    np.testing.assert_allclose(
+        got, want.permute(2, 3, 1, 0).reshape(9 * cb, g).numpy(), atol=1e-9)
+    assert runs == -(-n * r * r // 128)
+
+
+def test_index_map_mirror_fails_on_a_halo_row_off_by_one(monkeypatch):
+    """The mirror can fail: a tap row one row off (the fault a halo origin
+    one row late would make) reads a NaN halo row or the wrong pixel."""
+    shape = (3, 5, 16, 16)
+    n, r, cb, g = shape
+    rng = np.random.RandomState(5)
+    y, w3p = rng.randn(n * r * r, cb), rng.randn(9 * cb, g)
+    good = _mirror_conv(y, w3p, n, r, r)
+    real = _tap_row
+
+    def off_by_one(rr, *a):
+        hr = real(rr, *a)
+        return hr - 1 if hr > 0 else hr
+
+    monkeypatch.setitem(globals(), "_tap_row", off_by_one)
+    bad = _mirror_conv(y, w3p, n, r, r)
+    assert not np.allclose(np.nan_to_num(bad, nan=1e9), good, atol=1e-3)

@@ -92,9 +92,30 @@ def test_affine_dot_head_slot(gen):
            _bf16(gen, b, 3, 8, 8, cls), lambda o: o[:, 2])
 
 
-@pytest.mark.parametrize("cb,g,r", [(16, 8, 8), (16, 8, 2), (48, 24, 4)])
-def test_conv3x3(gen, cb, g, r):
-    n = 3
+# (Cb, G, r, images): every code path of the conv kernels' plans. Small M
+# with the reduction split over 8, 4 or 2 warps (bm 32-128), tiles spanning
+# images (r = 2, 4, 6: 4-36 rows an image) and W not dividing the tile
+# (6, 12, 20); the persistent 128-row tiles (M >= 16384); channel tails
+# (24: a zero-padded half k16 step, 48) and output tails (G = 8, 24, 40:
+# an odd count of 8-wide n tiles, 72: two column groups); the weight in
+# four chunks with one halo stage (Cb = 512, G = 64).
+CONV_CASES = [(16, 8, 8, 3), (16, 8, 2, 3), (48, 24, 4, 3),
+              (128, 32, 6, 5), (128, 40, 12, 4), (128, 32, 64, 4),
+              (48, 8, 32, 16), (24, 16, 20, 2), (512, 64, 8, 2),
+              (128, 72, 16, 2), (128, 32, 32, 8), (128, 32, 16, 24)]
+
+
+def test_conv_cases_cover_every_plan_path():
+    plans = [buf_ops.conv3x3_plan(n * r * r, r, r, cb, g)
+             for cb, g, r, n in CONV_CASES]
+    assert {p.bm for p in plans} == {32, 64, 128}
+    assert any(p.nchunk > 1 and p.stages == 1 for p in plans)
+    assert any(p.ncol > 1 for p in plans)
+    assert {p.nt % 2 for p in plans} == {0, 1}
+
+
+@pytest.mark.parametrize("cb,g,r,n", CONV_CASES)
+def test_conv3x3(gen, cb, g, r, n):
     y2 = torch.relu(_bf16(gen, n * r * r, cb))
     w3 = _bf16(gen, 9 * cb, g) * (9 * cb) ** -0.5
     _check(buf_ops.conv3x3, lambda f, o: f(y2, w3, n, r, r, o[:, 16:16 + g]),
@@ -200,14 +221,21 @@ def test_affine_dot_per_tile(gen, k, n):
            _bf16(gen, 216, n + 16), lambda o: o[:, 8:8 + n])
 
 
-@pytest.mark.parametrize("cb,g,r", [(16, 8, 6), (16, 8, 2), (48, 24, 4)])
-def test_conv3x3_bn_prologue(gen, cb, g, r):
-    n = 6
+# (Cb, G, r, images, bits_i) of the per-tile prologue: BN tiles of two
+# images, the paths of CONV_CASES, QuanInput's quantizer
+PROLOGUE_CASES = [(16, 8, 6, 6, 0), (16, 8, 2, 6, 0), (48, 24, 4, 6, 0),
+                  (128, 32, 64, 4, 0), (128, 40, 6, 6, 8), (24, 16, 20, 2, 0),
+                  (128, 32, 16, 24, 8), (512, 64, 8, 2, 8)]
+
+
+@pytest.mark.parametrize("cb,g,r,n,bits", PROLOGUE_CASES)
+def test_conv3x3_bn_prologue(gen, cb, g, r, n, bits):
     y = _bf16(gen, n * r * r, cb)
-    _, _, vec = _train_vec(gen, y, 3)
+    _, _, vec = _train_vec(gen, y, n // 2)
     w3 = _bf16(gen, 9 * cb, g) * (9 * cb) ** -0.5
     _check(buf_ops.conv3x3,
-           lambda f, o: f(y, w3, n, r, r, o[:, 16:16 + g], vec=vec),
+           lambda f, o: f(y, w3, n, r, r, o[:, 16:16 + g], vec=vec,
+                          bits_i=bits),
            _bf16(gen, n * r * r, 16 + g + 8), lambda o: o[:, 16:16 + g])
 
 
@@ -228,12 +256,29 @@ def test_affine_dx_dw(gen, k, n):
     _close_sum(got, want, m)
 
 
-@pytest.mark.parametrize("cb,g,r", [(16, 8, 6), (16, 8, 2), (48, 24, 4)])
-def test_conv3x3_dx_dw(gen, cb, g, r):
-    n = 6
+# (Cb, G, r, images, bits_i) of the conv backward: one run and several
+# (M > 128), runs of two steps (M = 24576), W not dividing a step (6, 12,
+# 20), two column groups (G = 40), two channel blocks (Cb = 256), channel
+# tails (24, 48), QuanInput's quantizer
+DW_CASES = [(16, 8, 6, 6, 0), (16, 8, 2, 6, 0), (48, 24, 4, 6, 0),
+            (128, 32, 32, 24, 0), (128, 40, 6, 6, 0), (256, 32, 8, 4, 0),
+            (24, 16, 20, 2, 0), (128, 32, 12, 24, 8), (128, 8, 64, 4, 8)]
+
+
+def test_dw_cases_cover_every_plan_path():
+    plans = [(train_ops.conv3x3_dw_plan(n * r * r, r, r, cb, g), cb, g)
+             for cb, g, r, n, _ in DW_CASES]
+    assert any(p.runs == 1 for p, _, _ in plans)
+    assert any(p.runs > 1 and p.run_rows > p.br for p, _, _ in plans)
+    assert any(p.grid(cb, g)[1] > 1 for p, cb, g in plans)
+    assert any(p.grid(cb, g)[2] > 1 for p, cb, g in plans)
+
+
+@pytest.mark.parametrize("cb,g,r,n,bits", DW_CASES)
+def test_conv3x3_dx_dw(gen, cb, g, r, n, bits):
     m = n * r * r
     yb = _bf16(gen, m, cb)
-    _, _, vec = _train_vec(gen, yb, 3)
+    _, _, vec = _train_vec(gen, yb, n // 2)
     w3 = (_bf16(gen, 9 * cb, g) * (9 * cb) ** -0.5).contiguous()
     d_o = _bf16(gen, m, g)
     got, want = _both(train_ops.conv3x3_dx,
@@ -242,8 +287,32 @@ def test_conv3x3_dx_dw(gen, cb, g, r):
     _close_sum(got, want, 9 * g)
     got, want = _both(train_ops.conv3x3_dw,
                       lambda: torch.empty(9 * cb, g, device="cuda"),
-                      lambda f, o: f(yb, vec, d_o, n, r, r, o))
+                      lambda f, o: f(yb, vec, d_o, n, r, r, o, bits_i=bits))
     _close_sum(got, want, m)
+
+
+def test_conv_kernels_repeat_bit_for_bit(gen):
+    """The same inputs give the same bits on a second run: no atomics, and
+    the plans (the reduction splits, the dW runs) depend on shapes only."""
+    n, r, cb, g = 24, 32, 128, 32
+    m = n * r * r
+    yb = _bf16(gen, m, cb)
+    _, _, vec = _train_vec(gen, yb, n // 2)
+    w3 = (_bf16(gen, 9 * cb, g) * (9 * cb) ** -0.5).contiguous()
+    d_o = _bf16(gen, m, g)
+    for small in (False, True):       # 128-row tiles; the split reduction
+        y = yb[:2 * r * r] if small else yb
+        v = vec[:1] if small else vec
+        k = 2 if small else n
+        runs = [buf_ops.conv3x3(y, w3, k, r, r, torch.empty(
+            y.shape[0], g, device="cuda", dtype=torch.bfloat16), vec=v,
+            bits_i=8) for _ in range(2)]
+        assert torch.equal(*runs)
+    dws = [train_ops.conv3x3_dw(yb, vec, d_o, n, r, r,
+                                torch.empty(9 * cb, g, device="cuda"))
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(*dws)
 
 
 @pytest.mark.parametrize("k,accumulate", [(8, False), (40, True),

@@ -81,21 +81,29 @@ class TestKernelPlainVersions:
                                    want, **TOL)
         assert not out[:, 0].any() and not out[:, 2].any()
 
-    @pytest.mark.parametrize("packing", ["dycol", "taps"])
-    def test_conv3x3_matches_pallas_conv(self, packing):
+    # (images, r, Cb, G) beyond the first: the card tests' channel and
+    # output tails and widths that do not divide a kernel tile
+    @pytest.mark.parametrize("packing,shape", [
+        pytest.param("dycol", (2, 8, 8, 16, 8), id="dycol"),
+        pytest.param("taps", (2, 8, 8, 16, 8), id="taps"),
+        *[pytest.param(p, (n, r, r, cb, g), id=f"{p}-n{n}-r{r}-cb{cb}-g{g}")
+          for p in ("dycol", "taps")
+          for n, r, cb, g in [(3, 6, 24, 16), (3, 4, 48, 24),
+                              (1, 12, 16, 40), (3, 2, 16, 8)]]])
+    def test_conv3x3_matches_pallas_conv(self, packing, shape):
         rng = RNG(2)
-        b, h, w, cb, g = 2, 8, 8, 16, 8
+        b, h, w, cb, g = shape
         y2 = rng.randn(b * h * w, cb).astype(np.float32)
         w3 = (rng.randn(3, 3, cb, g) * 0.2).astype(np.float32)
         jw = pack_w3_dycol(jnp.asarray(w3)) if packing == "dycol" \
             else jnp.asarray(w3)
         want = np.asarray(_conv3x3(jnp.asarray(y2), jw, b, h, w,
                                    mode=packing))
-        dst = rng.randn(b * h * w, 32).astype(np.float32)
+        dst = rng.randn(b * h * w, 24 + g).astype(np.float32)
         got = _t(dst.copy())
         buf_ops.conv3x3(_t(y2), buf_ops.pack_w3(_t(w3)), b, h, w,
-                        got[:, 16:24])
-        _assert_view_write(dst, got.numpy(), slice(16, 24), want)
+                        got[:, 16:16 + g])
+        _assert_view_write(dst, got.numpy(), slice(16, 16 + g), want)
 
     def test_conv3x3_pads_each_image(self):
         """Images flattened into rows must not bleed into each other: the

@@ -254,23 +254,36 @@ def test_affine_dot_per_tile_matches_norm_relu_dot():
                                    jts._dot(z, w, jnp.float32), **VAL)
 
 
-def test_conv3x3_bn_prologue_matches_norm_relu_conv():
-    rng = RNG(12)
-    cb, g = 16, 8
-    yb = (rng.randn(M, cb) + 0.2).astype(np.float32)
+def _check_conv_prologue(rng, cb, g, h):
+    m = T * BT * h * h
+    yb = (rng.randn(m, cb) + 0.2).astype(np.float32)
     bn2 = np.stack([rng.uniform(0.5, 1.5, cb),
                     rng.randn(cb) * 0.3]).astype(np.float32)
     w3 = (rng.randn(3, 3, cb, g) * 0.2).astype(np.float32)
     st = _port_stats(yb)
-    got = buf_ops.conv3x3(_t(yb), buf_ops.pack_w3(_t(w3)), T * BT, H, H,
-                          torch.empty(M, g),
+    got = buf_ops.conv3x3(_t(yb), buf_ops.pack_w3(_t(w3)), T * BT, h, h,
+                          torch.empty(m, g),
                           vec=train_slot._affine_vec(st, _t(bn2), EPS))
     for t, yt in enumerate(_tiles(yb)):
         mu, var = jts._stats(jnp.asarray(yt))
         z2 = jts._norm_relu(jnp.asarray(yt), bn2, mu, var, jnp.float32, EPS)
-        want = _conv3x3(z2, pack_w3_dycol(jnp.asarray(w3)), BT, H, H,
+        want = _conv3x3(z2, pack_w3_dycol(jnp.asarray(w3)), BT, h, h,
                         mode="dycol")
         np.testing.assert_allclose(_tiles(got.numpy())[t], want, **VAL)
+
+
+def test_conv3x3_bn_prologue_matches_norm_relu_conv():
+    _check_conv_prologue(RNG(12), 16, 8, H)
+
+
+# (Cb, G, r): the card tests' channel and output tails (24, 48; 16, 24,
+# 40), widths that do not divide a kernel tile (6, 12), 2x2 images
+CONV_TAILS = [(24, 16, 6), (48, 24, 4), (16, 40, 12), (16, 8, 2)]
+
+
+@pytest.mark.parametrize("cb,g,h", CONV_TAILS)
+def test_conv3x3_bn_prologue_tails_match_norm_relu_conv(cb, g, h):
+    _check_conv_prologue(RNG(40 + cb + g + h), cb, g, h)
 
 
 def _port_stage_bwd(x, bn, w, dy):
@@ -305,12 +318,8 @@ def test_stage_bwd_kernels_match_stage_bwd(k, n):
     np.testing.assert_allclose(dbn, want_dbn, **GRAD)
 
 
-@pytest.mark.parametrize("res", [8, 2])
-def test_conv_bwd_kernels_match_conv3x3_bwd_and_affine_bwd(res):
-    """B4 conv3x3_dx + B5 conv3x3_dw + B2 bn_bwd == ``_conv3x3_bwd``
-    (scatter packing) followed by ``_affine_bwd`` of BN2, per tile."""
-    rng = RNG(20 + res)
-    cb, g, bt, tiles = 16, 8, BT, T
+def _check_conv_bwd(rng, cb, g, res):
+    bt, tiles = BT, T
     m = tiles * bt * res * res
     yb = (rng.randn(m, cb) + 0.2).astype(np.float32)
     bn2 = np.stack([rng.uniform(0.5, 1.5, cb),
@@ -345,6 +354,18 @@ def test_conv_bwd_kernels_match_conv3x3_bwd_and_affine_bwd(res):
         want_dbn = want_dbn + np.asarray(jdbn)
     np.testing.assert_allclose(dw3.numpy(), want_dw, **GRAD)
     np.testing.assert_allclose(dbn.numpy(), want_dbn, **GRAD)
+
+
+@pytest.mark.parametrize("res", [8, 2])
+def test_conv_bwd_kernels_match_conv3x3_bwd_and_affine_bwd(res):
+    """B4 conv3x3_dx + B5 conv3x3_dw + B2 bn_bwd == ``_conv3x3_bwd``
+    (scatter packing) followed by ``_affine_bwd`` of BN2, per tile."""
+    _check_conv_bwd(RNG(20 + res), 16, 8, res)
+
+
+@pytest.mark.parametrize("cb,g,res", CONV_TAILS)
+def test_conv_bwd_kernel_tails_match_conv3x3_bwd(cb, g, res):
+    _check_conv_bwd(RNG(60 + cb + g + res), cb, g, res)
 
 
 @pytest.mark.parametrize("tie", [False, True])

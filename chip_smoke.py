@@ -1218,7 +1218,8 @@ def option_kernel_cases(torch, tops, bops, gen):
     xsh, vsh = straddle(m64, c)
     conv_ops = 2 * m64 * 9 * cb * g
     q = 8
-    # the quantized conv and its dW at the lower resolutions, after r=64
+    # the quantized conv, its dW and the gated dx at the lower resolutions,
+    # after r=64
     lower = []
     for r in CONV_RES[1:]:
         m = n * r * r
@@ -1226,6 +1227,7 @@ def option_kernel_cases(torch, tops, bops, gen):
         v_r = vec(y_r)
         d_r = torch.randn(m, g, generator=gen).to(dev, torch.bfloat16)
         ops_r = 2 * m * 9 * cb * g
+        xs_r, vs_r = straddle(m, cb)
         lower += [
             (bops.conv3x3, f"Cb=128->32 r={r} quan(relu(BN2)) prologue",
              bf16(m, g), lambda f, o, y_r=y_r, v_r=v_r, r=r:
@@ -1237,6 +1239,11 @@ def option_kernel_cases(torch, tops, bops, gen):
              f(y_r, v_r, d_r, n, r, r, o, bits_i=q), ("sum", m),
              work(sz(m, cb) + vec_bytes(cb) + sz(m, g)
                   + sz(9 * cb, g, e=4), ops_r), None, "conv3x3_dw[bits_i]"),
+            (tops.conv3x3_dx, f"32->128 r={r} STE gate, straddling 1.0",
+             f32(m, cb), lambda f, o, d_r=d_r, xs_r=xs_r, vs_r=vs_r, r=r:
+             f(d_r, w3, n, r, r, xs_r, vs_r, o, ste=True), ("sum", 9 * g),
+             work(sz(m, g) + sz(9 * cb, g) + sz(m, cb) + sz(2, cb, e=4)
+                  + sz(m, cb, e=4), ops_r), None, "conv3x3_dx[ste]"),
         ]
     return [
         (bops.conv3x3, "Cb=128->32 r=64 quan(relu(BN2)) prologue",
@@ -1745,7 +1752,11 @@ def tb_operands(torch, gen, r, dev="cuda"):
 def tb_cases(torch, o):
     """(name, call(fn) -> outputs, bounds, work, library call or None) of
     the four kernels on the operands ``o``. bounds: per output ("bf16",) or
-    ("sum", n, split), held per feature group (``tb_pieces``)."""
+    ("sum", n, split), held per feature group (``tb_pieces``). The work of
+    ``bwd_reduce`` is its kernel's arithmetic: its two float32 products
+    (2 M Ctot Cout each) as three bf16 tensor-core passes each, the exact
+    split of the float32 operand (``f32_fma_ms`` gives the bound of the
+    same products as float32 FMA)."""
     m, k, cout = o["m"], o["k"], o["cout"]
     f, dev = o["feats"], o["feats"][0].device
     feat_bytes = sz(m, k)
@@ -1771,7 +1782,7 @@ def tb_cases(torch, o):
             torch.empty(k, cout, device=dev), torch.empty(2, k, device=dev))),
          [("sum", m, "rows"), ("sum", m, "cols")],
          work(feat_bytes + sz(m, cout) + small + sz(k, cout, e=4)
-              + sz(2, k, e=4), 4 * m * k * cout, "f32"), None),
+              + sz(2, k, e=4), 3 * 4 * m * k * cout), None),
         ("bwd_dx", lambda fn: list(fn(f, o["g"], o["stat"], o["bias"],
                                       o["red"], o["w"], dxs())),
          [("bf16",)] * len(TB_WIDTHS),
@@ -1840,16 +1851,26 @@ def stats_faults(torch, tbk, o):
     return out
 
 
+def f32_fma_ms(o):
+    """``bwd_reduce``'s two products as float32 FMA on the CUDA cores
+    (4 M Ctot Cout flops at 67 TFLOP/s): the bound no CUDA-core design
+    beats."""
+    return 4 * o["m"] * o["k"] * o["cout"] / PEAK_OPS["f32"] * 1e3
+
+
 def phase_bn0_kernels(torch, tbk):
     """Each kernel of #7 against its plain version at r=64 (the main
-    path's largest call) and r=4, timed with its plain version and, for
-    the statistics, ``torch.var_mean`` over the same values."""
+    path's largest call) and r=4, ``bwd_reduce`` at every resolution
+    (r=64 first), timed with its plain version and, for the statistics,
+    ``torch.var_mean`` over the same values."""
     gen = torch.Generator().manual_seed(9)
     results = {}
-    for r in (64, 4):
+    for r in CONV_RES:
         o = tb_operands(torch, gen, r)
         label = f"K=128+128+32+32->128 r={r}"
         for name, call, bounds, w, lib in tb_cases(torch, o):
+            if r not in (64, 4) and name != "bwd_reduce":
+                continue
             kern = getattr(tbk, name)
             got, want = call(kern), call(tbk.PLAIN[kern])
             torch.cuda.synchronize()
@@ -1862,7 +1883,9 @@ def phase_bn0_kernels(torch, tbk):
                   f"{'/'.join(b[0] for b in bounds)} limit: {ok}), "
                   f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, library "
                   f"{lib_ms if lib_ms is None else f'{lib_ms:.4f} ms'}, "
-                  f"bound {bound(w)[0]:.4f} ms ({bound(w)[1]})", flush=True)
+                  f"bound {bound(w)[0]:.4f} ms ({bound(w)[1]})"
+                  + (f", float32-FMA bound {f32_fma_ms(o):.4f} ms"
+                     if name == "bwd_reduce" else ""), flush=True)
             require(ok, f"train_bottleneck.{name} [{label}] disagrees with "
                     f"its plain version")
             record(results, f"train_bottleneck.{name}", err, ms, plain_ms,

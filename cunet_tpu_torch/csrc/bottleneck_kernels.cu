@@ -29,20 +29,22 @@
 // writes per-block float32 partials that train_ops.sum_rows adds in a fixed
 // order: no atomics, and two identical calls give identical bits.
 //
-// The backward's two products run in float32 on the CUDA cores, as the TPU
-// kernel computes them (dW = r^T g and g_r = g W^T with the unrounded f32
-// W): tensor cores in TF32 or bf16 would move them by ~1e-3, outside the
-// f32 bounds the port holds them to. Each is a 64 x 64 output tile per
-// block, 4 x 4 per thread, 16-deep shared-memory stages. The BN recompute
-// rounds after every operation, in the plain version's order, so the ReLU
-// gate is the same bit for bit.
+// The backward's products keep the TPU kernel's float32 precision (dW =
+// r^T g and g_r = g W^T with the unrounded f32 W): one TF32 or bf16
+// tensor-core pass would move them by ~1e-3, outside the f32 bounds the
+// port holds them to. tb_bwd_reduce runs both on the tensor cores through
+// an exact three-way bf16 split of the f32 operand (three bf16 passes:
+// float32 sums of exact products); tb_bwd_dx still runs g W^T as float32
+// FMA on the CUDA cores (64 x 64 output tiles, 4 x 4 per thread). The BN
+// recompute rounds after every operation, in the plain version's order,
+// so the ReLU gate is the same bit for bit.
 //
 // Each entry point launches on the stream it is given and returns
 // cudaGetLastError().
 
 #include <string.h>
 
-#include "common.cuh"
+#include "halo.cuh"
 
 namespace {
 
@@ -191,7 +193,7 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// The float32 SIMT tile of both backward kernels: 64 x 64 outputs per
+// The float32 SIMT tile of tb_bwd_dx: 64 x 64 outputs per
 // block, thread (ty, tx) owning rows ty*4.. and columns tx*4.., the depth
 // walked in kD-deep stages through shared memory (a[d][row], b[d][col]).
 // ---------------------------------------------------------------------------
@@ -290,133 +292,350 @@ __device__ __forceinline__ void bn_col(const float* __restrict__ stat,
 }
 
 // ---------------------------------------------------------------------------
-// tb_bwd_reduce, one launch with two kinds of block over row chunk s of
-// ``chunk`` rows and concat columns [k0, k0+64):
-//  z <  nz-1: dW_part[s, k, n] = sum_m r[m,k] g[m,n] for n in [64z, 64z+64),
-//             r = relu(y) recomputed from x in the stage prologue;
-//  z == nz-1: sums_part[s] = [sum g_y; sum g_y * x_hat] per column, with
-//             g_y = [y > 0] (g W^T), walking the chunk in 64-row tiles.
+// tb_bwd_reduce: one kind of block, over row chunk s (blockIdx.y) and the
+// 64 concat columns [c0, c0 + 64) (blockIdx.x):
+//   dw_part[s, c, n]   = sum_{m in chunk} r[m, c] g[m, n],  r = relu(y)
+//   sums_part[s, 0, c] = sum g_y,  sums_part[s, 1, c] = sum g_y * x_hat,
+//   g_y = [y > 0] (g W^T)[m, c]
+// both products on the tensor cores (mma.sync m16n8k16, f32 sums) and
+// float32-exact by an exact split of their float32 operands into three bf16
+// pieces, v = p1 + p2 + p3 with p1 = bf16(v), p2 = bf16(v - p1),
+// p3 = bf16(v - p1 - p2): 3 x 8 bits of significand hold a float32's 24
+// (any normal v), and each bf16 x bf16 product is exact in the f32 sum. g
+// is bf16 already, so dW = sum_i p_i(r)^T g and g W^T = sum_i g p_i(W)^T
+// agree with float32 FMA to float32 rounding, in another order. The block:
+// - splits its W rows once into three bf16 planes in shared memory;
+// - stages each 32-row step's x vectors (through the feature table) and g
+//   rows by cp.async, the next step loading while this one computes;
+// - recomputes x_hat and y once per element in float32, one rounding per
+//   operation in the plain version's order (so the gate is the same bit
+//   for bit), and writes r's three planes and the gated x_hat (NaN where
+//   y > 0 fails) to shared memory;
+// - accumulates its dW partial in registers (A = r^T by ldmatrix.trans, B
+//   = g by ldmatrix.trans), and computes g W^T for the step (A = g, B = the
+//   W planes, both by ldmatrix), taking the gate and the two sums in its
+//   registers;
+// - writes one dW partial and one sums partial; train_ops.sum_rows adds
+//   the chunks in order.
+// Two blocks share an SM (32-row steps keep a block within half the SM's
+// shared memory and its registers at 128 a thread), so one block's
+// recompute and barriers overlap the other's products. Bounds at K=320 ->
+// 128, batch 24, r=64: float32 FMA on the CUDA cores 240.4 us; this
+// kernel's six bf16 passes 48.8 us (operations; 26 us of bytes). Measured
+// there on an H100 80GB HBM3 at 700 W (PERF.md, PR 9): 209 us with its
+// sum_rows (one block an SM with 64-row steps: 234 us, of which removing
+// either product saved ~65).
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
+constexpr int kRdThreads = 256;
+constexpr int kRdCols = 64;   // concat columns of a block
+constexpr int kRdRows = 32;   // rows of a pipelined step
+constexpr int kRdMI = kRdRows / 32;   // m16 row tiles of a g W^T warp
+
+struct RdPlan {
+  long long chunk;  // rows of a block's chunk, a multiple of kRdRows
+  int np;           // output channels zero-padded to 16
+  int stages;       // x / g buffers: 2 (double-buffered) or 1
+  int stat_off;     // shared-memory byte offsets: the columns' BN constants,
+  int stage_off;    //   the first x / g stage,
+  int stage_bytes;  //   bytes per stage,
+  int g_off;        //   the g rows within a stage,
+  int pl_off;       //   r's three planes,
+  int xh_off;       //   the gated x_hat
+};
+
+// v = p1 + p2 + p3, three bf16 pieces (exact for normal float32 v)
+__device__ __forceinline__ void split3(float v, unsigned short& a,
+                                       unsigned short& b, unsigned short& c) {
+  const bf16 p1 = __float2bfloat16(v);
+  const float r1 = __fsub_rn(v, __bfloat162float(p1));
+  const bf16 p2 = __float2bfloat16(r1);
+  const float r2 = __fsub_rn(r1, __bfloat162float(p2));
+  a = __bfloat16_as_ushort(p1);
+  b = __bfloat16_as_ushort(p2);
+  c = __bfloat16_as_ushort(__float2bfloat16(r2));
+}
+
+template <int NB8>
+__global__ void __launch_bounds__(kRdThreads, 2)
     tb_bwd_reduce_kernel(const long long* __restrict__ tbl, int G,
                          long long M, int Ctot, const bf16* __restrict__ g,
                          long long ldg, int N, const float* __restrict__ stat,
                          const float* __restrict__ bias,
-                         const float* __restrict__ w, long long chunk,
+                         const float* __restrict__ w, RdPlan p,
                          float* __restrict__ dw_part,
                          float* __restrict__ sums_part) {
-  __shared__ F32Smem s;
-  __shared__ float red[2][16][kT];
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const long long rb = (long long)blockIdx.x * chunk;
-  const long long re = rb + chunk < M ? rb + chunk : M;
-  const int k0 = blockIdx.y * kT;
-  float acc[4][4];
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int XS = kRdCols + 8;       // x / plane row stride, elements
+  constexpr int HS = kRdCols + 8;       // x_hat row stride, floats
+  const uint32_t s0 = smem_u32(smem);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int c0 = blockIdx.x * kRdCols;
+  const long long rb = (long long)blockIdx.y * p.chunk;
+  const long long re = rb + p.chunk < M ? rb + p.chunk : M;
+  const int nsteps = (int)((re - rb + kRdRows - 1) / kRdRows);
+  const int np = p.np, gs = np + 8;     // g / W-plane row stride, elements
+  const int wpl = kRdCols * gs * 2;     // bytes of one W plane
+  float* sst = reinterpret_cast<float*>(smem + p.stat_off);
 
-  if (blockIdx.z + 1 < gridDim.z) {
-    // ---- dW tile: rows k of the concat, columns n of the output ----
-    const int n0 = blockIdx.z * kT;
-    zero_acc(acc);
-    // the prologue thread's column vector (threads < 128) and its constants
-    const int pd = tid / 8, pk = k0 + (tid % 8) * 8;
-    const bool pro = tid < 128 && pk < Ctot;
-    ColRef pc{nullptr, 0};
-    float mu[8], is[8], sc[8], b[8];
-    if (pro) {
-      pc = col_ref(tbl, G, pk);
-#pragma unroll
-      for (int t = 0; t < 8; ++t) {
-        mu[t] = stat[pk + t];
-        is[t] = stat[Ctot + pk + t];
-        sc[t] = stat[2 * Ctot + pk + t];
-        b[t] = bias[pk + t];
-      }
-    }
-    for (long long rr = rb; rr < re; rr += kD) {
-      if (tid < 128) {          // a[d][k] = r[rr + d, k0 + k]
-        float o[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-        const long long m = rr + pd;
-        if (pro && m < re) {
-          Pack8 p;
-          p.v = *reinterpret_cast<const uint4*>(pc.x + m * pc.ld);
-#pragma unroll
-          for (int t = 0; t < 8; ++t)
-            o[t] = fmaxf(ybn_of(xhat_of(lo(p, t), mu[t], is[t]), sc[t], b[t]),
-                         0.f);
-        }
-#pragma unroll
-        for (int t = 0; t < 8; ++t) s.a[pd][(tid % 8) * 8 + t] = o[t];
-      } else {                  // b[d][n] = g[rr + d, n0 + n]
-        const int i = tid - 128, d = i / 8, nv = (i % 8) * 8;
-        const long long m = rr + d;
-        Pack8 p;
-        p.v = make_uint4(0u, 0u, 0u, 0u);
-        if (m < re && n0 + nv < N)
-          p.v = *reinterpret_cast<const uint4*>(g + m * ldg + n0 + nv);
-#pragma unroll
-        for (int t = 0; t < 8; ++t) s.b[d][nv + t] = lo(p, t);
-      }
-      __syncthreads();
-      f32_stage(s, ty, tx, acc);
-      __syncthreads();
-    }
-    float* base = dw_part + (long long)blockIdx.x * Ctot * N;
-    const int n = n0 + tx * 4;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int k = k0 + ty * 4 + i;
-      if (k < Ctot && n < N)
-        *reinterpret_cast<float4*>(base + (long long)k * N + n) =
-            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-    }
-    return;
-  }
+  // this thread's x vector: columns c0 + xv*8 .. +7, rows xr + 32h
+  const int xv = tid & 7, xr = tid >> 3;
+  const int xc = c0 + xv * 8;
+  ColRef xref{nullptr, 0};
+  if (xc < Ctot) xref = col_ref(tbl, G, xc);
 
-  // ---- the two BN sums of columns k0 + tx*4 .. +3 over the chunk ----
-  const int k = k0 + tx * 4;
-  const bool on = k < Ctot;
-  ColRef c{nullptr, 0};
-  BnCol bc;
-  if (on) {
-    c = col_ref(tbl, G, k);
-    bn_col(stat, bias, Ctot, k, bc);
-  }
-  float sg[4] = {0.f, 0.f, 0.f, 0.f}, sx[4] = {0.f, 0.f, 0.f, 0.f};
-  for (long long r0 = rb; r0 < re; r0 += kT) {
-    gw_tile(s, g, ldg, re, N, w, Ctot, r0, k0, acc);
-    if (!on) continue;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const long long m = r0 + ty * 4 + i;
-      if (m >= re) continue;
-      float x[4];
-      load4(c, m, x);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float xh = xhat_of(x[j], bc.mu[j], bc.is[j]);
-        const float gy = ybn_of(xh, bc.sc[j], bc.b[j]) > 0.f ? acc[i][j] : 0.f;
-        sg[j] += gy;
-        sx[j] += __fmul_rn(gy, xh);
-      }
+  // step st's x vectors and g rows into stage st % stages; a step past
+  // the chunk commits an empty group, so group st is always step st's
+  const auto issue = [&](int st) {
+    if (st >= nsteps) {
+      cp_async_commit();
+      return;
     }
-  }
+    const long long m0 = rb + (long long)st * kRdRows;
+    const uint32_t base = s0 + p.stage_off + (st % p.stages) * p.stage_bytes;
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    red[0][ty][tx * 4 + j] = sg[j];
-    red[1][ty][tx * 4 + j] = sx[j];
+    for (int h = 0; h < kRdRows / 32; ++h) {
+      const int r = xr + 32 * h;
+      const bool ok = xc < Ctot && m0 + r < re;
+      cp_async16(base + (r * XS + xv * 8) * 2,
+                 ok ? xref.x + (m0 + r) * xref.ld : g, ok ? 16 : 0);
+    }
+    const int gv = np / 8;
+    for (int i = tid; i < kRdRows * gv; i += kRdThreads) {
+      const int r = i / gv, j = i - (i / gv) * gv;
+      const bool ok = m0 + r < re && j * 8 < N;
+      cp_async16(base + p.g_off + (r * gs + j * 8) * 2,
+                 ok ? g + (m0 + r) * ldg + j * 8 : g, ok ? 16 : 0);
+    }
+    cp_async_commit();
+  };
+  for (int st = 0; st + 1 < p.stages; ++st) issue(st);
+
+  // the columns' BN constants, and W's rows split into three planes once
+  if (tid < kRdCols) {
+    const int c = c0 + tid;
+    const bool ok = c < Ctot;
+    sst[tid] = ok ? stat[c] : 0.f;
+    sst[kRdCols + tid] = ok ? stat[Ctot + c] : 0.f;
+    sst[2 * kRdCols + tid] = ok ? stat[2 * Ctot + c] : 0.f;
+    sst[3 * kRdCols + tid] = ok ? bias[c] : 0.f;
+  }
+  for (int i = tid; i < kRdCols * np / 4; i += kRdThreads) {
+    const int cl = i / (np / 4), n = (i - cl * (np / 4)) * 4;
+    const int c = c0 + cl;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (c < Ctot && n < N)
+      v = *reinterpret_cast<const float4*>(w + (long long)c * N + n);
+    const float vv[4] = {v.x, v.y, v.z, v.w};
+    unsigned short q[3][4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split3(vv[e], q[0][e], q[1][e], q[2][e]);
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      *reinterpret_cast<uint2*>(smem + k * wpl + (cl * gs + n) * 2) =
+          make_uint2(q[k][0] | ((unsigned)q[k][1] << 16),
+                     q[k][2] | ((unsigned)q[k][3] << 16));
   }
   __syncthreads();
-  if (tid < 2 * kT) {
-    const int which = tid / kT, col = tid % kT, kk = k0 + col;
-    float a = 0.f;
-    for (int i = 0; i < 16; ++i) a += red[which][i][col];
-    if (kk < Ctot)
-      sums_part[((long long)blockIdx.x * 2 + which) * Ctot + kk] = a;
+  float mu[8], is[8], sc[8], bb[8];
+#pragma unroll
+  for (int t = 0; t < 8; ++t) {
+    mu[t] = sst[xv * 8 + t];
+    is[t] = sst[kRdCols + xv * 8 + t];
+    sc[t] = sst[2 * kRdCols + xv * 8 + t];
+    bb[t] = sst[3 * kRdCols + xv * 8 + t];
+  }
+
+  // dW: warp (dc, dq) owns columns dc*32 .. +32 (two m16 tiles of r^T)
+  // and outputs dq*NB8*8 .. (NB8 n8 tiles of g)
+  const int dc = warp & 1, dq = warp >> 1;
+  const int nb0 = dq * NB8 * 8;
+  // g W^T: warp (gr, gc) owns rows gr*16*kRdMI .. and columns gc*16 .. +16
+  const int gr = warp & 1, gc = warp >> 1, gr0 = gr * 16 * kRdMI;
+  const int mat = lane >> 3;
+  const int t_pix = (lane & 7) + (mat >> 1) * 8;   // .trans A row (r^T)
+  const int t_ofs = (mat & 1) * 16;
+  const int b_pix = (mat & 1) * 8 + (lane & 7);    // .trans B row (g)
+  float acc[2][NB8][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < NB8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  float sg[4] = {0.f, 0.f, 0.f, 0.f}, sx[4] = {0.f, 0.f, 0.f, 0.f};
+  const uint32_t pl = s0 + p.pl_off;
+  const int plb = kRdRows * XS * 2;                // bytes of one r plane
+  float* xh = reinterpret_cast<float*>(smem + p.xh_off);
+
+  for (int st = 0; st < nsteps; ++st) {
+    issue(st + p.stages - 1);     // into the stage step st - 1 used
+    if (p.stages == 2) cp_async_wait<1>();   // step st has landed
+    else cp_async_wait<0>();
+    __syncthreads();
+    const long long m0 = rb + (long long)st * kRdRows;
+    const uint32_t sb = s0 + p.stage_off + (st % p.stages) * p.stage_bytes;
+    const unsigned char* sx_ = smem + p.stage_off +
+                               (st % p.stages) * p.stage_bytes;
+
+    // the recompute, once per element: r's planes and the gated x_hat
+#pragma unroll
+    for (int h = 0; h < kRdRows / 32; ++h) {
+      const int r = xr + 32 * h;
+      const bool row_ok = m0 + r < re;
+      Pack8 in, o1, o2, o3;
+      in.v = *reinterpret_cast<const uint4*>(sx_ + (r * XS + xv * 8) * 2);
+      float hv[8];
+#pragma unroll
+      for (int t = 0; t < 8; ++t) {
+        const bool ok = row_ok && xc + t < Ctot;
+        const float xhat = xhat_of(lo(in, t), mu[t], is[t]);
+        const float y = ybn_of(xhat, sc[t], bb[t]);
+        const bool pass = ok && y > 0.f;
+        split3(pass ? y : 0.f, o1.u[t], o2.u[t], o3.u[t]);
+        hv[t] = pass ? xhat : __int_as_float(0x7fc00000);
+      }
+      const int e = (r * XS + xv * 8) * 2;
+      *reinterpret_cast<uint4*>(smem + p.pl_off + e) = o1.v;
+      *reinterpret_cast<uint4*>(smem + p.pl_off + plb + e) = o2.v;
+      *reinterpret_cast<uint4*>(smem + p.pl_off + 2 * plb + e) = o3.v;
+      float* hp = xh + r * HS + xv * 8;
+      *reinterpret_cast<float4*>(hp) = make_float4(hv[0], hv[1], hv[2], hv[3]);
+      *reinterpret_cast<float4*>(hp + 4) =
+          make_float4(hv[4], hv[5], hv[6], hv[7]);
+    }
+    __syncthreads();
+
+    // dW += sum_i p_i(r)^T g over the step's 64 rows
+    const uint32_t gb_ = sb + p.g_off;
+#pragma unroll
+    for (int ks = 0; ks < kRdRows / 16; ++ks) {
+      uint32_t b[NB8][2] = {};
+#pragma unroll
+      for (int jp = 0; jp < NB8 / 2; ++jp) {
+        uint32_t t4[4] = {0u, 0u, 0u, 0u};
+        if (nb0 + 16 * jp < np)
+          ldsm_x4_t(t4, gb_ + ((ks * 16 + b_pix) * gs + nb0 + 16 * jp +
+                             8 * (mat >> 1)) * 2);
+        b[2 * jp][0] = t4[0];
+        b[2 * jp][1] = t4[1];
+        b[2 * jp + 1][0] = t4[2];
+        b[2 * jp + 1][1] = t4[3];
+      }
+      if ((NB8 & 1) && nb0 + 8 * (NB8 - 1) < np)
+        ldsm_x2_t(b[NB8 - 1][0], b[NB8 - 1][1],
+                  gb_ + ((ks * 16 + b_pix) * gs + nb0 + 8 * (NB8 - 1)) * 2);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        uint32_t a[2][4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          ldsm_x4_t(a[i], pl + k * plb + ((ks * 16 + t_pix) * XS +
+                                          dc * 32 + 16 * i) * 2 + t_ofs);
+#pragma unroll
+        for (int j = 0; j < NB8; ++j) {
+          if (nb0 + 8 * j >= np) continue;
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            mma16816(acc[i][j], a[i], b[j][0], b[j][1]);
+        }
+      }
+    }
+
+    // g W^T for the step's rows, gated; the two sums
+    float gw[kRdMI][2][4];
+#pragma unroll
+    for (int i = 0; i < kRdMI; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) gw[i][j][e] = 0.f;
+    for (int kk = 0; kk < np / 16; ++kk) {
+      uint32_t a[kRdMI][4];
+#pragma unroll
+      for (int i = 0; i < kRdMI; ++i)
+        ldsm_x4(a[i], gb_ + ((gr0 + 16 * i + (lane & 15)) * gs) * 2 +
+                          kk * 32 + (lane >> 4) * 16);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        uint32_t b[4];
+        ldsm_x4(b, s0 + k * wpl +
+                       ((gc * 16 + (mat >> 1) * 8 + (lane & 7)) * gs) * 2 +
+                       kk * 32 + (mat & 1) * 16);
+#pragma unroll
+        for (int i = 0; i < kRdMI; ++i) {
+          mma16816(gw[i][0], a[i], b[0], b[1]);
+          mma16816(gw[i][1], a[i], b[2], b[3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kRdMI; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float* hr = xh + (gr0 + 16 * i + (lane >> 2) + 8 * h) * HS +
+                          gc * 16 + 2 * (lane & 3);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float2 v = *reinterpret_cast<const float2*>(hr + 8 * j);
+          const float gv0 = gw[i][j][2 * h], gv1 = gw[i][j][2 * h + 1];
+          if (v.x == v.x) {
+            sg[2 * j] += gv0;
+            sx[2 * j] += __fmul_rn(gv0, v.x);
+          }
+          if (v.y == v.y) {
+            sg[2 * j + 1] += gv1;
+            sx[2 * j + 1] += __fmul_rn(gv1, v.y);
+          }
+        }
+      }
+    __syncthreads();
+  }
+
+  // the dW partial of this chunk
+  float* dbase = dw_part + (long long)blockIdx.y * Ctot * N;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < NB8; ++j) {
+      const int n = nb0 + 8 * j + 2 * (lane & 3);
+      const int c = c0 + dc * 32 + 16 * i + (lane >> 2);
+      if (n >= N) continue;
+      if (c < Ctot)
+        *reinterpret_cast<float2*>(dbase + (long long)c * N + n) =
+            make_float2(acc[i][j][0], acc[i][j][1]);
+      if (c + 8 < Ctot)
+        *reinterpret_cast<float2*>(dbase + (long long)(c + 8) * N + n) =
+            make_float2(acc[i][j][2], acc[i][j][3]);
+    }
+  // the sums: over the lanes of a column (fixed tree), then the two row
+  // halves in order
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1) {
+      sg[e] += __shfl_xor_sync(0xffffffffu, sg[e], o);
+      sx[e] += __shfl_xor_sync(0xffffffffu, sx[e], o);
+    }
+  float* red = xh;      // free after the loop's last barrier
+  if (lane < 4)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = gc * 16 + 8 * (e >> 1) + 2 * lane + (e & 1);
+      red[(0 * 2 + gr) * kRdCols + col] = sg[e];
+      red[(1 * 2 + gr) * kRdCols + col] = sx[e];
+    }
+  __syncthreads();
+  if (tid < 2 * kRdCols) {
+    const int which = tid / kRdCols, col = tid % kRdCols, c = c0 + col;
+    if (c < Ctot)
+      sums_part[((long long)blockIdx.y * 2 + which) * Ctot + c] =
+          red[(which * 2) * kRdCols + col] +
+          red[(which * 2 + 1) * kRdCols + col];
   }
 }
 
 // ---------------------------------------------------------------------------
-// tb_bwd_dx: per 64-row x 64-column tile, g_r = g W^T again, then
+// tb_bwd_dx: per 64-row x 64-column tile, g_r = g W^T (float32 FMA), then
 //   dx = (scale * inv_sigma) * ((g_y - mean(g_y)) - x_hat * mean(g_y x_hat))
 // rounded once to bf16 into the group's dx tensor (red = [mean g_y;
 // mean g_y x_hat], the reduce kernel's sums over M).
@@ -477,6 +696,23 @@ void launch_apply(const long long* tbl, int G, long long M, int Ctot,
       tbl, G, M, Ctot, inv, shift, w, N, out);
 }
 
+template <int NB8>
+int launch_bwd_reduce(const long long* tbl, int G, long long M, int Ctot,
+                      const bf16* g, long long ldg, int N, const float* stat,
+                      const float* bias, const float* w, const RdPlan& p,
+                      float* dw_part, float* sums_part, int smem,
+                      cudaStream_t st) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      tb_bwd_reduce_kernel<NB8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((unsigned)((Ctot + kRdCols - 1) / kRdCols),
+                  (unsigned)((M + p.chunk - 1) / p.chunk));
+  tb_bwd_reduce_kernel<NB8><<<grid, kRdThreads, smem, st>>>(
+      tbl, G, M, Ctot, g, ldg, N, stat, bias, w, p, dw_part, sums_part);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -531,17 +767,30 @@ int cunet_tb_apply(const void* tbl, int G, long long M, int Ctot,
 int cunet_tb_bwd_reduce(const void* tbl, int G, long long M, int Ctot,
                         const void* g, long long ldg, int N, const void* stat,
                         const void* bias, const void* w, long long chunk,
-                        void* dw_part, void* sums_part, void* stream) {
+                        int np, int stages, int stat_off, int stage_off,
+                        int stage_bytes, int g_off, int pl_off, int xh_off,
+                        int smem, void* dw_part, void* sums_part,
+                        void* stream) {
+  const RdPlan p{chunk, np, stages, stat_off, stage_off, stage_bytes, g_off,
+                 pl_off, xh_off};
+  const auto* tp = static_cast<const long long*>(tbl);
+  const auto* gp = static_cast<const bf16*>(g);
+  const auto* sp = static_cast<const float*>(stat);
+  const auto* bp = static_cast<const float*>(bias);
+  const auto* wp = static_cast<const float*>(w);
+  auto* dp = static_cast<float*>(dw_part);
+  auto* rp = static_cast<float*>(sums_part);
   const auto st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((unsigned)((M + chunk - 1) / chunk),
-                  (unsigned)((Ctot + kT - 1) / kT),
-                  (unsigned)((N + kT - 1) / kT + 1));
-  tb_bwd_reduce_kernel<<<grid, kThreads, 0, st>>>(
-      static_cast<const long long*>(tbl), G, M, Ctot,
-      static_cast<const bf16*>(g), ldg, N, static_cast<const float*>(stat),
-      static_cast<const float*>(bias), static_cast<const float*>(w), chunk,
-      static_cast<float*>(dw_part), static_cast<float*>(sums_part));
-  return (int)cudaGetLastError();
+  switch ((np + 31) / 32) {
+#define CUNET_RD_NB8(n)                                                     \
+  case n:                                                                   \
+    return launch_bwd_reduce<n>(tp, G, M, Ctot, gp, ldg, N, sp, bp, wp, p, \
+                                dp, rp, smem, st);
+    CUNET_RD_NB8(1) CUNET_RD_NB8(2) CUNET_RD_NB8(3) CUNET_RD_NB8(4)
+    CUNET_RD_NB8(5) CUNET_RD_NB8(6) CUNET_RD_NB8(7) CUNET_RD_NB8(8)
+#undef CUNET_RD_NB8
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 int cunet_tb_bwd_dx(const void* tbl, int G, long long M, int Ctot,

@@ -412,28 +412,6 @@ void launch_affine_dot(const bf16* x, long long ldx, long long M, int K,
         N, bias, out);
 }
 
-// Launch a persistent kernel on at most as many blocks as fit on the card
-// at once (never more than ``items``), with ``smem`` bytes of dynamic shared
-// memory. The result does not depend on the grid: a tile is computed the
-// same way by whichever block takes it.
-template <typename Kernel, typename... Args>
-int launch_persistent(Kernel kern, int items, int threads, int smem,
-                      cudaStream_t st, Args... args) {
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return (int)e;
-  int per_sm = 0, dev = 0, nsm = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
-                                                    smem);
-  if (e != cudaSuccess) return (int)e;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
-  const int grid = items < per_sm * nsm ? items : per_sm * nsm;
-  kern<<<grid, threads, smem, st>>>(args...);
-  return (int)cudaGetLastError();
-}
-
 template <int NT>
 int launch_conv3x3(const bf16* y, long long ldy, int M, int H, int W, int C,
                    const bf16* w, int G, VecArgs v, OutView out,

@@ -1,7 +1,9 @@
-// Pieces shared by the two 3x3-conv kernels, conv3x3 (buf_kernels.cu) and
-// conv3x3_dw (train_kernels.cu): asynchronous 16-byte copies into shared
-// memory (cp.async), ldmatrix loads of 8x8 bf16 tiles, the m16n8k16 bf16
-// tensor-core product (mma.sync), and the halo tile both kernels stage.
+// Pieces shared by the tensor-core kernels: the three 3x3-conv kernels,
+// conv3x3 (buf_kernels.cu), conv3x3_dx and conv3x3_dw (train_kernels.cu),
+// and #7's bwd_reduce (bottleneck_kernels.cu): asynchronous copies into
+// shared memory (cp.async), ldmatrix loads of 8x8 bf16 tiles, the m16n8k16
+// bf16 tensor-core product (mma.sync), the halo tile the conv kernels
+// stage, and the launch of a persistent kernel.
 //
 // A halo tile holds rows [g0, g0 + rows) of an (M, C) bf16 channel-plane
 // matrix, channels [c0, c0 + kc), at a row stride of kc + kHaloPad
@@ -33,6 +35,15 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// 4 bytes global -> shared, asynchronously (through L1); src_bytes 0
+// writes zeros.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
                "l"(src), "r"(src_bytes)
                : "memory");
 }
@@ -155,6 +166,28 @@ __device__ __forceinline__ int tap_row(int r, int yy, int xx, bool in_range,
   const int sy = yy + dy, sx = xx + dx;
   if (!in_range || sy < 0 || sy >= H || sx < 0 || sx >= W) return -1;
   return r + W + 1 + dy * W + dx;
+}
+
+// Launch a persistent kernel on at most as many blocks as fit on the card
+// at once (never more than ``items``), with ``smem`` bytes of dynamic shared
+// memory. The result does not depend on the grid: an item is computed the
+// same way by whichever block takes it.
+template <typename Kernel, typename... Args>
+int launch_persistent(Kernel kern, int items, int threads, int smem,
+                      cudaStream_t st, Args... args) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  int per_sm = 0, dev = 0, nsm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
+                                                    smem);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
+  const int grid = items < per_sm * nsm ? items : per_sm * nsm;
+  kern<<<grid, threads, smem, st>>>(args...);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace

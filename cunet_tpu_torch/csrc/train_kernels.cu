@@ -4,8 +4,9 @@
 // drives them). They replace the in-kernel jnp pieces of the TPU kernels
 // cunet_tpu/kernels/train_slot.py::slot_train_fwd / slot_train_bwd:
 //   bn_stats      <- _stats                   (per-tile mean, biased var)
-//   dx (1x1/3x3)  <- _dot_dx + relu mask of _affine_bwd, and the d_z2 half
-//                    of _conv3x3_bwd (transposed 3x3, flipped taps)
+//   dx (1x1)      <- _dot_dx + relu mask of _affine_bwd
+//   conv3x3_dx    <- the d_z2 half of _conv3x3_bwd (halo tiles of dy,
+//                    flipped taps of the resident weight, mma.sync)
 //   dw (1x1)      <- _dot_dw
 //   conv3x3_dw    <- the dW3 half of _conv3x3_bwd (halo tiles, mma.sync)
 //   bn_bwd        <- the BN-jacobian of _affine_bwd (two sums per tile)
@@ -205,22 +206,20 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// B1 / B4 dx: the activation-gradient GEMM of a stage, masked by its ReLU.
-//   out[m, k] = [x[m,k]*inv[t,k] + shift[t,k] > 0] *
-//               sum_tap sum_n dY[src(m, tap), n] * Wt[tap*K + k, n]
-// taps == 1: a 1x1 stage (src = m, Wt = the (K, N) weight, read transposed).
-// taps == 9: the transposed 3x3 conv, src = the pixel at minus the tap's
-// offset in the same image (zero outside it), Wt = the packed (9*K, N)
-// weight. The ReLU mask is recomputed from the stage input x with the
-// forward's f32 prologue, so d_a never needs the forward's activations.
-// With ste (QuanInput's straight-through estimator) the gate also needs the
-// bf16 activation below 1: 0 < z < 1, z the value the quantizer read.
+// B1 affine_dx: the activation-gradient GEMM of a 1x1 stage, masked by its
+// ReLU.
+//   out[m, k] = [x[m,k]*inv[t,k] + shift[t,k] > 0] * sum_n dY[m, n] W[k, n]
+// with W the (K, N) weight, read transposed. The ReLU mask is recomputed
+// from the stage input x with the forward's f32 prologue, so d_a never
+// needs the forward's activations. With ste (QuanInput's straight-through
+// estimator) the gate also needs the bf16 activation below 1: 0 < z < 1,
+// z the value the quantizer read.
 // ---------------------------------------------------------------------------
 template <int BN, int WARPS_N>
 __global__ void __launch_bounds__(kThreads)
     dx_kernel(const bf16* __restrict__ dy, long long ldd, long long M, int N,
-              int H, int W, int taps, const bf16* __restrict__ w, int ldw,
-              int K, const bf16* __restrict__ x, long long ldx,
+              const bf16* __restrict__ w, int ldw, int K,
+              const bf16* __restrict__ x, long long ldx,
               const float* __restrict__ inv, const float* __restrict__ shift,
               long long vstride, long long tile_rows, int ste,
               float* __restrict__ out, long long ldo) {
@@ -230,7 +229,6 @@ __global__ void __launch_bounds__(kThreads)
   const int wm = warp / WARPS_N, wn = warp % WARPS_N;
   const long long m0 = (long long)blockIdx.x * BM;
   const int k0 = blockIdx.y * BN;
-  const long long hw = (long long)H * W;
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[T::FM][T::FN];
 #pragma unroll
@@ -238,46 +236,30 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < T::FN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
 
-  for (int tap = 0; tap < taps; ++tap) {
-    const int dyo = taps == 1 ? 0 : tap / 3 - 1;
-    const int dxo = taps == 1 ? 0 : tap % 3 - 1;
-    for (int n0 = 0; n0 < N; n0 += BK) {
-      for (int c = threadIdx.x; c < BM * BK / 8; c += kThreads) {
-        const int r = c / (BK / 8), nc = (c % (BK / 8)) * 8;
-        const long long m = m0 + r;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (m < M && n0 + nc < N) {
-          long long src = m;
-          bool ok = true;
-          if (taps != 1) {
-            const long long img = m / hw;
-            const int p = (int)(m - img * hw);
-            const int yy = p / W - dyo, xx = p % W - dxo;
-            ok = yy >= 0 && yy < H && xx >= 0 && xx < W;
-            src = img * hw + (long long)yy * W + xx;
-          }
-          if (ok)
-            v = *reinterpret_cast<const uint4*>(dy + src * ldd + n0 + nc);
-        }
-        *reinterpret_cast<uint4*>(&s.a[r][nc]) = v;
-      }
-      // B[kk][col] = Wt[tap*K + k0 + col, n0 + kk]: 8 consecutive n of one
-      // weight row per thread, scattered down a shared-memory column
-      for (int c = threadIdx.x; c < BN * BK / 8; c += kThreads) {
-        const int col = c / (BK / 8), kc = (c % (BK / 8)) * 8;
-        const int k = k0 + col, n = n0 + kc;
-        Pack8 p;
-        p.v = make_uint4(0u, 0u, 0u, 0u);
-        if (k < K && n < N)
-          p.v = *reinterpret_cast<const uint4*>(
-              w + ((long long)tap * K + k) * ldw + n);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) s.b[kc + i][col] = __ushort_as_bfloat16(p.u[i]);
-      }
-      __syncthreads();
-      mma_stage(s, wm, wn, acc);
-      __syncthreads();
+  for (int n0 = 0; n0 < N; n0 += BK) {
+    for (int c = threadIdx.x; c < BM * BK / 8; c += kThreads) {
+      const int r = c / (BK / 8), nc = (c % (BK / 8)) * 8;
+      const long long m = m0 + r;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (m < M && n0 + nc < N)
+        v = *reinterpret_cast<const uint4*>(dy + m * ldd + n0 + nc);
+      *reinterpret_cast<uint4*>(&s.a[r][nc]) = v;
     }
+    // B[kk][col] = W[k0 + col, n0 + kk]: 8 consecutive n of one weight row
+    // per thread, scattered down a shared-memory column
+    for (int c = threadIdx.x; c < BN * BK / 8; c += kThreads) {
+      const int col = c / (BK / 8), kc = (c % (BK / 8)) * 8;
+      const int k = k0 + col, n = n0 + kc;
+      Pack8 p;
+      p.v = make_uint4(0u, 0u, 0u, 0u);
+      if (k < K && n < N)
+        p.v = *reinterpret_cast<const uint4*>(w + (long long)k * ldw + n);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) s.b[kc + i][col] = __ushort_as_bfloat16(p.u[i]);
+    }
+    __syncthreads();
+    mma_stage(s, wm, wn, acc);
+    __syncthreads();
   }
 
   float* st = s.stage[warp];
@@ -598,6 +580,328 @@ __global__ void __launch_bounds__(kDwThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
+// B4 conv3x3_dx: the transposed 3x3 conv of dY, masked by the ReLU of the
+// conv's input (and QuanInput's straight-through gate with STE):
+//   out[m, c] = gate(x[m, c]) *
+//               sum_{t'} sum_n dY[m + off(t'), n] * Wp[(8 - t')*Cb + c, n]
+// with off(t') = (t'/3 - 1)*W + t'%3 - 1, zero where m + off(t') lies
+// outside m's image: tap t of the forward reads m - off(t) = m + off(8 - t),
+// so the transposed conv is the forward's 3x3 conv of dY (G channels in,
+// Cb out) through the flipped taps of the same packed (9*Cb, G) weight.
+//
+// Design (the plan is the wrapper's, kernels/train_ops.py::conv3x3_dx_plan):
+// - conv3x3's form on dY: persistent blocks of 8 warps walk items (a tile
+//   of bm output rows, a group of gb output channels). A tile's dY rows
+//   are one halo tile (halo.cuh: bm + 2W + 2 rows of G channels, zero-padded
+//   to 16), so a dY row comes from memory once per tile, not once per tap.
+//   The halo, the tile's x rows and its BN vectors (the gate's operands)
+//   arrive by cp.async while the previous tile computes (two stages where
+//   they fit).
+// - The weight slice of the column group stays in shared memory: 9 x gb x G
+//   bf16 (72 KB on the main path), loaded once per block. Its rows (tap, c)
+//   hold G contiguous values: the product's B operand already in the
+//   layout ldmatrix reads without .trans, so the flip costs only the tap
+//   index (8 - t') and no flipped or repacked copy exists. A 16-byte XOR
+//   swizzle keeps the eight rows of an ldmatrix tile in eight bank groups.
+// - mma.sync m16n8k16 (bf16 in, f32 sums), a warp owning 32 rows x WN
+//   columns; at small M the warps split the 9*G reduction and their sums
+//   are added in warp order in shared memory: no atomics, one launch.
+// - The epilogue is built for its bytes: the f32 result is ~60 % of them,
+//   and its writes must overlap the products, or the card's write rate
+//   bounds a phase of its own (measured: 26 of 77 us at r=64 when the
+//   tile's stores followed its products behind a barrier). So a warp gates
+//   its finished tile in registers (the forward's rounding: it passes the
+//   same elements as the plain version, bit for bit) and writes it during
+//   the next tile's taps, a share after each tap; each quad of lanes
+//   writes a whole 32-byte sector, and a warp's four neighbouring n8 tiles
+//   fill each 128-byte line.
+// Bound by bytes (24.4 us at r=64 batch 24, Cb=128 <- G=32: reading dY and
+// x, writing the f32 result); measured 70 us there on an H100 80GB HBM3 at
+// 700 W (PERF.md, PR 9), the products ~27 us of it.
+// ---------------------------------------------------------------------------
+constexpr int kDxWarps = 8;
+constexpr int kDxThreads = kDxWarps * 32;
+
+struct DxPlan {
+  int bm;           // output rows per tile: 32, 64 or 128
+  int gb;           // output channels per column group: 16 ... 128
+  int ncol;         // column groups
+  int stages;       // buffers of the halo, x and vectors: 2 or 1
+  int zero_off;     // shared-memory byte offsets: the zero row,
+  int stage_off;    //   the first halo stage,
+  int stage_bytes;  //   bytes per halo stage,
+  int x_off;        //   the first stage of the tile's x rows,
+  int x_bytes;      //   bytes per x stage,
+  int vec_off;      //   the first stage of its BN vectors [t][inv; shift],
+  int vec_bytes;    //   bytes per vector stage,
+  int red_off;      //   the split reduction's partial sums
+};
+
+// The 16-byte chunk swizzle of a weight row of n chunks: ldmatrix reads
+// eight consecutive rows of one chunk, which then land in eight bank
+// groups. Stays within the row (n is a multiple of 2, 4 or 8 as tested).
+__device__ __forceinline__ int dx_swz(int n, int r) {
+  if (n % 8 == 0) return r & 7;
+  if (n % 4 == 0) return (r >> 1) & 3;
+  if (n % 2 == 0) return (r >> 2) & 1;
+  return 0;
+}
+
+template <int NTW, bool STE>
+__global__ void __launch_bounds__(kDxThreads)
+    conv3x3_dx_kernel(const bf16* __restrict__ dy, long long ldd, int M,
+                      int H, int W, int G, const bf16* __restrict__ w, int Cb,
+                      const bf16* __restrict__ x, long long ldx,
+                      const float* __restrict__ inv,
+                      const float* __restrict__ shift, long long vstride,
+                      int tile_rows, float* __restrict__ out, long long ldo,
+                      DxPlan p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int WN = NTW * 8;       // output channels of a warp
+  constexpr int E = 2 * NTW;        // a warp's (m16, n8) fragments
+  const int tiles = (M + p.bm - 1) / p.bm;
+  const int items = tiles * p.ncol;
+  if ((int)blockIdx.x >= items) return;
+  const uint32_t s0 = smem_u32(smem);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm_n = p.bm / 32, wn_n = p.gb / WN;
+  const int wk_n = kDxWarps / (wm_n * wn_n);
+  const int wm = warp % wm_n, wn = (warp / wm_n) % wn_n;
+  const int wk = warp / (wm_n * wn_n);
+  const int gp = (G + 15) / 16 * 16;      // dY channels, zero-padded
+  const int kst = gp >> 4, steps = 9 * kst;
+  const int s_lo = wk * steps / wk_n, s_hi = (wk + 1) * steps / wk_n;
+  const int nchk = gp / 8;                // 16-byte chunks of a weight row
+  const int hstride = (gp + kHaloPad) * 2;
+  const int halo_rows = p.bm + 2 * W + 2;
+  const int xs = p.gb + kHaloPad;         // x row stride, elements
+  const int rs = p.gb + 4;                // partial-sum row stride, floats
+  const int hw = H * W;
+  const int Q = (items - 1 - (int)blockIdx.x) / (int)gridDim.x + 1;
+
+  for (int i = tid; i < gp / 8; i += kDxThreads)
+    *reinterpret_cast<uint4*>(smem + p.zero_off + i * 16) =
+        make_uint4(0u, 0u, 0u, 0u);
+
+  const auto item_of = [&](int q) {
+    return (int)blockIdx.x + q * (int)gridDim.x;
+  };
+  // item q's dY halo, x rows and the BN vectors of the tiles t0 .. of its
+  // rows, into stage q % stages
+  const auto issue = [&](int q) {
+    const int it = item_of(q), tile = it % tiles, col = it / tiles;
+    const int m0 = tile * p.bm, sq = q % p.stages;
+    load_halo(s0 + p.stage_off + sq * p.stage_bytes, dy, ldd, M, G,
+              m0 - W - 1, halo_rows, 0, gp, tid, kDxThreads);
+    const int xv = p.gb / 8;
+    const uint32_t xb = s0 + p.x_off + sq * p.x_bytes;
+    for (int i = tid; i < p.bm * xv; i += kDxThreads) {
+      const int r = i / xv, v = i - (i / xv) * xv;
+      const int m = m0 + r, c = col * p.gb + v * 8;
+      const bool ok = m < M && c < Cb;
+      cp_async16(xb + (r * xs + v * 8) * 2,
+                 ok ? x + (long long)m * ldx + c : x, ok ? 16 : 0);
+    }
+    const int t0 = m0 / tile_rows;
+    const int t1 = ((m0 + p.bm < M ? m0 + p.bm : M) - 1) / tile_rows;
+    const uint32_t vb = s0 + p.vec_off + sq * p.vec_bytes;
+    for (int i = tid; i < (t1 - t0 + 1) * 2 * p.gb; i += kDxThreads) {
+      const int t = i / (2 * p.gb), e = i - t * 2 * p.gb;
+      const int which = e / p.gb, c = col * p.gb + (e - which * p.gb);
+      const bool ok = c < Cb;
+      const float* src = (which ? shift : inv) + (t0 + t) * vstride + c;
+      cp_async4(vb + i * 4, ok ? src : inv, ok ? 4 : 0);
+    }
+    cp_async_commit();
+  };
+  const auto issue_weight = [&](int col) {
+    for (int i = tid; i < 9 * p.gb * nchk; i += kDxThreads) {
+      const int r = i / nchk, j = i - (i / nchk) * nchk;
+      const int tap = r / p.gb, c = col * p.gb + (r - tap * p.gb);
+      const bool ok = c < Cb && j * 8 < G;
+      cp_async16(s0 + (r * nchk + (j ^ dx_swz(nchk, r))) * 16,
+                 ok ? w + ((long long)tap * Cb + c) * G + j * 8 : w,
+                 ok ? 16 : 0);
+    }
+    cp_async_commit();
+  };
+
+  // ldmatrix lane coordinates: A rows wm*32 + (l & 15) + 16i at byte offset
+  // (l >> 4) * 16; B weight row (mat >> 1) * 8 + (l & 7) of an n16 pair,
+  // 16-byte chunk 2 * kk + (mat & 1)
+  const int a_row = wm * 32 + (lane & 15);
+  const int a_ofs = (lane >> 4) * 16;
+  const int b_mat = lane >> 3;
+  const int b_row = wn * WN + (b_mat >> 1) * 8 + (lane & 7);
+  // this lane's fragment coordinates: row wm*32 + 16i + 8h + f_row,
+  // column wn*WN + 8j + f_col (+1)
+  const int f_row = lane >> 2, f_col = 2 * (lane & 3);
+
+  // the gated result of the warp's previous tile, written out during the
+  // next one (pm0 < 0: none pending)
+  float pend[2][NTW][4];
+  int pm0 = -1, pc0 = 0, pdone = 0;
+  const auto flush = [&](int upto) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      if (e < pdone || e >= upto) continue;
+      const int i = e / NTW, j = e % NTW;
+      const int c = pc0 + wn * WN + 8 * j + f_col;
+      if (c >= Cb) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = pm0 + wm * 32 + 16 * i + 8 * h + f_row;
+        if (m < M)
+          *reinterpret_cast<float2*>(out + (long long)m * ldo + c) =
+              make_float2(pend[i][j][2 * h], pend[i][j][2 * h + 1]);
+      }
+    }
+    pdone = upto > pdone ? upto : pdone;
+  };
+
+  float acc[2][NTW][4];
+  int wcol = item_of(0) / tiles;
+  issue_weight(wcol);
+  issue(0);
+  for (int q = 0; q < Q; ++q) {
+    const int it = item_of(q);
+    const int tile = it % tiles, col = it / tiles;
+    const int m0 = tile * p.bm, sq = q % p.stages;
+    if (p.stages == 1 && q > 0) {
+      __syncthreads();                 // every warp is done with stage 0
+      issue(q);
+    }
+    if (col != wcol) {
+      __syncthreads();                 // every warp is done with the weight
+      issue_weight(col);
+      wcol = col;
+    }
+    cp_async_wait<0>();
+    __syncthreads();
+    if (p.stages == 2 && q + 1 < Q) issue(q + 1);
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < NTW; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+    int yy[2], xx[2];
+    bool in_range[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int m = m0 + a_row + 16 * i;
+      in_range[i] = m < M;
+      const int pix = in_range[i] ? m % hw : 0;
+      yy[i] = pix / W;
+      xx[i] = pix - yy[i] * W;
+    }
+    const uint32_t hbase = s0 + p.stage_off + sq * p.stage_bytes;
+    const uint32_t zbase = s0 + p.zero_off;
+    int share = 0;
+    for (int tp = s_lo / kst; tp * kst < s_hi; ++tp) {
+      const int k_lo = s_lo > tp * kst ? s_lo - tp * kst : 0;
+      const int k_hi = s_hi < (tp + 1) * kst ? s_hi - tp * kst : kst;
+      uint32_t abase[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int hr = tap_row(a_row + 16 * i, yy[i], xx[i], in_range[i],
+                               tp / 3 - 1, tp % 3 - 1, H, W);
+        abase[i] =
+            (hr < 0 ? zbase : hbase + (uint32_t)(hr * hstride)) + a_ofs;
+      }
+      const int rb = (8 - tp) * p.gb + b_row;   // the flipped tap's slice
+      for (int kk = k_lo; kk < k_hi; ++kk) {
+        uint32_t a[2][4];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) ldsm_x4(a[i], abase[i] + kk * 32);
+        const int ch = 2 * kk + (b_mat & 1);
+#pragma unroll
+        for (int jp = 0; jp < NTW / 2; ++jp) {
+          const int r = rb + jp * 16;
+          uint32_t b[4];
+          ldsm_x4(b, s0 + (r * nchk + (ch ^ dx_swz(nchk, r))) * 16);
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            mma16816(acc[i][2 * jp], a[i], b[0], b[1]);
+            mma16816(acc[i][2 * jp + 1], a[i], b[2], b[3]);
+          }
+        }
+      }
+      // a share of the previous tile's result, under this tap's products
+      share += (E + 8) / 9;
+      if (pm0 >= 0) flush(share);
+    }
+    if (pm0 >= 0) flush(E);
+
+    if (wk_n > 1) {
+      // the split reduction: warps wk > 0 hand their sums to warp wk = 0
+      float* red = reinterpret_cast<float*>(smem + p.red_off);
+      const auto at = [&](int k, int i, int j, int h) {
+        return red + ((k * p.bm) + wm * 32 + 16 * i + 8 * h + f_row) * rs +
+               wn * WN + 8 * j + f_col;
+      };
+      if (wk > 0)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < NTW; ++j)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              *reinterpret_cast<float2*>(at(wk - 1, i, j, h)) =
+                  make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+      __syncthreads();
+      if (wk == 0)
+        for (int k = 0; k < wk_n - 1; ++k)
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+#pragma unroll
+            for (int j = 0; j < NTW; ++j)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const float2 u = *reinterpret_cast<const float2*>(
+                    at(k, i, j, h));
+                acc[i][j][2 * h] += u.x;
+                acc[i][j][2 * h + 1] += u.y;
+              }
+    }
+    if (wk != 0) continue;
+
+    // the gate, from this tile's x rows and vectors (landed with its halo)
+    const unsigned char* xt = smem + p.x_off + sq * p.x_bytes;
+    const float* vt =
+        reinterpret_cast<const float*>(smem + p.vec_off + sq * p.vec_bytes);
+    const int t0 = m0 / tile_rows;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wm * 32 + 16 * i + 8 * h + f_row;
+        const int m = m0 + r < M ? m0 + r : M - 1;
+        const float* vr = vt + (m / tile_rows - t0) * 2 * p.gb;
+#pragma unroll
+        for (int j = 0; j < NTW; ++j) {
+          const int cl = wn * WN + 8 * j + f_col;
+          const __nv_bfloat162 xr = *reinterpret_cast<const __nv_bfloat162*>(
+              xt + (r * xs + cl) * 2);
+          const float2 iv = *reinterpret_cast<const float2*>(vr + cl);
+          const float2 sv = *reinterpret_cast<const float2*>(vr + p.gb + cl);
+          const float z0 = affine(__low2float(xr), iv.x, sv.x);
+          const float z1 = affine(__high2float(xr), iv.y, sv.y);
+          const bool p0 = z0 > 0.f && (!STE || bf16r(z0) < 1.f);
+          const bool p1 = z1 > 0.f && (!STE || bf16r(z1) < 1.f);
+          pend[i][j][2 * h] = p0 ? acc[i][j][2 * h] : 0.f;
+          pend[i][j][2 * h + 1] = p1 ? acc[i][j][2 * h + 1] : 0.f;
+        }
+      }
+    pm0 = m0;
+    pc0 = col * p.gb;
+    pdone = 0;
+  }
+  if (pm0 >= 0) flush(E);
+}
+
+// ---------------------------------------------------------------------------
 // sum_rows: out[r] = sum_s in[s, r], s in order (the second pass of every
 // row reduction above).
 // ---------------------------------------------------------------------------
@@ -760,13 +1064,12 @@ struct VecArgs {
 };
 
 template <int BN, int WARPS_N>
-void launch_dx(const bf16* dy, long long ldd, long long M, int N, int H, int W,
-               int taps, const bf16* w, int ldw, int K, const bf16* x,
-               long long ldx, VecArgs v, float* out, long long ldo,
-               cudaStream_t st) {
+void launch_dx(const bf16* dy, long long ldd, long long M, int N,
+               const bf16* w, int ldw, int K, const bf16* x, long long ldx,
+               VecArgs v, float* out, long long ldo, cudaStream_t st) {
   const dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((K + BN - 1) / BN));
   dx_kernel<BN, WARPS_N><<<grid, kThreads, 0, st>>>(
-      dy, ldd, M, N, H, W, taps, w, ldw, K, x, ldx, v.inv, v.shift, v.vstride,
+      dy, ldd, M, N, w, ldw, K, x, ldx, v.inv, v.shift, v.vstride,
       v.tile_rows, v.bits, out, ldo);
 }
 
@@ -795,6 +1098,19 @@ int launch_conv3x3_dw(const bf16* x, long long ldx, int M, int H, int W,
       x, ldx, M, H, W, C, v.inv, v.shift, v.vstride, (int)v.tile_rows,
       v.bits, dy, ldd, G, part, p);
   return (int)cudaGetLastError();
+}
+
+template <int NTW>
+int launch_conv3x3_dx(const bf16* dy, long long ldd, int M, int H, int W,
+                      int G, const bf16* w, int Cb, const bf16* x,
+                      long long ldx, VecArgs v, float* out, long long ldo,
+                      const DxPlan& p, int smem, cudaStream_t st) {
+  const int items = (M + p.bm - 1) / p.bm * p.ncol;
+  auto kern = v.bits ? conv3x3_dx_kernel<NTW, true>
+                     : conv3x3_dx_kernel<NTW, false>;
+  return launch_persistent(kern, items, kDxThreads, smem, st, dy, ldd, M, H,
+                           W, G, w, Cb, x, ldx, v.inv, v.shift, v.vstride,
+                           (int)v.tile_rows, out, ldo, p);
 }
 
 }  // namespace
@@ -832,8 +1148,8 @@ int cunet_bn_bwd(const void* x, long long ldx, const void* da, long long ldd,
   return (int)cudaGetLastError();
 }
 
-int cunet_dx(const void* dy, long long ldd, long long M, int N, int H, int W,
-             int taps, const void* w, int ldw, int K, const void* x,
+int cunet_dx(const void* dy, long long ldd, long long M, int N,
+             const void* w, int ldw, int K, const void* x,
              long long ldx, const void* inv, const void* shift,
              long long vstride, long long tile_rows, int ste, void* out,
              long long ldo, void* stream) {
@@ -845,18 +1161,43 @@ int cunet_dx(const void* dy, long long ldd, long long M, int N, int H, int W,
   auto* op = static_cast<float*>(out);
   const auto st = static_cast<cudaStream_t>(stream);
   if (K <= 16)
-    launch_dx<16, 1>(dp, ldd, M, N, H, W, taps, wp, ldw, K, xp, ldx, v, op,
-                     ldo, st);
+    launch_dx<16, 1>(dp, ldd, M, N, wp, ldw, K, xp, ldx, v, op, ldo, st);
   else if (K <= 32)
-    launch_dx<32, 2>(dp, ldd, M, N, H, W, taps, wp, ldw, K, xp, ldx, v, op,
-                     ldo, st);
+    launch_dx<32, 2>(dp, ldd, M, N, wp, ldw, K, xp, ldx, v, op, ldo, st);
   else if (K <= 64)
-    launch_dx<64, 2>(dp, ldd, M, N, H, W, taps, wp, ldw, K, xp, ldx, v, op,
-                     ldo, st);
+    launch_dx<64, 2>(dp, ldd, M, N, wp, ldw, K, xp, ldx, v, op, ldo, st);
   else
-    launch_dx<128, 2>(dp, ldd, M, N, H, W, taps, wp, ldw, K, xp, ldx, v, op,
-                      ldo, st);
+    launch_dx<128, 2>(dp, ldd, M, N, wp, ldw, K, xp, ldx, v, op, ldo, st);
   return (int)cudaGetLastError();
+}
+
+int cunet_conv3x3_dx(const void* dy, long long ldd, long long M, int H,
+                     int W, int G, const void* w, int Cb, const void* x,
+                     long long ldx, const void* inv, const void* shift,
+                     long long vstride, long long tile_rows, int ste,
+                     void* out, long long ldo, int bm, int gb, int wn,
+                     int ncol, int stages, int zero_off, int stage_off,
+                     int stage_bytes, int x_off, int x_bytes, int vec_off,
+                     int vec_bytes, int red_off, int smem, void* stream) {
+  const VecArgs v{static_cast<const float*>(inv),
+                  static_cast<const float*>(shift), vstride, tile_rows, ste};
+  const DxPlan p{bm,    gb,      ncol,    stages,  zero_off,  stage_off,
+                 stage_bytes, x_off, x_bytes, vec_off, vec_bytes, red_off};
+  const auto* dp = static_cast<const bf16*>(dy);
+  const auto* wp = static_cast<const bf16*>(w);
+  const auto* xp = static_cast<const bf16*>(x);
+  auto* op = static_cast<float*>(out);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const int m = (int)M;
+  switch (wn) {
+#define CUNET_DX_WN(n)                                                   \
+  case n:                                                                \
+    return launch_conv3x3_dx<n / 8>(dp, ldd, m, H, W, G, wp, Cb, xp, ldx, \
+                                    v, op, ldo, p, smem, st);
+    CUNET_DX_WN(16) CUNET_DX_WN(32) CUNET_DX_WN(64)
+#undef CUNET_DX_WN
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 int cunet_dw(const void* x, long long ldx, long long M, int K,

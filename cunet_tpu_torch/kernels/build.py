@@ -104,8 +104,9 @@ def _declare(lib):
         "cunet_upsample2": [P, L, P, L, I, I, I, I, P],
         "cunet_bn_stats": [P, L, L, L, I, P, P],
         "cunet_bn_bwd": [P, L, P, L, L, L, I, P, P, F, P, L, I, P, P],
-        "cunet_dx": [P, L, L, I, I, I, I, P, I, I, P, L, P, P, L, L, I, P, L,
-                     P],
+        "cunet_dx": [P, L, L, I, P, I, I, P, L, P, P, L, L, I, P, L, P],
+        "cunet_conv3x3_dx": [P, L, L, I, I, I, P, I, P, L, P, P, L, L, I, P,
+                             L, *[I] * 14, P],
         "cunet_dw": [P, L, L, I, P, P, L, L, I, P, L, I, L, P, P],
         "cunet_conv3x3_dw": [P, L, L, I, I, I, P, P, L, L, I, P, L, I, P,
                              *[I] * 11, P],
@@ -121,7 +122,8 @@ def _declare(lib):
         "cunet_tb_fill_table": [P, I, P, P],
         "cunet_tb_stats": [P, I, L, I, L, P, P],
         "cunet_tb_apply": [P, I, L, I, P, P, P, I, P, L, P],
-        "cunet_tb_bwd_reduce": [P, I, L, I, P, L, I, P, P, P, L, P, P, P],
+        "cunet_tb_bwd_reduce": [P, I, L, I, P, L, I, P, P, P, L, *[I] * 9,
+                                P, P, P],
         "cunet_tb_bwd_dx": [P, I, L, I, P, L, I, P, P, P, P, P],
         "cunet_table_dot": [P, P, P, I, I, I, I, L, P, P, P, P, P, P, I, I,
                             I, P, P, I, P, L, L, L, P, L, P],

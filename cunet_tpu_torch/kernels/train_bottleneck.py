@@ -37,18 +37,32 @@ backward against the unrounded float32 W^T whose ReLU gate reads
 
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Sequence
 
 import torch
 
 from cunet_tpu_torch.kernels import build
-from cunet_tpu_torch.kernels.buf_ops import _check_view, _stream, reset_counts
+from cunet_tpu_torch.kernels.buf_ops import (
+    SMEM_LIMIT,
+    _check_view,
+    _stream,
+    _up,
+    reset_counts,
+)
 from cunet_tpu_torch.kernels.train_ops import _check_contig_f32, sum_rows
 from cunet_tpu_torch.ops.layers import BN_EPS
 
 ROW_CHUNK = 2048         # most rows per partial of a row reduction
 CHUNKS = 32              # partials aimed at where M allows (fills the card)
 TABLE_COLS = 6           # x ptr, x row stride, width, offset, dx ptr, dx ld
+# bwd_reduce: concat columns of a block and rows of a pipelined step
+# (csrc/bottleneck_kernels.cu kRdCols, kRdRows), and the blocks it aims at,
+# two on each of the card's 132 SMs: a constant, so the chunks (and the
+# order of every sum) depend on the shapes alone
+REDUCE_COLS = 64
+REDUCE_ROWS = 32
+REDUCE_BLOCKS = 264
 
 
 def row_tile(m: int, cap: int = 1024) -> int:
@@ -255,6 +269,65 @@ def bwd_reduce_plain(xs, g, stat, bias, w, dw, sums, table=None):
     return dw, sums
 
 
+@dataclasses.dataclass(frozen=True)
+class ReducePlan:
+    """How ``bwd_reduce``'s kernel cuts M rows and Ctot concat columns into
+    blocks: ``chunks`` row chunks of ``chunk`` rows (the last shorter) x
+    ``col_blocks`` blocks of ``REDUCE_COLS`` columns, each chunk walked in
+    steps of ``REDUCE_ROWS`` rows; the outputs zero-padded to ``np``;
+    shared memory: the three W planes at 0, the columns' BN constants at
+    ``stat_off``, ``stages`` x / g buffers of ``stage_bytes`` from
+    ``stage_off`` (g at ``g_off`` within one), r's three planes at
+    ``pl_off``, the gated x_hat at ``xh_off``; ``smem`` bytes in all."""
+    chunk: int
+    chunks: int
+    col_blocks: int
+    np: int
+    stages: int
+    stat_off: int
+    stage_off: int
+    stage_bytes: int
+    g_off: int
+    pl_off: int
+    xh_off: int
+    smem: int
+
+    def rows(self, s: int, m: int) -> range:
+        return range(s * self.chunk, min(m, (s + 1) * self.chunk))
+
+
+def reduce_plan(m: int, ctot: int, n: int) -> ReducePlan:
+    """The kernel plan of ``bwd_reduce`` at these shapes (a function of them
+    alone): chunks of whole steps, as many as give ``REDUCE_BLOCKS`` blocks
+    with the column blocks; two x / g stages where they fit in
+    ``SMEM_LIMIT``, else one (more stages measured no faster). Outputs up
+    to 256 wide."""
+    np_ = _up(n, 16)
+    if np_ > 256:
+        raise ValueError(f"bwd_reduce takes at most 256 outputs, got {n}")
+    col_blocks = -(-ctot // REDUCE_COLS)
+    want = max(1, REDUCE_BLOCKS // col_blocks)
+    chunk = _up(-(-m // want), REDUCE_ROWS)
+    gs = (np_ + 8) * 2                        # bytes of a g / W-plane row
+    xs = (REDUCE_COLS + 8) * 2                # bytes of an x / r-plane row
+    stat_off = 3 * REDUCE_COLS * gs
+    stage_off = stat_off + 4 * REDUCE_COLS * 4
+    g_off = REDUCE_ROWS * xs
+    stage_bytes = _up(g_off + REDUCE_ROWS * gs, 128)
+    for stages in (2, 1):
+        pl_off = stage_off + stages * stage_bytes
+        xh_off = pl_off + 3 * REDUCE_ROWS * xs
+        smem = xh_off + REDUCE_ROWS * (REDUCE_COLS + 8) * 4
+        if smem <= SMEM_LIMIT:
+            return ReducePlan(chunk=chunk, chunks=-(-m // chunk),
+                              col_blocks=col_blocks, np=np_, stages=stages,
+                              stat_off=stat_off, stage_off=stage_off,
+                              stage_bytes=stage_bytes, g_off=g_off,
+                              pl_off=pl_off, xh_off=xh_off, smem=smem)
+    raise ValueError(f"bwd_reduce: {n} outputs do not fit {SMEM_LIMIT} "
+                     f"bytes of shared memory")
+
+
 def _check_bwd(xs, g, stat, bias, w, m, ctot):
     n = g.shape[1]
     if tuple(g.shape) != (m, n) or tuple(w.shape) != (ctot, n) \
@@ -280,13 +353,24 @@ def bwd_reduce(xs, g, stat, bias, w, dw, sums, table=None):
     float32; ``table`` as in ``stats`` (its dx columns unused).
 
     Replaces ``cunet_tpu/kernels/train_bottleneck.py::_bwd_reduce_kernel``.
-    Bound by operations: 4 M Ctot Cout float32 flops (16.1 GFLOP at K=320
-    -> 128, M=98,304: 240 us at 67 TFLOP/s). Design: one launch, two kinds
-    of block per (chunk of ``row_chunk(M)`` rows, 64 columns): a 64x64 dW tile
-    whose A operand is relu(y) recomputed in the stage prologue, and the
-    g W^T tile walked over the chunk with the gate and the two sums in its
-    epilogue; float32 FMA on the CUDA cores (the TPU kernel's precision),
-    per-chunk partials added by ``sum_rows``.
+    Design (``csrc/bottleneck_kernels.cu``, plan ``reduce_plan``): one kind
+    of block per (row chunk, 64 concat columns), two blocks an SM; both
+    products on the tensor cores (mma.sync, f32 sums), float32-exact
+    through the exact split of their float32 operand (relu(y) for dW, W
+    for g W^T; g is bf16 already) into three bf16 pieces, so they agree
+    with float32 FMA to float32 rounding. The block splits its W rows once
+    into shared memory; stages each 32-row step's x vectors (through the
+    feature table) and g rows by cp.async, the next step loading during
+    this one; recomputes x_hat and y once per element (the plain version's
+    rounding, so the gate is the same bit for bit); keeps its dW partial in
+    registers and takes the gate and the two sums on the g W^T tile in
+    registers. ``sum_rows`` adds the chunk partials in order. Bounds at
+    K=320 -> 128, M=98,304: float32 FMA on the CUDA cores 240 us (4 M Ctot
+    Cout flops at 67 TFLOP/s); the kernel's own six bf16 passes of
+    2 M Ctot Cout 49 us (48.3 GFLOP at 989 TFLOP/s; 88 MB of x and g take
+    26 us). Measured there on an H100 80GB HBM3 at 700 W (PERF.md section
+    6, PR 9): 209 us with its ``sum_rows`` (the SIMT kernel before it:
+    800), 12.6 us at r=4.
     """
     m = xs[0].shape[0]
     _check_rows(xs, m)
@@ -301,12 +385,17 @@ def bwd_reduce(xs, g, stat, bias, w, dw, sums, table=None):
     _check_contig_f32(dw, "dw", g.device)
     _check_contig_f32(sums, "sums", g.device)
     table = _table_of(xs, table)
-    dw_part = _partials(m, ctot, n, device=g.device)
-    sums_part = _partials(m, 2, ctot, device=g.device)
+    p = reduce_plan(m, ctot, n)
+    dw_part = torch.empty(p.chunks, ctot, n, device=g.device,
+                          dtype=torch.float32)
+    sums_part = torch.empty(p.chunks, 2, ctot, device=g.device,
+                            dtype=torch.float32)
     code = build.lib().cunet_tb_bwd_reduce(
-        table.data_ptr(), len(xs), m, ctot, g.data_ptr(),
-        g.stride(0), n, stat.data_ptr(), bias.data_ptr(), w.data_ptr(),
-        row_chunk(m), dw_part.data_ptr(), sums_part.data_ptr(), _stream(g))
+        table.data_ptr(), len(xs), m, ctot, g.data_ptr(), g.stride(0), n,
+        stat.data_ptr(), bias.data_ptr(), w.data_ptr(), p.chunk, p.np,
+        p.stages, p.stat_off, p.stage_off, p.stage_bytes, p.g_off, p.pl_off,
+        p.xh_off, p.smem, dw_part.data_ptr(), sums_part.data_ptr(),
+        _stream(g))
     build.check(code, "train_bottleneck.bwd_reduce")
     bwd_reduce.launches += 1
     sum_rows(dw_part, dw)
@@ -336,9 +425,10 @@ def bwd_dx(xs, g, stat, bias, red, w, dxs, table=None):
 
     Replaces ``cunet_tpu/kernels/train_bottleneck.py::_bwd_dx_kernel``.
     Bound by operations: 2 M Ctot Cout float32 flops (8.1 GFLOP at K=320
-    -> 128: 120 us). Design: ``bwd_reduce``'s g W^T tile per 64 rows x 64
-    columns, the recompute, gate and BN jacobian in its epilogue, each
-    column's result written to its group's dx tensor (through the table).
+    -> 128: 120 us). Design: a float32 g W^T tile on the CUDA cores per 64
+    rows x 64 columns, the recompute, gate and BN jacobian in its epilogue,
+    each column's result written to its group's dx tensor (through the
+    table).
     """
     m = xs[0].shape[0]
     _check_rows(xs, m)

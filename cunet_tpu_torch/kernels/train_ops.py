@@ -46,6 +46,14 @@ from cunet_tpu_torch.kernels.buf_ops import (
 )
 
 DW_CHUNK = 2048          # rows per affine_dw partial (a multiple of 32)
+# conv3x3_dx: warps of a block, output rows a warp owns (csrc/
+# train_kernels.cu kDxWarps), and the items (tile, channel group) aimed at
+# before a smaller one is taken: about one per SM of the card's 132, a
+# constant, so the plan (and the order of every sum) depends on the shapes
+# alone
+DX_WARPS = 8
+DX_WARP_ROWS = 32
+DX_TILES = 128
 # conv3x3_dw: rows per pipelined step, and the most row runs (partials) it
 # cuts M into, a constant near the card's 132 SMs so that the runs, and the
 # order of every sum, depend on the shapes alone
@@ -177,9 +185,8 @@ def affine_dx_plain(dy, w, x, vec, out, ste=False):
     return out
 
 
-def _dx(name, dy, w, x, vec, out, b, h, wd, taps, ste):
-    m, n = dy.shape
-    k = x.shape[1]
+def _dx_operands(dy, w, x, vec, out):
+    """The checks of a dx kernel's operands; the vector arguments."""
     _check_view(dy, "dy")
     _check_view(w, "w")
     _check_view(x, "x")
@@ -187,12 +194,7 @@ def _dx(name, dy, w, x, vec, out, b, h, wd, taps, ste):
         raise ValueError("w must be contiguous")
     _check_f32(out, "out", dy.device)
     _check_contig_f32(vec, "vec", dy.device)
-    inv, shift, vstride, tile_rows = _vec_args(vec, m, k)
-    code = build.lib().cunet_dx(
-        dy.data_ptr(), dy.stride(0), m, n, h, wd, taps, w.data_ptr(),
-        w.shape[1], k, x.data_ptr(), x.stride(0), inv, shift, vstride,
-        tile_rows, int(ste), out.data_ptr(), out.stride(0), _stream(dy))
-    build.check(code, name)
+    return _vec_args(vec, dy.shape[0], x.shape[1])
 
 
 def affine_dx(dy, w, x, vec, out, *, ste=False):
@@ -220,7 +222,12 @@ def affine_dx(dy, w, x, vec, out, *, ste=False):
     _check_tile_vec(vec, k, m)
     if dy.device.type == "cpu":
         return affine_dx_plain(dy, w, x, vec, out, ste)
-    _dx("affine_dx", dy, w, x, vec, out, 1, 1, 1, 1, ste)
+    inv, shift, vstride, tile_rows = _dx_operands(dy, w, x, vec, out)
+    code = build.lib().cunet_dx(
+        dy.data_ptr(), dy.stride(0), m, n, w.data_ptr(), w.shape[1], k,
+        x.data_ptr(), x.stride(0), inv, shift, vstride, tile_rows, int(ste),
+        out.data_ptr(), out.stride(0), _stream(dy))
+    build.check(code, "affine_dx")
     affine_dx.launches += 1
     affine_dx.option_launches += bool(ste)
     return out
@@ -236,6 +243,114 @@ def conv3x3_dx_plain(dy, w3p, b, h, w, x, vec, out, ste=False):
     return out
 
 
+@dataclasses.dataclass(frozen=True)
+class DxPlan:
+    """How ``conv3x3_dx``'s kernel cuts an (m, G) -> (m, Cb) transposed conv
+    over images of width w: items of a tile of ``bm`` output rows and a
+    group of ``gb`` output channels (``ncol`` groups), each computed by
+    ``DX_WARPS`` warps of ``DX_WARP_ROWS`` rows x ``wn`` channels, of which
+    ``row_warps`` x ``col_warps`` split the tile and ``k_warps`` the 9*G
+    reduction (G zero-padded to 16: ``gp``). Shared memory: the weight
+    slice (9 x gb x gp) at 0, the zero row at ``zero_off``; ``stages``
+    buffers each of a halo tile (``halo_rows`` dy rows, ``stage_bytes``
+    from ``stage_off``), the tile's x rows (``x_bytes`` from ``x_off``) and
+    the BN vectors of the ``nv`` BN tiles its rows can touch (``vec_bytes``
+    from ``vec_off``); the split reduction's partial sums at ``red_off``;
+    ``smem`` bytes in all."""
+    bm: int
+    gb: int
+    wn: int
+    ncol: int
+    gp: int
+    nv: int
+    stages: int
+    halo_rows: int
+    zero_off: int
+    stage_off: int
+    stage_bytes: int
+    x_off: int
+    x_bytes: int
+    vec_off: int
+    vec_bytes: int
+    red_off: int
+    smem: int
+
+    @property
+    def row_warps(self) -> int:
+        return self.bm // DX_WARP_ROWS
+
+    @property
+    def col_warps(self) -> int:
+        return self.gb // self.wn
+
+    @property
+    def k_warps(self) -> int:
+        return DX_WARPS // (self.row_warps * self.col_warps)
+
+    def items(self, m: int) -> int:
+        return -(-m // self.bm) * self.ncol
+
+    def k_range(self, wk: int) -> range:
+        """The k16 steps (tap-major, ``gp // 16`` per tap) of warp row
+        ``wk`` of the reduction, out of ``9 * gp // 16``."""
+        steps = 9 * self.gp // 16
+        return range(wk * steps // self.k_warps,
+                     (wk + 1) * steps // self.k_warps)
+
+
+def _dx_layout(bm, gb, stages, gp, nv, w) -> DxPlan:
+    wn = min(gb, 64)
+    halo_rows = bm + 2 * w + 2
+    k_warps = DX_WARPS // ((bm // DX_WARP_ROWS) * (gb // wn))
+    zero_off = 9 * gb * gp * 2
+    stage_off = zero_off + _up(2 * gp, 128)
+    stage_bytes = _up(halo_rows * (gp + 8) * 2, 128)
+    x_off = stage_off + stages * stage_bytes
+    x_bytes = _up(bm * (gb + 8) * 2, 128)
+    vec_off = x_off + stages * x_bytes
+    vec_bytes = _up(nv * 2 * gb * 4, 128)
+    red_off = vec_off + stages * vec_bytes
+    smem = red_off + (k_warps - 1) * bm * (gb + 4) * 4
+    return DxPlan(bm=bm, gb=gb, wn=wn, ncol=0, gp=gp, nv=nv, stages=stages,
+                  halo_rows=halo_rows, zero_off=zero_off,
+                  stage_off=stage_off, stage_bytes=stage_bytes, x_off=x_off,
+                  x_bytes=x_bytes, vec_off=vec_off, vec_bytes=vec_bytes,
+                  red_off=red_off, smem=smem)
+
+
+def conv3x3_dx_plan(m: int, h: int, w: int, cb: int, g: int,
+                    tiles: int = 1) -> DxPlan:
+    """The kernel plan of ``conv3x3_dx`` at these shapes (a function of them
+    alone; ``tiles`` is the number of BN tiles of the rows, 1 for an eval
+    vector). The (row tile, channel group) with the most work per item
+    that still gives ``DX_TILES`` items, whole channel groups of up to 128
+    preferred; else the one with the most items; two halo stages where they
+    fit in ``SMEM_LIMIT``, else one."""
+    gp = _up(g, 16)
+    gb_max = next(gb for gb in (16, 32, 64, 128) if gb >= min(cb, 128))
+    cands = sorted(((bm, gb) for bm in (128, 64, 32)
+                    for gb in (128, 64, 32, 16) if gb <= gb_max),
+                   key=lambda c: (-c[0] * c[1], -c[1]))
+    tile_rows = m // tiles
+    best = None
+    for bm, gb in cands:
+        nv = min(tiles, (bm - 1) // tile_rows + 2)
+        plan = next((p for p in (_dx_layout(bm, gb, st, gp, nv, w)
+                                 for st in (2, 1))
+                     if p.smem <= SMEM_LIMIT), None)
+        if plan is None:
+            continue
+        plan = dataclasses.replace(plan, ncol=-(-cb // gb))
+        if plan.items(m) >= DX_TILES:
+            return plan
+        if best is None or plan.items(m) > best.items(m):
+            best = plan
+    if best is None:
+        raise ValueError(f"conv3x3_dx: no tiling of G={g}, W={w} fits "
+                         f"{SMEM_LIMIT} bytes of shared memory")
+    return best
+
+
 def conv3x3_dx(dy, w3p, b, h, w, x, vec, out, *, ste=False):
     """The transposed 3x3 conv of ``dy`` (b*h*w, G) through the packed
     weight ``w3p`` (9*Cb, G), masked by relu(BN2(x)) > 0 of the conv's
@@ -243,10 +358,24 @@ def conv3x3_dx(dy, w3p, b, h, w, x, vec, out, *, ste=False):
     with ``ste`` also QuanInput's gate (0 < bf16(z2) < 1).
 
     Replaces the d_z2 half of ``cunet_tpu/kernels/train_slot.py::
-    _conv3x3_bwd`` (all its TPU forms). Design: the ``affine_dx`` core as
-    an implicit GEMM of depth 9*G, each 128-row block gathering dy rows at
-    minus each tap's offset (zero outside the image), flipped taps read
-    from the forward weight; no padded or shifted copy exists.
+    _conv3x3_bwd`` (all its TPU forms). Bound on the H100 by bytes:
+    reading dy and x, writing the float32 result (24.4 us at r=64 batch
+    24). Design (``csrc/train_kernels.cu``, plan ``conv3x3_dx_plan``):
+    ``conv3x3``'s form run on dy. Persistent blocks walk (row tile,
+    channel group) items; a tile's dy rows are one halo tile (the rows
+    plus one image row and pixel either side) loaded with cp.async while
+    the previous tile computes; the nine taps read shifted windows of it
+    through ldmatrix into mma.sync, rows outside the image pointed at a
+    zero row, each against the flipped tap (8 - t) of the weight, resident
+    in shared memory and read as it lies in memory (no flipped copy); the
+    x rows and BN vectors of the gate arrive with the halo; a warp gates
+    its finished tile in registers (the forward's rounding, so it passes
+    the same elements as the plain version) and writes it during the next
+    tile's taps, so the f32 writes overlap the products. At small M the
+    warps split the 9*G reduction and add their sums in a fixed order. On
+    an H100 80GB HBM3 at 700 W (PERF.md section 6, PR 9): 70 us at r=64
+    (``conv2d_input`` 85, the WMMA kernel before it 110), 25.5 at r=32,
+    5.9 at r=4.
     """
     m, g = dy.shape
     cb = x.shape[1]
@@ -258,7 +387,16 @@ def conv3x3_dx(dy, w3p, b, h, w, x, vec, out, *, ste=False):
     _check_tile_vec(vec, cb, m)
     if dy.device.type == "cpu":
         return conv3x3_dx_plain(dy, w3p, b, h, w, x, vec, out, ste)
-    _dx("conv3x3_dx", dy, w3p, x, vec, out, b, h, w, 9, ste)
+    inv, shift, vstride, tile_rows = _dx_operands(dy, w3p, x, vec, out)
+    _check_rows(m)
+    p = conv3x3_dx_plan(m, h, w, cb, g, m // tile_rows)
+    code = build.lib().cunet_conv3x3_dx(
+        dy.data_ptr(), dy.stride(0), m, h, w, g, w3p.data_ptr(), cb,
+        x.data_ptr(), x.stride(0), inv, shift, vstride, tile_rows, int(ste),
+        out.data_ptr(), out.stride(0), p.bm, p.gb, p.wn, p.ncol, p.stages,
+        p.zero_off, p.stage_off, p.stage_bytes, p.x_off, p.x_bytes,
+        p.vec_off, p.vec_bytes, p.red_off, p.smem, _stream(dy))
+    build.check(code, "conv3x3_dx")
     conv3x3_dx.launches += 1
     conv3x3_dx.option_launches += bool(ste)
     return out

@@ -9,9 +9,11 @@ kernels of ``--root`` (default: the checkout holding this file; its
 forward kernels, ``conv3x3`` at every resolution at batch 8 and 64),
 phase 4 (the train kernels at batch 24, ``conv3x3`` per tile and
 ``conv3x3_dx`` / ``conv3x3_dw`` at every resolution), phase 8's option
-kernels (``conv3x3[bits_i]`` and ``conv3x3_dw[bits_i]`` at every
-resolution), phase 10 (``table_dot``'s forms) and phase 11 (a) (``[up]``,
-``[pool]``, ``[scale]``; a checkout needs them): each case against
+kernels (``conv3x3[bits_i]``, ``conv3x3_dw[bits_i]`` and
+``conv3x3_dx[ste]`` at every resolution), phase 9's kernels of #7
+(``bwd_reduce`` at every resolution), phase 10 (``table_dot``'s forms) and
+phase 11 (a) (``[up]``, ``[pool]``, ``[scale]``; a checkout needs them):
+each case against
 its plain version, timed by CUDA-graph replay beside its library call and
 bound. Then the per-slot forward of CU-Net-8 @256 (JAX's default flags) at
 batch 8 and 64, three wall-clock times each. The cases come from this
@@ -57,6 +59,7 @@ def main(argv=None) -> int:
 
     from cunet_tpu_torch import ModelConfig
     from cunet_tpu_torch.kernels import buf_ops, build, eval_ops, train_ops
+    from cunet_tpu_torch.kernels import train_bottleneck
     from cunet_tpu_torch.models import init_cu_net
     from cunet_tpu_torch.serving import Predictor
 
@@ -75,6 +78,7 @@ def main(argv=None) -> int:
     cs.phase_kernels(torch, buf_ops)
     cs.phase_train_kernels(torch, train_ops, buf_ops)
     cs.phase_option_kernels(torch, train_ops, buf_ops)
+    cs.phase_bn0_kernels(torch, train_bottleneck)
     cs.phase_eval_kernels(torch, eval_ops)
     cs.phase_block_kernels(torch, buf_ops, eval_ops)
     cfg = ModelConfig(layer_num=8, order=1, class_num=16, loss_num=8,

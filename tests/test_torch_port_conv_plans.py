@@ -1,16 +1,18 @@
-"""The host-side plans of the port's two 3x3-conv kernels, on the CPU.
+"""The host-side plans of the port's tensor-core kernels, on the CPU.
 
-``buf_ops.conv3x3_plan`` (the forward) and ``train_ops.conv3x3_dw_plan``
-(the weight gradient) decide how the kernels cut rows, the reduction,
-channels and outputs, and lay out shared memory. These tests hold their
-invariants at the main path's shapes and at the tails the card tests use:
-every output row in one tile, every reduction step in one warp, every
-(tap, channel, output) and every row counted once in dW, shared memory
-within the H100's 227 KB, and a plan that is a function of the shapes
-alone. A numpy mirror of the kernels' index map (halo tile, tap rows, the
-zero row) then computes the conv and its weight gradient from exactly the
-rows the kernels read, with the halo rows no tap may read set to NaN, and
-is held against PyTorch's conv.
+``buf_ops.conv3x3_plan`` (the forward), ``train_ops.conv3x3_dx_plan`` (the
+input gradient), ``train_ops.conv3x3_dw_plan`` (the weight gradient) and
+``train_bottleneck.reduce_plan`` (#7's backward reductions) decide how the
+kernels cut rows, the reduction, channels and outputs, and lay out shared
+memory. These tests hold their invariants at the main path's shapes and
+at the tails the card tests use: every output row in one tile, every
+reduction step in one warp, every (tap, channel, output) and every row
+counted once in dW, shared memory within the H100's 227 KB, and a plan
+that is a function of the shapes alone. A numpy mirror of the kernels'
+index map (halo tile, tap rows, the zero row, dx's flipped taps) then
+computes the conv, its input gradient and its weight gradient from
+exactly the rows the kernels read, with the halo rows no tap may read set
+to NaN, and is held against PyTorch.
 """
 
 import numpy as np
@@ -18,7 +20,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from cunet_tpu_torch.kernels import buf_ops, train_ops
+from cunet_tpu_torch.kernels import buf_ops, train_bottleneck, train_ops
 
 # (images, r, Cb, G): CU-Net-8 @256 at batch 8, 24 and 64 at every conv
 # resolution, and the card tests' tails (channels 16-512, outputs 8-72,
@@ -276,3 +278,209 @@ def test_index_map_mirror_fails_on_a_halo_row_off_by_one(monkeypatch):
     monkeypatch.setitem(globals(), "_tap_row", off_by_one)
     bad = _mirror_conv(y, w3p, n, r, r)
     assert not np.allclose(np.nan_to_num(bad, nan=1e9), good, atol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# conv3x3_dx's plan and its flipped-tap index map
+# ---------------------------------------------------------------------------
+
+
+def _dx_plan(n, r, cb, g):
+    return train_ops.conv3x3_dx_plan(n * r * r, r, r, cb, g, max(1, n // 2))
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=_id)
+def test_conv3x3_dx_plan_covers_rows_channels_and_steps_once(shape):
+    n, r, cb, g = shape
+    m = n * r * r
+    p = _dx_plan(n, r, cb, g)
+    assert p.bm in (32, 64, 128) and p.gb in (16, 32, 64, 128)
+    assert p.wn == min(p.gb, 64) and p.gp == -(-g // 16) * 16
+    assert p.row_warps * p.col_warps * p.k_warps == train_ops.DX_WARPS
+    # items (tile, channel group) cover every (row, channel) once
+    hits = np.zeros((m, cb), int)
+    for it in range(p.items(m)):
+        tiles = -(-m // p.bm)
+        tile, col = it % tiles, it // tiles
+        rows = np.arange(tile * p.bm, min(m, (tile + 1) * p.bm))
+        cols = np.arange(col * p.gb, min(cb, (col + 1) * p.gb))
+        hits[np.ix_(rows, cols)] += 1
+    assert (hits == 1).all()
+    # the warps' reduction ranges partition the 9 * gp / 16 steps
+    steps = [s for wk in range(p.k_warps) for s in p.k_range(wk)]
+    assert steps == list(range(9 * p.gp // 16))
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=_id)
+def test_conv3x3_dx_plan_fits_shared_memory(shape):
+    n, r, cb, g = shape
+    m = n * r * r
+    p = _dx_plan(n, r, cb, g)
+    assert p.smem <= buf_ops.SMEM_LIMIT == 232_448
+    assert p.halo_rows == p.bm + 2 * r + 2
+    assert p.zero_off == 9 * p.gb * p.gp * 2             # the weight slice
+    assert p.stage_off >= p.zero_off + 2 * p.gp           # the zero row
+    assert p.stage_bytes >= p.halo_rows * (p.gp + 8) * 2
+    assert p.x_off == p.stage_off + p.stages * p.stage_bytes
+    assert p.x_bytes >= p.bm * (p.gb + 8) * 2
+    assert p.vec_off == p.x_off + p.stages * p.x_bytes
+    # the BN tiles one row tile can touch
+    tile_rows = m // max(1, n // 2)
+    touched = max(len({q // tile_rows for q in range(t, min(m, t + p.bm))})
+                  for t in range(0, m, p.bm))
+    assert touched <= p.nv and p.vec_bytes >= p.nv * 2 * p.gb * 4
+    assert p.red_off == p.vec_off + p.stages * p.vec_bytes
+    # partial sums of the split reduction's other warps
+    assert p.smem == p.red_off + (p.k_warps - 1) * p.bm * (p.gb + 4) * 4
+    assert all(v % 128 == 0 for v in (p.zero_off, p.stage_off, p.x_off,
+                                      p.x_bytes, p.vec_off, p.vec_bytes,
+                                      p.red_off))
+
+
+def test_dx_and_reduce_plans_are_functions_of_the_shapes_alone(monkeypatch):
+    """As for the conv plans: no device query, the same plans with every
+    CUDA query broken."""
+    def plans():
+        return ([_dx_plan(n, r, cb, g) for n, r, cb, g in SHAPES]
+                + [train_bottleneck.reduce_plan(m, c, o)
+                   for m, c, o in REDUCE_SHAPES])
+
+    want = plans()
+
+    def broken(*a, **k):
+        raise AssertionError("a plan asked the device")
+
+    for name in ("get_device_properties", "device_count", "current_device",
+                 "is_available"):
+        monkeypatch.setattr(torch.cuda, name, broken)
+    assert plans() == want
+
+
+def test_conv3x3_dx_plan_at_the_main_path():
+    """Batch 24, Cb=128 <- G=32: 128-row tiles over all 128 channels where
+    M is large (r = 64, 32), the reduction split over the warps below;
+    the whole 9 x 128 x 32 weight resident and two halo stages at r=64."""
+    def plan(r):
+        return _dx_plan(24, r, 128, 32)
+
+    assert (plan(64).bm, plan(64).gb, plan(64).k_warps) == (128, 128, 1)
+    assert (plan(32).bm, plan(32).gb) == (128, 128)
+    assert all(plan(r).k_warps > 1 for r in (16, 8, 4))
+    assert plan(64).stages == 2 and plan(64).zero_off == 9 * 128 * 32 * 2
+
+
+def _mirror_dx(dy, w3p, b, h, w, flip=True):
+    """conv3x3_dx's products as the kernel runs them: per item, the dy halo
+    tile (G zero-padded to gp), tap t read at tap_row(t) against the weight
+    rows of tap 8 - t (t itself when not ``flip``), every channel group."""
+    m, g = dy.shape
+    cb = w3p.shape[0] // 9
+    p = _dx_plan(b, h, cb, g)
+    wpad = np.zeros((9, p.ncol * p.gb, p.gp))
+    wpad[:, :cb, :g] = w3p.reshape(9, cb, g)
+    out = np.zeros((m, p.ncol * p.gb))
+    tiles = -(-m // p.bm)
+    for it in range(p.items(m)):
+        tile, col = it % tiles, it // tiles
+        m0, c0 = tile * p.bm, col * p.gb
+        halo = _halo(dy, m0 - w - 1, p.halo_rows, p.gp, 0)
+        for r in range(p.bm):
+            if m0 + r >= m:
+                continue
+            for tap in range(9):
+                a = _gather(halo, r, m0 + r, True, h, w, tap // 3 - 1,
+                            tap % 3 - 1)
+                wt = wpad[8 - tap if flip else tap, c0:c0 + p.gb]
+                out[m0 + r, c0:c0 + p.gb] += wt @ a
+    return out[:, :cb]
+
+
+# (images, r, Cb, G): tiles spanning images, W not dividing a tile, channel
+# tails (24, 48) and groups (Cb = 48 in groups of 16), G not a multiple of
+# 16 (8, 24)
+DX_MIRROR = [(3, 2, 16, 8), (2, 6, 24, 8), (3, 5, 48, 24), (2, 12, 16, 16),
+             (1, 7, 32, 8)]
+
+
+@pytest.mark.parametrize("shape", DX_MIRROR, ids=_id)
+def test_index_map_mirror_computes_the_input_gradient(shape):
+    """The mirror of the kernel's flipped taps against the plain version
+    (its gate opened everywhere: x = 1, inv = 1, shift = 0), with NaN in
+    every halo row no tap may read."""
+    n, r, cb, g = shape
+    m = n * r * r
+    rng = np.random.RandomState(sum(shape) + 2)
+    dy, w3p = rng.randn(m, g), rng.randn(9 * cb, g)
+    got = _mirror_dx(dy, w3p, n, r, r)
+    assert np.isfinite(got).all()        # no NaN halo row was read
+    want = train_ops.conv3x3_dx_plain(
+        torch.from_numpy(dy).float(), torch.from_numpy(w3p).float(), n, r,
+        r, torch.ones(m, cb), torch.stack([torch.ones(cb), torch.zeros(cb)]),
+        torch.empty(m, cb))
+    np.testing.assert_allclose(got, want.double().numpy(), rtol=1e-5,
+                               atol=1e-4)
+
+
+def test_index_map_mirror_fails_with_taps_not_flipped():
+    """The mirror can fail: the taps read against their own weight slice
+    (not 8 - t) compute the forward conv of dy, not its transpose."""
+    n, r, cb, g = 2, 6, 16, 8
+    m = n * r * r
+    rng = np.random.RandomState(9)
+    dy, w3p = rng.randn(m, g), rng.randn(9 * cb, g)
+    good = _mirror_dx(dy, w3p, n, r, r)
+    bad = _mirror_dx(dy, w3p, n, r, r, flip=False)
+    assert np.abs(bad - good).max() > 0.1 * np.abs(good).max()
+
+
+# ---------------------------------------------------------------------------
+# bwd_reduce's plan (#7)
+# ---------------------------------------------------------------------------
+
+# (M, Ctot, Cout): the up-block adapter of CU-Net-8 @256 at batch 24 at
+# every resolution, the bottleneck widths, and the card tests' tails
+REDUCE_SHAPES = ([(24 * r * r, 320, 128) for r in (64, 32, 16, 8, 4)]
+                 + [(24 * 64 * 64, c, 128) for c in (128, 160, 192, 256)]
+                 + [(216, 8, 8), (1000, 56, 16), (2056, 56, 136),
+                    (216, 160, 16), (6144, 128, 8), (1536, 264, 16),
+                    (300, 40, 256)])
+
+
+@pytest.mark.parametrize("shape", REDUCE_SHAPES,
+                         ids=lambda s: "m{}-c{}-o{}".format(*s))
+def test_reduce_plan_counts_every_row_and_column_once(shape):
+    m, ctot, cout = shape
+    p = train_bottleneck.reduce_plan(m, ctot, cout)
+    R, C = train_bottleneck.REDUCE_ROWS, train_bottleneck.REDUCE_COLS
+    # chunks of whole steps partition the rows; column blocks cover Ctot
+    assert p.chunk % R == 0
+    assert [i for s in range(p.chunks) for i in p.rows(s, m)] == \
+        list(range(m))
+    assert (p.col_blocks - 1) * C < ctot <= p.col_blocks * C
+    assert p.chunks * p.col_blocks <= max(train_bottleneck.REDUCE_BLOCKS,
+                                          p.col_blocks)
+    # outputs padded to whole k16 steps and to the dW warps' n8 tiles
+    assert p.np == -(-cout // 16) * 16 and p.np <= 256
+    # shared memory: W's three planes, the BN constants, the stages, r's
+    # three planes, the gated x_hat
+    gs, xs = (p.np + 8) * 2, (C + 8) * 2
+    assert p.stat_off == 3 * C * gs
+    assert p.stage_off >= p.stat_off + 4 * C * 4
+    assert p.g_off >= R * xs and p.stage_bytes >= p.g_off + R * gs
+    assert p.pl_off >= p.stage_off + p.stages * p.stage_bytes
+    assert p.xh_off >= p.pl_off + 3 * R * xs
+    assert p.smem == p.xh_off + R * (C + 8) * 4 <= buf_ops.SMEM_LIMIT
+    assert all(v % 16 == 0 for v in (p.stat_off, p.stage_off, p.g_off,
+                                     p.stage_bytes, p.pl_off, p.xh_off))
+
+
+def test_reduce_plan_at_the_main_path():
+    """K = 320 -> 128 at batch 24, r = 64: 52 chunks of 1920 rows x 5
+    column blocks, 260 blocks, one wave of two blocks on each of the
+    H100's 132 SMs (each block within half the SM's shared memory), two
+    stages; outputs past 256 raise."""
+    p = train_bottleneck.reduce_plan(24 * 64 * 64, 320, 128)
+    assert (p.chunk, p.chunks, p.col_blocks, p.stages) == (1920, 52, 5, 2)
+    assert 2 * (p.smem + 1024) <= 233_472
+    with pytest.raises(ValueError):
+        train_bottleneck.reduce_plan(1000, 64, 264)

@@ -259,10 +259,31 @@ def test_affine_dx_dw(gen, k, n):
 # (Cb, G, r, images, bits_i) of the conv backward: one run and several
 # (M > 128), runs of two steps (M = 24576), W not dividing a step (6, 12,
 # 20), two column groups (G = 40), two channel blocks (Cb = 256), channel
-# tails (24, 48), QuanInput's quantizer
+# tails (24, 48), QuanInput's quantizer. For conv3x3_dx: the reduction
+# split over 8, 4 or 2 warps, tiles spanning images (r = 2, 4, 6), the
+# persistent 128-row tiles over all 128 channels (M = 24576, more items
+# than blocks), channel groups of 16-128 (r = 8: 32), dy widths G = 8,
+# 24, 32, 40 (a zero-padded half k16 step), one halo stage (W = 128,
+# G = 64)
 DW_CASES = [(16, 8, 6, 6, 0), (16, 8, 2, 6, 0), (48, 24, 4, 6, 0),
             (128, 32, 32, 24, 0), (128, 40, 6, 6, 0), (256, 32, 8, 4, 0),
-            (24, 16, 20, 2, 0), (128, 32, 12, 24, 8), (128, 8, 64, 4, 8)]
+            (24, 16, 20, 2, 0), (128, 32, 12, 24, 8), (128, 8, 64, 4, 8),
+            (128, 24, 16, 24, 0), (48, 40, 32, 8, 0), (128, 64, 128, 2, 0),
+            (128, 32, 8, 24, 0)]
+
+
+def test_dx_cases_cover_every_plan_path():
+    plans = [(train_ops.conv3x3_dx_plan(n * r * r, r, r, cb, g, n // 2),
+              n * r * r, r) for cb, g, r, n, _ in DW_CASES]
+    assert any(p.k_warps == 1 and p.items(m) > 132 for p, m, _ in plans)
+    assert {p.k_warps for p, _, _ in plans} >= {2, 4, 8}
+    assert any(p.k_warps > 1 and p.gb == 128 for p, _, _ in plans)
+    assert {p.gb for p, _, _ in plans} >= {16, 32, 64, 128}
+    assert any(p.ncol > 1 for p, _, _ in plans)
+    assert any(p.stages == 1 for p, _, _ in plans)
+    assert any(p.bm > r * r for p, _, r in plans)        # across images
+    assert any(p.bm % r for p, _, r in plans)            # W not dividing
+    assert {-(-g // 16) * 16 - g for _, g, _, _, _ in DW_CASES} >= {0, 8}
 
 
 def test_dw_cases_cover_every_plan_path():
@@ -289,6 +310,33 @@ def test_conv3x3_dx_dw(gen, cb, g, r, n, bits):
                       lambda: torch.empty(9 * cb, g, device="cuda"),
                       lambda f, o: f(yb, vec, d_o, n, r, r, o, bits_i=bits))
     _close_sum(got, want, m)
+
+
+def test_backward_kernels_repeat_bit_for_bit(gen):
+    """conv3x3_dx (128-row tiles, and the split reduction of small M) and
+    bwd_reduce give the same bits on a second run: no atomics, and their
+    plans depend on the shapes only."""
+    n, r, cb, g = 24, 32, 128, 32
+    m = n * r * r
+    yb = _bf16(gen, m, cb)
+    _, _, vec = _train_vec(gen, yb, n // 2)
+    w3 = (_bf16(gen, 9 * cb, g) * (9 * cb) ** -0.5).contiguous()
+    d_o = _bf16(gen, m, g)
+    for k, rr in ((n, r), (2, 4)):
+        mm = k * rr * rr
+        runs = [train_ops.conv3x3_dx(
+            d_o[:mm], w3, k, rr, rr, yb[:mm], vec[:1] if k == 2 else vec,
+            torch.empty(mm, cb, device="cuda"), ste=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        assert torch.equal(*runs)
+    feats, _, stat, bias, w, g_o = _tb_operands(gen, m, [128, 128, 32, 32],
+                                                128)
+    outs = [tbk.bwd_reduce(feats, g_o, stat, bias, w,
+                           torch.empty(320, 128, device="cuda"),
+                           torch.empty(2, 320, device="cuda"))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
 
 
 def test_conv_kernels_repeat_bit_for_bit(gen):
@@ -564,15 +612,21 @@ def test_quantized_prologues(gen, cb, g, r):
     _close_sum(got, want, m)
 
 
-def test_ste_gate_exact(gen):
+# (images, r, Cb, G) of the STE gate: the split reduction over channel
+# groups of 16, tiles across images; the persistent 128-row tiles over all
+# 128 channels; a channel tail (48) with G = 24
+STE_CASES = [(6, 4, 16, 8), (24, 32, 128, 32), (3, 6, 48, 24)]
+
+
+@pytest.mark.parametrize("n,r,cb,g", STE_CASES)
+def test_ste_gate_exact(gen, n, r, cb, g):
     """affine_dx / conv3x3_dx with ste: the same elements pass as in the
     plain version, on activations placed at and around 1.0 after bf16
     rounding (0.99999 rounds to 1.0 and is gated)."""
-    n, r, cb, g = 6, 4, 16, 8
     m = n * r * r
     x = torch.full((m, cb), 0.5, device="cuda", dtype=torch.bfloat16)
     z = torch.tensor([0.99999, 0.999, 0.99609375, 0.998, 1.0, 1.2, -0.5,
-                      0.3] * 2, device="cuda")
+                      0.3] * (cb // 8), device="cuda")
     vec = torch.stack([torch.ones(cb, device="cuda"), z - 0.5])
     w3 = (_bf16(gen, 9 * cb, g) * 0.2).contiguous()
     d_o = _bf16(gen, m, g)
@@ -581,7 +635,7 @@ def test_ste_gate_exact(gen):
                       lambda f, o: f(d_o, w3, n, r, r, x, vec, o, ste=True))
     assert torch.equal(got == 0, want == 0)
     assert torch.equal((got[0] != 0).cpu(), torch.tensor(
-        [0, 0, 1, 1, 0, 0, 0, 1] * 2, dtype=torch.bool))
+        [0, 0, 1, 1, 0, 0, 0, 1] * (cb // 8), dtype=torch.bool))
     _close_sum(got, want, 9 * g)
     w = (_bf16(gen, cb, g) * 0.2).contiguous()
     got, want = _both(train_ops.affine_dx,
@@ -697,11 +751,18 @@ def _close_group_sums(got, want, n, widths, rows=False):
                 _close_sum(got[i, a:b], want[i, a:b], n)
 
 
-# rows: a ragged 64-row tile and a ragged ROW_CHUNK; 20 groups: more than
-# one launch of the table fill; the last: the up-block adapter at r=64
+# rows: a ragged 64-row tile and a ragged ROW_CHUNK (and bwd_reduce's
+# ragged last chunk); 20 groups: more than one launch of the table fill;
+# Ctot not a multiple of bwd_reduce's 64-column block (8, 56, 160, 128 +
+# 136) and a group across two of its blocks ([40, 64, 24]); Cout 8, 16,
+# 136; the up-block adapter at r = 64, 32 and 16 (M <= 24576: there the
+# float32 sum limit is below one bf16 pass's error, so only an exact split
+# of relu(y) and W passes)
 @pytest.mark.parametrize("m,widths,cout", [
     (216, [8], 8), (1000, [16, 24, 8, 8], 16), (2056, [40, 16], 136),
-    (216, [8] * 20, 16), (98304, [128, 128, 32, 32], 128)])
+    (216, [8] * 20, 16), (98304, [128, 128, 32, 32], 128),
+    (24576, [128, 128, 32, 32], 128), (6144, [128, 128, 32, 32], 128),
+    (6144, [40, 64, 24], 8), (1536, [128, 136], 16)])
 def test_train_bottleneck_kernels(gen, m, widths, cout):
     feats, vec, stat, bias, w, g = _tb_operands(gen, m, widths, cout)
     ctot = sum(widths)
@@ -735,6 +796,36 @@ def test_train_bottleneck_kernels(gen, m, widths, cout):
     assert torch.equal(dxs[0][:, ctot:], dxs[1][:, ctot:])
     after = tbk.launch_counts()
     assert all(after[k] == before[k] + 1 for k in after)
+
+
+def test_bwd_reduce_split_is_exact_on_one_row(gen):
+    """One row passes the gate (y > 0; every other row has x = -1, so
+    y = -inv_sigma * scale < 0) and the cotangent is one-hot on it: every
+    dW entry and every BN sum is then one exact product, so the kernel
+    must give the plain version's bits. A dropped piece of either split
+    (relu(y) for dW, W for g W^T) moves them by ~2^-17 of their size,
+    which the float32 sum limits cannot see."""
+    m, widths, cout, row, hot = 1000, [40, 64, 24], 16, 977, 3
+    ctot = sum(widths)
+    feats = []
+    for c in widths:
+        x = -torch.ones(m, c)
+        x[row] = torch.rand(c, generator=gen) * 3 + 0.1
+        feats.append(x.to("cuda", torch.bfloat16))
+    stat = torch.stack([torch.zeros(ctot),
+                        torch.rand(ctot, generator=gen) + 0.5,
+                        torch.rand(ctot, generator=gen) + 0.5]).cuda()
+    bias = torch.zeros(ctot, device="cuda")
+    w = torch.randn(ctot, cout, generator=gen).cuda()
+    g = torch.zeros(m, cout, device="cuda", dtype=torch.bfloat16)
+    g[row, hot] = 1
+    got, want = ([torch.empty(ctot, cout, device="cuda"),
+                  torch.empty(2, ctot, device="cuda")] for _ in range(2))
+    tbk.bwd_reduce(feats, g, stat, bias, w, *got)
+    tbk.bwd_reduce_plain(feats, g, stat, bias, w, *want)
+    torch.cuda.synchronize()
+    assert want[0][:, hot].abs().min() > 0 and want[1][0].abs().min() > 0
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_train_bottleneck_wrappers_raise(gen):

@@ -560,21 +560,17 @@ def train_kernel_cases(torch, tops, bops, gen):
     m64 = n * h0 * h0
     down64 = randn(m64, c + g + g)            # [y | fifo | out32]
     x2 = down64[:, :c + 2 * g]                # K=192 adapter input
-    st2, bn2, v2 = vec(x2)
+    _, _, v2 = vec(x2)
     w_a = randn(192, c, scale=192 ** -0.5)
     d_ahead = randn(m64, c)
     y_out = randn(m64, c)
-    sth, bnh, vh = vec(y_out)
+    _, _, vh = vec(y_out)
     w_h = randn(c, cls, scale=c ** -0.5)
     d_head = randn(m64, cls)
 
     def dx_work(k, nout):          # dy, w, x, vec -> f32 (m, k)
         return work(sz(m64, nout) + sz(k, nout) + sz(m64, k) + vec_bytes(k)
                     + sz(m64, k, e=4), 2 * m64 * k * nout)
-
-    def dw_work(k, nout):          # x, vec, dy -> f32 (k, nout)
-        return work(sz(m64, k) + vec_bytes(k) + sz(m64, nout)
-                    + sz(k, nout, e=4), 2 * m64 * k * nout)
 
     x160 = down64[:, :160]
     cases = [
@@ -593,20 +589,7 @@ def train_kernel_cases(torch, tops, bops, gen):
         (tops.affine_dx, "head 128->16 r=64", f32(m64, c),
          lambda f, o: f(d_head, w_h, y_out, vh, o), ("sum", cls),
          dx_work(c, cls), None),
-        (tops.affine_dw, "K=192->128 r=64", f32(192, c),
-         lambda f, o: f(x2, v2, d_ahead, o), ("sum", m64),
-         dw_work(192, c), None),
-        (tops.affine_dw, "head 128->16 r=64", f32(c, cls),
-         lambda f, o: f(y_out, vh, d_head, o), ("sum", m64),
-         dw_work(c, cls), None),
     ]
-    d_a = randn(m64, 192, dtype=torch.float32)
-    cases.append((tops.bn_bwd, "K=192 r=64", f32(m64, 192),
-                  lambda f, o: f(x2, d_a, st2, bn2, 1e-5, o,
-                                 torch.empty(2, 192, device=dev)),
-                  ("sum", 2 * h0 * h0),
-                  work(sz(m64, 192) + 2 * sz(m64, 192, e=4) + vec_bytes(192),
-                       8 * m64 * 192, "f32"), None))
     for r in CONV_RES:
         m = n * r * r
         yb = randn(m, cb)
@@ -699,12 +682,154 @@ def check_case(torch, plain_of, results, prefix, kern, label, make_out,
     return k_out, p_out
 
 
+STAGE_WIDTHS = (192, 128, 160, 256, 288, 320)   # r=64's, the headline first
+
+
+def stage_bwd_cases(torch, tops, gen):
+    """``bn_bwd`` and ``affine_dw``, the ghost-BN backward's two row
+    reductions, at the CU-Net-8 @256 train shapes (batch 24, tile 2): at
+    r=64 every stage width of the path (K=192 first, the headline), then
+    K=192 at r = 32 ... 4. ``bn_bwd`` writes d_x or, on every second case,
+    adds to it (``accumulate``); ``affine_dw`` runs plain and with
+    ``bits_i=8``, and at r=64 also as the head (128 -> 16). Operands are
+    views of wider buffers, as the slot backward hands them in. Yields
+    (kernel, label, make_outs, call(fn, outs), bounds, work, library call,
+    operands)."""
+    dev = "cuda"
+    n, tiles, c, cls = TRAIN_BATCH, TRAIN_BATCH // BN_TILE, 128, 16
+    acc = False
+    for r in CONV_RES:
+        m = n * r * r
+        tile_rows = m // tiles
+        xbuf = (torch.randn(m, 320 + 32, generator=gen) * 2).to(
+            dev, torch.bfloat16)
+        dabuf = torch.randn(m, 320 + 32, generator=gen).to(dev)
+        dy = torch.randn(m, c, generator=gen).to(dev, torch.bfloat16)
+        for k in STAGE_WIDTHS if r == 64 else STAGE_WIDTHS[:1]:
+            x, d_a = xbuf[:, :k], dabuf[:, :k]
+            st, bn, v = tile_vec(torch, tops, x, gen)
+            base = torch.randn(m, k, generator=gen).to(dev)
+            # the library's layout: tile t's channels at columns t*K + k
+            xf = x.float().view(tiles, tile_rows, k).permute(1, 0, 2) \
+                .reshape(tile_rows, tiles * k).contiguous()
+            daf = d_a.reshape(tiles, tile_rows, k).permute(1, 0, 2) \
+                .reshape(tile_rows, tiles * k).contiguous()
+            mean = st[:, 0].reshape(-1).contiguous()
+            rstd = torch.rsqrt(st[:, 1] + 1e-5).reshape(-1).contiguous()
+            gamma = bn[0, :k].repeat(tiles).contiguous()
+
+            def bn_lib(xf=xf, daf=daf, mean=mean, rstd=rstd, gamma=gamma):
+                return torch.ops.aten.native_batch_norm_backward(
+                    daf, xf, gamma, None, None, mean, rstd, True, 1e-5,
+                    [True, True, True])
+
+            def bn_outs(k=k, base=base, acc=acc):
+                return (base.clone() if acc else
+                        torch.empty(m, k, device=dev),
+                        torch.empty(2, k, device=dev))
+
+            yield (tops.bn_bwd, f"K={k} r={r}"
+                   + (" accumulate" if acc else ""), bn_outs,
+                   lambda f, o, x=x, d_a=d_a, st=st, bn=bn, acc=acc:
+                   f(x, d_a, st, bn, 1e-5, o[0], o[1], accumulate=acc),
+                   (("sum", tile_rows), ("sum", m)),
+                   work(sz(m, k) + sz(m, k, e=4) * (3 if acc else 2)
+                        + vec_bytes(k), 8 * m * k, "f32"), bn_lib,
+                   dict(x=x, d_a=d_a, st=st, bn=bn, acc=acc))
+            acc = not acc
+            shapes = [(k, c, x, v, dy, 0)]
+            if r == 64 and k == 128:
+                shapes.append((k, cls, x, v, dy[:, :cls].contiguous(), 0))
+            if k == 192:
+                shapes.append((k, c, x, v, dy, 8))
+            for kk, nn, xx, vv, dd, bits in shapes:
+                label = ("head " if nn == cls else "K=") + \
+                    f"{kk}->{nn} r={r}" + (" quantized z" if bits else "")
+                yield (tops.affine_dw, label,
+                       lambda kk=kk, nn=nn: (torch.empty(kk, nn,
+                                                         device=dev),),
+                       lambda f, o, xx=xx, vv=vv, dd=dd, bits=bits:
+                       f(xx, vv, dd, o[0], bits_i=bits), (("sum", m),),
+                       work(sz(m, kk) + vec_bytes(kk) + sz(m, nn)
+                            + sz(kk, nn, e=4), 2 * m * kk * nn),
+                       lambda xx=xx, dd=dd: torch.mm(xx.t(), dd),
+                       dict(x=xx, vec=vv, dy=dd, bits=bits))
+
+
+def stage_bwd_faults(torch, tops, kern, o, got, want, bounds):
+    """A planted fault of each kernel's split at the operands ``o`` of its
+    r=64 headline case, built from the kernel's own outputs ``got`` and
+    its plan: ``bn_bwd`` with the partial of tile 0's last cluster rank
+    dropped from that tile's sums; ``affine_dw`` with the middle run's
+    partial added twice. Returns (fault, error, share of its limit)."""
+    from cunet_tpu_torch.kernels.buf_ops import tile_affine
+
+    x = o["x"]
+    m, k = x.shape
+    if kern is tops.bn_bwd:
+        st, bn, d_a = o["st"], o["bn"], o["d_a"]
+        tile_rows = m // st.shape[0]
+        p = tops.bn_bwd_plan(m, tile_rows, k)
+        rows = p.rows(p.cs - 1, tile_rows)
+        rstd = torch.rsqrt(st[0, 1] + 1e-5)
+        xh = (x[:tile_rows].float() - st[0, 0]) * rstd
+        da = d_a[:tile_rows]
+        sl = slice(rows.start, rows.stop)
+        drop = torch.stack([(da[sl] * xh[sl]).sum(0), da[sl].sum(0)])
+        sums = torch.stack([(da * xh).sum(0), da.sum(0)]) - drop
+        d_x = got[0].clone()
+        d_x[:tile_rows] = rstd * bn[0, :k] * (
+            da - sums[1] / tile_rows - xh * (sums[0] / tile_rows))
+        faulty = [d_x, got[1] - drop]
+        fault = (f"the partial of tile 0's rank {p.cs - 1} of {p.cs} "
+                 f"(rows {rows.start}-{rows.stop - 1}) dropped")
+    else:
+        p = tops.affine_dw_plan(m, k, o["dy"].shape[1])
+        rows = p.run(p.runs // 2, m)
+        z = torch.relu(tile_affine(x[:], o["vec"])).to(x.dtype).float()
+        extra = z[rows.start:rows.stop].t() @ \
+            o["dy"][rows.start:rows.stop].float()
+        faulty = [got[0] + extra]
+        fault = (f"run {p.runs // 2} of {p.runs} (rows {rows.start}-"
+                 f"{rows.stop - 1}) counted twice")
+    err, share, _ = output_errors(torch, faulty, want, bounds)
+    return fault, err, share
+
+
 def phase_train_kernels(torch, tops, bops):
     gen = torch.Generator().manual_seed(0)
     results = {}
     plain_of = {**bops.PLAIN, **tops.PLAIN}
     for case in train_kernel_cases(torch, tops, bops, gen):
         check_case(torch, plain_of, results, "train kernel", *case)
+    for kern, label, make_outs, call, bounds, w, lib, o in \
+            stage_bwd_cases(torch, tops, gen):
+        name = kern.__name__
+        got, want = make_outs(), make_outs()
+        call(kern, got)
+        call(plain_of[kern], want)
+        torch.cuda.synchronize()
+        err, share, ok = output_errors(torch, got, want, bounds)
+        ms = cuda_time_ms(lambda: call(kern, got))
+        plain_ms = cuda_time_ms(lambda: call(plain_of[kern], want))
+        lib_ms = cuda_time_ms(lib)
+        print(f"train kernel {name} [{label}]: max_abs_err {err:.4g} (at "
+              f"most {share:.3g} of its sum limits: {ok}), {ms:.4f} ms vs "
+              f"plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
+              f"{bound(w)[0]:.4f} ms ({bound(w)[1]})", flush=True)
+        require(ok, f"{name} [{label}] disagrees with its plain version")
+        record(results, name, err, ms, plain_ms, label, w, lib_ms)
+        # the faults need the plans (absent from checkouts before them,
+        # which tools/kernel_times.py times on these cases)
+        if label in ("K=192 r=64", "K=192->128 r=64") \
+                and hasattr(tops, "bn_bwd_plan"):
+            fault, ferr, fshare = stage_bwd_faults(
+                torch, tops, kern, o, got, want, bounds)
+            print(f"train kernel planted fault of {name} [{label}]: "
+                  f"{fault}: max_abs_err {ferr:.4g}, {fshare:.3g} of its "
+                  f"limit", flush=True)
+            require(fshare > 1, f"the {name} check misses a planted fault: "
+                    f"{fault}")
     return results
 
 

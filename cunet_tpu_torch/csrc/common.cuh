@@ -94,6 +94,31 @@ __device__ __forceinline__ unsigned short act(float x, float a, float b,
   return hi(bits ? quan(bf16r(z), bits) : z);
 }
 
+// act() on eight packed bf16 values; without a quantizer two at a time,
+// one conversion instruction a pair, with the same bits.
+__device__ __forceinline__ uint4 act8(uint4 in, const float (&a)[8],
+                                      const float (&b)[8], int bits) {
+  if (bits) {
+    Pack8 i, o;
+    i.v = in;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) o.u[q] = act(lo(i, q), a[q], b[q], bits);
+    return o.v;
+  }
+  const uint32_t w[4] = {in.x, in.y, in.z, in.w};
+  uint32_t r[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float x0 = __uint_as_float(w[j] << 16);
+    const float x1 = __uint_as_float(w[j] & 0xffff0000u);
+    const __nv_bfloat162 h = __floats2bfloat162_rn(
+        fmaxf(affine(x0, a[2 * j], b[2 * j]), 0.f),
+        fmaxf(affine(x1, a[2 * j + 1], b[2 * j + 1]), 0.f));
+    r[j] = *reinterpret_cast<const uint32_t*>(&h);
+  }
+  return make_uint4(r[0], r[1], r[2], r[3]);
+}
+
 // murmur3's fmix32 finalizer (the dropout masks' counter hash,
 // cunet_tpu_torch/ops/dropmask.py).
 __device__ __forceinline__ uint32_t fmix32(uint32_t h) {

@@ -1,6 +1,8 @@
 // Pieces shared by the tensor-core kernels: the three 3x3-conv kernels,
 // conv3x3 (buf_kernels.cu), conv3x3_dx and conv3x3_dw (train_kernels.cu),
-// and #7's bwd_reduce (bottleneck_kernels.cu): asynchronous copies into
+// #7's bwd_reduce (bottleneck_kernels.cu), and the 1x1 weight gradient
+// affine_dw and the BN backward bn_bwd (train_kernels.cu): asynchronous
+// copies into
 // shared memory (cp.async), ldmatrix loads of 8x8 bf16 tiles, the m16n8k16
 // bf16 tensor-core product (mma.sync), the halo tile the conv kernels
 // stage, and the launch of a persistent kernel.
@@ -56,6 +58,21 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The same for a count known only at run time; above 7 it waits for 7 (more
+// than asked, never less).
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    case 6: cp_async_wait<6>(); break;
+    default: cp_async_wait<7>(); break;
+  }
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
@@ -119,16 +136,26 @@ __device__ __forceinline__ void load_halo(uint32_t dst,
   }
 }
 
+// The inv/shift values of one 8-channel vector for the rows [lo, hi) of
+// one BN tile (lo = hi = 0: none yet), kept by a prologue thread from one
+// call to the next.
+struct VecCache {
+  int lo, hi;
+  float a[8], b[8];
+};
+
 // The ghost-BN prologue on a landed halo tile, in place: every element of
 // a row in [0, M) and a channel below C becomes
 // act(x, inv[t, c], shift[t, c], bits) with t the BN tile of its row, once
 // per element. Zero-filled channel padding stays zero. Each thread keeps
 // one 8-channel vector and walks rows, so its inv/shift values are
-// reloaded only where the BN tile changes.
+// reloaded only where the BN tile changes; a caller that passes the same
+// ``vc`` to every call of a thread keeps them across tiles too.
 __device__ __forceinline__ void halo_prologue(
     bf16* s, int M, int C, int g0, int rows, int c0, int kc,
     const float* __restrict__ inv, const float* __restrict__ shift,
-    long long vstride, int tile_rows, int bits, int tid, int nthr) {
+    long long vstride, int tile_rows, int bits, int tid, int nthr,
+    VecCache& vc) {
   const int vecs = kc / 8;
   const int stripes = nthr / vecs;
   const int v = tid % vecs, r0 = tid / vecs;
@@ -136,26 +163,32 @@ __device__ __forceinline__ void halo_prologue(
   if (r0 >= stripes || c >= C) return;
   const int r_lo = g0 < 0 ? -g0 : 0;
   const int r_hi = M - g0 < rows ? M - g0 : rows;
-  int t_have = -1;
-  float a[8], b[8];
   for (int r = r_lo + r0; r < r_hi; r += stripes) {
-    const int t = (g0 + r) / tile_rows;
-    if (t != t_have) {
+    const int row = g0 + r;
+    if (row < vc.lo || row >= vc.hi) {
+      const int t = row / tile_rows;
       const long long vo = (long long)t * vstride + c;
 #pragma unroll
       for (int q = 0; q < 8; ++q) {
-        a[q] = inv[vo + q];
-        b[q] = shift[vo + q];
+        vc.a[q] = inv[vo + q];
+        vc.b[q] = shift[vo + q];
       }
-      t_have = t;
+      vc.lo = t * tile_rows;
+      vc.hi = vc.lo + tile_rows;
     }
     uint4* p = reinterpret_cast<uint4*>(s + r * (kc + kHaloPad) + v * 8);
-    Pack8 in, o;
-    in.v = *p;
-#pragma unroll
-    for (int q = 0; q < 8; ++q) o.u[q] = act(lo(in, q), a[q], b[q], bits);
-    *p = o.v;
+    *p = act8(*p, vc.a, vc.b, bits);
   }
+}
+
+__device__ __forceinline__ void halo_prologue(
+    bf16* s, int M, int C, int g0, int rows, int c0, int kc,
+    const float* __restrict__ inv, const float* __restrict__ shift,
+    long long vstride, int tile_rows, int bits, int tid, int nthr) {
+  VecCache vc;
+  vc.lo = vc.hi = 0;
+  halo_prologue(s, M, C, g0, rows, c0, kc, inv, shift, vstride, tile_rows,
+                bits, tid, nthr, vc);
 }
 
 // Row ``r`` (0 <= r < rows) of a tile starting at output row m0 seen

@@ -29,7 +29,11 @@
 // Each entry point launches on the stream it is given and returns
 // cudaGetLastError().
 
+#include <cooperative_groups.h>
+
 #include "halo.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -120,88 +124,244 @@ __global__ void __launch_bounds__(kThreads)
 // tile t (m = tile_rows rows, xh = (x - mu) * rstd, ig = rstd * gamma):
 //   sg = sum d_a*xh, sb = sum d_a            (written to part[t] = [sg; sb])
 //   d_x (+)= ig * (d_a - sb/m - xh * sg/m)
-// Same block shape as bn_stats; the second pass re-reads the tile.
+//
+// Design (the plan is the wrapper's, kernels/train_ops.py::bn_bwd_plan):
+// - The grid is (K / cb, T * cs). A tile's cs blocks of one channel block
+//   form a thread block cluster (along y); rank q owns the tile's
+//   contiguous rows [q*rpb, (q+1)*rpb) of cb channels, so a tile of 8192
+//   rows fills 8 SMs, not one. The channel blocks vary fastest, so the
+//   blocks that run together read whole rows of x and d_a.
+// - 256 threads are cb/8 channel vectors x 256/(cb/8) row stripes. Every
+//   thread copies its own rows into shared memory with cp.async (16 bytes of
+//   x, 32 of d_a a row), chunk by chunk with several chunks in flight, and
+//   sums each chunk as it lands: pass 1 needs no barrier.
+// - Where the block's rows fit in shared memory (the plan's resident form:
+//   1024 rows x 32 channels, 192 KB, at r=64) they stay there for pass 2,
+//   and HBM sees x and d_a once. Otherwise pass 2 streams them again
+//   through the same ring of chunk buffers. A block of at most one row a
+//   thread (r=4) keeps its rows in registers instead.
+// - The block's [sg; sb] (thread sums, a warp butterfly, the warps in
+//   order) go to its shared memory. After cluster.sync() every block adds
+//   the cs partials in rank order through distributed shared memory, so
+//   all ranks hold the same tile sums without a global round trip; rank 0
+//   writes part[t], and sum_rows adds the tiles. No atomics: the order of
+//   every sum depends on the shapes alone.
+// Bound by bytes: reading x and d_a once, writing d_x (56.3 us at r=64,
+// K=192, batch 24; PERF.md section 6).
 // ---------------------------------------------------------------------------
+constexpr int kBnThreads = 256;
+constexpr int kBnWarps = kBnThreads / 32;
+
+struct BnPlan {
+  int cb;     // channels per block: 16, 32 or 64
+  int cs;     // blocks per tile: the cluster size, at most 8
+  int rpb;    // rows per block
+  int rc;     // rows per chunk: a multiple of the row stripes
+  int slots;  // chunk buffers in shared memory (at least the chunks:
+              // resident)
+};
+
 template <bool ACC>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kBnThreads, 1)
     bn_bwd_kernel(const bf16* __restrict__ x, long long ldx,
                   const float* __restrict__ da, long long ldd,
                   long long tile_rows, int K, const float* __restrict__ stats,
                   const float* __restrict__ gamma, float eps,
                   float* __restrict__ dx, long long lddx,
-                  float* __restrict__ part) {
-  __shared__ float red[2][kStatRows][kStatCols];
-  __shared__ float sg_s[kStatCols], sb_s[kStatCols];
-  const int t = blockIdx.x;
-  const int cv = threadIdx.x % 8, rs = threadIdx.x / 8;
-  const int k = blockIdx.y * kStatCols + cv * 8;
+                  float* __restrict__ part, BnPlan p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int t = blockIdx.y / p.cs;
+  const int nv = p.cb / 8, stripes = kBnThreads / nv;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int cv = tid % nv, rs = tid / nv;
+  const int k = blockIdx.x * p.cb + cv * 8;
   const bool on = k < K;
-  const long long r0 = (long long)t * tile_rows;
+  const long long left = tile_rows - (long long)rank * p.rpb;
+  const int n = left <= 0 ? 0 : (left < p.rpb ? (int)left : p.rpb);
+  const long long r0 = (long long)t * tile_rows + (long long)rank * p.rpb;
+  const int nch = (n + p.rc - 1) / p.rc;
+  const int u = p.rc / stripes;          // a thread's rows per chunk
+  bf16* xs = reinterpret_cast<bf16*>(smem);
+  float* ds = reinterpret_cast<float*>(smem + (size_t)p.slots * p.rc * p.cb *
+                                                  sizeof(bf16));
+  float* wred = ds + (size_t)p.slots * p.rc * p.cb;   // [2][kBnWarps][cb]
+  float* bpart = wred + 2 * kBnWarps * p.cb;            // [2][cb]
+  float* tsum = bpart + 2 * p.cb;                     // [2][cb]
 
-  float mu[8], rstd[8], sg[8], sb[8];
+  // element offset of row jr of chunk c in its buffer (c % slots)
+  const auto at = [&](int c, int jr) {
+    return ((c % p.slots) * p.rc + jr) * p.cb + cv * 8;
+  };
+  const auto issue = [&](int c) {
+    if (on && c < nch)
+      for (int i = 0; i < u; ++i) {
+        const int jr = i * stripes + rs;
+        if (c * p.rc + jr >= n) break;
+        const long long r = r0 + c * p.rc + jr;
+        const int e = at(c, jr);
+        cp_async16(smem_u32(xs + e), x + r * ldx + k, 16);
+        cp_async16(smem_u32(ds + e), da + r * ldd + k, 16);
+        cp_async16(smem_u32(ds + e + 4), da + r * ldd + k + 4, 16);
+      }
+    cp_async_commit();
+  };
+  // every chunk through the buffers: up to ``slots`` chunks in flight; a
+  // thread reads only what it copied, so no barrier
+  const auto stream = [&](auto&& consume) {
+    for (int c = 0; c < nch && c < p.slots; ++c) issue(c);
+    for (int c = 0; c < nch; ++c) {
+      const int issued = nch < c + p.slots ? nch : c + p.slots;
+      cp_async_wait_upto(issued - c - 1);
+      consume(c);
+      if (c + p.slots < nch) issue(c + p.slots);
+    }
+  };
+
+  float mu[8], rstd[8], ig[8], sg[8], sb[8];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    mu[i] = on ? stats[((long long)t * 2) * K + k + i] : 0.f;
-    rstd[i] = on ? rsqrtf(stats[((long long)t * 2 + 1) * K + k + i] + eps)
+  for (int q = 0; q < 8; ++q) {
+    mu[q] = on ? stats[((long long)t * 2) * K + k + q] : 0.f;
+    rstd[q] = on ? rsqrtf(stats[((long long)t * 2 + 1) * K + k + q] + eps)
                  : 0.f;
-    sg[i] = 0.f;
-    sb[i] = 0.f;
+    ig[q] = on ? rstd[q] * gamma[k + q] : 0.f;
+    sg[q] = 0.f;
+    sb[q] = 0.f;
   }
-  if (on)
-    for (long long r = r0 + rs; r < r0 + tile_rows; r += kStatRows) {
-      Pack8 p;
-      p.v = *reinterpret_cast<const uint4*>(x + r * ldx + k);
-      float d[8];
-      load8f(da + r * ldd + k, d);
+  // one row's terms of the two sums, and its d_x (added to o with ACC)
+  const auto add_row = [&](const Pack8& xv, const float (&d)[8]) {
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        sg[i] += d[i] * ((lo(p, i) - mu[i]) * rstd[i]);
-        sb[i] += d[i];
+    for (int q = 0; q < 8; ++q) {
+      sg[q] += d[q] * ((lo(xv, q) - mu[q]) * rstd[q]);
+      sb[q] += d[q];
+    }
+  };
+  float mb[8], mg[8];               // the tile's sums over m, from pass 1
+  const auto d_x_row = [&](const Pack8& xv, const float (&d)[8],
+                           float (&o)[8]) {
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const float xh = (lo(xv, q) - mu[q]) * rstd[q];
+      const float v = ig[q] * (d[q] - mb[q] - xh * mg[q]);
+      o[q] = ACC ? o[q] + v : v;
+    }
+  };
+  // a block of at most one row a thread (a small tile) keeps it in
+  // registers: no copy through shared memory
+  const bool in_regs = u == 1 && nch <= 1;
+  const bool has = in_regs && on && rs < n;
+  Pack8 xr;
+  float dr[8];
+  xr.v = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+  for (int q = 0; q < 8; ++q) dr[q] = 0.f;
+  if (has) {
+    xr.v = *reinterpret_cast<const uint4*>(x + (r0 + rs) * ldx + k);
+    load8f(da + (r0 + rs) * ldd + k, dr);
+    add_row(xr, dr);
+  }
+  if (!in_regs) stream([&](int c) {
+    if (!on) return;
+    for (int i = 0; i < u; ++i) {
+      const int jr = i * stripes + rs;
+      if (c * p.rc + jr >= n) break;
+      const int e = at(c, jr);
+      Pack8 xv;
+      xv.v = *reinterpret_cast<const uint4*>(xs + e);
+      float d[8];
+      load8f(ds + e, d);
+      add_row(xv, d);
+    }
+  });
+
+  // the block's sums: lanes of one channel vector (lane % nv) by a
+  // butterfly, then the warps in order
+  for (int off = 16; off >= nv; off >>= 1)
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      sg[q] += __shfl_xor_sync(0xffffffffu, sg[q], off);
+      sb[q] += __shfl_xor_sync(0xffffffffu, sb[q], off);
+    }
+  if (lane < nv)
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      wred[warp * p.cb + cv * 8 + q] = sg[q];
+      wred[(kBnWarps + warp) * p.cb + cv * 8 + q] = sb[q];
+    }
+  __syncthreads();
+  if (tid < 2 * p.cb) {
+    const int which = tid / p.cb, col = tid - which * p.cb;
+    float a = 0.f;
+    for (int w = 0; w < kBnWarps; ++w)
+      a += wred[(which * kBnWarps + w) * p.cb + col];
+    bpart[tid] = a;
+  }
+  // the tile's sums: the cluster's partials in rank order, in every block
+  // (a lone block, launched as no cluster, reads its own)
+  const auto sync = [&] {
+    if (p.cs > 1)
+      cluster.sync();
+    else
+      __syncthreads();
+  };
+  sync();
+  if (tid < 2 * p.cb) {
+    float a = 0.f;
+    for (int q = 0; q < p.cs; ++q)
+      a += (p.cs > 1 ? cluster.map_shared_rank(bpart, q) : bpart)[tid];
+    tsum[tid] = a;
+    const int which = tid / p.cb;
+    const int kk = blockIdx.x * p.cb + (tid - which * p.cb);
+    if (rank == 0 && kk < K) part[((long long)t * 2 + which) * K + kk] = a;
+  }
+  sync();   // no block leaves while another reads its partial
+  if (!on) return;
+
+  const float inv_m = 1.f / (float)tile_rows;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    mg[q] = tsum[cv * 8 + q] * inv_m;
+    mb[q] = tsum[p.cb + cv * 8 + q] * inv_m;
+  }
+  // pass 2 over the thread's rows qi in [q_lo, q_hi) (row qi: chunk qi / u,
+  // stripe row qi % u), four at a time so that d_x's reads overlap
+  const auto finish = [&](int q_lo, int q_hi) {
+    for (int q0 = q_lo; q0 < q_hi; q0 += 4) {
+      float o[4][8];
+      int e[4];
+      long long r[4];
+      bool ok[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const int qi = q0 + a, c = qi / u, jr = (qi - c * u) * stripes + rs;
+        ok[a] = qi < q_hi && c * p.rc + jr < n;
+        e[a] = at(c, jr);
+        r[a] = r0 + c * p.rc + jr;
+        if (ACC && ok[a]) load8f(dx + r[a] * lddx + k, o[a]);
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        if (!ok[a]) continue;
+        Pack8 xv;
+        xv.v = *reinterpret_cast<const uint4*>(xs + e[a]);
+        float d[8];
+        load8f(ds + e[a], d);
+        d_x_row(xv, d, o[a]);
+        store8f(dx + r[a] * lddx + k, o[a]);
       }
     }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    red[0][rs][cv * 8 + i] = sg[i];
-    red[1][rs][cv * 8 + i] = sb[i];
-  }
-  __syncthreads();
-  if (threadIdx.x < kStatCols) {
-    const int kk = blockIdx.y * kStatCols + threadIdx.x;
-    float a = 0.f, b = 0.f;
-    for (int i = 0; i < kStatRows; ++i) {
-      a += red[0][i][threadIdx.x];
-      b += red[1][i][threadIdx.x];
-    }
-    sg_s[threadIdx.x] = a;
-    sb_s[threadIdx.x] = b;
-    if (kk < K) {
-      part[((long long)t * 2) * K + kk] = a;
-      part[((long long)t * 2 + 1) * K + kk] = b;
-    }
-  }
-  __syncthreads();
-  if (!on) return;
-  const float inv_m = 1.f / (float)tile_rows;
-  float ig[8], mb[8], mg[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    ig[i] = rstd[i] * gamma[k + i];
-    mb[i] = sb_s[cv * 8 + i] * inv_m;
-    mg[i] = sg_s[cv * 8 + i] * inv_m;
-  }
-  for (long long r = r0 + rs; r < r0 + tile_rows; r += kStatRows) {
-    Pack8 p;
-    p.v = *reinterpret_cast<const uint4*>(x + r * ldx + k);
-    float d[8], o[8];
-    load8f(da + r * ldd + k, d);
-    if (ACC) load8f(dx + r * lddx + k, o);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float xh = (lo(p, i) - mu[i]) * rstd[i];
-      const float v = ig[i] * (d[i] - mb[i] - xh * mg[i]);
-      o[i] = ACC ? o[i] + v : v;
-    }
-    store8f(dx + r * lddx + k, o);
+  };
+  if (in_regs) {
+    if (!has) return;
+    float o[8];
+    if (ACC) load8f(dx + (r0 + rs) * lddx + k, o);
+    d_x_row(xr, dr, o);
+    store8f(dx + (r0 + rs) * lddx + k, o);
+  } else if (nch <= p.slots) {
+    finish(0, nch * u);           // resident: the rows are still there
+  } else {
+    stream([&](int c) { finish(c * u, (c + 1) * u); });
   }
 }
 
@@ -291,109 +451,162 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// B3 dw: the weight-gradient GEMM of a 1x1 stage, one row chunk per block.
-//   part[s, k, n] = sum_{m in chunk s} z[m, k] * dY[m, n]
-// with z = bf16(relu(x*inv[t] + shift[t])) recomputed in the prologue (the
-// forward's activation). The z tile is staged row-major in shared memory
-// and read as a column-major WMMA A operand (z^T). sum_rows adds the chunks
-// in order. With bits > 0, z is the QuanInput-quantized activation (dW
-// against what the forward's GEMM read).
+// B3 affine_dw: the weight gradient of a 1x1 stage,
+//   part[p, k, n] = sum_{m in run p} z[m, k] * dY[m, n]
+// with z = bf16(relu(x*inv[t] + shift[t])) recomputed (QuanInput-quantized
+// with bits > 0: dW against what the forward's GEMM read); sum_rows adds
+// the runs' partials in order.
+//
+// Design (the plan is the wrapper's, kernels/train_ops.py::affine_dw_plan):
+// conv3x3_dw's design reduced to one tap.
+// - Block (p, cy, gz) owns run p of whole br-row steps (the runs depend on
+//   the shapes alone, so the sums and their order do too), the kc channels
+//   cy (K cut into equal multiples of 16, no idle half block) and the ncol
+//   columns gz; the plan sizes them to put two blocks on each of the
+//   card's SMs (at most 128 registers a thread), so that one block's
+//   loads and prologue run under the other's products.
+// - Per step the step's x rows and dy rows arrive by cp.async, two or three
+//   stages deep: the next steps load while this one computes.
+// - The prologue (halo.cuh's, on a tile of no halo: the x rows are stored
+//   as a halo tile is) runs once per element, in place in shared memory;
+//   each thread keeps the inv/shift of its 8 channels in registers across
+//   the run's steps and reloads them only where the ghost tile changes
+//   (once or twice a run on the main path).
+// - The 8 warps accumulate dW^T += dY^T z as mma.sync m16n8k16, z^T and dY
+//   read by ldmatrix.trans (row strides of an odd number of 16-byte chunks:
+//   no bank conflicts), the warps' channel tiles interleaved; the sums stay
+//   in registers and the block writes one partial.
+// Bound by bytes: reading x and dy once (18.8 us at r=64, K=192->128,
+// batch 24; PERF.md section 6).
 // ---------------------------------------------------------------------------
-template <int BN, int WARPS_N>
-struct SmemT {
-  __align__(128) bf16 a[BK][BM + kPad];
-  __align__(128) bf16 b[BK][BN + kPad];
-  __align__(128) float stage[kWarps][16 * 16];
+struct AffineDwPlan {
+  int run_rows;     // rows of a block's run: a multiple of br
+  int br;           // rows per step: 16, 32 or 64
+  int kc;           // channels per block: a multiple of 16, at most 128
+  int ncol;         // columns per block: 16, 32, 64 or 128
+  int stages;       // buffers: 2 or 3
+  int x_bytes;      // bytes of a stage's x rows (its dy rows follow)
+  int stage_bytes;  // bytes per stage
 };
 
-template <int BN, int WARPS_N>
-__global__ void __launch_bounds__(kThreads)
-    dw_kernel(const bf16* __restrict__ x, long long ldx, long long M, int K,
-              const float* __restrict__ inv, const float* __restrict__ shift,
-              long long vstride, long long tile_rows, int bits,
-              const bf16* __restrict__ dy, long long ldd, int N,
-              long long chunk, float* __restrict__ part) {
-  using T = Tiles<BN, WARPS_N>;
-  __shared__ SmemT<BN, WARPS_N> s;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-  const int k0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const long long rb = (long long)blockIdx.z * chunk;
-  const long long re = rb + chunk < M ? rb + chunk : M;
+// NTW n8 column tiles a warp, WN warps across the columns (ncol = 8 NTW WN)
+template <int NTW, int WN>
+__global__ void __launch_bounds__(kThreads, 2)
+    affine_dw_kernel(const bf16* __restrict__ x, long long ldx, int M, int K,
+                     const float* __restrict__ inv,
+                     const float* __restrict__ shift, long long vstride,
+                     long long tile_rows, int bits,
+                     const bf16* __restrict__ dy, long long ldd, int N,
+                     float* __restrict__ part, AffineDwPlan p) {
+  constexpr int WC = kWarps / WN;   // warps across the channels
+  constexpr int CT = 8 / WC;        // channel tiles a warp (kc <= 128)
+  static_assert(NTW % 2 == 0 && WC * WN == kWarps, "warp layout");
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t s0 = smem_u32(smem);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wc = warp % WC, wn = warp / WC;
+  const int c0 = blockIdx.y * p.kc, n0 = blockIdx.z * p.ncol;
+  const int r_begin = blockIdx.x * p.run_rows;
+  const int r_end = M - r_begin < p.run_rows ? M : r_begin + p.run_rows;
+  const int nsteps = (r_end - r_begin + p.br - 1) / p.br;
+  const int xs = (p.kc + 8) * 2, ds = (p.ncol + 8) * 2;   // row strides
+  const int xv = p.kc / 8, dv = p.ncol / 8, ntiles = p.kc / 16;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[T::FM][T::FN];
-#pragma unroll
-  for (int i = 0; i < T::FM; ++i)
-#pragma unroll
-    for (int j = 0; j < T::FN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+  const auto issue = [&](int st) {
+    const int m0 = r_begin + st * p.br;
+    const uint32_t base = s0 + (st % p.stages) * p.stage_bytes;
+    for (int i = tid; i < p.br * xv; i += kThreads) {
+      const int r = i / xv, v = i - r * xv;
+      const int m = m0 + r, c = c0 + v * 8;
+      const bool ok = m < r_end && c < K;
+      cp_async16(base + r * xs + v * 16,
+                 ok ? x + (long long)m * ldx + c : x, ok ? 16 : 0);
+    }
+    for (int i = tid; i < p.br * dv; i += kThreads) {
+      const int r = i / dv, v = i - r * dv;
+      const int m = m0 + r, n = n0 + v * 8;
+      const bool ok = m < r_end && n < N;
+      cp_async16(base + p.x_bytes + r * ds + v * 16,
+                 ok ? dy + (long long)m * ldd + n : dy, ok ? 16 : 0);
+    }
+    cp_async_commit();
+  };
 
-  for (long long mb = rb; mb < re; mb += BK) {
-    for (int c = threadIdx.x; c < BK * BM / 8; c += kThreads) {
-      const int r = c / (BM / 8), kc = (c % (BM / 8)) * 8;
-      const long long m = mb + r;
-      Pack8 o;
-      o.v = make_uint4(0u, 0u, 0u, 0u);
-      if (m < re && k0 + kc < K) {
-        Pack8 in;
-        in.v = *reinterpret_cast<const uint4*>(x + m * ldx + k0 + kc);
-        const long long vo = (m / tile_rows) * vstride + k0 + kc;
+  VecCache vc;   // the prologue thread's BN vectors, kept across steps
+  vc.lo = vc.hi = 0;
+
+  float acc[CT][NTW][4];
 #pragma unroll
-        for (int q = 0; q < 8; ++q)
-          o.u[q] = act(lo(in, q), inv[vo + q], shift[vo + q], bits);
+  for (int i = 0; i < CT; ++i)
+#pragma unroll
+    for (int j = 0; j < NTW; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  // ldmatrix.trans lane coordinates (conv3x3_dw's). z^T (A): row
+  // (l & 7) + (mat >> 1) * 8, channel offset (mat & 1) * 8. dY (B): row
+  // (mat & 1) * 8 + (l & 7), 16-byte column chunk 2 * jp + (mat >> 1).
+  const int mat = lane >> 3;
+  const int a_row = (lane & 7) + (mat >> 1) * 8;
+  const int a_ofs = (mat & 1) * 16;
+  const int b_row = (mat & 1) * 8 + (lane & 7);
+  const int b_chunk = wn * NTW + (mat >> 1);
+
+  for (int st = 0; st < nsteps && st < p.stages - 1; ++st) issue(st);
+  for (int st = 0; st < nsteps; ++st) {
+    const int issued = nsteps < st + p.stages - 1 ? nsteps : st + p.stages - 1;
+    cp_async_wait_upto(issued - st - 1);
+    __syncthreads();   // step st landed; every warp is done with step st-1
+    if (st + p.stages - 1 < nsteps) issue(st + p.stages - 1);
+    halo_prologue(reinterpret_cast<bf16*>(smem + (st % p.stages) *
+                                                     p.stage_bytes),
+                  r_end, K, r_begin + st * p.br, p.br, c0, p.kc, inv, shift,
+                  vstride, (int)tile_rows, bits, tid, kThreads, vc);
+    __syncthreads();
+    const uint32_t xb = s0 + (st % p.stages) * p.stage_bytes;
+    const uint32_t db = xb + p.x_bytes;
+#pragma unroll 1
+    for (int kr = 0; kr < p.br; kr += 16) {
+      uint32_t b[NTW][2];
+#pragma unroll
+      for (int jp = 0; jp < NTW / 2; ++jp) {
+        uint32_t t4[4];
+        ldsm_x4_t(t4, db + (kr + b_row) * ds + (b_chunk + 2 * jp) * 16);
+        b[2 * jp][0] = t4[0];
+        b[2 * jp][1] = t4[1];
+        b[2 * jp + 1][0] = t4[2];
+        b[2 * jp + 1][1] = t4[3];
       }
-      *reinterpret_cast<uint4*>(&s.a[r][kc]) = o.v;
+#pragma unroll
+      for (int i = 0; i < CT; ++i) {
+        const int ct = wc + WC * i;
+        if (ct >= ntiles) continue;
+        uint32_t a[4];
+        ldsm_x4_t(a, xb + (kr + a_row) * xs + a_ofs + ct * 32);
+#pragma unroll
+        for (int j = 0; j < NTW; ++j)
+          mma16816(acc[i][j], a, b[j][0], b[j][1]);
+      }
     }
-    for (int c = threadIdx.x; c < BK * BN / 8; c += kThreads) {
-      const int r = c / (BN / 8), nc = (c % (BN / 8)) * 8;
-      const long long m = mb + r;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (m < re && n0 + nc < N)
-        v = *reinterpret_cast<const uint4*>(dy + m * ldd + n0 + nc);
-      *reinterpret_cast<uint4*>(&s.b[r][nc]) = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>
-          fa[T::FM];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
-          fb[T::FN];
-#pragma unroll
-      for (int i = 0; i < T::FM; ++i)
-        wmma::load_matrix_sync(fa[i], &s.a[kk][wm * T::WM + i * 16],
-                               BM + kPad);
-#pragma unroll
-      for (int j = 0; j < T::FN; ++j)
-        wmma::load_matrix_sync(fb[j], &s.b[kk][wn * T::WN + j * 16],
-                               BN + kPad);
-#pragma unroll
-      for (int i = 0; i < T::FM; ++i)
-#pragma unroll
-        for (int j = 0; j < T::FN; ++j)
-          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-    }
-    __syncthreads();
   }
 
-  float* base = part + (long long)blockIdx.z * K * N;
-  float* st = s.stage[warp];
-  const int r = lane / 2, cc = (lane % 2) * 8;
+  float* base = part + (long long)blockIdx.x * K * N;
+  const int g = lane >> 2, q2 = 2 * (lane & 3);
 #pragma unroll
-  for (int i = 0; i < T::FM; ++i) {
+  for (int i = 0; i < CT; ++i) {
+    const int ct = wc + WC * i;
+    if (ct >= ntiles) continue;
+    const int c = c0 + ct * 16 + g;
 #pragma unroll
-    for (int j = 0; j < T::FN; ++j) {
-      wmma::store_matrix_sync(st, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const int k = k0 + wm * T::WM + i * 16 + r;
-      const int n = n0 + wn * T::WN + j * 16 + cc;
-      if (k < K && n < N) {
-        float o[8];
-#pragma unroll
-        for (int q = 0; q < 8; ++q) o[q] = st[r * 16 + cc + q];
-        store8f(base + (long long)k * N + n, o);
-      }
-      __syncwarp();
+    for (int j = 0; j < NTW; ++j) {
+      const int n = n0 + (wn * NTW + j) * 8 + q2;
+      if (n >= N) continue;
+      if (c < K)
+        *reinterpret_cast<float2*>(base + (long long)c * N + n) =
+            make_float2(acc[i][j][0], acc[i][j][1]);
+      if (c + 8 < K)
+        *reinterpret_cast<float2*>(base + (long long)(c + 8) * N + n) =
+            make_float2(acc[i][j][2], acc[i][j][3]);
     }
   }
 }
@@ -1073,16 +1286,47 @@ void launch_dx(const bf16* dy, long long ldd, long long M, int N,
       v.tile_rows, v.bits, out, ldo);
 }
 
-template <int BN, int WARPS_N>
-void launch_dw(const bf16* x, long long ldx, long long M, int K, VecArgs v,
-               const bf16* dy, long long ldd, int N, long long chunk,
-               float* part, cudaStream_t st) {
-  const dim3 grid((unsigned)((K + BM - 1) / BM),
-                  (unsigned)((N + BN - 1) / BN),
-                  (unsigned)((M + chunk - 1) / chunk));
-  dw_kernel<BN, WARPS_N><<<grid, kThreads, 0, st>>>(
+template <int NTW, int WN>
+int launch_affine_dw(const bf16* x, long long ldx, int M, int K, VecArgs v,
+                     const bf16* dy, long long ldd, int N, float* part,
+                     const AffineDwPlan& p, dim3 grid, int smem,
+                     cudaStream_t st) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      affine_dw_kernel<NTW, WN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (e != cudaSuccess) return (int)e;
+  affine_dw_kernel<NTW, WN><<<grid, kThreads, smem, st>>>(
       x, ldx, M, K, v.inv, v.shift, v.vstride, v.tile_rows, v.bits, dy, ldd,
-      N, chunk, part);
+      N, part, p);
+  return (int)cudaGetLastError();
+}
+
+// bn_bwd's blocks, the cs blocks of a tile's channel block one cluster
+template <bool ACC>
+int launch_bn_bwd(const bf16* x, long long ldx, const float* da,
+                  long long ldd, long long tile_rows, int T, int K,
+                  const float* stats, const float* gamma, float eps,
+                  float* dx, long long lddx, float* part, const BnPlan& p,
+                  int smem, cudaStream_t st) {
+  cudaError_t e = cudaFuncSetAttribute(
+      bn_bwd_kernel<ACC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = (unsigned)p.cs;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((K + p.cb - 1) / p.cb), (unsigned)(T * p.cs));
+  cfg.blockDim = dim3(kBnThreads);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = p.cs > 1;          // a lone block is a cluster of one
+  e = cudaLaunchKernelEx(&cfg, bn_bwd_kernel<ACC>, x, ldx, da, ldd,
+                         tile_rows, K, stats, gamma, eps, dx, lddx, part, p);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
 }
 
 template <int NT>
@@ -1129,9 +1373,10 @@ int cunet_bn_stats(const void* x, long long ldx, long long M,
 int cunet_bn_bwd(const void* x, long long ldx, const void* da, long long ldd,
                  long long M, long long tile_rows, int K, const void* stats,
                  const void* gamma, float eps, void* dx, long long lddx,
-                 int accumulate, void* part, void* stream) {
-  const dim3 grid((unsigned)(M / tile_rows),
-                  (unsigned)((K + kStatCols - 1) / kStatCols));
+                 int accumulate, void* part, int cb, int cs, int rpb, int rc,
+                 int slots, int smem, void* stream) {
+  const BnPlan p{cb, cs, rpb, rc, slots};
+  const int T = (int)(M / tile_rows);
   const auto st = static_cast<cudaStream_t>(stream);
   const auto* xp = static_cast<const bf16*>(x);
   const auto* dp = static_cast<const float*>(da);
@@ -1140,12 +1385,10 @@ int cunet_bn_bwd(const void* x, long long ldx, const void* da, long long ldd,
   auto* op = static_cast<float*>(dx);
   auto* pp = static_cast<float*>(part);
   if (accumulate)
-    bn_bwd_kernel<true><<<grid, kThreads, 0, st>>>(
-        xp, ldx, dp, ldd, tile_rows, K, sp, gp, eps, op, lddx, pp);
-  else
-    bn_bwd_kernel<false><<<grid, kThreads, 0, st>>>(
-        xp, ldx, dp, ldd, tile_rows, K, sp, gp, eps, op, lddx, pp);
-  return (int)cudaGetLastError();
+    return launch_bn_bwd<true>(xp, ldx, dp, ldd, tile_rows, T, K, sp, gp,
+                               eps, op, lddx, pp, p, smem, st);
+  return launch_bn_bwd<false>(xp, ldx, dp, ldd, tile_rows, T, K, sp, gp, eps,
+                              op, lddx, pp, p, smem, st);
 }
 
 int cunet_dx(const void* dy, long long ldd, long long M, int N,
@@ -1203,22 +1446,34 @@ int cunet_conv3x3_dx(const void* dy, long long ldd, long long M, int H,
 int cunet_dw(const void* x, long long ldx, long long M, int K,
              const void* inv, const void* shift, long long vstride,
              long long tile_rows, int bits, const void* dy, long long ldd,
-             int N, long long chunk, void* part, void* stream) {
+             int N, void* part, int runs, int run_rows, int br, int kc,
+             int ncol, int stages, int x_bytes, int stage_bytes, int smem,
+             void* stream) {
   const VecArgs v{static_cast<const float*>(inv),
                   static_cast<const float*>(shift), vstride, tile_rows, bits};
+  const AffineDwPlan p{run_rows, br, kc, ncol, stages, x_bytes, stage_bytes};
+  const dim3 grid((unsigned)runs, (unsigned)((K + kc - 1) / kc),
+                  (unsigned)((N + ncol - 1) / ncol));
   const auto* xp = static_cast<const bf16*>(x);
   const auto* dp = static_cast<const bf16*>(dy);
   auto* pp = static_cast<float*>(part);
   const auto st = static_cast<cudaStream_t>(stream);
-  if (N <= 16)
-    launch_dw<16, 1>(xp, ldx, M, K, v, dp, ldd, N, chunk, pp, st);
-  else if (N <= 32)
-    launch_dw<32, 2>(xp, ldx, M, K, v, dp, ldd, N, chunk, pp, st);
-  else if (N <= 64)
-    launch_dw<64, 2>(xp, ldx, M, K, v, dp, ldd, N, chunk, pp, st);
-  else
-    launch_dw<128, 2>(xp, ldx, M, K, v, dp, ldd, N, chunk, pp, st);
-  return (int)cudaGetLastError();
+  const int m = (int)M;
+  switch (ncol) {
+    case 128:
+      return launch_affine_dw<4, 4>(xp, ldx, m, K, v, dp, ldd, N, pp, p,
+                                    grid, smem, st);
+    case 64:
+      return launch_affine_dw<4, 2>(xp, ldx, m, K, v, dp, ldd, N, pp, p,
+                                    grid, smem, st);
+    case 32:
+      return launch_affine_dw<4, 1>(xp, ldx, m, K, v, dp, ldd, N, pp, p,
+                                    grid, smem, st);
+    case 16:
+      return launch_affine_dw<2, 1>(xp, ldx, m, K, v, dp, ldd, N, pp, p,
+                                    grid, smem, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 int cunet_conv3x3_dw(const void* x, long long ldx, long long M, int H, int W,

@@ -103,11 +103,12 @@ def _declare(lib):
         "cunet_maxpool2": [P, L, P, L, I, I, I, I, P],
         "cunet_upsample2": [P, L, P, L, I, I, I, I, P],
         "cunet_bn_stats": [P, L, L, L, I, P, P],
-        "cunet_bn_bwd": [P, L, P, L, L, L, I, P, P, F, P, L, I, P, P],
+        "cunet_bn_bwd": [P, L, P, L, L, L, I, P, P, F, P, L, I, P,
+                         *[I] * 6, P],
         "cunet_dx": [P, L, L, I, P, I, I, P, L, P, P, L, L, I, P, L, P],
         "cunet_conv3x3_dx": [P, L, L, I, I, I, P, I, P, L, P, P, L, L, I, P,
                              L, *[I] * 14, P],
-        "cunet_dw": [P, L, L, I, P, P, L, L, I, P, L, I, L, P, P],
+        "cunet_dw": [P, L, L, I, P, P, L, L, I, P, L, I, P, *[I] * 9, P],
         "cunet_conv3x3_dw": [P, L, L, I, I, I, P, P, L, L, I, P, L, I, P,
                              *[I] * 11, P],
         "cunet_drop_mask": [P, L, I, P, L, L, I, L, ctypes.c_uint,

@@ -45,7 +45,22 @@ from cunet_tpu_torch.kernels.buf_ops import (
     _up,
 )
 
-DW_CHUNK = 2048          # rows per affine_dw partial (a multiple of 32)
+# affine_dw: the most blocks its plan aims at (two on each of the card's 132
+# SMs, one wave: a few more would put a third block on a few SMs and stretch
+# the launch by a block's time), and the fewest it takes before it cuts
+# columns or channels finer; constants, so the runs (and the order of every
+# sum) depend on the shapes alone
+AFFINE_DW_BLOCKS = 264
+AFFINE_DW_MIN_BLOCKS = 132
+# bn_bwd: threads a block (csrc kBnThreads), the blocks its plan aims at
+# (one on each SM), the fewest rows of a block split from its tile, the most
+# blocks of a cluster (the portable limit), the chunk buffers of a block
+# whose rows do not fit in shared memory
+BN_BWD_THREADS = 256
+BN_BWD_BLOCKS = 132
+BN_BWD_MIN_ROWS = 128
+BN_BWD_CLUSTER = 8
+BN_BWD_RING = 4
 # conv3x3_dx: warps of a block, output rows a warp owns (csrc/
 # train_kernels.cu kDxWarps), and the items (tile, channel group) aimed at
 # before a smaller one is taken: about one per SM of the card's 132, a
@@ -422,6 +437,78 @@ def _dw_operands(x, vec, dy, out):
     return _vec_args(vec, x.shape[0], x.shape[1])
 
 
+@dataclasses.dataclass(frozen=True)
+class AffineDwPlan:
+    """How ``affine_dw``'s kernel cuts z^T dy for z (m, K), dy (m, N): the
+    rows in ``runs`` runs of ``run_rows`` (the last one shorter), each
+    walked in steps of ``br`` rows and summed into one partial; K in
+    ``nkb`` blocks of ``kc`` channels (a multiple of 16, at most 128), N in
+    ``ngrp`` groups of ``ncol`` columns (16-128); ``stages`` buffers of
+    ``stage_bytes``, each a step's x rows (``x_bytes``, at a row stride of
+    kc + 8) and then its dy rows (ncol + 8); ``smem`` bytes in all."""
+    runs: int
+    run_rows: int
+    br: int
+    kc: int
+    nkb: int
+    ncol: int
+    ngrp: int
+    stages: int
+    x_bytes: int
+    stage_bytes: int
+    smem: int
+
+    @property
+    def blocks(self) -> int:
+        return self.runs * self.nkb * self.ngrp
+
+    def run(self, p: int, m: int) -> range:
+        return range(p * self.run_rows, min(m, (p + 1) * self.run_rows))
+
+
+def _affine_dw_layout(m, k, n, br, ncol, split) -> AffineDwPlan:
+    kc = _up(-(-k // (-(-k // 128) * split)), 16)
+    nkb, ngrp = -(-k // kc), -(-n // ncol)
+    steps = -(-m // br)
+    per_run = max(1, AFFINE_DW_BLOCKS // (nkb * ngrp))
+    # at least two steps a run where there are two: a block then has a
+    # step loading under the one it computes
+    run_steps = max(-(-steps // per_run), min(2, steps))
+    x_bytes = _up(br * (kc + 8) * 2, 128)
+    stage_bytes = x_bytes + _up(br * (ncol + 8) * 2, 128)
+    stages = 3 if 3 * stage_bytes <= SMEM_LIMIT else 2
+    return AffineDwPlan(runs=-(-steps // run_steps), run_rows=run_steps * br,
+                        br=br, kc=kc, nkb=nkb, ncol=ncol, ngrp=ngrp,
+                        stages=stages, x_bytes=x_bytes,
+                        stage_bytes=stage_bytes, smem=stages * stage_bytes)
+
+
+def affine_dw_plan(m: int, k: int, n: int) -> AffineDwPlan:
+    """The kernel plan of ``affine_dw`` at these shapes (a function of them
+    alone): K in the fewest blocks of at most 128 channels, cut evenly
+    (192: 2 x 96, 320: 3 x 112), all N (up to 128) in one group, and the
+    rows in runs of whole 64-row steps, at least two a run, as many runs
+    as keep the blocks within ``AFFINE_DW_BLOCKS``. Where that gives fewer
+    than ``AFFINE_DW_MIN_BLOCKS``, the first of half the columns, twice
+    the channel blocks, both, then a quarter and an eighth of the columns,
+    that reaches it, and only then steps of 32 and 16 rows (slower, where
+    M allows 64: PERF.md section 6, PR 10); else the one with the most
+    blocks."""
+    full = next((c for c in (16, 32, 64) if c >= n), 128)
+    best = None
+    for br in (64, 32, 16):
+        for div, split in ((1, 1), (2, 1), (1, 2), (2, 2), (4, 1), (4, 2),
+                           (8, 1), (8, 2)):
+            if full // div < 16:
+                continue
+            p = _affine_dw_layout(m, k, n, br, full // div, split)
+            if p.blocks >= AFFINE_DW_MIN_BLOCKS:
+                return p
+            if best is None or p.blocks > best.blocks:
+                best = p
+    return best
+
+
 def affine_dw(x, vec, dy, out, *, bits_i=0):
     """``out = bf16(relu(x*inv + shift))^T @ dy`` in float32, (K, N), for
     x (M, K), per-tile ``vec`` and dy (M, N): a 1x1 stage's weight
@@ -429,11 +516,20 @@ def affine_dw(x, vec, dy, out, *, bits_i=0):
     is QuanInput-quantized (``quantize_act``): dW of the quantized head.
 
     Replaces ``cunet_tpu/kernels/train_slot.py::_dot_dw`` (and the
-    cross-step dW accumulation). Bound by reading x and dy once. Design:
-    each block owns a 128 x BN tile of dW and a chunk of ``DW_CHUNK`` rows,
-    recomputes the activation in its prologue, stages it row-major and
-    feeds it to WMMA as a column-major (transposed) operand; ``sum_rows``
-    adds the chunk partials in order.
+    cross-step dW accumulation). Bound on the H100 by reading x and dy once
+    (18.8 us at r=64, K=192->128, batch 24). Design (``csrc/
+    train_kernels.cu``, plan ``affine_dw_plan``): ``conv3x3_dw``'s design
+    with one tap. A block owns a run of whole row steps, a block of
+    channels and a group of columns, sized to put two blocks on each SM;
+    per step the x and dy rows arrive by cp.async, up to three steps deep,
+    the BN + ReLU prologue (and quantizer) is applied once per element in
+    shared memory from BN vectors each thread keeps in registers across
+    the run, and 8 warps accumulate dW^T += dY^T z with ldmatrix.trans and
+    mma.sync, the sums in registers; each block writes one partial and
+    ``sum_rows`` adds the runs' partials in order, so two calls give the
+    same bits. On an H100 80GB HBM3 at 700 W (PERF.md section 6, PR 10):
+    53.8 us at r=64 with its ``sum_rows`` (the WMMA kernel before it
+    203.6; ``torch.mm`` of the product alone 33.3), 7.4 at r=4.
     """
     m, k = x.shape
     n = dy.shape[1]
@@ -445,12 +541,14 @@ def affine_dw(x, vec, dy, out, *, bits_i=0):
     if x.device.type == "cpu":
         return affine_dw_plain(x, vec, dy, out, bits_i)
     inv, shift, vstride, tile_rows = _dw_operands(x, vec, dy, out)
-    part = torch.empty(-(-m // DW_CHUNK), k, n, device=x.device,
-                       dtype=torch.float32)
+    _check_rows(m)
+    p = affine_dw_plan(m, k, n)
+    part = torch.empty(p.runs, k, n, device=x.device, dtype=torch.float32)
     code = build.lib().cunet_dw(
         x.data_ptr(), x.stride(0), m, k, inv, shift, vstride, tile_rows,
-        bits_i, dy.data_ptr(), dy.stride(0), n, DW_CHUNK, part.data_ptr(),
-        _stream(x))
+        bits_i, dy.data_ptr(), dy.stride(0), n, part.data_ptr(), p.runs,
+        p.run_rows, p.br, p.kc, p.ncol, p.stages, p.x_bytes, p.stage_bytes,
+        p.smem, _stream(x))
     build.check(code, "affine_dw")
     sum_rows(part, out)
     affine_dw.launches += 1
@@ -601,6 +699,87 @@ def bn_bwd_plain(x, d_a, stats, bn, eps, d_x, dbn, accumulate=False):
     return d_x
 
 
+@dataclasses.dataclass(frozen=True)
+class BnBwdPlan:
+    """How ``bn_bwd``'s kernel cuts each BN tile: blocks of ``cb`` channels
+    (``BN_BWD_THREADS`` threads: cb/8 channel vectors x ``stripes`` row
+    stripes), ``cs`` blocks a tile (one thread block cluster), rank q owning
+    the tile's rows [q*rpb, min((q+1)*rpb, tile_rows)); a block's rows in
+    chunks of ``rc`` (rc / stripes rows a thread), ``slots`` chunk buffers
+    of x and d_a in shared memory: every chunk where ``resident`` (kept for
+    pass 2), else a ring both passes stream through; ``smem`` bytes in all
+    (the buffers, then the warps', the block's and the tile's sums)."""
+    cb: int
+    cs: int
+    rpb: int
+    rc: int
+    slots: int
+    smem: int
+
+    @property
+    def stripes(self) -> int:
+        return BN_BWD_THREADS // (self.cb // 8)
+
+    @property
+    def chunks(self) -> int:
+        return -(-self.rpb // self.rc)
+
+    @property
+    def resident(self) -> bool:
+        return self.slots >= self.chunks
+
+    def grid(self, tiles: int, k: int):
+        """(channel blocks, tiles x cluster ranks): the channel blocks of a
+        tile vary fastest, a tile's ranks form one cluster along y."""
+        return -(-k // self.cb), tiles * self.cs
+
+    def blocks(self, tiles: int, k: int) -> int:
+        gx, gy = self.grid(tiles, k)
+        return gx * gy
+
+    def rows(self, rank: int, tile_rows: int) -> range:
+        return range(min(tile_rows, rank * self.rpb),
+                     min(tile_rows, (rank + 1) * self.rpb))
+
+
+def _bn_bwd_layout(cb: int, cs: int, tile_rows: int) -> BnBwdPlan:
+    def smem(slots, rc):       # the buffers, the warps', block's, tile's sums
+        return slots * rc * cb * 6 + (2 * BN_BWD_THREADS // 32 + 4) * cb * 4
+
+    stripes = BN_BWD_THREADS // (cb // 8)
+    rpb = -(-tile_rows // cs)
+    rc = stripes * -(-rpb // (stripes * 8))   # at most 8 chunks
+    slots = -(-rpb // rc)
+    if smem(slots, rc) > SMEM_LIMIT:
+        rc, slots = 2 * stripes, BN_BWD_RING
+    return BnBwdPlan(cb=cb, cs=cs, rpb=rpb, rc=rc, slots=slots,
+                     smem=smem(slots, rc))
+
+
+def bn_bwd_plan(m: int, tile_rows: int, k: int) -> BnBwdPlan:
+    """The kernel plan of ``bn_bwd`` at these shapes (a function of them
+    alone). Channel blocks of 64 or 32 where they divide K (else 16). The
+    widest channel block, then the smallest cluster (1-8 blocks a tile,
+    each of at least ``BN_BWD_MIN_ROWS`` rows), whose blocks keep their
+    rows in shared memory and reach ``BN_BWD_BLOCKS``. Where the rows are
+    too few for that (r <= 8 on the main path), one block a tile of the
+    narrowest channel block: smaller clusters and blocks were slower
+    there (PERF.md section 6, PR 10). Where they are too many for shared
+    memory, the ring in clusters of ``BN_BWD_CLUSTER``."""
+    tiles = m // tile_rows
+    cbs = [c for c in (64, 32) if k % c == 0] or [16]
+    for cb in cbs:
+        for cs in (1, 2, 4, BN_BWD_CLUSTER):
+            p = _bn_bwd_layout(cb, cs, tile_rows)
+            if cs > 1 and p.rpb < BN_BWD_MIN_ROWS:
+                break
+            if p.resident and p.blocks(tiles, k) >= BN_BWD_BLOCKS:
+                return p
+    p = _bn_bwd_layout(cbs[-1], 1, tile_rows)
+    return p if p.resident else _bn_bwd_layout(cbs[-1], BN_BWD_CLUSTER,
+                                               tile_rows)
+
+
 def bn_bwd(x, d_a, stats, bn, eps, d_x, dbn, *, accumulate=False):
     """Ghost-BN backward of a stage: with per tile (rows m, xh = (x - mu)
     * rstd, ig = rstd * gamma), ``d_x (+)= ig * (d_a - sum(d_a)/m - xh *
@@ -612,10 +791,20 @@ def bn_bwd(x, d_a, stats, bn, eps, d_x, dbn, *, accumulate=False):
     block's input cotangent).
 
     Replaces the BN-jacobian of ``cunet_tpu/kernels/train_slot.py::
-    _affine_bwd`` (the classic two-sum BN backward). Bound by reading x and
-    d_a twice (once per pass, the second mostly from L2). Design: one block
-    per (tile, 64 channels), the two sums reduced in a fixed order and
-    written as per-tile partials, ``sum_rows`` adds them over tiles.
+    _affine_bwd`` (the classic two-sum BN backward). Bound on the H100 by
+    reading x and d_a once and writing d_x (56.3 us at r=64, K=192, batch
+    24). Design (``csrc/train_kernels.cu``, plan ``bn_bwd_plan``): a tile's
+    rows are split over the blocks of one thread block cluster; each block
+    copies its rows into shared memory with cp.async, several chunks in
+    flight, and sums them as they land; the blocks add the cluster's
+    partial sums in rank order through distributed shared memory, so every
+    block holds the tile's sums without a trip through device memory, and
+    pass 2 reads the rows from shared memory where they fit (HBM sees x
+    and d_a once), else streams them again. Per-tile partials, added over
+    tiles by ``sum_rows``; no atomics, so two calls give the same bits. On
+    an H100 80GB HBM3 at 700 W (PERF.md section 6, PR 10): 103.3 us at
+    r=64, K=192 with its ``sum_rows`` (the kernel before it 321.7,
+    ``native_batch_norm_backward`` 142.2), 4.9 at r=4.
     """
     m, k = x.shape
     if tuple(d_a.shape) != (m, k) or tuple(d_x.shape) != (m, k) \
@@ -635,12 +824,13 @@ def bn_bwd(x, d_a, stats, bn, eps, d_x, dbn, *, accumulate=False):
     _check_contig_f32(stats, "stats", dev)
     _check_contig_f32(bn, "bn", dev)
     _check_contig_f32(dbn, "dbn", dev)
+    p = bn_bwd_plan(m, tile_rows, k)
     part = torch.empty(stats.shape[0], 2, k, device=dev, dtype=torch.float32)
     code = build.lib().cunet_bn_bwd(
         x.data_ptr(), x.stride(0), d_a.data_ptr(), d_a.stride(0), m,
         tile_rows, k, stats.data_ptr(), bn[0].data_ptr(), float(eps),
         d_x.data_ptr(), d_x.stride(0), int(accumulate), part.data_ptr(),
-        _stream(x))
+        p.cb, p.cs, p.rpb, p.rc, p.slots, p.smem, _stream(x))
     build.check(code, "bn_bwd")
     bn_bwd.launches += 1
     sum_rows(part, dbn)

@@ -8,7 +8,10 @@ kernels of ``--root`` (default: the checkout holding this file; its
 ``cunet_tpu_torch`` is imported and its kernels built): phase 2 (the
 forward kernels, ``conv3x3`` at every resolution at batch 8 and 64),
 phase 4 (the train kernels at batch 24, ``conv3x3`` per tile and
-``conv3x3_dx`` / ``conv3x3_dw`` at every resolution), phase 8's option
+``conv3x3_dx`` / ``conv3x3_dw`` at every resolution, ``bn_bwd`` and
+``affine_dw`` at every resolution and at r=64 at every stage width, with
+``accumulate`` and ``bits_i``, beside ``native_batch_norm_backward`` and
+``torch.mm``, and their planted faults), phase 8's option
 kernels (``conv3x3[bits_i]``, ``conv3x3_dw[bits_i]`` and
 ``conv3x3_dx[ste]`` at every resolution), phase 9's kernels of #7
 (``bwd_reduce`` at every resolution), phase 10 (``table_dot``'s forms) and

@@ -385,6 +385,109 @@ def test_bn_bwd(gen, k, accumulate):
     _close_sum(outs["kernel"][1], outs["plain"][1], m)
 
 
+# (rows, BN tiles, K, accumulate) of bn_bwd: every plan branch -- one block
+# a tile (r <= 8), clusters of 2 (K=640), 4 and 8, the r=64 main shapes (a
+# tile over 8 blocks of 1024 rows kept in shared memory), rows too many for
+# shared memory (the ring), tile rows not dividing by the cluster (1001
+# over 4), channel blocks of 16-64, channel tails (8, 40, 136), one tile
+BN_BWD_CASES = [(24 * 64 * 64, 12, 192, False),
+                (24 * 64 * 64, 12, 288, True), (24 * 32 * 32, 12, 192, True),
+                (24 * 16 * 16, 12, 128, False), (24 * 16 * 16, 12, 640, True),
+                (24 * 8 * 8, 12, 320, True), (24 * 4 * 4, 12, 128, False),
+                (2 * 65536, 2, 64, True), (12 * 1001, 12, 192, False),
+                (216, 3, 8, False), (216, 3, 40, True), (300, 1, 136, False)]
+
+
+def test_bn_bwd_cases_cover_every_plan_path():
+    plans = [(train_ops.bn_bwd_plan(m, m // t, k), m // t)
+             for m, t, k, _ in BN_BWD_CASES]
+    assert {p.cs for p, _ in plans} >= {1, 2, 4, 8}
+    assert {p.cb for p, _ in plans} >= {16, 32, 64}
+    assert any(p.resident and p.chunks > 1 for p, _ in plans)
+    assert any(not p.resident for p, _ in plans)
+    assert any(tr % p.cs for p, tr in plans)
+
+
+@pytest.mark.parametrize("m,tiles,k,accumulate", BN_BWD_CASES)
+def test_bn_bwd_plans(gen, m, tiles, k, accumulate):
+    x = _bf16(gen, m, k + 8)[:, :k]
+    st, bn, _ = _train_vec(gen, x, tiles)
+    d_a = torch.randn(m, k + 8, generator=gen).cuda()[:, 8:]
+    base = torch.randn(m, k, generator=gen).cuda()
+    got, want = _both(train_ops.bn_bwd,
+                      lambda: (base.clone(),
+                               torch.empty(2, k, device="cuda")),
+                      lambda f, o: f(x, d_a, st, bn, 1e-5, o[0], o[1],
+                                     accumulate=accumulate))
+    _close_sum(got[0], want[0], m // tiles)
+    _close_sum(got[1], want[1], m)
+
+
+# (rows, BN tiles, K, N, bits_i) of affine_dw: the r=64 main shapes (two and
+# three channel blocks, the quantized head's N=16), runs straddling ghost
+# tiles (r=32, K=320: runs of 320 rows, tiles of 2048), steps of 64, 32 and
+# 16 rows, the column groups of r <= 16, channel and column tails, rows not
+# dividing a step, one run
+DW_PLAN_CASES = [(24 * 64 * 64, 12, 192, 128, 0),
+                 (24 * 64 * 64, 12, 128, 16, 8),
+                 (24 * 64 * 64, 12, 320, 128, 0),
+                 (24 * 32 * 32, 12, 320, 128, 0),
+                 (24 * 16 * 16, 12, 128, 128, 0),
+                 (24 * 4 * 4, 12, 192, 128, 8), (24 * 8 * 8, 12, 192, 128, 0),
+                 (216, 3, 8, 8, 0), (216, 3, 200, 136, 0),
+                 (1000, 4, 136, 24, 8), (16, 1, 40, 24, 0)]
+
+
+def test_affine_dw_cases_cover_every_plan_path():
+    plans = [(train_ops.affine_dw_plan(m, k, n), m, m // t)
+             for m, t, k, n, _ in DW_PLAN_CASES]
+    assert any(p.runs == 1 for p, _, _ in plans)
+    assert any(p.runs > 1 and p.nkb > 1 for p, _, _ in plans)
+    assert {p.ncol for p, _, _ in plans} >= {16, 32, 64, 128}
+    assert {p.br for p, _, _ in plans} >= {16, 32, 64}
+    assert any(p.ngrp > 1 for p, _, _ in plans)
+    assert any(r.start // tr != (r.stop - 1) // tr
+               for p, m, tr in plans
+               for r in (p.run(q, m) for q in range(p.runs)))
+
+
+@pytest.mark.parametrize("m,tiles,k,n,bits", DW_PLAN_CASES)
+def test_affine_dw_plans(gen, m, tiles, k, n, bits):
+    x = (_bf16(gen, m, k + 8) * 2)[:, 8:]
+    _, _, vec = _train_vec(gen, x, tiles)
+    dy = _bf16(gen, m, n + 8)[:, :n]
+    got, want = _both(train_ops.affine_dw,
+                      lambda: torch.empty(k, n, device="cuda"),
+                      lambda f, o: f(x, vec, dy, o, bits_i=bits))
+    _close_sum(got, want, m)
+
+
+def test_stage_bwd_kernels_repeat_bit_for_bit(gen):
+    """bn_bwd (a cluster of 8 blocks a tile, and the ring) and affine_dw
+    (two channel blocks of 64 runs; r=4's column groups) give the same bits
+    on a second run: no atomics, plans of the shapes alone."""
+    for m, tiles, k in ((24 * 64 * 64, 12, 192), (2 * 65536, 2, 64)):
+        x = _bf16(gen, m, k)
+        st, bn, vec = _train_vec(gen, x, tiles)
+        d_a = torch.randn(m, k, generator=gen).cuda()
+        outs = []
+        for _ in range(2):
+            o = (torch.empty(m, k, device="cuda"),
+                 torch.empty(2, k, device="cuda"))
+            train_ops.bn_bwd(x, d_a, st, bn, 1e-5, *o)
+            outs.append(o)
+        for n, mm in ((128, m), (128, 384)):
+            dy = _bf16(gen, mm, n)
+            v = vec if mm == m else vec[:1]
+            outs.append([train_ops.affine_dw(x[:mm], v, dy,
+                                             torch.empty(k, n, device="cuda"),
+                                             bits_i=8 if mm < m else 0)
+                         for _ in range(2)])
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(*outs[:2]))
+        assert all(torch.equal(*pair) for pair in outs[2:])
+
+
 @pytest.mark.parametrize("r", [8, 2])
 def test_maxpool2_bwd_and_upsample2_bwd(gen, r):
     n, c = 3, 16

@@ -8,8 +8,10 @@ Phases, each printing one line (or a few) before the last:
 1. build: the card's name and power limit, torch/CUDA versions, and the
    nvcc build of the kernels from cunet_tpu_torch/csrc;
 2. kernels: each hand-written kernel against its plain PyTorch version on
-   the card, at the shapes the CU-Net-8 @256 forward gives it (batch 8),
-   reading and writing strided views of channel-plane buffers;
+   the card, at the shapes the CU-Net-8 @256 forward gives it (batch 8;
+   affine_dot and conv3x3 at every resolution, and at r=64 at batch 64 too,
+   affine_dot at every stage width), reading and writing strided views of
+   channel-plane buffers;
 3. serving: a Predictor for CU-Net-8 @256 (order 1, 16 classes, 8 loss
    anchors, bf16, kernel path) with random weights from seed 0 answers
    three requests of 8, 5 and 11 images with the flip test; checks shapes,
@@ -18,7 +20,7 @@ Phases, each printing one line (or a few) before the last:
 4. train kernels: each kernel of the slot train step (and the per-tile
    forms of affine_dot / conv3x3) against its plain version on the card at
    the shapes the CU-Net-8 @256 train step gives it (batch 24, ghost-BN
-   tile 2);
+   tile 2; the GEMMs and convs at every resolution);
 5. training: CU-Net-8 @256 (bf16, bn_tile 2, bn_dtype "compute", RMSprop)
    at batch 24 from the port's init (seed 0), numpy images and Gaussian
    target heatmaps: slot 1 alone, kernel path against plain path under a
@@ -249,15 +251,25 @@ def bound(w):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def record(results, name, err, ms, plain_ms, label, w, lib_ms):
+def record(results, name, err, ms, plain_ms, label, w, lib_ms,
+           product_ms=None):
     """Fold one case into ``results[name]``: the worst error; the first
-    case's (the main-path headline's) times, bound and library time."""
+    case's (the main-path headline's) times, bound and library time, and
+    where no library call computes the kernel's function, the time of its
+    product alone."""
     r = results.setdefault(name, {"max_abs_err": 0.0})
     r["max_abs_err"] = max(r["max_abs_err"], err)
     if "ms" not in r:
         bms, by = bound(w)
         r.update(ms=ms, plain_ms=plain_ms, shape=label, bound_ms=bms,
                  bound_by=by, library_ms=lib_ms)
+        if product_ms is not None:
+            r["product_ms"] = product_ms
+
+
+def product_text(prod_ms):
+    return ("" if prod_ms is None
+            else f", product alone (torch.mm) {prod_ms:.4f} ms")
 
 
 def require(cond, msg):
@@ -294,9 +306,12 @@ def cuda_time_ms(fn, iters=20):
 
 
 def kernel_cases(torch, gen):
-    """(kernel name, label, callable(fn, out), destination buffer, view
-    selector, work, library call or None) at the flagship's main-path
-    shapes: c=128, g=32, Cb=128, cls=16, h0=64, batch 8."""
+    """(kernel name, label, destination buffer, view selector,
+    callable(fn, out), work, library call or None, product alone or None)
+    at the flagship's main-path shapes: c=128, g=32, Cb=128, cls=16,
+    h0=64, batch 8. No single PyTorch call computes ``affine_dot`` (BN +
+    ReLU, the 1x1, an epilogue, into a strided view): its cases time
+    ``torch.mm`` of the raw x at r=64 beside it, the product alone."""
     import torch.nn.functional as F
 
     dev = "cuda"
@@ -318,32 +333,48 @@ def kernel_cases(torch, gen):
     heads = randn(n, 8, h0, h0, cls)          # (N, A, h, w, cls)
     cases = []
 
-    def dot_work(k, nout, bias=False):
-        return work(sz(m64, k) + sz(k, nout) + sz(2, k, e=4)
-                    + (sz(nout, e=4) if bias else 0) + sz(m64, nout),
-                    2 * m64 * k * nout)
+    def dot_work(k, nout, bias=False, m=m64):
+        return work(sz(m, k) + sz(k, nout) + sz(2, k, e=4)
+                    + (sz(nout, e=4) if bias else 0) + sz(m, nout),
+                    2 * m * k * nout)
+
+    def product(x, w):
+        return lambda: torch.mm(x, w)
 
     # K1: adapter K=192 -> 128 written into the up buffer's skip slot
     v, w = vec(192), randn(192, c, scale=192 ** -0.5)
     cases.append(("affine_dot", "K=192->128 r=64", up64,
                   lambda b: b[:, c:2 * c],
                   lambda f, b: f(down64, v, w, b[:, c:2 * c]),
-                  dot_work(192, c), None))
-    # K1: bottleneck K=160 -> 128 with the shift+ReLU epilogue
-    v2, w2 = vec(160), randn(160, cb, scale=160 ** -0.5)
-    bias = (torch.randn(cb, generator=gen) * 0.5).to(dev)
-    y2dst = randn(m64, c + g + g)
-    cases.append(("affine_dot", "K=160->128 +shift,relu r=64", y2dst,
-                  lambda b: b[:, :cb],
-                  lambda f, b: f(down64[:, :160], v2, w2, b[:, :cb],
-                                 bias=bias), dot_work(160, cb, True), None))
+                  dot_work(192, c), None, product(down64, w)))
+    # K1: bottlenecks K -> 128 with the shift+ReLU epilogue, at every stage
+    # width of r=64 (K=160 first, as before)
+    wide = randn(m64, 320 + g)                # [features ... | out32]
+    for k in (160, 128, 192, 256, 288, 320):
+        vk, wk = vec(k), randn(k, cb, scale=k ** -0.5)
+        bias = (torch.randn(cb, generator=gen) * 0.5).to(dev)
+        cases.append(("affine_dot", f"K={k}->128 +shift,relu r=64",
+                      randn(m64, c + g + g), lambda b: b[:, :cb],
+                      lambda f, b, k=k, vk=vk, wk=wk, bias=bias:
+                      f(wide[:, :k], vk, wk, b[:, :cb], bias=bias),
+                      dot_work(k, cb, True), None,
+                      product(wide[:, :k], wk)))
     # K1: head K=128 -> 16 into anchor slot 3 of the stacked head output
     v3, w3 = vec(c), randn(c, cls, scale=c ** -0.5)
     cases.append(("affine_dot", "head K=128->16 r=64", heads,
                   lambda b: b[:, 3],
                   lambda f, b: f(inter[:, :c], v3, w3,
                                  b[:, 3].view(n, h0 * h0, cls)),
-                  dot_work(c, cls), None))
+                  dot_work(c, cls), None, product(inter[:, :c], w3)))
+    # K1: the adapter at r = 32 ... 4, batch 8, then at r=64, batch 64
+    for nb, r in [(n, r) for r in CONV_RES[1:]] + [(64, 64)]:
+        m = nb * r * r
+        xr, vr = randn(m, c + g + g), vec(192)
+        cases.append(("affine_dot", f"K=192->128 r={r} batch {nb}",
+                      randn(m, 2 * c + g + g), lambda b: b[:, c:2 * c],
+                      lambda f, b, xr=xr, vr=vr: f(xr, vr, w, b[:, c:2 * c]),
+                      dot_work(192, c, m=m), None,
+                      product(xr, w) if r == 64 else None))
     # K2: 3x3 conv into the out32 slot at every resolution of the forward,
     # batch 8 then 64, r=64 first (the kernels line records it); the
     # library call: cuDNN on the same rows viewed as channels-last NCHW
@@ -361,7 +392,7 @@ def kernel_cases(torch, gen):
                           work(sz(m, cb) + sz(9 * cb, g) + sz(m, g),
                                2 * m * 9 * cb * g),
                           lambda y2=y2, w_oihw=w_oihw, r=r:
-                          F.conv2d(nchw(y2, r), w_oihw, padding=1)))
+                          F.conv2d(nchw(y2, r), w_oihw, padding=1), None))
     # K3: pool 64 -> 32 into the next down buffer
     ahead = randn(m64, c)
     down32 = randn(n * 32 * 32, c + g + g)
@@ -369,7 +400,7 @@ def kernel_cases(torch, gen):
                   lambda f, b: f(ahead, n, 64, 64, b[:, :c]),
                   work(sz(m64, c) + sz(m64 // 4, c), 3 * m64 // 4 * c,
                        "f32"),
-                  lambda: F.max_pool2d(nchw(ahead, 64), 2)))
+                  lambda: F.max_pool2d(nchw(ahead, 64), 2), None))
     # K4: upsample 4 -> 8 and 32 -> 64 into the next up buffer
     for r in (32, 4):
         x = randn(n * r * r, c)
@@ -378,14 +409,14 @@ def kernel_cases(torch, gen):
                       lambda f, b, x=x, r=r: f(x, n, r, r, b[:, :c]),
                       work(sz(n * r * r, c) + sz(4 * n * r * r, c)),
                       lambda x=x, r=r: F.interpolate(
-                          nchw(x, r), scale_factor=2, mode="nearest")))
+                          nchw(x, r), scale_factor=2, mode="nearest"), None))
     return cases
 
 
 def phase_kernels(torch, ops):
     gen = torch.Generator().manual_seed(0)
     results = {}
-    for name, label, dst, sel, call, w, lib in kernel_cases(torch, gen):
+    for name, label, dst, sel, call, w, lib, prod in kernel_cases(torch, gen):
         kern = getattr(ops, name)
         plain = ops.PLAIN[kern]
         k_buf, p_buf = dst.clone(), dst.clone()
@@ -402,16 +433,18 @@ def phase_kernels(torch, ops):
         ms = cuda_time_ms(lambda: call(kern, k_buf))
         plain_ms = cuda_time_ms(lambda: call(plain, p_buf))
         lib_ms = None if lib is None else cuda_time_ms(lib)
+        prod_ms = None if prod is None else cuda_time_ms(prod)
         print(f"kernel {name} [{label}]: max_abs_err {err:.4g} (bound "
               f"{bound_:.4g}), outside view untouched {untouched}, "
               f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, library "
-              f"{lib_ms if lib_ms is None else f'{lib_ms:.4f} ms'}, "
-              f"bound {bound(w)[0]:.4f} ms ({bound(w)[1]})", flush=True)
+              f"{lib_ms if lib_ms is None else f'{lib_ms:.4f} ms'}"
+              f"{product_text(prod_ms)}, bound {bound(w)[0]:.4f} ms "
+              f"({bound(w)[1]})", flush=True)
         require(np.isfinite(err) and err <= bound_,
                 f"{name} [{label}] disagrees with its plain version: "
                 f"{err} > {bound_}")
         require(untouched, f"{name} [{label}] wrote outside its view")
-        record(results, name, err, ms, plain_ms, label, w, lib_ms)
+        record(results, name, err, ms, plain_ms, label, w, lib_ms, prod_ms)
     return results
 
 
@@ -538,9 +571,9 @@ def vec_bytes(k):
 
 def train_kernel_cases(torch, tops, bops, gen):
     """(kernel, label, make_out, call(fn, out), bound, work, library call or
-    None) at the CU-Net-8 @256 train shapes (c=128, g=32, Cb=128, cls=16,
-    h0=64, batch 24, tile 2). bound is ("bf16",), ("exact",) or ("sum", n)
-    for an n-term reduction."""
+    None, product alone or None) at the CU-Net-8 @256 train shapes
+    (c=128, g=32, Cb=128, cls=16, h0=64, batch 24, tile 2). bound is
+    ("bf16",), ("exact",) or ("sum", n) for an n-term reduction."""
     dev = "cuda"
     c, g, cb, cls, h0, n = 128, 32, 128, 16, 64, TRAIN_BATCH
     tiles = n // BN_TILE
@@ -568,28 +601,46 @@ def train_kernel_cases(torch, tops, bops, gen):
     w_h = randn(c, cls, scale=c ** -0.5)
     d_head = randn(m64, cls)
 
-    def dx_work(k, nout):          # dy, w, x, vec -> f32 (m, k)
-        return work(sz(m64, nout) + sz(k, nout) + sz(m64, k) + vec_bytes(k)
-                    + sz(m64, k, e=4), 2 * m64 * k * nout)
+    def dx_work(k, nout, m=m64):   # dy, w, x, vec -> f32 (m, k)
+        return work(sz(m, nout) + sz(k, nout) + sz(m, k) + vec_bytes(k)
+                    + sz(m, k, e=4), 2 * m * k * nout)
 
     x160 = down64[:, :160]
+    # the 1x1 GEMMs: no PyTorch call computes either function; the last
+    # element times torch.mm of the product alone at r=64 (affine_dx's in
+    # bf16, the kernel writes float32)
     cases = [
         (tops.bn_stats, "r=64 K=160", f32(tiles, 2, 160),
          lambda f, o: f(x160, o), ("sum", 2 * h0 * h0),
          work(sz(m64, 160) + sz(tiles, 2, 160, e=4), 3 * m64 * 160, "f32"),
          lambda: torch.var_mean(x160.view(tiles, -1, 160), dim=1,
-                                correction=0)),
+                                correction=0), None),
         (bops.affine_dot, "K=192->128 r=64 per-tile", bf16(m64, c),
          lambda f, o: f(x2, v2, w_a, o), ("bf16",),
          work(sz(m64, 192) + sz(192, c) + vec_bytes(192) + sz(m64, c),
-              2 * m64 * 192 * c), None),
+              2 * m64 * 192 * c), None, lambda: torch.mm(x2, w_a)),
         (tops.affine_dx, "K=192->128 r=64", f32(m64, 192),
          lambda f, o: f(d_ahead, w_a, x2, v2, o), ("sum", c),
-         dx_work(192, c), None),
+         dx_work(192, c), None, lambda: torch.mm(d_ahead, w_a.t())),
         (tops.affine_dx, "head 128->16 r=64", f32(m64, c),
          lambda f, o: f(d_head, w_h, y_out, vh, o), ("sum", cls),
-         dx_work(c, cls), None),
+         dx_work(c, cls), None, lambda: torch.mm(d_head, w_h.t())),
     ]
+    # the two 1x1 GEMMs at r = 32 ... 4 (the adapter, K=192 -> 128)
+    for r in CONV_RES[1:]:
+        m = n * r * r
+        xr = randn(m, c + g + g)
+        _, _, vr = vec(xr)
+        dr = randn(m, c)
+        cases += [
+            (bops.affine_dot, f"K=192->128 r={r} per-tile", bf16(m, c),
+             lambda f, o, xr=xr, vr=vr: f(xr, vr, w_a, o), ("bf16",),
+             work(sz(m, 192) + sz(192, c) + vec_bytes(192) + sz(m, c),
+                  2 * m * 192 * c), None, None),
+            (tops.affine_dx, f"K=192->128 r={r}", f32(m, 192),
+             lambda f, o, xr=xr, vr=vr, dr=dr: f(dr, w_a, xr, vr, o),
+             ("sum", c), dx_work(192, c, m), None, None),
+        ]
     for r in CONV_RES:
         m = n * r * r
         yb = randn(m, cb)
@@ -604,7 +655,7 @@ def train_kernel_cases(torch, tops, bops, gen):
              f(yb, w3, n, r, r, o, vec=vb), ("bf16",),
              work(sz(m, cb) + vec_bytes(cb) + sz(9 * cb, g) + sz(m, g),
                   conv_ops),
-             None),
+             None, None),
             (tops.conv3x3_dx, f"32->128 r={r}", f32(m, cb),
              lambda f, o, yb=yb, w3=w3, vb=vb, d_o=d_o, r=r:
              f(d_o, w3, n, r, r, yb, vb, o), ("sum", 9 * g),
@@ -612,7 +663,7 @@ def train_kernel_cases(torch, tops, bops, gen):
                   + sz(m, cb, e=4), conv_ops),
              lambda d_o=d_o, w_oihw=w_oihw, r=r:
              torch.nn.grad.conv2d_input((n, cb, r, r), w_oihw,
-                                        nchw(d_o, r), padding=1)),
+                                        nchw(d_o, r), padding=1), None),
             (tops.conv3x3_dw, f"(9*128, 32) r={r}", f32(9 * cb, g),
              lambda f, o, yb=yb, vb=vb, d_o=d_o, r=r:
              f(yb, vb, d_o, n, r, r, o), ("sum", m),
@@ -620,26 +671,26 @@ def train_kernel_cases(torch, tops, bops, gen):
                   conv_ops),
              lambda yb=yb, d_o=d_o, r=r:
              torch.nn.grad.conv2d_weight(nchw(yb, r), (g, cb, 3, 3),
-                                         nchw(d_o, r), padding=1)),
+                                         nchw(d_o, r), padding=1), None),
         ]
     ahead = randn(m64, c)
     d_pool = randn(m64 // 4, c, dtype=torch.float32)
     cases.append((tops.maxpool2_bwd, "64->32", bf16(m64, c),
                   lambda f, o: f(ahead, d_pool, n, 64, 64, o), ("exact",),
                   work(sz(m64, c) + sz(m64 // 4, c, e=4) + sz(m64, c),
-                       4 * m64 * c, "f32"), None))
+                       4 * m64 * c, "f32"), None, None))
     d_up = randn(n * 64, c, dtype=torch.float32)
     cases.append((tops.upsample2_bwd, "8->4", bf16(n * 16, c),
                   lambda f, o: f(d_up, n, 4, 4, o), ("bf16",),
                   work(sz(n * 64, c, e=4) + sz(n * 16, c), 3 * n * 16 * c,
                        "f32"),
                   lambda: torch.nn.functional.avg_pool2d(
-                      nchw(d_up, 8), 2, divisor_override=1)))
+                      nchw(d_up, 8), 2, divisor_override=1), None))
     part = randn(48, 192, c, dtype=torch.float32)
     cases.append((tops.sum_rows, "48 x (192*128) dW chunks", f32(192, c),
                   lambda f, o: f(part, o), ("sum", 48),
                   work(sz(48, 192, c, e=4) + sz(192, c, e=4), 48 * 192 * c,
-                       "f32"), lambda: torch.sum(part, 0)))
+                       "f32"), lambda: torch.sum(part, 0), None))
     return cases
 
 
@@ -655,9 +706,10 @@ def limit(bnd, scale):
 
 
 def check_case(torch, plain_of, results, prefix, kern, label, make_out,
-               call, bnd, w, lib, name=None):
+               call, bnd, w, lib, name=None, product=None):
     """Kernel against plain version on fresh outputs, within ``bnd``;
-    records error, times, bound and library time under ``name``."""
+    records error, times, bound and library time (and that of the product
+    alone, ``product``) under ``name``."""
     name = name or kern.__name__
     k_out, p_out = make_out(), make_out()
     call(kern, k_out)
@@ -669,16 +721,18 @@ def check_case(torch, plain_of, results, prefix, kern, label, make_out,
     ms = cuda_time_ms(lambda: call(kern, k_out))
     plain_ms = cuda_time_ms(lambda: call(plain_of[kern], p_out))
     lib_ms = None if lib is None else cuda_time_ms(lib)
+    prod_ms = None if product is None else cuda_time_ms(product)
     print(f"{prefix} {name} [{label}]: max_abs_err {err:.4g} "
           f"(bound {lim:.4g}, {bnd[0]}"
           f"{'' if len(bnd) == 1 else f' n={bnd[1]}'}), "
           f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, library "
-          f"{lib_ms if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+          f"{lib_ms if lib_ms is None else f'{lib_ms:.4f} ms'}"
+          f"{product_text(prod_ms)}, bound "
           f"{bound(w)[0]:.4f} ms ({bound(w)[1]})", flush=True)
     require(np.isfinite(err) and err <= lim,
             f"{name} [{label}] disagrees with its plain version: "
             f"{err} > {lim}")
-    record(results, name, err, ms, plain_ms, label, w, lib_ms)
+    record(results, name, err, ms, plain_ms, label, w, lib_ms, prod_ms)
     return k_out, p_out
 
 
@@ -800,8 +854,9 @@ def phase_train_kernels(torch, tops, bops):
     gen = torch.Generator().manual_seed(0)
     results = {}
     plain_of = {**bops.PLAIN, **tops.PLAIN}
-    for case in train_kernel_cases(torch, tops, bops, gen):
-        check_case(torch, plain_of, results, "train kernel", *case)
+    for *case, prod in train_kernel_cases(torch, tops, bops, gen):
+        check_case(torch, plain_of, results, "train kernel", *case,
+                   product=prod)
     for kern, label, make_outs, call, bounds, w, lib, o in \
             stage_bwd_cases(torch, tops, gen):
         name = kern.__name__
@@ -3028,7 +3083,8 @@ def main() -> int:
     def row(name, source, r, n_launches, **extra):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": REPLACES[name], "launches": n_launches,
-                **{k: r[k] for k in keys}, **extra}
+                **{k: r[k] for k in keys},
+                **{k: r[k] for k in ("product_ms",) if k in r}, **extra}
 
     rows = []
     for name in list(kernels) + [k for k in train_kernels
@@ -3042,6 +3098,7 @@ def main() -> int:
             extra.update(train_ms=t["ms"], train_plain_ms=t["plain_ms"],
                          train_bound_ms=t["bound_ms"],
                          train_library_ms=t["library_ms"],
+                         train_product_ms=t.get("product_ms"),
                          train_shape=t["shape"])
             r = dict(r, max_abs_err=max(r["max_abs_err"], t["max_abs_err"]))
         rows.append(row(name, SOURCE if name in launches else TRAIN_SOURCE,

@@ -144,9 +144,11 @@ __global__ void __launch_bounds__(kThreads)
 // tb_apply: out[m, n] = sum_k bf16(relu(x[m,k]*inv[k] + shift[k])) w[k, n],
 // the affine in float32 (whatever the model's bn_dtype: the TPU kernel's
 // arithmetic), bf16 WMMA with float32 accumulators, one bf16 rounding of
-// the result. The affine_dot design of buf_kernels.cu (128-row tiles over
-// the full N, the prologue between the 16-byte global load and the bf16
-// shared-memory tile), with each A vector read from its group's tensor.
+// the result. The first, WMMA design of affine_dot (common.cuh's Smem,
+// mma_stage, load_b, store_tile; affine_dot itself has since moved to
+// persistent mma.sync blocks): 128-row tiles over the full N, the prologue
+// between the 16-byte global load and the bf16 shared-memory tile, with
+// each A vector read from its group's tensor.
 // ---------------------------------------------------------------------------
 template <int BN, int WARPS_N>
 __global__ void __launch_bounds__(kThreads)

@@ -28,52 +28,205 @@ namespace {
 // with t = m / tile_rows the ghost-BN tile of row m (train) or 0 (eval:
 // tile_rows = M, one [inv; shift] pair). With bits > 0 the bf16 prologue
 // value goes through the QuanInput quantizer (``quan``; the train head).
+// epi is the identity or, with BIAS, relu(. + bias[n]) (the folded BN2),
+// in f32 before the one bf16 rounding.
+//
+// Design (the plan is the wrapper's, kernels/buf_ops.py::affine_dot_plan):
+// - Persistent blocks of 8 warps, each block keeping one group of ncol
+//   output columns: its (K, ncol) weight prefix (at most 320 x 128 bf16,
+//   80 KB) is loaded into shared memory once, by cp.async, under a
+//   16-byte XOR swizzle, and read by ldmatrix.trans without bank
+//   conflicts. The block walks row tiles of bm rows (128, 64 or 32); on
+//   the main path (K <= 192) tiles of 64 and two x buffers let two blocks
+//   share an SM, so one block's loads, prologue and stores run under the
+//   other's products.
+// - A tile's x rows arrive by cp.async, two or three stages deep: the next
+//   tiles load while this one computes. The prologue (halo.cuh's
+//   halo_prologue on a tile of no halo) runs once per element, in place in
+//   shared memory, with the packed bf16x2 conversion; each thread keeps
+//   the inv/shift of its 8 channels in registers (VecCache) and reloads
+//   them only where the ghost-BN tile changes.
+// - Warp (wm, wn) owns 32 rows and NTW n8 column tiles: mma.sync m16n8k16
+//   with A by ldmatrix and B by ldmatrix.trans, one float32 accumulator
+//   per output from zero, k ascending in 16-deep steps. A bf16 WMMA
+//   16x16x16 compiles to the same HMMA.16816 pair, so every sum is the one
+//   table_dot (eval_kernels.cu, WMMA) takes: the per-slot and whole-model
+//   paths stay bit for bit equal. No split-K, no atomics: two calls give
+//   the same bits.
+// - The epilogue rounds each warp's 16-row halves into a per-warp
+//   shared-memory stage; they leave as 16-byte stores into the strided or
+//   image-major view (OutView).
+// Bound by bytes: reading x and writing out (6.3 us at r=64, K=192->128,
+// batch 8). Measured about 2.5x that on an H100 80GB HBM3 at 700 W, where
+// skipping the loads, the prologue, the products or the stores each saves
+// a fifth to a third of the time (tools/gemm_sweep.py --ablate; PERF.md
+// section 6): no one part bounds it.
 // ---------------------------------------------------------------------------
-template <int BN, int WARPS_N, bool BIAS_RELU>
+struct DotPlan {
+  int bm;           // rows per tile: 32 * row warps (128, 64 or 32)
+  int ncol;         // columns per group: 8 * NTW * column warps
+  int ngrp;         // column groups
+  int kp;           // K zero-padded to 16
+  int stages;       // x buffers: 2 or 3
+  int w_bytes;      // the resident weight (kp rows of ncol / 8 chunks)
+  int stage_bytes;  // bytes per x buffer (bm rows at a stride of kp + 8)
+  int out_off;      // the warps' output stages
+};
+
+// The XOR swizzle of a weight row of nt 16-byte chunks: chunk j of row k
+// lands at j ^ ((k >> sh) & mk), so ldmatrix's eight consecutive rows of
+// one chunk fall in eight bank groups (an odd nt needs none).
+__device__ __forceinline__ void dot_swizzle(int nt, int& sh, int& mk) {
+  sh = 0;
+  mk = 0;
+  if (nt % 8 == 0) {
+    mk = 7;
+  } else if (nt % 4 == 0) {
+    sh = 1;
+    mk = 3;
+  } else if (nt % 2 == 0) {
+    sh = 2;
+    mk = 1;
+  }
+}
+
+template <int NTW, bool BIAS>
 __global__ void __launch_bounds__(kThreads)
-    affine_dot_kernel(const bf16* __restrict__ x, long long ldx, long long M,
+    affine_dot_kernel(const bf16* __restrict__ x, long long ldx, int M,
                       int K, const float* __restrict__ inv,
                       const float* __restrict__ shift, long long vstride,
-                      long long tile_rows, int bits,
-                      const bf16* __restrict__ w, int ldw, int N,
-                      const float* __restrict__ bias, OutView out) {
-  using T = Tiles<BN, WARPS_N>;
-  __shared__ Smem<BN, WARPS_N> s;
-  const int warp = threadIdx.x / 32;
-  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-  const long long m0 = (long long)blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
+                      int tile_rows, int bits, const bf16* __restrict__ w,
+                      int ldw, int N, const float* __restrict__ bias,
+                      OutView out, DotPlan p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int SS = NTW * 8 + 8;   // output stage row stride, elements
+  const uint32_t s0 = smem_u32(smem);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm_n = p.bm / 32;
+  const int wm = warp % wm_n, wn = warp / wm_n;
+  const int nt = p.ncol / 8;
+  const int col = blockIdx.x % p.ngrp, n0 = col * p.ncol;
+  const int tiles = (M + p.bm - 1) / p.bm;
+  const int first = blockIdx.x / p.ngrp, stride = gridDim.x / p.ngrp;
+  if (first >= tiles) return;
+  const int Q = (tiles - 1 - first) / stride + 1;
+  const int xs = (p.kp + kHaloPad) * 2;   // x row stride, bytes
+  int sh, mk;
+  dot_swizzle(nt, sh, mk);
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[T::FM][T::FN];
-#pragma unroll
-  for (int i = 0; i < T::FM; ++i)
-#pragma unroll
-    for (int j = 0; j < T::FN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    // A tile with the folded-BN + ReLU prologue in f32, rounded to bf16.
-    for (int c = threadIdx.x; c < BM * BK / 8; c += kThreads) {
-      const int r = c / (BK / 8), kc = (c % (BK / 8)) * 8;
-      const long long m = m0 + r;
-      const int k = k0 + kc;
-      Pack8 o;
-      o.v = make_uint4(0u, 0u, 0u, 0u);
-      if (m < M && k < K) {
-        Pack8 in;
-        in.v = *reinterpret_cast<const uint4*>(x + m * ldx + k);
-        const long long vo = (m / tile_rows) * vstride + k;
-#pragma unroll
-        for (int t = 0; t < 8; ++t)
-          o.u[t] = act(lo(in, t), inv[vo + t], shift[vo + t], bits);
-      }
-      *reinterpret_cast<uint4*>(&s.a[r][kc]) = o.v;
-    }
-    load_b(s, w, ldw, k0, K, n0, N);
-    __syncthreads();
-    mma_stage(s, wm, wn, acc);
-    __syncthreads();
+  for (int i = tid; i < p.kp * nt; i += kThreads) {
+    const int r = i / nt, j = i - r * nt;
+    const int n = n0 + j * 8;
+    const bool ok = r < K && n < N;
+    cp_async16(s0 + (r * nt + (j ^ ((r >> sh) & mk))) * 16,
+               ok ? w + (long long)r * ldw + n : w, ok ? 16 : 0);
   }
-  store_tile<BN, WARPS_N, BIAS_RELU>(s, wm, wn, m0, n0, M, N, bias, out, acc);
+  cp_async_commit();
+  const auto issue = [&](int q) {
+    load_halo(s0 + p.w_bytes + (q % p.stages) * p.stage_bytes, x, ldx, M, K,
+              (first + q * stride) * p.bm, p.bm, 0, p.kp, tid, kThreads);
+    cp_async_commit();
+  };
+  for (int q = 0; q < Q && q < p.stages - 1; ++q) issue(q);
+
+  // this lane's bias values, its ldmatrix coordinates (conv3x3's): A rows
+  // wm*32 + (l & 15) (+16), byte offset (l >> 4) * 16; B weight row
+  // (mat & 1) * 8 + (l & 7) of chunk wn*NTW + 2*jp + (mat >> 1)
+  const int g = lane >> 2, q2 = 2 * (lane & 3);
+  float bv[NTW][2];
+#pragma unroll
+  for (int j = 0; j < NTW; ++j) {
+    const int n = n0 + (wn * NTW + j) * 8 + q2;
+    bv[j][0] = BIAS && n < N ? bias[n] : 0.f;
+    bv[j][1] = BIAS && n < N ? bias[n + 1] : 0.f;
+  }
+  const int b_mat = lane >> 3;
+  const int b_row = (b_mat & 1) * 8 + (lane & 7);
+  const int a_off = (wm * 32 + (lane & 15)) * xs + (lane >> 4) * 16;
+  bf16* stg = reinterpret_cast<bf16*>(smem + p.out_off) + warp * 16 * SS;
+  const int rpi = (int)out.rows_per_img;
+  VecCache vc;
+  vc.lo = vc.hi = 0;
+
+  for (int q = 0; q < Q; ++q) {
+    const int issued = Q < q + p.stages - 1 ? Q : q + p.stages - 1;
+    cp_async_wait_upto(issued - q - 1);
+    __syncthreads();   // tile q (and the weight) landed; tile q-1 is done
+    if (q + p.stages - 1 < Q) issue(q + p.stages - 1);
+    const int m0 = (first + q * stride) * p.bm;
+    const int sb = p.w_bytes + (q % p.stages) * p.stage_bytes;
+    halo_prologue(reinterpret_cast<bf16*>(smem + sb), M, K, m0, p.bm, 0,
+                  p.kp, inv, shift, vstride, tile_rows, bits, tid, kThreads,
+                  vc);
+    __syncthreads();
+
+    float acc[2][NTW][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < NTW; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+    const uint32_t abase = s0 + sb + a_off;
+#pragma unroll 2
+    for (int kk = 0; kk < p.kp / 16; ++kk) {
+      uint32_t a[2][4];
+      ldsm_x4(a[0], abase + kk * 32);
+      ldsm_x4(a[1], abase + 16 * xs + kk * 32);
+      const int kr = kk * 16 + b_row;
+      const uint32_t wrow = s0 + kr * nt * 16;
+      const int sw = (kr >> sh) & mk;
+#pragma unroll
+      for (int jp = 0; jp < NTW / 2; ++jp) {
+        const int j = wn * NTW + 2 * jp + (b_mat >> 1);
+        uint32_t b[4];
+        ldsm_x4_t(b, wrow + (j ^ sw) * 16);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          mma16816(acc[i][2 * jp], a[i], b[0], b[1]);
+          mma16816(acc[i][2 * jp + 1], a[i], b[2], b[3]);
+        }
+      }
+      if (NTW & 1) {
+        uint32_t b0, b1;
+        ldsm_x2_t(b0, b1, wrow + ((wn * NTW + NTW - 1) ^ sw) * 16);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) mma16816(acc[i][NTW - 1], a[i], b0, b1);
+      }
+    }
+
+    // epilogue: each 16-row half rounded into the warp's stage, then out
+    // as 16-byte rows
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int j = 0; j < NTW; ++j) {
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          v[e] = BIAS ? fmaxf(acc[i][j][e] + bv[j][e & 1], 0.f)
+                      : acc[i][j][e];
+        const __nv_bfloat162 lo2 = __floats2bfloat162_rn(v[0], v[1]);
+        const __nv_bfloat162 hi2 = __floats2bfloat162_rn(v[2], v[3]);
+        *reinterpret_cast<__nv_bfloat162*>(stg + g * SS + j * 8 + q2) = lo2;
+        *reinterpret_cast<__nv_bfloat162*>(stg + (g + 8) * SS + j * 8 + q2) =
+            hi2;
+      }
+      __syncwarp();
+      for (int c = lane; c < 16 * NTW; c += 32) {
+        const int r = c / NTW, j = c - r * NTW;
+        const int m = m0 + wm * 32 + i * 16 + r;
+        const int n = n0 + (wn * NTW + j) * 8;
+        if (m < M && n < N) {
+          const int img = m / rpi;   // 32-bit: M < 2^31
+          *reinterpret_cast<uint4*>(out.ptr + img * out.img_stride +
+                                    (m - img * rpi) * out.ld + n) =
+              *reinterpret_cast<const uint4*>(stg + r * SS + j * 8);
+        }
+      }
+      __syncwarp();
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -397,19 +550,21 @@ struct VecArgs {
   int bits;
 };
 
-template <int BN, int WARPS_N>
-void launch_affine_dot(const bf16* x, long long ldx, long long M, int K,
-                       VecArgs v, const bf16* w, int ldw, int N,
-                       const float* bias, OutView out, cudaStream_t stream) {
-  const dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((N + BN - 1) / BN));
-  if (bias)
-    affine_dot_kernel<BN, WARPS_N, true><<<grid, kThreads, 0, stream>>>(
-        x, ldx, M, K, v.inv, v.shift, v.vstride, v.tile_rows, v.bits, w, ldw,
-        N, bias, out);
-  else
-    affine_dot_kernel<BN, WARPS_N, false><<<grid, kThreads, 0, stream>>>(
-        x, ldx, M, K, v.inv, v.shift, v.vstride, v.tile_rows, v.bits, w, ldw,
-        N, bias, out);
+template <int NTW>
+int launch_affine_dot(const bf16* x, long long ldx, int M, int K, VecArgs v,
+                      const bf16* w, int ldw, int N, const float* bias,
+                      OutView out, const DotPlan& p, int smem,
+                      cudaStream_t st) {
+  const int items = (M + p.bm - 1) / p.bm * p.ngrp;
+  auto kern = bias ? affine_dot_kernel<NTW, true>
+                   : affine_dot_kernel<NTW, false>;
+  int grid = 0;
+  const int e = persistent_grid(kern, items, kThreads, smem, p.ngrp, &grid);
+  if (e) return e;
+  kern<<<grid, kThreads, smem, st>>>(x, ldx, M, K, v.inv, v.shift,
+                                     v.vstride, (int)v.tile_rows, v.bits, w,
+                                     ldw, N, bias, out, p);
+  return (int)cudaGetLastError();
 }
 
 template <int NT>
@@ -437,24 +592,29 @@ int cunet_affine_dot(const void* x, long long ldx, long long M, int K,
                      const void* inv, const void* shift, long long vstride,
                      long long tile_rows, int bits, const void* w, int ldw,
                      int N, const void* bias, void* out, long long ldo,
-                     long long rows_per_img, long long img_stride,
+                     long long rows_per_img, long long img_stride, int bm,
+                     int ncol, int ngrp, int ntw, int kp, int stages,
+                     int w_bytes, int stage_bytes, int out_off, int smem,
                      void* stream) {
   const OutView ov{static_cast<bf16*>(out), ldo, rows_per_img, img_stride};
   const VecArgs v{static_cast<const float*>(inv),
                   static_cast<const float*>(shift), vstride, tile_rows, bits};
+  const DotPlan p{bm, ncol, ngrp, kp, stages, w_bytes, stage_bytes, out_off};
   const auto* xp = static_cast<const bf16*>(x);
   const auto* wp = static_cast<const bf16*>(w);
   const auto* bp = static_cast<const float*>(bias);
   const auto st = static_cast<cudaStream_t>(stream);
-  if (N <= 16)
-    launch_affine_dot<16, 1>(xp, ldx, M, K, v, wp, ldw, N, bp, ov, st);
-  else if (N <= 32)
-    launch_affine_dot<32, 2>(xp, ldx, M, K, v, wp, ldw, N, bp, ov, st);
-  else if (N <= 64)
-    launch_affine_dot<64, 2>(xp, ldx, M, K, v, wp, ldw, N, bp, ov, st);
-  else
-    launch_affine_dot<128, 2>(xp, ldx, M, K, v, wp, ldw, N, bp, ov, st);
-  return (int)cudaGetLastError();
+  const int m = (int)M;
+  switch (ntw) {
+#define CUNET_DOT_NTW(n)                                                    \
+  case n:                                                                   \
+    return launch_affine_dot<n>(xp, ldx, m, K, v, wp, ldw, N, bp, ov, p,    \
+                                smem, st);
+    CUNET_DOT_NTW(1) CUNET_DOT_NTW(2) CUNET_DOT_NTW(3) CUNET_DOT_NTW(4)
+    CUNET_DOT_NTW(5) CUNET_DOT_NTW(6) CUNET_DOT_NTW(7) CUNET_DOT_NTW(8)
+#undef CUNET_DOT_NTW
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 int cunet_conv3x3(const void* y, long long ldy, long long M, int H, int W,

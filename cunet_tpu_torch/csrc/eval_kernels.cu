@@ -37,7 +37,9 @@
 //
 // Bound on the H100 by bytes, not by the tensor cores: K=192 -> 2 x 128 at
 // M = 32,768 does ~109 flop per byte moved, against ~295 the card can do.
-// Design: affine_dot's (buf_kernels.cu): 128-row block tiles over the full N,
+// Design: the first, WMMA design of affine_dot (which has since moved to
+// persistent mma.sync blocks that sum in the same order, so the two
+// kernels agree bit for bit): 128-row block tiles over the full N,
 // the prologue in float32 registers between the 16-byte global load and the
 // bf16 shared-memory tile, WMMA with float32 accumulators. The dual form
 // builds both prologues from one load. The upsample remaps each thread's

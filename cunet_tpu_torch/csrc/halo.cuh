@@ -1,11 +1,11 @@
 // Pieces shared by the tensor-core kernels: the three 3x3-conv kernels,
 // conv3x3 (buf_kernels.cu), conv3x3_dx and conv3x3_dw (train_kernels.cu),
-// #7's bwd_reduce (bottleneck_kernels.cu), and the 1x1 weight gradient
-// affine_dw and the BN backward bn_bwd (train_kernels.cu): asynchronous
-// copies into
-// shared memory (cp.async), ldmatrix loads of 8x8 bf16 tiles, the m16n8k16
-// bf16 tensor-core product (mma.sync), the halo tile the conv kernels
-// stage, and the launch of a persistent kernel.
+// #7's bwd_reduce (bottleneck_kernels.cu), and the 1x1 kernels affine_dot
+// (buf_kernels.cu), affine_dx and affine_dw and the BN backward bn_bwd
+// (train_kernels.cu): asynchronous copies into shared memory (cp.async),
+// ldmatrix loads of 8x8 bf16 tiles, the m16n8k16 bf16 tensor-core product
+// (mma.sync), the halo tile the conv kernels stage, and the launch of a
+// persistent kernel.
 //
 // A halo tile holds rows [g0, g0 + rows) of an (M, C) bf16 channel-plane
 // matrix, channels [c0, c0 + kc), at a row stride of kc + kHaloPad
@@ -18,7 +18,8 @@
 // outside the image (the SAME padding, and every border between two
 // images flattened into one tile) reads a zero row instead: each lane of
 // an ldmatrix gives its own row address, so the padding costs no
-// branch in the product and no padded copy in memory.
+// branch in the product and no padded copy in memory. The 1x1 kernels
+// stage their row tiles the same way, with no halo (g0 = m0).
 
 #pragma once
 
@@ -89,6 +90,13 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
       : "r"(addr));
 }
 
+__device__ __forceinline__ void ldsm_x2(uint32_t& r0, uint32_t& r1,
+                                        uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(addr));
+}
+
 __device__ __forceinline__ void ldsm_x2_t(uint32_t& r0, uint32_t& r1,
                                           uint32_t addr) {
   asm volatile(
@@ -144,18 +152,19 @@ struct VecCache {
   float a[8], b[8];
 };
 
-// The ghost-BN prologue on a landed halo tile, in place: every element of
-// a row in [0, M) and a channel below C becomes
-// act(x, inv[t, c], shift[t, c], bits) with t the BN tile of its row, once
-// per element. Zero-filled channel padding stays zero. Each thread keeps
-// one 8-channel vector and walks rows, so its inv/shift values are
-// reloaded only where the BN tile changes; a caller that passes the same
-// ``vc`` to every call of a thread keeps them across tiles too.
-__device__ __forceinline__ void halo_prologue(
+// ``f`` on a landed halo tile, in place: every 8-channel vector of a row
+// in [0, M) below channel C becomes f(v, inv[t, c..c+8], shift[t, c..c+8])
+// with t the BN tile of its row, once per vector. Zero-filled channel
+// padding stays zero. Each thread keeps one 8-channel vector and walks
+// rows, so its inv/shift values are reloaded only where the BN tile
+// changes; a caller that passes the same ``vc`` to every call of a thread
+// keeps them across tiles too.
+template <typename F>
+__device__ __forceinline__ void halo_map(
     bf16* s, int M, int C, int g0, int rows, int c0, int kc,
     const float* __restrict__ inv, const float* __restrict__ shift,
-    long long vstride, int tile_rows, int bits, int tid, int nthr,
-    VecCache& vc) {
+    long long vstride, int tile_rows, int tid, int nthr, VecCache& vc,
+    F f) {
   const int vecs = kc / 8;
   const int stripes = nthr / vecs;
   const int v = tid % vecs, r0 = tid / vecs;
@@ -177,8 +186,24 @@ __device__ __forceinline__ void halo_prologue(
       vc.hi = vc.lo + tile_rows;
     }
     uint4* p = reinterpret_cast<uint4*>(s + r * (kc + kHaloPad) + v * 8);
-    *p = act8(*p, vc.a, vc.b, bits);
+    *p = f(*p, vc.a, vc.b);
   }
+}
+
+// The ghost-BN prologue on a landed halo tile, in place: every element of
+// a row in [0, M) and a channel below C becomes
+// act(x, inv[t, c], shift[t, c], bits) with t the BN tile of its row
+// (halo_map).
+__device__ __forceinline__ void halo_prologue(
+    bf16* s, int M, int C, int g0, int rows, int c0, int kc,
+    const float* __restrict__ inv, const float* __restrict__ shift,
+    long long vstride, int tile_rows, int bits, int tid, int nthr,
+    VecCache& vc) {
+  halo_map(s, M, C, g0, rows, c0, kc, inv, shift, vstride, tile_rows, tid,
+           nthr, vc,
+           [bits](uint4 x, const float(&a)[8], const float(&b)[8]) {
+             return act8(x, a, b, bits);
+           });
 }
 
 __device__ __forceinline__ void halo_prologue(
@@ -201,13 +226,13 @@ __device__ __forceinline__ int tap_row(int r, int yy, int xx, bool in_range,
   return r + W + 1 + dy * W + dx;
 }
 
-// Launch a persistent kernel on at most as many blocks as fit on the card
-// at once (never more than ``items``), with ``smem`` bytes of dynamic shared
-// memory. The result does not depend on the grid: an item is computed the
-// same way by whichever block takes it.
-template <typename Kernel, typename... Args>
-int launch_persistent(Kernel kern, int items, int threads, int smem,
-                      cudaStream_t st, Args... args) {
+// The grid of a persistent kernel: as many blocks as fit on the card at
+// once (never more than ``items``), cut down to a multiple of ``multiple``
+// (a kernel whose blocks keep one of ``multiple`` column groups each).
+// Returns a CUDA error code, 0 on success.
+template <typename Kernel>
+int persistent_grid(Kernel kern, int items, int threads, int smem,
+                    int multiple, int* grid) {
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
@@ -218,7 +243,22 @@ int launch_persistent(Kernel kern, int items, int threads, int smem,
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
-  const int grid = items < per_sm * nsm ? items : per_sm * nsm;
+  int g = items < per_sm * nsm ? items : per_sm * nsm;
+  g -= g % multiple;
+  *grid = g > 0 ? g : multiple;
+  return 0;
+}
+
+// Launch a persistent kernel on at most as many blocks as fit on the card
+// at once (never more than ``items``), with ``smem`` bytes of dynamic shared
+// memory. The result does not depend on the grid: an item is computed the
+// same way by whichever block takes it.
+template <typename Kernel, typename... Args>
+int launch_persistent(Kernel kern, int items, int threads, int smem,
+                      cudaStream_t st, Args... args) {
+  int grid = 0;
+  const int e = persistent_grid(kern, items, threads, smem, 1, &grid);
+  if (e) return e;
   kern<<<grid, threads, smem, st>>>(args...);
   return (int)cudaGetLastError();
 }

@@ -7,8 +7,8 @@
 // library with a plain C interface, loaded with ctypes
 // (cunet_tpu_torch/kernels/build.py).
 //
-// All three are the 128-row block tiling of buf_kernels.cu with int8
-// operands: 16x16x16 int8 WMMA fragments, int32 accumulators, a float32
+// All three are the first, 128-row block tiling of affine_dot
+// (buf_kernels.cu, since redesigned) with int8 operands: 16x16x16 int8 WMMA fragments, int32 accumulators, a float32
 // epilogue in registers. Integer products accumulate exactly in any order,
 // the quantizer scale s = 2^(bits_i-1) is a power of two, and every float
 // rounding point matches the plain PyTorch version's (the BN affine rounds

@@ -369,83 +369,183 @@ __global__ void __launch_bounds__(kBnThreads, 1)
 // B1 affine_dx: the activation-gradient GEMM of a 1x1 stage, masked by its
 // ReLU.
 //   out[m, k] = [x[m,k]*inv[t,k] + shift[t,k] > 0] * sum_n dY[m, n] W[k, n]
-// with W the (K, N) weight, read transposed. The ReLU mask is recomputed
-// from the stage input x with the forward's f32 prologue, so d_a never
-// needs the forward's activations. With ste (QuanInput's straight-through
+// with W the (K, N) weight as it lies. The ReLU mask is recomputed from the
+// stage input x with the forward's f32 prologue, so d_a never needs the
+// forward's activations. With STE (QuanInput's straight-through
 // estimator) the gate also needs the bf16 activation below 1: 0 < z < 1,
 // z the value the quantizer read.
+//
+// Design (the plan is the wrapper's, kernels/train_ops.py::
+// affine_dx_plan): affine_dot's (buf_kernels.cu) on dY.
+// - Persistent blocks of 8 warps, each keeping one block of kc output
+//   columns (K cut into equal blocks of at most 64: 192 is 3 x 64, no idle
+//   part of a block); on the main path tiles of 64 rows and two buffers
+//   let two blocks share an SM. For g = dY W^T the B operand needs each
+//   output column's N values contiguous: the block's kc rows of W as they
+//   lie, loaded once by cp.async at a row stride of an odd number of
+//   16-byte chunks and read by ldmatrix without .trans (no transpose, no
+//   per-step scatter).
+// - A tile's dY rows and its x rows (kc channels, for the gate) arrive by
+//   cp.async, two or three stages deep. The gate is taken once per element
+//   in shared memory (halo.cuh's halo_map, the BN vectors in registers
+//   across tiles), x replaced by its mask.
+// - Warp (wm, wn) owns 32 rows and NTW n8 column tiles: mma.sync m16n8k16,
+//   the float32 sums in registers; a lane pair swaps halves (one shuffle a
+//   value) so each lane holds four consecutive columns of one row, masks
+//   them with the staged gate and writes one 16-byte float32 vector.
+// Bound by bytes: reading dY and x, writing the float32 result (41.3 us at
+// r=64, K=192, N=128, batch 24); measured about 1.7x that on an H100 80GB
+// HBM3 at 700 W (PERF.md section 6).
 // ---------------------------------------------------------------------------
-template <int BN, int WARPS_N>
+struct AffineDxPlan {
+  int bm;           // rows per tile: 32 * row warps (128, 64 or 32)
+  int kc;           // output columns per block: 8 * NTW * column warps
+  int nkb;          // column blocks
+  int np;           // N zero-padded to 16
+  int stages;       // buffers: 2 or 3
+  int w_bytes;      // the block's weight rows: kc at a stride of np + 8
+  int dy_bytes;     // a buffer's dY rows (bm at np + 8); its x rows follow
+  int stage_bytes;  // bytes per buffer
+};
+
+// The backward's gate of eight packed x values: 0xffff where it passes.
+__device__ __forceinline__ uint4 gate8(uint4 in, const float (&a)[8],
+                                       const float (&b)[8], bool ste) {
+  Pack8 i, o;
+  i.v = in;
+#pragma unroll
+  for (int q = 0; q < 8; ++q) {
+    const float z = affine(lo(i, q), a[q], b[q]);
+    o.u[q] = z > 0.f && (!ste || bf16r(z) < 1.f) ? 0xffffu : 0u;
+  }
+  return o.v;
+}
+
+template <int NTW, bool STE>
 __global__ void __launch_bounds__(kThreads)
-    dx_kernel(const bf16* __restrict__ dy, long long ldd, long long M, int N,
+    dx_kernel(const bf16* __restrict__ dy, long long ldd, int M, int N,
               const bf16* __restrict__ w, int ldw, int K,
               const bf16* __restrict__ x, long long ldx,
               const float* __restrict__ inv, const float* __restrict__ shift,
-              long long vstride, long long tile_rows, int ste,
-              float* __restrict__ out, long long ldo) {
-  using T = Tiles<BN, WARPS_N>;
-  __shared__ Smem<BN, WARPS_N> s;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-  const long long m0 = (long long)blockIdx.x * BM;
-  const int k0 = blockIdx.y * BN;
+              long long vstride, int tile_rows, float* __restrict__ out,
+              long long ldo, AffineDxPlan p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t s0 = smem_u32(smem);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm_n = p.bm / 32;
+  const int wm = warp % wm_n, wn = warp / wm_n;
+  const int cb = blockIdx.x % p.nkb, k0 = cb * p.kc;
+  const int tiles = (M + p.bm - 1) / p.bm;
+  const int first = blockIdx.x / p.nkb, stride = gridDim.x / p.nkb;
+  if (first >= tiles) return;
+  const int Q = (tiles - 1 - first) / stride + 1;
+  const int ws = (p.np + kHaloPad) * 2;   // weight and dY row stride, bytes
+  const int xs = p.kc + kHaloPad;         // x (gate) row stride, elements
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[T::FM][T::FN];
-#pragma unroll
-  for (int i = 0; i < T::FM; ++i)
-#pragma unroll
-    for (int j = 0; j < T::FN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int n0 = 0; n0 < N; n0 += BK) {
-    for (int c = threadIdx.x; c < BM * BK / 8; c += kThreads) {
-      const int r = c / (BK / 8), nc = (c % (BK / 8)) * 8;
-      const long long m = m0 + r;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (m < M && n0 + nc < N)
-        v = *reinterpret_cast<const uint4*>(dy + m * ldd + n0 + nc);
-      *reinterpret_cast<uint4*>(&s.a[r][nc]) = v;
-    }
-    // B[kk][col] = W[k0 + col, n0 + kk]: 8 consecutive n of one weight row
-    // per thread, scattered down a shared-memory column
-    for (int c = threadIdx.x; c < BN * BK / 8; c += kThreads) {
-      const int col = c / (BK / 8), kc = (c % (BK / 8)) * 8;
-      const int k = k0 + col, n = n0 + kc;
-      Pack8 p;
-      p.v = make_uint4(0u, 0u, 0u, 0u);
-      if (k < K && n < N)
-        p.v = *reinterpret_cast<const uint4*>(w + (long long)k * ldw + n);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) s.b[kc + i][col] = __ushort_as_bfloat16(p.u[i]);
-    }
-    __syncthreads();
-    mma_stage(s, wm, wn, acc);
-    __syncthreads();
+  // the weight's rows k0 .. k0 + kc, zero past K and N
+  const int wv = p.np / 8;
+  for (int i = tid; i < p.kc * wv; i += kThreads) {
+    const int r = i / wv, v = i - r * wv;
+    const int k = k0 + r, n = v * 8;
+    const bool ok = k < K && n < N;
+    cp_async16(s0 + r * ws + v * 16, ok ? w + (long long)k * ldw + n : w,
+               ok ? 16 : 0);
   }
+  cp_async_commit();
+  const auto issue = [&](int q) {
+    const int m0 = (first + q * stride) * p.bm;
+    const uint32_t base = s0 + p.w_bytes + (q % p.stages) * p.stage_bytes;
+    load_halo(base, dy, ldd, M, N, m0, p.bm, 0, p.np, tid, kThreads);
+    load_halo(base + p.dy_bytes, x, ldx, M, K, m0, p.bm, k0, p.kc, tid,
+              kThreads);
+    cp_async_commit();
+  };
+  for (int q = 0; q < Q && q < p.stages - 1; ++q) issue(q);
 
-  float* st = s.stage[warp];
-  const int r = lane / 2, cc = (lane % 2) * 8;
+  // ldmatrix lane coordinates: A (dY) rows wm*32 + (l & 15) (+16), byte
+  // offset (l >> 4) * 16; B (W rows) row (mat >> 1) * 8 + (l & 7) of the
+  // n8 tile pair, byte offset (mat & 1) * 16
+  const int mat = lane >> 3;
+  const int a_off = (wm * 32 + (lane & 15)) * ws + (lane >> 4) * 16;
+  const uint32_t b_base =
+      s0 + (wn * NTW * 8 + (mat >> 1) * 8 + (lane & 7)) * ws + (mat & 1) * 16;
+  const int g = lane >> 2, q4 = lane & 3;
+  const bool odd = q4 & 1;
+  VecCache vc;
+  vc.lo = vc.hi = 0;
+
+  for (int q = 0; q < Q; ++q) {
+    const int issued = Q < q + p.stages - 1 ? Q : q + p.stages - 1;
+    cp_async_wait_upto(issued - q - 1);
+    __syncthreads();   // tile q (and the weight) landed; tile q-1 is done
+    if (q + p.stages - 1 < Q) issue(q + p.stages - 1);
+    const int m0 = (first + q * stride) * p.bm;
+    const int sb = p.w_bytes + (q % p.stages) * p.stage_bytes;
+    bf16* gate = reinterpret_cast<bf16*>(smem + sb + p.dy_bytes);
+    halo_map(gate, M, K, m0, p.bm, k0, p.kc, inv, shift, vstride, tile_rows,
+             tid, kThreads, vc,
+             [](uint4 v, const float(&a)[8], const float(&b)[8]) {
+               return gate8(v, a, b, STE);
+             });
+    __syncthreads();
+
+    float acc[2][NTW][4];
 #pragma unroll
-  for (int i = 0; i < T::FM; ++i) {
+    for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < T::FN; ++j) {
-      wmma::store_matrix_sync(st, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const long long m = m0 + wm * T::WM + i * 16 + r;
-      const int k = k0 + wn * T::WN + j * 16 + cc;
-      if (m < M && k < K) {
-        Pack8 xv;
-        xv.v = *reinterpret_cast<const uint4*>(x + m * ldx + k);
-        const long long vo = (m / tile_rows) * vstride + k;
-        float o[8];
+      for (int j = 0; j < NTW; ++j)
 #pragma unroll
-        for (int q = 0; q < 8; ++q) {
-          const float z = affine(lo(xv, q), inv[vo + q], shift[vo + q]);
-          const bool pass = z > 0.f && (!ste || bf16r(z) < 1.f);
-          o[q] = pass ? st[r * 16 + cc + q] : 0.f;
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+    const uint32_t abase = s0 + sb + a_off;
+#pragma unroll 2
+    for (int kk = 0; kk < p.np / 16; ++kk) {
+      uint32_t a[2][4];
+      ldsm_x4(a[0], abase + kk * 32);
+      ldsm_x4(a[1], abase + 16 * ws + kk * 32);
+#pragma unroll
+      for (int jp = 0; jp < NTW / 2; ++jp) {
+        uint32_t b[4];
+        ldsm_x4(b, b_base + jp * 16 * ws + kk * 32);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          mma16816(acc[i][2 * jp], a[i], b[0], b[1]);
+          mma16816(acc[i][2 * jp + 1], a[i], b[2], b[3]);
         }
-        store8f(out + m * ldo + k, o);
       }
-      __syncwarp();
+      if (NTW & 1) {
+        uint32_t b0, b1;
+        ldsm_x2(b0, b1, s0 + ((wn * NTW + NTW - 1) * 8 + (lane & 7)) * ws +
+                            (mat & 1) * 16 + kk * 32);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) mma16816(acc[i][NTW - 1], a[i], b0, b1);
+      }
+    }
+
+    // epilogue: lane pairs swap so an even lane holds row g, columns
+    // 2q..2q+3 and an odd lane row g+8, columns 2(q-1)..; the staged gate
+    // masks them and each lane writes one float4
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = wm * 32 + i * 16 + g + (odd ? 8 : 0);
+      const int m = m0 + r;
+#pragma unroll
+      for (int j = 0; j < NTW; ++j) {
+        const float* c = acc[i][j];
+        const float t0 = __shfl_xor_sync(0xffffffffu, odd ? c[0] : c[2], 1);
+        const float t1 = __shfl_xor_sync(0xffffffffu, odd ? c[1] : c[3], 1);
+        const int kl = (wn * NTW + j) * 8 + 2 * (q4 & 2);
+        const int k = k0 + kl;
+        if (m < M && k < K) {
+          float4 v = odd ? make_float4(t0, t1, c[2], c[3])
+                         : make_float4(c[0], c[1], t0, t1);
+          const uint2 gm = *reinterpret_cast<const uint2*>(gate + r * xs + kl);
+          v.x = gm.x & 0xffffu ? v.x : 0.f;
+          v.y = gm.x >> 16 ? v.y : 0.f;
+          v.z = gm.y & 0xffffu ? v.z : 0.f;
+          v.w = gm.y >> 16 ? v.w : 0.f;
+          *reinterpret_cast<float4*>(out + (long long)m * ldo + k) = v;
+        }
+      }
     }
   }
 }
@@ -1276,14 +1376,20 @@ struct VecArgs {
   int bits;  // QuanInput bits of a dw prologue, or the ste flag of a dx
 };
 
-template <int BN, int WARPS_N>
-void launch_dx(const bf16* dy, long long ldd, long long M, int N,
-               const bf16* w, int ldw, int K, const bf16* x, long long ldx,
-               VecArgs v, float* out, long long ldo, cudaStream_t st) {
-  const dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((K + BN - 1) / BN));
-  dx_kernel<BN, WARPS_N><<<grid, kThreads, 0, st>>>(
-      dy, ldd, M, N, w, ldw, K, x, ldx, v.inv, v.shift, v.vstride,
-      v.tile_rows, v.bits, out, ldo);
+template <int NTW>
+int launch_dx(const bf16* dy, long long ldd, int M, int N, const bf16* w,
+              int ldw, int K, const bf16* x, long long ldx, VecArgs v,
+              float* out, long long ldo, const AffineDxPlan& p, int smem,
+              cudaStream_t st) {
+  const int items = (M + p.bm - 1) / p.bm * p.nkb;
+  auto kern = v.bits ? dx_kernel<NTW, true> : dx_kernel<NTW, false>;
+  int grid = 0;
+  const int e = persistent_grid(kern, items, kThreads, smem, p.nkb, &grid);
+  if (e) return e;
+  kern<<<grid, kThreads, smem, st>>>(dy, ldd, M, N, w, ldw, K, x, ldx, v.inv,
+                                     v.shift, v.vstride, (int)v.tile_rows,
+                                     out, ldo, p);
+  return (int)cudaGetLastError();
 }
 
 template <int NTW, int WN>
@@ -1395,23 +1501,28 @@ int cunet_dx(const void* dy, long long ldd, long long M, int N,
              const void* w, int ldw, int K, const void* x,
              long long ldx, const void* inv, const void* shift,
              long long vstride, long long tile_rows, int ste, void* out,
-             long long ldo, void* stream) {
+             long long ldo, int bm, int kc, int nkb, int ntw, int np,
+             int stages, int w_bytes, int dy_bytes, int stage_bytes,
+             int smem, void* stream) {
   const VecArgs v{static_cast<const float*>(inv),
                   static_cast<const float*>(shift), vstride, tile_rows, ste};
+  const AffineDxPlan p{bm, kc, nkb, np, stages, w_bytes, dy_bytes,
+                       stage_bytes};
   const auto* dp = static_cast<const bf16*>(dy);
   const auto* wp = static_cast<const bf16*>(w);
   const auto* xp = static_cast<const bf16*>(x);
   auto* op = static_cast<float*>(out);
   const auto st = static_cast<cudaStream_t>(stream);
-  if (K <= 16)
-    launch_dx<16, 1>(dp, ldd, M, N, wp, ldw, K, xp, ldx, v, op, ldo, st);
-  else if (K <= 32)
-    launch_dx<32, 2>(dp, ldd, M, N, wp, ldw, K, xp, ldx, v, op, ldo, st);
-  else if (K <= 64)
-    launch_dx<64, 2>(dp, ldd, M, N, wp, ldw, K, xp, ldx, v, op, ldo, st);
-  else
-    launch_dx<128, 2>(dp, ldd, M, N, wp, ldw, K, xp, ldx, v, op, ldo, st);
-  return (int)cudaGetLastError();
+  const int m = (int)M;
+  switch (ntw) {
+#define CUNET_DX1_NTW(n)                                                 \
+  case n:                                                                \
+    return launch_dx<n>(dp, ldd, m, N, wp, ldw, K, xp, ldx, v, op, ldo, p, \
+                        smem, st);
+    CUNET_DX1_NTW(1) CUNET_DX1_NTW(2) CUNET_DX1_NTW(3) CUNET_DX1_NTW(4)
+#undef CUNET_DX1_NTW
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 int cunet_conv3x3_dx(const void* dy, long long ldd, long long M, int H,

@@ -24,6 +24,7 @@ concat, no staging copy).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -58,9 +59,9 @@ def _check_view(t: torch.Tensor, name: str) -> None:
 
 
 def _check_rows(m: int) -> None:
-    """The 3x3-conv kernels index rows with 32-bit integers."""
+    """The tensor-core kernels index rows with 32-bit integers."""
     if m >= 2 ** 31:
-        raise ValueError(f"{m} rows: the conv kernels take fewer than 2^31")
+        raise ValueError(f"{m} rows: the kernels take fewer than 2^31")
 
 
 def _check_vec(t: torch.Tensor, name: str, width: int) -> None:
@@ -158,6 +159,120 @@ def affine_dot_plain(x, vec, w, out, bias=None, bits_i=0, scale=None):
     return out
 
 
+# Shared memory one block may hold on the H100 (227 KB).
+SMEM_LIMIT = 232_448
+# affine_dot: warps of a block and rows a warp owns (csrc/buf_kernels.cu,
+# kThreads / 32 and two m16 tiles), and the items (row tile, column group)
+# its plan aims at before it takes a smaller row tile or splits N: about
+# one per SM of the card's 132, a constant, so the plan depends on the
+# shapes alone
+DOT_WARPS = 8
+DOT_WARP_ROWS = 32
+DOT_ITEMS = 132
+DOT_MAX_NTW = 8     # n8 column tiles a warp (the kernel's instantiations)
+# Two blocks on one SM: each within half the H100's 228 KB of shared
+# memory (less the 1 KB the card keeps for each block) and at most four
+# n8 tiles a warp (<= 128 registers a thread), so that one block's loads,
+# prologue and epilogue run under the other's products
+SMEM_PAIR = 115_712
+PAIR_NTW = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class DotPlan:
+    """How ``affine_dot``'s kernel cuts an (m, K) -> (m, N) product: row
+    tiles of ``bm`` rows (``row_warps`` warps of ``DOT_WARP_ROWS`` rows),
+    N in ``ngrp`` groups of ``ncol`` columns (``col_warps`` warps of
+    ``ntw`` n8 tiles; columns past N are zero weights and are not stored),
+    K zero-padded to ``kp``; the weight group resident (``w_bytes``), x
+    tiles in ``stages`` buffers of ``stage_bytes`` (rows at a stride of
+    kp + 8), then the warps' 16-row output stages at ``out_off``; ``smem``
+    bytes in all."""
+    bm: int
+    ncol: int
+    ngrp: int
+    ntw: int
+    kp: int
+    stages: int
+    w_bytes: int
+    stage_bytes: int
+    out_off: int
+    smem: int
+
+    @property
+    def row_warps(self) -> int:
+        return self.bm // DOT_WARP_ROWS
+
+    @property
+    def col_warps(self) -> int:
+        return DOT_WARPS // self.row_warps
+
+    def tiles(self, m: int) -> int:
+        return -(-m // self.bm)
+
+    def items(self, m: int) -> int:
+        return self.tiles(m) * self.ngrp
+
+
+def _dot_layout(bm, k, n, split, stages=(3, 2), limit=SMEM_LIMIT):
+    """The layout of row tiles of ``bm`` and N cut into ``split`` groups,
+    the first count of x buffers of ``stages`` that fits in ``limit``
+    bytes; None where none does."""
+    wn = DOT_WARPS // (bm // DOT_WARP_ROWS)
+    ncol = _up(-(-n // split), 8 * wn)
+    ntw = ncol // (8 * wn)
+    if ntw > DOT_MAX_NTW:
+        return None
+    kp = _up(k, 16)
+    w_bytes = _up(kp * ncol * 2, 128)
+    stage_bytes = _up(bm * (kp + 8) * 2, 128)
+    out_bytes = DOT_WARPS * 16 * (ntw * 8 + 8) * 2
+    for s in stages:
+        out_off = w_bytes + s * stage_bytes
+        if out_off + out_bytes <= limit:
+            return DotPlan(bm=bm, ncol=ncol, ngrp=-(-n // ncol), ntw=ntw,
+                           kp=kp, stages=s, w_bytes=w_bytes,
+                           stage_bytes=stage_bytes, out_off=out_off,
+                           smem=out_off + out_bytes)
+    return None
+
+
+def _pair(p) -> bool:
+    return p.smem <= SMEM_PAIR and p.ntw <= PAIR_NTW
+
+
+@functools.lru_cache(maxsize=None)
+def affine_dot_plan(m: int, k: int, n: int) -> DotPlan:
+    """The kernel plan of ``affine_dot`` at these shapes (a function of them
+    alone). N in the fewest groups of at most 128 columns; the larger row
+    tile of 128, 64 that gives ``DOT_ITEMS`` items with a layout of two x
+    buffers that runs two blocks an SM (``SMEM_PAIR``: 64-row tiles at K
+    <= 192, N = 128); else the largest of 128, 64, 32 whose layout fits
+    alone, three buffers where they fit; else the same with N split in
+    twice as many groups; else the plan of the most items. (A third buffer
+    at one block an SM, 32-row tiles and N split were slower at r=64:
+    ``tools/gemm_sweep.py``, PERF.md section 6.) Cached: a forward asks
+    for the same few shapes hundreds of times, and the host's time per
+    launch bounds the small-batch forward."""
+    best = None
+    groups = -(-n // 128)
+    for split in (groups, 2 * groups):
+        for limit, stages, tiles in ((SMEM_PAIR, (2,), (128, 64)),
+                                     (SMEM_LIMIT, (3, 2), (128, 64, 32))):
+            for bm in tiles:
+                p = _dot_layout(bm, k, n, split, stages, limit)
+                if p is None or (limit == SMEM_PAIR and not _pair(p)):
+                    continue
+                if p.items(m) >= DOT_ITEMS:
+                    return p
+                if best is None or p.items(m) > best.items(m):
+                    best = p
+    if best is None:
+        raise ValueError(f"affine_dot: no tiling of K={k}, N={n} fits "
+                         f"{SMEM_LIMIT} bytes of shared memory")
+    return best
+
+
 def affine_dot(x, vec, w, out, *, bias=None, bits_i=0):
     """``out = epi(relu(x * vec[0] + vec[1]) @ w[:K])`` for x (M, K).
 
@@ -172,12 +287,21 @@ def affine_dot(x, vec, w, out, *, bias=None, bits_i=0):
     (``quantize_act``) before the product: the quantized train head.
 
     Replaces ``cunet_tpu/kernels/fused_model_buf.py::_affine_dot`` and
-    ``fused_hourglass.py::_bottleneck_val``. Bound on the H100 by reading x
-    and writing out (K <= 320, N <= 128 is at most ~91 flop/byte). Design:
-    128-row block tiles over the full N (x is read once), the prologue in
-    f32 registers between the 16-byte global load and the bf16 shared-memory
-    tile, bf16 WMMA with f32 accumulators, the epilogue in f32 before one
-    bf16 rounding, and 16-byte stores straight into the buffer slot.
+    ``fused_hourglass.py::_bottleneck_val``, and with per-tile vectors
+    ``train_slot.py::_norm_relu`` + ``_dot``. Bound on the H100 by reading
+    x and writing out (K <= 320, N <= 128 is at most ~91 flop/byte).
+    Design (``csrc/buf_kernels.cu``, plan ``affine_dot_plan``): persistent
+    blocks keep one column group's weight prefix in shared memory (loaded
+    once, by cp.async, under a 16-byte swizzle) and walk row tiles of up
+    to 128 rows (64 on the main path, two blocks an SM) whose x rows
+    arrive by cp.async one or two tiles ahead; the BN + ReLU prologue (and
+    quantizer) runs once per element in shared memory from BN vectors
+    kept in registers; mma.sync m16n8k16 through
+    ldmatrix sums each output from zero in ascending 16-deep k steps, the
+    order ``eval_ops.table_dot``'s WMMA takes, so the whole-model and
+    per-slot paths agree bit for bit; the epilogue in f32 before one bf16
+    rounding, staged per warp and written as 16-byte rows straight into
+    the buffer slot. PERF.md section 6 has its times on the H100.
     """
     m, k = x.shape
     n = w.shape[1]
@@ -198,13 +322,16 @@ def affine_dot(x, vec, w, out, *, bias=None, bits_i=0):
     _check_vec(vec, "vec", k)
     if bias is not None:
         _check_vec(bias, "bias", n)
+    _check_rows(m)
     _, rows_per_img, img_stride, ldo = _rows(out)
     inv, shift, vstride, tile_rows = _vec_args(vec, m, k)
-    lib = build.lib()
-    code = lib.cunet_affine_dot(
+    p = affine_dot_plan(m, k, n)
+    code = build.lib().cunet_affine_dot(
         x.data_ptr(), x.stride(0), m, k, inv, shift, vstride, tile_rows,
         bits_i, w.data_ptr(), n, n, 0 if bias is None else bias.data_ptr(),
-        out.data_ptr(), ldo, rows_per_img, img_stride, _stream(x))
+        out.data_ptr(), ldo, rows_per_img, img_stride, p.bm, p.ncol, p.ngrp,
+        p.ntw, p.kp, p.stages, p.w_bytes, p.stage_bytes, p.out_off, p.smem,
+        _stream(x))
     build.check(code, "affine_dot")
     affine_dot.launches += 1
     affine_dot.option_launches += bits_i > 0
@@ -232,11 +359,9 @@ def conv3x3_plain(y, w3p, b, h, w, out, vec=None, bits_i=0):
     return out
 
 
-# Shared memory one block may hold on the H100 (227 KB), and the tile count
-# the forward aims for before it takes a smaller row tile: about one tile
-# per SM of the card's 132, a constant, so the plan (and the order of every
-# sum) depends on the shapes alone.
-SMEM_LIMIT = 232_448
+# The tile count conv3x3 aims for before it takes a smaller row tile: about
+# one tile per SM of the card's 132, a constant, so the plan (and the order
+# of every sum) depends on the shapes alone.
 CONV_TILES = 128
 # conv3x3's block: warps, and output rows a warp owns (csrc/buf_kernels.cu
 # kConvWarps, kConvMT * 16)

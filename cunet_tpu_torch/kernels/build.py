@@ -97,7 +97,7 @@ def _declare(lib):
     F = ctypes.c_float
     sigs = {
         "cunet_affine_dot": [P, L, L, I, P, P, L, L, I, P, I, I, P, P, L, L,
-                             L, P],
+                             L, *[I] * 10, P],
         "cunet_conv3x3": [P, L, L, I, I, I, P, I, P, P, L, L, I, P, L,
                           *[I] * 10, P],
         "cunet_maxpool2": [P, L, P, L, I, I, I, I, P],
@@ -105,7 +105,8 @@ def _declare(lib):
         "cunet_bn_stats": [P, L, L, L, I, P, P],
         "cunet_bn_bwd": [P, L, P, L, L, L, I, P, P, F, P, L, I, P,
                          *[I] * 6, P],
-        "cunet_dx": [P, L, L, I, P, I, I, P, L, P, P, L, L, I, P, L, P],
+        "cunet_dx": [P, L, L, I, P, I, I, P, L, P, P, L, L, I, P, L,
+                     *[I] * 10, P],
         "cunet_conv3x3_dx": [P, L, L, I, I, I, P, I, P, L, P, P, L, L, I, P,
                              L, *[I] * 14, P],
         "cunet_dw": [P, L, L, I, P, P, L, L, I, P, L, I, P, *[I] * 9, P],

@@ -71,8 +71,10 @@ def affine_dot_i8(x, vec, w_i8, out, *, s: float, vec2=None):
 
     Replaces ``cunet_tpu/kernels/fused_model_buf.py::_affine_dot_i8`` and
     ``_q8``. Bound on the H100 by reading x and writing out (K <= 320, N <=
-    128), not by the int8 tensor cores. Design: ``buf_ops.affine_dot``'s with
-    int8 operands: 128-row block tiles over N, the prologue (BN affine,
+    128), not by the int8 tensor cores. Design: the first, WMMA design of
+    ``buf_ops.affine_dot`` (which that kernel has since left for
+    persistent mma.sync blocks) with int8 operands: 128-row block tiles
+    over N, the prologue (BN affine,
     ReLU, quantizer) in f32 registers between the 16-byte bf16 load and the
     int8 shared-memory tile, 16x16x16 int8 WMMA with int32 accumulators,
     the epilogue in f32 registers.

@@ -212,9 +212,12 @@ def apply(xs, vec, w, out, table=None):
 
     Replaces ``cunet_tpu/kernels/train_bottleneck.py::_apply_kernel``.
     Bound by reading the features and writing out (88 MB at K=320 -> 128,
-    M=98,304: 26.3 us). Design: ``affine_dot``'s (csrc/buf_kernels.cu)
-    128-row bf16 WMMA tiles with the prologue in f32 registers, each A
-    vector read from its group's tensor through the feature table.
+    M=98,304: 26.3 us). Design: the first, WMMA design of ``affine_dot``
+    (which that kernel has since left for persistent mma.sync blocks;
+    ``csrc/common.cuh``'s ``Smem``, ``mma_stage``, ``load_b`` and
+    ``store_tile``): 128-row bf16 WMMA tiles
+    with the prologue in f32 registers, each A vector read from its
+    group's tensor through the feature table.
     """
     m = xs[0].shape[0]
     _check_rows(xs, m)

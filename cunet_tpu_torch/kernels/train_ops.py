@@ -25,6 +25,7 @@ recompute the BN+ReLU activation in the prologue instead of storing it.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -32,6 +33,7 @@ import torch.nn.functional as F
 from cunet_tpu_torch.kernels import build
 from cunet_tpu_torch.kernels.buf_ops import (
     SMEM_LIMIT,
+    SMEM_PAIR,
     _check_bits,
     _check_rows,
     _check_tile_vec,
@@ -45,6 +47,16 @@ from cunet_tpu_torch.kernels.buf_ops import (
     _up,
 )
 
+# affine_dx: warps of a block, rows a warp owns (csrc/train_kernels.cu,
+# kThreads / 32 and two m16 tiles), the items (row tile, column block) its
+# plan aims at before it takes a smaller row tile or cuts K finer (about
+# one per SM of the card's 132, a constant, so the plan depends on the
+# shapes alone), and the most n8 column tiles of a warp (the kernel's
+# instantiations)
+AFFINE_DX_WARPS = 8
+AFFINE_DX_WARP_ROWS = 32
+AFFINE_DX_ITEMS = 132
+AFFINE_DX_MAX_NTW = 4
 # affine_dw: the most blocks its plan aims at (two on each of the card's 132
 # SMs, one wave: a few more would put a third block on a few SMs and stretch
 # the launch by a block's time), and the fewest it takes before it cuts
@@ -212,6 +224,95 @@ def _dx_operands(dy, w, x, vec, out):
     return _vec_args(vec, dy.shape[0], x.shape[1])
 
 
+@dataclasses.dataclass(frozen=True)
+class AffineDxPlan:
+    """How ``affine_dx``'s kernel cuts dy (m, N) @ W^T -> (m, K): row tiles
+    of ``bm`` rows (``row_warps`` warps of ``AFFINE_DX_WARP_ROWS`` rows),
+    K in ``nkb`` blocks of ``kc`` columns (``col_warps`` warps of ``ntw``
+    n8 tiles; columns past K are zero weights and are not stored), N
+    zero-padded to ``np_``; the block's ``kc`` weight rows resident
+    (``w_bytes``, at a stride of np_ + 8), then ``stages`` buffers of
+    ``stage_bytes``, each a tile's dy rows (``dy_bytes``, at np_ + 8) and
+    its x rows (at kc + 8); ``smem`` bytes in all."""
+    bm: int
+    kc: int
+    nkb: int
+    ntw: int
+    np_: int
+    stages: int
+    w_bytes: int
+    dy_bytes: int
+    stage_bytes: int
+    smem: int
+
+    @property
+    def row_warps(self) -> int:
+        return self.bm // AFFINE_DX_WARP_ROWS
+
+    @property
+    def col_warps(self) -> int:
+        return AFFINE_DX_WARPS // self.row_warps
+
+    def tiles(self, m: int) -> int:
+        return -(-m // self.bm)
+
+    def items(self, m: int) -> int:
+        return self.tiles(m) * self.nkb
+
+
+def _affine_dx_layout(bm, k, n, split, stages=(3, 2), limit=SMEM_LIMIT):
+    """The layout of row tiles of ``bm`` and K in ``split`` times the fewest
+    blocks of at most 64, the first count of buffers of ``stages`` that
+    fits in ``limit`` bytes; None where none does."""
+    wn = AFFINE_DX_WARPS // (bm // AFFINE_DX_WARP_ROWS)
+    kc = _up(-(-k // (-(-k // 64) * split)), 8 * wn)
+    ntw = kc // (8 * wn)
+    if ntw > AFFINE_DX_MAX_NTW:
+        return None
+    np_ = _up(n, 16)
+    w_bytes = _up(kc * (np_ + 8) * 2, 128)
+    dy_bytes = _up(bm * (np_ + 8) * 2, 128)
+    stage_bytes = dy_bytes + _up(bm * (kc + 8) * 2, 128)
+    for s in stages:
+        smem = w_bytes + s * stage_bytes
+        if smem <= limit:
+            return AffineDxPlan(bm=bm, kc=kc, nkb=-(-k // kc), ntw=ntw,
+                                np_=np_, stages=s, w_bytes=w_bytes,
+                                dy_bytes=dy_bytes, stage_bytes=stage_bytes,
+                                smem=smem)
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def affine_dx_plan(m: int, k: int, n: int) -> AffineDxPlan:
+    """The kernel plan of ``affine_dx`` at these shapes (a function of them
+    alone). K in the fewest blocks of at most 64 columns, cut evenly in
+    multiples of 16 where the warps allow (192: 3 x 64, 320: 5 x 64; 96- and
+    128-column blocks were 4-5 % slower: ``tools/gemm_sweep.py``, PERF.md
+    section 6); the largest row tile of 128, 64, 32 that gives
+    ``AFFINE_DX_ITEMS`` items with a layout of two buffers that runs two
+    blocks an SM (``buf_ops.SMEM_PAIR``: 64-row tiles on the main path; a
+    third buffer was slower there); else one that fits alone, three
+    buffers where they fit; else the same with K in twice as many blocks;
+    else the plan of the most items. Cached, as ``buf_ops.affine_dot_plan``
+    is."""
+    best = None
+    for split in (1, 2):
+        for limit, stages in ((SMEM_PAIR, (2,)), (SMEM_LIMIT, (3, 2))):
+            for bm in (128, 64, 32):
+                p = _affine_dx_layout(bm, k, n, split, stages, limit)
+                if p is None:
+                    continue
+                if p.items(m) >= AFFINE_DX_ITEMS:
+                    return p
+                if best is None or p.items(m) > best.items(m):
+                    best = p
+    if best is None:
+        raise ValueError(f"affine_dx: no tiling of K={k}, N={n} fits "
+                         f"{SMEM_LIMIT} bytes of shared memory")
+    return best
+
+
 def affine_dx(dy, w, x, vec, out, *, ste=False):
     """``out = (dy @ w[:K]^T) * [x*inv + shift > 0]`` in float32 for
     dy (M, N) bf16, w (>=K, N), x (M, K) the stage input and ``vec`` its
@@ -221,11 +322,19 @@ def affine_dx(dy, w, x, vec, out, *, ste=False):
 
     Replaces ``cunet_tpu/kernels/train_slot.py::_dot_dx`` with the ReLU
     mask of ``_affine_bwd`` (and ``_ste_mask``). Bound like the forward
-    1x1 by reading dy and x and writing the f32 result. Design: the
-    forward's 128-row WMMA tiles with W read transposed into shared
-    memory, f32 accumulation, and the mask recomputed from x in the epilogue (the forward's activation is
-    never stored). Its BN-jacobian sums are taken by ``bn_bwd``, which
-    reads d_a anyway.
+    1x1 by reading dy and x and writing the f32 result. Design
+    (``csrc/train_kernels.cu``, plan ``affine_dx_plan``): ``affine_dot``'s
+    on dy. Persistent blocks keep one block of at most 64 of K's columns:
+    its rows of W as they lie (the B operand of dy W^T wants each output
+    column's N values contiguous), loaded once by cp.async and read by
+    ldmatrix without a transpose; the tiles' dy rows and x rows (64-row
+    tiles on the main path, two blocks an SM) arrive by cp.async one or
+    two tiles ahead; the gate is recomputed once per element in
+    shared memory with the forward's f32 prologue (the forward's
+    activation is never stored); mma.sync m16n8k16 with f32 sums in
+    registers, a lane pair's swap giving each lane four columns of one row
+    for a 16-byte store. Its BN-jacobian sums are taken by ``bn_bwd``,
+    which reads d_a anyway. PERF.md section 6 has its times on the H100.
     """
     m, n = dy.shape
     k = x.shape[1]
@@ -238,10 +347,13 @@ def affine_dx(dy, w, x, vec, out, *, ste=False):
     if dy.device.type == "cpu":
         return affine_dx_plain(dy, w, x, vec, out, ste)
     inv, shift, vstride, tile_rows = _dx_operands(dy, w, x, vec, out)
+    _check_rows(m)
+    p = affine_dx_plan(m, k, n)
     code = build.lib().cunet_dx(
         dy.data_ptr(), dy.stride(0), m, n, w.data_ptr(), w.shape[1], k,
         x.data_ptr(), x.stride(0), inv, shift, vstride, tile_rows, int(ste),
-        out.data_ptr(), out.stride(0), _stream(dy))
+        out.data_ptr(), out.stride(0), p.bm, p.kc, p.nkb, p.ntw, p.np_,
+        p.stages, p.w_bytes, p.dy_bytes, p.stage_bytes, p.smem, _stream(dy))
     build.check(code, "affine_dx")
     affine_dx.launches += 1
     affine_dx.option_launches += bool(ste)

@@ -1,0 +1,239 @@
+"""Device times of ``affine_dot`` and ``affine_dx`` under every layout their
+plans can take, and with parts of their kernels taken out: what the plans'
+order of preference rests on, and what holds the kernels back.
+
+    python -m cunet_tpu_torch.tools.gemm_sweep [--ablate]
+
+At CU-Net-8 @256's r=64 shapes (``affine_dot``: K=192, 256, 320 -> 128
+eval at batch 8, K=192 at batch 64 and per ghost-BN tile at batch 24, the
+quantized 128 -> 16 head per tile; ``affine_dx``: K=192 and 320 -> 128 and
+the head's STE form at batch 24, tile 2): every row tile (128, 64, 32),
+cut of N or K (the fewest groups or blocks, or twice as many) and count
+of buffers (3, 2) whose layout fits, with the wrapper's plan replaced by
+it, each checked against the plain version (the smoke's bf16 and float32
+sum limits) and timed by CUDA-graph replay (``chip_smoke.cuda_time_ms``);
+the layout the wrapper's own plan picks is marked.
+
+With ``--ablate`` the plans' own layouts are timed instead on kernels
+built from copies of ``csrc`` with one part of both kernels skipped at
+run time (the x / dy loads, the prologue or gate, the products, the
+output stores; the results are then wrong and not checked): the time
+each part adds. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import shutil
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+
+# (file, text, replacement): each part of the two kernels skipped by a
+# condition the compiler cannot fold (a plan field is never negative)
+ABLATIONS = {
+    "no loads": [
+        ("buf_kernels.cu",
+         "    load_halo(s0 + p.w_bytes + (q % p.stages) * p.stage_bytes,",
+         "    if (p.kp < 0) load_halo(s0 + p.w_bytes + (q % p.stages) * "
+         "p.stage_bytes,"),
+        ("train_kernels.cu",
+         "    load_halo(base, dy, ldd, M, N, m0, p.bm, 0, p.np, tid, "
+         "kThreads);\n    load_halo(base + p.dy_bytes,",
+         "    if (p.np < 0) load_halo(base, dy, ldd, M, N, m0, p.bm, 0, p.np, "
+         "tid, kThreads);\n    if (p.np < 0) load_halo(base + p.dy_bytes,")],
+    "no prologue": [
+        ("buf_kernels.cu",
+         "    halo_prologue(reinterpret_cast<bf16*>(smem + sb), M, K, m0,",
+         "    if (p.kp < 0) halo_prologue(reinterpret_cast<bf16*>(smem + sb), "
+         "M, K, m0,"),
+        ("train_kernels.cu", "    halo_map(gate, M, K, m0,",
+         "    if (p.np < 0) halo_map(gate, M, K, m0,")],
+    "no products": [
+        ("buf_kernels.cu", "for (int kk = 0; kk < p.kp / 16; ++kk) {",
+         "for (int kk = 0; kk < p.kp / 16 - 4096; ++kk) {"),
+        ("train_kernels.cu", "for (int kk = 0; kk < p.np / 16; ++kk) {",
+         "for (int kk = 0; kk < p.np / 16 - 4096; ++kk) {")],
+    "no stores": [
+        ("buf_kernels.cu",
+         "        if (m < M && n < N) {\n          const int img",
+         "        if (m < M && n < N && p.kp < 0) {\n          const int img"),
+        ("train_kernels.cu",
+         "        if (m < M && k < K) {\n          float4 v",
+         "        if (m < M && k < K && p.np < 0) {\n          float4 v")],
+}
+
+
+def _smoke():
+    spec = importlib.util.spec_from_file_location("gemm_sweep_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _layouts(layout, k, n):
+    seen = []
+    for split in (1, 2):
+        for bm in (128, 64, 32):
+            for stages in ((3,), (2,)):
+                p = layout(bm, k, n, split, stages)
+                if p is not None and p not in seen:
+                    seen.append(p)
+    return seen
+
+
+def _cases(torch):
+    """(kernel name, label, K, N, call(out), make_out, plain result, limit
+    kind)."""
+    from cunet_tpu_torch.kernels import buf_ops, train_ops
+    from cunet_tpu_torch.kernels.train_slot import _affine_vec
+
+    gen = torch.Generator().manual_seed(0)
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(
+            "cuda", torch.bfloat16)
+
+    def tile_vec(x, tiles):
+        k = x.shape[1]
+        if not tiles:
+            return torch.stack([torch.rand(k, generator=gen) + 0.5,
+                                torch.randn(k, generator=gen) * 0.5]).cuda()
+        st = torch.empty(tiles, 2, k, device="cuda")
+        train_ops.bn_stats_plain(x, st)
+        bn = torch.stack([torch.rand(k, generator=gen) + 0.5,
+                          torch.randn(k, generator=gen) * 0.3]).cuda()
+        return _affine_vec(st, bn, 1e-5)
+
+    cases = []
+    for label, m, tiles, k, n, bits in (
+            ("eval batch 8", 8 * 4096, 0, 192, 128, 0),
+            ("eval batch 8", 8 * 4096, 0, 256, 128, 0),
+            ("eval batch 8", 8 * 4096, 0, 320, 128, 0),
+            ("eval batch 64", 64 * 4096, 0, 192, 128, 0),
+            ("per tile batch 24", 24 * 4096, 12, 192, 128, 0),
+            ("quantized head per tile batch 24", 24 * 4096, 12, 128, 16, 8)):
+        x, w = rand(m, k, scale=2.0), rand(k, n, scale=k ** -0.5)
+        vec = tile_vec(x, tiles)
+        want = torch.empty(m, n, device="cuda", dtype=torch.bfloat16)
+        buf_ops.affine_dot_plain(x, vec, w, want, bits_i=bits)
+        cases.append(("affine_dot", label, k, n,
+                      lambda o, x=x, vec=vec, w=w, bits=bits:
+                      buf_ops.affine_dot(x, vec, w, o, bits_i=bits),
+                      lambda want=want: torch.empty_like(want), want,
+                      ("bf16",)))
+    for label, k, n, ste in (("batch 24", 192, 128, False),
+                             ("batch 24", 320, 128, False),
+                             ("head STE batch 24", 128, 16, True)):
+        m = 24 * 4096
+        x, w = rand(m, k, scale=2.0), rand(k, n, scale=k ** -0.5)
+        vec, dy = tile_vec(x, 12), rand(m, n)
+        want = torch.empty(m, k, device="cuda")
+        train_ops.affine_dx_plain(dy, w, x, vec, want, ste)
+        cases.append(("affine_dx", label, k, n,
+                      lambda o, x=x, vec=vec, w=w, dy=dy, ste=ste:
+                      train_ops.affine_dx(dy, w, x, vec, o, ste=ste),
+                      lambda want=want: torch.empty_like(want), want,
+                      ("sum", n)))
+    return cases
+
+
+def _plan_slot(name):
+    """(module, plan attribute, layout function) of a kernel's plan."""
+    from cunet_tpu_torch.kernels import buf_ops, train_ops
+
+    if name == "affine_dot":
+        return buf_ops, "affine_dot_plan", buf_ops._dot_layout
+    return train_ops, "affine_dx_plan", train_ops._affine_dx_layout
+
+
+def _time(torch, cs, case, plan, check):
+    """Device us of one case under ``plan``, and its max error (None
+    unchecked)."""
+    name, _, _, _, call, make_out, want, kind = case
+    mod, attr, _ = _plan_slot(name)
+    own = getattr(mod, attr)
+    setattr(mod, attr, lambda *a: plan)
+    try:
+        out = make_out()
+        call(out)
+        torch.cuda.synchronize()
+        err = (out.float() - want.float()).abs().max().item()
+        if check:
+            lim = cs.limit(kind, want.float().abs().max().item())
+            cs.require(err <= lim, f"{name} {plan}: {err} > {lim}")
+        return cs.cuda_time_ms(lambda: call(out)) * 1e3, err
+    finally:
+        setattr(mod, attr, own)
+
+
+def sweep(torch, cs) -> None:
+    for case in _cases(torch):
+        name, label, k, n = case[:4]
+        mod, attr, layout = _plan_slot(name)
+        m = case[6].shape[0]
+        chosen = getattr(mod, attr)(m, k, n)
+        for p in _layouts(layout, k, n):
+            us, err = _time(torch, cs, case, p, True)
+            print(f"{name} {label} K={k}->{n}: {p}: {us:.1f} us, "
+                  f"max_abs_err {err:.3g}{' <- plan' if p == chosen else ''}",
+                  flush=True)
+
+
+def ablate(torch, cs) -> None:
+    from cunet_tpu_torch.kernels import build
+
+    csrc, build_dir = build.CSRC, build.BUILD_DIR
+    work = Path(tempfile.mkdtemp(prefix="gemm_ablate_"))
+    try:
+        for variant in ["full", *ABLATIONS]:
+            src = work / variant.replace(" ", "_")
+            shutil.copytree(csrc, src)
+            for fname, old, new in ABLATIONS.get(variant, []):
+                text = (src / fname).read_text()
+                if text.count(old) != 1:
+                    raise RuntimeError(f"{variant}: {fname} lost its anchor")
+                (src / fname).write_text(text.replace(old, new))
+            build.CSRC, build.BUILD_DIR = src, src / "_build"
+            build._lib = None
+            build.lib()
+            for case in _cases(torch):
+                name, label, k, n = case[:4]
+                if name == "affine_dot" and k != 192:
+                    continue
+                mod, attr, _ = _plan_slot(name)
+                p = getattr(mod, attr)(case[6].shape[0], k, n)
+                us, _ = _time(torch, cs, case, p, variant == "full")
+                print(f"ablation [{variant}] {name} {label} K={k}->{n} "
+                      f"(bm {p.bm}, stages {p.stages}): {us:.1f} us",
+                      flush=True)
+    finally:
+        build.CSRC, build.BUILD_DIR = csrc, build_dir
+        build._lib = None
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--ablate", action="store_true")
+    args = ap.parse_args(argv)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("gemm_sweep: no CUDA device", file=sys.stderr)
+        return 1
+    cs = _smoke()
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], check=True,
+                         capture_output=True, text=True).stdout.strip())
+    (ablate if args.ablate else sweep)(torch, cs)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

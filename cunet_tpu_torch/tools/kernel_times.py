@@ -1,14 +1,17 @@
 """Device times of a checkout's hand-written kernels at the smoke's cases
-and of its per-slot forward, for comparing two checkouts on one card.
+and of its per-slot and whole-model forwards, for comparing two checkouts
+on one card.
 
     python -m cunet_tpu_torch.tools.kernel_times [--root DIR]
 
 Runs the kernel phases of the ``chip_smoke.py`` beside this file on the
 kernels of ``--root`` (default: the checkout holding this file; its
 ``cunet_tpu_torch`` is imported and its kernels built): phase 2 (the
-forward kernels, ``conv3x3`` at every resolution at batch 8 and 64),
-phase 4 (the train kernels at batch 24, ``conv3x3`` per tile and
-``conv3x3_dx`` / ``conv3x3_dw`` at every resolution, ``bn_bwd`` and
+forward kernels, ``affine_dot`` at every resolution at batch 8, at r=64
+at batch 64 and at every stage width, ``conv3x3`` at every resolution at
+batch 8 and 64), phase 4 (the train kernels at batch 24, ``affine_dot``
+per tile, ``affine_dx``, ``conv3x3`` per tile and ``conv3x3_dx`` /
+``conv3x3_dw`` at every resolution, ``bn_bwd`` and
 ``affine_dw`` at every resolution and at r=64 at every stage width, with
 ``accumulate`` and ``bits_i``, beside ``native_batch_norm_backward`` and
 ``torch.mm``, and their planted faults), phase 8's option
@@ -16,12 +19,13 @@ kernels (``conv3x3[bits_i]``, ``conv3x3_dw[bits_i]`` and
 ``conv3x3_dx[ste]`` at every resolution), phase 9's kernels of #7
 (``bwd_reduce`` at every resolution), phase 10 (``table_dot``'s forms) and
 phase 11 (a) (``[up]``, ``[pool]``, ``[scale]``; a checkout needs them):
-each case against
-its plain version, timed by CUDA-graph replay beside its library call and
-bound. Then the per-slot forward of CU-Net-8 @256 (JAX's default flags) at
-batch 8 and 64, three wall-clock times each. The cases come from this
-checkout, so two checkouts are timed on the same cases. To compare a change
-with its parent, unpack the parent with ``git archive`` into a gitignored
+each case against its plain version, timed by CUDA-graph replay beside its
+library call (or ``torch.mm`` of its product alone) and bound. Then the
+forward of CU-Net-8 @256 at batch 8 and 64, three wall-clock times each:
+the per-slot path (JAX's default flags) and the whole-model path
+(``pallas_whole_model``, the main path's serving forward). The cases come
+from this checkout, so two checkouts are timed on the same cases. To
+compare a change with its parent, unpack the parent with ``git archive`` into a gitignored
 directory and run this once per checkout in one call, in the order parent,
 change, change, parent. Needs a CUDA device.
 """
@@ -29,6 +33,7 @@ change, change, parent. Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import importlib.util
 import subprocess
 import sys
@@ -87,11 +92,14 @@ def main(argv=None) -> int:
     cfg = ModelConfig(layer_num=8, order=1, class_num=16, loss_num=8,
                       compute_dtype="bfloat16", use_pallas=True)
     params, state = init_cu_net(cfg, torch.Generator().manual_seed(0))
-    for batch in (cs.BATCH, 64):
-        pred = Predictor(cfg, params, state, device="cuda", batch_size=batch)
-        ms = [cs.time_forward(torch, pred, batch) for _ in range(3)]
-        print(f"per-slot forward batch {batch}: "
-              f"{' '.join(f'{m:.3f}' for m in ms)} ms", flush=True)
+    for path, c in (("per-slot", cfg), ("whole-model", dataclasses.replace(
+            cfg, pallas_whole_model=True))):
+        for batch in (cs.BATCH, 64):
+            pred = Predictor(c, params, state, device="cuda",
+                             batch_size=batch)
+            ms = [cs.time_forward(torch, pred, batch) for _ in range(3)]
+            print(f"{path} forward batch {batch}: "
+                  f"{' '.join(f'{m:.3f}' for m in ms)} ms", flush=True)
     return 0
 
 

@@ -10,7 +10,8 @@ configuration, weights ``quant_eval_params`` of the same init) is warmed
 up, then ``--iters`` forwards run under
 ``torch.profiler``. Prints the host wall time per forward, the device time
 summed by kernel name (the card runs one stream, so kernels do not
-overlap), and the device's busy and idle shares of the window. ``--path``
+overlap) and by function (a template's instances summed), and the
+device's busy and idle shares of the window. ``--path``
 picks the eval path by its flags: ``whole_model`` (``pallas_whole_model``,
 the whole-model kernels, float or int8), ``hourglass`` (JAX's default
 flags: every slot on the per-slot kernels; an int8 model runs layer by
@@ -27,6 +28,7 @@ import argparse
 import collections
 import dataclasses
 import json
+import re
 import subprocess
 import time
 
@@ -89,6 +91,25 @@ def profile_window(fn, iters: int) -> dict:
     }
 
 
+def function_name(name: str) -> str:
+    """A kernel's function name without its namespaces, template arguments
+    and parameters: one entry for all instances of a template."""
+    base = name.removeprefix("void ").replace("(anonymous namespace)::", "")
+    return re.split(r"[<(]", base, maxsplit=1)[0].split("::")[-1].strip()
+
+
+def by_function(r: dict) -> list:
+    """(function, ms per call, launches per call, share of device) of the
+    kernels in ``r``, template instances summed, the largest first."""
+    acc = {}
+    for k in r["kernels"]:
+        a = acc.setdefault(function_name(k["name"]), [0.0, 0.0, 0.0])
+        a[0] += k["ms_per_call"]
+        a[1] += k["launches_per_call"]
+        a[2] += k["share_of_device"]
+    return sorted(([f, *v] for f, v in acc.items()), key=lambda e: -e[1])
+
+
 def print_report(label: str, r: dict, top: int = 12) -> None:
     print(f"{label}: wall {r['wall_ms_per_call']:.3f} ms/call, device "
           f"{r['device_ms_per_call']:.3f} ms, busy "
@@ -96,6 +117,10 @@ def print_report(label: str, r: dict, top: int = 12) -> None:
     for k in r["kernels"][:top]:
         print(f"  {k['ms_per_call']:8.3f} ms {k['share_of_device']:6.3f}"
               f" x{k['launches_per_call']:6.1f}  {k['name'][:90]}")
+    r["functions"] = by_function(r)
+    print("  by function, template instances summed:")
+    for f, ms, n, share in r["functions"][:top]:
+        print(f"  {ms:8.3f} ms {share:6.3f} x{n:6.1f}  {f}")
 
 
 def gpu_name() -> str:

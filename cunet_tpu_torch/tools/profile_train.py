@@ -13,8 +13,9 @@ bits_i=8, bits_g=8, enabled=True)``; ``--bn_tile 0`` trains with
 whole-batch BN statistics (the kernel path then runs every bottleneck and
 adapter on the per-bottleneck train kernel). Prints the host wall time per
 step, the device time by category (the hand-written kernels, cuDNN and
-cuBLAS, the optimizer's fused update, the rest of torch) and by kernel
-name, launches per step and the device's busy share. Needs a CUDA device;
+cuBLAS, the optimizer's fused update, the rest of torch), by kernel name
+and by function (a template's instances summed), launches per step and
+the device's busy share. Needs a CUDA device;
 there is no CPU fallback.
 """
 

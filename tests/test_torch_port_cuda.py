@@ -72,24 +72,88 @@ def _check(kernel, call, dst, sel):
     assert torch.equal(k_buf, dst)
 
 
-@pytest.mark.parametrize("k,n,bias", [(24, 16, False), (40, 16, True),
-                                      (16, 8, False), (200, 136, True)])
-def test_affine_dot(gen, k, n, bias):
-    m = 2 * 16 * 16 + 8       # a ragged last row tile
+# (rows, K, N, bias, bits_i) of the eval affine_dot: every path of its
+# plan. Row tiles of 64 two blocks an SM (K = 192), of 128 alone (K = 256,
+# two x buffers) and of 64 alone (K = 320, three), of 32 (8192 rows) with
+# N in two groups (2048 rows) or three (N = 136); even and odd n8 tiles a
+# warp (N = 72 pads to 96 and N = 48: three; N = 16: one; eight at
+# K = 256); K tails (8, 24, 40, 136: a zero-padded half k16 step); ragged
+# last row tiles; more tiles than blocks; QuanInput's quantizer on the
+# prologue; the BN2 epilogue
+DOT_CASES = [(520, 24, 16, False, 0), (520, 40, 16, True, 0),
+             (520, 16, 8, False, 0), (520, 200, 136, True, 0),
+             (8 * 64 * 64, 192, 128, False, 0),
+             (8 * 64 * 64, 256, 128, True, 0),
+             (8 * 64 * 64, 320, 128, True, 0),
+             (8 * 32 * 32, 192, 128, True, 0),
+             (8 * 16 * 16, 160, 128, True, 0),
+             (8 * 64 * 64, 128, 72, False, 0),
+             (8 * 64 * 64 + 8, 136, 48, False, 8),
+             (8 * 64 * 64 + 40, 128, 16, True, 8), (1000, 8, 8, True, 0)]
+
+
+def test_dot_cases_cover_every_plan_path():
+    plans = [(buf_ops.affine_dot_plan(m, k, n), m, n)
+             for m, k, n, _, _ in DOT_CASES]
+    assert {p.bm for p, _, _ in plans} >= {32, 64, 128}
+    assert {p.ngrp for p, _, _ in plans} >= {1, 2, 3}
+    assert {p.stages for p, _, _ in plans} >= {2, 3}
+    assert {p.ntw for p, _, _ in plans} >= {1, 2, 3, 4, 8}
+    assert {p.smem <= buf_ops.SMEM_PAIR for p, _, _ in plans} == {True,
+                                                                  False}
+    assert any(p.ncol * p.ngrp > n for p, _, n in plans)
+    assert any(m % p.bm for p, m, _ in plans)
+    assert any(p.items(m) > 132 for p, m, _ in plans)
+    assert {k % 16 for _, k, _, _, _ in DOT_CASES} >= {0, 8}
+
+
+@pytest.mark.parametrize("m,k,n,bias,bits", DOT_CASES)
+def test_affine_dot(gen, m, k, n, bias, bits):
     x = _bf16(gen, m, k + 8)
     v, w = _vec(gen, k + 8), _bf16(gen, k + 8, n) * k ** -0.5
     b = (torch.randn(n, generator=gen) * 0.5).cuda() if bias else None
     _check(buf_ops.affine_dot,
-           lambda f, o: f(x[:, :k], v, w, o[:, 8:8 + n], bias=b),
+           lambda f, o: f(x[:, :k], v, w, o[:, 8:8 + n], bias=b,
+                          bits_i=bits),
            _bf16(gen, m, n + 16), lambda o: o[:, 8:8 + n])
 
 
-def test_affine_dot_head_slot(gen):
-    b, hw, k, cls = 2, 64, 16, 8
+# (images, r, K, classes) of the head written into its image-major slot:
+# small images, the flagship's 16-class head at r=64, the face head's 68
+# classes padded to 72, images of a size no row tile divides
+@pytest.mark.parametrize("b,r,k,cls", [(2, 8, 16, 8), (8, 64, 128, 16),
+                                       (8, 64, 128, 72), (3, 6, 40, 24)])
+def test_affine_dot_head_slot(gen, b, r, k, cls):
+    hw = r * r
     x, v, w = _bf16(gen, b * hw, k), _vec(gen, k), _bf16(gen, k, cls)
     _check(buf_ops.affine_dot,
            lambda f, o: f(x, v, w, o[:, 2].view(b, hw, cls)),
-           _bf16(gen, b, 3, 8, 8, cls), lambda o: o[:, 2])
+           _bf16(gen, b, 3, r, r, cls), lambda o: o[:, 2])
+
+
+def test_affine_dot_is_table_dot_bit_for_bit(gen):
+    """The whole-model path's 1x1 kernel and the per-slot path's feature-
+    table kernel sum every output in the same order (ascending 16-deep k
+    steps from zero into one float32 accumulator) and round it the same
+    way: bit for bit on one feature, with and without the BN2 epilogue,
+    at every row tile and column split of affine_dot's plan."""
+    from cunet_tpu_torch.kernels import eval_ops
+
+    for m, k, n, bias in ((8 * 64 * 64, 192, 128, False),
+                          (8 * 64 * 64, 160, 128, True),
+                          (8 * 32 * 32, 320, 128, True),
+                          (8 * 16 * 16, 256, 128, False),
+                          (8 * 64 * 64, 128, 16, False),
+                          (8 * 8 * 8, 128, 72, False), (520, 40, 24, True)):
+        x = _bf16(gen, m, k + 8)[:, :k]
+        v, w = _vec(gen, k), _bf16(gen, k, n) * k ** -0.5
+        b = (torch.randn(n, generator=gen) * 0.5).cuda() if bias else None
+        got = torch.empty(m, n, device="cuda", dtype=torch.bfloat16)
+        want = torch.empty_like(got)
+        buf_ops.affine_dot(x, v, w, got, bias=b)
+        eval_ops.table_dot([x], v, w, want, bias=b)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (m, k, n, bias)
 
 
 # (Cb, G, r, images): every code path of the conv kernels' plans. Small M
@@ -212,13 +276,25 @@ def test_bn_stats(gen, k):
     _close_sum(got, want, 72)
 
 
-@pytest.mark.parametrize("k,n", [(8, 8), (40, 16), (200, 136)])
-def test_affine_dot_per_tile(gen, k, n):
-    x = _bf16(gen, 216, k)
-    _, _, vec = _train_vec(gen, x, 3)
+# (rows, BN tiles, K, N, bits_i) of the per-tile affine_dot: the r=64
+# adapter at batch 24 (768 row tiles), r=16 (64-row tiles) and r=4 (32-row
+# tiles, N in two groups), row tiles across ghost-tile boundaries (250-row
+# tiles), one tile, the quantized head, K and N tails
+DOT_TILE_CASES = [(216, 3, 8, 8, 0), (216, 3, 40, 16, 0),
+                  (216, 3, 200, 136, 0), (24 * 64 * 64, 12, 192, 128, 0),
+                  (24 * 16 * 16, 12, 192, 128, 0),
+                  (24 * 4 * 4, 12, 192, 128, 0), (1000, 4, 136, 24, 8),
+                  (300, 1, 128, 16, 8), (24 * 64 * 64, 12, 128, 16, 8)]
+
+
+@pytest.mark.parametrize("m,tiles,k,n,bits", DOT_TILE_CASES)
+def test_affine_dot_per_tile(gen, m, tiles, k, n, bits):
+    x = _bf16(gen, m, k)
+    _, _, vec = _train_vec(gen, x, tiles)
     w = _bf16(gen, k, n) * k ** -0.5
-    _check(buf_ops.affine_dot, lambda f, o: f(x, vec, w, o[:, 8:8 + n]),
-           _bf16(gen, 216, n + 16), lambda o: o[:, 8:8 + n])
+    _check(buf_ops.affine_dot,
+           lambda f, o: f(x, vec, w, o[:, 8:8 + n], bits_i=bits),
+           _bf16(gen, m, n + 16), lambda o: o[:, 8:8 + n])
 
 
 # (Cb, G, r, images, bits_i) of the per-tile prologue: BN tiles of two
@@ -239,21 +315,78 @@ def test_conv3x3_bn_prologue(gen, cb, g, r, n, bits):
            _bf16(gen, n * r * r, 16 + g + 8), lambda o: o[:, 16:16 + g])
 
 
-@pytest.mark.parametrize("k,n", [(8, 8), (40, 16), (200, 136)])
-def test_affine_dx_dw(gen, k, n):
-    m = 216
+# (rows, BN tiles, K, N, ste) of affine_dx (and affine_dw on the same
+# operands, quantized where ste is on): every path of affine_dx's plan.
+# Row tiles of 64 two blocks an SM over K = 192 in three blocks of 64 (two
+# n8 tiles a warp; r=64, r=16) and K = 320 in five; of 128 (the head,
+# 128 -> 16: one k16 step, four tiles a warp); of 32 (r=8, r=4; one tile a
+# warp); a block partly past K (K = 40, 136, 200); layouts alone with two
+# buffers and with three (N = 512); K and N tails (8, 40, 136; N = 24, 72,
+# 136); row tiles across ghost tiles; one tile; the STE gate
+DX_CASES = [(216, 3, 8, 8, False), (216, 3, 40, 16, False),
+            (216, 3, 200, 136, False), (24 * 64 * 64, 12, 192, 128, False),
+            (24 * 64 * 64, 12, 128, 16, True),
+            (24 * 16 * 16, 12, 192, 128, False),
+            (24 * 8 * 8, 12, 192, 128, True),
+            (24 * 32 * 32, 12, 320, 128, False),
+            (24 * 4 * 4, 12, 320, 128, True), (1000, 4, 136, 24, True),
+            (300, 1, 40, 72, False), (24 * 32 * 32, 12, 128, 136, False),
+            (2000, 2, 64, 512, False), (2000, 4, 192, 512, True)]
+
+
+def test_affine_dx_cases_cover_every_plan_path():
+    plans = [(train_ops.affine_dx_plan(m, k, n), m, k)
+             for m, _, k, n, _ in DX_CASES]
+    assert {p.bm for p, _, _ in plans} >= {32, 64, 128}
+    assert {p.nkb for p, _, _ in plans} >= {1, 2, 3}
+    assert {p.stages for p, _, _ in plans} >= {2, 3}
+    assert {p.ntw for p, _, _ in plans} >= {1, 2, 4}
+    assert {p.smem <= buf_ops.SMEM_PAIR for p, _, _ in plans} == {True,
+                                                                  False}
+    assert any(p.kc * p.nkb > k for p, _, k in plans)
+    assert any(m % p.bm for p, m, _ in plans)
+    assert any(p.items(m) > 132 for p, m, _ in plans)
+    assert {n % 16 for _, _, _, n, _ in DX_CASES} >= {0, 8}
+
+
+@pytest.mark.parametrize("m,tiles,k,n,ste", DX_CASES)
+def test_affine_dx_dw(gen, m, tiles, k, n, ste):
     x = _bf16(gen, m, k + 8)[:, :k]
-    _, _, vec = _train_vec(gen, x, 3)
+    _, _, vec = _train_vec(gen, x, tiles)
     w = (_bf16(gen, k, n) * k ** -0.5).contiguous()
     dy = _bf16(gen, m, n)
     got, want = _both(train_ops.affine_dx,
                       lambda: torch.empty(m, k + 8, device="cuda")[:, :k],
-                      lambda f, o: f(dy, w, x, vec, o))
+                      lambda f, o: f(dy, w, x, vec, o, ste=ste))
     _close_sum(got, want, n)
+    assert torch.equal(got == 0, want == 0)
     got, want = _both(train_ops.affine_dw,
                       lambda: torch.empty(k, n, device="cuda"),
-                      lambda f, o: f(x, vec, dy, o))
+                      lambda f, o: f(x, vec, dy, o, bits_i=8 if ste else 0))
     _close_sum(got, want, m)
+
+
+def test_gemm_kernels_repeat_bit_for_bit(gen):
+    """affine_dot (eval and per tile, 128- and 32-row tiles, N in one and
+    two groups) and affine_dx (two and three column blocks, the STE gate)
+    give the same bits on a second run: no atomics, no split reduction,
+    plans of the shapes alone."""
+    for m, tiles, k in ((24 * 64 * 64, 12, 192), (24 * 4 * 4, 12, 192)):
+        x = _bf16(gen, m, k)
+        _, _, vec = _train_vec(gen, x, tiles)
+        w = (_bf16(gen, k, 128) * k ** -0.5).contiguous()
+        dy = _bf16(gen, m, 128)
+        for v in (vec, _vec(gen, k)):
+            runs = [buf_ops.affine_dot(x, v, w, torch.empty(
+                m, 128, device="cuda", dtype=torch.bfloat16))
+                for _ in range(2)]
+            torch.cuda.synchronize()
+            assert torch.equal(*runs)
+        for ste in (False, True):
+            runs = [train_ops.affine_dx(dy, w, x, vec, torch.empty(
+                m, k, device="cuda"), ste=ste) for _ in range(2)]
+            torch.cuda.synchronize()
+            assert torch.equal(*runs)
 
 
 # (Cb, G, r, images, bits_i) of the conv backward: one run and several

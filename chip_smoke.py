@@ -70,9 +70,11 @@ Phases, each printing one line (or a few) before the last:
    QuanInput option launches), step times;
 9. whole-batch BN training, the same model at ``bn_tile=0`` (the JAX CLI's
    default) with ``use_pallas``: every bottleneck and adapter on the four
-   kernels of TPU kernel #7 (``csrc/bottleneck_kernels.cu``). Each kernel
-   against its plain version at M = 24*64*64 and 24*4*4 over the up-block
-   adapter's four feature groups (K = 128+128+32+32 -> 128), every float32
+   kernels of TPU kernel #7 (``csrc/bottleneck_kernels.cu``; ``apply`` the
+   table form of ``affine_dot``). Each kernel against its plain version
+   over the up-block adapter's four feature groups (K = 128+128+32+32 ->
+   128) at M = 24*r*r, r = 64 ... 4 (``stats`` at r = 64 and 4), beside
+   ``torch.mm`` of its product alone (the three GEMMs), every float32
    reduction held per feature group, and three planted faults of the
    statistics kernel that those limits must catch; the autograd
    Function against itself on the plain versions; the kernel step against
@@ -1930,44 +1932,52 @@ def tb_operands(torch, gen, r, dev="cuda"):
 
 
 def tb_cases(torch, o):
-    """(name, call(fn) -> outputs, bounds, work, library call or None) of
-    the four kernels on the operands ``o``. bounds: per output ("bf16",) or
-    ("sum", n, split), held per feature group (``tb_pieces``). The work of
-    ``bwd_reduce`` is its kernel's arithmetic: its two float32 products
-    (2 M Ctot Cout each) as three bf16 tensor-core passes each, the exact
-    split of the float32 operand (``f32_fma_ms`` gives the bound of the
-    same products as float32 FMA)."""
+    """(name, call(fn) -> outputs, bounds, work, library call or None,
+    product alone or None) of the four kernels on the operands ``o``.
+    bounds: per output ("bf16",) or ("sum", n, split), held per feature
+    group (``tb_pieces``). The work of ``bwd_reduce`` and ``bwd_dx`` is
+    their kernels' arithmetic: each float32 product (2 M Ctot Cout; two in
+    ``bwd_reduce``, one in ``bwd_dx``) as three bf16 tensor-core passes,
+    the exact split of the float32 operand (``f32_fma_ms`` gives the bound
+    of the same products as float32 FMA). No PyTorch call computes a #7
+    GEMM (BN recompute, gate, jacobian or sums around it): the product
+    alone is ``torch.mm`` of ``apply``'s bf16 operands and, for the two
+    backward kernels, of g (as float32, converted beforehand) and W^T."""
     m, k, cout = o["m"], o["k"], o["cout"]
     f, dev = o["feats"], o["feats"][0].device
     feat_bytes = sz(m, k)
     small = sz(3, k, e=4) + sz(k, e=4) + sz(k, cout, e=4)   # stat, bias, w
     cat = torch.cat(f, 1)
+    g32 = o["g"].float()
 
     def dxs():
         buf = torch.empty(m, k + 8, device=dev, dtype=torch.bfloat16)
         offs = np.cumsum((0,) + TB_WIDTHS)
         return [buf[:, a:b] for a, b in zip(offs[:-1], offs[1:])]
 
+    def gw():
+        return torch.mm(g32, o["w"].t())
+
     return [
         ("stats", lambda fn: [fn(f, torch.empty(2, k, device=dev))],
          [("sum", m, "cols")],
          work(feat_bytes + sz(2, k, e=4), 3 * m * k, "f32"),
-         lambda: torch.var_mean(cat, dim=0, correction=0)),
+         lambda: torch.var_mean(cat, dim=0, correction=0), None),
         ("apply", lambda fn: [fn(f, o["vec"], o["w16"], torch.empty(
             m, cout, device=dev, dtype=torch.bfloat16))], [("bf16",)],
          work(feat_bytes + sz(2, k, e=4) + sz(k, cout) + sz(m, cout),
-              2 * m * k * cout), None),
+              2 * m * k * cout), None, lambda: torch.mm(cat, o["w16"])),
         ("bwd_reduce", lambda fn: list(fn(
             f, o["g"], o["stat"], o["bias"], o["w"],
             torch.empty(k, cout, device=dev), torch.empty(2, k, device=dev))),
          [("sum", m, "rows"), ("sum", m, "cols")],
          work(feat_bytes + sz(m, cout) + small + sz(k, cout, e=4)
-              + sz(2, k, e=4), 3 * 4 * m * k * cout), None),
+              + sz(2, k, e=4), 3 * 4 * m * k * cout), None, gw),
         ("bwd_dx", lambda fn: list(fn(f, o["g"], o["stat"], o["bias"],
                                       o["red"], o["w"], dxs())),
          [("bf16",)] * len(TB_WIDTHS),
          work(feat_bytes + sz(m, cout) + small + sz(2, k, e=4)
-              + feat_bytes, 2 * m * k * cout, "f32"), None),
+              + feat_bytes, 3 * 2 * m * k * cout), None, gw),
     ]
 
 
@@ -2031,25 +2041,30 @@ def stats_faults(torch, tbk, o):
     return out
 
 
-def f32_fma_ms(o):
-    """``bwd_reduce``'s two products as float32 FMA on the CUDA cores
-    (4 M Ctot Cout flops at 67 TFLOP/s): the bound no CUDA-core design
+# float32 products (2 M Ctot Cout each) of the #7 backward kernels
+F32_PRODUCTS = {"bwd_reduce": 2, "bwd_dx": 1}
+
+
+def f32_fma_ms(o, products):
+    """``products`` float32 products of 2 M Ctot Cout flops as float32 FMA
+    on the CUDA cores (at 67 TFLOP/s): the bound no CUDA-core design
     beats."""
-    return 4 * o["m"] * o["k"] * o["cout"] / PEAK_OPS["f32"] * 1e3
+    return 2 * products * o["m"] * o["k"] * o["cout"] / PEAK_OPS["f32"] * 1e3
 
 
 def phase_bn0_kernels(torch, tbk):
-    """Each kernel of #7 against its plain version at r=64 (the main
-    path's largest call) and r=4, ``bwd_reduce`` at every resolution
-    (r=64 first), timed with its plain version and, for the statistics,
-    ``torch.var_mean`` over the same values."""
+    """Each kernel of #7 against its plain version at every resolution r =
+    64 ... 4 (r=64 first: the main path's largest call; ``stats`` at r=64
+    and 4), timed with its plain version, with ``torch.var_mean`` over the
+    same values for the statistics and with ``torch.mm`` of the product
+    alone for the three GEMMs."""
     gen = torch.Generator().manual_seed(9)
     results = {}
     for r in CONV_RES:
         o = tb_operands(torch, gen, r)
         label = f"K=128+128+32+32->128 r={r}"
-        for name, call, bounds, w, lib in tb_cases(torch, o):
-            if r not in (64, 4) and name != "bwd_reduce":
+        for name, call, bounds, w, lib, prod in tb_cases(torch, o):
+            if r not in (64, 4) and name == "stats":
                 continue
             kern = getattr(tbk, name)
             got, want = call(kern), call(tbk.PLAIN[kern])
@@ -2058,18 +2073,21 @@ def phase_bn0_kernels(torch, tbk):
             ms = cuda_time_ms(lambda: call(kern))
             plain_ms = cuda_time_ms(lambda: call(tbk.PLAIN[kern]))
             lib_ms = None if lib is None else cuda_time_ms(lib)
+            prod_ms = None if prod is None else cuda_time_ms(prod)
+            f32 = F32_PRODUCTS.get(name)
             print(f"bn0 kernel train_bottleneck.{name} [{label}]: "
                   f"max_abs_err {err:.4g} (at most {share:.3g} of a "
                   f"{'/'.join(b[0] for b in bounds)} limit: {ok}), "
                   f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, library "
-                  f"{lib_ms if lib_ms is None else f'{lib_ms:.4f} ms'}, "
-                  f"bound {bound(w)[0]:.4f} ms ({bound(w)[1]})"
-                  + (f", float32-FMA bound {f32_fma_ms(o):.4f} ms"
-                     if name == "bwd_reduce" else ""), flush=True)
+                  f"{lib_ms if lib_ms is None else f'{lib_ms:.4f} ms'}"
+                  f"{product_text(prod_ms)}, bound {bound(w)[0]:.4f} ms "
+                  f"({bound(w)[1]})"
+                  + (f", float32-FMA bound {f32_fma_ms(o, f32):.4f} ms"
+                     if f32 else ""), flush=True)
             require(ok, f"train_bottleneck.{name} [{label}] disagrees with "
                     f"its plain version")
             record(results, f"train_bottleneck.{name}", err, ms, plain_ms,
-                   label, w, lib_ms)
+                   label, w, lib_ms, prod_ms)
         if r == 64:
             for fault, err, whole, share in stats_faults(torch, tbk, o):
                 print(f"bn0 planted fault of stats [{label}]: {fault}: "
@@ -3114,7 +3132,8 @@ def main() -> int:
         rows.append(row(name, SOURCE if name.split("[")[0] in launches
                         else TRAIN_SOURCE, r, quant_launches[name]))
     for name, r in tb_kernels.items():
-        rows.append(row(name, TB_SOURCE, r, tb_launches[name]))
+        rows.append(row(name, SOURCE if name == "train_bottleneck.apply"
+                        else TB_SOURCE, r, tb_launches[name]))
     for name, r in eval_kernels.items():
         extra = {"launches_per_forward":
                  slot_launches[name] / slot_forwards,

@@ -1,17 +1,17 @@
 // Hand-written Hopper kernels of the train-mode concat-free dense bottleneck
 //   out = sum_k bf16(relu(bn_k(x_k))) @ bf16(W_k)    (BN with batch stats)
 // and its recompute backward (cunet_tpu_torch/kernels/train_bottleneck.py
-// wraps them and holds the autograd Function). They replace the four
-// pallas_calls of cunet_tpu/kernels/train_bottleneck.py::
-// fused_train_bottleneck:
+// wraps them and holds the autograd Function). With apply, the table form
+// of buf_kernels.cu's affine_dot, they replace the four pallas_calls of
+// cunet_tpu/kernels/train_bottleneck.py::fused_train_bottleneck:
 //   tb_stats      <- _stats_kernel      (:49, called at :173)
-//   tb_apply      <- _apply_kernel      (:66, called at :208)
+//   apply         <- _apply_kernel      (:66, called at :208)
 //   tb_bwd_reduce <- _bwd_reduce_kernel (:92, called at :268)
 //   tb_bwd_dx     <- _bwd_dx_kernel     (:134, called at :296)
 //
 // The features arrive as separate tensors (an up-block adapter reads
 // [x, skip, fifo, out]): every kernel reads them through a feature table in
-// device memory, one row of kTblCols int64 per group,
+// device memory, one row of kTblCols int64 per group (halo.cuh),
 //   [x pointer, x row stride, width, column offset in the concat,
 //    dx pointer, dx row stride]
 // and never builds the concat. cunet_tb_fill_table writes the table from
@@ -32,12 +32,12 @@
 // The backward's products keep the TPU kernel's float32 precision (dW =
 // r^T g and g_r = g W^T with the unrounded f32 W): one TF32 or bf16
 // tensor-core pass would move them by ~1e-3, outside the f32 bounds the
-// port holds them to. tb_bwd_reduce runs both on the tensor cores through
-// an exact three-way bf16 split of the f32 operand (three bf16 passes:
-// float32 sums of exact products); tb_bwd_dx still runs g W^T as float32
-// FMA on the CUDA cores (64 x 64 output tiles, 4 x 4 per thread). The BN
-// recompute rounds after every operation, in the plain version's order,
-// so the ReLU gate is the same bit for bit.
+// port holds them to. Both backward kernels run them on the tensor cores
+// through an exact three-way bf16 split of the f32 operand (three bf16
+// passes: float32 sums of exact products), g W^T in the same order in both,
+// so tb_bwd_dx gates the bits tb_bwd_reduce summed. The BN recompute rounds
+// after every operation, in the plain version's order, so the ReLU gate is
+// the same bit for bit.
 //
 // Each entry point launches on the stream it is given and returns
 // cudaGetLastError().
@@ -48,12 +48,9 @@
 
 namespace {
 
-constexpr int kTblCols = 6;
 constexpr int kFillGroups = 16;
 constexpr int kStatRows = 32;   // row stripes of a statistics block
 constexpr int kStatCols = 64;   // channels of a statistics block
-constexpr int kT = 64;          // rows and columns of an f32 SIMT tile
-constexpr int kD = 16;          // depth of one shared-memory stage
 
 struct TblChunk {
   long long v[kFillGroups * kTblCols];
@@ -64,14 +61,6 @@ __global__ void fill_table_kernel(long long* __restrict__ dst, TblChunk c,
   for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = c.v[i];
 }
 
-// The group of concat column k (the last group whose offset is <= k).
-__device__ __forceinline__ const long long* group_of(
-    const long long* __restrict__ tbl, int G, int k) {
-  int g = 0;
-  while (g + 1 < G && k >= (int)tbl[(g + 1) * kTblCols + 3]) ++g;
-  return tbl + g * kTblCols;
-}
-
 // Where column k of the concat lives: (row 0 of it, row stride).
 struct ColRef {
   const bf16* x;
@@ -80,7 +69,7 @@ struct ColRef {
 
 __device__ __forceinline__ ColRef col_ref(const long long* __restrict__ tbl,
                                           int G, int k) {
-  const long long* t = group_of(tbl, G, k);
+  const long long* t = table_group(tbl, G, k);
   return {reinterpret_cast<const bf16*>(t[0]) + (k - t[3]), t[1]};
 }
 
@@ -137,159 +126,6 @@ __global__ void __launch_bounds__(kThreads)
     float a = 0.f;
     for (int i = 0; i < kStatRows; ++i) a += red[which][i][col];
     if (kk < Ctot) part[((long long)blockIdx.x * 2 + which) * Ctot + kk] = a;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// tb_apply: out[m, n] = sum_k bf16(relu(x[m,k]*inv[k] + shift[k])) w[k, n],
-// the affine in float32 (whatever the model's bn_dtype: the TPU kernel's
-// arithmetic), bf16 WMMA with float32 accumulators, one bf16 rounding of
-// the result. The first, WMMA design of affine_dot (common.cuh's Smem,
-// mma_stage, load_b, store_tile; affine_dot itself has since moved to
-// persistent mma.sync blocks): 128-row tiles over the full N, the prologue
-// between the 16-byte global load and the bf16 shared-memory tile, with
-// each A vector read from its group's tensor.
-// ---------------------------------------------------------------------------
-template <int BN, int WARPS_N>
-__global__ void __launch_bounds__(kThreads)
-    tb_apply_kernel(const long long* __restrict__ tbl, int G, long long M,
-                    int Ctot, const float* __restrict__ inv,
-                    const float* __restrict__ shift,
-                    const bf16* __restrict__ w, int N, OutView out) {
-  using T = Tiles<BN, WARPS_N>;
-  __shared__ Smem<BN, WARPS_N> s;
-  const int warp = threadIdx.x / 32;
-  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-  const long long m0 = (long long)blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[T::FM][T::FN];
-#pragma unroll
-  for (int i = 0; i < T::FM; ++i)
-#pragma unroll
-    for (int j = 0; j < T::FN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  for (int k0 = 0; k0 < Ctot; k0 += BK) {
-    for (int c = threadIdx.x; c < BM * BK / 8; c += kThreads) {
-      const int r = c / (BK / 8), kc = (c % (BK / 8)) * 8;
-      const long long m = m0 + r;
-      const int k = k0 + kc;
-      Pack8 o;
-      o.v = make_uint4(0u, 0u, 0u, 0u);
-      if (m < M && k < Ctot) {
-        const ColRef cr = col_ref(tbl, G, k);
-        Pack8 in;
-        in.v = *reinterpret_cast<const uint4*>(cr.x + m * cr.ld);
-#pragma unroll
-        for (int t = 0; t < 8; ++t)
-          o.u[t] = act(lo(in, t), inv[k + t], shift[k + t], 0);
-      }
-      *reinterpret_cast<uint4*>(&s.a[r][kc]) = o.v;
-    }
-    load_b(s, w, N, k0, Ctot, n0, N);
-    __syncthreads();
-    mma_stage(s, wm, wn, acc);
-    __syncthreads();
-  }
-  store_tile<BN, WARPS_N, false>(s, wm, wn, m0, n0, M, N, nullptr, out, acc);
-}
-
-// ---------------------------------------------------------------------------
-// The float32 SIMT tile of tb_bwd_dx: 64 x 64 outputs per
-// block, thread (ty, tx) owning rows ty*4.. and columns tx*4.., the depth
-// walked in kD-deep stages through shared memory (a[d][row], b[d][col]).
-// ---------------------------------------------------------------------------
-struct F32Smem {
-  __align__(16) float a[kD][kT + 4];
-  __align__(16) float b[kD][kT + 4];
-};
-
-__device__ __forceinline__ void zero_acc(float (&acc)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-}
-
-__device__ __forceinline__ void f32_stage(const F32Smem& s, int ty, int tx,
-                                          float (&acc)[4][4]) {
-#pragma unroll
-  for (int d = 0; d < kD; ++d) {
-    const float4 a = *reinterpret_cast<const float4*>(&s.a[d][ty * 4]);
-    const float4 b = *reinterpret_cast<const float4*>(&s.b[d][tx * 4]);
-    const float av[4] = {a.x, a.y, a.z, a.w};
-    const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-// acc[i][j] = g_r[r0 + ty*4 + i, k0 + tx*4 + j] = sum_n g[r, n] w[k, n]:
-// the cotangent through the 1x1 conv, against the unrounded f32 weight.
-__device__ __forceinline__ void gw_tile(F32Smem& s,
-                                        const bf16* __restrict__ g,
-                                        long long ldg, long long M, int N,
-                                        const float* __restrict__ w, int Ctot,
-                                        long long r0, int k0,
-                                        float (&acc)[4][4]) {
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  zero_acc(acc);
-  for (int n0 = 0; n0 < N; n0 += kD) {
-    if (tid < 128) {            // a[d][r] = g[r0 + r, n0 + d]
-      const int r = tid / 2, dv = (tid % 2) * 8;
-      const long long m = r0 + r;
-      Pack8 p;
-      p.v = make_uint4(0u, 0u, 0u, 0u);
-      if (m < M && n0 + dv < N)
-        p.v = *reinterpret_cast<const uint4*>(g + m * ldg + n0 + dv);
-#pragma unroll
-      for (int t = 0; t < 8; ++t) s.a[dv + t][r] = lo(p, t);
-    } else {                    // b[d][c] = w[k0 + c, n0 + d]
-      for (int i = tid - 128; i < kT * kD / 4; i += 128) {
-        const int c = i / (kD / 4), dv = (i % (kD / 4)) * 4;
-        const int k = k0 + c, n = n0 + dv;
-        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (k < Ctot && n < N)
-          v = *reinterpret_cast<const float4*>(w + (long long)k * N + n);
-        s.b[dv][c] = v.x;
-        s.b[dv + 1][c] = v.y;
-        s.b[dv + 2][c] = v.z;
-        s.b[dv + 3][c] = v.w;
-      }
-    }
-    __syncthreads();
-    f32_stage(s, ty, tx, acc);
-    __syncthreads();
-  }
-}
-
-// Four bf16 values of row m at a thread's four columns (8-byte load).
-__device__ __forceinline__ void load4(const ColRef& c, long long m,
-                                      float (&v)[4]) {
-  const uint2 u = *reinterpret_cast<const uint2*>(c.x + m * c.ld);
-  v[0] = __bfloat162float(__ushort_as_bfloat16((unsigned short)(u.x & 0xFFFF)));
-  v[1] = __bfloat162float(__ushort_as_bfloat16((unsigned short)(u.x >> 16)));
-  v[2] = __bfloat162float(__ushort_as_bfloat16((unsigned short)(u.y & 0xFFFF)));
-  v[3] = __bfloat162float(__ushort_as_bfloat16((unsigned short)(u.y >> 16)));
-}
-
-// Per-column BN constants of the backward at column k: mean, inv_sigma,
-// scale (stat rows 0-2) and bias.
-struct BnCol {
-  float mu[4], is[4], sc[4], b[4];
-};
-
-__device__ __forceinline__ void bn_col(const float* __restrict__ stat,
-                                       const float* __restrict__ bias,
-                                       int Ctot, int k, BnCol& c) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    c.mu[j] = stat[k + j];
-    c.is[j] = stat[Ctot + k + j];
-    c.sc[j] = stat[2 * Ctot + k + j];
-    c.b[j] = bias[k + j];
   }
 }
 
@@ -357,6 +193,66 @@ __device__ __forceinline__ void split3(float v, unsigned short& a,
   c = __bfloat16_as_ushort(__float2bfloat16(r2));
 }
 
+// W's rows c0 .. c0 + ROWS (float32 (Ctot, N)) split once into three bf16
+// planes at ``smem``: plane k's row cl (concat column c0 + cl) at byte
+// (k * ROWS + cl) * (np + 8) * 2, its N values contiguous; zero past Ctot
+// and N.
+template <int ROWS>
+__device__ __forceinline__ void split_w_planes(unsigned char* smem,
+                                               const float* __restrict__ w,
+                                               int Ctot, int N, int c0, int np,
+                                               int tid, int nthr) {
+  const int gs = np + 8, wpl = ROWS * gs * 2;
+  for (int i = tid; i < ROWS * np / 4; i += nthr) {
+    const int cl = i / (np / 4), n = (i - cl * (np / 4)) * 4;
+    const int c = c0 + cl;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (c < Ctot && n < N)
+      v = *reinterpret_cast<const float4*>(w + (long long)c * N + n);
+    const float vv[4] = {v.x, v.y, v.z, v.w};
+    unsigned short q[3][4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) split3(vv[e], q[0][e], q[1][e], q[2][e]);
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      *reinterpret_cast<uint2*>(smem + k * wpl + (cl * gs + n) * 2) =
+          make_uint2(q[k][0] | ((unsigned)q[k][1] << 16),
+                     q[k][2] | ((unsigned)q[k][3] << 16));
+  }
+}
+
+// acc[i][j] += (g W^T) over a warp's MI m16 row tiles (g rows row0 + 16i
+// .. of the staged g at ``gb``, row stride np + 8) and two n8 column tiles
+// (W plane rows col0 + 8j ..): A = g and B = the planes by ldmatrix,
+// kk over np / 16 outer and the three planes inner. bwd_reduce and bwd_dx
+// both sum in this order, so their g_y are the same bits.
+template <int MI>
+__device__ __forceinline__ void gw_product(float (&acc)[MI][2][4],
+                                           uint32_t gb, uint32_t wb, int np,
+                                           int wpl, int row0, int col0,
+                                           int lane) {
+  const int gs = np + 8, mat = lane >> 3;
+  for (int kk = 0; kk < np / 16; ++kk) {
+    uint32_t a[MI][4];
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+      ldsm_x4(a[i], gb + ((row0 + 16 * i + (lane & 15)) * gs) * 2 +
+                        kk * 32 + (lane >> 4) * 16);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      uint32_t b[4];
+      ldsm_x4(b, wb + k * wpl +
+                     ((col0 + (mat >> 1) * 8 + (lane & 7)) * gs) * 2 +
+                     kk * 32 + (mat & 1) * 16);
+#pragma unroll
+      for (int i = 0; i < MI; ++i) {
+        mma16816(acc[i][0], a[i], b[0], b[1]);
+        mma16816(acc[i][1], a[i], b[2], b[3]);
+      }
+    }
+  }
+}
+
 template <int NB8>
 __global__ void __launch_bounds__(kRdThreads, 2)
     tb_bwd_reduce_kernel(const long long* __restrict__ tbl, int G,
@@ -421,22 +317,7 @@ __global__ void __launch_bounds__(kRdThreads, 2)
     sst[2 * kRdCols + tid] = ok ? stat[2 * Ctot + c] : 0.f;
     sst[3 * kRdCols + tid] = ok ? bias[c] : 0.f;
   }
-  for (int i = tid; i < kRdCols * np / 4; i += kRdThreads) {
-    const int cl = i / (np / 4), n = (i - cl * (np / 4)) * 4;
-    const int c = c0 + cl;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (c < Ctot && n < N)
-      v = *reinterpret_cast<const float4*>(w + (long long)c * N + n);
-    const float vv[4] = {v.x, v.y, v.z, v.w};
-    unsigned short q[3][4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) split3(vv[e], q[0][e], q[1][e], q[2][e]);
-#pragma unroll
-    for (int k = 0; k < 3; ++k)
-      *reinterpret_cast<uint2*>(smem + k * wpl + (cl * gs + n) * 2) =
-          make_uint2(q[k][0] | ((unsigned)q[k][1] << 16),
-                     q[k][2] | ((unsigned)q[k][3] << 16));
-  }
+  split_w_planes<kRdCols>(smem, w, Ctot, N, c0, np, tid, kRdThreads);
   __syncthreads();
   float mu[8], is[8], sc[8], bb[8];
 #pragma unroll
@@ -551,25 +432,7 @@ __global__ void __launch_bounds__(kRdThreads, 2)
       for (int j = 0; j < 2; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) gw[i][j][e] = 0.f;
-    for (int kk = 0; kk < np / 16; ++kk) {
-      uint32_t a[kRdMI][4];
-#pragma unroll
-      for (int i = 0; i < kRdMI; ++i)
-        ldsm_x4(a[i], gb_ + ((gr0 + 16 * i + (lane & 15)) * gs) * 2 +
-                          kk * 32 + (lane >> 4) * 16);
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        uint32_t b[4];
-        ldsm_x4(b, s0 + k * wpl +
-                       ((gc * 16 + (mat >> 1) * 8 + (lane & 7)) * gs) * 2 +
-                       kk * 32 + (mat & 1) * 16);
-#pragma unroll
-        for (int i = 0; i < kRdMI; ++i) {
-          mma16816(gw[i][0], a[i], b[0], b[1]);
-          mma16816(gw[i][1], a[i], b[2], b[3]);
-        }
-      }
-    }
+    gw_product<kRdMI>(gw, gb_, s0, np, wpl, gr0, gc * 16, lane);
 #pragma unroll
     for (int i = 0; i < kRdMI; ++i)
 #pragma unroll
@@ -637,65 +500,159 @@ __global__ void __launch_bounds__(kRdThreads, 2)
 }
 
 // ---------------------------------------------------------------------------
-// tb_bwd_dx: per 64-row x 64-column tile, g_r = g W^T (float32 FMA), then
-//   dx = (scale * inv_sigma) * ((g_y - mean(g_y)) - x_hat * mean(g_y x_hat))
-// rounded once to bf16 into the group's dx tensor (red = [mean g_y;
-// mean g_y x_hat], the reduce kernel's sums over M).
+// tb_bwd_dx: the input cotangents, for each group's dx (bf16)
+//   dx = (scale * inv_sigma) * ((g_y - red0) - x_hat * red1),
+//   g_y = [y > 0] (g W^T)[m, c],
+// red = [mean g_y; mean g_y x_hat] (tb_bwd_reduce's sums over M), x_hat and
+// y recomputed as in tb_bwd_reduce. The plan is the wrapper's
+// (train_bottleneck.py::dx_plan):
+// - persistent blocks of 8 warps, two an SM; block b keeps the column group
+//   b % ngrp of kDxCols concat columns: its W rows split once into three
+//   bf16 planes in shared memory (split_w_planes, 52 KB at N = 128), its
+//   x and dx chunks resolved from the table once into shared memory, and
+//   the BN constants of each thread's four columns in registers;
+// - it walks kDxRows-row steps b / ngrp, + grid / ngrp, ...: the ngrp
+//   blocks that share a step run side by side, so g's rows come from HBM
+//   about once, not once per column group;
+// - a step's x chunks and g rows arrive by cp.async, the next step's
+//   loading while this one computes;
+// - g W^T on the tensor cores (gw_product: warp (wr, wc) owns rows wr*32 ..
+//   +32 and columns wc*16 .. +16), float32-exact through the split, in
+//   tb_bwd_reduce's order;
+// - the epilogue runs on the accumulators: x from the staged tile, the
+//   recompute, the gate and the jacobian, each result rounded to bf16 in
+//   place of its x; the tile then leaves as 16-byte rows into each chunk's
+//   dx tensor.
+// Two other designs measured slower at r=64 (PERF.md section 6): each
+// warp's B fragments held in registers (183 of them; one block an SM, four
+// stages), and x read and dx written by each thread straight from and to
+// global memory (one barrier a step, three g stages).
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(kThreads)
-    tb_bwd_dx_kernel(const long long* __restrict__ tbl, int G, long long M,
+constexpr int kDxRows = 64;            // rows of a step
+constexpr int kDxCols = 64;            // concat columns of a block
+constexpr int kDxXS = kDxCols + 8;     // x tile row stride, elements
+constexpr int kDxChunks = kDxCols / 8;
+
+struct DxPlan {
+  int ngrp;         // column groups of kDxCols
+  int np;           // outputs (the product's depth) zero-padded to 16
+  int tbl_off;      // shared-memory byte offsets: the x then dx chunks,
+  int stage_off;    //   the first x / g stage,
+  int stage_bytes;  //   bytes per stage (two stages),
+  int g_off;        //   the g rows within a stage
+};
+
+__global__ void __launch_bounds__(kThreads, 2)
+    tb_bwd_dx_kernel(const long long* __restrict__ tbl, int G, int M,
                      int Ctot, const bf16* __restrict__ g, long long ldg,
                      int N, const float* __restrict__ stat,
                      const float* __restrict__ bias,
                      const float* __restrict__ red,
-                     const float* __restrict__ w) {
-  __shared__ F32Smem s;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const long long r0 = (long long)blockIdx.x * kT;
-  const int k0 = blockIdx.y * kT;
-  float acc[4][4];
-  gw_tile(s, g, ldg, M, N, w, Ctot, r0, k0, acc);
-  const int k = k0 + tx * 4;
-  if (k >= Ctot) return;
-  const long long* t = group_of(tbl, G, k);
-  const ColRef c{reinterpret_cast<const bf16*>(t[0]) + (k - t[3]), t[1]};
-  bf16* dx = reinterpret_cast<bf16*>(t[4]) + (k - t[3]);
-  const long long lddx = t[5];
-  BnCol bc;
-  bn_col(stat, bias, Ctot, k, bc);
-  float coef[4], r0m[4], r1m[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    coef[j] = __fmul_rn(bc.sc[j], bc.is[j]);
-    r0m[j] = red[k + j];
-    r1m[j] = red[Ctot + k + j];
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long m = r0 + ty * 4 + i;
-    if (m >= M) continue;
-    float x[4];
-    load4(c, m, x);
-    unsigned short o[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float xh = xhat_of(x[j], bc.mu[j], bc.is[j]);
-      const float gy = ybn_of(xh, bc.sc[j], bc.b[j]) > 0.f ? acc[i][j] : 0.f;
-      const float v = __fsub_rn(__fsub_rn(gy, r0m[j]), __fmul_rn(xh, r1m[j]));
-      o[j] = hi(__fmul_rn(coef[j], v));
-    }
-    *reinterpret_cast<uint2*>(dx + m * lddx) =
-        make_uint2(o[0] | ((unsigned)o[1] << 16), o[2] | ((unsigned)o[3] << 16));
-  }
-}
+                     const float* __restrict__ w, DxPlan p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t s0 = smem_u32(smem);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int c0 = (blockIdx.x % p.ngrp) * kDxCols;
+  const int steps = (M + kDxRows - 1) / kDxRows;
+  const int first = blockIdx.x / p.ngrp, stride = gridDim.x / p.ngrp;
+  if (first >= steps) return;
+  const int Q = (steps - 1 - first) / stride + 1;
+  const int np = p.np, gs = np + 8, wpl = kDxCols * gs * 2;
+  Chunk* ch = reinterpret_cast<Chunk*>(smem + p.tbl_off);   // x, then dx
 
-template <int BN, int WARPS_N>
-void launch_apply(const long long* tbl, int G, long long M, int Ctot,
-                  const float* inv, const float* shift, const bf16* w, int N,
-                  OutView out, cudaStream_t st) {
-  const dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((N + BN - 1) / BN));
-  tb_apply_kernel<BN, WARPS_N><<<grid, kThreads, 0, st>>>(
-      tbl, G, M, Ctot, inv, shift, w, N, out);
+  if (tid < 2 * kDxChunks)
+    ch[tid] = table_chunk(tbl, G, Ctot, c0 + (tid % kDxChunks) * 8,
+                          tid < kDxChunks ? 0 : 4);
+  __syncthreads();
+  const auto issue = [&](int q) {
+    const int m0 = (first + q * stride) * kDxRows;
+    const uint32_t base = s0 + p.stage_off + (q & 1) * p.stage_bytes;
+    load_chunks(base, ch, M, m0, kDxRows, kDxCols, tid, kThreads);
+    const int gv = np / 8;
+    for (int i = tid; i < kDxRows * gv; i += kThreads) {
+      const int r = i / gv, j = i - r * gv;
+      const bool ok = m0 + r < M && j * 8 < N;
+      cp_async16(base + p.g_off + (r * gs + j * 8) * 2,
+                 ok ? g + (long long)(m0 + r) * ldg + j * 8 : g, ok ? 16 : 0);
+    }
+    cp_async_commit();
+  };
+  issue(0);
+  split_w_planes<kDxCols>(smem, w, Ctot, N, c0, np, tid, kThreads);
+
+  // warp (wr, wc): rows wr*32 .. +32, columns wc*16 .. +16; this lane's
+  // four columns wc*16 + 8j + 2(lane & 3) + e and their BN constants
+  const int wr = warp & 1, wc = warp >> 1;
+  float mu[2][2], is[2][2], sc[2][2], bb[2][2], r0[2][2], r1[2][2],
+      cf[2][2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int c = c0 + wc * 16 + 8 * j + 2 * (lane & 3) + e;
+      const bool ok = c < Ctot;
+      mu[j][e] = ok ? stat[c] : 0.f;
+      is[j][e] = ok ? stat[Ctot + c] : 0.f;
+      sc[j][e] = ok ? stat[2 * Ctot + c] : 0.f;
+      bb[j][e] = ok ? bias[c] : 0.f;
+      r0[j][e] = ok ? red[c] : 0.f;
+      r1[j][e] = ok ? red[Ctot + c] : 0.f;
+      cf[j][e] = __fmul_rn(sc[j][e], is[j][e]);
+    }
+
+  for (int q = 0; q < Q; ++q) {
+    cp_async_wait<0>();
+    __syncthreads();   // step q (and the planes) landed; step q-1 stored
+    if (q + 1 < Q) issue(q + 1);
+    const int m0 = (first + q * stride) * kDxRows;
+    const int sb = p.stage_off + (q & 1) * p.stage_bytes;
+    float acc[2][2][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+    gw_product<2>(acc, s0 + sb + p.g_off, s0, np, wpl, wr * 32, wc * 16,
+                  lane);
+
+    // the epilogue, each dx in place of its x
+    bf16* xt = reinterpret_cast<bf16*>(smem + sb);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wr * 32 + 16 * i + (lane >> 2) + 8 * h;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          uint32_t* px = reinterpret_cast<uint32_t*>(
+              xt + r * kDxXS + wc * 16 + 8 * j + 2 * (lane & 3));
+          const uint32_t xv = *px;
+          const float x2[2] = {__uint_as_float(xv << 16),
+                               __uint_as_float(xv & 0xffff0000u)};
+          unsigned short o[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float xh = xhat_of(x2[e], mu[j][e], is[j][e]);
+            const float gy = ybn_of(xh, sc[j][e], bb[j][e]) > 0.f
+                                 ? acc[i][j][2 * h + e] : 0.f;
+            const float v = __fsub_rn(__fsub_rn(gy, r0[j][e]),
+                                      __fmul_rn(xh, r1[j][e]));
+            o[e] = hi(__fmul_rn(cf[j][e], v));
+          }
+          *px = o[0] | ((uint32_t)o[1] << 16);
+        }
+      }
+    __syncthreads();
+    for (int i = tid; i < kDxRows * kDxChunks; i += kThreads) {
+      const int r = i / kDxChunks, v = i - r * kDxChunks;
+      const Chunk d = ch[kDxChunks + v];
+      if (m0 + r < M && d.ptr)
+        *reinterpret_cast<uint4*>(reinterpret_cast<bf16*>(d.ptr) +
+                                  (long long)(m0 + r) * d.ld) =
+            *reinterpret_cast<const uint4*>(xt + r * kDxXS + v * 8);
+    }
+  }
 }
 
 template <int NB8>
@@ -746,26 +703,6 @@ int cunet_tb_stats(const void* tbl, int G, long long M, int Ctot,
   return (int)cudaGetLastError();
 }
 
-int cunet_tb_apply(const void* tbl, int G, long long M, int Ctot,
-                   const void* inv, const void* shift, const void* w, int N,
-                   void* out, long long ldo, void* stream) {
-  const auto st = static_cast<cudaStream_t>(stream);
-  const auto* tp = static_cast<const long long*>(tbl);
-  const OutView ov{static_cast<bf16*>(out), ldo, M, 0};
-  const auto* ip = static_cast<const float*>(inv);
-  const auto* sp = static_cast<const float*>(shift);
-  const auto* wp = static_cast<const bf16*>(w);
-  if (N <= 16)
-    launch_apply<16, 1>(tp, G, M, Ctot, ip, sp, wp, N, ov, st);
-  else if (N <= 32)
-    launch_apply<32, 2>(tp, G, M, Ctot, ip, sp, wp, N, ov, st);
-  else if (N <= 64)
-    launch_apply<64, 2>(tp, G, M, Ctot, ip, sp, wp, N, ov, st);
-  else
-    launch_apply<128, 2>(tp, G, M, Ctot, ip, sp, wp, N, ov, st);
-  return (int)cudaGetLastError();
-}
-
 int cunet_tb_bwd_reduce(const void* tbl, int G, long long M, int Ctot,
                         const void* g, long long ldg, int N, const void* stat,
                         const void* bias, const void* w, long long chunk,
@@ -798,15 +735,20 @@ int cunet_tb_bwd_reduce(const void* tbl, int G, long long M, int Ctot,
 int cunet_tb_bwd_dx(const void* tbl, int G, long long M, int Ctot,
                     const void* g, long long ldg, int N, const void* stat,
                     const void* bias, const void* red, const void* w,
-                    void* stream) {
-  const auto st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((unsigned)((M + kT - 1) / kT),
-                  (unsigned)((Ctot + kT - 1) / kT));
-  tb_bwd_dx_kernel<<<grid, kThreads, 0, st>>>(
-      static_cast<const long long*>(tbl), G, M, Ctot,
+                    int ngrp, int np, int tbl_off, int stage_off,
+                    int stage_bytes, int g_off, int smem, void* stream) {
+  const DxPlan p{ngrp, np, tbl_off, stage_off, stage_bytes, g_off};
+  const int items = (int)((M + kDxRows - 1) / kDxRows) * ngrp;
+  int grid = 0;
+  const int e = persistent_grid(tb_bwd_dx_kernel, items, kThreads, smem,
+                                ngrp, &grid);
+  if (e) return e;
+  tb_bwd_dx_kernel<<<grid, kThreads, smem,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const long long*>(tbl), G, (int)M, Ctot,
       static_cast<const bf16*>(g), ldg, N, static_cast<const float*>(stat),
       static_cast<const float*>(bias), static_cast<const float*>(red),
-      static_cast<const float*>(w));
+      static_cast<const float*>(w), p);
   return (int)cudaGetLastError();
 }
 

@@ -29,7 +29,14 @@ namespace {
 // tile_rows = M, one [inv; shift] pair). With bits > 0 the bf16 prologue
 // value goes through the QuanInput quantizer (``quan``; the train head).
 // epi is the identity or, with BIAS, relu(. + bias[n]) (the folded BN2),
-// in f32 before the one bf16 rounding.
+// in f32 before the one bf16 rounding. x is the prefix of a strided
+// channel-plane view or, in the table form (TABLE: #7's apply,
+// cunet_tb_apply, one [inv; shift] pair, no epilogue), the virtual concat
+// of feature groups read through #7's feature table (halo.cuh): the block
+// resolves its K / 8 chunks once into shared memory past the output
+// stages, and each 16-byte cp.async reads its chunk from its group's
+// tensor at that group's row stride. Everything after the loads is the
+// same code, so apply gives affine_dot's bits over the concat.
 //
 // Design (the plan is the wrapper's, kernels/buf_ops.py::affine_dot_plan):
 // - Persistent blocks of 8 warps, each block keeping one group of ncol
@@ -90,14 +97,15 @@ __device__ __forceinline__ void dot_swizzle(int nt, int& sh, int& mk) {
   }
 }
 
-template <int NTW, bool BIAS>
+template <int NTW, bool BIAS, bool TABLE>
 __global__ void __launch_bounds__(kThreads)
     affine_dot_kernel(const bf16* __restrict__ x, long long ldx, int M,
                       int K, const float* __restrict__ inv,
                       const float* __restrict__ shift, long long vstride,
                       int tile_rows, int bits, const bf16* __restrict__ w,
                       int ldw, int N, const float* __restrict__ bias,
-                      OutView out, DotPlan p) {
+                      OutView out, DotPlan p,
+                      const long long* __restrict__ tbl, int G) {
   extern __shared__ __align__(128) unsigned char smem[];
   constexpr int SS = NTW * 8 + 8;   // output stage row stride, elements
   const uint32_t s0 = smem_u32(smem);
@@ -122,9 +130,21 @@ __global__ void __launch_bounds__(kThreads)
                ok ? w + (long long)r * ldw + n : w, ok ? 16 : 0);
   }
   cp_async_commit();
+  // the table form: the K / 8 chunks resolved once, past the output stages
+  Chunk* chunks = reinterpret_cast<Chunk*>(smem + p.out_off +
+                                           kWarps * 16 * SS * 2);
+  if constexpr (TABLE) {
+    for (int v = tid; v < p.kp / 8; v += kThreads)
+      chunks[v] = table_chunk(tbl, G, K, v * 8, 0);
+    __syncthreads();
+  }
   const auto issue = [&](int q) {
-    load_halo(s0 + p.w_bytes + (q % p.stages) * p.stage_bytes, x, ldx, M, K,
-              (first + q * stride) * p.bm, p.bm, 0, p.kp, tid, kThreads);
+    if constexpr (TABLE)
+      load_chunks(s0 + p.w_bytes + (q % p.stages) * p.stage_bytes, chunks, M,
+                  (first + q * stride) * p.bm, p.bm, p.kp, tid, kThreads);
+    else
+      load_halo(s0 + p.w_bytes + (q % p.stages) * p.stage_bytes, x, ldx, M, K,
+                (first + q * stride) * p.bm, p.bm, 0, p.kp, tid, kThreads);
     cp_async_commit();
   };
   for (int q = 0; q < Q && q < p.stages - 1; ++q) issue(q);
@@ -556,14 +576,32 @@ int launch_affine_dot(const bf16* x, long long ldx, int M, int K, VecArgs v,
                       OutView out, const DotPlan& p, int smem,
                       cudaStream_t st) {
   const int items = (M + p.bm - 1) / p.bm * p.ngrp;
-  auto kern = bias ? affine_dot_kernel<NTW, true>
-                   : affine_dot_kernel<NTW, false>;
+  auto kern = bias ? affine_dot_kernel<NTW, true, false>
+                   : affine_dot_kernel<NTW, false, false>;
   int grid = 0;
   const int e = persistent_grid(kern, items, kThreads, smem, p.ngrp, &grid);
   if (e) return e;
   kern<<<grid, kThreads, smem, st>>>(x, ldx, M, K, v.inv, v.shift,
                                      v.vstride, (int)v.tile_rows, v.bits, w,
-                                     ldw, N, bias, out, p);
+                                     ldw, N, bias, out, p, nullptr, 0);
+  return (int)cudaGetLastError();
+}
+
+// The table form (#7's apply): one [inv; shift] pair for all M rows, no
+// epilogue, x read through the feature table; ``smem`` includes the
+// resolved chunks.
+template <int NTW>
+int launch_affine_dot_table(const long long* tbl, int G, int M, int K,
+                            const float* inv, const float* shift,
+                            const bf16* w, int N, OutView out,
+                            const DotPlan& p, int smem, cudaStream_t st) {
+  const int items = (M + p.bm - 1) / p.bm * p.ngrp;
+  auto kern = affine_dot_kernel<NTW, false, true>;
+  int grid = 0;
+  const int e = persistent_grid(kern, items, kThreads, smem, p.ngrp, &grid);
+  if (e) return e;
+  kern<<<grid, kThreads, smem, st>>>(nullptr, 0, M, K, inv, shift, 0, M, 0,
+                                     w, N, N, nullptr, out, p, tbl, G);
   return (int)cudaGetLastError();
 }
 
@@ -613,6 +651,31 @@ int cunet_affine_dot(const void* x, long long ldx, long long M, int K,
     CUNET_DOT_NTW(1) CUNET_DOT_NTW(2) CUNET_DOT_NTW(3) CUNET_DOT_NTW(4)
     CUNET_DOT_NTW(5) CUNET_DOT_NTW(6) CUNET_DOT_NTW(7) CUNET_DOT_NTW(8)
 #undef CUNET_DOT_NTW
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+int cunet_tb_apply(const void* tbl, int G, long long M, int K,
+                   const void* inv, const void* shift, const void* w, int N,
+                   void* out, long long ldo, int bm, int ncol, int ngrp,
+                   int ntw, int kp, int stages, int w_bytes, int stage_bytes,
+                   int out_off, int smem, void* stream) {
+  const OutView ov{static_cast<bf16*>(out), ldo, M, 0};
+  const DotPlan p{bm, ncol, ngrp, kp, stages, w_bytes, stage_bytes, out_off};
+  const auto* tp = static_cast<const long long*>(tbl);
+  const auto* ip = static_cast<const float*>(inv);
+  const auto* sp = static_cast<const float*>(shift);
+  const auto* wp = static_cast<const bf16*>(w);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const int m = (int)M;
+  switch (ntw) {
+#define CUNET_TDOT_NTW(n)                                                   \
+  case n:                                                                   \
+    return launch_affine_dot_table<n>(tp, G, m, K, ip, sp, wp, N, ov, p,    \
+                                      smem, st);
+    CUNET_TDOT_NTW(1) CUNET_TDOT_NTW(2) CUNET_TDOT_NTW(3) CUNET_TDOT_NTW(4)
+    CUNET_TDOT_NTW(5) CUNET_TDOT_NTW(6) CUNET_TDOT_NTW(7) CUNET_TDOT_NTW(8)
+#undef CUNET_TDOT_NTW
   }
   return (int)cudaErrorInvalidValue;
 }

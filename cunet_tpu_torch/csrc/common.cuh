@@ -1,7 +1,8 @@
 // Pieces shared by the hand-written CUDA kernels of cunet_tpu_torch: 16-byte
-// bf16 vectors, the 128-row WMMA tile layout, shared-memory staging and the
-// bf16 output epilogue. Included by every .cu file of this directory; each
-// translation unit gets its own copy (anonymous namespace).
+// bf16 vectors, the output view, the BN prologue and QuanInput's quantizer,
+// and the 128-row WMMA tile layout of the feature-table and int8 kernels.
+// Included by every .cu file of this directory; each translation unit gets
+// its own copy (anonymous namespace).
 
 #pragma once
 
@@ -130,8 +131,9 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
   return h;
 }
 
-// Tile shapes shared by the two GEMM kernels: BM x BN per block, the 8 warps
-// laid out WARPS_M x WARPS_N, each warp owning FM x FN 16x16 fragments.
+// Tile shapes of the WMMA kernels (eval_kernels.cu's table_dot, the int8
+// kernels of quant_kernels.cu): BM x BN per block, the 8 warps laid out
+// WARPS_M x WARPS_N, each warp owning FM x FN 16x16 fragments.
 template <int BN, int WARPS_N>
 struct Tiles {
   static constexpr int WARPS_M = kWarps / WARPS_N;
@@ -141,88 +143,5 @@ struct Tiles {
   static constexpr int FN = WN / 16;
   static_assert(FM >= 1 && FN >= 1, "tile too small for 16x16 fragments");
 };
-
-template <int BN, int WARPS_N>
-struct Smem {
-  __align__(128) bf16 a[BM][BK + kPad];
-  __align__(128) bf16 b[BK][BN + kPad];
-  __align__(128) float stage[kWarps][16 * 16];
-};
-
-// One BK-deep step of the block's tile product from shared memory.
-template <int BN, int WARPS_N>
-__device__ __forceinline__ void mma_stage(
-    Smem<BN, WARPS_N>& s, int wm, int wn,
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> (
-        &acc)[Tiles<BN, WARPS_N>::FM][Tiles<BN, WARPS_N>::FN]) {
-  using T = Tiles<BN, WARPS_N>;
-#pragma unroll
-  for (int kk = 0; kk < BK; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[T::FM];
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[T::FN];
-#pragma unroll
-    for (int i = 0; i < T::FM; ++i)
-      wmma::load_matrix_sync(fa[i], &s.a[wm * T::WM + i * 16][kk], BK + kPad);
-#pragma unroll
-    for (int j = 0; j < T::FN; ++j)
-      wmma::load_matrix_sync(fb[j], &s.b[kk][wn * T::WN + j * 16], BN + kPad);
-#pragma unroll
-    for (int i = 0; i < T::FM; ++i)
-#pragma unroll
-      for (int j = 0; j < T::FN; ++j)
-        wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-  }
-}
-
-// Rows [k0, k0+BK) x cols [n0, n0+BN) of a row-major (K, N) bf16 weight into
-// shared memory; zero outside the matrix.
-template <int BN, int WARPS_N>
-__device__ __forceinline__ void load_b(Smem<BN, WARPS_N>& s,
-                                       const bf16* __restrict__ w, int ldw,
-                                       int k0, int K, int n0, int N) {
-  for (int c = threadIdx.x; c < BK * BN / 8; c += kThreads) {
-    const int r = c / (BN / 8), nc = (c % (BN / 8)) * 8;
-    const int k = k0 + r, n = n0 + nc;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (k < K && n < N)
-      v = *reinterpret_cast<const uint4*>(w + (long long)k * ldw + n);
-    *reinterpret_cast<uint4*>(&s.b[r][nc]) = v;
-  }
-}
-
-// Accumulators -> bf16 output rows, through a per-warp 16x16 f32 stage.
-// With BIAS_RELU the epilogue is relu(acc + bias[n]) (the folded BN2).
-template <int BN, int WARPS_N, bool BIAS_RELU>
-__device__ __forceinline__ void store_tile(
-    Smem<BN, WARPS_N>& s, int wm, int wn, long long m0, int n0, long long M,
-    int N, const float* __restrict__ bias, const OutView& out,
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> (
-        &acc)[Tiles<BN, WARPS_N>::FM][Tiles<BN, WARPS_N>::FN]) {
-  using T = Tiles<BN, WARPS_N>;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  float* st = s.stage[warp];
-  const int r = lane / 2, cc = (lane % 2) * 8;
-#pragma unroll
-  for (int i = 0; i < T::FM; ++i) {
-#pragma unroll
-    for (int j = 0; j < T::FN; ++j) {
-      wmma::store_matrix_sync(st, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      const long long m = m0 + wm * T::WM + i * 16 + r;
-      const int n = n0 + wn * T::WN + j * 16 + cc;
-      if (m < M && n < N) {
-        Pack8 o;
-#pragma unroll
-        for (int t = 0; t < 8; ++t) {
-          float v = st[r * 16 + cc + t];
-          if (BIAS_RELU) v = fmaxf(v + bias[n + t], 0.f);
-          o.u[t] = hi(v);
-        }
-        *reinterpret_cast<uint4*>(out_row(out, m) + n) = o.v;
-      }
-      __syncwarp();
-    }
-  }
-}
 
 }  // namespace

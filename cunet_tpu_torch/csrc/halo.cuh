@@ -1,10 +1,11 @@
 // Pieces shared by the tensor-core kernels: the three 3x3-conv kernels,
 // conv3x3 (buf_kernels.cu), conv3x3_dx and conv3x3_dw (train_kernels.cu),
-// #7's bwd_reduce (bottleneck_kernels.cu), and the 1x1 kernels affine_dot
-// (buf_kernels.cu), affine_dx and affine_dw and the BN backward bn_bwd
-// (train_kernels.cu): asynchronous copies into shared memory (cp.async),
-// ldmatrix loads of 8x8 bf16 tiles, the m16n8k16 bf16 tensor-core product
-// (mma.sync), the halo tile the conv kernels stage, and the launch of a
+// #7's bwd_reduce and bwd_dx (bottleneck_kernels.cu), and the 1x1 kernels
+// affine_dot (buf_kernels.cu; #7's apply is its table form), affine_dx and
+// affine_dw and the BN backward bn_bwd (train_kernels.cu): asynchronous
+// copies into shared memory (cp.async), ldmatrix loads of 8x8 bf16 tiles,
+// the m16n8k16 bf16 tensor-core product (mma.sync), the halo tile the conv
+// kernels stage, #7's feature table and its chunks, and the launch of a
 // persistent kernel.
 //
 // A halo tile holds rows [g0, g0 + rows) of an (M, C) bf16 channel-plane
@@ -214,6 +215,62 @@ __device__ __forceinline__ void halo_prologue(
   vc.lo = vc.hi = 0;
   halo_prologue(s, M, C, g0, rows, c0, kc, inv, shift, vstride, tile_rows,
                 bits, tid, nthr, vc);
+}
+
+// The feature table of #7's kernels (bottleneck_kernels.cu, and apply's
+// table form of affine_dot in buf_kernels.cu) in device memory: one row of
+// kTblCols int64 per group, [x pointer, x row stride, width, column offset
+// in the concat, dx pointer, dx row stride]. Widths and offsets are
+// multiples of 8, so an 8-column chunk of the concat lies in one group.
+constexpr int kTblCols = 6;
+
+// The table row of the group holding concat column k: the last group whose
+// offset is <= k.
+__device__ __forceinline__ const long long* table_group(
+    const long long* __restrict__ tbl, int G, int k) {
+  int g = 0;
+  while (g + 1 < G && k >= (int)tbl[(g + 1) * kTblCols + 3]) ++g;
+  return tbl + g * kTblCols;
+}
+
+// An 8-column chunk of the concat resolved once: the byte address of its
+// first element in row 0 (0 for a chunk at or past Ctot) and its row
+// stride in elements. A block keeps its chunks in shared memory, so the
+// row loop walks no table.
+struct Chunk {
+  long long ptr;
+  long long ld;
+};
+
+// The chunk at concat column k, from the x columns (col 0) or the dx
+// columns (col 4) of its group's table row.
+__device__ __forceinline__ Chunk table_chunk(const long long* __restrict__ tbl,
+                                             int G, int Ctot, int k, int col) {
+  if (k >= Ctot) return {0, 0};
+  const long long* t = table_group(tbl, G, k);
+  return {t[col] + (k - t[3]) * (long long)sizeof(bf16), t[col + 1]};
+}
+
+// load_halo over resolved chunks: rows [g0, g0 + rows) (g0 >= 0) of kc / 8
+// chunks ``ch`` into shared memory at ``dst``, at a row stride of kc +
+// kHaloPad elements; rows at or past M are left unwritten, chunks with no
+// pointer are zero-filled.
+__device__ __forceinline__ void load_chunks(uint32_t dst, const Chunk* ch,
+                                            int M, int g0, int rows, int kc,
+                                            int tid, int nthr) {
+  const int vecs = kc / 8;
+  const int stride = (kc + kHaloPad) * 2;
+  const int r_hi = M - g0 < rows ? M - g0 : rows;
+  const bf16* any = reinterpret_cast<const bf16*>(ch[0].ptr);
+  for (int i = tid; i < r_hi * vecs; i += nthr) {
+    const int r = i / vecs, v = i - r * vecs;
+    const Chunk c = ch[v];
+    cp_async16(dst + r * stride + v * 16,
+               c.ptr ? reinterpret_cast<const bf16*>(c.ptr) +
+                           (long long)(g0 + r) * c.ld
+                     : any,
+               c.ptr ? 16 : 0);
+  }
 }
 
 // Row ``r`` (0 <= r < rows) of a tile starting at output row m0 seen

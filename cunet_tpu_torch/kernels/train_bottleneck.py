@@ -7,12 +7,15 @@ forward runs ``fused_train_bottleneck``: BN with whole-batch statistics ->
 ReLU -> 1x1 conv over the virtual concat of its features, whose backward
 recomputes the normalized activations instead of saving them (activation
 memory O(1) in dense-layer count; the reference's
-``_EfficientDensenetBottleneckFn``). Four hand-written kernels of
-``csrc/bottleneck_kernels.cu``, each beside its plain version:
+``_EfficientDensenetBottleneckFn``). Four hand-written kernels, each
+beside its plain version (``apply`` the table form of
+``csrc/buf_kernels.cu``'s ``affine_dot``, the rest in
+``csrc/bottleneck_kernels.cu``):
 
 - ``stats``: per-channel float32 sum and sum of squares over all rows;
 - ``apply``: relu(x * inv + shift) in float32, rounded to the feature
-  dtype, times the weight rounded to it, float32 accumulation;
+  dtype, times the weight rounded to it, float32 accumulation (the table
+  form of ``buf_ops.affine_dot``'s kernel);
 - ``bwd_reduce``: dW = r^T g and the BN sums [sum g_y; sum g_y x_hat] with
   g_y = [y > 0] (g W^T), r and y recomputed from x;
 - ``bwd_dx``: the input cotangents, recomputing again.
@@ -38,6 +41,7 @@ backward against the unrounded float32 W^T whose ReLU gate reads
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import List, Sequence
 
 import torch
@@ -45,9 +49,11 @@ import torch
 from cunet_tpu_torch.kernels import build
 from cunet_tpu_torch.kernels.buf_ops import (
     SMEM_LIMIT,
+    _check_rows as _check_row_count,
     _check_view,
     _stream,
     _up,
+    affine_dot_plan,
     reset_counts,
 )
 from cunet_tpu_torch.kernels.train_ops import _check_contig_f32, sum_rows
@@ -63,6 +69,12 @@ TABLE_COLS = 6           # x ptr, x row stride, width, offset, dx ptr, dx ld
 REDUCE_COLS = 64
 REDUCE_ROWS = 32
 REDUCE_BLOCKS = 264
+# bwd_dx: rows of a step and concat columns of a block (csrc kDxRows,
+# kDxCols); a table chunk resolved into shared memory (csrc/halo.cuh Chunk:
+# a pointer and a row stride)
+DX_ROWS = 64
+DX_COLS = 64
+CHUNK_BYTES = 16
 
 
 def row_tile(m: int, cap: int = 1024) -> int:
@@ -203,6 +215,12 @@ def apply_plain(xs, vec, w, out, table=None):
     return out
 
 
+def apply_smem(p) -> int:
+    """Shared memory of ``apply``'s launch on ``affine_dot``'s plan ``p``:
+    the plan's, then the K / 8 table chunks the block resolves."""
+    return p.smem + p.kp // 8 * CHUNK_BYTES
+
+
 def apply(xs, vec, w, out, table=None):
     """``out`` (M, Cout) = sum_k bf16(relu(x_k * inv_k + shift_k)) @ w_k,
     ``vec`` the (2, Ctot) float32 [inv; shift], the affine in float32, ``w``
@@ -212,12 +230,14 @@ def apply(xs, vec, w, out, table=None):
 
     Replaces ``cunet_tpu/kernels/train_bottleneck.py::_apply_kernel``.
     Bound by reading the features and writing out (88 MB at K=320 -> 128,
-    M=98,304: 26.3 us). Design: the first, WMMA design of ``affine_dot``
-    (which that kernel has since left for persistent mma.sync blocks;
-    ``csrc/common.cuh``'s ``Smem``, ``mma_stage``, ``load_b`` and
-    ``store_tile``): 128-row bf16 WMMA tiles
-    with the prologue in f32 registers, each A vector read from its
-    group's tensor through the feature table.
+    M=98,304: 26.3 us). Design: ``affine_dot``'s kernel in its table form
+    (``csrc/buf_kernels.cu``, plan ``affine_dot_plan(M, Ctot, Cout)``): the
+    block resolves the table once into shared memory, one (pointer, row
+    stride) per 8-column chunk, and its 16-byte ``cp.async`` copies read
+    each chunk from its group's tensor; the resident weight, the prologue,
+    the ``mma.sync`` products and the epilogue are ``affine_dot``'s, so the
+    result is ``affine_dot`` over ``torch.cat(xs, 1)`` bit for bit. Counted
+    here, not in ``buf_ops.affine_dot.launches``.
     """
     m = xs[0].shape[0]
     _check_rows(xs, m)
@@ -235,11 +255,18 @@ def apply(xs, vec, w, out, table=None):
     if not w.is_contiguous():
         raise ValueError("w must be contiguous")
     _check_contig_f32(vec, "vec", out.device)
+    _check_row_count(m)
     table = _table_of(xs, table)
+    p = affine_dot_plan(m, ctot, n)
+    smem = apply_smem(p)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"apply: K={ctot}, N={n} with its table chunks "
+                         f"needs {smem} bytes of shared memory")
     code = build.lib().cunet_tb_apply(
         table.data_ptr(), len(xs), m, ctot, vec[0].data_ptr(),
         vec[1].data_ptr(), w.data_ptr(), n, out.data_ptr(), out.stride(0),
-        _stream(out))
+        p.bm, p.ncol, p.ngrp, p.ntw, p.kp, p.stages, p.w_bytes,
+        p.stage_bytes, p.out_off, smem, _stream(out))
     build.check(code, "train_bottleneck.apply")
     apply.launches += 1
     return out
@@ -419,6 +446,54 @@ def bwd_dx_plain(xs, g, stat, bias, red, w, dxs, table=None):
     return dxs
 
 
+@dataclasses.dataclass(frozen=True)
+class DxPlan:
+    """How ``bwd_dx``'s kernel cuts M rows and Ctot concat columns:
+    ``ngrp`` column groups of ``DX_COLS``, each kept by the persistent
+    blocks b with b % ngrp == group, which walk steps of ``DX_ROWS`` rows
+    b // ngrp, + grid // ngrp, ...; the outputs (the product's depth)
+    zero-padded to ``np``; shared memory: the group's three W planes at 0,
+    its x then dx table chunks at ``tbl_off``, two x / g stages of
+    ``stage_bytes`` from ``stage_off`` (g at ``g_off`` within one);
+    ``smem`` bytes in all."""
+    ngrp: int
+    np: int
+    tbl_off: int
+    stage_off: int
+    stage_bytes: int
+    g_off: int
+    smem: int
+
+    def steps(self, m: int) -> int:
+        return -(-m // DX_ROWS)
+
+    def items(self, m: int) -> int:
+        return self.steps(m) * self.ngrp
+
+
+@functools.lru_cache(maxsize=None)
+def dx_plan(m: int, ctot: int, n: int) -> DxPlan:
+    """The kernel plan of ``bwd_dx`` at these shapes (a function of them
+    alone; cached): 64-column groups, 64-row steps, two stages. Outputs up
+    to 256 wide; at N <= 128 a block fits in ``buf_ops.SMEM_PAIR`` and two
+    share an SM."""
+    np_ = _up(n, 16)
+    if np_ > 256:
+        raise ValueError(f"bwd_dx takes at most 256 outputs, got {n}")
+    gs = (np_ + 8) * 2                        # bytes of a g / W-plane row
+    tbl_off = 3 * DX_COLS * gs
+    stage_off = _up(tbl_off + 2 * (DX_COLS // 8) * CHUNK_BYTES, 128)
+    g_off = _up(DX_ROWS * (DX_COLS + 8) * 2, 128)
+    stage_bytes = _up(g_off + DX_ROWS * gs, 128)
+    smem = stage_off + 2 * stage_bytes
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"bwd_dx: {n} outputs do not fit {SMEM_LIMIT} "
+                         f"bytes of shared memory")
+    return DxPlan(ngrp=-(-ctot // DX_COLS), np=np_, tbl_off=tbl_off,
+                  stage_off=stage_off, stage_bytes=stage_bytes, g_off=g_off,
+                  smem=smem)
+
+
 def bwd_dx(xs, g, stat, bias, red, w, dxs, table=None):
     """The input cotangents ``dxs`` ((M, c_k) views, each in its feature's
     dtype): scale * inv_sigma * (g_y - red[0] - x_hat * red[1]) with
@@ -427,11 +502,19 @@ def bwd_dx(xs, g, stat, bias, red, w, dxs, table=None):
     ``feature_table(xs, dxs)``, filled here when None.
 
     Replaces ``cunet_tpu/kernels/train_bottleneck.py::_bwd_dx_kernel``.
-    Bound by operations: 2 M Ctot Cout float32 flops (8.1 GFLOP at K=320
-    -> 128: 120 us). Design: a float32 g W^T tile on the CUDA cores per 64
-    rows x 64 columns, the recompute, gate and BN jacobian in its epilogue,
-    each column's result written to its group's dx tensor (through the
-    table).
+    Bound at K=320 -> 128, M=98,304 by bytes: reading x and g and writing
+    dx once, 151 MB in 45 us (the kernel's three bf16 passes of 2 M Ctot
+    Cout take 24 us; the same product as float32 FMA on the CUDA cores
+    120 us). Design (``csrc/bottleneck_kernels.cu``, plan ``dx_plan``):
+    persistent blocks, two an SM, each keeping one group of 64 concat
+    columns (its W rows split once into three bf16 planes in shared
+    memory, its x and dx chunks resolved from the table once) and walking
+    64-row steps beside the blocks of the other groups, so g comes from
+    HBM about once; x and g by ``cp.async`` a step ahead; g W^T on the
+    tensor cores, float32-exact through the split, in ``bwd_reduce``'s
+    order (so the gate takes the bits ``bwd_reduce`` summed); the
+    recompute, gate and BN jacobian on the accumulators, each dx rounded
+    in shared memory and written as 16-byte rows into its group's tensor.
     """
     m = xs[0].shape[0]
     _check_rows(xs, m)
@@ -444,12 +527,16 @@ def bwd_dx(xs, g, stat, bias, red, w, dxs, table=None):
     if g.device.type == "cpu":
         return bwd_dx_plain(xs, g, stat, bias, red, w, dxs)
     _check_contig_f32(red, "red", g.device)
+    _check_row_count(m)
     table = feature_table(xs, dxs) if table is None \
         else _table_of(xs, table)
+    n = g.shape[1]
+    p = dx_plan(m, ctot, n)
     code = build.lib().cunet_tb_bwd_dx(
-        table.data_ptr(), len(xs), m, ctot, g.data_ptr(),
-        g.stride(0), g.shape[1], stat.data_ptr(), bias.data_ptr(),
-        red.data_ptr(), w.data_ptr(), _stream(g))
+        table.data_ptr(), len(xs), m, ctot, g.data_ptr(), g.stride(0), n,
+        stat.data_ptr(), bias.data_ptr(), red.data_ptr(), w.data_ptr(),
+        p.ngrp, p.np, p.tbl_off, p.stage_off, p.stage_bytes, p.g_off, p.smem,
+        _stream(g))
     build.check(code, "train_bottleneck.bwd_dx")
     bwd_dx.launches += 1
     return dxs

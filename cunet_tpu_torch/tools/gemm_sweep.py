@@ -15,10 +15,14 @@ sum limits) and timed by CUDA-graph replay (``chip_smoke.cuda_time_ms``);
 the layout the wrapper's own plan picks is marked.
 
 With ``--ablate`` the plans' own layouts are timed instead on kernels
-built from copies of ``csrc`` with one part of both kernels skipped at
+built from copies of ``csrc`` with one part of the kernels skipped at
 run time (the x / dy loads, the prologue or gate, the products, the
 output stores; the results are then wrong and not checked): the time
-each part adds. Needs a CUDA device.
+each part adds. The ablation also times TPU kernel #7's two GEMMs at the
+smoke's r=64 adapter (K=128+128+32+32 -> 128, batch 24): ``apply``
+(``affine_dot``'s table form, so its parts go with ``affine_dot``'s) and
+``bwd_dx`` (its x / g loads, the recompute and gate of its epilogue,
+its three-plane product, its dx stores). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -41,6 +45,17 @@ ABLATIONS = {
          "    load_halo(s0 + p.w_bytes + (q % p.stages) * p.stage_bytes,",
          "    if (p.kp < 0) load_halo(s0 + p.w_bytes + (q % p.stages) * "
          "p.stage_bytes,"),
+        ("buf_kernels.cu",
+         "      load_chunks(s0 + p.w_bytes + (q % p.stages) * p.stage_bytes,",
+         "      if (p.kp < 0) load_chunks(s0 + p.w_bytes + (q % p.stages) * "
+         "p.stage_bytes,"),
+        ("bottleneck_kernels.cu",
+         "    load_chunks(base, ch, M, m0, kDxRows, kDxCols, tid, kThreads);",
+         "    if (p.np < 0) load_chunks(base, ch, M, m0, kDxRows, kDxCols, "
+         "tid, kThreads);"),
+        ("bottleneck_kernels.cu",
+         "for (int i = tid; i < kDxRows * gv; i += kThreads) {",
+         "for (int i = tid; i < kDxRows * gv - (1 << 30); i += kThreads) {"),
         ("train_kernels.cu",
          "    load_halo(base, dy, ldd, M, N, m0, p.bm, 0, p.np, tid, "
          "kThreads);\n    load_halo(base + p.dy_bytes,",
@@ -52,19 +67,30 @@ ABLATIONS = {
          "    if (p.kp < 0) halo_prologue(reinterpret_cast<bf16*>(smem + sb), "
          "M, K, m0,"),
         ("train_kernels.cu", "    halo_map(gate, M, K, m0,",
-         "    if (p.np < 0) halo_map(gate, M, K, m0,")],
+         "    if (p.np < 0) halo_map(gate, M, K, m0,"),
+        ("bottleneck_kernels.cu",
+         "const float xh = xhat_of(x2[e], mu[j][e], is[j][e]);",
+         "const float xh = p.np < 0 ? xhat_of(x2[e], mu[j][e], is[j][e]) "
+         ": x2[e];"),
+        ("bottleneck_kernels.cu",
+         "const float gy = ybn_of(xh, sc[j][e], bb[j][e]) > 0.f",
+         "const float gy = p.np >= 0 || ybn_of(xh, sc[j][e], bb[j][e]) > 0.f")],
     "no products": [
         ("buf_kernels.cu", "for (int kk = 0; kk < p.kp / 16; ++kk) {",
          "for (int kk = 0; kk < p.kp / 16 - 4096; ++kk) {"),
         ("train_kernels.cu", "for (int kk = 0; kk < p.np / 16; ++kk) {",
-         "for (int kk = 0; kk < p.np / 16 - 4096; ++kk) {")],
+         "for (int kk = 0; kk < p.np / 16 - 4096; ++kk) {"),
+        ("bottleneck_kernels.cu", "    gw_product<2>(acc, s0 + sb + p.g_off,",
+         "    if (p.np < 0) gw_product<2>(acc, s0 + sb + p.g_off,")],
     "no stores": [
         ("buf_kernels.cu",
          "        if (m < M && n < N) {\n          const int img",
          "        if (m < M && n < N && p.kp < 0) {\n          const int img"),
         ("train_kernels.cu",
          "        if (m < M && k < K) {\n          float4 v",
-         "        if (m < M && k < K && p.np < 0) {\n          float4 v")],
+         "        if (m < M && k < K && p.np < 0) {\n          float4 v"),
+        ("bottleneck_kernels.cu", "      if (m0 + r < M && d.ptr)",
+         "      if (m0 + r < M && d.ptr && p.np < 0)")],
 }
 
 
@@ -185,9 +211,20 @@ def sweep(torch, cs) -> None:
                   flush=True)
 
 
+def _tb_cases(torch, cs):
+    """(name, call(fn) -> outputs, bounds) of #7's ``apply`` and ``bwd_dx``
+    at the smoke's r=64 adapter."""
+    o = cs.tb_operands(torch, torch.Generator().manual_seed(9), 64)
+    return [(name, call, bounds)
+            for name, call, bounds, *_ in cs.tb_cases(torch, o)
+            if name in ("apply", "bwd_dx")]
+
+
 def ablate(torch, cs) -> None:
     from cunet_tpu_torch.kernels import build
+    from cunet_tpu_torch.kernels import train_bottleneck as tbk
 
+    tb_cases = _tb_cases(torch, cs)
     csrc, build_dir = build.CSRC, build.BUILD_DIR
     work = Path(tempfile.mkdtemp(prefix="gemm_ablate_"))
     try:
@@ -211,6 +248,16 @@ def ablate(torch, cs) -> None:
                 us, _ = _time(torch, cs, case, p, variant == "full")
                 print(f"ablation [{variant}] {name} {label} K={k}->{n} "
                       f"(bm {p.bm}, stages {p.stages}): {us:.1f} us",
+                      flush=True)
+            for name, call, bounds in tb_cases:
+                kern = getattr(tbk, name)
+                if variant == "full":
+                    ok = cs.output_errors(torch, call(kern),
+                                          call(tbk.PLAIN[kern]), bounds)[2]
+                    cs.require(ok, f"train_bottleneck.{name} disagrees")
+                us = cs.cuda_time_ms(lambda: call(kern)) * 1e3
+                print(f"ablation [{variant}] train_bottleneck.{name} "
+                      f"K=128+128+32+32->128 r=64 batch 24: {us:.1f} us",
                       flush=True)
     finally:
         build.CSRC, build.BUILD_DIR = csrc, build_dir

@@ -994,11 +994,13 @@ def _close_group_sums(got, want, n, widths, rows=False):
 # 136; the up-block adapter at r = 64, 32 and 16 (M <= 24576: there the
 # float32 sum limit is below one bf16 pass's error, so only an exact split
 # of relu(y) and W passes)
-@pytest.mark.parametrize("m,widths,cout", [
-    (216, [8], 8), (1000, [16, 24, 8, 8], 16), (2056, [40, 16], 136),
-    (216, [8] * 20, 16), (98304, [128, 128, 32, 32], 128),
-    (24576, [128, 128, 32, 32], 128), (6144, [128, 128, 32, 32], 128),
-    (6144, [40, 64, 24], 8), (1536, [128, 136], 16)])
+TB_CASES = [(216, [8], 8), (1000, [16, 24, 8, 8], 16), (2056, [40, 16], 136),
+            (216, [8] * 20, 16), (98304, [128, 128, 32, 32], 128),
+            (24576, [128, 128, 32, 32], 128), (6144, [128, 128, 32, 32], 128),
+            (6144, [40, 64, 24], 8), (1536, [128, 136], 16)]
+
+
+@pytest.mark.parametrize("m,widths,cout", TB_CASES)
 def test_train_bottleneck_kernels(gen, m, widths, cout):
     feats, vec, stat, bias, w, g = _tb_operands(gen, m, widths, cout)
     ctot = sum(widths)
@@ -1062,6 +1064,59 @@ def test_bwd_reduce_split_is_exact_on_one_row(gen):
     torch.cuda.synchronize()
     assert want[0][:, hot].abs().min() > 0 and want[1][0].abs().min() > 0
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("m,widths,cout", TB_CASES)
+def test_apply_is_affine_dot_over_the_concat(gen, m, widths, cout):
+    """apply is affine_dot's kernel in its table form: over the features'
+    concat, with the same plan, it gives affine_dot's bits."""
+    feats, vec, _, _, w, _ = _tb_operands(gen, m, widths, cout)
+    w16 = w.bfloat16()
+    got, want = (torch.empty(m, cout, device="cuda", dtype=torch.bfloat16)
+                 for _ in range(2))
+    before = (tbk.apply.launches, buf_ops.affine_dot.launches)
+    tbk.apply(feats, vec, w16, got)
+    torch.cuda.synchronize()
+    assert (tbk.apply.launches, buf_ops.affine_dot.launches) == \
+        (before[0] + 1, before[1])
+    buf_ops.affine_dot(torch.cat(feats, 1), vec, w16, want)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m,widths,cout", TB_CASES)
+def test_bwd_dx_is_exact_under_one_hot_cotangents(gen, m, widths, cout):
+    """Every row passes the gate (x > 0, mean and bias 0, scale > 0) and
+    row m's cotangent is one-hot at n_m = m % Cout, with red = 0: then
+    g_y = W[c, n_m] exactly and dx = bf16(scale * inv_sigma * W[c, n_m]),
+    one rounding of exact values, so the kernel must give the plain
+    version's bits. W rounded to bf16 (one pass instead of the three-way
+    split) changes a share of them."""
+    ctot = sum(widths)
+    feats = [(torch.rand(m, c, generator=gen) * 3 + 0.1).to(
+        "cuda", torch.bfloat16) for c in widths]
+    if len(feats) > 1:
+        feats[1] = torch.cat([feats[1], feats[1][:, :8]], 1)[:, :widths[1]]
+    stat = torch.stack([torch.zeros(ctot),
+                        torch.rand(ctot, generator=gen) + 0.5,
+                        torch.rand(ctot, generator=gen) + 0.5]).cuda()
+    bias = torch.zeros(ctot, device="cuda")
+    red = torch.zeros(2, ctot, device="cuda")
+    w = torch.randn(ctot, cout, generator=gen).cuda()
+    g = torch.zeros(m, cout, device="cuda", dtype=torch.bfloat16)
+    g[torch.arange(m), torch.arange(m) % cout] = 1
+    outs = []
+    for fn, wk in ((tbk.bwd_dx, w), (tbk.bwd_dx_plain, w),
+                   (tbk.bwd_dx_plain, w.bfloat16().float())):
+        dxs = [torch.empty(m, c, device="cuda", dtype=torch.bfloat16)
+               for c in widths]
+        fn(feats, g, stat, bias, red, wk, dxs)
+        outs.append(torch.cat(dxs, 1))
+    torch.cuda.synchronize()
+    got, want, one_pass = outs
+    assert want.abs().min() > 0
+    assert torch.equal(got, want)
+    assert (one_pass != want).sum() > 0.05 * want.numel()
 
 
 def test_train_bottleneck_wrappers_raise(gen):

@@ -101,7 +101,7 @@ Phases, each printing one line (or a few) before the last:
    (its 1x1 convs on #10, its down blocks' adapter pairs on the float
    dual kernel); the 68-class head (the 300-W face model) on the
    whole-model float and int8 paths, the per-slot path and the slot train
-   step; an f32 model on a kernel path raises.
+   step; f32 training and the f32 quantized eval on a kernel path raise.
 11. per-block eval (TPU kernel #5) and the value-carried whole-model
    evals (#3, #2): ``table_dot``'s three forms of #5 at the CU-Net-8 @256
    shapes of batch 8 and 64 against their plain versions (``[up]``, an up
@@ -118,6 +118,20 @@ Phases, each printing one line (or a few) before the last:
    per-slot and whole-model paths; #3 and #2 on the whole-model kernels,
    their anchored heads bit for bit the whole-model path's, every head of
    #3 near its plain versions.
+12. float32 serving (``compute_dtype="float32"``, JAX's default and the
+   dtype of the converted reference weights): the float32 forms of the
+   eval kernels (``affine_dot``, ``conv3x3`` and ``table_dot`` in every
+   form on ``csrc/f32_kernels.cu``, float32-accurate through the exact
+   three-way bf16 split of both operands; ``maxpool2`` / ``upsample2``)
+   against their plain versions at float32 within the float32 n-term
+   limit at r = 64 ... 4 (batch 8) and r=64 (batch 64), bit for bit under
+   one-hot weights, timed beside their bound and ``torch.mm`` of the
+   float32 product alone (or the library call); then CU-Net-8 @256 at
+   float32 served through ``Predictor`` with ``use_pallas`` on the
+   whole-model, per-slot and per-block paths (requests of 8 and 5, every
+   float32 form launched), each anchor within relative L2 1e-4 of the
+   plain path at float32 at batch 8 and 64, the per-slot path bit for bit
+   the whole-model path, forward ms and img/s of each.
 
 The line before the last is a JSON object with each kernel's launches,
 error, times, the least time the card could take for the same work and
@@ -657,7 +671,9 @@ def train_kernel_cases(torch, tops, bops, gen):
              f(yb, w3, n, r, r, o, vec=vb), ("bf16",),
              work(sz(m, cb) + vec_bytes(cb) + sz(9 * cb, g) + sz(m, g),
                   conv_ops),
-             None, None),
+             None, (lambda yb=yb, w_oihw=w_oihw, r=r: torch.nn.functional
+                    .conv2d(nchw(yb, r), w_oihw, padding=1))
+             if r == 64 else None),
             (tops.conv3x3_dx, f"32->128 r={r}", f32(m, cb),
              lambda f, o, yb=yb, w3=w3, vb=vb, d_o=d_o, r=r:
              f(d_o, w3, n, r, r, yb, vb, o), ("sum", 9 * g),
@@ -708,10 +724,10 @@ def limit(bnd, scale):
 
 
 def check_case(torch, plain_of, results, prefix, kern, label, make_out,
-               call, bnd, w, lib, name=None, product=None):
+               call, bnd, w, lib, name=None, product=None, note=""):
     """Kernel against plain version on fresh outputs, within ``bnd``;
     records error, times, bound and library time (and that of the product
-    alone, ``product``) under ``name``."""
+    alone, ``product``) under ``name``; ``note`` ends the case's line."""
     name = name or kern.__name__
     k_out, p_out = make_out(), make_out()
     call(kern, k_out)
@@ -730,7 +746,7 @@ def check_case(torch, plain_of, results, prefix, kern, label, make_out,
           f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, library "
           f"{lib_ms if lib_ms is None else f'{lib_ms:.4f} ms'}"
           f"{product_text(prod_ms)}, bound "
-          f"{bound(w)[0]:.4f} ms ({bound(w)[1]})", flush=True)
+          f"{bound(w)[0]:.4f} ms ({bound(w)[1]}){note}", flush=True)
     require(np.isfinite(err) and err <= lim,
             f"{name} [{label}] disagrees with its plain version: "
             f"{err} > {lim}")
@@ -1706,11 +1722,36 @@ def int8_kernel_cases(torch, gen):
     return cases
 
 
+def int8_products(torch, gen):
+    """``torch._int_mm`` of each int8 kernel's product alone at its
+    headline shape (batch 8, r=64): the 1x1 K=128 -> 128 on int8 codes and
+    {-1, 0, +1} weights, and the 3x3 conv Cb=128 -> 32 as one product of
+    its im2col rows (9 x 128 deep), made beforehand. No PyTorch call
+    computes the kernels' functions (quantizer, BN, dequantization)."""
+    dev, m = "cuda", BATCH * 64 * 64
+
+    def codes(*shape):
+        return torch.randint(-127, 128, shape, generator=gen,
+                             dtype=torch.int8).to(dev)
+
+    def signs(k, n):   # column-major, as cuBLASLt's int8 product takes it
+        return torch.randint(-1, 2, (n, k), generator=gen,
+                             dtype=torch.int8).to(dev).t()
+
+    x, w = codes(m, 128), signs(128, 128)
+    col, w3 = codes(m, 9 * 128), signs(9 * 128, 32)
+    dot = lambda: torch._int_mm(x, w)          # noqa: E731
+    return {"affine_dot_i8": dot, "int8_matmul_dequant": dot,
+            "conv3x3_i8": lambda: torch._int_mm(col, w3)}
+
+
 def phase_int8_kernels(torch, qops):
     """Each int8 kernel against its plain version on the same operands:
     the outputs must be bit-identical (integer products accumulate exactly
-    in any order; every float rounding point is shared)."""
+    in any order; every float rounding point is shared); beside each,
+    ``torch._int_mm`` of its product alone (``int8_products``)."""
     gen = torch.Generator().manual_seed(3)
+    products = int8_products(torch, torch.Generator().manual_seed(30))
     results = {}
     for name, label, dst, sel, call, w in int8_kernel_cases(torch, gen):
         kern = getattr(qops, name)
@@ -1744,7 +1785,9 @@ def phase_int8_kernels(torch, qops):
         require(same, f"{name} [{label}] differs from its plain version: "
                 f"max_abs_err {err}")
         require(untouched, f"{name} [{label}] wrote outside its view")
-        record(results, name, err, ms, plain_ms, label, w, None)
+        prod_ms = (cuda_time_ms(products.pop(name)) if name in products
+                   else None)
+        record(results, name, err, ms, plain_ms, label, w, None, prod_ms)
     return results
 
 
@@ -2325,7 +2368,8 @@ FACE_CLASSES = 68     # the 300-W face model's landmarks
 
 
 def table_dot_cases(torch, gen, n):
-    """(row name, label, make_out, call, work) of the feature-table product
+    """(row name, label, make_out, call, work, torch.mm of the product
+    alone or None) of the feature-table product
     at the CU-Net-8 @256 shapes of batch ``n`` (c=128, g=32, Cb=128,
     r=64), each feature a tensor of its own (a FIFO entry a slice of a
     wider one): a down block's bottleneck with BN2's ``shift2`` epilogue,
@@ -2354,6 +2398,11 @@ def table_dot_cases(torch, gen, n):
                     + (sz(nout, e=4) if bias else 0),
                     2 * outs * m * k * nout)
 
+    def mm(feats, w):
+        """torch.mm of the product alone, its operands made beforehand."""
+        x = torch.cat(feats, 1)
+        return lambda: torch.mm(x, w)
+
     wide = randn(m, c + g + g)
     y, fifo, out32 = randn(m, c), wide[:, c:c + g], randn(m, g)
     up, skip, inter_f = randn(m, c), randn(m, c), randn(m, c)
@@ -2361,29 +2410,30 @@ def table_dot_cases(torch, gen, n):
     v, w = vec(2 * c + g + g), randn(2 * c + g + g, c, scale=320 ** -0.5)
     cases.append(("table_dot", f"up adapter K=320->128 r=64 batch {n}",
                   empty(c), lambda f, o: f([up, skip, fifo, out32], v, w, o),
-                  dot_work((c, c, g, g), c)))
+                  dot_work((c, c, g, g), c), mm([up, skip, fifo, out32], w)))
     vi, wi = vec(2 * c), randn(2 * c, c, scale=256 ** -0.5)
     cases.append(("table_dot", f"intermedia K=256->128 r=64 batch {n}",
                   empty(c), lambda f, o: f([y, inter_f], vi, wi, o),
-                  dot_work((c, c), c)))
+                  dot_work((c, c), c), None))
     vh, wh = vec(c), randn(c, 72, scale=c ** -0.5)
     for cls in (16, FACE_CLASSES):
         cases.append(("table_dot", f"head K=128->{cls} r=64 batch {n}",
                       empty(cls), lambda f, o: f([y], vh, wh, o),
-                      dot_work((c,), cls)))
+                      dot_work((c,), cls), None))
     vb, wb = vec(c + g), randn(c + g, cb, scale=160 ** -0.5)
     b2 = (torch.randn(cb, generator=gen) * 0.5).to(dev)
     cases.append(("table_dot[shift2]",
                   f"bottleneck K=160->128 +shift2 r=64 batch {n}", empty(cb),
                   lambda f, o: f([y, fifo], vb, wb, o, bias=b2),
-                  dot_work((c, g), cb, bias=True)))
+                  dot_work((c, g), cb, bias=True), mm([y, fifo], wb)))
     va, wa = vec(c + g + g), randn(c + g + g, c, scale=192 ** -0.5)
     vs, ws = vec(c + g + g), randn(c + g + g, c, scale=192 ** -0.5)
     cases.append(("table_dot[dual]",
                   f"adapter pair K=192->2x128 r=64 batch {n}", empty(2 * c),
                   lambda f, o: f([y, fifo, out32], va, wa, o[:, :c],
                                  vec_s=vs, w_s=ws, out_s=o[:, c:]),
-                  dot_work((c, g, g), c, outs=2)))
+                  dot_work((c, g, g), c, outs=2),
+                  mm([y, fifo, out32], torch.cat([wa, ws], 1))))
     return cases
 
 
@@ -2393,10 +2443,11 @@ def phase_eval_kernels(torch, eops):
     gen = torch.Generator().manual_seed(10)
     results = {}
     for n in (BATCH, 64):
-        for name, label, make_out, call, w in table_dot_cases(torch, gen, n):
+        for name, label, make_out, call, w, prod in table_dot_cases(
+                torch, gen, n):
             check_case(torch, eops.PLAIN, results, "eval kernel",
                        eops.table_dot, label, make_out, call, ("bf16",), w,
-                       None, name=name)
+                       None, name=name, product=prod)
     return results
 
 
@@ -2599,16 +2650,26 @@ def phase_face_heads(torch, ops, eops, qops, tops, gpu):
     del gk, gp
 
     f32 = dataclasses.replace(cfg, compute_dtype="float32")
-    for c in (f32, dataclasses.replace(f32, pallas_whole_model=True)):
+    x1 = x[:1].float()
+    for c, args, kw in (
+            (dataclasses.replace(f32, bn_tile=BN_TILE), (params,),
+             dict(train=True)),
+            (dataclasses.replace(f32, bn_tile=0), (params,),
+             dict(train=True)),
+            (f32, (qp,), dict(quant=quant)),
+            (whole, (qp,), dict(quant=quant))):
+        c = dataclasses.replace(c, compute_dtype="float32")
         try:
-            apply_cu_net(params, state, x[:1].float(), cfg=c)
+            apply_cu_net(*args, state, x1, cfg=c, **kw)
         except NotImplementedError as e:
-            require("bfloat16" in str(e), f"f32 guard message: {e}")
+            require("queue B item 4" in str(e), f"f32 guard message: {e}")
         else:
-            require(False, "an f32 model ran on the CUDA kernel path")
-    print("bf16 limit: an f32 model with use_pallas raises "
-          "NotImplementedError on the card (per-slot and whole-model)",
-          flush=True)
+            require(False, f"an f32 model ran on a CUDA kernel path with "
+                           f"no float32 form ({kw})")
+    print("f32 limit: f32 training (tile 2, whole-batch BN) and the f32 "
+          "quantized eval (per-slot and whole-model flags) with use_pallas "
+          "raise NotImplementedError on the card; the f32 eval runs "
+          "(phase 12)", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -2617,7 +2678,7 @@ def phase_face_heads(torch, ops, eops, qops, tops, gpu):
 
 
 def block_option_cases(torch, ops, eops, gen, n):
-    """(row name, label, make_out, call, work, composition) of
+    """(row name, label, make_out, call, work, composition, product) of
     ``table_dot``'s three forms of #5 at the CU-Net-8 @256 shapes of batch
     ``n`` (c=128, g=32, Cb=128, r=64, order 1): an up block's adapter,
     K=320 -> 128, reading feature 0 at r=32 through the folded upsample;
@@ -2656,17 +2717,20 @@ def block_option_cases(torch, ops, eops, gen, n):
         ops.upsample2(half, n, r // 2, r // 2, full)
         eops.table_dot([full, skip, fifo, out32], vu, wu, o)
 
+    cat_u = torch.cat([y, skip, fifo, out32], 1)
     cases.append(("table_dot[up]",
                   f"up adapter K=320->128 r=64, feature 0 from r=32, "
                   f"batch {n}", empty(m, c),
                   lambda f, o: f([half, skip, fifo, out32], vu, wu, o,
                                  up=ups, hw=hw),
                   work(sz(m // 4, c) + sz(m, c) + 2 * sz(m, g) + sz(k, c)
-                       + sz(2, k, e=4) + sz(m, c), 2 * m * k * c), up_comp))
+                       + sz(2, k, e=4) + sz(m, c), 2 * m * k * c), up_comp,
+                  lambda: torch.mm(cat_u, wu)))
 
     k = c + 2 * g
     va, wa = vec(k), randn(k, c, scale=k ** -0.5)
     vs, ws = vec(k), randn(k, c, scale=k ** -0.5)
+    cat_a, wa2 = torch.cat([y, fifo, out32], 1), torch.cat([wa, ws], 1)
     q = m // 4
 
     def pool_comp(o):
@@ -2681,16 +2745,19 @@ def block_option_cases(torch, ops, eops, gen, n):
                   lambda f, o: f([y, fifo, out32], va, wa, o[:q], vec_s=vs,
                                  w_s=ws, out_s=o[q:], pool=True, hw=hw),
                   work(sz(m, k) + 2 * (sz(k, c) + sz(2, k, e=4))
-                       + sz(q, c) + sz(m, c), 2 * 2 * m * k * c), pool_comp))
+                       + sz(q, c) + sz(m, c), 2 * 2 * m * k * c), pool_comp,
+                  lambda: torch.mm(cat_a, wa2)))
 
     k = c + g
     vb, wb, v2 = vec(k), randn(k, cb, scale=k ** -0.5), vec(cb)
+    cat_b = torch.cat([y, fifo], 1)
     cases.append(("table_dot[scale]",
                   f"bottleneck K=160->128 +BN2 affine r=64 batch {n}",
                   empty(m, cb),
                   lambda f, o: f([y, fifo], vb, wb, o, vec2=v2),
                   work(sz(m, k) + sz(k, cb) + sz(2, k, e=4) + sz(2, cb, e=4)
-                       + sz(m, cb), 2 * m * k * cb), None))
+                       + sz(m, cb), 2 * m * k * cb), None,
+                  lambda: torch.mm(cat_b, wb)))
     return cases
 
 
@@ -2701,11 +2768,12 @@ def phase_block_kernels(torch, ops, eops):
     gen = torch.Generator().manual_seed(11)
     results = {}
     for n in (BATCH, 64):
-        for name, label, make_out, call, w, comp in block_option_cases(
-                torch, ops, eops, gen, n):
+        for name, label, make_out, call, w, comp, prod in \
+                block_option_cases(torch, ops, eops, gen, n):
             k_out, _ = check_case(torch, eops.PLAIN, results, "block kernel",
                                   eops.table_dot, label, make_out, call,
-                                  ("bf16",), w, None, name=name)
+                                  ("bf16",), w, None, name=name,
+                                  product=prod)
             if comp is None:
                 continue
             c_out = make_out()
@@ -3030,6 +3098,407 @@ def phase_fused_models(torch, ops, gpu):
     return results
 
 
+# ---------------------------------------------------------------------------
+# phase 12: float32 serving, on the float32 forms of the eval kernels
+# ---------------------------------------------------------------------------
+
+F32_SOURCE = "cunet_tpu_torch/csrc/f32_kernels.cu"
+F32_PATH_REL_L2 = 1e-4   # a float32 kernel path vs the plain path
+# the f32 rows of the kernels line: the bf16 row whose TPU kernel each
+# replaces at float32
+F32_OF = {"affine_dot[f32]": "affine_dot", "conv3x3[f32]": "conv3x3",
+          "maxpool2[f32]": "maxpool2", "upsample2[f32]": "upsample2",
+          "table_dot[f32]": "table_dot",
+          "table_dot[f32,shift2]": "table_dot[shift2]",
+          "table_dot[f32,dual]": "table_dot[dual]",
+          "table_dot[f32,up]": "table_dot[up]",
+          "table_dot[f32,scale]": "table_dot[scale]",
+          "table_dot[f32,pool]": "table_dot[pool]"}
+REPLACES.update({k: REPLACES[v] for k, v in F32_OF.items()})
+
+
+def f32_work(m, ks, nout, outs=1, rows_out=None, extra=0):
+    """Bytes and operations of a float32 product: x read once (``ks`` the
+    features' (rows, width)), per output its weight, BN vectors and rows
+    written, at 4 bytes an element; six bf16 passes of 2 m K N on the
+    tensor cores. Also the float32 FMA time of the product alone."""
+    k = sum(w for _, w in ks)
+    nbytes = (sum(sz(r, w, e=4) for r, w in ks) + extra
+              + outs * (sz(k, nout, e=4) + sz(2, k, e=4)
+                        + sz(rows_out or m, nout, e=4)))
+    flops = 2 * outs * m * k * nout
+    return work(nbytes, 6 * flops, "bf16"), flops / PEAK_OPS["f32"] * 1e3
+
+
+def f32_kernel_cases(torch, ops, eops, gen, n, rs):
+    """(row, label, kernel, plain table, make_out, call, limit, work, fma
+    ms, library, product) of the float32 forms at the CU-Net-8 @256 shapes
+    of batch ``n`` (c=128, g=32, Cb=128): ``affine_dot`` (the adapter
+    K=192->128 into a strided buffer slot and the bottleneck with BN2's
+    shift), ``conv3x3`` and ``table_dot`` in each form at each resolution
+    of ``rs``, the pool and the upsample at the first. Limits: the float32
+    n-term sum, exact for the pool and the upsample."""
+    import torch.nn.functional as F
+
+    dev = "cuda"
+    c, g, cb = 128, 32, 128
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(dev)
+
+    def vec(k):
+        return torch.stack([torch.rand(k, generator=gen) + 0.5,
+                            torch.randn(k, generator=gen) * 0.5]).to(dev)
+
+    def empty(rows, cols):
+        """Fresh zeroed outputs: a case writes a view of them, and the
+        rest must compare equal."""
+        return lambda: torch.zeros(rows, cols, device=dev)
+
+    def mm(x, w):
+        return lambda: torch.mm(x, w)
+
+    def table_forms(r):
+        """table_dot's forms at resolution r, each feature a tensor of its
+        own."""
+        m = n * r * r
+        y, half, up, skip = randn(m, c), randn(m // 4, c), randn(m, c), \
+            randn(m, c)
+        fifo, out32 = randn(m, g), randn(m, g)
+        cat4 = torch.cat([up, skip, fifo, out32], 1)
+        k = 2 * c + 2 * g
+        vu, wu = vec(k), randn(k, c, scale=k ** -0.5)
+        wk, fma = f32_work(m, [(m, c), (m, c), (m, g), (m, g)], c)
+        cases.append(("table_dot[f32]",
+                      f"up adapter K=320->128 r={r} batch {n}",
+                      eops.table_dot, eops.PLAIN, empty(m, c),
+                      lambda f, o: f([up, skip, fifo, out32], vu, wu, o),
+                      ("sum", k), wk, fma, None, mm(cat4, wu)))
+        wk, fma = f32_work(m, [(m // 4, c), (m, c), (m, g), (m, g)], c)
+        cases.append(("table_dot[f32,up]",
+                      f"up adapter K=320->128 r={r}, feature 0 from "
+                      f"r={r // 2}, batch {n}", eops.table_dot, eops.PLAIN,
+                      empty(m, c),
+                      lambda f, o: f([half, skip, fifo, out32], vu, wu, o,
+                                     up=(True, False, False, False),
+                                     hw=(r, r)),
+                      ("sum", k), wk, fma, None, None))
+        kb = c + g
+        vb, wb = vec(kb), randn(kb, cb, scale=kb ** -0.5)
+        b2, v2 = (torch.randn(cb, generator=gen) * 0.5).to(dev), vec(cb)
+        cat2 = torch.cat([y, fifo], 1)
+        wk, fma = f32_work(m, [(m, c), (m, g)], cb, extra=sz(cb, e=4))
+        cases.append(("table_dot[f32,shift2]",
+                      f"bottleneck K=160->128 +shift2 r={r} batch {n}",
+                      eops.table_dot, eops.PLAIN, empty(m, cb),
+                      lambda f, o: f([y, fifo], vb, wb, o, bias=b2),
+                      ("sum", kb), wk, fma, None, mm(cat2, wb)))
+        wk, fma = f32_work(m, [(m, c), (m, g)], cb, extra=sz(2, cb, e=4))
+        cases.append(("table_dot[f32,scale]",
+                      f"bottleneck K=160->128 +BN2 affine r={r} batch {n}",
+                      eops.table_dot, eops.PLAIN, empty(m, cb),
+                      lambda f, o: f([y, fifo], vb, wb, o, vec2=v2),
+                      ("sum", kb), wk, fma, None, None))
+        ka = c + 2 * g
+        va, wa = vec(ka), randn(ka, c, scale=ka ** -0.5)
+        vs, ws = vec(ka), randn(ka, c, scale=ka ** -0.5)
+        wk, fma = f32_work(m, [(m, c), (m, g), (m, g)], c, outs=2)
+        cases.append(("table_dot[f32,dual]",
+                      f"adapter pair K=192->2x128 r={r} batch {n}",
+                      eops.table_dot, eops.PLAIN, empty(m, 2 * c),
+                      lambda f, o: f([y, fifo, out32], va, wa, o[:, :c],
+                                     vec_s=vs, w_s=ws, out_s=o[:, c:]),
+                      ("sum", ka), wk, fma, None, None))
+        q = m // 4
+        wk, fma = f32_work(m, [(m, c), (m, g), (m, g)], c, outs=2,
+                           extra=sz(q, c, e=4) - sz(m, c, e=4))
+        cases.append(("table_dot[f32,pool]",
+                      f"adapter pair K=192->2x128 r={r}, ahead pooled, "
+                      f"batch {n}", eops.table_dot, eops.PLAIN,
+                      empty(q + m, c),
+                      lambda f, o: f([y, fifo, out32], va, wa, o[:q],
+                                     vec_s=vs, w_s=ws, out_s=o[q:],
+                                     pool=True, hw=(r, r)),
+                      ("sum", ka), wk, fma, None, None))
+
+    cases = []
+    for r in rs:
+        m = n * r * r
+        buf = randn(m, c + g + g)                  # [y | fifo | out32]
+        v, w = vec(c + 2 * g), randn(c + 2 * g, c, scale=192 ** -0.5)
+        wk, fma = f32_work(m, [(m, c + 2 * g)], c)
+        cases.append(("affine_dot[f32]", f"K=192->128 r={r} batch {n}",
+                      ops.affine_dot, ops.PLAIN, empty(m, 2 * c),
+                      lambda f, o, buf=buf, v=v, w=w: f(buf, v, w,
+                                                        o[:, c:]),
+                      ("sum", c + 2 * g), wk, fma, None, mm(buf, w)))
+        vb, wb = vec(c + g), randn(c + g, cb, scale=160 ** -0.5)
+        bias = (torch.randn(cb, generator=gen) * 0.5).to(dev)
+        wk, fma = f32_work(m, [(m, c + g)], cb, extra=sz(cb, e=4))
+        cases.append(("affine_dot[f32]",
+                      f"K=160->128 +shift,relu r={r} batch {n}",
+                      ops.affine_dot, ops.PLAIN, empty(m, cb),
+                      lambda f, o, buf=buf, vb=vb, wb=wb, bias=bias:
+                      f(buf[:, :c + g], vb, wb, o, bias=bias),
+                      ("sum", c + g), wk, fma, None, None))
+        y2 = torch.relu(randn(m, cb))
+        w3 = randn(9 * cb, g, scale=(9 * cb) ** -0.5)
+        w_oihw = w3.view(3, 3, cb, g).permute(3, 2, 0, 1).contiguous()
+        flops = 2 * m * 9 * cb * g
+        cases.append(("conv3x3[f32]", f"Cb=128->32 r={r} batch {n}",
+                      ops.conv3x3, ops.PLAIN, empty(m, c + 2 * g),
+                      lambda f, o, y2=y2, w3=w3, r=r:
+                      f(y2, w3, n, r, r, o[:, c + g:]),
+                      ("sum", 9 * cb),
+                      work(sz(m, cb, e=4) + sz(9 * cb, g, e=4)
+                           + sz(m, g, e=4), 6 * flops),
+                      flops / PEAK_OPS["f32"] * 1e3,
+                      lambda y2=y2, w_oihw=w_oihw, r=r:
+                      F.conv2d(nchw(y2, r), w_oihw, padding=1), None))
+        table_forms(r)
+    r = rs[0]
+    m = n * r * r
+    ahead = randn(m, c)
+    cases.append(("maxpool2[f32]", f"{r}->{r // 2} batch {n}", ops.maxpool2,
+                  ops.PLAIN, empty(m // 4, c + 2 * g),
+                  lambda f, o: f(ahead, n, r, r, o[:, :c]), ("exact",),
+                  work(sz(m, c, e=4) + sz(m // 4, c, e=4), 3 * m // 4 * c,
+                       "f32"), None,
+                  lambda: F.max_pool2d(nchw(ahead, r), 2), None))
+    small = randn(m // 4, c)
+    cases.append(("upsample2[f32]", f"{r // 2}->{r} batch {n}",
+                  ops.upsample2, ops.PLAIN, empty(m, 2 * c + 2 * g),
+                  lambda f, o: f(small, n, r // 2, r // 2, o[:, :c]),
+                  ("exact",), work(sz(m // 4, c, e=4) + sz(m, c, e=4)), None,
+                  lambda: F.interpolate(nchw(small, r // 2), scale_factor=2,
+                                        mode="nearest"), None))
+    return cases
+
+
+def f32_one_hot_checks(torch, ops, eops, gen):
+    """Under one-hot weights (one 1 a column) every float32 form gives its
+    plain version's bits at r=64, batch 8: the six plane products sum to
+    the prologue value exactly (a single bf16 pass would round it); the
+    conv gives each output column one shifted input channel."""
+    dev, n, r, c, g = "cuda", BATCH, 64, 128, 32
+    m = n * r * r
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen).to(dev)
+
+    def vec(k):
+        return torch.stack([torch.rand(k, generator=gen) + 0.5,
+                            torch.randn(k, generator=gen) * 0.5]).to(dev)
+
+    def hot(k, cols, rows=None):
+        rows = torch.randint(0, k, (cols,), generator=gen) \
+            if rows is None else rows
+        w = torch.zeros(k, cols)
+        w[rows, torch.arange(cols)] = 1.0
+        return w.to(dev), rows
+
+    y, fifo, out32, half = randn(m, c), randn(m, g), randn(m, g), \
+        randn(m // 4, c)
+    feats = [y, fifo, out32]
+    k, ku = c + 2 * g, 2 * c + 2 * g
+    v, vs, vu, v2 = vec(k), vec(k), vec(ku), vec(c)
+    bias = torch.randn(c, generator=gen).to(dev)
+    w, _ = hot(k, c)
+    ws, _ = hot(k, c)
+    wu, _ = hot(ku, c)
+    cat = torch.cat(feats, 1)
+    checks = {
+        "affine_dot[f32]": (ops.affine_dot, ops.PLAIN, lambda f, o: f(
+            cat, v, w, o, bias=bias), (m, c)),
+        "table_dot[f32]": (eops.table_dot, eops.PLAIN, lambda f, o: f(
+            feats, v, w, o), (m, c)),
+        "table_dot[f32,shift2]": (eops.table_dot, eops.PLAIN, lambda f, o: f(
+            feats, v, w, o, bias=bias), (m, c)),
+        "table_dot[f32,scale]": (eops.table_dot, eops.PLAIN, lambda f, o: f(
+            feats, v, w, o, vec2=v2), (m, c)),
+        "table_dot[f32,dual]": (eops.table_dot, eops.PLAIN, lambda f, o: f(
+            feats, v, w, o[:, :c], vec_s=vs, w_s=ws, out_s=o[:, c:]),
+            (m, 2 * c)),
+        "table_dot[f32,pool]": (eops.table_dot, eops.PLAIN, lambda f, o: f(
+            feats, v, w, o[:m // 4], vec_s=vs, w_s=ws, out_s=o[m // 4:],
+            pool=True, hw=(r, r)), (m // 4 + m, c)),
+        "table_dot[f32,up]": (eops.table_dot, eops.PLAIN, lambda f, o: f(
+            [half, y, fifo, out32], vu, wu, o,
+            up=(True, False, False, False), hw=(r, r)), (m, c)),
+    }
+    same = {}
+    for name, (kern, plain, call, shape) in checks.items():
+        got = torch.empty(*shape, device=dev)
+        want = torch.empty(*shape, device=dev)
+        call(kern, got)
+        call(plain[kern], want)
+        torch.cuda.synchronize()
+        same[name] = torch.equal(got, want)
+    rows = torch.randint(0, 9 * c, (g,), generator=gen)
+    w3, _ = hot(9 * c, g, rows)
+    got = torch.empty(m, g, device=dev)
+    ops.conv3x3(y, w3, n, r, r, got)
+    img = torch.nn.functional.pad(y.view(n, r, r, c), (0, 0, 1, 1, 1, 1))
+    want = torch.empty(n, r, r, g, device=dev)
+    for j, row in enumerate(rows.tolist()):
+        tap, ch = divmod(row, c)
+        want[..., j] = img[:, tap // 3:tap // 3 + r, tap % 3:tap % 3 + r, ch]
+    torch.cuda.synchronize()
+    same["conv3x3[f32]"] = torch.equal(got, want.view(m, g))
+    print(f"f32 kernels under one-hot weights, bit for bit their plain "
+          f"versions (the conv: the shifted inputs): {same}", flush=True)
+    require(all(same.values()), f"an f32 form is not exact under one-hot "
+                                f"weights: {same}")
+    return same
+
+
+def phase_f32_kernels(torch, ops, eops):
+    """Phase 12 (a): each float32 form against its plain version at
+    float32 (TF32 off) within the float32 n-term limit (the pool and the
+    upsample exact) at batch 8, r = 64 ... 4, and at r=64, batch 64; timed
+    by CUDA-graph replay beside its bound (six bf16 passes or its bytes;
+    the float32 FMA time beside it) and ``torch.mm`` of its float32
+    product alone or the library call; then the one-hot checks."""
+    gen = torch.Generator().manual_seed(12)
+    results = {}
+    for n, rs in ((BATCH, CONV_RES), (64, CONV_RES[:1])):
+        for (name, label, kern, plain, make_out, call, bnd, w, fma, lib,
+             prod) in f32_kernel_cases(torch, ops, eops, gen, n, rs):
+            check_case(torch, plain, results, "f32 kernel", kern, label,
+                       make_out, call, bnd, w, lib, name=name, product=prod,
+                       note="" if fma is None else
+                       f", float32-FMA bound {fma:.4f} ms")
+    hot = f32_one_hot_checks(torch, ops, eops, gen)
+    for name, same in hot.items():
+        results[name]["one_hot_exact"] = same
+    return results
+
+
+def phase_f32_serving(torch, ops, eops, gpu):
+    """Phase 12 (b): CU-Net-8 @256 at ``compute_dtype="float32"`` (JAX's
+    default, the converted reference weights' dtype) served through
+    ``Predictor(cfg, device="cuda")`` with ``use_pallas`` on the
+    whole-model, per-slot and per-block paths: each answers the requests
+    of 8 and 5 images with its float32 kernels counted (the main path's
+    launches), its answers within relative L2 1e-4 of a plain-path
+    ``Predictor``'s on the same requests; each anchor's heatmaps within
+    relative L2 1e-4 of the plain path at float32 at batch 8 and 64; the
+    per-slot path bit for bit the whole-model path, its answers too;
+    forward ms and img/s at batch 8 and 64."""
+    from cunet_tpu_torch import ModelConfig
+    from cunet_tpu_torch.models import apply_cu_net, init_cu_net
+    from cunet_tpu_torch.models.cu_net import eval_path
+    from cunet_tpu_torch.serving import Predictor
+
+    base = ModelConfig(layer_num=8, order=1, class_num=16, loss_num=8,
+                       compute_dtype="float32", use_pallas=True)
+    paths = {"whole-model": dataclasses.replace(base,
+                                                pallas_whole_model=True),
+             "per-slot": base,
+             "per-block": dataclasses.replace(base, pallas_hourglass=False)}
+    require([eval_path(c) for c in paths.values()]
+            == ["whole_model", "hourglass", "blocks"], "f32 path flags")
+    params, state = init_cu_net(base, torch.Generator().manual_seed(0))
+    rng = np.random.RandomState(0)
+    requests = [rng.rand(k, 256, 256, 3).astype(np.float32) for k in (8, 5)]
+
+    def counts():
+        return {**ops.f32_counts(), **eops.f32_counts(),
+                **{f"table_dot[f32,{k[10:-1]}]": v
+                   for k, v in eops.option_counts().items()}}
+
+    launches, per_path, preds, served = {}, {}, {}, {}
+    for label, cfg in paths.items():
+        pred = Predictor(cfg, params, state, device="cuda",
+                         batch_size=BATCH)
+        preds[label] = pred
+        ops.reset_launch_counts()
+        eops.reset_launch_counts()
+        answers = [(pred.heatmaps(imgs), pred.predict(imgs))
+                   for imgs in requests]
+        torch.cuda.synchronize()
+        per_path[label] = c = {k: v for k, v in counts().items() if v}
+        for k, v in c.items():
+            launches[k] = launches.get(k, 0) + v
+        served[label] = answers
+        for imgs, (hm, pts) in zip(requests, answers):
+            k = imgs.shape[0]
+            require(hm.shape == (k, 64, 64, 16) and hm.dtype == np.float32,
+                    f"f32 {label}: heatmaps {hm.shape} {hm.dtype}")
+            require(pts.shape == (k, 16, 2), f"landmarks shape {pts.shape}")
+            require(np.isfinite(hm).all() and np.isfinite(pts).all(),
+                    f"f32 {label}: non-finite output")
+    print(f"f32 serving: float32 kernel launches on the main paths "
+          f"(requests of 8 and 5): {per_path}", flush=True)
+    for name in F32_OF:
+        require(launches.get(name, 0) > 0,
+                f"f32 form {name} never launched on the f32 serving paths")
+    require(per_path["per-slot"].get("affine_dot[f32]", 0) == 0,
+            "the f32 per-slot path launched the whole-model affine_dot")
+
+    plain_cfg = dataclasses.replace(base, use_pallas=False)
+    plain_pred = Predictor(plain_cfg, params, state, device="cuda",
+                           batch_size=BATCH)
+    plain_answers = [plain_pred.heatmaps(imgs) for imgs in requests]
+    preds["plain"] = plain_pred
+    served_rel = {label: max(_rel(hm, want) for (hm, _), want
+                             in zip(answers, plain_answers))
+                  for label, answers in served.items()}
+    served_same = all(
+        np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+        for a, b in zip(served["per-slot"], served["whole-model"]))
+    print(f"f32 serving: Predictor heatmaps (requests of 8 and 5), worst "
+          f"relative L2 to a plain-path Predictor's {served_rel} (bound "
+          f"{F32_PATH_REL_L2}); per-slot answers bit for bit the "
+          f"whole-model path's {served_same}", flush=True)
+    require(all(np.isfinite(v) and v <= F32_PATH_REL_L2
+                for v in served_rel.values()),
+            f"f32 Predictor answers off the plain path's: {served_rel}")
+    require(served_same, "f32 per-slot Predictor answers differ from the "
+                         "whole-model path's")
+    rels = {}
+    for batch in (BATCH, 64):
+        x = torch.rand(batch, 256, 256, 3, generator=torch.Generator()
+                       .manual_seed(batch)).to("cuda")
+        with torch.inference_mode():
+            want, _ = apply_cu_net(params, state, x, cfg=plain_cfg)
+            outs = {label: apply_cu_net(params, state, x, cfg=cfg,
+                                        slots=preds[label]._slots)[0]
+                    for label, cfg in paths.items()}
+        same = all(torch.equal(a, b) for a, b in
+                   zip(outs["per-slot"], outs["whole-model"]))
+        worst = {}
+        for label, got in outs.items():
+            rels[(label, batch)] = worst[label] = max(
+                _rel(a.cpu().numpy(), b.cpu().numpy())
+                for a, b in zip(got, want))
+        print(f"f32 serving, batch {batch}: worst anchor relative L2 to "
+              f"the plain path at float32 {worst} (bound "
+              f"{F32_PATH_REL_L2}); per-slot bit for bit the whole-model "
+              f"path {same}", flush=True)
+        require(same, f"f32 per-slot path differs from the whole-model path "
+                      f"at batch {batch}")
+        del want, outs, x
+    bad = {k: v for k, v in rels.items()
+           if not (np.isfinite(v) and v <= F32_PATH_REL_L2)}
+    require(not bad, f"f32 kernel paths off the plain path: {bad}")
+
+    times = {}
+    for batch in (BATCH, 64):
+        parts = []
+        for label, cfg in list(paths.items()) + [("plain", plain_cfg)]:
+            if label == "plain" and batch != BATCH:
+                continue
+            p = preds[label] if batch == BATCH and label in preds else \
+                Predictor(cfg, params, state, device="cuda", batch_size=batch)
+            ms = time_forward(torch, p, batch)
+            times[(label, batch)] = ms
+            parts.append(f"{label} {ms:.3f} ms, {batch / ms * 1e3:.1f} img/s")
+        print(f"f32 serving: forward batch {batch}: {'; '.join(parts)} "
+              f"({gpu})", flush=True)
+    return launches, per_path, times
+
+
 def main() -> int:
     import torch
 
@@ -3087,6 +3556,9 @@ def main() -> int:
         block_launches, block_forwards, block_ms = phase_block_serving(
             torch, ops, eops, gpu)
         model_fns = phase_fused_models(torch, ops, gpu)
+        f32_kernels = phase_f32_kernels(torch, ops, eops)
+        f32_launches, f32_per_path, f32_ms = phase_f32_serving(
+            torch, ops, eops, gpu)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3153,6 +3625,16 @@ def main() -> int:
         rows.append(row(name, MODEL_SOURCE, r, r["calls"],
                         kernel_launches_per_call=r["kernel_launches_per_call"]
                         ))
+    f32_extra = {"f32_forward_ms": {f"{label}, batch {b}": ms
+                                    for (label, b), ms in f32_ms.items()}}
+    for name, r in f32_kernels.items():
+        src = SOURCE if name.split("[")[0] in ("maxpool2", "upsample2") \
+            else F32_SOURCE
+        rows.append(row(name, src, r, f32_launches[name],
+                        launches_per_path={k: v.get(name, 0) for k, v in
+                                           f32_per_path.items()},
+                        **{k: r[k] for k in ("one_hot_exact",) if k in r},
+                        **f32_extra))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

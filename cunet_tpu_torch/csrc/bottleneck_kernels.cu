@@ -181,18 +181,6 @@ struct RdPlan {
   int xh_off;       //   the gated x_hat
 };
 
-// v = p1 + p2 + p3, three bf16 pieces (exact for normal float32 v)
-__device__ __forceinline__ void split3(float v, unsigned short& a,
-                                       unsigned short& b, unsigned short& c) {
-  const bf16 p1 = __float2bfloat16(v);
-  const float r1 = __fsub_rn(v, __bfloat162float(p1));
-  const bf16 p2 = __float2bfloat16(r1);
-  const float r2 = __fsub_rn(r1, __bfloat162float(p2));
-  a = __bfloat16_as_ushort(p1);
-  b = __bfloat16_as_ushort(p2);
-  c = __bfloat16_as_ushort(__float2bfloat16(r2));
-}
-
 // W's rows c0 .. c0 + ROWS (float32 (Ctot, N)) split once into three bf16
 // planes at ``smem``: plane k's row cl (concat column c0 + cl) at byte
 // (k * ROWS + cl) * (np + 8) * 2, its N values contiguous; zero past Ctot

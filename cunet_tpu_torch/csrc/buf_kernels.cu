@@ -13,7 +13,9 @@
 // unit column stride) so a kernel reads ``buf[:, :k]`` and writes
 // ``buf[:, kin:kin+g]`` of a channel-plane buffer in place. The wrapper checks
 // that widths, row strides and pointers are multiples of 8 elements / 16
-// bytes, which makes every global access a 16-byte vector.
+// bytes (the float32 pool and upsample: 4 elements / 16 bytes), which makes
+// every global access a 16-byte vector. The float32 forms of affine_dot
+// and conv3x3 are in f32_kernels.cu.
 //
 // Each entry point launches on the stream it is given and returns
 // cudaGetLastError() so the wrapper can raise on a refused launch.
@@ -501,9 +503,11 @@ __global__ void __launch_bounds__(kConvThreads)
 }
 
 // ---------------------------------------------------------------------------
-// K3 maxpool2 / K4 upsample2: one thread per 8 channels of one pixel.
+// K3 maxpool2 / K4 upsample2: one thread per 16-byte vector of one pixel's
+// channels (8 bf16 or, in the float32 form, 4 floats). The same index maps
+// on either element type; both are exact.
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ uint4 max8(uint4 a, uint4 b) {
+__device__ __forceinline__ uint4 vmax(uint4 a, uint4 b, const bf16*) {
   Pack8 pa, pb, o;
   pa.v = a;
   pb.v = b;
@@ -513,15 +517,25 @@ __device__ __forceinline__ uint4 max8(uint4 a, uint4 b) {
   return o.v;
 }
 
+__device__ __forceinline__ uint4 vmax(uint4 a, uint4 b, const float*) {
+  return make_uint4(
+      __float_as_uint(fmaxf(__uint_as_float(a.x), __uint_as_float(b.x))),
+      __float_as_uint(fmaxf(__uint_as_float(a.y), __uint_as_float(b.y))),
+      __float_as_uint(fmaxf(__uint_as_float(a.z), __uint_as_float(b.z))),
+      __float_as_uint(fmaxf(__uint_as_float(a.w), __uint_as_float(b.w))));
+}
+
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    maxpool2_kernel(const bf16* __restrict__ x, long long ldx,
-                    bf16* __restrict__ o, long long ldo, int B, int H, int W,
+    maxpool2_kernel(const T* __restrict__ x, long long ldx,
+                    T* __restrict__ o, long long ldo, int B, int H, int W,
                     int C) {
-  const int cg = C / 8, Ho = H / 2, Wo = W / 2;
+  constexpr int E = 16 / sizeof(T);
+  const int cg = C / E, Ho = H / 2, Wo = W / 2;
   const long long total = (long long)B * Ho * Wo * cg;
   for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        idx < total; idx += (long long)gridDim.x * blockDim.x) {
-    const int c = (int)(idx % cg) * 8;
+    const int c = (int)(idx % cg) * E;
     long long q = idx / cg;
     const int ox = (int)(q % Wo);
     q /= Wo;
@@ -534,19 +548,21 @@ __global__ void __launch_bounds__(kThreads)
     const uint4 v11 =
         *reinterpret_cast<const uint4*>(x + (r00 + W + 1) * ldx + c);
     *reinterpret_cast<uint4*>(o + ((b * Ho + oy) * Wo + ox) * ldo + c) =
-        max8(max8(v00, v01), max8(v10, v11));
+        vmax(vmax(v00, v01, x), vmax(v10, v11, x), x);
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    upsample2_kernel(const bf16* __restrict__ x, long long ldx,
-                     bf16* __restrict__ o, long long ldo, int B, int H, int W,
+    upsample2_kernel(const T* __restrict__ x, long long ldx,
+                     T* __restrict__ o, long long ldo, int B, int H, int W,
                      int C) {
-  const int cg = C / 8, Wo = 2 * W;
+  constexpr int E = 16 / sizeof(T);
+  const int cg = C / E, Wo = 2 * W;
   const long long total = (long long)B * H * W * cg;
   for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        idx < total; idx += (long long)gridDim.x * blockDim.x) {
-    const int c = (int)(idx % cg) * 8;
+    const int c = (int)(idx % cg) * E;
     long long q = idx / cg;
     const int ix = (int)(q % W);
     q /= W;
@@ -560,6 +576,34 @@ __global__ void __launch_bounds__(kThreads)
     *reinterpret_cast<uint4*>(o + (r0 + Wo) * ldo + c) = v;
     *reinterpret_cast<uint4*>(o + (r0 + Wo + 1) * ldo + c) = v;
   }
+}
+
+unsigned elementwise_blocks(long long total) {
+  const long long blocks = (total + kThreads - 1) / kThreads;
+  return (unsigned)(blocks < (1LL << 20) ? (blocks > 0 ? blocks : 1)
+                                         : (1LL << 20));
+}
+
+template <typename T>
+int launch_maxpool2(const void* x, long long ldx, void* out, long long ldo,
+                    int B, int H, int W, int C, void* stream) {
+  const long long total =
+      (long long)B * (H / 2) * (W / 2) * (C / (16 / (int)sizeof(T)));
+  maxpool2_kernel<T><<<elementwise_blocks(total), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), ldx, static_cast<T*>(out), ldo, B, H, W, C);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_upsample2(const void* x, long long ldx, void* out, long long ldo,
+                     int B, int H, int W, int C, void* stream) {
+  const long long total =
+      (long long)B * H * W * (C / (16 / (int)sizeof(T)));
+  upsample2_kernel<T><<<elementwise_blocks(total), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), ldx, static_cast<T*>(out), ldo, B, H, W, C);
+  return (int)cudaGetLastError();
 }
 
 struct VecArgs {
@@ -614,12 +658,6 @@ int launch_conv3x3(const bf16* y, long long ldy, int M, int H, int W, int C,
   return launch_persistent(kern, items, kConvThreads, smem, st, y, ldy, M, H, W,
                            C, w, G, v.inv, v.shift, v.vstride,
                            (int)v.tile_rows, v.bits, out, p);
-}
-
-unsigned elementwise_blocks(long long total) {
-  const long long blocks = (total + kThreads - 1) / kThreads;
-  return (unsigned)(blocks < (1LL << 20) ? (blocks > 0 ? blocks : 1)
-                                         : (1LL << 20));
 }
 
 }  // namespace
@@ -708,22 +746,25 @@ int cunet_conv3x3(const void* y, long long ldy, long long M, int H, int W,
 
 int cunet_maxpool2(const void* x, long long ldx, void* out, long long ldo,
                    int B, int H, int W, int C, void* stream) {
-  const long long total = (long long)B * (H / 2) * (W / 2) * (C / 8);
-  maxpool2_kernel<<<elementwise_blocks(total), kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), ldx, static_cast<bf16*>(out), ldo, B, H, W,
-      C);
-  return (int)cudaGetLastError();
+  return launch_maxpool2<bf16>(x, ldx, out, ldo, B, H, W, C, stream);
 }
 
 int cunet_upsample2(const void* x, long long ldx, void* out, long long ldo,
                     int B, int H, int W, int C, void* stream) {
-  const long long total = (long long)B * H * W * (C / 8);
-  upsample2_kernel<<<elementwise_blocks(total), kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), ldx, static_cast<bf16*>(out), ldo, B, H, W,
-      C);
-  return (int)cudaGetLastError();
+  return launch_upsample2<bf16>(x, ldx, out, ldo, B, H, W, C, stream);
+}
+
+// The float32 forms: C a multiple of 4, rows on 16-byte bounds.
+int cunet_maxpool2_f32(const void* x, long long ldx, void* out,
+                       long long ldo, int B, int H, int W, int C,
+                       void* stream) {
+  return launch_maxpool2<float>(x, ldx, out, ldo, B, H, W, C, stream);
+}
+
+int cunet_upsample2_f32(const void* x, long long ldx, void* out,
+                        long long ldo, int B, int H, int W, int C,
+                        void* stream) {
+  return launch_upsample2<float>(x, ldx, out, ldo, B, H, W, C, stream);
 }
 
 }  // extern "C"

@@ -1,6 +1,8 @@
 // Pieces shared by the hand-written CUDA kernels of cunet_tpu_torch: 16-byte
-// bf16 vectors, the output view, the BN prologue and QuanInput's quantizer,
-// and the 128-row WMMA tile layout of the feature-table and int8 kernels.
+// bf16 vectors, the output view, the epilogue codes and the upsample's row
+// map, the BN prologue, QuanInput's quantizer, the exact three-way bf16
+// split of a float32 value, and the 128-row WMMA tile layout of the
+// feature-table, int8 and float32 product kernels.
 // Included by every .cu file of this directory; each translation unit gets
 // its own copy (anonymous namespace).
 
@@ -25,17 +27,35 @@ constexpr int kPad = 8;        // bf16 row padding of the smem tiles
 // Output view: row m of an (M, N) result lands at
 //   ptr + (m / rows_per_img) * img_stride + (m % rows_per_img) * ld.
 // A plain 2-D view has rows_per_img == M; the head writes one slot of the
-// (N, A, h, w, cls) output, whose images are img_stride apart.
-struct OutView {
-  bf16* ptr;
+// (N, A, h, w, cls) output, whose images are img_stride apart. OutView is
+// the bf16 one; the float32 forms (f32_kernels.cu) write an OutViewOf<float>.
+template <typename T>
+struct OutViewOf {
+  T* ptr;
   long long ld;
   long long rows_per_img;
   long long img_stride;
 };
+typedef OutViewOf<bf16> OutView;
 
-__device__ __forceinline__ bf16* out_row(const OutView& o, long long m) {
+template <typename T>
+__device__ __forceinline__ T* out_row(const OutViewOf<T>& o, long long m) {
   const long long img = m / o.rows_per_img;
   return o.ptr + img * o.img_stride + (m - img * o.rows_per_img) * o.ld;
+}
+
+// The epilogues of a product's output (table_dot and its float32 form):
+// none, relu(. + b[n]) ("shift2"), relu(. * a[n] + b[n]) ("scale").
+enum Epi { kEpiNone = 0, kEpiShift = 1, kEpiScale = 2 };
+
+// Source row of output row m in a half-resolution group (2x nearest):
+// output row m = (b*H + y)*W + x reads (b*(H/2) + y/2)*(W/2) + x/2.
+__device__ __forceinline__ long long up_row(long long m, int H, int W) {
+  const long long hw = (long long)H * W;
+  const long long b = m / hw;
+  const int rem = (int)(m - b * hw);
+  const int y = rem / W, x = rem - (rem / W) * W;
+  return (b * (H / 2) + y / 2) * (W / 2) + x / 2;
 }
 
 // Eight bf16 values as one 16-byte vector (raw bits, so the union stays
@@ -118,6 +138,23 @@ __device__ __forceinline__ uint4 act8(uint4 in, const float (&a)[8],
     r[j] = *reinterpret_cast<const uint32_t*>(&h);
   }
   return make_uint4(r[0], r[1], r[2], r[3]);
+}
+
+// v = p1 + p2 + p3, three bf16 pieces: p1 = bf16(v), p2 = bf16(v - p1),
+// p3 = bf16(v - p1 - p2), each difference exact in float32 (exact for
+// normal float32 v: v - p1 holds at most 16 significant bits, v - p1 - p2
+// at most 8, which p3 holds exactly). The float32-accurate tensor-core
+// products of bwd_reduce / bwd_dx and of the float32 forms sum plane
+// products of these pieces.
+__device__ __forceinline__ void split3(float v, unsigned short& a,
+                                       unsigned short& b, unsigned short& c) {
+  const bf16 p1 = __float2bfloat16(v);
+  const float r1 = __fsub_rn(v, __bfloat162float(p1));
+  const bf16 p2 = __float2bfloat16(r1);
+  const float r2 = __fsub_rn(r1, __bfloat162float(p2));
+  a = __bfloat16_as_ushort(p1);
+  b = __bfloat16_as_ushort(p2);
+  c = __bfloat16_as_ushort(__float2bfloat16(r2));
 }
 
 // murmur3's fmix32 finalizer (the dropout masks' counter hash,

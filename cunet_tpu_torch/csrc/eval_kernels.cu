@@ -70,9 +70,6 @@ struct FeatTable {
   int H, W;
 };
 
-// The epilogues of an output.
-enum Epi { kEpiNone = 0, kEpiShift = 1, kEpiScale = 2 };
-
 // One output: its BN vectors, its weight (row stride ldw; wvec: 16-byte
 // rows), its epilogue's vectors ea / eb and where it goes (ovec: 16-byte
 // output rows).
@@ -284,15 +281,6 @@ __device__ __forceinline__ void store_pooled(
         if (n + t < N) dst[t] = __ushort_as_bfloat16(o.u[t]);
     }
   }
-}
-
-// Source row of output row m in a half-resolution group (2x nearest).
-__device__ __forceinline__ long long up_row(long long m, int H, int W) {
-  const long long hw = (long long)H * W;
-  const long long b = m / hw;
-  const int rem = (int)(m - b * hw);
-  const int y = rem / W, x = rem - (rem / W) * W;
-  return (b * (H / 2) + y / 2) * (W / 2) + x / 2;
 }
 
 template <int BN, int WARPS_N, int NOUT, bool POOL, int EPI>

@@ -19,10 +19,18 @@ spend their effort on touching each byte once: 16-byte vector accesses,
 the BN prologue and epilogue applied in registers on the way through, and
 outputs written straight into the buffer slot the next stage reads (no
 concat, no staging copy).
+
+Each wrapper also takes float32 operands (an f32 model's eval): the pool
+and the upsample move 4-float vectors; ``affine_dot`` and ``conv3x3`` run
+the float32 product kernel of ``csrc/f32_kernels.cu`` (``launch_dot3``,
+plans ``dot3_plan`` / ``conv3x3_plan_f32``), float32-accurate on the
+tensor cores through the exact three-way bf16 split of both operands.
+``<wrapper>.f32_launches`` counts those launches (also in ``launches``).
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 
@@ -38,24 +46,54 @@ from cunet_tpu_torch.quant.wage import clip_c, quant_q
 # ---------------------------------------------------------------------------
 
 
-def _check_view(t: torch.Tensor, name: str) -> None:
-    """A kernel operand: bf16 on the current CUDA device, unit column stride,
-    widths, row strides and the base pointer on 8-element / 16-byte bounds
-    (every access is one 16-byte vector)."""
+BF16, F32 = torch.bfloat16, torch.float32
+
+
+def _check_view(t: torch.Tensor, name: str, dtypes=(BF16,),
+                width_mult=8) -> None:
+    """A kernel operand: on the current CUDA device, of one of ``dtypes``
+    (bf16, or float32 where the wrapper has a float32 form), unit column
+    stride, a width that is a multiple of ``width_mult`` elements (None:
+    of 16 bytes), row strides and the base pointer on 16-byte bounds (every
+    access is one 16-byte vector: 8 bf16 or 4 floats)."""
     if t.device.type != "cuda":
         raise ValueError(f"{name} is on {t.device}, expected a CUDA tensor")
     if t.device.index != torch.cuda.current_device():
         raise ValueError(f"{name} is on {t.device}, not the current device "
                          f"cuda:{torch.cuda.current_device()}")
-    if t.dtype != torch.bfloat16:
-        raise TypeError(f"{name} has dtype {t.dtype}, the kernel takes bf16")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} has dtype {t.dtype}, the kernel takes "
+                        f"{' or '.join(str(d) for d in dtypes)}")
     if t.stride(-1) != 1:
         raise ValueError(f"{name} needs unit column stride, got {t.stride()}")
-    if t.shape[-1] % 8 or any(s % 8 for s in t.stride()[:-1]):
-        raise ValueError(f"{name}: width {t.shape[-1]} and row strides "
-                         f"{t.stride()[:-1]} must be multiples of 8")
+    e = t.element_size()
+    mult = 16 // e if width_mult is None else width_mult
+    if t.shape[-1] % mult or any(s * e % 16 for s in t.stride()[:-1]):
+        raise ValueError(f"{name}: width {t.shape[-1]} must be a multiple "
+                         f"of {mult} and row strides {t.stride()[:-1]} of "
+                         f"16 bytes")
     if t.data_ptr() % 16:
         raise ValueError(f"{name} is not 16-byte aligned")
+
+
+def _check_dtypes(ref: torch.Tensor, **tensors) -> None:
+    """Every one of ``tensors`` (name=tensor) in ``ref``'s dtype: a kernel
+    takes one element type, and no operand is cast on the way in."""
+    for name, t in tensors.items():
+        if t is not None and t.dtype != ref.dtype:
+            raise TypeError(f"{name} has dtype {t.dtype}, the others "
+                            f"{ref.dtype}")
+
+
+def _f32_eval_only(what: str, **options) -> None:
+    """The float32 forms are the eval products (ROADMAP queue B item 4 has
+    the train and quantized ones): raise for an option they do not take."""
+    on = [k for k, v in options.items() if v]
+    if on:
+        raise NotImplementedError(
+            f"{what} at float32 has eval forms only ({', '.join(on)} takes "
+            f"bfloat16; the float32 train and quantized forms are ROADMAP "
+            f"queue B item 4)")
 
 
 def _check_rows(m: int) -> None:
@@ -241,6 +279,101 @@ def _pair(p) -> bool:
     return p.smem <= SMEM_PAIR and p.ntw <= PAIR_NTW
 
 
+# The float32 products (csrc/f32_kernels.cu, dot3_kernel): 128-row tiles
+# (BM) over column tiles of 16, 32, 64 or 128, K streamed in chunks of 32,
+# each chunk's operands held as three bf16 planes per output at a row
+# padding of 8 elements, 8 warps with a 16x16 float32 stage each. The conv
+# splits K across blocks where its tiles are fewer than about one per SM
+# (a constant: the plan depends on the shapes alone), at most one split a
+# tap and at least two chunks a split.
+DOT3_ROWS = 128
+DOT3_DEPTH = 32
+DOT3_COLS = (16, 32, 64, 128)
+DOT3_ITEMS = 132
+DOT3_MAX_SPLITS = 9
+
+
+@dataclasses.dataclass(frozen=True)
+class Dot3Plan:
+    """How the float32 product kernel cuts an (m, K) -> (m, N) product
+    (``nout`` outputs, the first stored 2x2-pooled with ``pool``; or a 3x3
+    conv, ``nout`` 1): one block a tile of ``bm`` rows by ``bn`` columns,
+    K in chunks of ``bk`` (no weight resident: any K fits), ``smem`` bytes
+    of shared memory (the chunk's A and W planes, or the pooled float32
+    output tile, whichever is larger, then the warps' stages)."""
+    bn: int
+    nout: int
+    pool: bool
+    smem: int
+    bm: int = DOT3_ROWS
+    bk: int = DOT3_DEPTH
+    splits: int = 1
+
+    def grid(self, m: int, n: int):
+        return -(-m // self.bm), -(-n // self.bn)
+
+    def k_chunks(self, k: int):
+        """The chunks of K each split sums (the kernel's ``k_beg`` ..
+        ``k_end``), in the order the last block adds the partials."""
+        nch = -(-k // self.bk)
+        return [range(s * nch // self.splits, (s + 1) * nch // self.splits)
+                for s in range(self.splits)]
+
+
+@functools.lru_cache(maxsize=None)
+def dot3_plan(n: int, nout: int = 1, pool: bool = False) -> Dot3Plan:
+    """The float32 product kernel's plan for N output columns (a function
+    of the shapes alone: M and K change only the grid and the chunk count).
+    The narrowest column tile of 16, 32, 64, 128 that holds N, else 128;
+    its shared memory is ``csrc/f32_kernels.cu::Smem3``'s, which the kernel
+    checks."""
+    bn = next((b for b in DOT3_COLS if n <= b), DOT3_COLS[-1])
+    planes = nout * 3 * 2 * (DOT3_ROWS * (DOT3_DEPTH + 8)
+                             + DOT3_DEPTH * (bn + 8))
+    out_tile = DOT3_ROWS * (bn + 4) * 4 if pool else 0
+    smem = _up(max(planes, out_tile), 128) + DOT_WARPS * 16 * 16 * 4
+    return Dot3Plan(bn=bn, nout=nout, pool=pool, smem=smem)
+
+
+def table_args(feats, m, vec, w, out, *, bias=None, vec2=None, vec_s=None,
+               w_s=None, out_s=None, up_mask=0, hw=(0, 0), pool=False):
+    """The arguments of ``cunet_table_dot`` and of its float32 form
+    ``cunet_table_dot_f32`` (which takes its plan's column tile and shared
+    memory after them), up to the stream: the feature table as ctypes
+    arrays, the BN vectors, weights, epilogue (none, ``relu(. + bias)`` or
+    ``relu(. * vec2[0] + vec2[1])``) and outputs, the dual form's second
+    output with ``out_s``."""
+    g, n, dual = len(feats), out.shape[-1], out_s is not None
+    epi, ea, eb = 0, 0, 0
+    if bias is not None:
+        epi, eb = 1, bias.data_ptr()
+    if vec2 is not None:
+        epi, ea, eb = 2, vec2[0].data_ptr(), vec2[1].data_ptr()
+    _, rows_per_img, img_stride, ldo = _rows(out)
+    return ((ctypes.c_void_p * g)(*[f.data_ptr() for f in feats]),
+            (ctypes.c_longlong * g)(*[f.stride(0) for f in feats]),
+            (ctypes.c_int * g)(*[f.shape[1] for f in feats]), g, up_mask,
+            hw[0], hw[1], m, vec[0].data_ptr(), vec[1].data_ptr(),
+            w.data_ptr(), vec_s[0].data_ptr() if dual else 0,
+            vec_s[1].data_ptr() if dual else 0,
+            w_s.data_ptr() if dual else 0, w.stride(0), n, epi, ea, eb,
+            int(pool), out.data_ptr(), ldo, rows_per_img, img_stride,
+            out_s.data_ptr() if dual else 0,
+            out_s.stride(0) if dual else 0)
+
+
+def launch_dot3(feats, m, vec, w, out, **kw):
+    """Launch the float32 product (``cunet_table_dot_f32``) over the
+    float32 views ``feats`` (checked by the caller; ``kw`` as
+    ``table_args``): the float32 form of ``eval_ops.table_dot`` and, with
+    one group, of ``affine_dot``. Returns the launch's CUDA error code."""
+    p = dot3_plan(out.shape[-1], 2 if kw.get("out_s") is not None else 1,
+                  bool(kw.get("pool")))
+    return build.lib().cunet_table_dot_f32(
+        *table_args(feats, m, vec, w, out, **kw), p.bn, p.smem,
+        _stream(feats[0]))
+
+
 @functools.lru_cache(maxsize=None)
 def affine_dot_plan(m: int, k: int, n: int) -> DotPlan:
     """The kernel plan of ``affine_dot`` at these shapes (a function of them
@@ -253,7 +386,8 @@ def affine_dot_plan(m: int, k: int, n: int) -> DotPlan:
     at one block an SM, 32-row tiles and N split were slower at r=64:
     ``tools/gemm_sweep.py``, PERF.md section 6.) Cached: a forward asks
     for the same few shapes hundreds of times, and the host's time per
-    launch bounds the small-batch forward."""
+    launch bounds the small-batch forward. (The float32 form's plan is
+    ``dot3_plan``.)"""
     best = None
     groups = -(-n // 128)
     for split in (groups, 2 * groups):
@@ -302,6 +436,12 @@ def affine_dot(x, vec, w, out, *, bias=None, bits_i=0):
     per-slot paths agree bit for bit; the epilogue in f32 before one bf16
     rounding, staged per warp and written as 16-byte rows straight into
     the buffer slot. PERF.md section 6 has its times on the H100.
+
+    Float32 x, w and out (an f32 model's eval; no ``bits_i``, one eval
+    ``vec``) run the float32 product kernel with one feature group
+    (``csrc/f32_kernels.cu``): the prologue unrounded, six bf16 plane
+    products a k16 step, summed as ``eval_ops.table_dot``'s float32 form
+    sums them.
     """
     m, k = x.shape
     n = w.shape[1]
@@ -314,6 +454,8 @@ def affine_dot(x, vec, w, out, *, bias=None, bits_i=0):
     _check_bits(bits_i)
     if x.device.type == "cpu":
         return affine_dot_plain(x, vec, w, out, bias, bits_i)
+    if x.dtype == F32:
+        return _affine_dot_f32(x, vec, w, out, bias, bits_i)
     _check_view(x, "x")
     _check_view(out, "out")
     _check_view(w, "w")
@@ -335,6 +477,25 @@ def affine_dot(x, vec, w, out, *, bias=None, bits_i=0):
     build.check(code, "affine_dot")
     affine_dot.launches += 1
     affine_dot.option_launches += bits_i > 0
+    return out
+
+
+def _affine_dot_f32(x, vec, w, out, bias, bits_i):
+    """``affine_dot``'s float32 form: the float32 product kernel over the
+    one group ``x`` (``csrc/f32_kernels.cu``; the eval forms only)."""
+    _f32_eval_only("affine_dot", bits_i=bits_i, per_tile_vec=vec.dim() == 3)
+    for name, t in (("x", x), ("out", out), ("w", w)):
+        _check_view(t, name, (F32,))
+    if not w.is_contiguous():
+        raise ValueError("w must be contiguous")
+    _check_vec(vec, "vec", x.shape[1])
+    if bias is not None:
+        _check_vec(bias, "bias", w.shape[1])
+    _check_rows(x.shape[0])
+    code = launch_dot3([x], x.shape[0], vec, w, out, bias=bias)
+    build.check(code, "affine_dot (float32)")
+    affine_dot.launches += 1
+    affine_dot.f32_launches += 1
     return out
 
 
@@ -431,12 +592,26 @@ def _conv_layout(bm, kc, stages, nt, cbp, w) -> ConvPlan:
                     smem=stage_off + stages * stage_bytes)
 
 
+@functools.lru_cache(maxsize=None)
+def conv3x3_plan_f32(m: int, cb: int, g: int) -> Dot3Plan:
+    """The float32 conv's plan at these shapes (a function of them alone):
+    ``dot3_plan`` of G columns, its implicit GEMM's depth 9*Cb split across
+    blocks where the tiles are fewer than ``DOT3_ITEMS`` (at most
+    ``DOT3_MAX_SPLITS`` splits, at least two chunks a split)."""
+    p = dot3_plan(g)
+    gm, gn = p.grid(m, g)
+    splits = min(DOT3_MAX_SPLITS, DOT3_ITEMS // (gm * gn),
+                 -(-9 * cb // DOT3_DEPTH) // 2)
+    return dataclasses.replace(p, splits=max(splits, 1))
+
+
 def conv3x3_plan(m: int, h: int, w: int, cb: int, g: int) -> ConvPlan:
     """The kernel plan of ``conv3x3`` at these shapes (a function of them
-    alone). The largest row tile of 128, 64, 32 that still gives
-    ``CONV_TILES`` tiles (else 32), the whole weight resident (one chunk)
-    and two halo stages where they fit in ``SMEM_LIMIT``; else one stage,
-    a smaller tile, then smaller channel chunks."""
+    alone; the float32 form's is ``conv3x3_plan_f32``). The largest row
+    tile of 128, 64, 32 that still gives ``CONV_TILES`` tiles (else 32),
+    the whole weight resident (one chunk) and two halo stages where they
+    fit in ``SMEM_LIMIT``; else one stage, a smaller tile, then smaller
+    channel chunks."""
     cbp = _up(cb, 16)
     nt = min(-(-g // 8), 8)
     ncol = -(-g // (8 * nt))
@@ -481,6 +656,12 @@ def conv3x3(y, w3p, b, h, w, out, *, vec=None, bits_i=0):
     ``F.conv2d`` 25.0), 117 us at batch 64 (bound 25.1, ``F.conv2d`` 104;
     no single part of the tile's work dominates), 6.7-7.9 us at r <= 32
     batch 8, 65 us per tile at batch 24.
+
+    Float32 y, w3p and out (an f32 model's eval, no ``vec``) run the
+    float32 product kernel as an implicit GEMM of depth 9*Cb
+    (``csrc/f32_kernels.cu``, plan ``conv3x3_plan_f32``), K split across
+    blocks where the output tiles are few, the partials added in a fixed
+    order.
     """
     m, c = y.shape
     g = w3p.shape[1]
@@ -495,6 +676,8 @@ def conv3x3(y, w3p, b, h, w, out, *, vec=None, bits_i=0):
         raise ValueError("conv3x3 quantizes only with a BN prologue (vec)")
     if y.device.type == "cpu":
         return conv3x3_plain(y, w3p, b, h, w, out, vec, bits_i)
+    if y.dtype == F32:
+        return _conv3x3_f32(y, w3p, b, h, w, out, vec, bits_i)
     _check_view(y, "y")
     _check_view(out, "out")
     _check_view(w3p, "w3")
@@ -518,6 +701,35 @@ def conv3x3(y, w3p, b, h, w, out, *, vec=None, bits_i=0):
     return out
 
 
+def _conv3x3_f32(y, w3p, b, h, w, out, vec, bits_i):
+    """``conv3x3``'s float32 form: the eval conv (no prologue) as the
+    float32 product kernel's implicit GEMM (``csrc/f32_kernels.cu``)."""
+    _f32_eval_only("conv3x3", vec=vec is not None, bits_i=bits_i)
+    for name, t in (("y", y), ("out", out), ("w3", w3p)):
+        _check_view(t, name, (F32,))
+    if not w3p.is_contiguous():
+        raise ValueError("w3 must be contiguous")
+    m, c = y.shape
+    g = w3p.shape[1]
+    _check_rows(m)
+    p = conv3x3_plan_f32(m, c, g)
+    part = None
+    if p.splits > 1:
+        # this launch's own partials and per-tile arrival counters (the
+        # entry zeroes them on the stream): nothing shared with another
+        # stream's launch or left behind by an aborted one
+        gm, gn = p.grid(m, g)
+        part = torch.empty(p.splits * m * g + gm * gn, device=y.device)
+    code = build.lib().cunet_conv3x3_f32(
+        y.data_ptr(), y.stride(0), m, h, w, c, w3p.data_ptr(), g,
+        out.data_ptr(), out.stride(0), p.bn, p.smem, p.splits,
+        0 if part is None else part.data_ptr(), _stream(y))
+    build.check(code, "conv3x3 (float32)")
+    conv3x3.launches += 1
+    conv3x3.f32_launches += 1
+    return out
+
+
 # ---------------------------------------------------------------------------
 # K3 maxpool2 / K4 upsample2
 # ---------------------------------------------------------------------------
@@ -536,8 +748,8 @@ def maxpool2(x, b, h, w, out):
     Replaces ``cunet_tpu/kernels/fused_hourglass.py::_maxpool2``: the down
     block's ahead output pooled into the next buffer's ``[:, :c]``. Pure
     data movement (reads 4 rows, writes 1). Design: one thread per 8
-    channels of an output pixel, four 16-byte loads, one 16-byte store into
-    the strided buffer view.
+    channels (4 at float32) of an output pixel, four 16-byte loads, one
+    16-byte store into the strided buffer view.
     """
     m, c = x.shape
     if m != b * h * w or h % 2 or w % 2 \
@@ -546,13 +758,16 @@ def maxpool2(x, b, h, w, out):
                          f"{tuple(out.shape)}, image {b}x{h}x{w}")
     if x.device.type == "cpu":
         return maxpool2_plain(x, b, h, w, out)
-    _check_view(x, "x")
-    _check_view(out, "out")
-    code = build.lib().cunet_maxpool2(x.data_ptr(), x.stride(0),
-                                      out.data_ptr(), out.stride(0), b, h, w,
-                                      c, _stream(x))
+    _check_view(x, "x", (BF16, F32), None)
+    _check_view(out, "out", (BF16, F32), None)
+    _check_dtypes(x, out=out)
+    f32 = x.dtype == F32
+    fn = build.lib().cunet_maxpool2_f32 if f32 else build.lib().cunet_maxpool2
+    code = fn(x.data_ptr(), x.stride(0), out.data_ptr(), out.stride(0), b, h,
+              w, c, _stream(x))
     build.check(code, "maxpool2")
     maxpool2.launches += 1
+    maxpool2.f32_launches += f32
     return out
 
 
@@ -569,7 +784,8 @@ def upsample2(x, b, h, w, out):
     Replaces ``cunet_tpu/kernels/fused_hourglass.py::_upsample2``: the
     neck/up ahead output written into the next up buffer's ``[:, :c]``.
     Pure data movement (reads 1 row, writes 4). Design: one thread per 8
-    channels of an input pixel, one 16-byte load, four 16-byte stores.
+    channels (4 at float32) of an input pixel, one 16-byte load, four
+    16-byte stores.
     """
     m, c = x.shape
     if m != b * h * w or tuple(out.shape) != (b * 4 * h * w, c):
@@ -577,13 +793,17 @@ def upsample2(x, b, h, w, out):
                          f"{tuple(out.shape)}, image {b}x{h}x{w}")
     if x.device.type == "cpu":
         return upsample2_plain(x, b, h, w, out)
-    _check_view(x, "x")
-    _check_view(out, "out")
-    code = build.lib().cunet_upsample2(x.data_ptr(), x.stride(0),
-                                       out.data_ptr(), out.stride(0), b, h, w,
-                                       c, _stream(x))
+    _check_view(x, "x", (BF16, F32), None)
+    _check_view(out, "out", (BF16, F32), None)
+    _check_dtypes(x, out=out)
+    f32 = x.dtype == F32
+    fn = (build.lib().cunet_upsample2_f32 if f32
+          else build.lib().cunet_upsample2)
+    code = fn(x.data_ptr(), x.stride(0), out.data_ptr(), out.stride(0), b, h,
+              w, c, _stream(x))
     build.check(code, "upsample2")
     upsample2.launches += 1
+    upsample2.f32_launches += f32
     return out
 
 
@@ -594,10 +814,13 @@ OPTIONS = {affine_dot: "bits_i", conv3x3: "bits_i"}
 
 
 def reset_counts(kernels, options=()) -> None:
-    """Zero ``launches`` of each wrapper of ``kernels`` and
-    ``option_launches`` of each of ``options``."""
+    """Zero ``launches`` of each wrapper of ``kernels`` (and its
+    ``f32_launches``, where it has a float32 form) and ``option_launches``
+    of each of ``options``."""
     for k in kernels:
         k.launches = 0
+        if hasattr(k, "f32_launches"):
+            k.f32_launches = 0
     for k in options:
         k.option_launches = 0
 
@@ -621,4 +844,12 @@ def option_counts() -> dict:
     return count_options(OPTIONS)
 
 
+def f32_counts() -> dict:
+    """Launches of each wrapper's float32 form, keyed ``name[f32]`` (also
+    counted in its ``launches``)."""
+    return {f"{k.__name__}[f32]": k.f32_launches for k in KERNELS}
+
+
+for _k in KERNELS:
+    _k.f32_launches = 0
 reset_launch_counts()

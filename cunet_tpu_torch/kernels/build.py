@@ -24,7 +24,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("buf_kernels.cu", "train_kernels.cu", "quant_kernels.cu",
-           "bottleneck_kernels.cu", "eval_kernels.cu")
+           "bottleneck_kernels.cu", "eval_kernels.cu", "f32_kernels.cu")
 HEADERS = ("common.cuh", "halo.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -102,6 +102,9 @@ def _declare(lib):
                           *[I] * 10, P],
         "cunet_maxpool2": [P, L, P, L, I, I, I, I, P],
         "cunet_upsample2": [P, L, P, L, I, I, I, I, P],
+        "cunet_maxpool2_f32": [P, L, P, L, I, I, I, I, P],
+        "cunet_upsample2_f32": [P, L, P, L, I, I, I, I, P],
+        "cunet_conv3x3_f32": [P, L, L, I, I, I, P, I, P, L, I, I, I, P, P],
         "cunet_bn_stats": [P, L, L, L, I, P, P],
         "cunet_bn_bwd": [P, L, P, L, L, L, I, P, P, F, P, L, I, P,
                          *[I] * 6, P],
@@ -129,6 +132,8 @@ def _declare(lib):
         "cunet_tb_bwd_dx": [P, I, L, I, P, L, I, P, P, P, P, *[I] * 7, P],
         "cunet_table_dot": [P, P, P, I, I, I, I, L, P, P, P, P, P, P, I, I,
                             I, P, P, I, P, L, L, L, P, L, P],
+        "cunet_table_dot_f32": [P, P, P, I, I, I, I, L, P, P, P, P, P, P, I,
+                                I, I, P, P, I, P, L, L, L, P, L, I, I, P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

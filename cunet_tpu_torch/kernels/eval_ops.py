@@ -19,19 +19,22 @@ raises. ``table_dot.launches`` counts its launches and nothing else;
 
 from __future__ import annotations
 
-import ctypes
 from typing import Sequence
 
 import torch
 
 from cunet_tpu_torch.kernels import build
 from cunet_tpu_torch.kernels.buf_ops import (
+    BF16,
+    F32,
     _check_vec,
     _check_view,
     _rows,
     _stream,
     affine_dot_plain,
+    launch_dot3,
     maxpool2_plain,
+    table_args,
     upsample2_plain,
 )
 
@@ -70,12 +73,16 @@ def table_dot_plain(feats, vec, w, out, bias=None, vec_s=None, w_s=None,
     return out
 
 
-def _check_dense(t: torch.Tensor, name: str, dev: torch.device) -> None:
-    """A bf16 operand on ``dev`` with unit column stride; any width."""
-    if t.device != dev or t.dtype != torch.bfloat16 or t.stride(-1) != 1:
-        raise ValueError(f"{name} must be a bf16 tensor on {dev} with unit "
-                         f"column stride, got {t.dtype} on {t.device}, "
-                         f"strides {t.stride()}")
+def _check_dense(t: torch.Tensor, name: str, dev: torch.device,
+                 dtype=BF16) -> None:
+    """An operand of ``dtype`` (the features': no operand is cast) on
+    ``dev`` with unit column stride; any width."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, the features {dtype}")
+    if t.device != dev or t.stride(-1) != 1:
+        raise ValueError(f"{name} must be a tensor on {dev} with unit "
+                         f"column stride, got {t.device}, strides "
+                         f"{t.stride()}")
 
 
 def _check_resample(up, pool, hw, m, feats):
@@ -143,6 +150,14 @@ def table_dot(feats: Sequence[torch.Tensor], vec, w, out, *, bias=None,
     shared-memory tiles; bf16 WMMA with float32 accumulators; N and row
     tails in the kernel; the upsample a per-row remap of the load, the pool
     an epilogue over the output tile in shared memory.
+
+    Float32 features (with float32 weights and outputs) run its float32
+    form, every option included (``csrc/f32_kernels.cu``, plan
+    ``buf_ops.dot3_plan``): no rounding anywhere, the product float32-accurate
+    through the exact three-way bf16 split of both operands (six plane
+    products a k16 step on the tensor cores), summed in the order of
+    ``affine_dot``'s float32 form, so the per-slot and whole-model paths
+    agree bit for bit at float32 too.
     """
     feats = list(feats)
     dual = out_s is not None
@@ -192,41 +207,35 @@ def table_dot(feats: Sequence[torch.Tensor], vec, w, out, *, bias=None,
     if feats[0].device.type == "cpu":
         return table_dot_plain(feats, vec, w, out, bias, vec_s, w_s, out_s,
                                vec2=vec2, up=up, pool=pool, hw=hw)
-    dev = feats[0].device
+    dev, dt = feats[0].device, feats[0].dtype
     for i, f in enumerate(feats):
-        _check_view(f, f"feature {i}")
+        _check_view(f, f"feature {i}", (BF16, F32))
         if f.device != dev:
             raise ValueError(f"feature {i} is on {f.device}, not {dev}")
+        if f.dtype != dt:
+            raise TypeError(f"feature {i} has dtype {f.dtype}, feature 0 "
+                            f"{dt}")
     for v, wt, o, _ in pairs:
-        _check_dense(o, "out", dev)
-        _check_dense(wt, "w", dev)
+        _check_dense(o, "out", dev, dt)
+        _check_dense(wt, "w", dev, dt)
         _check_vec(v, "vec", k)
     if dual and w_s.stride() != w.stride():
         raise ValueError(f"w_s strides {w_s.stride()} differ from w's "
                          f"{w.stride()}")
-    epi, ea, eb = 0, 0, 0
-    if bias is not None:
-        _check_vec(bias, "bias", n)
-        epi, eb = 1, bias.data_ptr()
-    if vec2 is not None:
-        _check_vec(vec2, "vec2", n)
-        epi, ea, eb = 2, vec2[0].data_ptr(), vec2[1].data_ptr()
-    _, rows_per_img, img_stride, ldo = _rows(out)
-    g = len(feats)
-    ptrs = (ctypes.c_void_p * g)(*[f.data_ptr() for f in feats])
-    lds = (ctypes.c_longlong * g)(*[f.stride(0) for f in feats])
-    widths = (ctypes.c_int * g)(*[f.shape[1] for f in feats])
+    for name, t in (("bias", bias), ("vec2", vec2)):
+        if t is not None:
+            _check_vec(t, name, n)
     up_mask = sum(1 << i for i, half in enumerate(up) if half)
-    code = build.lib().cunet_table_dot(
-        ptrs, lds, widths, g, up_mask, h, wd, m, vec[0].data_ptr(),
-        vec[1].data_ptr(), w.data_ptr(),
-        vec_s[0].data_ptr() if dual else 0,
-        vec_s[1].data_ptr() if dual else 0,
-        w_s.data_ptr() if dual else 0, w.stride(0), n, epi, ea, eb,
-        int(pool), out.data_ptr(), ldo, rows_per_img, img_stride,
-        out_s.data_ptr() if dual else 0, out_s.stride(0) if dual else 0,
-        _stream(feats[0]))
-    build.check(code, "table_dot")
+    kw = dict(bias=bias, vec2=vec2, vec_s=vec_s, w_s=w_s, out_s=out_s,
+              up_mask=up_mask, hw=(h, wd), pool=pool)
+    if dt == F32:
+        build.check(launch_dot3(feats, m, vec, w, out, **kw),
+                    "table_dot (float32)")
+        table_dot.f32_launches += 1
+    else:
+        build.check(build.lib().cunet_table_dot(
+            *table_args(feats, m, vec, w, out, **kw), _stream(feats[0])),
+            "table_dot")
     table_dot.launches += 1
     table_dot.dual_launches += dual
     table_dot.bias_launches += bias is not None
@@ -245,13 +254,19 @@ OPTIONS = {"dual": "dual_launches", "shift2": "bias_launches",
 
 
 def reset_launch_counts() -> None:
-    table_dot.launches = 0
+    table_dot.launches = table_dot.f32_launches = 0
     for attr in OPTIONS.values():
         setattr(table_dot, attr, 0)
 
 
 def launch_counts() -> dict:
     return {"table_dot": table_dot.launches}
+
+
+def f32_counts() -> dict:
+    """Launches of the float32 form (also counted in ``launches`` and in
+    each option's count)."""
+    return {"table_dot[f32]": table_dot.f32_launches}
 
 
 def option_counts() -> dict:

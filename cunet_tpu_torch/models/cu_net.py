@@ -63,9 +63,13 @@ The JAX ``lax.scan`` over steady-state slots and its stacked-slot storage
 exist to cut XLA compile time; here every slot runs in a plain loop, and
 ``use_scan`` only chooses the kernels, as it does in JAX.
 
-The hand-written kernels take bfloat16 only: ``use_pallas`` on a CUDA
-device with another ``compute_dtype`` raises (:func:`check_kernel_dtype`);
-on the CPU the kernels' plain versions run in any dtype.
+The hand-written kernels take bfloat16 on every path and float32
+(``compute_dtype="float32"``, JAX's default) on the float eval paths:
+the whole-model, per-slot, per-block and per-bottleneck kernels have
+float32 forms whose products are float32-accurate. ``use_pallas`` on a
+CUDA device with float32 in training or in a quantized eval, or with any
+other dtype, raises (:func:`check_kernel_dtype`); on the CPU the kernels'
+plain versions run in any dtype.
 ``conv3x3_impl="scatter"`` runs every dense layer's 3x3 conv as JAX's
 scatter form (:func:`cunet_tpu_torch.ops.layers.conv3x3_scatter`).
 
@@ -667,7 +671,7 @@ def apply_slot_train(params, state, y, fifos, *, cfg: ModelConfig, i: int):
     against the plain path on inputs and cotangents of the caller's
     choosing."""
     _check_train_cfg(cfg, None)
-    check_kernel_dtype(cfg, y.device)
+    check_kernel_dtype(cfg, y.device, train=True)
     if fused_train_ok(cfg):
         return _fused_slot_train(params, state, y, fifos, cfg=cfg, i=i)
     upd: Dict[str, torch.Tensor] = {}
@@ -715,18 +719,29 @@ def eval_path(cfg: ModelConfig, quant=None) -> str:
     return "layers"
 
 
-def check_kernel_dtype(cfg: ModelConfig, device) -> None:
+def check_kernel_dtype(cfg: ModelConfig, device, *, train: bool = False,
+                       quant=None) -> None:
     """Raise ``NotImplementedError`` where ``cfg`` would run a CUDA kernel
-    path (``use_pallas`` on a CUDA ``device``, train or eval) with a
-    ``compute_dtype`` other than bfloat16: every hand-written kernel takes
-    bf16 operands only. On the CPU the kernels' plain versions run in any
-    dtype."""
-    if cfg.use_pallas and torch.device(device).type == "cuda" \
-            and cfg.compute_dtype != "bfloat16":
-        raise NotImplementedError(
-            f"the CUDA kernels take bfloat16 only: use_pallas on {device} "
-            f"needs compute_dtype='bfloat16', got {cfg.compute_dtype!r} "
-            f"(use_pallas=False runs it on the plain path)")
+    path (``use_pallas`` on a CUDA ``device``) in a dtype its kernels do not
+    take. bfloat16 runs every path. float32 runs the float eval paths (the
+    whole-model, per-slot, per-block and per-bottleneck kernels have
+    float32 forms); float32 training and a quantized float32 eval (an
+    enabled ``quant``: its int8 kernels take bf16 activations) do not yet
+    (ROADMAP queue B item 4). Any other dtype raises. On the CPU the
+    kernels' plain versions run in any dtype."""
+    if not cfg.use_pallas or torch.device(device).type != "cuda" \
+            or cfg.compute_dtype == "bfloat16":
+        return
+    if cfg.compute_dtype == "float32" and not train and _active(quant) is None:
+        return
+    what = ("training" if train else "quantized eval"
+            if cfg.compute_dtype == "float32" else "any path")
+    raise NotImplementedError(
+        f"the CUDA kernels take {cfg.compute_dtype!r} nowhere for {what}: "
+        f"use_pallas on {device} needs compute_dtype='bfloat16' there (the "
+        f"float32 forms cover the float eval only; the float32 train and "
+        f"quantized forms are ROADMAP queue B item 4; use_pallas=False runs "
+        f"it on the plain path)")
 
 
 def eval_slots(params, state, cfg: ModelConfig, quant=None):
@@ -914,11 +929,12 @@ def apply_cu_net(params, state, x: torch.Tensor, *, cfg: ModelConfig,
       U-Net order, state) -- the state is unchanged in eval, and in train
       a new dict with every BN's updated running statistics.
 
-    Raises ``NotImplementedError`` for ``use_pallas`` on a CUDA tensor with
-    another dtype than bfloat16 (:func:`check_kernel_dtype`).
+    Raises ``NotImplementedError`` for ``use_pallas`` on a CUDA tensor in
+    a dtype its kernels do not take: bfloat16 runs every path, float32 the
+    float eval only (:func:`check_kernel_dtype`).
     """
     quant = _active(quant)
-    check_kernel_dtype(cfg, x.device)
+    check_kernel_dtype(cfg, x.device, train=train, quant=quant)
     path = None if train else eval_path(cfg, quant)
     if train:
         _check_train_cfg(cfg, drop_seeds)

@@ -27,9 +27,19 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     The NHWC tensor is handed to ``F.conv2d`` as a channels-last NCHW view,
     so the library runs its NHWC kernels without a layout copy. Only the
     stem reaches this on the kernel path (the JAX package also runs the stem
-    outside its Pallas program)."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), w.to(x.dtype).permute(3, 2, 0, 1),
-                 stride=stride, padding=padding)
+    outside its Pallas program). A float32 conv runs in full float32 on
+    the card whatever ``torch.backends.cudnn.allow_tf32`` says (TF32, its
+    default, would move it by ~1e-3 relative, where JAX's float32 conv
+    moves by ~1e-7)."""
+    xt, wt = x.permute(0, 3, 1, 2), w.to(x.dtype).permute(3, 2, 0, 1)
+    if x.dtype == torch.float32 and x.is_cuda:
+        cudnn = torch.backends.cudnn   # its other flags kept as they are
+        with cudnn.flags(enabled=True, benchmark=cudnn.benchmark,
+                         deterministic=cudnn.deterministic,
+                         allow_tf32=False):
+            y = F.conv2d(xt, wt, stride=stride, padding=padding)
+    else:
+        y = F.conv2d(xt, wt, stride=stride, padding=padding)
     return y.permute(0, 2, 3, 1)
 
 

@@ -4,8 +4,8 @@ Counterpart of ``cunet_tpu/serving.py``. The predictor runs the eval forward
 at a fixed batch size (ragged requests are padded to it, so every call has
 the same shapes), optionally mirror-ensembles with the flip test, and
 decodes heatmaps to landmark coordinates with the reference-exact
-quarter-pixel decode. With ``cfg.use_pallas`` (bf16) the forward runs the
-hand-written kernels: with the default flags every slot on the per-slot
+quarter-pixel decode. With ``cfg.use_pallas`` (bf16, or float32 for
+the float model) the forward runs the hand-written kernels: with the default flags every slot on the per-slot
 hourglass kernels, as JAX's ``Predictor`` runs them, with
 ``cfg.pallas_whole_model`` the whole-model eval kernels, and with
 ``pallas_hourglass=False`` under ``use_scan`` the steady slots on the
@@ -35,9 +35,10 @@ class Predictor:
     """Landmark predictor.
 
     Args:
-      cfg: model architecture (bf16 + use_pallas for the kernel paths on
-        the card: per slot with the default flags, the whole model with
-        ``pallas_whole_model``, per block with ``pallas_hourglass=False``).
+      cfg: model architecture (use_pallas for the kernel paths on the
+        card, at bf16 or, for the float model, float32: per slot with the
+        default flags, the whole model with ``pallas_whole_model``, per
+        block with ``pallas_hourglass=False``).
       params/bn_state: flat tensor dicts (``cunet_tpu_torch.models``
         layout); default = random init from ``seed``.
       device: where the forward runs, e.g. ``"cuda"`` or ``"cpu"``.
@@ -64,7 +65,7 @@ class Predictor:
         self.cfg = cfg
         self.quant = quant
         self.device = torch.device(device)
-        check_kernel_dtype(cfg, self.device)
+        check_kernel_dtype(cfg, self.device, quant=quant)
         self.batch_size = batch_size
         self.flip_test = flip_test
         self.flip_pairs = flip_pairs

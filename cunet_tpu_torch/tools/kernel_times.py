@@ -18,12 +18,14 @@ per tile, ``affine_dx``, ``conv3x3`` per tile and ``conv3x3_dx`` /
 kernels (``conv3x3[bits_i]``, ``conv3x3_dw[bits_i]`` and
 ``conv3x3_dx[ste]`` at every resolution), phase 9's kernels of #7
 (``bwd_reduce`` at every resolution), phase 10 (``table_dot``'s forms) and
-phase 11 (a) (``[up]``, ``[pool]``, ``[scale]``; a checkout needs them):
+phase 11 (a) (``[up]``, ``[pool]``, ``[scale]``; a checkout needs them)
+and, where the checkout has them, phase 12 (a) (the float32 forms):
 each case against its plain version, timed by CUDA-graph replay beside its
 library call (or ``torch.mm`` of its product alone) and bound. Then the
 forward of CU-Net-8 @256 at batch 8 and 64, three wall-clock times each:
 the per-slot path (JAX's default flags) and the whole-model path
-(``pallas_whole_model``, the main path's serving forward). The cases come
+(``pallas_whole_model``, the main path's serving forward), at bf16 and,
+where the checkout has the float32 forms, at float32. The cases come
 from this checkout, so two checkouts are timed on the same cases. To
 compare a change with its parent, unpack the parent with ``git archive`` into a gitignored
 directory and run this once per checkout in one call, in the order parent,
@@ -89,17 +91,24 @@ def main(argv=None) -> int:
     cs.phase_bn0_kernels(torch, train_bottleneck)
     cs.phase_eval_kernels(torch, eval_ops)
     cs.phase_block_kernels(torch, buf_ops, eval_ops)
-    cfg = ModelConfig(layer_num=8, order=1, class_num=16, loss_num=8,
-                      compute_dtype="bfloat16", use_pallas=True)
-    params, state = init_cu_net(cfg, torch.Generator().manual_seed(0))
-    for path, c in (("per-slot", cfg), ("whole-model", dataclasses.replace(
-            cfg, pallas_whole_model=True))):
-        for batch in (cs.BATCH, 64):
-            pred = Predictor(c, params, state, device="cuda",
-                             batch_size=batch)
-            ms = [cs.time_forward(torch, pred, batch) for _ in range(3)]
-            print(f"{path} forward batch {batch}: "
-                  f"{' '.join(f'{m:.3f}' for m in ms)} ms", flush=True)
+    # the float32 forms, where the checkout has them
+    dtypes = ["bfloat16"]
+    if hasattr(buf_ops, "dot3_plan"):
+        cs.phase_f32_kernels(torch, buf_ops, eval_ops)
+        dtypes.append("float32")
+    for dtype in dtypes:
+        cfg = ModelConfig(layer_num=8, order=1, class_num=16, loss_num=8,
+                          compute_dtype=dtype, use_pallas=True)
+        params, state = init_cu_net(cfg, torch.Generator().manual_seed(0))
+        for path, c in (("per-slot", cfg), ("whole-model",
+                                            dataclasses.replace(
+                                                cfg, pallas_whole_model=True))):
+            for batch in (cs.BATCH, 64):
+                pred = Predictor(c, params, state, device="cuda",
+                                 batch_size=batch)
+                ms = [cs.time_forward(torch, pred, batch) for _ in range(3)]
+                print(f"{path} forward {dtype} batch {batch}: "
+                      f"{' '.join(f'{m:.3f}' for m in ms)} ms", flush=True)
     return 0
 
 

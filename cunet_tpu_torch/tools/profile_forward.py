@@ -1,10 +1,11 @@
 """Device-time breakdown of the CU-Net-8 @256 eval forward on one GPU.
 
     python -m cunet_tpu_torch.tools.profile_forward [--batch 8 64] [--int8]
-        [--path whole_model|hourglass|blocks|layers]
+        [--path whole_model|hourglass|blocks|layers] [--dtype float32]
         [--out chiprun_out/profile_forward.json]
 
-For each batch size: the forward (kernel path, bf16, random weights from
+For each batch size: the forward (kernel path, bf16 or with ``--dtype
+float32`` the float32 model on the float32 forms, random weights from
 seed 0; with ``--int8`` the quantized W1/I8/G8 model of ``bench.py``'s int8
 configuration, weights ``quant_eval_params`` of the same init) is warmed
 up, then ``--iters`` forwards run under
@@ -138,18 +139,20 @@ def main(argv=None) -> int:
                     help="the quantized model on the int8 kernels")
     ap.add_argument("--path", choices=sorted(PATHS), default="whole_model",
                     help="the eval path, chosen by its config flags")
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"),
+                    default="bfloat16", help="the model's compute dtype")
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_forward: no CUDA device")
     gpu = gpu_name()
-    cfg = PATHS[args.path]
+    cfg = dataclasses.replace(PATHS[args.path], compute_dtype=args.dtype)
     params, state = init_cu_net(cfg, torch.Generator().manual_seed(0))
     quant = INT8 if args.int8 else None
     if quant is not None:
         params = quant_eval_params(params, quant)
     report = {"gpu": gpu, "torch": torch.__version__, "int8": args.int8,
-              "path": eval_path(cfg, quant), "runs": []}
+              "dtype": args.dtype, "path": eval_path(cfg, quant), "runs": []}
     for batch in args.batch:
         pred = Predictor(cfg, params, state, device="cuda",
                          batch_size=batch, quant=quant)
@@ -158,8 +161,9 @@ def main(argv=None) -> int:
         r = dict(batch=batch, **profile_window(lambda: pred.forward(x),
                                                args.iters))
         report["runs"].append(r)
-        print_report(f"{'int8 ' if args.int8 else ''}forward, "
-                     f"{report['path']} path, batch {batch} ({gpu})", r)
+        print_report(f"{'int8 ' if args.int8 else ''}{args.dtype} "
+                     f"forward, {report['path']} path, batch {batch} "
+                     f"({gpu})", r)
     if args.out:
         with open(args.out, "w") as f:
             json.dump(report, f, indent=1)

@@ -9,7 +9,9 @@ prologues and straight-through gate, a two-slot step with each; the
 feature-table kernel's forms and the eval paths over it: per slot (#4),
 per bottleneck (#6), per block (#5, with the upsample and the pool
 folded into the product), and the value-carried whole-model evals (#3,
-#2). Skips
+#2); the float32 forms of the eval kernels (every form against its plain
+version at float32 within the float32 n-term bound and bit for bit under
+one-hot weights, the conv's split K, the eval paths at float32). Skips
 without a CUDA device. Imports no JAX, so it runs on a machine without
 it:
 
@@ -199,8 +201,8 @@ def test_maxpool2_upsample2(gen, r):
 def test_wrappers_raise_on_what_the_kernels_do_not_take(gen):
     x = _bf16(gen, 64, 16)
     v, w, out = _vec(gen, 16), _bf16(gen, 16, 8), _bf16(gen, 64, 8)
-    with pytest.raises(TypeError):
-        buf_ops.affine_dot(x.float(), v, w.float(), out.float())
+    with pytest.raises(TypeError):           # float32 x, bf16 weight
+        buf_ops.affine_dot(x.float(), v, w, out.float())
     with pytest.raises(ValueError):          # K not a multiple of 8
         buf_ops.affine_dot(x[:, :12], v, w, out)
     with pytest.raises(ValueError):          # vec not float32
@@ -1484,16 +1486,22 @@ def test_face_head_on_every_kernel_path(gen):
 
 
 def test_f32_kernel_path_raises(gen):
+    """float32 runs the float eval kernel paths; float32 training and the
+    quantized float32 eval raise (ROADMAP queue B item 4)."""
     cfg = ModelConfig(layer_num=2, order=1, loss_num=2, class_num=8,
                       **{**SMALL, "compute_dtype": "float32"})
     params, state = init_cu_net(cfg, gen, device="cuda")
     x = torch.rand(1, 64, 64, 3, generator=gen).cuda()
+    for c in (dataclasses.replace(cfg, bn_tile=1),
+              dataclasses.replace(cfg, bn_tile=0)):
+        with pytest.raises(NotImplementedError, match="queue B item 4"):
+            apply_cu_net(params, state, x, cfg=c, train=True)
+    qp = quant_eval_params(params, INT8)
     for c in (cfg, dataclasses.replace(cfg, pallas_whole_model=True)):
         with pytest.raises(NotImplementedError, match="bfloat16"):
-            apply_cu_net(params, state, x, cfg=c)
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        apply_cu_net(params, state, x, cfg=dataclasses.replace(
-            cfg, bn_tile=1), train=True)
+            apply_cu_net(qp, state, x, cfg=c, quant=INT8)
+        outs, _ = apply_cu_net(params, state, x, cfg=c)
+        assert outs[-1].dtype == torch.float32
     outs, _ = apply_cu_net(params, state, x, cfg=dataclasses.replace(
         cfg, use_pallas=False))
     assert outs[-1].dtype == torch.float32
@@ -1662,3 +1670,332 @@ def test_fused_model_evals_are_the_whole_model_path(gen, order):
     plain, _ = apply_cu_net(params, state, x, cfg=plain_cfg)
     for i, p in enumerate(plain):
         assert _rel(every[:, i], p) <= 3e-2
+
+
+# ---------------------------------------------------------------------------
+# the float32 forms of the eval kernels (csrc/f32_kernels.cu, and the
+# float32 maxpool2 / upsample2): against their plain versions at float32
+# (TF32 off) within the float32 n-term bound, bit for bit under one-hot
+# weights; the float32 eval paths
+# ---------------------------------------------------------------------------
+
+F32_SUM = 1e-5      # PERF.md section 2: |k - p| <= 1e-5 sqrt(n) max|p|
+
+
+def _f32(gen, *shape, scale=1.0):
+    return (torch.randn(*shape, generator=gen) * scale).cuda()
+
+
+def _close_f32(got, want, n):
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    bound = F32_SUM * n ** 0.5 * want.abs().max().item() + 1e-6
+    assert (got - want).abs().max().item() <= bound
+
+
+def _one_hot(gen, k, n, rows=None):
+    """A (k, n) float32 weight with one 1 in each column (at ``rows``, or
+    at random rows below k)."""
+    if rows is None:
+        rows = torch.randint(0, k, (n,), generator=gen)
+    w = torch.zeros(k, n)
+    w[rows, torch.arange(n)] = 1.0
+    return w.cuda()
+
+
+@pytest.mark.parametrize("m,k,n,bias", [(520, 24, 16, False),
+                                        (520, 40, 16, True),
+                                        (2048, 192, 128, True),
+                                        (300, 136, 72, False),
+                                        (4096, 320, 128, True)])
+def test_affine_dot_f32(gen, m, k, n, bias):
+    """Against the plain version within the float32 bound (a strided x
+    prefix, a strided output view), and bit for bit under a one-hot W,
+    with and without the shift + ReLU epilogue."""
+    wide = _f32(gen, m, k + 24)
+    v = _vec(gen, k + 8)
+    b = (torch.randn(n, generator=gen) * 0.5).cuda() if bias else None
+    for hot in (False, True):
+        w = (torch.cat([_one_hot(gen, k, n), torch.zeros(8, n).cuda()])
+             if hot else _f32(gen, k + 8, n, scale=k ** -0.5))
+        dst = _f32(gen, m, n + 16)
+        got, want = dst.clone(), dst.clone()
+        before = buf_ops.affine_dot.f32_launches
+        buf_ops.affine_dot(wide[:, :k], v, w, got[:, 8:8 + n], bias=b)
+        buf_ops.affine_dot_plain(wide[:, :k], v, w, want[:, 8:8 + n], b)
+        torch.cuda.synchronize()
+        assert buf_ops.affine_dot.f32_launches == before + 1
+        if hot:
+            assert torch.equal(got, want)
+        else:
+            _close_f32(got[:, 8:8 + n], want[:, 8:8 + n], k)
+            got[:, 8:8 + n].copy_(dst[:, 8:8 + n])
+            assert torch.equal(got, dst)
+
+
+def test_affine_dot_f32_head_slot(gen):
+    b, r, k, cls = 8, 16, 32, 72
+    x, v = _f32(gen, b * r * r, k), _vec(gen, k)
+    w = _f32(gen, k, cls, scale=k ** -0.5)
+    heads = _f32(gen, b, 3, r, r, cls)
+    got, want = heads.clone(), heads.clone()
+    buf_ops.affine_dot(x, v, w, got[:, 1].view(b, r * r, cls))
+    buf_ops.affine_dot_plain(x, v, w, want[:, 1].view(b, r * r, cls))
+    torch.cuda.synchronize()
+    _close_f32(got, want, k)
+    got[:, 1] = heads[:, 1]
+    assert torch.equal(got, heads)
+
+
+def _shifted(y, n, r, c, rows, g):
+    """The SAME 3x3 conv of y (n*r*r, c) under the one-hot weight with
+    column j's 1 at packed row rows[j] (tap-major): each output column a
+    shifted input channel, zero outside the image; exact."""
+    img = torch.nn.functional.pad(y.view(n, r, r, c), (0, 0, 1, 1, 1, 1))
+    out = torch.empty(n, r, r, g, device=y.device)
+    for j, row in enumerate(rows.tolist()):
+        tap, ch = divmod(row, c)
+        dy, dx = divmod(tap, 3)
+        out[..., j] = img[:, dy:dy + r, dx:dx + r, ch]
+    return out.view(n * r * r, g)
+
+
+@pytest.mark.parametrize("cb,g,r,n", [(16, 8, 8, 3), (48, 24, 4, 3),
+                                      (128, 32, 16, 2), (64, 40, 5, 2),
+                                      (32, 16, 64, 4)])
+def test_conv3x3_f32(gen, cb, g, r, n):
+    """K split across blocks at small M (two to nine partials, added in
+    split order: a repeat gives the same bits), whole at large M."""
+    m = n * r * r
+    splits = buf_ops.conv3x3_plan_f32(m, cb, g).splits
+    assert (splits > 1) == (m < 16384)
+    y = _f32(gen, m, cb)
+    w3 = _f32(gen, 9 * cb, g, scale=(9 * cb) ** -0.5)
+    dst = _f32(gen, m, g + 16)
+    got, want = dst.clone(), dst.clone()
+    before = buf_ops.conv3x3.f32_launches
+    buf_ops.conv3x3(y, w3, n, r, r, got[:, 8:8 + g])
+    buf_ops.conv3x3_plain(y, w3, n, r, r, want[:, 8:8 + g])
+    torch.cuda.synchronize()
+    assert buf_ops.conv3x3.f32_launches == before + 1
+    _close_f32(got[:, 8:8 + g], want[:, 8:8 + g], 9 * cb)
+    again = dst.clone()
+    buf_ops.conv3x3(y, w3, n, r, r, again[:, 8:8 + g])
+    torch.cuda.synchronize()
+    assert torch.equal(again, got)
+    got[:, 8:8 + g].copy_(dst[:, 8:8 + g])
+    assert torch.equal(got, dst)
+    rows = torch.randint(0, 9 * cb, (g,), generator=gen)
+    out = torch.empty(m, g, device="cuda")
+    buf_ops.conv3x3(y, _one_hot(gen, 9 * cb, g, rows), n, r, r, out)
+    torch.cuda.synchronize()
+    assert torch.equal(out, _shifted(y, n, r, cb, rows, g))
+
+
+def test_conv3x3_f32_split_on_two_streams(gen):
+    """Split convs launched at once on two streams, each with its own
+    partials and arrival counters: each gives its plain version's sum
+    and its own first answer's bits."""
+    n, r, cb, g = 2, 8, 128, 32
+    m = n * r * r
+    assert buf_ops.conv3x3_plan_f32(m, cb, g).splits > 1
+    ys = [_f32(gen, m, cb) for _ in range(2)]
+    ws = [_f32(gen, 9 * cb, g, scale=(9 * cb) ** -0.5) for _ in range(2)]
+    wants = [buf_ops.conv3x3_plain(y, w, n, r, r, torch.empty(m, g).cuda())
+             for y, w in zip(ys, ws)]
+    firsts = [buf_ops.conv3x3(y, w, n, r, r, torch.empty(m, g).cuda())
+              for y, w in zip(ys, ws)]
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    outs = [[torch.empty(m, g).cuda() for _ in range(50)] for _ in range(2)]
+    torch.cuda.synchronize()
+    for i in range(50):
+        for s, y, w, o in zip(streams, ys, ws, outs):
+            with torch.cuda.stream(s):
+                buf_ops.conv3x3(y, w, n, r, r, o[i])
+    torch.cuda.synchronize()
+    for want, first, o in zip(wants, firsts, outs):
+        _close_f32(first, want, 9 * cb)
+        assert all(torch.equal(got, first) for got in o)
+
+
+@pytest.mark.parametrize("r", [16, 2])
+def test_maxpool2_upsample2_f32(gen, r):
+    n, c = 2, 20                       # 20 channels: 16-byte vectors of 4
+    x = _f32(gen, n * r * r, c)
+    for kern, rows, plain in ((buf_ops.maxpool2, n * r * r // 4,
+                               buf_ops.maxpool2_plain),
+                              (buf_ops.upsample2, n * 4 * r * r,
+                               buf_ops.upsample2_plain)):
+        dst = _f32(gen, rows, c + 12)
+        got, want = dst.clone(), dst.clone()
+        before = kern.f32_launches
+        kern(x, n, r, r, got[:, 4:4 + c])
+        plain(x, n, r, r, want[:, 4:4 + c])
+        torch.cuda.synchronize()
+        assert kern.f32_launches == before + 1
+        assert torch.equal(got, want)
+    with pytest.raises(TypeError):            # float32 into bf16
+        buf_ops.maxpool2(x[:, :16], n, r, r, torch.empty(
+            n * r * r // 4, 16, device="cuda", dtype=torch.bfloat16))
+
+
+@pytest.mark.parametrize("widths,m,n", [((16, 8, 8), 300, 16),
+                                        ((32,), 128, 68),
+                                        ((16, 16, 8, 8), 2 * 8 * 8, 136)])
+@pytest.mark.parametrize("mode", ["single", "shift2", "scale", "dual"])
+def test_table_dot_f32(gen, widths, m, n, mode):
+    """Every epilogue and the dual form, N tails, a strided feature and a
+    column prefix of a wider weight; within the float32 bound of the plain
+    version, and bit for bit under one-hot weights."""
+    wide = _f32(gen, m, widths[0] + 24)
+    feats = [wide[:, 8:8 + widths[0]]] + [_f32(gen, m, c)
+                                          for c in widths[1:]]
+    k = sum(widths)
+    v, vs = _vec(gen, k + 8), _vec(gen, k + 8)
+    kw = {}
+    if mode == "shift2":
+        kw["bias"] = (torch.randn(n, generator=gen) * 0.5).cuda()
+    if mode == "scale":
+        kw["vec2"] = _vec(gen, n)
+    for hot in (False, True):
+        if hot:
+            w = torch.cat([_one_hot(gen, k, n + 8),
+                           torch.zeros(8, n + 8).cuda()])
+            ws = torch.cat([_one_hot(gen, k, n + 8),
+                            torch.zeros(8, n + 8).cuda()])
+        else:
+            w = _f32(gen, k + 8, n + 8, scale=k ** -0.5)
+            ws = _f32(gen, k + 8, n + 8, scale=k ** -0.5)
+        dst, dst_s = _f32(gen, m, n + 16), _f32(gen, m, n + 8)
+        got, want = dst.clone(), dst.clone()
+        got_s, want_s = dst_s.clone(), dst_s.clone()
+        kw_k, kw_p = dict(kw), dict(kw)
+        if mode == "dual":
+            kw_k.update(vec_s=vs, w_s=ws, out_s=got_s[:, :n])
+            kw_p.update(vec_s=vs, w_s=ws, out_s=want_s[:, :n])
+        eval_ops.reset_launch_counts()
+        eval_ops.table_dot(feats, v, w, got[:, 8:8 + n], **kw_k)
+        eval_ops.table_dot_plain(feats, v, w, want[:, 8:8 + n], **kw_p)
+        torch.cuda.synchronize()
+        assert eval_ops.table_dot.launches == 1
+        assert eval_ops.f32_counts() == {"table_dot[f32]": 1}
+        if hot:
+            assert torch.equal(got, want) and torch.equal(got_s, want_s)
+            continue
+        _close_f32(got[:, 8:8 + n], want[:, 8:8 + n], k)
+        got[:, 8:8 + n].copy_(dst[:, 8:8 + n])
+        assert torch.equal(got, dst)
+        if mode == "dual":
+            _close_f32(got_s[:, :n], want_s[:, :n], k)
+            assert torch.equal(got_s[:, n:], dst_s[:, n:])
+
+
+@pytest.mark.parametrize("n,r", [(3, 8), (2, 16), (1, 64)])
+def test_table_dot_f32_up_and_pool_are_their_compositions(gen, n, r):
+    """At float32: ``[up]`` bit for bit ``upsample2`` then ``table_dot``;
+    ``[pool]`` (single and dual) bit for bit ``maxpool2`` of the unpooled
+    output; each within the float32 bound of its plain version."""
+    c, g, m = 16, 8, n * r * r
+    half = _f32(gen, m // 4, c)
+    skip, fifo = _f32(gen, m, c), _f32(gen, m, g)
+    k = 2 * c + g
+    v, vs = _vec(gen, k), _vec(gen, k)
+    w, ws = _f32(gen, k, c, scale=k ** -0.5), _f32(gen, k, c, scale=k ** -0.5)
+    up_got = torch.empty(m, c, device="cuda")
+    eval_ops.table_dot([half, skip, fifo], v, w, up_got,
+                       up=(True, False, False), hw=(r, r))
+    full = torch.empty(m, c, device="cuda")
+    buf_ops.upsample2(half, n, r // 2, r // 2, full)
+    comp = torch.empty(m, c, device="cuda")
+    eval_ops.table_dot([full, skip, fifo], v, w, comp)
+    plain = torch.empty(m, c, device="cuda")
+    eval_ops.table_dot_plain([half, skip, fifo], v, w, plain,
+                             up=(True, False, False), hw=(r, r))
+    torch.cuda.synchronize()
+    assert torch.equal(up_got, comp)
+    _close_f32(up_got, plain, k)
+    for dual in (False, True):
+        kw = dict(vec_s=vs, w_s=ws) if dual else {}
+        pooled = torch.empty(m // 4, c, device="cuda")
+        s_got = torch.empty(m, c, device="cuda")
+        eval_ops.table_dot([full, skip, fifo], v, w, pooled, pool=True,
+                           hw=(r, r), **kw, **({"out_s": s_got} if dual
+                                                else {}))
+        unpooled = torch.empty(m, c, device="cuda")
+        s_ref = torch.empty(m, c, device="cuda")
+        eval_ops.table_dot([full, skip, fifo], v, w, unpooled, **kw,
+                           **({"out_s": s_ref} if dual else {}))
+        ref = torch.empty(m // 4, c, device="cuda")
+        buf_ops.maxpool2(unpooled, n, r, r, ref)
+        torch.cuda.synchronize()
+        assert torch.equal(pooled, ref)
+        if dual:
+            assert torch.equal(s_got, s_ref)
+
+
+def test_affine_dot_f32_is_table_dot_bit_for_bit(gen):
+    """The whole-model path's 1x1 (a prefix of the channel-plane buffer)
+    and the per-slot path's (separate groups) at float32: the same bits."""
+    m, widths = 1000, (64, 32, 16, 8)
+    buf = _f32(gen, m, sum(widths) + 8)
+    offs = [sum(widths[:i]) for i in range(len(widths))]
+    feats = [buf[:, o:o + c].clone() for o, c in zip(offs, widths)]
+    k = sum(widths)
+    v, w = _vec(gen, k), _f32(gen, k, 128, scale=k ** -0.5)
+    b = (torch.randn(128, generator=gen) * 0.5).cuda()
+    got, want = (torch.empty(m, 128, device="cuda") for _ in range(2))
+    buf_ops.affine_dot(buf[:, :k], v, w, got, bias=b)
+    eval_ops.table_dot(feats, v, w, want, bias=b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_f32_conv2d_ignores_the_global_tf32_flag(gen):
+    """The port's float32 conv (the stem) runs in full float32 with
+    cuDNN's TF32 switched on globally."""
+    from cunet_tpu_torch.ops.layers import conv2d
+
+    x, w = _f32(gen, 2, 32, 32, 64), _f32(gen, 3, 3, 64, 32, scale=0.05)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        got = conv2d(x, w, padding=1)
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    want = conv2d(x.double().cpu(), w.double().cpu(), padding=1)
+    err = (got.double().cpu() - want).abs().max().item()
+    assert err <= F32_SUM * (9 * 64) ** 0.5 * want.abs().max().item()
+
+
+F32_SMALL = {**SMALL, "compute_dtype": "float32"}
+
+
+@pytest.mark.parametrize("order", [0, 1, 2])
+def test_f32_eval_paths_match_plain_and_each_other(gen, order):
+    """compute_dtype float32 on the card: the per-slot path bit for bit the
+    whole-model path; each of them, the per-block and the per-bottleneck
+    path within relative L2 1e-4 of the plain path at float32; every eval
+    kernel's float32 form launched."""
+    cfg = ModelConfig(layer_num=order + 3, order=order, loss_num=2,
+                      class_num=8, **F32_SMALL)
+    params, state = init_cu_net(cfg, gen, device="cuda")
+    x = torch.rand(3, 64, 64, 3, generator=gen).cuda()
+    plain, _ = apply_cu_net(params, state, x, cfg=dataclasses.replace(
+        cfg, use_pallas=False))
+    slots = eval_slots(params, state, cfg)
+    buf_ops.reset_launch_counts()
+    eval_ops.reset_launch_counts()
+    per_slot, _ = apply_cu_net(params, state, x, cfg=cfg, slots=slots)
+    whole, _ = apply_cu_net(params, state, x, slots=slots,
+                            cfg=dataclasses.replace(cfg,
+                                                    pallas_whole_model=True))
+    assert all(buf_ops.f32_counts().values())
+    assert eval_ops.f32_counts()["table_dot[f32]"] > 0
+    blocks, _ = apply_cu_net(params, state, x, cfg=dataclasses.replace(
+        cfg, pallas_hourglass=False))
+    layers, _ = apply_cu_net(params, state, x, cfg=dataclasses.replace(
+        cfg, pallas_hourglass=False, use_scan=False))
+    for a, b, c, d, p in zip(per_slot, whole, blocks, layers, plain):
+        assert a.dtype == torch.float32 and torch.equal(a, b)
+        for t in (a, c, d):
+            assert _rel(t, p) <= 1e-4

@@ -6,8 +6,9 @@ tests/test_torch_port_cuda.py).
    operand of ``buf_ops`` / ``quant_ops`` / ``train_ops`` moves 8-wide
    vectors, so the heads run at a width padded to a multiple of 8
    (``pad_cols``) and the heatmaps are its first ``class_num`` columns.
-2. An f32 model on a CUDA kernel path: ``check_kernel_dtype`` raises
-   ``NotImplementedError`` naming the bf16 limit.
+2. An f32 model training, or a quantized f32 model serving, on a CUDA
+   kernel path: ``check_kernel_dtype`` raises ``NotImplementedError``
+   naming the bf16 limit (the f32 eval has kernels).
 3. ``conv3x3_impl="scatter"``: the dense layers run JAX's scatter form,
    which rounds its tap partials and their sums in bf16.
 """
@@ -29,7 +30,8 @@ from cunet_tpu_torch.ops.layers import conv2d, conv3x3_scatter
 from cunet_tpu_torch.serving import Predictor
 from cunet_tpu_torch.train import quant_eval_params
 
-from torch_port_util import TOL, from_jax, images, np_weights, small_cfg
+from torch_port_util import (TOL, from_jax, images, np_weights, port_cfg,
+                             small_cfg)
 
 FACE = 68            # the 300-W model's landmarks
 INT8 = QuantConfig(bits_w=1, bits_i=8, bits_g=8, enabled=True,
@@ -144,13 +146,19 @@ def test_slot_train_head_runs_at_vector_width(monkeypatch):
 
 
 def test_f32_kernel_path_on_the_card_raises():
+    """f32 training and a quantized f32 eval on a CUDA kernel path raise;
+    the f32 eval runs there (tests/test_torch_port_f32_forms.py (c))."""
     f32 = small_cfg(2, 1, use_pallas=True)
+    q = port_cfg(INT8)
     with pytest.raises(NotImplementedError, match="bfloat16"):
-        check_kernel_dtype(f32, "cuda")
+        check_kernel_dtype(f32, "cuda", train=True)
     with pytest.raises(NotImplementedError, match="bfloat16"):
-        check_kernel_dtype(dataclasses.replace(f32, bn_tile=2), "cuda:0")
+        check_kernel_dtype(dataclasses.replace(f32, bn_tile=2), "cuda:0",
+                           train=True)
     with pytest.raises(NotImplementedError, match="bfloat16"):
-        Predictor(f32, device="cuda")
+        check_kernel_dtype(f32, "cuda", quant=q)
+    with pytest.raises(NotImplementedError, match="bfloat16"):
+        Predictor(f32, device="cuda", quant=q)
     # bf16 kernels, the plain path on the card, and any dtype on the CPU
     check_kernel_dtype(dataclasses.replace(f32, compute_dtype="bfloat16"),
                        "cuda")

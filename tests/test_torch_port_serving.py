@@ -26,16 +26,21 @@ def weights():
     return cfg, np_weights(cfg)
 
 
-@pytest.mark.parametrize("kernel_path", [False, True])
+@pytest.mark.parametrize("kernel_path", [False, True, "slot"])
 @pytest.mark.parametrize("flip_test", [False, True])
 def test_heatmaps_match_jax_predictor(weights, kernel_path, flip_test):
-    """6 images through a fixed batch of 4: one full and one padded chunk."""
+    """6 images through a fixed batch of 4: one full and one padded chunk;
+    f32 (``small_cfg``'s dtype). ``kernel_path``: False the plain path,
+    True the whole-model path, "slot" the per-slot path (JAX's #4 in
+    interpret mode against the port's per-slot kernels' plain versions)."""
     cfg, (pn, sn) = weights
     imgs = images(n=6, seed=2)
-    want = JaxPredictor(cfg, pn, sn, batch_size=4, flip_test=flip_test,
+    slot = kernel_path == "slot"
+    jcfg = dataclasses.replace(cfg, use_pallas=slot)
+    want = JaxPredictor(jcfg, pn, sn, batch_size=4, flip_test=flip_test,
                         flip_pairs=PAIRS).heatmaps(imgs)
-    tcfg = dataclasses.replace(cfg, use_pallas=kernel_path,
-                               pallas_whole_model=kernel_path)
+    tcfg = dataclasses.replace(cfg, use_pallas=bool(kernel_path),
+                               pallas_whole_model=kernel_path is True)
     buf_ops.reset_launch_counts()
     pred = Predictor.from_jax_params(tcfg, pn, sn, device="cpu",
                                      batch_size=4, flip_test=flip_test,

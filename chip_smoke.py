@@ -101,7 +101,8 @@ Phases, each printing one line (or a few) before the last:
    (its 1x1 convs on #10, its down blocks' adapter pairs on the float
    dual kernel); the 68-class head (the 300-W face model) on the
    whole-model float and int8 paths, the per-slot path and the slot train
-   step; f32 training and the f32 quantized eval on a kernel path raise.
+   step; f32 ghost-BN training and the f32 quantized eval on a kernel path
+   raise.
 11. per-block eval (TPU kernel #5) and the value-carried whole-model
    evals (#3, #2): ``table_dot``'s three forms of #5 at the CU-Net-8 @256
    shapes of batch 8 and 64 against their plain versions (``[up]``, an up
@@ -132,6 +133,25 @@ Phases, each printing one line (or a few) before the last:
    float32 form launched), each anchor within relative L2 1e-4 of the
    plain path at float32 at batch 8 and 64, the per-slot path bit for bit
    the whole-model path, forward ms and img/s of each.
+13. float32 whole-batch BN training, CU-Net-8 @256 at ``compute_dtype=
+   "float32"``, ``bn_tile=0``, ``use_pallas``: (a) the float32 forms of
+   #7's four kernels (``stats``, ``bwd_reduce``, ``bwd_dx`` in
+   ``csrc/bottleneck_kernels.cu``; ``apply`` on ``csrc/f32_kernels.cu``'s
+   product) against their plain versions at phase 9's cases at float32
+   (every sum and float32 output within the float32 n-term limit, three
+   planted ``stats`` faults caught), bit for bit under one-hot operands,
+   one bf16 pass of g breaking the dx limit; the mask kernel's float32
+   form bit for bit; (b) the autograd Function at float32; (c) the float32
+   conv's backward with cuDNN's TF32 on (torch's default) within the
+   float32 limit of float64, where the conv as it was before its repair
+   breaks it; (d) the kernel step against the plain step beside two
+   permuted-batch controls (F32_STEP_CONTROL), a bit-identical repeat,
+   ``remat`` "layer" / "block" bit for bit, dropout through the float32
+   mask bit for bit the plain mask's step; three ``train_step``s (the main
+   path: every float32 form of #7 launched, no slot kernel), one dropout
+   step (``drop_mask[f32]`` launched) and one W1/I8/G8 step; (e) step
+   times and peak memory of both paths beside phase 9's bf16 step. Each
+   phase prints its wall time (``phase time``).
 
 The line before the last is a JSON object with each kernel's launches,
 error, times, the least time the card could take for the same work and
@@ -143,6 +163,7 @@ fallback: without a CUDA device the script exits non-zero.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -469,7 +490,7 @@ def phase_kernels(torch, ops):
 # ---------------------------------------------------------------------------
 
 
-def wall_ms(torch, fn, iters=10, warmup=3):
+def wall_ms(torch, fn, iters=6, warmup=2):
     """Wall time of one ``fn()`` over ``iters`` calls after ``warmup``,
     the card synchronized at both ends: a whole forward of a few hundred
     launches, which the host's launch rate may bound (a CUDA graph, as in
@@ -484,7 +505,7 @@ def wall_ms(torch, fn, iters=10, warmup=3):
     return (time.perf_counter() - t0) / iters * 1e3
 
 
-def time_forward(torch, pred, batch, iters=10):
+def time_forward(torch, pred, batch, iters=6):
     x = torch.rand(batch, 256, 256, 3, generator=torch.Generator()
                    .manual_seed(1)).to("cuda", pred.dtype)
     return wall_ms(torch, lambda: pred.forward(x), iters)
@@ -1053,7 +1074,7 @@ def check_slot(torch, cfg, params, state):
                 f"{rels[worst]} > control {bound}")
 
 
-def time_train(torch, step, steps=5):
+def time_train(torch, step, steps=3):
     """Median host time of ``steps`` synchronised calls of ``step()`` after
     one warm-up, and the peak device memory over them."""
     step()
@@ -1223,11 +1244,15 @@ def main_path_steps(torch, label, step, params_of, counters):
 
 
 def report_times(torch, label, kernel_step, plain_step, gpu):
+    """{path: (median step ms, peak memory)} of the kernel and plain
+    paths' steps, printed."""
+    times = {}
     for path, fn in (("kernel", kernel_step), ("plain", plain_step)):
-        ms, mem = time_train(torch, fn)
+        times[path] = ms, mem = time_train(torch, fn)
         print(f"{label}: {path} path, batch {TRAIN_BATCH}: median step "
               f"{ms:.3f} ms, {TRAIN_BATCH / ms * 1e3:.1f} img/s, peak "
               f"memory {mem / 2 ** 30:.2f} GiB ({gpu})", flush=True)
+    return times
 
 
 def phase_training(torch, tops, bops, gpu):
@@ -1941,19 +1966,22 @@ def phase_int8_serving(torch, ops, qops, gpu, float_ms):
 TB_WIDTHS = (128, 128, 32, 32)   # the up-block adapter: [x, skip, fifo, out]
 
 
-def tb_operands(torch, gen, r, dev="cuda"):
+def tb_operands(torch, gen, r, dev="cuda", dtype=None):
     """The adapter's operands at resolution r, batch 24: four feature
     tensors (the fifo entry a strided view of a wider buffer, as a FIFO
     slice is), the forward's [inv; shift], the backward's [mean;
-    inv_sigma; scale] and bias, float32 weights, a bf16 output cotangent
-    and red = [mean g_y; mean g_y x_hat] from the plain reduce."""
+    inv_sigma; scale] and bias, float32 weights (``wa``: apply's, in the
+    features' dtype), an output cotangent and red = [mean g_y; mean g_y
+    x_hat] from the plain reduce; features and cotangent in ``dtype``
+    (bf16 by default)."""
     from cunet_tpu_torch.kernels import train_bottleneck as tbk
 
     m, k, cout = TRAIN_BATCH * r * r, sum(TB_WIDTHS), 128
+    dtype = dtype or torch.bfloat16
 
     def bf16(*shape, scale=1.0, shift=0.0):
         return (torch.randn(*shape, generator=gen) * scale + shift).to(
-            dev, torch.bfloat16)
+            dev, dtype)
 
     feats = [bf16(m, c, scale=1 + i, shift=0.2 * i)
              for i, c in enumerate(TB_WIDTHS)]
@@ -1971,30 +1999,38 @@ def tb_operands(torch, gen, r, dev="cuda"):
     dw, red = torch.empty(k, cout, device=dev), torch.empty(2, k, device=dev)
     tbk.bwd_reduce_plain(feats, g, stat, bias, w, dw, red)
     return dict(m=m, k=k, cout=cout, feats=feats, vec=vec, stat=stat,
-                bias=bias, w=w, w16=w.bfloat16(), g=g, red=red / m)
+                bias=bias, w=w, wa=w.to(dtype), g=g, red=red / m,
+                dtype=dtype)
 
 
 def tb_cases(torch, o):
     """(name, call(fn) -> outputs, bounds, work, library call or None,
     product alone or None) of the four kernels on the operands ``o``.
-    bounds: per output ("bf16",) or ("sum", n, split), held per feature
-    group (``tb_pieces``). The work of ``bwd_reduce`` and ``bwd_dx`` is
-    their kernels' arithmetic: each float32 product (2 M Ctot Cout; two in
-    ``bwd_reduce``, one in ``bwd_dx``) as three bf16 tensor-core passes,
-    the exact split of the float32 operand (``f32_fma_ms`` gives the bound
-    of the same products as float32 FMA). No PyTorch call computes a #7
-    GEMM (BN recompute, gate, jacobian or sums around it): the product
-    alone is ``torch.mm`` of ``apply``'s bf16 operands and, for the two
-    backward kernels, of g (as float32, converted beforehand) and W^T."""
+    bounds: per output ("bf16",) or ("sum", n[, split]), a split one held
+    per feature group (``tb_pieces``); at float32 apply's output and each
+    dx are float32 sums over Ctot and Cout. The work of the GEMMs is their
+    kernels' arithmetic: each float32 product (2 M Ctot Cout; two in
+    ``bwd_reduce``) as three bf16 tensor-core passes, the exact split of
+    the float32 operand, and at float32 as six (both operands split;
+    ``apply`` a bf16 product at bf16); ``f32_fma_ms`` gives the bound of
+    the same products as float32 FMA. No PyTorch call computes a #7 GEMM
+    (BN recompute, gate, jacobian or sums around it): the product alone is
+    ``torch.mm`` of ``apply``'s operands and, for the two backward
+    kernels, of g (as float32, converted beforehand) and W^T (TF32 off)."""
     m, k, cout = o["m"], o["k"], o["cout"]
-    f, dev = o["feats"], o["feats"][0].device
-    feat_bytes = sz(m, k)
+    f, dev, dt = o["feats"], o["feats"][0].device, o["dtype"]
+    f32 = dt == torch.float32
+    e = 4 if f32 else 2
+    passes = 6 if f32 else 3
+    feat_bytes = sz(m, k, e=e)
     small = sz(3, k, e=4) + sz(k, e=4) + sz(k, cout, e=4)   # stat, bias, w
     cat = torch.cat(f, 1)
     g32 = o["g"].float()
+    out_bound = [("sum", k)] if f32 else [("bf16",)]
+    dx_bound = [("sum", cout) if f32 else ("bf16",)] * len(TB_WIDTHS)
 
     def dxs():
-        buf = torch.empty(m, k + 8, device=dev, dtype=torch.bfloat16)
+        buf = torch.empty(m, k + 8, device=dev, dtype=dt)
         offs = np.cumsum((0,) + TB_WIDTHS)
         return [buf[:, a:b] for a, b in zip(offs[:-1], offs[1:])]
 
@@ -2006,21 +2042,22 @@ def tb_cases(torch, o):
          [("sum", m, "cols")],
          work(feat_bytes + sz(2, k, e=4), 3 * m * k, "f32"),
          lambda: torch.var_mean(cat, dim=0, correction=0), None),
-        ("apply", lambda fn: [fn(f, o["vec"], o["w16"], torch.empty(
-            m, cout, device=dev, dtype=torch.bfloat16))], [("bf16",)],
-         work(feat_bytes + sz(2, k, e=4) + sz(k, cout) + sz(m, cout),
-              2 * m * k * cout), None, lambda: torch.mm(cat, o["w16"])),
+        ("apply", lambda fn: [fn(f, o["vec"], o["wa"], torch.empty(
+            m, cout, device=dev, dtype=dt))], out_bound,
+         work(feat_bytes + sz(2, k, e=4) + sz(k, cout, e=e)
+              + sz(m, cout, e=e), (6 if f32 else 1) * 2 * m * k * cout),
+         None, lambda: torch.mm(cat, o["wa"])),
         ("bwd_reduce", lambda fn: list(fn(
             f, o["g"], o["stat"], o["bias"], o["w"],
             torch.empty(k, cout, device=dev), torch.empty(2, k, device=dev))),
          [("sum", m, "rows"), ("sum", m, "cols")],
-         work(feat_bytes + sz(m, cout) + small + sz(k, cout, e=4)
-              + sz(2, k, e=4), 3 * 4 * m * k * cout), None, gw),
+         work(feat_bytes + sz(m, cout, e=e) + small + sz(k, cout, e=4)
+              + sz(2, k, e=4), passes * 4 * m * k * cout), None, gw),
         ("bwd_dx", lambda fn: list(fn(f, o["g"], o["stat"], o["bias"],
                                       o["red"], o["w"], dxs())),
-         [("bf16",)] * len(TB_WIDTHS),
-         work(feat_bytes + sz(m, cout) + small + sz(2, k, e=4)
-              + feat_bytes, 3 * 2 * m * k * cout), None, gw),
+         dx_bound,
+         work(feat_bytes + sz(m, cout, e=e) + small + sz(2, k, e=4)
+              + feat_bytes, passes * 2 * m * k * cout), None, gw),
     ]
 
 
@@ -2084,8 +2121,10 @@ def stats_faults(torch, tbk, o):
     return out
 
 
-# float32 products (2 M Ctot Cout each) of the #7 backward kernels
+# float32 products (2 M Ctot Cout each) of the #7 backward kernels (and
+# of apply at float32)
 F32_PRODUCTS = {"bwd_reduce": 2, "bwd_dx": 1}
+F32_PRODUCTS_F32 = {**F32_PRODUCTS, "apply": 1}
 
 
 def f32_fma_ms(o, products):
@@ -2095,16 +2134,20 @@ def f32_fma_ms(o, products):
     return 2 * products * o["m"] * o["k"] * o["cout"] / PEAK_OPS["f32"] * 1e3
 
 
-def phase_bn0_kernels(torch, tbk):
+def phase_bn0_kernels(torch, tbk, dtype=None):
     """Each kernel of #7 against its plain version at every resolution r =
     64 ... 4 (r=64 first: the main path's largest call; ``stats`` at r=64
     and 4), timed with its plain version, with ``torch.var_mean`` over the
     same values for the statistics and with ``torch.mm`` of the product
-    alone for the three GEMMs."""
-    gen = torch.Generator().manual_seed(9)
+    alone for the three GEMMs; at ``dtype`` float32 the kernels' float32
+    forms, recorded as ``train_bottleneck.<name>[f32]``."""
+    dtype = dtype or torch.bfloat16
+    tag = "[f32]" if dtype == torch.float32 else ""
+    products = F32_PRODUCTS_F32 if tag else F32_PRODUCTS
+    gen = torch.Generator().manual_seed(13 if tag else 9)
     results = {}
     for r in CONV_RES:
-        o = tb_operands(torch, gen, r)
+        o = tb_operands(torch, gen, r, dtype=dtype)
         label = f"K=128+128+32+32->128 r={r}"
         for name, call, bounds, w, lib, prod in tb_cases(torch, o):
             if r not in (64, 4) and name == "stats":
@@ -2117,7 +2160,8 @@ def phase_bn0_kernels(torch, tbk):
             plain_ms = cuda_time_ms(lambda: call(tbk.PLAIN[kern]))
             lib_ms = None if lib is None else cuda_time_ms(lib)
             prod_ms = None if prod is None else cuda_time_ms(prod)
-            f32 = F32_PRODUCTS.get(name)
+            f32 = products.get(name)
+            name = name + tag
             print(f"bn0 kernel train_bottleneck.{name} [{label}]: "
                   f"max_abs_err {err:.4g} (at most {share:.3g} of a "
                   f"{'/'.join(b[0] for b in bounds)} limit: {ok}), "
@@ -2133,7 +2177,7 @@ def phase_bn0_kernels(torch, tbk):
                    label, w, lib_ms, prod_ms)
         if r == 64:
             for fault, err, whole, share in stats_faults(torch, tbk, o):
-                print(f"bn0 planted fault of stats [{label}]: {fault}: "
+                print(f"bn0 planted fault of stats{tag} [{label}]: {fault}: "
                       f"max_abs_err {err:.4g}, {whole:.3g} of the "
                       f"whole-output limit, {share:.3g} of the per-group "
                       f"limit", flush=True)
@@ -2142,15 +2186,26 @@ def phase_bn0_kernels(torch, tbk):
     return results
 
 
-def tb_function_grads(torch, tbk, o, ct, plain):
-    """The autograd Function's output and gradients on operands ``o``
-    under cotangent ``ct``, with the module's kernels or (``plain``) their
-    plain versions swapped in."""
+@contextlib.contextmanager
+def tb_plain_swapped(tbk, plain=True):
+    """#7's four kernels swapped for their plain versions (``plain``) in
+    ``tbk``, which the autograd Function calls by name."""
     saved = {k.__name__: getattr(tbk, k.__name__) for k in tbk.KERNELS}
     if plain:
         for k in tbk.KERNELS:
             setattr(tbk, k.__name__, tbk.PLAIN[k])
     try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(tbk, name, fn)
+
+
+def tb_function_grads(torch, tbk, o, ct, plain):
+    """The autograd Function's output and gradients on operands ``o``
+    under cotangent ``ct``, with the module's kernels or (``plain``) their
+    plain versions swapped in."""
+    with tb_plain_swapped(tbk, plain):
         n = TRAIN_BATCH
         r = int(round((o["m"] // n) ** 0.5))
         fs = [x.contiguous().view(n, r, r, -1).requires_grad_(True)
@@ -2162,25 +2217,29 @@ def tb_function_grads(torch, tbk, o, ct, plain):
         out.backward(ct)
         torch.cuda.synchronize()
         return [out] + [x.grad for x in fs] + [sc.grad, b.grad, w.grad]
-    finally:
-        for name, fn in saved.items():
-            setattr(tbk, name, fn)
 
 
-def check_tb_function(torch, tbk):
+def check_tb_function(torch, tbk, dtype=None):
     """(b): the Function's forward and backward on the kernels against the
-    same Function on the plain versions, one r=64 adapter call."""
-    o = tb_operands(torch, torch.Generator().manual_seed(10), 64)
+    same Function on the plain versions, one r=64 adapter call; at float32
+    the output within its Ctot-term and each d_feature within its
+    Cout-term float32 limit."""
+    dtype = dtype or torch.bfloat16
+    f32 = dtype == torch.float32
+    o = tb_operands(torch, torch.Generator().manual_seed(10), 64,
+                    dtype=dtype)
     ct = o["g"].view(TRAIN_BATCH, 64, 64, -1)
     got = tb_function_grads(torch, tbk, o, ct, plain=False)
     want = tb_function_grads(torch, tbk, o, ct, plain=True)
     names = (["out"] + [f"d_feature.{i}" for i in range(len(TB_WIDTHS))]
              + ["d_scale", "d_bias", "d_w"])
-    bounds = [("bf16",)] * (1 + len(TB_WIDTHS)) + [
+    bounds = ([("sum", o["k"])] + [("sum", o["cout"])] * len(TB_WIDTHS)
+              if f32 else [("bf16",)] * (1 + len(TB_WIDTHS))) + [
         ("sum", o["m"], "cols")] * 2 + [("sum", o["m"], "rows")]
     for name, a, b, bnd in zip(names, got, want, bounds):
         err, share, ok = output_errors(torch, [a], [b], [bnd])
-        print(f"bn0 Function, kernels vs plain versions, r=64: {name} "
+        print(f"bn0 Function{' at float32' if f32 else ''}, kernels vs "
+              f"plain versions, r=64: {name} "
               f"max_abs_err {err:.4g} (at most {share:.3g} of a {bnd[0]} "
               f"limit: {ok})", flush=True)
         require(ok, f"the #7 autograd Function's {name} disagrees with the "
@@ -2201,9 +2260,10 @@ def one_step(torch, label, step, counters):
           f"{counts}", flush=True)
     require(np.isfinite(loss), f"{label}: non-finite loss {loss}")
     require(all(counts.values()), f"{label}: a kernel never launched")
+    return counts
 
 
-def paired_step_times(torch, steps, rounds=10):
+def paired_step_times(torch, steps, rounds=6):
     """Host ms of single synchronised calls of each of ``steps`` (label ->
     step), one warm-up each, then ``rounds`` rounds in ABBA order so that
     a drift of the host's speed falls on both alike: {label: [ms, ...]}."""
@@ -2353,10 +2413,10 @@ def phase_bn0_training(torch, tbk, tops, bops, dops, gpu):
           f"{len(times['the mask kernel'])} pairs ({gpu})", flush=True)
     del st_d
     st_p = create_train_state(params, state, tcfg)
-    report_times(torch, "bn0 training", lambda: train_step(st, batch,
-                                                           cfg=cfg),
-                 lambda: train_step(st_p, batch, cfg=plain_cfg), gpu)
-    return {f"train_bottleneck.{k}": v for k, v in launches.items()}
+    times = report_times(torch, "bn0 training",
+                         lambda: train_step(st, batch, cfg=cfg),
+                         lambda: train_step(st_p, batch, cfg=plain_cfg), gpu)
+    return {f"train_bottleneck.{k}": v for k, v in launches.items()}, times
 
 
 
@@ -2654,8 +2714,6 @@ def phase_face_heads(torch, ops, eops, qops, tops, gpu):
     for c, args, kw in (
             (dataclasses.replace(f32, bn_tile=BN_TILE), (params,),
              dict(train=True)),
-            (dataclasses.replace(f32, bn_tile=0), (params,),
-             dict(train=True)),
             (f32, (qp,), dict(quant=quant)),
             (whole, (qp,), dict(quant=quant))):
         c = dataclasses.replace(c, compute_dtype="float32")
@@ -2666,10 +2724,10 @@ def phase_face_heads(torch, ops, eops, qops, tops, gpu):
         else:
             require(False, f"an f32 model ran on a CUDA kernel path with "
                            f"no float32 form ({kw})")
-    print("f32 limit: f32 training (tile 2, whole-batch BN) and the f32 "
+    print("f32 limit: f32 ghost-BN training (tile 2) and the f32 "
           "quantized eval (per-slot and whole-model flags) with use_pallas "
-          "raise NotImplementedError on the card; the f32 eval runs "
-          "(phase 12)", flush=True)
+          "raise NotImplementedError on the card; the f32 eval (phase 12) "
+          "and f32 whole-batch BN training (phase 13) run", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -3137,7 +3195,10 @@ def f32_kernel_cases(torch, ops, eops, gen, n, rs):
     K=192->128 into a strided buffer slot and the bottleneck with BN2's
     shift), ``conv3x3`` and ``table_dot`` in each form at each resolution
     of ``rs``, the pool and the upsample at the first. Limits: the float32
-    n-term sum, exact for the pool and the upsample."""
+    n-term sum, exact for the pool and the upsample. Product alone: the
+    float32 ``torch.mm`` of the 1x1 forms' concat (both outputs of a pair
+    as one, N = 256; ``[up]``'s at full resolution), none for
+    ``[scale]``, whose product is ``[shift2]``'s."""
     import torch.nn.functional as F
 
     dev = "cuda"
@@ -3182,7 +3243,7 @@ def f32_kernel_cases(torch, ops, eops, gen, n, rs):
                       lambda f, o: f([half, skip, fifo, out32], vu, wu, o,
                                      up=(True, False, False, False),
                                      hw=(r, r)),
-                      ("sum", k), wk, fma, None, None))
+                      ("sum", k), wk, fma, None, mm(cat4, wu)))
         kb = c + g
         vb, wb = vec(kb), randn(kb, cb, scale=kb ** -0.5)
         b2, v2 = (torch.randn(cb, generator=gen) * 0.5).to(dev), vec(cb)
@@ -3202,13 +3263,14 @@ def f32_kernel_cases(torch, ops, eops, gen, n, rs):
         ka = c + 2 * g
         va, wa = vec(ka), randn(ka, c, scale=ka ** -0.5)
         vs, ws = vec(ka), randn(ka, c, scale=ka ** -0.5)
+        cat3, w2 = torch.cat([y, fifo, out32], 1), torch.cat([wa, ws], 1)
         wk, fma = f32_work(m, [(m, c), (m, g), (m, g)], c, outs=2)
         cases.append(("table_dot[f32,dual]",
                       f"adapter pair K=192->2x128 r={r} batch {n}",
                       eops.table_dot, eops.PLAIN, empty(m, 2 * c),
                       lambda f, o: f([y, fifo, out32], va, wa, o[:, :c],
                                      vec_s=vs, w_s=ws, out_s=o[:, c:]),
-                      ("sum", ka), wk, fma, None, None))
+                      ("sum", ka), wk, fma, None, mm(cat3, w2)))
         q = m // 4
         wk, fma = f32_work(m, [(m, c), (m, g), (m, g)], c, outs=2,
                            extra=sz(q, c, e=4) - sz(m, c, e=4))
@@ -3219,7 +3281,7 @@ def f32_kernel_cases(torch, ops, eops, gen, n, rs):
                       lambda f, o: f([y, fifo, out32], va, wa, o[:q],
                                      vec_s=vs, w_s=ws, out_s=o[q:],
                                      pool=True, hw=(r, r)),
-                      ("sum", ka), wk, fma, None, None))
+                      ("sum", ka), wk, fma, None, mm(cat3, w2)))
 
     cases = []
     for r in rs:
@@ -3499,6 +3561,380 @@ def phase_f32_serving(torch, ops, eops, gpu):
     return launches, per_path, times
 
 
+# ---------------------------------------------------------------------------
+# phase 13: float32 whole-batch BN training, on #7's float32 forms
+# ---------------------------------------------------------------------------
+
+# kernel step vs the swap step at float32: the same path with #7's four
+# plain versions swapped in, the same arithmetic (JAX's: single-pass
+# variance, the recompute backward), so only the kernels differ. c is the
+# plain control: the swap step against itself on the batch permuted (only
+# the order of every whole-batch sum changes), the largest of
+# F32_STEP_PERMS permutations (at depth one permutation's deviation at a
+# leaf scatters 2x and more: PERF.md section 6). Limits, each of the form
+# max(2 x the control, 1e-5): the loss rel,
+# each grad leaf's rel L2, each BN running stat's rel L2 (a flat 1e-5
+# fails on the control itself at depth: loss 1.9e-5, stats 1.4e-3).
+F32_STEP_CONTROL = 2.0
+F32_STEP_FLOOR = 1e-5
+F32_STEP_PERMS = 3
+TB_F32 = tuple(f"train_bottleneck.{k}[f32]"
+               for k in ("stats", "apply", "bwd_reduce", "bwd_dx"))
+REPLACES.update({k: REPLACES[k[:-5]] for k in TB_F32})
+REPLACES["drop_mask[f32]"] = REPLACES["drop_mask"]
+
+
+def tb_f32_exact_checks(torch, tbk, gen):
+    """At r=64, float32, under a one-hot W (distinct rows): ``apply`` bit
+    for bit its plain version (the prologue value), ``bwd_dx`` with red =
+    0 (g_y one term of g), and under a cotangent with one 1 a column
+    ``bwd_reduce`` (each dW entry and BN sum one exact term); then one
+    bf16 pass of g (the plain versions on g rounded to bf16) against the
+    float32 g, which must break the dx limit. Returns {name: exact}."""
+    o = tb_operands(torch, gen, 64, dtype=torch.float32)
+    f, m, k, cout = o["feats"], o["m"], o["k"], o["cout"]
+    rows = torch.randperm(k, generator=gen)[:cout]
+    w = torch.zeros(k, cout)
+    w[rows, torch.arange(cout)] = 1.0
+    w = w.cuda()
+    same = {}
+    outs = [fn(f, o["vec"], w, torch.empty(m, cout, device="cuda"))
+            for fn in (tbk.apply, tbk.apply_plain)]
+    red = torch.zeros(2, k, device="cuda")
+
+    def dx(fn, g):
+        d = [torch.empty(m, c, device="cuda") for c in TB_WIDTHS]
+        fn(f, g, o["stat"], o["bias"], red, w, d)
+        return d
+
+    dxs = [dx(tbk.bwd_dx, o["g"]), dx(tbk.bwd_dx_plain, o["g"])]
+    hot = torch.zeros(m, cout, device="cuda")
+    hot[torch.randint(0, m, (cout,), generator=gen), torch.arange(cout)] = 1
+    reds = [fn(f, hot, o["stat"], o["bias"], w,
+               torch.empty(k, cout, device="cuda"),
+               torch.empty(2, k, device="cuda"))
+            for fn in (tbk.bwd_reduce, tbk.bwd_reduce_plain)]
+    torch.cuda.synchronize()
+    same["train_bottleneck.apply[f32]"] = torch.equal(*outs)
+    same["train_bottleneck.bwd_dx[f32]"] = all(
+        torch.equal(a, b) for a, b in zip(*dxs))
+    same["train_bottleneck.bwd_reduce[f32]"] = all(
+        torch.equal(a, b) for a, b in zip(*reds))
+    print(f"bn0 f32 kernels under one-hot operands (r=64), bit for bit "
+          f"their plain versions: {same}", flush=True)
+    require(all(same.values()), f"a #7 float32 form is not exact under "
+                                f"one-hot operands: {same}")
+    # one bf16 pass of g, on the random W: the dx and dW limits
+    g16 = o["g"].bfloat16().float()
+    want = tbk.bwd_dx_plain(f, o["g"], o["stat"], o["bias"], o["red"],
+                            o["w"], [torch.empty(m, c, device="cuda")
+                                     for c in TB_WIDTHS])
+    one = tbk.bwd_dx_plain(f, g16, o["stat"], o["bias"], o["red"], o["w"],
+                           [torch.empty(m, c, device="cuda")
+                            for c in TB_WIDTHS])
+    shares = {"dx": output_errors(torch, one, want,
+                                  [("sum", cout)] * len(TB_WIDTHS))[1]}
+    dws = [tbk.bwd_reduce_plain(f, g, o["stat"], o["bias"], o["w"],
+                                torch.empty(k, cout, device="cuda"),
+                                torch.empty(2, k, device="cuda"))[0]
+           for g in (g16, o["g"])]
+    shares["dW"] = output_errors(torch, [dws[0]], [dws[1]],
+                                 [("sum", m, "rows")])[1]
+    print(f"bn0 f32: one bf16 pass of g (the plain versions on bf16(g)) "
+          f"against float32 g, r=64: the largest share of each limit "
+          f"{shares} (dx must exceed 1)", flush=True)
+    require(shares["dx"] > 1, f"one bf16 pass of g stays within the f32 "
+                              f"dx limit: {shares}")
+    return same
+
+
+def drop_mask_f32_checks(torch, dops, results):
+    """The mask kernel's float32 form at the bn_tile=0 shapes (batch 24,
+    one tile of the whole batch, g=32): on ones the plain float32 masks
+    bit for bit at every traversal position (r = 64 ... 4); in place on a
+    conv output and into another float32 view bit for bit its plain
+    version, timed at r=64."""
+    from cunet_tpu_torch.ops import dropmask
+
+    n, g, nb = TRAIN_BATCH, 32, 4
+    gen = torch.Generator().manual_seed(14)
+    plain = dops.PLAIN[dops.drop_mask]
+    for pos in range(2 * nb + 1):
+        r = 64 >> (pos if pos <= nb else 2 * nb - pos)
+        m = n * r * r
+        ones = torch.ones(m, g, device="cuda")
+        dops.drop_mask(ones, -1234567, pos, DROP_RATE, m)
+        require(torch.equal(ones, dropmask.rows_mask(
+            -1234567, pos, m, g, m, DROP_RATE, torch.float32, "cuda")),
+            f"f32 mask kernel on ones differs from the plain float32 mask "
+            f"at position {pos}, r={r}")
+    r, pos, seed = 64, 1, -31
+    m = n * r * r
+    y = torch.randn(m, g, generator=gen).cuda()
+    d = torch.randn(m, g + 96, generator=gen).cuda()[:, 64:64 + g]
+    w = work(2 * sz(m, g, e=4))
+    cases = [("forward r=64 in place, one tile", lambda f, o: f(
+                 o, seed, pos, DROP_RATE, m), lambda: y.clone()),
+             ("backward r=64 f32->f32", lambda f, o: f(
+                 d, seed, pos, DROP_RATE, m, o),
+              lambda: torch.empty(m, g, device="cuda"))]
+    for label, call, make_out in cases:
+        k_out, p_out = make_out(), make_out()
+        call(dops.drop_mask, k_out)
+        call(plain, p_out)
+        torch.cuda.synchronize()
+        same = torch.equal(k_out, p_out)
+        ms = cuda_time_ms(lambda: call(dops.drop_mask, k_out))
+        plain_ms = cuda_time_ms(lambda: call(plain, p_out))
+        print(f"bn0 f32 kernel drop_mask[f32] [{label}]: bit-identical "
+              f"{same}, {ms:.4f} ms vs plain {plain_ms:.4f} ms, bound "
+              f"{bound(w)[0]:.4f} ms ({bound(w)[1]})", flush=True)
+        require(same, f"drop_mask[f32] [{label}] differs from its plain "
+                      f"version")
+        record(results, "drop_mask[f32]", 0.0, ms, plain_ms, label, w, None)
+
+
+def phase_bn0_f32_kernels(torch, tbk, dops):
+    """Phase 13 (a): #7's float32 forms against their plain versions at
+    every resolution (phase 9's cases at float32, TF32 off: every sum and
+    float32 output within the float32 n-term limit, three planted
+    ``stats`` faults), bit for bit under one-hot operands, one bf16 pass
+    of g breaking the dx limit; the mask kernel's float32 form."""
+    results = phase_bn0_kernels(torch, tbk, torch.float32)
+    exact = tb_f32_exact_checks(torch, tbk, torch.Generator().manual_seed(15))
+    for name, same in exact.items():
+        results[name]["one_hot_exact"] = same
+    drop_mask_f32_checks(torch, dops, results)
+    return results
+
+
+def check_conv_repair(torch):
+    """Phase 13 (c): one CU-Net-8 3x3 conv at r=64, batch 24, 128 -> 32, at
+    float32 with cuDNN's TF32 at torch's default (on): the port's conv
+    (``ops.layers.conv2d``) gives dX and dW within the float32 n-term
+    limit of a float64 reference; the conv as it was before the repair
+    (``F.conv2d`` with TF32 off for the forward only, the backward under
+    the global flag) must break it."""
+    import torch.nn.functional as F
+
+    from cunet_tpu_torch.ops.layers import conv2d
+
+    gen = torch.Generator().manual_seed(16)
+    n, r, c, g = TRAIN_BATCH, 64, 128, 32
+    x = torch.randn(n, r, r, c, generator=gen).relu().cuda()
+    w = (torch.randn(3, 3, c, g, generator=gen) * (9 * c) ** -0.5).cuda()
+    ct = torch.randn(n, r, r, g, generator=gen).cuda()
+    cudnn = torch.backends.cudnn
+
+    def grads(conv, dtype):
+        xx = x.to(dtype).clone().requires_grad_(True)
+        ww = w.to(dtype).clone().requires_grad_(True)
+        conv(xx, ww).backward(ct.to(dtype))
+        return xx.grad, ww.grad
+
+    def unrepaired(xx, ww):
+        with cudnn.flags(enabled=True, benchmark=cudnn.benchmark,
+                         deterministic=cudnn.deterministic,
+                         allow_tf32=False):
+            y = F.conv2d(xx.permute(0, 3, 1, 2), ww.permute(3, 2, 0, 1),
+                         padding=1)
+        return y.permute(0, 2, 3, 1)
+
+    want = grads(lambda a, b: conv2d(a, b, padding=1), torch.float64)
+    bounds = [("sum", 9 * g), ("sum", n * r * r)]
+    shares = {}
+    default = cudnn.allow_tf32
+    cudnn.allow_tf32 = True
+    try:
+        for label, conv in (("repaired", lambda a, b: conv2d(a, b,
+                                                             padding=1)),
+                            ("unrepaired", unrepaired)):
+            got = grads(conv, torch.float32)
+            torch.cuda.synchronize()
+            shares[label] = [
+                output_errors(torch, [a], [b.float()], [bnd])[:2]
+                for a, b, bnd in zip(got, want, bounds)]
+    finally:
+        cudnn.allow_tf32 = default
+    print(f"bn0 f32 conv repair, 3x3 conv r=64 batch 24 128->32, TF32 on "
+          f"globally: (max_abs_err, share of the float32 limit) of dX, dW "
+          f"against float64: {shares}", flush=True)
+    require(all(sh <= 1 for _, sh in shares["repaired"]),
+            f"the float32 conv's backward is off float64: {shares}")
+    require(max(sh for _, sh in shares["unrepaired"]) > 1,
+            f"the check cannot see a TF32 backward: {shares}")
+    return shares
+
+
+def f32_step_check(torch, tbk, cfg, params, state, x, t):
+    """Phase 13 (d): the float32 kernel step against the swap step from
+    the same state, its loss, each grad leaf and each BN running stat
+    within max(F32_STEP_CONTROL x the swap step's permuted-batch control,
+    F32_STEP_FLOOR); the plain path (use_pallas off: two-pass variance,
+    autograd's backward) beside both, printed; then the kernel step again,
+    bit for bit."""
+    plain_cfg = dataclasses.replace(cfg, use_pallas=False)
+    perms = [torch.randperm(x.shape[0], generator=torch.Generator()
+                            .manual_seed(17 + i)).cuda()
+             for i in range(F32_STEP_PERMS)]
+    k = _grads(torch, cfg, params, state, x, t)
+    with tb_plain_swapped(tbk):
+        tbk.reset_launch_counts()
+        s = _grads(torch, cfg, params, state, x, t)
+        sc = [_grads(torch, cfg, params, state, x[q], t[q]) for q in perms]
+        swapped_launches = sum(tbk.launch_counts().values())
+    require(swapped_launches == 0, "the swap step launched #7 kernels")
+    p = _grads(torch, plain_cfg, params, state, x, t)
+    pc = _grads(torch, plain_cfg, params, state, x[perms[0]], t[perms[0]])
+
+    def leaves(a, b):
+        """{"loss": rel, grad leaf: rel L2, BN stat: rel L2} of a vs b."""
+        (la, ga, sa), (lb, gb, sb) = a, b
+        out = {"loss": abs(la - lb) / abs(lb)}
+        out.update({n: _rel_l2(torch, ga, gb, [n]) for n in gb
+                    if gb[n].norm() > 0})
+        out.update({n: _rel_l2(torch, sa, sb, [n]) for n in sb
+                    if sb[n].norm() > 0})
+        return out
+
+    def summary(name, a, b):
+        (_, ga, sa), (_, gb, sb) = a, b
+        g = [n for n in gb if gb[n].norm() > 0]
+        st = [n for n in sb if sb[n].norm() > 0]
+        d = leaves(a, b)
+        cos = np.mean([torch.nn.functional.cosine_similarity(
+            ga[n].flatten(), gb[n].flatten(), dim=0).item() for n in g])
+        worst = max(g, key=d.get)
+        print(f"bn0 f32 training: {name}: loss {d['loss']:.4g}; grads over "
+              f"all {_rel_l2(torch, ga, gb, g):.4g}, median leaf "
+              f"{np.median([d[n] for n in g]):.4g}, worst {worst} "
+              f"{d[worst]:.4g}, mean cosine {cos:.4f}; BN stats over all "
+              f"{_rel_l2(torch, sa, sb, st):.4g}, worst "
+              f"{max(d[n] for n in st):.4g}", flush=True)
+        return d
+
+    print(f"bn0 f32 training: losses: kernel {k[0]:.8g}, swap {s[0]:.8g}, "
+          f"plain path {p[0]:.8g}", flush=True)
+    got = summary("kernel vs swap step", k, s)
+    ctrl = [summary(f"control: swap step permuted ({i}) vs swap step", c, s)
+            for i, c in enumerate(sc)]
+    summary("kernel step vs plain path", k, p)
+    summary("swap step vs plain path", s, p)
+    summary("control: plain path permuted (0) vs plain path", pc, p)
+    c = {n: max(d[n] for d in ctrl) for n in got}
+    lim = {n: max(F32_STEP_CONTROL * c[n], F32_STEP_FLOOR) for n in got}
+    bad = {n: (got[n], lim[n]) for n in got if not got[n] <= lim[n]}
+    print(f"bn0 f32 training: kernel vs swap step: loss {got['loss']:.4g} "
+          f"(limit {lim['loss']:.4g}); {len(got) - len(bad)}/{len(got)} of "
+          f"the loss, grad leaves and BN stats within max("
+          f"{F32_STEP_CONTROL:g} x the control, {F32_STEP_FLOOR:g}); "
+          f"largest share of its limit: "
+          f"{max(got[n] / lim[n] for n in got):.3f}; over: {bad}",
+          flush=True)
+    require(not bad, f"bn0 f32 step off the swap step: {bad}")
+    lk2, gk2, _ = _grads(torch, cfg, params, state, x, t)
+    same = lk2 == k[0] and all(torch.equal(k[1][n], gk2[n]) for n in gk2)
+    print(f"bn0 f32 training: repeated kernel step bit-identical: {same}",
+          flush=True)
+    require(same, "bn0 f32 training: the kernel step is not deterministic")
+
+
+def phase_bn0_f32_training(torch, tbk, tops, bops, dops, gpu, bf16_times):
+    """Phase 13 (b)-(e): the Function at float32; the conv repair;
+    CU-Net-8 @256 at float32, bn_tile=0, on #7's float32 forms: the step
+    against the plain step, remat "layer" / "block" bit for bit, dropout
+    through the mask kernel's float32 form bit for bit the plain mask's
+    step, one W1/I8/G8 step, three main-path steps; step times and peak
+    memory beside phase 9's bf16 step. Returns ({row: launches of the
+    main path's drive}, launches per step)."""
+    import types
+
+    from cunet_tpu_torch import QuantConfig, TrainConfig
+    from cunet_tpu_torch.train import (
+        create_train_state,
+        quant_train_step,
+        train_step,
+    )
+
+    check_tb_function(torch, tbk, torch.float32)
+    check_conv_repair(torch)
+    cfg, params, state, batch = flagship_train(torch)
+    cfg = dataclasses.replace(cfg, compute_dtype="float32", bn_tile=0,
+                              bn_dtype="float32")
+    plain_cfg = dataclasses.replace(cfg, use_pallas=False)
+    x, t = batch["image"], batch["heatmap"]
+    f32_tb = types.SimpleNamespace(reset_launch_counts=tbk.reset_launch_counts,
+                                   launch_counts=tbk.f32_counts)
+    f32_drop = types.SimpleNamespace(
+        reset_launch_counts=dops.reset_launch_counts,
+        launch_counts=dops.f32_counts)
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        f32_step_check(torch, tbk, cfg, params, state, x, t)
+        l0, g0, peak0 = step_memory(torch, cfg, params, state, batch)
+        for remat in ("layer", "block"):
+            lr, gr, peak = step_memory(torch, dataclasses.replace(
+                cfg, remat=remat), params, state, batch)
+            same = lr == l0 and all(torch.equal(gr[k], g0[k]) for k in g0)
+            print(f"bn0 f32 training: remat={remat!r} vs 'none' on the "
+                  f"kernel path: loss and grads bit-identical {same}; peak "
+                  f"memory of one step {peak / 2 ** 30:.2f} GiB ('none' "
+                  f"{peak0 / 2 ** 30:.2f} GiB; {gpu})", flush=True)
+            require(same, f"bn0 f32 training: remat={remat!r} changes the "
+                          f"step")
+            del gr
+        del g0
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    # the main path: three steps, then one each of dropout and W1/I8/G8
+    tcfg = TrainConfig(lr=2.5e-4, batch_size=TRAIN_BATCH)
+    st = create_train_state(params, state, tcfg)
+    bops.reset_launch_counts()
+    tops.reset_launch_counts()
+    launches = main_path_steps(
+        torch, "bn0 f32 training", lambda: train_step(st, batch, cfg=cfg)[1],
+        lambda: st.params, (f32_tb,))
+    others = {k: v for k, v in {**bops.launch_counts(),
+                                **tops.launch_counts()}.items()
+              if v and k != "sum_rows"}
+    require(not others, f"bn0 f32 training launched slot kernels: {others}")
+    drop_cfg = dataclasses.replace(cfg, drop_rate=DROP_RATE)
+    bn0_dropout(torch, drop_cfg, params, state, x, t, dops)
+    st_d = create_train_state(params, state, tcfg)
+    gen = torch.Generator().manual_seed(6)
+    drop_launches = one_step(
+        torch, "bn0 f32 dropout training",
+        lambda: train_step(st_d, batch, cfg=drop_cfg, generator=gen)[1],
+        (f32_tb, f32_drop))
+    del st_d
+    st_q = create_train_state(params, state, tcfg)
+    quant = QuantConfig(bits_w=1, bits_i=8, bits_g=8, enabled=True)
+    one_step(torch, "bn0 f32 quantized training",
+             lambda: quant_train_step(st_q, batch, cfg=cfg, qcfg=quant)[1],
+             (f32_tb,))
+    del st_q
+
+    # (e) step times and peak memory, kernel path then plain path
+    st_p = create_train_state(params, state, tcfg)
+    times = report_times(torch, "bn0 f32 training",
+                         lambda: train_step(st, batch, cfg=cfg),
+                         lambda: train_step(st_p, batch, cfg=plain_cfg), gpu)
+    print(f"bn0 training, float32 against bf16 (phase 9, this run), batch "
+          f"{TRAIN_BATCH}: " + "; ".join(
+              f"{path} path {times[path][0]:.3f} ms, "
+              f"{times[path][1] / 2 ** 30:.2f} GiB (bf16 "
+              f"{bf16_times[path][0]:.3f} ms, "
+              f"{bf16_times[path][1] / 2 ** 30:.2f} GiB)"
+              for path in ("kernel", "plain")) + f" ({gpu})", flush=True)
+    rows = {f"train_bottleneck.{k}": v for k, v in launches.items()}
+    rows["drop_mask[f32]"] = drop_launches["drop_mask[f32]"]
+    per_step = {k: v / 3 for k, v in rows.items()}
+    per_step["drop_mask[f32]"] = rows["drop_mask[f32]"]
+    return rows, per_step
+
+
 def main() -> int:
     import torch
 
@@ -3532,33 +3968,55 @@ def main() -> int:
           f"{'ran' if build.build_seconds is not None else 'skipped'})",
           flush=True)
 
+    clock = [time.perf_counter()]
+
+    def lap(label):
+        """Print the wall time since the last lap (the run's time budget)."""
+        now = time.perf_counter()
+        print(f"phase time: {label} {now - clock[0]:.1f} s", flush=True)
+        clock[0] = now
+
     try:
         kernels = phase_kernels(torch, ops)
         launches, float_ms = phase_serving(torch, ops, gpu)
+        lap("2-3")
         train_kernels = phase_train_kernels(torch, tops, ops)
         train_launches = phase_training(torch, tops, ops, gpu)
+        lap("4-5")
         int8_kernels = phase_int8_kernels(torch, qops)
         int8_launches, plain_launches = phase_int8_serving(
             torch, ops, qops, gpu, float_ms)
+        lap("6")
         drop_kernels, drop_launches = phase_dropout_training(
             torch, tops, ops, dops, gpu)
         option_kernels, quant_launches = phase_quant_training(
             torch, tops, ops, dops, gpu)
+        lap("7-8")
         tb_kernels = phase_bn0_kernels(torch, tbk)
-        tb_launches = phase_bn0_training(torch, tbk, tops, ops, dops, gpu)
+        tb_launches, bn0_times = phase_bn0_training(torch, tbk, tops, ops,
+                                                    dops, gpu)
+        lap("9")
         eval_kernels = phase_eval_kernels(torch, eops)
         slot_launches, slot_forwards, slot_ms = phase_slot_serving(
             torch, ops, eops, gpu, float_ms)
         int8_duals = phase_quant_layer_eval(torch, eops, qops, gpu)
         phase_face_heads(torch, ops, eops, qops, tops, gpu)
+        lap("10")
         block_kernels = phase_block_kernels(torch, ops, eops)
         block_fns = phase_block_functions(torch, ops, eops)
         block_launches, block_forwards, block_ms = phase_block_serving(
             torch, ops, eops, gpu)
         model_fns = phase_fused_models(torch, ops, gpu)
+        lap("11")
         f32_kernels = phase_f32_kernels(torch, ops, eops)
         f32_launches, f32_per_path, f32_ms = phase_f32_serving(
             torch, ops, eops, gpu)
+        lap("12")
+        tb_f32_kernels = phase_bn0_f32_kernels(torch, tbk, dops)
+        lap("13 (a)")
+        tb_f32_launches, tb_f32_per_step = phase_bn0_f32_training(
+            torch, tbk, tops, ops, dops, gpu, bn0_times)
+        lap("13 (b)-(e)")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3635,6 +4093,12 @@ def main() -> int:
                                            f32_per_path.items()},
                         **{k: r[k] for k in ("one_hot_exact",) if k in r},
                         **f32_extra))
+    for name, r in tb_f32_kernels.items():
+        src = TRAIN_SOURCE if name == "drop_mask[f32]" else \
+            F32_SOURCE if name == "train_bottleneck.apply[f32]" else TB_SOURCE
+        rows.append(row(name, src, r, tb_f32_launches[name],
+                        launches_per_step=tb_f32_per_step[name],
+                        **{k: r[k] for k in ("one_hot_exact",) if k in r}))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -39,6 +39,18 @@
 // after every operation, in the plain version's order, so the ReLU gate is
 // the same bit for bit.
 //
+// Each kernel is a template on the features' element type: bf16, or
+// float32 (a model trained at compute_dtype="float32", as the JAX package
+// runs #7 at the features' dtype). The float32 forms read 16-byte vectors
+// of 4 columns, stage float32 x and g rows, and split g too into three
+// bf16 planes in shared memory once a step (both of bwd_reduce's products
+// read it: one split serves them; splitting in registers at each use would
+// split every element once per warp reading it), so each product is six
+// plane products (gw_product3) and dx leaves as float32 rows. Their staged
+// rows and g's planes take 150 KB (bwd_reduce) and 207 KB (bwd_dx) at N =
+// 128: one block an SM, where the bf16 forms run two. The bf16
+// instantiations are the code they were before the template.
+//
 // Each entry point launches on the stream it is given and returns
 // cudaGetLastError().
 
@@ -61,16 +73,34 @@ __global__ void fill_table_kernel(long long* __restrict__ dst, TblChunk c,
   for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = c.v[i];
 }
 
-// Where column k of the concat lives: (row 0 of it, row stride).
+// Where column k of the concat lives: (row 0 of it, row stride); T the
+// groups' element type.
+template <typename T>
 struct ColRef {
-  const bf16* x;
+  const T* x;
   long long ld;
 };
 
-__device__ __forceinline__ ColRef col_ref(const long long* __restrict__ tbl,
-                                          int G, int k) {
+template <typename T>
+__device__ __forceinline__ ColRef<T> col_ref(
+    const long long* __restrict__ tbl, int G, int k) {
   const long long* t = table_group(tbl, G, k);
-  return {reinterpret_cast<const bf16*>(t[0]) + (k - t[3]), t[1]};
+  return {reinterpret_cast<const T*>(t[0]) + (k - t[3]), t[1]};
+}
+
+// The V = 16 / sizeof(T) values of one 16-byte load at p, as float32.
+template <typename T>
+__device__ __forceinline__ void load_vec(const T* p,
+                                         float (&v)[16 / sizeof(T)]) {
+  if constexpr (sizeof(T) == 4) {
+    const float4 a = *reinterpret_cast<const float4*>(p);
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  } else {
+    Pack8 q;
+    q.v = *reinterpret_cast<const uint4*>(p);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = lo(q, i);
+  }
 }
 
 // The BN recompute of the backward, one rounding per operation (the plain
@@ -87,44 +117,49 @@ __device__ __forceinline__ float ybn_of(float xh, float sc, float b) {
 // ---------------------------------------------------------------------------
 // tb_stats: part[s, 0, k] = sum, part[s, 1, k] = sum of squares of column k
 // of the concat over rows [s*chunk, (s+1)*chunk) (float32). Grid (S,
-// ceil(Ctot/64)); a block's 256 threads are 8 column vectors x 32 row
-// stripes, reduced in a fixed order in shared memory.
+// ceil(Ctot/64)); a block's 256 threads are 64 / V column vectors of V =
+// 16 / sizeof(T) columns (one 16-byte load: 8 bf16, 4 float32) x 32 (bf16)
+// or 16 (float32) row stripes, reduced in a fixed order in shared memory.
 // ---------------------------------------------------------------------------
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
     tb_stats_kernel(const long long* __restrict__ tbl, int G, long long M,
                     int Ctot, long long chunk, float* __restrict__ part) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int kVecs = kStatCols / V;
+  constexpr int kStripes = kThreads / kVecs;
+  static_assert(kStripes <= kStatRows, "row stripes past the reduction");
   __shared__ float red[2][kStatRows][kStatCols];
-  const int cv = threadIdx.x % 8, rs = threadIdx.x / 8;
-  const int k = blockIdx.y * kStatCols + cv * 8;
+  const int cv = threadIdx.x % kVecs, rs = threadIdx.x / kVecs;
+  const int k = blockIdx.y * kStatCols + cv * V;
   const long long rb = (long long)blockIdx.x * chunk;
   const long long re = rb + chunk < M ? rb + chunk : M;
-  float s[8], q[8];
+  float s[V], q[V];
 #pragma unroll
-  for (int i = 0; i < 8; ++i) s[i] = q[i] = 0.f;
+  for (int i = 0; i < V; ++i) s[i] = q[i] = 0.f;
   if (k < Ctot) {
-    const ColRef c = col_ref(tbl, G, k);
-    for (long long r = rb + rs; r < re; r += kStatRows) {
-      Pack8 p;
-      p.v = *reinterpret_cast<const uint4*>(c.x + r * c.ld);
+    const ColRef<T> c = col_ref<T>(tbl, G, k);
+    for (long long r = rb + rs; r < re; r += kStripes) {
+      float v[V];
+      load_vec(c.x + r * c.ld, v);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float v = lo(p, i);
-        s[i] += v;
-        q[i] += v * v;
+      for (int i = 0; i < V; ++i) {
+        s[i] += v[i];
+        q[i] += v[i] * v[i];
       }
     }
   }
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    red[0][rs][cv * 8 + i] = s[i];
-    red[1][rs][cv * 8 + i] = q[i];
+  for (int i = 0; i < V; ++i) {
+    red[0][rs][cv * V + i] = s[i];
+    red[1][rs][cv * V + i] = q[i];
   }
   __syncthreads();
   if (threadIdx.x < 2 * kStatCols) {
     const int which = threadIdx.x / kStatCols, col = threadIdx.x % kStatCols;
     const int kk = blockIdx.y * kStatCols + col;
     float a = 0.f;
-    for (int i = 0; i < kStatRows; ++i) a += red[which][i][col];
+    for (int i = 0; i < kStripes; ++i) a += red[which][i][col];
     if (kk < Ctot) part[((long long)blockIdx.x * 2 + which) * Ctot + kk] = a;
   }
 }
@@ -139,9 +174,11 @@ __global__ void __launch_bounds__(kThreads)
 // float32-exact by an exact split of their float32 operands into three bf16
 // pieces, v = p1 + p2 + p3 with p1 = bf16(v), p2 = bf16(v - p1),
 // p3 = bf16(v - p1 - p2): 3 x 8 bits of significand hold a float32's 24
-// (any normal v), and each bf16 x bf16 product is exact in the f32 sum. g
-// is bf16 already, so dW = sum_i p_i(r)^T g and g W^T = sum_i g p_i(W)^T
-// agree with float32 FMA to float32 rounding, in another order. The block:
+// (any normal v), and each bf16 x bf16 product is exact in the f32 sum. A
+// bf16 g needs no split, so dW = sum_i p_i(r)^T g and g W^T = sum_i g
+// p_i(W)^T agree with float32 FMA to float32 rounding, in another order; a
+// float32 g is split too (its planes in shared memory) and each product
+// takes the six pairs p_i p_j with i + j <= 4. The block:
 // - splits its W rows once into three bf16 planes in shared memory;
 // - stages each 32-row step's x vectors (through the feature table) and g
 //   rows by cp.async, the next step loading while this one computes;
@@ -178,7 +215,8 @@ struct RdPlan {
   int stage_bytes;  //   bytes per stage,
   int g_off;        //   the g rows within a stage,
   int pl_off;       //   r's three planes,
-  int xh_off;       //   the gated x_hat
+  int xh_off;       //   the gated x_hat,
+  int gp_off;       //   g's three planes (float32 g; 0 at bf16)
 };
 
 // W's rows c0 .. c0 + ROWS (float32 (Ctot, N)) split once into three bf16
@@ -241,17 +279,79 @@ __device__ __forceinline__ void gw_product(float (&acc)[MI][2][4],
   }
 }
 
-template <int NB8>
-__global__ void __launch_bounds__(kRdThreads, 2)
+// gw_product for a float32 g: A = g's three bf16 planes (plane k at gb + k
+// * gpl, rows as the staged g's), six plane products a k16 step, the
+// pairs g_i W_j with i + j <= 4 (1-based) in f32_kernels.cu's order, small
+// terms first: g1 W3, g2 W2, g1 W2, g3 W1, g2 W1, g1 W1 (the dropped three
+// are below float32 rounding). bwd_reduce and bwd_dx both sum in this
+// order at float32.
+template <int MI>
+__device__ __forceinline__ void gw_product3(float (&acc)[MI][2][4],
+                                            uint32_t gb, int gpl, uint32_t wb,
+                                            int np, int wpl, int row0,
+                                            int col0, int lane) {
+  const int gs = np + 8, mat = lane >> 3;
+  for (int kk = 0; kk < np / 16; ++kk) {
+    uint32_t a[3][MI][4];
+#pragma unroll
+    for (int pg = 0; pg < 3; ++pg)
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+        ldsm_x4(a[pg][i], gb + pg * gpl +
+                              ((row0 + 16 * i + (lane & 15)) * gs) * 2 +
+                              kk * 32 + (lane >> 4) * 16);
+#pragma unroll
+    for (int pw = 2; pw >= 0; --pw) {
+      uint32_t b[4];
+      ldsm_x4(b, wb + pw * wpl +
+                     ((col0 + (mat >> 1) * 8 + (lane & 7)) * gs) * 2 +
+                     kk * 32 + (mat & 1) * 16);
+#pragma unroll
+      for (int pg = 2 - pw; pg >= 0; --pg)
+#pragma unroll
+        for (int i = 0; i < MI; ++i) {
+          mma16816(acc[i][0], a[pg][i], b[0], b[1]);
+          mma16816(acc[i][1], a[pg][i], b[2], b[3]);
+        }
+    }
+  }
+}
+
+// ``rows`` staged float32 g rows (row stride np + 4 floats, np a multiple
+// of 16) split into three bf16 planes at ``dst``: plane k's row r at byte
+// (k * rows + r) * (np + 8) * 2, the layout gw_product3 and the dW
+// product read.
+__device__ __forceinline__ void split_g_planes(unsigned char* dst,
+                                               const float* src, int rows,
+                                               int np, int tid, int nthr) {
+  const int gv = np / 8, gpl = rows * (np + 8) * 2;
+  for (int i = tid; i < rows * gv; i += nthr) {
+    const int r = i / gv, j = i - r * gv;
+    float v[8];
+    load8(src + r * (np + 4) + j * 8, v);
+    Pack8 a, b, c;
+#pragma unroll
+    for (int t = 0; t < 8; ++t) split3(v[t], a.u[t], b.u[t], c.u[t]);
+    const int e = (r * (np + 8) + j * 8) * 2;
+    *reinterpret_cast<uint4*>(dst + e) = a.v;
+    *reinterpret_cast<uint4*>(dst + gpl + e) = b.v;
+    *reinterpret_cast<uint4*>(dst + 2 * gpl + e) = c.v;
+  }
+}
+
+template <int NB8, typename T>
+__global__ void __launch_bounds__(kRdThreads, sizeof(T) == 2 ? 2 : 1)
     tb_bwd_reduce_kernel(const long long* __restrict__ tbl, int G,
-                         long long M, int Ctot, const bf16* __restrict__ g,
+                         long long M, int Ctot, const T* __restrict__ g,
                          long long ldg, int N, const float* __restrict__ stat,
                          const float* __restrict__ bias,
                          const float* __restrict__ w, RdPlan p,
                          float* __restrict__ dw_part,
                          float* __restrict__ sums_part) {
+  constexpr bool F32 = sizeof(T) == 4;
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int XS = kRdCols + 8;       // x / plane row stride, elements
+  constexpr int XS = kRdCols + 16 / sizeof(T);   // x row stride, elements
+  constexpr int PS = kRdCols + 8;       // r-plane row stride, elements
   constexpr int HS = kRdCols + 8;       // x_hat row stride, floats
   const uint32_t s0 = smem_u32(smem);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -259,15 +359,17 @@ __global__ void __launch_bounds__(kRdThreads, 2)
   const long long rb = (long long)blockIdx.y * p.chunk;
   const long long re = rb + p.chunk < M ? rb + p.chunk : M;
   const int nsteps = (int)((re - rb + kRdRows - 1) / kRdRows);
-  const int np = p.np, gs = np + 8;     // g / W-plane row stride, elements
+  const int np = p.np, gs = np + 8;     // g-plane / W-plane row stride
+  const int gr_s = F32 ? np + 4 : gs;   // staged g row stride, elements
   const int wpl = kRdCols * gs * 2;     // bytes of one W plane
+  const int gpl = kRdRows * gs * 2;     // bytes of one g plane (float32 g)
   float* sst = reinterpret_cast<float*>(smem + p.stat_off);
 
   // this thread's x vector: columns c0 + xv*8 .. +7, rows xr + 32h
   const int xv = tid & 7, xr = tid >> 3;
   const int xc = c0 + xv * 8;
-  ColRef xref{nullptr, 0};
-  if (xc < Ctot) xref = col_ref(tbl, G, xc);
+  ColRef<T> xref{nullptr, 0};
+  if (xc < Ctot) xref = col_ref<T>(tbl, G, xc);
 
   // step st's x vectors and g rows into stage st % stages; a step past
   // the chunk commits an empty group, so group st is always step st's
@@ -282,15 +384,19 @@ __global__ void __launch_bounds__(kRdThreads, 2)
     for (int h = 0; h < kRdRows / 32; ++h) {
       const int r = xr + 32 * h;
       const bool ok = xc < Ctot && m0 + r < re;
-      cp_async16(base + (r * XS + xv * 8) * 2,
-                 ok ? xref.x + (m0 + r) * xref.ld : g, ok ? 16 : 0);
+#pragma unroll
+      for (int e = 0; e < (int)sizeof(T) / 2; ++e)
+        cp_async16(base + (r * XS + xv * 8) * sizeof(T) + e * 16,
+                   ok ? xref.x + (m0 + r) * xref.ld + e * 4 : g,
+                   ok ? 16 : 0);
     }
-    const int gv = np / 8;
+    constexpr int V = 16 / sizeof(T);   // g values of a 16-byte copy
+    const int gv = np / V;
     for (int i = tid; i < kRdRows * gv; i += kRdThreads) {
       const int r = i / gv, j = i - (i / gv) * gv;
-      const bool ok = m0 + r < re && j * 8 < N;
-      cp_async16(base + p.g_off + (r * gs + j * 8) * 2,
-                 ok ? g + (m0 + r) * ldg + j * 8 : g, ok ? 16 : 0);
+      const bool ok = m0 + r < re && j * V < N;
+      cp_async16(base + p.g_off + (r * gr_s + j * V) * sizeof(T),
+                 ok ? g + (m0 + r) * ldg + j * V : g, ok ? 16 : 0);
     }
     cp_async_commit();
   };
@@ -335,7 +441,7 @@ __global__ void __launch_bounds__(kRdThreads, 2)
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
   float sg[4] = {0.f, 0.f, 0.f, 0.f}, sx[4] = {0.f, 0.f, 0.f, 0.f};
   const uint32_t pl = s0 + p.pl_off;
-  const int plb = kRdRows * XS * 2;                // bytes of one r plane
+  const int plb = kRdRows * PS * 2;                // bytes of one r plane
   float* xh = reinterpret_cast<float*>(smem + p.xh_off);
 
   for (int st = 0; st < nsteps; ++st) {
@@ -353,19 +459,28 @@ __global__ void __launch_bounds__(kRdThreads, 2)
     for (int h = 0; h < kRdRows / 32; ++h) {
       const int r = xr + 32 * h;
       const bool row_ok = m0 + r < re;
-      Pack8 in, o1, o2, o3;
-      in.v = *reinterpret_cast<const uint4*>(sx_ + (r * XS + xv * 8) * 2);
+      const T* xin = reinterpret_cast<const T*>(sx_) + r * XS + xv * 8;
+      float xf[8];
+      if constexpr (F32) {
+        load8(reinterpret_cast<const float*>(xin), xf);
+      } else {
+        Pack8 in;
+        in.v = *reinterpret_cast<const uint4*>(xin);
+#pragma unroll
+        for (int t = 0; t < 8; ++t) xf[t] = lo(in, t);
+      }
+      Pack8 o1, o2, o3;
       float hv[8];
 #pragma unroll
       for (int t = 0; t < 8; ++t) {
         const bool ok = row_ok && xc + t < Ctot;
-        const float xhat = xhat_of(lo(in, t), mu[t], is[t]);
+        const float xhat = xhat_of(xf[t], mu[t], is[t]);
         const float y = ybn_of(xhat, sc[t], bb[t]);
         const bool pass = ok && y > 0.f;
         split3(pass ? y : 0.f, o1.u[t], o2.u[t], o3.u[t]);
         hv[t] = pass ? xhat : __int_as_float(0x7fc00000);
       }
-      const int e = (r * XS + xv * 8) * 2;
+      const int e = (r * PS + xv * 8) * 2;
       *reinterpret_cast<uint4*>(smem + p.pl_off + e) = o1.v;
       *reinterpret_cast<uint4*>(smem + p.pl_off + plb + e) = o2.v;
       *reinterpret_cast<uint4*>(smem + p.pl_off + 2 * plb + e) = o3.v;
@@ -374,19 +489,22 @@ __global__ void __launch_bounds__(kRdThreads, 2)
       *reinterpret_cast<float4*>(hp + 4) =
           make_float4(hv[4], hv[5], hv[6], hv[7]);
     }
+    // a float32 g: its three planes beside the recompute
+    if constexpr (F32)
+      split_g_planes(smem + p.gp_off,
+                     reinterpret_cast<const float*>(sx_ + p.g_off), kRdRows,
+                     np, tid, kRdThreads);
     __syncthreads();
 
-    // dW += sum_i p_i(r)^T g over the step's 64 rows
-    const uint32_t gb_ = sb + p.g_off;
-#pragma unroll
-    for (int ks = 0; ks < kRdRows / 16; ++ks) {
-      uint32_t b[NB8][2] = {};
+    // B of the dW product: the n8 tiles of g (bf16: the staged rows; a
+    // float32 g: one of its planes) for the step's 16-row slice ks
+    const auto load_b = [&](uint32_t gb, int ks, uint32_t (&b)[NB8][2]) {
 #pragma unroll
       for (int jp = 0; jp < NB8 / 2; ++jp) {
         uint32_t t4[4] = {0u, 0u, 0u, 0u};
         if (nb0 + 16 * jp < np)
-          ldsm_x4_t(t4, gb_ + ((ks * 16 + b_pix) * gs + nb0 + 16 * jp +
-                             8 * (mat >> 1)) * 2);
+          ldsm_x4_t(t4, gb + ((ks * 16 + b_pix) * gs + nb0 + 16 * jp +
+                              8 * (mat >> 1)) * 2);
         b[2 * jp][0] = t4[0];
         b[2 * jp][1] = t4[1];
         b[2 * jp + 1][0] = t4[2];
@@ -394,21 +512,42 @@ __global__ void __launch_bounds__(kRdThreads, 2)
       }
       if ((NB8 & 1) && nb0 + 8 * (NB8 - 1) < np)
         ldsm_x2_t(b[NB8 - 1][0], b[NB8 - 1][1],
-                  gb_ + ((ks * 16 + b_pix) * gs + nb0 + 8 * (NB8 - 1)) * 2);
+                  gb + ((ks * 16 + b_pix) * gs + nb0 + 8 * (NB8 - 1)) * 2);
+    };
+    // dW += r plane k's slice ks, transposed, times b
+    const auto dw_plane = [&](int k, int ks, const uint32_t (&b)[NB8][2]) {
+      uint32_t a[2][4];
 #pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        uint32_t a[2][4];
+      for (int i = 0; i < 2; ++i)
+        ldsm_x4_t(a[i], pl + k * plb + ((ks * 16 + t_pix) * PS +
+                                        dc * 32 + 16 * i) * 2 + t_ofs);
+#pragma unroll
+      for (int j = 0; j < NB8; ++j) {
+        if (nb0 + 8 * j >= np) continue;
 #pragma unroll
         for (int i = 0; i < 2; ++i)
-          ldsm_x4_t(a[i], pl + k * plb + ((ks * 16 + t_pix) * XS +
-                                          dc * 32 + 16 * i) * 2 + t_ofs);
+          mma16816(acc[i][j], a[i], b[j][0], b[j][1]);
+      }
+    };
+
+    // dW += sum p_i(r)^T g over the step's rows: at bf16 the three r
+    // planes times g; a float32 g's planes as in gw_product3 (g_j r_i,
+    // i + j <= 4, small terms first)
+    const uint32_t gb_ = sb + p.g_off;
 #pragma unroll
-        for (int j = 0; j < NB8; ++j) {
-          if (nb0 + 8 * j >= np) continue;
+    for (int ks = 0; ks < kRdRows / 16; ++ks) {
+      uint32_t b[NB8][2] = {};
+      if constexpr (F32) {
 #pragma unroll
-          for (int i = 0; i < 2; ++i)
-            mma16816(acc[i][j], a[i], b[j][0], b[j][1]);
+        for (int pg = 2; pg >= 0; --pg) {
+          load_b(s0 + p.gp_off + pg * gpl, ks, b);
+#pragma unroll
+          for (int k = 2 - pg; k >= 0; --k) dw_plane(k, ks, b);
         }
+      } else {
+        load_b(gb_, ks, b);
+#pragma unroll
+        for (int k = 0; k < 3; ++k) dw_plane(k, ks, b);
       }
     }
 
@@ -420,7 +559,11 @@ __global__ void __launch_bounds__(kRdThreads, 2)
       for (int j = 0; j < 2; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) gw[i][j][e] = 0.f;
-    gw_product<kRdMI>(gw, gb_, s0, np, wpl, gr0, gc * 16, lane);
+    if constexpr (F32)
+      gw_product3<kRdMI>(gw, s0 + p.gp_off, gpl, s0, np, wpl, gr0, gc * 16,
+                         lane);
+    else
+      gw_product<kRdMI>(gw, gb_, s0, np, wpl, gr0, gc * 16, lane);
 #pragma unroll
     for (int i = 0; i < kRdMI; ++i)
 #pragma unroll
@@ -488,7 +631,7 @@ __global__ void __launch_bounds__(kRdThreads, 2)
 }
 
 // ---------------------------------------------------------------------------
-// tb_bwd_dx: the input cotangents, for each group's dx (bf16)
+// tb_bwd_dx: the input cotangents, for each group's dx (bf16 or float32)
 //   dx = (scale * inv_sigma) * ((g_y - red0) - x_hat * red1),
 //   g_y = [y > 0] (g W^T)[m, c],
 // red = [mean g_y; mean g_y x_hat] (tb_bwd_reduce's sums over M), x_hat and
@@ -506,11 +649,12 @@ __global__ void __launch_bounds__(kRdThreads, 2)
 //   loading while this one computes;
 // - g W^T on the tensor cores (gw_product: warp (wr, wc) owns rows wr*32 ..
 //   +32 and columns wc*16 .. +16), float32-exact through the split, in
-//   tb_bwd_reduce's order;
+//   tb_bwd_reduce's order (a float32 g: split into its planes first,
+//   gw_product3);
 // - the epilogue runs on the accumulators: x from the staged tile, the
-//   recompute, the gate and the jacobian, each result rounded to bf16 in
-//   place of its x; the tile then leaves as 16-byte rows into each chunk's
-//   dx tensor.
+//   recompute, the gate and the jacobian, each result rounded to bf16 (or
+//   kept float32) in place of its x; the tile then leaves as 16-byte rows
+//   into each chunk's dx tensor.
 // Two other designs measured slower at r=64 (PERF.md section 6): each
 // warp's B fragments held in registers (183 of them; one block an SM, four
 // stages), and x read and dx written by each thread straight from and to
@@ -518,7 +662,6 @@ __global__ void __launch_bounds__(kRdThreads, 2)
 // ---------------------------------------------------------------------------
 constexpr int kDxRows = 64;            // rows of a step
 constexpr int kDxCols = 64;            // concat columns of a block
-constexpr int kDxXS = kDxCols + 8;     // x tile row stride, elements
 constexpr int kDxChunks = kDxCols / 8;
 
 struct DxPlan {
@@ -527,16 +670,20 @@ struct DxPlan {
   int tbl_off;      // shared-memory byte offsets: the x then dx chunks,
   int stage_off;    //   the first x / g stage,
   int stage_bytes;  //   bytes per stage (two stages),
-  int g_off;        //   the g rows within a stage
+  int g_off;        //   the g rows within a stage,
+  int gp_off;       //   g's three planes (float32 g; 0 at bf16)
 };
 
-__global__ void __launch_bounds__(kThreads, 2)
+template <typename T>
+__global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1)
     tb_bwd_dx_kernel(const long long* __restrict__ tbl, int G, int M,
-                     int Ctot, const bf16* __restrict__ g, long long ldg,
+                     int Ctot, const T* __restrict__ g, long long ldg,
                      int N, const float* __restrict__ stat,
                      const float* __restrict__ bias,
                      const float* __restrict__ red,
                      const float* __restrict__ w, DxPlan p) {
+  constexpr bool F32 = sizeof(T) == 4;
+  constexpr int XS = kDxCols + 16 / sizeof(T);   // x tile row stride
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t s0 = smem_u32(smem);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -546,22 +693,26 @@ __global__ void __launch_bounds__(kThreads, 2)
   if (first >= steps) return;
   const int Q = (steps - 1 - first) / stride + 1;
   const int np = p.np, gs = np + 8, wpl = kDxCols * gs * 2;
+  const int gr_s = F32 ? np + 4 : gs;   // staged g row stride, elements
+  const int gpl = kDxRows * gs * 2;     // bytes of one g plane (float32 g)
   Chunk* ch = reinterpret_cast<Chunk*>(smem + p.tbl_off);   // x, then dx
 
   if (tid < 2 * kDxChunks)
-    ch[tid] = table_chunk(tbl, G, Ctot, c0 + (tid % kDxChunks) * 8,
-                          tid < kDxChunks ? 0 : 4);
+    ch[tid] = table_chunk<T>(tbl, G, Ctot, c0 + (tid % kDxChunks) * 8,
+                             tid < kDxChunks ? 0 : 4);
   __syncthreads();
   const auto issue = [&](int q) {
     const int m0 = (first + q * stride) * kDxRows;
     const uint32_t base = s0 + p.stage_off + (q & 1) * p.stage_bytes;
-    load_chunks(base, ch, M, m0, kDxRows, kDxCols, tid, kThreads);
-    const int gv = np / 8;
+    load_chunks<T>(base, ch, M, m0, kDxRows, kDxCols, tid, kThreads);
+    constexpr int V = 16 / sizeof(T);   // g values of a 16-byte copy
+    const int gv = np / V;
     for (int i = tid; i < kDxRows * gv; i += kThreads) {
       const int r = i / gv, j = i - r * gv;
-      const bool ok = m0 + r < M && j * 8 < N;
-      cp_async16(base + p.g_off + (r * gs + j * 8) * 2,
-                 ok ? g + (long long)(m0 + r) * ldg + j * 8 : g, ok ? 16 : 0);
+      const bool ok = m0 + r < M && j * V < N;
+      cp_async16(base + p.g_off + (r * gr_s + j * V) * sizeof(T),
+                 ok ? g + (long long)(m0 + r) * ldg + j * V : g,
+                 ok ? 16 : 0);
     }
     cp_async_commit();
   };
@@ -587,6 +738,15 @@ __global__ void __launch_bounds__(kThreads, 2)
       r1[j][e] = ok ? red[Ctot + c] : 0.f;
       cf[j][e] = __fmul_rn(sc[j][e], is[j][e]);
     }
+  // dx of column (j, e) at x: the recompute, the gate on g_y and the
+  // jacobian, one rounding per operation
+  const auto dx_of = [&](float x, float gv, int j, int e) {
+    const float xh = xhat_of(x, mu[j][e], is[j][e]);
+    const float gy = ybn_of(xh, sc[j][e], bb[j][e]) > 0.f ? gv : 0.f;
+    const float v = __fsub_rn(__fsub_rn(gy, r0[j][e]),
+                              __fmul_rn(xh, r1[j][e]));
+    return __fmul_rn(cf[j][e], v);
+  };
 
   for (int q = 0; q < Q; ++q) {
     cp_async_wait<0>();
@@ -601,11 +761,20 @@ __global__ void __launch_bounds__(kThreads, 2)
       for (int j = 0; j < 2; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-    gw_product<2>(acc, s0 + sb + p.g_off, s0, np, wpl, wr * 32, wc * 16,
-                  lane);
+    if constexpr (F32) {
+      split_g_planes(smem + p.gp_off,
+                     reinterpret_cast<const float*>(smem + sb + p.g_off),
+                     kDxRows, np, tid, kThreads);
+      __syncthreads();
+      gw_product3<2>(acc, s0 + p.gp_off, gpl, s0, np, wpl, wr * 32,
+                     wc * 16, lane);
+    } else {
+      gw_product<2>(acc, s0 + sb + p.g_off, s0, np, wpl, wr * 32, wc * 16,
+                    lane);
+    }
 
     // the epilogue, each dx in place of its x
-    bf16* xt = reinterpret_cast<bf16*>(smem + sb);
+    T* xt = reinterpret_cast<T*>(smem + sb);
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -613,50 +782,110 @@ __global__ void __launch_bounds__(kThreads, 2)
         const int r = wr * 32 + 16 * i + (lane >> 2) + 8 * h;
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
-          uint32_t* px = reinterpret_cast<uint32_t*>(
-              xt + r * kDxXS + wc * 16 + 8 * j + 2 * (lane & 3));
-          const uint32_t xv = *px;
-          const float x2[2] = {__uint_as_float(xv << 16),
-                               __uint_as_float(xv & 0xffff0000u)};
-          unsigned short o[2];
+          T* px = xt + r * XS + wc * 16 + 8 * j + 2 * (lane & 3);
+          if constexpr (F32) {
+            float2* pf = reinterpret_cast<float2*>(px);
+            const float2 xv = *pf;
+            *pf = make_float2(dx_of(xv.x, acc[i][j][2 * h], j, 0),
+                              dx_of(xv.y, acc[i][j][2 * h + 1], j, 1));
+          } else {
+            uint32_t* pu = reinterpret_cast<uint32_t*>(px);
+            const uint32_t xv = *pu;
+            const float x2[2] = {__uint_as_float(xv << 16),
+                                 __uint_as_float(xv & 0xffff0000u)};
+            unsigned short o[2];
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float xh = xhat_of(x2[e], mu[j][e], is[j][e]);
-            const float gy = ybn_of(xh, sc[j][e], bb[j][e]) > 0.f
-                                 ? acc[i][j][2 * h + e] : 0.f;
-            const float v = __fsub_rn(__fsub_rn(gy, r0[j][e]),
-                                      __fmul_rn(xh, r1[j][e]));
-            o[e] = hi(__fmul_rn(cf[j][e], v));
+            for (int e = 0; e < 2; ++e)
+              o[e] = hi(dx_of(x2[e], acc[i][j][2 * h + e], j, e));
+            *pu = o[0] | ((uint32_t)o[1] << 16);
           }
-          *px = o[0] | ((uint32_t)o[1] << 16);
         }
       }
     __syncthreads();
-    for (int i = tid; i < kDxRows * kDxChunks; i += kThreads) {
-      const int r = i / kDxChunks, v = i - r * kDxChunks;
-      const Chunk d = ch[kDxChunks + v];
+    // the tile out as 16-byte vectors (a float32 chunk: two), each into
+    // its chunk's dx tensor
+    constexpr int P = sizeof(T) / 2;    // 16-byte vectors of a chunk row
+    for (int i = tid; i < kDxRows * kDxChunks * P; i += kThreads) {
+      const int r = i / (kDxChunks * P), v = i - r * (kDxChunks * P);
+      const Chunk d = ch[kDxChunks + v / P];
       if (m0 + r < M && d.ptr)
-        *reinterpret_cast<uint4*>(reinterpret_cast<bf16*>(d.ptr) +
-                                  (long long)(m0 + r) * d.ld) =
-            *reinterpret_cast<const uint4*>(xt + r * kDxXS + v * 8);
+        *reinterpret_cast<uint4*>(reinterpret_cast<T*>(d.ptr) +
+                                  (long long)(m0 + r) * d.ld +
+                                  (v % P) * 8 / P) =
+            *reinterpret_cast<const uint4*>(xt + r * XS + v * 8 / P);
     }
   }
 }
 
-template <int NB8>
+template <int NB8, typename T>
 int launch_bwd_reduce(const long long* tbl, int G, long long M, int Ctot,
-                      const bf16* g, long long ldg, int N, const float* stat,
+                      const T* g, long long ldg, int N, const float* stat,
                       const float* bias, const float* w, const RdPlan& p,
                       float* dw_part, float* sums_part, int smem,
                       cudaStream_t st) {
   const cudaError_t e = cudaFuncSetAttribute(
-      tb_bwd_reduce_kernel<NB8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      tb_bwd_reduce_kernel<NB8, T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((unsigned)((Ctot + kRdCols - 1) / kRdCols),
                   (unsigned)((M + p.chunk - 1) / p.chunk));
-  tb_bwd_reduce_kernel<NB8><<<grid, kRdThreads, smem, st>>>(
+  tb_bwd_reduce_kernel<NB8, T><<<grid, kRdThreads, smem, st>>>(
       tbl, G, M, Ctot, g, ldg, N, stat, bias, w, p, dw_part, sums_part);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int stats(const void* tbl, int G, long long M, int Ctot, long long chunk,
+          void* part, void* stream) {
+  const dim3 grid((unsigned)((M + chunk - 1) / chunk),
+                  (unsigned)((Ctot + kStatCols - 1) / kStatCols));
+  tb_stats_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const long long*>(tbl), G, M, Ctot, chunk,
+      static_cast<float*>(part));
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int bwd_reduce(const void* tbl, int G, long long M, int Ctot, const void* g,
+               long long ldg, int N, const void* stat, const void* bias,
+               const void* w, const RdPlan& p, int smem, void* dw_part,
+               void* sums_part, void* stream) {
+  const auto* tp = static_cast<const long long*>(tbl);
+  const auto* gp = static_cast<const T*>(g);
+  const auto* sp = static_cast<const float*>(stat);
+  const auto* bp = static_cast<const float*>(bias);
+  const auto* wp = static_cast<const float*>(w);
+  auto* dp = static_cast<float*>(dw_part);
+  auto* rp = static_cast<float*>(sums_part);
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch ((p.np + 31) / 32) {
+#define CUNET_RD_NB8(n)                                                    \
+  case n:                                                                  \
+    return launch_bwd_reduce<n, T>(tp, G, M, Ctot, gp, ldg, N, sp, bp, wp, \
+                                   p, dp, rp, smem, st);
+    CUNET_RD_NB8(1) CUNET_RD_NB8(2) CUNET_RD_NB8(3) CUNET_RD_NB8(4)
+    CUNET_RD_NB8(5) CUNET_RD_NB8(6) CUNET_RD_NB8(7) CUNET_RD_NB8(8)
+#undef CUNET_RD_NB8
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T>
+int bwd_dx(const void* tbl, int G, long long M, int Ctot, const void* g,
+           long long ldg, int N, const void* stat, const void* bias,
+           const void* red, const void* w, const DxPlan& p, int smem,
+           void* stream) {
+  const int items = (int)((M + kDxRows - 1) / kDxRows) * p.ngrp;
+  int grid = 0;
+  const int e = persistent_grid(tb_bwd_dx_kernel<T>, items, kThreads, smem,
+                                p.ngrp, &grid);
+  if (e) return e;
+  tb_bwd_dx_kernel<T><<<grid, kThreads, smem,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const long long*>(tbl), G, (int)M, Ctot,
+      static_cast<const T*>(g), ldg, N, static_cast<const float*>(stat),
+      static_cast<const float*>(bias), static_cast<const float*>(red),
+      static_cast<const float*>(w), p);
   return (int)cudaGetLastError();
 }
 
@@ -680,15 +909,12 @@ int cunet_tb_fill_table(const void* host_tbl, int G, void* tbl,
   return (int)cudaGetLastError();
 }
 
+// The statistics, reduce and dx kernels over bf16 features and cotangent
+// (f32 = 0) or float32 ones (f32 = 1); every other operand is float32.
 int cunet_tb_stats(const void* tbl, int G, long long M, int Ctot,
-                   long long chunk, void* part, void* stream) {
-  const auto st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((unsigned)((M + chunk - 1) / chunk),
-                  (unsigned)((Ctot + kStatCols - 1) / kStatCols));
-  tb_stats_kernel<<<grid, kThreads, 0, st>>>(
-      static_cast<const long long*>(tbl), G, M, Ctot, chunk,
-      static_cast<float*>(part));
-  return (int)cudaGetLastError();
+                   long long chunk, void* part, int f32, void* stream) {
+  return f32 ? stats<float>(tbl, G, M, Ctot, chunk, part, stream)
+             : stats<bf16>(tbl, G, M, Ctot, chunk, part, stream);
 }
 
 int cunet_tb_bwd_reduce(const void* tbl, int G, long long M, int Ctot,
@@ -696,48 +922,27 @@ int cunet_tb_bwd_reduce(const void* tbl, int G, long long M, int Ctot,
                         const void* bias, const void* w, long long chunk,
                         int np, int stages, int stat_off, int stage_off,
                         int stage_bytes, int g_off, int pl_off, int xh_off,
-                        int smem, void* dw_part, void* sums_part,
-                        void* stream) {
+                        int gp_off, int smem, void* dw_part, void* sums_part,
+                        int f32, void* stream) {
   const RdPlan p{chunk, np, stages, stat_off, stage_off, stage_bytes, g_off,
-                 pl_off, xh_off};
-  const auto* tp = static_cast<const long long*>(tbl);
-  const auto* gp = static_cast<const bf16*>(g);
-  const auto* sp = static_cast<const float*>(stat);
-  const auto* bp = static_cast<const float*>(bias);
-  const auto* wp = static_cast<const float*>(w);
-  auto* dp = static_cast<float*>(dw_part);
-  auto* rp = static_cast<float*>(sums_part);
-  const auto st = static_cast<cudaStream_t>(stream);
-  switch ((np + 31) / 32) {
-#define CUNET_RD_NB8(n)                                                     \
-  case n:                                                                   \
-    return launch_bwd_reduce<n>(tp, G, M, Ctot, gp, ldg, N, sp, bp, wp, p, \
-                                dp, rp, smem, st);
-    CUNET_RD_NB8(1) CUNET_RD_NB8(2) CUNET_RD_NB8(3) CUNET_RD_NB8(4)
-    CUNET_RD_NB8(5) CUNET_RD_NB8(6) CUNET_RD_NB8(7) CUNET_RD_NB8(8)
-#undef CUNET_RD_NB8
-  }
-  return (int)cudaErrorInvalidValue;
+                 pl_off, xh_off, gp_off};
+  return f32 ? bwd_reduce<float>(tbl, G, M, Ctot, g, ldg, N, stat, bias, w,
+                                 p, smem, dw_part, sums_part, stream)
+             : bwd_reduce<bf16>(tbl, G, M, Ctot, g, ldg, N, stat, bias, w,
+                                p, smem, dw_part, sums_part, stream);
 }
 
 int cunet_tb_bwd_dx(const void* tbl, int G, long long M, int Ctot,
                     const void* g, long long ldg, int N, const void* stat,
                     const void* bias, const void* red, const void* w,
                     int ngrp, int np, int tbl_off, int stage_off,
-                    int stage_bytes, int g_off, int smem, void* stream) {
-  const DxPlan p{ngrp, np, tbl_off, stage_off, stage_bytes, g_off};
-  const int items = (int)((M + kDxRows - 1) / kDxRows) * ngrp;
-  int grid = 0;
-  const int e = persistent_grid(tb_bwd_dx_kernel, items, kThreads, smem,
-                                ngrp, &grid);
-  if (e) return e;
-  tb_bwd_dx_kernel<<<grid, kThreads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const long long*>(tbl), G, (int)M, Ctot,
-      static_cast<const bf16*>(g), ldg, N, static_cast<const float*>(stat),
-      static_cast<const float*>(bias), static_cast<const float*>(red),
-      static_cast<const float*>(w), p);
-  return (int)cudaGetLastError();
+                    int stage_bytes, int g_off, int gp_off, int smem, int f32,
+                    void* stream) {
+  const DxPlan p{ngrp, np, tbl_off, stage_off, stage_bytes, g_off, gp_off};
+  return f32 ? bwd_dx<float>(tbl, G, M, Ctot, g, ldg, N, stat, bias, red, w,
+                             p, smem, stream)
+             : bwd_dx<bf16>(tbl, G, M, Ctot, g, ldg, N, stat, bias, red, w,
+                            p, smem, stream);
 }
 
 }  // extern "C"

@@ -243,21 +243,40 @@ struct Chunk {
 };
 
 // The chunk at concat column k, from the x columns (col 0) or the dx
-// columns (col 4) of its group's table row.
+// columns (col 4) of its group's table row; T the groups' element type.
+template <typename T = bf16>
 __device__ __forceinline__ Chunk table_chunk(const long long* __restrict__ tbl,
                                              int G, int Ctot, int k, int col) {
   if (k >= Ctot) return {0, 0};
   const long long* t = table_group(tbl, G, k);
-  return {t[col] + (k - t[3]) * (long long)sizeof(bf16), t[col + 1]};
+  return {t[col] + (k - t[3]) * (long long)sizeof(T), t[col + 1]};
 }
 
 // load_halo over resolved chunks: rows [g0, g0 + rows) (g0 >= 0) of kc / 8
-// chunks ``ch`` into shared memory at ``dst``, at a row stride of kc +
-// kHaloPad elements; rows at or past M are left unwritten, chunks with no
-// pointer are zero-filled.
+// chunks ``ch`` into shared memory at ``dst``, at a row stride of kc
+// elements and 16 bytes (kHaloPad bf16, 4 float32); rows at or past M are
+// left unwritten, chunks with no pointer are zero-filled. A float32 chunk
+// is two 16-byte copies.
+template <typename T = bf16>
 __device__ __forceinline__ void load_chunks(uint32_t dst, const Chunk* ch,
                                             int M, int g0, int rows, int kc,
                                             int tid, int nthr) {
+  if constexpr (sizeof(T) == 4) {
+    const int vecs = kc / 4;
+    const int stride = kc * 4 + 16;
+    const int r_hi = M - g0 < rows ? M - g0 : rows;
+    const char* any = reinterpret_cast<const char*>(ch[0].ptr);
+    for (int i = tid; i < r_hi * vecs; i += nthr) {
+      const int r = i / vecs, v = i - r * vecs;
+      const Chunk c = ch[v >> 1];
+      cp_async16(dst + r * stride + v * 16,
+                 c.ptr ? reinterpret_cast<const char*>(c.ptr) +
+                             ((long long)(g0 + r) * c.ld + (v & 1) * 4) * 4
+                       : any,
+                 c.ptr ? 16 : 0);
+    }
+    return;
+  }
   const int vecs = kc / 8;
   const int stride = (kc + kHaloPad) * 2;
   const int r_hi = M - g0 < rows ? M - g0 : rows;

@@ -1325,12 +1325,14 @@ __global__ void __launch_bounds__(kThreads)
 // cunet_tpu_torch/ops/dropmask.py::tile_mask. Forward (F32_IN false): the
 // bf16 view in place, bf16(x * m) (both factors bf16, so the f32 product
 // is exact and rounds once, as a bf16 multiply does). Backward: f32 in,
-// bf16(d * m) out. One thread per 8 columns of a row.
+// bf16(d * m) out. The float32 form (TO float, F32_IN): f32 in, f32(x * m)
+// out, in place or not, m the float32 scale: the forward and the backward
+// of a float32 model. One thread per 8 columns of a row.
 // ---------------------------------------------------------------------------
-template <bool F32_IN>
+template <bool F32_IN, typename TO>
 __global__ void __launch_bounds__(kThreads)
     drop_mask_kernel(const void* in, long long ldi,  // in == out forward
-                     bf16* out, long long ldo, long long M,
+                     TO* out, long long ldo, long long M,
                      int G, long long tile_rows, uint32_t key, uint32_t thr,
                      float scale) {
   const int cg = G / 8;
@@ -1352,13 +1354,22 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int q = 0; q < 8; ++q) v[q] = lo(p, q);
     }
-    Pack8 o;
+    float r[8];
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
       const bool keep = (fmix32((base + q) ^ k) & 0x7FFFFFFFu) < thr;
-      o.u[q] = hi(__fmul_rn(v[q], keep ? scale : 0.f));
+      r[q] = __fmul_rn(v[q], keep ? scale : 0.f);
     }
-    *reinterpret_cast<uint4*>(out + m * ldo + c) = o.v;
+    if constexpr (sizeof(TO) == 4) {
+      float4* po = reinterpret_cast<float4*>(out + m * ldo + c);
+      po[0] = make_float4(r[0], r[1], r[2], r[3]);
+      po[1] = make_float4(r[4], r[5], r[6], r[7]);
+    } else {
+      Pack8 o;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) o.u[q] = hi(r[q]);
+      *reinterpret_cast<uint4*>(out + m * ldo + c) = o.v;
+    }
   }
 }
 
@@ -1646,6 +1657,8 @@ int cunet_upsample2_bwd(const void* d, long long ldd, void* out,
   return (int)cudaGetLastError();
 }
 
+// f32_in 0: bf16 in place; 1: float32 in, bf16 out; 2: float32 in and out
+// (the float32 form).
 int cunet_drop_mask(const void* in, long long ldi, int f32_in, void* out,
                     long long ldo, long long M, int G, long long tile_rows,
                     unsigned int key, unsigned int thr, float scale,
@@ -1653,11 +1666,15 @@ int cunet_drop_mask(const void* in, long long ldi, int f32_in, void* out,
   const auto st = static_cast<cudaStream_t>(stream);
   auto* op = static_cast<bf16*>(out);
   const unsigned blocks = grid_blocks(M * (G / 8));
-  if (f32_in)
-    drop_mask_kernel<true><<<blocks, kThreads, 0, st>>>(
+  if (f32_in == 2)
+    drop_mask_kernel<true, float><<<blocks, kThreads, 0, st>>>(
+        in, ldi, static_cast<float*>(out), ldo, M, G, tile_rows, key, thr,
+        scale);
+  else if (f32_in)
+    drop_mask_kernel<true, bf16><<<blocks, kThreads, 0, st>>>(
         in, ldi, op, ldo, M, G, tile_rows, key, thr, scale);
   else
-    drop_mask_kernel<false><<<blocks, kThreads, 0, st>>>(
+    drop_mask_kernel<false, bf16><<<blocks, kThreads, 0, st>>>(
         in, ldi, op, ldo, M, G, tile_rows, key, thr, scale);
   return (int)cudaGetLastError();
 }

@@ -832,6 +832,12 @@ def count_options(options: dict) -> dict:
             for k, o in options.items()}
 
 
+def count_f32(kernels) -> dict:
+    """Launches of the float32 form of each wrapper of ``kernels``, keyed
+    ``name[f32]`` (also counted in its ``launches``)."""
+    return {f"{k.__name__}[f32]": k.f32_launches for k in kernels}
+
+
 def reset_launch_counts() -> None:
     reset_counts(KERNELS, OPTIONS)
 
@@ -845,9 +851,7 @@ def option_counts() -> dict:
 
 
 def f32_counts() -> dict:
-    """Launches of each wrapper's float32 form, keyed ``name[f32]`` (also
-    counted in its ``launches``)."""
-    return {f"{k.__name__}[f32]": k.f32_launches for k in KERNELS}
+    return count_f32(KERNELS)
 
 
 for _k in KERNELS:

@@ -125,11 +125,11 @@ def _declare(lib):
         "cunet_conv3x3_i8": [P, L, L, I, I, I, P, I, F, P, L, P],
         "cunet_int8_matmul_dequant": [P, L, L, I, P, I, I, P, F, P, L, P],
         "cunet_tb_fill_table": [P, I, P, P],
-        "cunet_tb_stats": [P, I, L, I, L, P, P],
+        "cunet_tb_stats": [P, I, L, I, L, P, I, P],
         "cunet_tb_apply": [P, I, L, I, P, P, P, I, P, L, *[I] * 10, P],
-        "cunet_tb_bwd_reduce": [P, I, L, I, P, L, I, P, P, P, L, *[I] * 9,
-                                P, P, P],
-        "cunet_tb_bwd_dx": [P, I, L, I, P, L, I, P, P, P, P, *[I] * 7, P],
+        "cunet_tb_bwd_reduce": [P, I, L, I, P, L, I, P, P, P, L, *[I] * 10,
+                                P, P, I, P],
+        "cunet_tb_bwd_dx": [P, I, L, I, P, L, I, P, P, P, P, *[I] * 9, P],
         "cunet_table_dot": [P, P, P, I, I, I, I, L, P, P, P, P, P, P, I, I,
                             I, P, P, I, P, L, L, L, P, L, P],
         "cunet_table_dot_f32": [P, P, P, I, I, I, I, L, P, P, P, P, P, P, I,

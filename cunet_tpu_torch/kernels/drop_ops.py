@@ -20,7 +20,14 @@ from __future__ import annotations
 import torch
 
 from cunet_tpu_torch.kernels import build
-from cunet_tpu_torch.kernels.buf_ops import _check_view, _stream, reset_counts
+from cunet_tpu_torch.kernels.buf_ops import (
+    BF16,
+    F32,
+    _check_view,
+    _stream,
+    count_f32,
+    reset_counts,
+)
 from cunet_tpu_torch.kernels.train_ops import _check_f32
 from cunet_tpu_torch.ops import dropmask
 
@@ -46,6 +53,11 @@ def drop_mask(x, seed, pos, rate, tile_rows, out=None):
     product taken in float32 and rounded once to ``out``'s dtype, as
     JAX's ``d_out32 * mask.astype(f32)`` before the conv backward.
 
+    Float32 ``x`` with ``out`` None or float32 (a float32 model's forward
+    and backward): the float32 form, ``x * mask`` in float32 with the mask
+    at float32, written to ``out`` or in place; counted in
+    ``drop_mask.f32_launches`` too.
+
     Replaces ``cunet_tpu/kernels/train_slot.py::_seed_mask`` and its two
     multiplies. Pure data movement (~10 integer ops per element), bound by
     reading and writing the view once. Design: one thread per 8 columns of
@@ -60,19 +72,22 @@ def drop_mask(x, seed, pos, rate, tile_rows, out=None):
     thr = dropmask.keep_threshold(rate)
     if x.device.type == "cpu":
         return drop_mask_plain(x, seed, pos, rate, tile_rows, out)
+    f32 = x.dtype == F32 and (out is None or out.dtype == F32)
     if out is None:
-        _check_view(x, "x")
+        _check_view(x, "x", (BF16, F32))
         dst = x
     else:
         _check_f32(x, "x", x.device)
-        _check_view(out, "out")
+        _check_view(out, "out", (BF16, F32))
         dst = out
     code = build.lib().cunet_drop_mask(
-        x.data_ptr(), x.stride(0), int(out is not None), dst.data_ptr(),
-        dst.stride(0), m, g, tile_rows, dropmask.seed_key(seed, pos), thr,
-        dropmask.keep_scale(rate, torch.bfloat16), _stream(x))
+        x.data_ptr(), x.stride(0), 2 if f32 else int(out is not None),
+        dst.data_ptr(), dst.stride(0), m, g, tile_rows,
+        dropmask.seed_key(seed, pos), thr,
+        dropmask.keep_scale(rate, F32 if f32 else BF16), _stream(x))
     build.check(code, "drop_mask")
     drop_mask.launches += 1
+    drop_mask.f32_launches += f32
     return dst
 
 
@@ -119,4 +134,9 @@ def launch_counts() -> dict:
     return {k.__name__: k.launches for k in KERNELS}
 
 
+def f32_counts() -> dict:
+    return count_f32(KERNELS)
+
+
+drop_mask.f32_launches = 0
 reset_launch_counts()

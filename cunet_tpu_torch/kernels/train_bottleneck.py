@@ -36,6 +36,18 @@ The arithmetic is the TPU kernel's, which differs from the plain
 (``sumsq / M - mean^2``), the forward affine always in float32, and a
 backward against the unrounded float32 W^T whose ReLU gate reads
 ``x_hat * scale + bias``.
+
+Every kernel takes bfloat16 or float32 features (one dtype a call; the
+cotangent and the outputs in it too): the float32 forms are the JAX
+package's #7 at ``compute_dtype="float32"``, float32 in, float32 products,
+float32 out. ``stats``, ``bwd_reduce`` and ``bwd_dx`` are the same
+kernels instantiated for float32 (16-byte loads of 4 columns, the
+cotangent split into three bf16 planes in shared memory like W, so each
+product is six plane products); ``apply`` is the float32 product kernel
+of ``csrc/f32_kernels.cu`` over the features as its feature table
+(``buf_ops.launch_dot3``), bit for bit ``affine_dot``'s float32 form over
+``torch.cat(xs, 1)``. ``<wrapper>.f32_launches`` counts the float32
+launches (also in ``launches``).
 """
 
 from __future__ import annotations
@@ -48,12 +60,17 @@ import torch
 
 from cunet_tpu_torch.kernels import build
 from cunet_tpu_torch.kernels.buf_ops import (
+    BF16,
+    F32,
     SMEM_LIMIT,
+    _check_dtypes,
     _check_rows as _check_row_count,
     _check_view,
     _stream,
     _up,
     affine_dot_plan,
+    count_f32,
+    launch_dot3,
     reset_counts,
 )
 from cunet_tpu_torch.kernels.train_ops import _check_contig_f32, sum_rows
@@ -64,11 +81,17 @@ CHUNKS = 32              # partials aimed at where M allows (fills the card)
 TABLE_COLS = 6           # x ptr, x row stride, width, offset, dx ptr, dx ld
 # bwd_reduce: concat columns of a block and rows of a pipelined step
 # (csrc/bottleneck_kernels.cu kRdCols, kRdRows), and the blocks it aims at,
-# two on each of the card's 132 SMs: a constant, so the chunks (and the
-# order of every sum) depend on the shapes alone
+# two on each of the card's 132 SMs (one at float32, whose staged float32
+# x and g and g's planes take more than half an SM's shared memory): a
+# constant, so the chunks (and the order of every sum) depend on the
+# shapes alone
 REDUCE_COLS = 64
 REDUCE_ROWS = 32
 REDUCE_BLOCKS = 264
+REDUCE_BLOCKS_F32 = 132
+# float32 kernels: the most feature groups ``apply``'s float32 product
+# takes (csrc/f32_kernels.cu kMaxGroups)
+F32_GROUPS = 16
 # bwd_dx: rows of a step and concat columns of a block (csrc kDxRows,
 # kDxCols); a table chunk resolved into shared memory (csrc/halo.cuh Chunk:
 # a pointer and a row stride)
@@ -104,20 +127,30 @@ def _check_rows(xs, m):
                          f"{[tuple(x.shape) for x in xs]}")
 
 
+def _is_f32(xs) -> bool:
+    """Whether the kernels run their float32 form for the features ``xs``
+    (all bf16 or all float32; any other dtype raises)."""
+    _check_view(xs[0], "features[0]", (BF16, F32))
+    _check_dtypes(xs[0], **{f"features[{k}]": x for k, x in enumerate(xs)})
+    return xs[0].dtype == F32
+
+
 def feature_table(xs, dxs=None) -> torch.Tensor:
     """The feature table of the CUDA views ``xs`` (and of their cotangents
     ``dxs``) in device memory: one row of TABLE_COLS int64 per group
     [pointer, row stride, width, column offset, dx pointer, dx row stride],
     written by one fill launch on the current stream. It holds pointers:
     valid while the tensors it was built from live, for those tensors
-    only."""
+    only. The features all bf16 or all float32, the cotangents in their
+    dtype."""
     offs, _ = _widths(xs)
+    _is_f32(xs)
     rows = []
     for k, (x, off) in enumerate(zip(xs, offs)):
-        _check_view(x, f"features[{k}]")
+        _check_view(x, f"features[{k}]", (x.dtype,))
         dx = (0, 0)
         if dxs is not None:
-            _check_view(dxs[k], f"dx[{k}]")
+            _check_view(dxs[k], f"dx[{k}]", (x.dtype,))
             dx = (dxs[k].data_ptr(), dxs[k].stride(0))
         rows.append([x.data_ptr(), x.stride(0), x.shape[1], off, *dx])
     host = torch.tensor(rows, dtype=torch.int64)
@@ -176,8 +209,9 @@ def stats(xs, out, table=None):
 
     Replaces ``cunet_tpu/kernels/train_bottleneck.py::_stats_kernel``.
     Bound by reading the features once (62.9 MB at K=320, M=98,304: 18.8 us
-    on the H100). Design: one block per (chunk of ``row_chunk(M)`` rows, 64
-    columns), 32 row stripes of 16-byte loads per 8 columns, a fixed-order
+    on the H100; 125.8 MB at float32: 37.6 us). Design: one block per
+    (chunk of ``row_chunk(M)`` rows, 64 columns), 32 row stripes of 16-byte
+    loads per 8 columns (float32: 16 stripes per 4 columns), a fixed-order
     reduction in shared memory, the chunk partials added by ``sum_rows``.
     """
     m = xs[0].shape[0]
@@ -188,13 +222,15 @@ def stats(xs, out, table=None):
     if xs[0].device.type == "cpu":
         return stats_plain(xs, out)
     _check_contig_f32(out, "out", xs[0].device)
+    f32 = _is_f32(xs)
     table = _table_of(xs, table)
     part = _partials(m, 2, ctot, device=out.device)
     code = build.lib().cunet_tb_stats(table.data_ptr(), len(xs), m, ctot,
                                       row_chunk(m), part.data_ptr(),
-                                      _stream(out))
+                                      int(f32), _stream(out))
     build.check(code, "train_bottleneck.stats")
     stats.launches += 1
+    stats.f32_launches += f32
     return sum_rows(part, out)
 
 
@@ -238,6 +274,14 @@ def apply(xs, vec, w, out, table=None):
     the ``mma.sync`` products and the epilogue are ``affine_dot``'s, so the
     result is ``affine_dot`` over ``torch.cat(xs, 1)`` bit for bit. Counted
     here, not in ``buf_ops.affine_dot.launches``.
+
+    Float32 features, ``w`` and ``out``: the float32 product kernel of
+    ``csrc/f32_kernels.cu`` with the features as its feature table (at
+    most ``F32_GROUPS``; ``table`` is not read), the prologue unrounded,
+    six bf16 plane products a k16 step: ``affine_dot``'s float32 form over
+    ``torch.cat(xs, 1)`` bit for bit. Bound at K=320 -> 128, M=98,304 by
+    its float32 bytes (176 MB: 52.6 us); its six bf16 passes take 48.8 us,
+    the same product as float32 FMA 120 us.
     """
     m = xs[0].shape[0]
     _check_rows(xs, m)
@@ -250,12 +294,16 @@ def apply(xs, vec, w, out, table=None):
                          f"{tuple(out.shape)}")
     if xs[0].device.type == "cpu":
         return apply_plain(xs, vec, w, out)
-    _check_view(w, "w")
-    _check_view(out, "out")
+    f32 = _is_f32(xs)
+    dt = xs[0].dtype
+    _check_view(w, "w", (dt,))
+    _check_view(out, "out", (dt,))
     if not w.is_contiguous():
         raise ValueError("w must be contiguous")
     _check_contig_f32(vec, "vec", out.device)
     _check_row_count(m)
+    if f32:
+        return _apply_f32(xs, vec, w, out)
     table = _table_of(xs, table)
     p = affine_dot_plan(m, ctot, n)
     smem = apply_smem(p)
@@ -269,6 +317,21 @@ def apply(xs, vec, w, out, table=None):
         p.stage_bytes, p.out_off, smem, _stream(out))
     build.check(code, "train_bottleneck.apply")
     apply.launches += 1
+    return out
+
+
+def _apply_f32(xs, vec, w, out):
+    """``apply``'s float32 form: the float32 product over the feature
+    groups ``xs`` (checked by ``apply``)."""
+    if len(xs) > F32_GROUPS:
+        raise ValueError(f"apply at float32 takes at most {F32_GROUPS} "
+                         f"feature groups, got {len(xs)}")
+    for k, x in enumerate(xs):
+        _check_view(x, f"features[{k}]", (F32,))
+    code = launch_dot3(list(xs), xs[0].shape[0], vec, w, out)
+    build.check(code, "train_bottleneck.apply (float32)")
+    apply.launches += 1
+    apply.f32_launches += 1
     return out
 
 
@@ -308,7 +371,8 @@ class ReducePlan:
     shared memory: the three W planes at 0, the columns' BN constants at
     ``stat_off``, ``stages`` x / g buffers of ``stage_bytes`` from
     ``stage_off`` (g at ``g_off`` within one), r's three planes at
-    ``pl_off``, the gated x_hat at ``xh_off``; ``smem`` bytes in all."""
+    ``pl_off``, the gated x_hat at ``xh_off``, for a float32 g its three
+    planes at ``gp_off`` (0 at bf16); ``smem`` bytes in all."""
     chunk: int
     chunks: int
     col_blocks: int
@@ -320,45 +384,56 @@ class ReducePlan:
     g_off: int
     pl_off: int
     xh_off: int
+    gp_off: int
     smem: int
 
     def rows(self, s: int, m: int) -> range:
         return range(s * self.chunk, min(m, (s + 1) * self.chunk))
 
 
-def reduce_plan(m: int, ctot: int, n: int) -> ReducePlan:
+@functools.lru_cache(maxsize=None)
+def reduce_plan(m: int, ctot: int, n: int, f32: bool = False) -> ReducePlan:
     """The kernel plan of ``bwd_reduce`` at these shapes (a function of them
-    alone): chunks of whole steps, as many as give ``REDUCE_BLOCKS`` blocks
+    alone; cached): chunks of whole steps, as many as give
+    ``REDUCE_BLOCKS`` blocks (``REDUCE_BLOCKS_F32`` for float32 features)
     with the column blocks; two x / g stages where they fit in
     ``SMEM_LIMIT``, else one (more stages measured no faster). Outputs up
-    to 256 wide."""
+    to 256 wide. With ``f32`` the stages hold float32 x and g rows (16
+    bytes of padding a row, as at bf16) and g's three bf16 planes follow
+    the gated x_hat."""
     np_ = _up(n, 16)
     if np_ > 256:
         raise ValueError(f"bwd_reduce takes at most 256 outputs, got {n}")
     col_blocks = -(-ctot // REDUCE_COLS)
-    want = max(1, REDUCE_BLOCKS // col_blocks)
+    want = max(1, (REDUCE_BLOCKS_F32 if f32 else REDUCE_BLOCKS) // col_blocks)
     chunk = _up(-(-m // want), REDUCE_ROWS)
+    e = 4 if f32 else 2                       # bytes of a staged element
     gs = (np_ + 8) * 2                        # bytes of a g / W-plane row
-    xs = (REDUCE_COLS + 8) * 2                # bytes of an x / r-plane row
+    xs = (REDUCE_COLS + 8) * 2                # bytes of an r-plane row
     stat_off = 3 * REDUCE_COLS * gs
     stage_off = stat_off + 4 * REDUCE_COLS * 4
-    g_off = REDUCE_ROWS * xs
-    stage_bytes = _up(g_off + REDUCE_ROWS * gs, 128)
+    g_off = REDUCE_ROWS * (REDUCE_COLS * e + 16)
+    stage_bytes = _up(g_off + REDUCE_ROWS * (np_ * e + 16), 128)
     for stages in (2, 1):
         pl_off = stage_off + stages * stage_bytes
         xh_off = pl_off + 3 * REDUCE_ROWS * xs
         smem = xh_off + REDUCE_ROWS * (REDUCE_COLS + 8) * 4
+        gp_off = smem if f32 else 0
+        smem += 3 * REDUCE_ROWS * gs if f32 else 0
         if smem <= SMEM_LIMIT:
             return ReducePlan(chunk=chunk, chunks=-(-m // chunk),
                               col_blocks=col_blocks, np=np_, stages=stages,
                               stat_off=stat_off, stage_off=stage_off,
                               stage_bytes=stage_bytes, g_off=g_off,
-                              pl_off=pl_off, xh_off=xh_off, smem=smem)
+                              pl_off=pl_off, xh_off=xh_off, gp_off=gp_off,
+                              smem=smem)
     raise ValueError(f"bwd_reduce: {n} outputs do not fit {SMEM_LIMIT} "
                      f"bytes of shared memory")
 
 
 def _check_bwd(xs, g, stat, bias, w, m, ctot):
+    """The backward's shapes; on the card its operands, and whether the
+    features (and ``g``, in their dtype) are float32."""
     n = g.shape[1]
     if tuple(g.shape) != (m, n) or tuple(w.shape) != (ctot, n) \
             or tuple(stat.shape) != (3, ctot) or tuple(bias.shape) != (ctot,):
@@ -366,11 +441,13 @@ def _check_bwd(xs, g, stat, bias, w, m, ctot):
                          f"w {tuple(w.shape)}, stat {tuple(stat.shape)}, bias "
                          f"{tuple(bias.shape)}")
     if g.device.type == "cpu":
-        return
+        return False
     dev = g.device
-    _check_view(g, "g")
+    f32 = _is_f32(xs)
+    _check_view(g, "g", (xs[0].dtype,))
     for t, name in ((stat, "stat"), (bias, "bias"), (w, "w")):
         _check_contig_f32(t, name, dev)
+    return f32
 
 
 def bwd_reduce(xs, g, stat, bias, w, dw, sums, table=None):
@@ -387,7 +464,7 @@ def bwd_reduce(xs, g, stat, bias, w, dw, sums, table=None):
     of block per (row chunk, 64 concat columns), two blocks an SM; both
     products on the tensor cores (mma.sync, f32 sums), float32-exact
     through the exact split of their float32 operand (relu(y) for dW, W
-    for g W^T; g is bf16 already) into three bf16 pieces, so they agree
+    for g W^T; a bf16 g needs none) into three bf16 pieces, so they agree
     with float32 FMA to float32 rounding. The block splits its W rows once
     into shared memory; stages each 32-row step's x vectors (through the
     feature table) and g rows by cp.async, the next step loading during
@@ -401,11 +478,19 @@ def bwd_reduce(xs, g, stat, bias, w, dw, sums, table=None):
     26 us). Measured there on an H100 80GB HBM3 at 700 W (PERF.md section
     6, PR 9): 209 us with its ``sum_rows`` (the SIMT kernel before it:
     800), 12.6 us at r=4.
+
+    Float32 features and g: g is split too, once a step, into three bf16
+    planes in shared memory (both products read it, so one split serves
+    both; splitting it in registers at each use would split every element
+    once per warp that reads it), and each product is six plane products,
+    twelve passes in all (96.6 GFLOP: 97.7 us at 989 TFLOP/s; the float32
+    bytes, 176 MB, take 52.6 us). The staged float32 x and g and g's planes
+    take 150 KB at N = 128: one block an SM (``REDUCE_BLOCKS_F32``).
     """
     m = xs[0].shape[0]
     _check_rows(xs, m)
     ctot = _widths(xs)[1]
-    _check_bwd(xs, g, stat, bias, w, m, ctot)
+    f32 = _check_bwd(xs, g, stat, bias, w, m, ctot)
     n = g.shape[1]
     if tuple(dw.shape) != (ctot, n) or tuple(sums.shape) != (2, ctot):
         raise ValueError(f"bwd_reduce outputs: dw {tuple(dw.shape)}, sums "
@@ -415,7 +500,7 @@ def bwd_reduce(xs, g, stat, bias, w, dw, sums, table=None):
     _check_contig_f32(dw, "dw", g.device)
     _check_contig_f32(sums, "sums", g.device)
     table = _table_of(xs, table)
-    p = reduce_plan(m, ctot, n)
+    p = reduce_plan(m, ctot, n, f32)
     dw_part = torch.empty(p.chunks, ctot, n, device=g.device,
                           dtype=torch.float32)
     sums_part = torch.empty(p.chunks, 2, ctot, device=g.device,
@@ -424,10 +509,11 @@ def bwd_reduce(xs, g, stat, bias, w, dw, sums, table=None):
         table.data_ptr(), len(xs), m, ctot, g.data_ptr(), g.stride(0), n,
         stat.data_ptr(), bias.data_ptr(), w.data_ptr(), p.chunk, p.np,
         p.stages, p.stat_off, p.stage_off, p.stage_bytes, p.g_off, p.pl_off,
-        p.xh_off, p.smem, dw_part.data_ptr(), sums_part.data_ptr(),
-        _stream(g))
+        p.xh_off, p.gp_off, p.smem, dw_part.data_ptr(), sums_part.data_ptr(),
+        int(f32), _stream(g))
     build.check(code, "train_bottleneck.bwd_reduce")
     bwd_reduce.launches += 1
+    bwd_reduce.f32_launches += f32
     sum_rows(dw_part, dw)
     sum_rows(sums_part, sums)
     return dw, sums
@@ -454,14 +540,16 @@ class DxPlan:
     b // ngrp, + grid // ngrp, ...; the outputs (the product's depth)
     zero-padded to ``np``; shared memory: the group's three W planes at 0,
     its x then dx table chunks at ``tbl_off``, two x / g stages of
-    ``stage_bytes`` from ``stage_off`` (g at ``g_off`` within one);
-    ``smem`` bytes in all."""
+    ``stage_bytes`` from ``stage_off`` (g at ``g_off`` within one), for a
+    float32 g its three planes at ``gp_off`` (0 at bf16); ``smem`` bytes
+    in all."""
     ngrp: int
     np: int
     tbl_off: int
     stage_off: int
     stage_bytes: int
     g_off: int
+    gp_off: int
     smem: int
 
     def steps(self, m: int) -> int:
@@ -472,26 +560,31 @@ class DxPlan:
 
 
 @functools.lru_cache(maxsize=None)
-def dx_plan(m: int, ctot: int, n: int) -> DxPlan:
+def dx_plan(m: int, ctot: int, n: int, f32: bool = False) -> DxPlan:
     """The kernel plan of ``bwd_dx`` at these shapes (a function of them
     alone; cached): 64-column groups, 64-row steps, two stages. Outputs up
     to 256 wide; at N <= 128 a block fits in ``buf_ops.SMEM_PAIR`` and two
-    share an SM."""
+    share an SM. With ``f32`` the stages hold float32 x and g rows (16
+    bytes of padding a row, as at bf16) and g's three bf16 planes follow
+    them (207 KB at N = 128: one block an SM)."""
     np_ = _up(n, 16)
     if np_ > 256:
         raise ValueError(f"bwd_dx takes at most 256 outputs, got {n}")
+    e = 4 if f32 else 2                       # bytes of a staged element
     gs = (np_ + 8) * 2                        # bytes of a g / W-plane row
     tbl_off = 3 * DX_COLS * gs
     stage_off = _up(tbl_off + 2 * (DX_COLS // 8) * CHUNK_BYTES, 128)
-    g_off = _up(DX_ROWS * (DX_COLS + 8) * 2, 128)
-    stage_bytes = _up(g_off + DX_ROWS * gs, 128)
+    g_off = _up(DX_ROWS * (DX_COLS * e + 16), 128)
+    stage_bytes = _up(g_off + DX_ROWS * (np_ * e + 16), 128)
     smem = stage_off + 2 * stage_bytes
+    gp_off = smem if f32 else 0
+    smem += 3 * DX_ROWS * gs if f32 else 0
     if smem > SMEM_LIMIT:
         raise ValueError(f"bwd_dx: {n} outputs do not fit {SMEM_LIMIT} "
                          f"bytes of shared memory")
     return DxPlan(ngrp=-(-ctot // DX_COLS), np=np_, tbl_off=tbl_off,
                   stage_off=stage_off, stage_bytes=stage_bytes, g_off=g_off,
-                  smem=smem)
+                  gp_off=gp_off, smem=smem)
 
 
 def bwd_dx(xs, g, stat, bias, red, w, dxs, table=None):
@@ -515,11 +608,17 @@ def bwd_dx(xs, g, stat, bias, red, w, dxs, table=None):
     order (so the gate takes the bits ``bwd_reduce`` summed); the
     recompute, gate and BN jacobian on the accumulators, each dx rounded
     in shared memory and written as 16-byte rows into its group's tensor.
+
+    Float32 features, g and dx: g split once a step into three bf16 planes
+    in shared memory (as ``bwd_reduce`` splits it) and g W^T six plane
+    products in ``bwd_reduce``'s float32 order; x staged and dx written as
+    float32 rows. Bound by its float32 bytes (302 MB: 90.1 us); its six
+    bf16 passes take 48.8 us, float32 FMA 120 us.
     """
     m = xs[0].shape[0]
     _check_rows(xs, m)
     ctot = _widths(xs)[1]
-    _check_bwd(xs, g, stat, bias, w, m, ctot)
+    f32 = _check_bwd(xs, g, stat, bias, w, m, ctot)
     if tuple(red.shape) != (2, ctot) or len(dxs) != len(xs) \
             or any(tuple(d.shape) != tuple(x.shape) for d, x in zip(dxs, xs)):
         raise ValueError(f"bwd_dx shapes: red {tuple(red.shape)}, dx "
@@ -531,14 +630,15 @@ def bwd_dx(xs, g, stat, bias, red, w, dxs, table=None):
     table = feature_table(xs, dxs) if table is None \
         else _table_of(xs, table)
     n = g.shape[1]
-    p = dx_plan(m, ctot, n)
+    p = dx_plan(m, ctot, n, f32)
     code = build.lib().cunet_tb_bwd_dx(
         table.data_ptr(), len(xs), m, ctot, g.data_ptr(), g.stride(0), n,
         stat.data_ptr(), bias.data_ptr(), red.data_ptr(), w.data_ptr(),
-        p.ngrp, p.np, p.tbl_off, p.stage_off, p.stage_bytes, p.g_off, p.smem,
-        _stream(g))
+        p.ngrp, p.np, p.tbl_off, p.stage_off, p.stage_bytes, p.g_off,
+        p.gp_off, p.smem, int(f32), _stream(g))
     build.check(code, "train_bottleneck.bwd_dx")
     bwd_dx.launches += 1
+    bwd_dx.f32_launches += f32
     return dxs
 
 
@@ -555,6 +655,12 @@ def launch_counts() -> dict:
     return {k.__name__: k.launches for k in KERNELS}
 
 
+def f32_counts() -> dict:
+    return count_f32(KERNELS)
+
+
+for _k in KERNELS:
+    _k.f32_launches = 0
 reset_launch_counts()
 
 

@@ -64,12 +64,15 @@ exist to cut XLA compile time; here every slot runs in a plain loop, and
 ``use_scan`` only chooses the kernels, as it does in JAX.
 
 The hand-written kernels take bfloat16 on every path and float32
-(``compute_dtype="float32"``, JAX's default) on the float eval paths:
-the whole-model, per-slot, per-block and per-bottleneck kernels have
-float32 forms whose products are float32-accurate. ``use_pallas`` on a
-CUDA device with float32 in training or in a quantized eval, or with any
-other dtype, raises (:func:`check_kernel_dtype`); on the CPU the kernels'
-plain versions run in any dtype.
+(``compute_dtype="float32"``, JAX's default) on the float eval paths and
+in whole-batch BN training (``bn_tile=0``): the whole-model, per-slot,
+per-block and per-bottleneck eval kernels, the per-bottleneck train
+kernel #7 and the dropout-mask kernel have float32 forms whose products
+are float32-accurate. ``use_pallas`` on a CUDA device with float32 in
+ghost-BN training (``bn_tile > 0``: the slot kernels #8/#9) or in a
+quantized eval, or with any other dtype, raises
+(:func:`check_kernel_dtype`); on the CPU the kernels' plain versions run
+in any dtype.
 ``conv3x3_impl="scatter"`` runs every dense layer's 3x3 conv as JAX's
 scatter form (:func:`cunet_tpu_torch.ops.layers.conv3x3_scatter`).
 
@@ -719,28 +722,52 @@ def eval_path(cfg: ModelConfig, quant=None) -> str:
     return "layers"
 
 
+def bn0_feature_groups(cfg: ModelConfig) -> int:
+    """The most feature groups a bottleneck or adapter reads in training:
+    an up block's adapter, over its input, its skip, ``order`` FIFO
+    entries and the layer's output."""
+    return cfg.order + 3
+
+
 def check_kernel_dtype(cfg: ModelConfig, device, *, train: bool = False,
                        quant=None) -> None:
     """Raise ``NotImplementedError`` where ``cfg`` would run a CUDA kernel
     path (``use_pallas`` on a CUDA ``device``) in a dtype its kernels do not
     take. bfloat16 runs every path. float32 runs the float eval paths (the
     whole-model, per-slot, per-block and per-bottleneck kernels have
-    float32 forms); float32 training and a quantized float32 eval (an
-    enabled ``quant``: its int8 kernels take bf16 activations) do not yet
-    (ROADMAP queue B item 4). Any other dtype raises. On the CPU the
-    kernels' plain versions run in any dtype."""
+    float32 forms) and whole-batch BN training (``bn_tile=0``: #7 and the
+    mask kernel have float32 forms; quantized training too, its quantizer
+    being plain PyTorch there); ghost-BN training (``bn_tile > 0``, the
+    slot kernels #8/#9) and a quantized float32 eval (an enabled
+    ``quant``: its int8 kernels take bf16 activations) do not yet (ROADMAP
+    queue B item 4). float32 whole-batch BN training with more than #7's
+    ``F32_GROUPS`` feature groups at a bottleneck (``order`` above 13)
+    raises too. Any other dtype raises. On the CPU the kernels' plain
+    versions run in any dtype."""
     if not cfg.use_pallas or torch.device(device).type != "cuda" \
             or cfg.compute_dtype == "bfloat16":
         return
+    if cfg.compute_dtype == "float32" and train and cfg.bn_tile == 0:
+        from cunet_tpu_torch.kernels.train_bottleneck import F32_GROUPS
+
+        if bn0_feature_groups(cfg) > F32_GROUPS:
+            raise NotImplementedError(
+                f"order {cfg.order} gives #7 up to {bn0_feature_groups(cfg)} "
+                f"feature groups; its float32 apply takes at most "
+                f"{F32_GROUPS}: use_pallas on {device} at float32 needs "
+                f"order <= {F32_GROUPS - 3} (use_pallas=False runs it on the "
+                f"plain path)")
+        return
     if cfg.compute_dtype == "float32" and not train and _active(quant) is None:
         return
-    what = ("training" if train else "quantized eval"
+    what = ("ghost-BN training (bn_tile > 0)" if train else "quantized eval"
             if cfg.compute_dtype == "float32" else "any path")
     raise NotImplementedError(
         f"the CUDA kernels take {cfg.compute_dtype!r} nowhere for {what}: "
         f"use_pallas on {device} needs compute_dtype='bfloat16' there (the "
-        f"float32 forms cover the float eval only; the float32 train and "
-        f"quantized forms are ROADMAP queue B item 4; use_pallas=False runs "
+        f"float32 forms cover the float eval and bn_tile=0 training; the "
+        f"float32 forms of the slot train kernels #8/#9 and of the "
+        f"quantized eval are ROADMAP queue B item 4; use_pallas=False runs "
         f"it on the plain path)")
 
 
@@ -931,7 +958,7 @@ def apply_cu_net(params, state, x: torch.Tensor, *, cfg: ModelConfig,
 
     Raises ``NotImplementedError`` for ``use_pallas`` on a CUDA tensor in
     a dtype its kernels do not take: bfloat16 runs every path, float32 the
-    float eval only (:func:`check_kernel_dtype`).
+    float eval and whole-batch BN training (:func:`check_kernel_dtype`).
     """
     quant = _active(quant)
     check_kernel_dtype(cfg, x.device, train=train, quant=quant)

@@ -20,6 +20,38 @@ BN_EPS = 1e-5
 BN_MOMENTUM = 0.1
 
 
+def _no_tf32():
+    """cuDNN's flags as they are, with TF32 off."""
+    cudnn = torch.backends.cudnn
+    return cudnn.flags(enabled=True, benchmark=cudnn.benchmark,
+                       deterministic=cudnn.deterministic, allow_tf32=False)
+
+
+class _Conv2dF32(torch.autograd.Function):
+    """A float32 NCHW conv on the card whose forward and backward both run
+    with cuDNN's TF32 off. Autograd runs a conv's backward after the
+    forward's context has closed, under the global flag (True by default),
+    so a context around ``F.conv2d`` alone leaves dX and dW in TF32."""
+
+    @staticmethod
+    def forward(ctx, xt, wt, stride, padding):
+        ctx.save_for_backward(xt, wt)
+        ctx.conf = (stride, padding)
+        with _no_tf32():
+            return F.conv2d(xt, wt, stride=stride, padding=padding)
+
+    @staticmethod
+    def backward(ctx, gy):
+        xt, wt = ctx.saved_tensors
+        stride, padding = ctx.conf
+        with _no_tf32():
+            dx, dw, _ = torch.ops.aten.convolution_backward(
+                gy, xt, wt, None, [stride] * 2, [padding] * 2, [1, 1],
+                False, [0, 0], 1,
+                [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+        return dx, dw, None, None
+
+
 def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
            padding: int = 0) -> torch.Tensor:
     """2-D convolution, NHWC input, HWIO weight, NHWC output.
@@ -28,16 +60,12 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, *, stride: int = 1,
     so the library runs its NHWC kernels without a layout copy. Only the
     stem reaches this on the kernel path (the JAX package also runs the stem
     outside its Pallas program). A float32 conv runs in full float32 on
-    the card whatever ``torch.backends.cudnn.allow_tf32`` says (TF32, its
-    default, would move it by ~1e-3 relative, where JAX's float32 conv
-    moves by ~1e-7)."""
+    the card, forward and backward, whatever
+    ``torch.backends.cudnn.allow_tf32`` says (TF32, its default, would move
+    it by ~1e-3 relative, where JAX's float32 conv moves by ~1e-7)."""
     xt, wt = x.permute(0, 3, 1, 2), w.to(x.dtype).permute(3, 2, 0, 1)
     if x.dtype == torch.float32 and x.is_cuda:
-        cudnn = torch.backends.cudnn   # its other flags kept as they are
-        with cudnn.flags(enabled=True, benchmark=cudnn.benchmark,
-                         deterministic=cudnn.deterministic,
-                         allow_tf32=False):
-            y = F.conv2d(xt, wt, stride=stride, padding=padding)
+        y = _Conv2dF32.apply(xt, wt, stride, padding)
     else:
         y = F.conv2d(xt, wt, stride=stride, padding=padding)
     return y.permute(0, 2, 3, 1)

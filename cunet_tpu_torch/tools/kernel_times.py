@@ -17,11 +17,16 @@ per tile, ``affine_dx``, ``conv3x3`` per tile and ``conv3x3_dx`` /
 ``torch.mm``, and their planted faults), phase 8's option
 kernels (``conv3x3[bits_i]``, ``conv3x3_dw[bits_i]`` and
 ``conv3x3_dx[ste]`` at every resolution), phase 9's kernels of #7
-(``bwd_reduce`` at every resolution), phase 10 (``table_dot``'s forms) and
-phase 11 (a) (``[up]``, ``[pool]``, ``[scale]``; a checkout needs them)
-and, where the checkout has them, phase 12 (a) (the float32 forms):
-each case against its plain version, timed by CUDA-graph replay beside its
-library call (or ``torch.mm`` of its product alone) and bound. Then the
+(``bwd_reduce`` at every resolution) and phase 7's mask kernel
+(``drop_mask``), phase 10 (``table_dot``'s forms) and phase 11 (a)
+(``[up]``, ``[pool]``, ``[scale]``; a checkout needs them) and, where the
+checkout has them, phase 12 (a) (the float32 eval forms) and phase 13 (a)
+(the float32 forms of #7 and of the mask kernel): each case against its
+plain version, timed by CUDA-graph replay beside its library call (or
+``torch.mm`` of its product alone) and bound. It also prints a digest of
+the bf16 outputs of #7's four kernels and of ``drop_mask`` on fixed
+operands (phase 9's at r=64 and r=4, seeded): two checkouts whose digests
+agree give those outputs bit for bit. Then the
 forward of CU-Net-8 @256 at batch 8 and 64, three wall-clock times each:
 the per-slot path (JAX's default flags) and the whole-model path
 (``pallas_whole_model``, the main path's serving forward), at bf16 and,
@@ -55,6 +60,37 @@ def _smoke():
     return mod
 
 
+def bf16_digests(torch, cs, tbk, dops) -> dict:
+    """sha256 (16 hex digits) of the bf16 outputs of #7's four kernels at
+    phase 9's operands of r=64 and r=4 (seed 9) and of ``drop_mask``
+    (forward in place, backward into bf16) at r=64, batch 24, tile 2."""
+    import hashlib
+
+    def digest(ts):
+        h = hashlib.sha256()
+        for t in ts:
+            h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy()
+                     .tobytes())
+        return h.hexdigest()[:16]
+
+    gen = torch.Generator().manual_seed(9)
+    out = {}
+    for r in (64, 4):
+        o = cs.tb_operands(torch, gen, r)
+        for name, call, *_ in cs.tb_cases(torch, o):
+            out[f"{name} r={r}"] = digest(call(getattr(tbk, name)))
+    m, g, tile = cs.TRAIN_BATCH * 64 * 64, 32, cs.BN_TILE * 64 * 64
+    y = torch.randn(m, g, generator=gen).to("cuda", torch.bfloat16)
+    d = torch.randn(m, g, generator=gen).cuda()
+    fwd = dops.drop_mask(y.clone(), -31, 1, cs.DROP_RATE, tile)
+    bwd = dops.drop_mask(d, -31, 1, cs.DROP_RATE, tile,
+                         torch.empty(m, g, device="cuda",
+                                     dtype=torch.bfloat16))
+    out["drop_mask"] = digest([fwd, bwd])
+    torch.cuda.synchronize()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", type=Path, default=HERE)
@@ -68,8 +104,8 @@ def main(argv=None) -> int:
     import torch
 
     from cunet_tpu_torch import ModelConfig
-    from cunet_tpu_torch.kernels import buf_ops, build, eval_ops, train_ops
-    from cunet_tpu_torch.kernels import train_bottleneck
+    from cunet_tpu_torch.kernels import buf_ops, build, drop_ops, eval_ops
+    from cunet_tpu_torch.kernels import train_bottleneck, train_ops
     from cunet_tpu_torch.models import init_cu_net
     from cunet_tpu_torch.serving import Predictor
 
@@ -89,6 +125,10 @@ def main(argv=None) -> int:
     cs.phase_train_kernels(torch, train_ops, buf_ops)
     cs.phase_option_kernels(torch, train_ops, buf_ops)
     cs.phase_bn0_kernels(torch, train_bottleneck)
+    cs.drop_mask_checks(torch, drop_ops, {})
+    print(f"bf16 output digests: "
+          f"{bf16_digests(torch, cs, train_bottleneck, drop_ops)}",
+          flush=True)
     cs.phase_eval_kernels(torch, eval_ops)
     cs.phase_block_kernels(torch, buf_ops, eval_ops)
     # the float32 forms, where the checkout has them
@@ -96,6 +136,8 @@ def main(argv=None) -> int:
     if hasattr(buf_ops, "dot3_plan"):
         cs.phase_f32_kernels(torch, buf_ops, eval_ops)
         dtypes.append("float32")
+    if hasattr(train_bottleneck, "f32_counts"):
+        cs.phase_bn0_f32_kernels(torch, train_bottleneck, drop_ops)
     for dtype in dtypes:
         cfg = ModelConfig(layer_num=8, order=1, class_num=16, loss_num=8,
                           compute_dtype=dtype, use_pallas=True)

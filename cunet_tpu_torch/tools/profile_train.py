@@ -1,7 +1,7 @@
 """Device-time breakdown of the CU-Net-8 @256 train step on one GPU.
 
     python -m cunet_tpu_torch.tools.profile_train [--plain] [--drop RATE]
-        [--quant] [--bn_tile T] [--out profile_train.json]
+        [--quant] [--bn_tile T] [--dtype float32] [--out profile_train.json]
 
 The train step (kernel path, or the plain path with ``--plain``; bf16,
 ghost-BN tile 2, ``bn_dtype="compute"``, RMSprop) from the port's init
@@ -11,7 +11,9 @@ dense-layer dropout (seeds from a generator, one set per step);
 ``--quant`` runs ``quant_train_step`` with ``QuantConfig(bits_w=1,
 bits_i=8, bits_g=8, enabled=True)``; ``--bn_tile 0`` trains with
 whole-batch BN statistics (the kernel path then runs every bottleneck and
-adapter on the per-bottleneck train kernel). Prints the host wall time per
+adapter on the per-bottleneck train kernel); ``--dtype float32`` trains at
+``compute_dtype="float32"`` (``bn_dtype`` float32; on the kernel path with
+``--bn_tile 0`` only, #7's float32 forms). Prints the host wall time per
 step, the device time by category (the hand-written kernels, cuDNN and
 cuBLAS, the optimizer's fused update, the rest of torch), by kernel name
 and by function (a template's instances summed), launches per step and
@@ -93,12 +95,18 @@ def main(argv=None) -> int:
                     help="W1/I8/G8 quantized training")
     ap.add_argument("--bn_tile", type=int, default=FLAGSHIP.bn_tile,
                     help="ghost-BN tile in images; 0 = whole-batch BN")
+    ap.add_argument("--dtype", default=FLAGSHIP.compute_dtype,
+                    choices=("bfloat16", "float32"),
+                    help="compute dtype (float32: bn_dtype float32 too)")
     ap.add_argument("--out", default="")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: no CUDA device")
     cfg = dataclasses.replace(FLAGSHIP, use_pallas=not args.plain,
-                              drop_rate=args.drop, bn_tile=args.bn_tile)
+                              drop_rate=args.drop, bn_tile=args.bn_tile,
+                              compute_dtype=args.dtype)
+    if args.dtype == "float32":
+        cfg = dataclasses.replace(cfg, bn_dtype="float32")
     gpu = gpu_name()
     params, state = init_cu_net(cfg, torch.Generator().manual_seed(0))
     rng = np.random.RandomState(0)
@@ -118,9 +126,11 @@ def main(argv=None) -> int:
             return train_step(st, batch, cfg=cfg, generator=gen)
     path = "plain" if args.plain else "kernel"
     variant = (["drop"] if args.drop else []) + (
-        ["quant"] if args.quant else []) + [f"bn_tile {args.bn_tile}"]
+        ["quant"] if args.quant else []) + [f"bn_tile {args.bn_tile}",
+                                             args.dtype]
     r = dict(batch=BATCH, path=path, drop=args.drop, quant=args.quant,
-             bn_tile=args.bn_tile, **profile_window(step, ITERS))
+             bn_tile=args.bn_tile, dtype=args.dtype,
+             **profile_window(step, ITERS))
     print_report(f"train step {path} path{''.join(' +' + v for v in variant)}"
                  f", batch {BATCH} ({gpu})", r, top=20)
     print_categories(r)

@@ -11,7 +11,11 @@ per bottleneck (#6), per block (#5, with the upsample and the pool
 folded into the product), and the value-carried whole-model evals (#3,
 #2); the float32 forms of the eval kernels (every form against its plain
 version at float32 within the float32 n-term bound and bit for bit under
-one-hot weights, the conv's split K, the eval paths at float32). Skips
+one-hot weights, the conv's split K, the eval paths at float32); the
+float32 forms of #7 and of the mask kernel (against their plain versions
+at r=64 and r=4, bit for bit under one-hot operands, the Function's
+gradients), the float32 conv's backward with TF32 on globally, and the
+float32 bn_tile=0 step. Skips
 without a CUDA device. Imports no JAX, so it runs on a machine without
 it:
 
@@ -1124,8 +1128,14 @@ def test_bwd_dx_is_exact_under_one_hot_cotangents(gen, m, widths, cout):
 def test_train_bottleneck_wrappers_raise(gen):
     feats, vec, _, _, w, _ = _tb_operands(gen, 64, [16, 8], 8)
     out = torch.empty(64, 8, device="cuda", dtype=torch.bfloat16)
-    with pytest.raises(TypeError):           # float32 features
+    with pytest.raises(TypeError):           # float32 features, bf16 w
         tbk.apply([f.float() for f in feats], vec, w.bfloat16(), out)
+    with pytest.raises(TypeError):           # bf16 and float32 features
+        tbk.stats([feats[0], feats[1].float()],
+                  torch.empty(2, 24, device="cuda"))
+    with pytest.raises(TypeError):           # float16 features
+        tbk.stats([f.half() for f in feats],
+                  torch.empty(2, 24, device="cuda"))
     with pytest.raises(ValueError):          # a width not a multiple of 8
         tbk.stats([feats[0][:, :12]], torch.empty(2, 12, device="cuda"))
     with pytest.raises(ValueError):          # rows differ
@@ -1486,16 +1496,19 @@ def test_face_head_on_every_kernel_path(gen):
 
 
 def test_f32_kernel_path_raises(gen):
-    """float32 runs the float eval kernel paths; float32 training and the
-    quantized float32 eval raise (ROADMAP queue B item 4)."""
+    """float32 runs the float eval kernel paths and bn_tile=0 training;
+    float32 ghost-BN training and the quantized float32 eval raise
+    (ROADMAP queue B item 4)."""
     cfg = ModelConfig(layer_num=2, order=1, loss_num=2, class_num=8,
                       **{**SMALL, "compute_dtype": "float32"})
     params, state = init_cu_net(cfg, gen, device="cuda")
     x = torch.rand(1, 64, 64, 3, generator=gen).cuda()
-    for c in (dataclasses.replace(cfg, bn_tile=1),
-              dataclasses.replace(cfg, bn_tile=0)):
-        with pytest.raises(NotImplementedError, match="queue B item 4"):
-            apply_cu_net(params, state, x, cfg=c, train=True)
+    with pytest.raises(NotImplementedError, match="queue B item 4"):
+        apply_cu_net(params, state, x, cfg=dataclasses.replace(
+            cfg, bn_tile=1), train=True)
+    outs, _ = apply_cu_net(params, state, x, train=True,
+                           cfg=dataclasses.replace(cfg, bn_tile=0))
+    assert outs[-1].dtype == torch.float32
     qp = quant_eval_params(params, INT8)
     for c in (cfg, dataclasses.replace(cfg, pallas_whole_model=True)):
         with pytest.raises(NotImplementedError, match="bfloat16"):
@@ -1999,3 +2012,269 @@ def test_f32_eval_paths_match_plain_and_each_other(gen, order):
         assert a.dtype == torch.float32 and torch.equal(a, b)
         for t in (a, c, d):
             assert _rel(t, p) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# float32 whole-batch BN training: #7's and the mask kernel's float32 forms,
+# the float32 conv's backward, the bn_tile=0 step at float32
+# ---------------------------------------------------------------------------
+
+
+def _tb_f32(gen, m, widths, cout):
+    """``_tb_operands`` at float32 (the features off the bf16 grid):
+    features, vectors, statistics, a float32 cotangent."""
+    feats, _, stat, bias, w, g = _tb_operands(gen, m, widths, cout)
+    feats = [f.float() + 0.01 * _f32(gen, *f.shape) for f in feats]
+    if len(feats) > 1:                       # a strided view again
+        feats[1] = torch.cat([feats[1], feats[1][:, :8]], 1)[:, :widths[1]]
+    sums = tbk.stats_plain(feats, torch.empty(2, sum(widths), device="cuda"))
+    mean = sums[0] / m
+    inv_sigma = torch.rsqrt(sums[1] / m - mean * mean + 1e-5)
+    scale = stat[2]
+    vec = torch.stack([inv_sigma * scale, bias - mean * inv_sigma * scale])
+    stat = torch.stack([mean, inv_sigma, scale])
+    return feats, vec, stat, bias, w, g.float() + 0.01 * _f32(gen, m, cout)
+
+
+def _tb_f32_outputs(fns, feats, vec, stat, bias, w, g):
+    """stats, apply, bwd_reduce's (dw, sums) and bwd_dx's dx of the
+    functions ``fns`` (the kernels or the plain versions) at float32."""
+    m, ctot, cout = feats[0].shape[0], w.shape[0], w.shape[1]
+    st = fns[0](feats, torch.empty(2, ctot, device="cuda"))
+    out = fns[1](feats, vec, w, torch.empty(m, cout, device="cuda"))
+    dw, sums = fns[2](feats, g, stat, bias, w,
+                      torch.empty(ctot, cout, device="cuda"),
+                      torch.empty(2, ctot, device="cuda"))
+    dxs = [torch.empty(m, f.shape[1], device="cuda") for f in feats]
+    fns[3](feats, g, stat, bias, sums / m, w, dxs)
+    torch.cuda.synchronize()
+    return st, out, dw, sums, dxs
+
+
+TB_F32_CASES = [(98304, [128, 128, 32, 32], 128),
+                (384, [128, 128, 32, 32], 128), (1000, [16, 24, 8, 8], 16),
+                (2056, [40, 16], 136), (216, [8] * 20, 16)]
+
+
+@pytest.mark.parametrize("m,widths,cout", TB_F32_CASES)
+def test_train_bottleneck_kernels_f32(gen, m, widths, cout):
+    """Each float32 form against its plain version within the float32
+    n-term bound (the sums per feature group), counted as a float32
+    launch; apply at most 16 groups (the float32 product's table)."""
+    ops = _tb_f32(gen, m, widths, cout)
+    feats, w = ops[0], ops[4]
+    if len(widths) > tbk.F32_GROUPS:
+        with pytest.raises(ValueError, match="groups"):
+            tbk.apply(feats, ops[1], w, torch.empty(m, cout, device="cuda"))
+        return
+    tbk.reset_launch_counts()
+    got = _tb_f32_outputs(tbk.KERNELS, *ops)
+    assert tbk.f32_counts() == {f"{k}[f32]": 1 for k in
+                                ("stats", "apply", "bwd_reduce", "bwd_dx")}
+    want = _tb_f32_outputs([tbk.PLAIN[k] for k in tbk.KERNELS], *ops)
+    _close_group_sums(got[0], want[0], m, widths)
+    _close_f32(got[1], want[1], sum(widths))
+    _close_group_sums(got[2], want[2], m, widths, rows=True)
+    _close_group_sums(got[3], want[3], m, widths)
+    for a, b in zip(got[4], want[4]):
+        assert a.dtype == torch.float32
+        _close_f32(a, b, cout)
+
+
+@pytest.mark.parametrize("m,widths,cout", TB_F32_CASES[:3])
+def test_train_bottleneck_f32_exact_under_one_hot(gen, m, widths, cout):
+    """Under a one-hot W (distinct rows) every float32 form gives its plain
+    version's bits where the plain sums are exact: apply (the prologue
+    value), bwd_dx with red = 0 (g_y = g[m, n_c], one term), and, under a
+    cotangent with one 1 a column too, bwd_reduce (each dW entry and BN
+    sum one exact term). g rounded to bf16 (one pass of its split) moves
+    dx."""
+    feats, vec, stat, bias, _, g = _tb_f32(gen, m, widths, cout)
+    ctot = sum(widths)
+    w = _one_hot(gen, ctot, cout, torch.randperm(ctot, generator=gen)[:cout])
+    outs = [fn(feats, vec, w, torch.empty(m, cout, device="cuda"))
+            for fn in (tbk.apply, tbk.apply_plain)]
+    red = torch.zeros(2, ctot, device="cuda")
+    dxs = []
+    for fn, gk in ((tbk.bwd_dx, g), (tbk.bwd_dx_plain, g),
+                   (tbk.bwd_dx_plain, g.bfloat16().float())):
+        d = [torch.empty(m, c, device="cuda") for c in widths]
+        fn(feats, gk, stat, bias, red, w, d)
+        dxs.append(torch.cat(d, 1))
+    hot = torch.zeros(m, cout, device="cuda")
+    hot[torch.randint(0, m, (cout,), generator=gen), torch.arange(cout)] = 1
+    reds = [fn(feats, hot, stat, bias, w,
+               torch.empty(ctot, cout, device="cuda"),
+               torch.empty(2, ctot, device="cuda"))
+            for fn in (tbk.bwd_reduce, tbk.bwd_reduce_plain)]
+    torch.cuda.synchronize()
+    assert torch.equal(*outs)
+    assert torch.equal(dxs[0], dxs[1]) and dxs[1].abs().max() > 0
+    assert (dxs[2] != dxs[1]).sum() > 0.05 * dxs[1].numel()
+    assert reds[1][0].abs().max() > 0
+    assert torch.equal(reds[0][0], reds[1][0])
+    assert torch.equal(reds[0][1], reds[1][1])
+
+
+@pytest.mark.parametrize("m,widths,cout", TB_F32_CASES[:4])
+def test_apply_f32_is_affine_dot_over_the_concat(gen, m, widths, cout):
+    feats, vec, _, _, w, _ = _tb_f32(gen, m, widths, cout)
+    got, want = (torch.empty(m, cout, device="cuda") for _ in range(2))
+    tbk.apply(feats, vec, w, got)
+    buf_ops.affine_dot(torch.cat(feats, 1), vec, w, want)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("r", [64, 4])
+def test_fused_train_bottleneck_f32_grads(gen, r):
+    """The autograd Function at float32 on the kernels against itself on
+    the plain versions: output and every gradient within its bound."""
+    n, widths, cout = 24, [128, 128, 32, 32], 128
+    feats, _, stat, bias, w, g = _tb_f32(gen, n * r * r, widths, cout)
+    res = []
+    for plain in (False, True):
+        saved = {k.__name__: k for k in tbk.KERNELS}
+        if plain:
+            for k in tbk.KERNELS:
+                setattr(tbk, k.__name__, tbk.PLAIN[k])
+        try:
+            fs = [f.contiguous().view(n, r, r, -1).requires_grad_(True)
+                  for f in feats]
+            sc = stat[2].clone().requires_grad_(True)
+            b = bias.clone().requires_grad_(True)
+            wv = w.view(1, 1, *w.shape).clone().requires_grad_(True)
+            out, _, _ = tbk.fused_train_bottleneck(fs, sc, b, wv)
+            out.backward(g.view(n, r, r, cout))
+            res.append([out] + [f.grad for f in fs]
+                       + [sc.grad, b.grad, wv.grad[0, 0]])
+        finally:
+            for name, fn in saved.items():
+                setattr(tbk, name, fn)
+    got, want = res
+    m, ctot = n * r * r, sum(widths)
+    assert got[0].dtype == torch.float32
+    _close_f32(got[0], want[0], ctot)
+    for a, b in zip(got[1:5], want[1:5]):
+        assert a.dtype == torch.float32
+        _close_f32(a, b, cout)
+    _close_group_sums(got[5][None], want[5][None], m, widths)
+    _close_group_sums(got[6][None], want[6][None], m, widths)
+    _close_group_sums(got[7], want[7], m, widths, rows=True)
+
+
+@pytest.mark.parametrize("g,r,rate", [(32, 64, 0.2), (8, 4, 0.5)])
+def test_drop_mask_f32_bit_identical(gen, g, r, rate):
+    """The float32 form, in place on a strided view and into another
+    float32 view, bit for bit its plain version (the mask's scale at
+    float32); on ones the plain float32 tile masks."""
+    n, bt = 24, 0
+    m, tile_rows = n * r * r, (bt or n) * r * r
+    for seed, pos in ((7, 0), (-123456, 8)):
+        before = drop_ops.drop_mask.f32_launches
+        _check(drop_ops.drop_mask,
+               lambda f, o: f(o[:, 16:16 + g], seed, pos, rate, tile_rows),
+               _f32(gen, m, 16 + g + 8), lambda o: o[:, 16:16 + g])
+        assert drop_ops.drop_mask.f32_launches == before + 1
+        ones = torch.ones(m, g, device="cuda")
+        drop_ops.drop_mask(ones, seed, pos, rate, tile_rows)
+        assert torch.equal(ones, dropmask.rows_mask(
+            seed, pos, m, g, tile_rows, rate, torch.float32, "cuda"))
+        d = _f32(gen, m, g + 8)[:, 4:4 + g]
+        outs = [torch.empty(m, g, device="cuda") for _ in range(2)]
+        drop_ops.drop_mask(d, seed, pos, rate, tile_rows, outs[0])
+        drop_ops.PLAIN[drop_ops.drop_mask](d, seed, pos, rate, tile_rows,
+                                           outs[1])
+        assert torch.equal(outs[0], outs[1])
+
+
+def test_f32_conv2d_backward_ignores_the_global_tf32_flag(gen):
+    """dX and dW of the port's float32 conv with cuDNN's TF32 on globally
+    (torch's default): within the float32 bound of a float64 reference
+    (one CU-Net 3x3 conv, 128 -> 32)."""
+    from cunet_tpu_torch.ops.layers import conv2d
+
+    x = _f32(gen, 4, 32, 32, 128).requires_grad_(True)
+    w = _f32(gen, 3, 3, 128, 32, scale=(9 * 128) ** -0.5).requires_grad_(True)
+    ct = _f32(gen, 4, 32, 32, 32)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        conv2d(x, w, padding=1).backward(ct)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    x64 = x.detach().double().cpu().requires_grad_(True)
+    w64 = w.detach().double().cpu().requires_grad_(True)
+    conv2d(x64, w64, padding=1).backward(ct.double().cpu())
+    for got, want, n in ((x.grad, x64.grad, 9 * 32),
+                         (w.grad, w64.grad, 4 * 32 * 32)):
+        err = (got.double().cpu() - want).abs().max().item()
+        assert err <= F32_SUM * n ** 0.5 * want.abs().max().item()
+
+
+def test_bn_tile0_f32_kernel_step_matches_plain_and_remat(gen):
+    """Two slots at float32, whole-batch BN: every bottleneck and adapter
+    on #7's float32 forms; the loss and every BN running stat within 1e-5
+    relative of the plain path's; each gradient leaf within relative L2
+    max(2c, 1e-5) of the swap step (the same path with #7's plain versions
+    swapped in: the same arithmetic, so only the kernels differ), c the
+    largest of three controls, the swap step against itself on the batch
+    permuted three ways (only the order of the whole-batch sums changes);
+    remat "layer" / "block" bit for bit; with dropout 0.2 the masks on the mask
+    kernel's float32 form, bit for bit the step with the plain mask (cuDNN
+    deterministic)."""
+    cfg = dataclasses.replace(_bn0_cfg(), compute_dtype="float32")
+    params, state = init_cu_net(cfg, gen, device="cuda")
+    x = torch.rand(4, 64, 64, 3, generator=gen).cuda()
+    t = torch.rand(4, 16, 16, 8, generator=gen).cuda()
+    seeds = dropmask.draw_slot_seeds(torch.Generator().manual_seed(1), 2)
+
+    def grads(c, x, t, **kw):
+        from cunet_tpu_torch.train import intermediate_mse
+
+        ps = {k: v.detach().clone().requires_grad_(True)
+              for k, v in params.items()}
+        outs, st = apply_cu_net(ps, state, x, cfg=c, train=True, **kw)
+        loss = intermediate_mse(outs, t)
+        loss.backward()
+        return loss.item(), {k: v.grad for k, v in ps.items()}, st
+
+    plain = dataclasses.replace(cfg, use_pallas=False)
+    perms = torch.tensor([[2, 0, 3, 1], [1, 3, 0, 2], [3, 2, 1, 0]],
+                         device="cuda")
+    drop = dataclasses.replace(cfg, drop_rate=0.2)
+    kernel = drop_ops.drop_mask
+    torch.backends.cudnn.deterministic = True
+    try:
+        tbk.reset_launch_counts()
+        lk, gk, sk = grads(cfg, x, t)
+        counts = tbk.f32_counts()
+        assert all(v == 25 for v in counts.values()), counts
+        lp, gp, sp = grads(plain, x, t)
+        saved = {k.__name__: k for k in tbk.KERNELS}
+        for k in tbk.KERNELS:
+            setattr(tbk, k.__name__, tbk.PLAIN[k])
+        try:
+            _, gs, _ = grads(cfg, x, t)
+            gcs = [grads(cfg, x[q], t[q])[1] for q in perms]
+        finally:
+            for name, k in saved.items():
+                setattr(tbk, name, k)
+        for remat in ("layer", "block"):
+            lr, gr, _ = grads(dataclasses.replace(cfg, remat=remat), x, t)
+            assert lr == lk and all(torch.equal(gr[k], gk[k]) for k in gr)
+        drop_ops.reset_launch_counts()
+        ld, gd, _ = grads(drop, x, t, drop_seeds=seeds)
+        assert drop_ops.f32_counts()["drop_mask[f32]"] > 0
+        drop_ops.drop_mask = drop_ops.PLAIN[kernel]
+        lm, gm, _ = grads(drop, x, t, drop_seeds=seeds)
+    finally:
+        drop_ops.drop_mask = kernel
+        torch.backends.cudnn.deterministic = False
+    assert ld == lm and all(torch.equal(gd[k], gm[k]) for k in gd)
+    assert abs(lk - lp) <= 1e-5 * abs(lp)
+    for k in sp:
+        assert _rel(sk[k], sp[k]) <= 1e-5, k
+    for k in gs:
+        if gs[k].norm() > 0:
+            c = max(_rel(gc[k], gs[k]) for gc in gcs)
+            assert _rel(gk[k], gs[k]) <= max(2 * c, 1e-5), k

@@ -19,8 +19,10 @@ the port's own forward at full width: each fits the H100's shared memory,
 covers every output once (a split conv's chunks once each), and is a
 function of the shapes alone.
 
-(c) ``check_kernel_dtype``: a float32 eval runs on the card's kernel
-paths; float32 training and a quantized float32 eval raise.
+(c) ``check_kernel_dtype``: a float32 eval and float32 whole-batch BN
+training (``bn_tile=0``, every remat policy, dropout, quantized training)
+run on the card's kernel paths; float32 ghost-BN training (``bn_tile >
+0``) and a quantized float32 eval raise.
 """
 
 import dataclasses
@@ -307,12 +309,34 @@ def test_f32_eval_on_the_card_passes_the_guard(flags):
         INT8, enabled=False))
 
 
+@pytest.mark.parametrize("remat,drop,quant", [
+    ("none", 0.0, None), ("layer", 0.0, None), ("block", 0.0, None),
+    ("bottleneck", 0.2, None), ("none", 0.0, dataclasses.replace(
+        INT8, int8_infer=False))])
+def test_f32_bn0_training_passes_the_guard(remat, drop, quant):
+    """float32 whole-batch BN training runs on #7's and the mask kernel's
+    float32 forms: every remat policy, dropout, W1/I8/G8 training."""
+    cfg = ModelConfig(layer_num=2, order=1, loss_num=2, class_num=8,
+                      compute_dtype="float32", use_pallas=True, bn_tile=0,
+                      remat=remat, drop_rate=drop)
+    check_kernel_dtype(cfg, "cuda", train=True, quant=quant)
+    check_kernel_dtype(cfg, "cuda:0", train=True)
+
+
 @pytest.mark.parametrize("bn_tile", [0, 2])
 def test_f32_train_and_quantized_eval_on_the_card_raise(bn_tile):
+    """float32 training with ghost-BN tiles raises (the slot kernels #8/#9
+    have no float32 form yet), at bn_tile=0 it passes; the quantized
+    float32 eval raises at every bn_tile."""
     cfg = ModelConfig(layer_num=2, order=1, loss_num=2, class_num=8,
                       compute_dtype="float32", use_pallas=True,
                       bn_tile=bn_tile)
-    with pytest.raises(NotImplementedError, match="queue B item 4"):
+    if bn_tile:
+        with pytest.raises(NotImplementedError, match="queue B item 4"):
+            check_kernel_dtype(cfg, "cuda", train=True)
+        with pytest.raises(NotImplementedError, match="#8/#9"):
+            check_kernel_dtype(cfg, "cuda", train=True, quant=INT8)
+    else:
         check_kernel_dtype(cfg, "cuda", train=True)
     for c in (cfg, dataclasses.replace(cfg, pallas_whole_model=True)):
         with pytest.raises(NotImplementedError, match="queue B item 4"):

@@ -101,8 +101,8 @@ Phases, each printing one line (or a few) before the last:
    (its 1x1 convs on #10, its down blocks' adapter pairs on the float
    dual kernel); the 68-class head (the 300-W face model) on the
    whole-model float and int8 paths, the per-slot path and the slot train
-   step; f32 ghost-BN training and the f32 quantized eval on a kernel path
-   raise.
+   step; f32 W1/I8/G8 ghost-BN training and the f32 quantized eval on a
+   kernel path raise.
 11. per-block eval (TPU kernel #5) and the value-carried whole-model
    evals (#3, #2): ``table_dot``'s three forms of #5 at the CU-Net-8 @256
    shapes of batch 8 and 64 against their plain versions (``[up]``, an up
@@ -150,8 +150,26 @@ Phases, each printing one line (or a few) before the last:
    mask bit for bit the plain mask's step; three ``train_step``s (the main
    path: every float32 form of #7 launched, no slot kernel), one dropout
    step (``drop_mask[f32]`` launched) and one W1/I8/G8 step; (e) step
-   times and peak memory of both paths beside phase 9's bf16 step. Each
-   phase prints its wall time (``phase time``).
+   times and peak memory of both paths beside phase 9's bf16 step.
+14. float32 ghost-BN training, CU-Net-8 @256 at ``compute_dtype=
+   "float32"``, ``bn_dtype="float32"``, ghost-BN tiles of 6 images (the
+   reference's BN groups: bs 24 on 4 GPUs) and 2, ``use_pallas``: (a) the
+   ten float32 forms of the slot kernels #8/#9 (``bn_stats``, per-tile
+   ``affine_dot`` / ``conv3x3``, ``affine_dx``, ``affine_dw``, ``bn_bwd``,
+   ``conv3x3_dx``, ``conv3x3_dw``, the pool / upsample backward) against
+   their plain versions at r = 64 ... 4 and tiles 2 and 6 within the
+   float32 n-term limit, each timed at r=64, tile 2 beside its bound and
+   library call; bit for bit under one-hot operands; one bf16 pass of the
+   cotangent breaking the input gradients' limits; (b) the tile-6 step
+   against the swap step (the same path on the forms' plain versions)
+   within max(2c, 1e-5), c the largest of three tile-preserving permuted
+   controls, the plain path beside both, a bit-identical repeat, dropout
+   through the float32 mask bit for bit the plain mask's step; (c) three
+   main-path ``train_step``s at tile 6 (every form launched), one dropout
+   step, three steps at tile 2; (d) step times and peak memory of both
+   paths at both tiles beside phase 5's bf16 step, whose kernel step's
+   digest phase 5 prints. Each phase prints its wall time (``phase
+   time``).
 
 The line before the last is a JSON object with each kernel's launches,
 error, times, the least time the card could take for the same work and
@@ -1196,6 +1214,21 @@ def compare_steps(torch, label, cfg, params, state, x, t, controlled=False,
     same = lk2 == lk and all(torch.equal(gk[n], gk2[n]) for n in gk)
     print(f"{label}: repeated kernel step bit-identical: {same}", flush=True)
     require(same, f"{label}: the kernel train step is not deterministic")
+    return lk, gk
+
+
+def step_digest(torch, loss, grads):
+    """sha256 (16 hex digits) of a step's float loss and its grads in
+    name order: two checkouts whose digests agree computed the same step
+    bit for bit."""
+    import hashlib
+
+    h = hashlib.sha256(np.float64(loss).tobytes())
+    for k in sorted(grads):
+        h.update(k.encode())
+        h.update(grads[k].detach().float().contiguous().cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()[:16]
 
 
 def flagship_train(torch):
@@ -1266,7 +1299,12 @@ def phase_training(torch, tops, bops, gpu):
     # ---- one slot alone: every cotangent path, kernel against plain ----
     check_slot(torch, cfg, params, state)
     # ---- kernel step against plain step, from identical state ----
-    compare_steps(torch, "training", cfg, params, state, x, t)
+    lk, gk = compare_steps(torch, "training", cfg, params, state, x, t)
+    digest = step_digest(torch, lk, gk)
+    print(f"training: bf16 ghost-BN kernel step digest {digest} (loss and "
+          f"grads; tools/kernel_times.py prints it for another checkout)",
+          flush=True)
+    del gk
 
     # ---- three train steps through the kernels: the main path ----
     tcfg = TrainConfig(lr=2.5e-4, batch_size=TRAIN_BATCH)
@@ -1277,9 +1315,10 @@ def phase_training(torch, tops, bops, gpu):
 
     # ---- timing: kernel path, then plain path ----
     st_p = create_train_state(params, state, tcfg)
-    report_times(torch, "training", lambda: train_step(st, batch, cfg=cfg),
-                 lambda: train_step(st_p, batch, cfg=plain_cfg), gpu)
-    return launches
+    times = report_times(torch, "training",
+                         lambda: train_step(st, batch, cfg=cfg),
+                         lambda: train_step(st_p, batch, cfg=plain_cfg), gpu)
+    return launches, times
 
 
 # ---------------------------------------------------------------------------
@@ -2087,7 +2126,8 @@ def output_errors(torch, got, want, bounds):
                           tb_pieces(b.float(), bnd)):
             err = (pa - pb).abs().max().item()
             lim = limit(bnd, pb.abs().max().item())
-            worst, share = max(worst, err), max(share, err / lim)
+            part = err / lim if lim else (0.0 if err == 0 else float("inf"))
+            worst, share = max(worst, err), max(share, part)
             ok = ok and bool(np.isfinite(err)) and err <= lim
     return worst, share, ok
 
@@ -2280,28 +2320,33 @@ def paired_step_times(torch, steps, rounds=6):
     return times
 
 
-def bn0_dropout(torch, cfg, params, state, x, t, dops):
-    """The bn_tile=0 kernel path at drop rate DROP_RATE: its dropout runs
-    the mask kernel forward and backward, bit for bit the step with the
-    plain mask swapped in (cuDNN deterministic)."""
+def bn0_dropout(torch, cfg, params, state, x, t, dops,
+                label="bn0 dropout training", where=None):
+    """The kernel path of ``cfg`` (bn_tile=0, or ghost-BN tiles) at drop
+    rate DROP_RATE: its dropout runs the mask kernel forward and backward,
+    bit for bit the step with the plain mask swapped in (as ``drop_mask``
+    of ``where``, the module that calls it by name: ``dops`` at bn_tile=0,
+    ``kernels/train_slot.py`` with ghost-BN tiles; cuDNN deterministic).
+    """
     from cunet_tpu_torch.ops.dropmask import draw_slot_seeds
 
+    where = where or dops
     seeds = draw_slot_seeds(torch.Generator().manual_seed(7), cfg.layer_num)
-    kernel = dops.drop_mask
+    kernel = where.drop_mask
     torch.backends.cudnn.deterministic = True
     try:
         lk, gk, _ = _grads(torch, cfg, params, state, x, t,
                            drop_seeds=seeds)
-        dops.drop_mask = dops.PLAIN[kernel]
+        where.drop_mask = dops.PLAIN[kernel]
         lp, gp, _ = _grads(torch, cfg, params, state, x, t,
                            drop_seeds=seeds)
     finally:
-        dops.drop_mask = kernel
+        where.drop_mask = kernel
         torch.backends.cudnn.deterministic = False
     same = lk == lp and all(torch.equal(gk[k], gp[k]) for k in gk)
-    print(f"bn0 dropout training: mask kernel vs plain mask, loss and grads "
+    print(f"{label}: mask kernel vs plain mask, loss and grads "
           f"bit-identical {same}", flush=True)
-    require(same, "bn0 dropout: the mask kernel changes the step")
+    require(same, f"{label}: the mask kernel changes the step")
 
 
 def step_memory(torch, cfg, params, state, batch):
@@ -2711,9 +2756,10 @@ def phase_face_heads(torch, ops, eops, qops, tops, gpu):
 
     f32 = dataclasses.replace(cfg, compute_dtype="float32")
     x1 = x[:1].float()
+    w1i8g8 = QuantConfig(bits_w=1, bits_i=8, bits_g=8, enabled=True)
     for c, args, kw in (
             (dataclasses.replace(f32, bn_tile=BN_TILE), (params,),
-             dict(train=True)),
+             dict(train=True, quant=w1i8g8)),
             (f32, (qp,), dict(quant=quant)),
             (whole, (qp,), dict(quant=quant))):
         c = dataclasses.replace(c, compute_dtype="float32")
@@ -2724,10 +2770,11 @@ def phase_face_heads(torch, ops, eops, qops, tops, gpu):
         else:
             require(False, f"an f32 model ran on a CUDA kernel path with "
                            f"no float32 form ({kw})")
-    print("f32 limit: f32 ghost-BN training (tile 2) and the f32 "
+    print("f32 limit: f32 W1/I8/G8 ghost-BN training (tile 2) and the f32 "
           "quantized eval (per-slot and whole-model flags) with use_pallas "
-          "raise NotImplementedError on the card; the f32 eval (phase 12) "
-          "and f32 whole-batch BN training (phase 13) run", flush=True)
+          "raise NotImplementedError on the card; the f32 eval (phase 12), "
+          "f32 whole-batch BN training (phase 13) and f32 ghost-BN "
+          "training (phase 14) run", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -3584,6 +3631,30 @@ REPLACES.update({k: REPLACES[k[:-5]] for k in TB_F32})
 REPLACES["drop_mask[f32]"] = REPLACES["drop_mask"]
 
 
+def tile_perm(torch, n, bt, gen):
+    """A permutation of a batch of ``n`` images that keeps ghost-BN tiles
+    of ``bt`` images whole (``tools/f32_step_gap.py::tile_perm``): every
+    tile holds the same images, its statistics the same sums in another
+    order, so the step computes the same function; a permutation of the
+    whole batch would regroup the tiles and compute another one."""
+    from cunet_tpu_torch.tools.f32_step_gap import tile_perm as perm
+
+    return perm(n, bt, gen)
+
+
+def tile_perms(torch, n, bt, count):
+    """``count`` distinct tile-preserving permutations of ``n`` images,
+    none the identity (``tile_perm`` over the seeds 0, 1, ...)."""
+    out, seed = [], 0
+    while len(out) < count:
+        q = tile_perm(torch, n, bt, torch.Generator().manual_seed(seed))
+        seed += 1
+        if not torch.equal(q, torch.arange(n)) and \
+                not any(torch.equal(q, p) for p in out):
+            out.append(q)
+    return out
+
+
 def tb_f32_exact_checks(torch, tbk, gen):
     """At r=64, float32, under a one-hot W (distinct rows): ``apply`` bit
     for bit its plain version (the prologue value), ``bwd_dx`` with red =
@@ -3766,46 +3837,51 @@ def check_conv_repair(torch):
     return shares
 
 
-def f32_step_check(torch, tbk, cfg, params, state, x, t):
-    """Phase 13 (d): the float32 kernel step against the swap step from
-    the same state, its loss, each grad leaf and each BN running stat
-    within max(F32_STEP_CONTROL x the swap step's permuted-batch control,
-    F32_STEP_FLOOR); the plain path (use_pallas off: two-pass variance,
-    autograd's backward) beside both, printed; then the kernel step again,
-    bit for bit."""
+def step_leaves(torch, a, b):
+    """{"loss": relative distance, grad leaf: relative L2, BN running
+    stat: relative L2} of the step (loss, grads, bn_state) ``a`` against
+    ``b``, over b's nonzero leaves."""
+    (la, ga, sa), (lb, gb, sb) = a, b
+    out = {"loss": abs(la - lb) / abs(lb)}
+    out.update({n: _rel_l2(torch, ga, gb, [n]) for n in gb
+                if gb[n].norm() > 0})
+    out.update({n: _rel_l2(torch, sa, sb, [n]) for n in sb
+                if sb[n].norm() > 0})
+    return out
+
+
+def f32_step_check(torch, label, cfg, params, state, x, t, swapped,
+                   counters, perms):
+    """Phase 13 (d) and 14 (b): the float32 kernel step against the swap
+    step from the same state (``swapped()``: the path with its kernels'
+    plain versions swapped in, none of ``counters``' kernels launching),
+    its loss, each grad leaf and each BN running stat within
+    max(F32_STEP_CONTROL x the swap step's control, F32_STEP_FLOOR), the
+    control the largest distance of the swap step on the batch permuted by
+    each of ``perms`` (the same function, its sums in another order); the
+    plain path (use_pallas off) beside both, printed; then the kernel step
+    again, bit for bit."""
     plain_cfg = dataclasses.replace(cfg, use_pallas=False)
-    perms = [torch.randperm(x.shape[0], generator=torch.Generator()
-                            .manual_seed(17 + i)).cuda()
-             for i in range(F32_STEP_PERMS)]
     k = _grads(torch, cfg, params, state, x, t)
-    with tb_plain_swapped(tbk):
-        tbk.reset_launch_counts()
+    with swapped():
+        counters.reset_launch_counts()
         s = _grads(torch, cfg, params, state, x, t)
         sc = [_grads(torch, cfg, params, state, x[q], t[q]) for q in perms]
-        swapped_launches = sum(tbk.launch_counts().values())
-    require(swapped_launches == 0, "the swap step launched #7 kernels")
+        swapped_launches = sum(counters.launch_counts().values())
+    require(swapped_launches == 0, f"{label}: the swap step launched "
+                                   f"kernels")
     p = _grads(torch, plain_cfg, params, state, x, t)
     pc = _grads(torch, plain_cfg, params, state, x[perms[0]], t[perms[0]])
-
-    def leaves(a, b):
-        """{"loss": rel, grad leaf: rel L2, BN stat: rel L2} of a vs b."""
-        (la, ga, sa), (lb, gb, sb) = a, b
-        out = {"loss": abs(la - lb) / abs(lb)}
-        out.update({n: _rel_l2(torch, ga, gb, [n]) for n in gb
-                    if gb[n].norm() > 0})
-        out.update({n: _rel_l2(torch, sa, sb, [n]) for n in sb
-                    if sb[n].norm() > 0})
-        return out
 
     def summary(name, a, b):
         (_, ga, sa), (_, gb, sb) = a, b
         g = [n for n in gb if gb[n].norm() > 0]
         st = [n for n in sb if sb[n].norm() > 0]
-        d = leaves(a, b)
+        d = step_leaves(torch, a, b)
         cos = np.mean([torch.nn.functional.cosine_similarity(
             ga[n].flatten(), gb[n].flatten(), dim=0).item() for n in g])
         worst = max(g, key=d.get)
-        print(f"bn0 f32 training: {name}: loss {d['loss']:.4g}; grads over "
+        print(f"{label}: {name}: loss {d['loss']:.4g}; grads over "
               f"all {_rel_l2(torch, ga, gb, g):.4g}, median leaf "
               f"{np.median([d[n] for n in g]):.4g}, worst {worst} "
               f"{d[worst]:.4g}, mean cosine {cos:.4f}; BN stats over all "
@@ -3813,7 +3889,7 @@ def f32_step_check(torch, tbk, cfg, params, state, x, t):
               f"{max(d[n] for n in st):.4g}", flush=True)
         return d
 
-    print(f"bn0 f32 training: losses: kernel {k[0]:.8g}, swap {s[0]:.8g}, "
+    print(f"{label}: losses: kernel {k[0]:.8g}, swap {s[0]:.8g}, "
           f"plain path {p[0]:.8g}", flush=True)
     got = summary("kernel vs swap step", k, s)
     ctrl = [summary(f"control: swap step permuted ({i}) vs swap step", c, s)
@@ -3824,19 +3900,19 @@ def f32_step_check(torch, tbk, cfg, params, state, x, t):
     c = {n: max(d[n] for d in ctrl) for n in got}
     lim = {n: max(F32_STEP_CONTROL * c[n], F32_STEP_FLOOR) for n in got}
     bad = {n: (got[n], lim[n]) for n in got if not got[n] <= lim[n]}
-    print(f"bn0 f32 training: kernel vs swap step: loss {got['loss']:.4g} "
+    print(f"{label}: kernel vs swap step: loss {got['loss']:.4g} "
           f"(limit {lim['loss']:.4g}); {len(got) - len(bad)}/{len(got)} of "
           f"the loss, grad leaves and BN stats within max("
           f"{F32_STEP_CONTROL:g} x the control, {F32_STEP_FLOOR:g}); "
           f"largest share of its limit: "
           f"{max(got[n] / lim[n] for n in got):.3f}; over: {bad}",
           flush=True)
-    require(not bad, f"bn0 f32 step off the swap step: {bad}")
+    require(not bad, f"{label}: step off the swap step: {bad}")
     lk2, gk2, _ = _grads(torch, cfg, params, state, x, t)
     same = lk2 == k[0] and all(torch.equal(k[1][n], gk2[n]) for n in gk2)
-    print(f"bn0 f32 training: repeated kernel step bit-identical: {same}",
+    print(f"{label}: repeated kernel step bit-identical: {same}",
           flush=True)
-    require(same, "bn0 f32 training: the kernel step is not deterministic")
+    require(same, f"{label}: the kernel step is not deterministic")
 
 
 def phase_bn0_f32_training(torch, tbk, tops, bops, dops, gpu, bf16_times):
@@ -3871,7 +3947,11 @@ def phase_bn0_f32_training(torch, tbk, tops, bops, dops, gpu, bf16_times):
 
     torch.backends.cudnn.deterministic = True
     try:
-        f32_step_check(torch, tbk, cfg, params, state, x, t)
+        perms = [torch.randperm(x.shape[0], generator=torch.Generator()
+                                .manual_seed(17 + i)).cuda()
+                 for i in range(F32_STEP_PERMS)]
+        f32_step_check(torch, "bn0 f32 training", cfg, params, state, x, t,
+                       lambda: tb_plain_swapped(tbk), tbk, perms)
         l0, g0, peak0 = step_memory(torch, cfg, params, state, batch)
         for remat in ("layer", "block"):
             lr, gr, peak = step_memory(torch, dataclasses.replace(
@@ -3935,6 +4015,481 @@ def phase_bn0_f32_training(torch, tbk, tops, bops, dops, gpu, bf16_times):
     return rows, per_step
 
 
+# ---------------------------------------------------------------------------
+# phase 14: float32 ghost-BN training, on the float32 forms of #8/#9
+# ---------------------------------------------------------------------------
+
+# the reference's own BN groups (bs 24 on 4 GPUs): the step that is checked;
+# the smoke's bf16 tile runs and is timed too
+SLOT_F32_TILE = 6
+SLOT_F32_TILES = (BN_TILE, SLOT_F32_TILE)
+# the float32 weight gradients' relative L2 error against float64, per
+# sqrt(M): 2^-24 sqrt(M), the expected error of one recursive float32 sum
+# over M rows (1.9e-5 at r=64); one bf16 rounding of dy gives ~1e-3
+F32_DW_REL = 2.0 ** -24
+# the kernels line's rows of the ten forms F1-F10 of the float32 ghost-BN
+# step: (wrapper, TPU function it replaces); the per-tile forward products
+# have rows of their own beside phase 12's eval forms
+SLOT_F32 = {
+    "bn_stats[f32]": ("bn_stats", REPLACES["bn_stats"]),
+    "affine_dot[f32,tile]": ("affine_dot",
+                             "cunet_tpu/kernels/train_slot.py:172"),
+    "conv3x3[f32,tile]": ("conv3x3", "cunet_tpu/kernels/train_slot.py:647"),
+    "affine_dx[f32]": ("affine_dx", REPLACES["affine_dx"]),
+    "affine_dw[f32]": ("affine_dw", REPLACES["affine_dw"]),
+    "bn_bwd[f32]": ("bn_bwd", REPLACES["bn_bwd"]),
+    "conv3x3_dx[f32]": ("conv3x3_dx", REPLACES["conv3x3_dx"]),
+    "conv3x3_dw[f32]": ("conv3x3_dw", REPLACES["conv3x3_dw"]),
+    "maxpool2_bwd[f32]": ("maxpool2_bwd", REPLACES["maxpool2_bwd"]),
+    "upsample2_bwd[f32]": ("upsample2_bwd", REPLACES["upsample2_bwd"]),
+}
+REPLACES.update({k: v[1] for k, v in SLOT_F32.items()})
+
+
+def slot_f32_operands(torch, tops, gen, r, tile):
+    """Float32 operands of the ten forms at resolution ``r`` of the
+    CU-Net-8 @256 step (batch 24, ghost-BN ``tile``; c=128, g=32, Cb=128,
+    16 classes): the K=192 adapter input as a view of a wider buffer, its
+    per-tile statistics, BN and vectors, the conv input and its BN2
+    vectors, cotangents, the weights."""
+    from cunet_tpu_torch.kernels.train_slot import _affine_vec
+
+    n, c, g, cb = TRAIN_BATCH, 128, 32, 128
+    m, tiles = n * r * r, n // tile
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).cuda()
+
+    def stats(x):
+        k = x.shape[1]
+        st = tops.bn_stats_plain(x, torch.empty(tiles, 2, k, device="cuda"))
+        bn = torch.stack([torch.rand(k, generator=gen) + 0.5,
+                          torch.randn(k, generator=gen) * 0.3]).cuda()
+        return st, bn, _affine_vec(st, bn, 1e-5)
+
+    o = dict(m=m, r=r, tiles=tiles, tile_rows=m // tiles)
+    buf = randn(m, 224)
+    o["x2"] = buf[:, :192]         # [y | fifo | out32] of a down block
+    o["st2"], o["bn2"], o["v2"] = stats(o["x2"])
+    o["w_a"] = randn(192, c, scale=192 ** -0.5)
+    o["dy"] = randn(m, c)
+    o["d_a"] = randn(m, 192)
+    o["yb"] = randn(m, cb) * 1.5 + 0.2
+    _, _, o["vb"] = stats(o["yb"])
+    o["w3"] = randn(9 * cb, g, scale=(9 * cb) ** -0.5)
+    o["d_o"] = randn(m, g)
+    o["w_h"] = randn(c, 16, scale=c ** -0.5)
+    o["d_head"] = randn(m, 16)
+    o["ahead"] = randn(m, c)
+    o["d_pool"] = randn(m // 4, c)
+    if r < 64:
+        o["d_up"] = randn(4 * m, c)
+    return o
+
+
+def slot_f32_cases(torch, tops, bops, o):
+    """(row, kernel, label, call(fn) -> outputs, bounds, work, float32 FMA
+    ms of the products, library call, product alone) of the ten forms at
+    the operands ``o``. Bounds: the float32 n-term sum, exact for the
+    pool's routing. Library calls at float32 with TF32 off: ``torch.
+    var_mean``, ``native_batch_norm_backward`` on the ghost-tile layout,
+    ``conv2d_input`` / ``conv2d_weight``, the 2x2 sum as ``avg_pool2d``;
+    the 1x1 products and the forward conv have none (a BN prologue or a
+    gate on the product), so ``torch.mm`` / ``F.conv2d`` of the product
+    alone stands beside them."""
+    import torch.nn.functional as F
+
+    n, c, g, cb = TRAIN_BATCH, 128, 32, 128
+    m, r, tiles, tr = o["m"], o["r"], o["tiles"], o["tile_rows"]
+    x2, v2, dy = o["x2"], o["v2"], o["dy"]
+    vecb = sz(tiles, 2, 192, e=4)
+    w_oihw = o["w3"].view(3, 3, cb, g).permute(3, 2, 0, 1).contiguous()
+    ybf = o["yb"].view(tiles, tr, cb)
+
+    def empty(*shape):
+        return torch.empty(*shape, device="cuda")
+
+    def mm_work(rows, k, nout, extra=0):
+        return f32_work(rows, [(rows, k)], nout, extra=extra)
+
+    w2, fma2 = mm_work(m, 192, c, vecb)
+    wh, fmah = mm_work(m, c, 16, sz(tiles, 2, c, e=4))
+    wc, fmac = f32_work(m, [(m, 9 * cb)], g)
+    wc = work(sz(m, cb, e=4) + sz(9 * cb, g, e=4) + sz(m, g, e=4) + vecb,
+              wc[1], "bf16")
+    wdx = work(sz(m, c, e=4) + sz(192, c, e=4) + 2 * sz(m, 192, e=4) + vecb,
+               6 * 2 * m * 192 * c, "bf16")
+    wdw = work(sz(m, 192, e=4) + sz(m, c, e=4) + sz(192, c, e=4) + vecb,
+               6 * 2 * m * 192 * c, "bf16")
+    wcdx = work(sz(m, g, e=4) + sz(9 * cb, g, e=4) + 2 * sz(m, cb, e=4)
+                + vecb, 6 * 2 * m * 9 * cb * g, "bf16")
+    wcdw = work(sz(m, cb, e=4) + sz(m, g, e=4) + sz(9 * cb, g, e=4) + vecb,
+                6 * 2 * m * 9 * cb * g, "bf16")
+    fma = lambda flops: flops / PEAK_OPS["f32"] * 1e3  # noqa: E731
+    xf = x2.reshape(tiles, tr, 192).permute(1, 0, 2).reshape(
+        tr, tiles * 192).contiguous()
+    daf = o["d_a"].reshape(tiles, tr, 192).permute(1, 0, 2).reshape(
+        tr, tiles * 192).contiguous()
+    mean = o["st2"][:, 0].reshape(-1).contiguous()
+    rstd = torch.rsqrt(o["st2"][:, 1] + 1e-5).reshape(-1).contiguous()
+    gamma = o["bn2"][0].repeat(tiles).contiguous()
+    cases = [
+        ("bn_stats[f32]", tops.bn_stats, f"K=192 r={r}",
+         lambda f: [f(x2, empty(tiles, 2, 192))], [("sum", tr)],
+         work(sz(m, 192, e=4) + sz(tiles, 2, 192, e=4), 3 * m * 192, "f32"),
+         None, lambda: torch.var_mean(x2.reshape(tiles, tr, 192), dim=1,
+                                      correction=0), None),
+        ("affine_dot[f32,tile]", bops.affine_dot, f"K=192->128 r={r}",
+         lambda f: [f(x2, v2, o["w_a"], empty(m, c))], [("sum", 192)], w2,
+         fma2, None, lambda: torch.mm(x2, o["w_a"])),
+        ("affine_dot[f32,tile]", bops.affine_dot, f"head 128->16 r={r}",
+         lambda f: [f(o["yb"], o["vb"], o["w_h"], empty(m, 16))],
+         [("sum", c)], wh, fmah, None, lambda: torch.mm(o["yb"], o["w_h"])),
+        ("conv3x3[f32,tile]", bops.conv3x3, f"Cb=128->32 r={r}",
+         lambda f: [f(o["yb"], o["w3"], n, r, r,
+                      empty(m, 224)[:, 192:224], vec=o["vb"])],
+         [("sum", 9 * cb)], wc, fma(2 * m * 9 * cb * g), None,
+         lambda: F.conv2d(nchw(o["yb"], r), w_oihw, padding=1)),
+        ("affine_dx[f32]", tops.affine_dx, f"K=192->128 r={r}",
+         lambda f: [f(dy, o["w_a"], x2, v2, empty(m, 192))], [("sum", c)],
+         wdx, fma(2 * m * 192 * c), None,
+         lambda: torch.mm(dy, o["w_a"].t())),
+        ("affine_dx[f32]", tops.affine_dx, f"head 128->16 r={r}",
+         lambda f: [f(o["d_head"], o["w_h"], o["yb"], o["vb"],
+                      empty(m, c))], [("sum", 16)],
+         work(sz(m, 16, e=4) + 2 * sz(m, c, e=4), 6 * 2 * m * c * 16,
+              "bf16"), fma(2 * m * c * 16), None,
+         lambda: torch.mm(o["d_head"], o["w_h"].t())),
+        ("affine_dw[f32]", tops.affine_dw, f"K=192->128 r={r}",
+         lambda f: [f(x2, v2, dy, empty(192, c))], [("sum", m)], wdw,
+         fma(2 * m * 192 * c), None, lambda: torch.mm(x2.t(), dy)),
+        ("bn_bwd[f32]", tops.bn_bwd, f"K=192 r={r}",
+         lambda f: _bn_bwd_outs(f, o, empty), [("sum", tr), ("sum", m)],
+         work(3 * sz(m, 192, e=4) + vecb, 8 * m * 192, "f32"), None,
+         lambda: torch.ops.aten.native_batch_norm_backward(
+             daf, xf, gamma, None, None, mean, rstd, True, 1e-5,
+             [True, True, True]), None),
+        ("conv3x3_dx[f32]", tops.conv3x3_dx, f"32->128 r={r}",
+         lambda f: [f(o["d_o"], o["w3"], n, r, r, o["yb"], o["vb"],
+                      empty(m, cb))], [("sum", 9 * g)], wcdx,
+         fma(2 * m * 9 * cb * g),
+         lambda: torch.nn.grad.conv2d_input((n, cb, r, r), w_oihw,
+                                            nchw(o["d_o"], r), padding=1),
+         None),
+        ("conv3x3_dw[f32]", tops.conv3x3_dw, f"(9*128, 32) r={r}",
+         lambda f: [f(o["yb"], o["vb"], o["d_o"], n, r, r,
+                      empty(9 * cb, g))], [("sum", m)], wcdw,
+         fma(2 * m * 9 * cb * g),
+         lambda: torch.nn.grad.conv2d_weight(nchw(o["yb"], r), (g, cb, 3, 3),
+                                             nchw(o["d_o"], r), padding=1),
+         None),
+    ]
+    if r < 64:
+        cases.append(
+            ("upsample2_bwd[f32]", tops.upsample2_bwd, f"{2 * r}->{r}",
+             lambda f: [f(o["d_up"], n, r, r, empty(m, c))], [("sum", 4)],
+             work(sz(4 * m, c, e=4) + sz(m, c, e=4), 3 * m * c, "f32"),
+             None, lambda: F.avg_pool2d(nchw(o["d_up"], 2 * r), 2,
+                                        divisor_override=1), None))
+    if r > 4:
+        cases.append(
+            ("maxpool2_bwd[f32]", tops.maxpool2_bwd, f"{r}->{r // 2}",
+             lambda f: [f(o["ahead"], o["d_pool"], n, r, r, empty(m, c))],
+             [("exact",)], work(2 * sz(m, c, e=4) + sz(m // 4, c, e=4),
+                                4 * m * c, "f32"), None, None, None))
+    return cases
+
+
+def _bn_bwd_outs(f, o, empty):
+    d_x, dbn = empty(o["m"], 192), empty(2, 192)
+    f(o["x2"], o["d_a"], o["st2"], o["bn2"], 1e-5, d_x, dbn)
+    return [d_x, dbn]
+
+
+def im2col(torch, y, b, h, w):
+    """(M, 9C) tap-major: column tap*C + c of row m is y at m's pixel moved
+    by (tap // 3 - 1, tap % 3 - 1), zero outside m's image: the implicit
+    GEMM's operand, for exact references under one-hot weights."""
+    import torch.nn.functional as F
+
+    c = y.shape[1]
+    p = F.pad(y.reshape(b, h, w, c), (0, 0, 1, 1, 1, 1))
+    cols = [p[:, dy:dy + h, dx:dx + w] for dy in range(3) for dx in range(3)]
+    return torch.cat(cols, dim=-1).reshape(b * h * w, 9 * c)
+
+
+def slot_f32_exact_checks(torch, tops, bops, o, gen):
+    """At the operands ``o`` of r=64, tile 2, under one-hot operands (a
+    weight or cotangent with one 1 a column in distinct rows) each product
+    form bit for bit an exact reference: the 1x1 forms their plain
+    versions (one product a sum), the conv forms the im2col gather of the
+    same prologue, gate and flipped weight. Then one bf16 pass of the
+    cotangent (the plain versions on dy rounded to bf16) against the
+    float32 dy, which must break each input gradient's limit; and the two
+    weight gradients against float64 products, within the relative L2
+    error of one recursive float32 sum over M rows, which that bf16 pass
+    must break. Returns {row: exact}."""
+    from cunet_tpu_torch.kernels.buf_ops import tile_affine
+
+    n, c, g, cb, r, m = TRAIN_BATCH, 128, 32, 128, o["r"], o["m"]
+    plain = {**bops.PLAIN, **tops.PLAIN}
+
+    def empty(*shape):
+        return torch.empty(*shape, device="cuda")
+
+    def onehot(k, nout):
+        w = torch.zeros(k, nout)
+        w[torch.randperm(k, generator=gen)[:nout], torch.arange(nout)] = 1
+        return w.cuda()
+
+    w1, w3 = onehot(192, c), onehot(9 * cb, g)
+    hot_dy, hot_do = onehot(m, c), onehot(m, g)
+    # conv3x3_dx's one-hot weight: each channel in at most one column, so
+    # that its transpose is one-hot too (one term an input-gradient sum)
+    w3t = torch.zeros(9 * cb, g)
+    w3t[torch.randint(0, 9, (g,), generator=gen) * cb
+        + torch.randperm(cb, generator=gen)[:g], torch.arange(g)] = 1
+    w3t = w3t.cuda()
+    z = torch.relu(tile_affine(o["yb"], o["vb"]))
+    gate = tile_affine(o["yb"], o["vb"]) > 0
+    x2, v2 = o["x2"], o["v2"]
+    pairs = {
+        "affine_dot[f32,tile]": (
+            bops.affine_dot(x2, v2, w1, empty(m, c)),
+            plain[bops.affine_dot](x2, v2, w1, empty(m, c))),
+        "conv3x3[f32,tile]": (
+            bops.conv3x3(o["yb"], w3, n, r, r, empty(m, g), vec=o["vb"]),
+            im2col(torch, z, n, r, r) @ w3),
+        "affine_dx[f32]": (
+            tops.affine_dx(o["dy"], w1, x2, v2, empty(m, 192)),
+            plain[tops.affine_dx](o["dy"], w1, x2, v2, empty(m, 192))),
+        "affine_dw[f32]": (
+            tops.affine_dw(x2, v2, hot_dy, empty(192, c)),
+            plain[tops.affine_dw](x2, v2, hot_dy, empty(192, c))),
+        "conv3x3_dx[f32]": (
+            tops.conv3x3_dx(o["d_o"], w3t, n, r, r, o["yb"], o["vb"],
+                            empty(m, cb)),
+            torch.where(gate, im2col(torch, o["d_o"], n, r, r)
+                        @ tops.flip_w3(w3t), 0.0)),
+        "conv3x3_dw[f32]": (
+            tops.conv3x3_dw(o["yb"], o["vb"], hot_do, n, r, r,
+                            empty(9 * cb, g)),
+            im2col(torch, z, n, r, r).t() @ hot_do),
+        "maxpool2_bwd[f32]": (
+            tops.maxpool2_bwd(o["ahead"], o["d_pool"], n, r, r,
+                              empty(m, c)),
+            plain[tops.maxpool2_bwd](o["ahead"], o["d_pool"], n, r, r,
+                                     empty(m, c))),
+    }
+    torch.cuda.synchronize()
+    same = {k: torch.equal(a, b) for k, (a, b) in pairs.items()}
+    print(f"slot f32 kernels under one-hot operands (r=64, tile 2), bit for "
+          f"bit an exact reference: {same}", flush=True)
+    require(all(same.values()), f"a float32 slot form is not exact under "
+                                f"one-hot operands: {same}")
+    # one bf16 pass of the cotangent: the plain versions on bf16(dy)
+    d16, do16 = o["dy"].bfloat16().float(), o["d_o"].bfloat16().float()
+    cases = {
+        "affine_dx[f32]": (lambda d: plain[tops.affine_dx](
+            d, o["w_a"], x2, v2, empty(m, 192)), d16, o["dy"], ("sum", c)),
+        "affine_dw[f32]": (lambda d: plain[tops.affine_dw](
+            x2, v2, d, empty(192, c)), d16, o["dy"], ("sum", m)),
+        "conv3x3_dx[f32]": (lambda d: plain[tops.conv3x3_dx](
+            d, o["w3"], n, r, r, o["yb"], o["vb"], empty(m, cb)), do16,
+            o["d_o"], ("sum", 9 * g)),
+        "conv3x3_dw[f32]": (lambda d: plain[tops.conv3x3_dw](
+            o["yb"], o["vb"], d, n, r, r, empty(9 * cb, g)), do16, o["d_o"],
+            ("sum", m)),
+    }
+    shares = {k: output_errors(torch, [fn(d_lo)], [fn(d)], [bnd])[1]
+              for k, (fn, d_lo, d, bnd) in cases.items()}
+    print(f"slot f32: one bf16 pass of the cotangent (the plain versions on "
+          f"bf16(dy)) against float32 dy, r=64: the share of each limit "
+          f"{shares} (the input gradients' must exceed 1; a weight "
+          f"gradient's M-term limit averages the rounding out)", flush=True)
+    require(shares["affine_dx[f32]"] > 1 and shares["conv3x3_dx[f32]"] > 1,
+            f"one bf16 pass of dy stays within a dx limit: {shares}")
+    # the weight gradients against float64 products of the same z: the
+    # M-term limit above lets one bf16 pass of dy through, so each is held
+    # to the relative L2 error of one recursive float32 sum over its M rows
+    lim = F32_DW_REL * m ** 0.5
+    zx, cols = torch.relu(tile_affine(x2, v2)), im2col(torch, z, n, r, r)
+    dw = {
+        "affine_dw[f32]": (zx, o["dy"], d16, tops.affine_dw, lambda f, d: f(
+            x2, v2, d, empty(192, c))),
+        "conv3x3_dw[f32]": (cols, o["d_o"], do16, tops.conv3x3_dw,
+                            lambda f, d: f(o["yb"], o["vb"], d, n, r, r,
+                                           empty(9 * cb, g))),
+    }
+    rel = {}
+    for k, (a, d, d_lo, kern, call) in dw.items():
+        ref = a.double().t() @ d.double()
+        rel[k] = {name: ((got.double() - ref).norm() / ref.norm()).item()
+                  for name, got in (("kernel", call(kern, d)),
+                                    ("plain", call(plain[kern], d)),
+                                    ("bf16 dy", call(plain[kern], d_lo)))}
+    print(f"slot f32: the weight gradients' relative L2 error against "
+          f"float64, r=64 (limit {lim:.3g}, one recursive float32 sum over "
+          f"M={m} rows): {rel}", flush=True)
+    require(all(v["kernel"] <= lim < v["bf16 dy"] for v in rel.values()),
+            f"a weight gradient is past its float64 limit, or one bf16 "
+            f"pass of dy is within it: {rel}")
+    return same
+
+
+def phase_slot_f32_kernels(torch, tops, bops):
+    """Phase 14 (a): the ten forms against their plain versions at float32
+    (TF32 off) at every resolution r = 64 ... 4 and tiles 2 and 6 (a tile
+    of 96 rows at r=4 does not divide a 128-row block), each output within
+    the float32 n-term limit; the r=64 tile-2 case of each (upsample2_bwd:
+    r=32) timed beside its plain version, its bound, its library call or
+    the product alone, and the float32 FMA time of its products; bit for
+    bit under one-hot operands, one bf16 pass of dy caught."""
+    gen = torch.Generator().manual_seed(18)
+    plain = {**bops.PLAIN, **tops.PLAIN}
+    results = {}
+    for tile in SLOT_F32_TILES:
+        for r in CONV_RES:
+            o = slot_f32_operands(torch, tops, gen, r, tile)
+            if r == 64 and tile == BN_TILE:
+                exact = slot_f32_exact_checks(torch, tops, bops, o, gen)
+            for row, kern, label, call, bounds, w, fma_ms, lib, prod in \
+                    slot_f32_cases(torch, tops, bops, o):
+                got, want = call(kern), call(plain[kern])
+                torch.cuda.synchronize()
+                err, share, ok = output_errors(torch, got, want, bounds)
+                label = f"{label} tile {tile}"
+                require(ok, f"{row} [{label}] disagrees with its plain "
+                            f"version: {err} ({share:.3g} of its limit)")
+                if row in results:
+                    results[row]["max_abs_err"] = max(
+                        results[row]["max_abs_err"], err)
+                    print(f"slot f32 kernel {row} [{label}]: max_abs_err "
+                          f"{err:.4g} ({share:.3g} of its limit)", flush=True)
+                    continue
+                ms = cuda_time_ms(lambda: call(kern))
+                plain_ms = cuda_time_ms(lambda: call(plain[kern]))
+                lib_ms = None if lib is None else cuda_time_ms(lib)
+                prod_ms = None if prod is None else cuda_time_ms(prod)
+                bms, by = bound(w)
+                lib = "none" if lib_ms is None else f"{lib_ms * 1e3:.1f} us"
+                fma = "" if fma_ms is None else \
+                    f", float32 FMA of the products {fma_ms * 1e3:.1f} us"
+                print(f"slot f32 kernel {row} [{label}]: max_abs_err "
+                      f"{err:.4g} ({share:.3g} of its float32 limit), "
+                      f"{ms * 1e3:.1f} us vs plain {plain_ms * 1e3:.1f} us, "
+                      f"bound {bms * 1e3:.1f} us ({by}), library {lib}"
+                      f"{product_text(prod_ms)}{fma}", flush=True)
+                record(results, row, err, ms, plain_ms, label, w, lib_ms,
+                       prod_ms)
+    for row in results:
+        results[row]["one_hot_exact"] = exact.get(row)
+    return results
+
+
+def slot_f32_counts(tops, bops) -> dict:
+    """Launches of the ten forms' float32 kernels, keyed by their rows."""
+    counts = {**tops.f32_counts(), **bops.f32_counts()}
+    return {row: counts[f"{name}[f32]"] for row, (name, _) in SLOT_F32.items()}
+
+
+def slot_plain_swapped():
+    """The ten forms' plain versions swapped into the slot train path
+    (``kernels/train_slot.py`` calls them by name): the swap step."""
+    from cunet_tpu_torch.kernels import train_slot
+    from cunet_tpu_torch.tools.f32_step_gap import patched, slot_swap
+
+    return patched(train_slot, **slot_swap())
+
+
+def phase_slot_f32_training(torch, tops, bops, dops, gpu, bf16_times):
+    """Phase 14 (b)-(d): CU-Net-8 @256 at float32 (bn_dtype "float32", the
+    reference's torch semantics), ghost-BN tile 6, use_pallas, on the ten
+    forms: the kernel step against the swap step within max(2c, 1e-5), c
+    the largest of F32_STEP_PERMS tile-preserving permuted controls, the
+    plain path beside both; a bit-identical repeat; dropout 0.2 through
+    the float32 mask kernel bit for bit the plain mask's step; three
+    main-path ``train_step``s (every form launched), one dropout step and
+    three steps at tile 2; step times and peak memory of both paths at
+    both tiles beside phase 5's bf16 step. Returns ({row: launches of the
+    main path's drive}, launches per step)."""
+    import types
+
+    from cunet_tpu_torch import TrainConfig
+    from cunet_tpu_torch.kernels import train_slot
+    from cunet_tpu_torch.train import create_train_state, train_step
+
+    cfg, params, state, batch = flagship_train(torch)
+    cfg = dataclasses.replace(cfg, compute_dtype="float32",
+                              bn_dtype="float32", bn_tile=SLOT_F32_TILE)
+    x, t = batch["image"], batch["heatmap"]
+    forms = types.SimpleNamespace(
+        reset_launch_counts=lambda: (tops.reset_launch_counts(),
+                                     bops.reset_launch_counts()),
+        launch_counts=lambda: slot_f32_counts(tops, bops))
+    f32_drop = types.SimpleNamespace(
+        reset_launch_counts=dops.reset_launch_counts,
+        launch_counts=dops.f32_counts)
+    label = f"slot f32 training (tile {SLOT_F32_TILE})"
+    perms = [tile_perm(torch, TRAIN_BATCH, SLOT_F32_TILE, torch.Generator()
+                       .manual_seed(17 + i)).cuda()
+             for i in range(F32_STEP_PERMS)]
+    drop_cfg = dataclasses.replace(cfg, drop_rate=DROP_RATE)
+    torch.backends.cudnn.deterministic = True
+    try:
+        f32_step_check(torch, label, cfg, params, state, x, t,
+                       slot_plain_swapped, forms, perms)
+        bn0_dropout(torch, drop_cfg, params, state, x, t, dops,
+                    label=f"slot f32 dropout training (tile "
+                          f"{SLOT_F32_TILE})", where=train_slot)
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    # the main path: three steps at tile 6; a dropout step; tile 2
+    tcfg = TrainConfig(lr=2.5e-4, batch_size=TRAIN_BATCH)
+    st = create_train_state(params, state, tcfg)
+    launches = main_path_steps(
+        torch, label, lambda: train_step(st, batch, cfg=cfg)[1],
+        lambda: st.params, (forms,))
+    st_d = create_train_state(params, state, tcfg)
+    gen = torch.Generator().manual_seed(6)
+    drop_launches = one_step(
+        torch, f"slot f32 dropout training (tile {SLOT_F32_TILE})",
+        lambda: train_step(st_d, batch, cfg=drop_cfg, generator=gen)[1],
+        (forms, f32_drop))
+    del st_d
+    cfg2 = dataclasses.replace(cfg, bn_tile=BN_TILE)
+    st2 = create_train_state(params, state, tcfg)
+    main_path_steps(torch, f"slot f32 training (tile {BN_TILE})",
+                    lambda: train_step(st2, batch, cfg=cfg2)[1],
+                    lambda: st2.params, (forms,))
+
+    # (d) step times and peak memory, kernel path then plain path
+    times = {}
+    for tile, c, s in ((SLOT_F32_TILE, cfg, st), (BN_TILE, cfg2, st2)):
+        st_p = create_train_state(params, state, tcfg)
+        plain_cfg = dataclasses.replace(c, use_pallas=False)
+        times[tile] = report_times(
+            torch, f"slot f32 training (tile {tile})",
+            lambda c=c, s=s: train_step(s, batch, cfg=c),
+            lambda st_p=st_p, plain_cfg=plain_cfg: train_step(
+                st_p, batch, cfg=plain_cfg), gpu)
+        del st_p
+    print(f"slot training, float32 against bf16 (phase 5, tile {BN_TILE}, "
+          f"this run), batch {TRAIN_BATCH}: " + "; ".join(
+              f"{path} path: float32 tile {SLOT_F32_TILE} "
+              f"{times[SLOT_F32_TILE][path][0]:.3f} ms, "
+              f"{times[SLOT_F32_TILE][path][1] / 2 ** 30:.2f} GiB; float32 "
+              f"tile {BN_TILE} {times[BN_TILE][path][0]:.3f} ms, "
+              f"{times[BN_TILE][path][1] / 2 ** 30:.2f} GiB; bf16 "
+              f"{bf16_times[path][0]:.3f} ms, "
+              f"{bf16_times[path][1] / 2 ** 30:.2f} GiB"
+              for path in ("kernel", "plain")) + f" ({gpu})", flush=True)
+    print(f"slot f32 training: the dropout step launched drop_mask[f32] "
+          f"{drop_launches['drop_mask[f32]']} times", flush=True)
+    return launches, {k: v / 3 for k, v in launches.items()}
+
+
 def main() -> int:
     import torch
 
@@ -3981,7 +4536,7 @@ def main() -> int:
         launches, float_ms = phase_serving(torch, ops, gpu)
         lap("2-3")
         train_kernels = phase_train_kernels(torch, tops, ops)
-        train_launches = phase_training(torch, tops, ops, gpu)
+        train_launches, bf16_times = phase_training(torch, tops, ops, gpu)
         lap("4-5")
         int8_kernels = phase_int8_kernels(torch, qops)
         int8_launches, plain_launches = phase_int8_serving(
@@ -4017,6 +4572,11 @@ def main() -> int:
         tb_f32_launches, tb_f32_per_step = phase_bn0_f32_training(
             torch, tbk, tops, ops, dops, gpu, bn0_times)
         lap("13 (b)-(e)")
+        slot_f32_kernels = phase_slot_f32_kernels(torch, tops, ops)
+        lap("14 (a)")
+        slot_f32_launches, slot_f32_per_step = phase_slot_f32_training(
+            torch, tops, ops, dops, gpu, bf16_times)
+        lap("14 (b)-(d)")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4099,6 +4659,13 @@ def main() -> int:
         rows.append(row(name, src, r, tb_f32_launches[name],
                         launches_per_step=tb_f32_per_step[name],
                         **{k: r[k] for k in ("one_hot_exact",) if k in r}))
+    for name, r in slot_f32_kernels.items():
+        src = TRAIN_SOURCE if SLOT_F32[name][0] in (
+            "bn_stats", "bn_bwd", "maxpool2_bwd", "upsample2_bwd") \
+            else F32_SOURCE
+        rows.append(row(name, src, r, slot_f32_launches[name],
+                        launches_per_step=slot_f32_per_step[name],
+                        one_hot_exact=r["one_hot_exact"]))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
-// Hand-written Hopper kernel of the float32 eval products: the float32
-// forms of table_dot (eval_kernels.cu), affine_dot and conv3x3
-// (buf_kernels.cu), for a model served at compute_dtype="float32" as the
-// TPU kernels run it (cunet_tpu_torch/kernels/eval_ops.py and buf_ops.py
-// wrap it). One kernel template, dot3_kernel, computes
+// Hand-written Hopper kernels of the float32 products: the float32 forms
+// of table_dot (eval_kernels.cu), affine_dot and conv3x3 (buf_kernels.cu),
+// for a model served at compute_dtype="float32" as the TPU kernels run it
+// (cunet_tpu_torch/kernels/eval_ops.py and buf_ops.py wrap it), and the
+// float32 products of its ghost-BN training (the slot kernels #8/#9,
+// kernels/train_ops.py). One kernel template, dot3_kernel, computes
 //
 //   out_a[m, n] = epi( sum_k pro_a(x[m, k]) W_a[k, n] )
 //   out_s[m, n] =      sum_k pro_s(x[m, k]) W_s[k, n]      (dual form)
@@ -17,24 +18,38 @@
 //   - as the implicit GEMM of a SAME 3x3 conv (conv3x3's float32 form): K =
 //     9C tap-major, A[m, tap*C + c] = y[m + dy*W + dx, c], zero where the
 //     source pixel lies outside m's image.
+// The ghost-BN train step adds per-tile BN vectors (each row reads its
+// own tile's [inv; shift]: a tile of 96 rows does not divide a 128-row
+// block), the conv's BN2 prologue, and a gate epilogue (kEpiGate: the
+// backward's ReLU mask of the stage input), so that affine_dx and
+// conv3x3_dx run as dot3_kernel on the float32 cotangent through the
+// transposed (flipped) weight, no prologue; dw3_kernel below takes the
+// weight gradients, the product over the rows.
 // It replaces, at float32, the 1x1 stages and the conv of TPU kernels #1
 // (cunet_tpu/kernels/fused_model_buf.py::_affine_dot :52, _conv3x3 via
 // fused_hourglass.py:75), #4 (fused_hourglass.py::_bottleneck_val :229),
 // #5 (fused_block.py::fused_dense_block_infer :207) and #6
-// (fused_bottleneck.py :76, :178), which run float32 x float32 products
-// with float32 accumulation at compute_dtype="float32".
+// (fused_bottleneck.py :76, :178), and the products of #8/#9
+// (train_slot.py::_dot :172, _conv3x3_t :647, _dot_dx :541, _dot_dw :549,
+// _conv3x3_bwd :732), which run float32 x float32 products with float32
+// accumulation at compute_dtype="float32".
 //
 // Arithmetic: float32-accurate on the tensor cores. Both operands are split
 // exactly into three bf16 planes (split3, common.cuh: v = p1 + p2 + p3)
 // as they are staged into shared memory, and each k16 step adds the six
-// plane products x_i * w_j with i + j <= 4 (1-based) into one float32
-// accumulator a output, in one fixed order, the small terms first:
+// plane products x_i * w_j with i + j <= 4 (1-based) into the chunk's
+// float32 accumulator, in one fixed order, the small terms first:
 //   x1 w3, x2 w2, x1 w2, x3 w1, x2 w1, x1 w1
 // (the dropped x2 w3, x3 w2, x3 w3 are below float32 rounding). One bf16 or
-// TF32 pass would move the outputs by ~1e-3 relative. Under a one-hot W
-// (w2 = w3 = 0) a sum is 0 + x3 + x2 + x1, exactly the prologue value.
-// Every output sums k ascending in 16-deep steps from zero whatever the
-// form (single, dual, pooled, table or strided view), so the float32
+// TF32 pass would move the outputs by ~1e-3 relative. Each 32-deep chunk
+// sums from zero in a fragment of its own, which joins the output's
+// running sum by one float32 add on the CUDA cores (round to nearest,
+// add_acc3): the tensor cores' float32 accumulation truncates, and a sum
+// carried through every k16 step of a deep product (the 3x3 conv's
+// 1,152) drifted toward zero (PERF.md section 6).
+// Under a one-hot W (w2 = w3 = 0) a sum is 0 + x3 + x2 + x1, exactly the
+// prologue value. Every output sums k ascending in those chunks whatever
+// the form (single, dual, pooled, table or strided view), so the float32
 // whole-model path (affine_dot) and the per-slot path (table_dot) agree bit
 // for bit, as their bf16 forms do.
 //
@@ -82,7 +97,12 @@ struct Src {
 };
 
 // One output: its prologue vectors (null: none), its weight, its epilogue
-// vectors and where it goes (16-byte vectors where wvec / ovec).
+// vectors and where it goes (16-byte vectors where wvec / ovec). The BN
+// vectors of the prologue (inv, shift) and of the gate epilogue (ea, eb)
+// are one (2, K) eval pair (vstride 0) or per-tile ghost-BN pairs: row m
+// reads tile m / tile_rows's, vstride floats after the previous tile's. The
+// gate epilogue (kEpiGate, the backward's ReLU mask) reads the stage input
+// gx (M, N) at row stride ldgx.
 struct Op3 {
   const float* inv;
   const float* shift;
@@ -93,7 +113,15 @@ struct Op3 {
   const float* eb;
   OutViewOf<float> out;
   int ovec;
+  long long vstride;
+  long long tile_rows;
+  const float* gx;
+  long long ldgx;
 };
+
+// The backward's epilogue: the product where the recomputed pre-ReLU BN
+// output z = gx * ea + eb of its element is positive, else zero.
+constexpr int kEpiGate = 3;
 
 struct Ops3 {
   Op3 o[2];
@@ -159,9 +187,14 @@ __device__ __forceinline__ void load8f(const float* p, bool vec,
 }
 
 template <int EPI>
-__device__ __forceinline__ float epilogue3(float v, const Op3& op, int n) {
+__device__ __forceinline__ float epilogue3(float v, const Op3& op,
+                                           long long m, int n) {
   if (EPI == kEpiShift) return fmaxf(v + op.eb[n], 0.f);
   if (EPI == kEpiScale) return fmaxf(affine(v, op.ea[n], op.eb[n]), 0.f);
+  if (EPI == kEpiGate) {
+    const long long o = (op.vstride ? m / op.tile_rows : 0) * op.vstride + n;
+    return affine(op.gx[m * op.ldgx + n], op.ea[o], op.eb[o]) > 0.f ? v : 0.f;
+  }
   return v;
 }
 
@@ -181,6 +214,32 @@ __device__ __forceinline__ void put8(float* dst, const float (&v)[8], int n,
 template <int BN, int WARPS_N>
 using Acc3 = wmma::fragment<wmma::accumulator, 16, 16, 16, float>[
     Tiles<BN, WARPS_N>::FM][Tiles<BN, WARPS_N>::FN];
+
+template <int BN, int WARPS_N>
+__device__ __forceinline__ void zero_acc3(Acc3<BN, WARPS_N>& acc) {
+#pragma unroll
+  for (int i = 0; i < Tiles<BN, WARPS_N>::FM; ++i)
+#pragma unroll
+    for (int j = 0; j < Tiles<BN, WARPS_N>::FN; ++j)
+      wmma::fill_fragment(acc[i][j], 0.f);
+}
+
+// acc += part, element by element on the CUDA cores (round to nearest).
+// A chunk's products sum in a fragment of their own and join the running
+// sums here: the tensor cores' float32 accumulation truncates, and every
+// k16 step of a long reduction added into one accumulator biased its sums
+// toward zero (PERF.md section 6).
+template <int BN, int WARPS_N>
+__device__ __forceinline__ void add_acc3(Acc3<BN, WARPS_N>& acc,
+                                         const Acc3<BN, WARPS_N>& part) {
+#pragma unroll
+  for (int i = 0; i < Tiles<BN, WARPS_N>::FM; ++i)
+#pragma unroll
+    for (int j = 0; j < Tiles<BN, WARPS_N>::FN; ++j)
+#pragma unroll
+      for (int e = 0; e < acc[i][j].num_elements; ++e)
+        acc[i][j].x[e] += part[i][j].x[e];
+}
 
 // Accumulators -> epilogue -> float32 output rows, through the warp's
 // 16x16 stage.
@@ -205,8 +264,9 @@ __device__ __forceinline__ void store_out3(float* stage, int wm, int wn,
         float v[8];
 #pragma unroll
         for (int t = 0; t < 8; ++t)
-          v[t] = n + t < N ? epilogue3<EPI>(st[r * 16 + cc + t], op, n + t)
-                           : 0.f;
+          v[t] = n + t < N
+                     ? epilogue3<EPI>(st[r * 16 + cc + t], op, m, n + t)
+                     : 0.f;
         put8(out_row(op.out, m) + n, v, n, N, op.ovec);
       }
       __syncwarp();
@@ -241,7 +301,8 @@ __device__ __forceinline__ void store_pooled3(float* tile, float* stage,
       for (int t = 0; t < 8; ++t) {
         const int n = n0 + col + t;
         tile[row * OS + col + t] =
-            n < N ? epilogue3<EPI>(st[r * 16 + cc + t], op, n) : 0.f;
+            n < N ? epilogue3<EPI>(st[r * 16 + cc + t], op, m0 + row, n)
+                  : 0.f;
       }
       __syncwarp();
     }
@@ -265,8 +326,8 @@ __device__ __forceinline__ void store_pooled3(float* tile, float* stage,
 }
 
 // The last block of a split tile: the partials of rows m0.. and columns
-// n0.. summed in split order into the output.
-template <int BN>
+// n0.. summed in split order, then the epilogue, into the output.
+template <int BN, int EPI>
 __device__ __forceinline__ void reduce_split(const Split& sp, long long m0,
                                              int n0, long long M, int N,
                                              const Op3& op) {
@@ -291,6 +352,9 @@ __device__ __forceinline__ void reduce_split(const Split& sp, long long m0,
           if (n + t < N) v[t] += __ldcg(p + t);
       }
     }
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+      if (n + t < N) v[t] = epilogue3<EPI>(v[t], op, m, n + t);
     put8(out_row(op.out, m) + n, v, n, N, op.ovec);
   }
 }
@@ -310,14 +374,14 @@ __global__ void __launch_bounds__(kThreads)
   const long long m0 = (long long)blockIdx.x * BM;
   const int n0 = blockIdx.y * BN;
   const int K = CONV ? 9 * src.C : src.off[src.G];
+  // a prologue's vectors per row (per-tile ghost-BN vectors, or the
+  // conv's, whose column is the channel of a tap), fetched at commit; else
+  // one eval pair, a chunk ahead (the single form)
+  const bool row_vecs = CONV || ops.o[0].vstride != 0;
 
   Acc3<BN, WARPS_N> acc[NOUT];
 #pragma unroll
-  for (int o = 0; o < NOUT; ++o)
-#pragma unroll
-    for (int i = 0; i < T::FM; ++i)
-#pragma unroll
-      for (int j = 0; j < T::FN; ++j) wmma::fill_fragment(acc[o][i][j], 0.f);
+  for (int o = 0; o < NOUT; ++o) zero_acc3<BN, WARPS_N>(acc[o]);
 
   // each thread stages one 8-column vector of the A chunk in every
   // kRowStep-th row; a row's upsample remap or image position once a block
@@ -326,12 +390,16 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int kRows = BM / kRowStep;
   const int kc = (threadIdx.x % kVecs) * 8;
   const int r0 = threadIdx.x / kVecs;
-  long long src_up[kRows];
+  long long src_up[kRows], vrow[kRows];
   int yy[kRows], xx[kRows];
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     const long long m = m0 + r0 + i * kRowStep;
     src_up[i] = src.up ? up_row(m, src.H, src.W) : m;
+    // the offset of row m's BN tile in the prologue vectors (a conv tap's
+    // source pixel lies in m's image, so in m's tile)
+    vrow[i] = ops.o[0].vstride ? m / ops.o[0].tile_rows * ops.o[0].vstride
+                               : 0;
     const int pix = CONV ? (int)(m % ((long long)src.H * src.W)) : 0;
     yy[i] = CONV ? pix / src.W : 0;
     xx[i] = CONV ? pix - yy[i] * src.W : 0;
@@ -411,7 +479,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int t = 0; t < kWPer; ++t)
         load_w(ops.o[0], k0, threadIdx.x + t * kThreads, wr[t]);
-      if (!CONV && k < K) {
+      if (!row_vecs && ops.o[0].inv && k < K) {
         load8f(ops.o[0].inv + k, false, pa);
         load8f(ops.o[0].shift + k, false, pb);
       }
@@ -420,17 +488,23 @@ __global__ void __launch_bounds__(kThreads)
   // the fetched chunk's prologue and A planes, and the W chunk's planes
   const auto commit = [&](int k0) {
     const int k = k0 + kc;
+    // the prologue's column: k, or a conv tap's channel
+    const int pc = CONV ? k - k / src.C * src.C : k;
 #pragma unroll
     for (int q = 0; q < NOUT; ++q) {
       const Op3& op = ops.o[q];
-      const bool pro = !CONV && k < K;
-      if (!kAhead && pro) {
+      const bool pro = op.inv != nullptr && k < K;
+      if (!kAhead && pro && !row_vecs) {
         load8f(op.inv + k, false, pa);
         load8f(op.shift + k, false, pb);
       }
 #pragma unroll
       for (int i = 0; i < kRows; ++i) {
         const int r = r0 + i * kRowStep;
+        if (pro && row_vecs && xok[i]) {
+          load8f(op.inv + vrow[i] + pc, false, pa);
+          load8f(op.shift + vrow[i] + pc, false, pb);
+        }
         float v[8];
 #pragma unroll
         for (int t = 0; t < 8; ++t)
@@ -468,11 +542,13 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     if (k0 + BK3 < k_end) fetch(k0 + BK3);
 #pragma unroll
-    for (int kk = 0; kk < BK3; kk += 16) {
+    for (int q = 0; q < NOUT; ++q) {
+      const bf16* a = A + q * 3 * S::A_PLANE;
+      const bf16* b = B + q * 3 * S::B_PLANE;
+      Acc3<BN, WARPS_N> part;
+      zero_acc3<BN, WARPS_N>(part);
 #pragma unroll
-      for (int q = 0; q < NOUT; ++q) {
-        const bf16* a = A + q * 3 * S::A_PLANE;
-        const bf16* b = B + q * 3 * S::B_PLANE;
+      for (int kk = 0; kk < BK3; kk += 16) {
         wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
             fa[3][T::FM];
 #pragma unroll
@@ -499,16 +575,17 @@ __global__ void __launch_bounds__(kThreads)
             for (int i = 0; i < T::FM; ++i)
 #pragma unroll
               for (int j = 0; j < T::FN; ++j)
-                wmma::mma_sync(acc[q][i][j], fa[px][i], fb[j], acc[q][i][j]);
+                wmma::mma_sync(part[i][j], fa[px][i], fb[j], part[i][j]);
         }
       }
+      add_acc3<BN, WARPS_N>(acc[q], part);
     }
     __syncthreads();
   }
   if constexpr (CONV) {
     if (sp.n == 1) {
-      store_out3<BN, WARPS_N, kEpiNone>(stage, wm, wn, m0, n0, M, N,
-                                        ops.o[0], acc[0]);
+      store_out3<BN, WARPS_N, EPI>(stage, wm, wn, m0, n0, M, N, ops.o[0],
+                                   acc[0]);
       return;
     }
     Op3 partial = ops.o[0];
@@ -526,7 +603,7 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     if (!last) return;
     __threadfence();
-    reduce_split<BN>(sp, m0, n0, M, N, ops.o[0]);
+    reduce_split<BN, EPI>(sp, m0, n0, M, N, ops.o[0]);
     return;
   }
   if constexpr (POOL)
@@ -539,6 +616,235 @@ __global__ void __launch_bounds__(kThreads)
   if (NOUT == 2)
     store_out3<BN, WARPS_N, kEpiNone>(stage, wm, wn, m0, n0, M, N, ops.o[1],
                                       acc[NOUT - 1]);
+}
+
+// ---------------------------------------------------------------------------
+// dw3_kernel: the float32 weight gradients of the slot train step's 1x1
+// stages and 3x3 conv (train_ops.affine_dw / conv3x3_dw at float32), a
+// reduction over the M rows:
+//   part[s, r, n] = sum over split s's rows m of z(m, r) * dy[m, n]
+// with z(m, r) = relu(x[src, c] * inv_t[c] + shift_t[c]) of the stage input
+// x, t = m / tile_rows m's ghost-BN tile; 1x1 (R = C rows): c = r, src = m;
+// 3x3 (R = 9C, tap-major): tap = r / C, c = r % C, src = m + dy*W + dx, zero
+// where the tap leaves m's image (the SAME padding of the activation).
+// train_ops.sum_rows adds the splits' partials in order, so two calls give
+// the same bits. It replaces, at float32, _dot_dw (cunet_tpu/kernels/
+// train_slot.py:549) and the dW3 half of _conv3x3_bwd (:732), which JAX
+// runs as float32 x float32 products at compute_dtype="float32".
+//
+// dot3_kernel's arithmetic over the other axis: the product's depth is M.
+// A block owns 128 output rows by BN columns and one split of M, walked in
+// chunks of BK3 rows: each thread loads two 8-row vectors of x (16-byte
+// loads along the channels) and applies the prologue in registers, and up
+// to two 8-column vectors of dy, a chunk ahead; commit splits both into
+// three bf16 planes, z's stored depth-major (the A tile of the product
+// transposed, read by WMMA as column-major: no transpose in memory), and 8
+// warps take the six plane products a k16 step in dot3_kernel's order.
+// ---------------------------------------------------------------------------
+template <int BN>
+struct SmemDw {
+  static constexpr int AS = BM + kPad;        // z plane row (a depth row)
+  static constexpr int BS = BN + kPad;
+  static constexpr int A_PLANE = BK3 * AS;    // elements
+  static constexpr int B_PLANE = BK3 * BS;
+  static constexpr int A_BYTES = 3 * A_PLANE * 2;
+  static constexpr int RAW = (A_BYTES + 3 * B_PLANE * 2 + 127) / 128 * 128;
+  static constexpr int kBytes = RAW + kWarps * 256 * 4;
+};
+
+// The stage input of a weight gradient, its per-tile BN vectors (16-byte
+// aligned rows: vstride and C multiples of 4), and the conv's images.
+struct DwSrc {
+  const float* x;
+  long long ldx;
+  const float* inv;
+  const float* shift;
+  long long vstride;
+  long long tile_rows;
+  int C;
+  int H, W;
+};
+
+template <int BN, int WARPS_N, bool CONV>
+__global__ void __launch_bounds__(kThreads)
+    dw3_kernel(const __grid_constant__ DwSrc s, long long M, int R,
+               const float* __restrict__ dy, long long ldd, int N, int dvec,
+               float* __restrict__ part, int nsplit) {
+  using T = Tiles<BN, WARPS_N>;
+  using S = SmemDw<BN>;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* const A = reinterpret_cast<bf16*>(smem);
+  bf16* const B = reinterpret_cast<bf16*>(smem + S::A_BYTES);
+  float* const stage = reinterpret_cast<float*>(smem + S::RAW);
+  const int warp = threadIdx.x / 32;
+  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
+  const int r0 = blockIdx.x * BM;
+  const int n0 = blockIdx.y * BN;
+
+  Acc3<BN, WARPS_N> acc;
+  zero_acc3<BN, WARPS_N>(acc);
+
+  // z: this thread's 8 output rows rr .. rr + 7 (one channel vector of one
+  // tap) at depth rows kl + j * kAStep of each chunk
+  constexpr int kRV = BM / 8;
+  constexpr int kAStep = kThreads / kRV;
+  constexpr int kAV = BK3 / kAStep;
+  constexpr int kBVecs = BK3 * BN / 8;
+  constexpr int kBV = (kBVecs + kThreads - 1) / kThreads;
+  const int rr = (threadIdx.x % kRV) * 8, kl = threadIdx.x / kRV;
+  const int r = r0 + rr;
+  const bool rok = r < R;
+  const int tap = CONV ? r / s.C : 0;
+  const int c = CONV ? r - tap * s.C : r;
+  const int ty = tap / 3 - 1, tx = tap % 3 - 1;
+  float ar[kAV][8], br[kBV][8];
+
+  const auto fetch = [&](int k0) {
+#pragma unroll
+    for (int j = 0; j < kAV; ++j) {
+      const long long m = k0 + kl + j * kAStep;
+      bool ok = rok && m < M;
+      long long src = m;
+      if (CONV && ok) {
+        const int pix = (int)(m % ((long long)s.H * s.W));
+        const int sy = pix / s.W + ty, sx = pix % s.W + tx;
+        ok = sy >= 0 && sy < s.H && sx >= 0 && sx < s.W;
+        src = m + ty * s.W + tx;
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e) ar[j][e] = 0.f;
+      if (ok) {
+        float v[8], a[8], b[8];
+        const long long o = m / s.tile_rows * s.vstride + c;
+        load8f(s.x + src * s.ldx + c, true, v);
+        load8f(s.inv + o, true, a);
+        load8f(s.shift + o, true, b);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) ar[j][e] = fmaxf(affine(v[e], a[e], b[e]),
+                                                     0.f);
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < kBV; ++t) {
+      const int q = threadIdx.x + t * kThreads;
+      const long long m = k0 + q / (BN / 8);
+      const int n = n0 + (q % (BN / 8)) * 8;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) br[t][e] = 0.f;
+      if (q < kBVecs && m < M && n < N) {
+        const float* p = dy + m * ldd + n;
+        if (dvec && n + 8 <= N) {
+          load8f(p, true, br[t]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            if (n + e < N) br[t][e] = p[e];
+        }
+      }
+    }
+  };
+  const auto commit = [&]() {
+#pragma unroll
+    for (int j = 0; j < kAV; ++j) {
+      bf16* p = A + (kl + j * kAStep) * S::AS + rr;
+      store_planes(ar[j], p, p + S::A_PLANE, p + 2 * S::A_PLANE);
+    }
+#pragma unroll
+    for (int t = 0; t < kBV; ++t) {
+      const int q = threadIdx.x + t * kThreads;
+      if (q >= kBVecs) break;
+      bf16* p = B + (q / (BN / 8)) * S::BS + (q % (BN / 8)) * 8;
+      store_planes(br[t], p, p + S::B_PLANE, p + 2 * S::B_PLANE);
+    }
+  };
+
+  const long long nchunk = (M + BK3 - 1) / BK3;
+  const long long k_beg = blockIdx.z * nchunk / nsplit * BK3;
+  const long long k_end = (blockIdx.z + 1) * nchunk / nsplit * BK3;
+  if (k_beg < k_end) fetch((int)k_beg);
+  for (long long k0 = k_beg; k0 < k_end; k0 += BK3) {
+    commit();
+    __syncthreads();
+    if (k0 + BK3 < k_end) fetch((int)(k0 + BK3));
+    Acc3<BN, WARPS_N> part;      // the chunk's sums (add_acc3)
+    zero_acc3<BN, WARPS_N>(part);
+#pragma unroll
+    for (int kk = 0; kk < BK3; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>
+          fa[3][T::FM];
+#pragma unroll
+      for (int p = 0; p < 3; ++p)
+#pragma unroll
+        for (int i = 0; i < T::FM; ++i)
+          wmma::load_matrix_sync(
+              fa[p][i], A + p * S::A_PLANE + kk * S::AS + wm * T::WM + i * 16,
+              S::AS);
+      // dy planes 3, 2, 1; with each, the z planes that keep i + j <= 4:
+      // dot3_kernel's order
+#pragma unroll
+      for (int pw = 2; pw >= 0; --pw) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
+            fb[T::FN];
+#pragma unroll
+        for (int j = 0; j < T::FN; ++j)
+          wmma::load_matrix_sync(
+              fb[j], B + pw * S::B_PLANE + kk * S::BS + wn * T::WN + j * 16,
+              S::BS);
+#pragma unroll
+        for (int px = 2 - pw; px >= 0; --px)
+#pragma unroll
+          for (int i = 0; i < T::FM; ++i)
+#pragma unroll
+            for (int j = 0; j < T::FN; ++j)
+              wmma::mma_sync(part[i][j], fa[px][i], fb[j], part[i][j]);
+      }
+    }
+    add_acc3<BN, WARPS_N>(acc, part);
+    __syncthreads();
+  }
+  Op3 op = {};
+  op.out = OutViewOf<float>{part + (long long)blockIdx.z * R * N, N, R, 0};
+  op.ovec = N % 4 == 0;
+  store_out3<BN, WARPS_N, kEpiNone>(stage, wm, wn, r0, n0, R, N, op, acc);
+}
+
+template <int BN, int WARPS_N, bool CONV>
+int launch_dw3(const DwSrc& s, long long M, int R, const float* dy,
+               long long ldd, int N, float* part, int splits, int smem,
+               cudaStream_t st) {
+  constexpr int bytes = SmemDw<BN>::kBytes;
+  if (smem != bytes) return (int)cudaErrorInvalidValue;
+  auto kern = dw3_kernel<BN, WARPS_N, CONV>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((unsigned)((R + BM - 1) / BM), (unsigned)((N + BN - 1) / BN),
+                  (unsigned)splits);
+  const int dvec = ldd % 4 == 0 && reinterpret_cast<uintptr_t>(dy) % 16 == 0;
+  kern<<<grid, kThreads, bytes, st>>>(s, M, R, dy, ldd, N, dvec, part,
+                                      splits);
+  return (int)cudaGetLastError();
+}
+
+template <bool CONV>
+int dw3_forms(const DwSrc& s, long long M, int R, const float* dy,
+              long long ldd, int N, float* part, int bn, int splits, int smem,
+              cudaStream_t st) {
+  switch (bn) {
+    case 16:
+      return launch_dw3<16, 1, CONV>(s, M, R, dy, ldd, N, part, splits, smem,
+                                     st);
+    case 32:
+      return launch_dw3<32, 2, CONV>(s, M, R, dy, ldd, N, part, splits, smem,
+                                     st);
+    case 64:
+      return launch_dw3<64, 2, CONV>(s, M, R, dy, ldd, N, part, splits, smem,
+                                     st);
+    case 128:
+      return launch_dw3<128, 2, CONV>(s, M, R, dy, ldd, N, part, splits,
+                                      smem, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 // One instance: its dynamic shared memory raised past 48 KB once, then the
@@ -612,7 +918,26 @@ Op3 make_op(const void* inv, const void* shift, const void* w, int ldw,
                             img_stride};
   op.ovec = ldo % 4 == 0 && img_stride % 4 == 0 &&
             reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  op.vstride = 0;
+  op.tile_rows = 1;
+  op.gx = nullptr;
+  op.ldgx = 0;
   return op;
+}
+
+// The per-tile vectors of a train stage's prologue, or (gx given) its
+// backward's gate epilogue: ea / eb its BN vectors and no prologue.
+void set_train(Op3& op, long long vstride, long long tile_rows,
+               const void* gx, long long ldgx, const void* gate_inv,
+               const void* gate_shift) {
+  op.vstride = vstride;
+  op.tile_rows = tile_rows;
+  op.gx = static_cast<const float*>(gx);
+  op.ldgx = ldgx;
+  if (gx) {
+    op.ea = static_cast<const float*>(gate_inv);
+    op.eb = static_cast<const float*>(gate_shift);
+  }
 }
 
 }  // namespace
@@ -670,17 +995,25 @@ int cunet_table_dot_f32(const void* const* feats, const long long* lds,
   return (int)cudaErrorInvalidValue;
 }
 
-// The float32 form of cunet_conv3x3 (buf_kernels.cu) without a prologue
-// (the eval conv): y (M, C) at row stride ldy, images H x W, the packed
-// (9C, G) weight, out (M, G) at row stride ldo; ``bn``, ``smem`` and the
-// K split ``splits`` from the plan; with splits > 1 ``part`` is this
-// launch's own buffer: (splits, M, G) float32 partials, then one int per
-// output tile, which this call zeroes on the stream.
+// The float32 form of cunet_conv3x3 (buf_kernels.cu): y (M, C) at row
+// stride ldy, images H x W, the packed (9C, G) weight, out (M, G) at row
+// stride ldo; ``bn``, ``smem`` and the K split ``splits`` from the plan;
+// with splits > 1 ``part`` is this launch's own buffer: (splits, M, G)
+// float32 partials, then one int per output tile, which this call zeroes on
+// the stream. ``inv`` / ``shift`` (null: none, the eval conv) are the BN2
+// prologue's per-tile vectors (vstride, tile_rows as in Op3): the ghost-BN
+// train forward. With ``gx`` (conv3x3_dx's float32 form: y the cotangent,
+// w its flipped, transposed weight) the output is gated by relu(gx *
+// gate_inv + gate_shift) > 0 of the conv input gx (M, G) at row stride ldgx.
 int cunet_conv3x3_f32(const void* y, long long ldy, long long M, int H, int W,
-                      int C, const void* w, int G, void* out, long long ldo,
-                      int bn, int smem, int splits, void* part,
+                      int C, const void* w, int G, const void* inv,
+                      const void* shift, long long vstride,
+                      long long tile_rows, const void* gx, long long ldgx,
+                      const void* gate_inv, const void* gate_shift, void* out,
+                      long long ldo, int bn, int smem, int splits, void* part,
                       void* stream) {
-  if (C < 8 || C % 8 || splits < 1 || (splits > 1 && !part))
+  if (C < 8 || C % 8 || splits < 1 || (splits > 1 && !part) ||
+      (gx && inv) || tile_rows < 1)
     return (int)cudaErrorInvalidValue;
   float* const partials = static_cast<float*>(part);
   const Split sp{partials,
@@ -698,24 +1031,99 @@ int cunet_conv3x3_f32(const void* y, long long ldy, long long M, int H, int W,
   src.off[0] = 0;
   src.off[1] = 9 * C;
   Ops3 ops;
-  ops.o[0] = make_op(nullptr, nullptr, w, G, out, ldo, M, 0);
+  ops.o[0] = make_op(inv, shift, w, G, out, ldo, M, 0);
+  set_train(ops.o[0], vstride, tile_rows, gx, ldgx, gate_inv, gate_shift);
   ops.o[1] = ops.o[0];
   const auto st = static_cast<cudaStream_t>(stream);
   switch (bn) {
-    case 16:
-      return launch3<16, 1, 1, false, kEpiNone, true>(src, M, G, ops,
-                                                      smem, st, sp);
-    case 32:
-      return launch3<32, 2, 1, false, kEpiNone, true>(src, M, G, ops,
-                                                      smem, st, sp);
-    case 64:
-      return launch3<64, 2, 1, false, kEpiNone, true>(src, M, G, ops,
-                                                      smem, st, sp);
-    case 128:
-      return launch3<128, 2, 1, false, kEpiNone, true>(src, M, G, ops,
-                                                      smem, st, sp);
+#define CUNET_CONV3(b, wn)                                                  \
+  case b:                                                                   \
+    return gx ? launch3<b, wn, 1, false, kEpiGate, true>(src, M, G, ops,    \
+                                                         smem, st, sp)      \
+              : launch3<b, wn, 1, false, kEpiNone, true>(src, M, G, ops,    \
+                                                         smem, st, sp);
+    CUNET_CONV3(16, 1) CUNET_CONV3(32, 2) CUNET_CONV3(64, 2)
+    CUNET_CONV3(128, 2)
+#undef CUNET_CONV3
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// The float32 1x1 stage of the ghost-BN train step, one feature group:
+// out (M, N) = relu(x * inv_t + shift_t) @ w[:K] (affine_dot's float32
+// form with per-tile vectors, vstride and tile_rows as in Op3), or, with
+// ``gx`` and no ``inv`` (affine_dx's float32 form: x the cotangent, w the
+// transposed weight), x @ w[:K] gated by relu(gx * gate_inv_t +
+// gate_shift_t) > 0 of the stage input gx (M, N). ``bn`` and ``smem`` from
+// buf_ops.dot3_plan; out an (M, N) view or an image-major one as in
+// cunet_table_dot_f32.
+int cunet_affine_f32(const void* x, long long ldx, long long M, int K,
+                     const void* inv, const void* shift, long long vstride,
+                     long long tile_rows, const void* w, int ldw, int N,
+                     const void* gx, long long ldgx, const void* gate_inv,
+                     const void* gate_shift, void* out, long long ldo,
+                     long long rows_per_img, long long img_stride, int bn,
+                     int smem, void* stream) {
+  if ((gx && inv) || tile_rows < 1) return (int)cudaErrorInvalidValue;
+  Src src;
+  src.G = 1;
+  src.up = 0;
+  src.H = src.W = 0;
+  src.C = 0;
+  src.off[0] = 0;
+  for (int g = 0; g < kMaxGroups; ++g) {
+    src.ptr[g] = g ? nullptr : static_cast<const float*>(x);
+    src.ld[g] = g ? 0 : ldx;
+    src.off[g + 1] = K;
+  }
+  Ops3 ops;
+  ops.o[0] = make_op(inv, shift, w, ldw, out, ldo, rows_per_img, img_stride);
+  set_train(ops.o[0], vstride, tile_rows, gx, ldgx, gate_inv, gate_shift);
+  ops.o[1] = ops.o[0];
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch (bn) {
+#define CUNET_AFFINE3(b, wn)                                                \
+  case b:                                                                   \
+    return gx ? launch3<b, wn, 1, false, kEpiGate, false>(src, M, N, ops,   \
+                                                          smem, st)         \
+              : launch3<b, wn, 1, false, kEpiNone, false>(src, M, N, ops,   \
+                                                          smem, st);
+    CUNET_AFFINE3(16, 1) CUNET_AFFINE3(32, 2) CUNET_AFFINE3(64, 2)
+    CUNET_AFFINE3(128, 2)
+#undef CUNET_AFFINE3
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The float32 weight gradients (dw3_kernel): x (M, C) at row stride ldx,
+// its per-tile vectors, dy (M, N) at row stride ldd; conv 0: the 1x1
+// stage's (C, N) gradient, conv 1: the 3x3 conv's packed (9C, N) one over
+// images H x W. Writes ``splits`` float32 partials (splits, R, N) to
+// ``part``; ``bn``, ``smem`` and ``splits`` from train_ops.dw3_plan.
+int cunet_dw_f32(const void* x, long long ldx, long long M, int C, int H,
+                 int W, int conv, const void* inv, const void* shift,
+                 long long vstride, long long tile_rows, const void* dy,
+                 long long ldd, int N, void* part, int bn, int smem,
+                 int splits, void* stream) {
+  if (C % 8 || vstride % 4 || tile_rows < 1 || splits < 1)
+    return (int)cudaErrorInvalidValue;
+  DwSrc s;
+  s.x = static_cast<const float*>(x);
+  s.ldx = ldx;
+  s.inv = static_cast<const float*>(inv);
+  s.shift = static_cast<const float*>(shift);
+  s.vstride = vstride;
+  s.tile_rows = tile_rows;
+  s.C = C;
+  s.H = H;
+  s.W = W;
+  const auto* d = static_cast<const float*>(dy);
+  auto* pp = static_cast<float*>(part);
+  const auto st = static_cast<cudaStream_t>(stream);
+  return conv ? dw3_forms<true>(s, M, 9 * C, d, ldd, N, pp, bn, splits,
+                                smem, st)
+              : dw3_forms<false>(s, M, C, d, ldd, N, pp, bn, splits, smem,
+                                 st);
 }
 
 }  // extern "C"

@@ -26,6 +26,11 @@
 //
 // Operands are strided 2-D views (row stride in elements, unit column
 // stride, 16-byte aligned, widths multiples of 8), as in buf_kernels.cu.
+// bn_stats, bn_bwd, maxpool2_bwd and upsample2_bwd also take float32
+// stage inputs (a float32 model's ghost-BN training): bn_bwd and the two
+// pool kernels are templates on the element type, whose bf16 instances are
+// the kernels they were, bn_stats a float32 kernel of its own beside the
+// bf16 one; the float32 products of that step are in f32_kernels.cu.
 // Each entry point launches on the stream it is given and returns
 // cudaGetLastError().
 
@@ -50,6 +55,42 @@ __device__ __forceinline__ void load8f(const float* p, float (&v)[8]) {
 __device__ __forceinline__ void store8f(float* p, const float (&v)[8]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
   *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+// Eight consecutive values of a row of T (bf16 or float32) as float32: one
+// 16-byte load of bf16, two of float32. The kernels below that take either
+// element type (bn_bwd, maxpool2_bwd, upsample2_bwd) read their
+// rows through it; the bf16 form is one Pack8.
+template <typename T>
+struct Row8;
+
+template <>
+struct Row8<bf16> {
+  Pack8 p;
+  __device__ __forceinline__ void load(const bf16* a) {
+    p.v = *reinterpret_cast<const uint4*>(a);
+  }
+  __device__ __forceinline__ float operator[](int i) const { return lo(p, i); }
+};
+
+template <>
+struct Row8<float> {
+  float f[8];
+  __device__ __forceinline__ void load(const float* a) { load8f(a, f); }
+  __device__ __forceinline__ float operator[](int i) const { return f[i]; }
+};
+
+// Eight float32 values to a row of T: rounded once to bf16, or as they are.
+template <typename T>
+__device__ __forceinline__ void store_row8(T* p, const float (&v)[8]) {
+  if constexpr (sizeof(T) == 4) {
+    store8f(p, v);
+  } else {
+    Pack8 o;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) o.u[i] = hi(v[i]);
+    *reinterpret_cast<uint4*>(p) = o.v;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -120,6 +161,95 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
+// F1 bn_stats at float32 (a float32 model's stage inputs): the same two
+// passes, with a tile's rows split across a cluster of cs blocks along y
+// (rank q owns rows [q*rpb, (q+1)*rpb)), so that the grid fills the SMs
+// and each thread's running sums stay as short as the bf16 kernel's (at
+// most rpb / 32 rows: 96 at r=64, tile 6; the plan is the wrapper's,
+// kernels/train_ops.py::stats_plan_f32). A block's sums (each stripe's,
+// then the stripes in order) go to its shared memory; after cluster.sync()
+// every block adds the cs partials in rank order through distributed
+// shared memory, first for the mean, then for the centred squares. The
+// order of every sum depends on the shapes alone. Grid (ceil(K/64), T*cs).
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(kThreads)
+    bn_stats_f32_kernel(const float* __restrict__ x, long long ldx,
+                        long long tile_rows, int K, int cs, int rpb,
+                        float* __restrict__ out) {
+  __shared__ float red[kStatRows][kStatCols];
+  __shared__ float bsum[2][kStatCols];   // the block's [sum; centred squares]
+  __shared__ float mean_s[kStatCols];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = cs > 1 ? (int)cluster.block_rank() : 0;
+  const int t = blockIdx.y / cs;
+  const int cv = threadIdx.x % 8, rs = threadIdx.x / 8;
+  const int k = blockIdx.x * kStatCols + cv * 8;
+  const bool on = k < K;
+  const long long r0 = (long long)rank * rpb;
+  const long long r1 = tile_rows < r0 + rpb ? tile_rows : r0 + rpb;
+  const float* base = x + (long long)t * tile_rows * ldx + k;
+  // (a lone block, launched as no cluster, reads its own partials)
+  const auto sync = [&] {
+    if (cs > 1)
+      cluster.sync();
+    else
+      __syncthreads();
+  };
+  // the block's sum of term(v, i) over its rows into bsum[which]
+  const auto block_sum = [&](int which, auto&& term) {
+    float acc[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) acc[i] = 0.f;
+    if (on)
+      for (long long r = r0 + rs; r < r1; r += kStatRows) {
+        float v[8];
+        load8f(base + r * ldx, v);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) acc[i] += term(v[i], i);
+      }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) red[rs][cv * 8 + i] = acc[i];
+    __syncthreads();
+    if (threadIdx.x < kStatCols) {
+      float s = 0.f;
+      for (int i = 0; i < kStatRows; ++i) s += red[i][threadIdx.x];
+      bsum[which][threadIdx.x] = s;
+    }
+  };
+  // the tile's sum: the cluster's partials in rank order
+  const auto tile_sum = [&](int which) {
+    float s = 0.f;
+    for (int q = 0; q < cs; ++q)
+      s += (cs > 1 ? cluster.map_shared_rank(bsum[which], q)
+                   : bsum[which])[threadIdx.x];
+    return s;
+  };
+
+  block_sum(0, [](float v, int) { return v; });
+  sync();
+  if (threadIdx.x < kStatCols)
+    mean_s[threadIdx.x] = tile_sum(0) / (float)tile_rows;
+  __syncthreads();
+  float mu[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) mu[i] = mean_s[cv * 8 + i];
+  block_sum(1, [&](float v, int i) {
+    const float d = v - mu[i];
+    return d * d;
+  });
+  sync();
+  if (rank == 0 && threadIdx.x < kStatCols) {
+    const int kk = blockIdx.x * kStatCols + threadIdx.x;
+    const float s = tile_sum(1);
+    if (kk < K) {
+      out[((long long)t * 2) * K + kk] = mean_s[threadIdx.x];
+      out[((long long)t * 2 + 1) * K + kk] = s / (float)tile_rows;
+    }
+  }
+  sync();   // no block leaves while rank 0 reads its partial
+}
+
+// ---------------------------------------------------------------------------
 // B2 bn_bwd: backward of a = x*ig + shift through ghost-BN statistics, per
 // tile t (m = tile_rows rows, xh = (x - mu) * rstd, ig = rstd * gamma):
 //   sg = sum d_a*xh, sb = sum d_a            (written to part[t] = [sg; sb])
@@ -148,6 +278,9 @@ __global__ void __launch_bounds__(kThreads)
 //   every sum depends on the shapes alone.
 // Bound by bytes: reading x and d_a once, writing d_x (56.3 us at r=64,
 // K=192, batch 24; PERF.md section 6).
+// T is x's element type: bf16, or float32 (a float32 model's stage input:
+// 32 bytes of x a row, staged as float32, so a resident block holds fewer
+// rows; the same sums in the same order).
 // ---------------------------------------------------------------------------
 constexpr int kBnThreads = 256;
 constexpr int kBnWarps = kBnThreads / 32;
@@ -161,9 +294,9 @@ struct BnPlan {
               // resident)
 };
 
-template <bool ACC>
+template <bool ACC, typename T>
 __global__ void __launch_bounds__(kBnThreads, 1)
-    bn_bwd_kernel(const bf16* __restrict__ x, long long ldx,
+    bn_bwd_kernel(const T* __restrict__ x, long long ldx,
                   const float* __restrict__ da, long long ldd,
                   long long tile_rows, int K, const float* __restrict__ stats,
                   const float* __restrict__ gamma, float eps,
@@ -183,9 +316,9 @@ __global__ void __launch_bounds__(kBnThreads, 1)
   const long long r0 = (long long)t * tile_rows + (long long)rank * p.rpb;
   const int nch = (n + p.rc - 1) / p.rc;
   const int u = p.rc / stripes;          // a thread's rows per chunk
-  bf16* xs = reinterpret_cast<bf16*>(smem);
+  T* xs = reinterpret_cast<T*>(smem);
   float* ds = reinterpret_cast<float*>(smem + (size_t)p.slots * p.rc * p.cb *
-                                                  sizeof(bf16));
+                                                  sizeof(T));
   float* wred = ds + (size_t)p.slots * p.rc * p.cb;   // [2][kBnWarps][cb]
   float* bpart = wred + 2 * kBnWarps * p.cb;            // [2][cb]
   float* tsum = bpart + 2 * p.cb;                     // [2][cb]
@@ -202,6 +335,8 @@ __global__ void __launch_bounds__(kBnThreads, 1)
         const long long r = r0 + c * p.rc + jr;
         const int e = at(c, jr);
         cp_async16(smem_u32(xs + e), x + r * ldx + k, 16);
+        if constexpr (sizeof(T) == 4)
+          cp_async16(smem_u32(xs + e + 4), x + r * ldx + k + 4, 16);
         cp_async16(smem_u32(ds + e), da + r * ldd + k, 16);
         cp_async16(smem_u32(ds + e + 4), da + r * ldd + k + 4, 16);
       }
@@ -230,19 +365,19 @@ __global__ void __launch_bounds__(kBnThreads, 1)
     sb[q] = 0.f;
   }
   // one row's terms of the two sums, and its d_x (added to o with ACC)
-  const auto add_row = [&](const Pack8& xv, const float (&d)[8]) {
+  const auto add_row = [&](const Row8<T>& xv, const float (&d)[8]) {
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
-      sg[q] += d[q] * ((lo(xv, q) - mu[q]) * rstd[q]);
+      sg[q] += d[q] * ((xv[q] - mu[q]) * rstd[q]);
       sb[q] += d[q];
     }
   };
   float mb[8], mg[8];               // the tile's sums over m, from pass 1
-  const auto d_x_row = [&](const Pack8& xv, const float (&d)[8],
+  const auto d_x_row = [&](const Row8<T>& xv, const float (&d)[8],
                            float (&o)[8]) {
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
-      const float xh = (lo(xv, q) - mu[q]) * rstd[q];
+      const float xh = (xv[q] - mu[q]) * rstd[q];
       const float v = ig[q] * (d[q] - mb[q] - xh * mg[q]);
       o[q] = ACC ? o[q] + v : v;
     }
@@ -251,13 +386,12 @@ __global__ void __launch_bounds__(kBnThreads, 1)
   // registers: no copy through shared memory
   const bool in_regs = u == 1 && nch <= 1;
   const bool has = in_regs && on && rs < n;
-  Pack8 xr;
+  Row8<T> xr = {};
   float dr[8];
-  xr.v = make_uint4(0u, 0u, 0u, 0u);
 #pragma unroll
   for (int q = 0; q < 8; ++q) dr[q] = 0.f;
   if (has) {
-    xr.v = *reinterpret_cast<const uint4*>(x + (r0 + rs) * ldx + k);
+    xr.load(x + (r0 + rs) * ldx + k);
     load8f(da + (r0 + rs) * ldd + k, dr);
     add_row(xr, dr);
   }
@@ -267,8 +401,8 @@ __global__ void __launch_bounds__(kBnThreads, 1)
       const int jr = i * stripes + rs;
       if (c * p.rc + jr >= n) break;
       const int e = at(c, jr);
-      Pack8 xv;
-      xv.v = *reinterpret_cast<const uint4*>(xs + e);
+      Row8<T> xv;
+      xv.load(xs + e);
       float d[8];
       load8f(ds + e, d);
       add_row(xv, d);
@@ -343,8 +477,8 @@ __global__ void __launch_bounds__(kBnThreads, 1)
 #pragma unroll
       for (int a = 0; a < 4; ++a) {
         if (!ok[a]) continue;
-        Pack8 xv;
-        xv.v = *reinterpret_cast<const uint4*>(xs + e[a]);
+        Row8<T> xv;
+        xv.load(xs + e[a]);
         float d[8];
         load8f(ds + e[a], d);
         d_x_row(xv, d, o[a]);
@@ -1243,11 +1377,15 @@ __global__ void __launch_bounds__(kThreads)
 // element of its 2x2 window equal to the window max of the recomputed
 // ahead; the other three get zero. B7 upsample2_bwd: each low-resolution
 // cotangent is the f32 sum of its 2x2 replicas. One thread per 8 channels.
+// T is the type of ahead and of the output: bf16, or float32 (a float32
+// model: the window's values compared as they are, the cotangent not
+// rounded).
 // ---------------------------------------------------------------------------
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    maxpool2_bwd_kernel(const bf16* __restrict__ a, long long lda,
+    maxpool2_bwd_kernel(const T* __restrict__ a, long long lda,
                         const float* __restrict__ dp, long long ldp,
-                        bf16* __restrict__ o, long long ldo, int B, int H,
+                        T* __restrict__ o, long long ldo, int B, int H,
                         int W, int C) {
   const int cg = C / 8, Ho = H / 2, Wo = W / 2;
   const long long total = (long long)B * Ho * Wo * cg;
@@ -1261,33 +1399,32 @@ __global__ void __launch_bounds__(kThreads)
     const long long b = q / Ho;
     const long long r00 = (b * H + 2 * oy) * W + 2 * ox;
     const long long rows[4] = {r00, r00 + 1, r00 + W, r00 + W + 1};
-    Pack8 v[4], out[4];
+    Row8<T> v[4];
+    float out[4][8];
 #pragma unroll
-    for (int u = 0; u < 4; ++u)
-      v[u].v = *reinterpret_cast<const uint4*>(a + rows[u] * lda + c);
+    for (int u = 0; u < 4; ++u) v[u].load(a + rows[u] * lda + c);
     float d[8];
     load8f(dp + ((b * Ho + oy) * Wo + ox) * ldp + c, d);
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      const float mx = fmaxf(fmaxf(lo(v[0], i), lo(v[1], i)),
-                             fmaxf(lo(v[2], i), lo(v[3], i)));
+      const float mx = fmaxf(fmaxf(v[0][i], v[1][i]), fmaxf(v[2][i], v[3][i]));
       bool taken = false;
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
-        const bool win = !taken && lo(v[u], i) == mx;
+        const bool win = !taken && v[u][i] == mx;
         taken = taken || win;
-        out[u].u[i] = hi(win ? d[i] : 0.f);
+        out[u][i] = win ? d[i] : 0.f;
       }
     }
 #pragma unroll
-    for (int u = 0; u < 4; ++u)
-      *reinterpret_cast<uint4*>(o + rows[u] * ldo + c) = out[u].v;
+    for (int u = 0; u < 4; ++u) store_row8(o + rows[u] * ldo + c, out[u]);
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
     upsample2_bwd_kernel(const float* __restrict__ d, long long ldd,
-                         bf16* __restrict__ o, long long ldo, int B, int H,
+                         T* __restrict__ o, long long ldo, int B, int H,
                          int W, int C) {
   const int cg = C / 8, Wh = 2 * W;
   const long long total = (long long)B * H * W * cg;
@@ -1309,10 +1446,17 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int i = 0; i < 8; ++i) s[i] += t[i];
     load8f(d + (r0 + Wh + 1) * ldd + c, t);
-    Pack8 out;
+    T* dst = o + ((b * H + iy) * W + ix) * ldo + c;
+    if constexpr (sizeof(T) == 4) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) out.u[i] = hi(s[i] + t[i]);
-    *reinterpret_cast<uint4*>(o + ((b * H + iy) * W + ix) * ldo + c) = out.v;
+      for (int i = 0; i < 8; ++i) s[i] += t[i];
+      store8f(dst, s);
+    } else {
+      Pack8 out;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) out.u[i] = hi(s[i] + t[i]);
+      *reinterpret_cast<uint4*>(dst) = out.v;
+    }
   }
 }
 
@@ -1419,14 +1563,15 @@ int launch_affine_dw(const bf16* x, long long ldx, int M, int K, VecArgs v,
 }
 
 // bn_bwd's blocks, the cs blocks of a tile's channel block one cluster
-template <bool ACC>
-int launch_bn_bwd(const bf16* x, long long ldx, const float* da,
+template <bool ACC, typename XT>
+int launch_bn_bwd(const XT* x, long long ldx, const float* da,
                   long long ldd, long long tile_rows, int T, int K,
                   const float* stats, const float* gamma, float eps,
                   float* dx, long long lddx, float* part, const BnPlan& p,
                   int smem, cudaStream_t st) {
   cudaError_t e = cudaFuncSetAttribute(
-      bn_bwd_kernel<ACC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      bn_bwd_kernel<ACC, XT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (e != cudaSuccess) return (int)e;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -1440,7 +1585,7 @@ int launch_bn_bwd(const bf16* x, long long ldx, const float* da,
   cfg.stream = st;
   cfg.attrs = attr;
   cfg.numAttrs = p.cs > 1;          // a lone block is a cluster of one
-  e = cudaLaunchKernelEx(&cfg, bn_bwd_kernel<ACC>, x, ldx, da, ldd,
+  e = cudaLaunchKernelEx(&cfg, bn_bwd_kernel<ACC, XT>, x, ldx, da, ldd,
                          tile_rows, K, stats, gamma, eps, dx, lddx, part, p);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
@@ -1478,29 +1623,61 @@ int launch_conv3x3_dx(const bf16* dy, long long ldd, int M, int H, int W,
 
 extern "C" {
 
+// x bf16 (f32 = 0) or float32 (f32 = 1: a tile's rows split across
+// clusters of cs blocks of rpb rows, train_ops.stats_plan_f32).
 int cunet_bn_stats(const void* x, long long ldx, long long M,
-                   long long tile_rows, int K, void* out, void* stream) {
-  const dim3 grid((unsigned)(M / tile_rows),
-                  (unsigned)((K + kStatCols - 1) / kStatCols));
-  bn_stats_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), ldx, tile_rows, K, static_cast<float*>(out));
+                   long long tile_rows, int K, void* out, int f32, int cs,
+                   int rpb, void* stream) {
+  const auto st = static_cast<cudaStream_t>(stream);
+  const unsigned T = (unsigned)(M / tile_rows);
+  const unsigned kb = (unsigned)((K + kStatCols - 1) / kStatCols);
+  if (!f32) {
+    bn_stats_kernel<<<dim3(T, kb), kThreads, 0, st>>>(
+        static_cast<const bf16*>(x), ldx, tile_rows, K,
+        static_cast<float*>(out));
+    return (int)cudaGetLastError();
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = (unsigned)cs;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kb, T * (unsigned)cs);
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = cs > 1;            // a lone block is a cluster of one
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, bn_stats_f32_kernel, static_cast<const float*>(x), ldx,
+      tile_rows, K, cs, rpb, static_cast<float*>(out));
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
+// x bf16 (f32 = 0) or float32 (f32 = 1).
 int cunet_bn_bwd(const void* x, long long ldx, const void* da, long long ldd,
                  long long M, long long tile_rows, int K, const void* stats,
                  const void* gamma, float eps, void* dx, long long lddx,
                  int accumulate, void* part, int cb, int cs, int rpb, int rc,
-                 int slots, int smem, void* stream) {
+                 int slots, int smem, int f32, void* stream) {
   const BnPlan p{cb, cs, rpb, rc, slots};
   const int T = (int)(M / tile_rows);
   const auto st = static_cast<cudaStream_t>(stream);
-  const auto* xp = static_cast<const bf16*>(x);
   const auto* dp = static_cast<const float*>(da);
   const auto* sp = static_cast<const float*>(stats);
   const auto* gp = static_cast<const float*>(gamma);
   auto* op = static_cast<float*>(dx);
   auto* pp = static_cast<float*>(part);
+  if (f32) {
+    const auto* xp = static_cast<const float*>(x);
+    if (accumulate)
+      return launch_bn_bwd<true>(xp, ldx, dp, ldd, tile_rows, T, K, sp, gp,
+                                 eps, op, lddx, pp, p, smem, st);
+    return launch_bn_bwd<false>(xp, ldx, dp, ldd, tile_rows, T, K, sp, gp,
+                                eps, op, lddx, pp, p, smem, st);
+  }
+  const auto* xp = static_cast<const bf16*>(x);
   if (accumulate)
     return launch_bn_bwd<true>(xp, ldx, dp, ldd, tile_rows, T, K, sp, gp,
                                eps, op, lddx, pp, p, smem, st);
@@ -1635,25 +1812,37 @@ int cunet_sum_rows(const void* in, int S, long long R, void* out,
   return (int)cudaGetLastError();
 }
 
+// ahead and out bf16 (f32 = 0) or float32 (f32 = 1).
 int cunet_maxpool2_bwd(const void* a, long long lda, const void* dp,
                        long long ldp, void* out, long long ldo, int B, int H,
-                       int W, int C, void* stream) {
+                       int W, int C, int f32, void* stream) {
   const long long total = (long long)B * (H / 2) * (W / 2) * (C / 8);
-  maxpool2_bwd_kernel<<<grid_blocks(total), kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(a), lda, static_cast<const float*>(dp), ldp,
-      static_cast<bf16*>(out), ldo, B, H, W, C);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* d = static_cast<const float*>(dp);
+  if (f32)
+    maxpool2_bwd_kernel<float><<<grid_blocks(total), kThreads, 0, st>>>(
+        static_cast<const float*>(a), lda, d, ldp, static_cast<float*>(out),
+        ldo, B, H, W, C);
+  else
+    maxpool2_bwd_kernel<bf16><<<grid_blocks(total), kThreads, 0, st>>>(
+        static_cast<const bf16*>(a), lda, d, ldp, static_cast<bf16*>(out),
+        ldo, B, H, W, C);
   return (int)cudaGetLastError();
 }
 
+// out bf16 (f32 = 0) or float32 (f32 = 1).
 int cunet_upsample2_bwd(const void* d, long long ldd, void* out,
-                        long long ldo, int B, int H, int W, int C,
+                        long long ldo, int B, int H, int W, int C, int f32,
                         void* stream) {
   const long long total = (long long)B * H * W * (C / 8);
-  upsample2_bwd_kernel<<<grid_blocks(total), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(d), ldd, static_cast<bf16*>(out), ldo, B, H,
-      W, C);
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto* dp = static_cast<const float*>(d);
+  if (f32)
+    upsample2_bwd_kernel<float><<<grid_blocks(total), kThreads, 0, st>>>(
+        dp, ldd, static_cast<float*>(out), ldo, B, H, W, C);
+  else
+    upsample2_bwd_kernel<bf16><<<grid_blocks(total), kThreads, 0, st>>>(
+        dp, ldd, static_cast<bf16*>(out), ldo, B, H, W, C);
   return (int)cudaGetLastError();
 }
 

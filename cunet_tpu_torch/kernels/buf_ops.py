@@ -20,12 +20,14 @@ the BN prologue and epilogue applied in registers on the way through, and
 outputs written straight into the buffer slot the next stage reads (no
 concat, no staging copy).
 
-Each wrapper also takes float32 operands (an f32 model's eval): the pool
-and the upsample move 4-float vectors; ``affine_dot`` and ``conv3x3`` run
-the float32 product kernel of ``csrc/f32_kernels.cu`` (``launch_dot3``,
-plans ``dot3_plan`` / ``conv3x3_plan_f32``), float32-accurate on the
-tensor cores through the exact three-way bf16 split of both operands.
-``<wrapper>.f32_launches`` counts those launches (also in ``launches``).
+Each wrapper also takes float32 operands (an f32 model's eval and its
+ghost-BN training): the pool and the upsample move 4-float vectors;
+``affine_dot`` and ``conv3x3`` run the float32 product kernel of
+``csrc/f32_kernels.cu`` (``launch_dot3``, plans ``dot3_plan`` /
+``conv3x3_plan_f32``), float32-accurate on the tensor cores through the
+exact three-way bf16 split of both operands, with eval vectors or per-tile
+ghost-BN ones. ``<wrapper>.f32_launches`` counts those launches (also in
+``launches``).
 """
 
 from __future__ import annotations
@@ -85,15 +87,14 @@ def _check_dtypes(ref: torch.Tensor, **tensors) -> None:
                             f"{ref.dtype}")
 
 
-def _f32_eval_only(what: str, **options) -> None:
-    """The float32 forms are the eval products (ROADMAP queue B item 4 has
-    the train and quantized ones): raise for an option they do not take."""
+def _f32_unquantized(what: str, **options) -> None:
+    """The float32 forms take no QuanInput option (ROADMAP queue B item 4
+    has the quantized forms at float32): raise for one that is on."""
     on = [k for k, v in options.items() if v]
     if on:
         raise NotImplementedError(
-            f"{what} at float32 has eval forms only ({', '.join(on)} takes "
-            f"bfloat16; the float32 train and quantized forms are ROADMAP "
-            f"queue B item 4)")
+            f"{what} at float32 takes no {', '.join(on)} (bfloat16 does; the "
+            f"quantized forms at float32 are ROADMAP queue B item 4)")
 
 
 def _check_rows(m: int) -> None:
@@ -437,11 +438,13 @@ def affine_dot(x, vec, w, out, *, bias=None, bits_i=0):
     rounding, staged per warp and written as 16-byte rows straight into
     the buffer slot. PERF.md section 6 has its times on the H100.
 
-    Float32 x, w and out (an f32 model's eval; no ``bits_i``, one eval
-    ``vec``) run the float32 product kernel with one feature group
+    Float32 x, w and out (an f32 model's eval and ghost-BN train forward;
+    no ``bits_i``) run the float32 product kernel with one feature group
     (``csrc/f32_kernels.cu``): the prologue unrounded, six bf16 plane
     products a k16 step, summed as ``eval_ops.table_dot``'s float32 form
-    sums them.
+    sums them. With per-tile vectors each row reads its own tile's [inv;
+    shift] (a tile of 96 rows at r=4, tile 6, does not divide a 128-row
+    block).
     """
     m, k = x.shape
     n = w.shape[1]
@@ -482,8 +485,11 @@ def affine_dot(x, vec, w, out, *, bias=None, bits_i=0):
 
 def _affine_dot_f32(x, vec, w, out, bias, bits_i):
     """``affine_dot``'s float32 form: the float32 product kernel over the
-    one group ``x`` (``csrc/f32_kernels.cu``; the eval forms only)."""
-    _f32_eval_only("affine_dot", bits_i=bits_i, per_tile_vec=vec.dim() == 3)
+    one group ``x`` (``csrc/f32_kernels.cu``): with an eval ``vec`` through
+    ``launch_dot3``; with per-tile ghost-BN vectors (the f32 train forward,
+    TPU kernel #8's ``_norm_relu`` + ``_dot``) through ``cunet_affine_f32``,
+    which reads each row's tile's vectors in its prologue."""
+    _f32_unquantized("affine_dot", bits_i=bits_i)
     for name, t in (("x", x), ("out", out), ("w", w)):
         _check_view(t, name, (F32,))
     if not w.is_contiguous():
@@ -491,12 +497,38 @@ def _affine_dot_f32(x, vec, w, out, bias, bits_i):
     _check_vec(vec, "vec", x.shape[1])
     if bias is not None:
         _check_vec(bias, "bias", w.shape[1])
-    _check_rows(x.shape[0])
-    code = launch_dot3([x], x.shape[0], vec, w, out, bias=bias)
+    m = x.shape[0]
+    _check_rows(m)
+    if vec.dim() == 2:
+        code = launch_dot3([x], m, vec, w, out, bias=bias)
+    else:
+        if bias is not None:
+            raise ValueError("affine_dot: no bias with per-tile vectors")
+        inv, shift, vstride, tile_rows = _vec_args(vec, m, x.shape[1])
+        code = launch_affine_f32(x, inv, shift, vstride, tile_rows, w, out)
     build.check(code, "affine_dot (float32)")
     affine_dot.launches += 1
     affine_dot.f32_launches += 1
     return out
+
+
+def launch_affine_f32(x, inv, shift, vstride, tile_rows, w, out, gate=None):
+    """Launch ``cunet_affine_f32`` (checked by the caller): the float32
+    product ``x @ w[:K]`` of one group with a per-tile prologue (``inv``,
+    ``shift`` pointers as ``_vec_args`` gives them), or, with ``gate`` =
+    (gx, gate_inv, gate_shift) and no prologue (``inv`` 0), gated by the
+    backward's ReLU mask of the stage input gx. Returns the CUDA error
+    code."""
+    m, k = x.shape
+    n = w.shape[1]
+    p = dot3_plan(n)
+    gx, ginv, gshift = gate if gate is not None else (None, 0, 0)
+    _, rows_per_img, img_stride, ldo = _rows(out)
+    return build.lib().cunet_affine_f32(
+        x.data_ptr(), x.stride(0), m, k, inv, shift, vstride, tile_rows,
+        w.data_ptr(), w.stride(0), n, 0 if gx is None else gx.data_ptr(),
+        0 if gx is None else gx.stride(0), ginv, gshift, out.data_ptr(), ldo,
+        rows_per_img, img_stride, p.bn, p.smem, _stream(x))
 
 
 # ---------------------------------------------------------------------------
@@ -657,11 +689,12 @@ def conv3x3(y, w3p, b, h, w, out, *, vec=None, bits_i=0):
     no single part of the tile's work dominates), 6.7-7.9 us at r <= 32
     batch 8, 65 us per tile at batch 24.
 
-    Float32 y, w3p and out (an f32 model's eval, no ``vec``) run the
-    float32 product kernel as an implicit GEMM of depth 9*Cb
-    (``csrc/f32_kernels.cu``, plan ``conv3x3_plan_f32``), K split across
-    blocks where the output tiles are few, the partials added in a fixed
-    order.
+    Float32 y, w3p and out (an f32 model's eval, and with ``vec`` its
+    ghost-BN train forward; no ``bits_i``) run the float32 product kernel
+    as an implicit GEMM of depth 9*Cb (``csrc/f32_kernels.cu``, plan
+    ``conv3x3_plan_f32``), the BN2 prologue per row of the tap's source
+    pixel (its image's tile), unrounded; K split across blocks where the
+    output tiles are few, the partials added in a fixed order.
     """
     m, c = y.shape
     g = w3p.shape[1]
@@ -702,32 +735,52 @@ def conv3x3(y, w3p, b, h, w, out, *, vec=None, bits_i=0):
 
 
 def _conv3x3_f32(y, w3p, b, h, w, out, vec, bits_i):
-    """``conv3x3``'s float32 form: the eval conv (no prologue) as the
-    float32 product kernel's implicit GEMM (``csrc/f32_kernels.cu``)."""
-    _f32_eval_only("conv3x3", vec=vec is not None, bits_i=bits_i)
+    """``conv3x3``'s float32 form: the float32 product kernel's implicit
+    GEMM (``csrc/f32_kernels.cu``), with the per-tile BN2 prologue of the
+    ghost-BN train forward where ``vec`` is given (TPU kernel #8's
+    ``_norm_relu`` + ``_conv3x3_t``)."""
+    _f32_unquantized("conv3x3", bits_i=bits_i)
     for name, t in (("y", y), ("out", out), ("w3", w3p)):
         _check_view(t, name, (F32,))
     if not w3p.is_contiguous():
         raise ValueError("w3 must be contiguous")
     m, c = y.shape
-    g = w3p.shape[1]
+    pro = (0, 0, 0, m)
+    if vec is not None:
+        _check_vec(vec, "vec", c)
+        pro = _vec_args(vec, m, c)
+    code = launch_conv3x3_f32(y, w3p, h, w, out, pro)
+    build.check(code, "conv3x3 (float32)")
+    conv3x3.launches += 1
+    conv3x3.f32_launches += 1
+    return out
+
+
+def launch_conv3x3_f32(y, w3p, h, w, out, pro=None, gate=None):
+    """Launch ``cunet_conv3x3_f32`` (checked by the caller) of y (M, C)
+    through the packed (9C, N) ``w3p``: with ``pro`` = (inv, shift,
+    vstride, tile_rows) as ``_vec_args`` gives them a BN prologue (inv 0:
+    none); with ``gate`` = (gx, gate_inv, gate_shift) the backward's ReLU
+    mask of gx on the output. Returns the CUDA error code."""
+    m, c = y.shape
+    n = w3p.shape[1]
     _check_rows(m)
-    p = conv3x3_plan_f32(m, c, g)
+    inv, shift, vstride, tile_rows = pro if pro is not None else (0, 0, 0, m)
+    gx, ginv, gshift = gate if gate is not None else (None, 0, 0)
+    p = conv3x3_plan_f32(m, c, n)
     part = None
     if p.splits > 1:
         # this launch's own partials and per-tile arrival counters (the
         # entry zeroes them on the stream): nothing shared with another
         # stream's launch or left behind by an aborted one
-        gm, gn = p.grid(m, g)
-        part = torch.empty(p.splits * m * g + gm * gn, device=y.device)
-    code = build.lib().cunet_conv3x3_f32(
-        y.data_ptr(), y.stride(0), m, h, w, c, w3p.data_ptr(), g,
-        out.data_ptr(), out.stride(0), p.bn, p.smem, p.splits,
+        gm, gn = p.grid(m, n)
+        part = torch.empty(p.splits * m * n + gm * gn, device=y.device)
+    return build.lib().cunet_conv3x3_f32(
+        y.data_ptr(), y.stride(0), m, h, w, c, w3p.data_ptr(), n, inv, shift,
+        vstride, tile_rows, 0 if gx is None else gx.data_ptr(),
+        0 if gx is None else gx.stride(0), ginv, gshift, out.data_ptr(),
+        out.stride(0), p.bn, p.smem, p.splits,
         0 if part is None else part.data_ptr(), _stream(y))
-    build.check(code, "conv3x3 (float32)")
-    conv3x3.launches += 1
-    conv3x3.f32_launches += 1
-    return out
 
 
 # ---------------------------------------------------------------------------

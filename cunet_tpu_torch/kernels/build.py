@@ -104,10 +104,15 @@ def _declare(lib):
         "cunet_upsample2": [P, L, P, L, I, I, I, I, P],
         "cunet_maxpool2_f32": [P, L, P, L, I, I, I, I, P],
         "cunet_upsample2_f32": [P, L, P, L, I, I, I, I, P],
-        "cunet_conv3x3_f32": [P, L, L, I, I, I, P, I, P, L, I, I, I, P, P],
-        "cunet_bn_stats": [P, L, L, L, I, P, P],
+        "cunet_conv3x3_f32": [P, L, L, I, I, I, P, I, P, P, L, L, P, L, P,
+                              P, P, L, I, I, I, P, P],
+        "cunet_affine_f32": [P, L, L, I, P, P, L, L, P, I, I, P, L, P, P, P,
+                             L, L, L, I, I, P],
+        "cunet_dw_f32": [P, L, L, I, I, I, I, P, P, L, L, P, L, I, P, I, I,
+                         I, P],
+        "cunet_bn_stats": [P, L, L, L, I, P, I, I, I, P],
         "cunet_bn_bwd": [P, L, P, L, L, L, I, P, P, F, P, L, I, P,
-                         *[I] * 6, P],
+                         *[I] * 7, P],
         "cunet_dx": [P, L, L, I, P, I, I, P, L, P, P, L, L, I, P, L,
                      *[I] * 10, P],
         "cunet_conv3x3_dx": [P, L, L, I, I, I, P, I, P, L, P, P, L, L, I, P,
@@ -118,8 +123,8 @@ def _declare(lib):
         "cunet_drop_mask": [P, L, I, P, L, L, I, L, ctypes.c_uint,
                             ctypes.c_uint, F, P],
         "cunet_sum_rows": [P, I, L, P, P],
-        "cunet_maxpool2_bwd": [P, L, P, L, P, L, I, I, I, I, P],
-        "cunet_upsample2_bwd": [P, L, P, L, I, I, I, I, P],
+        "cunet_maxpool2_bwd": [P, L, P, L, P, L, I, I, I, I, I, P],
+        "cunet_upsample2_bwd": [P, L, P, L, I, I, I, I, I, P],
         "cunet_affine_dot_i8": [P, L, L, I, P, P, P, I, I, F, P, P, P, L, L,
                                 L, P],
         "cunet_conv3x3_i8": [P, L, L, I, I, I, P, I, F, P, L, P],

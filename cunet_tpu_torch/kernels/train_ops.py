@@ -20,6 +20,23 @@ and activation-gradient GEMMs, whose flop/byte is that of the forward 1x1
 (about 77-91 at the flagship widths, below the card's ~295 bf16 flop/byte),
 so the designs, like the forward's, read each operand once per pass and
 recompute the BN+ReLU activation in the prologue instead of storing it.
+
+Float32 forms (a float32 model's ghost-BN training, TPU kernels #8/#9 at
+``compute_dtype="float32"``): every wrapper also takes float32 stage
+inputs, cotangents and outputs. ``bn_bwd``, ``maxpool2_bwd`` and
+``upsample2_bwd`` are their kernels instantiated for float32 (two
+16-byte loads a vector of 8), ``bn_stats`` a float32 kernel that splits
+each tile's rows across a cluster of blocks (``stats_plan_f32``);
+``affine_dx`` and ``conv3x3_dx`` run the
+float32 product kernel of ``csrc/f32_kernels.cu`` (``buf_ops``' float32
+forms) on the cotangent through the transposed (flipped) weight, gated
+in its epilogue; ``affine_dw`` and ``conv3x3_dw`` its weight-gradient
+kernel ``dw3_kernel`` (plan ``dw3_plan``), per-split partials added by
+``sum_rows``. Every product splits both float32 operands exactly into
+three bf16 planes and sums six plane products: the float32 cotangent is
+never rounded, as JAX's ``_dot_dx`` / ``_dot_dw`` do not round it at
+float32. ``<wrapper>.f32_launches`` counts those launches (also in
+``launches``). No QuanInput option at float32 (ROADMAP queue B item 4).
 """
 
 from __future__ import annotations
@@ -32,15 +49,26 @@ import torch.nn.functional as F
 
 from cunet_tpu_torch.kernels import build
 from cunet_tpu_torch.kernels.buf_ops import (
+    BF16,
+    DOT3_DEPTH,
+    DOT3_ROWS,
+    DOT_WARPS,
+    F32,
     SMEM_LIMIT,
     SMEM_PAIR,
     _check_bits,
+    _check_dtypes,
     _check_rows,
     _check_tile_vec,
     _check_view,
+    _f32_unquantized,
     _stream,
     _vec_args,
+    count_f32,
     count_options,
+    dot3_plan,
+    launch_affine_f32,
+    launch_conv3x3_f32,
     quantize_act,
     reset_counts,
     tile_affine,
@@ -73,6 +101,12 @@ BN_BWD_BLOCKS = 132
 BN_BWD_MIN_ROWS = 128
 BN_BWD_CLUSTER = 8
 BN_BWD_RING = 4
+# bn_stats at float32: the blocks its plan aims at (one on each of the
+# card's 132 SMs), the fewest rows of a block split from its tile (8 a row
+# stripe), the most blocks of a cluster (the portable limit)
+STATS_F32_BLOCKS = 132
+STATS_F32_MIN_ROWS = 256
+STATS_F32_CLUSTER = 8
 # conv3x3_dx: warps of a block, output rows a warp owns (csrc/
 # train_kernels.cu kDxWarps), and the items (tile, channel group) aimed at
 # before a smaller one is taken: about one per SM of the card's 132, a
@@ -86,6 +120,10 @@ DX_TILES = 128
 # order of every sum, depend on the shapes alone
 DW_STEP_ROWS = 128
 DW_RUNS = 128
+# the float32 weight gradients (csrc/f32_kernels.cu dw3_kernel): the blocks
+# their plan aims at, one on each of the card's 132 SMs (a constant, so the
+# splits, and the order of every sum, depend on the shapes alone)
+DW3_BLOCKS = 132
 
 
 def _check_f32(t: torch.Tensor, name: str, dev: torch.device) -> None:
@@ -129,6 +167,27 @@ def bn_stats_plain(x, out):
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def stats_plan_f32(m: int, tile_rows: int, k: int) -> tuple[int, int]:
+    """(cs, rpb) of ``bn_stats`` at float32: each tile's rows split across
+    a cluster of cs blocks of rpb rows (a multiple of the 32 row stripes;
+    the last block may hold fewer). The smallest cs whose grid reaches
+    ``STATS_F32_BLOCKS``, at most ``STATS_F32_CLUSTER``, and 1 where a
+    split block would hold fewer than ``STATS_F32_MIN_ROWS`` rows: r=64 at
+    tile 6 splits a tile's 24,576 rows into 8 blocks of 3,072, 96 rows a
+    thread. A function of the shapes alone, so is the order of every sum."""
+    tiles, kb = m // tile_rows, -(-k // 64)
+    best = (1, -(-tile_rows // 32) * 32)
+    for cs in range(2, STATS_F32_CLUSTER + 1):
+        if tiles * kb * best[0] >= STATS_F32_BLOCKS:
+            break
+        rpb = -(-(-(-tile_rows // cs)) // 32) * 32
+        if rpb < STATS_F32_MIN_ROWS:
+            break
+        best = (cs, rpb)
+    return best
+
+
 def bn_stats(x, out):
     """Per-tile float32 mean and biased variance of ``x`` (M, K) into
     ``out`` (T, 2, K): tile t is rows [t*M/T, (t+1)*M/T). Two passes, the
@@ -139,7 +198,11 @@ def bn_stats(x, out):
     Replaces ``cunet_tpu/kernels/train_slot.py::_stats``. Bound by reading
     x twice (the second pass mostly from L2). Design: one block per (tile,
     64 channels), 32 row stripes of 16-byte loads, a fixed-order reduction
-    in shared memory.
+    in shared memory. A float32 x runs a float32 kernel of the same two
+    passes whose tiles are split across clusters of blocks
+    (``stats_plan_f32``: the grid fills the SMs, a thread's running sums
+    stay short), the blocks' partials added in rank order through
+    distributed shared memory.
     """
     m, k = x.shape
     if out.dim() != 3 or tuple(out.shape[1:]) != (2, k) or m % out.shape[0]:
@@ -147,13 +210,17 @@ def bn_stats(x, out):
                          f"{tuple(out.shape)}")
     if x.device.type == "cpu":
         return bn_stats_plain(x, out)
-    _check_view(x, "x")
+    _check_view(x, "x", (BF16, F32))
     _check_contig_f32(out, "out", x.device)
-    code = build.lib().cunet_bn_stats(x.data_ptr(), x.stride(0), m,
-                                      m // out.shape[0], k, out.data_ptr(),
+    f32 = x.dtype == F32
+    tr = m // out.shape[0]
+    cs, rpb = stats_plan_f32(m, tr, k) if f32 else (1, tr)
+    code = build.lib().cunet_bn_stats(x.data_ptr(), x.stride(0), m, tr, k,
+                                      out.data_ptr(), int(f32), cs, rpb,
                                       _stream(x))
     build.check(code, "bn_stats")
     bn_stats.launches += 1
+    bn_stats.f32_launches += f32
     return out
 
 
@@ -346,6 +413,8 @@ def affine_dx(dy, w, x, vec, out, *, ste=False):
     _check_tile_vec(vec, k, m)
     if dy.device.type == "cpu":
         return affine_dx_plain(dy, w, x, vec, out, ste)
+    if dy.dtype == F32:
+        return _affine_dx_f32(dy, w, x, vec, out, ste)
     inv, shift, vstride, tile_rows = _dx_operands(dy, w, x, vec, out)
     _check_rows(m)
     p = affine_dx_plan(m, k, n)
@@ -357,6 +426,34 @@ def affine_dx(dy, w, x, vec, out, *, ste=False):
     build.check(code, "affine_dx")
     affine_dx.launches += 1
     affine_dx.option_launches += bool(ste)
+    return out
+
+
+def _f32_gate_operands(what, dy, w, x, vec, out, ste):
+    """The checks of a float32 dx form's operands (all float32); the
+    gate's vector arguments."""
+    _f32_unquantized(what, ste=ste)
+    for name, t in (("dy", dy), ("w", w), ("x", x), ("out", out)):
+        _check_view(t, name, (F32,))
+    _check_contig_f32(vec, "vec", dy.device)
+    _check_rows(dy.shape[0])
+    return _vec_args(vec, dy.shape[0], x.shape[1])
+
+
+def _affine_dx_f32(dy, w, x, vec, out, ste):
+    """``affine_dx``'s float32 form: the float32 product kernel
+    (``buf_ops.launch_affine_f32``) of dy through W^T (the K rows of w
+    transposed into a contiguous (N, K) operand), no prologue, the ReLU
+    gate of x's per-tile affine in its epilogue: dy and W^T each split into
+    three bf16 planes, six plane products a k16 step."""
+    inv, shift, vstride, tile_rows = _f32_gate_operands(
+        "affine_dx", dy, w, x, vec, out, ste)
+    wt = w[:x.shape[1]].t().contiguous()
+    code = launch_affine_f32(dy, 0, 0, vstride, tile_rows, wt, out,
+                             gate=(x, inv, shift))
+    build.check(code, "affine_dx (float32)")
+    affine_dx.launches += 1
+    affine_dx.f32_launches += 1
     return out
 
 
@@ -514,6 +611,8 @@ def conv3x3_dx(dy, w3p, b, h, w, x, vec, out, *, ste=False):
     _check_tile_vec(vec, cb, m)
     if dy.device.type == "cpu":
         return conv3x3_dx_plain(dy, w3p, b, h, w, x, vec, out, ste)
+    if dy.dtype == F32:
+        return _conv3x3_dx_f32(dy, w3p, h, w, x, vec, out, ste)
     inv, shift, vstride, tile_rows = _dx_operands(dy, w3p, x, vec, out)
     _check_rows(m)
     p = conv3x3_dx_plan(m, h, w, cb, g, m // tile_rows)
@@ -526,6 +625,32 @@ def conv3x3_dx(dy, w3p, b, h, w, x, vec, out, *, ste=False):
     build.check(code, "conv3x3_dx")
     conv3x3_dx.launches += 1
     conv3x3_dx.option_launches += bool(ste)
+    return out
+
+
+def flip_w3(w3p: torch.Tensor) -> torch.Tensor:
+    """The packed (9*Cb, G) 3x3 weight as the forward conv's of its
+    transpose: (9*G, Cb), tap t's rows the transposed rows of tap 8 - t.
+    The SAME conv of dy through it is the input gradient of the conv."""
+    cb, g = w3p.shape[0] // 9, w3p.shape[1]
+    return (w3p.view(3, 3, cb, g).flip(0, 1).permute(0, 1, 3, 2)
+            .reshape(9 * g, cb).contiguous())
+
+
+def _conv3x3_dx_f32(dy, w3p, h, w, x, vec, out, ste):
+    """``conv3x3_dx``'s float32 form: the float32 product kernel's
+    implicit GEMM (``buf_ops.launch_conv3x3_f32``) of dy through
+    ``flip_w3(w3p)``, no prologue, the ReLU gate of x's per-tile BN2
+    affine in its epilogue (after the split-K partials are added, where
+    the plan splits K)."""
+    inv, shift, vstride, tile_rows = _f32_gate_operands(
+        "conv3x3_dx", dy, w3p, x, vec, out, ste)
+    code = launch_conv3x3_f32(dy, flip_w3(w3p), h, w, out,
+                              pro=(0, 0, vstride, tile_rows),
+                              gate=(x, inv, shift))
+    build.check(code, "conv3x3_dx (float32)")
+    conv3x3_dx.launches += 1
+    conv3x3_dx.f32_launches += 1
     return out
 
 
@@ -652,6 +777,8 @@ def affine_dw(x, vec, dy, out, *, bits_i=0):
     _check_bits(bits_i)
     if x.device.type == "cpu":
         return affine_dw_plain(x, vec, dy, out, bits_i)
+    if x.dtype == F32:
+        return _dw_f32(affine_dw, x, vec, dy, out, bits_i)
     inv, shift, vstride, tile_rows = _dw_operands(x, vec, dy, out)
     _check_rows(m)
     p = affine_dw_plan(m, k, n)
@@ -665,6 +792,76 @@ def affine_dw(x, vec, dy, out, *, bits_i=0):
     sum_rows(part, out)
     affine_dw.launches += 1
     affine_dw.option_launches += bits_i > 0
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class Dw3Plan:
+    """How the float32 weight-gradient kernel (``csrc/f32_kernels.cu``
+    ``dw3_kernel``) cuts z^T dy for R output rows (K channels, or 9*Cb
+    tap-major) and N columns over M rows: blocks of ``DOT3_ROWS`` output
+    rows by ``bn`` columns, M in chunks of ``DOT3_DEPTH`` rows, the chunks
+    in ``splits`` runs, each summed into one (R, N) partial; ``smem``
+    bytes of shared memory (three bf16 planes of the z chunk, depth-major,
+    and of the dy chunk, then the warps' stages)."""
+    bn: int
+    splits: int
+    smem: int
+
+    def grid(self, r: int, n: int):
+        return -(-r // DOT3_ROWS), -(-n // self.bn), self.splits
+
+    def chunks(self, m: int):
+        """The chunks of M each split sums, in the order ``sum_rows`` adds
+        the partials."""
+        nch = -(-m // DOT3_DEPTH)
+        return [range(s * nch // self.splits, (s + 1) * nch // self.splits)
+                for s in range(self.splits)]
+
+
+@functools.lru_cache(maxsize=None)
+def dw3_plan(m: int, r: int, n: int) -> Dw3Plan:
+    """The plan of the float32 weight gradients at these shapes (a
+    function of them alone): ``dot3_plan``'s column tile for N, and as
+    many splits of M as bring the blocks to ``DW3_BLOCKS`` with at least
+    two chunks a split."""
+    bn = dot3_plan(n).bn
+    gr, gn, _ = Dw3Plan(bn, 1, 0).grid(r, n)
+    nch = -(-m // DOT3_DEPTH)
+    splits = max(1, min(DW3_BLOCKS // (gr * gn), nch // 2))
+    planes = 3 * 2 * DOT3_DEPTH * ((DOT3_ROWS + 8) + (bn + 8))
+    return Dw3Plan(bn=bn, splits=splits,
+                   smem=_up(planes, 128) + DOT_WARPS * 16 * 16 * 4)
+
+
+def _dw_f32(kern, x, vec, dy, out, bits_i, hw=None):
+    """The float32 form of ``affine_dw`` (``hw`` None) or of
+    ``conv3x3_dw`` (``hw`` = (h, w)): ``dw3_kernel``'s partials of
+    ``dw3_plan``, added in order by ``sum_rows``."""
+    _f32_unquantized(kern.__name__, bits_i=bits_i)
+    _check_view(x, "x", (F32,))
+    _check_view(dy, "dy", (F32,))
+    _check_contig_f32(out, "out", x.device)
+    _check_contig_f32(vec, "vec", x.device)
+    if vec.shape[-1] % 4:
+        raise ValueError(f"vec width {vec.shape[-1]}: the float32 weight "
+                         f"gradients read it as 16-byte vectors")
+    m, c = x.shape
+    n = dy.shape[1]
+    _check_rows(m)
+    inv, shift, vstride, tile_rows = _vec_args(vec, m, c)
+    r = c if hw is None else 9 * c
+    p = dw3_plan(m, r, n)
+    part = torch.empty(p.splits, r, n, device=x.device, dtype=torch.float32)
+    h, w = hw if hw is not None else (0, 0)
+    code = build.lib().cunet_dw_f32(
+        x.data_ptr(), x.stride(0), m, c, h, w, int(hw is not None), inv,
+        shift, vstride, tile_rows, dy.data_ptr(), dy.stride(0), n,
+        part.data_ptr(), p.bn, p.smem, p.splits, _stream(x))
+    build.check(code, f"{kern.__name__} (float32)")
+    sum_rows(part, out)
+    kern.launches += 1
+    kern.f32_launches += 1
     return out
 
 
@@ -770,6 +967,8 @@ def conv3x3_dw(x, vec, dy, b, h, w, out, *, bits_i=0):
     _check_bits(bits_i)
     if x.device.type == "cpu":
         return conv3x3_dw_plain(x, vec, dy, b, h, w, out, bits_i)
+    if x.dtype == F32:
+        return _dw_f32(conv3x3_dw, x, vec, dy, out, bits_i, (h, w))
     inv, shift, vstride, tile_rows = _dw_operands(x, vec, dy, out)
     _check_rows(m)
     p = conv3x3_dw_plan(m, h, w, cb, g)
@@ -854,9 +1053,11 @@ class BnBwdPlan:
                      min(tile_rows, (rank + 1) * self.rpb))
 
 
-def _bn_bwd_layout(cb: int, cs: int, tile_rows: int) -> BnBwdPlan:
+def _bn_bwd_layout(cb: int, cs: int, tile_rows: int,
+                   xb: int = 2) -> BnBwdPlan:
     def smem(slots, rc):       # the buffers, the warps', block's, tile's sums
-        return slots * rc * cb * 6 + (2 * BN_BWD_THREADS // 32 + 4) * cb * 4
+        return (slots * rc * cb * (xb + 4)
+                + (2 * BN_BWD_THREADS // 32 + 4) * cb * 4)
 
     stripes = BN_BWD_THREADS // (cb // 8)
     rpb = -(-tile_rows // cs)
@@ -868,7 +1069,8 @@ def _bn_bwd_layout(cb: int, cs: int, tile_rows: int) -> BnBwdPlan:
                      smem=smem(slots, rc))
 
 
-def bn_bwd_plan(m: int, tile_rows: int, k: int) -> BnBwdPlan:
+def bn_bwd_plan(m: int, tile_rows: int, k: int,
+                f32: bool = False) -> BnBwdPlan:
     """The kernel plan of ``bn_bwd`` at these shapes (a function of them
     alone). Channel blocks of 64 or 32 where they divide K (else 16). The
     widest channel block, then the smallest cluster (1-8 blocks a tile,
@@ -877,19 +1079,21 @@ def bn_bwd_plan(m: int, tile_rows: int, k: int) -> BnBwdPlan:
     too few for that (r <= 8 on the main path), one block a tile of the
     narrowest channel block: smaller clusters and blocks were slower
     there (PERF.md section 6, PR 10). Where they are too many for shared
-    memory, the ring in clusters of ``BN_BWD_CLUSTER``."""
+    memory, the ring in clusters of ``BN_BWD_CLUSTER``. With ``f32`` the
+    buffers hold float32 x (8 bytes an element with d_a, 6 at bf16)."""
     tiles = m // tile_rows
+    xb = 4 if f32 else 2
     cbs = [c for c in (64, 32) if k % c == 0] or [16]
     for cb in cbs:
         for cs in (1, 2, 4, BN_BWD_CLUSTER):
-            p = _bn_bwd_layout(cb, cs, tile_rows)
+            p = _bn_bwd_layout(cb, cs, tile_rows, xb)
             if cs > 1 and p.rpb < BN_BWD_MIN_ROWS:
                 break
             if p.resident and p.blocks(tiles, k) >= BN_BWD_BLOCKS:
                 return p
-    p = _bn_bwd_layout(cbs[-1], 1, tile_rows)
+    p = _bn_bwd_layout(cbs[-1], 1, tile_rows, xb)
     return p if p.resident else _bn_bwd_layout(cbs[-1], BN_BWD_CLUSTER,
-                                               tile_rows)
+                                               tile_rows, xb)
 
 
 def bn_bwd(x, d_a, stats, bn, eps, d_x, dbn, *, accumulate=False):
@@ -916,7 +1120,9 @@ def bn_bwd(x, d_a, stats, bn, eps, d_x, dbn, *, accumulate=False):
     tiles by ``sum_rows``; no atomics, so two calls give the same bits. On
     an H100 80GB HBM3 at 700 W (PERF.md section 6, PR 10): 103.3 us at
     r=64, K=192 with its ``sum_rows`` (the kernel before it 321.7,
-    ``native_batch_norm_backward`` 142.2), 4.9 at r=4.
+    ``native_batch_norm_backward`` 142.2), 4.9 at r=4. A float32 x runs
+    the kernel at float32 (x staged as float32, ``bn_bwd_plan(...,
+    f32=True)``).
     """
     m, k = x.shape
     if tuple(d_a.shape) != (m, k) or tuple(d_x.shape) != (m, k) \
@@ -930,21 +1136,23 @@ def bn_bwd(x, d_a, stats, bn, eps, d_x, dbn, *, accumulate=False):
     if x.device.type == "cpu":
         return bn_bwd_plain(x, d_a, stats, bn, eps, d_x, dbn, accumulate)
     dev = x.device
-    _check_view(x, "x")
+    _check_view(x, "x", (BF16, F32))
     _check_f32(d_a, "d_a", dev)
     _check_f32(d_x, "d_x", dev)
     _check_contig_f32(stats, "stats", dev)
     _check_contig_f32(bn, "bn", dev)
     _check_contig_f32(dbn, "dbn", dev)
-    p = bn_bwd_plan(m, tile_rows, k)
+    f32 = x.dtype == F32
+    p = bn_bwd_plan(m, tile_rows, k, f32)
     part = torch.empty(stats.shape[0], 2, k, device=dev, dtype=torch.float32)
     code = build.lib().cunet_bn_bwd(
         x.data_ptr(), x.stride(0), d_a.data_ptr(), d_a.stride(0), m,
         tile_rows, k, stats.data_ptr(), bn[0].data_ptr(), float(eps),
         d_x.data_ptr(), d_x.stride(0), int(accumulate), part.data_ptr(),
-        p.cb, p.cs, p.rpb, p.rc, p.slots, p.smem, _stream(x))
+        p.cb, p.cs, p.rpb, p.rc, p.slots, p.smem, int(f32), _stream(x))
     build.check(code, "bn_bwd")
     bn_bwd.launches += 1
+    bn_bwd.f32_launches += f32
     sum_rows(part, dbn)
     return d_x
 
@@ -984,6 +1192,8 @@ def maxpool2_bwd(ahead, d_pool, b, h, w, out):
     comparing with the forward's saved pooled values, so a rounding-
     divergent recompute cannot zero a window and an exact tie cannot count
     twice. Pure data movement; one thread per 8 channels of a window.
+    Float32 ahead and out: the same kernel at float32 (the window compared
+    unrounded, the cotangent written unrounded).
     """
     m, c = ahead.shape
     if m != b * h * w or h % 2 or w % 2 or tuple(out.shape) != (m, c) \
@@ -993,15 +1203,18 @@ def maxpool2_bwd(ahead, d_pool, b, h, w, out):
                          f"{tuple(out.shape)}, image {b}x{h}x{w}")
     if ahead.device.type == "cpu":
         return maxpool2_bwd_plain(ahead, d_pool, b, h, w, out)
-    _check_view(ahead, "ahead")
-    _check_view(out, "out")
+    _check_view(ahead, "ahead", (BF16, F32))
+    _check_view(out, "out", (BF16, F32))
+    _check_dtypes(ahead, out=out)
     _check_f32(d_pool, "d_pool", ahead.device)
+    f32 = ahead.dtype == F32
     code = build.lib().cunet_maxpool2_bwd(
         ahead.data_ptr(), ahead.stride(0), d_pool.data_ptr(),
         d_pool.stride(0), out.data_ptr(), out.stride(0), b, h, w, c,
-        _stream(ahead))
+        int(f32), _stream(ahead))
     build.check(code, "maxpool2_bwd")
     maxpool2_bwd.launches += 1
+    maxpool2_bwd.f32_launches += f32
     return out
 
 
@@ -1018,7 +1231,8 @@ def upsample2_bwd(d_up, b, h, w, out):
     ``out``'s dtype.
 
     Replaces ``cunet_tpu/kernels/train_slot.py::_upsample_bwd``. Pure data
-    movement; one thread per 8 channels of a low-resolution pixel.
+    movement; one thread per 8 channels of a low-resolution pixel. A
+    float32 ``out`` takes the sum unrounded.
     """
     c = d_up.shape[1]
     if d_up.shape[0] != 4 * b * h * w or tuple(out.shape) != (b * h * w, c):
@@ -1027,12 +1241,14 @@ def upsample2_bwd(d_up, b, h, w, out):
     if d_up.device.type == "cpu":
         return upsample2_bwd_plain(d_up, b, h, w, out)
     _check_f32(d_up, "d_up", d_up.device)
-    _check_view(out, "out")
+    _check_view(out, "out", (BF16, F32))
+    f32 = out.dtype == F32
     code = build.lib().cunet_upsample2_bwd(
         d_up.data_ptr(), d_up.stride(0), out.data_ptr(), out.stride(0), b, h,
-        w, c, _stream(d_up))
+        w, c, int(f32), _stream(d_up))
     build.check(code, "upsample2_bwd")
     upsample2_bwd.launches += 1
+    upsample2_bwd.f32_launches += f32
     return out
 
 
@@ -1045,6 +1261,8 @@ PLAIN = {bn_stats: bn_stats_plain, affine_dx: affine_dx_plain,
          sum_rows: sum_rows_plain}
 OPTIONS = {affine_dx: "ste", conv3x3_dx: "ste", affine_dw: "bits_i",
            conv3x3_dw: "bits_i"}
+# the wrappers with a float32 form (sum_rows is float32 at every dtype)
+F32_FORMS = KERNELS[:-1]
 
 
 def reset_launch_counts() -> None:
@@ -1059,4 +1277,10 @@ def option_counts() -> dict:
     return count_options(OPTIONS)
 
 
+def f32_counts() -> dict:
+    return count_f32(F32_FORMS)
+
+
+for _k in F32_FORMS:
+    _k.f32_launches = 0
 reset_launch_counts()

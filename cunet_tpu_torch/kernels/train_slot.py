@@ -34,7 +34,8 @@ output and, for pooling, the ahead output.
 Numerics: the kernels' BN affine runs in float32 from float32 [inv; shift]
 and rounds once to bf16 (the per-tile form of the eval prologue), where the
 JAX kernel's ``_norm_relu`` runs it in the compute dtype; with a float32
-compute dtype (the CPU tests) the two are the same computation. Statistics
+compute dtype the two are the same computation (on the card the kernels'
+float32 forms, float32-accurate products, take float32 buffers). Statistics
 are taken from the bf16 stage inputs and the out32s are rounded before
 their statistics, as ``_slot_fwd_kernel`` rounds them.
 

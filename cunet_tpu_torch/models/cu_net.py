@@ -65,14 +65,14 @@ exist to cut XLA compile time; here every slot runs in a plain loop, and
 
 The hand-written kernels take bfloat16 on every path and float32
 (``compute_dtype="float32"``, JAX's default) on the float eval paths and
-in whole-batch BN training (``bn_tile=0``): the whole-model, per-slot,
-per-block and per-bottleneck eval kernels, the per-bottleneck train
-kernel #7 and the dropout-mask kernel have float32 forms whose products
-are float32-accurate. ``use_pallas`` on a CUDA device with float32 in
-ghost-BN training (``bn_tile > 0``: the slot kernels #8/#9) or in a
-quantized eval, or with any other dtype, raises
-(:func:`check_kernel_dtype`); on the CPU the kernels' plain versions run
-in any dtype.
+in unquantized training: the whole-model, per-slot, per-block and
+per-bottleneck eval kernels, the slot train kernels #8/#9 (ghost-BN
+training, ``bn_tile > 0``, plain and with dropout), the per-bottleneck
+train kernel #7 (``bn_tile=0``) and the dropout-mask kernel have float32
+forms whose products are float32-accurate. ``use_pallas`` on a CUDA
+device with float32 in quantized ghost-BN training or in a quantized
+eval, or with any other dtype, raises (:func:`check_kernel_dtype`); on
+the CPU the kernels' plain versions run in any dtype.
 ``conv3x3_impl="scatter"`` runs every dense layer's 3x3 conv as JAX's
 scatter form (:func:`cunet_tpu_torch.ops.layers.conv3x3_scatter`).
 
@@ -735,15 +735,17 @@ def check_kernel_dtype(cfg: ModelConfig, device, *, train: bool = False,
     path (``use_pallas`` on a CUDA ``device``) in a dtype its kernels do not
     take. bfloat16 runs every path. float32 runs the float eval paths (the
     whole-model, per-slot, per-block and per-bottleneck kernels have
-    float32 forms) and whole-batch BN training (``bn_tile=0``: #7 and the
-    mask kernel have float32 forms; quantized training too, its quantizer
-    being plain PyTorch there); ghost-BN training (``bn_tile > 0``, the
-    slot kernels #8/#9) and a quantized float32 eval (an enabled
-    ``quant``: its int8 kernels take bf16 activations) do not yet (ROADMAP
-    queue B item 4). float32 whole-batch BN training with more than #7's
-    ``F32_GROUPS`` feature groups at a bottleneck (``order`` above 13)
-    raises too. Any other dtype raises. On the CPU the kernels' plain
-    versions run in any dtype."""
+    float32 forms), ghost-BN training (``bn_tile > 0``: the slot kernels
+    #8/#9 and the mask kernel have float32 forms, plain and with dropout)
+    and whole-batch BN training (``bn_tile=0``: #7 and the mask kernel;
+    quantized training too, its quantizer being plain PyTorch there);
+    quantized ghost-BN training (an enabled ``quant``: the slot kernels'
+    QuanInput options) and a quantized float32 eval (its int8 kernels take
+    bf16 activations) do not yet (ROADMAP queue B item 4). float32
+    whole-batch BN training with more than #7's ``F32_GROUPS`` feature
+    groups at a bottleneck (``order`` above 13) raises too. Any other
+    dtype raises. On the CPU the kernels' plain versions run in any
+    dtype."""
     if not cfg.use_pallas or torch.device(device).type != "cuda" \
             or cfg.compute_dtype == "bfloat16":
         return
@@ -758,17 +760,18 @@ def check_kernel_dtype(cfg: ModelConfig, device, *, train: bool = False,
                 f"order <= {F32_GROUPS - 3} (use_pallas=False runs it on the "
                 f"plain path)")
         return
-    if cfg.compute_dtype == "float32" and not train and _active(quant) is None:
+    if cfg.compute_dtype == "float32" and _active(quant) is None:
         return
-    what = ("ghost-BN training (bn_tile > 0)" if train else "quantized eval"
-            if cfg.compute_dtype == "float32" else "any path")
+    what = ("quantized ghost-BN training (bn_tile > 0)" if train
+            else "quantized eval") if cfg.compute_dtype == "float32" \
+        else "any path"
     raise NotImplementedError(
         f"the CUDA kernels take {cfg.compute_dtype!r} nowhere for {what}: "
         f"use_pallas on {device} needs compute_dtype='bfloat16' there (the "
-        f"float32 forms cover the float eval and bn_tile=0 training; the "
-        f"float32 forms of the slot train kernels #8/#9 and of the "
-        f"quantized eval are ROADMAP queue B item 4; use_pallas=False runs "
-        f"it on the plain path)")
+        f"float32 forms cover the float eval, ghost-BN training and "
+        f"bn_tile=0 training; the quantized forms at float32, the slot "
+        f"train kernels' QuanInput options and the int8 eval, are ROADMAP "
+        f"queue B item 4; use_pallas=False runs it on the plain path)")
 
 
 def eval_slots(params, state, cfg: ModelConfig, quant=None):
@@ -958,7 +961,7 @@ def apply_cu_net(params, state, x: torch.Tensor, *, cfg: ModelConfig,
 
     Raises ``NotImplementedError`` for ``use_pallas`` on a CUDA tensor in
     a dtype its kernels do not take: bfloat16 runs every path, float32 the
-    float eval and whole-batch BN training (:func:`check_kernel_dtype`).
+    float eval and unquantized training (:func:`check_kernel_dtype`).
     """
     quant = _active(quant)
     check_kernel_dtype(cfg, x.device, train=train, quant=quant)

@@ -20,13 +20,18 @@ kernels (``conv3x3[bits_i]``, ``conv3x3_dw[bits_i]`` and
 (``bwd_reduce`` at every resolution) and phase 7's mask kernel
 (``drop_mask``), phase 10 (``table_dot``'s forms) and phase 11 (a)
 (``[up]``, ``[pool]``, ``[scale]``; a checkout needs them) and, where the
-checkout has them, phase 12 (a) (the float32 eval forms) and phase 13 (a)
-(the float32 forms of #7 and of the mask kernel): each case against its
+checkout has them, phase 12 (a) (the float32 eval forms), phase 13 (a)
+(the float32 forms of #7 and of the mask kernel) and phase 14 (a) (the
+float32 forms F1-F10 of the slot kernels #8/#9, at r = 64 ... 4 and
+tiles 2 and 6): each case against its
 plain version, timed by CUDA-graph replay beside its library call (or
 ``torch.mm`` of its product alone) and bound. It also prints a digest of
 the bf16 outputs of #7's four kernels and of ``drop_mask`` on fixed
 operands (phase 9's at r=64 and r=4, seeded): two checkouts whose digests
-agree give those outputs bit for bit. Then the
+agree give those outputs bit for bit; and the digest of phase 5's bf16
+ghost-BN kernel step (``chip_smoke.step_digest`` of its loss and grads,
+CU-Net-8 @256, batch 24, tile 2), which the smoke prints for its own
+checkout. Then the
 forward of CU-Net-8 @256 at batch 8 and 64, three wall-clock times each:
 the per-slot path (JAX's default flags) and the whole-model path
 (``pallas_whole_model``, the main path's serving forward), at bf16 and,
@@ -129,6 +134,12 @@ def main(argv=None) -> int:
     print(f"bf16 output digests: "
           f"{bf16_digests(torch, cs, train_bottleneck, drop_ops)}",
           flush=True)
+    cfg, params, state, batch = cs.flagship_train(torch)
+    loss, grads, _ = cs._grads(torch, cfg, params, state, batch["image"],
+                               batch["heatmap"])
+    print(f"bf16 ghost-BN kernel step digest "
+          f"{cs.step_digest(torch, loss, grads)}", flush=True)
+    del grads, params, state, batch
     cs.phase_eval_kernels(torch, eval_ops)
     cs.phase_block_kernels(torch, buf_ops, eval_ops)
     # the float32 forms, where the checkout has them
@@ -138,6 +149,8 @@ def main(argv=None) -> int:
         dtypes.append("float32")
     if hasattr(train_bottleneck, "f32_counts"):
         cs.phase_bn0_f32_kernels(torch, train_bottleneck, drop_ops)
+    if hasattr(train_ops, "f32_counts"):
+        cs.phase_slot_f32_kernels(torch, train_ops, buf_ops)
     for dtype in dtypes:
         cfg = ModelConfig(layer_num=8, order=1, class_num=16, loss_num=8,
                           compute_dtype=dtype, use_pallas=True)

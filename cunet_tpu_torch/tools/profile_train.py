@@ -12,8 +12,10 @@ dense-layer dropout (seeds from a generator, one set per step);
 bits_i=8, bits_g=8, enabled=True)``; ``--bn_tile 0`` trains with
 whole-batch BN statistics (the kernel path then runs every bottleneck and
 adapter on the per-bottleneck train kernel); ``--dtype float32`` trains at
-``compute_dtype="float32"`` (``bn_dtype`` float32; on the kernel path with
-``--bn_tile 0`` only, #7's float32 forms). Prints the host wall time per
+``compute_dtype="float32"`` (``bn_dtype`` float32: on the kernel path the
+float32 forms of the slot kernels #8/#9 at ``--bn_tile`` 2 or 6, of #7 at
+``--bn_tile 0``; not with ``--quant`` at ghost-BN tiles). Prints the host
+wall time per
 step, the device time by category (the hand-written kernels, cuDNN and
 cuBLAS, the optimizer's fused update, the rest of torch), by kernel name
 and by function (a template's instances summed), launches per step and

@@ -1496,19 +1496,21 @@ def test_face_head_on_every_kernel_path(gen):
 
 
 def test_f32_kernel_path_raises(gen):
-    """float32 runs the float eval kernel paths and bn_tile=0 training;
-    float32 ghost-BN training and the quantized float32 eval raise
-    (ROADMAP queue B item 4)."""
+    """float32 runs the float eval kernel paths, ghost-BN training and
+    bn_tile=0 training; quantized float32 ghost-BN training and the
+    quantized float32 eval raise (ROADMAP queue B item 4)."""
     cfg = ModelConfig(layer_num=2, order=1, loss_num=2, class_num=8,
                       **{**SMALL, "compute_dtype": "float32"})
     params, state = init_cu_net(cfg, gen, device="cuda")
     x = torch.rand(1, 64, 64, 3, generator=gen).cuda()
     with pytest.raises(NotImplementedError, match="queue B item 4"):
         apply_cu_net(params, state, x, cfg=dataclasses.replace(
-            cfg, bn_tile=1), train=True)
-    outs, _ = apply_cu_net(params, state, x, train=True,
-                           cfg=dataclasses.replace(cfg, bn_tile=0))
-    assert outs[-1].dtype == torch.float32
+            cfg, bn_tile=1), train=True, quant=dataclasses.replace(
+                INT8, int8_infer=False))
+    for tile in (1, 0):
+        outs, _ = apply_cu_net(params, state, x, train=True,
+                               cfg=dataclasses.replace(cfg, bn_tile=tile))
+        assert outs[-1].dtype == torch.float32
     qp = quant_eval_params(params, INT8)
     for c in (cfg, dataclasses.replace(cfg, pallas_whole_model=True)):
         with pytest.raises(NotImplementedError, match="bfloat16"):
@@ -2278,3 +2280,132 @@ def test_bn_tile0_f32_kernel_step_matches_plain_and_remat(gen):
         if gs[k].norm() > 0:
             c = max(_rel(gc[k], gs[k]) for gc in gcs)
             assert _rel(gk[k], gs[k]) <= max(2 * c, 1e-5), k
+
+
+# ---------------------------------------------------------------------------
+# the float32 forms of the slot train kernels #8/#9: ghost-BN training at
+# float32 (the ten forms F1-F10, their cases and checks from chip_smoke.py)
+# ---------------------------------------------------------------------------
+
+import sys  # noqa: E402
+from pathlib import Path  # noqa: E402
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+import chip_smoke  # noqa: E402
+from cunet_tpu_torch.kernels import train_slot  # noqa: E402
+from cunet_tpu_torch.tools import f32_step_gap  # noqa: E402
+
+
+@pytest.mark.parametrize("r", [64, 32, 16, 8, 4])
+@pytest.mark.parametrize("tile", [2, 6])
+def test_slot_f32_forms(gen, r, tile):
+    """Each of the ten forms at float32 against its plain version at the
+    CU-Net-8 @256 step's shapes (batch 24, ghost-BN tiles of 2 and 6
+    images: 32 and 96 rows at r=4), every output within the float32
+    n-term limit 1e-5 sqrt(n) max|p|, each launch a float32 launch."""
+    o = chip_smoke.slot_f32_operands(torch, train_ops, gen, r, tile)
+    plain = {**buf_ops.PLAIN, **train_ops.PLAIN}
+    for row, kern, label, call, bounds, *_ in chip_smoke.slot_f32_cases(
+            torch, train_ops, buf_ops, o):
+        before = kern.f32_launches
+        got, want = call(kern), call(plain[kern])
+        torch.cuda.synchronize()
+        assert kern.f32_launches == before + 1, row
+        err, share, ok = chip_smoke.output_errors(torch, got, want, bounds)
+        assert ok, (row, label, err, share)
+
+
+def test_slot_f32_one_hot_and_bf16_dy(gen):
+    """At r=64, tile 2: every product form bit for bit an exact reference
+    under one-hot operands, and one bf16 pass of the cotangent breaking
+    each input gradient's float32 limit."""
+    o = chip_smoke.slot_f32_operands(torch, train_ops, gen, 64, 2)
+    same = chip_smoke.slot_f32_exact_checks(torch, train_ops, buf_ops, o,
+                                            gen)
+    assert all(same.values()), same
+
+
+# tile-preserving permutations of the 2-slot step check's controls
+SLOT_STEP_PERMS = 7
+
+
+@pytest.mark.parametrize("tile", [2, 4])
+def test_slot_f32_step_matches_swap_step(gen, tile):
+    """Two slots at float32, ghost-BN tiles: every stage on the ten forms
+    (each launched); against the swap step (the same path with the forms'
+    plain versions swapped in) the loss, each gradient leaf and each BN
+    running stat within max(2c, 1e-5) relative (L2), c that number's
+    largest distance over ten controls of the swap step: the batch
+    permuted seven ways with every image kept in its tile (the same
+    function, its row sums in another order; batch 4 has seven at tile 2)
+    and, three seeds, every product's output moved by one ulp in half its
+    elements (``f32_step_gap.ulp_noise``: the products' own rounding,
+    which the kernels change and no permutation reaches). Against the
+    permutations alone the kernel step lies 2.4-2.5x past the stem's BN
+    gradients' largest at tile 2, where no permutation lies past 2x the
+    others' and the one-ulp controls lie past 2x them at up to 47 of 114
+    leaves (``tools/f32_step_gap.py``, PERF.md section 6).
+    A planted fault, ``affine_dw``'s kernel on the cotangent rounded once
+    to bf16, must break that limit. A repeated step bit for bit; with
+    dropout 0.2 the masks on the mask kernel's float32 form, bit for bit
+    the step with the plain mask (cuDNN deterministic)."""
+    cfg = ModelConfig(layer_num=2, order=1, loss_num=2, class_num=8,
+                      **{**SMALL, "compute_dtype": "float32"}, bn_tile=tile,
+                      bn_dtype="float32")
+    params, state = init_cu_net(cfg, gen, device="cuda")
+    x = torch.rand(4, 64, 64, 3, generator=gen).cuda()
+    t = torch.rand(4, 16, 16, 8, generator=gen).cuda()
+    seeds = dropmask.draw_slot_seeds(torch.Generator().manual_seed(1), 2)
+
+    def grads(c, x, t, **kw):
+        return chip_smoke._grads(torch, c, params, state, x, t, **kw)
+
+    def faulty_dw(x, vec, dy, out, **kw):
+        return kernel_dw(x, vec, dy.bfloat16().float(), out, **kw)
+
+    perms = [q.cuda() for q in chip_smoke.tile_perms(torch, 4, tile,
+                                                      SLOT_STEP_PERMS)]
+    drop = dataclasses.replace(cfg, drop_rate=0.2)
+    kernel = train_slot.drop_mask        # the slot path calls it by name
+    kernel_dw = train_slot.affine_dw
+    torch.backends.cudnn.deterministic = True
+    try:
+        train_ops.reset_launch_counts()
+        buf_ops.reset_launch_counts()
+        k = grads(cfg, x, t)
+        counts = chip_smoke.slot_f32_counts(train_ops, buf_ops)
+        assert all(counts.values()), counts
+        k2 = grads(cfg, x, t)
+        with chip_smoke.slot_plain_swapped():
+            train_ops.reset_launch_counts()
+            buf_ops.reset_launch_counts()
+            s = grads(cfg, x, t)
+            ctl = [grads(cfg, x[q], t[q]) for q in perms]
+            assert not any(chip_smoke.slot_f32_counts(
+                train_ops, buf_ops).values())
+        for i in range(3):
+            noisy = f32_step_gap.slot_swap(gen=torch.Generator(
+                device="cuda").manual_seed(23 + i))
+            with f32_step_gap.patched(train_slot, **noisy):
+                ctl.append(grads(cfg, x, t))
+        with f32_step_gap.patched(train_slot, affine_dw=faulty_dw):
+            fault = grads(cfg, x, t)
+        drop_ops.reset_launch_counts()
+        ld, gd, _ = grads(drop, x, t, drop_seeds=seeds)
+        assert drop_ops.f32_counts()["drop_mask[f32]"] > 0
+        train_slot.drop_mask = drop_ops.PLAIN[kernel]
+        lm, gm, _ = grads(drop, x, t, drop_seeds=seeds)
+    finally:
+        train_slot.drop_mask = kernel
+        torch.backends.cudnn.deterministic = False
+    assert k2[0] == k[0] and all(torch.equal(k2[1][n], k[1][n])
+                                 for n in k[1])
+    assert ld == lm and all(torch.equal(gd[n], gm[n]) for n in gd)
+    got = chip_smoke.step_leaves(torch, k, s)
+    ctrl = [chip_smoke.step_leaves(torch, cc, s) for cc in ctl]
+    lim = {n: max(2 * max(d[n] for d in ctrl), 1e-5) for n in got}
+    over = {n: (got[n], lim[n]) for n in got if not got[n] <= lim[n]}
+    assert not over, over
+    planted = chip_smoke.step_leaves(torch, fault, s)
+    caught = [n for n in lim if planted[n] > lim[n]]
+    assert caught, {n: (planted[n], lim[n]) for n in lim}

@@ -19,10 +19,11 @@ the port's own forward at full width: each fits the H100's shared memory,
 covers every output once (a split conv's chunks once each), and is a
 function of the shapes alone.
 
-(c) ``check_kernel_dtype``: a float32 eval and float32 whole-batch BN
+(c) ``check_kernel_dtype``: a float32 eval, float32 ghost-BN training
+(``bn_tile > 0``, plain and with dropout) and float32 whole-batch BN
 training (``bn_tile=0``, every remat policy, dropout, quantized training)
-run on the card's kernel paths; float32 ghost-BN training (``bn_tile >
-0``) and a quantized float32 eval raise.
+run on the card's kernel paths; quantized float32 ghost-BN training and a
+quantized float32 eval raise.
 """
 
 import dataclasses
@@ -63,9 +64,9 @@ X_SPLIT_ONLY = ((2, 0), (1, 0), (0, 0))
 
 def dot3_mirror(x, w, order=ORDER, w_planes=3):
     """x (M, K) @ w (K, N) as the kernel sums it: K zero-padded to 16, the
-    planes of x and of w (``w_planes`` 1: w rounded to bf16 once), and for
-    each k16 step the plane products of ``order`` into one float32
-    accumulator."""
+    planes of x and of w (``w_planes`` 1: w rounded to bf16 once), for
+    each k16 step the plane products of ``order`` into the 32-deep chunk's
+    float32 sum, each chunk's sum added to the output's (``add_acc3``)."""
     k = x.shape[1]
     kp = -(-k // 16) * 16
     xp = split_bf16x3(torch.nn.functional.pad(x, (0, kp - k)))
@@ -73,10 +74,13 @@ def dot3_mirror(x, w, order=ORDER, w_planes=3):
     if w_planes == 1:
         wp = (wp[0],)
     acc = torch.zeros(x.shape[0], w.shape[1])
-    for k0 in range(0, kp, 16):
-        for i, j in order:
-            acc = acc + xp[i][:, k0:k0 + 16].float() @ \
-                wp[j][k0:k0 + 16].float()
+    for c0 in range(0, kp, 32):
+        part = torch.zeros_like(acc)
+        for k0 in range(c0, min(c0 + 32, kp), 16):
+            for i, j in order:
+                part = part + xp[i][:, k0:k0 + 16].float() @ \
+                    wp[j][k0:k0 + 16].float()
+        acc = acc + part
     return acc
 
 
@@ -325,19 +329,23 @@ def test_f32_bn0_training_passes_the_guard(remat, drop, quant):
 
 @pytest.mark.parametrize("bn_tile", [0, 2])
 def test_f32_train_and_quantized_eval_on_the_card_raise(bn_tile):
-    """float32 training with ghost-BN tiles raises (the slot kernels #8/#9
-    have no float32 form yet), at bn_tile=0 it passes; the quantized
-    float32 eval raises at every bn_tile."""
+    """float32 training passes at every bn_tile, plain and with dropout
+    (ghost-BN tiles on the float32 forms of the slot kernels #8/#9);
+    quantized float32 training raises with ghost-BN tiles (the QuanInput
+    options at float32 are the next item, ROADMAP queue B item 4) and
+    passes at bn_tile=0; the quantized float32 eval raises at every
+    bn_tile."""
     cfg = ModelConfig(layer_num=2, order=1, loss_num=2, class_num=8,
                       compute_dtype="float32", use_pallas=True,
                       bn_tile=bn_tile)
+    check_kernel_dtype(cfg, "cuda", train=True)
+    check_kernel_dtype(dataclasses.replace(cfg, drop_rate=0.2), "cuda:0",
+                       train=True)
     if bn_tile:
         with pytest.raises(NotImplementedError, match="queue B item 4"):
-            check_kernel_dtype(cfg, "cuda", train=True)
-        with pytest.raises(NotImplementedError, match="#8/#9"):
             check_kernel_dtype(cfg, "cuda", train=True, quant=INT8)
     else:
-        check_kernel_dtype(cfg, "cuda", train=True)
+        check_kernel_dtype(cfg, "cuda", train=True, quant=INT8)
     for c in (cfg, dataclasses.replace(cfg, pallas_whole_model=True)):
         with pytest.raises(NotImplementedError, match="queue B item 4"):
             check_kernel_dtype(c, "cuda", quant=INT8)

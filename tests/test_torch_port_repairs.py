@@ -6,10 +6,10 @@ tests/test_torch_port_cuda.py).
    operand of ``buf_ops`` / ``quant_ops`` / ``train_ops`` moves 8-wide
    vectors, so the heads run at a width padded to a multiple of 8
    (``pad_cols``) and the heatmaps are its first ``class_num`` columns.
-2. An f32 model training with ghost-BN tiles, or a quantized f32 model
-   serving, on a CUDA kernel path: ``check_kernel_dtype`` raises
-   ``NotImplementedError`` naming the bf16 limit (the f32 eval and
-   whole-batch BN training have kernels).
+2. A quantized f32 model training with ghost-BN tiles, or serving, on a
+   CUDA kernel path: ``check_kernel_dtype`` raises
+   ``NotImplementedError`` naming the bf16 limit (the f32 eval, ghost-BN
+   and whole-batch BN training have kernels).
 3. ``conv3x3_impl="scatter"``: the dense layers run JAX's scatter form,
    which rounds its tap partials and their sums in bf16.
 """
@@ -147,16 +147,19 @@ def test_slot_train_head_runs_at_vector_width(monkeypatch):
 
 
 def test_f32_kernel_path_on_the_card_raises():
-    """f32 ghost-BN training and a quantized f32 eval on a CUDA kernel path
-    raise; the f32 eval and f32 whole-batch BN training (``bn_tile=0``)
-    run there (tests/test_torch_port_f32_forms.py (c))."""
+    """Quantized f32 ghost-BN training and a quantized f32 eval on a CUDA
+    kernel path raise; the f32 eval, f32 ghost-BN training and f32
+    whole-batch BN training (``bn_tile=0``) run there
+    (tests/test_torch_port_f32_forms.py (c))."""
     f32 = small_cfg(2, 1, use_pallas=True)
     q = port_cfg(INT8)
     assert f32.bn_tile == 0
     check_kernel_dtype(f32, "cuda", train=True)
+    check_kernel_dtype(dataclasses.replace(f32, bn_tile=2), "cuda:0",
+                       train=True)
     with pytest.raises(NotImplementedError, match="bfloat16"):
         check_kernel_dtype(dataclasses.replace(f32, bn_tile=2), "cuda:0",
-                           train=True)
+                           train=True, quant=q)
     with pytest.raises(NotImplementedError, match="bfloat16"):
         check_kernel_dtype(f32, "cuda", quant=q)
     with pytest.raises(NotImplementedError, match="bfloat16"):

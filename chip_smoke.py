@@ -101,8 +101,8 @@ Phases, each printing one line (or a few) before the last:
    (its 1x1 convs on #10, its down blocks' adapter pairs on the float
    dual kernel); the 68-class head (the 300-W face model) on the
    whole-model float and int8 paths, the per-slot path and the slot train
-   step; f32 W1/I8/G8 ghost-BN training and the f32 quantized eval on a
-   kernel path raise.
+   step; f32 W1/I8/G8 ghost-BN training and the f32 quantized eval run on
+   the kernel paths (68-class heads), an f16 model raises.
 11. per-block eval (TPU kernel #5) and the value-carried whole-model
    evals (#3, #2): ``table_dot``'s three forms of #5 at the CU-Net-8 @256
    shapes of batch 8 and 64 against their plain versions (``[up]``, an up
@@ -168,8 +168,31 @@ Phases, each printing one line (or a few) before the last:
    main-path ``train_step``s at tile 6 (every form launched), one dropout
    step, three steps at tile 2; (d) step times and peak memory of both
    paths at both tiles beside phase 5's bf16 step, whose kernel step's
-   digest phase 5 prints. Each phase prints its wall time (``phase
-   time``).
+   digest phase 5 prints.
+15. the quantized model at float32 and feature tables past 16 groups: (a)
+   the six QuanInput forms of the slot kernels at float32 (the head's
+   ``affine_dot[f32,bits_i]``, ``affine_dx[f32,ste]``,
+   ``affine_dw[f32,bits_i]``, the conv's ``conv3x3[f32,bits_i]``,
+   ``conv3x3_dx[f32,ste]``, ``conv3x3_dw[f32,bits_i]``; bits_i 8) against
+   their plain versions at r = 64 and 4, tile 2, within the float32
+   n-term limit, timed at r=64 beside their bound and the float32 product
+   alone; bit for bit under one-hot operands, a bf16 pass of dy breaking
+   the dx limits, dW within F32_DW_REL of float64; the int8 kernels'
+   float32 forms bit for bit their plain versions at phase 6's shapes;
+   ``table_dot`` over 17 groups (its table in device memory) at bf16 and
+   float32, single, dual and ``[up]``, against its plain version and bit
+   for bit the same columns in 16 groups, timed beside them; (b) CU-Net-8
+   @256 W1/I8/G8 at float32, ghost-BN tile 2, through
+   ``quant_train_step``: the kernel step against the swap step within
+   max(2c, 1e-5), three main-path steps (every form launched), times; (c)
+   the quantized CU-Net-8 at float32 served on the whole-model int8 path
+   and the layer-by-layer path, each anchor against the plain path at
+   batch 8 and 64 (within 1e-4, or 2x a one-ulp input nudge where flipped
+   int8 codes set the gap), the share of flipped codes, times; (d) order
+   14 (layer_num 15): the per-slot forward, its up blocks' adapters over
+   17 groups, bit for bit the whole-model path (float32 at CU-Net-8's
+   widths, bf16 at small ones), the float32 per-slot, per-block and
+   per-bottleneck paths near the plain path. Each phase prints its wall time (``phase time``).
 
 The line before the last is a JSON object with each kernel's launches,
 error, times, the least time the card could take for the same work and
@@ -1440,7 +1463,10 @@ def phase_dropout_training(torch, tops, bops, dops, gpu):
 
 def option_kernel_cases(torch, tops, bops, gen):
     """The QuanInput options at the train shapes (bits_i=8, batch 24, tile
-    2): (kernel, label, make_out, call, bound, work, library, row name).
+    2): (kernel, label, make_out, call, bound, work, library, row name,
+    product alone). No PyTorch call computes a quantized or STE-gated
+    function; beside the r=64 case of each the product alone in bf16
+    (``torch.mm``, ``F.conv2d``, ``conv2d_input`` / ``conv2d_weight``).
     The gate cases' stage inputs straddle 1.0 after bf16 rounding: x on the
     bf16 grid around 1 and an affine of 1 - 2^-10 shift, so x = 1.0 gives
     z = 0.99902 in float32, 1.0 in bf16 (gated) and x = 0.99609375 gives
@@ -1479,6 +1505,8 @@ def option_kernel_cases(torch, tops, bops, gen):
     xs3, vs3 = straddle(m64, cb)
     xsh, vsh = straddle(m64, c)
     conv_ops = 2 * m64 * 9 * cb * g
+    w_oihw = w3.view(3, 3, cb, g).permute(3, 2, 0, 1).contiguous()
+    nn_grad = torch.nn.grad
     q = 8
     # the quantized conv, its dW and the gated dx at the lower resolutions,
     # after r=64
@@ -1495,17 +1523,18 @@ def option_kernel_cases(torch, tops, bops, gen):
              bf16(m, g), lambda f, o, y_r=y_r, v_r=v_r, r=r:
              f(y_r, w3, n, r, r, o, vec=v_r, bits_i=q), ("bf16",),
              work(sz(m, cb) + vec_bytes(cb) + sz(9 * cb, g) + sz(m, g),
-                  ops_r), None, "conv3x3[bits_i]"),
+                  ops_r), None, "conv3x3[bits_i]", None),
             (tops.conv3x3_dw, f"(9*128, 32) r={r} quantized z",
              f32(9 * cb, g), lambda f, o, y_r=y_r, v_r=v_r, d_r=d_r, r=r:
              f(y_r, v_r, d_r, n, r, r, o, bits_i=q), ("sum", m),
              work(sz(m, cb) + vec_bytes(cb) + sz(m, g)
-                  + sz(9 * cb, g, e=4), ops_r), None, "conv3x3_dw[bits_i]"),
+                  + sz(9 * cb, g, e=4), ops_r), None, "conv3x3_dw[bits_i]",
+             None),
             (tops.conv3x3_dx, f"32->128 r={r} STE gate, straddling 1.0",
              f32(m, cb), lambda f, o, d_r=d_r, xs_r=xs_r, vs_r=vs_r, r=r:
              f(d_r, w3, n, r, r, xs_r, vs_r, o, ste=True), ("sum", 9 * g),
              work(sz(m, g) + sz(9 * cb, g) + sz(m, cb) + sz(2, cb, e=4)
-                  + sz(m, cb, e=4), ops_r), None, "conv3x3_dx[ste]"),
+                  + sz(m, cb, e=4), ops_r), None, "conv3x3_dx[ste]", None),
         ]
     return [
         (bops.conv3x3, "Cb=128->32 r=64 quan(relu(BN2)) prologue",
@@ -1513,29 +1542,38 @@ def option_kernel_cases(torch, tops, bops, gen):
                                       bits_i=q), ("bf16",),
          work(sz(m64, cb) + vec_bytes(cb) + sz(9 * cb, g) + sz(m64, g),
               conv_ops),
-         None, "conv3x3[bits_i]"),
+         None, "conv3x3[bits_i]",
+         lambda: torch.nn.functional.conv2d(nchw(yb, h0), w_oihw,
+                                            padding=1)),
         (bops.affine_dot, "head 128->16 r=64 quantized", bf16(m64, cls),
          lambda f, o: f(y_out, vh, w_h, o, bits_i=q), ("bf16",),
          work(sz(m64, c) + vec_bytes(c) + sz(c, cls) + sz(m64, cls),
-              2 * m64 * c * cls), None, "affine_dot[bits_i]"),
+              2 * m64 * c * cls), None, "affine_dot[bits_i]",
+         lambda: torch.mm(y_out, w_h)),
         (tops.conv3x3_dw, "(9*128, 32) r=64 quantized z", f32(9 * cb, g),
          lambda f, o: f(yb, vb, d_o, n, h0, h0, o, bits_i=q), ("sum", m64),
          work(sz(m64, cb) + vec_bytes(cb) + sz(m64, g) + sz(9 * cb, g, e=4),
-              conv_ops), None, "conv3x3_dw[bits_i]"),
+              conv_ops), None, "conv3x3_dw[bits_i]",
+         lambda: nn_grad.conv2d_weight(nchw(yb, h0), (g, cb, 3, 3),
+                                       nchw(d_o, h0), padding=1)),
         (tops.affine_dw, "head 128->16 r=64 quantized z", f32(c, cls),
          lambda f, o: f(y_out, vh, d_head, o, bits_i=q), ("sum", m64),
          work(sz(m64, c) + vec_bytes(c) + sz(m64, cls) + sz(c, cls, e=4),
-              2 * m64 * c * cls), None, "affine_dw[bits_i]"),
+              2 * m64 * c * cls), None, "affine_dw[bits_i]",
+         lambda: torch.mm(y_out.t(), d_head)),
         (tops.conv3x3_dx, "32->128 r=64 STE gate, straddling 1.0",
          f32(m64, cb), lambda f, o: f(d_o, w3, n, h0, h0, xs3, vs3, o,
                                       ste=True), ("sum", 9 * g),
          work(sz(m64, g) + sz(9 * cb, g) + sz(m64, cb) + sz(2, cb, e=4)
-              + sz(m64, cb, e=4), conv_ops), None, "conv3x3_dx[ste]"),
+              + sz(m64, cb, e=4), conv_ops), None, "conv3x3_dx[ste]",
+         lambda: nn_grad.conv2d_input((n, cb, h0, h0), w_oihw,
+                                      nchw(d_o, h0), padding=1)),
         (tops.affine_dx, "head 128->16 r=64 STE gate, straddling 1.0",
          f32(m64, c), lambda f, o: f(d_head, w_h, xsh, vsh, o, ste=True),
          ("sum", cls),
          work(sz(m64, cls) + sz(c, cls) + sz(m64, c) + sz(2, c, e=4)
-              + sz(m64, c, e=4), 2 * m64 * c * cls), None, "affine_dx[ste]"),
+              + sz(m64, c, e=4), 2 * m64 * c * cls), None, "affine_dx[ste]",
+         lambda: torch.mm(d_head, w_h.t())),
     ] + lower
 
 
@@ -1618,10 +1656,10 @@ def phase_option_kernels(torch, tops, bops):
     plain_of = {**bops.PLAIN, **tops.PLAIN}
     results = {}
     for case in option_kernel_cases(torch, tops, bops, gen):
-        kern, label, make_out, call, bnd, w, lib, name = case
+        kern, label, make_out, call, bnd, w, lib, name, prod = case
         got, want = check_case(torch, plain_of, results, "option kernel",
                                kern, label, make_out, call, bnd, w, lib,
-                               name=name)
+                               name=name, product=prod)
         if name.endswith("[ste]"):
             passed = (got != 0).float().mean().item()
             same = torch.equal(got == 0, want == 0)
@@ -1676,19 +1714,21 @@ def phase_quant_training(torch, tops, bops, dops, gpu):
 # ---------------------------------------------------------------------------
 
 
-def int8_kernel_cases(torch, gen):
+def int8_kernel_cases(torch, gen, f32=False):
     """(kernel name, label, destination, view selector, call(fn, out),
     work) of the three int8 kernels at the CU-Net-8 @256 int8 main-path shapes
     (c=128, g=32, Cb=128, cls=16, h0=64, batch 8; every bottleneck and
     adapter K), plus ragged cases: K not a multiple of 32, M not a multiple
-    of the 128-row tile, Cb not a multiple of 16, unaligned int8 rows."""
+    of the 128-row tile, Cb not a multiple of 16, unaligned int8 rows. With
+    ``f32`` the float32 model's (activations and outputs float32; no
+    ``int8_matmul_dequant``, whose output is float32 at every dtype)."""
     dev = "cuda"
     c, g, cb, cls, h0, n = 128, 32, 128, 16, 64, BATCH
     s = 128.0                                   # 2^(bits_i - 1), bits_i 8
+    act_dt, e = (torch.float32, 4) if f32 else (torch.bfloat16, 2)
 
-    def bf16(*shape, scale=1.0):
-        return (torch.randn(*shape, generator=gen) * scale).to(
-            dev, torch.bfloat16)
+    def bf16(*shape, scale=1.0):                # an activation or output
+        return (torch.randn(*shape, generator=gen) * scale).to(dev, act_dt)
 
     def signs(k, m):                            # binarized weights
         return torch.randint(-1, 2, (k, m), generator=gen,
@@ -1709,8 +1749,9 @@ def int8_kernel_cases(torch, gen):
     cases = []
     # affine_dot_i8: bottlenecks (BN2 + q8 epilogue into int8 rows) at every
     # bottleneck K, adapters (bf16 into buffer views) at every adapter K
-    def dot_i8(m, k, nout, out_e, v2=False):   # bf16 x, vec, int8 w
-        return work(sz(m, k) + sz(2, k, e=4) + sz(k, nout, e=1)
+    def dot_i8(m, k, nout, out_e, v2=False):   # x, vec, int8 w
+        out_e = 1 if out_e == 1 else e
+        return work(sz(m, k, e=e) + sz(2, k, e=4) + sz(k, nout, e=1)
                     + (sz(2, nout, e=4) if v2 else 0) + sz(m, nout, e=out_e),
                     2 * m * k * nout, "int8")
 
@@ -1757,15 +1798,17 @@ def int8_kernel_cases(torch, gen):
                       lambda b: b[:, c + g:],
                       lambda f, b, y=y, w3=w3, r=r:
                       f(y, w3, n, r, r, b[:, c + g:], s=s),
-                      work(sz(m, cb, e=1) + sz(9 * cb, g, e=1) + sz(m, g),
-                           2 * m * 9 * cb * g, "int8")))
+                      work(sz(m, cb, e=1) + sz(9 * cb, g, e=1)
+                           + sz(m, g, e=e), 2 * m * 9 * cb * g, "int8")))
     # ragged conv: Cb=24 (byte loads), 3 images of 6x6 (M=108), G=8
     yr, w3r = codes(108, 24), signs(9 * 24, 8)
     cases.append(("conv3x3_i8", "ragged Cb=24->8 r=6 M=108", bf16(108, 16),
                   lambda b: b[:, 8:],
                   lambda f, b: f(yr, w3r, 3, 6, 6, b[:, 8:], s=s),
-                  work(sz(108, 24, e=1) + sz(216, 8, e=1) + sz(108, 8),
+                  work(sz(108, 24, e=1) + sz(216, 8, e=1) + sz(108, 8, e=e),
                        2 * 108 * 216 * 8, "int8")))
+    if f32:
+        return cases
     # int8_matmul_dequant: the plain path's 1x1 convs at every K
     ones = torch.ones(c, device=dev)
 
@@ -1809,16 +1852,20 @@ def int8_products(torch, gen):
             "conv3x3_i8": lambda: torch._int_mm(col, w3)}
 
 
-def phase_int8_kernels(torch, qops):
+def phase_int8_kernels(torch, qops, f32=False):
     """Each int8 kernel against its plain version on the same operands:
     the outputs must be bit-identical (integer products accumulate exactly
     in any order; every float rounding point is shared); beside each,
-    ``torch._int_mm`` of its product alone (``int8_products``)."""
-    gen = torch.Generator().manual_seed(3)
+    ``torch._int_mm`` of its product alone (``int8_products``). With
+    ``f32`` the float32 forms of the two kernels of the whole-model path,
+    their rows ``name[f32]``, each launch counted as a float32 one."""
+    gen = torch.Generator().manual_seed(33 if f32 else 3)
     products = int8_products(torch, torch.Generator().manual_seed(30))
     results = {}
-    for name, label, dst, sel, call, w in int8_kernel_cases(torch, gen):
+    for name, label, dst, sel, call, w in int8_kernel_cases(torch, gen,
+                                                            f32):
         kern = getattr(qops, name)
+        f32_before = getattr(kern, "f32_launches", 0)
         plain = qops.PLAIN[kern]
         if dst is None:                          # returns a new tensor
             got = call(kern)
@@ -1842,6 +1889,11 @@ def phase_int8_kernels(torch, qops):
         err = (got.float() - want.float()).abs().max().item()
         ms = cuda_time_ms(run_k)
         plain_ms = cuda_time_ms(run_p)
+        if f32:
+            require(kern.f32_launches > f32_before and got.dtype in (
+                torch.float32, torch.int8), f"{name} [{label}]: no float32 "
+                f"launch")
+            name = f"{name}[f32]"
         print(f"int8 kernel {name} [{label}]: bit-identical {same} "
               f"(max_abs_err {err:.4g}), outside view untouched "
               f"{untouched}, {ms:.4f} ms vs plain {plain_ms:.4f} ms",
@@ -1849,8 +1901,8 @@ def phase_int8_kernels(torch, qops):
         require(same, f"{name} [{label}] differs from its plain version: "
                 f"max_abs_err {err}")
         require(untouched, f"{name} [{label}] wrote outside its view")
-        prod_ms = (cuda_time_ms(products.pop(name)) if name in products
-                   else None)
+        prod_ms = (cuda_time_ms(products.pop(name.split("[")[0]))
+                   if name.split("[")[0] in products else None)
         record(results, name, err, ms, plain_ms, label, w, None, prod_ms)
     return results
 
@@ -2682,8 +2734,8 @@ def phase_quant_layer_eval(torch, eops, qops, gpu):
 def phase_face_heads(torch, ops, eops, qops, tops, gpu):
     """Phase 10 (d): the 68-class head (the 300-W face model) on every
     kernel path with a head: the whole-model float and int8 paths, the
-    per-slot path and the slot train step; and (e) the bf16 limit: an f32
-    model on a kernel path raises."""
+    per-slot path and the slot train step; and (e) the dtype guard: the
+    quantized f32 model runs on the kernel paths, an f16 one raises."""
     from cunet_tpu_torch import ModelConfig, QuantConfig
     from cunet_tpu_torch.kernels import model_buf
     from cunet_tpu_torch.models import apply_cu_net, init_cu_net
@@ -2755,26 +2807,34 @@ def phase_face_heads(torch, ops, eops, qops, tops, gpu):
     del gk, gp
 
     f32 = dataclasses.replace(cfg, compute_dtype="float32")
-    x1 = x[:1].float()
+    x2 = x[:2].float()
     w1i8g8 = QuantConfig(bits_w=1, bits_i=8, bits_g=8, enabled=True)
-    for c, args, kw in (
-            (dataclasses.replace(f32, bn_tile=BN_TILE), (params,),
+    ran = []
+    for label, c, args, kw in (
+            ("W1/I8/G8 ghost-BN training (tile 2)",
+             dataclasses.replace(f32, bn_tile=BN_TILE), (params,),
              dict(train=True, quant=w1i8g8)),
-            (f32, (qp,), dict(quant=quant)),
-            (whole, (qp,), dict(quant=quant))):
+            ("quantized eval, per-slot flags", f32, (qp,),
+             dict(quant=quant)),
+            ("quantized eval, whole-model flags", whole, (qp,),
+             dict(quant=quant))):
         c = dataclasses.replace(c, compute_dtype="float32")
-        try:
-            apply_cu_net(*args, state, x1, cfg=c, **kw)
-        except NotImplementedError as e:
-            require("queue B item 4" in str(e), f"f32 guard message: {e}")
-        else:
-            require(False, f"an f32 model ran on a CUDA kernel path with "
-                           f"no float32 form ({kw})")
-    print("f32 limit: f32 W1/I8/G8 ghost-BN training (tile 2) and the f32 "
-          "quantized eval (per-slot and whole-model flags) with use_pallas "
-          "raise NotImplementedError on the card; the f32 eval (phase 12), "
-          "f32 whole-batch BN training (phase 13) and f32 ghost-BN "
-          "training (phase 14) run", flush=True)
+        with torch.no_grad():
+            outs, _ = apply_cu_net(*args, state, x2, cfg=c, **kw)
+        require(all(o.dtype == torch.float32 and torch.isfinite(o).all()
+                    and tuple(o.shape) == (2,) + shape[1:] for o in outs),
+                f"f32 {label}: bad output")
+        ran.append(label)
+    try:
+        apply_cu_net(params, state, x2, cfg=dataclasses.replace(
+            cfg, compute_dtype="float16"))
+    except NotImplementedError as e:
+        require("float16" in str(e), f"f16 guard message: {e}")
+    else:
+        require(False, "a float16 model ran on a CUDA kernel path")
+    print(f"f32 guard: on the card with use_pallas, float32 runs {ran} "
+          f"(68-class heads, float32 outputs; phase 15 checks them); "
+          f"float16 raises NotImplementedError", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -3851,7 +3911,7 @@ def step_leaves(torch, a, b):
 
 
 def f32_step_check(torch, label, cfg, params, state, x, t, swapped,
-                   counters, perms):
+                   counters, perms, quant=None, noise=0):
     """Phase 13 (d) and 14 (b): the float32 kernel step against the swap
     step from the same state (``swapped()``: the path with its kernels'
     plain versions swapped in, none of ``counters``' kernels launching),
@@ -3860,18 +3920,61 @@ def f32_step_check(torch, label, cfg, params, state, x, t, swapped,
     control the largest distance of the swap step on the batch permuted by
     each of ``perms`` (the same function, its sums in another order); the
     plain path (use_pallas off) beside both, printed; then the kernel step
-    again, bit for bit."""
+    again, bit for bit. With ``quant`` (phase 15 (b)) every step runs the
+    quantized model from the masters ``params``, and the swap step and its
+    controls run on the kernel step's int8 codes (``f32_step_gap.
+    pinned_codes``): a code one of them rounds across a boundary moves its
+    activation by 2^-7, which would swamp the float rounding the check
+    holds; the codes the swap step would have taken otherwise are
+    counted. ``noise`` adds that many one-ulp product controls to c (the
+    swap step with every rounded form's output moved by one ulp in half
+    its elements, ``f32_step_gap.slot_swap(gen=...)``, the card test's
+    controls): the kernels reround every product, which no permutation
+    reaches."""
+    from cunet_tpu_torch.kernels import train_slot
+    from cunet_tpu_torch.tools.f32_step_gap import (
+        patched,
+        pinned_codes,
+        recorded_codes,
+        slot_swap,
+    )
+
     plain_cfg = dataclasses.replace(cfg, use_pallas=False)
-    k = _grads(torch, cfg, params, state, x, t)
+    codes, flips = [], []
+
+    def grads(c, x, t):
+        return _grads(torch, c, params, state, x, t, quant=quant)
+
+    def pin(perm=None, flips=None):
+        return (pinned_codes(codes, perm, flips) if quant is not None
+                else contextlib.nullcontext())
+
+    with (recorded_codes(train_slot, codes) if quant is not None
+          else contextlib.nullcontext()):
+        k = grads(cfg, x, t)
     with swapped():
         counters.reset_launch_counts()
-        s = _grads(torch, cfg, params, state, x, t)
-        sc = [_grads(torch, cfg, params, state, x[q], t[q]) for q in perms]
+        with pin(flips=flips):
+            s = grads(cfg, x, t)
+        sc = []
+        for q in perms:
+            with pin(q):
+                sc.append(grads(cfg, x[q], t[q]))
         swapped_launches = sum(counters.launch_counts().values())
+    for i in range(noise):
+        noisy = slot_swap(gen=torch.Generator(device="cuda").manual_seed(
+            23 + i))
+        with patched(train_slot, **noisy), pin():
+            sc.append(grads(cfg, x, t))
+    if quant is not None:
+        print(f"{label}: the swap step and its controls on the kernel "
+              f"step's {sum(c.numel() for c in codes)} QuanInput codes; the "
+              f"swap step's own would differ at {sum(flips)} of them",
+              flush=True)
     require(swapped_launches == 0, f"{label}: the swap step launched "
                                    f"kernels")
-    p = _grads(torch, plain_cfg, params, state, x, t)
-    pc = _grads(torch, plain_cfg, params, state, x[perms[0]], t[perms[0]])
+    p = grads(plain_cfg, x, t)
+    pc = grads(plain_cfg, x[perms[0]], t[perms[0]])
 
     def summary(name, a, b):
         (_, ga, sa), (_, gb, sb) = a, b
@@ -3892,7 +3995,9 @@ def f32_step_check(torch, label, cfg, params, state, x, t, swapped,
     print(f"{label}: losses: kernel {k[0]:.8g}, swap {s[0]:.8g}, "
           f"plain path {p[0]:.8g}", flush=True)
     got = summary("kernel vs swap step", k, s)
-    ctrl = [summary(f"control: swap step permuted ({i}) vs swap step", c, s)
+    ctrl = [summary(f"control: swap step "
+                    f"{'permuted' if i < len(perms) else 'one-ulp noise'} "
+                    f"({i}) vs swap step", c, s)
             for i, c in enumerate(sc)]
     summary("kernel step vs plain path", k, p)
     summary("swap step vs plain path", s, p)
@@ -3908,7 +4013,7 @@ def f32_step_check(torch, label, cfg, params, state, x, t, swapped,
           f"{max(got[n] / lim[n] for n in got):.3f}; over: {bad}",
           flush=True)
     require(not bad, f"{label}: step off the swap step: {bad}")
-    lk2, gk2, _ = _grads(torch, cfg, params, state, x, t)
+    lk2, gk2, _ = grads(cfg, x, t)
     same = lk2 == k[0] and all(torch.equal(k[1][n], gk2[n]) for n in gk2)
     print(f"{label}: repeated kernel step bit-identical: {same}",
           flush=True)
@@ -4490,6 +4595,788 @@ def phase_slot_f32_training(torch, tops, bops, dops, gpu, bf16_times):
     return launches, {k: v / 3 for k, v in launches.items()}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the quantized model at float32 (the QuanInput forms of #8/#9,
+# the int8 forms of #1), and feature tables of more than 16 groups
+# ---------------------------------------------------------------------------
+
+QUANT_BITS = 8       # W1/I8/G8's bits_i
+# the kernels line's rows of the six QuanInput forms at float32: (wrapper,
+# TPU function it replaces), at the quantized step's shapes: the head's
+# 1x1 forms (128 -> 16) and the 3x3 conv's (Cb=128 -> 32)
+QUANT_F32 = {
+    "affine_dot[f32,bits_i]": ("affine_dot",
+                               "cunet_tpu/kernels/train_slot.py:356"),
+    "conv3x3[f32,bits_i]": ("conv3x3", "cunet_tpu/kernels/train_slot.py:294"),
+    "affine_dx[f32,ste]": ("affine_dx", "cunet_tpu/kernels/train_slot.py:600"),
+    "affine_dw[f32,bits_i]": ("affine_dw",
+                              "cunet_tpu/kernels/train_slot.py:597"),
+    "conv3x3_dx[f32,ste]": ("conv3x3_dx",
+                            "cunet_tpu/kernels/train_slot.py:959"),
+    "conv3x3_dw[f32,bits_i]": ("conv3x3_dw",
+                               "cunet_tpu/kernels/train_slot.py:901"),
+}
+REPLACES.update({k: v[1] for k, v in QUANT_F32.items()})
+REPLACES.update({"affine_dot_i8[f32]": REPLACES["affine_dot_i8"],
+                 "conv3x3_i8[f32]": REPLACES["conv3x3_i8"],
+                 "table_dot[groups>16]": REPLACES["table_dot"],
+                 "table_dot[f32,groups>16]": REPLACES["table_dot"]})
+# the most feature groups a launch carries in its parameters; an up block's
+# adapter reads order + 3, so order 14 gives 17
+MANY_ORDER = 14
+
+
+def quant_f32_cases(torch, tops, bops, o):
+    """(row, kernel, label, call(fn) -> outputs, bounds, work, library
+    call, product alone) of the six QuanInput forms at float32 at the
+    operands ``o`` (``slot_f32_operands``): the quantized head's forward,
+    its STE-gated dx and its dW on the quantized z (128 -> 16), and the
+    same three of the 3x3 conv (Cb=128 -> 32), bits_i 8. Bounds: the
+    float32 n-term sum (the codes themselves are the plain version's bit
+    for bit, ``quant_f32_exact_checks``). No PyTorch call computes a
+    quantized or STE-gated function: ``torch.mm`` / ``F.conv2d`` /
+    ``conv2d_input`` / ``conv2d_weight`` of the float32 product alone
+    (TF32 off) stands beside each."""
+    import torch.nn.functional as F
+
+    n, c, g, cb, cls = TRAIN_BATCH, 128, 32, 128, 16
+    m, r, tiles = o["m"], o["r"], o["tiles"]
+    yb, vb, q = o["yb"], o["vb"], QUANT_BITS
+    w_oihw = o["w3"].view(3, 3, cb, g).permute(3, 2, 0, 1).contiguous()
+    vecb = sz(tiles, 2, cb, e=4)
+    head = 6 * 2 * m * c * cls
+    conv = 6 * 2 * m * 9 * cb * g
+
+    def empty(*shape):
+        return torch.empty(*shape, device="cuda")
+
+    return [
+        ("affine_dot[f32,bits_i]", bops.affine_dot, f"head 128->16 r={r}",
+         lambda f: [f(yb, vb, o["w_h"], empty(m, cls), bits_i=q)],
+         [("sum", c)],
+         work(sz(m, c, e=4) + vecb + sz(c, cls, e=4) + sz(m, cls, e=4),
+              head // 2, "bf16"), None,
+         lambda: torch.mm(yb, o["w_h"])),
+        ("conv3x3[f32,bits_i]", bops.conv3x3, f"Cb=128->32 r={r}",
+         lambda f: [f(yb, o["w3"], n, r, r, empty(m, 224)[:, 192:224],
+                      vec=vb, bits_i=q)], [("sum", 9 * cb)],
+         work(sz(m, cb, e=4) + sz(9 * cb, g, e=4) + sz(m, g, e=4) + vecb,
+              conv // 2, "bf16"), None,
+         lambda: F.conv2d(nchw(yb, r), w_oihw, padding=1)),
+        ("affine_dx[f32,ste]", tops.affine_dx, f"head 128->16 r={r}",
+         lambda f: [f(o["d_head"], o["w_h"], yb, vb, empty(m, c),
+                      ste=True)], [("sum", cls)],
+         work(sz(m, cls, e=4) + sz(c, cls, e=4) + 2 * sz(m, c, e=4) + vecb,
+              head, "bf16"), None,
+         lambda: torch.mm(o["d_head"], o["w_h"].t())),
+        ("affine_dw[f32,bits_i]", tops.affine_dw, f"head 128->16 r={r}",
+         lambda f: [f(yb, vb, o["d_head"], empty(c, cls), bits_i=q)],
+         [("sum", m)],
+         work(sz(m, c, e=4) + sz(m, cls, e=4) + sz(c, cls, e=4) + vecb,
+              head // 2, "bf16"), None,
+         lambda: torch.mm(yb.t(), o["d_head"])),
+        ("conv3x3_dx[f32,ste]", tops.conv3x3_dx, f"32->128 r={r}",
+         lambda f: [f(o["d_o"], o["w3"], n, r, r, yb, vb, empty(m, cb),
+                      ste=True)], [("sum", 9 * g)],
+         work(sz(m, g, e=4) + sz(9 * cb, g, e=4) + 2 * sz(m, cb, e=4)
+              + vecb, conv, "bf16"), None,
+         lambda: torch.nn.grad.conv2d_input((n, cb, r, r), w_oihw,
+                                            nchw(o["d_o"], r), padding=1)),
+        ("conv3x3_dw[f32,bits_i]", tops.conv3x3_dw, f"(9*128, 32) r={r}",
+         lambda f: [f(yb, vb, o["d_o"], n, r, r, empty(9 * cb, g),
+                      bits_i=q)], [("sum", m)],
+         work(sz(m, cb, e=4) + sz(m, g, e=4) + sz(9 * cb, g, e=4) + vecb,
+              conv // 2, "bf16"), None,
+         lambda: torch.nn.grad.conv2d_weight(nchw(yb, r), (g, cb, 3, 3),
+                                             nchw(o["d_o"], r), padding=1)),
+    ]
+
+
+def quant_f32_exact_checks(torch, tops, bops, o, gen):
+    """At the operands ``o`` of r=64, tile 2, the six QuanInput forms at
+    float32 under one-hot operands, each bit for bit an exact reference
+    built from the plain quantizer (``quantize_act`` of the unrounded
+    float32 activation) and the plain STE gate (0 < z < 1): the 1x1 forms
+    their plain versions, the conv forms an im2col gather. A bf16
+    rounding of the activation before the quantizer (what the bf16 forms
+    do) must change some codes. Then one bf16 pass of the cotangent must
+    break each dx form's float32 limit, and the dW forms must lie within
+    F32_DW_REL sqrt(M) relative L2 of float64 products of the quantized z,
+    where that bf16 pass must not. Returns {row: exact}."""
+    from cunet_tpu_torch.kernels.buf_ops import quantize_act, tile_affine
+
+    n, c, g, cb, cls, r, m = TRAIN_BATCH, 128, 32, 128, 16, o["r"], o["m"]
+    q = QUANT_BITS
+    plain = {**bops.PLAIN, **tops.PLAIN}
+    yb, vb = o["yb"], o["vb"]
+
+    def empty(*shape):
+        return torch.empty(*shape, device="cuda")
+
+    def onehot(k, nout):
+        w = torch.zeros(k, nout)
+        w[torch.randperm(k, generator=gen)[:nout], torch.arange(nout)] = 1
+        return w.cuda()
+
+    wh, w3 = onehot(c, cls), onehot(9 * cb, g)
+    hot_h, hot_o = onehot(m, cls), onehot(m, g)
+    w3t = torch.zeros(9 * cb, g)
+    w3t[torch.randint(0, 9, (g,), generator=gen) * cb
+        + torch.randperm(cb, generator=gen)[:g], torch.arange(g)] = 1
+    w3t = w3t.cuda()
+    a = tile_affine(yb, vb)
+    zq = quantize_act(torch.relu(a), q)
+    ste = (a > 0) & (a < 1)
+    rounded = quantize_act(torch.relu(a).bfloat16().float(), q)
+    flips = int((rounded != zq).sum())
+    pairs = {
+        "affine_dot[f32,bits_i]": (
+            bops.affine_dot(yb, vb, wh, empty(m, cls), bits_i=q),
+            plain[bops.affine_dot](yb, vb, wh, empty(m, cls), bits_i=q)),
+        "conv3x3[f32,bits_i]": (
+            bops.conv3x3(yb, w3, n, r, r, empty(m, g), vec=vb, bits_i=q),
+            im2col(torch, zq, n, r, r) @ w3),
+        "affine_dx[f32,ste]": (
+            tops.affine_dx(o["d_head"], wh, yb, vb, empty(m, c), ste=True),
+            plain[tops.affine_dx](o["d_head"], wh, yb, vb, empty(m, c),
+                                  ste=True)),
+        "affine_dw[f32,bits_i]": (
+            tops.affine_dw(yb, vb, hot_h, empty(c, cls), bits_i=q),
+            plain[tops.affine_dw](yb, vb, hot_h, empty(c, cls), bits_i=q)),
+        "conv3x3_dx[f32,ste]": (
+            tops.conv3x3_dx(o["d_o"], w3t, n, r, r, yb, vb, empty(m, cb),
+                            ste=True),
+            torch.where(ste, im2col(torch, o["d_o"], n, r, r)
+                        @ tops.flip_w3(w3t), 0.0)),
+        "conv3x3_dw[f32,bits_i]": (
+            tops.conv3x3_dw(yb, vb, hot_o, n, r, r, empty(9 * cb, g),
+                            bits_i=q),
+            im2col(torch, zq, n, r, r).t() @ hot_o),
+    }
+    torch.cuda.synchronize()
+    same = {k: torch.equal(x, y) for k, (x, y) in pairs.items()}
+    print(f"quant f32 kernels under one-hot operands (r=64, tile 2, bits_i "
+          f"{q}), bit for bit an exact reference: {same}; the STE gate "
+          f"passes {ste.float().mean().item():.4f} of z; a bf16 rounding "
+          f"before the quantizer would change {flips} of {zq.numel()} "
+          f"codes", flush=True)
+    require(all(same.values()), f"a QuanInput form at float32 is not exact "
+                                f"under one-hot operands: {same}")
+    require(flips > 0 and 0.05 < ste.float().mean().item() < 0.95,
+            "the quantized operands do not tell the forms apart")
+    d16, do16 = o["d_head"].bfloat16().float(), o["d_o"].bfloat16().float()
+    dx = {
+        "affine_dx[f32,ste]": (lambda d: plain[tops.affine_dx](
+            d, o["w_h"], yb, vb, empty(m, c), ste=True), d16, o["d_head"],
+            ("sum", cls)),
+        "conv3x3_dx[f32,ste]": (lambda d: plain[tops.conv3x3_dx](
+            d, o["w3"], n, r, r, yb, vb, empty(m, cb), ste=True), do16,
+            o["d_o"], ("sum", 9 * g)),
+    }
+    shares = {k: output_errors(torch, [fn(d_lo)], [fn(d)], [bnd])[1]
+              for k, (fn, d_lo, d, bnd) in dx.items()}
+    print(f"quant f32: one bf16 pass of the cotangent against float32 dy, "
+          f"r=64: the share of each dx limit {shares} (must exceed 1)",
+          flush=True)
+    require(all(v > 1 for v in shares.values()),
+            f"one bf16 pass of dy stays within a dx limit: {shares}")
+    lim = F32_DW_REL * m ** 0.5
+    dw = {
+        "affine_dw[f32,bits_i]": (zq, o["d_head"], d16, tops.affine_dw,
+                                  lambda f, d: f(yb, vb, d, empty(c, cls),
+                                                 bits_i=q)),
+        "conv3x3_dw[f32,bits_i]": (im2col(torch, zq, n, r, r), o["d_o"],
+                                   do16, tops.conv3x3_dw,
+                                   lambda f, d: f(yb, vb, d, n, r, r,
+                                                  empty(9 * cb, g),
+                                                  bits_i=q)),
+    }
+    rel = {}
+    for k, (z, d, d_lo, kern, call) in dw.items():
+        ref = z.double().t() @ d.double()
+        rel[k] = {name: ((got.double() - ref).norm() / ref.norm()).item()
+                  for name, got in (("kernel", call(kern, d)),
+                                    ("plain", call(plain[kern], d)),
+                                    ("bf16 dy", call(plain[kern], d_lo)))}
+    print(f"quant f32: the weight gradients on the quantized z, relative "
+          f"L2 error against float64, r=64 (limit {lim:.3g}): {rel}",
+          flush=True)
+    require(all(v["kernel"] <= lim < v["bf16 dy"] for v in rel.values()),
+            f"a quantized weight gradient is past its float64 limit, or one "
+            f"bf16 pass of dy is within it: {rel}")
+    return same
+
+
+def many_group_cases(torch, gen, n, dt):
+    """(label, feats, merged, kw, k) of ``table_dot`` over an up block's
+    adapter at order MANY_ORDER (CU-Net-8 @256 widths, r=64, batch ``n``):
+    17 groups [up_y | skip | 14 FIFO entries | out32], K = 736 -> 128,
+    single, dual and with feature 0 read at half resolution (``[up]``);
+    ``merged`` the same columns in 16 groups (FIFO entries 0 and 1 as one
+    tensor), whose table travels in the launch parameters."""
+    c, g, r = 128, 32, 64
+    m = n * r * r
+
+    def act(rows, cols):
+        return (torch.randn(rows, cols, generator=gen) * 0.5).to("cuda", dt)
+
+    full = [act(m, c), act(m, c)] + [act(m, g) for _ in range(MANY_ORDER)] \
+        + [act(m, g)]
+    half = [act(m // 4, c)] + full[1:]
+    k = sum(f.shape[1] for f in full)
+
+    def merge(fs):
+        return fs[:2] + [torch.cat(fs[2:4], 1)] + fs[4:]
+
+    return [("single", full, merge(full), {}, k),
+            ("dual", full, merge(full), {"dual": True}, k),
+            ("up", half, merge(half), {"up": True, "hw": (r, r)}, k)]
+
+
+def phase_many_group_kernels(torch, eops, dt):
+    """``table_dot`` over 17 feature groups (its table in device memory) at
+    ``dt``: against its plain version (bf16 bound, float32 n-term limit)
+    and bit for bit the same product over the same columns in 16 groups
+    (the table in the launch parameters); timed beside the 16-group launch
+    and the plain version at batch 8. Returns {row: result}."""
+    import torch.nn.functional as F
+
+    f32 = dt == torch.float32
+    row = "table_dot[f32,groups>16]" if f32 else "table_dot[groups>16]"
+    gen = torch.Generator().manual_seed(40)
+    e = 4 if f32 else 2
+    results = {}
+    for label, feats, merged, opt, k in many_group_cases(torch, gen, BATCH,
+                                                         dt):
+        m, n = feats[1].shape[0], 128
+        vec = torch.stack([torch.rand(k, generator=gen) + 0.5,
+                           torch.randn(k, generator=gen) * 0.5]).cuda()
+        w = (torch.randn(k, n, generator=gen) * k ** -0.5).to("cuda", dt)
+        kw = {}
+        if opt.get("dual"):
+            kw = dict(vec_s=vec.flip(1).contiguous(), w_s=w.flip(0)
+                      .contiguous())
+        if opt.get("up"):
+            kw.update(up=(True,) + (False,) * (len(feats) - 1),
+                      hw=opt["hw"])
+
+        def call(fn, fs, outs, kw=kw):
+            extra = dict(kw)
+            if "up" in extra:
+                extra["up"] = extra["up"][:len(fs)]
+            if len(outs) == 2:
+                extra["out_s"] = outs[1]
+            fn(fs, vec, w, outs[0], **extra)
+            return outs
+
+        def outs():
+            return [torch.empty(m, n, device="cuda", dtype=dt)
+                    for _ in range(2 if "w_s" in kw else 1)]
+
+        before = eops.table_dot.ext_launches
+        got = call(eops.table_dot, feats, outs())
+        require(eops.table_dot.ext_launches == before + 1,
+                f"{row} [{label}]: the 17-group launch was not counted")
+        inline = call(eops.table_dot, merged, outs())
+        want = call(eops.table_dot_plain, feats, outs())
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, inline))
+        bnd = [("sum", k)] * len(got) if f32 else [("bf16",)] * len(got)
+        err, share, ok = output_errors(torch, got, want, bnd)
+        ms = cuda_time_ms(lambda: call(eops.table_dot, feats, got))
+        ms16 = cuda_time_ms(lambda: call(eops.table_dot, merged, inline))
+        plain_ms = cuda_time_ms(lambda: call(eops.table_dot_plain, feats,
+                                             want))
+        rows_in = m // 4 if opt.get("up") else m
+        w_ = work(sz(rows_in, feats[0].shape[1], e=e)
+                  + sum(sz(m, f.shape[1], e=e) for f in feats[1:])
+                  + len(got) * (sz(k, n, e=e) + sz(2, k, e=4)
+                                + sz(m, n, e=e)),
+                  len(got) * 2 * m * k * n * (6 if f32 else 1), "bf16")
+        x = torch.cat([F.interpolate(nchw(feats[0], 32), scale_factor=2)
+                       .permute(0, 2, 3, 1).reshape(m, -1)
+                       if opt.get("up") else feats[0]] + feats[1:], 1)
+        prod_ms = cuda_time_ms(lambda: torch.mm(x, w))
+        print(f"{row} [{label}, 17 groups, K={k}->{n}, r=64, batch "
+              f"{BATCH}]: max_abs_err {err:.4g} ({share:.3g} of its limit); "
+              f"bit for bit the 16-group table {same}; {ms * 1e3:.1f} us "
+              f"(16 groups {ms16 * 1e3:.1f} us) vs plain "
+              f"{plain_ms * 1e3:.1f} us, bound {bound(w_)[0] * 1e3:.1f} us "
+              f"({bound(w_)[1]}), product alone (torch.mm) "
+              f"{prod_ms * 1e3:.1f} us", flush=True)
+        require(ok, f"{row} [{label}] disagrees with its plain version: "
+                    f"{err} ({share:.3g} of its limit)")
+        require(same, f"{row} [{label}] differs from the same product over "
+                      f"16 groups")
+        if row not in results:
+            record(results, row, err, ms, plain_ms, f"{label}, 17 groups",
+                   w_, None, prod_ms)
+            results[row]["ms_16_groups"] = ms16
+        results[row]["max_abs_err"] = max(results[row]["max_abs_err"], err)
+    return results
+
+
+def phase_quant_f32_kernels(torch, tops, bops, qops, eops):
+    """Phase 15 (a): the six QuanInput forms at float32 against their plain
+    versions at r = 64 and 4, tile 2 (the float32 n-term limit), each timed
+    at r=64 beside its bound and the product alone; bit for bit under
+    one-hot operands, a bf16 pass of dy caught, dW held to float64; the
+    int8 kernels' float32 forms bit for bit their plain versions at
+    phase 6's shapes; ``table_dot`` over 17 groups at bf16 and float32.
+    Returns {row: result}."""
+    gen = torch.Generator().manual_seed(41)
+    plain = {**bops.PLAIN, **tops.PLAIN}
+    results = {}
+    for r in (64, 4):
+        o = slot_f32_operands(torch, tops, gen, r, BN_TILE)
+        if r == 64:
+            exact = quant_f32_exact_checks(torch, tops, bops, o, gen)
+        for row, kern, label, call, bounds, w, lib, prod in \
+                quant_f32_cases(torch, tops, bops, o):
+            before = kern.f32_option_launches
+            got, want = call(kern), call(plain[kern])
+            torch.cuda.synchronize()
+            require(kern.f32_option_launches == before + 1,
+                    f"{row} [{label}] did not count its launch")
+            err, share, ok = output_errors(torch, got, want, bounds)
+            require(ok, f"{row} [{label}] disagrees with its plain version: "
+                        f"{err} ({share:.3g} of its limit)")
+            if row in results:
+                results[row]["max_abs_err"] = max(
+                    results[row]["max_abs_err"], err)
+                print(f"quant f32 kernel {row} [{label}]: max_abs_err "
+                      f"{err:.4g} ({share:.3g} of its limit)", flush=True)
+                continue
+            ms = cuda_time_ms(lambda: call(kern))
+            plain_ms = cuda_time_ms(lambda: call(plain[kern]))
+            prod_ms = cuda_time_ms(prod)
+            bms, by = bound(w)
+            print(f"quant f32 kernel {row} [{label}]: max_abs_err {err:.4g} "
+                  f"({share:.3g} of its float32 limit), {ms * 1e3:.1f} us vs "
+                  f"plain {plain_ms * 1e3:.1f} us, bound {bms * 1e3:.1f} us "
+                  f"({by}), library none, product alone "
+                  f"{prod_ms * 1e3:.1f} us", flush=True)
+            record(results, row, err, ms, plain_ms, label, w, None, prod_ms)
+    for row in QUANT_F32:
+        results[row]["one_hot_exact"] = exact[row]
+    results.update(phase_int8_kernels(torch, qops, f32=True))
+    for dt in (torch.bfloat16, torch.float32):
+        results.update(phase_many_group_kernels(torch, eops, dt))
+    return results
+
+
+def quant_f32_counts(tops, bops) -> dict:
+    """Launches of the six QuanInput forms at float32, keyed by their
+    rows."""
+    counts = {**bops.f32_option_counts(), **tops.f32_option_counts()}
+    return {row: counts[row] for row in QUANT_F32}
+
+
+def phase_quant_f32_training(torch, tops, bops, gpu):
+    """Phase 15 (b): CU-Net-8 @256 W1/I8/G8 at float32 (bn_dtype
+    "float32"), ghost-BN tile 2, use_pallas, through ``quant_train_step``:
+    the kernel step (every slot on the float32 forms, the QuanInput ones
+    among them) against the swap step (their plain versions swapped in,
+    on the kernel step's int8 codes) within max(2c, 1e-5), c the largest of
+    F32_STEP_PERMS tile-preserving permuted controls and as many one-ulp
+    product controls (against the permutations alone the kernel step lies
+    up to 1.40x past 2c: PERF.md section 6); the plain path beside both; a
+    bit-identical repeat;
+    three main-path ``quant_train_step``s (every form and QuanInput form
+    launched); step times and peak memory of both paths. Returns ({row:
+    launches of the drive}, launches per step)."""
+    import types
+
+    from cunet_tpu_torch import QuantConfig, TrainConfig
+    from cunet_tpu_torch.quant import preprocess_masters
+    from cunet_tpu_torch.quant import selected_conv_predicate
+    from cunet_tpu_torch.train import create_train_state, quant_train_step
+
+    quant = QuantConfig(bits_w=1, bits_i=QUANT_BITS, bits_g=8, enabled=True)
+    cfg, params, state, batch = flagship_train(torch)
+    cfg = dataclasses.replace(cfg, compute_dtype="float32",
+                              bn_dtype="float32", bn_tile=BN_TILE)
+    masters = preprocess_masters(params, quant,
+                                 selected_conv_predicate(params, "reference"))
+    x, t = batch["image"], batch["heatmap"]
+    forms = types.SimpleNamespace(
+        reset_launch_counts=lambda: (tops.reset_launch_counts(),
+                                     bops.reset_launch_counts()),
+        launch_counts=lambda: {**slot_f32_counts(tops, bops),
+                               **quant_f32_counts(tops, bops)})
+    label = f"quant f32 training (W1/I8/G8, tile {BN_TILE})"
+    perms = [tile_perm(torch, TRAIN_BATCH, BN_TILE, torch.Generator()
+                       .manual_seed(17 + i)).cuda()
+             for i in range(F32_STEP_PERMS)]
+    torch.backends.cudnn.deterministic = True
+    try:
+        f32_step_check(torch, label, cfg, masters, state, x, t,
+                       slot_plain_swapped, forms, perms, quant=quant,
+                       noise=F32_STEP_PERMS)
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+    tcfg = TrainConfig(lr=2.5e-4, batch_size=TRAIN_BATCH)
+    st = create_train_state(params, state, tcfg)
+    launches = main_path_steps(
+        torch, label,
+        lambda: quant_train_step(st, batch, cfg=cfg, qcfg=quant)[1],
+        lambda: st.params, (forms,))
+    st_p = create_train_state(params, state, tcfg)
+    plain_cfg = dataclasses.replace(cfg, use_pallas=False)
+    report_times(torch, label,
+                 lambda: quant_train_step(st, batch, cfg=cfg, qcfg=quant),
+                 lambda: quant_train_step(st_p, batch, cfg=plain_cfg,
+                                          qcfg=quant), gpu)
+    return launches, {k: v / 3 for k, v in launches.items()}
+
+
+@contextlib.contextmanager
+def conv_codes(torch, s, record):
+    """Append to ``record`` the int8 codes of every 3x3 conv's input of the
+    forwards run inside: from ``quan_input`` on the plain and layer-by-layer
+    paths (the heads' quantizer left out), from ``conv3x3_i8``'s input on
+    the whole-model path; (M, Cb) rows of (image, y, x) either way."""
+    from cunet_tpu_torch.kernels import model_buf
+    from cunet_tpu_torch.models import cu_net
+
+    quan, head, conv = cu_net.quan_input, cu_net._apply_head, \
+        model_buf.conv3x3_i8
+    in_head = [False]
+
+    def quan_rec(y, bits):
+        out = quan(y, bits)
+        if not in_head[0]:
+            record.append(torch.round(out.float() * s).to(torch.int8)
+                          .reshape(-1, out.shape[-1]))
+        return out
+
+    def head_rec(*a, **kw):
+        in_head[0] = True
+        try:
+            return head(*a, **kw)
+        finally:
+            in_head[0] = False
+
+    def conv_rec(y_i8, *a, **kw):
+        record.append(y_i8.clone())
+        return conv(y_i8, *a, **kw)
+
+    cu_net.quan_input, cu_net._apply_head = quan_rec, head_rec
+    model_buf.conv3x3_i8 = conv_rec
+    try:
+        yield record
+    finally:
+        cu_net.quan_input, cu_net._apply_head = quan, head
+        model_buf.conv3x3_i8 = conv
+
+
+@contextlib.contextmanager
+def _swapped(module, name, fn):
+    saved = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, saved)
+
+
+@contextlib.contextmanager
+def layer_plain_swapped(torch):
+    """The layer-by-layer quantized eval on its kernels' plain versions:
+    ``table_dot`` (#6, the down blocks' float adapter pairs and the
+    intermedia adapters) and ``int8_matmul_dequant`` (#10, every int8
+    bottleneck). That path's reference: JAX runs the adapter pairs float
+    there (``cu_net.py::_apply_dual_adapters`` ignores ``quant``), so it
+    computes another function than the plain path (``use_pallas`` off),
+    whose adapter pairs are int8 products."""
+    from cunet_tpu_torch.kernels import bottleneck_infer, eval_ops
+    from cunet_tpu_torch.kernels import quant_matmul
+
+    def mm_plain(x, w, cs, xs):
+        out = torch.empty(x.shape[0], w.shape[1], device=x.device)
+        return quant_matmul.int8_matmul_dequant_plain(x, w, cs, xs, out)
+
+    saved = (bottleneck_infer.table_dot, quant_matmul.int8_matmul_dequant)
+    bottleneck_infer.table_dot = eval_ops.table_dot_plain
+    quant_matmul.int8_matmul_dequant = mm_plain
+    try:
+        yield
+    finally:
+        bottleneck_infer.table_dot, quant_matmul.int8_matmul_dequant = saved
+
+
+def phase_quant_f32_serving(torch, ops, qops, eops, gpu):
+    """Phase 15 (c): the quantized CU-Net-8 @256 (W1/I8/G8, ``int8_infer``,
+    ``quant_eval_params`` of the port's init, seed 0) at float32 served
+    through ``Predictor`` on the whole-model int8 path (the int8 kernels'
+    float32 forms) and on the layer-by-layer path JAX takes for a
+    quantized eval (the down blocks' adapter pairs on ``table_dot``'s
+    float32 dual form, every bottleneck on ``int8_matmul_dequant``):
+    requests of 8 and 5, the kernels counted; each anchor against its
+    reference at batch 8 and 64 within relative L2 F32_PATH_REL_L2, or
+    where flipped int8 codes set the gap within 2x a same-run control, the
+    reference on its input moved by one ulp: for the whole-model path the
+    plain path (``use_pallas`` off, ``int8_impl="lax"``), the same
+    function; for the layer-by-layer path that path on its kernels' plain
+    versions (``layer_plain_swapped``: JAX's dispatch makes it another
+    function than the plain path's, whose distance is printed beside); the
+    share of the 3x3 convs' int8 codes that differ from the reference's
+    (the random-init quantized model is chaotic: a one-ulp move of the
+    input moves the later anchors by O(1)); so, as phase 6 does at bf16,
+    each path bit for bit itself with its integer kernels' plain versions
+    swapped in (the whole-model path's ``affine_dot_i8`` / ``conv3x3_i8``,
+    the layer path's ``int8_matmul_dequant``), and the plain path on #10
+    (``int8_impl="pallas"``) bit for bit its ``"lax"`` form; forward
+    times. Returns
+    ({row: launches}, {label: counts})."""
+    from cunet_tpu_torch import ModelConfig, QuantConfig
+    from cunet_tpu_torch.models import apply_cu_net, init_cu_net
+    from cunet_tpu_torch.models.cu_net import eval_path
+    from cunet_tpu_torch.serving import Predictor
+    from cunet_tpu_torch.train import quant_eval_params
+
+    whole = ModelConfig(layer_num=8, order=1, class_num=16, loss_num=8,
+                        compute_dtype="float32", use_pallas=True,
+                        pallas_whole_model=True)
+    paths = {"whole-model": whole,
+             "layers": dataclasses.replace(whole, pallas_whole_model=False)}
+    plain_cfg = dataclasses.replace(whole, use_pallas=False)
+    quant = QuantConfig(bits_w=1, bits_i=QUANT_BITS, bits_g=8, enabled=True,
+                        int8_infer=True, int8_impl="pallas")
+    lax = dataclasses.replace(quant, int8_impl="lax")
+    require([eval_path(c, quant) for c in paths.values()]
+            == ["whole_model", "layers"], "quant f32 path flags")
+    params, state = init_cu_net(whole, torch.Generator().manual_seed(0))
+    qparams = quant_eval_params(params, quant)
+    rng = np.random.RandomState(0)
+    requests = [rng.rand(k, 256, 256, 3).astype(np.float32) for k in (8, 5)]
+
+    def counts():
+        return {**qops.launch_counts(), **qops.f32_counts(),
+                **ops.f32_counts(), **eops.f32_counts(),
+                "table_dot[f32,dual]": eops.option_counts()[
+                    "table_dot[dual]"]}
+
+    per_path, preds = {}, {}
+    for label, cfg in paths.items():
+        pred = preds[label] = Predictor(cfg, qparams, state, device="cuda",
+                                        batch_size=BATCH, flip_test=True,
+                                        quant=quant)
+        ops.reset_launch_counts()
+        qops.reset_launch_counts()
+        eops.reset_launch_counts()
+        answers = [(pred.heatmaps(imgs), pred.predict(imgs))
+                   for imgs in requests]
+        torch.cuda.synchronize()
+        per_path[label] = {k: v for k, v in counts().items() if v}
+        for imgs, (hm, pts) in zip(requests, answers):
+            k = imgs.shape[0]
+            require(hm.shape == (k, 64, 64, 16) and hm.dtype == np.float32,
+                    f"quant f32 {label}: heatmaps {hm.shape} {hm.dtype}")
+            require(pts.shape == (k, 16, 2), f"landmarks shape {pts.shape}")
+            require(np.isfinite(hm).all() and np.isfinite(pts).all()
+                    and np.abs(hm).max() > 0,
+                    f"quant f32 {label}: non-finite or zero output")
+    print(f"quant f32 serving: launches on the main paths (requests of 8 "
+          f"and 5, flip test): {per_path}", flush=True)
+    need = {"whole-model": ("affine_dot_i8[f32]", "conv3x3_i8[f32]",
+                            "affine_dot[f32]", "maxpool2[f32]",
+                            "upsample2[f32]"),
+            "layers": ("int8_matmul_dequant", "table_dot[f32]",
+                       "table_dot[f32,dual]")}
+    for label, names in need.items():
+        for name in names:
+            require(per_path[label].get(name, 0) > 0,
+                    f"quant f32 {label}: {name} never launched")
+    require("int8_matmul_dequant" not in per_path["whole-model"],
+            "int8_matmul_dequant launched on the whole-model path")
+
+    from cunet_tpu_torch.kernels import model_buf, quant_matmul
+
+    def i8_plain():
+        """The integer kernels' plain versions swapped in."""
+        stack = contextlib.ExitStack()
+        for mod, name in ((model_buf, "affine_dot_i8"),
+                          (model_buf, "conv3x3_i8")):
+            stack.enter_context(_swapped(mod, name, qops.PLAIN[getattr(
+                qops, name)]))
+        stack.enter_context(_swapped(
+            quant_matmul, "int8_matmul_dequant",
+            lambda x, w, cs, xs: quant_matmul.int8_matmul_dequant_plain(
+                x, w, cs, xs, torch.empty(x.shape[0], w.shape[1],
+                                          device=x.device))))
+        return stack
+
+    x8 = torch.from_numpy(requests[0]).to("cuda")
+    with torch.inference_mode():
+        for label, cfg in paths.items():
+            got = apply_cu_net(qparams, state, x8, cfg=cfg, quant=quant,
+                               slots=preds[label]._slots)[0]
+            with i8_plain():
+                want = apply_cu_net(qparams, state, x8, cfg=cfg, quant=quant,
+                                    slots=preds[label]._slots)[0]
+            same = all(torch.equal(a, b) for a, b in zip(got, want))
+            print(f"quant f32 serving, {label} path, request of 8: bit for "
+                  f"bit the same path on its integer kernels' plain "
+                  f"versions {same}", flush=True)
+            require(same, f"quant f32 {label}: the int8 kernels' forward "
+                          f"differs from their plain versions'")
+        qops.reset_launch_counts()
+        on_k = apply_cu_net(qparams, state, x8, cfg=plain_cfg, quant=quant)[0]
+        k10 = qops.launch_counts()["int8_matmul_dequant"]
+        on_lax = apply_cu_net(qparams, state, x8, cfg=plain_cfg, quant=lax)[0]
+        same = all(torch.equal(a, b) for a, b in zip(on_k, on_lax))
+        print(f"quant f32 serving, plain path (use_pallas off), request of "
+              f"8: int8_impl 'pallas' ({k10} int8_matmul_dequant launches) "
+              f"bit for bit 'lax' {same}", flush=True)
+        require(k10 > 0 and same, "quant f32: the plain path on #10 "
+                                  "differs from its lax form")
+
+    s = 2.0 ** (QUANT_BITS - 1)
+    plain = dict(cfg=plain_cfg, quant=lax)
+    refs = {"whole-model": (plain, contextlib.nullcontext),
+            "layers": (dict(cfg=paths["layers"], quant=quant),
+                       lambda: layer_plain_swapped(torch))}
+    for batch in (BATCH, 64):
+        x = torch.rand(batch, 256, 256, 3, generator=torch.Generator()
+                       .manual_seed(batch)).to("cuda")
+        nudged = torch.nextafter(x, torch.full_like(x, 2.0))
+        with torch.inference_mode():
+            base, _ = apply_cu_net(qparams, state, x, **plain)
+            for label, cfg in paths.items():
+                kw, swap = refs[label]
+                codes = {"kernel": [], "ref": []}
+                with conv_codes(torch, s, codes["kernel"]):
+                    got = apply_cu_net(qparams, state, x, cfg=cfg,
+                                       quant=quant,
+                                       slots=preds[label]._slots)[0]
+                with swap():
+                    with conv_codes(torch, s, codes["ref"]):
+                        want = apply_cu_net(qparams, state, x, **kw)[0]
+                    ctl = apply_cu_net(qparams, state, nudged, **kw)[0]
+                require(all(a.dtype == torch.float32 for a in got),
+                        f"quant f32 {label}: output dtype")
+                k_rel = [_rel(a.cpu().numpy(), b.cpu().numpy())
+                         for a, b in zip(got, want)]
+                c_rel = [_rel(a.cpu().numpy(), b.cpu().numpy())
+                         for a, b in zip(ctl, want)]
+                p_rel = [_rel(a.cpu().numpy(), b.cpu().numpy())
+                         for a, b in zip(got, base)]
+                lim = [max(F32_PATH_REL_L2, 2 * c) for c in c_rel]
+                rec, ref = codes["kernel"], codes["ref"]
+                require(len(rec) == len(ref) and all(
+                    a.shape == b.shape for a, b in zip(rec, ref)),
+                    f"quant f32 {label}: conv inputs do not pair up")
+                flipped = sum(int((a != b).sum()) for a, b in zip(rec, ref))
+                total = sum(a.numel() for a in ref)
+                print(f"quant f32 serving, {label} path, batch {batch}: "
+                      f"relative L2 per anchor to its reference "
+                      f"{[float(f'{v:.4g}') for v in k_rel]}; control "
+                      f"(reference, input moved one ulp) "
+                      f"{[float(f'{v:.4g}') for v in c_rel]}; limits max("
+                      f"{F32_PATH_REL_L2:g}, 2 x control); largest share "
+                      f"{max(k / m for k, m in zip(k_rel, lim)):.3g}; 3x3 "
+                      f"conv int8 codes differing from the reference's: "
+                      f"{flipped} of {total} ({flipped / total:.3g}); to the "
+                      f"plain path (use_pallas off) "
+                      f"{[float(f'{v:.4g}') for v in p_rel]}", flush=True)
+                require(all(np.isfinite(k) and k <= m
+                            for k, m in zip(k_rel, lim)),
+                        f"quant f32 {label} path off its reference at batch "
+                        f"{batch}: {k_rel} against {lim}")
+                del got, want, ctl, codes
+        del base, x, nudged
+
+    for batch in (BATCH, 64):
+        parts = []
+        for label, cfg, q in [(k, v, quant) for k, v in paths.items()] + [
+                ("plain lax", plain_cfg, lax)]:
+            p = Predictor(cfg, qparams, state, device="cuda",
+                          batch_size=batch, quant=q)
+            ms = time_forward(torch, p, batch)
+            parts.append(f"{label} {ms:.3f} ms, {batch / ms * 1e3:.1f} img/s")
+        print(f"quant f32 serving: forward batch {batch}: "
+              f"{'; '.join(parts)} ({gpu})", flush=True)
+    launches = {}
+    for c in per_path.values():
+        for k, v in c.items():
+            launches[k] = launches.get(k, 0) + v
+    return launches, per_path
+
+
+def phase_many_group_serving(torch, ops, eops):
+    """Phase 15 (d): CU-Net at order MANY_ORDER (layer_num 15, 16 classes,
+    batch 8 at 256 px, seed 0), whose up blocks' adapters read 17 feature
+    groups from a table in device memory (counted): at float32 and
+    CU-Net-8's widths the per-slot path (JAX's default flags) bit for bit
+    the whole-model path, it, the per-block and the per-bottleneck paths
+    within F32_PATH_REL_L2 of the plain path per anchor; at bf16 the
+    per-slot path bit for bit the whole-model path at small widths (c=32,
+    g=16: the bf16 whole-model ``affine_dot`` keeps its weight resident,
+    and CU-Net-8's intermedia adapter at order >= 6, K = 896 and up, fits
+    no tiling; ROADMAP queue C). Returns {row: launches over more than 16
+    groups}."""
+    from cunet_tpu_torch import ModelConfig
+    from cunet_tpu_torch.models import apply_cu_net, init_cu_net
+    from cunet_tpu_torch.models.cu_net import eval_slots
+
+    launches = {}
+    small = dict(init_chan_num=32, growth_rate=16, neck_size=2)
+    for dt, widths in (("float32", {}), ("bfloat16", small)):
+        cfg = ModelConfig(layer_num=MANY_ORDER + 1, order=MANY_ORDER,
+                          class_num=16, loss_num=2, compute_dtype=dt,
+                          use_pallas=True, **widths)
+        params, state = init_cu_net(cfg, torch.Generator().manual_seed(0))
+        x = torch.rand(BATCH, 256, 256, 3, generator=torch.Generator()
+                       .manual_seed(14)).to("cuda")
+        slots = eval_slots(params, state, cfg)
+        with torch.inference_mode():
+            eops.reset_launch_counts()
+            per_slot, _ = apply_cu_net(params, state, x, cfg=cfg,
+                                       slots=slots)
+            torch.cuda.synchronize()
+            ext = eops.ext_counts()["table_dot[groups>16]"]
+            whole, _ = apply_cu_net(params, state, x, slots=slots,
+                                    cfg=dataclasses.replace(
+                                        cfg, pallas_whole_model=True))
+            same = all(torch.equal(a, b) for a, b in zip(per_slot, whole))
+            rels = {}
+            if dt == "float32":
+                plain, _ = apply_cu_net(params, state, x,
+                                        cfg=dataclasses.replace(
+                                            cfg, use_pallas=False))
+                others = {"per-slot": per_slot}
+                for label, flags in (("per-block", dict(
+                        pallas_hourglass=False)), ("per-bottleneck", dict(
+                            pallas_hourglass=False, use_scan=False))):
+                    others[label] = apply_cu_net(
+                        params, state, x,
+                        cfg=dataclasses.replace(cfg, **flags))[0]
+                rels = {label: max(_rel(a.cpu().numpy(), b.cpu().numpy())
+                                   for a, b in zip(outs, plain))
+                        for label, outs in others.items()}
+        row = "table_dot[f32,groups>16]" if dt == "float32" \
+            else "table_dot[groups>16]"
+        launches[row] = ext
+        print(f"order {MANY_ORDER} ({dt}, layer_num {cfg.layer_num}, c="
+              f"{cfg.init_chan_num}, g={cfg.growth_rate}, batch {BATCH}): "
+              f"per-slot forward launched table_dot over more than 16 groups "
+              f"{ext} times; bit for bit the whole-model path {same}; worst "
+              f"anchor relative L2 to the plain path {rels} (bound "
+              f"{F32_PATH_REL_L2})", flush=True)
+        require(ext > 0, f"order {MANY_ORDER}: no table of more than 16 "
+                         f"groups was read")
+        require(same, f"order {MANY_ORDER} ({dt}): per-slot path differs "
+                      f"from the whole-model path")
+        require(all(np.isfinite(v) and v <= F32_PATH_REL_L2
+                    for v in rels.values()),
+                f"order {MANY_ORDER}: a kernel path off the plain path: "
+                f"{rels}")
+        del per_slot, whole, params, slots
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4577,6 +5464,17 @@ def main() -> int:
         slot_f32_launches, slot_f32_per_step = phase_slot_f32_training(
             torch, tops, ops, dops, gpu, bf16_times)
         lap("14 (b)-(d)")
+        quant_f32_kernels = phase_quant_f32_kernels(torch, tops, ops, qops,
+                                                    eops)
+        lap("15 (a)")
+        quant_f32_launches, quant_f32_per_step = phase_quant_f32_training(
+            torch, tops, ops, gpu)
+        lap("15 (b)")
+        int8_f32_launches, int8_f32_per_path = phase_quant_f32_serving(
+            torch, ops, qops, eops, gpu)
+        lap("15 (c)")
+        many_launches = phase_many_group_serving(torch, ops, eops)
+        lap("15 (d)")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4666,6 +5564,21 @@ def main() -> int:
         rows.append(row(name, src, r, slot_f32_launches[name],
                         launches_per_step=slot_f32_per_step[name],
                         one_hot_exact=r["one_hot_exact"]))
+    for name, r in quant_f32_kernels.items():
+        if name in QUANT_F32:
+            src = F32_SOURCE
+            n = quant_f32_launches[name]
+            extra = dict(launches_per_step=quant_f32_per_step[name],
+                         one_hot_exact=r["one_hot_exact"])
+        elif name.endswith("groups>16]"):
+            src = F32_SOURCE if "f32" in name else EVAL_SOURCE
+            n = many_launches[name]
+            extra = dict(ms_16_groups=r["ms_16_groups"])
+        else:
+            src, n = INT8_SOURCE, int8_f32_launches[name]
+            extra = dict(launches_per_path={
+                k: v.get(name, 0) for k, v in int8_f32_per_path.items()})
+        rows.append(row(name, src, r, n, **extra))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -58,6 +58,103 @@ __device__ __forceinline__ long long up_row(long long m, int H, int W) {
   return (b * (H / 2) + y / 2) * (W / 2) + x / 2;
 }
 
+// The feature table of a concat-free product (table_dot and its float32
+// form): groups 0 .. G-1, group g holding columns [off[g], off[g+1]) of
+// the virtual concat. Up to kMaxGroups travel by value in the launch
+// parameters (ptr, ld, off and the up bitmask of the table struct); a
+// longer table (an up block's adapter reads order + 3 groups) lives in
+// device memory at ``ext``: one row of kGroupCols int64 per group,
+// [pointer, row stride, column offset, up flag], written by fill_groups on
+// the launch's stream just before the product reads it. Both are searched
+// for k the same way, so the groups' layout never changes what is summed,
+// or in which order.
+constexpr int kMaxGroups = 16;
+constexpr int kGroupCols = 4;
+constexpr int kFillRows = 64;   // groups a fill launch carries by value
+
+struct GroupRows {
+  long long v[kFillRows * kGroupCols];
+};
+
+__global__ void fill_groups_kernel(long long* __restrict__ dst,
+                                   const __grid_constant__ GroupRows rows,
+                                   int n) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = rows.v[i];
+}
+
+// Where column k of the virtual concat lives: the address of its row 0,
+// the row stride, and whether its group is read through the 2x upsample.
+template <typename T>
+struct GroupRef {
+  const T* col;
+  long long ld;
+  bool up;
+};
+
+// EXT (a template parameter, so a kernel over a table by value carries no
+// code of the other kind): the table at t.ext, else the one by value.
+template <bool EXT, typename T, typename Table>
+__device__ __forceinline__ GroupRef<T> find_group(const Table& t, int k) {
+  int g = 0;
+  if constexpr (EXT) {
+    while (g + 1 < t.G && k >= (int)t.ext[(g + 1) * kGroupCols + 2]) ++g;
+    const long long* r = t.ext + g * kGroupCols;
+    return {reinterpret_cast<const T*>(r[0]) + (k - (int)r[2]), r[1],
+            r[3] != 0};
+  } else {
+    while (g + 1 < t.G && k >= t.off[g + 1]) ++g;
+    return {t.ptr[g] + (k - t.off[g]), t.ld[g], ((t.up >> g) & 1) != 0};
+  }
+}
+
+// The host side: the G groups (pointers, row strides, widths, up flags)
+// into ``t``, by value when they fit, else into ``ext`` (G x kGroupCols
+// int64 of device memory, the caller's) by fill launches on ``st``. Sets
+// K, the concat's width; ``up`` is the bitmask of the flagged groups by
+// value, or with ``ext`` nonzero when any group is flagged.
+template <typename T, typename Table>
+cudaError_t set_groups(Table& t, const void* const* feats,
+                       const long long* lds, const int* widths,
+                       const int* ups, int G, void* ext, cudaStream_t st) {
+  if (G < 1 || (G > kMaxGroups && !ext)) return cudaErrorInvalidValue;
+  t.G = G;
+  t.up = 0;
+  t.ext = nullptr;
+  t.off[0] = 0;
+  int off = 0;
+  for (int g = 0; g < kMaxGroups; ++g) {
+    const bool in = g < G && G <= kMaxGroups;
+    t.ptr[g] = in ? static_cast<const T*>(feats[g]) : nullptr;
+    t.ld[g] = in ? lds[g] : 0;
+    t.off[g + 1] = t.off[g] + (in ? widths[g] : 0);
+  }
+  if (G <= kMaxGroups) {
+    for (int g = 0; g < G; ++g) t.up |= ups[g] ? 1 << g : 0;
+    t.K = t.off[G];
+    return cudaSuccess;
+  }
+  auto* dev = static_cast<long long*>(ext);
+  for (int g0 = 0; g0 < G; g0 += kFillRows) {
+    const int ng = G - g0 < kFillRows ? G - g0 : kFillRows;
+    GroupRows rows;
+    for (int i = 0; i < ng; ++i) {
+      const int g = g0 + i;
+      long long* r = rows.v + i * kGroupCols;
+      r[0] = reinterpret_cast<long long>(feats[g]);
+      r[1] = lds[g];
+      r[2] = off;
+      r[3] = ups[g] != 0;
+      off += widths[g];
+      t.up |= ups[g] != 0;
+    }
+    fill_groups_kernel<<<1, 128, 0, st>>>(dev + (long long)g0 * kGroupCols,
+                                          rows, ng * kGroupCols);
+  }
+  t.ext = dev;
+  t.K = off;
+  return cudaGetLastError();
+}
+
 // Eight bf16 values as one 16-byte vector (raw bits, so the union stays
 // trivially constructible).
 union Pack8 {
@@ -94,16 +191,34 @@ __device__ __forceinline__ float bf16r(float f) {
 // for |x| <= 1 (S and 1/S are powers of two, so the plain version's
 // division by S is this multiply by 1/S), so it agrees with the plain
 // version bit for bit.
-__device__ __forceinline__ float quan(float x, int bits) {
-  if (bits <= 0 || bits > 15) return x;
-  const float s = bits <= 2 ? 1.f : (float)(1 << (bits - 1));
-  const float inv_s = __frcp_rn(s);
-  const float lim = bits <= 2 ? 1.f : 1.f - inv_s;
-  x = fminf(fmaxf(x, -lim), lim);
+// QuanConst: the quantizer's constants for ``bits``, worked out once (a
+// kernel's prologue applies it to every element, nine times an element in
+// the implicit-GEMM conv).
+struct QuanConst {
+  int bits;
+  float s, inv_s, lim;
+};
+
+__device__ __forceinline__ QuanConst quan_const(int bits) {
+  QuanConst q;
+  q.bits = bits <= 0 || bits > 15 ? 0 : bits;
+  q.s = bits <= 2 ? 1.f : (float)(1 << (bits - 1));
+  q.inv_s = __frcp_rn(q.s);
+  q.lim = bits <= 2 ? 1.f : 1.f - q.inv_s;
+  return q;
+}
+
+__device__ __forceinline__ float quan(float x, const QuanConst& q) {
+  if (!q.bits) return x;
+  x = fminf(fmaxf(x, -q.lim), q.lim);
   const float sgn = x > 0.f ? 1.f : (x < 0.f ? -1.f : 0.f);
-  if (bits == 1) return sgn;
-  const float y = __fmul_rn(fabsf(x), s);
-  return __fmul_rn(__fmul_rn(sgn, floorf(__fadd_rn(y, 0.5f))), inv_s);
+  if (q.bits == 1) return sgn;
+  const float y = __fmul_rn(fabsf(x), q.s);
+  return __fmul_rn(__fmul_rn(sgn, floorf(__fadd_rn(y, 0.5f))), q.inv_s);
+}
+
+__device__ __forceinline__ float quan(float x, int bits) {
+  return quan(x, quan_const(bits));
 }
 
 // The relu(BN) prologue of a GEMM operand: f32 affine, ReLU, one bf16

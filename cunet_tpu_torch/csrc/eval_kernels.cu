@@ -4,7 +4,7 @@
 //   out_a[m, n] = epi( sum_k bf16(relu(x[m,k]*inv_a[k] + shift_a[k])) W_a[k, n] )
 //   out_s[m, n] =      sum_k bf16(relu(x[m,k]*inv_s[k] + shift_s[k])) W_s[k, n]
 //
-// where x is the virtual concat of G <= 16 separate bf16 (M, C_g) tensors,
+// where x is the virtual concat of G separate bf16 (M, C_g) tensors,
 // the affine is float32, the product bf16 with float32 accumulators, and each
 // output is rounded to bf16 once. epi is the identity, relu(. + b[n]) (the
 // bottleneck's BN2 with its scale folded into W_a: "shift2") or
@@ -29,9 +29,13 @@
 //   (:148), its upsample_first (:128-132) and its pool_ahead (:178-183).
 //
 // The table (pointer, row stride, column offset of each group) travels by
-// value in the launch parameters (__grid_constant__), so no fill launch and
-// no device buffer exist: the FIFO entries, the skip and the out32 that a
-// stage reads stay separate tensors and are read in place. Group widths,
+// value in the launch parameters (__grid_constant__) for up to 16 groups,
+// so no fill launch and no device buffer exist there; a longer table (an
+// up block's adapter at order >= 14) goes to device memory by one fill
+// launch first (common.cuh, set_groups), searched for each column as the
+// by-value one is, so the sums and their order do not depend on it. The
+// FIFO entries, the skip and the out32 that a stage reads stay separate
+// tensors and are read in place. Group widths,
 // row strides and pointers are multiples of 8 elements / 16 bytes (the
 // wrapper checks), so an 8-column vector never straddles two groups.
 //
@@ -56,18 +60,20 @@
 
 namespace {
 
-constexpr int kMaxGroups = 16;
-
 // The virtual concat: group g holds columns [off[g], off[g+1]); bit g of
-// up marks a half-resolution group; H, W are the output images' rows and
-// columns (read by the upsample remap and the pooled store).
+// up marks a half-resolution group; or, past kMaxGroups groups, their rows
+// at ext (common.cuh, find_group); K the concat's width; H, W are the
+// output images' rows and columns (read by the upsample remap and the
+// pooled store).
 struct FeatTable {
   const bf16* ptr[kMaxGroups];
   long long ld[kMaxGroups];
   int off[kMaxGroups + 1];
   int G;
+  int K;
   int up;
   int H, W;
+  const long long* ext;
 };
 
 // One output: its BN vectors, its weight (row stride ldw; wvec: 16-byte
@@ -283,7 +289,7 @@ __device__ __forceinline__ void store_pooled(
   }
 }
 
-template <int BN, int WARPS_N, int NOUT, bool POOL, int EPI>
+template <int BN, int WARPS_N, int NOUT, bool POOL, int EPI, bool EXT>
 __global__ void __launch_bounds__(kThreads)
     table_dot_kernel(const __grid_constant__ FeatTable tbl, long long M,
                      int N, const __grid_constant__ Operands ops) {
@@ -293,7 +299,7 @@ __global__ void __launch_bounds__(kThreads)
   const int wm = warp / WARPS_N, wn = warp % WARPS_N;
   const long long m0 = (long long)blockIdx.x * BM;
   const int n0 = blockIdx.y * BN;
-  const int K = tbl.off[tbl.G];
+  const int K = tbl.K;
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NOUT][T::FM][T::FN];
 #pragma unroll
@@ -323,11 +329,10 @@ __global__ void __launch_bounds__(kThreads)
     long long ld = 0;
     bool upg = false;
     if (k < K) {
-      int g = 0;
-      while (g + 1 < tbl.G && k >= tbl.off[g + 1]) ++g;
-      col = tbl.ptr[g] + (k - tbl.off[g]);
-      ld = tbl.ld[g];
-      upg = (tbl.up >> g) & 1;
+      const GroupRef<bf16> grp = find_group<EXT, bf16>(tbl, k);
+      col = grp.col;
+      ld = grp.ld;
+      upg = grp.up;
     }
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
@@ -371,37 +376,49 @@ __global__ void __launch_bounds__(kThreads)
                                      acc[NOUT - 1]);
 }
 
-template <int BN, int WARPS_N, int NOUT, bool POOL>
+template <int BN, int WARPS_N, int NOUT, bool POOL, bool EXT>
 void launch_epi(const dim3& grid, const FeatTable& tbl, long long M, int N,
                 const Operands& ops, int epi, cudaStream_t stream) {
   if (epi == kEpiShift)
-    table_dot_kernel<BN, WARPS_N, NOUT, POOL, kEpiShift>
+    table_dot_kernel<BN, WARPS_N, NOUT, POOL, kEpiShift, EXT>
         <<<grid, kThreads, 0, stream>>>(tbl, M, N, ops);
   else if (epi == kEpiScale)
-    table_dot_kernel<BN, WARPS_N, NOUT, POOL, kEpiScale>
+    table_dot_kernel<BN, WARPS_N, NOUT, POOL, kEpiScale, EXT>
         <<<grid, kThreads, 0, stream>>>(tbl, M, N, ops);
   else
-    table_dot_kernel<BN, WARPS_N, NOUT, POOL, kEpiNone>
+    table_dot_kernel<BN, WARPS_N, NOUT, POOL, kEpiNone, EXT>
         <<<grid, kThreads, 0, stream>>>(tbl, M, N, ops);
 }
 
 // The dual form has no epilogue (the wrapper checks); the single form takes
-// each, pooled or not.
-template <int BN, int WARPS_N>
+// each, pooled or not. EXT: the table in device memory.
+template <int BN, int WARPS_N, bool EXT>
 void launch_table_dot(const FeatTable& tbl, long long M, int N,
                       const Operands& ops, int nout, int pool, int epi,
                       cudaStream_t stream) {
   const dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((N + BN - 1) / BN));
   if (nout == 2 && pool)
-    table_dot_kernel<BN, WARPS_N, 2, true, kEpiNone>
+    table_dot_kernel<BN, WARPS_N, 2, true, kEpiNone, EXT>
         <<<grid, kThreads, 0, stream>>>(tbl, M, N, ops);
   else if (nout == 2)
-    table_dot_kernel<BN, WARPS_N, 2, false, kEpiNone>
+    table_dot_kernel<BN, WARPS_N, 2, false, kEpiNone, EXT>
         <<<grid, kThreads, 0, stream>>>(tbl, M, N, ops);
   else if (pool)
-    launch_epi<BN, WARPS_N, 1, true>(grid, tbl, M, N, ops, epi, stream);
+    launch_epi<BN, WARPS_N, 1, true, EXT>(grid, tbl, M, N, ops, epi, stream);
   else
-    launch_epi<BN, WARPS_N, 1, false>(grid, tbl, M, N, ops, epi, stream);
+    launch_epi<BN, WARPS_N, 1, false, EXT>(grid, tbl, M, N, ops, epi, stream);
+}
+
+template <int BN, int WARPS_N>
+void launch_table(const FeatTable& tbl, long long M, int N,
+                  const Operands& ops, int nout, int pool, int epi,
+                  cudaStream_t stream) {
+  if (tbl.ext)
+    launch_table_dot<BN, WARPS_N, true>(tbl, M, N, ops, nout, pool, epi,
+                                        stream);
+  else
+    launch_table_dot<BN, WARPS_N, false>(tbl, M, N, ops, nout, pool, epi,
+                                         stream);
 }
 
 Operand make_operand(const void* inv, const void* shift, const void* w,
@@ -424,16 +441,18 @@ Operand make_operand(const void* inv, const void* shift, const void* w,
 
 extern "C" {
 
-// feats / lds / widths: the G groups (G <= 16); up: bit g flags group g
-// half-resolution; H, W: the output images' size (M = B*H*W rows; read with
-// up or pool). Output a is required; a null out_s selects the single form.
+// feats / lds / widths / ups: the G groups (ups[g] flags group g
+// half-resolution); ext: G x 4 int64 of device memory for a table of more
+// than 16 groups (filled here, on the stream), else unused; H, W: the
+// output images' size (M = B*H*W rows; read with up or pool). Output a is required; a null out_s selects the single form.
 // epi (0 none, 1 shift, 2 scale; single form only) with the vectors epi_a
 // (scale) and epi_b (shift) is output a's epilogue. pool stores output a
 // 2x2-max-pooled, with M/4 rows. Both outputs share N and the weight stride.
 // The wrapper (kernels/eval_ops.py) checks the shapes: even H and W with up
 // or pool, and with pool whole 2x2 windows in the BM-row tile.
 int cunet_table_dot(const void* const* feats, const long long* lds,
-                    const int* widths, int G, int up, int H, int W,
+                    const int* widths, int G, const int* ups, void* ext,
+                    int H, int W,
                     long long M, const void* inv_a, const void* shift_a,
                     const void* w_a, const void* inv_s, const void* shift_s,
                     const void* w_s, int ldw, int N, int epi,
@@ -441,20 +460,15 @@ int cunet_table_dot(const void* const* feats, const long long* lds,
                     void* out_a, long long ldo_a, long long rows_per_img_a,
                     long long img_stride_a, void* out_s, long long ldo_s,
                     void* stream) {
-  if (G < 1 || G > kMaxGroups) return (int)cudaErrorInvalidValue;
   if (epi < kEpiNone || epi > kEpiScale || (out_s && epi != kEpiNone))
     return (int)cudaErrorInvalidValue;
+  const auto st = static_cast<cudaStream_t>(stream);
   FeatTable tbl;
-  tbl.G = G;
-  tbl.up = up;
+  const cudaError_t e =
+      set_groups<bf16>(tbl, feats, lds, widths, ups, G, ext, st);
+  if (e != cudaSuccess) return (int)e;
   tbl.H = H;
   tbl.W = W;
-  tbl.off[0] = 0;
-  for (int g = 0; g < kMaxGroups; ++g) {
-    tbl.ptr[g] = g < G ? static_cast<const bf16*>(feats[g]) : nullptr;
-    tbl.ld[g] = g < G ? lds[g] : 0;
-    tbl.off[g + 1] = tbl.off[g] + (g < G ? widths[g] : 0);
-  }
   Operands ops;
   ops.o[0] = make_operand(inv_a, shift_a, w_a, ldw, out_a, ldo_a,
                           rows_per_img_a, img_stride_a);
@@ -463,15 +477,14 @@ int cunet_table_dot(const void* const* feats, const long long* lds,
   const int nout = out_s ? 2 : 1;
   ops.o[1] = out_s ? make_operand(inv_s, shift_s, w_s, ldw, out_s, ldo_s, M, 0)
                    : ops.o[0];
-  const auto st = static_cast<cudaStream_t>(stream);
   if (N <= 16)
-    launch_table_dot<16, 1>(tbl, M, N, ops, nout, pool, epi, st);
+    launch_table<16, 1>(tbl, M, N, ops, nout, pool, epi, st);
   else if (N <= 32)
-    launch_table_dot<32, 2>(tbl, M, N, ops, nout, pool, epi, st);
+    launch_table<32, 2>(tbl, M, N, ops, nout, pool, epi, st);
   else if (N <= 64)
-    launch_table_dot<64, 2>(tbl, M, N, ops, nout, pool, epi, st);
+    launch_table<64, 2>(tbl, M, N, ops, nout, pool, epi, st);
   else
-    launch_table_dot<128, 2>(tbl, M, N, ops, nout, pool, epi, st);
+    launch_table<128, 2>(tbl, M, N, ops, nout, pool, epi, st);
   return (int)cudaGetLastError();
 }
 

@@ -12,9 +12,10 @@
 // float32 with no rounding (none for the conv), epi the identity, relu(. +
 // b[n]) or relu(. * a[n] + b[n]) as in table_dot, the up / pool options of
 // table_dot, and x read either
-//   - through a feature table of G <= 16 float32 groups (table_dot's float32
-//     form; affine_dot's is the table of one group, the strided prefix
-//     buf[:, :K] of a channel-plane buffer), or
+//   - through a feature table of G float32 groups (table_dot's float32
+//     form, its table by value up to 16 groups, else in device memory as
+//     table_dot's; affine_dot's is the table of one group, the strided
+//     prefix buf[:, :K] of a channel-plane buffer), or
 //   - as the implicit GEMM of a SAME 3x3 conv (conv3x3's float32 form): K =
 //     9C tap-major, A[m, tap*C + c] = y[m + dy*W + dx, c], zero where the
 //     source pixel lies outside m's image.
@@ -25,6 +26,15 @@
 // conv3x3_dx run as dot3_kernel on the float32 cotangent through the
 // transposed (flipped) weight, no prologue; dw3_kernel below takes the
 // weight gradients, the product over the rows.
+// The QuanInput options of the quantized model's training (W1/I8/G8 at
+// float32): a prologue quantizer quan(relu(x * inv + shift), bits) on the
+// unrounded float32 value (the bf16 forms' act() rounds to bf16 first;
+// here nothing rounds but the affine's product and sum), in the 1x1
+// forward (the head), the conv's BN2 prologue and dw3_kernel's z; and the
+// straight-through gate 0 < z < 1 in the gate epilogue (ste). A code
+// k / 2^(bits-1) with bits <= 9 has at most 8 significant bits, one bf16
+// plane: its second and third planes are zero, so those forms skip the
+// three products of the x planes 2 and 3 (exact: they add zeros).
 // It replaces, at float32, the 1x1 stages and the conv of TPU kernels #1
 // (cunet_tpu/kernels/fused_model_buf.py::_affine_dot :52, _conv3x3 via
 // fused_hourglass.py:75), #4 (fused_hourglass.py::_bottleneck_val :229),
@@ -81,19 +91,21 @@
 
 namespace {
 
-constexpr int kMaxGroups = 16;
 constexpr int BK3 = 32;   // reduction depth of a chunk
 
-// Where x comes from: a feature table (C == 0) or a 3x3 conv's input
-// (C > 0: group 0 is the (M, C) input; H, W its images).
+// Where x comes from: a feature table (C == 0; past kMaxGroups groups its
+// rows at ext, common.cuh) or a 3x3 conv's input (C > 0: group 0 is the
+// (M, C) input; H, W its images).
 struct Src {
   const float* ptr[kMaxGroups];
   long long ld[kMaxGroups];
   int off[kMaxGroups + 1];
   int G;
+  int K;      // the concat's width (a 1x1 product)
   int up;     // bit g: group g is read through a 2x nearest upsample
   int H, W;   // the output images (up, pool, conv)
   int C;      // conv input channels, K = 9C; 0: a 1x1 product
+  const long long* ext;
 };
 
 // One output: its prologue vectors (null: none), its weight, its epilogue
@@ -117,11 +129,15 @@ struct Op3 {
   long long tile_rows;
   const float* gx;
   long long ldgx;
+  int bits;   // QuanInput's quantizer on the prologue's output (QUANT)
 };
 
 // The backward's epilogue: the product where the recomputed pre-ReLU BN
-// output z = gx * ea + eb of its element is positive, else zero.
+// output z = gx * ea + eb of its element is positive, else zero; with
+// kEpiGateSte (QuanInput's straight-through estimator) also zero where z
+// >= 1.
 constexpr int kEpiGate = 3;
+constexpr int kEpiGateSte = 4;
 
 struct Ops3 {
   Op3 o[2];
@@ -173,6 +189,15 @@ __device__ __forceinline__ void store_planes(const float (&v)[8],
   *reinterpret_cast<uint4*>(p2) = c.v;
 }
 
+// The first plane alone: codes of a one-plane QuanInput operand, which
+// bf16 holds exactly (no product reads the other two planes then).
+__device__ __forceinline__ void store_plane1(const float (&v)[8], bf16* p0) {
+  Pack8 a;
+#pragma unroll
+  for (int t = 0; t < 8; ++t) a.u[t] = hi(v[t]);
+  *reinterpret_cast<uint4*>(p0) = a.v;
+}
+
 __device__ __forceinline__ void load8f(const float* p, bool vec,
                                        float (&v)[8]) {
   if (vec) {
@@ -191,9 +216,10 @@ __device__ __forceinline__ float epilogue3(float v, const Op3& op,
                                            long long m, int n) {
   if (EPI == kEpiShift) return fmaxf(v + op.eb[n], 0.f);
   if (EPI == kEpiScale) return fmaxf(affine(v, op.ea[n], op.eb[n]), 0.f);
-  if (EPI == kEpiGate) {
+  if (EPI == kEpiGate || EPI == kEpiGateSte) {
     const long long o = (op.vstride ? m / op.tile_rows : 0) * op.vstride + n;
-    return affine(op.gx[m * op.ldgx + n], op.ea[o], op.eb[o]) > 0.f ? v : 0.f;
+    const float z = affine(op.gx[m * op.ldgx + n], op.ea[o], op.eb[o]);
+    return z > 0.f && (EPI == kEpiGate || z < 1.f) ? v : 0.f;
   }
   return v;
 }
@@ -239,6 +265,49 @@ __device__ __forceinline__ void add_acc3(Acc3<BN, WARPS_N>& acc,
 #pragma unroll
       for (int e = 0; e < acc[i][j].num_elements; ++e)
         acc[i][j].x[e] += part[i][j].x[e];
+}
+
+// One BK3-deep chunk of the six plane products into ``part``: W planes 3,
+// 2, 1; with each, the x planes that keep i + j <= 4 (1-based), largest
+// index first (the order in the header). XP = 1: the x operand is one
+// bf16 plane (QuanInput codes of bits <= 9; planes 2, 3 zero), whose
+// three products are the only nonzero ones: the same sums. Fragment i of
+// x plane p at depth step kk is at a + p * a_plane + a0 + i * 16 * row_step
+// + kk * k_step, leading dimension lda (dot3_kernel's row-major tile:
+// row_step lda, k_step 1; dw3_kernel's depth-major z: row_step 1, k_step
+// lda).
+template <int BN, int WARPS_N, int XP, typename ALayout>
+__device__ __forceinline__ void chunk_products(
+    const bf16* a, int a_plane, int a0, int row_step, int k_step, int lda,
+    const bf16* b, int b_plane, int ldb, int wn, Acc3<BN, WARPS_N>& part) {
+  using T = Tiles<BN, WARPS_N>;
+#pragma unroll
+  for (int kk = 0; kk < BK3; kk += 16) {
+    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, ALayout> fa[XP][T::FM];
+#pragma unroll
+    for (int p = 0; p < XP; ++p)
+#pragma unroll
+      for (int i = 0; i < T::FM; ++i)
+        wmma::load_matrix_sync(fa[p][i], a + p * a_plane + a0 +
+                                             i * 16 * row_step + kk * k_step,
+                               lda);
+#pragma unroll
+    for (int pw = 2; pw >= 0; --pw) {
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
+          fb[T::FN];
+#pragma unroll
+      for (int j = 0; j < T::FN; ++j)
+        wmma::load_matrix_sync(
+            fb[j], b + pw * b_plane + kk * ldb + wn * T::WN + j * 16, ldb);
+#pragma unroll
+      for (int px = (2 - pw < XP - 1 ? 2 - pw : XP - 1); px >= 0; --px)
+#pragma unroll
+        for (int i = 0; i < T::FM; ++i)
+#pragma unroll
+          for (int j = 0; j < T::FN; ++j)
+            wmma::mma_sync(part[i][j], fa[px][i], fb[j], part[i][j]);
+    }
+  }
 }
 
 // Accumulators -> epilogue -> float32 output rows, through the warp's
@@ -359,7 +428,12 @@ __device__ __forceinline__ void reduce_split(const Split& sp, long long m0,
   }
 }
 
-template <int BN, int WARPS_N, int NOUT, bool POOL, int EPI, bool CONV>
+// EXT: the feature table in device memory (find_group); QUANT: the
+// prologue's QuanInput quantizer (op.bits) and the one-plane products. Both
+// template parameters, so an instance without them carries none of their
+// code.
+template <int BN, int WARPS_N, int NOUT, bool POOL, int EPI, bool CONV,
+          bool EXT, bool QUANT>
 __global__ void __launch_bounds__(kThreads)
     dot3_kernel(const __grid_constant__ Src src, long long M, int N,
                 const __grid_constant__ Ops3 ops, const Split sp) {
@@ -373,11 +447,15 @@ __global__ void __launch_bounds__(kThreads)
   const int wm = warp / WARPS_N, wn = warp % WARPS_N;
   const long long m0 = (long long)blockIdx.x * BM;
   const int n0 = blockIdx.y * BN;
-  const int K = CONV ? 9 * src.C : src.off[src.G];
+  const int K = CONV ? 9 * src.C : src.K;
   // a prologue's vectors per row (per-tile ghost-BN vectors, or the
   // conv's, whose column is the channel of a tap), fetched at commit; else
   // one eval pair, a chunk ahead (the single form)
   const bool row_vecs = CONV || ops.o[0].vstride != 0;
+  // the QuanInput prologue's constants (QUANT: a single-output form); its
+  // codes of bits <= 9 fill one bf16 plane (planes 2, 3 zero)
+  const QuanConst qc = quan_const(QUANT ? ops.o[0].bits : 0);
+  const bool one = QUANT && ops.o[0].bits >= 1 && ops.o[0].bits <= 9;
 
   Acc3<BN, WARPS_N> acc[NOUT];
 #pragma unroll
@@ -448,11 +526,10 @@ __global__ void __launch_bounds__(kThreads)
         dy = tap / 3 - 1;
         dx = tap % 3 - 1;
       } else {
-        int g = 0;
-        while (g + 1 < src.G && k >= src.off[g + 1]) ++g;
-        col = src.ptr[g] + (k - src.off[g]);
-        ld = src.ld[g];
-        upg = (src.up >> g) & 1;
+        const GroupRef<float> grp = find_group<EXT, float>(src, k);
+        col = grp.col;
+        ld = grp.ld;
+        upg = grp.up;
       }
     }
 #pragma unroll
@@ -507,12 +584,17 @@ __global__ void __launch_bounds__(kThreads)
         }
         float v[8];
 #pragma unroll
-        for (int t = 0; t < 8; ++t)
+        for (int t = 0; t < 8; ++t) {
           v[t] = !xok[i] ? 0.f
                  : pro   ? fmaxf(affine(xr[i][t], pa[t], pb[t]), 0.f)
                          : xr[i][t];
+          if constexpr (QUANT) v[t] = pro ? quan(v[t], qc) : v[t];
+        }
         bf16* p = A + q * 3 * S::A_PLANE + r * S::AS + kc;
-        store_planes(v, p, p + S::A_PLANE, p + 2 * S::A_PLANE);
+        if (QUANT && one)
+          store_plane1(v, p);
+        else
+          store_planes(v, p, p + S::A_PLANE, p + 2 * S::A_PLANE);
       }
 #pragma unroll
       for (int t = 0; t < kWPer; ++t) {
@@ -547,36 +629,19 @@ __global__ void __launch_bounds__(kThreads)
       const bf16* b = B + q * 3 * S::B_PLANE;
       Acc3<BN, WARPS_N> part;
       zero_acc3<BN, WARPS_N>(part);
-#pragma unroll
-      for (int kk = 0; kk < BK3; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
-            fa[3][T::FM];
-#pragma unroll
-        for (int p = 0; p < 3; ++p)
-#pragma unroll
-          for (int i = 0; i < T::FM; ++i)
-            wmma::load_matrix_sync(
-                fa[p][i], a + p * S::A_PLANE + (wm * T::WM + i * 16) * S::AS +
-                              kk, S::AS);
-        // W planes 3, 2, 1; with each, the x planes that keep i + j <= 4
-        // (1-based), largest index first: the order in the header
-#pragma unroll
-        for (int pw = 2; pw >= 0; --pw) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
-              fb[T::FN];
-#pragma unroll
-          for (int j = 0; j < T::FN; ++j)
-            wmma::load_matrix_sync(
-                fb[j], b + pw * S::B_PLANE + kk * S::BS + wn * T::WN + j * 16,
-                S::BS);
-#pragma unroll
-          for (int px = 2 - pw; px >= 0; --px)
-#pragma unroll
-            for (int i = 0; i < T::FM; ++i)
-#pragma unroll
-              for (int j = 0; j < T::FN; ++j)
-                wmma::mma_sync(part[i][j], fa[px][i], fb[j], part[i][j]);
-        }
+      if constexpr (QUANT) {
+        if (one)
+          chunk_products<BN, WARPS_N, 1, wmma::row_major>(
+              a, S::A_PLANE, wm * T::WM * S::AS, S::AS, 1, S::AS, b,
+              S::B_PLANE, S::BS, wn, part);
+        else
+          chunk_products<BN, WARPS_N, 3, wmma::row_major>(
+              a, S::A_PLANE, wm * T::WM * S::AS, S::AS, 1, S::AS, b,
+              S::B_PLANE, S::BS, wn, part);
+      } else {
+        chunk_products<BN, WARPS_N, 3, wmma::row_major>(
+            a, S::A_PLANE, wm * T::WM * S::AS, S::AS, 1, S::AS, b,
+            S::B_PLANE, S::BS, wn, part);
       }
       add_acc3<BN, WARPS_N>(acc[q], part);
     }
@@ -653,7 +718,8 @@ struct SmemDw {
 };
 
 // The stage input of a weight gradient, its per-tile BN vectors (16-byte
-// aligned rows: vstride and C multiples of 4), and the conv's images.
+// aligned rows: vstride and C multiples of 4), the conv's images, and
+// QuanInput's bits on z (0: none; 1-9 one bf16 plane, as in dot3_kernel).
 struct DwSrc {
   const float* x;
   long long ldx;
@@ -663,9 +729,10 @@ struct DwSrc {
   long long tile_rows;
   int C;
   int H, W;
+  int bits;
 };
 
-template <int BN, int WARPS_N, bool CONV>
+template <int BN, int WARPS_N, bool CONV, bool QUANT>
 __global__ void __launch_bounds__(kThreads)
     dw3_kernel(const __grid_constant__ DwSrc s, long long M, int R,
                const float* __restrict__ dy, long long ldd, int N, int dvec,
@@ -697,6 +764,8 @@ __global__ void __launch_bounds__(kThreads)
   const int tap = CONV ? r / s.C : 0;
   const int c = CONV ? r - tap * s.C : r;
   const int ty = tap / 3 - 1, tx = tap % 3 - 1;
+  const QuanConst qc = quan_const(QUANT ? s.bits : 0);   // z's quantizer
+  const bool one = QUANT && s.bits >= 1 && s.bits <= 9;
   float ar[kAV][8], br[kBV][8];
 
   const auto fetch = [&](int k0) {
@@ -720,8 +789,10 @@ __global__ void __launch_bounds__(kThreads)
         load8f(s.inv + o, true, a);
         load8f(s.shift + o, true, b);
 #pragma unroll
-        for (int e = 0; e < 8; ++e) ar[j][e] = fmaxf(affine(v[e], a[e], b[e]),
-                                                     0.f);
+        for (int e = 0; e < 8; ++e) {
+          ar[j][e] = fmaxf(affine(v[e], a[e], b[e]), 0.f);
+          if constexpr (QUANT) ar[j][e] = quan(ar[j][e], qc);
+        }
       }
     }
 #pragma unroll
@@ -747,7 +818,10 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < kAV; ++j) {
       bf16* p = A + (kl + j * kAStep) * S::AS + rr;
-      store_planes(ar[j], p, p + S::A_PLANE, p + 2 * S::A_PLANE);
+      if (QUANT && one)
+        store_plane1(ar[j], p);
+      else
+        store_planes(ar[j], p, p + S::A_PLANE, p + 2 * S::A_PLANE);
     }
 #pragma unroll
     for (int t = 0; t < kBV; ++t) {
@@ -768,36 +842,19 @@ __global__ void __launch_bounds__(kThreads)
     if (k0 + BK3 < k_end) fetch((int)(k0 + BK3));
     Acc3<BN, WARPS_N> part;      // the chunk's sums (add_acc3)
     zero_acc3<BN, WARPS_N>(part);
-#pragma unroll
-    for (int kk = 0; kk < BK3; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>
-          fa[3][T::FM];
-#pragma unroll
-      for (int p = 0; p < 3; ++p)
-#pragma unroll
-        for (int i = 0; i < T::FM; ++i)
-          wmma::load_matrix_sync(
-              fa[p][i], A + p * S::A_PLANE + kk * S::AS + wm * T::WM + i * 16,
-              S::AS);
-      // dy planes 3, 2, 1; with each, the z planes that keep i + j <= 4:
-      // dot3_kernel's order
-#pragma unroll
-      for (int pw = 2; pw >= 0; --pw) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>
-            fb[T::FN];
-#pragma unroll
-        for (int j = 0; j < T::FN; ++j)
-          wmma::load_matrix_sync(
-              fb[j], B + pw * S::B_PLANE + kk * S::BS + wn * T::WN + j * 16,
-              S::BS);
-#pragma unroll
-        for (int px = 2 - pw; px >= 0; --px)
-#pragma unroll
-          for (int i = 0; i < T::FM; ++i)
-#pragma unroll
-            for (int j = 0; j < T::FN; ++j)
-              wmma::mma_sync(part[i][j], fa[px][i], fb[j], part[i][j]);
-      }
+    if constexpr (QUANT) {
+      if (one)
+        chunk_products<BN, WARPS_N, 1, wmma::col_major>(
+            A, S::A_PLANE, wm * T::WM, 1, S::AS, S::AS, B, S::B_PLANE, S::BS,
+            wn, part);
+      else
+        chunk_products<BN, WARPS_N, 3, wmma::col_major>(
+            A, S::A_PLANE, wm * T::WM, 1, S::AS, S::AS, B, S::B_PLANE, S::BS,
+            wn, part);
+    } else {
+      chunk_products<BN, WARPS_N, 3, wmma::col_major>(
+          A, S::A_PLANE, wm * T::WM, 1, S::AS, S::AS, B, S::B_PLANE, S::BS, wn,
+          part);
     }
     add_acc3<BN, WARPS_N>(acc, part);
     __syncthreads();
@@ -808,13 +865,13 @@ __global__ void __launch_bounds__(kThreads)
   store_out3<BN, WARPS_N, kEpiNone>(stage, wm, wn, r0, n0, R, N, op, acc);
 }
 
-template <int BN, int WARPS_N, bool CONV>
+template <int BN, int WARPS_N, bool CONV, bool QUANT>
 int launch_dw3(const DwSrc& s, long long M, int R, const float* dy,
                long long ldd, int N, float* part, int splits, int smem,
                cudaStream_t st) {
   constexpr int bytes = SmemDw<BN>::kBytes;
   if (smem != bytes) return (int)cudaErrorInvalidValue;
-  auto kern = dw3_kernel<BN, WARPS_N, CONV>;
+  auto kern = dw3_kernel<BN, WARPS_N, CONV, QUANT>;
   const cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return (int)e;
@@ -826,23 +883,23 @@ int launch_dw3(const DwSrc& s, long long M, int R, const float* dy,
   return (int)cudaGetLastError();
 }
 
-template <bool CONV>
+template <bool CONV, bool QUANT>
 int dw3_forms(const DwSrc& s, long long M, int R, const float* dy,
               long long ldd, int N, float* part, int bn, int splits, int smem,
               cudaStream_t st) {
   switch (bn) {
     case 16:
-      return launch_dw3<16, 1, CONV>(s, M, R, dy, ldd, N, part, splits, smem,
-                                     st);
+      return launch_dw3<16, 1, CONV, QUANT>(s, M, R, dy, ldd, N, part,
+                                            splits, smem, st);
     case 32:
-      return launch_dw3<32, 2, CONV>(s, M, R, dy, ldd, N, part, splits, smem,
-                                     st);
+      return launch_dw3<32, 2, CONV, QUANT>(s, M, R, dy, ldd, N, part,
+                                            splits, smem, st);
     case 64:
-      return launch_dw3<64, 2, CONV>(s, M, R, dy, ldd, N, part, splits, smem,
-                                     st);
+      return launch_dw3<64, 2, CONV, QUANT>(s, M, R, dy, ldd, N, part,
+                                            splits, smem, st);
     case 128:
-      return launch_dw3<128, 2, CONV>(s, M, R, dy, ldd, N, part, splits,
-                                      smem, st);
+      return launch_dw3<128, 2, CONV, QUANT>(s, M, R, dy, ldd, N, part,
+                                             splits, smem, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -850,12 +907,13 @@ int dw3_forms(const DwSrc& s, long long M, int R, const float* dy,
 // One instance: its dynamic shared memory raised past 48 KB once, then the
 // launch. ``smem`` is the plan's (buf_ops.dot3_plan); a plan that disagrees
 // with the kernel's layout is refused.
-template <int BN, int WARPS_N, int NOUT, bool POOL, int EPI, bool CONV>
+template <int BN, int WARPS_N, int NOUT, bool POOL, int EPI, bool CONV,
+          bool EXT = false, bool QUANT = false>
 int launch3(const Src& src, long long M, int N, const Ops3& ops, int smem,
             cudaStream_t st, Split sp = Split{nullptr, nullptr, 1}) {
   constexpr int bytes = Smem3<BN, NOUT, POOL>::kBytes;
   if (smem != bytes) return (int)cudaErrorInvalidValue;
-  auto kern = dot3_kernel<BN, WARPS_N, NOUT, POOL, EPI, CONV>;
+  auto kern = dot3_kernel<BN, WARPS_N, NOUT, POOL, EPI, CONV, EXT, QUANT>;
   static bool raised = false;
   if (!raised) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -876,32 +934,43 @@ int launch3(const Src& src, long long M, int N, const Ops3& ops, int smem,
 
 // table_dot's forms at one column tile width: the dual form has no
 // epilogue (the wrapper checks); the single form takes each, pooled or not.
-template <int BN, int WARPS_N>
-int launch_forms(const Src& src, long long M, int N, const Ops3& ops,
-                 int nout, int pool, int epi, int smem, cudaStream_t st) {
+template <int BN, int WARPS_N, bool EXT>
+int launch_epis(const Src& src, long long M, int N, const Ops3& ops,
+                int nout, int pool, int epi, int smem, cudaStream_t st) {
   if (nout == 2)
-    return pool ? launch3<BN, WARPS_N, 2, true, kEpiNone, false>(
+    return pool ? launch3<BN, WARPS_N, 2, true, kEpiNone, false, EXT>(
                       src, M, N, ops, smem, st)
-                : launch3<BN, WARPS_N, 2, false, kEpiNone, false>(
+                : launch3<BN, WARPS_N, 2, false, kEpiNone, false, EXT>(
                       src, M, N, ops, smem, st);
   if (pool) {
     if (epi == kEpiShift)
-      return launch3<BN, WARPS_N, 1, true, kEpiShift, false>(src, M, N, ops,
-                                                             smem, st);
+      return launch3<BN, WARPS_N, 1, true, kEpiShift, false, EXT>(
+          src, M, N, ops, smem, st);
     if (epi == kEpiScale)
-      return launch3<BN, WARPS_N, 1, true, kEpiScale, false>(src, M, N, ops,
-                                                             smem, st);
-    return launch3<BN, WARPS_N, 1, true, kEpiNone, false>(src, M, N, ops,
-                                                          smem, st);
+      return launch3<BN, WARPS_N, 1, true, kEpiScale, false, EXT>(
+          src, M, N, ops, smem, st);
+    return launch3<BN, WARPS_N, 1, true, kEpiNone, false, EXT>(
+        src, M, N, ops, smem, st);
   }
   if (epi == kEpiShift)
-    return launch3<BN, WARPS_N, 1, false, kEpiShift, false>(src, M, N, ops,
-                                                            smem, st);
+    return launch3<BN, WARPS_N, 1, false, kEpiShift, false, EXT>(
+        src, M, N, ops, smem, st);
   if (epi == kEpiScale)
-    return launch3<BN, WARPS_N, 1, false, kEpiScale, false>(src, M, N, ops,
-                                                            smem, st);
-  return launch3<BN, WARPS_N, 1, false, kEpiNone, false>(src, M, N, ops,
-                                                         smem, st);
+    return launch3<BN, WARPS_N, 1, false, kEpiScale, false, EXT>(
+        src, M, N, ops, smem, st);
+  return launch3<BN, WARPS_N, 1, false, kEpiNone, false, EXT>(
+      src, M, N, ops, smem, st);
+}
+
+// table_dot's forms at one column tile width, the table by value or (past
+// kMaxGroups groups) in device memory.
+template <int BN, int WARPS_N>
+int launch_forms(const Src& src, long long M, int N, const Ops3& ops,
+                 int nout, int pool, int epi, int smem, cudaStream_t st) {
+  return src.ext ? launch_epis<BN, WARPS_N, true>(src, M, N, ops, nout, pool,
+                                                  epi, smem, st)
+                 : launch_epis<BN, WARPS_N, false>(src, M, N, ops, nout,
+                                                   pool, epi, smem, st);
 }
 
 Op3 make_op(const void* inv, const void* shift, const void* w, int ldw,
@@ -922,16 +991,19 @@ Op3 make_op(const void* inv, const void* shift, const void* w, int ldw,
   op.tile_rows = 1;
   op.gx = nullptr;
   op.ldgx = 0;
+  op.bits = 0;
   return op;
 }
 
 // The per-tile vectors of a train stage's prologue, or (gx given) its
-// backward's gate epilogue: ea / eb its BN vectors and no prologue.
+// backward's gate epilogue: ea / eb its BN vectors and no prologue; the
+// prologue's QuanInput bits.
 void set_train(Op3& op, long long vstride, long long tile_rows,
                const void* gx, long long ldgx, const void* gate_inv,
-               const void* gate_shift) {
+               const void* gate_shift, int bits) {
   op.vstride = vstride;
   op.tile_rows = tile_rows;
+  op.bits = bits;
   op.gx = static_cast<const float*>(gx);
   op.ldgx = ldgx;
   if (gx) {
@@ -949,7 +1021,8 @@ extern "C" {
 // dynamic shared memory ``smem`` (kernels/buf_ops.py::dot3_plan). Every
 // pointer is to float32. affine_dot's float32 form calls it with one group.
 int cunet_table_dot_f32(const void* const* feats, const long long* lds,
-                        const int* widths, int G, int up, int H, int W,
+                        const int* widths, int G, const int* ups, void* ext,
+                        int H, int W,
                         long long M, const void* inv_a, const void* shift_a,
                         const void* w_a, const void* inv_s,
                         const void* shift_s, const void* w_s, int ldw, int N,
@@ -958,21 +1031,16 @@ int cunet_table_dot_f32(const void* const* feats, const long long* lds,
                         long long rows_per_img_a, long long img_stride_a,
                         void* out_s, long long ldo_s, int bn, int smem,
                         void* stream) {
-  if (G < 1 || G > kMaxGroups) return (int)cudaErrorInvalidValue;
   if (epi < kEpiNone || epi > kEpiScale || (out_s && epi != kEpiNone))
     return (int)cudaErrorInvalidValue;
+  const auto st = static_cast<cudaStream_t>(stream);
   Src src;
-  src.G = G;
-  src.up = up;
+  const cudaError_t e =
+      set_groups<float>(src, feats, lds, widths, ups, G, ext, st);
+  if (e != cudaSuccess) return (int)e;
   src.H = H;
   src.W = W;
   src.C = 0;
-  src.off[0] = 0;
-  for (int g = 0; g < kMaxGroups; ++g) {
-    src.ptr[g] = g < G ? static_cast<const float*>(feats[g]) : nullptr;
-    src.ld[g] = g < G ? lds[g] : 0;
-    src.off[g + 1] = src.off[g] + (g < G ? widths[g] : 0);
-  }
   Ops3 ops;
   ops.o[0] = make_op(inv_a, shift_a, w_a, ldw, out_a, ldo_a, rows_per_img_a,
                      img_stride_a);
@@ -981,7 +1049,6 @@ int cunet_table_dot_f32(const void* const* feats, const long long* lds,
   const int nout = out_s ? 2 : 1;
   ops.o[1] = out_s ? make_op(inv_s, shift_s, w_s, ldw, out_s, ldo_s, M, 0)
                    : ops.o[0];
-  const auto st = static_cast<cudaStream_t>(stream);
   switch (bn) {
     case 16:
       return launch_forms<16, 1>(src, M, N, ops, nout, pool, epi, smem, st);
@@ -1005,15 +1072,17 @@ int cunet_table_dot_f32(const void* const* feats, const long long* lds,
 // train forward. With ``gx`` (conv3x3_dx's float32 form: y the cotangent,
 // w its flipped, transposed weight) the output is gated by relu(gx *
 // gate_inv + gate_shift) > 0 of the conv input gx (M, G) at row stride ldgx.
+// bits: QuanInput's quantizer after the BN2 prologue; ste: the gate also
+// closes where that affine is >= 1.
 int cunet_conv3x3_f32(const void* y, long long ldy, long long M, int H, int W,
                       int C, const void* w, int G, const void* inv,
                       const void* shift, long long vstride,
                       long long tile_rows, const void* gx, long long ldgx,
                       const void* gate_inv, const void* gate_shift, void* out,
-                      long long ldo, int bn, int smem, int splits, void* part,
-                      void* stream) {
+                      long long ldo, int bits, int ste, int bn, int smem,
+                      int splits, void* part, void* stream) {
   if (C < 8 || C % 8 || splits < 1 || (splits > 1 && !part) ||
-      (gx && inv) || tile_rows < 1)
+      (gx && inv) || tile_rows < 1 || (bits && !inv) || (ste && !gx))
     return (int)cudaErrorInvalidValue;
   float* const partials = static_cast<float*>(part);
   const Split sp{partials,
@@ -1022,26 +1091,34 @@ int cunet_conv3x3_f32(const void* y, long long ldy, long long M, int H, int W,
                  splits};
   Src src;
   src.G = 1;
+  src.K = 9 * C;
   src.up = 0;
   src.H = H;
   src.W = W;
   src.C = C;
+  src.ext = nullptr;
   src.ptr[0] = static_cast<const float*>(y);
   src.ld[0] = ldy;
   src.off[0] = 0;
   src.off[1] = 9 * C;
   Ops3 ops;
   ops.o[0] = make_op(inv, shift, w, G, out, ldo, M, 0);
-  set_train(ops.o[0], vstride, tile_rows, gx, ldgx, gate_inv, gate_shift);
+  set_train(ops.o[0], vstride, tile_rows, gx, ldgx, gate_inv, gate_shift,
+            bits);
   ops.o[1] = ops.o[0];
   const auto st = static_cast<cudaStream_t>(stream);
   switch (bn) {
 #define CUNET_CONV3(b, wn)                                                  \
   case b:                                                                   \
-    return gx ? launch3<b, wn, 1, false, kEpiGate, true>(src, M, G, ops,    \
-                                                         smem, st, sp)      \
-              : launch3<b, wn, 1, false, kEpiNone, true>(src, M, G, ops,    \
-                                                         smem, st, sp);
+    if (gx)                                                                 \
+      return ste ? launch3<b, wn, 1, false, kEpiGateSte, true>(             \
+                       src, M, G, ops, smem, st, sp)                        \
+                 : launch3<b, wn, 1, false, kEpiGate, true>(                \
+                       src, M, G, ops, smem, st, sp);                       \
+    return bits ? launch3<b, wn, 1, false, kEpiNone, true, false, true>(    \
+                      src, M, G, ops, smem, st, sp)                         \
+                : launch3<b, wn, 1, false, kEpiNone, true>(src, M, G, ops,  \
+                                                           smem, st, sp);
     CUNET_CONV3(16, 1) CUNET_CONV3(32, 2) CUNET_CONV3(64, 2)
     CUNET_CONV3(128, 2)
 #undef CUNET_CONV3
@@ -1056,20 +1133,25 @@ int cunet_conv3x3_f32(const void* y, long long ldy, long long M, int H, int W,
 // transposed weight), x @ w[:K] gated by relu(gx * gate_inv_t +
 // gate_shift_t) > 0 of the stage input gx (M, N). ``bn`` and ``smem`` from
 // buf_ops.dot3_plan; out an (M, N) view or an image-major one as in
-// cunet_table_dot_f32.
+// cunet_table_dot_f32. bits: QuanInput's quantizer after the prologue (the
+// quantized model's head); ste: the gate also closes where its affine is
+// >= 1.
 int cunet_affine_f32(const void* x, long long ldx, long long M, int K,
                      const void* inv, const void* shift, long long vstride,
                      long long tile_rows, const void* w, int ldw, int N,
                      const void* gx, long long ldgx, const void* gate_inv,
                      const void* gate_shift, void* out, long long ldo,
-                     long long rows_per_img, long long img_stride, int bn,
-                     int smem, void* stream) {
-  if ((gx && inv) || tile_rows < 1) return (int)cudaErrorInvalidValue;
+                     long long rows_per_img, long long img_stride, int bits,
+                     int ste, int bn, int smem, void* stream) {
+  if ((gx && inv) || tile_rows < 1 || (bits && !inv) || (ste && !gx))
+    return (int)cudaErrorInvalidValue;
   Src src;
   src.G = 1;
+  src.K = K;
   src.up = 0;
   src.H = src.W = 0;
   src.C = 0;
+  src.ext = nullptr;
   src.off[0] = 0;
   for (int g = 0; g < kMaxGroups; ++g) {
     src.ptr[g] = g ? nullptr : static_cast<const float*>(x);
@@ -1078,16 +1160,22 @@ int cunet_affine_f32(const void* x, long long ldx, long long M, int K,
   }
   Ops3 ops;
   ops.o[0] = make_op(inv, shift, w, ldw, out, ldo, rows_per_img, img_stride);
-  set_train(ops.o[0], vstride, tile_rows, gx, ldgx, gate_inv, gate_shift);
+  set_train(ops.o[0], vstride, tile_rows, gx, ldgx, gate_inv, gate_shift,
+            bits);
   ops.o[1] = ops.o[0];
   const auto st = static_cast<cudaStream_t>(stream);
   switch (bn) {
 #define CUNET_AFFINE3(b, wn)                                                \
   case b:                                                                   \
-    return gx ? launch3<b, wn, 1, false, kEpiGate, false>(src, M, N, ops,   \
-                                                          smem, st)         \
-              : launch3<b, wn, 1, false, kEpiNone, false>(src, M, N, ops,   \
-                                                          smem, st);
+    if (gx)                                                                 \
+      return ste ? launch3<b, wn, 1, false, kEpiGateSte, false>(            \
+                       src, M, N, ops, smem, st)                            \
+                 : launch3<b, wn, 1, false, kEpiGate, false>(               \
+                       src, M, N, ops, smem, st);                           \
+    return bits ? launch3<b, wn, 1, false, kEpiNone, false, false, true>(   \
+                      src, M, N, ops, smem, st)                             \
+                : launch3<b, wn, 1, false, kEpiNone, false>(src, M, N, ops, \
+                                                            smem, st);
     CUNET_AFFINE3(16, 1) CUNET_AFFINE3(32, 2) CUNET_AFFINE3(64, 2)
     CUNET_AFFINE3(128, 2)
 #undef CUNET_AFFINE3
@@ -1098,12 +1186,13 @@ int cunet_affine_f32(const void* x, long long ldx, long long M, int K,
 // The float32 weight gradients (dw3_kernel): x (M, C) at row stride ldx,
 // its per-tile vectors, dy (M, N) at row stride ldd; conv 0: the 1x1
 // stage's (C, N) gradient, conv 1: the 3x3 conv's packed (9C, N) one over
-// images H x W. Writes ``splits`` float32 partials (splits, R, N) to
-// ``part``; ``bn``, ``smem`` and ``splits`` from train_ops.dw3_plan.
+// images H x W; bits: QuanInput's quantizer on z. Writes ``splits``
+// float32 partials (splits, R, N) to ``part``; ``bn``, ``smem`` and
+// ``splits`` from train_ops.dw3_plan.
 int cunet_dw_f32(const void* x, long long ldx, long long M, int C, int H,
                  int W, int conv, const void* inv, const void* shift,
                  long long vstride, long long tile_rows, const void* dy,
-                 long long ldd, int N, void* part, int bn, int smem,
+                 long long ldd, int N, void* part, int bits, int bn, int smem,
                  int splits, void* stream) {
   if (C % 8 || vstride % 4 || tile_rows < 1 || splits < 1)
     return (int)cudaErrorInvalidValue;
@@ -1117,13 +1206,19 @@ int cunet_dw_f32(const void* x, long long ldx, long long M, int C, int H,
   s.C = C;
   s.H = H;
   s.W = W;
+  s.bits = bits;
   const auto* d = static_cast<const float*>(dy);
   auto* pp = static_cast<float*>(part);
   const auto st = static_cast<cudaStream_t>(stream);
-  return conv ? dw3_forms<true>(s, M, 9 * C, d, ldd, N, pp, bn, splits,
-                                smem, st)
-              : dw3_forms<false>(s, M, C, d, ldd, N, pp, bn, splits, smem,
-                                 st);
+  if (bits)
+    return conv ? dw3_forms<true, true>(s, M, 9 * C, d, ldd, N, pp, bn,
+                                        splits, smem, st)
+                : dw3_forms<false, true>(s, M, C, d, ldd, N, pp, bn, splits,
+                                         smem, st);
+  return conv ? dw3_forms<true, false>(s, M, 9 * C, d, ldd, N, pp, bn, splits,
+                                       smem, st)
+              : dw3_forms<false, false>(s, M, C, d, ldd, N, pp, bn, splits,
+                                        smem, st);
 }
 
 }  // extern "C"

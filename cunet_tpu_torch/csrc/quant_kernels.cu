@@ -15,6 +15,13 @@
 // after the product and after the sum), so each kernel is bit-identical to
 // its plain version.
 //
+// affine_dot_i8 and conv3x3_i8 also serve a model at
+// compute_dtype="float32" (JAX's #1 runs its int8 branch at either dtype):
+// affine_dot_i8 reads a float32 buffer view (its prologue float32 from the
+// load on, as the TPU kernel's x.astype(f32)), and both write the
+// dequantized float32 product unrounded. The element type is a template
+// parameter; the bf16 instances are the code they were.
+//
 // Each entry point launches on the stream it is given and returns
 // cudaGetLastError() so the wrapper can raise on a refused launch.
 
@@ -130,6 +137,19 @@ struct EpiBf16 {  // float(acc) / s, into a bf16 OutView (N % 8 == 0)
   }
 };
 
+struct EpiOutF32 {  // float(acc) / s, into a float32 view (N % 8 == 0)
+  OutViewOf<float> out;
+  float inv_s;
+  __device__ void operator()(long long m, int n, int N, const int* a) const {
+    float v[8];
+#pragma unroll
+    for (int t = 0; t < 8; ++t) v[t] = __fmul_rn((float)a[t], inv_s);
+    float* dst = out_row(out, m) + n;
+    *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+    *reinterpret_cast<float4*>(dst + 4) = make_float4(v[4], v[5], v[6], v[7]);
+  }
+};
+
 struct EpiF32 {  // (float(acc) * col_scale[n]) * x_scale, JAX's order
   float* out;
   long long ld;
@@ -186,11 +206,12 @@ __device__ __forceinline__ void store_tile_i8(SmemI8<BN, WARPS_N>& s, int wm,
 // ---------------------------------------------------------------------------
 // affine_dot_i8:
 //   out[m, n] = epi( sum_{k<K} q8(relu(x[m,k]*inv[k] + shift[k])) W[k,n] )
-// x is a bf16 buffer view (K % 8 == 0, 16-byte rows), W int8.
+// x is a bf16 or float32 (TX) buffer view (K % 8 == 0, 16-byte rows), W
+// int8.
 // ---------------------------------------------------------------------------
-template <int BN, int WARPS_N, class Epi>
+template <int BN, int WARPS_N, class Epi, typename TX = bf16>
 __global__ void __launch_bounds__(kThreads)
-    affine_dot_i8_kernel(const bf16* __restrict__ x, long long ldx,
+    affine_dot_i8_kernel(const TX* __restrict__ x, long long ldx,
                          long long M, int K, const float* __restrict__ inv,
                          const float* __restrict__ shift,
                          const i8* __restrict__ w, int ldw, int N, float s,
@@ -216,12 +237,24 @@ __global__ void __launch_bounds__(kThreads)
       } q;
       q.v = make_uint2(0u, 0u);
       if (m < M && k < K) {
-        Pack8 in;
-        in.v = *reinterpret_cast<const uint4*>(x + m * ldx + k);
+        if constexpr (sizeof(TX) == 2) {
+          Pack8 in;
+          in.v = *reinterpret_cast<const uint4*>(x + m * ldx + k);
 #pragma unroll
-        for (int t = 0; t < 8; ++t)
-          q.b[t] = q8(fmaxf(affine(lo(in, t), inv[k + t], shift[k + t]), 0.f),
-                      s);
+          for (int t = 0; t < 8; ++t)
+            q.b[t] = q8(fmaxf(affine(lo(in, t), inv[k + t], shift[k + t]),
+                              0.f),
+                        s);
+        } else {
+          const float* src = x + m * ldx + k;
+          const float4 a = *reinterpret_cast<const float4*>(src);
+          const float4 b = *reinterpret_cast<const float4*>(src + 4);
+          const float v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+          for (int t = 0; t < 8; ++t)
+            q.b[t] = q8(fmaxf(affine(v[t], inv[k + t], shift[k + t]), 0.f),
+                        s);
+        }
       }
       *reinterpret_cast<uint2*>(&sm.a[kc / 16][r][kc % 16]) = q.v;
     }
@@ -236,13 +269,13 @@ __global__ void __launch_bounds__(kThreads)
 // ---------------------------------------------------------------------------
 // conv3x3_i8: SAME 3x3 conv of (B*H*W, C) int8 rows as an implicit GEMM of
 // depth 9*C against the int8 HWIO weight viewed as (9*C, G); zero padding
-// per image; dequantized by 1/s into bf16.
+// per image; dequantized by 1/s into bf16 or float32 (Epi).
 // ---------------------------------------------------------------------------
-template <int BN, int WARPS_N>
+template <int BN, int WARPS_N, class Epi = EpiBf16>
 __global__ void __launch_bounds__(kThreads)
     conv3x3_i8_kernel(const i8* __restrict__ y, long long ldy, long long M,
                       int H, int W, int C, const i8* __restrict__ w, int G,
-                      EpiBf16 epi) {
+                      Epi epi) {
   __shared__ SmemI8<BN, WARPS_N> sm;
   const int warp = threadIdx.x / 32;
   const int wm = warp / WARPS_N, wn = warp % WARPS_N;
@@ -337,18 +370,41 @@ dim3 grid_of(long long M, int N, int BN) {
 
 extern "C" {
 
+// f32: x (and, without inv2, out) float32, else bf16.
 int cunet_affine_dot_i8(const void* x, long long ldx, long long M, int K,
                         const void* inv, const void* shift, const void* w,
                         int ldw, int N, float s, const void* inv2,
                         const void* shift2, void* out, long long ldo,
                         long long rows_per_img, long long img_stride,
-                        void* stream) {
+                        int f32, void* stream) {
   const auto* xp = static_cast<const bf16*>(x);
+  const auto* xf = static_cast<const float*>(x);
   const auto* ip = static_cast<const float*>(inv);
   const auto* sp = static_cast<const float*>(shift);
   const auto* wp = static_cast<const i8*>(w);
   const auto st = static_cast<cudaStream_t>(stream);
-  if (inv2) {
+  if (inv2 && f32) {
+    const EpiQ8 epi{static_cast<i8*>(out), ldo, 1.f / s,
+                    static_cast<const float*>(inv2),
+                    static_cast<const float*>(shift2), s};
+#define LAUNCH(BN_, WN_)                                                    \
+  affine_dot_i8_kernel<BN_, WN_, EpiQ8, float>                              \
+      <<<grid_of(M, N, BN_), kThreads, 0, st>>>(xf, ldx, M, K, ip, sp, wp, \
+                                                ldw, N, s, epi)
+    CUNET_I8_DISPATCH(N, LAUNCH);
+#undef LAUNCH
+  } else if (f32) {
+    const EpiOutF32 epi{
+        OutViewOf<float>{static_cast<float*>(out), ldo, rows_per_img,
+                         img_stride},
+        1.f / s};
+#define LAUNCH(BN_, WN_)                                                    \
+  affine_dot_i8_kernel<BN_, WN_, EpiOutF32, float>                          \
+      <<<grid_of(M, N, BN_), kThreads, 0, st>>>(xf, ldx, M, K, ip, sp, wp, \
+                                                ldw, N, s, epi)
+    CUNET_I8_DISPATCH(N, LAUNCH);
+#undef LAUNCH
+  } else if (inv2) {
     const EpiQ8 epi{static_cast<i8*>(out), ldo, 1.f / s,
                     static_cast<const float*>(inv2),
                     static_cast<const float*>(shift2), s};
@@ -372,13 +428,25 @@ int cunet_affine_dot_i8(const void* x, long long ldx, long long M, int K,
   return (int)cudaGetLastError();
 }
 
+// f32: out float32, else bf16.
 int cunet_conv3x3_i8(const void* y, long long ldy, long long M, int H, int W,
                      int C, const void* w, int G, float s, void* out,
-                     long long ldo, void* stream) {
-  const EpiBf16 epi{OutView{static_cast<bf16*>(out), ldo, M, 0}, 1.f / s};
+                     long long ldo, int f32, void* stream) {
   const auto* yp = static_cast<const i8*>(y);
   const auto* wp = static_cast<const i8*>(w);
   const auto st = static_cast<cudaStream_t>(stream);
+  if (f32) {
+    const EpiOutF32 epi{OutViewOf<float>{static_cast<float*>(out), ldo, M, 0},
+                        1.f / s};
+#define LAUNCH(BN_, WN_)                                           \
+  conv3x3_i8_kernel<BN_, WN_, EpiOutF32>                           \
+      <<<grid_of(M, G, BN_), kThreads, 0, st>>>(yp, ldy, M, H, W, C, wp, \
+                                                 G, epi)
+    CUNET_I8_DISPATCH(G, LAUNCH);
+#undef LAUNCH
+    return (int)cudaGetLastError();
+  }
+  const EpiBf16 epi{OutView{static_cast<bf16*>(out), ldo, M, 0}, 1.f / s};
 #define LAUNCH(BN_, WN_)                                              \
   conv3x3_i8_kernel<BN_, WN_><<<grid_of(M, G, BN_), kThreads, 0, st>>>( \
       yp, ldy, M, H, W, C, wp, G, epi)

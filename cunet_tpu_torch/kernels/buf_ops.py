@@ -26,8 +26,11 @@ ghost-BN training): the pool and the upsample move 4-float vectors;
 ``csrc/f32_kernels.cu`` (``launch_dot3``, plans ``dot3_plan`` /
 ``conv3x3_plan_f32``), float32-accurate on the tensor cores through the
 exact three-way bf16 split of both operands, with eval vectors or per-tile
-ghost-BN ones. ``<wrapper>.f32_launches`` counts those launches (also in
-``launches``).
+ghost-BN ones, and with QuanInput's ``bits_i`` (the quantized model's
+float32 training) on the unrounded float32 prologue value.
+``<wrapper>.f32_launches`` counts those launches (also in ``launches``),
+``<wrapper>.f32_option_launches`` those with the option on (also in
+``option_launches``).
 """
 
 from __future__ import annotations
@@ -85,16 +88,6 @@ def _check_dtypes(ref: torch.Tensor, **tensors) -> None:
         if t is not None and t.dtype != ref.dtype:
             raise TypeError(f"{name} has dtype {t.dtype}, the others "
                             f"{ref.dtype}")
-
-
-def _f32_unquantized(what: str, **options) -> None:
-    """The float32 forms take no QuanInput option (ROADMAP queue B item 4
-    has the quantized forms at float32): raise for one that is on."""
-    on = [k for k, v in options.items() if v]
-    if on:
-        raise NotImplementedError(
-            f"{what} at float32 takes no {', '.join(on)} (bfloat16 does; the "
-            f"quantized forms at float32 are ROADMAP queue B item 4)")
 
 
 def _check_rows(m: int) -> None:
@@ -336,15 +329,36 @@ def dot3_plan(n: int, nout: int = 1, pool: bool = False) -> Dot3Plan:
     return Dot3Plan(bn=bn, nout=nout, pool=pool, smem=smem)
 
 
+# Feature groups a launch carries in its parameters (csrc/common.cuh
+# kMaxGroups); a longer table goes through device memory (``group_table``),
+# one int64 row of GROUP_COLS a group.
+INLINE_GROUPS = 16
+GROUP_COLS = 4
+
+
+def group_table(feats):
+    """Device memory for the table of ``feats`` where it has more groups
+    than a launch carries (an up block's adapter at ``order`` >= 14 reads
+    ``order + 3``), filled on the stream by the entry point; None where
+    the table travels in the launch parameters. Held by the caller until
+    the launch is queued."""
+    if len(feats) <= INLINE_GROUPS:
+        return None
+    return torch.empty(len(feats) * GROUP_COLS, dtype=torch.int64,
+                       device=feats[0].device)
+
+
 def table_args(feats, m, vec, w, out, *, bias=None, vec2=None, vec_s=None,
-               w_s=None, out_s=None, up_mask=0, hw=(0, 0), pool=False):
+               w_s=None, out_s=None, up=(), ext=None, hw=(0, 0), pool=False):
     """The arguments of ``cunet_table_dot`` and of its float32 form
     ``cunet_table_dot_f32`` (which takes its plan's column tile and shared
     memory after them), up to the stream: the feature table as ctypes
-    arrays, the BN vectors, weights, epilogue (none, ``relu(. + bias)`` or
-    ``relu(. * vec2[0] + vec2[1])``) and outputs, the dual form's second
-    output with ``out_s``."""
+    arrays (``up`` a flag a group; ``ext`` the ``group_table`` of a table
+    longer than ``INLINE_GROUPS``), the BN vectors, weights, epilogue
+    (none, ``relu(. + bias)`` or ``relu(. * vec2[0] + vec2[1])``) and
+    outputs, the dual form's second output with ``out_s``."""
     g, n, dual = len(feats), out.shape[-1], out_s is not None
+    ups = tuple(up) or (False,) * g
     epi, ea, eb = 0, 0, 0
     if bias is not None:
         epi, eb = 1, bias.data_ptr()
@@ -353,8 +367,9 @@ def table_args(feats, m, vec, w, out, *, bias=None, vec2=None, vec_s=None,
     _, rows_per_img, img_stride, ldo = _rows(out)
     return ((ctypes.c_void_p * g)(*[f.data_ptr() for f in feats]),
             (ctypes.c_longlong * g)(*[f.stride(0) for f in feats]),
-            (ctypes.c_int * g)(*[f.shape[1] for f in feats]), g, up_mask,
-            hw[0], hw[1], m, vec[0].data_ptr(), vec[1].data_ptr(),
+            (ctypes.c_int * g)(*[f.shape[1] for f in feats]), g,
+            (ctypes.c_int * g)(*[int(u) for u in ups]),
+            0 if ext is None else ext.data_ptr(), hw[0], hw[1], m, vec[0].data_ptr(), vec[1].data_ptr(),
             w.data_ptr(), vec_s[0].data_ptr() if dual else 0,
             vec_s[1].data_ptr() if dual else 0,
             w_s.data_ptr() if dual else 0, w.stride(0), n, epi, ea, eb,
@@ -366,12 +381,15 @@ def table_args(feats, m, vec, w, out, *, bias=None, vec2=None, vec_s=None,
 def launch_dot3(feats, m, vec, w, out, **kw):
     """Launch the float32 product (``cunet_table_dot_f32``) over the
     float32 views ``feats`` (checked by the caller; ``kw`` as
-    ``table_args``): the float32 form of ``eval_ops.table_dot`` and, with
-    one group, of ``affine_dot``. Returns the launch's CUDA error code."""
+    ``table_args``, less ``ext``): the float32 form of
+    ``eval_ops.table_dot`` and, with one group, of ``affine_dot``, and of
+    #7's ``apply``, over any number of groups. Returns the launch's CUDA
+    error code."""
     p = dot3_plan(out.shape[-1], 2 if kw.get("out_s") is not None else 1,
                   bool(kw.get("pool")))
+    ext = group_table(feats)
     return build.lib().cunet_table_dot_f32(
-        *table_args(feats, m, vec, w, out, **kw), p.bn, p.smem,
+        *table_args(feats, m, vec, w, out, ext=ext, **kw), p.bn, p.smem,
         _stream(feats[0]))
 
 
@@ -438,13 +456,15 @@ def affine_dot(x, vec, w, out, *, bias=None, bits_i=0):
     rounding, staged per warp and written as 16-byte rows straight into
     the buffer slot. PERF.md section 6 has its times on the H100.
 
-    Float32 x, w and out (an f32 model's eval and ghost-BN train forward;
-    no ``bits_i``) run the float32 product kernel with one feature group
+    Float32 x, w and out (an f32 model's eval and ghost-BN train forward)
+    run the float32 product kernel with one feature group
     (``csrc/f32_kernels.cu``): the prologue unrounded, six bf16 plane
     products a k16 step, summed as ``eval_ops.table_dot``'s float32 form
     sums them. With per-tile vectors each row reads its own tile's [inv;
     shift] (a tile of 96 rows at r=4, tile 6, does not divide a 128-row
-    block).
+    block). With ``bits_i`` the quantizer takes the unrounded float32
+    prologue value (no ``bias`` then), and for ``bits_i`` <= 9 its codes
+    fill one bf16 plane, so three of the six plane products are skipped.
     """
     m, k = x.shape
     n = w.shape[1]
@@ -487,9 +507,9 @@ def _affine_dot_f32(x, vec, w, out, bias, bits_i):
     """``affine_dot``'s float32 form: the float32 product kernel over the
     one group ``x`` (``csrc/f32_kernels.cu``): with an eval ``vec`` through
     ``launch_dot3``; with per-tile ghost-BN vectors (the f32 train forward,
-    TPU kernel #8's ``_norm_relu`` + ``_dot``) through ``cunet_affine_f32``,
-    which reads each row's tile's vectors in its prologue."""
-    _f32_unquantized("affine_dot", bits_i=bits_i)
+    TPU kernel #8's ``_norm_relu`` + ``_dot``) or QuanInput's ``bits_i``
+    (its ``_quan`` at the head) through ``cunet_affine_f32``, which reads
+    each row's tile's vectors in its prologue."""
     for name, t in (("x", x), ("out", out), ("w", w)):
         _check_view(t, name, (F32,))
     if not w.is_contiguous():
@@ -499,26 +519,32 @@ def _affine_dot_f32(x, vec, w, out, bias, bits_i):
         _check_vec(bias, "bias", w.shape[1])
     m = x.shape[0]
     _check_rows(m)
-    if vec.dim() == 2:
+    if vec.dim() == 2 and not bits_i:
         code = launch_dot3([x], m, vec, w, out, bias=bias)
     else:
         if bias is not None:
-            raise ValueError("affine_dot: no bias with per-tile vectors")
+            raise ValueError("affine_dot at float32: no bias with per-tile "
+                             "vectors or bits_i")
         inv, shift, vstride, tile_rows = _vec_args(vec, m, x.shape[1])
-        code = launch_affine_f32(x, inv, shift, vstride, tile_rows, w, out)
+        code = launch_affine_f32(x, inv, shift, vstride, tile_rows, w, out,
+                                 bits_i=bits_i)
     build.check(code, "affine_dot (float32)")
     affine_dot.launches += 1
     affine_dot.f32_launches += 1
+    affine_dot.option_launches += bits_i > 0
+    affine_dot.f32_option_launches += bits_i > 0
     return out
 
 
-def launch_affine_f32(x, inv, shift, vstride, tile_rows, w, out, gate=None):
+def launch_affine_f32(x, inv, shift, vstride, tile_rows, w, out, gate=None,
+                      bits_i=0, ste=False):
     """Launch ``cunet_affine_f32`` (checked by the caller): the float32
     product ``x @ w[:K]`` of one group with a per-tile prologue (``inv``,
-    ``shift`` pointers as ``_vec_args`` gives them), or, with ``gate`` =
-    (gx, gate_inv, gate_shift) and no prologue (``inv`` 0), gated by the
-    backward's ReLU mask of the stage input gx. Returns the CUDA error
-    code."""
+    ``shift`` pointers as ``_vec_args`` gives them; with ``bits_i``
+    QuanInput's quantizer after it), or, with ``gate`` = (gx, gate_inv,
+    gate_shift) and no prologue (``inv`` 0), gated by the backward's ReLU
+    mask of the stage input gx (with ``ste`` QuanInput's straight-through
+    gate too). Returns the CUDA error code."""
     m, k = x.shape
     n = w.shape[1]
     p = dot3_plan(n)
@@ -528,7 +554,7 @@ def launch_affine_f32(x, inv, shift, vstride, tile_rows, w, out, gate=None):
         x.data_ptr(), x.stride(0), m, k, inv, shift, vstride, tile_rows,
         w.data_ptr(), w.stride(0), n, 0 if gx is None else gx.data_ptr(),
         0 if gx is None else gx.stride(0), ginv, gshift, out.data_ptr(), ldo,
-        rows_per_img, img_stride, p.bn, p.smem, _stream(x))
+        rows_per_img, img_stride, bits_i, int(ste), p.bn, p.smem, _stream(x))
 
 
 # ---------------------------------------------------------------------------
@@ -690,11 +716,12 @@ def conv3x3(y, w3p, b, h, w, out, *, vec=None, bits_i=0):
     batch 8, 65 us per tile at batch 24.
 
     Float32 y, w3p and out (an f32 model's eval, and with ``vec`` its
-    ghost-BN train forward; no ``bits_i``) run the float32 product kernel
-    as an implicit GEMM of depth 9*Cb (``csrc/f32_kernels.cu``, plan
+    ghost-BN train forward) run the float32 product kernel as an implicit
+    GEMM of depth 9*Cb (``csrc/f32_kernels.cu``, plan
     ``conv3x3_plan_f32``), the BN2 prologue per row of the tap's source
-    pixel (its image's tile), unrounded; K split across blocks where the
-    output tiles are few, the partials added in a fixed order.
+    pixel (its image's tile), unrounded, then QuanInput's quantizer with
+    ``bits_i`` (no bf16 rounding before it); K split across blocks where
+    the output tiles are few, the partials added in a fixed order.
     """
     m, c = y.shape
     g = w3p.shape[1]
@@ -738,8 +765,7 @@ def _conv3x3_f32(y, w3p, b, h, w, out, vec, bits_i):
     """``conv3x3``'s float32 form: the float32 product kernel's implicit
     GEMM (``csrc/f32_kernels.cu``), with the per-tile BN2 prologue of the
     ghost-BN train forward where ``vec`` is given (TPU kernel #8's
-    ``_norm_relu`` + ``_conv3x3_t``)."""
-    _f32_unquantized("conv3x3", bits_i=bits_i)
+    ``_norm_relu`` + ``_conv3x3_t``; with ``bits_i`` its ``_quan``)."""
     for name, t in (("y", y), ("out", out), ("w3", w3p)):
         _check_view(t, name, (F32,))
     if not w3p.is_contiguous():
@@ -749,19 +775,24 @@ def _conv3x3_f32(y, w3p, b, h, w, out, vec, bits_i):
     if vec is not None:
         _check_vec(vec, "vec", c)
         pro = _vec_args(vec, m, c)
-    code = launch_conv3x3_f32(y, w3p, h, w, out, pro)
+    code = launch_conv3x3_f32(y, w3p, h, w, out, pro, bits_i=bits_i)
     build.check(code, "conv3x3 (float32)")
     conv3x3.launches += 1
     conv3x3.f32_launches += 1
+    conv3x3.option_launches += bits_i > 0
+    conv3x3.f32_option_launches += bits_i > 0
     return out
 
 
-def launch_conv3x3_f32(y, w3p, h, w, out, pro=None, gate=None):
+def launch_conv3x3_f32(y, w3p, h, w, out, pro=None, gate=None, bits_i=0,
+                       ste=False):
     """Launch ``cunet_conv3x3_f32`` (checked by the caller) of y (M, C)
     through the packed (9C, N) ``w3p``: with ``pro`` = (inv, shift,
     vstride, tile_rows) as ``_vec_args`` gives them a BN prologue (inv 0:
-    none); with ``gate`` = (gx, gate_inv, gate_shift) the backward's ReLU
-    mask of gx on the output. Returns the CUDA error code."""
+    none), QuanInput's quantizer after it with ``bits_i``; with ``gate`` =
+    (gx, gate_inv, gate_shift) the backward's ReLU mask of gx on the output
+    (with ``ste`` the straight-through gate too). Returns the CUDA error
+    code."""
     m, c = y.shape
     n = w3p.shape[1]
     _check_rows(m)
@@ -779,7 +810,7 @@ def launch_conv3x3_f32(y, w3p, h, w, out, pro=None, gate=None):
         y.data_ptr(), y.stride(0), m, h, w, c, w3p.data_ptr(), n, inv, shift,
         vstride, tile_rows, 0 if gx is None else gx.data_ptr(),
         0 if gx is None else gx.stride(0), ginv, gshift, out.data_ptr(),
-        out.stride(0), p.bn, p.smem, p.splits,
+        out.stride(0), bits_i, int(ste), p.bn, p.smem, p.splits,
         0 if part is None else part.data_ptr(), _stream(y))
 
 
@@ -869,19 +900,26 @@ OPTIONS = {affine_dot: "bits_i", conv3x3: "bits_i"}
 def reset_counts(kernels, options=()) -> None:
     """Zero ``launches`` of each wrapper of ``kernels`` (and its
     ``f32_launches``, where it has a float32 form) and ``option_launches``
-    of each of ``options``."""
+    and ``f32_option_launches`` of each of ``options``."""
     for k in kernels:
         k.launches = 0
         if hasattr(k, "f32_launches"):
             k.f32_launches = 0
     for k in options:
-        k.option_launches = 0
+        k.option_launches = k.f32_option_launches = 0
 
 
 def count_options(options: dict) -> dict:
     """Launches with an option on, keyed ``name[option]``, of the wrappers
     of ``options`` ({wrapper: option name})."""
     return {f"{k.__name__}[{o}]": k.option_launches
+            for k, o in options.items()}
+
+
+def count_f32_options(options: dict) -> dict:
+    """Launches of the float32 forms with an option on, keyed
+    ``name[f32,option]`` (also counted in ``option_launches``)."""
+    return {f"{k.__name__}[f32,{o}]": k.f32_option_launches
             for k, o in options.items()}
 
 
@@ -905,6 +943,10 @@ def option_counts() -> dict:
 
 def f32_counts() -> dict:
     return count_f32(KERNELS)
+
+
+def f32_option_counts() -> dict:
+    return count_f32_options(OPTIONS)
 
 
 for _k in KERNELS:

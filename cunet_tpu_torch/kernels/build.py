@@ -105,11 +105,11 @@ def _declare(lib):
         "cunet_maxpool2_f32": [P, L, P, L, I, I, I, I, P],
         "cunet_upsample2_f32": [P, L, P, L, I, I, I, I, P],
         "cunet_conv3x3_f32": [P, L, L, I, I, I, P, I, P, P, L, L, P, L, P,
-                              P, P, L, I, I, I, P, P],
+                              P, P, L, I, I, I, I, I, P, P],
         "cunet_affine_f32": [P, L, L, I, P, P, L, L, P, I, I, P, L, P, P, P,
-                             L, L, L, I, I, P],
+                             L, L, L, I, I, I, I, P],
         "cunet_dw_f32": [P, L, L, I, I, I, I, P, P, L, L, P, L, I, P, I, I,
-                         I, P],
+                         I, I, P],
         "cunet_bn_stats": [P, L, L, L, I, P, I, I, I, P],
         "cunet_bn_bwd": [P, L, P, L, L, L, I, P, P, F, P, L, I, P,
                          *[I] * 7, P],
@@ -126,8 +126,8 @@ def _declare(lib):
         "cunet_maxpool2_bwd": [P, L, P, L, P, L, I, I, I, I, I, P],
         "cunet_upsample2_bwd": [P, L, P, L, I, I, I, I, I, P],
         "cunet_affine_dot_i8": [P, L, L, I, P, P, P, I, I, F, P, P, P, L, L,
-                                L, P],
-        "cunet_conv3x3_i8": [P, L, L, I, I, I, P, I, F, P, L, P],
+                                L, I, P],
+        "cunet_conv3x3_i8": [P, L, L, I, I, I, P, I, F, P, L, I, P],
         "cunet_int8_matmul_dequant": [P, L, L, I, P, I, I, P, F, P, L, P],
         "cunet_tb_fill_table": [P, I, P, P],
         "cunet_tb_stats": [P, I, L, I, L, P, I, P],
@@ -135,10 +135,10 @@ def _declare(lib):
         "cunet_tb_bwd_reduce": [P, I, L, I, P, L, I, P, P, P, L, *[I] * 10,
                                 P, P, I, P],
         "cunet_tb_bwd_dx": [P, I, L, I, P, L, I, P, P, P, P, *[I] * 9, P],
-        "cunet_table_dot": [P, P, P, I, I, I, I, L, P, P, P, P, P, P, I, I,
-                            I, P, P, I, P, L, L, L, P, L, P],
-        "cunet_table_dot_f32": [P, P, P, I, I, I, I, L, P, P, P, P, P, P, I,
-                                I, I, P, P, I, P, L, L, L, P, L, I, I, P],
+        "cunet_table_dot": [P, P, P, I, P, P, I, I, L, P, P, P, P, P, P, I,
+                            I, I, P, P, I, P, L, L, L, P, L, P],
+        "cunet_table_dot_f32": [P, P, P, I, P, P, I, I, L, P, P, P, P, P, P,
+                                I, I, I, P, P, I, P, L, L, L, P, L, I, I, P],
     }
     for name, argtypes in sigs.items():
         fn = getattr(lib, name)

@@ -32,13 +32,14 @@ from cunet_tpu_torch.kernels.buf_ops import (
     _rows,
     _stream,
     affine_dot_plain,
+    INLINE_GROUPS,
+    group_table,
     launch_dot3,
     maxpool2_plain,
     table_args,
     upsample2_plain,
 )
 
-MAX_GROUPS = 16
 # the kernel's row tile (csrc/common.cuh, BM): the one check of the pooled
 # store's tile limit, which the kernel's entry point does not repeat
 BLOCK_ROWS = 128
@@ -112,8 +113,8 @@ def table_dot(feats: Sequence[torch.Tensor], vec, w, out, *, bias=None,
               vec2=None, vec_s=None, w_s=None, out_s=None, up=(),
               pool=False, hw=None):
     """``out = epi(relu(x * vec[0] + vec[1]) @ w[:K, :N])`` for x the
-    virtual concat of ``feats`` ((M, C_g) views, K = sum C_g, G <= 16
-    groups), N = ``out.shape[-1]``.
+    virtual concat of ``feats`` ((M, C_g) views, K = sum C_g, any number G
+    of groups), N = ``out.shape[-1]``.
 
     ``vec`` is the (2, >=K) float32 [inv; shift] of an eval BN (float32
     whatever the model's ``bn_dtype``, as the TPU kernels compute it), ``w``
@@ -145,7 +146,10 @@ def table_dot(feats: Sequence[torch.Tensor], vec, w, out, *, bias=None,
     ``fused_block.py::fused_dense_block_infer``. Bound on the H100 by
     reading x and writing the outputs. Design: ``csrc/eval_kernels.cu``:
     the table of (pointer, row stride, width) passed by value in the
-    launch parameters; 128-row block tiles over the full N; the prologue(s)
+    launch parameters (past ``buf_ops.INLINE_GROUPS`` groups, in device
+    memory, filled on the stream by the launch's entry point and searched
+    the same way, so the sums do not change); 128-row block tiles over the
+    full N; the prologue(s)
     in float32 registers between one 16-byte load of x and the bf16
     shared-memory tiles; bf16 WMMA with float32 accumulators; N and row
     tails in the kernel; the upsample a per-row remap of the load, the pool
@@ -162,9 +166,8 @@ def table_dot(feats: Sequence[torch.Tensor], vec, w, out, *, bias=None,
     feats = list(feats)
     dual = out_s is not None
     up = tuple(bool(u) for u in up)
-    if not feats or len(feats) > MAX_GROUPS:
-        raise ValueError(f"table_dot takes 1..{MAX_GROUPS} feature groups, "
-                         f"got {len(feats)}")
+    if not feats:
+        raise ValueError("table_dot takes one or more feature groups")
     if up and len(up) != len(feats):
         raise ValueError(f"up flags {len(up)} groups of {len(feats)}")
     if dual and (vec_s is None or w_s is None or bias is not None
@@ -225,23 +228,24 @@ def table_dot(feats: Sequence[torch.Tensor], vec, w, out, *, bias=None,
     for name, t in (("bias", bias), ("vec2", vec2)):
         if t is not None:
             _check_vec(t, name, n)
-    up_mask = sum(1 << i for i, half in enumerate(up) if half)
     kw = dict(bias=bias, vec2=vec2, vec_s=vec_s, w_s=w_s, out_s=out_s,
-              up_mask=up_mask, hw=(h, wd), pool=pool)
+              up=up, hw=(h, wd), pool=pool)
     if dt == F32:
         build.check(launch_dot3(feats, m, vec, w, out, **kw),
                     "table_dot (float32)")
         table_dot.f32_launches += 1
     else:
+        ext = group_table(feats)
         build.check(build.lib().cunet_table_dot(
-            *table_args(feats, m, vec, w, out, **kw), _stream(feats[0])),
-            "table_dot")
+            *table_args(feats, m, vec, w, out, ext=ext, **kw),
+            _stream(feats[0])), "table_dot")
     table_dot.launches += 1
     table_dot.dual_launches += dual
     table_dot.bias_launches += bias is not None
     table_dot.scale_launches += vec2 is not None
-    table_dot.up_launches += up_mask != 0
+    table_dot.up_launches += any(up)
     table_dot.pool_launches += bool(pool)
+    table_dot.ext_launches += len(feats) > INLINE_GROUPS
     return out
 
 
@@ -254,7 +258,7 @@ OPTIONS = {"dual": "dual_launches", "shift2": "bias_launches",
 
 
 def reset_launch_counts() -> None:
-    table_dot.launches = table_dot.f32_launches = 0
+    table_dot.launches = table_dot.f32_launches = table_dot.ext_launches = 0
     for attr in OPTIONS.values():
         setattr(table_dot, attr, 0)
 
@@ -267,6 +271,12 @@ def f32_counts() -> dict:
     """Launches of the float32 form (also counted in ``launches`` and in
     each option's count)."""
     return {"table_dot[f32]": table_dot.f32_launches}
+
+
+def ext_counts() -> dict:
+    """Launches over more feature groups than the launch parameters carry
+    (the table read from device memory; also counted in ``launches``)."""
+    return {"table_dot[groups>16]": table_dot.ext_launches}
 
 
 def option_counts() -> dict:

@@ -15,6 +15,12 @@ quantizer's scale S = 2^(bits_i-1) is a power of two (so scaling and
 dequantizing are exact), and the BN affine rounds after the product and
 after the sum in both versions: each kernel is bit-identical to its plain
 version on the same operands.
+
+A float32 model (``compute_dtype="float32"``, JAX's default, whose #1 runs
+the same int8 branch on float32 buffers) runs their float32 forms:
+``affine_dot_i8`` reads float32 x and ``affine_dot_i8`` / ``conv3x3_i8``
+write the dequantized float32 product unrounded.
+``<wrapper>.f32_launches`` counts those launches (also in ``launches``).
 """
 
 from __future__ import annotations
@@ -23,6 +29,8 @@ import torch
 
 from cunet_tpu_torch.kernels import build
 from cunet_tpu_torch.kernels.buf_ops import (
+    BF16,
+    F32,
     _check_vec,
     _check_view,
     _rows,
@@ -63,7 +71,8 @@ def affine_dot_i8(x, vec, w_i8, out, *, s: float, vec2=None):
     float32 [inv; shift] of an eval BN, ``w_i8`` the (>=K, N) int8 weight
     ({-1, 0, +1} after ``quant_eval_params``), ``s`` the quantizer scale
     2^(bits_i-1). Without ``vec2`` the dequantized float32 product goes to
-    ``out`` (an (M, N) or image-major (B, P, N) bf16 view on the card). With
+    ``out`` (an (M, N) or image-major (B, P, N) view in x's dtype: rounded
+    once to bf16, or kept at float32). With
     ``vec2`` ((2, N) float32 [inv2; shift2], BN2 of a dense layer) the
     epilogue is ``q8(relu(y * inv2 + shift2))`` and ``out`` is an (M, N)
     int8 tensor: the 3x3 conv's input codes, from a float32 ``y`` that is
@@ -77,7 +86,8 @@ def affine_dot_i8(x, vec, w_i8, out, *, s: float, vec2=None):
     over N, the prologue (BN affine,
     ReLU, quantizer) in f32 registers between the 16-byte bf16 load and the
     int8 shared-memory tile, 16x16x16 int8 WMMA with int32 accumulators,
-    the epilogue in f32 registers.
+    the epilogue in f32 registers. Float32 x (the float32 model) takes two
+    16-byte loads a vector of 8, the same prologue from there on.
     """
     m, k = x.shape
     n = w_i8.shape[1]
@@ -93,14 +103,15 @@ def affine_dot_i8(x, vec, w_i8, out, *, s: float, vec2=None):
                          f"{tuple(vec.shape)}")
     if x.device.type == "cpu":
         return affine_dot_i8_plain(x, vec, w_i8, out, s, vec2)
-    _check_view(x, "x")
+    _check_view(x, "x", (BF16, F32))
+    f32 = x.dtype == F32
     _check_i8(w_i8, "w")
     if not w_i8.is_contiguous():
         raise ValueError("w must be contiguous")
     _check_vec(vec, "vec", k)
     inv2 = shift2 = 0
     if vec2 is None:
-        _check_view(out, "out")
+        _check_view(out, "out", (x.dtype,))
     else:
         _check_i8(out, "out")
         _check_vec(vec2, "vec2", n)
@@ -109,9 +120,10 @@ def affine_dot_i8(x, vec, w_i8, out, *, s: float, vec2=None):
     code = build.lib().cunet_affine_dot_i8(
         x.data_ptr(), x.stride(0), m, k, vec[0].data_ptr(), vec[1].data_ptr(),
         w_i8.data_ptr(), n, n, s, inv2, shift2,
-        out.data_ptr(), ldo, rows_per_img, img_stride, _stream(x))
+        out.data_ptr(), ldo, rows_per_img, img_stride, int(f32), _stream(x))
     build.check(code, "affine_dot_i8")
     affine_dot_i8.launches += 1
+    affine_dot_i8.f32_launches += f32
     return out
 
 
@@ -138,7 +150,7 @@ def conv3x3_i8(y_i8, w3_i8, b, h, w, out, *, s: float):
     """3x3 SAME conv of the int8 codes ``y_i8`` (b*h*w, Cb) with the int8
     weight ``w3_i8`` ((9*Cb, G), ``buf_ops.pack_w3`` layout), int32
     accumulation, zero padding per image, dequantized by 1/s into ``out``
-    (b*h*w, G) (bf16 on the card).
+    (b*h*w, G) (bf16 or float32 on the card, the model's dtype).
 
     Replaces the int8 scatter conv of
     ``cunet_tpu/kernels/fused_model_buf.py`` (:316-329, weights packed by
@@ -165,12 +177,14 @@ def conv3x3_i8(y_i8, w3_i8, b, h, w, out, *, s: float):
     _check_i8(w3_i8, "w3")
     if not w3_i8.is_contiguous():
         raise ValueError("w3 must be contiguous")
-    _check_view(out, "out")
+    _check_view(out, "out", (BF16, F32))
+    f32 = out.dtype == F32
     code = build.lib().cunet_conv3x3_i8(
         y_i8.data_ptr(), y_i8.stride(0), m, h, w, c, w3_i8.data_ptr(), g,
-        s, out.data_ptr(), out.stride(0), _stream(y_i8))
+        s, out.data_ptr(), out.stride(0), int(f32), _stream(y_i8))
     build.check(code, "conv3x3_i8")
     conv3x3_i8.launches += 1
+    conv3x3_i8.f32_launches += f32
     return out
 
 
@@ -179,13 +193,24 @@ PLAIN = {affine_dot_i8: affine_dot_i8_plain, conv3x3_i8: conv3x3_i8_plain,
          int8_matmul_dequant: int8_matmul_dequant_plain}
 
 
+# the wrappers with a float32 form
+F32_FORMS = (affine_dot_i8, conv3x3_i8)
+
+
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+    for k in F32_FORMS:
+        k.f32_launches = 0
 
 
 def launch_counts() -> dict:
     return {k.__name__: k.launches for k in KERNELS}
+
+
+def f32_counts() -> dict:
+    """Launches of the float32 forms, keyed ``name[f32]``."""
+    return {f"{k.__name__}[f32]": k.f32_launches for k in F32_FORMS}
 
 
 reset_launch_counts()

@@ -89,9 +89,6 @@ REDUCE_COLS = 64
 REDUCE_ROWS = 32
 REDUCE_BLOCKS = 264
 REDUCE_BLOCKS_F32 = 132
-# float32 kernels: the most feature groups ``apply``'s float32 product
-# takes (csrc/f32_kernels.cu kMaxGroups)
-F32_GROUPS = 16
 # bwd_dx: rows of a step and concat columns of a block (csrc kDxRows,
 # kDxCols); a table chunk resolved into shared memory (csrc/halo.cuh Chunk:
 # a pointer and a row stride)
@@ -276,8 +273,8 @@ def apply(xs, vec, w, out, table=None):
     here, not in ``buf_ops.affine_dot.launches``.
 
     Float32 features, ``w`` and ``out``: the float32 product kernel of
-    ``csrc/f32_kernels.cu`` with the features as its feature table (at
-    most ``F32_GROUPS``; ``table`` is not read), the prologue unrounded,
+    ``csrc/f32_kernels.cu`` with the features as its feature table (any
+    number of groups; ``table`` is not read), the prologue unrounded,
     six bf16 plane products a k16 step: ``affine_dot``'s float32 form over
     ``torch.cat(xs, 1)`` bit for bit. Bound at K=320 -> 128, M=98,304 by
     its float32 bytes (176 MB: 52.6 us); its six bf16 passes take 48.8 us,
@@ -323,9 +320,6 @@ def apply(xs, vec, w, out, table=None):
 def _apply_f32(xs, vec, w, out):
     """``apply``'s float32 form: the float32 product over the feature
     groups ``xs`` (checked by ``apply``)."""
-    if len(xs) > F32_GROUPS:
-        raise ValueError(f"apply at float32 takes at most {F32_GROUPS} "
-                         f"feature groups, got {len(xs)}")
     for k, x in enumerate(xs):
         _check_view(x, f"features[{k}]", (F32,))
     code = launch_dot3(list(xs), xs[0].shape[0], vec, w, out)

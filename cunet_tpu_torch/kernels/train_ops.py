@@ -36,7 +36,11 @@ kernel ``dw3_kernel`` (plan ``dw3_plan``), per-split partials added by
 three bf16 planes and sums six plane products: the float32 cotangent is
 never rounded, as JAX's ``_dot_dx`` / ``_dot_dw`` do not round it at
 float32. ``<wrapper>.f32_launches`` counts those launches (also in
-``launches``). No QuanInput option at float32 (ROADMAP queue B item 4).
+``launches``). The QuanInput options run at float32 too (the quantized
+model's training at ``compute_dtype="float32"``): the dx forms' ``ste``
+gate (0 < z < 1 on the unrounded affine) in the epilogue, the dW forms'
+``bits_i`` quantizer on the unrounded float32 z, counted in
+``<wrapper>.f32_option_launches`` (also in ``option_launches``).
 """
 
 from __future__ import annotations
@@ -61,10 +65,10 @@ from cunet_tpu_torch.kernels.buf_ops import (
     _check_rows,
     _check_tile_vec,
     _check_view,
-    _f32_unquantized,
     _stream,
     _vec_args,
     count_f32,
+    count_f32_options,
     count_options,
     dot3_plan,
     launch_affine_f32,
@@ -429,10 +433,9 @@ def affine_dx(dy, w, x, vec, out, *, ste=False):
     return out
 
 
-def _f32_gate_operands(what, dy, w, x, vec, out, ste):
+def _f32_gate_operands(dy, w, x, vec, out):
     """The checks of a float32 dx form's operands (all float32); the
     gate's vector arguments."""
-    _f32_unquantized(what, ste=ste)
     for name, t in (("dy", dy), ("w", w), ("x", x), ("out", out)):
         _check_view(t, name, (F32,))
     _check_contig_f32(vec, "vec", dy.device)
@@ -444,16 +447,18 @@ def _affine_dx_f32(dy, w, x, vec, out, ste):
     """``affine_dx``'s float32 form: the float32 product kernel
     (``buf_ops.launch_affine_f32``) of dy through W^T (the K rows of w
     transposed into a contiguous (N, K) operand), no prologue, the ReLU
-    gate of x's per-tile affine in its epilogue: dy and W^T each split into
-    three bf16 planes, six plane products a k16 step."""
-    inv, shift, vstride, tile_rows = _f32_gate_operands(
-        "affine_dx", dy, w, x, vec, out, ste)
+    gate of x's per-tile affine in its epilogue (with ``ste`` also 0 where
+    that affine is >= 1): dy and W^T each split into three bf16 planes, six
+    plane products a k16 step."""
+    inv, shift, vstride, tile_rows = _f32_gate_operands(dy, w, x, vec, out)
     wt = w[:x.shape[1]].t().contiguous()
     code = launch_affine_f32(dy, 0, 0, vstride, tile_rows, wt, out,
-                             gate=(x, inv, shift))
+                             gate=(x, inv, shift), ste=ste)
     build.check(code, "affine_dx (float32)")
     affine_dx.launches += 1
     affine_dx.f32_launches += 1
+    affine_dx.option_launches += bool(ste)
+    affine_dx.f32_option_launches += bool(ste)
     return out
 
 
@@ -642,15 +647,17 @@ def _conv3x3_dx_f32(dy, w3p, h, w, x, vec, out, ste):
     implicit GEMM (``buf_ops.launch_conv3x3_f32``) of dy through
     ``flip_w3(w3p)``, no prologue, the ReLU gate of x's per-tile BN2
     affine in its epilogue (after the split-K partials are added, where
-    the plan splits K)."""
-    inv, shift, vstride, tile_rows = _f32_gate_operands(
-        "conv3x3_dx", dy, w3p, x, vec, out, ste)
+    the plan splits K; with ``ste`` also 0 where that affine is >= 1)."""
+    inv, shift, vstride, tile_rows = _f32_gate_operands(dy, w3p, x, vec,
+                                                        out)
     code = launch_conv3x3_f32(dy, flip_w3(w3p), h, w, out,
                               pro=(0, 0, vstride, tile_rows),
-                              gate=(x, inv, shift))
+                              gate=(x, inv, shift), ste=ste)
     build.check(code, "conv3x3_dx (float32)")
     conv3x3_dx.launches += 1
     conv3x3_dx.f32_launches += 1
+    conv3x3_dx.option_launches += bool(ste)
+    conv3x3_dx.f32_option_launches += bool(ste)
     return out
 
 
@@ -837,8 +844,8 @@ def dw3_plan(m: int, r: int, n: int) -> Dw3Plan:
 def _dw_f32(kern, x, vec, dy, out, bits_i, hw=None):
     """The float32 form of ``affine_dw`` (``hw`` None) or of
     ``conv3x3_dw`` (``hw`` = (h, w)): ``dw3_kernel``'s partials of
-    ``dw3_plan``, added in order by ``sum_rows``."""
-    _f32_unquantized(kern.__name__, bits_i=bits_i)
+    ``dw3_plan``, added in order by ``sum_rows``; with ``bits_i`` on the
+    quantized z (``quan`` of the unrounded float32 activation)."""
     _check_view(x, "x", (F32,))
     _check_view(dy, "dy", (F32,))
     _check_contig_f32(out, "out", x.device)
@@ -857,11 +864,13 @@ def _dw_f32(kern, x, vec, dy, out, bits_i, hw=None):
     code = build.lib().cunet_dw_f32(
         x.data_ptr(), x.stride(0), m, c, h, w, int(hw is not None), inv,
         shift, vstride, tile_rows, dy.data_ptr(), dy.stride(0), n,
-        part.data_ptr(), p.bn, p.smem, p.splits, _stream(x))
+        part.data_ptr(), bits_i, p.bn, p.smem, p.splits, _stream(x))
     build.check(code, f"{kern.__name__} (float32)")
     sum_rows(part, out)
     kern.launches += 1
     kern.f32_launches += 1
+    kern.option_launches += bits_i > 0
+    kern.f32_option_launches += bits_i > 0
     return out
 
 
@@ -1279,6 +1288,10 @@ def option_counts() -> dict:
 
 def f32_counts() -> dict:
     return count_f32(F32_FORMS)
+
+
+def f32_option_counts() -> dict:
+    return count_f32_options(OPTIONS)
 
 
 for _k in F32_FORMS:

@@ -63,16 +63,15 @@ The JAX ``lax.scan`` over steady-state slots and its stacked-slot storage
 exist to cut XLA compile time; here every slot runs in a plain loop, and
 ``use_scan`` only chooses the kernels, as it does in JAX.
 
-The hand-written kernels take bfloat16 on every path and float32
-(``compute_dtype="float32"``, JAX's default) on the float eval paths and
-in unquantized training: the whole-model, per-slot, per-block and
-per-bottleneck eval kernels, the slot train kernels #8/#9 (ghost-BN
-training, ``bn_tile > 0``, plain and with dropout), the per-bottleneck
-train kernel #7 (``bn_tile=0``) and the dropout-mask kernel have float32
-forms whose products are float32-accurate. ``use_pallas`` on a CUDA
-device with float32 in quantized ghost-BN training or in a quantized
-eval, or with any other dtype, raises (:func:`check_kernel_dtype`); on
-the CPU the kernels' plain versions run in any dtype.
+The hand-written kernels take bfloat16 and float32
+(``compute_dtype="float32"``, JAX's default) on every path: the
+whole-model, per-slot, per-block and per-bottleneck eval kernels, the
+int8 kernels, the slot train kernels #8/#9 (ghost-BN training, ``bn_tile
+> 0``, plain, with dropout and with QuanInput), the per-bottleneck train
+kernel #7 (``bn_tile=0``) and the dropout-mask kernel have float32 forms
+whose products are float32-accurate. ``use_pallas`` on a CUDA device with
+any other dtype raises (:func:`check_kernel_dtype`); on the CPU the
+kernels' plain versions run in any dtype.
 ``conv3x3_impl="scatter"`` runs every dense layer's 3x3 conv as JAX's
 scatter form (:func:`cunet_tpu_torch.ops.layers.conv3x3_scatter`).
 
@@ -733,45 +732,21 @@ def check_kernel_dtype(cfg: ModelConfig, device, *, train: bool = False,
                        quant=None) -> None:
     """Raise ``NotImplementedError`` where ``cfg`` would run a CUDA kernel
     path (``use_pallas`` on a CUDA ``device``) in a dtype its kernels do not
-    take. bfloat16 runs every path. float32 runs the float eval paths (the
-    whole-model, per-slot, per-block and per-bottleneck kernels have
-    float32 forms), ghost-BN training (``bn_tile > 0``: the slot kernels
-    #8/#9 and the mask kernel have float32 forms, plain and with dropout)
-    and whole-batch BN training (``bn_tile=0``: #7 and the mask kernel;
-    quantized training too, its quantizer being plain PyTorch there);
-    quantized ghost-BN training (an enabled ``quant``: the slot kernels'
-    QuanInput options) and a quantized float32 eval (its int8 kernels take
-    bf16 activations) do not yet (ROADMAP queue B item 4). float32
-    whole-batch BN training with more than #7's ``F32_GROUPS`` feature
-    groups at a bottleneck (``order`` above 13) raises too. Any other
-    dtype raises. On the CPU the kernels' plain versions run in any
+    take. bfloat16 and float32 run every path: the float and quantized
+    eval paths (whole-model, per-slot, per-block and per-bottleneck
+    kernels, the int8 kernels), ghost-BN training (``bn_tile > 0``: the
+    slot kernels #8/#9 with their dropout and QuanInput options) and
+    whole-batch BN training (``bn_tile=0``: #7 and the mask kernel, at any
+    ``order``). Any other dtype raises; ``train`` and ``quant`` no longer
+    change the answer. On the CPU the kernels' plain versions run in any
     dtype."""
     if not cfg.use_pallas or torch.device(device).type != "cuda" \
-            or cfg.compute_dtype == "bfloat16":
+            or cfg.compute_dtype in ("bfloat16", "float32"):
         return
-    if cfg.compute_dtype == "float32" and train and cfg.bn_tile == 0:
-        from cunet_tpu_torch.kernels.train_bottleneck import F32_GROUPS
-
-        if bn0_feature_groups(cfg) > F32_GROUPS:
-            raise NotImplementedError(
-                f"order {cfg.order} gives #7 up to {bn0_feature_groups(cfg)} "
-                f"feature groups; its float32 apply takes at most "
-                f"{F32_GROUPS}: use_pallas on {device} at float32 needs "
-                f"order <= {F32_GROUPS - 3} (use_pallas=False runs it on the "
-                f"plain path)")
-        return
-    if cfg.compute_dtype == "float32" and _active(quant) is None:
-        return
-    what = ("quantized ghost-BN training (bn_tile > 0)" if train
-            else "quantized eval") if cfg.compute_dtype == "float32" \
-        else "any path"
     raise NotImplementedError(
-        f"the CUDA kernels take {cfg.compute_dtype!r} nowhere for {what}: "
-        f"use_pallas on {device} needs compute_dtype='bfloat16' there (the "
-        f"float32 forms cover the float eval, ghost-BN training and "
-        f"bn_tile=0 training; the quantized forms at float32, the slot "
-        f"train kernels' QuanInput options and the int8 eval, are ROADMAP "
-        f"queue B item 4; use_pallas=False runs it on the plain path)")
+        f"the CUDA kernels take {cfg.compute_dtype!r} nowhere: use_pallas on "
+        f"{device} needs compute_dtype='bfloat16' or 'float32' "
+        f"(use_pallas=False runs it on the plain path)")
 
 
 def eval_slots(params, state, cfg: ModelConfig, quant=None):

@@ -4,8 +4,8 @@ Counterpart of ``cunet_tpu/serving.py``. The predictor runs the eval forward
 at a fixed batch size (ragged requests are padded to it, so every call has
 the same shapes), optionally mirror-ensembles with the flip test, and
 decodes heatmaps to landmark coordinates with the reference-exact
-quarter-pixel decode. With ``cfg.use_pallas`` (bf16, or float32 for
-the float model) the forward runs the hand-written kernels: with the default flags every slot on the per-slot
+quarter-pixel decode. With ``cfg.use_pallas`` (bf16 or float32, the
+float model or the quantized one) the forward runs the hand-written kernels: with the default flags every slot on the per-slot
 hourglass kernels, as JAX's ``Predictor`` runs them, with
 ``cfg.pallas_whole_model`` the whole-model eval kernels, and with
 ``pallas_hourglass=False`` under ``use_scan`` the steady slots on the
@@ -36,7 +36,7 @@ class Predictor:
 
     Args:
       cfg: model architecture (use_pallas for the kernel paths on the
-        card, at bf16 or, for the float model, float32: per slot with the
+        card, at bf16 or float32: per slot with the
         default flags, the whole model with ``pallas_whole_model``, per
         block with ``pallas_hourglass=False``).
       params/bn_state: flat tensor dicts (``cunet_tpu_torch.models``

@@ -21,9 +21,10 @@ kernels (``conv3x3[bits_i]``, ``conv3x3_dw[bits_i]`` and
 (``drop_mask``), phase 10 (``table_dot``'s forms) and phase 11 (a)
 (``[up]``, ``[pool]``, ``[scale]``; a checkout needs them) and, where the
 checkout has them, phase 12 (a) (the float32 eval forms), phase 13 (a)
-(the float32 forms of #7 and of the mask kernel) and phase 14 (a) (the
+(the float32 forms of #7 and of the mask kernel), phase 14 (a) (the
 float32 forms F1-F10 of the slot kernels #8/#9, at r = 64 ... 4 and
-tiles 2 and 6): each case against its
+tiles 2 and 6) and phase 15 (a) (the QuanInput forms at float32, the int8
+kernels' float32 forms, ``table_dot`` over 17 groups): each case against its
 plain version, timed by CUDA-graph replay beside its library call (or
 ``torch.mm`` of its product alone) and bound. It also prints a digest of
 the bf16 outputs of #7's four kernels and of ``drop_mask`` on fixed
@@ -110,7 +111,7 @@ def main(argv=None) -> int:
 
     from cunet_tpu_torch import ModelConfig
     from cunet_tpu_torch.kernels import buf_ops, build, drop_ops, eval_ops
-    from cunet_tpu_torch.kernels import train_bottleneck, train_ops
+    from cunet_tpu_torch.kernels import quant_ops, train_bottleneck, train_ops
     from cunet_tpu_torch.models import init_cu_net
     from cunet_tpu_torch.serving import Predictor
 
@@ -151,6 +152,9 @@ def main(argv=None) -> int:
         cs.phase_bn0_f32_kernels(torch, train_bottleneck, drop_ops)
     if hasattr(train_ops, "f32_counts"):
         cs.phase_slot_f32_kernels(torch, train_ops, buf_ops)
+    if hasattr(train_ops, "f32_option_counts"):
+        cs.phase_quant_f32_kernels(torch, train_ops, buf_ops, quant_ops,
+                                   eval_ops)
     for dtype in dtypes:
         cfg = ModelConfig(layer_num=8, order=1, class_num=16, loss_num=8,
                           compute_dtype=dtype, use_pallas=True)

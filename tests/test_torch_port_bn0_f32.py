@@ -15,9 +15,10 @@ cotangents, and not with a W plane dropped.
 ``apply``'s float32 product ``buf_ops.dot3_plan``) at every #7 call of the
 CU-Net-8 @256 float32 ``bn_tile=0`` step, read from the port's own forward
 (183 calls): each fits the H100's shared memory, covers every row and
-column once, and is a function of the shapes alone. The guard holds a
-config's feature groups (``bn0_feature_groups``) to ``apply``'s
-``F32_GROUPS``.
+column once, and is a function of the shapes alone. ``apply``'s float32
+product takes any number of feature groups (a table past 16 goes to
+device memory), so the guard lets every ``order`` through, and one step
+at ``order`` 14 (17 groups at an up block's adapter) runs.
 
 (c) The float32 conv's autograd Function (``ops.layers._Conv2dF32``, the
 repair of the float32 conv's TF32 backward): its gradients are autograd's.
@@ -275,10 +276,11 @@ def test_f32_dx_plans_fit_every_bn0_call():
 
 
 def test_f32_apply_plans_fit_every_bn0_call():
-    """``apply``'s float32 product: at most 16 feature groups (its table),
-    the plan of N = 128 within shared memory whatever K (it streams K)."""
+    """``apply``'s float32 product: the plan of N = 128 within shared
+    memory whatever K (it streams K) and whatever the number of feature
+    groups (past 16 its table is read from device memory)."""
     for m, ctot, n, groups in sorted(set(_bn0_f32_calls())):
-        assert groups <= tbk.F32_GROUPS
+        assert groups >= 1
         p = buf_ops.dot3_plan(n)
         assert p.smem <= SMEM_LIMIT and p.bn == 128
         assert sum(len(c) for c in p.k_chunks(ctot)) == -(-ctot // p.bk)
@@ -286,9 +288,8 @@ def test_f32_apply_plans_fit_every_bn0_call():
 
 @pytest.mark.parametrize("order", [1, 3])
 def test_bn0_feature_groups_is_the_most_a_call_reads(order):
-    """``bn0_feature_groups`` (what ``check_kernel_dtype`` holds against
-    ``F32_GROUPS``) is the most feature groups a #7 call of the train
-    forward reads (an up block's adapter)."""
+    """``bn0_feature_groups`` is the most feature groups a #7 call of the
+    train forward reads (an up block's adapter)."""
     from cunet_tpu_torch.config import ModelConfig
     from cunet_tpu_torch.models import init_cu_net
     from cunet_tpu_torch.models.cu_net import bn0_feature_groups
@@ -313,23 +314,45 @@ def test_bn0_feature_groups_is_the_most_a_call_reads(order):
     assert max(g for *_, g in _bn0_f32_calls()) == 4
 
 
-@pytest.mark.parametrize("order", [tbk.F32_GROUPS - 3, tbk.F32_GROUPS - 2])
+@pytest.mark.parametrize("order", [13, 14])
 def test_f32_bn0_guard_holds_the_apply_groups(order):
-    """float32 whole-batch BN training on the card passes the guard while
-    its bottlenecks read at most ``F32_GROUPS`` feature groups and raises
-    above, before any step; bf16 takes any number of groups."""
+    """float32 whole-batch BN training on the card passes the guard at
+    order 13 (16 feature groups at an up block's adapter) and at order 14
+    (17, past the 16 a launch carries in its parameters: the table goes to
+    device memory), as bf16 does; and the step runs at that order (on the
+    CPU on the kernels' plain versions), its up blocks' adapters reading
+    order + 3 groups through ``apply``."""
     from cunet_tpu_torch.config import ModelConfig
-    from cunet_tpu_torch.models.cu_net import check_kernel_dtype
+    from cunet_tpu_torch.models import init_cu_net
+    from cunet_tpu_torch.models.cu_net import (
+        bn0_feature_groups,
+        check_kernel_dtype,
+    )
 
     cfg = ModelConfig(layer_num=order + 1, order=order, loss_num=1,
-                      compute_dtype="float32", use_pallas=True, bn_tile=0)
-    if order + 3 <= tbk.F32_GROUPS:
-        check_kernel_dtype(cfg, "cuda", train=True)
-    else:
-        with pytest.raises(NotImplementedError, match="feature groups"):
-            check_kernel_dtype(cfg, "cuda", train=True)
+                      neck_size=2, growth_rate=8, init_chan_num=16,
+                      class_num=4, num_blocks=2, compute_dtype="float32",
+                      use_pallas=True, bn_tile=0)
+    check_kernel_dtype(cfg, "cuda", train=True)
     check_kernel_dtype(dataclasses.replace(cfg, compute_dtype="bfloat16"),
                        "cuda", train=True)
+    params, state = init_cu_net(cfg, torch.Generator().manual_seed(0),
+                                device="cpu")
+    groups = []
+
+    def recorder(xs, vec, w, out, table=None):
+        groups.append(len(xs))
+        return tbk.apply_plain(xs, vec, w, out)
+
+    ps = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+    x = torch.rand(2, 32, 32, 3, generator=torch.Generator().manual_seed(1))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tbk, "apply", recorder)
+        outs, _ = apply_cu_net(ps, state, x, cfg=cfg, train=True)
+    sum(o.float().square().mean() for o in outs).backward()
+    assert max(groups) == bn0_feature_groups(cfg) == order + 3
+    assert all(torch.isfinite(p.grad).all() for p in ps.values()
+               if p.grad is not None)
 
 
 def test_f32_plans_are_functions_of_the_shapes(monkeypatch):

@@ -1496,30 +1496,36 @@ def test_face_head_on_every_kernel_path(gen):
 
 
 def test_f32_kernel_path_raises(gen):
-    """float32 runs the float eval kernel paths, ghost-BN training and
-    bn_tile=0 training; quantized float32 ghost-BN training and the
-    quantized float32 eval raise (ROADMAP queue B item 4)."""
+    """float32 runs every kernel path: the float eval paths, ghost-BN and
+    bn_tile=0 training, quantized float32 ghost-BN training and the
+    quantized float32 eval (the QuanInput and int8 forms at float32), each
+    returning float32; only a dtype the kernels do not take (float16)
+    raises."""
     cfg = ModelConfig(layer_num=2, order=1, loss_num=2, class_num=8,
                       **{**SMALL, "compute_dtype": "float32"})
     params, state = init_cu_net(cfg, gen, device="cuda")
-    x = torch.rand(1, 64, 64, 3, generator=gen).cuda()
-    with pytest.raises(NotImplementedError, match="queue B item 4"):
-        apply_cu_net(params, state, x, cfg=dataclasses.replace(
-            cfg, bn_tile=1), train=True, quant=dataclasses.replace(
-                INT8, int8_infer=False))
+    x = torch.rand(2, 64, 64, 3, generator=gen).cuda()
+    outs, _ = apply_cu_net(params, state, x, cfg=dataclasses.replace(
+        cfg, bn_tile=1), train=True, quant=dataclasses.replace(
+            INT8, int8_infer=False))
+    assert outs[-1].dtype == torch.float32
     for tile in (1, 0):
         outs, _ = apply_cu_net(params, state, x, train=True,
                                cfg=dataclasses.replace(cfg, bn_tile=tile))
         assert outs[-1].dtype == torch.float32
     qp = quant_eval_params(params, INT8)
     for c in (cfg, dataclasses.replace(cfg, pallas_whole_model=True)):
-        with pytest.raises(NotImplementedError, match="bfloat16"):
-            apply_cu_net(qp, state, x, cfg=c, quant=INT8)
+        outs, _ = apply_cu_net(qp, state, x, cfg=c, quant=INT8)
+        assert outs[-1].dtype == torch.float32
+        assert all(torch.isfinite(o).all() for o in outs)
         outs, _ = apply_cu_net(params, state, x, cfg=c)
         assert outs[-1].dtype == torch.float32
     outs, _ = apply_cu_net(params, state, x, cfg=dataclasses.replace(
         cfg, use_pallas=False))
     assert outs[-1].dtype == torch.float32
+    with pytest.raises(NotImplementedError, match="float16"):
+        apply_cu_net(params, state, x, cfg=dataclasses.replace(
+            cfg, compute_dtype="float16"))
 
 
 # ---------------------------------------------------------------------------
@@ -2062,13 +2068,9 @@ TB_F32_CASES = [(98304, [128, 128, 32, 32], 128),
 def test_train_bottleneck_kernels_f32(gen, m, widths, cout):
     """Each float32 form against its plain version within the float32
     n-term bound (the sums per feature group), counted as a float32
-    launch; apply at most 16 groups (the float32 product's table)."""
+    launch; apply over any number of groups (20 in the last case: the
+    float32 product's table read from device memory)."""
     ops = _tb_f32(gen, m, widths, cout)
-    feats, w = ops[0], ops[4]
-    if len(widths) > tbk.F32_GROUPS:
-        with pytest.raises(ValueError, match="groups"):
-            tbk.apply(feats, ops[1], w, torch.empty(m, cout, device="cuda"))
-        return
     tbk.reset_launch_counts()
     got = _tb_f32_outputs(tbk.KERNELS, *ops)
     assert tbk.f32_counts() == {f"{k}[f32]": 1 for k in
@@ -2401,6 +2403,268 @@ def test_slot_f32_step_matches_swap_step(gen, tile):
     assert k2[0] == k[0] and all(torch.equal(k2[1][n], k[1][n])
                                  for n in k[1])
     assert ld == lm and all(torch.equal(gd[n], gm[n]) for n in gd)
+    got = chip_smoke.step_leaves(torch, k, s)
+    ctrl = [chip_smoke.step_leaves(torch, cc, s) for cc in ctl]
+    lim = {n: max(2 * max(d[n] for d in ctrl), 1e-5) for n in got}
+    over = {n: (got[n], lim[n]) for n in got if not got[n] <= lim[n]}
+    assert not over, over
+    planted = chip_smoke.step_leaves(torch, fault, s)
+    caught = [n for n in lim if planted[n] > lim[n]]
+    assert caught, {n: (planted[n], lim[n]) for n in lim}
+
+
+# ---------------------------------------------------------------------------
+# feature tables past 16 groups (order >= 14); the quantized model at
+# float32: the QuanInput forms of the slot kernels and the int8 forms
+# ---------------------------------------------------------------------------
+
+
+def _merged(fs, groups):
+    """The same columns as ``fs`` in 16 groups: FIFO entries 0 .. groups-15
+    joined into one tensor, so the table travels in the launch
+    parameters."""
+    j = groups - 15
+    return fs[:2] + [torch.cat(fs[2:2 + j], 1)] + fs[2 + j:]
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("groups", [17, 18])
+@pytest.mark.parametrize("mode", ["single", "dual", "up", "shift2"])
+def test_table_dot_past_16_groups(gen, dt, groups, mode):
+    """An up block's adapter at order 14 and 15 (2 + order + 1 groups; its
+    first feature at half resolution in ``up``): against the plain version
+    over the concat, and bit for bit the same columns in 16 groups (the
+    table by value); the launch counted over more than 16 groups."""
+    n, r, c, g = 2, 8, 16, 8
+    m = n * r * r
+
+    def act(rows, cols):
+        return (torch.randn(rows, cols, generator=gen) * 0.5).to("cuda", dt)
+
+    fs = [act(m // 4 if mode == "up" else m, c), act(m, c)] + [
+        act(m, g) for _ in range(groups - 2)]
+    k = sum(f.shape[1] for f in fs)
+    v = _vec(gen, k)
+    w = (torch.randn(k, 24, generator=gen) * k ** -0.5).to("cuda", dt)
+    kw = {}
+    if mode == "dual":
+        kw = dict(vec_s=_vec(gen, k), w_s=(torch.randn(
+            k, 24, generator=gen) * k ** -0.5).to("cuda", dt))
+    if mode == "shift2":
+        kw = dict(bias=(torch.randn(24, generator=gen) * 0.5).cuda())
+    if mode == "up":
+        kw = dict(hw=(r, r))
+
+    def run(fn, feats):
+        out = torch.empty(m, 24, device="cuda", dtype=dt)
+        extra = dict(kw)
+        if mode == "dual":
+            extra["out_s"] = torch.empty(m, 24, device="cuda", dtype=dt)
+        if mode == "up":
+            extra["up"] = (True,) + (False,) * (len(feats) - 1)
+        fn(feats, v, w, out, **extra)
+        return [out] + ([extra["out_s"]] if mode == "dual" else [])
+
+    eval_ops.reset_launch_counts()
+    got = run(eval_ops.table_dot, fs)
+    assert eval_ops.ext_counts() == {"table_dot[groups>16]": 1}
+    inline = run(eval_ops.table_dot, _merged(fs, groups))
+    assert eval_ops.ext_counts() == {"table_dot[groups>16]": 1}
+    want = run(eval_ops.table_dot_plain, fs)
+    torch.cuda.synchronize()
+    for a, b, p in zip(got, inline, want):
+        assert torch.equal(a, b)
+        if dt == torch.float32:
+            _close_f32(a, p, k)
+        else:
+            _close(a, p)
+
+
+@pytest.mark.parametrize("dt", ["bfloat16", "float32"])
+def test_slot_path_at_order_14_is_the_whole_model_path(gen, dt):
+    """order 14 (layer_num 15): every up block's adapter reads 17 feature
+    groups; the per-slot path runs them from a table in device memory, bit
+    for bit the whole-model path, near the plain path; the per-block and
+    per-bottleneck paths too."""
+    cfg = ModelConfig(layer_num=15, order=14, loss_num=2, class_num=8,
+                      **{**SMALL, "compute_dtype": dt})
+    params, state = init_cu_net(cfg, gen, device="cuda")
+    x = torch.rand(2, 64, 64, 3, generator=gen).cuda()
+    slots = eval_slots(params, state, cfg)
+    eval_ops.reset_launch_counts()
+    per_slot, _ = apply_cu_net(params, state, x, cfg=cfg, slots=slots)
+    assert eval_ops.ext_counts()["table_dot[groups>16]"] > 0
+    whole, _ = apply_cu_net(params, state, x, slots=slots,
+                            cfg=dataclasses.replace(cfg,
+                                                    pallas_whole_model=True))
+    plain, _ = apply_cu_net(params, state, x, cfg=dataclasses.replace(
+        cfg, use_pallas=False))
+    bound = 1e-4 if dt == "float32" else 3e-2
+    others = [apply_cu_net(params, state, x, cfg=dataclasses.replace(
+        cfg, pallas_hourglass=False, **f))[0]
+        for f in ({}, {"use_scan": False})]
+    for i, (a, b, p) in enumerate(zip(per_slot, whole, plain)):
+        assert torch.equal(a, b)
+        for t in [a] + [o[i] for o in others]:
+            assert _rel(t, p) <= bound
+
+
+@pytest.mark.parametrize("r", [64, 4])
+def test_quant_f32_forms(gen, r):
+    """The six QuanInput forms at float32 (bits_i 8) against their plain
+    versions at the CU-Net-8 @256 step's shapes (batch 24, tile 2): every
+    output within the float32 n-term limit, each launch counted as a
+    float32 option launch."""
+    o = chip_smoke.slot_f32_operands(torch, train_ops, gen, r, 2)
+    plain = {**buf_ops.PLAIN, **train_ops.PLAIN}
+    for row, kern, label, call, bounds, *_ in chip_smoke.quant_f32_cases(
+            torch, train_ops, buf_ops, o):
+        before = kern.f32_option_launches
+        got, want = call(kern), call(plain[kern])
+        torch.cuda.synchronize()
+        assert kern.f32_option_launches == before + 1, row
+        err, share, ok = chip_smoke.output_errors(torch, got, want, bounds)
+        assert ok, (row, label, err, share)
+
+
+def test_quant_f32_one_hot_and_bf16_dy(gen):
+    """At r=64, tile 2: the six QuanInput forms at float32 bit for bit an
+    exact reference under one-hot operands (the plain quantizer's codes,
+    the plain STE gate), a bf16 pass of dy breaking the dx limits, dW
+    within F32_DW_REL of float64."""
+    o = chip_smoke.slot_f32_operands(torch, train_ops, gen, 64, 2)
+    same = chip_smoke.quant_f32_exact_checks(torch, train_ops, buf_ops, o,
+                                             gen)
+    assert all(same.values()), same
+
+
+def test_int8_kernels_f32(gen):
+    """The int8 kernels' float32 forms bit for bit their plain versions at
+    the CU-Net-8 @256 shapes and the ragged ones, nothing outside the
+    output view written, each launch counted as a float32 one."""
+    for name, label, dst, sel, call, _ in chip_smoke.int8_kernel_cases(
+            torch, gen, f32=True):
+        kern = getattr(quant_ops, name)
+        before = kern.f32_launches
+        k_buf, p_buf = dst.clone(), dst.clone()
+        call(kern, k_buf)
+        call(quant_ops.PLAIN[kern], p_buf)
+        torch.cuda.synchronize()
+        assert kern.f32_launches == before + 1, label
+        assert torch.equal(sel(k_buf), sel(p_buf)), label
+        sel(k_buf).copy_(sel(dst))
+        assert torch.equal(k_buf, dst), label
+
+
+def test_int8_f32_eval_paths(gen):
+    """The quantized model at float32: the whole-model int8 path (the int8
+    kernels' float32 forms) against the plain path (``int8_impl="lax"``,
+    the same function), and the layer-by-layer path (#6's dual form at
+    float32, #10) against itself on those kernels' plain versions (JAX
+    runs its down blocks' adapter pairs float there, so it is another
+    function than the plain path's); each anchor within relative L2 1e-4
+    or, where flipped int8 codes set the gap, 2x its reference's own
+    distance under a one-ulp move of the input; the whole-model path bit
+    for bit itself on the int8 kernels' plain versions."""
+    cfg = ModelConfig(layer_num=3, order=1, loss_num=3, class_num=8,
+                      **F32_SMALL, pallas_whole_model=True)
+    params, state = init_cu_net(cfg, gen, device="cuda")
+    qp = quant_eval_params(params, INT8)
+    x = torch.rand(2, 64, 64, 3, generator=gen).cuda()
+    nudged = torch.nextafter(x, x + 1)
+    lax = dataclasses.replace(INT8, int8_impl="lax")
+    plain_cfg = dataclasses.replace(cfg, use_pallas=False)
+    layer_cfg = dataclasses.replace(cfg, pallas_whole_model=False)
+    want, _ = apply_cu_net(qp, state, x, cfg=plain_cfg, quant=lax)
+    ctl, _ = apply_cu_net(qp, state, nudged, cfg=plain_cfg, quant=lax)
+    quant_ops.reset_launch_counts()
+    whole, _ = apply_cu_net(qp, state, x, cfg=cfg, quant=INT8)
+    assert all(quant_ops.f32_counts().values())
+    layers, _ = apply_cu_net(qp, state, x, quant=INT8, cfg=layer_cfg)
+    with chip_smoke.layer_plain_swapped(torch):
+        l_want, _ = apply_cu_net(qp, state, x, quant=INT8, cfg=layer_cfg)
+        l_ctl, _ = apply_cu_net(qp, state, nudged, quant=INT8, cfg=layer_cfg)
+    saved = (model_buf.affine_dot_i8, model_buf.conv3x3_i8)
+    model_buf.affine_dot_i8 = quant_ops.PLAIN[quant_ops.affine_dot_i8]
+    model_buf.conv3x3_i8 = quant_ops.PLAIN[quant_ops.conv3x3_i8]
+    try:
+        swap, _ = apply_cu_net(qp, state, x, cfg=cfg, quant=INT8)
+    finally:
+        model_buf.affine_dot_i8, model_buf.conv3x3_i8 = saved
+    for a, s_, p, c, la, lp, lc in zip(whole, swap, want, ctl, layers,
+                                       l_want, l_ctl):
+        assert a.dtype == la.dtype == torch.float32
+        assert torch.equal(a, s_)
+        assert _rel(a, p) <= max(1e-4, 2 * _rel(c, p))
+        assert _rel(la, lp) <= max(1e-4, 2 * _rel(lc, lp))
+
+
+@pytest.mark.parametrize("tile", [2])
+def test_quant_f32_slot_step_matches_swap_step(gen, tile):
+    """Two slots W1/I8/G8 at float32, ghost-BN tile 2: every stage on the
+    float32 forms, the six QuanInput ones among them (each launched);
+    against the swap step (their plain versions swapped in) the loss, each
+    gradient leaf and each BN running stat within max(2c, 1e-5), c over
+    the controls of ``test_slot_f32_step_matches_swap_step`` (seven
+    tile-preserving permutations, three one-ulp product controls). The
+    swap step and every control run on the kernel step's int8 codes
+    (``f32_step_gap.pinned_codes``): at these sizes one code rounded across
+    a boundary (2^-7) moves the step by ~1e-2 and any one run flips none
+    or a few, so unpinned the check would hold the chance of a flip, not
+    the kernels. A planted fault, ``affine_dw``'s kernel on dy rounded
+    once to bf16, must break the limit; a repeated step bit for bit."""
+    from cunet_tpu_torch.quant import preprocess_masters
+    from cunet_tpu_torch.quant import selected_conv_predicate
+
+    quant = dataclasses.replace(INT8, int8_infer=False)
+    cfg = ModelConfig(layer_num=2, order=1, loss_num=2, class_num=8,
+                      **{**SMALL, "compute_dtype": "float32"}, bn_tile=tile,
+                      bn_dtype="float32")
+    params, state = init_cu_net(cfg, gen, device="cuda")
+    masters = preprocess_masters(params, quant,
+                                 selected_conv_predicate(params, "reference"))
+    x = torch.rand(4, 64, 64, 3, generator=gen).cuda()
+    t = torch.rand(4, 16, 16, 8, generator=gen).cuda()
+    codes = []
+
+    def grads(x, t):
+        return chip_smoke._grads(torch, cfg, masters, state, x, t,
+                                 quant=quant)
+
+    def faulty_dw(x, vec, dy, out, **kw):
+        return kernel_dw(x, vec, dy.bfloat16().float(), out, **kw)
+
+    perms = [q.cuda() for q in chip_smoke.tile_perms(torch, 4, tile,
+                                                      SLOT_STEP_PERMS)]
+    kernel_dw = train_slot.affine_dw
+    torch.backends.cudnn.deterministic = True
+    try:
+        train_ops.reset_launch_counts()
+        buf_ops.reset_launch_counts()
+        with f32_step_gap.recorded_codes(train_slot, codes):
+            k = grads(x, t)
+        counts = chip_smoke.quant_f32_counts(train_ops, buf_ops)
+        assert all(counts.values()), counts
+        k2 = grads(x, t)
+        with chip_smoke.slot_plain_swapped():
+            with f32_step_gap.pinned_codes(codes):
+                s = grads(x, t)
+            ctl = []
+            for q in perms:
+                with f32_step_gap.pinned_codes(codes, q):
+                    ctl.append(grads(x[q], t[q]))
+        for i in range(3):
+            noisy = f32_step_gap.slot_swap(gen=torch.Generator(
+                device="cuda").manual_seed(23 + i))
+            with f32_step_gap.patched(train_slot, **noisy), \
+                    f32_step_gap.pinned_codes(codes):
+                ctl.append(grads(x, t))
+        with f32_step_gap.patched(train_slot, affine_dw=faulty_dw):
+            fault = grads(x, t)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    assert k2[0] == k[0] and all(torch.equal(k2[1][n], k[1][n])
+                                 for n in k[1])
     got = chip_smoke.step_leaves(torch, k, s)
     ctrl = [chip_smoke.step_leaves(torch, cc, s) for cc in ctl]
     lim = {n: max(2 * max(d[n] for d in ctrl), 1e-5) for n in got}

@@ -162,9 +162,13 @@ def test_table_dot_stages_match_jax_bottleneck_val():
 def test_table_dot_checks_its_operands():
     x = torch.zeros(8, 16)
     vec, w = torch.zeros(2, 16), torch.zeros(16, 8)
-    with pytest.raises(ValueError, match="1..16"):
-        eval_ops.table_dot([x] * 17, torch.zeros(2, 272), w,
-                           torch.empty(8, 8))
+    # any number of feature groups (17 here: past the 16 a launch carries
+    # in its parameters), but one at least
+    out = eval_ops.table_dot([x] * 17, torch.zeros(2, 272),
+                             torch.zeros(272, 8), torch.full((8, 8), 7.0))
+    assert not out.any()
+    with pytest.raises(ValueError, match="one or more"):
+        eval_ops.table_dot([], vec, w, torch.empty(8, 8))
     with pytest.raises(ValueError, match="dual"):
         eval_ops.table_dot([x], vec, w, torch.empty(8, 8), bias=torch.zeros(8),
                            vec_s=vec, w_s=w, out_s=torch.empty(8, 8))

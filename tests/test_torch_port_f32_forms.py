@@ -19,11 +19,11 @@ the port's own forward at full width: each fits the H100's shared memory,
 covers every output once (a split conv's chunks once each), and is a
 function of the shapes alone.
 
-(c) ``check_kernel_dtype``: a float32 eval, float32 ghost-BN training
-(``bn_tile > 0``, plain and with dropout) and float32 whole-batch BN
-training (``bn_tile=0``, every remat policy, dropout, quantized training)
-run on the card's kernel paths; quantized float32 ghost-BN training and a
-quantized float32 eval raise.
+(c) ``check_kernel_dtype``: a float32 eval, quantized or not, float32
+ghost-BN training (``bn_tile > 0``, plain, with dropout and quantized)
+and float32 whole-batch BN training (``bn_tile=0``, every remat policy,
+dropout, quantized training) run on the card's kernel paths; float16
+raises.
 """
 
 import dataclasses
@@ -329,32 +329,30 @@ def test_f32_bn0_training_passes_the_guard(remat, drop, quant):
 
 @pytest.mark.parametrize("bn_tile", [0, 2])
 def test_f32_train_and_quantized_eval_on_the_card_raise(bn_tile):
-    """float32 training passes at every bn_tile, plain and with dropout
-    (ghost-BN tiles on the float32 forms of the slot kernels #8/#9);
-    quantized float32 training raises with ghost-BN tiles (the QuanInput
-    options at float32 are the next item, ROADMAP queue B item 4) and
-    passes at bn_tile=0; the quantized float32 eval raises at every
-    bn_tile."""
+    """float32 passes the guard on every kernel path at every bn_tile:
+    training plain, with dropout and W1/I8/G8 (ghost-BN tiles on the
+    float32 forms of the slot kernels #8/#9 with their QuanInput options),
+    and the quantized eval on the per-slot flags' layer-by-layer path and
+    the whole-model int8 path (the int8 kernels' float32 forms); only a
+    dtype the kernels do not take (float16) raises."""
     cfg = ModelConfig(layer_num=2, order=1, loss_num=2, class_num=8,
                       compute_dtype="float32", use_pallas=True,
                       bn_tile=bn_tile)
     check_kernel_dtype(cfg, "cuda", train=True)
     check_kernel_dtype(dataclasses.replace(cfg, drop_rate=0.2), "cuda:0",
                        train=True)
-    if bn_tile:
-        with pytest.raises(NotImplementedError, match="queue B item 4"):
-            check_kernel_dtype(cfg, "cuda", train=True, quant=INT8)
-    else:
-        check_kernel_dtype(cfg, "cuda", train=True, quant=INT8)
+    check_kernel_dtype(cfg, "cuda", train=True, quant=INT8)
+    check_kernel_dtype(cfg, "cuda", train=True, quant=dataclasses.replace(
+        INT8, int8_infer=False))
     for c in (cfg, dataclasses.replace(cfg, pallas_whole_model=True)):
-        with pytest.raises(NotImplementedError, match="queue B item 4"):
-            check_kernel_dtype(c, "cuda", quant=INT8)
+        check_kernel_dtype(c, "cuda", quant=INT8)
     # bf16 on the card, the plain path and the CPU take every case
     bf16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
     check_kernel_dtype(bf16, "cuda", train=True, quant=INT8)
     check_kernel_dtype(dataclasses.replace(cfg, use_pallas=False), "cuda",
                        train=True, quant=INT8)
     check_kernel_dtype(cfg, "cpu", train=True, quant=INT8)
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        check_kernel_dtype(dataclasses.replace(cfg, compute_dtype="float16"),
-                           "cuda")
+    for kw in (dict(train=True, quant=INT8), {}):
+        with pytest.raises(NotImplementedError, match="bfloat16"):
+            check_kernel_dtype(dataclasses.replace(
+                cfg, compute_dtype="float16"), "cuda", **kw)

@@ -6,10 +6,11 @@ tests/test_torch_port_cuda.py).
    operand of ``buf_ops`` / ``quant_ops`` / ``train_ops`` moves 8-wide
    vectors, so the heads run at a width padded to a multiple of 8
    (``pad_cols``) and the heatmaps are its first ``class_num`` columns.
-2. A quantized f32 model training with ghost-BN tiles, or serving, on a
-   CUDA kernel path: ``check_kernel_dtype`` raises
-   ``NotImplementedError`` naming the bf16 limit (the f32 eval, ghost-BN
-   and whole-batch BN training have kernels).
+2. The dtype guard of the CUDA kernel paths: ``check_kernel_dtype`` lets
+   every float32 path through (the float and quantized evals, ghost-BN,
+   quantized ghost-BN and whole-batch BN training have kernels) and
+   raises ``NotImplementedError`` naming the dtypes the kernels take for
+   any other (float16).
 3. ``conv3x3_impl="scatter"``: the dense layers run JAX's scatter form,
    which rounds its tap partials and their sums in bf16.
 """
@@ -147,23 +148,25 @@ def test_slot_train_head_runs_at_vector_width(monkeypatch):
 
 
 def test_f32_kernel_path_on_the_card_raises():
-    """Quantized f32 ghost-BN training and a quantized f32 eval on a CUDA
-    kernel path raise; the f32 eval, f32 ghost-BN training and f32
-    whole-batch BN training (``bn_tile=0``) run there
-    (tests/test_torch_port_f32_forms.py (c))."""
+    """float32 passes the guard on every CUDA kernel path: the f32 eval,
+    f32 ghost-BN training, f32 whole-batch BN training (``bn_tile=0``),
+    quantized f32 ghost-BN training and the quantized f32 eval
+    (tests/test_torch_port_f32_forms.py (c)); float16 raises, also from
+    ``Predictor``."""
     f32 = small_cfg(2, 1, use_pallas=True)
     q = port_cfg(INT8)
     assert f32.bn_tile == 0
     check_kernel_dtype(f32, "cuda", train=True)
     check_kernel_dtype(dataclasses.replace(f32, bn_tile=2), "cuda:0",
                        train=True)
+    check_kernel_dtype(dataclasses.replace(f32, bn_tile=2), "cuda:0",
+                       train=True, quant=q)
+    check_kernel_dtype(f32, "cuda", quant=q)
+    f16 = dataclasses.replace(f32, compute_dtype="float16")
     with pytest.raises(NotImplementedError, match="bfloat16"):
-        check_kernel_dtype(dataclasses.replace(f32, bn_tile=2), "cuda:0",
-                           train=True, quant=q)
+        check_kernel_dtype(f16, "cuda", quant=q)
     with pytest.raises(NotImplementedError, match="bfloat16"):
-        check_kernel_dtype(f32, "cuda", quant=q)
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        Predictor(f32, device="cuda", quant=q)
+        Predictor(f16, device="cuda", quant=q)
     # bf16 kernels, the plain path on the card, and any dtype on the CPU
     check_kernel_dtype(dataclasses.replace(f32, compute_dtype="bfloat16"),
                        "cuda")

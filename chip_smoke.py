@@ -190,9 +190,29 @@ Phases, each printing one line (or a few) before the last:
    batch 8 and 64 (within 1e-4, or 2x a one-ulp input nudge where flipped
    int8 codes set the gap), the share of flipped codes, times; (d) order
    14 (layer_num 15): the per-slot forward, its up blocks' adapters over
-   17 groups, bit for bit the whole-model path (float32 at CU-Net-8's
-   widths, bf16 at small ones), the float32 per-slot, per-block and
-   per-bottleneck paths near the plain path. Each phase prints its wall time (``phase time``).
+   17 groups, bit for bit the whole-model path (float32 and bf16 at
+   CU-Net-8's widths), the float32 per-slot, per-block and
+   per-bottleneck paths near the plain path.
+16. JAX's threefry dropout masks (``drop_impl="masks"``, the masks form
+   of #8/#9) and ``affine_dot`` at any K: (a) the plain threefry on the
+   card against Random123's three vectors and against MASK_DIGESTS (JAX's
+   masks); (b) ``threefry_mask`` on ones at all 9 positions, in place and
+   from a float32 cotangent, bf16 and float32, bit for bit its plain
+   version, its drop fraction at r=64, timed; (c) the CU-Net-8 @256
+   ghost-BN tile-2 step with the masks (the step key folded from
+   ``PRNGKey(5)``): bf16 against the plain step within the step limits
+   and bit for bit on a repeat, float32 against the swap step within
+   max(2c, 1e-5) (c over one-ulp product controls), three main-path
+   ``train_step(..., rng=)``s (``threefry_mask`` 72 + 72 launches a step,
+   ``drop_mask`` none), step times beside the seed form's; (d) the bf16
+   ``bn_tile=0`` step with the masks bit for bit its plain mask's, one
+   ``train_step``; (e) is 15 (d) at bf16 and CU-Net-8's widths, whose
+   whole-model intermedia adapters stream ``affine_dot``'s weight
+   (counted); (f) ``affine_dot`` streamed at K = 896 and 1920 (r=64,
+   batch 8) against its plain version, timed beside ``torch.mm`` of the
+   product; (g) slot 6 of a bf16 ghost-BN step at order 6 (its intermedia
+   adapter at K = 896, streamed per tile) against the plain path as slot 1
+   is in phase 5. Each phase prints its wall time (``phase time``).
 
 The line before the last is a JSON object with each kernel's launches,
 error, times, the least time the card could take for the same work and
@@ -227,6 +247,7 @@ REPLACES = {
     "conv3x3_i8": "cunet_tpu/kernels/fused_model_buf.py:316",
     "int8_matmul_dequant": "cunet_tpu/kernels/quant_matmul.py:50",
     "affine_dot": "cunet_tpu/kernels/fused_model_buf.py:52",
+    "affine_dot[stream]": "cunet_tpu/kernels/fused_model_buf.py:52",
     "conv3x3": "cunet_tpu/kernels/fused_hourglass.py:75",
     "maxpool2": "cunet_tpu/kernels/fused_hourglass.py:312",
     "upsample2": "cunet_tpu/kernels/fused_hourglass.py:329",
@@ -240,6 +261,8 @@ REPLACES = {
     "upsample2_bwd": "cunet_tpu/kernels/train_slot.py:847",
     "sum_rows": "cunet_tpu/kernels/train_slot.py:854",
     "drop_mask": "cunet_tpu/kernels/train_slot.py:226",
+    "threefry_mask": "cunet_tpu/kernels/train_slot.py:425",
+    "threefry_mask[f32]": "cunet_tpu/kernels/train_slot.py:425",
     "affine_dot[bits_i]": "cunet_tpu/kernels/train_slot.py:198",
     "conv3x3[bits_i]": "cunet_tpu/kernels/train_slot.py:198",
     "affine_dx[ste]": "cunet_tpu/kernels/train_slot.py:218",
@@ -271,7 +294,12 @@ ALSO_REPLACES = {
 # sheet): HBM bytes/s, and dense operations/s by type ("f32" = float32
 # outside the tensor cores)
 PEAK_BYTES = 3.35e12
-PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+PEAK_OPS = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12,
+            # 32-bit integer operations (add, shift, logic): at most one
+            # warp instruction a clock in each of an SM's 4 partitions,
+            # 128 lanes a clock, x 132 SMs x 1.98 GHz (the clock behind
+            # the float32 67 TFLOP/s, which counts an FMA as two)
+            "int32": 132 * 128 * 1.98e9}
 # the bf16 output rounds at 2^-8 of its magnitude
 REL_BOUND, ABS_BOUND = 2e-2, 1e-2
 # a float32 result of an n-term reduction, summed in another order, moves
@@ -301,10 +329,51 @@ CONTROL_FACTOR = 2.0
 INT8_PATH_MARGIN = 0.05
 DROP_RATE = 0.2
 DROP_FRACTION_TOL = 0.005
+# JAX's drop_impl="masks" dropout masks of jax.random.PRNGKey(0) (the key
+# (0, 0)), step MASK_STEP, slot MASK_SLOT, at every traversal position of
+# CU-Net-8 @256's train step (batch 24, res 64 ... 4, g=32, rate DROP_RATE):
+# SHA-256 of the raw masks in traversal order (``mask_digest``), computed
+# by JAX; tests/test_torch_port_threefry.py holds them to JAX's masks
+MASK_STEP, MASK_SLOT = 3, 1
+MASK_DIGESTS = {
+    "bfloat16":
+        "1777feaee169ad70511c3f0b03f1377c864e6ead414809de4c3f95939ae4ae65",
+    "float32":
+        "6ae0ac19ba727310a1455967533c21d355f332770483d23d4a3a96660f4ba405",
+}
 
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+def mask_positions(nb=4, h0=64):
+    """(traversal position, resolution) of a slot of ``nb`` blocks."""
+    return [(pos, h0 >> min(pos, 2 * nb - pos)) for pos in range(2 * nb + 1)]
+
+
+def mask_digest(torch, dtype, device, masks=None):
+    """SHA-256 of the threefry masks behind ``MASK_DIGESTS`` at ``dtype``:
+    ``masks(block_key, shape)`` for each traversal position in order (by
+    default the plain ``ops.threefry.bernoulli_mask`` on ``device``), their
+    raw bytes."""
+    import hashlib
+
+    from cunet_tpu_torch.ops import threefry
+
+    if masks is None:
+        def masks(key, shape):
+            return threefry.bernoulli_mask(key, shape, DROP_RATE, dtype,
+                                           device)
+    slot_key = threefry.fold_in(threefry.fold_in((0, 0), MASK_STEP),
+                                MASK_SLOT)
+    keys = threefry.block_keys(slot_key, 4)
+    h = hashlib.sha256()
+    for pos, r in mask_positions():
+        m = masks(keys[pos], (TRAIN_BATCH, r, r, 32))
+        bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        h.update(m.contiguous().view(bits).cpu().numpy().tobytes())
+    return h.hexdigest()
 
 
 def sz(*dims, e=2):
@@ -1091,9 +1160,10 @@ def slot_rel_errors(torch, cfg, params, state, n, h0, i, device, gen):
     return against(kern, ref), against(ctl, ref)
 
 
-def check_slot(torch, cfg, params, state):
-    """Slot 1 of the flagship train step alone at full width (the
-    intermedia adapter, every block position, one FIFO entry each): per
+def check_slot(torch, cfg, params, state, i=1):
+    """Slot ``i`` (1: the flagship's) of the train step alone at full width
+    (the intermedia adapter, every block position, min(i, order) FIFO
+    entries each): per
     group of ``slot_rel_errors``, the kernel path's largest error against
     the float32-affine plain path must not exceed the control's (the plain
     path with the configured bf16 affine, a correct implementation). In
@@ -1102,16 +1172,17 @@ def check_slot(torch, cfg, params, state):
     outputs or fail at shallow ones; a dropped or doubled cotangent path
     gives 1 on the leaves it feeds."""
     kern, ctl = slot_rel_errors(torch, cfg, params, state, TRAIN_BATCH, 64,
-                                1, "cuda", torch.Generator().manual_seed(2))
+                                i, "cuda", torch.Generator().manual_seed(2))
+    label = "training" + ("" if cfg.order == 1 else f" (order {cfg.order})")
     for grp, rels in kern.items():
         worst = max(rels, key=rels.get)
         bound = max(ctl[grp].values())
-        print(f"training: slot 1 alone, kernel vs plain (f32 BN affine): "
+        print(f"{label}: slot {i} alone, kernel vs plain (f32 BN affine): "
               f"{grp}: {len(rels)} tensors, max rel L2 {rels[worst]:.4g} "
               f"({worst}); control (plain, bf16 affine) {bound:.4g}",
               flush=True)
         require(rels[worst] <= bound,
-                f"slot 1 {grp}: kernel path {worst} off the plain path by "
+                f"slot {i} {grp}: kernel path {worst} off the plain path by "
                 f"{rels[worst]} > control {bound}")
 
 
@@ -1451,7 +1522,7 @@ def phase_dropout_training(torch, tops, bops, dops, gpu):
     launches = main_path_steps(
         torch, "dropout training",
         lambda: train_step(st, batch, cfg=cfg, generator=gen)[1],
-        lambda: st.params, (bops, tops, dops))
+        lambda: st.params, (bops, tops, mask_counter(dops.drop_mask)))
     st_p = create_train_state(params, state, tcfg)
     gen_p = torch.Generator().manual_seed(6)
     report_times(torch, "dropout training",
@@ -2338,6 +2409,22 @@ def check_tb_function(torch, tbk, dtype=None):
                 f"plain versions'")
 
 
+def mask_counter(kernel, f32=False):
+    """Launch counters of one mask kernel of ``kernels/drop_ops.py``
+    (``drop_mask`` or ``threefry_mask``; with ``f32`` its float32 form's,
+    keyed ``name[f32]``): a recipe checks the kernel it runs, and the
+    module counts both."""
+    import types
+
+    from cunet_tpu_torch.kernels import drop_ops
+
+    name = kernel.__name__ + ("[f32]" if f32 else "")
+    return types.SimpleNamespace(
+        reset_launch_counts=drop_ops.reset_launch_counts,
+        launch_counts=lambda: {name: kernel.f32_launches if f32
+                               else kernel.launches})
+
+
 def one_step(torch, label, step, counters):
     """One step of a recipe on the #7 path: finite loss, every kernel of
     ``counters`` (modules with launch counters) launched."""
@@ -2373,27 +2460,29 @@ def paired_step_times(torch, steps, rounds=6):
 
 
 def bn0_dropout(torch, cfg, params, state, x, t, dops,
-                label="bn0 dropout training", where=None):
+                label="bn0 dropout training", where=None, name="drop_mask",
+                **kw):
     """The kernel path of ``cfg`` (bn_tile=0, or ghost-BN tiles) at drop
     rate DROP_RATE: its dropout runs the mask kernel forward and backward,
-    bit for bit the step with the plain mask swapped in (as ``drop_mask``
-    of ``where``, the module that calls it by name: ``dops`` at bn_tile=0,
+    bit for bit the step with the plain mask swapped in (as ``name`` of
+    ``where``, the module that calls it by name: ``dops`` at bn_tile=0,
     ``kernels/train_slot.py`` with ghost-BN tiles; cuDNN deterministic).
-    """
+    ``name`` is ``drop_mask`` (seeds drawn here) or ``threefry_mask``
+    (``drop_impl="masks"``, its key ``drop_key`` in ``kw``)."""
     from cunet_tpu_torch.ops.dropmask import draw_slot_seeds
 
     where = where or dops
-    seeds = draw_slot_seeds(torch.Generator().manual_seed(7), cfg.layer_num)
-    kernel = where.drop_mask
+    if not kw:
+        kw = {"drop_seeds": draw_slot_seeds(torch.Generator().manual_seed(7),
+                                            cfg.layer_num)}
+    kernel = getattr(where, name)
     torch.backends.cudnn.deterministic = True
     try:
-        lk, gk, _ = _grads(torch, cfg, params, state, x, t,
-                           drop_seeds=seeds)
-        where.drop_mask = dops.PLAIN[kernel]
-        lp, gp, _ = _grads(torch, cfg, params, state, x, t,
-                           drop_seeds=seeds)
+        lk, gk, _ = _grads(torch, cfg, params, state, x, t, **kw)
+        setattr(where, name, dops.PLAIN[kernel])
+        lp, gp, _ = _grads(torch, cfg, params, state, x, t, **kw)
     finally:
-        where.drop_mask = kernel
+        setattr(where, name, kernel)
         torch.backends.cudnn.deterministic = False
     same = lk == lp and all(torch.equal(gk[k], gp[k]) for k in gk)
     print(f"{label}: mask kernel vs plain mask, loss and grads "
@@ -2478,7 +2567,7 @@ def phase_bn0_training(torch, tbk, tops, bops, dops, gpu):
     bn0_dropout(torch, drop_cfg, params, state, x, t, dops)
     one_step(torch, "bn0 dropout training",
              lambda: train_step(st_d, batch, cfg=drop_cfg, generator=gen)[1],
-             (tbk, dops))
+             (tbk, mask_counter(dops.drop_mask)))
     st_q = create_train_state(params, state, tcfg)
     quant = QuantConfig(bits_w=1, bits_i=8, bits_g=8, enabled=True)
     one_step(torch, "bn0 quantized training",
@@ -3911,7 +4000,7 @@ def step_leaves(torch, a, b):
 
 
 def f32_step_check(torch, label, cfg, params, state, x, t, swapped,
-                   counters, perms, quant=None, noise=0):
+                   counters, perms, quant=None, noise=0, **kw):
     """Phase 13 (d) and 14 (b): the float32 kernel step against the swap
     step from the same state (``swapped()``: the path with its kernels'
     plain versions swapped in, none of ``counters``' kernels launching),
@@ -3930,7 +4019,9 @@ def f32_step_check(torch, label, cfg, params, state, x, t, swapped,
     swap step with every rounded form's output moved by one ulp in half
     its elements, ``f32_step_gap.slot_swap(gen=...)``, the card test's
     controls): the kernels reround every product, which no permutation
-    reaches."""
+    reaches. ``kw`` (dropout arguments) reach every step; threefry masks
+    follow a sample's place in the batch, so their check takes no
+    permutations (``perms`` empty) and the noise controls alone."""
     from cunet_tpu_torch.kernels import train_slot
     from cunet_tpu_torch.tools.f32_step_gap import (
         patched,
@@ -3943,7 +4034,7 @@ def f32_step_check(torch, label, cfg, params, state, x, t, swapped,
     codes, flips = [], []
 
     def grads(c, x, t):
-        return _grads(torch, c, params, state, x, t, quant=quant)
+        return _grads(torch, c, params, state, x, t, quant=quant, **kw)
 
     def pin(perm=None, flips=None):
         return (pinned_codes(codes, perm, flips) if quant is not None
@@ -3974,7 +4065,6 @@ def f32_step_check(torch, label, cfg, params, state, x, t, swapped,
     require(swapped_launches == 0, f"{label}: the swap step launched "
                                    f"kernels")
     p = grads(plain_cfg, x, t)
-    pc = grads(plain_cfg, x[perms[0]], t[perms[0]])
 
     def summary(name, a, b):
         (_, ga, sa), (_, gb, sb) = a, b
@@ -4001,7 +4091,9 @@ def f32_step_check(torch, label, cfg, params, state, x, t, swapped,
             for i, c in enumerate(sc)]
     summary("kernel step vs plain path", k, p)
     summary("swap step vs plain path", s, p)
-    summary("control: plain path permuted (0) vs plain path", pc, p)
+    if perms:
+        summary("control: plain path permuted (0) vs plain path",
+                grads(plain_cfg, x[perms[0]], t[perms[0]]), p)
     c = {n: max(d[n] for d in ctrl) for n in got}
     lim = {n: max(F32_STEP_CONTROL * c[n], F32_STEP_FLOOR) for n in got}
     bad = {n: (got[n], lim[n]) for n in got if not got[n] <= lim[n]}
@@ -4046,9 +4138,7 @@ def phase_bn0_f32_training(torch, tbk, tops, bops, dops, gpu, bf16_times):
     x, t = batch["image"], batch["heatmap"]
     f32_tb = types.SimpleNamespace(reset_launch_counts=tbk.reset_launch_counts,
                                    launch_counts=tbk.f32_counts)
-    f32_drop = types.SimpleNamespace(
-        reset_launch_counts=dops.reset_launch_counts,
-        launch_counts=dops.f32_counts)
+    f32_drop = mask_counter(dops.drop_mask, f32=True)
 
     torch.backends.cudnn.deterministic = True
     try:
@@ -4532,9 +4622,7 @@ def phase_slot_f32_training(torch, tops, bops, dops, gpu, bf16_times):
         reset_launch_counts=lambda: (tops.reset_launch_counts(),
                                      bops.reset_launch_counts()),
         launch_counts=lambda: slot_f32_counts(tops, bops))
-    f32_drop = types.SimpleNamespace(
-        reset_launch_counts=dops.reset_launch_counts,
-        launch_counts=dops.f32_counts)
+    f32_drop = mask_counter(dops.drop_mask, f32=True)
     label = f"slot f32 training (tile {SLOT_F32_TILE})"
     perms = [tile_perm(torch, TRAIN_BATCH, SLOT_F32_TILE, torch.Generator()
                        .manual_seed(17 + i)).cuda()
@@ -5306,27 +5394,25 @@ def phase_quant_f32_serving(torch, ops, qops, eops, gpu):
 
 
 def phase_many_group_serving(torch, ops, eops):
-    """Phase 15 (d): CU-Net at order MANY_ORDER (layer_num 15, 16 classes,
-    batch 8 at 256 px, seed 0), whose up blocks' adapters read 17 feature
-    groups from a table in device memory (counted): at float32 and
-    CU-Net-8's widths the per-slot path (JAX's default flags) bit for bit
-    the whole-model path, it, the per-block and the per-bottleneck paths
-    within F32_PATH_REL_L2 of the plain path per anchor; at bf16 the
-    per-slot path bit for bit the whole-model path at small widths (c=32,
-    g=16: the bf16 whole-model ``affine_dot`` keeps its weight resident,
-    and CU-Net-8's intermedia adapter at order >= 6, K = 896 and up, fits
-    no tiling; ROADMAP queue C). Returns {row: launches over more than 16
-    groups}."""
+    """Phase 15 (d) and 16 (e): CU-Net at order MANY_ORDER (layer_num 15,
+    16 classes, batch 8 at 256 px, seed 0) at CU-Net-8's widths, whose up
+    blocks' adapters read 17 feature groups from a table in device memory
+    (counted): at float32 and bf16 the per-slot path (JAX's default flags)
+    bit for bit the whole-model path; at float32 it, the per-block and the
+    per-bottleneck paths within F32_PATH_REL_L2 of the plain path per
+    anchor. At bf16 the whole-model path's intermedia adapters from slot 6
+    on (K = 896 ... 1920) run ``affine_dot`` with its weight streamed
+    (counted). Returns {row: launches over more than 16 groups, or of the
+    streamed ``affine_dot``}."""
     from cunet_tpu_torch import ModelConfig
     from cunet_tpu_torch.models import apply_cu_net, init_cu_net
     from cunet_tpu_torch.models.cu_net import eval_slots
 
     launches = {}
-    small = dict(init_chan_num=32, growth_rate=16, neck_size=2)
-    for dt, widths in (("float32", {}), ("bfloat16", small)):
+    for dt in ("float32", "bfloat16"):
         cfg = ModelConfig(layer_num=MANY_ORDER + 1, order=MANY_ORDER,
                           class_num=16, loss_num=2, compute_dtype=dt,
-                          use_pallas=True, **widths)
+                          use_pallas=True)
         params, state = init_cu_net(cfg, torch.Generator().manual_seed(0))
         x = torch.rand(BATCH, 256, 256, 3, generator=torch.Generator()
                        .manual_seed(14)).to("cuda")
@@ -5337,9 +5423,12 @@ def phase_many_group_serving(torch, ops, eops):
                                        slots=slots)
             torch.cuda.synchronize()
             ext = eops.ext_counts()["table_dot[groups>16]"]
+            ops.reset_launch_counts()
             whole, _ = apply_cu_net(params, state, x, slots=slots,
                                     cfg=dataclasses.replace(
                                         cfg, pallas_whole_model=True))
+            torch.cuda.synchronize()
+            stream = ops.stream_counts()["affine_dot[stream]"]
             same = all(torch.equal(a, b) for a, b in zip(per_slot, whole))
             rels = {}
             if dt == "float32":
@@ -5359,14 +5448,20 @@ def phase_many_group_serving(torch, ops, eops):
         row = "table_dot[f32,groups>16]" if dt == "float32" \
             else "table_dot[groups>16]"
         launches[row] = ext
+        if dt == "bfloat16":
+            launches["affine_dot[stream]"] = stream
         print(f"order {MANY_ORDER} ({dt}, layer_num {cfg.layer_num}, c="
               f"{cfg.init_chan_num}, g={cfg.growth_rate}, batch {BATCH}): "
               f"per-slot forward launched table_dot over more than 16 groups "
-              f"{ext} times; bit for bit the whole-model path {same}; worst "
-              f"anchor relative L2 to the plain path {rels} (bound "
-              f"{F32_PATH_REL_L2})", flush=True)
+              f"{ext} times; the whole-model forward launched affine_dot "
+              f"with its weight streamed {stream} times; bit for bit the "
+              f"whole-model path {same}; worst anchor relative L2 to the "
+              f"plain path {rels} (bound {F32_PATH_REL_L2})", flush=True)
         require(ext > 0, f"order {MANY_ORDER}: no table of more than 16 "
                          f"groups was read")
+        require((stream > 0) == (dt == "bfloat16"),
+                f"order {MANY_ORDER} ({dt}): streamed affine_dot launched "
+                f"{stream} times")
         require(same, f"order {MANY_ORDER} ({dt}): per-slot path differs "
                       f"from the whole-model path")
         require(all(np.isfinite(v) and v <= F32_PATH_REL_L2
@@ -5374,6 +5469,271 @@ def phase_many_group_serving(torch, ops, eops):
                 f"order {MANY_ORDER}: a kernel path off the plain path: "
                 f"{rels}")
         del per_slot, whole, params, slots
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 16: JAX's threefry dropout masks (drop_impl="masks", the masks form
+# of #8/#9) and affine_dot with its weight streamed (any K)
+# ---------------------------------------------------------------------------
+
+# Random123's threefry2x32 (20 rounds) known answers: (key, count, result)
+RANDOM123 = [((0, 0), (0, 0), (0x6B200159, 0x99BA4EFE)),
+             ((2 ** 32 - 1,) * 2, (2 ** 32 - 1,) * 2,
+              (0x1CB996FC, 0xBB002BE7)),
+             ((0x13198A2E, 0x03707344), (0x243F6A88, 0x85A308D3),
+              (0xC4923A9C, 0x483DF7A0))]
+# integer operations of one mask element (csrc/train_kernels.cu,
+# threefry_bits): 2 adds of the first key injection, 20 rounds of add,
+# funnel shift and xor, 5 injections of two adds, the output xor, then the
+# shift and the comparison
+THREEFRY_OPS = 2 + 20 * 3 + 5 * 2 + 1 + 2
+# the masks steps' threefry key: jax.random.PRNGKey(5)
+MASK_RNG = (0, 5)
+# the streamed affine_dot: the intermedia adapter at order 6 and 14
+STREAM_KS = (896, 1920)
+
+
+def threefry_checks(torch, dops, results):
+    """Phase 16 (a) and (b): the plain threefry on the card against
+    Random123's vectors and against MASK_DIGESTS (JAX's masks), at bf16
+    and float32; ``threefry_mask`` on ones at every traversal position
+    (batch 24, g=32, r = 64 ... 4) and from a strided float32 cotangent,
+    both forms bit for bit the plain masks; its drop fraction at r=64;
+    the r=64 cases timed (rows ``threefry_mask`` and ``[f32]``)."""
+    from cunet_tpu_torch.ops import threefry
+
+    for key, (c0, c1), want in RANDOM123:
+        y0, y1 = threefry.threefry2x32(
+            key, torch.tensor([c0], device="cuda"),
+            torch.tensor([c1], device="cuda"))
+        require((y0.item(), y1.item()) == want,
+                f"threefry2x32 on the card: key {key}, count {(c0, c1)} "
+                f"gives {(y0.item(), y1.item())}, Random123 {want}")
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt).split(".")[-1]
+        got = mask_digest(torch, dt, "cuda")
+        require(got == MASK_DIGESTS[name],
+                f"threefry masks ({name}) on the card: digest {got}, JAX's "
+                f"{MASK_DIGESTS[name]}")
+    print("threefry: the plain version on the card gives Random123's three "
+          "vectors and JAX's masks (MASK_DIGESTS, bf16 and float32, 9 "
+          "positions at batch 24)", flush=True)
+
+    n, g = TRAIN_BATCH, 32
+    keys = threefry.block_keys(threefry.fold_in(threefry.fold_in(
+        MASK_RNG, 0), 1), 4)
+    plain = dops.PLAIN[dops.threefry_mask]
+    gen = torch.Generator().manual_seed(16)
+    for dt in (torch.bfloat16, torch.float32):
+        for pos, r in mask_positions():
+            m = n * r * r
+            ones = torch.ones(m, g, device="cuda", dtype=dt)
+            dops.threefry_mask(ones, keys[pos], DROP_RATE)
+            want = threefry.bernoulli_mask(keys[pos], (m, g), DROP_RATE, dt,
+                                           "cuda")
+            d = torch.randn(m, g + 8, generator=gen).cuda()[:, 8:]
+            k_out = torch.empty(m, g, device="cuda", dtype=dt)
+            p_out = torch.empty_like(k_out)
+            dops.threefry_mask(d, keys[pos], DROP_RATE, k_out)
+            plain(d, keys[pos], DROP_RATE, p_out)
+            torch.cuda.synchronize()
+            require(torch.equal(ones, want) and torch.equal(k_out, p_out),
+                    f"threefry_mask ({dt}) differs from the plain masks at "
+                    f"position {pos}, r={r}")
+            if pos == 0:
+                frac = (ones == 0).float().mean().item()
+                print(f"threefry_mask: drop fraction of one r=64 out32 "
+                      f"({m} x {g}, {dt}): {frac:.5f} (rate {DROP_RATE} +- "
+                      f"{DROP_FRACTION_TOL})", flush=True)
+                require(abs(frac - DROP_RATE) <= DROP_FRACTION_TOL,
+                        f"threefry drop fraction {frac}")
+    print("threefry_mask: bf16 and float32, in place and from a float32 "
+          "cotangent, bit for bit the plain masks at positions 0..8 (r = "
+          "64..4, batch 24)", flush=True)
+
+    m, key = n * 64 * 64, keys[0]
+    ops = THREEFRY_OPS * m * g
+    for dt, name in ((torch.bfloat16, "threefry_mask"),
+                     (torch.float32, "threefry_mask[f32]")):
+        e = 4 if dt == torch.float32 else 2
+        buf = torch.randn(m, 3 * g, generator=gen).to("cuda", dt)
+        d = torch.randn(m, g + 96, generator=gen).cuda()[:, 64:64 + g]
+        cases = [("forward r=64 in place", lambda f, o: f(o, key, DROP_RATE),
+                  lambda: buf.clone()[:, g:2 * g],
+                  work(2 * sz(m, g, e=e), ops, "int32")),
+                 (f"backward r=64 f32->{'f32' if e == 4 else 'bf16'}",
+                  lambda f, o: f(d, key, DROP_RATE, o),
+                  lambda: torch.empty(m, g, device="cuda", dtype=dt),
+                  work(sz(m, g, e=4) + sz(m, g, e=e), ops, "int32"))]
+        for label, call, make_out, w in cases:
+            k_out, p_out = make_out(), make_out()
+            call(dops.threefry_mask, k_out)
+            call(plain, p_out)
+            torch.cuda.synchronize()
+            same = torch.equal(k_out, p_out)
+            ms = cuda_time_ms(lambda: call(dops.threefry_mask, k_out))
+            plain_ms = cuda_time_ms(lambda: call(plain, p_out))
+            print(f"mask kernel {name} [{label}]: bit-identical {same}, "
+                  f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, library none, "
+                  f"bound {bound(w)[0]:.4f} ms ({bound(w)[1]})", flush=True)
+            require(same, f"{name} [{label}] differs from its plain version")
+            record(results, name, 0.0, ms, plain_ms, label, w, None)
+
+
+def stream_dot_checks(torch, ops, results):
+    """Phase 16 (f): ``affine_dot`` with its weight streamed, at K =
+    STREAM_KS -> 128 (r=64, batch 8, from a strided buffer, the eval
+    vectors), against its plain version within the bf16 bound, timed
+    beside ``torch.mm`` of its bf16 product alone (row
+    ``affine_dot[stream]``)."""
+    gen = torch.Generator().manual_seed(17)
+    m, n = BATCH * 64 * 64, 128
+    for k in STREAM_KS:
+        x = torch.randn(m, k + 32, generator=gen).to("cuda", torch.bfloat16)
+        v = torch.stack([torch.rand(k, generator=gen) + 0.5,
+                         torch.randn(k, generator=gen) * 0.5]).cuda()
+        w = (torch.randn(k, n, generator=gen) * k ** -0.5).to(
+            "cuda", torch.bfloat16)
+        require(ops.affine_dot_plan(m, k, n).kc > 0,
+                f"affine_dot at K={k} does not stream")
+        k_out = torch.empty(m, n + 32, device="cuda",
+                            dtype=torch.bfloat16)[:, 16:16 + n]
+        p_out = torch.empty_like(k_out)
+
+        def call(f, o, x=x, v=v, w=w, k=k):
+            f(x[:, :k], v, w, o)
+
+        call(ops.affine_dot, k_out)
+        call(ops.affine_dot_plain, p_out)
+        torch.cuda.synchronize()
+        want = p_out.float()
+        err = (k_out.float() - want).abs().max().item()
+        lim = REL_BOUND * want.abs().max().item() + ABS_BOUND
+        ms = cuda_time_ms(lambda: call(ops.affine_dot, k_out))
+        plain_ms = cuda_time_ms(lambda: call(ops.affine_dot_plain, p_out))
+        prod_ms = cuda_time_ms(lambda x=x, w=w, k=k: torch.mm(x[:, :k], w))
+        wk = work(sz(m, k) + sz(k, n) + sz(2, k, e=4) + sz(m, n),
+                  2 * m * k * n)
+        label = f"K={k}->128 r=64 batch {BATCH}, streamed"
+        print(f"kernel affine_dot[stream] [{label}]: max_abs_err {err:.4g} "
+              f"(bound {lim:.4g}), {ms:.4f} ms vs plain {plain_ms:.4f} ms"
+              f"{product_text(prod_ms)}, bound {bound(wk)[0]:.4f} ms "
+              f"({bound(wk)[1]})", flush=True)
+        require(err <= lim, f"affine_dot[stream] [{label}]: {err} > {lim}")
+        record(results, "affine_dot[stream]", err, ms, plain_ms, label, wk,
+               None, prod_ms)
+
+
+def phase_masks_training(torch, tops, bops, dops, gpu):
+    """Phase 16 (c), (d), (g): CU-Net-8 @256 at drop rate DROP_RATE with
+    ``drop_impl="masks"`` (the step key ``fold_in(MASK_RNG, step)``): the
+    bf16 ghost-BN tile-2 kernel step against the plain step within the
+    step limits and bit for bit on a repeat (``compare_steps``); the
+    float32 step against the swap step within max(2c, 1e-5), c over three
+    one-ulp product controls (a permuted batch would move the masks); three
+    main-path ``train_step(..., rng=)``, ``threefry_mask`` launched 72 times
+    forward and 72 backward a step and ``drop_mask`` never; step times in
+    ABBA order beside the seed form; the bf16 ``bn_tile=0`` step with the
+    plain mask swapped in, bit for bit, and one ``train_step`` there; one
+    bf16 ghost-BN slot at order 6 (the intermedia adapter's K = 896, the
+    streamed ``affine_dot`` per tile) against the plain path. Returns
+    {row: launches of the main path's drive}."""
+    from cunet_tpu_torch import TrainConfig
+    from cunet_tpu_torch.kernels import train_slot
+    from cunet_tpu_torch.models import init_cu_net
+    from cunet_tpu_torch.ops import threefry
+    from cunet_tpu_torch.tools.f32_step_gap import patched, slot_swap
+    from cunet_tpu_torch.train import create_train_state, train_step
+
+    cfg, params, state, batch = flagship_train(torch)
+    x, t = batch["image"], batch["heatmap"]
+    mcfg = dataclasses.replace(cfg, drop_rate=DROP_RATE, drop_impl="masks")
+    key = threefry.fold_in(MASK_RNG, 0)
+    compare_steps(torch, "masks training", mcfg, params, state, x, t,
+                  drop_key=key)
+
+    # float32 against the swap step (the ten forms and the mask plain)
+    import types
+
+    fcfg = dataclasses.replace(mcfg, compute_dtype="float32",
+                               bn_dtype="float32")
+    forms = types.SimpleNamespace(
+        reset_launch_counts=lambda: (tops.reset_launch_counts(),
+                                     bops.reset_launch_counts(),
+                                     dops.reset_launch_counts()),
+        launch_counts=lambda: {**slot_f32_counts(tops, bops),
+                               **mask_counter(dops.threefry_mask, True)
+                               .launch_counts()})
+    torch.backends.cudnn.deterministic = True
+    try:
+        f32_step_check(
+            torch, f"masks f32 training (tile {BN_TILE})", fcfg, params,
+            state, x, t, lambda: patched(
+                train_slot, **slot_swap(),
+                threefry_mask=dops.PLAIN[dops.threefry_mask]),
+            forms, [], noise=3, drop_key=key)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    tcfg = TrainConfig(lr=2.5e-4, batch_size=TRAIN_BATCH)
+    rng = np.array(MASK_RNG, np.uint32)
+    st_f = create_train_state(params, state, tcfg)
+    launches = one_step(
+        torch, f"masks f32 training (tile {BN_TILE})",
+        lambda: train_step(st_f, batch, cfg=fcfg, rng=rng)[1], (forms,))
+    launches = {"threefry_mask[f32]": launches["threefry_mask[f32]"]}
+    del st_f
+
+    # the main path: three steps from rng=MASK_RNG
+    st = create_train_state(params, state, tcfg)
+    launches.update(main_path_steps(
+        torch, "masks training",
+        lambda: train_step(st, batch, cfg=mcfg, rng=rng)[1],
+        lambda: st.params, (bops, tops, mask_counter(dops.threefry_mask))))
+    per_step = launches["threefry_mask"] / 3
+    want = 2 * mcfg.layer_num * (2 * mcfg.num_blocks + 1)
+    print(f"masks training: threefry_mask launched {per_step:g} times a step "
+          f"(72 forward + 72 backward expected), drop_mask "
+          f"{dops.drop_mask.launches}", flush=True)
+    require(per_step == want, f"masks training: threefry_mask {per_step} "
+                              f"launches a step, not {want}")
+    require(dops.drop_mask.launches == 0,
+            "masks training launched the seed-form mask kernel")
+    st_s = create_train_state(params, state, tcfg)
+    gen = torch.Generator().manual_seed(6)
+    scfg = dataclasses.replace(mcfg, drop_impl="prng")
+    times = paired_step_times(torch, {
+        "threefry masks": lambda: train_step(st, batch, cfg=mcfg, rng=rng),
+        "seed masks": lambda: train_step(st_s, batch, cfg=scfg,
+                                         generator=gen)})
+    print(f"masks training, batch {TRAIN_BATCH}, steps in ABBA order: " +
+          "; ".join(f"{k} median {np.median(v):.3f} ms ("
+                    + ", ".join(f"{ms:.1f}" for ms in v) + ")"
+                    for k, v in times.items()) + f" ({gpu})", flush=True)
+    del st, st_s
+
+    # bn_tile=0: the masks through the Function, bit for bit the plain mask
+    bcfg = dataclasses.replace(mcfg, bn_tile=0)
+    bn0_dropout(torch, bcfg, params, state, x, t, dops,
+                label="bn0 masks training", name="threefry_mask",
+                drop_key=key)
+    from cunet_tpu_torch.kernels import train_bottleneck as tbk
+
+    st_b = create_train_state(params, state, tcfg)
+    one_step(torch, "bn0 masks training",
+             lambda: train_step(st_b, batch, cfg=bcfg, rng=rng)[1],
+             (tbk, mask_counter(dops.threefry_mask)))
+    del st_b
+
+    # one slot at order 6: the intermedia adapter at K = 896, streamed
+    ocfg = dataclasses.replace(cfg, order=6)
+    oparams, ostate = init_cu_net(ocfg, torch.Generator().manual_seed(0))
+    bops.reset_launch_counts()
+    check_slot(torch, ocfg, oparams, ostate, i=6)
+    stream = bops.stream_counts()["affine_dot[stream]"]
+    print(f"training (order 6): slot 6's kernel path launched affine_dot "
+          f"with its weight streamed {stream} times", flush=True)
+    require(stream > 0, "order 6 slot: the streamed affine_dot never ran")
     return launches
 
 
@@ -5474,7 +5834,13 @@ def main() -> int:
             torch, ops, qops, eops, gpu)
         lap("15 (c)")
         many_launches = phase_many_group_serving(torch, ops, eops)
-        lap("15 (d)")
+        lap("15 (d), 16 (e)")
+        mask_kernels = {}
+        threefry_checks(torch, dops, mask_kernels)
+        stream_dot_checks(torch, ops, mask_kernels)
+        lap("16 (a), (b), (f)")
+        mask_launches = phase_masks_training(torch, tops, ops, dops, gpu)
+        lap("16 (c), (d), (g)")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -5579,6 +5945,11 @@ def main() -> int:
             extra = dict(launches_per_path={
                 k: v.get(name, 0) for k, v in int8_f32_per_path.items()})
         rows.append(row(name, src, r, n, **extra))
+    for name, r in mask_kernels.items():
+        if name == "affine_dot[stream]":
+            rows.append(row(name, SOURCE, r, many_launches[name]))
+        else:
+            rows.append(row(name, TRAIN_SOURCE, r, mask_launches[name]))
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -62,8 +62,9 @@ class ModelConfig:
                                 # "prng"  -- counter-hash masks from one
                                 #            int32 seed per slot
                                 #            (ops/dropmask.py)
-                                # "masks" -- threefry masks of the JAX
-                                #            package (not in the port)
+                                # "masks" -- JAX's threefry bernoulli
+                                #            masks from a (2,) uint32
+                                #            key (ops/threefry.py)
     compute_dtype: str = "float32"   # "bfloat16" for the tensor cores
     param_dtype: str = "float32"
     remat: str = "bottleneck"        # none | bottleneck | layer | block

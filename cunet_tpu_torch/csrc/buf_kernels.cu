@@ -70,16 +70,22 @@ namespace {
 // skipping the loads, the prologue, the products or the stores each saves
 // a fifth to a third of the time (tools/gemm_sweep.py --ablate; PERF.md
 // section 6): no one part bounds it.
+// A weight prefix that fits beside no x buffers (an intermedia adapter at
+// order >= 6 with c = 128: K = 896 and up) streams instead:
+// affine_dot_stream_kernel below.
 // ---------------------------------------------------------------------------
 struct DotPlan {
   int bm;           // rows per tile: 32 * row warps (128, 64 or 32)
   int ncol;         // columns per group: 8 * NTW * column warps
   int ngrp;         // column groups
-  int kp;           // K zero-padded to 16
-  int stages;       // x buffers: 2 or 3
-  int w_bytes;      // the resident weight (kp rows of ncol / 8 chunks)
-  int stage_bytes;  // bytes per x buffer (bm rows at a stride of kp + 8)
+  int kp;           // K zero-padded to 16 (streamed: to kc)
+  int stages;       // x buffers: 2 or 3 (streamed: weight and x chunks)
+  int w_bytes;      // the resident weight (kp rows of ncol / 8 chunks);
+                    // streamed: one chunk's (kc rows), at a stage's start
+  int stage_bytes;  // bytes per x buffer (bm rows at a stride of kp + 8);
+                    // streamed: a chunk's weight, then its x (kc + 8)
   int out_off;      // the warps' output stages
+  int kc;           // streamed: K per chunk (0: the weight resident)
 };
 
 // The XOR swizzle of a weight row of nt 16-byte chunks: chunk j of row k
@@ -96,6 +102,92 @@ __device__ __forceinline__ void dot_swizzle(int nt, int& sh, int& mk) {
   } else if (nt % 2 == 0) {
     sh = 2;
     mk = 1;
+  }
+}
+
+// Warp (wm, wn)'s products of one staged x tile: ``ksteps`` 16-deep k
+// steps of its two m16 row tiles (A by ldmatrix from ``abase``, rows ``xs``
+// bytes apart) against its NTW n8 column tiles of the swizzled weight rows
+// at ``wbase`` (``nt`` 16-byte chunks a row), added in order into ``acc``.
+// Lane l reads A rows wm*32 + (l & 15) (+16) at byte offset (l >> 4) * 16
+// (``abase`` holds them) and B weight row (mat & 1) * 8 + (l & 7) of chunk
+// wn*NTW + 2*jp + (mat >> 1), as conv3x3 does.
+template <int NTW>
+__device__ __forceinline__ void dot_products(float (&acc)[2][NTW][4],
+                                             uint32_t abase, int xs,
+                                             uint32_t wbase, int nt, int sh,
+                                             int mk, int wn, int lane,
+                                             int ksteps) {
+  const int b_mat = lane >> 3;
+  const int b_row = (b_mat & 1) * 8 + (lane & 7);
+#pragma unroll 2
+  for (int kk = 0; kk < ksteps; ++kk) {
+    uint32_t a[2][4];
+    ldsm_x4(a[0], abase + kk * 32);
+    ldsm_x4(a[1], abase + 16 * xs + kk * 32);
+    const int kr = kk * 16 + b_row;
+    const uint32_t wrow = wbase + kr * nt * 16;
+    const int sw = (kr >> sh) & mk;
+#pragma unroll
+    for (int jp = 0; jp < NTW / 2; ++jp) {
+      const int j = wn * NTW + 2 * jp + (b_mat >> 1);
+      uint32_t b[4];
+      ldsm_x4_t(b, wrow + (j ^ sw) * 16);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mma16816(acc[i][2 * jp], a[i], b[0], b[1]);
+        mma16816(acc[i][2 * jp + 1], a[i], b[2], b[3]);
+      }
+    }
+    if (NTW & 1) {
+      uint32_t b0, b1;
+      ldsm_x2_t(b0, b1, wrow + ((wn * NTW + NTW - 1) ^ sw) * 16);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) mma16816(acc[i][NTW - 1], a[i], b0, b1);
+    }
+  }
+}
+
+// The epilogue of warp (wm, wn) on row tile m0 of column group n0: each
+// 16-row half (with BIAS relu(acc + bias) in f32) rounded once into the
+// warp's stage ``stg``, then out as 16-byte rows into the strided or
+// image-major view.
+template <int NTW, bool BIAS>
+__device__ __forceinline__ void dot_epilogue(const float (&acc)[2][NTW][4],
+                                             const float (&bv)[NTW][2],
+                                             bf16* stg, OutView out, int M,
+                                             int N, int m0, int n0, int wm,
+                                             int wn, int lane) {
+  constexpr int SS = NTW * 8 + 8;   // output stage row stride, elements
+  const int g = lane >> 2, q2 = 2 * (lane & 3);
+  const int rpi = (int)out.rows_per_img;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int j = 0; j < NTW; ++j) {
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        v[e] = BIAS ? fmaxf(acc[i][j][e] + bv[j][e & 1], 0.f) : acc[i][j][e];
+      const __nv_bfloat162 lo2 = __floats2bfloat162_rn(v[0], v[1]);
+      const __nv_bfloat162 hi2 = __floats2bfloat162_rn(v[2], v[3]);
+      *reinterpret_cast<__nv_bfloat162*>(stg + g * SS + j * 8 + q2) = lo2;
+      *reinterpret_cast<__nv_bfloat162*>(stg + (g + 8) * SS + j * 8 + q2) =
+          hi2;
+    }
+    __syncwarp();
+    for (int c = lane; c < 16 * NTW; c += 32) {
+      const int r = c / NTW, j = c - r * NTW;
+      const int m = m0 + wm * 32 + i * 16 + r;
+      const int n = n0 + (wn * NTW + j) * 8;
+      if (m < M && n < N) {
+        const int img = m / rpi;   // 32-bit: M < 2^31
+        *reinterpret_cast<uint4*>(out.ptr + img * out.img_stride +
+                                  (m - img * rpi) * out.ld + n) =
+            *reinterpret_cast<const uint4*>(stg + r * SS + j * 8);
+      }
+    }
+    __syncwarp();
   }
 }
 
@@ -151,22 +243,16 @@ __global__ void __launch_bounds__(kThreads)
   };
   for (int q = 0; q < Q && q < p.stages - 1; ++q) issue(q);
 
-  // this lane's bias values, its ldmatrix coordinates (conv3x3's): A rows
-  // wm*32 + (l & 15) (+16), byte offset (l >> 4) * 16; B weight row
-  // (mat & 1) * 8 + (l & 7) of chunk wn*NTW + 2*jp + (mat >> 1)
-  const int g = lane >> 2, q2 = 2 * (lane & 3);
+  // this lane's bias values and A row offset (dot_products)
   float bv[NTW][2];
 #pragma unroll
   for (int j = 0; j < NTW; ++j) {
-    const int n = n0 + (wn * NTW + j) * 8 + q2;
+    const int n = n0 + (wn * NTW + j) * 8 + 2 * (lane & 3);
     bv[j][0] = BIAS && n < N ? bias[n] : 0.f;
     bv[j][1] = BIAS && n < N ? bias[n + 1] : 0.f;
   }
-  const int b_mat = lane >> 3;
-  const int b_row = (b_mat & 1) * 8 + (lane & 7);
   const int a_off = (wm * 32 + (lane & 15)) * xs + (lane >> 4) * 16;
   bf16* stg = reinterpret_cast<bf16*>(smem + p.out_off) + warp * 16 * SS;
-  const int rpi = (int)out.rows_per_img;
   VecCache vc;
   vc.lo = vc.hi = 0;
 
@@ -189,65 +275,130 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = 0; j < NTW; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-    const uint32_t abase = s0 + sb + a_off;
-#pragma unroll 2
-    for (int kk = 0; kk < p.kp / 16; ++kk) {
-      uint32_t a[2][4];
-      ldsm_x4(a[0], abase + kk * 32);
-      ldsm_x4(a[1], abase + 16 * xs + kk * 32);
-      const int kr = kk * 16 + b_row;
-      const uint32_t wrow = s0 + kr * nt * 16;
-      const int sw = (kr >> sh) & mk;
-#pragma unroll
-      for (int jp = 0; jp < NTW / 2; ++jp) {
-        const int j = wn * NTW + 2 * jp + (b_mat >> 1);
-        uint32_t b[4];
-        ldsm_x4_t(b, wrow + (j ^ sw) * 16);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          mma16816(acc[i][2 * jp], a[i], b[0], b[1]);
-          mma16816(acc[i][2 * jp + 1], a[i], b[2], b[3]);
-        }
-      }
-      if (NTW & 1) {
-        uint32_t b0, b1;
-        ldsm_x2_t(b0, b1, wrow + ((wn * NTW + NTW - 1) ^ sw) * 16);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) mma16816(acc[i][NTW - 1], a[i], b0, b1);
-      }
-    }
+    dot_products(acc, s0 + sb + a_off, xs, s0, nt, sh, mk, wn, lane,
+                 p.kp / 16);
+    dot_epilogue<NTW, BIAS>(acc, bv, stg, out, M, N, m0, n0, wm, wn, lane);
+  }
+}
 
-    // epilogue: each 16-row half rounded into the warp's stage, then out
-    // as 16-byte rows
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-#pragma unroll
-      for (int j = 0; j < NTW; ++j) {
-        float v[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          v[e] = BIAS ? fmaxf(acc[i][j][e] + bv[j][e & 1], 0.f)
-                      : acc[i][j][e];
-        const __nv_bfloat162 lo2 = __floats2bfloat162_rn(v[0], v[1]);
-        const __nv_bfloat162 hi2 = __floats2bfloat162_rn(v[2], v[3]);
-        *reinterpret_cast<__nv_bfloat162*>(stg + g * SS + j * 8 + q2) = lo2;
-        *reinterpret_cast<__nv_bfloat162*>(stg + (g + 8) * SS + j * 8 + q2) =
-            hi2;
-      }
-      __syncwarp();
-      for (int c = lane; c < 16 * NTW; c += 32) {
-        const int r = c / NTW, j = c - r * NTW;
-        const int m = m0 + wm * 32 + i * 16 + r;
-        const int n = n0 + (wn * NTW + j) * 8;
-        if (m < M && n < N) {
-          const int img = m / rpi;   // 32-bit: M < 2^31
-          *reinterpret_cast<uint4*>(out.ptr + img * out.img_stride +
-                                    (m - img * rpi) * out.ld + n) =
-              *reinterpret_cast<const uint4*>(stg + r * SS + j * 8);
-        }
-      }
-      __syncwarp();
+// ---------------------------------------------------------------------------
+// affine_dot's streamed form: the same function, products and epilogue,
+// with the weight read by K chunk instead of kept whole. Chosen by the plan
+// only where no resident layout fits (K = 896 ... 1920 -> 128: the
+// intermedia adapter at order 6 ... 14 with c = 128); every shape that
+// plans resident keeps affine_dot_kernel, its instance and its bits.
+// - A step of the pipeline is (row tile, K chunk of kc): one stage holds
+//   the chunk's (kc, ncol) weight slice (the resident form's swizzle, kc a
+//   multiple of 16) and the tile's x columns [c0, c0 + kc) at a row stride
+//   of kc + 8; two or three stages in flight by cp.async, the weight
+//   re-read from L2 for every row tile.
+// - The prologue runs once per element of each chunk, as in the resident
+//   form (its channel changes with the chunk, so no vectors are kept
+//   across steps).
+// - One float32 accumulator per output, from zero at the first chunk, in
+//   ascending 16-deep k steps across the chunks, the last chunk stopping
+//   at K padded to 16: the sums of the resident form and of
+//   eval_ops.table_dot, bit for bit, so the whole-model and per-slot paths
+//   stay equal at any K. The epilogue runs after the last chunk.
+// Bound by bytes as the resident form (x read once, out written once; the
+// weight's re-reads hit L2). A plain streamed pipeline: its time is in
+// PERF.md section 6.
+// ---------------------------------------------------------------------------
+template <int NTW, bool BIAS, bool TABLE>
+__global__ void __launch_bounds__(kThreads)
+    affine_dot_stream_kernel(const bf16* __restrict__ x, long long ldx, int M,
+                             int K, const float* __restrict__ inv,
+                             const float* __restrict__ shift,
+                             long long vstride, int tile_rows, int bits,
+                             const bf16* __restrict__ w, int ldw, int N,
+                             const float* __restrict__ bias, OutView out,
+                             DotPlan p, const long long* __restrict__ tbl,
+                             int G) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int SS = NTW * 8 + 8;   // output stage row stride, elements
+  const uint32_t s0 = smem_u32(smem);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm_n = p.bm / 32;
+  const int wm = warp % wm_n, wn = warp / wm_n;
+  const int nt = p.ncol / 8;
+  const int col = blockIdx.x % p.ngrp, n0 = col * p.ncol;
+  const int tiles = (M + p.bm - 1) / p.bm;
+  const int first = blockIdx.x / p.ngrp, stride = gridDim.x / p.ngrp;
+  if (first >= tiles) return;
+  const int Q = (tiles - 1 - first) / stride + 1;
+  const int nch = p.kp / p.kc, steps = Q * nch;
+  const int k16 = (K + 15) / 16 * 16;
+  const int xs = (p.kc + kHaloPad) * 2;   // x row stride, bytes
+  int sh, mk;
+  dot_swizzle(nt, sh, mk);
+
+  // the table form: the kp / 8 chunks resolved once, past the output stages
+  Chunk* chunks = reinterpret_cast<Chunk*>(smem + p.out_off +
+                                           kWarps * 16 * SS * 2);
+  if constexpr (TABLE) {
+    for (int v = tid; v < p.kp / 8; v += kThreads)
+      chunks[v] = table_chunk(tbl, G, K, v * 8, 0);
+    __syncthreads();
+  }
+  const auto issue = [&](int s) {
+    const int q = s / nch, c0 = (s - q * nch) * p.kc;
+    const int m0 = (first + q * stride) * p.bm;
+    const uint32_t st = s0 + (s % p.stages) * p.stage_bytes;
+    for (int i = tid; i < p.kc * nt; i += kThreads) {
+      const int r = i / nt, j = i - r * nt;
+      const int n = n0 + j * 8;
+      const bool ok = c0 + r < K && n < N;
+      cp_async16(st + (r * nt + (j ^ ((r >> sh) & mk))) * 16,
+                 ok ? w + (long long)(c0 + r) * ldw + n : w, ok ? 16 : 0);
     }
+    if constexpr (TABLE)
+      load_chunks(st + p.w_bytes, chunks + c0 / 8, M, m0, p.bm, p.kc, tid,
+                  kThreads);
+    else
+      load_halo(st + p.w_bytes, x, ldx, M, K, m0, p.bm, c0, p.kc, tid,
+                kThreads);
+    cp_async_commit();
+  };
+  for (int s = 0; s < steps && s < p.stages - 1; ++s) issue(s);
+
+  // this lane's bias values and A row offset: affine_dot_kernel's
+  float bv[NTW][2];
+#pragma unroll
+  for (int j = 0; j < NTW; ++j) {
+    const int n = n0 + (wn * NTW + j) * 8 + 2 * (lane & 3);
+    bv[j][0] = BIAS && n < N ? bias[n] : 0.f;
+    bv[j][1] = BIAS && n < N ? bias[n + 1] : 0.f;
+  }
+  const int a_off = (wm * 32 + (lane & 15)) * xs + (lane >> 4) * 16;
+  bf16* stg = reinterpret_cast<bf16*>(smem + p.out_off) + warp * 16 * SS;
+  float acc[2][NTW][4];
+
+  for (int s = 0; s < steps; ++s) {
+    const int issued = steps < s + p.stages - 1 ? steps : s + p.stages - 1;
+    cp_async_wait_upto(issued - s - 1);
+    __syncthreads();   // step s landed; step s-1 is done
+    if (s + p.stages - 1 < steps) issue(s + p.stages - 1);
+    const int q = s / nch, c = s - q * nch, c0 = c * p.kc;
+    const int m0 = (first + q * stride) * p.bm;
+    const int sb = (s % p.stages) * p.stage_bytes;
+    halo_prologue(reinterpret_cast<bf16*>(smem + sb + p.w_bytes), M, K, m0,
+                  p.bm, c0, p.kc, inv, shift, vstride, tile_rows, bits, tid,
+                  kThreads);
+    __syncthreads();
+
+    if (c == 0) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < NTW; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+    }
+    // the last chunk stops at K rounded up to 16, as the resident form
+    dot_products(acc, s0 + sb + p.w_bytes + a_off, xs, s0 + sb, nt, sh, mk,
+                 wn, lane, (k16 - c0 < p.kc ? k16 - c0 : p.kc) / 16);
+    if (c == nch - 1)
+      dot_epilogue<NTW, BIAS>(acc, bv, stg, out, M, N, m0, n0, wm, wn, lane);
   }
 }
 
@@ -620,8 +771,10 @@ int launch_affine_dot(const bf16* x, long long ldx, int M, int K, VecArgs v,
                       OutView out, const DotPlan& p, int smem,
                       cudaStream_t st) {
   const int items = (M + p.bm - 1) / p.bm * p.ngrp;
-  auto kern = bias ? affine_dot_kernel<NTW, true, false>
-                   : affine_dot_kernel<NTW, false, false>;
+  auto kern = p.kc ? (bias ? affine_dot_stream_kernel<NTW, true, false>
+                           : affine_dot_stream_kernel<NTW, false, false>)
+                   : (bias ? affine_dot_kernel<NTW, true, false>
+                           : affine_dot_kernel<NTW, false, false>);
   int grid = 0;
   const int e = persistent_grid(kern, items, kThreads, smem, p.ngrp, &grid);
   if (e) return e;
@@ -640,7 +793,8 @@ int launch_affine_dot_table(const long long* tbl, int G, int M, int K,
                             const bf16* w, int N, OutView out,
                             const DotPlan& p, int smem, cudaStream_t st) {
   const int items = (M + p.bm - 1) / p.bm * p.ngrp;
-  auto kern = affine_dot_kernel<NTW, false, true>;
+  auto kern = p.kc ? affine_dot_stream_kernel<NTW, false, true>
+                   : affine_dot_kernel<NTW, false, true>;
   int grid = 0;
   const int e = persistent_grid(kern, items, kThreads, smem, p.ngrp, &grid);
   if (e) return e;
@@ -670,12 +824,13 @@ int cunet_affine_dot(const void* x, long long ldx, long long M, int K,
                      int N, const void* bias, void* out, long long ldo,
                      long long rows_per_img, long long img_stride, int bm,
                      int ncol, int ngrp, int ntw, int kp, int stages,
-                     int w_bytes, int stage_bytes, int out_off, int smem,
-                     void* stream) {
+                     int w_bytes, int stage_bytes, int out_off, int kc,
+                     int smem, void* stream) {
   const OutView ov{static_cast<bf16*>(out), ldo, rows_per_img, img_stride};
   const VecArgs v{static_cast<const float*>(inv),
                   static_cast<const float*>(shift), vstride, tile_rows, bits};
-  const DotPlan p{bm, ncol, ngrp, kp, stages, w_bytes, stage_bytes, out_off};
+  const DotPlan p{bm,      ncol,        ngrp,    kp, stages,
+                  w_bytes, stage_bytes, out_off, kc};
   const auto* xp = static_cast<const bf16*>(x);
   const auto* wp = static_cast<const bf16*>(w);
   const auto* bp = static_cast<const float*>(bias);
@@ -697,9 +852,10 @@ int cunet_tb_apply(const void* tbl, int G, long long M, int K,
                    const void* inv, const void* shift, const void* w, int N,
                    void* out, long long ldo, int bm, int ncol, int ngrp,
                    int ntw, int kp, int stages, int w_bytes, int stage_bytes,
-                   int out_off, int smem, void* stream) {
+                   int out_off, int kc, int smem, void* stream) {
   const OutView ov{static_cast<bf16*>(out), ldo, M, 0};
-  const DotPlan p{bm, ncol, ngrp, kp, stages, w_bytes, stage_bytes, out_off};
+  const DotPlan p{bm,      ncol,        ngrp,    kp, stages,
+                  w_bytes, stage_bytes, out_off, kc};
   const auto* tp = static_cast<const long long*>(tbl);
   const auto* ip = static_cast<const float*>(inv);
   const auto* sp = static_cast<const float*>(shift);

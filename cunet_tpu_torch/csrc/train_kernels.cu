@@ -15,6 +15,8 @@
 //   sum_rows      <- the f32 accumulation across TPU grid steps (_mk_acc)
 //   drop_mask     <- the dropout mask of _seed_mask applied to an out32
 //                    (forward) or to its cotangent (backward)
+//   threefry_mask <- the precomputed threefry masks (drop="masks") applied
+//                    to an out32 (:296-299) or its cotangent (:949-951)
 // and, as options of dx / dw, QuanInput's straight-through gate
 // (_ste_mask) and quantizer (_quan).
 //
@@ -1517,6 +1519,97 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---------------------------------------------------------------------------
+// threefry_mask: JAX's drop_impl="masks" dropout, regenerated in the
+// kernel instead of read from device memory. The TPU kernels take the
+// mask as an input drawn outside (cunet_tpu/kernels/train_slot.py masks
+// :425-426, :1389-1390; jax.random.bernoulli on the block key, as
+// cunet_tpu/models/cu_net.py::_dropout_mask draws it). Element (m, c) of
+// the (M, G) view, M = n * res * res in NHWC order, is the row-major index
+// i = m * G + c of the whole batch's (n, res, res, g) mask, so the bits do
+// not depend on the ghost-BN tile:
+//   (y0, y1) = threefry2x32((k0, k1), (hi32(i), lo32(i)))
+//   kept iff ((y0 ^ y1) >> 9) < thr,   thr = ceil(float32(keep) * 2^23)
+// (JAX's uniform float (bits >> 9) * 2^-23 below float32(keep)), then
+// multiplied by ``scale`` (float32(1/keep) in the compute dtype): the
+// bits of cunet_tpu_torch/ops/threefry.py::bernoulli_mask. The forms are
+// drop_mask_kernel's: forward (F32_IN false) the bf16 view in place,
+// bf16(x * m); backward f32 in, bf16(d * m) out; the float32 form f32 in
+// and out. One thread per 8 columns of a row.
+// Bound by the integer pipe, not by bytes: threefry2x32 is 20 rounds of
+// add / rotate / xor and 6 key injections, about 90 integer operations an
+// element, against 4-8 bytes moved. The rotates are funnel shifts; nothing
+// else is done about it (a plain kernel first).
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ uint32_t threefry_bits(uint32_t k0, uint32_t k1,
+                                                  unsigned long long i) {
+  const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
+  uint32_t x0 = (uint32_t)(i >> 32) + k0, x1 = (uint32_t)i + k1;
+#define CUNET_TF_ROUND(r) \
+  x0 += x1;               \
+  x1 = __funnelshift_l(x1, x1, r) ^ x0;
+#define CUNET_TF_ROUNDS_A \
+  CUNET_TF_ROUND(13) CUNET_TF_ROUND(15) CUNET_TF_ROUND(26) CUNET_TF_ROUND(6)
+#define CUNET_TF_ROUNDS_B \
+  CUNET_TF_ROUND(17) CUNET_TF_ROUND(29) CUNET_TF_ROUND(16) CUNET_TF_ROUND(24)
+  CUNET_TF_ROUNDS_A
+  x0 += k1; x1 += k2 + 1u;
+  CUNET_TF_ROUNDS_B
+  x0 += k2; x1 += k0 + 2u;
+  CUNET_TF_ROUNDS_A
+  x0 += k0; x1 += k1 + 3u;
+  CUNET_TF_ROUNDS_B
+  x0 += k1; x1 += k2 + 4u;
+  CUNET_TF_ROUNDS_A
+  x0 += k2; x1 += k0 + 5u;
+#undef CUNET_TF_ROUNDS_B
+#undef CUNET_TF_ROUNDS_A
+#undef CUNET_TF_ROUND
+  return x0 ^ x1;
+}
+
+template <bool F32_IN, typename TO>
+__global__ void __launch_bounds__(kThreads)
+    threefry_mask_kernel(const void* in, long long ldi,  // in == out fwd
+                         TO* out, long long ldo, long long M, int G,
+                         uint32_t k0, uint32_t k1, uint32_t thr,
+                         float scale) {
+  const int cg = G / 8;
+  const long long total = M * cg;
+  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       idx < total; idx += (long long)gridDim.x * blockDim.x) {
+    const long long m = idx / cg;
+    const int c = (int)(idx % cg) * 8;
+    const unsigned long long base = (unsigned long long)(m * G + c);
+    float v[8];
+    if (F32_IN) {
+      load8f(static_cast<const float*>(in) + m * ldi + c, v);
+    } else {
+      Pack8 p;
+      p.v = *reinterpret_cast<const uint4*>(static_cast<const bf16*>(in) +
+                                            m * ldi + c);
+#pragma unroll
+      for (int q = 0; q < 8; ++q) v[q] = lo(p, q);
+    }
+    float r[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const bool keep = (threefry_bits(k0, k1, base + q) >> 9) < thr;
+      r[q] = __fmul_rn(v[q], keep ? scale : 0.f);
+    }
+    if constexpr (sizeof(TO) == 4) {
+      float4* po = reinterpret_cast<float4*>(out + m * ldo + c);
+      po[0] = make_float4(r[0], r[1], r[2], r[3]);
+      po[1] = make_float4(r[4], r[5], r[6], r[7]);
+    } else {
+      Pack8 o;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) o.u[q] = hi(r[q]);
+      *reinterpret_cast<uint4*>(out + m * ldo + c) = o.v;
+    }
+  }
+}
+
 unsigned grid_blocks(long long total) {
   const long long blocks = (total + kThreads - 1) / kThreads;
   return (unsigned)(blocks < (1LL << 20) ? (blocks > 0 ? blocks : 1)
@@ -1865,6 +1958,27 @@ int cunet_drop_mask(const void* in, long long ldi, int f32_in, void* out,
   else
     drop_mask_kernel<false, bf16><<<blocks, kThreads, 0, st>>>(
         in, ldi, op, ldo, M, G, tile_rows, key, thr, scale);
+  return (int)cudaGetLastError();
+}
+
+// The forms of cunet_drop_mask: f32_in 0 bf16 in place, 1 float32 in and
+// bf16 out, 2 float32 in and out; (k0, k1) the block's threefry key.
+int cunet_threefry_mask(const void* in, long long ldi, int f32_in, void* out,
+                        long long ldo, long long M, int G, unsigned int k0,
+                        unsigned int k1, unsigned int thr, float scale,
+                        void* stream) {
+  const auto st = static_cast<cudaStream_t>(stream);
+  auto* op = static_cast<bf16*>(out);
+  const unsigned blocks = grid_blocks(M * (G / 8));
+  if (f32_in == 2)
+    threefry_mask_kernel<true, float><<<blocks, kThreads, 0, st>>>(
+        in, ldi, static_cast<float*>(out), ldo, M, G, k0, k1, thr, scale);
+  else if (f32_in)
+    threefry_mask_kernel<true, bf16><<<blocks, kThreads, 0, st>>>(
+        in, ldi, op, ldo, M, G, k0, k1, thr, scale);
+  else
+    threefry_mask_kernel<false, bf16><<<blocks, kThreads, 0, st>>>(
+        in, ldi, op, ldo, M, G, k0, k1, thr, scale);
   return (int)cudaGetLastError();
 }
 

@@ -30,7 +30,8 @@ ghost-BN ones, and with QuanInput's ``bits_i`` (the quantized model's
 float32 training) on the unrounded float32 prologue value.
 ``<wrapper>.f32_launches`` counts those launches (also in ``launches``),
 ``<wrapper>.f32_option_launches`` those with the option on (also in
-``option_launches``).
+``option_launches``). ``affine_dot.stream_launches`` counts its launches
+with the weight streamed by K chunk (also in ``launches``).
 """
 
 from __future__ import annotations
@@ -208,6 +209,10 @@ DOT_MAX_NTW = 8     # n8 column tiles a warp (the kernel's instantiations)
 # prologue and epilogue run under the other's products
 SMEM_PAIR = 115_712
 PAIR_NTW = 4
+# K per chunk of the streamed form (a weight prefix that fits beside no x
+# buffers): a multiple of 16 whose x rows, at kc + 8 elements, are an odd
+# number of 16-byte chunks
+DOT_STREAM_K = 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -219,7 +224,13 @@ class DotPlan:
     K zero-padded to ``kp``; the weight group resident (``w_bytes``), x
     tiles in ``stages`` buffers of ``stage_bytes`` (rows at a stride of
     kp + 8), then the warps' 16-row output stages at ``out_off``; ``smem``
-    bytes in all."""
+    bytes in all.
+
+    Streamed (``kc`` > 0, ``affine_dot_stream_kernel``): K zero-padded to
+    ``kp``, a multiple of ``kc``, and walked in chunks of ``kc``; each of
+    the ``stages`` buffers of ``stage_bytes`` holds one chunk's weight
+    slice (``w_bytes``: kc rows of the group) and then its x columns (rows
+    at a stride of kc + 8)."""
     bm: int
     ncol: int
     ngrp: int
@@ -230,6 +241,7 @@ class DotPlan:
     stage_bytes: int
     out_off: int
     smem: int
+    kc: int = 0
 
     @property
     def row_warps(self) -> int:
@@ -246,26 +258,34 @@ class DotPlan:
         return self.tiles(m) * self.ngrp
 
 
-def _dot_layout(bm, k, n, split, stages=(3, 2), limit=SMEM_LIMIT):
+def _dot_layout(bm, k, n, split, stages=(3, 2), limit=SMEM_LIMIT, kc=0):
     """The layout of row tiles of ``bm`` and N cut into ``split`` groups,
     the first count of x buffers of ``stages`` that fits in ``limit``
-    bytes; None where none does."""
+    bytes; None where none does. With ``kc`` the streamed layout of K
+    chunks of ``kc``."""
     wn = DOT_WARPS // (bm // DOT_WARP_ROWS)
     ncol = _up(-(-n // split), 8 * wn)
     ntw = ncol // (8 * wn)
     if ntw > DOT_MAX_NTW:
         return None
-    kp = _up(k, 16)
-    w_bytes = _up(kp * ncol * 2, 128)
-    stage_bytes = _up(bm * (kp + 8) * 2, 128)
     out_bytes = DOT_WARPS * 16 * (ntw * 8 + 8) * 2
+    if kc:
+        kp = _up(k, kc)
+        w_bytes = _up(kc * ncol * 2, 128)
+        stage_bytes = w_bytes + _up(bm * (kc + 8) * 2, 128)
+        resident = 0
+    else:
+        kp = _up(k, 16)
+        w_bytes = _up(kp * ncol * 2, 128)
+        stage_bytes = _up(bm * (kp + 8) * 2, 128)
+        resident = w_bytes
     for s in stages:
-        out_off = w_bytes + s * stage_bytes
+        out_off = resident + s * stage_bytes
         if out_off + out_bytes <= limit:
             return DotPlan(bm=bm, ncol=ncol, ngrp=-(-n // ncol), ntw=ntw,
                            kp=kp, stages=s, w_bytes=w_bytes,
                            stage_bytes=stage_bytes, out_off=out_off,
-                           smem=out_off + out_bytes)
+                           smem=out_off + out_bytes, kc=kc)
     return None
 
 
@@ -393,6 +413,26 @@ def launch_dot3(feats, m, vec, w, out, **kw):
         _stream(feats[0]))
 
 
+def _dot_search(m: int, k: int, n: int, kc: int):
+    """``affine_dot_plan``'s search over the layouts of ``_dot_layout``
+    with chunks of ``kc`` (0: the weight resident); None where none
+    fits."""
+    best = None
+    groups = -(-n // 128)
+    for split in (groups, 2 * groups):
+        for limit, stages, tiles in ((SMEM_PAIR, (2,), (128, 64)),
+                                     (SMEM_LIMIT, (3, 2), (128, 64, 32))):
+            for bm in tiles:
+                p = _dot_layout(bm, k, n, split, stages, limit, kc)
+                if p is None or (limit == SMEM_PAIR and not _pair(p)):
+                    continue
+                if p.items(m) >= DOT_ITEMS:
+                    return p
+                if best is None or p.items(m) > best.items(m):
+                    best = p
+    return best
+
+
 @functools.lru_cache(maxsize=None)
 def affine_dot_plan(m: int, k: int, n: int) -> DotPlan:
     """The kernel plan of ``affine_dot`` at these shapes (a function of them
@@ -403,27 +443,15 @@ def affine_dot_plan(m: int, k: int, n: int) -> DotPlan:
     alone, three buffers where they fit; else the same with N split in
     twice as many groups; else the plan of the most items. (A third buffer
     at one block an SM, 32-row tiles and N split were slower at r=64:
-    ``tools/gemm_sweep.py``, PERF.md section 6.) Cached: a forward asks
-    for the same few shapes hundreds of times, and the host's time per
-    launch bounds the small-batch forward. (The float32 form's plan is
-    ``dot3_plan``.)"""
-    best = None
-    groups = -(-n // 128)
-    for split in (groups, 2 * groups):
-        for limit, stages, tiles in ((SMEM_PAIR, (2,), (128, 64)),
-                                     (SMEM_LIMIT, (3, 2), (128, 64, 32))):
-            for bm in tiles:
-                p = _dot_layout(bm, k, n, split, stages, limit)
-                if p is None or (limit == SMEM_PAIR and not _pair(p)):
-                    continue
-                if p.items(m) >= DOT_ITEMS:
-                    return p
-                if best is None or p.items(m) > best.items(m):
-                    best = p
-    if best is None:
-        raise ValueError(f"affine_dot: no tiling of K={k}, N={n} fits "
-                         f"{SMEM_LIMIT} bytes of shared memory")
-    return best
+    ``tools/gemm_sweep.py``, PERF.md section 6.) Where no layout with the
+    weight resident fits (K >= 888: the intermedia adapter at
+    order >= 6 with c = 128), the same search over the streamed layouts
+    of K chunks of ``DOT_STREAM_K``, one of which fits at any K. Cached: a
+    forward asks for the same few shapes hundreds of times, and the host's
+    time per launch bounds the small-batch forward. (The float32 form's
+    plan is ``dot3_plan``.)"""
+    return (_dot_search(m, k, n, 0)
+            or _dot_search(m, k, n, DOT_STREAM_K))
 
 
 def affine_dot(x, vec, w, out, *, bias=None, bits_i=0):
@@ -454,7 +482,11 @@ def affine_dot(x, vec, w, out, *, bias=None, bits_i=0):
     order ``eval_ops.table_dot``'s WMMA takes, so the whole-model and
     per-slot paths agree bit for bit; the epilogue in f32 before one bf16
     rounding, staged per warp and written as 16-byte rows straight into
-    the buffer slot. PERF.md section 6 has its times on the H100.
+    the buffer slot. Where the weight prefix fits beside no x buffers (K
+    >= 888) the plan streams it instead, by K chunks of
+    ``DOT_STREAM_K`` in the x tiles' pipeline, with one accumulator per
+    output over all the chunks: the same sums and bits at any K. PERF.md
+    section 6 has its times on the H100.
 
     Float32 x, w and out (an f32 model's eval and ghost-BN train forward)
     run the float32 product kernel with one feature group
@@ -495,11 +527,12 @@ def affine_dot(x, vec, w, out, *, bias=None, bits_i=0):
         x.data_ptr(), x.stride(0), m, k, inv, shift, vstride, tile_rows,
         bits_i, w.data_ptr(), n, n, 0 if bias is None else bias.data_ptr(),
         out.data_ptr(), ldo, rows_per_img, img_stride, p.bm, p.ncol, p.ngrp,
-        p.ntw, p.kp, p.stages, p.w_bytes, p.stage_bytes, p.out_off, p.smem,
-        _stream(x))
+        p.ntw, p.kp, p.stages, p.w_bytes, p.stage_bytes, p.out_off, p.kc,
+        p.smem, _stream(x))
     build.check(code, "affine_dot")
     affine_dot.launches += 1
     affine_dot.option_launches += bits_i > 0
+    affine_dot.stream_launches += p.kc > 0
     return out
 
 
@@ -931,6 +964,13 @@ def count_f32(kernels) -> dict:
 
 def reset_launch_counts() -> None:
     reset_counts(KERNELS, OPTIONS)
+    affine_dot.stream_launches = 0
+
+
+def stream_counts() -> dict:
+    """Launches of ``affine_dot``'s streamed form (also in its
+    ``launches``)."""
+    return {"affine_dot[stream]": affine_dot.stream_launches}
 
 
 def launch_counts() -> dict:

@@ -97,7 +97,7 @@ def _declare(lib):
     F = ctypes.c_float
     sigs = {
         "cunet_affine_dot": [P, L, L, I, P, P, L, L, I, P, I, I, P, P, L, L,
-                             L, *[I] * 10, P],
+                             L, *[I] * 11, P],
         "cunet_conv3x3": [P, L, L, I, I, I, P, I, P, P, L, L, I, P, L,
                           *[I] * 10, P],
         "cunet_maxpool2": [P, L, P, L, I, I, I, I, P],
@@ -122,6 +122,8 @@ def _declare(lib):
                              *[I] * 11, P],
         "cunet_drop_mask": [P, L, I, P, L, L, I, L, ctypes.c_uint,
                             ctypes.c_uint, F, P],
+        "cunet_threefry_mask": [P, L, I, P, L, L, I, ctypes.c_uint,
+                                ctypes.c_uint, ctypes.c_uint, F, P],
         "cunet_sum_rows": [P, I, L, P, P],
         "cunet_maxpool2_bwd": [P, L, P, L, P, L, I, I, I, I, I, P],
         "cunet_upsample2_bwd": [P, L, P, L, I, I, I, I, I, P],
@@ -131,7 +133,7 @@ def _declare(lib):
         "cunet_int8_matmul_dequant": [P, L, L, I, P, I, I, P, F, P, L, P],
         "cunet_tb_fill_table": [P, I, P, P],
         "cunet_tb_stats": [P, I, L, I, L, P, I, P],
-        "cunet_tb_apply": [P, I, L, I, P, P, P, I, P, L, *[I] * 10, P],
+        "cunet_tb_apply": [P, I, L, I, P, P, P, I, P, L, *[I] * 11, P],
         "cunet_tb_bwd_reduce": [P, I, L, I, P, L, I, P, P, P, L, *[I] * 10,
                                 P, P, I, P],
         "cunet_tb_bwd_dx": [P, I, L, I, P, L, I, P, P, P, P, *[I] * 9, P],

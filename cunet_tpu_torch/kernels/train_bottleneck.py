@@ -311,7 +311,7 @@ def apply(xs, vec, w, out, table=None):
         table.data_ptr(), len(xs), m, ctot, vec[0].data_ptr(),
         vec[1].data_ptr(), w.data_ptr(), n, out.data_ptr(), out.stride(0),
         p.bm, p.ncol, p.ngrp, p.ntw, p.kp, p.stages, p.w_bytes,
-        p.stage_bytes, p.out_off, smem, _stream(out))
+        p.stage_bytes, p.out_off, p.kc, smem, _stream(out))
     build.check(code, "train_bottleneck.apply")
     apply.launches += 1
     return out

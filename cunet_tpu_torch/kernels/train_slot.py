@@ -51,16 +51,18 @@ The two options of the TPU kernels:
   right after the conv (before its statistics and before it is saved, so
   the saved out32s are post-dropout), and the backward regenerates the
   same mask for the conv's cotangent (``_seed_mask`` :226, :296-300,
-  :949-952);
+  :949-952); with ``drop="masks"`` the slot's per-position threefry keys
+  ride there instead, and ``drop_ops.threefry_mask`` regenerates JAX's
+  precomputed masks (kernel inputs :425-426, :1389-1390) at the same two
+  points;
 - QuanInput (``bits_i``): the conv3x3 prologue and the head's quantize
   their bf16 activation (``_quan`` :198, :294, :356); the backward takes
   dW against the quantized values and adds the straight-through gate
   0 < z < 1 to the ReLU mask (:953-959, ``_stage_bwd`` :585). Intermedia,
   bottleneck and adapter stages are never quantized.
 
-Not carried over: precomputed threefry masks (``drop="masks"``) and the
-TPU-only knobs (``CUNET_TRAIN_CONV3X3``, ``CUNET_CONV_BWD``,
-``CUNET_TRAIN_CONV_CHUNK``, ``CUNET_TSBWD_*``).
+Not carried over: the TPU-only knobs (``CUNET_TRAIN_CONV3X3``,
+``CUNET_CONV_BWD``, ``CUNET_TRAIN_CONV_CHUNK``, ``CUNET_TSBWD_*``).
 """
 
 from __future__ import annotations
@@ -71,7 +73,7 @@ from typing import Dict, List, Optional, Sequence
 import torch
 
 from cunet_tpu_torch.config import ModelConfig
-from cunet_tpu_torch.kernels.drop_ops import drop_mask
+from cunet_tpu_torch.kernels.drop_ops import drop_mask, threefry_mask
 from cunet_tpu_torch.kernels.buf_ops import (
     affine_dot,
     conv3x3,
@@ -125,7 +127,9 @@ def _wset_keys(skip: bool):
 class SlotMeta:
     """Static description of one slot call (``make_meta`` + ``finalize_meta``
     of the JAX kernel). ``bits_i``: QuanInput bits (0 = off); ``seed``: the
-    slot's int32 dropout seed (None = no dropout) with ``drop_rate``."""
+    slot's int32 dropout seed (``drop_impl="prng"``), or ``keys``: its
+    threefry block keys in traversal order (``"masks"``), at most one of
+    the two set (neither: no dropout), with ``drop_rate``."""
 
     num_blocks: int
     L: int
@@ -140,11 +144,18 @@ class SlotMeta:
     bits_i: int = 0
     drop_rate: float = 0.0
     seed: Optional[int] = None
+    keys: Optional[tuple] = None
+
+    @property
+    def dropout(self) -> bool:
+        return self.seed is not None or self.keys is not None
 
     def drop(self, x, pos: int, res: int, out=None):
         """The dropout mask of position ``pos`` on an out32 view ``x`` at
         resolution ``res`` (in place), or onto ``out`` from the float32
         cotangent ``x``; the identity without dropout."""
+        if self.keys is not None:
+            return threefry_mask(x, self.keys[pos], self.drop_rate, out)
         if self.seed is None:
             return x
         return drop_mask(x, self.seed, pos, self.drop_rate,
@@ -505,8 +516,8 @@ def slot_train_bwd(meta: SlotMeta, saved: _Saved, W, cts):
         if d_out32s[pos] is not None:
             d_o = d_o + d_out32s[pos].reshape(m, g).float()
         # the saved out32 is post-dropout: the conv's cotangent is d_o * mask
-        d_o = (compute(d_o) if meta.seed is None
-               else meta.drop(d_o, pos, res, empty(m, g, dt)))
+        d_o = (meta.drop(d_o, pos, res, empty(m, g, dt)) if meta.dropout
+               else compute(d_o))
         # recompute the bottleneck output, then 3x3 conv + BN2 backward
         v1 = _affine_vec(s1, w["bn1"], eps)
         ybm = yb[:m]
@@ -649,7 +660,8 @@ class _SlotTrain(torch.autograd.Function):
 
 def fused_slot_train(y, inter_fifo, fifos, W, *, cfg: ModelConfig, L: int,
                      has_inter: bool, bits_i: int = 0,
-                     drop_seed: Optional[int] = None):
+                     drop_seed: Optional[int] = None,
+                     drop_keys: Optional[Sequence[tuple]] = None):
     """Whole-slot train forward with the recompute backward as its
     gradient. ``y`` (N, h0, h0, c) is the slot input, ``inter_fifo`` the L
     intermedia FIFO entries (empty without the intermedia adapter),
@@ -657,20 +669,31 @@ def fused_slot_train(y, inter_fifo, fifos, W, *, cfg: ModelConfig, L: int,
     ``marshal_slot`` weights (float32 masters). Requires cfg.bn_tile > 0
     (the BN statistics group). ``bits_i`` > 0 runs QuanInput (bits > 15
     are none); ``drop_seed`` (an int32) runs dropout at ``cfg.drop_rate``
-    with masks regenerated from it. Returns (y_out, head, inter_out|None,
+    with masks regenerated from it, ``drop_keys`` (the slot's threefry
+    block keys in traversal order, ``ops.threefry.block_keys``) with JAX's
+    threefry masks regenerated from them. Returns (y_out, head, inter_out|None,
     out32s tuple, stats tuple), stats per-tile (T, 2, C) float32 in
     emission order."""
     if cfg.bn_tile <= 0:
         raise ValueError("the slot train kernels need cfg.bn_tile > 0")
-    if drop_seed is not None and not 0.0 < cfg.drop_rate < 1.0:
-        raise ValueError(f"drop_seed given with drop_rate {cfg.drop_rate}")
+    dropout = drop_seed is not None or drop_keys is not None
+    if drop_seed is not None and drop_keys is not None:
+        raise ValueError("dropout from drop_seed or from drop_keys, not both")
+    if dropout and not 0.0 < cfg.drop_rate < 1.0:
+        raise ValueError(f"dropout masks given with drop_rate "
+                         f"{cfg.drop_rate}")
+    if drop_keys is not None and len(drop_keys) != 2 * cfg.num_blocks + 1:
+        raise ValueError(f"{len(drop_keys)} drop_keys, one a position "
+                         f"({2 * cfg.num_blocks + 1})")
     meta = SlotMeta(num_blocks=cfg.num_blocks, L=L, has_inter=has_inter,
                     bt=cfg.bn_tile, chan=cfg.init_chan_num,
                     growth=cfg.growth_rate, cb=cfg.bottleneck_chan,
                     h=y.shape[1], dtype=getattr(torch, cfg.compute_dtype),
                     bits_i=bits_i if 0 < bits_i <= 15 else 0,
-                    drop_rate=cfg.drop_rate if drop_seed is not None else 0.0,
-                    seed=None if drop_seed is None else int(drop_seed))
+                    drop_rate=cfg.drop_rate if dropout else 0.0,
+                    seed=None if drop_seed is None else int(drop_seed),
+                    keys=None if drop_keys is None else tuple(
+                        tuple(k) for k in drop_keys))
     npos = len(meta.plan)
     if len(fifos) != npos or any(len(f) != L for f in fifos) \
             or len(inter_fifo) != (L if has_inter else 0):

@@ -94,6 +94,12 @@ neck -> nb, up j -> 2nb - j and per ghost-BN tile, so both train paths and
 the JAX package draw the same masks from the same seeds. On the
 layer-by-layer kernel path (``bn_tile=0``) the mask kernel applies it,
 forward and backward (:func:`cunet_tpu_torch.kernels.drop_ops.dropout`).
+With ``drop_impl="masks"`` the masks are the JAX package's threefry
+bernoulli draws (:mod:`cunet_tpu_torch.ops.threefry`) from one step key
+(``apply_cu_net(..., drop_key=)``): slot i folds i into it, and block
+position down j / neck / up j folds tag j / 100 / 200 + j into the slot
+key; the kernel paths regenerate them with
+:func:`cunet_tpu_torch.kernels.drop_ops.threefry_mask`.
 """
 
 from __future__ import annotations
@@ -117,7 +123,7 @@ from cunet_tpu_torch.ops import (
     relu,
     upsample_nearest_2x,
 )
-from cunet_tpu_torch.ops import dropmask
+from cunet_tpu_torch.ops import dropmask, threefry
 from cunet_tpu_torch.ops.layers import running_update
 from cunet_tpu_torch.quant.wage import quan_input
 
@@ -355,8 +361,9 @@ def _checkpointed(fn, upd, *args):
 def _apply_dense_layer(params, state, prefix, feats, *, cfg, train=False,
                        upd=None, quant=None, drop=None):
     """Bottleneck 1x1, then BN -> ReLU [-> quantize] -> 3x3 conv to
-    ``growth_rate`` [-> dropout: ``drop`` = (seed, traversal position)];
-    with ``remat="layer"`` in train mode all but the dropout checkpointed."""
+    ``growth_rate`` [-> dropout: ``drop`` = (seed, traversal position), or
+    the block's threefry key with ``drop_impl="masks"``]; with
+    ``remat="layer"`` in train mode all but the dropout checkpointed."""
     def body(feats, upd):
         kw = dict(cfg=cfg, train=train, upd=upd)
         b = _apply_bottleneck(params, state, f"{prefix}.bottleneck", feats,
@@ -371,14 +378,20 @@ def _apply_dense_layer(params, state, prefix, feats, *, cfg, train=False,
         y = _checkpointed(body, upd, list(feats))
     else:
         y = body(feats, upd)
-    if drop is not None and cfg.use_pallas:     # the bn_tile=0 kernel path
-        from cunet_tpu_torch.kernels.drop_ops import dropout
+    if drop is None:
+        return y
+    masks = cfg.drop_impl == "masks"
+    if cfg.use_pallas:                          # the bn_tile=0 kernel path
+        from cunet_tpu_torch.kernels.drop_ops import dropout, dropout_masks
 
-        y = dropout(y, *drop, cfg.drop_rate, cfg.bn_tile)
-    elif drop is not None:
-        y = y * dropmask.batch_mask(*drop, y.shape, cfg.bn_tile,
-                                    cfg.drop_rate, y.dtype, y.device)
-    return y
+        if masks:
+            return dropout_masks(y, drop, cfg.drop_rate)
+        return dropout(y, *drop, cfg.drop_rate, cfg.bn_tile)
+    if masks:
+        return y * threefry.bernoulli_mask(drop, y.shape, cfg.drop_rate,
+                                           y.dtype, y.device)
+    return y * dropmask.batch_mask(*drop, y.shape, cfg.bn_tile,
+                                   cfg.drop_rate, y.dtype, y.device)
 
 
 def _fifo_push(fifo: List, out, i: int, order: int) -> List:
@@ -418,33 +431,44 @@ def _apply_dense_block(params, state, prefix, feats, i: int, fifo: List, *,
     return (ahead, None), new_fifo
 
 
+def _block_drops(cfg: ModelConfig, slot_drop) -> List:
+    """The dropout handle of each traversal position of a slot whose
+    handle is ``slot_drop`` (``_slot_drops``), as ``_drop_handles`` of the
+    JAX package keys them: (seed, position) with position down j -> j,
+    neck -> nb, up j -> 2nb - j (``drop_impl="prng"``), or the block key
+    ``threefry.block_keys`` folds (``"masks"``); None without dropout."""
+    npos = 2 * cfg.num_blocks + 1
+    if slot_drop is None:
+        return [None] * npos
+    if cfg.drop_impl == "masks":
+        return threefry.block_keys(slot_drop, cfg.num_blocks)
+    return [(slot_drop, pos) for pos in range(npos)]
+
+
 def _apply_hourglass(params, state, x, i: int, fifos: Dict, *, cfg,
-                     train=False, upd=None, quant=None, drop_seed=None):
+                     train=False, upd=None, quant=None, slot_drop=None):
     """num_blocks x (down block -> max pool), neck, num_blocks x (upsample ->
-    up block). ``drop_seed``: slot ``i``'s dropout seed (``_drop_handles``
-    of the JAX package: position down j -> j, neck -> nb, up j -> 2nb - j).
+    up block). ``slot_drop``: slot ``i``'s dropout handle (``_slot_drops``).
     Returns (x, fifos)."""
     kw = dict(cfg=cfg, train=train, upd=upd, quant=quant)
     nb = cfg.num_blocks
-
-    def drop(pos):
-        return None if drop_seed is None else (drop_seed, pos)
+    drops = _block_drops(cfg, slot_drop)
 
     skips = []
     for j in range(nb):
         (x, skip), fifos["down"][j] = _apply_dense_block(
             params, state, f"hg.down.{j}", [x], i, fifos["down"][j],
-            requires_skip=True, drop=drop(j), **kw)
+            requires_skip=True, drop=drops[j], **kw)
         skips.append(skip)
         x = max_pool_2x2(x)
     (x, _), fifos["neck"] = _apply_dense_block(
         params, state, "hg.neck", [x], i, fifos["neck"], requires_skip=False,
-        drop=drop(nb), **kw)
+        drop=drops[nb], **kw)
     for j in reversed(range(nb)):
         x = upsample_nearest_2x(x)
         (x, _), fifos["up"][j] = _apply_dense_block(
             params, state, f"hg.up.{j}", [x, skips[j]], i, fifos["up"][j],
-            requires_skip=False, drop=drop(2 * nb - j), **kw)
+            requires_skip=False, drop=drops[2 * nb - j], **kw)
     return x, fifos
 
 
@@ -628,10 +652,10 @@ def quant_kernel_bits(quant) -> int:
 
 
 def _fused_slot_train(params, state, y, fifos, *, cfg: ModelConfig,
-                      i: int, bits_i: int = 0, drop_seed=None):
+                      i: int, bits_i: int = 0, slot_drop=None):
     """Slot ``i`` through the train kernels (QuanInput at ``bits_i``,
-    dropout from ``drop_seed``). Returns (y_out, new_fifos, head_out,
-    slot_state_updates)."""
+    dropout from the slot's handle ``slot_drop``, ``_slot_drops``).
+    Returns (y_out, new_fifos, head_out, slot_state_updates)."""
     from cunet_tpu_torch.kernels.train_slot import (
         fused_slot_train,
         marshal_slot,
@@ -643,9 +667,13 @@ def _fused_slot_train(params, state, y, fifos, *, cfg: ModelConfig,
     W = marshal_slot(_slot_subtree(params, i), nb)
     fifos_t = ([fifos["down"][j] for j in range(nb)] + [fifos["neck"]]
                + [fifos["up"][j] for j in reversed(range(nb))])
+    drop = {}
+    if slot_drop is not None:
+        drop = ({"drop_keys": _block_drops(cfg, slot_drop)}
+                if cfg.drop_impl == "masks" else {"drop_seed": slot_drop})
     y_out, hm, inter_out, out32s, stats = fused_slot_train(
         y, fifos["intermedia"] if has_inter else [], fifos_t, W, cfg=cfg,
-        L=L, has_inter=has_inter, bits_i=bits_i, drop_seed=drop_seed)
+        L=L, has_inter=has_inter, bits_i=bits_i, **drop)
     slot_upd = _slot_state_from_stats(state, stats, cfg, i, y.shape[1])
     if cfg.order == 0:
         return y_out, fifos, hm, slot_upd
@@ -672,7 +700,7 @@ def apply_slot_train(params, state, y, fifos, *, cfg: ModelConfig, i: int):
     caller's ``fifos`` are not changed. Holds one slot of the kernel path
     against the plain path on inputs and cotangents of the caller's
     choosing."""
-    _check_train_cfg(cfg, None)
+    _check_train_cfg(cfg, None, None)
     check_kernel_dtype(cfg, y.device, train=True)
     if fused_train_ok(cfg):
         return _fused_slot_train(params, state, y, fifos, cfg=cfg, i=i)
@@ -886,22 +914,38 @@ def _fused_slot_eval_hg(y, fifos, slot, *, cfg: ModelConfig, i: int):
     }, hm
 
 
-def _check_train_cfg(cfg: ModelConfig, drop_seeds) -> None:
-    if cfg.drop_rate > 0:
-        if cfg.drop_impl == "masks":
-            raise NotImplementedError(
-                "drop_impl='masks' (threefry masks) needs JAX's threefry "
-                "bits and is not ported; use drop_impl='prng'")
-        if drop_seeds is None or len(drop_seeds) != cfg.layer_num:
+def _check_train_cfg(cfg: ModelConfig, drop_seeds, drop_key) -> None:
+    if cfg.drop_rate <= 0:
+        return
+    if cfg.drop_impl == "masks":
+        if drop_key is None:
             raise ValueError(
-                f"drop_rate > 0 in train mode needs drop_seeds, one int32 "
-                f"per slot ({cfg.layer_num}); train_step draws them from "
-                f"its generator")
+                "drop_impl='masks' in train mode needs drop_key, the step's "
+                "threefry key; train_step folds its rng= with the step")
+        threefry.as_key(drop_key)
+    elif drop_seeds is None or len(drop_seeds) != cfg.layer_num:
+        raise ValueError(
+            f"drop_rate > 0 in train mode needs drop_seeds, one int32 "
+            f"per slot ({cfg.layer_num}); train_step draws them from "
+            f"its generator")
+
+
+def _slot_drops(cfg: ModelConfig, train: bool, drop_seeds,
+                drop_key) -> List:
+    """Each slot's dropout handle: its int32 seed (``drop_impl="prng"``),
+    or its threefry key ``fold_in(drop_key, i)`` (``"masks"``, as the JAX
+    package folds the slot into the step key); None without dropout."""
+    if not train or cfg.drop_rate <= 0:
+        return [None] * cfg.layer_num
+    if cfg.drop_impl == "masks":
+        key = threefry.as_key(drop_key)
+        return [threefry.fold_in(key, i) for i in range(cfg.layer_num)]
+    return list(drop_seeds)
 
 
 def apply_cu_net(params, state, x: torch.Tensor, *, cfg: ModelConfig,
                  train: bool = False, slots=None, quant=None,
-                 drop_seeds=None):
+                 drop_seeds=None, drop_key=None):
     """Forward: stem -> K x (intermedia -> hourglass [-> head if anchored]).
 
     Args:
@@ -929,6 +973,10 @@ def apply_cu_net(params, state, x: torch.Tensor, *, cfg: ModelConfig,
       drop_seeds: with ``cfg.drop_rate > 0`` in train mode, one int32
         dropout seed per slot (``ops.dropmask.draw_slot_seeds``); ignored
         in eval.
+      drop_key: with ``cfg.drop_impl="masks"`` instead, the step's
+        threefry key (a (2,) uint32 array or tensor, or a pair of ints:
+        JAX's ``fold_in(rng, step)``); ``ValueError`` for any other key,
+        such as a (4,) rbg key.
     Returns:
       (list of (N, H/4, W/4, class_num) heatmaps, one per loss anchor in
       U-Net order, state) -- the state is unchanged in eval, and in train
@@ -942,7 +990,7 @@ def apply_cu_net(params, state, x: torch.Tensor, *, cfg: ModelConfig,
     check_kernel_dtype(cfg, x.device, train=train, quant=quant)
     path = None if train else eval_path(cfg, quant)
     if train:
-        _check_train_cfg(cfg, drop_seeds)
+        _check_train_cfg(cfg, drop_seeds, drop_key)
     x = x.to(getattr(torch, cfg.compute_dtype))
     upd: Dict[str, torch.Tensor] = {}
     kw = dict(cfg=cfg, train=train, upd=upd)
@@ -950,13 +998,12 @@ def apply_cu_net(params, state, x: torch.Tensor, *, cfg: ModelConfig,
     outs: List[torch.Tensor] = []
     fifos = empty_fifos(cfg)
 
-    seeds = (drop_seeds if train and cfg.drop_rate > 0
-             else [None] * cfg.layer_num)
+    drops = _slot_drops(cfg, train, drop_seeds, drop_key)
     if train and fused_train_ok(cfg):
         for i in range(cfg.layer_num):
             y, fifos, hm, slot_upd = _fused_slot_train(
                 params, state, y, fifos, cfg=cfg, i=i,
-                bits_i=quant_kernel_bits(quant), drop_seed=seeds[i])
+                bits_i=quant_kernel_bits(quant), slot_drop=drops[i])
             _write_slot_state(upd, slot_upd, cfg, i)
             if (i + 1) in cfg.anchors:
                 outs.append(hm)
@@ -997,7 +1044,7 @@ def apply_cu_net(params, state, x: torch.Tensor, *, cfg: ModelConfig,
             y, fifos["intermedia"] = _apply_intermedia(
                 params, state, y, i, fifos["intermedia"], **kw)
             return _apply_hourglass(params, state, y, i, fifos, quant=quant,
-                                    drop_seed=seeds[i], **kw)
+                                    slot_drop=drops[i], **kw)
 
         if train and cfg.remat == "block":
             y, fifos = _checkpointed(slot, upd, y, fifos)

@@ -23,12 +23,15 @@ kernels (``conv3x3[bits_i]``, ``conv3x3_dw[bits_i]`` and
 checkout has them, phase 12 (a) (the float32 eval forms), phase 13 (a)
 (the float32 forms of #7 and of the mask kernel), phase 14 (a) (the
 float32 forms F1-F10 of the slot kernels #8/#9, at r = 64 ... 4 and
-tiles 2 and 6) and phase 15 (a) (the QuanInput forms at float32, the int8
-kernels' float32 forms, ``table_dot`` over 17 groups): each case against its
+tiles 2 and 6), phase 15 (a) (the QuanInput forms at float32, the int8
+kernels' float32 forms, ``table_dot`` over 17 groups) and phase 16 (a),
+(b) and (f) (``threefry_mask`` and its float32 form; ``affine_dot`` with
+its weight streamed at K = 896 and 1920): each case against its
 plain version, timed by CUDA-graph replay beside its library call (or
 ``torch.mm`` of its product alone) and bound. It also prints a digest of
-the bf16 outputs of #7's four kernels and of ``drop_mask`` on fixed
-operands (phase 9's at r=64 and r=4, seeded): two checkouts whose digests
+the bf16 outputs of #7's four kernels, of ``drop_mask`` and, where the
+checkout has it, of ``threefry_mask`` on fixed operands (phase 9's at r=64
+and r=4, seeded): two checkouts whose digests
 agree give those outputs bit for bit; and the digest of phase 5's bf16
 ghost-BN kernel step (``chip_smoke.step_digest`` of its loss and grads,
 CU-Net-8 @256, batch 24, tile 2), which the smoke prints for its own
@@ -93,6 +96,12 @@ def bf16_digests(torch, cs, tbk, dops) -> dict:
                          torch.empty(m, g, device="cuda",
                                      dtype=torch.bfloat16))
     out["drop_mask"] = digest([fwd, bwd])
+    if hasattr(dops, "threefry_mask"):
+        key = (0x13198A2E, 0x03707344)
+        fwd = dops.threefry_mask(y.clone(), key, cs.DROP_RATE)
+        bwd = dops.threefry_mask(d, key, cs.DROP_RATE, torch.empty(
+            m, g, device="cuda", dtype=torch.bfloat16))
+        out["threefry_mask"] = digest([fwd, bwd])
     torch.cuda.synchronize()
     return out
 
@@ -155,6 +164,10 @@ def main(argv=None) -> int:
     if hasattr(train_ops, "f32_option_counts"):
         cs.phase_quant_f32_kernels(torch, train_ops, buf_ops, quant_ops,
                                    eval_ops)
+    if hasattr(drop_ops, "threefry_mask"):
+        cs.threefry_checks(torch, drop_ops, {})
+    if hasattr(buf_ops, "DOT_STREAM_K"):
+        cs.stream_dot_checks(torch, buf_ops, {})
     for dtype in dtypes:
         cfg = ModelConfig(layer_num=8, order=1, class_num=16, loss_num=8,
                           compute_dtype=dtype, use_pallas=True)

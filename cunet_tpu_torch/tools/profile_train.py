@@ -1,13 +1,16 @@
 """Device-time breakdown of the CU-Net-8 @256 train step on one GPU.
 
     python -m cunet_tpu_torch.tools.profile_train [--plain] [--drop RATE]
-        [--quant] [--bn_tile T] [--dtype float32] [--out profile_train.json]
+        [--drop_impl masks] [--quant] [--bn_tile T] [--dtype float32]
+        [--out profile_train.json]
 
 The train step (kernel path, or the plain path with ``--plain``; bf16,
 ghost-BN tile 2, ``bn_dtype="compute"``, RMSprop) from the port's init
 (seed 0) on numpy images and targets, at batch 24, is warmed up, then
 three steps run under ``torch.profiler``. ``--drop RATE`` trains with
-dense-layer dropout (seeds from a generator, one set per step);
+dense-layer dropout (seeds from a generator, one set per step; with
+``--drop_impl masks`` JAX's threefry masks, the step folded into the key
+``PRNGKey(1)``);
 ``--quant`` runs ``quant_train_step`` with ``QuantConfig(bits_w=1,
 bits_i=8, bits_g=8, enabled=True)``; ``--bn_tile 0`` trains with
 whole-batch BN statistics (the kernel path then runs every bottleneck and
@@ -94,6 +97,8 @@ def main(argv=None) -> int:
                     help="profile the plain PyTorch path instead")
     ap.add_argument("--drop", type=float, default=0.0,
                     help="dense-layer dropout rate")
+    ap.add_argument("--drop_impl", default="prng", choices=("prng", "masks"),
+                    help="dropout masks: counter-hash seeds or threefry")
     ap.add_argument("--quant", action="store_true",
                     help="W1/I8/G8 quantized training")
     ap.add_argument("--bn_tile", type=int, default=FLAGSHIP.bn_tile,
@@ -106,8 +111,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_train: no CUDA device")
     cfg = dataclasses.replace(FLAGSHIP, use_pallas=not args.plain,
-                              drop_rate=args.drop, bn_tile=args.bn_tile,
-                              compute_dtype=args.dtype)
+                              drop_rate=args.drop, drop_impl=args.drop_impl,
+                              bn_tile=args.bn_tile, compute_dtype=args.dtype)
     if args.dtype == "float32":
         cfg = dataclasses.replace(cfg, bn_dtype="float32")
     gpu = gpu_name()
@@ -119,19 +124,20 @@ def main(argv=None) -> int:
                  BATCH, 64, 64, cfg.class_num).astype(
                  np.float32)).cuda()}
     st = create_train_state(params, state, TrainConfig(batch_size=BATCH))
-    gen = torch.Generator().manual_seed(1)
+    drop = {"generator": torch.Generator().manual_seed(1),
+            "rng": np.array([0, 1], np.uint32)}
     if args.quant:
         def step():
-            return quant_train_step(st, batch, cfg=cfg, qcfg=W1I8G8,
-                                    generator=gen)
+            return quant_train_step(st, batch, cfg=cfg, qcfg=W1I8G8, **drop)
     else:
         def step():
-            return train_step(st, batch, cfg=cfg, generator=gen)
+            return train_step(st, batch, cfg=cfg, **drop)
     path = "plain" if args.plain else "kernel"
-    variant = (["drop"] if args.drop else []) + (
+    variant = ([f"drop ({args.drop_impl})"] if args.drop else []) + (
         ["quant"] if args.quant else []) + [f"bn_tile {args.bn_tile}",
                                              args.dtype]
-    r = dict(batch=BATCH, path=path, drop=args.drop, quant=args.quant,
+    r = dict(batch=BATCH, path=path, drop=args.drop,
+             drop_impl=args.drop_impl, quant=args.quant,
              bn_tile=args.bn_tile, dtype=args.dtype,
              **profile_window(step, ITERS))
     print_report(f"train step {path} path{''.join(' +' + v for v in variant)}"

@@ -33,20 +33,22 @@ from cunet_tpu_torch.quant import (
 )
 from cunet_tpu_torch.train.loss import intermediate_mse
 from cunet_tpu_torch.train.state import TrainState
-from cunet_tpu_torch.train.step import step_drop_seeds
+from cunet_tpu_torch.train.step import step_drop_args
 
 
 def quant_train_step(state: TrainState, batch: Dict[str, torch.Tensor], *,
                      cfg: ModelConfig, qcfg: QuantConfig,
                      policy: str = "reference",
-                     generator: Optional[torch.Generator] = None):
+                     generator: Optional[torch.Generator] = None,
+                     rng=None):
     """One quantized optimization step (``qcfg`` enabled; the JAX
     package's ``quant_train_step``). Updates ``state`` in place: the
     selected master weights become their preprocessed values (written into
     the same tensors, so RMSprop's per-tensor state follows them), then
     take one RMSprop step on the gradients through ``quantize_params``.
     Returns ``(state, {"loss", "last_out"})``; with dropout, ``generator``
-    gives the step's mask seeds."""
+    gives the step's mask seeds, or ``rng`` its threefry key
+    (``drop_impl="masks"``), as in ``train_step``."""
     pred = selected_conv_predicate(state.params, policy)
     with torch.no_grad():
         for key, m in preprocess_masters(state.params, qcfg, pred).items():
@@ -56,7 +58,7 @@ def quant_train_step(state: TrainState, batch: Dict[str, torch.Tensor], *,
     outs, new_bn = apply_cu_net(
         quantize_params(state.params, qcfg, pred), state.bn_state,
         batch["image"], cfg=cfg, train=True, quant=qcfg,
-        drop_seeds=step_drop_seeds(cfg, generator))
+        **step_drop_args(cfg, state.step, generator, rng))
     loss = intermediate_mse(outs, batch["heatmap"])
     loss.backward()
     state.opt.step()

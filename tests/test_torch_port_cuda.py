@@ -85,7 +85,9 @@ def _check(kernel, call, dst, sel):
 # warp (N = 72 pads to 96 and N = 48: three; N = 16: one; eight at
 # K = 256); K tails (8, 24, 40, 136: a zero-padded half k16 step); ragged
 # last row tiles; more tiles than blocks; QuanInput's quantizer on the
-# prologue; the BN2 epilogue
+# prologue; the BN2 epilogue; the streamed weight (K = 896 and 1920, the
+# intermedia adapter at order 6 and 14; K = 1000, a partial last chunk,
+# with the quantizer)
 DOT_CASES = [(520, 24, 16, False, 0), (520, 40, 16, True, 0),
              (520, 16, 8, False, 0), (520, 200, 136, True, 0),
              (8 * 64 * 64, 192, 128, False, 0),
@@ -95,7 +97,9 @@ DOT_CASES = [(520, 24, 16, False, 0), (520, 40, 16, True, 0),
              (8 * 16 * 16, 160, 128, True, 0),
              (8 * 64 * 64, 128, 72, False, 0),
              (8 * 64 * 64 + 8, 136, 48, False, 8),
-             (8 * 64 * 64 + 40, 128, 16, True, 8), (1000, 8, 8, True, 0)]
+             (8 * 64 * 64 + 40, 128, 16, True, 8), (1000, 8, 8, True, 0),
+             (8 * 64 * 64, 896, 128, False, 0),
+             (8 * 16 * 16, 1920, 128, True, 0), (1000, 1000, 72, False, 8)]
 
 
 def test_dot_cases_cover_every_plan_path():
@@ -111,6 +115,7 @@ def test_dot_cases_cover_every_plan_path():
     assert any(m % p.bm for p, m, _ in plans)
     assert any(p.items(m) > 132 for p, m, _ in plans)
     assert {k % 16 for _, k, _, _, _ in DOT_CASES} >= {0, 8}
+    assert {p.kc for p, _, _ in plans} == {0, buf_ops.DOT_STREAM_K}
 
 
 @pytest.mark.parametrize("m,k,n,bias,bits", DOT_CASES)

@@ -195,11 +195,17 @@ def test_dropout_without_seeds_raises(use_pallas):
 
 @pytest.mark.parametrize("use_pallas", [False, True])
 def test_drop_impl_masks_raises(use_pallas):
-    """The threefry-mask form needs JAX's threefry bits: not ported."""
+    """The threefry-mask form draws from a (2,) uint32 threefry key: with
+    seeds and no key, or with a (4,) key of JAX's rbg generators, it
+    refuses to train."""
     ref = jax_reference(3, False)
     cfg = port_cfg(dataclasses.replace(ref["cfg"], drop_impl="masks",
                                        use_pallas=use_pallas))
     params, state = from_jax(ref["pn"], ref["sn"], ref["cfg"])
-    with pytest.raises(NotImplementedError):
-        apply_cu_net(params, state, torch.from_numpy(ref["x"]), cfg=cfg,
-                     train=True, drop_seeds=ref["seeds"])
+    x = torch.from_numpy(ref["x"])
+    with pytest.raises(ValueError, match="drop_key"):
+        apply_cu_net(params, state, x, cfg=cfg, train=True,
+                     drop_seeds=ref["seeds"])
+    with pytest.raises(ValueError, match="uint32"):
+        apply_cu_net(params, state, x, cfg=cfg, train=True,
+                     drop_key=np.zeros(4, np.uint32))

@@ -17,7 +17,17 @@ against ``affine_dot_plain`` / ``affine_dx_plain`` bit for bit, and
 against the JAX package's ``_bottleneck_val`` / ``_norm_relu`` + ``_dot``
 (the bf16 limit) and ``_dot_dx`` with its ReLU and STE gates (the float32
 sum limit; PERF.md section 2).
+
+Where no layout keeps ``affine_dot``'s weight resident (K >= 888: the
+intermedia adapter of CU-Net-8's widths at order >= 6), the plan streams
+the weight by K chunk: every ``affine_dot`` and ``apply`` call of a
+CU-Net-8 forward and train forward at orders 6 and 14 has a plan that fits,
+every shape that planned before keeps the plan it had (a copy of the
+earlier search, ``resident_plan``), and the streamed partition's mirror
+joins the mirror cases.
 """
+
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -27,6 +37,7 @@ import torch
 from cunet_tpu.kernels.fused_hourglass import _bottleneck_val
 from cunet_tpu.kernels.train_slot import _dot, _dot_dx, _norm_relu, _ste_mask
 from cunet_tpu_torch.kernels import buf_ops, train_ops
+from cunet_tpu_torch.kernels import train_bottleneck as tbk
 from cunet_tpu_torch.kernels.buf_ops import SMEM_LIMIT, quantize_act
 from cunet_tpu_torch.kernels.train_slot import _affine_vec
 
@@ -216,10 +227,183 @@ def test_plans_are_functions_of_the_shapes_alone(monkeypatch):
 
 
 def test_plans_raise_where_nothing_fits():
-    with pytest.raises(ValueError, match="affine_dot"):
-        buf_ops.affine_dot_plan(1024, 4096, 128)
+    """``affine_dx`` raises where no layout fits; ``affine_dot`` streams
+    its weight where no resident layout fits, which fits at any K."""
+    p = buf_ops.affine_dot_plan(1024, 4096, 128)
+    assert p.kc == buf_ops.DOT_STREAM_K and p.smem <= SMEM_LIMIT
     with pytest.raises(ValueError, match="affine_dx"):
         train_ops.affine_dx_plan(1024, 128, 8192)
+
+
+# ---------------------------------------------------------------------------
+# the streamed weight: plans at large K
+# ---------------------------------------------------------------------------
+
+
+def _parent_layout(bm, k, n, split, stages, limit):
+    """``_dot_layout`` as it was before the streamed form (resident
+    weight only)."""
+    wn = buf_ops.DOT_WARPS // (bm // buf_ops.DOT_WARP_ROWS)
+    ncol = -(-(-(-n // split)) // (8 * wn)) * 8 * wn
+    ntw = ncol // (8 * wn)
+    if ntw > buf_ops.DOT_MAX_NTW:
+        return None
+    kp = -(-k // 16) * 16
+    w_bytes = -(-kp * ncol * 2 // 128) * 128
+    stage_bytes = -(-bm * (kp + 8) * 2 // 128) * 128
+    out_bytes = 8 * 16 * (ntw * 8 + 8) * 2
+    for st in stages:
+        out_off = w_bytes + st * stage_bytes
+        if out_off + out_bytes <= limit:
+            return buf_ops.DotPlan(bm=bm, ncol=ncol, ngrp=-(-n // ncol),
+                                   ntw=ntw, kp=kp, stages=st,
+                                   w_bytes=w_bytes, stage_bytes=stage_bytes,
+                                   out_off=out_off, smem=out_off + out_bytes)
+    return None
+
+
+def resident_plan(m, k, n):
+    """``affine_dot_plan`` as it was before the streamed form; None where
+    it raised."""
+    best = None
+    groups = -(-n // 128)
+    for split in (groups, 2 * groups):
+        for limit, stages, tiles in ((buf_ops.SMEM_PAIR, (2,), (128, 64)),
+                                     (SMEM_LIMIT, (3, 2), (128, 64, 32))):
+            for bm in tiles:
+                p = _parent_layout(bm, k, n, split, stages, limit)
+                if p is None or (limit == buf_ops.SMEM_PAIR and not (
+                        p.smem <= buf_ops.SMEM_PAIR
+                        and p.ntw <= buf_ops.PAIR_NTW)):
+                    continue
+                if p.items(m) >= buf_ops.DOT_ITEMS:
+                    return p
+                if best is None or p.items(m) > best.items(m):
+                    best = p
+    return best
+
+
+def _model_calls(monkeypatch, order, train, bn_tile=2):
+    """{(M, K, N)} of every ``affine_dot`` call (and with ``bn_tile=0``
+    every #7 ``apply`` call) of a forward of CU-Net-8's widths (c=128,
+    g=32, 16 classes) at ``order`` (layer_num max(8, order + 1)): eval on
+    the whole-model path at batch 8, or the train forward at batch 24
+    (ghost-BN tile 2, or ``bn_tile``), read from the port's forward on the
+    CPU at 64 x 64 images (M scales by 16) and batch 1 or 2 (M scales to
+    the batch)."""
+    from cunet_tpu_torch.config import ModelConfig
+    from cunet_tpu_torch.models import apply_cu_net, init_cu_net
+
+    layers = max(8, order + 1)
+    cfg = ModelConfig(layer_num=layers, order=order, class_num=16,
+                      loss_num=2, use_pallas=True, pallas_whole_model=True,
+                      bn_tile=bn_tile)
+    params, state = init_cu_net(cfg, torch.Generator().manual_seed(0),
+                                device="cpu")
+    n_img = 2 if train else 1
+    scale = 16 * (24 if train else 8) // n_img
+    calls = set()
+
+    def dot(x, vec, w, out, **kw):
+        calls.add((scale * x.shape[0], x.shape[1], w.shape[1]))
+        return buf_ops.affine_dot_plain(x, vec, w, out, kw.get("bias"),
+                                        kw.get("bits_i", 0))
+
+    def apply(xs, vec, w, out, table=None):
+        calls.add((scale * xs[0].shape[0], sum(x.shape[1] for x in xs),
+                   w.shape[1]))
+        return tbk.apply_plain(xs, vec, w, out)
+
+    for mod in ("buf_ops", "model_buf", "train_slot"):
+        target = getattr(__import__("cunet_tpu_torch.kernels." + mod,
+                                    fromlist=["x"]), "affine_dot", None)
+        if target is not None:
+            monkeypatch.setattr(f"cunet_tpu_torch.kernels.{mod}.affine_dot",
+                                dot)
+    monkeypatch.setattr(tbk, "apply", apply)
+    x = torch.rand(n_img, 64, 64, 3, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        apply_cu_net(params, state, x, cfg=cfg, train=train)
+    return calls
+
+
+# (order, train, bn_tile): the eval whole-model forward and the ghost-BN
+# train forward at orders 6 and 14; #7's apply at order 14
+MODEL_RUNS = [(6, False, 2), (14, False, 2), (6, True, 2), (14, True, 2),
+              (14, True, 0)]
+
+
+@pytest.mark.parametrize("order,train,bn_tile", MODEL_RUNS,
+                         ids=lambda v: str(v))
+def test_every_affine_dot_call_at_large_order_has_a_plan(
+        monkeypatch, order, train, bn_tile):
+    """Each call plans within the H100's shared memory (``apply`` with its
+    table chunks); the intermedia adapter streams (K = 128 (1 + order) >=
+    888, from slot 7 at order 6), no other call does, and every call that
+    planned before keeps that plan."""
+    calls = _model_calls(monkeypatch, order, train, bn_tile)
+    ks = {k for _, k, _ in calls}
+    assert 128 * (1 + order) in ks
+    streamed = set()
+    for m, k, n in sorted(calls):
+        p = buf_ops.affine_dot_plan(m, k, n)
+        assert p.smem <= SMEM_LIMIT and tbk.apply_smem(p) <= SMEM_LIMIT
+        before = resident_plan(m, k, n)
+        if before is not None:
+            assert p == before, (m, k, n)
+        else:
+            assert p.kc == buf_ops.DOT_STREAM_K and k >= 888, (m, k, n)
+            streamed.add(k)
+    assert streamed == {k for k in ks if k >= 888} != set()
+    assert streamed <= {128 * (1 + i) for i in range(order + 1)}
+
+
+def test_resident_plans_are_unchanged():
+    """Every shape of MAIN and TAILS, and every K up to 880 at the main
+    path's row counts, plans as before: no stream."""
+    for s in MAIN + TAILS:
+        m, k, n, _ = _shape(s)
+        assert buf_ops.affine_dot_plan(m, k, n) == resident_plan(m, k, n)
+    for k in range(8, 888, 8):
+        for m in (8 * 64 * 64, 24 * 64 * 64, 24 * 4 * 4):
+            want = resident_plan(m, k, 128)
+            assert want is not None and want.kc == 0
+            assert buf_ops.affine_dot_plan(m, k, 128) == want
+    assert resident_plan(8 * 64 * 64, 888, 128) is None
+
+
+@pytest.mark.parametrize("k", [888, 896, 1000, 1920, 4096])
+@pytest.mark.parametrize("m,n", [(8 * 64 * 64, 128), (24 * 64 * 64, 128),
+                                 (24 * 4 * 4, 128), (8 * 4 * 4, 16),
+                                 (1000, 72)])
+def test_stream_plan_covers_every_output_once(m, k, n):
+    p = buf_ops.affine_dot_plan(m, k, n)
+    assert p.kc == buf_ops.DOT_STREAM_K
+    assert p.kp % p.kc == 0 and p.kp - p.kc < k <= p.kp
+    assert p.bm in (32, 64, 128) and p.row_warps * p.col_warps == 8
+    assert p.ncol == 8 * p.ntw * p.col_warps
+    assert (p.ngrp - 1) * p.ncol < n <= p.ngrp * p.ncol
+    for grid in _grids(p.ngrp, p.items(m)):
+        assert (_items_once(p.tiles(m), p.ngrp, grid) == 1).all()
+    assert (_warp_cover(p.bm, p.row_warps, p.ntw) == 1).all()
+    # a stage: the chunk's weight, then its x columns at kc + 8
+    assert p.w_bytes >= p.kc * p.ncol * 2
+    assert p.stage_bytes >= p.w_bytes + p.bm * (p.kc + 8) * 2
+    assert p.out_off == p.stages * p.stage_bytes
+    assert p.smem == p.out_off + 8 * 16 * (8 * p.ntw + 8) * 2 <= SMEM_LIMIT
+    assert tbk.apply_smem(p) <= SMEM_LIMIT
+    assert all(v % 128 == 0 for v in (p.w_bytes, p.stage_bytes, p.out_off))
+    assert (p.kc + 8) * 2 // 16 % 2 == 1
+    # the swizzle repeats within 8 rows, so a chunk's rows keep the
+    # resident form's banks
+    nt = p.ncol // 8
+    sh, mk = _swizzle(nt)
+    rows = np.arange(p.kp)
+    assert (((rows >> sh) & mk) == (((rows % p.kc) >> sh) & mk)).all()
+    for j in range(nt):
+        slots = (rows * nt + (j ^ ((rows >> sh) & mk))) % 8
+        for r0 in range(0, p.kc, 8):
+            assert len(set(slots[r0:r0 + 8])) == 8
 
 
 # ---------------------------------------------------------------------------
@@ -265,11 +449,35 @@ def _plan_items(groups, tiles):
     return [(t, g) for g in range(groups) for t in range(tiles)]
 
 
+def _stream_item(x, rv, w, plan, rows, cols, bits_i):
+    """One item of the streamed kernel: each K chunk [c0, c0 + kc) of the
+    tile's x and of the group's weight slice loaded alone (zero past K),
+    the prologue on the chunk's columns below K only, the chunks laid side
+    by side into one accumulator's operands, cut back to K (the kernel's
+    last chunk stops at K rounded up to 16; the columns between are
+    zeros)."""
+    k = x.shape[1]
+    zs, ws = [], []
+    for c0 in range(0, plan.kp, plan.kc):
+        c1 = min(k, c0 + plan.kc)
+        xc = torch.zeros(len(rows), plan.kc, dtype=x.dtype)
+        wc = torch.zeros(plan.kc, cols.stop - cols.start, dtype=w.dtype)
+        xr = x[rows.start:rows.stop, c0:c1].float()
+        xc[:, :c1 - c0] = torch.relu(xr * rv[:, 0, c0:c1]
+                                     + rv[:, 1, c0:c1]).to(x.dtype)
+        wc[:c1 - c0] = w[c0:c1, cols]
+        zs.append(xc)
+        ws.append(wc)
+    z = torch.cat(zs, 1)[:, :k]
+    return quantize_act(z, bits_i).float() @ torch.cat(ws)[:k].float()
+
+
 def affine_dot_mirror(x, vec, w, plan, bias=None, bits_i=0):
     """affine_dot as its kernel cuts it: each (row tile, column group) item
     computed alone by the plain arithmetic (f32 affine per row's ghost
     tile, ReLU, bf16, quantizer, the product, the epilogue, one bf16
-    rounding), written into a NaN output."""
+    rounding), written into a NaN output; a streamed plan's items chunk by
+    chunk (``_stream_item``)."""
     m, k = x.shape
     n = w.shape[1]
     out = torch.full((m, n), float("nan"), dtype=torch.bfloat16)
@@ -277,9 +485,12 @@ def affine_dot_mirror(x, vec, w, plan, bias=None, bits_i=0):
         rows = range(t * plan.bm, min(m, (t + 1) * plan.bm))
         cols = slice(g * plan.ncol, min(n, (g + 1) * plan.ncol))
         rv = _row_vec(vec, rows, m)
-        xr = x[rows.start:rows.stop].float()
-        z = torch.relu(xr * rv[:, 0, :k] + rv[:, 1, :k]).to(x.dtype)
-        acc = quantize_act(z, bits_i).float() @ w[:k, cols].float()
+        if plan.kc:
+            acc = _stream_item(x, rv, w, plan, rows, cols, bits_i)
+        else:
+            xr = x[rows.start:rows.stop].float()
+            z = torch.relu(xr * rv[:, 0, :k] + rv[:, 1, :k]).to(x.dtype)
+            acc = quantize_act(z, bits_i).float() @ w[:k, cols].float()
         if bias is not None:
             acc = torch.relu(acc + bias[cols])
         out[rows.start:rows.stop, cols] = acc.to(out.dtype)
@@ -318,24 +529,56 @@ def _sum_limit(n, scale):
 # two groups (r=8, batch 24), eval 32-row tiles in two groups (r=16,
 # batch 8), 250-row ghost tiles across row tiles with the quantizer, one
 # tile, the face head's 72 columns, K = 40 with the BN2 epilogue, 64-row
-# tiles (r=16, batch 24)
+# tiles (r=16, batch 24); streamed: the intermedia adapter at order 6
+# (eval, r=16, batch 2) and 14 (per tile, r=4, batch 24), K = 1000 (a
+# partial last chunk, 250-row ghost tiles, the quantizer) with the
+# epilogue, N = 72
 MIRROR = [(24 * 8 * 8, 192, 128, 12, False, 0),
           (8 * 16 * 16, 160, 128, 0, True, 0), (1000, 136, 24, 4, True, 8),
           (300, 128, 72, 1, False, 0), (520, 40, 16, 0, True, 0),
-          (24 * 16 * 16, 128, 16, 12, False, 8)]
+          (24 * 16 * 16, 128, 16, 12, False, 8),
+          (2 * 16 * 16, 896, 128, 0, False, 0),
+          (24 * 4 * 4, 1920, 128, 12, False, 0),
+          (1000, 1000, 72, 4, True, 8)]
+
+
+def _exact_operands(rng, m, k, n, tiles):
+    """Operands whose float32 products and sums are exact in any order: x
+    on a grid of 1/16 below 8, [inv; shift] of 1/2, 1 or 2 and a multiple
+    of 1/16 (the prologue on a grid of 1/32 below 24, exact in bf16), a
+    weight of {-1, 0, 1} / 4 (every partial sum a multiple of 1/128 below
+    2^13 in magnitude: 20 bits)."""
+    x = torch.from_numpy(rng.integers(-127, 128, (m, k)) / 16.0).to(
+        torch.bfloat16)
+    inv = torch.from_numpy(rng.choice([0.5, 1.0, 2.0], (max(tiles, 1), k)))
+    shift = torch.from_numpy(rng.integers(-16, 17, (max(tiles, 1), k))
+                             / 16.0)
+    vec = torch.stack([inv, shift], 1).float()
+    w = torch.from_numpy(rng.integers(-1, 2, (k, n)) / 4.0).to(
+        torch.bfloat16)
+    return x, (vec if tiles else vec[0]), w
 
 
 @pytest.mark.parametrize("m,k,n,tiles,flag,bits", MIRROR)
 def test_affine_dot_partition_matches_plain_and_jax(m, k, n, tiles, flag,
                                                     bits):
+    """The mirror bit for bit the plain version; at a streamed plan on
+    ``_exact_operands`` (the CPU's float32 product sums a long K in an
+    order that depends on the rows of the call), then on the random
+    operands within the bf16 limit of JAX."""
     rng = np.random.default_rng(m + k + n)
     x, vec, bn, st, w, bias = _operands(rng, m, k, n, tiles)
     b = bias if flag else None
     plan = buf_ops.affine_dot_plan(m, k, n)
-    got = affine_dot_mirror(x, vec, w, plan, b, bits)
+    xe, ve, we = (x, vec, w) if not plan.kc else _exact_operands(
+        rng, m, k, n, tiles)
+    got = affine_dot_mirror(xe, ve, we, plan, b, bits)
     plain = torch.empty(m, n, dtype=torch.bfloat16)
-    buf_ops.affine_dot_plain(x, vec, w, plain, b, bits)
+    buf_ops.affine_dot_plain(xe, ve, we, plain, b, bits)
     assert torch.equal(got, plain)
+    if plan.kc:
+        assert (plain != 0).float().mean() > 0.25
+        got = affine_dot_mirror(x, vec, w, plan, b, bits)
     if bits:
         return        # JAX's _norm_relu / _bottleneck_val have no quantizer
     if tiles:

@@ -343,14 +343,18 @@ def test_eval_step_matches_jax():
 
 
 @pytest.mark.parametrize("change", [
-    dict(drop_rate=0.2, drop_impl="masks"),  # threefry masks: not ported
+    # threefry masks draw from a key; a Generator serves the seed form only
+    dict(drop_rate=0.2, drop_impl="masks"),
 ])
 def test_unported_train_options_raise(change):
     cfg = dataclasses.replace(_cfg(2, 1), **change)
     params, state = from_jax(*np_weights(_cfg(2, 1)), cfg=cfg)
-    with pytest.raises(NotImplementedError):
-        apply_cu_net(params, state, torch.zeros(2, SIZE, SIZE, 3), cfg=cfg,
-                     train=True)
+    st = create_train_state(params, state, TrainConfig())
+    batch = {"image": torch.zeros(2, SIZE, SIZE, 3),
+             "heatmap": torch.zeros(2, SIZE // 4, SIZE // 4, cfg.class_num)}
+    with pytest.raises(ValueError, match="rng="):
+        train_step(st, batch, cfg=cfg, generator=torch.Generator())
+    assert st.step == 0
 
 
 def test_cpu_train_step_launches_no_kernel():

@@ -158,9 +158,12 @@ Phases, each printing one line (or a few) before the last:
    ``affine_dot`` / ``conv3x3``, ``affine_dx``, ``affine_dw``, ``bn_bwd``,
    ``conv3x3_dx``, ``conv3x3_dw``, the pool / upsample backward) against
    their plain versions at r = 64 ... 4 and tiles 2 and 6 within the
-   float32 n-term limit, each timed at r=64, tile 2 beside its bound and
-   library call; bit for bit under one-hot operands; one bf16 pass of the
-   cotangent breaking the input gradients' limits; (b) the tile-6 step
+   float32 n-term limit, at r=64 a second call bit for bit the first,
+   each timed at r=64, tile 2 beside its bound and library call; bit for
+   bit under one-hot operands; one bf16 pass of the cotangent breaking the
+   input gradients' limits; ``affine_dw[f32]`` at order 14's intermedia
+   adapter, K = 1,920 -> 128, against its plain version, timed beside
+   ``torch.mm`` of its product and its bound; (b) the tile-6 step
    against the swap step (the same path on the forms' plain versions)
    within max(2c, 1e-5), c the largest of three tile-preserving permuted
    controls, the plain path beside both, a bit-identical repeat, dropout
@@ -4536,10 +4539,12 @@ def phase_slot_f32_kernels(torch, tops, bops):
     """Phase 14 (a): the ten forms against their plain versions at float32
     (TF32 off) at every resolution r = 64 ... 4 and tiles 2 and 6 (a tile
     of 96 rows at r=4 does not divide a 128-row block), each output within
-    the float32 n-term limit; the r=64 tile-2 case of each (upsample2_bwd:
-    r=32) timed beside its plain version, its bound, its library call or
-    the product alone, and the float32 FMA time of its products; bit for
-    bit under one-hot operands, one bf16 pass of dy caught."""
+    the float32 n-term limit, and at r=64 a second call bit for bit the
+    first; the r=64 tile-2 case of each (upsample2_bwd: r=32) timed beside
+    its plain version, its bound, its library call or the product alone,
+    and the float32 FMA time of its products; bit for bit under one-hot
+    operands, one bf16 pass of dy caught; ``affine_dw[f32]`` at order 14's
+    intermedia adapter width (``wide_dw_check``)."""
     gen = torch.Generator().manual_seed(18)
     plain = {**bops.PLAIN, **tops.PLAIN}
     results = {}
@@ -4556,6 +4561,13 @@ def phase_slot_f32_kernels(torch, tops, bops):
                 label = f"{label} tile {tile}"
                 require(ok, f"{row} [{label}] disagrees with its plain "
                             f"version: {err} ({share:.3g} of its limit)")
+                if r == 64:
+                    again = call(kern)
+                    torch.cuda.synchronize()
+                    require(all(torch.equal(a, b) for a, b in
+                                zip(got, again)),
+                            f"{row} [{label}]: a second call differs from "
+                            f"the first")
                 if row in results:
                     results[row]["max_abs_err"] = max(
                         results[row]["max_abs_err"], err)
@@ -4577,9 +4589,85 @@ def phase_slot_f32_kernels(torch, tops, bops):
                       f"{product_text(prod_ms)}{fma}", flush=True)
                 record(results, row, err, ms, plain_ms, label, w, lib_ms,
                        prod_ms)
+    print("slot f32: every r=64 case bit for bit on a second call",
+          flush=True)
+    wide_dw_check(torch, tops, gen)
     for row in results:
         results[row]["one_hot_exact"] = exact.get(row)
     return results
+
+
+# order 14's intermedia adapter: c * (1 + order) channels of CU-Net-8
+WIDE_DW_K = 128 * 15
+
+
+def wide_dw_check(torch, tops, gen):
+    """``affine_dw[f32]`` at K = ``WIDE_DW_K`` -> 128 (r=64, batch 24, tile
+    2) against its plain version within the float32 M-term limit, timed
+    beside the plain version, ``torch.mm`` of the product alone and its
+    bound."""
+    from cunet_tpu_torch.kernels.train_slot import _affine_vec
+
+    m, k, c = TRAIN_BATCH * 64 * 64, WIDE_DW_K, 128
+    tiles = TRAIN_BATCH // BN_TILE
+    x = torch.randn(m, k, generator=gen).cuda()
+    st = tops.bn_stats_plain(x, torch.empty(tiles, 2, k, device="cuda"))
+    bn = torch.stack([torch.rand(k, generator=gen) + 0.5,
+                      torch.randn(k, generator=gen) * 0.3]).cuda()
+    v = _affine_vec(st, bn, 1e-5)
+    dy = torch.randn(m, c, generator=gen).cuda()
+    out = torch.empty(k, c, device="cuda")
+
+    def call(f):
+        return [f(x, v, dy, out.clone())]
+
+    got, want = call(tops.affine_dw), call(tops.affine_dw_plain)
+    torch.cuda.synchronize()
+    err, share, ok = output_errors(torch, got, want, [("sum", m)])
+    label = f"K={k}->{c} r=64 tile {BN_TILE}"
+    require(ok, f"affine_dw[f32] [{label}] disagrees with its plain "
+                f"version: {err} ({share:.3g} of its limit)")
+    ms = cuda_time_ms(lambda: tops.affine_dw(x, v, dy, out))
+    plain_ms = cuda_time_ms(lambda: tops.affine_dw_plain(x, v, dy, out),
+                            iters=3)
+    prod_ms = cuda_time_ms(lambda: torch.mm(x.t(), dy))
+    bms, by = bound(work(sz(m, k, e=4) + sz(m, c, e=4) + sz(k, c, e=4)
+                         + sz(tiles, 2, k, e=4), 6 * 2 * m * k * c, "bf16"))
+    print(f"slot f32 kernel affine_dw[f32] [{label}]: max_abs_err {err:.4g} "
+          f"({share:.3g} of its float32 limit), {ms * 1e3:.1f} us vs plain "
+          f"{plain_ms * 1e3:.1f} us, bound {bms * 1e3:.1f} us ({by})"
+          f"{product_text(prod_ms)}", flush=True)
+
+
+def dw_f32_times(torch, tops, bops):
+    """The float32 weight gradients (the ghost-BN step's ``affine_dw[f32]``
+    and ``conv3x3_dw[f32]``, the quantized model's ``[f32,bits_i]`` forms)
+    at phase 14's operands, r = 64 ... 4 and tiles 2 and 6: each against
+    its plain version, timed (CUDA-graph replay) beside ``torch.mm`` /
+    ``conv2d_weight`` of its product, and the wide ``affine_dw[f32]``.
+    Two checkouts' times of one call compare their kernels
+    (``tools/kernel_times.py --dw``)."""
+    gen = torch.Generator().manual_seed(18)
+    plain = {**bops.PLAIN, **tops.PLAIN}
+    for tile in SLOT_F32_TILES:
+        for r in CONV_RES:
+            o = slot_f32_operands(torch, tops, gen, r, tile)
+            cases = [(c[0], c[1], c[2], c[3], c[4], c[-2] or c[-1])
+                     for c in slot_f32_cases(torch, tops, bops, o)
+                     + quant_f32_cases(torch, tops, bops, o)
+                     if "_dw[" in c[0]]
+            for row, kern, label, call, bounds, lib in cases:
+                got, want = call(kern), call(plain[kern])
+                torch.cuda.synchronize()
+                err, share, ok = output_errors(torch, got, want, bounds)
+                require(ok, f"{row} [{label} tile {tile}] disagrees with "
+                            f"its plain version: {err}")
+                ms = cuda_time_ms(lambda: call(kern))
+                lib_ms = cuda_time_ms(lib)
+                print(f"dw time {row} [{label} tile {tile}]: "
+                      f"{ms * 1e3:.1f} us, library or product "
+                      f"{lib_ms * 1e3:.1f} us", flush=True)
+    wide_dw_check(torch, tops, gen)
 
 
 def slot_f32_counts(tops, bops) -> dict:

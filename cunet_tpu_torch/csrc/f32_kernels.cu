@@ -24,14 +24,15 @@
 // block), the conv's BN2 prologue, and a gate epilogue (kEpiGate: the
 // backward's ReLU mask of the stage input), so that affine_dx and
 // conv3x3_dx run as dot3_kernel on the float32 cotangent through the
-// transposed (flipped) weight, no prologue; dw3_kernel below takes the
-// weight gradients, the product over the rows.
+// transposed (flipped) weight, no prologue; the weight gradients, the
+// product over the rows, are dw_f32_kernels.cu's.
 // The QuanInput options of the quantized model's training (W1/I8/G8 at
 // float32): a prologue quantizer quan(relu(x * inv + shift), bits) on the
 // unrounded float32 value (the bf16 forms' act() rounds to bf16 first;
 // here nothing rounds but the affine's product and sum), in the 1x1
-// forward (the head), the conv's BN2 prologue and dw3_kernel's z; and the
-// straight-through gate 0 < z < 1 in the gate epilogue (ste). A code
+// forward (the head) and the conv's BN2 prologue (dw_f32_kernels.cu's z
+// takes the same quantizer); and the straight-through gate 0 < z < 1 in
+// the gate epilogue (ste). A code
 // k / 2^(bits-1) with bits <= 9 has at most 8 significant bits, one bf16
 // plane: its second and third planes are zero, so those forms skip the
 // three products of the x planes 2 and 3 (exact: they add zeros).
@@ -40,8 +41,8 @@
 // fused_hourglass.py:75), #4 (fused_hourglass.py::_bottleneck_val :229),
 // #5 (fused_block.py::fused_dense_block_infer :207) and #6
 // (fused_bottleneck.py :76, :178), and the products of #8/#9
-// (train_slot.py::_dot :172, _conv3x3_t :647, _dot_dx :541, _dot_dw :549,
-// _conv3x3_bwd :732), which run float32 x float32 products with float32
+// (train_slot.py::_dot :172, _conv3x3_t :647, _dot_dx :541, the d_z2 half
+// of _conv3x3_bwd :732), which run float32 x float32 products with float32
 // accumulation at compute_dtype="float32".
 //
 // Arithmetic: float32-accurate on the tensor cores. Both operands are split
@@ -274,8 +275,7 @@ __device__ __forceinline__ void add_acc3(Acc3<BN, WARPS_N>& acc,
 // three products are the only nonzero ones: the same sums. Fragment i of
 // x plane p at depth step kk is at a + p * a_plane + a0 + i * 16 * row_step
 // + kk * k_step, leading dimension lda (dot3_kernel's row-major tile:
-// row_step lda, k_step 1; dw3_kernel's depth-major z: row_step 1, k_step
-// lda).
+// row_step lda, k_step 1, ALayout row_major).
 template <int BN, int WARPS_N, int XP, typename ALayout>
 __device__ __forceinline__ void chunk_products(
     const bf16* a, int a_plane, int a0, int row_step, int k_step, int lda,
@@ -683,227 +683,6 @@ __global__ void __launch_bounds__(kThreads)
                                       acc[NOUT - 1]);
 }
 
-// ---------------------------------------------------------------------------
-// dw3_kernel: the float32 weight gradients of the slot train step's 1x1
-// stages and 3x3 conv (train_ops.affine_dw / conv3x3_dw at float32), a
-// reduction over the M rows:
-//   part[s, r, n] = sum over split s's rows m of z(m, r) * dy[m, n]
-// with z(m, r) = relu(x[src, c] * inv_t[c] + shift_t[c]) of the stage input
-// x, t = m / tile_rows m's ghost-BN tile; 1x1 (R = C rows): c = r, src = m;
-// 3x3 (R = 9C, tap-major): tap = r / C, c = r % C, src = m + dy*W + dx, zero
-// where the tap leaves m's image (the SAME padding of the activation).
-// train_ops.sum_rows adds the splits' partials in order, so two calls give
-// the same bits. It replaces, at float32, _dot_dw (cunet_tpu/kernels/
-// train_slot.py:549) and the dW3 half of _conv3x3_bwd (:732), which JAX
-// runs as float32 x float32 products at compute_dtype="float32".
-//
-// dot3_kernel's arithmetic over the other axis: the product's depth is M.
-// A block owns 128 output rows by BN columns and one split of M, walked in
-// chunks of BK3 rows: each thread loads two 8-row vectors of x (16-byte
-// loads along the channels) and applies the prologue in registers, and up
-// to two 8-column vectors of dy, a chunk ahead; commit splits both into
-// three bf16 planes, z's stored depth-major (the A tile of the product
-// transposed, read by WMMA as column-major: no transpose in memory), and 8
-// warps take the six plane products a k16 step in dot3_kernel's order.
-// ---------------------------------------------------------------------------
-template <int BN>
-struct SmemDw {
-  static constexpr int AS = BM + kPad;        // z plane row (a depth row)
-  static constexpr int BS = BN + kPad;
-  static constexpr int A_PLANE = BK3 * AS;    // elements
-  static constexpr int B_PLANE = BK3 * BS;
-  static constexpr int A_BYTES = 3 * A_PLANE * 2;
-  static constexpr int RAW = (A_BYTES + 3 * B_PLANE * 2 + 127) / 128 * 128;
-  static constexpr int kBytes = RAW + kWarps * 256 * 4;
-};
-
-// The stage input of a weight gradient, its per-tile BN vectors (16-byte
-// aligned rows: vstride and C multiples of 4), the conv's images, and
-// QuanInput's bits on z (0: none; 1-9 one bf16 plane, as in dot3_kernel).
-struct DwSrc {
-  const float* x;
-  long long ldx;
-  const float* inv;
-  const float* shift;
-  long long vstride;
-  long long tile_rows;
-  int C;
-  int H, W;
-  int bits;
-};
-
-template <int BN, int WARPS_N, bool CONV, bool QUANT>
-__global__ void __launch_bounds__(kThreads)
-    dw3_kernel(const __grid_constant__ DwSrc s, long long M, int R,
-               const float* __restrict__ dy, long long ldd, int N, int dvec,
-               float* __restrict__ part, int nsplit) {
-  using T = Tiles<BN, WARPS_N>;
-  using S = SmemDw<BN>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* const A = reinterpret_cast<bf16*>(smem);
-  bf16* const B = reinterpret_cast<bf16*>(smem + S::A_BYTES);
-  float* const stage = reinterpret_cast<float*>(smem + S::RAW);
-  const int warp = threadIdx.x / 32;
-  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-  const int r0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-
-  Acc3<BN, WARPS_N> acc;
-  zero_acc3<BN, WARPS_N>(acc);
-
-  // z: this thread's 8 output rows rr .. rr + 7 (one channel vector of one
-  // tap) at depth rows kl + j * kAStep of each chunk
-  constexpr int kRV = BM / 8;
-  constexpr int kAStep = kThreads / kRV;
-  constexpr int kAV = BK3 / kAStep;
-  constexpr int kBVecs = BK3 * BN / 8;
-  constexpr int kBV = (kBVecs + kThreads - 1) / kThreads;
-  const int rr = (threadIdx.x % kRV) * 8, kl = threadIdx.x / kRV;
-  const int r = r0 + rr;
-  const bool rok = r < R;
-  const int tap = CONV ? r / s.C : 0;
-  const int c = CONV ? r - tap * s.C : r;
-  const int ty = tap / 3 - 1, tx = tap % 3 - 1;
-  const QuanConst qc = quan_const(QUANT ? s.bits : 0);   // z's quantizer
-  const bool one = QUANT && s.bits >= 1 && s.bits <= 9;
-  float ar[kAV][8], br[kBV][8];
-
-  const auto fetch = [&](int k0) {
-#pragma unroll
-    for (int j = 0; j < kAV; ++j) {
-      const long long m = k0 + kl + j * kAStep;
-      bool ok = rok && m < M;
-      long long src = m;
-      if (CONV && ok) {
-        const int pix = (int)(m % ((long long)s.H * s.W));
-        const int sy = pix / s.W + ty, sx = pix % s.W + tx;
-        ok = sy >= 0 && sy < s.H && sx >= 0 && sx < s.W;
-        src = m + ty * s.W + tx;
-      }
-#pragma unroll
-      for (int e = 0; e < 8; ++e) ar[j][e] = 0.f;
-      if (ok) {
-        float v[8], a[8], b[8];
-        const long long o = m / s.tile_rows * s.vstride + c;
-        load8f(s.x + src * s.ldx + c, true, v);
-        load8f(s.inv + o, true, a);
-        load8f(s.shift + o, true, b);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          ar[j][e] = fmaxf(affine(v[e], a[e], b[e]), 0.f);
-          if constexpr (QUANT) ar[j][e] = quan(ar[j][e], qc);
-        }
-      }
-    }
-#pragma unroll
-    for (int t = 0; t < kBV; ++t) {
-      const int q = threadIdx.x + t * kThreads;
-      const long long m = k0 + q / (BN / 8);
-      const int n = n0 + (q % (BN / 8)) * 8;
-#pragma unroll
-      for (int e = 0; e < 8; ++e) br[t][e] = 0.f;
-      if (q < kBVecs && m < M && n < N) {
-        const float* p = dy + m * ldd + n;
-        if (dvec && n + 8 <= N) {
-          load8f(p, true, br[t]);
-        } else {
-#pragma unroll
-          for (int e = 0; e < 8; ++e)
-            if (n + e < N) br[t][e] = p[e];
-        }
-      }
-    }
-  };
-  const auto commit = [&]() {
-#pragma unroll
-    for (int j = 0; j < kAV; ++j) {
-      bf16* p = A + (kl + j * kAStep) * S::AS + rr;
-      if (QUANT && one)
-        store_plane1(ar[j], p);
-      else
-        store_planes(ar[j], p, p + S::A_PLANE, p + 2 * S::A_PLANE);
-    }
-#pragma unroll
-    for (int t = 0; t < kBV; ++t) {
-      const int q = threadIdx.x + t * kThreads;
-      if (q >= kBVecs) break;
-      bf16* p = B + (q / (BN / 8)) * S::BS + (q % (BN / 8)) * 8;
-      store_planes(br[t], p, p + S::B_PLANE, p + 2 * S::B_PLANE);
-    }
-  };
-
-  const long long nchunk = (M + BK3 - 1) / BK3;
-  const long long k_beg = blockIdx.z * nchunk / nsplit * BK3;
-  const long long k_end = (blockIdx.z + 1) * nchunk / nsplit * BK3;
-  if (k_beg < k_end) fetch((int)k_beg);
-  for (long long k0 = k_beg; k0 < k_end; k0 += BK3) {
-    commit();
-    __syncthreads();
-    if (k0 + BK3 < k_end) fetch((int)(k0 + BK3));
-    Acc3<BN, WARPS_N> part;      // the chunk's sums (add_acc3)
-    zero_acc3<BN, WARPS_N>(part);
-    if constexpr (QUANT) {
-      if (one)
-        chunk_products<BN, WARPS_N, 1, wmma::col_major>(
-            A, S::A_PLANE, wm * T::WM, 1, S::AS, S::AS, B, S::B_PLANE, S::BS,
-            wn, part);
-      else
-        chunk_products<BN, WARPS_N, 3, wmma::col_major>(
-            A, S::A_PLANE, wm * T::WM, 1, S::AS, S::AS, B, S::B_PLANE, S::BS,
-            wn, part);
-    } else {
-      chunk_products<BN, WARPS_N, 3, wmma::col_major>(
-          A, S::A_PLANE, wm * T::WM, 1, S::AS, S::AS, B, S::B_PLANE, S::BS, wn,
-          part);
-    }
-    add_acc3<BN, WARPS_N>(acc, part);
-    __syncthreads();
-  }
-  Op3 op = {};
-  op.out = OutViewOf<float>{part + (long long)blockIdx.z * R * N, N, R, 0};
-  op.ovec = N % 4 == 0;
-  store_out3<BN, WARPS_N, kEpiNone>(stage, wm, wn, r0, n0, R, N, op, acc);
-}
-
-template <int BN, int WARPS_N, bool CONV, bool QUANT>
-int launch_dw3(const DwSrc& s, long long M, int R, const float* dy,
-               long long ldd, int N, float* part, int splits, int smem,
-               cudaStream_t st) {
-  constexpr int bytes = SmemDw<BN>::kBytes;
-  if (smem != bytes) return (int)cudaErrorInvalidValue;
-  auto kern = dw3_kernel<BN, WARPS_N, CONV, QUANT>;
-  const cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (e != cudaSuccess) return (int)e;
-  const dim3 grid((unsigned)((R + BM - 1) / BM), (unsigned)((N + BN - 1) / BN),
-                  (unsigned)splits);
-  const int dvec = ldd % 4 == 0 && reinterpret_cast<uintptr_t>(dy) % 16 == 0;
-  kern<<<grid, kThreads, bytes, st>>>(s, M, R, dy, ldd, N, dvec, part,
-                                      splits);
-  return (int)cudaGetLastError();
-}
-
-template <bool CONV, bool QUANT>
-int dw3_forms(const DwSrc& s, long long M, int R, const float* dy,
-              long long ldd, int N, float* part, int bn, int splits, int smem,
-              cudaStream_t st) {
-  switch (bn) {
-    case 16:
-      return launch_dw3<16, 1, CONV, QUANT>(s, M, R, dy, ldd, N, part,
-                                            splits, smem, st);
-    case 32:
-      return launch_dw3<32, 2, CONV, QUANT>(s, M, R, dy, ldd, N, part,
-                                            splits, smem, st);
-    case 64:
-      return launch_dw3<64, 2, CONV, QUANT>(s, M, R, dy, ldd, N, part,
-                                            splits, smem, st);
-    case 128:
-      return launch_dw3<128, 2, CONV, QUANT>(s, M, R, dy, ldd, N, part,
-                                             splits, smem, st);
-  }
-  return (int)cudaErrorInvalidValue;
-}
-
 // One instance: its dynamic shared memory raised past 48 KB once, then the
 // launch. ``smem`` is the plan's (buf_ops.dot3_plan); a plan that disagrees
 // with the kernel's layout is refused.
@@ -1181,44 +960,6 @@ int cunet_affine_f32(const void* x, long long ldx, long long M, int K,
 #undef CUNET_AFFINE3
   }
   return (int)cudaErrorInvalidValue;
-}
-
-// The float32 weight gradients (dw3_kernel): x (M, C) at row stride ldx,
-// its per-tile vectors, dy (M, N) at row stride ldd; conv 0: the 1x1
-// stage's (C, N) gradient, conv 1: the 3x3 conv's packed (9C, N) one over
-// images H x W; bits: QuanInput's quantizer on z. Writes ``splits``
-// float32 partials (splits, R, N) to ``part``; ``bn``, ``smem`` and
-// ``splits`` from train_ops.dw3_plan.
-int cunet_dw_f32(const void* x, long long ldx, long long M, int C, int H,
-                 int W, int conv, const void* inv, const void* shift,
-                 long long vstride, long long tile_rows, const void* dy,
-                 long long ldd, int N, void* part, int bits, int bn, int smem,
-                 int splits, void* stream) {
-  if (C % 8 || vstride % 4 || tile_rows < 1 || splits < 1)
-    return (int)cudaErrorInvalidValue;
-  DwSrc s;
-  s.x = static_cast<const float*>(x);
-  s.ldx = ldx;
-  s.inv = static_cast<const float*>(inv);
-  s.shift = static_cast<const float*>(shift);
-  s.vstride = vstride;
-  s.tile_rows = tile_rows;
-  s.C = C;
-  s.H = H;
-  s.W = W;
-  s.bits = bits;
-  const auto* d = static_cast<const float*>(dy);
-  auto* pp = static_cast<float*>(part);
-  const auto st = static_cast<cudaStream_t>(stream);
-  if (bits)
-    return conv ? dw3_forms<true, true>(s, M, 9 * C, d, ldd, N, pp, bn,
-                                        splits, smem, st)
-                : dw3_forms<false, true>(s, M, C, d, ldd, N, pp, bn, splits,
-                                         smem, st);
-  return conv ? dw3_forms<true, false>(s, M, 9 * C, d, ldd, N, pp, bn, splits,
-                                       smem, st)
-              : dw3_forms<false, false>(s, M, C, d, ldd, N, pp, bn, splits,
-                                        smem, st);
 }
 
 }  // extern "C"

@@ -24,7 +24,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("buf_kernels.cu", "train_kernels.cu", "quant_kernels.cu",
-           "bottleneck_kernels.cu", "eval_kernels.cu", "f32_kernels.cu")
+           "bottleneck_kernels.cu", "eval_kernels.cu", "f32_kernels.cu",
+           "dw_f32_kernels.cu")
 HEADERS = ("common.cuh", "halo.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -108,8 +109,8 @@ def _declare(lib):
                               P, P, L, I, I, I, I, I, P, P],
         "cunet_affine_f32": [P, L, L, I, P, P, L, L, P, I, I, P, L, P, P, P,
                              L, L, L, I, I, I, I, P],
-        "cunet_dw_f32": [P, L, L, I, I, I, I, P, P, L, L, P, L, I, P, I, I,
-                         I, I, P],
+        "cunet_dw_f32": [P, L, I, I, I, I, I, P, P, L, I, I, P, L, I, P,
+                         *[I] * 12, P],
         "cunet_bn_stats": [P, L, L, L, I, P, I, I, I, P],
         "cunet_bn_bwd": [P, L, P, L, L, L, I, P, P, F, P, L, I, P,
                          *[I] * 7, P],

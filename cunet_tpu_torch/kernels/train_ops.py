@@ -30,16 +30,16 @@ each tile's rows across a cluster of blocks (``stats_plan_f32``);
 ``affine_dx`` and ``conv3x3_dx`` run the
 float32 product kernel of ``csrc/f32_kernels.cu`` (``buf_ops``' float32
 forms) on the cotangent through the transposed (flipped) weight, gated
-in its epilogue; ``affine_dw`` and ``conv3x3_dw`` its weight-gradient
-kernel ``dw3_kernel`` (plan ``dw3_plan``), per-split partials added by
-``sum_rows``. Every product splits both float32 operands exactly into
-three bf16 planes and sums six plane products: the float32 cotangent is
-never rounded, as JAX's ``_dot_dx`` / ``_dot_dw`` do not round it at
-float32. ``<wrapper>.f32_launches`` counts those launches (also in
-``launches``). The QuanInput options run at float32 too (the quantized
-model's training at ``compute_dtype="float32"``): the dx forms' ``ste``
-gate (0 < z < 1 on the unrounded affine) in the epilogue, the dW forms'
-``bits_i`` quantizer on the unrounded float32 z, counted in
+in its epilogue; ``affine_dw`` and ``conv3x3_dw`` the weight-gradient
+kernel of ``csrc/dw_f32_kernels.cu`` (plan ``dw_f32_plan``), per-run
+partials added by ``sum_rows``. Every product splits both float32
+operands exactly into three bf16 planes and sums six plane products: the
+float32 cotangent is never rounded, as JAX's ``_dot_dx`` / ``_dot_dw`` do
+not round it at float32. ``<wrapper>.f32_launches`` counts those launches
+(also in ``launches``). The QuanInput options run at float32 too (the
+quantized model's training at ``compute_dtype="float32"``): the dx forms'
+``ste`` gate (0 < z < 1 on the unrounded affine) in the epilogue, the dW
+forms' ``bits_i`` quantizer on the unrounded float32 z, counted in
 ``<wrapper>.f32_option_launches`` (also in ``option_launches``).
 """
 
@@ -54,9 +54,6 @@ import torch.nn.functional as F
 from cunet_tpu_torch.kernels import build
 from cunet_tpu_torch.kernels.buf_ops import (
     BF16,
-    DOT3_DEPTH,
-    DOT3_ROWS,
-    DOT_WARPS,
     F32,
     SMEM_LIMIT,
     SMEM_PAIR,
@@ -70,7 +67,6 @@ from cunet_tpu_torch.kernels.buf_ops import (
     count_f32,
     count_f32_options,
     count_options,
-    dot3_plan,
     launch_affine_f32,
     launch_conv3x3_f32,
     quantize_act,
@@ -124,10 +120,17 @@ DX_TILES = 128
 # order of every sum, depend on the shapes alone
 DW_STEP_ROWS = 128
 DW_RUNS = 128
-# the float32 weight gradients (csrc/f32_kernels.cu dw3_kernel): the blocks
-# their plan aims at, one on each of the card's 132 SMs (a constant, so the
-# splits, and the order of every sum, depend on the shapes alone)
-DW3_BLOCKS = 132
+# the float32 weight gradients (csrc/dw_f32_kernels.cu): the blocks their
+# plan aims at for each share of an SM (a block of 12 warps takes a whole
+# SM, one of 6 half; 132 SMs; a constant, so the runs, and the order of
+# every sum, depend on the shapes alone) and the fewest it takes before it
+# shortens the steps, the rows a step (the 3x3 form from 64, the 1x1 form
+# from 32), and the most channels a block of the 3x3 and the 1x1 form
+DW_F32_BLOCKS = 132
+DW_F32_MIN_BLOCKS = 96
+DW_F32_STEPS = (64, 32, 16)
+DW_F32_CONV_KC = 64
+DW_F32_KC = 144
 
 
 def _check_f32(t: torch.Tensor, name: str, dev: torch.device) -> None:
@@ -774,6 +777,16 @@ def affine_dw(x, vec, dy, out, *, bits_i=0):
     same bits. On an H100 80GB HBM3 at 700 W (PERF.md section 6, PR 10):
     53.8 us at r=64 with its ``sum_rows`` (the WMMA kernel before it
     203.6; ``torch.mm`` of the product alone 33.3), 7.4 at r=4.
+
+    Float32 (``_dw_f32``): both operands in three bf16 planes, six plane
+    products; bound by bytes (37.6 us at K=192). The kernel of ``csrc/
+    dw_f32_kernels.cu`` (plan ``dw_f32_plan``): raw rows by cp.async,
+    the prologue (and quantizer) and split once an element into shared
+    memory, mma.sync over 12 warps, one block an SM (6 warps, two an SM,
+    at N <= 32, the heads). On an H100 80GB HBM3 at 700 W (PERF.md section
+    6): 149.5-151.5 us at r=64, K=192 -> 128 with its ``sum_rows`` (the
+    kernel before it 236.6, ``torch.mm`` of the product 108.3-109.1), the
+    quantized head 128 -> 16 55.5-56.1 (69.4).
     """
     m, k = x.shape
     n = dy.shape[1]
@@ -802,50 +815,165 @@ def affine_dw(x, vec, dy, out, *, bits_i=0):
     return out
 
 
+def _plane_stride(cols: int) -> int:
+    """Bytes of a bf16 plane row of ``cols`` columns: an odd number of
+    16-byte chunks (``csrc/dw_f32_kernels.cu::plane_stride``)."""
+    v = cols // 8
+    return (v if v % 2 else v + 1) * 16
+
+
+def dw_f32_smem(br: int, halo: int, kc: int, ncol: int, stages: int) -> int:
+    """Shared memory of the float32 weight-gradient kernel (``csrc/
+    dw_f32_kernels.cu::dw_layout``): three z planes of a ring of
+    2 * halo + 2 chunks of ``br`` rows and a zero row, two buffers of three
+    dy planes, ``stages`` raw buffers of br rows of float32 x and dy."""
+    ring = 3 * ((2 * halo + 2) * br + 1) * _plane_stride(kc)
+    dy = 6 * br * _plane_stride(ncol)
+    return _up(ring, 128) + _up(dy, 128) + stages * br * (kc + ncol) * 4
+
+
 @dataclasses.dataclass(frozen=True)
-class Dw3Plan:
-    """How the float32 weight-gradient kernel (``csrc/f32_kernels.cu``
-    ``dw3_kernel``) cuts z^T dy for R output rows (K channels, or 9*Cb
-    tap-major) and N columns over M rows: blocks of ``DOT3_ROWS`` output
-    rows by ``bn`` columns, M in chunks of ``DOT3_DEPTH`` rows, the chunks
-    in ``splits`` runs, each summed into one (R, N) partial; ``smem``
-    bytes of shared memory (three bf16 planes of the z chunk, depth-major,
-    and of the dy chunk, then the warps' stages)."""
-    bn: int
-    splits: int
+class DwF32Plan:
+    """How the float32 weight-gradient kernel (``csrc/dw_f32_kernels.cu``)
+    cuts z^T dy over M rows: blocks of ``warps`` warps (12: one block an
+    SM; 6: two); the rows in ``runs`` runs of ``run_rows`` (the last one
+    shorter), each summed into one (R, N) partial, walked in steps of
+    ``br`` rows (each k16 row group's six plane products sum from zero in
+    a fragment, which joins the run's sum by one float32 add); the
+    channels in ``nkb`` blocks of ``kc``, N in ``ngrp`` groups of ``ncol``
+    columns (``nt`` n8 tiles a warp); a 3x3 step reads ``halo`` chunks of
+    br rows either side; ``stages`` raw buffers; ``smem`` bytes."""
+    conv: bool
+    warps: int
+    runs: int
+    run_rows: int
+    br: int
+    halo: int
+    kc: int
+    nkb: int
+    ncol: int
+    ngrp: int
+    nt: int
+    stages: int
     smem: int
 
-    def grid(self, r: int, n: int):
-        return -(-r // DOT3_ROWS), -(-n // self.bn), self.splits
+    @property
+    def blocks(self) -> int:
+        return self.runs * self.nkb * self.ngrp
 
-    def chunks(self, m: int):
-        """The chunks of M each split sums, in the order ``sum_rows`` adds
-        the partials."""
-        nch = -(-m // DOT3_DEPTH)
-        return [range(s * nch // self.splits, (s + 1) * nch // self.splits)
-                for s in range(self.splits)]
+    def run(self, p: int, m: int) -> range:
+        return range(p * self.run_rows, min(m, (p + 1) * self.run_rows))
+
+    def steps(self, p: int, m: int):
+        """Run p's steps, in the order its sum takes them."""
+        rows = self.run(p, m)
+        return [range(s, min(s + self.br, rows.stop))
+                for s in range(rows.start, rows.stop, self.br)]
+
+
+def _dw_f32_layout(m, c, n, w, br):
+    """The plan at steps of ``br`` rows, or None where no channel block
+    fits the shared memory of its blocks' share of an SM."""
+    conv = w > 0
+    if conv:
+        warps = 12
+        nt = 4 if n > 16 else (2 if n > 8 else 1)
+        ncol = 8 * nt
+        kc_max = DW_F32_CONV_KC
+        # a step of rows [m0, m0 + br) reads [m0 - w - 1, m0 + br + w + 1);
+        # where w divides br every step starts an image row, and the tap
+        # (-1, -1) of its first pixel is padding: rows from m0 - w
+        halo = 1 if br % w == 0 else -(-(w + 1) // br)
+    else:
+        # N up to 32 (the heads): 6 warps, two blocks an SM, the column
+        # groups of 16 * nt; else 12 warps, of 32 * nt
+        warps = 6 if n <= 32 else 12
+        nt = (1 if n <= 16 else 2) if warps == 6 else (2 if n <= 64 else 4)
+        ncol = 8 * (warps // 3) * nt
+        kc_max, halo = DW_F32_KC, 0
+    per_sm = 12 // warps
+    limit = SMEM_LIMIT if per_sm == 1 else SMEM_PAIR
+    ngrp = -(-n // ncol)
+    # the 3x3 form keeps its channel tiles (every warp busy), the 1x1 form
+    # cuts K finer where a block does not fit, down to 48 channels (one
+    # channel tile for each of its three channel rows of warps)
+    nkb0 = -(-c // kc_max)
+    nkb_max = nkb0 if conv else max(nkb0, -(-c // 48))
+    for nkb in range(nkb0, nkb_max + 1):
+        kc = _up(-(-c // nkb), 16)
+        for stages in (3, 2):
+            smem = dw_f32_smem(br, halo, kc, ncol, stages)
+            if smem <= limit:
+                break
+        if smem <= limit:
+            break
+    else:
+        return None
+    nkb = -(-c // kc)
+    steps = -(-m // br)
+    per_run = max(1, DW_F32_BLOCKS * per_sm // (nkb * ngrp))
+    run_steps = -(-steps // per_run)
+    return DwF32Plan(conv=conv, warps=warps, runs=-(-steps // run_steps),
+                     run_rows=run_steps * br, br=br, halo=halo, kc=kc,
+                     nkb=nkb, ncol=ncol, ngrp=ngrp, nt=nt, stages=stages,
+                     smem=smem)
 
 
 @functools.lru_cache(maxsize=None)
-def dw3_plan(m: int, r: int, n: int) -> Dw3Plan:
+def dw_f32_plan(m: int, c: int, n: int, w: int = 0) -> DwF32Plan:
     """The plan of the float32 weight gradients at these shapes (a
-    function of them alone): ``dot3_plan``'s column tile for N, and as
-    many splits of M as bring the blocks to ``DW3_BLOCKS`` with at least
-    two chunks a split."""
-    bn = dot3_plan(n).bn
-    gr, gn, _ = Dw3Plan(bn, 1, 0).grid(r, n)
-    nch = -(-m // DOT3_DEPTH)
-    splits = max(1, min(DW3_BLOCKS // (gr * gn), nch // 2))
-    planes = 3 * 2 * DOT3_DEPTH * ((DOT3_ROWS + 8) + (bn + 8))
-    return Dw3Plan(bn=bn, splits=splits,
-                   smem=_up(planes, 128) + DOT_WARPS * 16 * 16 * 4)
+    function of them alone): the 1x1 form (``w`` 0) over (m, c) x (m, n),
+    or the 3x3 form over images of width ``w``.
+
+    What bounds them: the 3x3 form six bf16 passes over its products
+    (44.0 us at r=64, batch 24, Cb=128 -> 32), the 1x1 form its bytes (x
+    and dy read once: 37.6 us at K=192 -> 128). Raw float32 rows arrive by
+    cp.async, three buffers deep where they fit (two else); each element
+    is split into its three bf16 planes once, in shared memory:
+
+    - 3x3: one block of 12 warps an SM (three kernel rows x four 16-channel
+      tiles, each warp the three taps of its row), ``DW_F32_CONV_KC``
+      channels a block, all of N up to 32 columns. The z planes are a ring
+      of chunks of br rows: a step reads its own chunk and ``halo`` either
+      side (one where W divides br: the image row above and below), and
+      the ring holds one chunk more, which the next step's conversion
+      fills while this step computes. Three planes of a bf16-style halo
+      tile of 128 channels would take 210 KB; the ring of 64 channels at
+      r=64 takes 111 KB and leaves room for three raw buffers.
+    - 1x1: 12 warps (three channel rows x four column groups), one block an
+      SM, N in groups of up to 128 columns (x split once); N up to 32
+      (the heads): 6 warps, two blocks an SM (``SMEM_PAIR`` bytes each),
+      so that one block's copies and conversion run under the other's
+      products. K in the fewest blocks of at most ``DW_F32_KC`` channels,
+      cut evenly, that fit.
+
+    The rows in runs of whole steps, as many runs as keep the blocks
+    within ``DW_F32_BLOCKS`` an SM-share; steps of the first of
+    ``DW_F32_STEPS`` (3x3) or ``DW_F32_STEPS[1:]`` (1x1) rows that fits
+    and gives at least ``DW_F32_MIN_BLOCKS`` blocks an SM-share (small M:
+    shorter steps, more runs), else the one that gives the most."""
+    steps = DW_F32_STEPS if w > 0 else DW_F32_STEPS[1:]
+    best = None
+    for br in steps:
+        p = _dw_f32_layout(m, c, n, w, br)
+        if p is None:
+            continue
+        if p.blocks * p.warps >= DW_F32_MIN_BLOCKS * 12:
+            return p
+        if best is None or p.blocks * p.warps > best.blocks * best.warps:
+            best = p
+    if best is None:
+        raise ValueError(f"float32 dW: no tiling of W={w} fits "
+                         f"{SMEM_LIMIT} bytes of shared memory")
+    return best
 
 
 def _dw_f32(kern, x, vec, dy, out, bits_i, hw=None):
     """The float32 form of ``affine_dw`` (``hw`` None) or of
-    ``conv3x3_dw`` (``hw`` = (h, w)): ``dw3_kernel``'s partials of
-    ``dw3_plan``, added in order by ``sum_rows``; with ``bits_i`` on the
-    quantized z (``quan`` of the unrounded float32 activation)."""
+    ``conv3x3_dw`` (``hw`` = (h, w)): the partials of ``dw_f32_plan``'s
+    runs (``csrc/dw_f32_kernels.cu``), added in order by ``sum_rows``;
+    with ``bits_i`` on the quantized z (``quan`` of the unrounded float32
+    activation)."""
     _check_view(x, "x", (F32,))
     _check_view(dy, "dy", (F32,))
     _check_contig_f32(out, "out", x.device)
@@ -857,14 +985,15 @@ def _dw_f32(kern, x, vec, dy, out, bits_i, hw=None):
     n = dy.shape[1]
     _check_rows(m)
     inv, shift, vstride, tile_rows = _vec_args(vec, m, c)
-    r = c if hw is None else 9 * c
-    p = dw3_plan(m, r, n)
-    part = torch.empty(p.splits, r, n, device=x.device, dtype=torch.float32)
     h, w = hw if hw is not None else (0, 0)
+    p = dw_f32_plan(m, c, n, w)
+    r = 9 * c if p.conv else c
+    part = torch.empty(p.runs, r, n, device=x.device, dtype=torch.float32)
     code = build.lib().cunet_dw_f32(
-        x.data_ptr(), x.stride(0), m, c, h, w, int(hw is not None), inv,
-        shift, vstride, tile_rows, dy.data_ptr(), dy.stride(0), n,
-        part.data_ptr(), bits_i, p.bn, p.smem, p.splits, _stream(x))
+        x.data_ptr(), x.stride(0), m, c, h, w, int(p.conv), inv, shift,
+        vstride, tile_rows, bits_i, dy.data_ptr(), dy.stride(0), n,
+        part.data_ptr(), p.warps, p.runs, p.run_rows, p.br, p.halo, p.kc,
+        p.nkb, p.ncol, p.ngrp, p.nt, p.stages, p.smem, _stream(x))
     build.check(code, f"{kern.__name__} (float32)")
     sum_rows(part, out)
     kern.launches += 1
@@ -965,6 +1094,16 @@ def conv3x3_dw(x, vec, dy, b, h, w, out, *, bits_i=0):
     ``sum_rows`` (bound 9.4, ``conv2d_weight`` on a stored z 39: the
     mma.sync products take ~31 us, the prologue ~19, the loads ~10), 15.5
     us at r <= 8.
+
+    Float32 (``_dw_f32``): bound by six bf16 passes over its products
+    (44.0 us at r=64). The kernel of ``csrc/dw_f32_kernels.cu`` (plan
+    ``dw_f32_plan``) stages z through a ring of chunks of rows that
+    consecutive steps share, so that each x element is read, given its
+    prologue and split into three bf16 planes once a channel block and
+    its nine taps read it from shared memory. On an H100 80GB HBM3 at 700
+    W (PERF.md section 6): 158.5-158.6 us at r=64, batch 24, with its
+    ``sum_rows`` (``conv2d_weight`` in float32 351.2-353.4, the kernel
+    before it 714.9), 131.1-131.2 with ``bits_i`` (692.9).
     """
     m, cb = x.shape
     g = dy.shape[1]

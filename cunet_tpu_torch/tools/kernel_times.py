@@ -44,6 +44,12 @@ from this checkout, so two checkouts are timed on the same cases. To
 compare a change with its parent, unpack the parent with ``git archive`` into a gitignored
 directory and run this once per checkout in one call, in the order parent,
 change, change, parent. Needs a CUDA device.
+
+With ``--dw`` it runs only the float32 weight gradients (``affine_dw`` and
+``conv3x3_dw`` at float32, plain and with ``bits_i``, at r = 64 ... 4 and
+tiles 2 and 6, and ``affine_dw[f32]`` at K = 1,920; ``chip_smoke.
+dw_f32_times``) and the bf16 digests (~1.5 min a checkout with its
+build).
 """
 
 from __future__ import annotations
@@ -106,9 +112,23 @@ def bf16_digests(torch, cs, tbk, dops) -> dict:
     return out
 
 
+def _digests(torch, cs, tbk, dops) -> None:
+    """Print ``bf16_digests`` and the digest of phase 5's bf16 ghost-BN
+    kernel step."""
+    print(f"bf16 output digests: {bf16_digests(torch, cs, tbk, dops)}",
+          flush=True)
+    cfg, params, state, batch = cs.flagship_train(torch)
+    loss, grads, _ = cs._grads(torch, cfg, params, state, batch["image"],
+                               batch["heatmap"])
+    print(f"bf16 ghost-BN kernel step digest "
+          f"{cs.step_digest(torch, loss, grads)}", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", type=Path, default=HERE)
+    ap.add_argument("--dw", action="store_true",
+                    help="the float32 weight gradients and the digests only")
     args = ap.parse_args(argv)
     root = str(args.root.resolve())
     cs = _smoke()
@@ -136,20 +156,16 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     build.lib()
     print(f"build {time.perf_counter() - t0:.1f} s", flush=True)
+    if args.dw:
+        cs.dw_f32_times(torch, train_ops, buf_ops)
+        _digests(torch, cs, train_bottleneck, drop_ops)
+        return 0
     cs.phase_kernels(torch, buf_ops)
     cs.phase_train_kernels(torch, train_ops, buf_ops)
     cs.phase_option_kernels(torch, train_ops, buf_ops)
     cs.phase_bn0_kernels(torch, train_bottleneck)
     cs.drop_mask_checks(torch, drop_ops, {})
-    print(f"bf16 output digests: "
-          f"{bf16_digests(torch, cs, train_bottleneck, drop_ops)}",
-          flush=True)
-    cfg, params, state, batch = cs.flagship_train(torch)
-    loss, grads, _ = cs._grads(torch, cfg, params, state, batch["image"],
-                               batch["heatmap"])
-    print(f"bf16 ghost-BN kernel step digest "
-          f"{cs.step_digest(torch, loss, grads)}", flush=True)
-    del grads, params, state, batch
+    _digests(torch, cs, train_bottleneck, drop_ops)
     cs.phase_eval_kernels(torch, eval_ops)
     cs.phase_block_kernels(torch, buf_ops, eval_ops)
     # the float32 forms, where the checkout has them

@@ -15,9 +15,14 @@ held to their plain versions within the float32 n-term limit
   planes like the weight (W^T, or ``train_ops.flip_w3`` of the conv's),
   gated by the forward's rounding of x*inv + shift (bit for bit the plain
   version's gate); one bf16 pass of dy breaks the limit;
-- F5 / F8, the weight gradients: ``dw3_plan``'s splits of M, each a
-  partial of 32-row chunks in k16 steps, the partials added in split order
-  (``sum_rows``); the splits cover every chunk once, in order;
+- F5 / F8, the weight gradients: ``dw_f32_plan``'s runs of M, each a
+  partial of steps of 16 to 64 rows, each k16 row group's six products
+  summed from zero in a fragment of its own, the partials added in run
+  order (``sum_rows``); the runs cover every row once, in order; the
+  mirror within the float32 limit of the plain version and within 2^-24
+  sqrt(M) relative L2 of a float64 product (``tests/
+  test_torch_port_dw_f32_plans.py`` holds the plans' coverage and the 3x3
+  form's staging);
 - F1 / F6: the statistics as ``stats_plan_f32`` splits a tile's rows
   across a cluster of blocks (``stats_f32_mirror``), and the BN backward
   at float32 (``bn_bwd_plan(..., f32=True)``);
@@ -25,7 +30,8 @@ held to their plain versions within the float32 n-term limit
   unrounded 2x2 sum.
 
 (b) Every new host plan fits the H100's shared memory at every shape of
-the CU-Net-8 @256 float32 step (batch 24, tiles 2 and 6, r = 64 ... 4).
+the CU-Net-8 @256 float32 step (batch 24, tiles 1, 2 and 6, r = 64 ... 4;
+the weight gradients at order 1 and order 14, K up to 1,920).
 
 (c) ``chip_smoke.tile_perm``: the permutation of the float32 step check's
 controls keeps every image in its ghost-BN tile (the tile's statistics are
@@ -99,7 +105,8 @@ def row_vectors(vec, m, k):
     """(inv, shift) (m, k) of each row, read as the float32 kernels read
     them: from the two pointers, the per-tile stride and the rows per tile
     that ``buf_ops._vec_args`` hands them, row r at tile r // tile_rows
-    (``dot3_kernel``'s ``vrow``, ``dw3_kernel``'s and the gate's ``o``)."""
+    (``dot3_kernel``'s ``vrow``, the weight gradients' prologue and
+    the gate's ``o``)."""
     p_inv, p_shift, vstride, tile_rows = buf_ops._vec_args(vec, m, k)
     flat = vec.reshape(-1)
     base = vec.data_ptr()
@@ -124,25 +131,26 @@ def im2col(y, b, h, w):
     return chip_smoke.im2col(torch, y, b, h, w)
 
 
-def dw3_mirror(z, dy, plan):
-    """z^T dy as ``dw3_kernel`` sums it under ``plan``: per split, each of
-    its 32-row chunks in k16 steps of the six plane products into a sum of
-    its own, added to the split's partial; the partials added in split
-    order (``sum_rows``)."""
+def dw_f32_mirror(z, dy, plan):
+    """z^T dy as the float32 weight-gradient kernel sums it under ``plan``
+    (``train_ops.dw_f32_plan``): per run, its steps' k16 row groups in
+    ascending order, each the six plane products of ``ORDER`` summed from
+    zero in a fragment that joins the run's sum by one float32 add; the
+    runs' partials added in order (``sum_rows``)."""
     m = z.shape[0]
     mp = -(-m // 16) * 16
     zp = split_bf16x3(F.pad(z, (0, 0, 0, mp - m)))
     dp = split_bf16x3(F.pad(dy, (0, 0, 0, mp - m)))
     out = torch.zeros(z.shape[1], dy.shape[1])
-    for chunks in plan.chunks(m):
+    for p in range(plan.runs):
         acc = torch.zeros_like(out)
-        for c in chunks:
-            part = torch.zeros_like(out)
-            for k0 in range(c * 32, min(c * 32 + 32, mp), 16):
+        for step in plan.steps(p, m):
+            for k0 in range(step.start, step.stop, 16):
+                part = torch.zeros_like(out)
                 for i, j in ORDER:
                     part = part + zp[i][k0:k0 + 16].float().t() @ \
                         dp[j][k0:k0 + 16].float()
-            acc = acc + part
+                acc = acc + part
         out = out + acc
     return out
 
@@ -247,9 +255,11 @@ def test_flip_w3_is_the_conv_transpose():
                                          ("conv3x3_dw", 4, 6),
                                          ("conv3x3_dw", 8, 2)])
 def test_weight_gradients_in_the_plans_split_order(form, r, tile):
-    """F5 / F8: ``dw3_plan``'s splits cover M's chunks once, in order, and
-    the mirror of their partials (both operands split, the splits added in
-    order) is the plain version within the limit of M terms."""
+    """F5 / F8: ``dw_f32_plan``'s runs cover M's rows once, in order, in
+    steps of ``br`` rows, and the mirror of their partials (both operands
+    split, a fragment a k16 row group, the runs added in order) is the
+    plain version within the limit of M terms and a float64 product within
+    the relative L2 error of one recursive float32 sum over M rows."""
     rng = np.random.default_rng(r * 10 + tile)
     b = 24
     m, tiles = b * r * r, b // tile
@@ -259,17 +269,21 @@ def test_weight_gradients_in_the_plans_split_order(form, r, tile):
     z = prologue(x, vec)
     if form == "affine_dw":
         want = train_ops.affine_dw_plain(x, vec, dy, torch.empty(k, n))
-        rows = k
+        plan = train_ops.dw_f32_plan(m, k, n)
     else:
         want = train_ops.conv3x3_dw_plain(x, vec, dy, b, r, r,
                                           torch.empty(9 * k, n))
-        z, rows = im2col(z, b, r, r), 9 * k
-    plan = train_ops.dw3_plan(m, rows, n)
-    chunks = [c for s in plan.chunks(m) for c in s]
-    assert chunks == list(range(-(-m // 32)))
-    assert all(len(s) >= 2 for s in plan.chunks(m)) or plan.splits == 1
-    got = dw3_mirror(z, dy, plan)
+        z = im2col(z, b, r, r)
+        plan = train_ops.dw_f32_plan(m, k, n, r)
+    steps = [s for p in range(plan.runs) for s in plan.steps(p, m)]
+    assert [i for s in steps for i in s] == list(range(m))
+    assert all(s.start % plan.br == 0 and len(s) <= plan.br for s in steps)
+    assert plan.blocks <= train_ops.DW_F32_BLOCKS * 12 // plan.warps
+    got = dw_f32_mirror(z, dy, plan)
     assert (got - want).abs().max() <= _limit(m, want)
+    ref = z.double().t() @ dy.double()
+    rel = ((got.double() - ref).norm() / ref.norm()).item()
+    assert rel <= 2.0 ** -24 * m ** 0.5, rel
 
 
 def stats_f32_mirror(x, tiles):
@@ -361,38 +375,42 @@ def test_pool_and_upsample_backward_at_float32():
 # ---------------------------------------------------------------------------
 
 
-def _step_shapes(tile):
+def _step_shapes(tile, order=1):
     """(m, tile_rows, k, n) of every stage of the CU-Net-8 @256 float32
-    ghost-BN step at ``tile`` (batch 24, c=128, g=32, Cb=128, order 1: L 0
-    and 1), the intermedia adapter and the 16-class head."""
+    ghost-BN step at ``tile`` (batch 24, c=128, g=32, Cb=128: L up to
+    ``order``), the intermedia adapter (c * (1 + order) channels) and the
+    16-class head."""
     out = set()
-    for L in (0, 1):
+    for L in range(order + 1):
         for p in slot_plan(4, 64, 128, 32, L):
             m = 24 * p["res"] ** 2
             tr = tile * p["res"] ** 2
             out.update({(m, tr, p["k1"], 128), (m, tr, p["k2"], 128),
-                        (m, tr, 128, 16), (m, tr, 256, 128)})
+                        (m, tr, 128, 16), (m, tr, 128 * (1 + order), 128)})
     return sorted(out)
 
 
-@pytest.mark.parametrize("tile", [2, 6])
+@pytest.mark.parametrize("tile", [1, 2, 6])
 def test_f32_plans_fit_at_every_step_shape(tile):
     for m, tr, k, n in _step_shapes(tile):
         assert buf_ops.dot3_plan(n).smem <= SMEM_LIMIT        # F2
         assert buf_ops.dot3_plan(k).smem <= SMEM_LIMIT        # F4
         assert train_ops.bn_bwd_plan(m, tr, k, True).smem <= SMEM_LIMIT
-        p = train_ops.dw3_plan(m, k, n)                       # F5
-        assert p.smem <= SMEM_LIMIT
-        assert [c for s in p.chunks(m) for c in s] == list(range(-(-m // 32)))
         if k == 128 and n == 128:                              # the conv
             for cin, cout in ((128, 32), (32, 128)):          # F3, F7
                 c = buf_ops.conv3x3_plan_f32(m, cin, cout)
                 assert c.smem <= SMEM_LIMIT
                 assert sorted(ch for s in c.k_chunks(9 * cin) for ch in s) \
                     == list(range(-(-9 * cin // 32)))
-            d = train_ops.dw3_plan(m, 9 * 128, 32)            # F8
-            assert d.smem <= SMEM_LIMIT
-            assert d.grid(9 * 128, 32)[0] * 128 >= 9 * 128
+    for order in (1, 14):                                      # F5, F8
+        for m, tr, k, n in _step_shapes(tile, order):
+            res = int(round((m // 24) ** 0.5))
+            for p, c in ((train_ops.dw_f32_plan(m, k, n), k),
+                         (train_ops.dw_f32_plan(m, 128, 32, res), 128)):
+                assert p.smem <= (SMEM_LIMIT if p.warps == 12
+                                  else buf_ops.SMEM_PAIR)
+                assert p.runs * p.run_rows >= m > (p.runs - 1) * p.run_rows
+                assert (p.nkb - 1) * p.kc < c <= p.nkb * p.kc
 
 
 # ---------------------------------------------------------------------------

@@ -140,7 +140,10 @@ Phases, each printing one line (or a few) before the last:
    product) against their plain versions at phase 9's cases at float32
    (every sum and float32 output within the float32 n-term limit, three
    planted ``stats`` faults caught), bit for bit under one-hot operands,
-   one bf16 pass of g breaking the dx limit; the mask kernel's float32
+   one bf16 pass of g breaking the dx limit; ``bwd_reduce``'s dW within
+   F32_DW_REL sqrt(M) of float64 at r = 64, 4 and at Ctot = 1,920 (order
+   14's intermedia adapter), where it is also held to its plain version
+   and timed; the mask kernel's float32
    form bit for bit; (b) the autograd Function at float32; (c) the float32
    conv's backward with cuDNN's TF32 on (torch's default) within the
    float32 limit of float64, where the conv as it was before its repair
@@ -161,9 +164,10 @@ Phases, each printing one line (or a few) before the last:
    float32 n-term limit, at r=64 a second call bit for bit the first,
    each timed at r=64, tile 2 beside its bound and library call; bit for
    bit under one-hot operands; one bf16 pass of the cotangent breaking the
-   input gradients' limits; ``affine_dw[f32]`` at order 14's intermedia
-   adapter, K = 1,920 -> 128, against its plain version, timed beside
-   ``torch.mm`` of its product and its bound; (b) the tile-6 step
+   input gradients' limits; ``affine_dw[f32]`` and ``affine_dx[f32]``
+   (``csrc/dx_f32_kernels.cu``) at order 14's intermedia adapter, K =
+   1,920 <-> 128, against their plain versions, timed beside ``torch.mm``
+   of their products and their bounds; (b) the tile-6 step
    against the swap step (the same path on the forms' plain versions)
    within max(2c, 1e-5), c the largest of three tile-preserving permuted
    controls, the plain path beside both, a bit-identical repeat, dropout
@@ -2131,26 +2135,28 @@ def phase_int8_serving(torch, ops, qops, gpu, float_ms):
 TB_WIDTHS = (128, 128, 32, 32)   # the up-block adapter: [x, skip, fifo, out]
 
 
-def tb_operands(torch, gen, r, dev="cuda", dtype=None):
+def tb_operands(torch, gen, r, dev="cuda", dtype=None, widths=TB_WIDTHS):
     """The adapter's operands at resolution r, batch 24: four feature
     tensors (the fifo entry a strided view of a wider buffer, as a FIFO
     slice is), the forward's [inv; shift], the backward's [mean;
     inv_sigma; scale] and bias, float32 weights (``wa``: apply's, in the
     features' dtype), an output cotangent and red = [mean g_y; mean g_y
     x_hat] from the plain reduce; features and cotangent in ``dtype``
-    (bf16 by default)."""
+    (bf16 by default). Other ``widths``: those feature tensors, none a
+    view."""
     from cunet_tpu_torch.kernels import train_bottleneck as tbk
 
-    m, k, cout = TRAIN_BATCH * r * r, sum(TB_WIDTHS), 128
+    m, k, cout = TRAIN_BATCH * r * r, sum(widths), 128
     dtype = dtype or torch.bfloat16
 
     def bf16(*shape, scale=1.0, shift=0.0):
         return (torch.randn(*shape, generator=gen) * scale + shift).to(
             dev, dtype)
 
-    feats = [bf16(m, c, scale=1 + i, shift=0.2 * i)
-             for i, c in enumerate(TB_WIDTHS)]
-    feats[2] = torch.cat([feats[2], bf16(m, 64)], 1)[:, :TB_WIDTHS[2]]
+    feats = [bf16(m, c, scale=1 + i % 4, shift=0.2 * (i % 4))
+             for i, c in enumerate(widths)]
+    if widths == TB_WIDTHS:
+        feats[2] = torch.cat([feats[2], bf16(m, 64)], 1)[:, :TB_WIDTHS[2]]
     scale = (torch.rand(k, generator=gen) + 0.5).to(dev)
     bias = (torch.randn(k, generator=gen) * 0.3).to(dev)
     w = (torch.randn(k, cout, generator=gen) * k ** -0.5).to(dev)
@@ -3360,6 +3366,17 @@ def phase_fused_models(torch, ops, gpu):
 # ---------------------------------------------------------------------------
 
 F32_SOURCE = "cunet_tpu_torch/csrc/f32_kernels.cu"
+DW_F32_SOURCE = "cunet_tpu_torch/csrc/dw_f32_kernels.cu"
+DX_F32_SOURCE = "cunet_tpu_torch/csrc/dx_f32_kernels.cu"
+
+
+def f32_source(name):
+    """The source of a float32 train form's kernel: the weight gradients'
+    and affine_dx's own files, the rest f32_kernels.cu's product kernel."""
+    base = name.split("[")[0]
+    if base in ("affine_dw", "conv3x3_dw"):
+        return DW_F32_SOURCE
+    return DX_F32_SOURCE if base == "affine_dx" else F32_SOURCE
 F32_PATH_REL_L2 = 1e-4   # a float32 kernel path vs the plain path
 # the f32 rows of the kernels line: the bf16 row whose TPU kernel each
 # replaces at float32
@@ -3871,6 +3888,84 @@ def tb_f32_exact_checks(torch, tbk, gen):
     return same
 
 
+# order 14's intermedia adapter at the bn_tile=0 step: c * (1 + order)
+# channels of CU-Net-8, fifteen 128-wide groups
+WIDE_TB_WIDTHS = (128,) * 15
+
+
+def tb_dw_f64_rel(torch, tbk, o, kern):
+    """``kern``'s (a ``bwd_reduce``) dW at the operands ``o``, and the plain
+    version's, as relative L2 errors against float64 products of the same
+    r = relu(y) (recomputed in float32, as both compute it) and g."""
+    f, m, k, cout = o["feats"], o["m"], o["k"], o["cout"]
+    offs = np.cumsum((0,) + tuple(x.shape[1] for x in f))
+    g64 = o["g"].double()
+    ref = torch.cat([
+        torch.relu(tbk._recompute(x, o["stat"], o["bias"], int(a))[1])
+        .double().t() @ g64 for x, a in zip(f, offs[:-1])])
+    out = {}
+    for name, fn in (("kernel", kern), ("plain", tbk.bwd_reduce_plain)):
+        dw = fn(f, o["g"], o["stat"], o["bias"], o["w"],
+                torch.empty(k, cout, device="cuda"),
+                torch.empty(2, k, device="cuda"))[0]
+        out[name] = ((dw.double() - ref).norm() / ref.norm()).item()
+    return out
+
+
+def tb_f32_dw_f64_checks(torch, tbk, gen, strict=True):
+    """``bwd_reduce[f32]``'s dW partials, summed, against float64 products
+    of the same r and g at r=64 and r=4 (phase 9's adapter, batch 24) and
+    at Ctot = 1,920 (r=64): each within ``F32_DW_REL`` sqrt(M) relative L2,
+    the error of one recursive float32 sum over the M rows (``strict``:
+    required). Returns {label: {kernel, plain, limit}}."""
+    kern = tbk.bwd_reduce
+    out = {}
+    for r, widths in ((64, TB_WIDTHS), (4, TB_WIDTHS),
+                      (64, WIDE_TB_WIDTHS)):
+        o = tb_operands(torch, gen, r, dtype=torch.float32, widths=widths)
+        label = f"Ctot={o['k']} r={r}"
+        rel = tb_dw_f64_rel(torch, tbk, o, kern)
+        rel["limit"] = F32_DW_REL * o["m"] ** 0.5
+        out[label] = rel
+        del o
+    ok = all(v["kernel"] <= v["limit"] for v in out.values())
+    print(f"bn0 f32: bwd_reduce[f32]'s dW against float64 products of the "
+          f"same r and g (relative L2; the limit F32_DW_REL sqrt(M)): {out}, "
+          f"within: {ok}", flush=True)
+    require(ok or not strict,
+            f"bwd_reduce[f32]'s dW is past its float64 limit: {out}")
+    return out
+
+
+def wide_reduce_check(torch, tbk, gen, results=None):
+    """``bwd_reduce[f32]`` at Ctot = 1,920 -> 128 (fifteen 128-wide groups,
+    r=64, batch 24) against its plain version, dW and the sums within their
+    float32 sum limits, timed beside the plain version, the product g W^T
+    alone (``torch.mm``) and its bound; the float32-FMA time of its two
+    products."""
+    o = tb_operands(torch, gen, 64, dtype=torch.float32,
+                    widths=WIDE_TB_WIDTHS)
+    m, k, cout = o["m"], o["k"], o["cout"]
+    _, call, bounds, w, _, prod = [c for c in tb_cases(torch, o)
+                                   if c[0] == "bwd_reduce"][0]
+    bounds = [b[:2] for b in bounds]
+    got, want = call(tbk.bwd_reduce), call(tbk.bwd_reduce_plain)
+    torch.cuda.synchronize()
+    err, share, ok = output_errors(torch, got, want, bounds)
+    label = f"Ctot={k}->{cout} r=64"
+    require(ok, f"bwd_reduce[f32] [{label}] disagrees with its plain "
+                f"version: {err} ({share:.3g} of its limit)")
+    ms = cuda_time_ms(lambda: call(tbk.bwd_reduce))
+    plain_ms = cuda_time_ms(lambda: call(tbk.bwd_reduce_plain), iters=3)
+    prod_ms = cuda_time_ms(prod)
+    bms, by = bound(w)
+    print(f"bn0 kernel train_bottleneck.bwd_reduce[f32] [{label}]: "
+          f"max_abs_err {err:.4g} ({share:.3g} of its float32 limit), "
+          f"{ms * 1e3:.1f} us vs plain {plain_ms * 1e3:.1f} us, bound "
+          f"{bms * 1e3:.1f} us ({by}){product_text(prod_ms)}, float32-FMA "
+          f"bound {f32_fma_ms(o, 2) * 1e3:.1f} us", flush=True)
+
+
 def drop_mask_f32_checks(torch, dops, results):
     """The mask kernel's float32 form at the bn_tile=0 shapes (batch 24,
     one tile of the whole batch, g=32): on ones the plain float32 masks
@@ -3922,11 +4017,18 @@ def phase_bn0_f32_kernels(torch, tbk, dops):
     every resolution (phase 9's cases at float32, TF32 off: every sum and
     float32 output within the float32 n-term limit, three planted
     ``stats`` faults), bit for bit under one-hot operands, one bf16 pass
-    of g breaking the dx limit; the mask kernel's float32 form."""
+    of g breaking the dx limit; ``bwd_reduce[f32]``'s dW within
+    ``F32_DW_REL`` sqrt(M) of float64 (r = 64, 4 and Ctot = 1,920) and
+    the reduce at Ctot = 1,920 against its plain version; the mask
+    kernel's float32 form."""
     results = phase_bn0_kernels(torch, tbk, torch.float32)
-    exact = tb_f32_exact_checks(torch, tbk, torch.Generator().manual_seed(15))
+    gen = torch.Generator().manual_seed(15)
+    exact = tb_f32_exact_checks(torch, tbk, gen)
     for name, same in exact.items():
         results[name]["one_hot_exact"] = same
+    results["train_bottleneck.bwd_reduce[f32]"]["dw_f64_rel"] = \
+        tb_f32_dw_f64_checks(torch, tbk, gen)
+    wide_reduce_check(torch, tbk, gen)
     drop_mask_f32_checks(torch, dops, results)
     return results
 
@@ -4543,8 +4645,9 @@ def phase_slot_f32_kernels(torch, tops, bops):
     first; the r=64 tile-2 case of each (upsample2_bwd: r=32) timed beside
     its plain version, its bound, its library call or the product alone,
     and the float32 FMA time of its products; bit for bit under one-hot
-    operands, one bf16 pass of dy caught; ``affine_dw[f32]`` at order 14's
-    intermedia adapter width (``wide_dw_check``)."""
+    operands, one bf16 pass of dy caught; ``affine_dw[f32]`` and
+    ``affine_dx[f32]`` at order 14's intermedia adapter width
+    (``wide_dw_check``, ``wide_dx_check``)."""
     gen = torch.Generator().manual_seed(18)
     plain = {**bops.PLAIN, **tops.PLAIN}
     results = {}
@@ -4592,6 +4695,7 @@ def phase_slot_f32_kernels(torch, tops, bops):
     print("slot f32: every r=64 case bit for bit on a second call",
           flush=True)
     wide_dw_check(torch, tops, gen)
+    wide_dx_check(torch, tops, gen)
     for row in results:
         results[row]["one_hot_exact"] = exact.get(row)
     return results
@@ -4639,35 +4743,146 @@ def wide_dw_check(torch, tops, gen):
           f"{product_text(prod_ms)}", flush=True)
 
 
-def dw_f32_times(torch, tops, bops):
-    """The float32 weight gradients (the ghost-BN step's ``affine_dw[f32]``
-    and ``conv3x3_dw[f32]``, the quantized model's ``[f32,bits_i]`` forms)
-    at phase 14's operands, r = 64 ... 4 and tiles 2 and 6: each against
-    its plain version, timed (CUDA-graph replay) beside ``torch.mm`` /
-    ``conv2d_weight`` of its product, and the wide ``affine_dw[f32]``.
-    Two checkouts' times of one call compare their kernels
-    (``tools/kernel_times.py --dw``)."""
+def wide_dx_check(torch, tops, gen):
+    """``affine_dx[f32]`` at K = ``WIDE_DW_K`` <- 128 (order 14's intermedia
+    adapter, r=64, batch 24, tile 2) against its plain version within the
+    float32 n-term limit, timed beside the plain version, ``torch.mm`` of
+    the product alone and its bound."""
+    from cunet_tpu_torch.kernels.train_slot import _affine_vec
+
+    m, k, c = TRAIN_BATCH * 64 * 64, WIDE_DW_K, 128
+    tiles = TRAIN_BATCH // BN_TILE
+    x = torch.randn(m, k, generator=gen).cuda()
+    st = tops.bn_stats_plain(x, torch.empty(tiles, 2, k, device="cuda"))
+    bn = torch.stack([torch.rand(k, generator=gen) + 0.5,
+                      torch.randn(k, generator=gen) * 0.3]).cuda()
+    v = _affine_vec(st, bn, 1e-5)
+    dy = torch.randn(m, c, generator=gen).cuda()
+    w = (torch.randn(k, c, generator=gen) * k ** -0.5).cuda()
+    out = torch.empty(m, k, device="cuda")
+
+    def call(f):
+        return [f(dy, w, x, v, out.clone())]
+
+    got, want = call(tops.affine_dx), call(tops.affine_dx_plain)
+    torch.cuda.synchronize()
+    err, share, ok = output_errors(torch, got, want, [("sum", c)])
+    label = f"K={k}->{c} r=64 tile {BN_TILE}"
+    require(ok, f"affine_dx[f32] [{label}] disagrees with its plain "
+                f"version: {err} ({share:.3g} of its limit)")
+    ms = cuda_time_ms(lambda: tops.affine_dx(dy, w, x, v, out))
+    plain_ms = cuda_time_ms(lambda: tops.affine_dx_plain(dy, w, x, v, out),
+                            iters=3)
+    prod_ms = cuda_time_ms(lambda: torch.mm(dy, w.t()))
+    bms, by = bound(work(sz(m, c, e=4) + 2 * sz(m, k, e=4) + sz(k, c, e=4)
+                         + sz(tiles, 2, k, e=4), 6 * 2 * m * k * c, "bf16"))
+    print(f"slot f32 kernel affine_dx[f32] [{label}]: max_abs_err {err:.4g} "
+          f"({share:.3g} of its float32 limit), {ms * 1e3:.1f} us vs plain "
+          f"{plain_ms * 1e3:.1f} us, bound {bms * 1e3:.1f} us ({by})"
+          f"{product_text(prod_ms)}", flush=True)
+
+
+def bytes_digest(torch, ts):
+    """sha256 (16 hex digits) of the bytes of the tensors ``ts``: two
+    checkouts whose digests of the same operands agree give them bit for
+    bit."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy()
+                 .tobytes())
+    return h.hexdigest()[:16]
+
+
+# the float32 GEMMs of #7 and their products (f32_fma_ms)
+TB_F32_PRODUCTS = {"apply": 1, "bwd_reduce": 2, "bwd_dx": 1}
+
+
+def row_times(torch, pattern, tops, bops, tbk):
+    """``tools/kernel_times.py --rows PATTERN``: the kernel rows of phases
+    13 (a), 14 (a) and 15 (a) whose names match the regular expression
+    ``pattern`` (``re.search``), from the phases' own case lists: #7's
+    float32 forms at r = 64 ... 4 (``tb_cases``, rows
+    ``train_bottleneck.<name>[f32]``), the ten slot forms and the
+    QuanInput forms at float32 at r = 64 ... 4 and tiles 2 and 6
+    (``slot_f32_cases``, ``quant_f32_cases``). Each against its plain
+    version, timed (CUDA-graph replay) beside its library call or product
+    alone, its bound and, for the products, their float32 FMA time; then
+    the wide checks of the rows that match (``wide_reduce_check`` and
+    ``tb_f32_dw_f64_checks`` for ``bwd_reduce[f32]``, ``wide_dw_check``,
+    ``wide_dx_check``), and a digest of each matching row's r=64 outputs
+    (two checkouts whose digests agree give them bit for bit)."""
+    import re
+
+    rx = re.compile(pattern)
+    outs = {}
+
+    def run(row, label, kern, plain, call, bounds, w, lib, prod, fma_ms):
+        got, want = call(kern), call(plain)
+        torch.cuda.synchronize()
+        err, share, ok = output_errors(torch, got, want, bounds)
+        require(ok, f"{row} [{label}] disagrees with its plain version: "
+                    f"{err} ({share:.3g} of its limit)")
+        ms = cuda_time_ms(lambda: call(kern))
+        bms, by = bound(w)
+        text = "".join(f", {name} {cuda_time_ms(fn) * 1e3:.1f} us"
+                       for name, fn in (("library", lib), ("product", prod))
+                       if fn is not None)
+        if fma_ms is not None:
+            text += f", float32 FMA {fma_ms * 1e3:.1f} us"
+        print(f"row time {row} [{label}]: max_abs_err {err:.4g} "
+              f"({share:.3g} of its limit), {ms * 1e3:.1f} us, bound "
+              f"{bms * 1e3:.1f} us ({by}){text}", flush=True)
+        return got
+
+    gen = torch.Generator().manual_seed(13)
+    if any(rx.search(f"train_bottleneck.{k.__name__}[f32]")
+           for k in tbk.KERNELS):
+        for r in CONV_RES:
+            o = tb_operands(torch, gen, r, dtype=torch.float32)
+            for name, call, bounds, w, lib, prod in tb_cases(torch, o):
+                row = f"train_bottleneck.{name}[f32]"
+                if not rx.search(row):
+                    continue
+                kern = getattr(tbk, name)
+                fma = TB_F32_PRODUCTS.get(name)
+                got = run(row, f"r={r}", kern, tbk.PLAIN[kern], call, bounds,
+                          w, lib, prod,
+                          None if fma is None else f32_fma_ms(o, fma))
+                if r == 64:
+                    outs.setdefault(row, []).extend(got)
+            del o
     gen = torch.Generator().manual_seed(18)
     plain = {**bops.PLAIN, **tops.PLAIN}
-    for tile in SLOT_F32_TILES:
+    slot_rows = any(rx.search(row) for row in (*SLOT_F32, *QUANT_F32))
+    for tile in SLOT_F32_TILES if slot_rows else ():
         for r in CONV_RES:
             o = slot_f32_operands(torch, tops, gen, r, tile)
-            cases = [(c[0], c[1], c[2], c[3], c[4], c[-2] or c[-1])
-                     for c in slot_f32_cases(torch, tops, bops, o)
-                     + quant_f32_cases(torch, tops, bops, o)
-                     if "_dw[" in c[0]]
-            for row, kern, label, call, bounds, lib in cases:
-                got, want = call(kern), call(plain[kern])
-                torch.cuda.synchronize()
-                err, share, ok = output_errors(torch, got, want, bounds)
-                require(ok, f"{row} [{label} tile {tile}] disagrees with "
-                            f"its plain version: {err}")
-                ms = cuda_time_ms(lambda: call(kern))
-                lib_ms = cuda_time_ms(lib)
-                print(f"dw time {row} [{label} tile {tile}]: "
-                      f"{ms * 1e3:.1f} us, library or product "
-                      f"{lib_ms * 1e3:.1f} us", flush=True)
-    wide_dw_check(torch, tops, gen)
+            cases = [c[:6] + (c[7], c[8], c[6])
+                     for c in slot_f32_cases(torch, tops, bops, o)]
+            cases += [c + (None,) for c in quant_f32_cases(torch, tops, bops,
+                                                           o)]
+            for row, kern, label, call, bounds, w, lib, prod, fma in cases:
+                if not rx.search(row):
+                    continue
+                got = run(row, f"{label} tile {tile}", kern, plain[kern],
+                          call, bounds, w, lib, prod, fma)
+                if r == 64:
+                    outs.setdefault(row, []).extend(got)
+    wide = (("train_bottleneck.bwd_reduce[f32]", lambda: (
+                 wide_reduce_check(torch, tbk, torch.Generator()
+                                   .manual_seed(15)),
+                 tb_f32_dw_f64_checks(torch, tbk, torch.Generator()
+                                      .manual_seed(15), strict=False))),
+            ("affine_dw[f32]", lambda: wide_dw_check(torch, tops, gen)),
+            ("affine_dx[f32]", lambda: wide_dx_check(torch, tops, gen)))
+    for row, check in wide:
+        if rx.search(row):
+            check()
+    print(f"row times: output digests at r=64 of the rows matching "
+          f"{pattern!r}: " + str({row: bytes_digest(torch, ts)
+                                 for row, ts in outs.items()}), flush=True)
 
 
 def slot_f32_counts(tops, bops) -> dict:
@@ -6010,17 +6225,18 @@ def main() -> int:
             F32_SOURCE if name == "train_bottleneck.apply[f32]" else TB_SOURCE
         rows.append(row(name, src, r, tb_f32_launches[name],
                         launches_per_step=tb_f32_per_step[name],
-                        **{k: r[k] for k in ("one_hot_exact",) if k in r}))
+                        **{k: r[k] for k in ("one_hot_exact", "dw_f64_rel")
+                           if k in r}))
     for name, r in slot_f32_kernels.items():
         src = TRAIN_SOURCE if SLOT_F32[name][0] in (
             "bn_stats", "bn_bwd", "maxpool2_bwd", "upsample2_bwd") \
-            else F32_SOURCE
+            else f32_source(name)
         rows.append(row(name, src, r, slot_f32_launches[name],
                         launches_per_step=slot_f32_per_step[name],
                         one_hot_exact=r["one_hot_exact"]))
     for name, r in quant_f32_kernels.items():
         if name in QUANT_F32:
-            src = F32_SOURCE
+            src = f32_source(name)
             n = quant_f32_launches[name]
             extra = dict(launches_per_step=quant_f32_per_step[name],
                          one_hot_exact=r["one_hot_exact"])

@@ -7,6 +7,7 @@
 //   tb_stats      <- _stats_kernel      (:49, called at :173)
 //   apply         <- _apply_kernel      (:66, called at :208)
 //   tb_bwd_reduce <- _bwd_reduce_kernel (:92, called at :268)
+//                    (float32: tb_split_g + tb_bwd_reduce_f32)
 //   tb_bwd_dx     <- _bwd_dx_kernel     (:134, called at :296)
 //
 // The features arrive as separate tensors (an up-block adapter reads
@@ -39,17 +40,17 @@
 // after every operation, in the plain version's order, so the ReLU gate is
 // the same bit for bit.
 //
-// Each kernel is a template on the features' element type: bf16, or
-// float32 (a model trained at compute_dtype="float32", as the JAX package
-// runs #7 at the features' dtype). The float32 forms read 16-byte vectors
-// of 4 columns, stage float32 x and g rows, and split g too into three
-// bf16 planes in shared memory once a step (both of bwd_reduce's products
-// read it: one split serves them; splitting in registers at each use would
-// split every element once per warp reading it), so each product is six
-// plane products (gw_product3) and dx leaves as float32 rows. Their staged
-// rows and g's planes take 150 KB (bwd_reduce) and 207 KB (bwd_dx) at N =
-// 128: one block an SM, where the bf16 forms run two. The bf16
-// instantiations are the code they were before the template.
+// Each kernel takes bf16 features, or float32 ones (a model trained at
+// compute_dtype="float32", as the JAX package runs #7 at the features'
+// dtype). stats and bwd_dx are templates on the element type: their
+// float32 instances read 16-byte vectors of 4 columns and stage float32 x
+// and g rows, bwd_dx splitting g into three bf16 planes in shared memory
+// once a step (gw_product3: six plane products; 207 KB at N = 128, one
+// block an SM where the bf16 form runs two). The reduce's float32 form is
+// a design of its own (tb_bwd_reduce_f32_kernel): g split once into its
+// planes by a pre-pass, 64-row steps, one block an SM whose warps split
+// the two products between them. The bf16 instances are the code they
+// were before the float32 forms.
 //
 // Each entry point launches on the stream it is given and returns
 // cudaGetLastError().
@@ -176,9 +177,9 @@ __global__ void __launch_bounds__(kThreads)
 // p3 = bf16(v - p1 - p2): 3 x 8 bits of significand hold a float32's 24
 // (any normal v), and each bf16 x bf16 product is exact in the f32 sum. A
 // bf16 g needs no split, so dW = sum_i p_i(r)^T g and g W^T = sum_i g
-// p_i(W)^T agree with float32 FMA to float32 rounding, in another order; a
-// float32 g is split too (its planes in shared memory) and each product
-// takes the six pairs p_i p_j with i + j <= 4. The block:
+// p_i(W)^T agree with float32 FMA to float32 rounding, in another order.
+// The block (bf16 features and g; the float32 form is
+// tb_bwd_reduce_f32_kernel below):
 // - splits its W rows once into three bf16 planes in shared memory;
 // - stages each 32-row step's x vectors (through the feature table) and g
 //   rows by cp.async, the next step loading while this one computes;
@@ -215,8 +216,7 @@ struct RdPlan {
   int stage_bytes;  //   bytes per stage,
   int g_off;        //   the g rows within a stage,
   int pl_off;       //   r's three planes,
-  int xh_off;       //   the gated x_hat,
-  int gp_off;       //   g's three planes (float32 g; 0 at bf16)
+  int xh_off;       //   the gated x_hat
 };
 
 // W's rows c0 .. c0 + ROWS (float32 (Ctot, N)) split once into three bf16
@@ -319,8 +319,8 @@ __device__ __forceinline__ void gw_product3(float (&acc)[MI][2][4],
 
 // ``rows`` staged float32 g rows (row stride np + 4 floats, np a multiple
 // of 16) split into three bf16 planes at ``dst``: plane k's row r at byte
-// (k * rows + r) * (np + 8) * 2, the layout gw_product3 and the dW
-// product read.
+// (k * rows + r) * (np + 8) * 2, the layout gw_product3 reads (bwd_dx's
+// float32 form).
 __device__ __forceinline__ void split_g_planes(unsigned char* dst,
                                                const float* src, int rows,
                                                int np, int tid, int nthr) {
@@ -339,18 +339,17 @@ __device__ __forceinline__ void split_g_planes(unsigned char* dst,
   }
 }
 
-template <int NB8, typename T>
-__global__ void __launch_bounds__(kRdThreads, sizeof(T) == 2 ? 2 : 1)
+template <int NB8>
+__global__ void __launch_bounds__(kRdThreads, 2)
     tb_bwd_reduce_kernel(const long long* __restrict__ tbl, int G,
-                         long long M, int Ctot, const T* __restrict__ g,
+                         long long M, int Ctot, const bf16* __restrict__ g,
                          long long ldg, int N, const float* __restrict__ stat,
                          const float* __restrict__ bias,
                          const float* __restrict__ w, RdPlan p,
                          float* __restrict__ dw_part,
                          float* __restrict__ sums_part) {
-  constexpr bool F32 = sizeof(T) == 4;
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int XS = kRdCols + 16 / sizeof(T);   // x row stride, elements
+  constexpr int XS = kRdCols + 8;       // x row stride, elements
   constexpr int PS = kRdCols + 8;       // r-plane row stride, elements
   constexpr int HS = kRdCols + 8;       // x_hat row stride, floats
   const uint32_t s0 = smem_u32(smem);
@@ -360,16 +359,14 @@ __global__ void __launch_bounds__(kRdThreads, sizeof(T) == 2 ? 2 : 1)
   const long long re = rb + p.chunk < M ? rb + p.chunk : M;
   const int nsteps = (int)((re - rb + kRdRows - 1) / kRdRows);
   const int np = p.np, gs = np + 8;     // g-plane / W-plane row stride
-  const int gr_s = F32 ? np + 4 : gs;   // staged g row stride, elements
   const int wpl = kRdCols * gs * 2;     // bytes of one W plane
-  const int gpl = kRdRows * gs * 2;     // bytes of one g plane (float32 g)
   float* sst = reinterpret_cast<float*>(smem + p.stat_off);
 
   // this thread's x vector: columns c0 + xv*8 .. +7, rows xr + 32h
   const int xv = tid & 7, xr = tid >> 3;
   const int xc = c0 + xv * 8;
-  ColRef<T> xref{nullptr, 0};
-  if (xc < Ctot) xref = col_ref<T>(tbl, G, xc);
+  ColRef<bf16> xref{nullptr, 0};
+  if (xc < Ctot) xref = col_ref<bf16>(tbl, G, xc);
 
   // step st's x vectors and g rows into stage st % stages; a step past
   // the chunk commits an empty group, so group st is always step st's
@@ -384,19 +381,15 @@ __global__ void __launch_bounds__(kRdThreads, sizeof(T) == 2 ? 2 : 1)
     for (int h = 0; h < kRdRows / 32; ++h) {
       const int r = xr + 32 * h;
       const bool ok = xc < Ctot && m0 + r < re;
-#pragma unroll
-      for (int e = 0; e < (int)sizeof(T) / 2; ++e)
-        cp_async16(base + (r * XS + xv * 8) * sizeof(T) + e * 16,
-                   ok ? xref.x + (m0 + r) * xref.ld + e * 4 : g,
-                   ok ? 16 : 0);
+      cp_async16(base + (r * XS + xv * 8) * 2,
+                 ok ? xref.x + (m0 + r) * xref.ld : g, ok ? 16 : 0);
     }
-    constexpr int V = 16 / sizeof(T);   // g values of a 16-byte copy
-    const int gv = np / V;
+    const int gv = np / 8;
     for (int i = tid; i < kRdRows * gv; i += kRdThreads) {
       const int r = i / gv, j = i - (i / gv) * gv;
-      const bool ok = m0 + r < re && j * V < N;
-      cp_async16(base + p.g_off + (r * gr_s + j * V) * sizeof(T),
-                 ok ? g + (m0 + r) * ldg + j * V : g, ok ? 16 : 0);
+      const bool ok = m0 + r < re && j * 8 < N;
+      cp_async16(base + p.g_off + (r * gs + j * 8) * 2,
+                 ok ? g + (m0 + r) * ldg + j * 8 : g, ok ? 16 : 0);
     }
     cp_async_commit();
   };
@@ -459,16 +452,12 @@ __global__ void __launch_bounds__(kRdThreads, sizeof(T) == 2 ? 2 : 1)
     for (int h = 0; h < kRdRows / 32; ++h) {
       const int r = xr + 32 * h;
       const bool row_ok = m0 + r < re;
-      const T* xin = reinterpret_cast<const T*>(sx_) + r * XS + xv * 8;
+      const bf16* xin = reinterpret_cast<const bf16*>(sx_) + r * XS + xv * 8;
       float xf[8];
-      if constexpr (F32) {
-        load8(reinterpret_cast<const float*>(xin), xf);
-      } else {
-        Pack8 in;
-        in.v = *reinterpret_cast<const uint4*>(xin);
+      Pack8 in;
+      in.v = *reinterpret_cast<const uint4*>(xin);
 #pragma unroll
-        for (int t = 0; t < 8; ++t) xf[t] = lo(in, t);
-      }
+      for (int t = 0; t < 8; ++t) xf[t] = lo(in, t);
       Pack8 o1, o2, o3;
       float hv[8];
 #pragma unroll
@@ -489,15 +478,10 @@ __global__ void __launch_bounds__(kRdThreads, sizeof(T) == 2 ? 2 : 1)
       *reinterpret_cast<float4*>(hp + 4) =
           make_float4(hv[4], hv[5], hv[6], hv[7]);
     }
-    // a float32 g: its three planes beside the recompute
-    if constexpr (F32)
-      split_g_planes(smem + p.gp_off,
-                     reinterpret_cast<const float*>(sx_ + p.g_off), kRdRows,
-                     np, tid, kRdThreads);
     __syncthreads();
 
-    // B of the dW product: the n8 tiles of g (bf16: the staged rows; a
-    // float32 g: one of its planes) for the step's 16-row slice ks
+    // B of the dW product: the n8 tiles of the staged g rows for the
+    // step's 16-row slice ks
     const auto load_b = [&](uint32_t gb, int ks, uint32_t (&b)[NB8][2]) {
 #pragma unroll
       for (int jp = 0; jp < NB8 / 2; ++jp) {
@@ -530,25 +514,15 @@ __global__ void __launch_bounds__(kRdThreads, sizeof(T) == 2 ? 2 : 1)
       }
     };
 
-    // dW += sum p_i(r)^T g over the step's rows: at bf16 the three r
-    // planes times g; a float32 g's planes as in gw_product3 (g_j r_i,
-    // i + j <= 4, small terms first)
+    // dW += sum p_i(r)^T g over the step's rows: the three r planes
+    // times g
     const uint32_t gb_ = sb + p.g_off;
 #pragma unroll
     for (int ks = 0; ks < kRdRows / 16; ++ks) {
       uint32_t b[NB8][2] = {};
-      if constexpr (F32) {
+      load_b(gb_, ks, b);
 #pragma unroll
-        for (int pg = 2; pg >= 0; --pg) {
-          load_b(s0 + p.gp_off + pg * gpl, ks, b);
-#pragma unroll
-          for (int k = 2 - pg; k >= 0; --k) dw_plane(k, ks, b);
-        }
-      } else {
-        load_b(gb_, ks, b);
-#pragma unroll
-        for (int k = 0; k < 3; ++k) dw_plane(k, ks, b);
-      }
+      for (int k = 0; k < 3; ++k) dw_plane(k, ks, b);
     }
 
     // g W^T for the step's rows, gated; the two sums
@@ -559,11 +533,7 @@ __global__ void __launch_bounds__(kRdThreads, sizeof(T) == 2 ? 2 : 1)
       for (int j = 0; j < 2; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) gw[i][j][e] = 0.f;
-    if constexpr (F32)
-      gw_product3<kRdMI>(gw, s0 + p.gp_off, gpl, s0, np, wpl, gr0, gc * 16,
-                         lane);
-    else
-      gw_product<kRdMI>(gw, gb_, s0, np, wpl, gr0, gc * 16, lane);
+    gw_product<kRdMI>(gw, gb_, s0, np, wpl, gr0, gc * 16, lane);
 #pragma unroll
     for (int i = 0; i < kRdMI; ++i)
 #pragma unroll
@@ -627,6 +597,491 @@ __global__ void __launch_bounds__(kRdThreads, sizeof(T) == 2 ? 2 : 1)
       sums_part[((long long)blockIdx.y * 2 + which) * Ctot + c] =
           red[(which * 2) * kRdCols + col] +
           red[(which * 2 + 1) * kRdCols + col];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// tb_bwd_reduce at float32 (features and g float32): the same outputs, by
+// two kernels.
+// - tb_split_g_kernel splits g once into its three bf16 planes (common.cuh
+//   split3) in device memory, each element once, where the column blocks
+//   of the reduce would each split it again (the planes tb_bwd_dx's
+//   float32 form splits in its blocks). A plane is stored as the reduce
+//   stages it: per 64-row tile t, 16 x 8 core matrices of 8 outputs n x 8
+//   rows m (16 bytes a row: one output's 8 consecutive rows), core matrix
+//   (n / 8, m / 8 within the tile) at ((k * T + t) * 128 + (n / 8) * 8 +
+//   m / 8) * 128 bytes, zero past N and M (outputs padded to 128). A
+//   cotangent wider than 128 (up to 256) is stored in nh = 2 such halves a
+//   tile, half h of tile t where tile t * nh + h would be.
+// - tb_bwd_reduce_f32_kernel: block (row chunk blockIdx.y, 64 concat
+//   columns blockIdx.x), two warpgroups, one block an SM, steps of kRfRows
+//   rows. Each step's float32 x vectors (through the feature table) and
+//   g's plane tiles (3 x 16 KB, contiguous) arrive by cp.async, the next
+//   step's loading while this one computes; one barrier a step. W's rows
+//   are split once into three bf16 planes of core matrices in shared
+//   memory (split_w_cores). Both products run on wgmma (asynchronous: one
+//   warpgroup's CUDA-core work runs under the other's products):
+//   * warpgroup 0, g W^T (m64n64k16 over the step's 64 x 64 tile): A =
+//     g's planes in registers by ldmatrix.trans from the core matrices,
+//     B = W's planes by a shared-memory descriptor, the six plane
+//     products per element in gw_product3's order (k16 steps over N
+//     ascending, W planes 3, 2, 1, each with the g planes that keep i + j
+//     <= 4, one accumulator over N from zero). wgmma and mma.sync give
+//     the same bits for this chain (2^25 outputs compared on an H100,
+//     PERF.md section 6), so each g_y is the bits tb_bwd_dx gates. The
+//     gate and the two sums on the accumulators: x_hat and y recomputed
+//     from the staged x (one rounding per operation, the plain version's
+//     order), each lane summing its columns over its rows;
+//   * warpgroup 1, dW (m64n128k16): A = r^T, 64 columns x 16 rows, built
+//     in registers from the staged x by each warp for its 16 columns (the
+//     recompute, relu, the split of each pair of rows, halo.cuh
+//     split_pair), the next k16 group's while this one's products run;
+//     B = g's plane tile by a descriptor (K-major: the core matrices
+//     above); each k16 row group's six products g_j r_i (i + j <= 4, small
+//     terms first: g3 r1, g2 r2, g2 r1, g1 r3, g1 r2, g1 r1) sum from zero
+//     in a fragment, which joins the running sum by one round-to-nearest
+//     float32 add (the tensor cores' float32 accumulation truncates;
+//     dw_f32_kernels.cu's order).
+//   Past 128 outputs (up to 256) the grid's z halves the outputs: block z
+//   takes dW of outputs 128z .. +128 (its g half of each step), and block
+//   0 alone g W^T and the sums, walking each step's two g halves as two
+//   items of its pipeline (k16 steps over N ascending, one accumulator, as
+//   at N <= 128).
+//   Row chunks, steps and every order of summation depend on the shapes
+//   alone; each block writes one dW partial (of its outputs) and block
+//   z = 0 one sums partial, which train_ops.sum_rows adds in order.
+// Bound at K=320 -> 128, batch 24, r=64: the twelve bf16 passes of its two
+// products (96.6 GFLOP, 97.7 us at 989 TFLOP/s); the float32 FMA of the
+// same products on the CUDA cores would take 240.4 us.
+// ---------------------------------------------------------------------------
+constexpr int kRfRows = 64;            // rows of a step (a plane tile)
+constexpr int kRfXS = kRdCols + 4;     // staged x row stride, floats
+constexpr int kRfN = 128;              // outputs of a plane tile (padded)
+constexpr int kRfMaxN = 2 * kRfN;      // the widest cotangent
+constexpr int kRfPlane = kRfN * kRfRows * 2;   // bytes of a plane tile
+
+inline int rf_up128(int b) {
+  return (b + 127) / 128 * 128;
+}
+
+// The float32 reduce's shared memory (train_bottleneck.reduce_plan_f32
+// computes the same): W's three planes (kRdCols x np bf16 in core
+// matrices, split_w_cores), two buffers of kRfRows x rows (kRfXS floats)
+// and g's three plane tiles (the sums' reduction, 2 x 4 x kRdCols floats,
+// takes the first after the last step), then the columns' BN constants.
+struct RfLayout {
+  int wpl;          // bytes of one W plane
+  int stage_off;    // the first buffer
+  int g_off;        // g's plane tiles within a buffer
+  int stage_bytes;  // bytes of a buffer
+  int stat_off;     // [mean; inv_sigma; scale; bias] of the columns
+  int bytes;
+};
+
+inline RfLayout rf_layout(int np) {
+  RfLayout l;
+  l.wpl = kRdCols * np * 2;
+  l.stage_off = rf_up128(3 * l.wpl);
+  l.g_off = kRfRows * kRfXS * 4;
+  l.stage_bytes = rf_up128(l.g_off + 3 * kRfPlane);
+  l.stat_off = l.stage_off + 2 * l.stage_bytes;
+  l.bytes = l.stat_off + 4 * kRdCols * 4;
+  return l;
+}
+
+// g (M, N) float32 -> gp, its three planes in 64-row tiles of core
+// matrices (the header above), T = ceil(M / 64) tiles a plane, NH halves
+// of 128 outputs a tile (a template parameter, so the index arithmetic
+// below is shifts). Thread (t, n, mg) splits rows t*64 + mg*8 .. +8 of
+// output n; a warp's 32 outputs read each row coalesced.
+template <int NH>
+__global__ void __launch_bounds__(kThreads)
+    tb_split_g_kernel(const float* __restrict__ g, long long ldg,
+                      long long M, int N, long long T,
+                      bf16* __restrict__ gp) {
+  constexpr int nh = NH, nw = NH * kRfN;
+  const long long total = T * nw * 8;
+  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+       i < total; i += (long long)gridDim.x * kThreads) {
+    const int n = (int)(i % nw);
+    const long long tm = i / nw;              // (t, mg)
+    const long long t = tm / 8;
+    const int mg = (int)(tm % 8);
+    const long long m0 = t * kRfRows + mg * 8;
+    Pack8 a, b, c;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const float v = n < N && m0 + e < M ? g[(m0 + e) * ldg + n] : 0.f;
+      split3(v, a.u[e], b.u[e], c.u[e]);
+    }
+    const int h = n / kRfN, nl = n % kRfN;
+    const long long cm =
+        ((t * nh + h) * 128 + (nl / 8) * 8 + mg) * 64 + (nl % 8) * 8;
+    const long long pl = T * nh * 128 * 64;   // elements of a plane
+    *reinterpret_cast<uint4*>(gp + cm) = a.v;
+    *reinterpret_cast<uint4*>(gp + pl + cm) = b.v;
+    *reinterpret_cast<uint4*>(gp + 2 * pl + cm) = c.v;
+  }
+}
+
+
+// d (64 x 128, this warp's 16 rows) = a (registers, 64 x 16) * B (smem
+// descriptor, 16 x 128) (+ d with ACC), bf16 in, float32 out.
+template <int ACC>
+__device__ __forceinline__ void wgmma_m64n128(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "n"(ACC));
+}
+
+// d (64 x 64) += a (registers, 64 x 16) * B (smem descriptor, 16 x 64),
+// bf16 in, float32 out.
+__device__ __forceinline__ void wgmma_m64n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc));
+}
+
+// W's rows c0 .. c0 + kRdCols (float32 (Ctot, N)) split once into three
+// bf16 planes of core matrices (8 columns x 8 outputs, 128 bytes): plane
+// k's core matrix (cl / 8, n / 8) at k * wpl + ((cl / 8) * (np / 8) + n /
+// 8) * 128, row cl % 8; zero past Ctot and N.
+__device__ __forceinline__ void split_w_cores(unsigned char* smem,
+                                              const float* __restrict__ w,
+                                              int Ctot, int N, int c0, int np,
+                                              int tid, int nthr) {
+  const int wpl = kRdCols * np * 2, ng = np / 8;
+  for (int i = tid; i < kRdCols * np / 4; i += nthr) {
+    const int cl = i / (np / 4), n = (i - cl * (np / 4)) * 4;
+    const int c = c0 + cl;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (c < Ctot && n < N)
+      v = *reinterpret_cast<const float4*>(w + (long long)c * N + n);
+    store_planes4(smem + ((cl / 8) * ng + n / 8) * 128 + (cl % 8) * 16 +
+                      (n % 8) * 2,
+                  wpl, v, false);
+  }
+}
+
+// NT8: k16 steps of g W^T over a g half (np / 16 where np <= kRfN). WIDE:
+// np > kRfN, two halves (NT8 = 8), grid z the dW half.
+template <int NT8, bool WIDE>
+__global__ void __launch_bounds__(kRdThreads, 1)
+    tb_bwd_reduce_f32_kernel(const long long* __restrict__ tbl, int G,
+                             long long M, int Ctot,
+                             const bf16* __restrict__ gp, long long T, int N,
+                             const float* __restrict__ stat,
+                             const float* __restrict__ bias,
+                             const float* __restrict__ w, long long chunk,
+                             RfLayout L, float* __restrict__ dw_part,
+                             float* __restrict__ sums_part) {
+  const int np = WIDE ? (N + 15) / 16 * 16 : 16 * NT8;
+  const int nh = WIDE ? 2 : 1;                 // g halves of a tile
+  const int z = WIDE ? (int)blockIdx.z : 0;    // this block's dW half
+  // block z = 0 walks both halves of a step (g W^T reads all of N), a
+  // block z > 0 its own
+  const int per = z == 0 ? nh : 1;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t s0 = smem_u32(smem);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int c0 = blockIdx.x * kRdCols;
+  const long long rb = (long long)blockIdx.y * chunk;
+  const long long re = rb + chunk < M ? rb + chunk : M;
+  const int nsteps = (int)((re - rb + kRfRows - 1) / kRfRows);
+  const int items = nsteps * per;
+  const int g8 = lane >> 2, q4 = lane & 3, mat = lane >> 3;
+
+  // this thread's x vector: columns c0 + xv*4 .. +3, rows xr + 16h
+  const int xv = tid & 15, xr = tid >> 4;
+  const int xc = c0 + xv * 4;
+  ColRef<float> xref{nullptr, 0};
+  if (xc < Ctot) xref = col_ref<float>(tbl, G, xc);
+  // item it (step it / per, g half z + it % per): the step's x vectors
+  // (zero past the chunk and Ctot) and the half's three plane tiles into
+  // buffer it & 1
+  const auto issue = [&](int it) {
+    const int st = it / per, h = z + it - st * per;
+    const long long m0 = rb + (long long)st * kRfRows;
+    const uint32_t base = s0 + L.stage_off + (it & 1) * L.stage_bytes;
+#pragma unroll
+    for (int hh = 0; hh < kRfRows / 16; ++hh) {
+      const int r = xr + 16 * hh;
+      const bool ok = xc < Ctot && m0 + r < re;
+      cp_async16(base + (r * kRfXS + xv * 4) * 4,
+                 ok ? xref.x + (m0 + r) * xref.ld : w, ok ? 16 : 0);
+    }
+    const long long t = m0 / kRfRows;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const bf16* src = gp + ((k * T + t) * nh + h) * (kRfPlane / 2);
+      for (int i = tid; i < kRfPlane / 16; i += kRdThreads)
+        cp_async16(base + L.g_off + k * kRfPlane + i * 16, src + i * 8, 16);
+    }
+    cp_async_commit();
+  };
+  issue(0);
+  if (z == 0) split_w_cores(smem, w, Ctot, N, c0, np, tid, kRdThreads);
+
+  // the columns' BN constants [mean, inv_sigma, scale, bias] as one
+  // 16-byte vector a column
+  float4* sst = reinterpret_cast<float4*>(smem + L.stat_off);
+  if (tid < kRdCols) {
+    const int c = c0 + tid;
+    sst[tid] = c < Ctot ? make_float4(stat[c], stat[Ctot + c],
+                                      stat[2 * Ctot + c], bias[c])
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+
+  const bool gw_warp = warp < 4;
+  // warp w of a warpgroup: g W^T rows w*16 + g8 (+8), this lane's columns
+  // 8j + 2*q4 + e (wgmma's accumulator layout); dW columns w*16 + g8 + 8h
+  // (the rows of its A = r^T)
+  const int wq = warp & 3;
+  float sg[16], sx[16];
+#pragma unroll
+  for (int u = 0; u < 16; ++u) sg[u] = sx[u] = 0.f;
+  float acc[64];
+#pragma unroll
+  for (int e = 0; e < 64; ++e) acc[e] = 0.f;
+  float gw[32];   // g W^T of a step, over its halves
+
+  for (int it = 0; it < items; ++it) {
+    cp_async_wait<0>();
+    __syncthreads();   // item it (and W's planes) landed; item it-1 done
+    if (it + 1 < items) issue(it + 1);
+    const int st = it / per, h = z + it - st * per;
+    const long long m0 = rb + (long long)st * kRfRows;
+    const int rows = re - m0 < kRfRows ? (int)(re - m0) : kRfRows;
+    const unsigned char* buf = smem + L.stage_off + (it & 1) * L.stage_bytes;
+    const float* xs = reinterpret_cast<const float*>(buf);
+    const uint32_t gb = s0 + L.stage_off + (it & 1) * L.stage_bytes +
+                        L.g_off;
+
+    if (gw_warp) {
+      if (z != 0) continue;
+      // g W^T over the step's 64 x 64 tile by wgmma m64n64k16, per element
+      // gw_product3's order: k16 steps over N ascending (this half's
+      // after the previous one's), W planes 3, 2, 1, each with the g
+      // planes that keep i + j <= 4, one accumulator over N from zero. A
+      // (rows m, depth n) from the core matrices (n group, m group) by
+      // ldmatrix.trans, matrix q of the x4 at n group 2kk + (q >> 1), m
+      // group 2w + (q & 1), double-buffered so the next step's loads run
+      // under this one's products; B = W plane pw's core matrices (column
+      // group, n group), 128 bytes apart along K, np * 16 along N.
+      if (h == 0) {
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          gw[e] = 0.f;
+          reg_fence(gw[e]);
+        }
+      }
+      // k16 steps of this half: N's own count (bwd_dx's), not the padding
+      const int nkk = WIDE ? min(NT8, np / 16 - NT8 * h) : NT8;
+      uint32_t a[2][3][4];
+#pragma unroll
+      for (int kk = 0; kk < NT8; ++kk) {
+        if (WIDE && kk >= nkk) break;
+        if (kk >= 2) wgmma_wait<1>();   // the group of kk - 2 read a[kk & 1]
+#pragma unroll
+        for (int pg = 0; pg < 3; ++pg)
+          ldsm_x4_t(a[kk & 1][pg],
+                    gb + pg * kRfPlane +
+                        ((2 * kk + (mat >> 1)) * 8 + 2 * wq + (mat & 1)) *
+                            128 +
+                        (lane & 7) * 16);
+        const int kn = NT8 * h + kk;   // the k16 step within N
+        const auto bd = [&](int pw) {
+          return smem_desc(s0 + pw * L.wpl + 2 * kn * 128, 128, np * 16);
+        };
+        const uint32_t (&ak)[3][4] = a[kk & 1];
+        wgmma_fence();
+        wgmma_m64n64(gw, ak[0], bd(2));
+        wgmma_m64n64(gw, ak[1], bd(1));
+        wgmma_m64n64(gw, ak[0], bd(1));
+        wgmma_m64n64(gw, ak[2], bd(0));
+        wgmma_m64n64(gw, ak[1], bd(0));
+        wgmma_m64n64(gw, ak[0], bd(0));
+        wgmma_commit();
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int e = 0; e < 32; ++e) reg_fence(gw[e]);
+      if (h < nh - 1) continue;
+      // the gate and the two sums, column by column: x_hat, y recomputed
+      // from the staged x (a zero term where the gate is shut: rows past
+      // the chunk, y <= 0)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * j + 2 * q4 + e;
+          const float4 k4 = sst[col];
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int r = wq * 16 + g8 + 8 * hh;
+            const float xh = xhat_of(xs[r * kRfXS + col], k4.x, k4.y);
+            const float y = ybn_of(xh, k4.z, k4.w);
+            const bool pass = r < rows && y > 0.f;
+            const float gv = gw[4 * j + 2 * hh + e];
+            sg[2 * j + e] += pass ? gv : 0.f;
+            sx[2 * j + e] += pass ? __fmul_rn(gv, xh) : 0.f;
+          }
+        }
+    } else {
+      if (h != z) continue;
+      // dW over the step's rows, one fragment a k16 row group: the r^T
+      // registers of group ks + 1 are built while the wgmmas of group ks
+      // run; the BN constants of this lane's two columns
+      const float4 k4[2] = {sst[wq * 16 + g8], sst[wq * 16 + g8 + 8]};
+      // A = r^T: reg h + 2kh holds rows ks*16 + 2*q4 + 8kh (+1) of column
+      // w*16 + g8 + 8h
+      const auto build = [&](int ks, uint32_t (&A)[3][4]) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+          for (int kh = 0; kh < 2; ++kh) {
+            const int r = ks * 16 + 2 * q4 + 8 * kh;
+            const int col = wq * 16 + g8 + 8 * hh;
+            float rv[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float xh = xhat_of(xs[(r + e) * kRfXS + col], k4[hh].x,
+                                       k4[hh].y);
+              const float y = ybn_of(xh, k4[hh].z, k4[hh].w);
+              rv[e] = r + e < rows && y > 0.f ? y : 0.f;
+            }
+            const int reg = hh + 2 * kh;
+            split_pair(rv[0], rv[1], A[0][reg], A[1][reg], A[2][reg]);
+          }
+      };
+      // B = g plane pg's rows ks*16 .. +16: core matrices (n group, m
+      // groups 2ks, 2ks + 1), 128 bytes apart along K, 1,024 along N
+      float f[64];
+      const auto products = [&](int ks, const uint32_t (&A)[3][4]) {
+        const auto desc = [&](int pg) {
+          return smem_desc(gb + pg * kRfPlane + 2 * ks * 128, 128, 1024);
+        };
+#pragma unroll
+        for (int e = 0; e < 64; ++e) reg_fence(f[e]);
+        wgmma_fence();
+        wgmma_m64n128<0>(f, A[0], desc(2));
+        wgmma_m64n128<1>(f, A[1], desc(1));
+        wgmma_m64n128<1>(f, A[0], desc(1));
+        wgmma_m64n128<1>(f, A[2], desc(0));
+        wgmma_m64n128<1>(f, A[1], desc(0));
+        wgmma_m64n128<1>(f, A[0], desc(0));
+        wgmma_commit();
+      };
+      const auto join = [&]() {
+        wgmma_wait<0>();
+#pragma unroll
+        for (int e = 0; e < 64; ++e) {
+          reg_fence(f[e]);
+          acc[e] = __fadd_rn(acc[e], f[e]);
+        }
+      };
+      uint32_t A[2][3][4];
+      build(0, A[0]);
+      products(0, A[0]);
+#pragma unroll
+      for (int ks = 1; ks < kRfRows / 16; ++ks) {
+        build(ks, A[ks & 1]);
+        join();
+        products(ks, A[ks & 1]);
+      }
+      join();
+    }
+  }
+
+  // the sums' reduction takes the first buffer once every item is done
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem + L.stage_off);
+  if (gw_warp) {
+    // the sums: over the lanes of a column (fixed tree), then the four
+    // warps' rows in order
+#pragma unroll
+    for (int u = 0; u < 16; ++u)
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) {
+        sg[u] += __shfl_xor_sync(0xffffffffu, sg[u], o);
+        sx[u] += __shfl_xor_sync(0xffffffffu, sx[u], o);
+      }
+    if (lane < 4)
+#pragma unroll
+      for (int u = 0; u < 16; ++u) {
+        const int col = 8 * (u >> 1) + 2 * lane + (u & 1);
+        red[(0 * 4 + wq) * kRdCols + col] = sg[u];
+        red[(1 * 4 + wq) * kRdCols + col] = sx[u];
+      }
+  } else {
+    // the dW partial of this chunk: the warp's rows wq*16 + g8 (+8), the
+    // n8 tile j's outputs 128z + 8j + 2*q4, +1 (wgmma's accumulator
+    // layout)
+    float* dbase = dw_part + (long long)blockIdx.y * Ctot * N;
+    const int c = c0 + wq * 16 + g8;
+#pragma unroll
+    for (int j = 0; j < 2 * NT8; ++j) {
+      const int n = kRfN * z + 8 * j + 2 * q4;
+      if (n >= N) continue;
+      if (c < Ctot)
+        *reinterpret_cast<float2*>(dbase + (long long)c * N + n) =
+            make_float2(acc[4 * j], acc[4 * j + 1]);
+      if (c + 8 < Ctot)
+        *reinterpret_cast<float2*>(dbase + (long long)(c + 8) * N + n) =
+            make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+  }
+  __syncthreads();
+  if (z == 0 && tid < 2 * kRdCols) {
+    const int which = tid / kRdCols, col = tid % kRdCols, c = c0 + col;
+    const float* rw = red + which * 4 * kRdCols + col;
+    if (c < Ctot)
+      sums_part[((long long)blockIdx.y * 2 + which) * Ctot + c] =
+          ((rw[0] + rw[kRdCols]) + rw[2 * kRdCols]) + rw[3 * kRdCols];
   }
 }
 
@@ -817,20 +1272,38 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1)
   }
 }
 
-template <int NB8, typename T>
+template <int NB8>
 int launch_bwd_reduce(const long long* tbl, int G, long long M, int Ctot,
-                      const T* g, long long ldg, int N, const float* stat,
+                      const bf16* g, long long ldg, int N, const float* stat,
                       const float* bias, const float* w, const RdPlan& p,
                       float* dw_part, float* sums_part, int smem,
                       cudaStream_t st) {
   const cudaError_t e = cudaFuncSetAttribute(
-      tb_bwd_reduce_kernel<NB8, T>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      tb_bwd_reduce_kernel<NB8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((unsigned)((Ctot + kRdCols - 1) / kRdCols),
                   (unsigned)((M + p.chunk - 1) / p.chunk));
-  tb_bwd_reduce_kernel<NB8, T><<<grid, kRdThreads, smem, st>>>(
+  tb_bwd_reduce_kernel<NB8><<<grid, kRdThreads, smem, st>>>(
       tbl, G, M, Ctot, g, ldg, N, stat, bias, w, p, dw_part, sums_part);
+  return (int)cudaGetLastError();
+}
+
+template <int NT8, bool WIDE>
+int launch_bwd_reduce_f32(const long long* tbl, int G, long long M, int Ctot,
+                          const bf16* gp, long long T, int N,
+                          const float* stat, const float* bias,
+                          const float* w, long long chunk, const RfLayout& l,
+                          float* dw_part, float* sums_part, cudaStream_t st) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      tb_bwd_reduce_f32_kernel<NT8, WIDE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, l.bytes);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((unsigned)((Ctot + kRdCols - 1) / kRdCols),
+                  (unsigned)((M + chunk - 1) / chunk), WIDE ? 2 : 1);
+  tb_bwd_reduce_f32_kernel<NT8, WIDE><<<grid, kRdThreads, l.bytes, st>>>(
+      tbl, G, M, Ctot, gp, T, N, stat, bias, w, chunk, l, dw_part,
+      sums_part);
   return (int)cudaGetLastError();
 }
 
@@ -845,13 +1318,12 @@ int stats(const void* tbl, int G, long long M, int Ctot, long long chunk,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
 int bwd_reduce(const void* tbl, int G, long long M, int Ctot, const void* g,
                long long ldg, int N, const void* stat, const void* bias,
                const void* w, const RdPlan& p, int smem, void* dw_part,
                void* sums_part, void* stream) {
   const auto* tp = static_cast<const long long*>(tbl);
-  const auto* gp = static_cast<const T*>(g);
+  const auto* gp = static_cast<const bf16*>(g);
   const auto* sp = static_cast<const float*>(stat);
   const auto* bp = static_cast<const float*>(bias);
   const auto* wp = static_cast<const float*>(w);
@@ -859,10 +1331,10 @@ int bwd_reduce(const void* tbl, int G, long long M, int Ctot, const void* g,
   auto* rp = static_cast<float*>(sums_part);
   const auto st = static_cast<cudaStream_t>(stream);
   switch ((p.np + 31) / 32) {
-#define CUNET_RD_NB8(n)                                                    \
-  case n:                                                                  \
-    return launch_bwd_reduce<n, T>(tp, G, M, Ctot, gp, ldg, N, sp, bp, wp, \
-                                   p, dp, rp, smem, st);
+#define CUNET_RD_NB8(n)                                                 \
+  case n:                                                               \
+    return launch_bwd_reduce<n>(tp, G, M, Ctot, gp, ldg, N, sp, bp, wp, \
+                                p, dp, rp, smem, st);
     CUNET_RD_NB8(1) CUNET_RD_NB8(2) CUNET_RD_NB8(3) CUNET_RD_NB8(4)
     CUNET_RD_NB8(5) CUNET_RD_NB8(6) CUNET_RD_NB8(7) CUNET_RD_NB8(8)
 #undef CUNET_RD_NB8
@@ -909,8 +1381,9 @@ int cunet_tb_fill_table(const void* host_tbl, int G, void* tbl,
   return (int)cudaGetLastError();
 }
 
-// The statistics, reduce and dx kernels over bf16 features and cotangent
-// (f32 = 0) or float32 ones (f32 = 1); every other operand is float32.
+// The statistics and dx kernels over bf16 features and cotangent (f32 =
+// 0) or float32 ones (f32 = 1), the reduce over bf16 ones (its float32
+// form is cunet_tb_bwd_reduce_f32); every other operand is float32.
 int cunet_tb_stats(const void* tbl, int G, long long M, int Ctot,
                    long long chunk, void* part, int f32, void* stream) {
   return f32 ? stats<float>(tbl, G, M, Ctot, chunk, part, stream)
@@ -922,14 +1395,65 @@ int cunet_tb_bwd_reduce(const void* tbl, int G, long long M, int Ctot,
                         const void* bias, const void* w, long long chunk,
                         int np, int stages, int stat_off, int stage_off,
                         int stage_bytes, int g_off, int pl_off, int xh_off,
-                        int gp_off, int smem, void* dw_part, void* sums_part,
-                        int f32, void* stream) {
+                        int smem, void* dw_part, void* sums_part,
+                        void* stream) {
   const RdPlan p{chunk, np, stages, stat_off, stage_off, stage_bytes, g_off,
-                 pl_off, xh_off, gp_off};
-  return f32 ? bwd_reduce<float>(tbl, G, M, Ctot, g, ldg, N, stat, bias, w,
-                                 p, smem, dw_part, sums_part, stream)
-             : bwd_reduce<bf16>(tbl, G, M, Ctot, g, ldg, N, stat, bias, w,
-                                p, smem, dw_part, sums_part, stream);
+                 pl_off, xh_off};
+  return bwd_reduce(tbl, G, M, Ctot, g, ldg, N, stat, bias, w, p, smem,
+                    dw_part, sums_part, stream);
+}
+
+// The reduce over float32 features and g: g split into its planes at gp
+// (3 x ceil(M / 64) x nh x 64 x 128 bf16, nh = 2 past 128 outputs, the
+// caller's), then the reduce in row chunks of ``chunk``
+// (train_bottleneck.reduce_plan_f32; ``smem`` checked against the
+// kernel's layout).
+int cunet_tb_bwd_reduce_f32(const void* tbl, int G, long long M, int Ctot,
+                            const void* g, long long ldg, int N,
+                            const void* stat, const void* bias,
+                            const void* w, void* gp, long long chunk, int np,
+                            int smem, void* dw_part, void* sums_part,
+                            void* stream) {
+  const RfLayout l = rf_layout(np);
+  if (N % 8 || np % 16 || np < N || np - N >= 16 || np > kRfMaxN ||
+      chunk % kRfRows || chunk < 1 || l.bytes != smem)
+    return (int)cudaErrorInvalidValue;
+  const auto st = static_cast<cudaStream_t>(stream);
+  auto* planes = static_cast<bf16*>(gp);
+  const long long T = (M + kRfRows - 1) / kRfRows;
+  const int nh = np > kRfN ? 2 : 1;
+  const long long want = (T * nh * kRfN * 8 + kThreads - 1) / kThreads;
+  const unsigned blocks = (unsigned)(want < 132 * 16 ? want : 132 * 16);
+  const auto* gf = static_cast<const float*>(g);
+  if (nh == 2)
+    tb_split_g_kernel<2><<<blocks, kThreads, 0, st>>>(gf, ldg, M, N, T,
+                                                      planes);
+  else
+    tb_split_g_kernel<1><<<blocks, kThreads, 0, st>>>(gf, ldg, M, N, T,
+                                                      planes);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const auto* tp = static_cast<const long long*>(tbl);
+  const auto* sp = static_cast<const float*>(stat);
+  const auto* bp = static_cast<const float*>(bias);
+  const auto* wp = static_cast<const float*>(w);
+  auto* dp = static_cast<float*>(dw_part);
+  auto* rp = static_cast<float*>(sums_part);
+  if (nh == 2)
+    return launch_bwd_reduce_f32<kRfN / 16, true>(tp, G, M, Ctot, planes, T,
+                                                  N, sp, bp, wp, chunk, l,
+                                                  dp, rp, st);
+  switch (np / 16) {
+#define CUNET_RF(n)                                                        \
+  case n:                                                                  \
+    return launch_bwd_reduce_f32<n, false>(tp, G, M, Ctot, planes, T, N,  \
+                                           sp, bp, wp, chunk, l, dp, rp,  \
+                                           st);
+    CUNET_RF(1) CUNET_RF(2) CUNET_RF(3) CUNET_RF(4) CUNET_RF(5) CUNET_RF(6)
+    CUNET_RF(7) CUNET_RF(8)
+#undef CUNET_RF
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 int cunet_tb_bwd_dx(const void* tbl, int G, long long M, int Ctot,

@@ -134,55 +134,6 @@ struct DwArgs {
   int stages;          // raw buffers: 2 or 3
 };
 
-// Two float32 values rounded to bf16 as one packed pair (cvt.rn.bf16x2),
-// and the float32 values of its low and high halves.
-__device__ __forceinline__ uint32_t pack_rn(float lo_v, float hi_v) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo_v, hi_v);
-  return *reinterpret_cast<const uint32_t*>(&h);
-}
-__device__ __forceinline__ float low_half(uint32_t w) {
-  return __uint_as_float(w << 16);
-}
-__device__ __forceinline__ float high_half(uint32_t w) {
-  return __uint_as_float(w & 0xffff0000u);
-}
-
-// Four float32 values into their three bf16 planes (8 bytes each, at p,
-// p + plane, p + 2 plane): common.cuh's split3, two values an instruction.
-// one: the first plane alone (a one-plane QuanInput operand).
-__device__ __forceinline__ void store_planes4(unsigned char* p, int plane,
-                                              const float4& v, bool one) {
-  const float x[4] = {v.x, v.y, v.z, v.w};
-  uint32_t w1[2], w2[2], w3[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const float a = x[2 * h], b = x[2 * h + 1];
-    w1[h] = pack_rn(a, b);
-    if (one) continue;
-    const float ra = __fsub_rn(a, low_half(w1[h]));
-    const float rb = __fsub_rn(b, high_half(w1[h]));
-    w2[h] = pack_rn(ra, rb);
-    w3[h] = pack_rn(__fsub_rn(ra, low_half(w2[h])),
-                    __fsub_rn(rb, high_half(w2[h])));
-  }
-  *reinterpret_cast<uint2*>(p) = make_uint2(w1[0], w1[1]);
-  if (one) return;
-  *reinterpret_cast<uint2*>(p + plane) = make_uint2(w2[0], w2[1]);
-  *reinterpret_cast<uint2*>(p + 2 * plane) = make_uint2(w3[0], w3[1]);
-}
-
-// d = a * b from a zero accumulator (m16n8k16, bf16 in, float32 out).
-__device__ __forceinline__ void mma16816_z(float (&d)[4],
-                                           const uint32_t (&a)[4],
-                                           uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
-        "f"(0.f));
-}
-
 // CONV: the 3x3 form; NT: n8 column tiles a warp; QUANT: the quantizer on
 // z and its one-plane products (a template parameter, so an instance
 // without it carries none of its code); WARPS: 12 (one block an SM) or 6

@@ -22,10 +22,11 @@
 // The ghost-BN train step adds per-tile BN vectors (each row reads its
 // own tile's [inv; shift]: a tile of 96 rows does not divide a 128-row
 // block), the conv's BN2 prologue, and a gate epilogue (kEpiGate: the
-// backward's ReLU mask of the stage input), so that affine_dx and
-// conv3x3_dx run as dot3_kernel on the float32 cotangent through the
-// transposed (flipped) weight, no prologue; the weight gradients, the
-// product over the rows, are dw_f32_kernels.cu's.
+// backward's ReLU mask of the stage input), so that conv3x3_dx runs as
+// dot3_kernel on the float32 cotangent through the flipped weight, no
+// prologue; affine_dx's float32 form is dx_f32_kernels.cu's (the same
+// sums, bit for bit), the weight gradients, the product over the rows,
+// dw_f32_kernels.cu's.
 // The QuanInput options of the quantized model's training (W1/I8/G8 at
 // float32): a prologue quantizer quan(relu(x * inv + shift), bits) on the
 // unrounded float32 value (the bf16 forms' act() rounds to bf16 first;
@@ -41,8 +42,8 @@
 // fused_hourglass.py:75), #4 (fused_hourglass.py::_bottleneck_val :229),
 // #5 (fused_block.py::fused_dense_block_infer :207) and #6
 // (fused_bottleneck.py :76, :178), and the products of #8/#9
-// (train_slot.py::_dot :172, _conv3x3_t :647, _dot_dx :541, the d_z2 half
-// of _conv3x3_bwd :732), which run float32 x float32 products with float32
+// (train_slot.py::_dot :172, _conv3x3_t :647, the d_z2 half of
+// _conv3x3_bwd :732), which run float32 x float32 products with float32
 // accumulation at compute_dtype="float32".
 //
 // Arithmetic: float32-accurate on the tensor cores. Both operands are split
@@ -907,23 +908,17 @@ int cunet_conv3x3_f32(const void* y, long long ldy, long long M, int H, int W,
 
 // The float32 1x1 stage of the ghost-BN train step, one feature group:
 // out (M, N) = relu(x * inv_t + shift_t) @ w[:K] (affine_dot's float32
-// form with per-tile vectors, vstride and tile_rows as in Op3), or, with
-// ``gx`` and no ``inv`` (affine_dx's float32 form: x the cotangent, w the
-// transposed weight), x @ w[:K] gated by relu(gx * gate_inv_t +
-// gate_shift_t) > 0 of the stage input gx (M, N). ``bn`` and ``smem`` from
-// buf_ops.dot3_plan; out an (M, N) view or an image-major one as in
-// cunet_table_dot_f32. bits: QuanInput's quantizer after the prologue (the
-// quantized model's head); ste: the gate also closes where its affine is
-// >= 1.
+// form with per-tile vectors, vstride and tile_rows as in Op3). ``bn`` and
+// ``smem`` from buf_ops.dot3_plan; out an (M, N) view or an image-major one
+// as in cunet_table_dot_f32. bits: QuanInput's quantizer after the
+// prologue (the quantized model's head).
 int cunet_affine_f32(const void* x, long long ldx, long long M, int K,
                      const void* inv, const void* shift, long long vstride,
                      long long tile_rows, const void* w, int ldw, int N,
-                     const void* gx, long long ldgx, const void* gate_inv,
-                     const void* gate_shift, void* out, long long ldo,
-                     long long rows_per_img, long long img_stride, int bits,
-                     int ste, int bn, int smem, void* stream) {
-  if ((gx && inv) || tile_rows < 1 || (bits && !inv) || (ste && !gx))
-    return (int)cudaErrorInvalidValue;
+                     void* out, long long ldo, long long rows_per_img,
+                     long long img_stride, int bits, int bn, int smem,
+                     void* stream) {
+  if (tile_rows < 1 || (bits && !inv)) return (int)cudaErrorInvalidValue;
   Src src;
   src.G = 1;
   src.K = K;
@@ -939,18 +934,13 @@ int cunet_affine_f32(const void* x, long long ldx, long long M, int K,
   }
   Ops3 ops;
   ops.o[0] = make_op(inv, shift, w, ldw, out, ldo, rows_per_img, img_stride);
-  set_train(ops.o[0], vstride, tile_rows, gx, ldgx, gate_inv, gate_shift,
+  set_train(ops.o[0], vstride, tile_rows, nullptr, 0, nullptr, nullptr,
             bits);
   ops.o[1] = ops.o[0];
   const auto st = static_cast<cudaStream_t>(stream);
   switch (bn) {
 #define CUNET_AFFINE3(b, wn)                                                \
   case b:                                                                   \
-    if (gx)                                                                 \
-      return ste ? launch3<b, wn, 1, false, kEpiGateSte, false>(            \
-                       src, M, N, ops, smem, st)                            \
-                 : launch3<b, wn, 1, false, kEpiGate, false>(               \
-                       src, M, N, ops, smem, st);                           \
     return bits ? launch3<b, wn, 1, false, kEpiNone, false, false, true>(   \
                       src, M, N, ops, smem, st)                             \
                 : launch3<b, wn, 1, false, kEpiNone, false>(src, M, N, ops, \

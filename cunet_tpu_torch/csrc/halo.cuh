@@ -4,7 +4,9 @@
 // affine_dot (buf_kernels.cu; #7's apply is its table form), affine_dx and
 // affine_dw and the BN backward bn_bwd (train_kernels.cu): asynchronous
 // copies into shared memory (cp.async), ldmatrix loads of 8x8 bf16 tiles,
-// the m16n8k16 bf16 tensor-core product (mma.sync), the halo tile the conv
+// the m16n8k16 bf16 tensor-core product (mma.sync), the exact three-plane
+// bf16 split of float32 pairs that the float32 products (dw_f32_kernels.cu,
+// dx_f32_kernels.cu, #7's float32 reduce) feed it, the halo tile the conv
 // kernels stage, #7's feature table and its chunks, and the launch of a
 // persistent kernel.
 //
@@ -114,6 +116,89 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d = a * b from a zero accumulator (m16n8k16, bf16 in, float32 out).
+__device__ __forceinline__ void mma16816_z(float (&d)[4],
+                                           const uint32_t (&a)[4],
+                                           uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%10,%10,%10,%10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.f));
+}
+
+// The fence, commit and wait of a warpgroup's wgmmas (Hopper's
+// asynchronous warpgroup products, sm_90a); a register the compiler may
+// not move across them, so an accumulator is read only after its wait.
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void reg_fence(float& r) {
+  asm volatile("" : "+f"(r)::"memory");
+}
+
+// The shared-memory descriptor of a K-major bf16 wgmma operand without
+// swizzle: core matrices of 8 rows x 16 bytes (contiguous), ``lbo`` bytes
+// apart along K and ``sbo`` bytes apart along M / N.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, int lbo,
+                                              int sbo) {
+  return (uint64_t)((addr >> 4) & 0x3FFF) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
+}
+
+// Two float32 values rounded to bf16 as one packed pair (cvt.rn.bf16x2),
+// and the float32 values of its low and high halves.
+__device__ __forceinline__ uint32_t pack_rn(float lo_v, float hi_v) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo_v, hi_v);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+__device__ __forceinline__ float low_half(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float high_half(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+// The pair (a, b) split into its three packed bf16 planes: common.cuh's
+// split3 on each value, two values an instruction (a in the low half: the
+// lower column or depth index of an mma.sync fragment register).
+__device__ __forceinline__ void split_pair(float a, float b, uint32_t& p1,
+                                           uint32_t& p2, uint32_t& p3) {
+  p1 = pack_rn(a, b);
+  const float ra = __fsub_rn(a, low_half(p1));
+  const float rb = __fsub_rn(b, high_half(p1));
+  p2 = pack_rn(ra, rb);
+  p3 = pack_rn(__fsub_rn(ra, low_half(p2)), __fsub_rn(rb, high_half(p2)));
+}
+
+// Four float32 values into their three bf16 planes (8 bytes each, at p,
+// p + plane, p + 2 plane). one: the first plane alone (a one-plane
+// QuanInput operand).
+__device__ __forceinline__ void store_planes4(unsigned char* p, int plane,
+                                              const float4& v, bool one) {
+  uint32_t w1[2], w2[2], w3[2];
+  if (one) {
+    w1[0] = pack_rn(v.x, v.y);
+    w1[1] = pack_rn(v.z, v.w);
+  } else {
+    split_pair(v.x, v.y, w1[0], w2[0], w3[0]);
+    split_pair(v.z, v.w, w1[1], w2[1], w3[1]);
+  }
+  *reinterpret_cast<uint2*>(p) = make_uint2(w1[0], w1[1]);
+  if (one) return;
+  *reinterpret_cast<uint2*>(p + plane) = make_uint2(w2[0], w2[1]);
+  *reinterpret_cast<uint2*>(p + 2 * plane) = make_uint2(w3[0], w3[1]);
 }
 
 __device__ __forceinline__ void load8(const float* p, float (&v)[8]) {

@@ -569,25 +569,19 @@ def _affine_dot_f32(x, vec, w, out, bias, bits_i):
     return out
 
 
-def launch_affine_f32(x, inv, shift, vstride, tile_rows, w, out, gate=None,
-                      bits_i=0, ste=False):
+def launch_affine_f32(x, inv, shift, vstride, tile_rows, w, out, bits_i=0):
     """Launch ``cunet_affine_f32`` (checked by the caller): the float32
     product ``x @ w[:K]`` of one group with a per-tile prologue (``inv``,
     ``shift`` pointers as ``_vec_args`` gives them; with ``bits_i``
-    QuanInput's quantizer after it), or, with ``gate`` = (gx, gate_inv,
-    gate_shift) and no prologue (``inv`` 0), gated by the backward's ReLU
-    mask of the stage input gx (with ``ste`` QuanInput's straight-through
-    gate too). Returns the CUDA error code."""
+    QuanInput's quantizer after it). Returns the CUDA error code."""
     m, k = x.shape
     n = w.shape[1]
     p = dot3_plan(n)
-    gx, ginv, gshift = gate if gate is not None else (None, 0, 0)
     _, rows_per_img, img_stride, ldo = _rows(out)
     return build.lib().cunet_affine_f32(
         x.data_ptr(), x.stride(0), m, k, inv, shift, vstride, tile_rows,
-        w.data_ptr(), w.stride(0), n, 0 if gx is None else gx.data_ptr(),
-        0 if gx is None else gx.stride(0), ginv, gshift, out.data_ptr(), ldo,
-        rows_per_img, img_stride, bits_i, int(ste), p.bn, p.smem, _stream(x))
+        w.data_ptr(), w.stride(0), n, out.data_ptr(), ldo, rows_per_img,
+        img_stride, bits_i, p.bn, p.smem, _stream(x))
 
 
 # ---------------------------------------------------------------------------

@@ -40,10 +40,12 @@ backward against the unrounded float32 W^T whose ReLU gate reads
 Every kernel takes bfloat16 or float32 features (one dtype a call; the
 cotangent and the outputs in it too): the float32 forms are the JAX
 package's #7 at ``compute_dtype="float32"``, float32 in, float32 products,
-float32 out. ``stats``, ``bwd_reduce`` and ``bwd_dx`` are the same
-kernels instantiated for float32 (16-byte loads of 4 columns, the
-cotangent split into three bf16 planes in shared memory like W, so each
-product is six plane products); ``apply`` is the float32 product kernel
+float32 out. ``stats`` and ``bwd_dx`` are the same kernels instantiated
+for float32 (16-byte loads of 4 columns, the cotangent split into three
+bf16 planes in shared memory like W, so each product is six plane
+products); ``bwd_reduce``'s float32 form is a kernel of its own (the
+cotangent split once into its planes by a pre-pass, ``reduce_plan_f32``);
+``apply`` is the float32 product kernel
 of ``csrc/f32_kernels.cu`` over the features as its feature table
 (``buf_ops.launch_dot3``), bit for bit ``affine_dot``'s float32 form over
 ``torch.cat(xs, 1)``. ``<wrapper>.f32_launches`` counts the float32
@@ -80,15 +82,20 @@ ROW_CHUNK = 2048         # most rows per partial of a row reduction
 CHUNKS = 32              # partials aimed at where M allows (fills the card)
 TABLE_COLS = 6           # x ptr, x row stride, width, offset, dx ptr, dx ld
 # bwd_reduce: concat columns of a block and rows of a pipelined step
-# (csrc/bottleneck_kernels.cu kRdCols, kRdRows), and the blocks it aims at,
-# two on each of the card's 132 SMs (one at float32, whose staged float32
-# x and g and g's planes take more than half an SM's shared memory): a
-# constant, so the chunks (and the order of every sum) depend on the
-# shapes alone
+# (csrc/bottleneck_kernels.cu kRdCols, kRdRows; the float32 form's steps
+# kRfRows, also the rows of a tile of its cotangent planes), and the blocks
+# it aims at, two on each of the card's 132 SMs (one at float32, whose
+# staged float32 x, g's planes and W's take more than half an SM's shared
+# memory): a constant, so the chunks (and the order of every sum) depend
+# on the shapes alone; the float32 form's outputs a plane tile holds (csrc
+# kRfN: a half of the widest cotangent it takes, kRfMaxN)
 REDUCE_COLS = 64
 REDUCE_ROWS = 32
 REDUCE_BLOCKS = 264
+REDUCE_ROWS_F32 = 64
 REDUCE_BLOCKS_F32 = 132
+REDUCE_N_F32 = 128
+REDUCE_MAX_N_F32 = 256
 # bwd_dx: rows of a step and concat columns of a block (csrc kDxRows,
 # kDxCols); a table chunk resolved into shared memory (csrc/halo.cuh Chunk:
 # a pointer and a row stride)
@@ -359,14 +366,13 @@ def bwd_reduce_plain(xs, g, stat, bias, w, dw, sums, table=None):
 @dataclasses.dataclass(frozen=True)
 class ReducePlan:
     """How ``bwd_reduce``'s kernel cuts M rows and Ctot concat columns into
-    blocks: ``chunks`` row chunks of ``chunk`` rows (the last shorter) x
-    ``col_blocks`` blocks of ``REDUCE_COLS`` columns, each chunk walked in
-    steps of ``REDUCE_ROWS`` rows; the outputs zero-padded to ``np``;
-    shared memory: the three W planes at 0, the columns' BN constants at
-    ``stat_off``, ``stages`` x / g buffers of ``stage_bytes`` from
-    ``stage_off`` (g at ``g_off`` within one), r's three planes at
-    ``pl_off``, the gated x_hat at ``xh_off``, for a float32 g its three
-    planes at ``gp_off`` (0 at bf16); ``smem`` bytes in all."""
+    blocks (bf16 features): ``chunks`` row chunks of ``chunk`` rows (the
+    last shorter) x ``col_blocks`` blocks of ``REDUCE_COLS`` columns, each
+    chunk walked in steps of ``REDUCE_ROWS`` rows; the outputs zero-padded
+    to ``np``; shared memory: the three W planes at 0, the columns' BN
+    constants at ``stat_off``, ``stages`` x / g buffers of ``stage_bytes``
+    from ``stage_off`` (g at ``g_off`` within one), r's three planes at
+    ``pl_off``, the gated x_hat at ``xh_off``; ``smem`` bytes in all."""
     chunk: int
     chunks: int
     col_blocks: int
@@ -378,7 +384,6 @@ class ReducePlan:
     g_off: int
     pl_off: int
     xh_off: int
-    gp_off: int
     smem: int
 
     def rows(self, s: int, m: int) -> range:
@@ -386,43 +391,112 @@ class ReducePlan:
 
 
 @functools.lru_cache(maxsize=None)
-def reduce_plan(m: int, ctot: int, n: int, f32: bool = False) -> ReducePlan:
-    """The kernel plan of ``bwd_reduce`` at these shapes (a function of them
-    alone; cached): chunks of whole steps, as many as give
-    ``REDUCE_BLOCKS`` blocks (``REDUCE_BLOCKS_F32`` for float32 features)
-    with the column blocks; two x / g stages where they fit in
-    ``SMEM_LIMIT``, else one (more stages measured no faster). Outputs up
-    to 256 wide. With ``f32`` the stages hold float32 x and g rows (16
-    bytes of padding a row, as at bf16) and g's three bf16 planes follow
-    the gated x_hat."""
+def reduce_plan(m: int, ctot: int, n: int) -> ReducePlan:
+    """The kernel plan of ``bwd_reduce`` over bf16 features at these shapes
+    (a function of them alone; cached): chunks of whole steps, as many as
+    give ``REDUCE_BLOCKS`` blocks with the column blocks; two x / g stages
+    where they fit in ``SMEM_LIMIT``, else one (more stages measured no
+    faster). Outputs up to 256 wide."""
     np_ = _up(n, 16)
     if np_ > 256:
         raise ValueError(f"bwd_reduce takes at most 256 outputs, got {n}")
     col_blocks = -(-ctot // REDUCE_COLS)
-    want = max(1, (REDUCE_BLOCKS_F32 if f32 else REDUCE_BLOCKS) // col_blocks)
+    want = max(1, REDUCE_BLOCKS // col_blocks)
     chunk = _up(-(-m // want), REDUCE_ROWS)
-    e = 4 if f32 else 2                       # bytes of a staged element
     gs = (np_ + 8) * 2                        # bytes of a g / W-plane row
     xs = (REDUCE_COLS + 8) * 2                # bytes of an r-plane row
     stat_off = 3 * REDUCE_COLS * gs
     stage_off = stat_off + 4 * REDUCE_COLS * 4
-    g_off = REDUCE_ROWS * (REDUCE_COLS * e + 16)
-    stage_bytes = _up(g_off + REDUCE_ROWS * (np_ * e + 16), 128)
+    g_off = REDUCE_ROWS * (REDUCE_COLS * 2 + 16)
+    stage_bytes = _up(g_off + REDUCE_ROWS * (np_ * 2 + 16), 128)
     for stages in (2, 1):
         pl_off = stage_off + stages * stage_bytes
         xh_off = pl_off + 3 * REDUCE_ROWS * xs
         smem = xh_off + REDUCE_ROWS * (REDUCE_COLS + 8) * 4
-        gp_off = smem if f32 else 0
-        smem += 3 * REDUCE_ROWS * gs if f32 else 0
         if smem <= SMEM_LIMIT:
             return ReducePlan(chunk=chunk, chunks=-(-m // chunk),
                               col_blocks=col_blocks, np=np_, stages=stages,
                               stat_off=stat_off, stage_off=stage_off,
                               stage_bytes=stage_bytes, g_off=g_off,
-                              pl_off=pl_off, xh_off=xh_off, gp_off=gp_off,
-                              smem=smem)
+                              pl_off=pl_off, xh_off=xh_off, smem=smem)
     raise ValueError(f"bwd_reduce: {n} outputs do not fit {SMEM_LIMIT} "
                      f"bytes of shared memory")
+
+
+@dataclasses.dataclass(frozen=True)
+class ReduceF32Plan:
+    """How ``bwd_reduce``'s float32 kernel cuts M rows and Ctot concat
+    columns: ``chunks`` row chunks of ``chunk`` rows (the last shorter) x
+    ``col_blocks`` blocks of ``REDUCE_COLS`` columns, each chunk walked in
+    steps of ``REDUCE_ROWS_F32`` rows, two buffers; g's planes from the
+    pre-pass (``split_planes_shape``) in ``halves`` halves of
+    ``REDUCE_N_F32`` outputs (two past 128: the grid's z, each block the
+    dW of its half), the outputs zero-padded to ``np``; shared memory
+    (``csrc/bottleneck_kernels.cu::rf_layout``): W's three planes in core
+    matrices (``wpl`` bytes each) at 0, the buffers of ``stage_bytes``
+    from ``stage_off`` (x rows of REDUCE_COLS + 4 floats, then g's three
+    plane tiles at ``g_off``; the first also the sums' reduction after the
+    last step), the columns' BN constants at ``stat_off``; ``smem`` bytes
+    in all."""
+    chunk: int
+    chunks: int
+    col_blocks: int
+    np: int
+    halves: int
+    wpl: int
+    stage_off: int
+    g_off: int
+    stage_bytes: int
+    stat_off: int
+    smem: int
+
+    def rows(self, s: int, m: int) -> range:
+        return range(s * self.chunk, min(m, (s + 1) * self.chunk))
+
+    def steps(self, s: int, m: int) -> list:
+        r = self.rows(s, m)
+        return [range(a, min(r.stop, a + REDUCE_ROWS_F32))
+                for a in range(r.start, r.stop, REDUCE_ROWS_F32)]
+
+
+@functools.lru_cache(maxsize=None)
+def reduce_plan_f32(m: int, ctot: int, n: int) -> ReduceF32Plan:
+    """The kernel plan of ``bwd_reduce`` over float32 features at these
+    shapes (a function of them alone; cached): chunks of whole 64-row
+    steps, as many as give ``REDUCE_BLOCKS_F32`` blocks (one an SM) with
+    the column blocks (of each output half). Cotangents up to
+    ``REDUCE_MAX_N_F32`` wide."""
+    np_ = _up(n, 16)
+    if np_ > REDUCE_MAX_N_F32:
+        raise ValueError(f"bwd_reduce at float32 takes at most "
+                         f"{REDUCE_MAX_N_F32} outputs, got {n}")
+    col_blocks = -(-ctot // REDUCE_COLS)
+    want = max(1, REDUCE_BLOCKS_F32 // col_blocks)
+    chunk = _up(-(-m // want), REDUCE_ROWS_F32)
+    wpl = REDUCE_COLS * np_ * 2
+    stage_off = _up(3 * wpl, 128)
+    g_off = REDUCE_ROWS_F32 * (REDUCE_COLS + 4) * 4
+    stage_bytes = _up(g_off + 3 * REDUCE_ROWS_F32 * REDUCE_N_F32 * 2, 128)
+    stat_off = stage_off + 2 * stage_bytes
+    smem = stat_off + 4 * REDUCE_COLS * 4
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"bwd_reduce at float32: {n} outputs do not fit "
+                         f"{SMEM_LIMIT} bytes of shared memory")
+    return ReduceF32Plan(chunk=chunk, chunks=-(-m // chunk),
+                         col_blocks=col_blocks, np=np_,
+                         halves=-(-np_ // REDUCE_N_F32), wpl=wpl,
+                         stage_off=stage_off, g_off=g_off,
+                         stage_bytes=stage_bytes, stat_off=stat_off,
+                         smem=smem)
+
+
+def split_planes_shape(m: int, n: int):
+    """The shape of the float32 reduce's cotangent planes (bf16) for N
+    outputs: three planes of ceil(M / 64) tiles, each of one or two halves
+    of 16 x 8 core matrices of 8 outputs x 8 rows."""
+    halves = -(-_up(n, 16) // REDUCE_N_F32)
+    return (3, -(-m // REDUCE_ROWS_F32),
+            halves * REDUCE_N_F32 * REDUCE_ROWS_F32)
 
 
 def _check_bwd(xs, g, stat, bias, w, m, ctot):
@@ -473,13 +547,24 @@ def bwd_reduce(xs, g, stat, bias, w, dw, sums, table=None):
     6, PR 9): 209 us with its ``sum_rows`` (the SIMT kernel before it:
     800), 12.6 us at r=4.
 
-    Float32 features and g: g is split too, once a step, into three bf16
-    planes in shared memory (both products read it, so one split serves
-    both; splitting it in registers at each use would split every element
-    once per warp that reads it), and each product is six plane products,
-    twelve passes in all (96.6 GFLOP: 97.7 us at 989 TFLOP/s; the float32
-    bytes, 176 MB, take 52.6 us). The staged float32 x and g and g's planes
-    take 150 KB at N = 128: one block an SM (``REDUCE_BLOCKS_F32``).
+    Float32 features and g (``reduce_plan_f32``): a pre-pass splits g
+    once into its three bf16 planes in device memory (where the column
+    blocks would each split it again), in 64-row tiles of 8 x 8 core
+    matrices; then blocks of two warpgroups, one an SM, walk 64-row steps:
+    x vectors and g's plane tiles by cp.async a step ahead; both products
+    on ``wgmma``. One warpgroup takes g W^T over the step's 64 x 64 tile
+    (g's planes by ldmatrix, W's by a shared-memory descriptor; per
+    element ``bwd_dx``'s order, which ``wgmma`` sums to ``mma.sync``'s
+    bits, so it gates the same g_y) with the gate and the two sums on the
+    accumulators, x_hat and y recomputed from the staged x; the other
+    takes dW (m64n128k16: r^T built in registers from the staged x, g's
+    plane tile by a descriptor), each k16 row group's six plane products
+    in a fragment of its own joined by one float32 add. Twelve bf16
+    passes in all (96.6 GFLOP: 97.7 us at 989 TFLOP/s at K=320 -> 128,
+    M=98,304). Past 128 outputs (up to 256) g's planes come in two halves
+    and the grid's z halves dW; one block of each pair takes g W^T and the
+    sums over both halves. The call launches two kernels and counts both
+    (``launches``, ``f32_launches``).
     """
     m = xs[0].shape[0]
     _check_rows(xs, m)
@@ -494,20 +579,33 @@ def bwd_reduce(xs, g, stat, bias, w, dw, sums, table=None):
     _check_contig_f32(dw, "dw", g.device)
     _check_contig_f32(sums, "sums", g.device)
     table = _table_of(xs, table)
-    p = reduce_plan(m, ctot, n, f32)
+    if f32:
+        p = reduce_plan_f32(m, ctot, n)
+        planes = torch.empty(split_planes_shape(m, n), device=g.device,
+                             dtype=BF16)
+    else:
+        p = reduce_plan(m, ctot, n)
     dw_part = torch.empty(p.chunks, ctot, n, device=g.device,
                           dtype=torch.float32)
     sums_part = torch.empty(p.chunks, 2, ctot, device=g.device,
                             dtype=torch.float32)
-    code = build.lib().cunet_tb_bwd_reduce(
-        table.data_ptr(), len(xs), m, ctot, g.data_ptr(), g.stride(0), n,
-        stat.data_ptr(), bias.data_ptr(), w.data_ptr(), p.chunk, p.np,
-        p.stages, p.stat_off, p.stage_off, p.stage_bytes, p.g_off, p.pl_off,
-        p.xh_off, p.gp_off, p.smem, dw_part.data_ptr(), sums_part.data_ptr(),
-        int(f32), _stream(g))
+    if f32:
+        code = build.lib().cunet_tb_bwd_reduce_f32(
+            table.data_ptr(), len(xs), m, ctot, g.data_ptr(), g.stride(0), n,
+            stat.data_ptr(), bias.data_ptr(), w.data_ptr(),
+            planes.data_ptr(), p.chunk, p.np, p.smem, dw_part.data_ptr(),
+            sums_part.data_ptr(), _stream(g))
+    else:
+        code = build.lib().cunet_tb_bwd_reduce(
+            table.data_ptr(), len(xs), m, ctot, g.data_ptr(), g.stride(0), n,
+            stat.data_ptr(), bias.data_ptr(), w.data_ptr(), p.chunk, p.np,
+            p.stages, p.stat_off, p.stage_off, p.stage_bytes, p.g_off,
+            p.pl_off, p.xh_off, p.smem, dw_part.data_ptr(),
+            sums_part.data_ptr(), _stream(g))
     build.check(code, "train_bottleneck.bwd_reduce")
-    bwd_reduce.launches += 1
-    bwd_reduce.f32_launches += f32
+    # a float32 call launches two kernels, the split of g and the reduce
+    bwd_reduce.launches += 2 if f32 else 1
+    bwd_reduce.f32_launches += 2 if f32 else 0
     sum_rows(dw_part, dw)
     sum_rows(sums_part, sums)
     return dw, sums

@@ -27,10 +27,11 @@ inputs, cotangents and outputs. ``bn_bwd``, ``maxpool2_bwd`` and
 ``upsample2_bwd`` are their kernels instantiated for float32 (two
 16-byte loads a vector of 8), ``bn_stats`` a float32 kernel that splits
 each tile's rows across a cluster of blocks (``stats_plan_f32``);
-``affine_dx`` and ``conv3x3_dx`` run the
-float32 product kernel of ``csrc/f32_kernels.cu`` (``buf_ops``' float32
-forms) on the cotangent through the transposed (flipped) weight, gated
-in its epilogue; ``affine_dw`` and ``conv3x3_dw`` the weight-gradient
+``affine_dx`` a kernel of its own
+(``csrc/dx_f32_kernels.cu``, plan ``affine_dx_f32_plan``), ``conv3x3_dx``
+the float32 product kernel of ``csrc/f32_kernels.cu`` (``buf_ops``' float32
+forms) on the cotangent through the flipped weight, gated in its
+epilogue; ``affine_dw`` and ``conv3x3_dw`` the weight-gradient
 kernel of ``csrc/dw_f32_kernels.cu`` (plan ``dw_f32_plan``), per-run
 partials added by ``sum_rows``. Every product splits both float32
 operands exactly into three bf16 planes and sums six plane products: the
@@ -67,7 +68,6 @@ from cunet_tpu_torch.kernels.buf_ops import (
     count_f32,
     count_f32_options,
     count_options,
-    launch_affine_f32,
     launch_conv3x3_f32,
     quantize_act,
     reset_counts,
@@ -85,6 +85,14 @@ AFFINE_DX_WARPS = 8
 AFFINE_DX_WARP_ROWS = 32
 AFFINE_DX_ITEMS = 132
 AFFINE_DX_MAX_NTW = 4
+# affine_dx at float32 (csrc/dx_f32_kernels.cu kDx3Rows, kDx3Cols,
+# kDx3Slice): rows of a tile, output columns of a block, the depths of a
+# staged slice of the cotangent, and the widest cotangent it takes (N
+# zero-padded to 16; two slices)
+AFFINE_DX_F32_ROWS = 64
+AFFINE_DX_F32_COLS = 64
+AFFINE_DX_F32_SLICE = 128
+AFFINE_DX_F32_MAX_N = 256
 # affine_dw: the most blocks its plan aims at (two on each of the card's 132
 # SMs, one wave: a few more would put a third block on a few SMs and stretch
 # the launch by a block's time), and the fewest it takes before it cuts
@@ -408,7 +416,9 @@ def affine_dx(dy, w, x, vec, out, *, ste=False):
     activation is never stored); mma.sync m16n8k16 with f32 sums in
     registers, a lane pair's swap giving each lane four columns of one row
     for a 16-byte store. Its BN-jacobian sums are taken by ``bn_bwd``,
-    which reads d_a anyway. PERF.md section 6 has its times on the H100.
+    which reads d_a anyway. float32 dy (a float32 model's training): the
+    kernel of ``_affine_dx_f32``. PERF.md section 6 has its times on the
+    H100.
     """
     m, n = dy.shape
     k = x.shape[1]
@@ -446,17 +456,77 @@ def _f32_gate_operands(dy, w, x, vec, out):
     return _vec_args(vec, dy.shape[0], x.shape[1])
 
 
+@dataclasses.dataclass(frozen=True)
+class AffineDxF32Plan:
+    """How ``affine_dx``'s float32 kernel cuts dy (m, N) @ W^T -> (m, K):
+    row tiles of ``AFFINE_DX_F32_ROWS``, K in ``nkb`` blocks of
+    ``AFFINE_DX_F32_COLS`` columns (columns past K are zero weights and are
+    not stored), N zero-padded to ``np_`` and staged in ``slices`` slices
+    of ``sw`` depths (np_ up to ``AFFINE_DX_F32_SLICE``: one); shared
+    memory: W's three bf16 planes (``w_plane`` bytes each: the block's
+    columns x np_ in core matrices of 8 columns x 8 depths), then two
+    buffers of ``stage_bytes`` from ``stage_off``, each a slice's float32
+    dy rows (sw + 8 floats) and, at ``x_off``, the tile's x rows (the
+    block's columns + 4 floats); ``smem`` bytes in all
+    (``csrc/dx_f32_kernels.cu::dx3_layout``)."""
+    nkb: int
+    np_: int
+    sw: int
+    slices: int
+    w_plane: int
+    stage_off: int
+    x_off: int
+    stage_bytes: int
+    smem: int
+
+    def tiles(self, m: int) -> int:
+        return -(-m // AFFINE_DX_F32_ROWS)
+
+    def items(self, m: int) -> int:
+        return self.tiles(m) * self.nkb
+
+
+@functools.lru_cache(maxsize=None)
+def affine_dx_f32_plan(k: int, n: int) -> AffineDxF32Plan:
+    """The float32 kernel's plan of ``affine_dx`` at K output columns and a
+    cotangent N wide (a function of the shapes alone; M sets only the
+    items): two buffers (a third measured no faster at K=192 -> 128 and at
+    the head, PERF.md section 6), two blocks an SM where N < 128, the
+    cotangent in 128-deep slices past 128. Raises past
+    ``AFFINE_DX_F32_MAX_N``."""
+    np_ = _up(n, 16)
+    if np_ > AFFINE_DX_F32_MAX_N:
+        raise ValueError(f"affine_dx at float32 takes a cotangent at most "
+                         f"{AFFINE_DX_F32_MAX_N} wide, got {n}")
+    sw = min(np_, AFFINE_DX_F32_SLICE)
+    w_plane = AFFINE_DX_F32_COLS * np_ * 2
+    stage_off = _up(3 * w_plane, 128)
+    x_off = AFFINE_DX_F32_ROWS * (sw + 8) * 4
+    stage_bytes = _up(x_off + AFFINE_DX_F32_ROWS
+                      * (AFFINE_DX_F32_COLS + 4) * 4, 128)
+    return AffineDxF32Plan(nkb=-(-k // AFFINE_DX_F32_COLS), np_=np_, sw=sw,
+                           slices=-(-np_ // sw), w_plane=w_plane,
+                           stage_off=stage_off, x_off=x_off,
+                           stage_bytes=stage_bytes,
+                           smem=stage_off + 2 * stage_bytes)
+
+
 def _affine_dx_f32(dy, w, x, vec, out, ste):
-    """``affine_dx``'s float32 form: the float32 product kernel
-    (``buf_ops.launch_affine_f32``) of dy through W^T (the K rows of w
-    transposed into a contiguous (N, K) operand), no prologue, the ReLU
-    gate of x's per-tile affine in its epilogue (with ``ste`` also 0 where
-    that affine is >= 1): dy and W^T each split into three bf16 planes, six
-    plane products a k16 step."""
+    """``affine_dx``'s float32 form (``csrc/dx_f32_kernels.cu``, plan
+    ``affine_dx_f32_plan``): W read as it lies and split once a block into
+    three bf16 planes, dy split in registers, six plane products a k16 step
+    on ``wgmma``, summed in 32-deep chunks as ``csrc/f32_kernels.cu``'s
+    product kernel sums them (bit for bit its results), the gate of x's
+    per-tile affine (with ``ste`` also 0 where that affine is >= 1) taken
+    by the lane that stores each output."""
     inv, shift, vstride, tile_rows = _f32_gate_operands(dy, w, x, vec, out)
-    wt = w[:x.shape[1]].t().contiguous()
-    code = launch_affine_f32(dy, 0, 0, vstride, tile_rows, wt, out,
-                             gate=(x, inv, shift), ste=ste)
+    m, n = dy.shape
+    k = x.shape[1]
+    p = affine_dx_f32_plan(k, n)
+    code = build.lib().cunet_dx_f32(
+        dy.data_ptr(), dy.stride(0), m, n, w.data_ptr(), w.stride(0), k,
+        x.data_ptr(), x.stride(0), inv, shift, vstride, tile_rows, int(ste),
+        out.data_ptr(), out.stride(0), p.nkb, p.np_, p.smem, _stream(dy))
     build.check(code, "affine_dx (float32)")
     affine_dx.launches += 1
     affine_dx.f32_launches += 1

@@ -2,7 +2,7 @@
 plans can take, and with parts of their kernels taken out: what the plans'
 order of preference rests on, and what holds the kernels back.
 
-    python -m cunet_tpu_torch.tools.gemm_sweep [--ablate]
+    python -m cunet_tpu_torch.tools.gemm_sweep [--ablate [VARIANT ...]]
 
 At CU-Net-8 @256's r=64 shapes (``affine_dot``: K=192, 256, 320 -> 128
 eval at batch 8, K=192 at batch 64 and per ghost-BN tile at batch 24, the
@@ -22,7 +22,13 @@ each part adds. The ablation also times TPU kernel #7's two GEMMs at the
 smoke's r=64 adapter (K=128+128+32+32 -> 128, batch 24): ``apply``
 (``affine_dot``'s table form, so its parts go with ``affine_dot``'s) and
 ``bwd_dx`` (its x / g loads, the recompute and gate of its epilogue,
-its three-plane product, its dx stores). Needs a CUDA device.
+its three-plane product, its dx stores), and ``affine_dx[f32]`` at the
+smoke's r=64 ghost-BN case (K=192 -> 128, batch 24, tile 2), whose
+variant "one dy plane" packs each dy pair once into bf16 in place of its
+exact three-plane split (the six products still run): the time of the
+split, which each of its two warpgroups makes for every dy element it
+reads. ``--ablate full "one dy plane"`` builds only those variants. Needs
+a CUDA device.
 """
 
 from __future__ import annotations
@@ -91,6 +97,16 @@ ABLATIONS = {
          "        if (m < M && k < K && p.np < 0) {\n          float4 v"),
         ("bottleneck_kernels.cu", "      if (m0 + r < M && d.ptr)",
          "      if (m0 + r < M && d.ptr && p.np < 0)")],
+    "one dy plane": [
+        ("dx_f32_kernels.cu",
+         "      split_pair(v0.x, v0.y, A[0][0], A[1][0], A[2][0]);\n"
+         "      split_pair(v1.x, v1.y, A[0][1], A[1][1], A[2][1]);\n"
+         "      split_pair(v2.x, v2.y, A[0][2], A[1][2], A[2][2]);\n"
+         "      split_pair(v3.x, v3.y, A[0][3], A[1][3], A[2][3]);\n",
+         "      A[0][0] = A[1][0] = A[2][0] = pack_rn(v0.x, v0.y);\n"
+         "      A[0][1] = A[1][1] = A[2][1] = pack_rn(v1.x, v1.y);\n"
+         "      A[0][2] = A[1][2] = A[2][2] = pack_rn(v2.x, v2.y);\n"
+         "      A[0][3] = A[1][3] = A[2][3] = pack_rn(v3.x, v3.y);\n")],
 }
 
 
@@ -220,15 +236,27 @@ def _tb_cases(torch, cs):
             if name in ("apply", "bwd_dx")]
 
 
-def ablate(torch, cs) -> None:
-    from cunet_tpu_torch.kernels import build
+def _dx_f32_cases(torch, cs):
+    """(row, label, kernel, call(fn) -> outputs, bounds) of
+    ``affine_dx[f32]`` at the smoke's r=64 ghost-BN operands, tile 2."""
+    from cunet_tpu_torch.kernels import buf_ops, train_ops
+
+    o = cs.slot_f32_operands(torch, train_ops, torch.Generator()
+                             .manual_seed(18), 64, cs.BN_TILE)
+    return [c[:5] for c in cs.slot_f32_cases(torch, train_ops, buf_ops, o)
+            if c[0] == "affine_dx[f32]"]
+
+
+def ablate(torch, cs, variants) -> None:
+    from cunet_tpu_torch.kernels import build, train_ops
     from cunet_tpu_torch.kernels import train_bottleneck as tbk
 
     tb_cases = _tb_cases(torch, cs)
+    dx_cases = _dx_f32_cases(torch, cs)
     csrc, build_dir = build.CSRC, build.BUILD_DIR
     work = Path(tempfile.mkdtemp(prefix="gemm_ablate_"))
     try:
-        for variant in ["full", *ABLATIONS]:
+        for variant in variants or ["full", *ABLATIONS]:
             src = work / variant.replace(" ", "_")
             shutil.copytree(csrc, src)
             for fname, old, new in ABLATIONS.get(variant, []):
@@ -259,6 +287,15 @@ def ablate(torch, cs) -> None:
                 print(f"ablation [{variant}] train_bottleneck.{name} "
                       f"K=128+128+32+32->128 r=64 batch 24: {us:.1f} us",
                       flush=True)
+            for row, kern, label, call, bounds in dx_cases:
+                if variant == "full":
+                    ok = cs.output_errors(torch, call(kern),
+                                          call(train_ops.PLAIN[kern]),
+                                          bounds)[2]
+                    cs.require(ok, f"{row} disagrees")
+                us = cs.cuda_time_ms(lambda: call(kern)) * 1e3
+                print(f"ablation [{variant}] {row} [{label} tile "
+                      f"{cs.BN_TILE}]: {us:.1f} us", flush=True)
     finally:
         build.CSRC, build.BUILD_DIR = csrc, build_dir
         build._lib = None
@@ -267,7 +304,9 @@ def ablate(torch, cs) -> None:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--ablate", action="store_true")
+    ap.add_argument("--ablate", nargs="*", metavar="VARIANT",
+                    help="time the kernels with parts taken out: these "
+                         "variants (default: full and every ablation)")
     args = ap.parse_args(argv)
     import torch
 
@@ -278,7 +317,13 @@ def main(argv=None) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], check=True,
                          capture_output=True, text=True).stdout.strip())
-    (ablate if args.ablate else sweep)(torch, cs)
+    if args.ablate is None:
+        sweep(torch, cs)
+    else:
+        unknown = set(args.ablate) - {"full", *ABLATIONS}
+        if unknown:
+            ap.error(f"unknown variants {sorted(unknown)}")
+        ablate(torch, cs, args.ablate)
     return 0
 
 

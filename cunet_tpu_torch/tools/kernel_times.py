@@ -45,11 +45,17 @@ compare a change with its parent, unpack the parent with ``git archive`` into a 
 directory and run this once per checkout in one call, in the order parent,
 change, change, parent. Needs a CUDA device.
 
-With ``--dw`` it runs only the float32 weight gradients (``affine_dw`` and
-``conv3x3_dw`` at float32, plain and with ``bits_i``, at r = 64 ... 4 and
-tiles 2 and 6, and ``affine_dw[f32]`` at K = 1,920; ``chip_smoke.
-dw_f32_times``) and the bf16 digests (~1.5 min a checkout with its
-build).
+With ``--rows PATTERN`` it runs only the float32 kernel rows of phases 13
+(a), 14 (a) and 15 (a) whose names match the regular expression PATTERN,
+from those phases' own case lists (``chip_smoke.row_times``: each at r =
+64 ... 4, the slot forms at tiles 2 and 6, against its plain version and
+timed beside its library call or product alone, its bound and the float32
+FMA time of its products; the wide checks of the rows that match, a
+digest of their r=64 outputs), then the bf16 digests. For example
+``--rows 'bwd_reduce\\[f32|affine_dx\\[f32'`` runs ``bwd_reduce[f32]``
+(with its dW against float64 and at Ctot = 1,920) and ``affine_dx[f32]``
+/ ``[f32,ste]`` (with K = 1,920); ``--rows '_dw\\['`` the float32 weight
+gradients (with ``affine_dw[f32]`` at K = 1,920).
 """
 
 from __future__ import annotations
@@ -79,14 +85,8 @@ def bf16_digests(torch, cs, tbk, dops) -> dict:
     """sha256 (16 hex digits) of the bf16 outputs of #7's four kernels at
     phase 9's operands of r=64 and r=4 (seed 9) and of ``drop_mask``
     (forward in place, backward into bf16) at r=64, batch 24, tile 2."""
-    import hashlib
-
     def digest(ts):
-        h = hashlib.sha256()
-        for t in ts:
-            h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy()
-                     .tobytes())
-        return h.hexdigest()[:16]
+        return cs.bytes_digest(torch, ts)
 
     gen = torch.Generator().manual_seed(9)
     out = {}
@@ -127,8 +127,9 @@ def _digests(torch, cs, tbk, dops) -> None:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", type=Path, default=HERE)
-    ap.add_argument("--dw", action="store_true",
-                    help="the float32 weight gradients and the digests only")
+    ap.add_argument("--rows", metavar="PATTERN",
+                    help="only the float32 kernel rows matching this regular "
+                         "expression, and the digests")
     args = ap.parse_args(argv)
     root = str(args.root.resolve())
     cs = _smoke()
@@ -156,8 +157,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     build.lib()
     print(f"build {time.perf_counter() - t0:.1f} s", flush=True)
-    if args.dw:
-        cs.dw_f32_times(torch, train_ops, buf_ops)
+    if args.rows is not None:
+        cs.row_times(torch, args.rows, train_ops, buf_ops, train_bottleneck)
         _digests(torch, cs, train_bottleneck, drop_ops)
         return 0
     cs.phase_kernels(torch, buf_ops)

@@ -11,7 +11,7 @@ fail the float32 n-term limit. The dx mirror at float32 (the recompute,
 gate and jacobian unrounded) gives ``bwd_dx_plain``'s bits under one-hot
 cotangents, and not with a W plane dropped.
 
-(b) The float32 plans (``reduce_plan`` / ``dx_plan`` with ``f32``, and
+(b) The float32 plans (``reduce_plan_f32``, ``dx_plan`` with ``f32``, and
 ``apply``'s float32 product ``buf_ops.dot3_plan``) at every #7 call of the
 CU-Net-8 @256 float32 ``bn_tile=0`` step, read from the port's own forward
 (183 calls): each fits the H100's shared memory, covers every row and
@@ -228,31 +228,31 @@ def test_the_bn0_f32_step_makes_183_calls():
 
 
 def test_f32_reduce_plans_fit_every_bn0_call():
-    """Chunks of whole 32-row steps partition the rows, 64-column blocks
+    """Chunks of whole 64-row steps partition the rows, 64-column blocks
     cover Ctot, at most one block an SM's worth of blocks; shared memory:
-    W's three planes, the BN constants, float32 x / g stages, r's planes,
-    the gated x_hat, g's three planes, within the H100's."""
-    R, C = tbk.REDUCE_ROWS, tbk.REDUCE_COLS
+    W's three planes, two buffers of float32 x rows and g's three planes
+    (the first also the sums' reduction after the last step), the BN
+    constants, within the H100's."""
+    R, C = tbk.REDUCE_ROWS_F32, tbk.REDUCE_COLS
     for m, ctot, n, _ in sorted(set(_bn0_f32_calls())):
-        p = tbk.reduce_plan(m, ctot, n, True)
+        p = tbk.reduce_plan_f32(m, ctot, n)
         assert [i for s in range(p.chunks) for i in p.rows(s, m)] == \
             list(range(m))
+        assert [i for s in range(p.chunks) for st in p.steps(s, m)
+                for i in st] == list(range(m))
         assert p.chunk % R == 0
         assert (p.col_blocks - 1) * C < ctot <= p.col_blocks * C
         assert p.chunks * p.col_blocks <= max(tbk.REDUCE_BLOCKS_F32,
                                               p.col_blocks)
-        gs = (p.np + 8) * 2
-        assert p.stat_off == 3 * C * gs
-        assert p.stage_off == p.stat_off + 4 * C * 4
-        assert p.g_off == R * (C * 4 + 16)
-        assert p.stage_bytes >= p.g_off + R * (p.np * 4 + 16)
-        assert p.pl_off == p.stage_off + p.stages * p.stage_bytes
-        assert p.xh_off == p.pl_off + 3 * R * (C + 8) * 2
-        assert p.gp_off == p.xh_off + R * (C + 8) * 4
-        assert p.smem == p.gp_off + 3 * R * gs <= SMEM_LIMIT
-        assert all(v % 16 == 0 for v in (p.stage_off, p.g_off, p.stage_bytes,
-                                         p.pl_off, p.xh_off, p.gp_off))
-        assert p.stages == 2 and p.smem > SMEM_LIMIT // 2   # one an SM
+        assert p.wpl == C * p.np * 2 and p.stage_off >= 3 * p.wpl
+        assert p.g_off == R * (C + 4) * 4
+        assert p.stage_bytes >= p.g_off + 3 * R * tbk.REDUCE_N_F32 * 2
+        assert p.stage_bytes >= 8 * C * 4
+        assert p.stat_off == p.stage_off + 2 * p.stage_bytes
+        assert p.smem == p.stat_off + 4 * C * 4 <= SMEM_LIMIT
+        assert all(v % 128 == 0 for v in (p.stage_off, p.g_off,
+                                          p.stage_bytes, p.stat_off))
+        assert p.smem > SMEM_LIMIT // 2   # one an SM
 
 
 def test_f32_dx_plans_fit_every_bn0_call():
@@ -359,9 +359,9 @@ def test_f32_plans_are_functions_of_the_shapes(monkeypatch):
     shapes = sorted({(m, k, n) for m, k, n, _ in _bn0_f32_calls()})
 
     def plans():
-        tbk.reduce_plan.cache_clear()
+        tbk.reduce_plan_f32.cache_clear()
         tbk.dx_plan.cache_clear()
-        return [(tbk.reduce_plan(*s, True), tbk.dx_plan(*s, True))
+        return [(tbk.reduce_plan_f32(*s), tbk.dx_plan(*s, True))
                 for s in shapes]
 
     want = plans()
@@ -374,7 +374,7 @@ def test_f32_plans_are_functions_of_the_shapes(monkeypatch):
         monkeypatch.setattr(torch.cuda, name, broken)
     assert plans() == want
     # the bf16 plans at the same shapes differ: two blocks an SM
-    assert all(tbk.reduce_plan(*s).chunks > tbk.reduce_plan(*s, True).chunks
+    assert all(tbk.reduce_plan(*s).chunks > tbk.reduce_plan_f32(*s).chunks
                for s in shapes if s[0] >= 24 * 16 * 16)
 
 

@@ -2064,22 +2064,26 @@ def _tb_f32_outputs(fns, feats, vec, stat, bias, w, g):
     return st, out, dw, sums, dxs
 
 
+# (past 128 outputs the float32 reduce takes two halves: 136 and 144
+# leave the second 8 and 16 wide; bwd_dx at float32 takes at most 144)
 TB_F32_CASES = [(98304, [128, 128, 32, 32], 128),
                 (384, [128, 128, 32, 32], 128), (1000, [16, 24, 8, 8], 16),
-                (2056, [40, 16], 136), (216, [8] * 20, 16)]
+                (2056, [40, 16], 136), (216, [8] * 20, 16),
+                (640, [64, 40], 144)]
 
 
 @pytest.mark.parametrize("m,widths,cout", TB_F32_CASES)
 def test_train_bottleneck_kernels_f32(gen, m, widths, cout):
     """Each float32 form against its plain version within the float32
-    n-term bound (the sums per feature group), counted as a float32
-    launch; apply over any number of groups (20 in the last case: the
-    float32 product's table read from device memory)."""
+    n-term bound (the sums per feature group), counted as float32
+    launches (bwd_reduce two: the split of g and the reduce); apply over
+    any number of groups (20 in the fifth case: the float32 product's
+    table read from device memory)."""
     ops = _tb_f32(gen, m, widths, cout)
     tbk.reset_launch_counts()
     got = _tb_f32_outputs(tbk.KERNELS, *ops)
-    assert tbk.f32_counts() == {f"{k}[f32]": 1 for k in
-                                ("stats", "apply", "bwd_reduce", "bwd_dx")}
+    assert tbk.f32_counts() == {"stats[f32]": 1, "apply[f32]": 1,
+                                "bwd_reduce[f32]": 2, "bwd_dx[f32]": 1}
     want = _tb_f32_outputs([tbk.PLAIN[k] for k in tbk.KERNELS], *ops)
     _close_group_sums(got[0], want[0], m, widths)
     _close_f32(got[1], want[1], sum(widths))
@@ -2088,6 +2092,31 @@ def test_train_bottleneck_kernels_f32(gen, m, widths, cout):
     for a, b in zip(got[4], want[4]):
         assert a.dtype == torch.float32
         _close_f32(a, b, cout)
+
+
+@pytest.mark.parametrize("cout", [192, 256])
+def test_bwd_reduce_f32_two_halves(gen, cout):
+    """bwd_reduce at float32 with 192 and 256 outputs (two halves of g's
+    planes, the second 64 and 128 wide; past bwd_dx's float32 width):
+    dW and the sums within the float32 n-term bound of the plain
+    version, per feature group, two float32 launches."""
+    m, widths = 1000, [64, 40]
+    feats, _, stat, bias, w, g = _tb_f32(gen, m, widths, cout)
+    ctot = sum(widths)
+
+    def run(fn):
+        out = fn(feats, g, stat, bias, w,
+                 torch.empty(ctot, cout, device="cuda"),
+                 torch.empty(2, ctot, device="cuda"))
+        torch.cuda.synchronize()
+        return out
+
+    before = tbk.bwd_reduce.f32_launches
+    got = run(tbk.bwd_reduce)
+    assert tbk.bwd_reduce.f32_launches == before + 2
+    want = run(tbk.bwd_reduce_plain)
+    _close_group_sums(got[0], want[0], m, widths, rows=True)
+    _close_group_sums(got[1], want[1], m, widths)
 
 
 @pytest.mark.parametrize("m,widths,cout", TB_F32_CASES[:3])
@@ -2257,7 +2286,9 @@ def test_bn_tile0_f32_kernel_step_matches_plain_and_remat(gen):
         tbk.reset_launch_counts()
         lk, gk, sk = grads(cfg, x, t)
         counts = tbk.f32_counts()
-        assert all(v == 25 for v in counts.values()), counts
+        # 25 calls each; bwd_reduce launches two kernels a call
+        assert counts == {"stats[f32]": 25, "apply[f32]": 25,
+                          "bwd_reduce[f32]": 50, "bwd_dx[f32]": 25}, counts
         lp, gp, sp = grads(plain, x, t)
         saved = {k.__name__: k for k in tbk.KERNELS}
         for k in tbk.KERNELS:
@@ -2330,6 +2361,32 @@ def test_slot_f32_one_hot_and_bf16_dy(gen):
     same = chip_smoke.slot_f32_exact_checks(torch, train_ops, buf_ops, o,
                                             gen)
     assert all(same.values()), same
+
+
+@pytest.mark.parametrize("n,ste", [(136, False), (192, True), (256, False)])
+def test_affine_dx_f32_past_128(gen, n, ste):
+    """affine_dx at float32 with a cotangent wider than the kernel's
+    128-deep slice (two slices, the second 8, 64 and 128 deep), three
+    ghost tiles of 400 rows (a ragged last 64-row tile) and K = 72 (a
+    partial second column block): within the float32 n-term limit of its
+    plain version, one float32 launch, and bit for bit the plain version
+    under a one-hot weight (one term a product)."""
+    m, tiles, k = 1200, 3, 72
+    x = _f32(gen, m, k)
+    st = train_ops.bn_stats_plain(x, torch.empty(tiles, 2, k, device="cuda"))
+    bn = torch.stack([torch.rand(k, generator=gen) + 0.5,
+                      torch.randn(k, generator=gen) * 0.3]).cuda()
+    vec = train_slot._affine_vec(st, bn, 1e-5)
+    dy = _f32(gen, m, n)
+    hot = _one_hot(gen, n, k).t().contiguous()
+    for w in (_f32(gen, k, n, scale=n ** -0.5), hot):
+        before = train_ops.affine_dx.f32_launches
+        got, want = _both(train_ops.affine_dx,
+                          lambda: torch.empty(m, k, device="cuda"),
+                          lambda f, o: f(dy, w, x, vec, o, ste=ste))
+        assert train_ops.affine_dx.f32_launches == before + 1
+        _close_f32(got, want, n)
+    assert torch.equal(got, want)
 
 
 # tile-preserving permutations of the 2-slot step check's controls

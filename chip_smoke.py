@@ -2334,7 +2334,8 @@ def phase_bn0_kernels(torch, tbk, dtype=None):
             prod_ms = None if prod is None else cuda_time_ms(prod)
             f32 = products.get(name)
             name = name + tag
-            print(f"bn0 kernel train_bottleneck.{name} [{label}]: "
+            print(f"bn0 kernel train_bottleneck.{name}"
+                  f"{fwd_note(f'train_bottleneck.{name}', tbk)} [{label}]: "
                   f"max_abs_err {err:.4g} (at most {share:.3g} of a "
                   f"{'/'.join(b[0] for b in bounds)} limit: {ok}), "
                   f"{ms:.4f} ms vs plain {plain_ms:.4f} ms, library "
@@ -3368,15 +3369,37 @@ def phase_fused_models(torch, ops, gpu):
 F32_SOURCE = "cunet_tpu_torch/csrc/f32_kernels.cu"
 DW_F32_SOURCE = "cunet_tpu_torch/csrc/dw_f32_kernels.cu"
 DX_F32_SOURCE = "cunet_tpu_torch/csrc/dx_f32_kernels.cu"
+FWD_F32_SOURCE = "cunet_tpu_torch/csrc/fwd_f32_kernels.cu"
+# the rows that run the float32 forward 1x1 (fw3_kernel): the per-tile and
+# QuanInput forms of affine_dot, #7's apply
+FWD_F32_KERNEL = "fw3_kernel"
+FWD_F32_ROWS = ("affine_dot[f32,tile]", "affine_dot[f32,bits_i]",
+                "train_bottleneck.apply[f32]")
 
 
 def f32_source(name):
-    """The source of a float32 train form's kernel: the weight gradients'
-    and affine_dx's own files, the rest f32_kernels.cu's product kernel."""
+    """The source of a float32 train form's kernel: the weight gradients',
+    affine_dx's and the forward 1x1's own files, the rest f32_kernels.cu's
+    product kernel."""
     base = name.split("[")[0]
     if base in ("affine_dw", "conv3x3_dw"):
         return DW_F32_SOURCE
-    return DX_F32_SOURCE if base == "affine_dx" else F32_SOURCE
+    return {"affine_dx": DX_F32_SOURCE,
+            "affine_dot": FWD_F32_SOURCE}.get(base, F32_SOURCE)
+
+
+def fwd_note(row, ops):
+    """`` on fw3_kernel`` for a row of the float32 forward 1x1 where the
+    kernels' module ``ops`` (``buf_ops`` or ``train_bottleneck``) has it,
+    else ''."""
+    return f" on {FWD_F32_KERNEL}" if row in FWD_F32_ROWS and hasattr(
+        ops, "launch_fwd_f32") else ""
+
+
+def fwd_kernel(row):
+    """The kernels line's ``kernel`` key of a row of the float32 forward
+    1x1 (its source holds other kernels too), else none."""
+    return {"kernel": FWD_F32_KERNEL} if row in FWD_F32_ROWS else {}
 F32_PATH_REL_L2 = 1e-4   # a float32 kernel path vs the plain path
 # the f32 rows of the kernels line: the bf16 row whose TPU kernel each
 # replaces at float32
@@ -3854,6 +3877,14 @@ def tb_f32_exact_checks(torch, tbk, gen):
                torch.empty(k, cout, device="cuda"),
                torch.empty(2, k, device="cuda"))
             for fn in (tbk.bwd_reduce, tbk.bwd_reduce_plain)]
+    # apply on the random W bit for bit affine_dot's eval-pair form
+    # (dot3_kernel) over the concat: the same sums in the same order
+    from cunet_tpu_torch.kernels import buf_ops
+
+    concat = (tbk.apply(f, o["vec"], o["wa"],
+                        torch.empty(m, cout, device="cuda")),
+              buf_ops.affine_dot(torch.cat(f, 1), o["vec"], o["wa"],
+                                 torch.empty(m, cout, device="cuda")))
     torch.cuda.synchronize()
     same["train_bottleneck.apply[f32]"] = torch.equal(*outs)
     same["train_bottleneck.bwd_dx[f32]"] = all(
@@ -3864,6 +3895,10 @@ def tb_f32_exact_checks(torch, tbk, gen):
           f"their plain versions: {same}", flush=True)
     require(all(same.values()), f"a #7 float32 form is not exact under "
                                 f"one-hot operands: {same}")
+    print(f"bn0 f32: apply[f32] bit for bit affine_dot[f32] over the "
+          f"concat (r=64, random W): {torch.equal(*concat)}", flush=True)
+    require(torch.equal(*concat), "apply[f32] differs from affine_dot[f32] "
+                                  "over the concat")
     # one bf16 pass of g, on the random W: the dx and dW limits
     g16 = o["g"].bfloat16().float()
     want = tbk.bwd_dx_plain(f, o["g"], o["stat"], o["bias"], o["red"],
@@ -4581,12 +4616,21 @@ def slot_f32_exact_checks(torch, tops, bops, o, gen):
             plain[tops.maxpool2_bwd](o["ahead"], o["d_pool"], n, r, r,
                                      empty(m, c))),
     }
+    # one ghost tile of all M rows, on the random W: the per-tile form bit
+    # for bit the eval pair's form (dot3_kernel), the same sums
+    one_tile = (bops.affine_dot(x2, v2[:1], o["w_a"], empty(m, c)),
+                bops.affine_dot(x2, v2[0], o["w_a"], empty(m, c)))
     torch.cuda.synchronize()
     same = {k: torch.equal(a, b) for k, (a, b) in pairs.items()}
     print(f"slot f32 kernels under one-hot operands (r=64, tile 2), bit for "
           f"bit an exact reference: {same}", flush=True)
     require(all(same.values()), f"a float32 slot form is not exact under "
                                 f"one-hot operands: {same}")
+    print(f"slot f32: affine_dot[f32,tile] with one tile bit for bit the "
+          f"eval pair's affine_dot[f32] (random W): "
+          f"{torch.equal(*one_tile)}", flush=True)
+    require(torch.equal(*one_tile), "affine_dot[f32,tile] with one tile "
+                                    "differs from the eval pair's form")
     # one bf16 pass of the cotangent: the plain versions on bf16(dy)
     d16, do16 = o["dy"].bfloat16().float(), o["d_o"].bfloat16().float()
     cases = {
@@ -4674,8 +4718,9 @@ def phase_slot_f32_kernels(torch, tops, bops):
                 if row in results:
                     results[row]["max_abs_err"] = max(
                         results[row]["max_abs_err"], err)
-                    print(f"slot f32 kernel {row} [{label}]: max_abs_err "
-                          f"{err:.4g} ({share:.3g} of its limit)", flush=True)
+                    print(f"slot f32 kernel {row}{fwd_note(row, bops)} "
+                          f"[{label}]: max_abs_err {err:.4g} ({share:.3g} "
+                          f"of its limit)", flush=True)
                     continue
                 ms = cuda_time_ms(lambda: call(kern))
                 plain_ms = cuda_time_ms(lambda: call(plain[kern]))
@@ -4685,8 +4730,9 @@ def phase_slot_f32_kernels(torch, tops, bops):
                 lib = "none" if lib_ms is None else f"{lib_ms * 1e3:.1f} us"
                 fma = "" if fma_ms is None else \
                     f", float32 FMA of the products {fma_ms * 1e3:.1f} us"
-                print(f"slot f32 kernel {row} [{label}]: max_abs_err "
-                      f"{err:.4g} ({share:.3g} of its float32 limit), "
+                print(f"slot f32 kernel {row}{fwd_note(row, bops)} "
+                      f"[{label}]: max_abs_err {err:.4g} ({share:.3g} of its "
+                      f"float32 limit), "
                       f"{ms * 1e3:.1f} us vs plain {plain_ms * 1e3:.1f} us, "
                       f"bound {bms * 1e3:.1f} us ({by}), library {lib}"
                       f"{product_text(prod_ms)}{fma}", flush=True)
@@ -4696,6 +4742,9 @@ def phase_slot_f32_kernels(torch, tops, bops):
           flush=True)
     wide_dw_check(torch, tops, gen)
     wide_dx_check(torch, tops, gen)
+    from cunet_tpu_torch.kernels import train_bottleneck
+
+    wide_fwd_check(torch, train_bottleneck, bops, gen)
     for row in results:
         results[row]["one_hot_exact"] = exact.get(row)
     return results
@@ -4782,6 +4831,63 @@ def wide_dx_check(torch, tops, gen):
           f"{product_text(prod_ms)}", flush=True)
 
 
+# order 14's widest #7 call: 17 feature groups, Ctot = 1,920; and a head
+# past 128 columns (two column blocks, the second 8 wide)
+WIDE_FWD_WIDTHS = (128,) * 13 + (64,) * 4
+WIDE_FWD_N = 136
+
+
+def wide_fwd_check(torch, tbk, bops, gen):
+    """The float32 forward 1x1 at K = 1,920 -> ``WIDE_FWD_N`` (r=64, batch
+    24): ``apply[f32]`` over ``WIDE_FWD_WIDTHS`` (17 groups: the table in
+    device memory) and ``affine_dot[f32,tile]`` on their concat at tile 2,
+    each against its plain version within the float32 K-term limit, timed
+    beside the plain version, ``torch.mm`` of the product alone and its
+    bound (W streamed by slices: its planes do not fit beside the x
+    buffers)."""
+    from cunet_tpu_torch.kernels.train_slot import _affine_vec
+
+    m, n = TRAIN_BATCH * 64 * 64, WIDE_FWD_N
+    k = sum(WIDE_FWD_WIDTHS)
+    tiles = TRAIN_BATCH // BN_TILE
+    buf = torch.randn(m, k + 32, generator=gen).cuda()
+    feats = [buf[:, a:a + c] for a, c in zip(
+        np.cumsum((0,) + WIDE_FWD_WIDTHS[:-1]), WIDE_FWD_WIDTHS)]
+    x = buf[:, :k]
+    vec = torch.stack([torch.rand(k, generator=gen) + 0.5,
+                       torch.randn(k, generator=gen) * 0.3]).cuda()
+    st = torch.stack([x.reshape(tiles, -1, k).mean(1),
+                      x.reshape(tiles, -1, k).var(1, unbiased=False)], 1)
+    v = _affine_vec(st.contiguous(), vec, 1e-5)
+    w = (torch.randn(k, n, generator=gen) * k ** -0.5).cuda()
+    cases = (("train_bottleneck.apply[f32]", tbk.apply, tbk.apply_plain,
+              lambda f, o: f(feats, vec, w, o), "17 groups"),
+             ("affine_dot[f32,tile]", bops.affine_dot,
+              bops.affine_dot_plain, lambda f, o: f(x, v, w, o),
+              f"tile {BN_TILE}"))
+    nbytes = sz(m, k, e=4) + sz(k, n, e=4) + sz(m, n, e=4)
+    for row, kern, plain, call, what in cases:
+        out = torch.empty(m, n, device="cuda")
+        got, want = [call(kern, out.clone())], [call(plain, out.clone())]
+        torch.cuda.synchronize()
+        err, share, ok = output_errors(torch, got, want, [("sum", k)])
+        label = f"K={k}->{n} r=64 {what}"
+        require(ok, f"{row} [{label}] disagrees with its plain version: "
+                    f"{err} ({share:.3g} of its limit)")
+        ms = cuda_time_ms(lambda: call(kern, out))
+        plain_ms = cuda_time_ms(lambda: call(plain, out), iters=3)
+        prod_ms = cuda_time_ms(lambda: torch.mm(x, w))
+        bms, by = bound(work(nbytes + sz(2, k, e=4) * (tiles if "tile" in
+                                                       what else 1),
+                             6 * 2 * m * k * n, "bf16"))
+        print(f"wide f32 kernel {row}{fwd_note(row, bops)} [{label}]: "
+              f"max_abs_err {err:.4g} ({share:.3g} of its float32 limit), "
+              f"{ms * 1e3:.1f} us vs plain {plain_ms * 1e3:.1f} us, bound "
+              f"{bms * 1e3:.1f} us ({by}){product_text(prod_ms)}",
+              flush=True)
+        del got, want, out
+
+
 def bytes_digest(torch, ts):
     """sha256 (16 hex digits) of the bytes of the tensors ``ts``: two
     checkouts whose digests of the same operands agree give them bit for
@@ -4831,9 +4937,9 @@ def row_times(torch, pattern, tops, bops, tbk):
                        if fn is not None)
         if fma_ms is not None:
             text += f", float32 FMA {fma_ms * 1e3:.1f} us"
-        print(f"row time {row} [{label}]: max_abs_err {err:.4g} "
-              f"({share:.3g} of its limit), {ms * 1e3:.1f} us, bound "
-              f"{bms * 1e3:.1f} us ({by}){text}", flush=True)
+        print(f"row time {row}{fwd_note(row, bops)} [{label}]: max_abs_err "
+              f"{err:.4g} ({share:.3g} of its limit), {ms * 1e3:.1f} us, "
+              f"bound {bms * 1e3:.1f} us ({by}){text}", flush=True)
         return got
 
     gen = torch.Generator().manual_seed(13)
@@ -4876,9 +4982,11 @@ def row_times(torch, pattern, tops, bops, tbk):
                  tb_f32_dw_f64_checks(torch, tbk, torch.Generator()
                                       .manual_seed(15), strict=False))),
             ("affine_dw[f32]", lambda: wide_dw_check(torch, tops, gen)),
-            ("affine_dx[f32]", lambda: wide_dx_check(torch, tops, gen)))
-    for row, check in wide:
-        if rx.search(row):
+            ("affine_dx[f32]", lambda: wide_dx_check(torch, tops, gen)),
+            ("affine_dot[f32,tile]|train_bottleneck.apply[f32]",
+             lambda: wide_fwd_check(torch, tbk, bops, gen)))
+    for rows, check in wide:
+        if any(rx.search(row) for row in rows.split("|")):
             check()
     print(f"row times: output digests at r=64 of the rows matching "
           f"{pattern!r}: " + str({row: bytes_digest(torch, ts)
@@ -6222,9 +6330,10 @@ def main() -> int:
                         **f32_extra))
     for name, r in tb_f32_kernels.items():
         src = TRAIN_SOURCE if name == "drop_mask[f32]" else \
-            F32_SOURCE if name == "train_bottleneck.apply[f32]" else TB_SOURCE
+            FWD_F32_SOURCE if name in FWD_F32_ROWS else TB_SOURCE
         rows.append(row(name, src, r, tb_f32_launches[name],
                         launches_per_step=tb_f32_per_step[name],
+                        **fwd_kernel(name),
                         **{k: r[k] for k in ("one_hot_exact", "dw_f64_rel")
                            if k in r}))
     for name, r in slot_f32_kernels.items():
@@ -6233,13 +6342,14 @@ def main() -> int:
             else f32_source(name)
         rows.append(row(name, src, r, slot_f32_launches[name],
                         launches_per_step=slot_f32_per_step[name],
+                        **fwd_kernel(name),
                         one_hot_exact=r["one_hot_exact"]))
     for name, r in quant_f32_kernels.items():
         if name in QUANT_F32:
             src = f32_source(name)
             n = quant_f32_launches[name]
             extra = dict(launches_per_step=quant_f32_per_step[name],
-                         one_hot_exact=r["one_hot_exact"])
+                         one_hot_exact=r["one_hot_exact"], **fwd_kernel(name))
         elif name.endswith("groups>16]"):
             src = F32_SOURCE if "f32" in name else EVAL_SOURCE
             n = many_launches[name]

@@ -19,20 +19,20 @@
 //   - as the implicit GEMM of a SAME 3x3 conv (conv3x3's float32 form): K =
 //     9C tap-major, A[m, tap*C + c] = y[m + dy*W + dx, c], zero where the
 //     source pixel lies outside m's image.
-// The ghost-BN train step adds per-tile BN vectors (each row reads its
-// own tile's [inv; shift]: a tile of 96 rows does not divide a 128-row
-// block), the conv's BN2 prologue, and a gate epilogue (kEpiGate: the
-// backward's ReLU mask of the stage input), so that conv3x3_dx runs as
-// dot3_kernel on the float32 cotangent through the flipped weight, no
-// prologue; affine_dx's float32 form is dx_f32_kernels.cu's (the same
-// sums, bit for bit), the weight gradients, the product over the rows,
-// dw_f32_kernels.cu's.
+// The ghost-BN train step adds the conv's per-tile BN2 prologue (each row
+// reads its own tile's [inv; shift]: a tile of 96 rows does not divide a
+// 128-row block) and a gate epilogue (kEpiGate: the backward's ReLU mask
+// of the stage input), so that conv3x3_dx runs as dot3_kernel on the
+// float32 cotangent through the flipped weight, no prologue; the forward
+// 1x1 with per-tile vectors (and #7's apply) is fwd_f32_kernels.cu's,
+// affine_dx's float32 form dx_f32_kernels.cu's (the same sums, bit for
+// bit), the weight gradients, the product over the rows, dw_f32_kernels.cu's.
 // The QuanInput options of the quantized model's training (W1/I8/G8 at
 // float32): a prologue quantizer quan(relu(x * inv + shift), bits) on the
 // unrounded float32 value (the bf16 forms' act() rounds to bf16 first;
-// here nothing rounds but the affine's product and sum), in the 1x1
-// forward (the head) and the conv's BN2 prologue (dw_f32_kernels.cu's z
-// takes the same quantizer); and the straight-through gate 0 < z < 1 in
+// here nothing rounds but the affine's product and sum), in the conv's BN2
+// prologue (fwd_f32_kernels.cu's head and dw_f32_kernels.cu's z take the
+// same quantizer); and the straight-through gate 0 < z < 1 in
 // the gate epilogue (ste). A code
 // k / 2^(bits-1) with bits <= 9 has at most 8 significant bits, one bf16
 // plane: its second and third planes are zero, so those forms skip the
@@ -41,10 +41,10 @@
 // (cunet_tpu/kernels/fused_model_buf.py::_affine_dot :52, _conv3x3 via
 // fused_hourglass.py:75), #4 (fused_hourglass.py::_bottleneck_val :229),
 // #5 (fused_block.py::fused_dense_block_infer :207) and #6
-// (fused_bottleneck.py :76, :178), and the products of #8/#9
-// (train_slot.py::_dot :172, _conv3x3_t :647, the d_z2 half of
-// _conv3x3_bwd :732), which run float32 x float32 products with float32
-// accumulation at compute_dtype="float32".
+// (fused_bottleneck.py :76, :178), and the conv products of #8/#9
+// (train_slot.py::_conv3x3_t :647, the d_z2 half of _conv3x3_bwd :732),
+// which run float32 x float32 products with float32 accumulation at
+// compute_dtype="float32".
 //
 // Arithmetic: float32-accurate on the tensor cores. Both operands are split
 // exactly into three bf16 planes (split3, common.cuh: v = p1 + p2 + p3)
@@ -449,10 +449,10 @@ __global__ void __launch_bounds__(kThreads)
   const long long m0 = (long long)blockIdx.x * BM;
   const int n0 = blockIdx.y * BN;
   const int K = CONV ? 9 * src.C : src.K;
-  // a prologue's vectors per row (per-tile ghost-BN vectors, or the
-  // conv's, whose column is the channel of a tap), fetched at commit; else
-  // one eval pair, a chunk ahead (the single form)
-  const bool row_vecs = CONV || ops.o[0].vstride != 0;
+  // the conv's prologue vectors per row (per-tile ghost-BN vectors, whose
+  // column is the channel of a tap), fetched at commit; a 1x1 product's
+  // one eval pair a chunk ahead (the single form)
+  constexpr bool row_vecs = CONV;
   // the QuanInput prologue's constants (QUANT: a single-output form); its
   // codes of bits <= 9 fill one bf16 plane (planes 2, 3 zero)
   const QuanConst qc = quan_const(QUANT ? ops.o[0].bits : 0);
@@ -902,52 +902,6 @@ int cunet_conv3x3_f32(const void* y, long long ldy, long long M, int H, int W,
     CUNET_CONV3(16, 1) CUNET_CONV3(32, 2) CUNET_CONV3(64, 2)
     CUNET_CONV3(128, 2)
 #undef CUNET_CONV3
-  }
-  return (int)cudaErrorInvalidValue;
-}
-
-// The float32 1x1 stage of the ghost-BN train step, one feature group:
-// out (M, N) = relu(x * inv_t + shift_t) @ w[:K] (affine_dot's float32
-// form with per-tile vectors, vstride and tile_rows as in Op3). ``bn`` and
-// ``smem`` from buf_ops.dot3_plan; out an (M, N) view or an image-major one
-// as in cunet_table_dot_f32. bits: QuanInput's quantizer after the
-// prologue (the quantized model's head).
-int cunet_affine_f32(const void* x, long long ldx, long long M, int K,
-                     const void* inv, const void* shift, long long vstride,
-                     long long tile_rows, const void* w, int ldw, int N,
-                     void* out, long long ldo, long long rows_per_img,
-                     long long img_stride, int bits, int bn, int smem,
-                     void* stream) {
-  if (tile_rows < 1 || (bits && !inv)) return (int)cudaErrorInvalidValue;
-  Src src;
-  src.G = 1;
-  src.K = K;
-  src.up = 0;
-  src.H = src.W = 0;
-  src.C = 0;
-  src.ext = nullptr;
-  src.off[0] = 0;
-  for (int g = 0; g < kMaxGroups; ++g) {
-    src.ptr[g] = g ? nullptr : static_cast<const float*>(x);
-    src.ld[g] = g ? 0 : ldx;
-    src.off[g + 1] = K;
-  }
-  Ops3 ops;
-  ops.o[0] = make_op(inv, shift, w, ldw, out, ldo, rows_per_img, img_stride);
-  set_train(ops.o[0], vstride, tile_rows, nullptr, 0, nullptr, nullptr,
-            bits);
-  ops.o[1] = ops.o[0];
-  const auto st = static_cast<cudaStream_t>(stream);
-  switch (bn) {
-#define CUNET_AFFINE3(b, wn)                                                \
-  case b:                                                                   \
-    return bits ? launch3<b, wn, 1, false, kEpiNone, false, false, true>(   \
-                      src, M, N, ops, smem, st)                             \
-                : launch3<b, wn, 1, false, kEpiNone, false>(src, M, N, ops, \
-                                                            smem, st);
-    CUNET_AFFINE3(16, 1) CUNET_AFFINE3(32, 2) CUNET_AFFINE3(64, 2)
-    CUNET_AFFINE3(128, 2)
-#undef CUNET_AFFINE3
   }
   return (int)cudaErrorInvalidValue;
 }

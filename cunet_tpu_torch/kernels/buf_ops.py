@@ -22,12 +22,14 @@ concat, no staging copy).
 
 Each wrapper also takes float32 operands (an f32 model's eval and its
 ghost-BN training): the pool and the upsample move 4-float vectors;
-``affine_dot`` and ``conv3x3`` run the float32 product kernel of
-``csrc/f32_kernels.cu`` (``launch_dot3``, plans ``dot3_plan`` /
-``conv3x3_plan_f32``), float32-accurate on the tensor cores through the
-exact three-way bf16 split of both operands, with eval vectors or per-tile
-ghost-BN ones, and with QuanInput's ``bits_i`` (the quantized model's
-float32 training) on the unrounded float32 prologue value.
+``affine_dot`` with eval vectors and ``conv3x3`` run the float32 product
+kernel of ``csrc/f32_kernels.cu`` (``launch_dot3``, plans ``dot3_plan`` /
+``conv3x3_plan_f32``), ``affine_dot`` with per-tile ghost-BN vectors or
+QuanInput's ``bits_i`` (the quantized model's float32 training, on the
+unrounded float32 prologue value) the float32 forward 1x1 of
+``csrc/fwd_f32_kernels.cu`` (``launch_fwd_f32``, plan ``fwd_f32_plan``):
+both float32-accurate on the tensor cores through the exact three-way
+bf16 split of both operands, with the same sums.
 ``<wrapper>.f32_launches`` counts those launches (also in ``launches``),
 ``<wrapper>.f32_option_launches`` those with the option on (also in
 ``option_launches``). ``affine_dot.stream_launches`` counts its launches
@@ -488,15 +490,17 @@ def affine_dot(x, vec, w, out, *, bias=None, bits_i=0):
     output over all the chunks: the same sums and bits at any K. PERF.md
     section 6 has its times on the H100.
 
-    Float32 x, w and out (an f32 model's eval and ghost-BN train forward)
-    run the float32 product kernel with one feature group
-    (``csrc/f32_kernels.cu``): the prologue unrounded, six bf16 plane
-    products a k16 step, summed as ``eval_ops.table_dot``'s float32 form
-    sums them. With per-tile vectors each row reads its own tile's [inv;
-    shift] (a tile of 96 rows at r=4, tile 6, does not divide a 128-row
-    block). With ``bits_i`` the quantizer takes the unrounded float32
-    prologue value (no ``bias`` then), and for ``bits_i`` <= 9 its codes
-    fill one bf16 plane, so three of the six plane products are skipped.
+    Float32 x, w and out (an f32 model's eval and ghost-BN train forward):
+    the prologue unrounded, six bf16 plane products a k16 step, summed as
+    ``eval_ops.table_dot``'s float32 form sums them; with eval vectors on
+    the float32 product kernel with one feature group
+    (``csrc/f32_kernels.cu``), with per-tile vectors or ``bits_i`` on the
+    float32 forward 1x1 (``csrc/fwd_f32_kernels.cu``), where each row
+    reads its own tile's [inv; shift] (a tile of 96 rows at r=4, tile 6,
+    does not divide a 128-row block). With ``bits_i`` the quantizer takes
+    the unrounded float32 prologue value (no ``bias`` then), and for
+    ``bits_i`` <= 9 its codes fill one bf16 plane, so three of the six
+    plane products are skipped.
     """
     m, k = x.shape
     n = w.shape[1]
@@ -537,14 +541,19 @@ def affine_dot(x, vec, w, out, *, bias=None, bits_i=0):
 
 
 def _affine_dot_f32(x, vec, w, out, bias, bits_i):
-    """``affine_dot``'s float32 form: the float32 product kernel over the
-    one group ``x`` (``csrc/f32_kernels.cu``): with an eval ``vec`` through
-    ``launch_dot3``; with per-tile ghost-BN vectors (the f32 train forward,
-    TPU kernel #8's ``_norm_relu`` + ``_dot``) or QuanInput's ``bits_i``
-    (its ``_quan`` at the head) through ``cunet_affine_f32``, which reads
-    each row's tile's vectors in its prologue."""
+    """``affine_dot``'s float32 form: with an eval ``vec`` the float32
+    product kernel over the one group ``x`` (``launch_dot3``,
+    ``csrc/f32_kernels.cu``); with per-tile ghost-BN vectors (the f32 train
+    forward, TPU kernel #8's ``_norm_relu`` + ``_dot``) or QuanInput's
+    ``bits_i`` (its ``_quan`` at the head) the float32 forward 1x1 of
+    ``csrc/fwd_f32_kernels.cu`` (``launch_fwd_f32``, plan
+    ``fwd_f32_plan``), which reads each row's tile's vectors in its
+    prologue: the same sums, bit for bit."""
+    per_tile = vec.dim() == 3 or bits_i
+    # the forward 1x1 takes widths of 4 floats (the 68-class head's N)
+    mult = 4 if per_tile else 8
     for name, t in (("x", x), ("out", out), ("w", w)):
-        _check_view(t, name, (F32,))
+        _check_view(t, name, (F32,), width_mult=mult)
     if not w.is_contiguous():
         raise ValueError("w must be contiguous")
     _check_vec(vec, "vec", x.shape[1])
@@ -552,15 +561,13 @@ def _affine_dot_f32(x, vec, w, out, bias, bits_i):
         _check_vec(bias, "bias", w.shape[1])
     m = x.shape[0]
     _check_rows(m)
-    if vec.dim() == 2 and not bits_i:
+    if not per_tile:
         code = launch_dot3([x], m, vec, w, out, bias=bias)
     else:
         if bias is not None:
             raise ValueError("affine_dot at float32: no bias with per-tile "
                              "vectors or bits_i")
-        inv, shift, vstride, tile_rows = _vec_args(vec, m, x.shape[1])
-        code = launch_affine_f32(x, inv, shift, vstride, tile_rows, w, out,
-                                 bits_i=bits_i)
+        code = launch_fwd_f32([x], m, vec, w, out, bits_i=bits_i)
     build.check(code, "affine_dot (float32)")
     affine_dot.launches += 1
     affine_dot.f32_launches += 1
@@ -569,19 +576,123 @@ def _affine_dot_f32(x, vec, w, out, bias, bits_i):
     return out
 
 
-def launch_affine_f32(x, inv, shift, vstride, tile_rows, w, out, bits_i=0):
-    """Launch ``cunet_affine_f32`` (checked by the caller): the float32
-    product ``x @ w[:K]`` of one group with a per-tile prologue (``inv``,
-    ``shift`` pointers as ``_vec_args`` gives them; with ``bits_i``
-    QuanInput's quantizer after it). Returns the CUDA error code."""
-    m, k = x.shape
+# The float32 forward 1x1 of training (csrc/fwd_f32_kernels.cu,
+# fw3_kernel): 128-row tiles of two warpgroups, x staged in slices of 64
+# depths (two 32-deep chunks) at a row stride of 72 floats, two buffers;
+# a block keeps 8 * nt output columns (nt n8 tiles, one of the kernel's
+# instances) with W's three bf16 planes resident, or streamed a slice at a
+# time where they do not fit beside the buffers; one 16-byte table chunk
+# (address, row stride) every 4 columns of the concat.
+FWD_F32_ROWS = 128
+FWD_F32_SLICE = 64
+FWD_F32_CHUNK = 32
+FWD_F32_NTS = (2, 4, 8, 16)
+CHUNK_BYTES = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class FwdF32Plan:
+    """How ``fw3_kernel`` cuts an (m, K) -> (m, N) float32 forward 1x1:
+    row tiles of ``FWD_F32_ROWS``, N in ``nkb`` blocks of ``8 * nt``
+    columns (columns past N are zero weights, never stored), K
+    zero-padded to ``kp`` (a multiple of the 32-deep chunk) and walked in
+    slices of ``FWD_F32_SLICE``. Shared memory: W's three planes
+    (``w_plane`` bytes each: the block's columns at ``dp`` depths, all kp,
+    or one slice with ``stream``), the chunk table at ``tbl_off``, then two
+    buffers of ``stage_bytes`` from ``stage_off`` (a slice's x rows, and
+    with ``stream`` its W rows at ``w_raw_off``); ``smem`` in all."""
+    nt: int
+    nkb: int
+    stream: bool
+    kp: int
+    dp: int
+    w_plane: int
+    tbl_off: int
+    stage_off: int
+    w_raw_off: int
+    stage_bytes: int
+    smem: int
+
+    @property
+    def ncol(self) -> int:
+        return 8 * self.nt
+
+    @property
+    def slices(self) -> int:
+        return -(-self.kp // FWD_F32_SLICE)
+
+    def tiles(self, m: int) -> int:
+        return -(-m // FWD_F32_ROWS)
+
+    def items(self, m: int) -> int:
+        return self.tiles(m) * self.nkb
+
+
+def _fwd_f32_layout(kp, nt, nkb, stream) -> FwdF32Plan:
+    """``csrc/fwd_f32_kernels.cu::fw_layout``."""
+    ncol = 8 * nt
+    dp = FWD_F32_SLICE if stream else kp
+    w_plane = ncol * dp * 2
+    tbl_off = _up(3 * w_plane, 128)
+    stage_off = _up(tbl_off + kp // 4 * CHUNK_BYTES, 128)
+    w_raw_off = FWD_F32_ROWS * (FWD_F32_SLICE + 8) * 4
+    stage_bytes = _up(w_raw_off + (FWD_F32_SLICE * ncol * 4 if stream
+                                   else 0), 128)
+    return FwdF32Plan(nt=nt, nkb=nkb, stream=stream, kp=kp, dp=dp,
+                      w_plane=w_plane, tbl_off=tbl_off,
+                      stage_off=stage_off, w_raw_off=w_raw_off,
+                      stage_bytes=stage_bytes,
+                      smem=stage_off + 2 * stage_bytes)
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_f32_plan(k: int, n: int) -> FwdF32Plan:
+    """The plan of the float32 forward 1x1 at a concat K wide and N output
+    columns (a function of the shapes alone; M sets only the items): the
+    fewest column blocks (the narrowest instance that holds their share of
+    N's n8 tiles), then one more, with W's planes resident; else the same
+    with W streamed by slices. At K <= 192, N = 128 one block keeps every
+    column (x read and split once); at K = 224 ... 384 two keep 64 each;
+    past K = 384 W streams."""
+    if k < 4 or k % 4 or n < 4 or n % 4:
+        raise ValueError(f"the float32 forward 1x1 takes K and N multiples "
+                         f"of 4, got K={k}, N={n}")
+    kp = _up(k, FWD_F32_CHUNK)
+    n8 = -(-n // 8)
+    fewest = -(-n8 // FWD_F32_NTS[-1])
+    for stream in (False, True):
+        for nkb in (fewest, fewest + 1):
+            nt = next(t for t in FWD_F32_NTS if t * nkb >= n8)
+            if (nkb - 1) * 8 * nt >= n:
+                continue
+            p = _fwd_f32_layout(kp, nt, nkb, stream)
+            if p.smem <= SMEM_LIMIT:
+                return p
+    raise ValueError(f"the float32 forward 1x1 has no plan for K={k}, N={n}")
+
+
+def launch_fwd_f32(feats, m, vec, w, out, bits_i=0):
+    """Launch ``cunet_fwd_f32`` (checked by the caller): ``out = quan(relu(
+    concat(feats) * inv_t + shift_t)) @ w[:K]`` over the float32 feature
+    groups ``feats`` (one for ``affine_dot``'s per-tile form, #7's for its
+    ``apply``; past ``INLINE_GROUPS`` the table goes through device memory)
+    with ``vec`` an eval (2, >=K) pair or per-tile (T, 2, >=K) vectors and
+    QuanInput's ``bits_i``. Returns the CUDA error code."""
+    g = len(feats)
+    k = sum(f.shape[1] for f in feats)
     n = w.shape[1]
-    p = dot3_plan(n)
+    p = fwd_f32_plan(k, n)
+    inv, shift, vstride, tile_rows = _vec_args(vec, m, k)
     _, rows_per_img, img_stride, ldo = _rows(out)
-    return build.lib().cunet_affine_f32(
-        x.data_ptr(), x.stride(0), m, k, inv, shift, vstride, tile_rows,
-        w.data_ptr(), w.stride(0), n, out.data_ptr(), ldo, rows_per_img,
-        img_stride, bits_i, p.bn, p.smem, _stream(x))
+    ext = group_table(feats)
+    return build.lib().cunet_fwd_f32(
+        (ctypes.c_void_p * g)(*[f.data_ptr() for f in feats]),
+        (ctypes.c_longlong * g)(*[f.stride(0) for f in feats]),
+        (ctypes.c_int * g)(*[f.shape[1] for f in feats]), g,
+        0 if ext is None else ext.data_ptr(), m, inv, shift, vstride,
+        tile_rows, bits_i, w.data_ptr(), w.stride(0), n, out.data_ptr(), ldo,
+        rows_per_img, img_stride, p.nt, p.nkb, int(p.stream), p.smem,
+        _stream(feats[0]))
 
 
 # ---------------------------------------------------------------------------

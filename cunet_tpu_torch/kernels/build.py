@@ -25,7 +25,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("buf_kernels.cu", "train_kernels.cu", "quant_kernels.cu",
            "bottleneck_kernels.cu", "eval_kernels.cu", "f32_kernels.cu",
-           "dw_f32_kernels.cu", "dx_f32_kernels.cu")
+           "dw_f32_kernels.cu", "dx_f32_kernels.cu", "fwd_f32_kernels.cu")
 HEADERS = ("common.cuh", "halo.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -107,8 +107,8 @@ def _declare(lib):
         "cunet_upsample2_f32": [P, L, P, L, I, I, I, I, P],
         "cunet_conv3x3_f32": [P, L, L, I, I, I, P, I, P, P, L, L, P, L, P,
                               P, P, L, I, I, I, I, I, P, P],
-        "cunet_affine_f32": [P, L, L, I, P, P, L, L, P, I, I, P, L, L, L, I,
-                             I, I, P],
+        "cunet_fwd_f32": [P, P, P, I, P, L, P, P, L, L, I, P, L, I, P, L, L,
+                          L, I, I, I, I, P],
         "cunet_dx_f32": [P, L, L, I, P, L, I, P, L, P, P, L, L, I, P, L,
                          *[I] * 3, P],
         "cunet_dw_f32": [P, L, I, I, I, I, I, P, P, L, I, I, P, L, I, P,

@@ -45,10 +45,10 @@ for float32 (16-byte loads of 4 columns, the cotangent split into three
 bf16 planes in shared memory like W, so each product is six plane
 products); ``bwd_reduce``'s float32 form is a kernel of its own (the
 cotangent split once into its planes by a pre-pass, ``reduce_plan_f32``);
-``apply`` is the float32 product kernel
-of ``csrc/f32_kernels.cu`` over the features as its feature table
-(``buf_ops.launch_dot3``), bit for bit ``affine_dot``'s float32 form over
-``torch.cat(xs, 1)``. ``<wrapper>.f32_launches`` counts the float32
+``apply`` is the float32 forward 1x1
+of ``csrc/fwd_f32_kernels.cu`` over the features as its feature table
+(``buf_ops.launch_fwd_f32``), bit for bit ``affine_dot``'s float32 form
+over ``torch.cat(xs, 1)``. ``<wrapper>.f32_launches`` counts the float32
 launches (also in ``launches``).
 """
 
@@ -72,7 +72,7 @@ from cunet_tpu_torch.kernels.buf_ops import (
     _up,
     affine_dot_plan,
     count_f32,
-    launch_dot3,
+    launch_fwd_f32,
     reset_counts,
 )
 from cunet_tpu_torch.kernels.train_ops import _check_contig_f32, sum_rows
@@ -279,10 +279,11 @@ def apply(xs, vec, w, out, table=None):
     result is ``affine_dot`` over ``torch.cat(xs, 1)`` bit for bit. Counted
     here, not in ``buf_ops.affine_dot.launches``.
 
-    Float32 features, ``w`` and ``out``: the float32 product kernel of
-    ``csrc/f32_kernels.cu`` with the features as its feature table (any
-    number of groups; ``table`` is not read), the prologue unrounded,
-    six bf16 plane products a k16 step: ``affine_dot``'s float32 form over
+    Float32 features, ``w`` and ``out``: the float32 forward 1x1 of
+    ``csrc/fwd_f32_kernels.cu`` (plan ``buf_ops.fwd_f32_plan(Ctot,
+    Cout)``) with the features as its feature table (any number of groups;
+    ``table`` is not read), the prologue unrounded, six bf16 plane products
+    a k16 step on ``wgmma``: ``affine_dot``'s float32 form over
     ``torch.cat(xs, 1)`` bit for bit. Bound at K=320 -> 128, M=98,304 by
     its float32 bytes (176 MB: 52.6 us); its six bf16 passes take 48.8 us,
     the same product as float32 FMA 120 us.
@@ -325,11 +326,11 @@ def apply(xs, vec, w, out, table=None):
 
 
 def _apply_f32(xs, vec, w, out):
-    """``apply``'s float32 form: the float32 product over the feature
+    """``apply``'s float32 form: the float32 forward 1x1 over the feature
     groups ``xs`` (checked by ``apply``)."""
     for k, x in enumerate(xs):
         _check_view(x, f"features[{k}]", (F32,))
-    code = launch_dot3(list(xs), xs[0].shape[0], vec, w, out)
+    code = launch_fwd_f32(list(xs), xs[0].shape[0], vec, w, out)
     build.check(code, "train_bottleneck.apply (float32)")
     apply.launches += 1
     apply.f32_launches += 1

@@ -27,8 +27,16 @@ smoke's r=64 ghost-BN case (K=192 -> 128, batch 24, tile 2), whose
 variant "one dy plane" packs each dy pair once into bf16 in place of its
 exact three-plane split (the six products still run): the time of the
 split, which each of its two warpgroups makes for every dy element it
-reads. ``--ablate full "one dy plane"`` builds only those variants. Needs
-a CUDA device.
+reads. It also times the float32 forward 1x1 (``csrc/fwd_f32_kernels.cu``)
+at ``affine_dot[f32,tile]``'s smoke case (K=192 -> 128, r=64, batch 24,
+tile 2) and #7's ``apply[f32]`` at r=64 (K=128+128+32+32 -> 128), whose
+variants "fwd no prologue" (the BN + ReLU prologue skipped, on the
+fragments in registers or in place on the staged rows) and "fwd one x
+plane" (each x pair packed once into bf16 in place of its exact
+three-plane split; the six products still run) give the time of the
+prologue and of the split, each made once an element in registers on
+the fragments. ``--ablate full "one dy
+plane"`` builds only those variants. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -107,6 +115,20 @@ ABLATIONS = {
          "      A[0][1] = A[1][1] = A[2][1] = pack_rn(v1.x, v1.y);\n"
          "      A[0][2] = A[1][2] = A[2][2] = pack_rn(v2.x, v2.y);\n"
          "      A[0][3] = A[1][3] = A[2][3] = pack_rn(v3.x, v3.y);\n")],
+    "fwd no prologue": [
+        ("fwd_f32_kernels.cu",
+         "    if (!one_tile && pk - k0 < width && pk < a.K) {",
+         "    if (!one_tile && pk - k0 < width && pk < a.K && a.kp < 0) {"),
+        ("fwd_f32_kernels.cu",
+         "      if (one_tile) {\n        const int j = kk / 16;",
+         "      if (one_tile && a.kp < 0) {\n        const int j = kk / 16;")],
+    "fwd one x plane": [
+        ("fwd_f32_kernels.cu",
+         "      if (one) {\n        A[0][0] = pack_rn(v0.x, v0.y);",
+         "      if (a.kp >= 0) {\n        A[0][0] = A[1][0] = A[2][0] = "
+         "pack_rn(v0.x, v0.y);\n        A[1][1] = A[2][1] = pack_rn(v1.x, "
+         "v1.y);\n        A[1][2] = A[2][2] = pack_rn(v2.x, v2.y);\n"
+         "        A[1][3] = A[2][3] = pack_rn(v3.x, v3.y);")],
 }
 
 
@@ -247,12 +269,35 @@ def _dx_f32_cases(torch, cs):
             if c[0] == "affine_dx[f32]"]
 
 
+def _fwd_f32_cases(torch, cs):
+    """(row, label, kernel, plain, call(fn) -> outputs, bounds) of the
+    float32 forward 1x1: ``affine_dot[f32,tile]`` at the smoke's r=64
+    ghost-BN operands, tile 2, and #7's ``apply[f32]`` at r=64."""
+    from cunet_tpu_torch.kernels import buf_ops, train_ops
+    from cunet_tpu_torch.kernels import train_bottleneck as tbk
+
+    o = cs.slot_f32_operands(torch, train_ops, torch.Generator()
+                             .manual_seed(18), 64, cs.BN_TILE)
+    cases = [(c[0], f"{c[2]} tile {cs.BN_TILE}", c[1], buf_ops.PLAIN[c[1]],
+              c[3], c[4])
+             for c in cs.slot_f32_cases(torch, train_ops, buf_ops, o)
+             if c[0] == "affine_dot[f32,tile]" and "K=192" in c[2]]
+    o = cs.tb_operands(torch, torch.Generator().manual_seed(13), 64,
+                       dtype=torch.float32)
+    return cases + [("train_bottleneck.apply[f32]",
+                     "K=128+128+32+32->128 r=64", tbk.apply,
+                     tbk.apply_plain, call, bounds)
+                    for name, call, bounds, *_ in cs.tb_cases(torch, o)
+                    if name == "apply"]
+
+
 def ablate(torch, cs, variants) -> None:
     from cunet_tpu_torch.kernels import build, train_ops
     from cunet_tpu_torch.kernels import train_bottleneck as tbk
 
     tb_cases = _tb_cases(torch, cs)
     dx_cases = _dx_f32_cases(torch, cs)
+    fwd_cases = _fwd_f32_cases(torch, cs)
     csrc, build_dir = build.CSRC, build.BUILD_DIR
     work = Path(tempfile.mkdtemp(prefix="gemm_ablate_"))
     try:
@@ -296,6 +341,14 @@ def ablate(torch, cs, variants) -> None:
                 us = cs.cuda_time_ms(lambda: call(kern)) * 1e3
                 print(f"ablation [{variant}] {row} [{label} tile "
                       f"{cs.BN_TILE}]: {us:.1f} us", flush=True)
+            for row, label, kern, plain, call, bounds in fwd_cases:
+                if variant == "full":
+                    ok = cs.output_errors(torch, call(kern), call(plain),
+                                          bounds)[2]
+                    cs.require(ok, f"{row} disagrees")
+                us = cs.cuda_time_ms(lambda: call(kern)) * 1e3
+                print(f"ablation [{variant}] {row} [{label}]: {us:.1f} us",
+                      flush=True)
     finally:
         build.CSRC, build.BUILD_DIR = csrc, build_dir
         build._lib = None

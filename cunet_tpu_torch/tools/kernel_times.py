@@ -52,10 +52,13 @@ from those phases' own case lists (``chip_smoke.row_times``: each at r =
 timed beside its library call or product alone, its bound and the float32
 FMA time of its products; the wide checks of the rows that match, a
 digest of their r=64 outputs), then the bf16 digests. For example
-``--rows 'bwd_reduce\\[f32|affine_dx\\[f32'`` runs ``bwd_reduce[f32]``
-(with its dW against float64 and at Ctot = 1,920) and ``affine_dx[f32]``
-/ ``[f32,ste]`` (with K = 1,920); ``--rows '_dw\\['`` the float32 weight
-gradients (with ``affine_dw[f32]`` at K = 1,920).
+``--rows 'affine_dot\\[f32,tile|apply\\[f32'`` runs the float32
+forward 1x1 (``csrc/fwd_f32_kernels.cu``): ``affine_dot[f32,tile]`` at
+tiles 2 and 6 and #7's ``apply[f32]`` (with both at K = 1,920 -> 136,
+``apply`` over 17 groups); ``--rows 'bwd_reduce\\[f32|affine_dx\\[f32'``
+``bwd_reduce[f32]`` (with its dW against float64 and at Ctot = 1,920) and
+``affine_dx[f32]`` / ``[f32,ste]`` (with K = 1,920); ``--rows '_dw\\['``
+the float32 weight gradients (with ``affine_dw[f32]`` at K = 1,920).
 """
 
 from __future__ import annotations

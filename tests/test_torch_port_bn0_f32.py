@@ -276,14 +276,17 @@ def test_f32_dx_plans_fit_every_bn0_call():
 
 
 def test_f32_apply_plans_fit_every_bn0_call():
-    """``apply``'s float32 product: the plan of N = 128 within shared
-    memory whatever K (it streams K) and whatever the number of feature
-    groups (past 16 its table is read from device memory)."""
+    """``apply``'s float32 product (the float32 forward 1x1,
+    ``buf_ops.fwd_f32_plan``): its plan of N = 128 within shared memory
+    whatever K (past K = 384 it streams W) and whatever the number of
+    feature groups (past 16 its table is read from device memory), its
+    column blocks holding N, its slices every 32-deep chunk of K."""
     for m, ctot, n, groups in sorted(set(_bn0_f32_calls())):
         assert groups >= 1
-        p = buf_ops.dot3_plan(n)
-        assert p.smem <= SMEM_LIMIT and p.bn == 128
-        assert sum(len(c) for c in p.k_chunks(ctot)) == -(-ctot // p.bk)
+        p = buf_ops.fwd_f32_plan(ctot, n)
+        assert p.smem <= SMEM_LIMIT and p.nkb * p.ncol >= n == 128
+        assert p.kp == -(-ctot // 32) * 32
+        assert p.slices == -(-p.kp // buf_ops.FWD_F32_SLICE)
 
 
 @pytest.mark.parametrize("order", [1, 3])

@@ -2735,3 +2735,135 @@ def test_quant_f32_slot_step_matches_swap_step(gen, tile):
     planted = chip_smoke.step_leaves(torch, fault, s)
     caught = [n for n in lim if planted[n] > lim[n]]
     assert caught, {n: (planted[n], lim[n]) for n in lim}
+
+
+# ---------------------------------------------------------------------------
+# the float32 forward 1x1 (csrc/fwd_f32_kernels.cu, fw3_kernel): the
+# per-tile and QuanInput forms of affine_dot at float32 and #7's apply
+# ---------------------------------------------------------------------------
+
+
+def _fwd_feats(gen, m, widths):
+    """Float32 feature groups, the second a strided view of a wider
+    buffer."""
+    feats = [_f32(gen, m, c) for c in widths]
+    if len(feats) > 1:
+        feats[1] = _f32(gen, m, widths[1] + 8)[:, :widths[1]]
+    return feats
+
+
+def _tile_vec(gen, x, tiles):
+    """Per-tile (tiles, 2, K) [inv; shift] of x's ghost-BN statistics."""
+    k = x.shape[1]
+    st = train_ops.bn_stats_plain(x, torch.empty(tiles, 2, k, device="cuda"))
+    bn = torch.stack([torch.rand(k, generator=gen) + 0.5,
+                      torch.randn(k, generator=gen) * 0.3]).cuda()
+    return _affine_vec(st, bn, 1e-5)
+
+
+@pytest.mark.parametrize("m,widths,cout", [
+    (2056, (40,), 128), (1000, (128, 24, 8), 16), (216, (8,) * 17, 136),
+    (3000, (128,) * 13 + (64,) * 4, 128), (500, (1920,), 72)])
+def test_apply_f32_is_the_dot3_product_bit_for_bit(gen, m, widths, cout):
+    """#7's apply at float32 (the forward 1x1) bit for bit the float32
+    product kernel it replaced (``launch_dot3``, ``dot3_kernel``, which
+    the eval forms still run) on the same features and pair: 1, 3 and 17
+    groups (the table in device memory), Ctot = 1,920 (W streamed)."""
+    feats = _fwd_feats(gen, m, widths)
+    ctot = sum(widths)
+    vec = _vec(gen, ctot)
+    w = _f32(gen, ctot, cout, scale=ctot ** -0.5)
+    got, want = (torch.empty(m, cout, device="cuda") for _ in range(2))
+    before = tbk.apply.f32_launches
+    tbk.apply(feats, vec, w, got)
+    assert tbk.apply.f32_launches == before + 1
+    buf_ops.build.check(buf_ops.launch_dot3(feats, m, vec, w, want),
+                        "launch_dot3")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m,k,n", [(24 * 1024, 192, 128), (520, 40, 16),
+                                   (1000, 320, 128), (300, 1920, 136)])
+def test_affine_dot_f32_one_tile_is_the_eval_pair_bit_for_bit(gen, m, k, n):
+    """affine_dot at float32 with one ghost tile of all M rows (the
+    forward 1x1) bit for bit the eval pair's form (``dot3_kernel``):
+    the same sums, K = 40 ... 1,920 (W resident and streamed), N = 16 ...
+    136 (two column blocks)."""
+    x = _f32(gen, m, k + 16)[:, :k]
+    v = _vec(gen, k)
+    w = _f32(gen, k, n, scale=k ** -0.5)
+    before = buf_ops.affine_dot.f32_launches
+    got = buf_ops.affine_dot(x, v[None], w, torch.empty(m, n, device="cuda"))
+    want = buf_ops.affine_dot(x, v, w, torch.empty(m, n, device="cuda"))
+    torch.cuda.synchronize()
+    assert buf_ops.affine_dot.f32_launches == before + 2
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("tiles", [12, 4])      # 32 and 96 rows at r=4
+@pytest.mark.parametrize("k,n", [(192, 128), (128, 16), (136, 68),
+                                 (160, 136)])
+def test_affine_dot_f32_ghost_tiles_at_r4(gen, tiles, k, n):
+    """The per-tile form at r=4, batch 24 (384 rows: ghost tiles of 32 and
+    96 rows, so a 128-row tile spans two or three), into a strided output
+    view: within the float32 K-term limit of the plain version, bit for
+    bit under a one-hot W, nothing outside the view written; N = 16, 68
+    (the face head, no padded column stored) and 136."""
+    m = 24 * 16
+    x = _f32(gen, m, k + 8)[:, :k]
+    v = _tile_vec(gen, x, tiles)
+    for hot in (False, True):
+        w = _one_hot(gen, k, n) if hot else _f32(gen, k, n, scale=k ** -0.5)
+        dst = _f32(gen, m, n + 12)
+        got, want = dst.clone(), dst.clone()
+        buf_ops.affine_dot(x, v, w, got[:, 4:4 + n])
+        buf_ops.affine_dot_plain(x, v, w, want[:, 4:4 + n])
+        torch.cuda.synchronize()
+        if hot:
+            assert torch.equal(got, want)
+        else:
+            _close_f32(got, want, k)
+        got[:, 4:4 + n].copy_(dst[:, 4:4 + n])
+        assert torch.equal(got, dst)
+
+
+@pytest.mark.parametrize("bits", [8, 12])
+@pytest.mark.parametrize("tiles", [1, 3])
+def test_affine_dot_f32_bits_i(gen, bits, tiles):
+    """QuanInput's quantizer on the float32 prologue (the quantized head,
+    128 -> 16; an eval pair with ``bits_i`` runs the forward 1x1 too):
+    within the float32 limit of the plain version (codes of 8 bits fill one
+    bf16 plane, 12 bits three), bit for bit under a one-hot W, counted as
+    a float32 option launch."""
+    m, k, n = 1200, 128, 16
+    x = _f32(gen, m, k) * 2
+    v = _tile_vec(gen, x, tiles) if tiles > 1 else _vec(gen, k)
+    for w in (_f32(gen, k, n, scale=k ** -0.5), _one_hot(gen, k, n)):
+        before = buf_ops.affine_dot.f32_option_launches
+        got = buf_ops.affine_dot(x, v, w, torch.empty(m, n, device="cuda"),
+                                 bits_i=bits)
+        want = buf_ops.affine_dot_plain(x, v, w, torch.empty(
+            m, n, device="cuda"), bits_i=bits)
+        torch.cuda.synchronize()
+        assert buf_ops.affine_dot.f32_option_launches == before + 1
+        _close_f32(got, want, k)
+    assert torch.equal(got, want)
+
+
+def test_affine_dot_f32_tile_head_slot(gen):
+    """The per-tile form into an image-major view (one slot of a stacked
+    head output): every row lands in its image, the other slots
+    untouched."""
+    b, r, k, cls = 6, 8, 128, 16
+    x = _f32(gen, b * r * r, k)
+    v = _tile_vec(gen, x, 3)
+    w = _f32(gen, k, cls, scale=k ** -0.5)
+    heads = _f32(gen, b, 3, r, r, cls)
+    got, want = heads.clone(), heads.clone()
+    buf_ops.affine_dot(x, v, w, got[:, 1].view(b, r * r, cls))
+    buf_ops.affine_dot_plain(x, v, w, want[:, 1].view(b, r * r, cls))
+    torch.cuda.synchronize()
+    _close_f32(got, want, k)
+    got[:, 1] = heads[:, 1]
+    assert torch.equal(got, heads)

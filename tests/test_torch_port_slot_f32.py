@@ -393,7 +393,7 @@ def _step_shapes(tile, order=1):
 @pytest.mark.parametrize("tile", [1, 2, 6])
 def test_f32_plans_fit_at_every_step_shape(tile):
     for m, tr, k, n in _step_shapes(tile):
-        assert buf_ops.dot3_plan(n).smem <= SMEM_LIMIT        # F2
+        assert buf_ops.fwd_f32_plan(k, n).smem <= SMEM_LIMIT  # F2
         assert train_ops.affine_dx_f32_plan(k, n).smem <= SMEM_LIMIT  # F4
         assert train_ops.bn_bwd_plan(m, tr, k, True).smem <= SMEM_LIMIT
         if k == 128 and n == 128:                              # the conv

@@ -135,22 +135,30 @@ Phases, each printing one line (or a few) before the last:
    the whole-model path, forward ms and img/s of each.
 13. float32 whole-batch BN training, CU-Net-8 @256 at ``compute_dtype=
    "float32"``, ``bn_tile=0``, ``use_pallas``: (a) the float32 forms of
-   #7's four kernels (``stats``, ``bwd_reduce``, ``bwd_dx`` in
-   ``csrc/bottleneck_kernels.cu``; ``apply`` on ``csrc/f32_kernels.cu``'s
-   product) against their plain versions at phase 9's cases at float32
-   (every sum and float32 output within the float32 n-term limit, three
-   planted ``stats`` faults caught), bit for bit under one-hot operands,
-   one bf16 pass of g breaking the dx limit; ``bwd_reduce``'s dW within
-   F32_DW_REL sqrt(M) of float64 at r = 64, 4 and at Ctot = 1,920 (order
-   14's intermedia adapter), where it is also held to its plain version
-   and timed; the mask kernel's float32
-   form bit for bit; (b) the autograd Function at float32; (c) the float32
-   conv's backward with cuDNN's TF32 on (torch's default) within the
-   float32 limit of float64, where the conv as it was before its repair
-   breaks it; (d) the kernel step against the plain step beside two
+   #7's four kernels (``stats``, ``bwd_reduce`` in
+   ``csrc/bottleneck_kernels.cu``; ``bwd_dx`` in
+   ``csrc/tb_dx_f32_kernels.cu``, on the g planes ``bwd_reduce``'s pre-pass
+   wrote, as the backward hands them over; ``apply`` on
+   ``csrc/fwd_f32_kernels.cu``) against their plain versions at phase 9's
+   cases at float32 (every sum and float32 output within the float32
+   n-term limit, three planted ``stats`` faults caught), bit for bit
+   under one-hot operands, ``bwd_dx`` on the handed planes bit for bit a
+   call that splits g itself, one bf16 pass of g breaking the dx limit;
+   ``bwd_reduce``'s dW within F32_DW_REL sqrt(M) of float64 at r = 64, 4
+   and at Ctot = 1,920 (order 14's intermedia adapter), where it is also
+   held to its plain version and timed; ``bwd_dx`` at 160, 192 and 256
+   outputs and at Ctot = 1,920 against its plain version, timed; the mask
+   kernel's float32 form bit for bit; (b) the autograd Function at
+   float32; (c) the float32 conv's backward with cuDNN's TF32 on (torch's
+   default) within the float32 limit of float64, where the conv as it was
+   before its repair breaks it; (d) the kernel step against the plain step
+   beside two
    permuted-batch controls (F32_STEP_CONTROL), a bit-identical repeat,
    ``remat`` "layer" / "block" bit for bit, dropout through the float32
-   mask bit for bit the plain mask's step; three ``train_step``s (the main
+   mask bit for bit the plain mask's step; the same check of a model 48
+   wide in growth (192 outputs at every bottleneck, past the 144 the
+   first float32 ``bwd_dx`` took) at cut depth; three
+   ``train_step``s (the main
    path: every float32 form of #7 launched, no slot kernel), one dropout
    step (``drop_mask[f32]`` launched) and one W1/I8/G8 step; (e) step
    times and peak memory of both paths beside phase 9's bf16 step.
@@ -1378,14 +1386,18 @@ def main_path_steps(torch, label, step, params_of, counters):
 
 
 def report_times(torch, label, kernel_step, plain_step, gpu):
-    """{path: (median step ms, peak memory)} of the kernel and plain
-    paths' steps, printed."""
+    """{path: (step ms, peak memory)} of the kernel and plain paths' steps,
+    printed: the kernel path's median of three, the plain path's one step
+    after its warm-up (a reference beside the metric, and the slowest
+    steps of the run)."""
     times = {}
-    for path, fn in (("kernel", kernel_step), ("plain", plain_step)):
-        times[path] = ms, mem = time_train(torch, fn)
-        print(f"{label}: {path} path, batch {TRAIN_BATCH}: median step "
-              f"{ms:.3f} ms, {TRAIN_BATCH / ms * 1e3:.1f} img/s, peak "
-              f"memory {mem / 2 ** 30:.2f} GiB ({gpu})", flush=True)
+    for path, fn, steps in (("kernel", kernel_step, 3),
+                            ("plain", plain_step, 1)):
+        times[path] = ms, mem = time_train(torch, fn, steps)
+        print(f"{label}: {path} path, batch {TRAIN_BATCH}: "
+              f"{'median step' if steps > 1 else 'one step'} {ms:.3f} ms, "
+              f"{TRAIN_BATCH / ms * 1e3:.1f} img/s, peak memory "
+              f"{mem / 2 ** 30:.2f} GiB ({gpu})", flush=True)
     return times
 
 
@@ -2135,18 +2147,20 @@ def phase_int8_serving(torch, ops, qops, gpu, float_ms):
 TB_WIDTHS = (128, 128, 32, 32)   # the up-block adapter: [x, skip, fifo, out]
 
 
-def tb_operands(torch, gen, r, dev="cuda", dtype=None, widths=TB_WIDTHS):
+def tb_operands(torch, gen, r, dev="cuda", dtype=None, widths=TB_WIDTHS,
+                cout=128):
     """The adapter's operands at resolution r, batch 24: four feature
     tensors (the fifo entry a strided view of a wider buffer, as a FIFO
     slice is), the forward's [inv; shift], the backward's [mean;
     inv_sigma; scale] and bias, float32 weights (``wa``: apply's, in the
-    features' dtype), an output cotangent and red = [mean g_y; mean g_y
-    x_hat] from the plain reduce; features and cotangent in ``dtype``
-    (bf16 by default). Other ``widths``: those feature tensors, none a
-    view."""
+    features' dtype), an output cotangent of ``cout`` outputs and red =
+    [mean g_y; mean g_y x_hat] from the plain reduce and, at float32 where
+    the checkout has them, g's planes (``planes``: the pre-pass's, written
+    by the plain reduce); features and cotangent in ``dtype`` (bf16 by
+    default). Other ``widths``: those feature tensors, none a view."""
     from cunet_tpu_torch.kernels import train_bottleneck as tbk
 
-    m, k, cout = TRAIN_BATCH * r * r, sum(widths), 128
+    m, k = TRAIN_BATCH * r * r, sum(widths)
     dtype = dtype or torch.bfloat16
 
     def bf16(*shape, scale=1.0, shift=0.0):
@@ -2168,10 +2182,15 @@ def tb_operands(torch, gen, r, dev="cuda", dtype=None, widths=TB_WIDTHS):
     stat = torch.stack([mean, inv_sigma, scale])
     g = bf16(m, cout)
     dw, red = torch.empty(k, cout, device=dev), torch.empty(2, k, device=dev)
-    tbk.bwd_reduce_plain(feats, g, stat, bias, w, dw, red)
+    planes = None
+    if dtype == torch.float32 and hasattr(tbk, "split_planes_plain"):
+        planes = torch.empty(tbk.split_planes_shape(m, cout), device=dev,
+                             dtype=torch.bfloat16)
+    tbk.bwd_reduce_plain(feats, g, stat, bias, w, dw, red,
+                         **({} if planes is None else {"planes": planes}))
     return dict(m=m, k=k, cout=cout, feats=feats, vec=vec, stat=stat,
                 bias=bias, w=w, wa=w.to(dtype), g=g, red=red / m,
-                dtype=dtype)
+                dtype=dtype, planes=planes)
 
 
 def tb_cases(torch, o):
@@ -2187,7 +2206,10 @@ def tb_cases(torch, o):
     the same products as float32 FMA. No PyTorch call computes a #7 GEMM
     (BN recompute, gate, jacobian or sums around it): the product alone is
     ``torch.mm`` of ``apply``'s operands and, for the two backward
-    kernels, of g (as float32, converted beforehand) and W^T (TF32 off)."""
+    kernels, of g (as float32, converted beforehand) and W^T (TF32 off).
+    At float32 ``bwd_dx`` reads ``o["planes"]`` where there are any (the
+    main path's launch: the backward hands it the planes ``bwd_reduce``
+    wrote; its bytes bound counts g as float32, the function's input)."""
     m, k, cout = o["m"], o["k"], o["cout"]
     f, dev, dt = o["feats"], o["feats"][0].device, o["dtype"]
     f32 = dt == torch.float32
@@ -2198,11 +2220,13 @@ def tb_cases(torch, o):
     cat = torch.cat(f, 1)
     g32 = o["g"].float()
     out_bound = [("sum", k)] if f32 else [("bf16",)]
-    dx_bound = [("sum", cout) if f32 else ("bf16",)] * len(TB_WIDTHS)
+    widths = tuple(x.shape[1] for x in f)
+    dx_bound = [("sum", cout) if f32 else ("bf16",)] * len(widths)
+    handed = {} if o.get("planes") is None else {"planes": o["planes"]}
 
     def dxs():
         buf = torch.empty(m, k + 8, device=dev, dtype=dt)
-        offs = np.cumsum((0,) + TB_WIDTHS)
+        offs = np.cumsum((0,) + widths)
         return [buf[:, a:b] for a, b in zip(offs[:-1], offs[1:])]
 
     def gw():
@@ -2225,7 +2249,7 @@ def tb_cases(torch, o):
          work(feat_bytes + sz(m, cout, e=e) + small + sz(k, cout, e=4)
               + sz(2, k, e=4), passes * 4 * m * k * cout), None, gw),
         ("bwd_dx", lambda fn: list(fn(f, o["g"], o["stat"], o["bias"],
-                                      o["red"], o["w"], dxs())),
+                                      o["red"], o["w"], dxs(), **handed)),
          dx_bound,
          work(feat_bytes + sz(m, cout, e=e) + small + sz(2, k, e=4)
               + feat_bytes, passes * 2 * m * k * cout), None, gw),
@@ -2306,6 +2330,19 @@ def f32_fma_ms(o, products):
     return 2 * products * o["m"] * o["k"] * o["cout"] / PEAK_OPS["f32"] * 1e3
 
 
+def dx_alone_text(torch, tbk, o):
+    """At float32, where ``bwd_dx`` reads the handed planes: the time of a
+    call without them (the reduce's split of g launched first, as a
+    caller outside the backward makes it), else ''."""
+    if o.get("planes") is None:
+        return ""
+    f = o["feats"]
+    dxs = [torch.empty_like(x) for x in f]
+    ms = cuda_time_ms(lambda: tbk.bwd_dx(f, o["g"], o["stat"], o["bias"],
+                                         o["red"], o["w"], dxs))
+    return f", called alone (g split first) {ms * 1e3:.1f} us"
+
+
 def phase_bn0_kernels(torch, tbk, dtype=None):
     """Each kernel of #7 against its plain version at every resolution r =
     64 ... 4 (r=64 first: the main path's largest call; ``stats`` at r=64
@@ -2343,7 +2380,10 @@ def phase_bn0_kernels(torch, tbk, dtype=None):
                   f"{product_text(prod_ms)}, bound {bound(w)[0]:.4f} ms "
                   f"({bound(w)[1]})"
                   + (f", float32-FMA bound {f32_fma_ms(o, f32):.4f} ms"
-                     if f32 else ""), flush=True)
+                     if f32 else "")
+                  + (dx_alone_text(torch, tbk, o) if name == "bwd_dx" + tag
+                     else ""),
+                  flush=True)
             require(ok, f"train_bottleneck.{name} [{label}] disagrees with "
                     f"its plain version")
             record(results, f"train_bottleneck.{name}", err, ms, plain_ms,
@@ -2452,7 +2492,7 @@ def one_step(torch, label, step, counters):
     return counts
 
 
-def paired_step_times(torch, steps, rounds=6):
+def paired_step_times(torch, steps, rounds=4):
     """Host ms of single synchronised calls of each of ``steps`` (label ->
     step), one warm-up each, then ``rounds`` rounds in ABBA order so that
     a drift of the host's speed falls on both alike: {label: [ms, ...]}."""
@@ -3370,6 +3410,10 @@ F32_SOURCE = "cunet_tpu_torch/csrc/f32_kernels.cu"
 DW_F32_SOURCE = "cunet_tpu_torch/csrc/dw_f32_kernels.cu"
 DX_F32_SOURCE = "cunet_tpu_torch/csrc/dx_f32_kernels.cu"
 FWD_F32_SOURCE = "cunet_tpu_torch/csrc/fwd_f32_kernels.cu"
+# #7's float32 input cotangents: a kernel of their own, on the g planes
+# bwd_reduce's pre-pass writes
+TB_DX_F32_SOURCE = "cunet_tpu_torch/csrc/tb_dx_f32_kernels.cu"
+TB_DX_F32_KERNEL = "tb_bwd_dx_f32_kernel"
 # the rows that run the float32 forward 1x1 (fw3_kernel): the per-tile and
 # QuanInput forms of affine_dot, #7's apply
 FWD_F32_KERNEL = "fw3_kernel"
@@ -3851,9 +3895,11 @@ def tb_f32_exact_checks(torch, tbk, gen):
     """At r=64, float32, under a one-hot W (distinct rows): ``apply`` bit
     for bit its plain version (the prologue value), ``bwd_dx`` with red =
     0 (g_y one term of g), and under a cotangent with one 1 a column
-    ``bwd_reduce`` (each dW entry and BN sum one exact term); then one
-    bf16 pass of g (the plain versions on g rounded to bf16) against the
-    float32 g, which must break the dx limit. Returns {name: exact}."""
+    ``bwd_reduce`` (each dW entry and BN sum one exact term); ``bwd_dx`` on
+    the g planes ``bwd_reduce`` handed over bit for bit a call that splits
+    g itself; then one bf16 pass of g (the plain versions on g rounded to
+    bf16) against the float32 g, which must break the dx limit. Returns
+    {name: exact}."""
     o = tb_operands(torch, gen, 64, dtype=torch.float32)
     f, m, k, cout = o["feats"], o["m"], o["k"], o["cout"]
     rows = torch.randperm(k, generator=gen)[:cout]
@@ -3871,6 +3917,18 @@ def tb_f32_exact_checks(torch, tbk, gen):
         return d
 
     dxs = [dx(tbk.bwd_dx, o["g"]), dx(tbk.bwd_dx_plain, o["g"])]
+    # dx from the planes bwd_reduce hands over (the backward's path)
+    # against a call that splits g itself, on the random W
+    planes = torch.empty(tbk.split_planes_shape(m, cout), device="cuda",
+                         dtype=torch.bfloat16)
+    tbk.bwd_reduce(f, o["g"], o["stat"], o["bias"], o["w"],
+                   torch.empty(k, cout, device="cuda"),
+                   torch.empty(2, k, device="cuda"), planes=planes)
+    handed = [[torch.empty(m, c, device="cuda") for c in TB_WIDTHS]
+              for _ in range(2)]
+    tbk.bwd_dx(f, o["g"], o["stat"], o["bias"], o["red"], o["w"], handed[0],
+               planes=planes)
+    tbk.bwd_dx(f, o["g"], o["stat"], o["bias"], o["red"], o["w"], handed[1])
     hot = torch.zeros(m, cout, device="cuda")
     hot[torch.randint(0, m, (cout,), generator=gen), torch.arange(cout)] = 1
     reds = [fn(f, hot, o["stat"], o["bias"], w,
@@ -3895,6 +3953,12 @@ def tb_f32_exact_checks(torch, tbk, gen):
           f"their plain versions: {same}", flush=True)
     require(all(same.values()), f"a #7 float32 form is not exact under "
                                 f"one-hot operands: {same}")
+    handed_same = all(torch.equal(a, b) for a, b in zip(*handed))
+    print(f"bn0 f32: bwd_dx[f32] on the planes bwd_reduce handed over bit "
+          f"for bit a call that splits g itself (r=64, random W): "
+          f"{handed_same}", flush=True)
+    require(handed_same, "bwd_dx[f32] on bwd_reduce's planes differs from "
+                         "a call that splits g itself")
     print(f"bn0 f32: apply[f32] bit for bit affine_dot[f32] over the "
           f"concat (r=64, random W): {torch.equal(*concat)}", flush=True)
     require(torch.equal(*concat), "apply[f32] differs from affine_dot[f32] "
@@ -4001,6 +4065,54 @@ def wide_reduce_check(torch, tbk, gen, results=None):
           f"bound {f32_fma_ms(o, 2) * 1e3:.1f} us", flush=True)
 
 
+# bwd_dx[f32]'s wide cases: (feature widths, outputs): past the 144
+# outputs its first float32 kernel took (two plane halves at 160 to 256)
+# and order 14's intermedia adapter
+WIDE_DX_CASES = ((TB_WIDTHS, 160), (TB_WIDTHS, 192), (TB_WIDTHS, 256),
+                 (WIDE_TB_WIDTHS, 128))
+
+
+def wide_bwd_dx_check(torch, tbk, gen, strict=True):
+    """``bwd_dx[f32]`` at ``WIDE_DX_CASES`` (r=64, batch 24) against its
+    plain version within the float32 Cout-term limit, on the planes the
+    backward hands it and called alone (which splits g itself: bit for bit
+    the same), timed beside the plain version and its bound. ``strict``:
+    required (else a checkout that takes no such width prints its
+    failure). Returns {label: within its limit}."""
+    out = {}
+    for widths, cout in WIDE_DX_CASES:
+        label = f"Ctot={sum(widths)}->{cout} r=64"
+        try:
+            o = tb_operands(torch, gen, 64, dtype=torch.float32,
+                            widths=widths, cout=cout)
+            _, call, bounds, w, _, _ = [c for c in tb_cases(torch, o)
+                                        if c[0] == "bwd_dx"][0]
+            got, want = call(tbk.bwd_dx), call(tbk.bwd_dx_plain)
+            f = o["feats"]
+            alone = tbk.bwd_dx(f, o["g"], o["stat"], o["bias"], o["red"],
+                               o["w"], [torch.empty_like(x) for x in f])
+            torch.cuda.synchronize()
+            err, share, ok = output_errors(torch, got, want, bounds)
+            same = all(torch.equal(a, b) for a, b in zip(got, alone))
+            ms = cuda_time_ms(lambda: call(tbk.bwd_dx))
+            plain_ms = cuda_time_ms(lambda: call(tbk.bwd_dx_plain), iters=3)
+            bms, by = bound(w)
+            print(f"bn0 kernel train_bottleneck.bwd_dx[f32] [{label}]: "
+                  f"max_abs_err {err:.4g} ({share:.3g} of its float32 "
+                  f"limit: {ok}), called alone bit for bit the same: "
+                  f"{same}, {ms * 1e3:.1f} us vs plain {plain_ms * 1e3:.1f} "
+                  f"us, bound {bms * 1e3:.1f} us ({by})", flush=True)
+            out[label] = ok and same
+            del o, got, want, alone
+        except (RuntimeError, ValueError) as e:
+            print(f"bn0 kernel train_bottleneck.bwd_dx[f32] [{label}]: "
+                  f"failed: {e}", flush=True)
+            out[label] = False
+    require(all(out.values()) or not strict,
+            f"bwd_dx[f32] fails a wide case: {out}")
+    return out
+
+
 def drop_mask_f32_checks(torch, dops, results):
     """The mask kernel's float32 form at the bn_tile=0 shapes (batch 24,
     one tile of the whole batch, g=32): on ones the plain float32 masks
@@ -4054,8 +4166,8 @@ def phase_bn0_f32_kernels(torch, tbk, dops):
     ``stats`` faults), bit for bit under one-hot operands, one bf16 pass
     of g breaking the dx limit; ``bwd_reduce[f32]``'s dW within
     ``F32_DW_REL`` sqrt(M) of float64 (r = 64, 4 and Ctot = 1,920) and
-    the reduce at Ctot = 1,920 against its plain version; the mask
-    kernel's float32 form."""
+    the reduce at Ctot = 1,920 against its plain version; ``bwd_dx[f32]``
+    at ``WIDE_DX_CASES``; the mask kernel's float32 form."""
     results = phase_bn0_kernels(torch, tbk, torch.float32)
     gen = torch.Generator().manual_seed(15)
     exact = tb_f32_exact_checks(torch, tbk, gen)
@@ -4064,6 +4176,8 @@ def phase_bn0_f32_kernels(torch, tbk, dops):
     results["train_bottleneck.bwd_reduce[f32]"]["dw_f64_rel"] = \
         tb_f32_dw_f64_checks(torch, tbk, gen)
     wide_reduce_check(torch, tbk, gen)
+    results["train_bottleneck.bwd_dx[f32]"]["wide"] = wide_bwd_dx_check(
+        torch, tbk, gen)
     drop_mask_f32_checks(torch, dops, results)
     return results
 
@@ -4252,13 +4366,41 @@ def f32_step_check(torch, label, cfg, params, state, x, t, swapped,
     require(same, f"{label}: the kernel step is not deterministic")
 
 
+# the float32 bn_tile=0 model past bwd_dx's first float32 width:
+# growth_rate 48 (192 outputs at every bottleneck), cut to two slots
+WIDE_BN0_GROWTH, WIDE_BN0_LAYERS = 48, 2
+
+
+def wide_bn0_step_check(torch, tbk, cfg, x, t, perms):
+    """Phase 13 (d), wide: the float32 ``bn_tile=0`` step of a model with
+    ``growth_rate`` WIDE_BN0_GROWTH (every bottleneck's #7 call 192
+    outputs wide, two plane halves of g) at WIDE_BN0_LAYERS slots against
+    its swap step within max(2c, 1e-5) (``f32_step_check``), with #7's
+    float32 launches of the kernel step counted."""
+    from cunet_tpu_torch.models import init_cu_net
+
+    wide = dataclasses.replace(cfg, growth_rate=WIDE_BN0_GROWTH,
+                               layer_num=WIDE_BN0_LAYERS,
+                               loss_num=WIDE_BN0_LAYERS)
+    params, state = init_cu_net(wide, torch.Generator().manual_seed(0))
+    label = (f"bn0 f32 training, growth_rate {WIDE_BN0_GROWTH} "
+             f"({wide.neck_size * wide.growth_rate} outputs), "
+             f"{WIDE_BN0_LAYERS} slots")
+    tbk.reset_launch_counts()
+    f32_step_check(torch, label, wide, params, state, x, t,
+                   lambda: tb_plain_swapped(tbk), tbk, perms)
+    print(f"{label}: #7 float32 launches of the checks' kernel steps "
+          f"{tbk.f32_counts()}", flush=True)
+
+
 def phase_bn0_f32_training(torch, tbk, tops, bops, dops, gpu, bf16_times):
     """Phase 13 (b)-(e): the Function at float32; the conv repair;
     CU-Net-8 @256 at float32, bn_tile=0, on #7's float32 forms: the step
-    against the plain step, remat "layer" / "block" bit for bit, dropout
-    through the mask kernel's float32 form bit for bit the plain mask's
-    step, one W1/I8/G8 step, three main-path steps; step times and peak
-    memory beside phase 9's bf16 step. Returns ({row: launches of the
+    against the swap step (and, at growth 48, ``wide_bn0_step_check``),
+    remat "layer" / "block" bit for bit, dropout through the mask kernel's
+    float32 form bit for bit the plain mask's step, one W1/I8/G8 step,
+    three main-path steps; step times and peak memory beside phase 9's
+    bf16 step. Returns ({row: launches of the
     main path's drive}, launches per step)."""
     import types
 
@@ -4287,6 +4429,7 @@ def phase_bn0_f32_training(torch, tbk, tops, bops, dops, gpu, bf16_times):
                  for i in range(F32_STEP_PERMS)]
         f32_step_check(torch, "bn0 f32 training", cfg, params, state, x, t,
                        lambda: tb_plain_swapped(tbk), tbk, perms)
+        wide_bn0_step_check(torch, tbk, cfg, x, t, perms)
         l0, g0, peak0 = step_memory(torch, cfg, params, state, batch)
         for remat in ("layer", "block"):
             lr, gr, peak = step_memory(torch, dataclasses.replace(
@@ -4907,24 +5050,30 @@ TB_F32_PRODUCTS = {"apply": 1, "bwd_reduce": 2, "bwd_dx": 1}
 
 def row_times(torch, pattern, tops, bops, tbk):
     """``tools/kernel_times.py --rows PATTERN``: the kernel rows of phases
-    13 (a), 14 (a) and 15 (a) whose names match the regular expression
-    ``pattern`` (``re.search``), from the phases' own case lists: #7's
-    float32 forms at r = 64 ... 4 (``tb_cases``, rows
-    ``train_bottleneck.<name>[f32]``), the ten slot forms and the
-    QuanInput forms at float32 at r = 64 ... 4 and tiles 2 and 6
+    9 (a), 13 (a), 14 (a) and 15 (a) whose names match the regular
+    expression ``pattern`` (``re.search``), from the phases' own case
+    lists: #7's kernels at bf16 and their float32 forms at r = 64 ... 4
+    (``tb_cases``, rows ``train_bottleneck.<name>`` and
+    ``train_bottleneck.<name>[f32]``; ``bwd_dx[f32]`` on the planes the
+    backward hands it, its time called alone beside), the ten slot forms
+    and the QuanInput forms at float32 at r = 64 ... 4 and tiles 2 and 6
     (``slot_f32_cases``, ``quant_f32_cases``). Each against its plain
     version, timed (CUDA-graph replay) beside its library call or product
     alone, its bound and, for the products, their float32 FMA time; then
     the wide checks of the rows that match (``wide_reduce_check`` and
-    ``tb_f32_dw_f64_checks`` for ``bwd_reduce[f32]``, ``wide_dw_check``,
-    ``wide_dx_check``), and a digest of each matching row's r=64 outputs
-    (two checkouts whose digests agree give them bit for bit)."""
+    ``tb_f32_dw_f64_checks`` for ``bwd_reduce[f32]``,
+    ``wide_bwd_dx_check``, ``wide_dw_check``, ``wide_dx_check``; printed,
+    not required, so a checkout that fails one still gives its times), and
+    a digest of each matching #7 row's outputs at each r and of the other
+    rows' at r=64 (two checkouts whose digests agree give them bit for
+    bit)."""
     import re
 
     rx = re.compile(pattern)
     outs = {}
 
-    def run(row, label, kern, plain, call, bounds, w, lib, prod, fma_ms):
+    def run(row, label, kern, plain, call, bounds, w, lib, prod, fma_ms,
+            extra=lambda: ""):
         got, want = call(kern), call(plain)
         torch.cuda.synchronize()
         err, share, ok = output_errors(torch, got, want, bounds)
@@ -4939,25 +5088,30 @@ def row_times(torch, pattern, tops, bops, tbk):
             text += f", float32 FMA {fma_ms * 1e3:.1f} us"
         print(f"row time {row}{fwd_note(row, bops)} [{label}]: max_abs_err "
               f"{err:.4g} ({share:.3g} of its limit), {ms * 1e3:.1f} us, "
-              f"bound {bms * 1e3:.1f} us ({by}){text}", flush=True)
+              f"bound {bms * 1e3:.1f} us ({by}){text}{extra()}", flush=True)
         return got
 
-    gen = torch.Generator().manual_seed(13)
-    if any(rx.search(f"train_bottleneck.{k.__name__}[f32]")
-           for k in tbk.KERNELS):
+    # #7 at bf16 (phase 9's operands) and at float32 (phase 13's)
+    for tag, dt, seed in (("", torch.bfloat16, 9), ("[f32]", torch.float32,
+                                                    13)):
+        if not any(rx.search(f"train_bottleneck.{k.__name__}{tag}")
+                   for k in tbk.KERNELS):
+            continue
+        gen = torch.Generator().manual_seed(seed)
         for r in CONV_RES:
-            o = tb_operands(torch, gen, r, dtype=torch.float32)
+            o = tb_operands(torch, gen, r, dtype=dt)
             for name, call, bounds, w, lib, prod in tb_cases(torch, o):
-                row = f"train_bottleneck.{name}[f32]"
+                row = f"train_bottleneck.{name}{tag}"
                 if not rx.search(row):
                     continue
                 kern = getattr(tbk, name)
-                fma = TB_F32_PRODUCTS.get(name)
+                fma = TB_F32_PRODUCTS.get(name) if tag else None
                 got = run(row, f"r={r}", kern, tbk.PLAIN[kern], call, bounds,
                           w, lib, prod,
-                          None if fma is None else f32_fma_ms(o, fma))
-                if r == 64:
-                    outs.setdefault(row, []).extend(got)
+                          None if fma is None else f32_fma_ms(o, fma),
+                          lambda: dx_alone_text(torch, tbk, o)
+                          if name == "bwd_dx" else "")
+                outs[f"{row} r={r}"] = got
             del o
     gen = torch.Generator().manual_seed(18)
     plain = {**bops.PLAIN, **tops.PLAIN}
@@ -4981,6 +5135,9 @@ def row_times(torch, pattern, tops, bops, tbk):
                                    .manual_seed(15)),
                  tb_f32_dw_f64_checks(torch, tbk, torch.Generator()
                                       .manual_seed(15), strict=False))),
+            ("train_bottleneck.bwd_dx[f32]", lambda: wide_bwd_dx_check(
+                torch, tbk, torch.Generator().manual_seed(16),
+                strict=False)),
             ("affine_dw[f32]", lambda: wide_dw_check(torch, tops, gen)),
             ("affine_dx[f32]", lambda: wide_dx_check(torch, tops, gen)),
             ("affine_dot[f32,tile]|train_bottleneck.apply[f32]",
@@ -4988,9 +5145,10 @@ def row_times(torch, pattern, tops, bops, tbk):
     for rows, check in wide:
         if any(rx.search(row) for row in rows.split("|")):
             check()
-    print(f"row times: output digests at r=64 of the rows matching "
-          f"{pattern!r}: " + str({row: bytes_digest(torch, ts)
-                                 for row, ts in outs.items()}), flush=True)
+    print(f"row times: output digests of the rows matching {pattern!r} (#7 "
+          f"at each r, the others at r=64): " + str(
+              {row: bytes_digest(torch, ts) for row, ts in outs.items()}),
+          flush=True)
 
 
 def slot_f32_counts(tops, bops) -> dict:
@@ -6330,12 +6488,16 @@ def main() -> int:
                         **f32_extra))
     for name, r in tb_f32_kernels.items():
         src = TRAIN_SOURCE if name == "drop_mask[f32]" else \
-            FWD_F32_SOURCE if name in FWD_F32_ROWS else TB_SOURCE
+            FWD_F32_SOURCE if name in FWD_F32_ROWS else \
+            TB_DX_F32_SOURCE if name == "train_bottleneck.bwd_dx[f32]" \
+            else TB_SOURCE
         rows.append(row(name, src, r, tb_f32_launches[name],
                         launches_per_step=tb_f32_per_step[name],
                         **fwd_kernel(name),
-                        **{k: r[k] for k in ("one_hot_exact", "dw_f64_rel")
-                           if k in r}))
+                        **({"kernel": TB_DX_F32_KERNEL}
+                           if src == TB_DX_F32_SOURCE else {}),
+                        **{k: r[k] for k in ("one_hot_exact", "dw_f64_rel",
+                                             "wide") if k in r}))
     for name, r in slot_f32_kernels.items():
         src = TRAIN_SOURCE if SLOT_F32[name][0] in (
             "bn_stats", "bn_bwd", "maxpool2_bwd", "upsample2_bwd") \

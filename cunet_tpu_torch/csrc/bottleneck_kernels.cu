@@ -9,6 +9,8 @@
 //   tb_bwd_reduce <- _bwd_reduce_kernel (:92, called at :268)
 //                    (float32: tb_split_g + tb_bwd_reduce_f32)
 //   tb_bwd_dx     <- _bwd_dx_kernel     (:134, called at :296)
+//                    (float32: tb_bwd_dx_f32 in tb_dx_f32_kernels.cu,
+//                    on the planes tb_split_g wrote for the reduce)
 //
 // The features arrive as separate tensors (an up-block adapter reads
 // [x, skip, fifo, out]): every kernel reads them through a feature table in
@@ -42,15 +44,13 @@
 //
 // Each kernel takes bf16 features, or float32 ones (a model trained at
 // compute_dtype="float32", as the JAX package runs #7 at the features'
-// dtype). stats and bwd_dx are templates on the element type: their
-// float32 instances read 16-byte vectors of 4 columns and stage float32 x
-// and g rows, bwd_dx splitting g into three bf16 planes in shared memory
-// once a step (gw_product3: six plane products; 207 KB at N = 128, one
-// block an SM where the bf16 form runs two). The reduce's float32 form is
-// a design of its own (tb_bwd_reduce_f32_kernel): g split once into its
-// planes by a pre-pass, 64-row steps, one block an SM whose warps split
-// the two products between them. The bf16 instances are the code they
-// were before the float32 forms.
+// dtype). stats is a template on the element type: its float32 instance
+// reads 16-byte vectors of 4 columns. The reduce's float32 form is a
+// design of its own (tb_bwd_reduce_f32_kernel): g split once into its
+// planes by a pre-pass (tb_split_g_kernel), 64-row steps, one block an SM
+// whose warps split the two products between them. bwd_dx's float32 form
+// (tb_dx_f32_kernels.cu) reads the same planes. The bf16 kernels are the
+// code they were before the float32 forms.
 //
 // Each entry point launches on the stream it is given and returns
 // cudaGetLastError().
@@ -102,17 +102,6 @@ __device__ __forceinline__ void load_vec(const T* p,
 #pragma unroll
     for (int i = 0; i < 8; ++i) v[i] = lo(q, i);
   }
-}
-
-// The BN recompute of the backward, one rounding per operation (the plain
-// version's elementwise ops): x_hat = (x - mean) * inv_sigma,
-// y = x_hat * scale + bias.
-__device__ __forceinline__ float xhat_of(float x, float mu, float is) {
-  return __fmul_rn(__fsub_rn(x, mu), is);
-}
-
-__device__ __forceinline__ float ybn_of(float xh, float sc, float b) {
-  return __fadd_rn(__fmul_rn(xh, sc), b);
 }
 
 // ---------------------------------------------------------------------------
@@ -251,7 +240,12 @@ __device__ __forceinline__ void split_w_planes(unsigned char* smem,
 // .. of the staged g at ``gb``, row stride np + 8) and two n8 column tiles
 // (W plane rows col0 + 8j ..): A = g and B = the planes by ldmatrix,
 // kk over np / 16 outer and the three planes inner. bwd_reduce and bwd_dx
-// both sum in this order, so their g_y are the same bits.
+// both sum in this order, so their g_y are the same bits. (A float32 g
+// is split into three planes too, and each k16 step adds the six plane
+// products g_i W_j with i + j <= 4 (1-based) in f32_kernels.cu's order,
+// small terms first: g1 W3, g2 W2, g1 W2, g3 W1, g2 W1, g1 W1 (the dropped
+// three are below float32 rounding); the float32 reduce and dx sum in
+// that order on wgmma.)
 template <int MI>
 __device__ __forceinline__ void gw_product(float (&acc)[MI][2][4],
                                            uint32_t gb, uint32_t wb, int np,
@@ -276,66 +270,6 @@ __device__ __forceinline__ void gw_product(float (&acc)[MI][2][4],
         mma16816(acc[i][1], a[i], b[2], b[3]);
       }
     }
-  }
-}
-
-// gw_product for a float32 g: A = g's three bf16 planes (plane k at gb + k
-// * gpl, rows as the staged g's), six plane products a k16 step, the
-// pairs g_i W_j with i + j <= 4 (1-based) in f32_kernels.cu's order, small
-// terms first: g1 W3, g2 W2, g1 W2, g3 W1, g2 W1, g1 W1 (the dropped three
-// are below float32 rounding). bwd_reduce and bwd_dx both sum in this
-// order at float32.
-template <int MI>
-__device__ __forceinline__ void gw_product3(float (&acc)[MI][2][4],
-                                            uint32_t gb, int gpl, uint32_t wb,
-                                            int np, int wpl, int row0,
-                                            int col0, int lane) {
-  const int gs = np + 8, mat = lane >> 3;
-  for (int kk = 0; kk < np / 16; ++kk) {
-    uint32_t a[3][MI][4];
-#pragma unroll
-    for (int pg = 0; pg < 3; ++pg)
-#pragma unroll
-      for (int i = 0; i < MI; ++i)
-        ldsm_x4(a[pg][i], gb + pg * gpl +
-                              ((row0 + 16 * i + (lane & 15)) * gs) * 2 +
-                              kk * 32 + (lane >> 4) * 16);
-#pragma unroll
-    for (int pw = 2; pw >= 0; --pw) {
-      uint32_t b[4];
-      ldsm_x4(b, wb + pw * wpl +
-                     ((col0 + (mat >> 1) * 8 + (lane & 7)) * gs) * 2 +
-                     kk * 32 + (mat & 1) * 16);
-#pragma unroll
-      for (int pg = 2 - pw; pg >= 0; --pg)
-#pragma unroll
-        for (int i = 0; i < MI; ++i) {
-          mma16816(acc[i][0], a[pg][i], b[0], b[1]);
-          mma16816(acc[i][1], a[pg][i], b[2], b[3]);
-        }
-    }
-  }
-}
-
-// ``rows`` staged float32 g rows (row stride np + 4 floats, np a multiple
-// of 16) split into three bf16 planes at ``dst``: plane k's row r at byte
-// (k * rows + r) * (np + 8) * 2, the layout gw_product3 reads (bwd_dx's
-// float32 form).
-__device__ __forceinline__ void split_g_planes(unsigned char* dst,
-                                               const float* src, int rows,
-                                               int np, int tid, int nthr) {
-  const int gv = np / 8, gpl = rows * (np + 8) * 2;
-  for (int i = tid; i < rows * gv; i += nthr) {
-    const int r = i / gv, j = i - r * gv;
-    float v[8];
-    load8(src + r * (np + 4) + j * 8, v);
-    Pack8 a, b, c;
-#pragma unroll
-    for (int t = 0; t < 8; ++t) split3(v[t], a.u[t], b.u[t], c.u[t]);
-    const int e = (r * (np + 8) + j * 8) * 2;
-    *reinterpret_cast<uint4*>(dst + e) = a.v;
-    *reinterpret_cast<uint4*>(dst + gpl + e) = b.v;
-    *reinterpret_cast<uint4*>(dst + 2 * gpl + e) = c.v;
   }
 }
 
@@ -605,8 +539,9 @@ __global__ void __launch_bounds__(kRdThreads, 2)
 // two kernels.
 // - tb_split_g_kernel splits g once into its three bf16 planes (common.cuh
 //   split3) in device memory, each element once, where the column blocks
-//   of the reduce would each split it again (the planes tb_bwd_dx's
-//   float32 form splits in its blocks). A plane is stored as the reduce
+//   of the reduce would each split it again; the backward hands the same
+//   planes to bwd_dx's float32 form (tb_dx_f32_kernels.cu), so no block
+//   splits g. A plane is stored as the reduce
 //   stages it: per 64-row tile t, 16 x 8 core matrices of 8 outputs n x 8
 //   rows m (16 bytes a row: one output's 8 consecutive rows), core matrix
 //   (n / 8, m / 8 within the tile) at ((k * T + t) * 128 + (n / 8) * 8 +
@@ -624,7 +559,7 @@ __global__ void __launch_bounds__(kRdThreads, 2)
 //   * warpgroup 0, g W^T (m64n64k16 over the step's 64 x 64 tile): A =
 //     g's planes in registers by ldmatrix.trans from the core matrices,
 //     B = W's planes by a shared-memory descriptor, the six plane
-//     products per element in gw_product3's order (k16 steps over N
+//     products per element in the float32 order above (k16 steps over N
 //     ascending, W planes 3, 2, 1, each with the g planes that keep i + j
 //     <= 4, one accumulator over N from zero). wgmma and mma.sync give
 //     the same bits for this chain (2^25 outputs compared on an H100,
@@ -762,51 +697,6 @@ __device__ __forceinline__ void wgmma_m64n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "n"(ACC));
 }
 
-// d (64 x 64) += a (registers, 64 x 16) * B (smem descriptor, 16 x 64),
-// bf16 in, float32 out.
-__device__ __forceinline__ void wgmma_m64n64(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc));
-}
-
-// W's rows c0 .. c0 + kRdCols (float32 (Ctot, N)) split once into three
-// bf16 planes of core matrices (8 columns x 8 outputs, 128 bytes): plane
-// k's core matrix (cl / 8, n / 8) at k * wpl + ((cl / 8) * (np / 8) + n /
-// 8) * 128, row cl % 8; zero past Ctot and N.
-__device__ __forceinline__ void split_w_cores(unsigned char* smem,
-                                              const float* __restrict__ w,
-                                              int Ctot, int N, int c0, int np,
-                                              int tid, int nthr) {
-  const int wpl = kRdCols * np * 2, ng = np / 8;
-  for (int i = tid; i < kRdCols * np / 4; i += nthr) {
-    const int cl = i / (np / 4), n = (i - cl * (np / 4)) * 4;
-    const int c = c0 + cl;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (c < Ctot && n < N)
-      v = *reinterpret_cast<const float4*>(w + (long long)c * N + n);
-    store_planes4(smem + ((cl / 8) * ng + n / 8) * 128 + (cl % 8) * 16 +
-                      (n % 8) * 2,
-                  wpl, v, false);
-  }
-}
-
 // NT8: k16 steps of g W^T over a g half (np / 16 where np <= kRfN). WIDE:
 // np > kRfN, two halves (NT8 = 8), grid z the dW half.
 template <int NT8, bool WIDE>
@@ -864,7 +754,8 @@ __global__ void __launch_bounds__(kRdThreads, 1)
     cp_async_commit();
   };
   issue(0);
-  if (z == 0) split_w_cores(smem, w, Ctot, N, c0, np, tid, kRdThreads);
+  if (z == 0) split_w_cores<kRdCols>(smem, w, Ctot, N, c0, np, tid,
+                                      kRdThreads);
 
   // the columns' BN constants [mean, inv_sigma, scale, bias] as one
   // 16-byte vector a column
@@ -904,7 +795,7 @@ __global__ void __launch_bounds__(kRdThreads, 1)
     if (gw_warp) {
       if (z != 0) continue;
       // g W^T over the step's 64 x 64 tile by wgmma m64n64k16, per element
-      // gw_product3's order: k16 steps over N ascending (this half's
+      // the float32 order: k16 steps over N ascending (this half's
       // after the previous one's), W planes 3, 2, 1, each with the g
       // planes that keep i + j <= 4, one accumulator over N from zero. A
       // (rows m, depth n) from the core matrices (n group, m group) by
@@ -1086,7 +977,7 @@ __global__ void __launch_bounds__(kRdThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// tb_bwd_dx: the input cotangents, for each group's dx (bf16 or float32)
+// tb_bwd_dx: the input cotangents, for each group's bf16 dx
 //   dx = (scale * inv_sigma) * ((g_y - red0) - x_hat * red1),
 //   g_y = [y > 0] (g W^T)[m, c],
 // red = [mean g_y; mean g_y x_hat] (tb_bwd_reduce's sums over M), x_hat and
@@ -1104,12 +995,11 @@ __global__ void __launch_bounds__(kRdThreads, 1)
 //   loading while this one computes;
 // - g W^T on the tensor cores (gw_product: warp (wr, wc) owns rows wr*32 ..
 //   +32 and columns wc*16 .. +16), float32-exact through the split, in
-//   tb_bwd_reduce's order (a float32 g: split into its planes first,
-//   gw_product3);
+//   tb_bwd_reduce's order;
 // - the epilogue runs on the accumulators: x from the staged tile, the
-//   recompute, the gate and the jacobian, each result rounded to bf16 (or
-//   kept float32) in place of its x; the tile then leaves as 16-byte rows
-//   into each chunk's dx tensor.
+//   recompute, the gate and the jacobian, each result rounded to bf16 in
+//   place of its x; the tile then leaves as 16-byte rows into each
+//   chunk's dx tensor.
 // Two other designs measured slower at r=64 (PERF.md section 6): each
 // warp's B fragments held in registers (183 of them; one block an SM, four
 // stages), and x read and dx written by each thread straight from and to
@@ -1125,20 +1015,17 @@ struct DxPlan {
   int tbl_off;      // shared-memory byte offsets: the x then dx chunks,
   int stage_off;    //   the first x / g stage,
   int stage_bytes;  //   bytes per stage (two stages),
-  int g_off;        //   the g rows within a stage,
-  int gp_off;       //   g's three planes (float32 g; 0 at bf16)
+  int g_off;        //   the g rows within a stage
 };
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1)
+__global__ void __launch_bounds__(kThreads, 2)
     tb_bwd_dx_kernel(const long long* __restrict__ tbl, int G, int M,
-                     int Ctot, const T* __restrict__ g, long long ldg,
+                     int Ctot, const bf16* __restrict__ g, long long ldg,
                      int N, const float* __restrict__ stat,
                      const float* __restrict__ bias,
                      const float* __restrict__ red,
                      const float* __restrict__ w, DxPlan p) {
-  constexpr bool F32 = sizeof(T) == 4;
-  constexpr int XS = kDxCols + 16 / sizeof(T);   // x tile row stride
+  constexpr int XS = kDxCols + 8;      // x tile row stride
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t s0 = smem_u32(smem);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -1148,25 +1035,22 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1)
   if (first >= steps) return;
   const int Q = (steps - 1 - first) / stride + 1;
   const int np = p.np, gs = np + 8, wpl = kDxCols * gs * 2;
-  const int gr_s = F32 ? np + 4 : gs;   // staged g row stride, elements
-  const int gpl = kDxRows * gs * 2;     // bytes of one g plane (float32 g)
   Chunk* ch = reinterpret_cast<Chunk*>(smem + p.tbl_off);   // x, then dx
 
   if (tid < 2 * kDxChunks)
-    ch[tid] = table_chunk<T>(tbl, G, Ctot, c0 + (tid % kDxChunks) * 8,
-                             tid < kDxChunks ? 0 : 4);
+    ch[tid] = table_chunk(tbl, G, Ctot, c0 + (tid % kDxChunks) * 8,
+                          tid < kDxChunks ? 0 : 4);
   __syncthreads();
   const auto issue = [&](int q) {
     const int m0 = (first + q * stride) * kDxRows;
     const uint32_t base = s0 + p.stage_off + (q & 1) * p.stage_bytes;
-    load_chunks<T>(base, ch, M, m0, kDxRows, kDxCols, tid, kThreads);
-    constexpr int V = 16 / sizeof(T);   // g values of a 16-byte copy
-    const int gv = np / V;
+    load_chunks(base, ch, M, m0, kDxRows, kDxCols, tid, kThreads);
+    const int gv = np / 8;
     for (int i = tid; i < kDxRows * gv; i += kThreads) {
       const int r = i / gv, j = i - r * gv;
-      const bool ok = m0 + r < M && j * V < N;
-      cp_async16(base + p.g_off + (r * gr_s + j * V) * sizeof(T),
-                 ok ? g + (long long)(m0 + r) * ldg + j * V : g,
+      const bool ok = m0 + r < M && j * 8 < N;
+      cp_async16(base + p.g_off + (r * gs + j * 8) * 2,
+                 ok ? g + (long long)(m0 + r) * ldg + j * 8 : g,
                  ok ? 16 : 0);
     }
     cp_async_commit();
@@ -1216,20 +1100,11 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1)
       for (int j = 0; j < 2; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-    if constexpr (F32) {
-      split_g_planes(smem + p.gp_off,
-                     reinterpret_cast<const float*>(smem + sb + p.g_off),
-                     kDxRows, np, tid, kThreads);
-      __syncthreads();
-      gw_product3<2>(acc, s0 + p.gp_off, gpl, s0, np, wpl, wr * 32,
-                     wc * 16, lane);
-    } else {
-      gw_product<2>(acc, s0 + sb + p.g_off, s0, np, wpl, wr * 32, wc * 16,
-                    lane);
-    }
+    gw_product<2>(acc, s0 + sb + p.g_off, s0, np, wpl, wr * 32, wc * 16,
+                  lane);
 
     // the epilogue, each dx in place of its x
-    T* xt = reinterpret_cast<T*>(smem + sb);
+    bf16* xt = reinterpret_cast<bf16*>(smem + sb);
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -1237,37 +1112,27 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 2 : 1)
         const int r = wr * 32 + 16 * i + (lane >> 2) + 8 * h;
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
-          T* px = xt + r * XS + wc * 16 + 8 * j + 2 * (lane & 3);
-          if constexpr (F32) {
-            float2* pf = reinterpret_cast<float2*>(px);
-            const float2 xv = *pf;
-            *pf = make_float2(dx_of(xv.x, acc[i][j][2 * h], j, 0),
-                              dx_of(xv.y, acc[i][j][2 * h + 1], j, 1));
-          } else {
-            uint32_t* pu = reinterpret_cast<uint32_t*>(px);
-            const uint32_t xv = *pu;
-            const float x2[2] = {__uint_as_float(xv << 16),
-                                 __uint_as_float(xv & 0xffff0000u)};
-            unsigned short o[2];
+          uint32_t* pu = reinterpret_cast<uint32_t*>(
+              xt + r * XS + wc * 16 + 8 * j + 2 * (lane & 3));
+          const uint32_t xv = *pu;
+          const float x2[2] = {__uint_as_float(xv << 16),
+                               __uint_as_float(xv & 0xffff0000u)};
+          unsigned short o[2];
 #pragma unroll
-            for (int e = 0; e < 2; ++e)
-              o[e] = hi(dx_of(x2[e], acc[i][j][2 * h + e], j, e));
-            *pu = o[0] | ((uint32_t)o[1] << 16);
-          }
+          for (int e = 0; e < 2; ++e)
+            o[e] = hi(dx_of(x2[e], acc[i][j][2 * h + e], j, e));
+          *pu = o[0] | ((uint32_t)o[1] << 16);
         }
       }
     __syncthreads();
-    // the tile out as 16-byte vectors (a float32 chunk: two), each into
-    // its chunk's dx tensor
-    constexpr int P = sizeof(T) / 2;    // 16-byte vectors of a chunk row
-    for (int i = tid; i < kDxRows * kDxChunks * P; i += kThreads) {
-      const int r = i / (kDxChunks * P), v = i - r * (kDxChunks * P);
-      const Chunk d = ch[kDxChunks + v / P];
+    // the tile out as 16-byte vectors, each into its chunk's dx tensor
+    for (int i = tid; i < kDxRows * kDxChunks; i += kThreads) {
+      const int r = i / kDxChunks, v = i - r * kDxChunks;
+      const Chunk d = ch[kDxChunks + v];
       if (m0 + r < M && d.ptr)
-        *reinterpret_cast<uint4*>(reinterpret_cast<T*>(d.ptr) +
-                                  (long long)(m0 + r) * d.ld +
-                                  (v % P) * 8 / P) =
-            *reinterpret_cast<const uint4*>(xt + r * XS + v * 8 / P);
+        *reinterpret_cast<uint4*>(reinterpret_cast<bf16*>(d.ptr) +
+                                  (long long)(m0 + r) * d.ld) =
+            *reinterpret_cast<const uint4*>(xt + r * XS + v * 8);
     }
   }
 }
@@ -1342,22 +1207,18 @@ int bwd_reduce(const void* tbl, int G, long long M, int Ctot, const void* g,
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename T>
-int bwd_dx(const void* tbl, int G, long long M, int Ctot, const void* g,
-           long long ldg, int N, const void* stat, const void* bias,
-           const void* red, const void* w, const DxPlan& p, int smem,
-           void* stream) {
-  const int items = (int)((M + kDxRows - 1) / kDxRows) * p.ngrp;
-  int grid = 0;
-  const int e = persistent_grid(tb_bwd_dx_kernel<T>, items, kThreads, smem,
-                                p.ngrp, &grid);
-  if (e) return e;
-  tb_bwd_dx_kernel<T><<<grid, kThreads, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const long long*>(tbl), G, (int)M, Ctot,
-      static_cast<const T*>(g), ldg, N, static_cast<const float*>(stat),
-      static_cast<const float*>(bias), static_cast<const float*>(red),
-      static_cast<const float*>(w), p);
+// tb_split_g_kernel over g (M, N) float32 at row stride ldg into its
+// planes at gp (the layout above, nh halves past 128 outputs).
+int split_g(const float* g, long long ldg, long long M, int N, bf16* gp,
+            cudaStream_t st) {
+  const long long T = (M + kRfRows - 1) / kRfRows;
+  const int nh = N > kRfN ? 2 : 1;
+  const long long want = (T * nh * kRfN * 8 + kThreads - 1) / kThreads;
+  const unsigned blocks = (unsigned)(want < 132 * 16 ? want : 132 * 16);
+  if (nh == 2)
+    tb_split_g_kernel<2><<<blocks, kThreads, 0, st>>>(g, ldg, M, N, T, gp);
+  else
+    tb_split_g_kernel<1><<<blocks, kThreads, 0, st>>>(g, ldg, M, N, T, gp);
   return (int)cudaGetLastError();
 }
 
@@ -1381,9 +1242,10 @@ int cunet_tb_fill_table(const void* host_tbl, int G, void* tbl,
   return (int)cudaGetLastError();
 }
 
-// The statistics and dx kernels over bf16 features and cotangent (f32 =
-// 0) or float32 ones (f32 = 1), the reduce over bf16 ones (its float32
-// form is cunet_tb_bwd_reduce_f32); every other operand is float32.
+// The statistics kernel over bf16 features (f32 = 0) or float32 ones
+// (f32 = 1), the reduce and dx kernels over bf16 features and cotangent
+// (their float32 forms: cunet_tb_bwd_reduce_f32, cunet_tb_bwd_dx_f32);
+// every other operand is float32.
 int cunet_tb_stats(const void* tbl, int G, long long M, int Ctot,
                    long long chunk, void* part, int f32, void* stream) {
   return f32 ? stats<float>(tbl, G, M, Ctot, chunk, part, stream)
@@ -1422,17 +1284,8 @@ int cunet_tb_bwd_reduce_f32(const void* tbl, int G, long long M, int Ctot,
   auto* planes = static_cast<bf16*>(gp);
   const long long T = (M + kRfRows - 1) / kRfRows;
   const int nh = np > kRfN ? 2 : 1;
-  const long long want = (T * nh * kRfN * 8 + kThreads - 1) / kThreads;
-  const unsigned blocks = (unsigned)(want < 132 * 16 ? want : 132 * 16);
-  const auto* gf = static_cast<const float*>(g);
-  if (nh == 2)
-    tb_split_g_kernel<2><<<blocks, kThreads, 0, st>>>(gf, ldg, M, N, T,
-                                                      planes);
-  else
-    tb_split_g_kernel<1><<<blocks, kThreads, 0, st>>>(gf, ldg, M, N, T,
-                                                      planes);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  const int e = split_g(static_cast<const float*>(g), ldg, M, N, planes, st);
+  if (e) return e;
   const auto* tp = static_cast<const long long*>(tbl);
   const auto* sp = static_cast<const float*>(stat);
   const auto* bp = static_cast<const float*>(bias);
@@ -1456,17 +1309,34 @@ int cunet_tb_bwd_reduce_f32(const void* tbl, int G, long long M, int Ctot,
   return (int)cudaErrorInvalidValue;
 }
 
+// g (M, N) float32 split into its three planes at gp, the reduce's
+// pre-pass alone (bwd_dx's float32 form called without the reduce's
+// planes).
+int cunet_tb_split_g(const void* g, long long ldg, long long M, int N,
+                     void* gp, void* stream) {
+  if (N % 8 || N < 8 || N > kRfMaxN) return (int)cudaErrorInvalidValue;
+  return split_g(static_cast<const float*>(g), ldg, M, N,
+                 static_cast<bf16*>(gp), static_cast<cudaStream_t>(stream));
+}
+
 int cunet_tb_bwd_dx(const void* tbl, int G, long long M, int Ctot,
                     const void* g, long long ldg, int N, const void* stat,
                     const void* bias, const void* red, const void* w,
                     int ngrp, int np, int tbl_off, int stage_off,
-                    int stage_bytes, int g_off, int gp_off, int smem, int f32,
-                    void* stream) {
-  const DxPlan p{ngrp, np, tbl_off, stage_off, stage_bytes, g_off, gp_off};
-  return f32 ? bwd_dx<float>(tbl, G, M, Ctot, g, ldg, N, stat, bias, red, w,
-                             p, smem, stream)
-             : bwd_dx<bf16>(tbl, G, M, Ctot, g, ldg, N, stat, bias, red, w,
-                            p, smem, stream);
+                    int stage_bytes, int g_off, int smem, void* stream) {
+  const DxPlan p{ngrp, np, tbl_off, stage_off, stage_bytes, g_off};
+  const int items = (int)((M + kDxRows - 1) / kDxRows) * p.ngrp;
+  int grid = 0;
+  const int e = persistent_grid(tb_bwd_dx_kernel, items, kThreads, smem,
+                                p.ngrp, &grid);
+  if (e) return e;
+  tb_bwd_dx_kernel<<<grid, kThreads, smem,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const long long*>(tbl), G, (int)M, Ctot,
+      static_cast<const bf16*>(g), ldg, N, static_cast<const float*>(stat),
+      static_cast<const float*>(bias), static_cast<const float*>(red),
+      static_cast<const float*>(w), p);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -60,24 +60,6 @@
 
 namespace {
 
-// d (64 x 32, this warp's 16 rows) += a (registers, 64 x 16) * B (smem
-// descriptor, 16 x 32), bf16 in, float32 out.
-__device__ __forceinline__ void wgmma_m64n32(float (&d)[16],
-                                             const uint32_t (&a)[4],
-                                             uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc));
-}
-
 constexpr int kDx3Rows = 64;   // rows of a tile
 constexpr int kDx3Cols = 64;   // output columns of a block
 constexpr int kDx3XS = kDx3Cols + 4;   // staged x row stride, floats

@@ -1,14 +1,17 @@
 // Pieces shared by the tensor-core kernels: the three 3x3-conv kernels,
 // conv3x3 (buf_kernels.cu), conv3x3_dx and conv3x3_dw (train_kernels.cu),
-// #7's bwd_reduce and bwd_dx (bottleneck_kernels.cu), and the 1x1 kernels
-// affine_dot (buf_kernels.cu; #7's apply is its table form), affine_dx and
-// affine_dw and the BN backward bn_bwd (train_kernels.cu): asynchronous
-// copies into shared memory (cp.async), ldmatrix loads of 8x8 bf16 tiles,
-// the m16n8k16 bf16 tensor-core product (mma.sync), the exact three-plane
-// bf16 split of float32 pairs that the float32 products (dw_f32_kernels.cu,
-// dx_f32_kernels.cu, #7's float32 reduce) feed it, the halo tile the conv
-// kernels stage, #7's feature table and its chunks, and the launch of a
-// persistent kernel.
+// #7's bwd_reduce and bwd_dx (bottleneck_kernels.cu; bwd_dx's float32
+// form tb_dx_f32_kernels.cu), and the 1x1 kernels affine_dot
+// (buf_kernels.cu; #7's apply is its table form), affine_dx and affine_dw
+// and the BN backward bn_bwd (train_kernels.cu): asynchronous copies into
+// shared memory (cp.async), ldmatrix loads of 8x8 bf16 tiles, the m16n8k16
+// bf16 tensor-core product (mma.sync) and the warpgroup products (wgmma,
+// m64n32 and m64n64 with A in registers), the exact three-plane bf16 split
+// of float32 pairs that the float32 products (dw_f32_kernels.cu,
+// dx_f32_kernels.cu, #7's float32 reduce and dx) feed them, a float32
+// weight split into planes of core matrices, #7's BN recompute, the halo
+// tile the conv kernels stage, #7's feature table and its chunks, and the
+// launch of a persistent kernel.
 //
 // A halo tile holds rows [g0, g0 + rows) of an (M, C) bf16 channel-plane
 // matrix, channels [c0, c0 + kc), at a row stride of kc + kHaloPad
@@ -147,6 +150,13 @@ __device__ __forceinline__ void reg_fence(float& r) {
   asm volatile("" : "+f"(r)::"memory");
 }
 
+// Shared-memory writes of the threads (generic proxy: st.shared, a
+// wgmma operand split in place) made visible to the wgmma that reads them
+// through a descriptor (the async proxy); a barrier follows.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // The shared-memory descriptor of a K-major bf16 wgmma operand without
 // swizzle: core matrices of 8 rows x 16 bytes (contiguous), ``lbo`` bytes
 // apart along K and ``sbo`` bytes apart along M / N.
@@ -155,6 +165,73 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, int lbo,
   return (uint64_t)((addr >> 4) & 0x3FFF) |
          ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
          ((uint64_t)((sbo >> 4) & 0x3FFF) << 32);
+}
+
+// d (64 x 32, this warp's 16 rows) += a (registers, 64 x 16) * B (smem
+// descriptor, 16 x 32), bf16 in, float32 out.
+__device__ __forceinline__ void wgmma_m64n32(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc));
+}
+
+// d (64 x 64) += a (registers, 64 x 16) * B (smem descriptor, 16 x 64),
+// bf16 in, float32 out.
+__device__ __forceinline__ void wgmma_m64n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc));
+}
+
+// The same with d's scale a run-time flag: acc = 0 takes d = a * B (the
+// first product of a sum, with no zeroing of d: an instruction that writes
+// an accumulator register between two wgmmas makes ptxas serialize them).
+__device__ __forceinline__ void wgmma_m64n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
 }
 
 // Two float32 values rounded to bf16 as one packed pair (cvt.rn.bf16x2),
@@ -199,6 +276,39 @@ __device__ __forceinline__ void store_planes4(unsigned char* p, int plane,
   if (one) return;
   *reinterpret_cast<uint2*>(p + plane) = make_uint2(w2[0], w2[1]);
   *reinterpret_cast<uint2*>(p + 2 * plane) = make_uint2(w3[0], w3[1]);
+}
+
+// W's rows c0 .. c0 + ROWS (float32 (Ctot, N)) split once into three
+// bf16 planes of core matrices (8 columns x 8 outputs, 128 bytes): plane
+// k's core matrix (cl / 8, n / 8) at k * wpl + ((cl / 8) * (np / 8) + n /
+// 8) * 128, row cl % 8; zero past Ctot and N.
+template <int ROWS>
+__device__ __forceinline__ void split_w_cores(unsigned char* smem,
+                                              const float* __restrict__ w,
+                                              int Ctot, int N, int c0, int np,
+                                              int tid, int nthr) {
+  const int wpl = ROWS * np * 2, ng = np / 8;
+  for (int i = tid; i < ROWS * np / 4; i += nthr) {
+    const int cl = i / (np / 4), n = (i - cl * (np / 4)) * 4;
+    const int c = c0 + cl;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (c < Ctot && n < N)
+      v = *reinterpret_cast<const float4*>(w + (long long)c * N + n);
+    store_planes4(smem + ((cl / 8) * ng + n / 8) * 128 + (cl % 8) * 16 +
+                      (n % 8) * 2,
+                  wpl, v, false);
+  }
+}
+
+// The BN recompute of the backward, one rounding per operation (the plain
+// version's elementwise ops): x_hat = (x - mean) * inv_sigma,
+// y = x_hat * scale + bias.
+__device__ __forceinline__ float xhat_of(float x, float mu, float is) {
+  return __fmul_rn(__fsub_rn(x, mu), is);
+}
+
+__device__ __forceinline__ float ybn_of(float xh, float sc, float b) {
+  return __fadd_rn(__fmul_rn(xh, sc), b);
 }
 
 __device__ __forceinline__ void load8(const float* p, float (&v)[8]) {

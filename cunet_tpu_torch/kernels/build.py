@@ -25,7 +25,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("buf_kernels.cu", "train_kernels.cu", "quant_kernels.cu",
            "bottleneck_kernels.cu", "eval_kernels.cu", "f32_kernels.cu",
-           "dw_f32_kernels.cu", "dx_f32_kernels.cu", "fwd_f32_kernels.cu")
+           "dw_f32_kernels.cu", "dx_f32_kernels.cu", "fwd_f32_kernels.cu",
+           "tb_dx_f32_kernels.cu")
 HEADERS = ("common.cuh", "halo.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -141,7 +142,9 @@ def _declare(lib):
                                 P, P, P],
         "cunet_tb_bwd_reduce_f32": [P, I, L, I, P, L, I, P, P, P, P, L, I, I,
                                     P, P, P],
-        "cunet_tb_bwd_dx": [P, I, L, I, P, L, I, P, P, P, P, *[I] * 9, P],
+        "cunet_tb_bwd_dx": [P, I, L, I, P, L, I, P, P, P, P, *[I] * 7, P],
+        "cunet_tb_split_g": [P, L, L, I, P, P],
+        "cunet_tb_bwd_dx_f32": [P, I, L, I, P, I, P, P, P, P, I, P],
         "cunet_table_dot": [P, P, P, I, P, P, I, I, L, P, P, P, P, P, P, I,
                             I, I, P, P, I, P, L, L, L, P, L, P],
         "cunet_table_dot_f32": [P, P, P, I, P, P, I, I, L, P, P, P, P, P, P,

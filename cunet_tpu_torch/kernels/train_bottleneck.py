@@ -40,12 +40,13 @@ backward against the unrounded float32 W^T whose ReLU gate reads
 Every kernel takes bfloat16 or float32 features (one dtype a call; the
 cotangent and the outputs in it too): the float32 forms are the JAX
 package's #7 at ``compute_dtype="float32"``, float32 in, float32 products,
-float32 out. ``stats`` and ``bwd_dx`` are the same kernels instantiated
-for float32 (16-byte loads of 4 columns, the cotangent split into three
-bf16 planes in shared memory like W, so each product is six plane
-products); ``bwd_reduce``'s float32 form is a kernel of its own (the
-cotangent split once into its planes by a pre-pass, ``reduce_plan_f32``);
-``apply`` is the float32 forward 1x1
+float32 out. ``stats`` is the same kernel instantiated for float32
+(16-byte loads of 4 columns); ``bwd_reduce``'s float32 form is a kernel of
+its own (the cotangent split once into its three bf16 planes by a
+pre-pass, ``reduce_plan_f32``), and so is ``bwd_dx``'s
+(``csrc/tb_dx_f32_kernels.cu``, ``dx_f32_plan``), which reads the planes
+the reduce's pre-pass wrote: the Function hands them over (``planes=``),
+so the backward splits g once; ``apply`` is the float32 forward 1x1
 of ``csrc/fwd_f32_kernels.cu`` over the features as its feature table
 (``buf_ops.launch_fwd_f32``), bit for bit ``affine_dot``'s float32 form
 over ``torch.cat(xs, 1)``. ``<wrapper>.f32_launches`` counts the float32
@@ -97,8 +98,9 @@ REDUCE_BLOCKS_F32 = 132
 REDUCE_N_F32 = 128
 REDUCE_MAX_N_F32 = 256
 # bwd_dx: rows of a step and concat columns of a block (csrc kDxRows,
-# kDxCols); a table chunk resolved into shared memory (csrc/halo.cuh Chunk:
-# a pointer and a row stride)
+# kDxCols; the float32 form's too, kDfRows, kDfCols: its steps are the
+# planes' tiles); a table chunk resolved into shared memory (csrc/halo.cuh
+# Chunk: a pointer and a row stride)
 DX_ROWS = 64
 DX_COLS = 64
 CHUNK_BYTES = 16
@@ -351,7 +353,34 @@ def _recompute(x, stat, bias, off):
     return xh, xh * stat[2, off:off + c] + bias[off:off + c]
 
 
-def bwd_reduce_plain(xs, g, stat, bias, w, dw, sums, table=None):
+def split_planes_plain(g, planes):
+    """The float32 reduce's pre-pass in torch: g (M, N) float32 split
+    exactly into three bf16 planes (p1 = bf16(g), p2 = bf16(g - p1), p3 =
+    bf16(g - p1 - p2), each rounding to nearest even as the kernel's
+    ``split3``) in ``split_planes_shape``'s layout, written into
+    ``planes``: per 64-row tile and half of 128 outputs, core matrices of
+    8 outputs x 8 rows (one output's 8 consecutive rows a 16-byte row),
+    core matrix (n / 8, m / 8) at element ((n / 8) * 8 + m / 8) * 64, zero
+    past M and N."""
+    m, n = g.shape
+    _, tiles, per = planes.shape
+    halves = per // (REDUCE_N_F32 * REDUCE_ROWS_F32)
+    gp = torch.zeros(tiles * REDUCE_ROWS_F32, halves * REDUCE_N_F32,
+                     device=g.device)
+    gp[:m, :n] = g
+    p1 = gp.bfloat16()
+    r1 = gp - p1.float()
+    p2 = r1.bfloat16()
+    for k, pk in enumerate((p1, p2, (r1 - p2.float()).bfloat16())):
+        planes[k] = pk.view(tiles, 8, 8, halves, 16, 8).permute(
+            0, 3, 4, 1, 5, 2).reshape(tiles, per)
+    return planes
+
+
+def bwd_reduce_plain(xs, g, stat, bias, w, dw, sums, table=None,
+                     planes=None):
+    if planes is not None:
+        split_planes_plain(g, planes)
     offs, _ = _widths(xs)
     g32 = g.float()
     for x, off in zip(xs, offs):
@@ -519,14 +548,18 @@ def _check_bwd(xs, g, stat, bias, w, m, ctot):
     return f32
 
 
-def bwd_reduce(xs, g, stat, bias, w, dw, sums, table=None):
+def bwd_reduce(xs, g, stat, bias, w, dw, sums, table=None, planes=None):
     """The reductions of the backward over all M rows, for features ``xs``,
     the output cotangent ``g`` (M, Cout), ``stat`` (3, Ctot) float32
     [mean; inv_sigma; scale], ``bias`` (Ctot,) and the float32 weight ``w``
     (Ctot, Cout), unrounded: ``dw`` (Ctot, Cout) = relu(y)^T g and ``sums``
     (2, Ctot) = [sum g_y; sum g_y * x_hat], with x_hat = (x - mean) *
     inv_sigma, y = x_hat * scale + bias, g_y = [y > 0] (g @ w^T), all in
-    float32; ``table`` as in ``stats`` (its dx columns unused).
+    float32; ``table`` as in ``stats`` (its dx columns unused). At float32
+    ``planes`` (bf16, ``split_planes_shape(M, Cout)``) receives g's three
+    planes, which ``bwd_dx(..., planes=)`` then reads (the plain version
+    writes them with ``split_planes_plain``); without it the call makes
+    its own.
 
     Replaces ``cunet_tpu/kernels/train_bottleneck.py::_bwd_reduce_kernel``.
     Design (``csrc/bottleneck_kernels.cu``, plan ``reduce_plan``): one kind
@@ -576,16 +609,13 @@ def bwd_reduce(xs, g, stat, bias, w, dw, sums, table=None):
         raise ValueError(f"bwd_reduce outputs: dw {tuple(dw.shape)}, sums "
                          f"{tuple(sums.shape)}")
     if g.device.type == "cpu":
-        return bwd_reduce_plain(xs, g, stat, bias, w, dw, sums)
+        return bwd_reduce_plain(xs, g, stat, bias, w, dw, sums,
+                                planes=planes)
     _check_contig_f32(dw, "dw", g.device)
     _check_contig_f32(sums, "sums", g.device)
     table = _table_of(xs, table)
-    if f32:
-        p = reduce_plan_f32(m, ctot, n)
-        planes = torch.empty(split_planes_shape(m, n), device=g.device,
-                             dtype=BF16)
-    else:
-        p = reduce_plan(m, ctot, n)
+    planes = _planes_of(planes, f32, m, n, g.device)
+    p = reduce_plan_f32(m, ctot, n) if f32 else reduce_plan(m, ctot, n)
     dw_part = torch.empty(p.chunks, ctot, n, device=g.device,
                           dtype=torch.float32)
     sums_part = torch.empty(p.chunks, 2, ctot, device=g.device,
@@ -612,7 +642,7 @@ def bwd_reduce(xs, g, stat, bias, w, dw, sums, table=None):
     return dw, sums
 
 
-def bwd_dx_plain(xs, g, stat, bias, red, w, dxs, table=None):
+def bwd_dx_plain(xs, g, stat, bias, red, w, dxs, table=None, planes=None):
     offs, _ = _widths(xs)
     g32 = g.float()
     for x, dx, off in zip(xs, dxs, offs):
@@ -627,22 +657,20 @@ def bwd_dx_plain(xs, g, stat, bias, red, w, dxs, table=None):
 
 @dataclasses.dataclass(frozen=True)
 class DxPlan:
-    """How ``bwd_dx``'s kernel cuts M rows and Ctot concat columns:
-    ``ngrp`` column groups of ``DX_COLS``, each kept by the persistent
-    blocks b with b % ngrp == group, which walk steps of ``DX_ROWS`` rows
-    b // ngrp, + grid // ngrp, ...; the outputs (the product's depth)
-    zero-padded to ``np``; shared memory: the group's three W planes at 0,
-    its x then dx table chunks at ``tbl_off``, two x / g stages of
-    ``stage_bytes`` from ``stage_off`` (g at ``g_off`` within one), for a
-    float32 g its three planes at ``gp_off`` (0 at bf16); ``smem`` bytes
-    in all."""
+    """How ``bwd_dx``'s kernel cuts M rows and Ctot concat columns (bf16
+    features): ``ngrp`` column groups of ``DX_COLS``, each kept by the
+    persistent blocks b with b % ngrp == group, which walk steps of
+    ``DX_ROWS`` rows b // ngrp, + grid // ngrp, ...; the outputs (the
+    product's depth) zero-padded to ``np``; shared memory: the group's
+    three W planes at 0, its x then dx table chunks at ``tbl_off``, two x
+    / g stages of ``stage_bytes`` from ``stage_off`` (g at ``g_off``
+    within one); ``smem`` bytes in all."""
     ngrp: int
     np: int
     tbl_off: int
     stage_off: int
     stage_bytes: int
     g_off: int
-    gp_off: int
     smem: int
 
     def steps(self, m: int) -> int:
@@ -653,39 +681,113 @@ class DxPlan:
 
 
 @functools.lru_cache(maxsize=None)
-def dx_plan(m: int, ctot: int, n: int, f32: bool = False) -> DxPlan:
-    """The kernel plan of ``bwd_dx`` at these shapes (a function of them
-    alone; cached): 64-column groups, 64-row steps, two stages. Outputs up
-    to 256 wide; at N <= 128 a block fits in ``buf_ops.SMEM_PAIR`` and two
-    share an SM. With ``f32`` the stages hold float32 x and g rows (16
-    bytes of padding a row, as at bf16) and g's three bf16 planes follow
-    them (207 KB at N = 128: one block an SM)."""
+def dx_plan(m: int, ctot: int, n: int) -> DxPlan:
+    """The kernel plan of ``bwd_dx`` over bf16 features at these shapes (a
+    function of them alone; cached): 64-column groups, 64-row steps, two
+    stages. Outputs up to 256 wide; at N <= 128 a block fits in
+    ``buf_ops.SMEM_PAIR`` and two share an SM."""
     np_ = _up(n, 16)
     if np_ > 256:
         raise ValueError(f"bwd_dx takes at most 256 outputs, got {n}")
-    e = 4 if f32 else 2                       # bytes of a staged element
     gs = (np_ + 8) * 2                        # bytes of a g / W-plane row
     tbl_off = 3 * DX_COLS * gs
     stage_off = _up(tbl_off + 2 * (DX_COLS // 8) * CHUNK_BYTES, 128)
-    g_off = _up(DX_ROWS * (DX_COLS * e + 16), 128)
-    stage_bytes = _up(g_off + DX_ROWS * (np_ * e + 16), 128)
+    g_off = _up(DX_ROWS * (DX_COLS * 2 + 16), 128)
+    stage_bytes = _up(g_off + DX_ROWS * (np_ * 2 + 16), 128)
     smem = stage_off + 2 * stage_bytes
-    gp_off = smem if f32 else 0
-    smem += 3 * DX_ROWS * gs if f32 else 0
     if smem > SMEM_LIMIT:
         raise ValueError(f"bwd_dx: {n} outputs do not fit {SMEM_LIMIT} "
                          f"bytes of shared memory")
     return DxPlan(ngrp=-(-ctot // DX_COLS), np=np_, tbl_off=tbl_off,
                   stage_off=stage_off, stage_bytes=stage_bytes, g_off=g_off,
-                  gp_off=gp_off, smem=smem)
+                  smem=smem)
 
 
-def bwd_dx(xs, g, stat, bias, red, w, dxs, table=None):
+@dataclasses.dataclass(frozen=True)
+class DxF32Plan:
+    """How ``bwd_dx``'s float32 kernel cuts M rows and Ctot concat
+    columns: ``ngrp`` column groups of ``DX_COLS``, each kept by the
+    persistent blocks b with b % ngrp == group (one an SM), which walk
+    steps of ``DX_ROWS`` rows b // ngrp, + grid // ngrp, ..., its two
+    warpgroups taking every other one; a step is one tile of g's planes,
+    taken in its ``halves`` halves of ``REDUCE_N_F32`` outputs; the
+    outputs zero-padded to ``np``; shared memory
+    (``csrc/tb_dx_f32_kernels.cu::df_layout``): the group's three W planes
+    in core matrices (``wpl`` bytes each) at 0, each warpgroup's g stage
+    (a half's three planes) from ``g_off`` and x stage (a step's rows)
+    from ``x_off``, the columns' BN constants at ``kon_off`` (32 bytes a
+    column), the x then dx table chunks at ``ch_off``; ``smem`` bytes in
+    all."""
+    ngrp: int
+    np: int
+    halves: int
+    wpl: int
+    g_off: int
+    x_off: int
+    kon_off: int
+    ch_off: int
+    smem: int
+
+    def steps(self, m: int) -> int:
+        return -(-m // DX_ROWS)
+
+    def items(self, m: int) -> int:
+        return self.steps(m) * self.ngrp
+
+
+@functools.lru_cache(maxsize=None)
+def dx_f32_plan(m: int, ctot: int, n: int) -> DxF32Plan:
+    """The kernel plan of ``bwd_dx`` over float32 features at these shapes
+    (a function of them alone; cached): 64-column groups, 64-row steps,
+    each warpgroup's g stage a half of g's plane tile. Cotangents up to
+    ``REDUCE_MAX_N_F32`` wide, the float32 reduce's."""
+    np_ = _up(n, 16)
+    if np_ > REDUCE_MAX_N_F32:
+        raise ValueError(f"bwd_dx at float32 takes at most "
+                         f"{REDUCE_MAX_N_F32} outputs, got {n}")
+    wpl = DX_COLS * np_ * 2
+    g_off = 3 * wpl
+    x_off = g_off + 2 * 3 * REDUCE_N_F32 * DX_ROWS * 2
+    kon_off = x_off + 2 * DX_ROWS * DX_COLS * 4
+    ch_off = kon_off + DX_COLS * 32
+    p = DxF32Plan(ngrp=-(-ctot // DX_COLS), np=np_,
+                  halves=-(-np_ // REDUCE_N_F32), wpl=wpl, g_off=g_off,
+                  x_off=x_off, kon_off=kon_off, ch_off=ch_off,
+                  smem=ch_off + 2 * (DX_COLS // 8) * CHUNK_BYTES)
+    if p.smem > SMEM_LIMIT:
+        raise ValueError(f"bwd_dx at float32: {n} outputs do not fit "
+                         f"{SMEM_LIMIT} bytes of shared memory")
+    return p
+
+
+def _planes_of(planes, f32, m, n, device):
+    """``planes`` checked against the float32 backward's g planes of M
+    rows and N outputs, or new ones (None at bf16, which takes none)."""
+    if not f32:
+        if planes is not None:
+            raise ValueError("g's planes are the float32 backward's; bf16 "
+                             "features take none")
+        return None
+    shape = split_planes_shape(m, n)
+    if planes is None:
+        return torch.empty(shape, device=device, dtype=BF16)
+    if tuple(planes.shape) != shape or planes.dtype != BF16 \
+            or planes.device != device or not planes.is_contiguous():
+        raise ValueError(f"planes {planes.dtype} {tuple(planes.shape)} on "
+                         f"{planes.device}: expected contiguous bf16 "
+                         f"{shape} on {device}")
+    return planes
+
+
+def bwd_dx(xs, g, stat, bias, red, w, dxs, table=None, planes=None):
     """The input cotangents ``dxs`` ((M, c_k) views, each in its feature's
     dtype): scale * inv_sigma * (g_y - red[0] - x_hat * red[1]) with
     ``red`` (2, Ctot) = [mean g_y; mean g_y * x_hat] (``bwd_reduce``'s sums
     over M) and the rest as in ``bwd_reduce``; ``table`` is
-    ``feature_table(xs, dxs)``, filled here when None.
+    ``feature_table(xs, dxs)``, filled here when None. At float32
+    ``planes`` are g's three planes from ``bwd_reduce(..., planes=)``;
+    without them the call splits g first with the reduce's pre-pass (a
+    launch of its own, counted here).
 
     Replaces ``cunet_tpu/kernels/train_bottleneck.py::_bwd_dx_kernel``.
     Bound at K=320 -> 128, M=98,304 by bytes: reading x and g and writing
@@ -702,11 +804,20 @@ def bwd_dx(xs, g, stat, bias, red, w, dxs, table=None):
     recompute, gate and BN jacobian on the accumulators, each dx rounded
     in shared memory and written as 16-byte rows into its group's tensor.
 
-    Float32 features, g and dx: g split once a step into three bf16 planes
-    in shared memory (as ``bwd_reduce`` splits it) and g W^T six plane
-    products in ``bwd_reduce``'s float32 order; x staged and dx written as
-    float32 rows. Bound by its float32 bytes (302 MB: 90.1 us); its six
-    bf16 passes take 48.8 us, float32 FMA 120 us.
+    Float32 features, g and dx (``csrc/tb_dx_f32_kernels.cu``, plan
+    ``dx_f32_plan``): g W^T on ``wgmma`` from g's planes (never split in
+    a block) and W's, six plane products a k16 step in the float32
+    reduce's instruction order, so the gate takes its g_y bit for bit;
+    persistent blocks of 64 concat columns, one an SM, whose two
+    warpgroups take alternate 64-row steps (one's epilogue beside the
+    other's products), each with its own g stage (a half of the step's
+    planes, by ``cp.async`` as soon as its products have read the last)
+    and x stage; dx in place of the staged x, out as 16-byte rows. Cotangents
+    up to 256 wide (two halves of the planes). Bound by its float32 bytes
+    (302 MB: 90.2 us; the planes it reads make it 327 MB); its six bf16
+    passes take 48.8 us, float32 FMA 120 us. Measured there on an H100
+    80GB HBM3 at 700 W (PERF.md section 6): 163 us on the handed
+    planes (the kernel before it: 282), 214 us called alone.
     """
     m = xs[0].shape[0]
     _check_rows(xs, m)
@@ -723,15 +834,34 @@ def bwd_dx(xs, g, stat, bias, red, w, dxs, table=None):
     table = feature_table(xs, dxs) if table is None \
         else _table_of(xs, table)
     n = g.shape[1]
-    p = dx_plan(m, ctot, n, f32)
-    code = build.lib().cunet_tb_bwd_dx(
-        table.data_ptr(), len(xs), m, ctot, g.data_ptr(), g.stride(0), n,
+    if not f32:
+        _planes_of(planes, f32, m, n, g.device)
+        p = dx_plan(m, ctot, n)
+        code = build.lib().cunet_tb_bwd_dx(
+            table.data_ptr(), len(xs), m, ctot, g.data_ptr(), g.stride(0), n,
+            stat.data_ptr(), bias.data_ptr(), red.data_ptr(), w.data_ptr(),
+            p.ngrp, p.np, p.tbl_off, p.stage_off, p.stage_bytes, p.g_off,
+            p.smem, _stream(g))
+        build.check(code, "train_bottleneck.bwd_dx")
+        bwd_dx.launches += 1
+        return dxs
+    p = dx_f32_plan(m, ctot, n)
+    if planes is None:
+        planes = _planes_of(None, f32, m, n, g.device)
+        code = build.lib().cunet_tb_split_g(g.data_ptr(), g.stride(0), m, n,
+                                            planes.data_ptr(), _stream(g))
+        build.check(code, "train_bottleneck.bwd_dx (the split of g)")
+        bwd_dx.launches += 1
+        bwd_dx.f32_launches += 1
+    else:
+        _planes_of(planes, f32, m, n, g.device)
+    code = build.lib().cunet_tb_bwd_dx_f32(
+        table.data_ptr(), len(xs), m, ctot, planes.data_ptr(), n,
         stat.data_ptr(), bias.data_ptr(), red.data_ptr(), w.data_ptr(),
-        p.ngrp, p.np, p.tbl_off, p.stage_off, p.stage_bytes, p.g_off,
-        p.gp_off, p.smem, int(f32), _stream(g))
+        p.smem, _stream(g))
     build.check(code, "train_bottleneck.bwd_dx")
     bwd_dx.launches += 1
-    bwd_dx.f32_launches += f32
+    bwd_dx.f32_launches += 1
     return dxs
 
 
@@ -809,9 +939,16 @@ class _FusedTrainBottleneck(torch.autograd.Function):
         sums = torch.empty(2, ctot, device=dev, dtype=torch.float32)
         dxs = [torch.empty_like(x, memory_format=torch.contiguous_format)
                for x in xs]
-        table = feature_table(xs, dxs) if dev.type == "cuda" else None
-        bwd_reduce(xs, g2, stat, bias32, w2, dw, sums, table=table)
-        bwd_dx(xs, g2, stat, bias32, sums / m, w2, dxs, table=table)
+        table = planes = None
+        if dev.type == "cuda":
+            table = feature_table(xs, dxs)
+            # at float32 the reduce's split of g, which bwd_dx reads
+            planes = _planes_of(None, g2.dtype == torch.float32, m, cout,
+                                dev)
+        bwd_reduce(xs, g2, stat, bias32, w2, dw, sums, table=table,
+                   planes=planes)
+        bwd_dx(xs, g2, stat, bias32, sums / m, w2, dxs, table=table,
+               planes=planes)
         return (None, sums[1].to(scale.dtype), sums[0].to(bias.dtype),
                 dw.view(1, 1, ctot, cout).to(w.dtype),
                 *(dx.view(f.shape) for dx, f in zip(dxs, features)))

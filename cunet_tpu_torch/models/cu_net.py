@@ -765,16 +765,59 @@ def check_kernel_dtype(cfg: ModelConfig, device, *, train: bool = False,
     kernels, the int8 kernels), ghost-BN training (``bn_tile > 0``: the
     slot kernels #8/#9 with their dropout and QuanInput options) and
     whole-batch BN training (``bn_tile=0``: #7 and the mask kernel, at any
-    ``order``). Any other dtype raises; ``train`` and ``quant`` no longer
-    change the answer. On the CPU the kernels' plain versions run in any
-    dtype."""
-    if not cfg.use_pallas or torch.device(device).type != "cuda" \
-            or cfg.compute_dtype in ("bfloat16", "float32"):
+    ``order``). Any other dtype raises; ``quant`` does not change the
+    answer. In training (``train``) a cotangent wider than the backward
+    kernels' plans take raises too, before any step (``_check_train_widths``).
+    On the CPU the kernels' plain versions run in any dtype and width."""
+    if not cfg.use_pallas or torch.device(device).type != "cuda":
         return
-    raise NotImplementedError(
-        f"the CUDA kernels take {cfg.compute_dtype!r} nowhere: use_pallas on "
-        f"{device} needs compute_dtype='bfloat16' or 'float32' "
-        f"(use_pallas=False runs it on the plain path)")
+    if cfg.compute_dtype not in ("bfloat16", "float32"):
+        raise NotImplementedError(
+            f"the CUDA kernels take {cfg.compute_dtype!r} nowhere: use_pallas "
+            f"on {device} needs compute_dtype='bfloat16' or 'float32' "
+            f"(use_pallas=False runs it on the plain path)")
+    if train:
+        _check_train_widths(cfg)
+
+
+def _check_train_widths(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` where a 1x1's output cotangent in
+    ``cfg``'s training step (``neck_size * growth_rate`` at a bottleneck,
+    ``init_chan_num`` at an adapter, ``class_num`` at a ghost-BN head) is
+    wider than a plan of the kernel that takes it: at ``bn_tile=0`` #7's
+    ``bwd_reduce`` and ``bwd_dx`` (either dtype), at ``bn_tile > 0`` and
+    float32 the slot step's ``affine_dx`` (its bf16 form takes any width).
+    The plans themselves are asked, so a wider plan moves the answer."""
+    from cunet_tpu_torch.kernels import train_bottleneck as tbk
+    from cunet_tpu_torch.kernels import train_ops
+
+    f32 = cfg.compute_dtype == "float32"
+    widths = {"neck_size * growth_rate": cfg.neck_size * cfg.growth_rate,
+              "init_chan_num": cfg.init_chan_num}
+    if cfg.bn_tile:
+        if not f32:
+            return
+        widths["class_num"] = cfg.class_num
+        plans = {"affine_dx": train_ops.affine_dx_f32_plan}
+
+        def shape(n):          # (K, N): the width only matters
+            return n, n
+    else:
+        plans = {"bwd_reduce": tbk.reduce_plan_f32 if f32 else tbk.reduce_plan,
+                 "bwd_dx": tbk.dx_f32_plan if f32 else tbk.dx_plan}
+
+        def shape(n):          # (M, Ctot, N): one step
+            return tbk.DX_ROWS, n, n
+    for name, n in widths.items():
+        for kernel, plan in plans.items():
+            try:
+                plan(*shape(n))
+            except ValueError as e:
+                raise NotImplementedError(
+                    f"{cfg.compute_dtype} training with bn_tile="
+                    f"{cfg.bn_tile} on the CUDA kernels: {name} of {n} "
+                    f"outputs is past {kernel}'s kernel: {e} "
+                    f"(use_pallas=False runs it on the plain path)") from None
 
 
 def eval_slots(params, state, cfg: ModelConfig, quant=None):

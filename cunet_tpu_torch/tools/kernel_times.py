@@ -45,17 +45,23 @@ compare a change with its parent, unpack the parent with ``git archive`` into a 
 directory and run this once per checkout in one call, in the order parent,
 change, change, parent. Needs a CUDA device.
 
-With ``--rows PATTERN`` it runs only the float32 kernel rows of phases 13
-(a), 14 (a) and 15 (a) whose names match the regular expression PATTERN,
-from those phases' own case lists (``chip_smoke.row_times``: each at r =
-64 ... 4, the slot forms at tiles 2 and 6, against its plain version and
-timed beside its library call or product alone, its bound and the float32
-FMA time of its products; the wide checks of the rows that match, a
-digest of their r=64 outputs), then the bf16 digests. For example
-``--rows 'affine_dot\\[f32,tile|apply\\[f32'`` runs the float32
-forward 1x1 (``csrc/fwd_f32_kernels.cu``): ``affine_dot[f32,tile]`` at
-tiles 2 and 6 and #7's ``apply[f32]`` (with both at K = 1,920 -> 136,
-``apply`` over 17 groups); ``--rows 'bwd_reduce\\[f32|affine_dx\\[f32'``
+With ``--rows PATTERN`` it runs only the kernel rows of #7 (phases 9 (a)
+and 13 (a)) and the float32 rows of phases 14 (a) and 15 (a) whose names
+match the regular expression PATTERN, from those phases' own case lists
+(``chip_smoke.row_times``: each at r = 64 ... 4, the slot forms at tiles
+2 and 6, against its plain version and timed beside its library call or
+product alone, its bound and the float32 FMA time of its products; the
+wide checks of the rows that match, a digest of #7's outputs at each r
+and of the others' at r=64), then the digests (the bf16 outputs, the
+bf16 ghost-BN step and the float32 ``bn_tile=0`` step). For example
+``--rows 'bwd_dx'`` runs #7's ``bwd_dx`` at bf16 and its float32 form
+(``csrc/tb_dx_f32_kernels.cu``, on the g planes the backward hands it,
+its time called alone beside; at 160, 192 and 256 outputs and Ctot =
+1,920: ``wide_bwd_dx_check``);
+``--rows 'affine_dot\\[f32,tile|apply\\[f32'`` runs the float32 forward
+1x1 (``csrc/fwd_f32_kernels.cu``): ``affine_dot[f32,tile]`` at tiles 2
+and 6 and #7's ``apply[f32]`` (with both at K = 1,920 -> 136, ``apply``
+over 17 groups); ``--rows 'bwd_reduce\\[f32|affine_dx\\[f32'``
 ``bwd_reduce[f32]`` (with its dW against float64 and at Ctot = 1,920) and
 ``affine_dx[f32]`` / ``[f32,ste]`` (with K = 1,920); ``--rows '_dw\\['``
 the float32 weight gradients (with ``affine_dw[f32]`` at K = 1,920).
@@ -116,14 +122,26 @@ def bf16_digests(torch, cs, tbk, dops) -> dict:
 
 
 def _digests(torch, cs, tbk, dops) -> None:
-    """Print ``bf16_digests`` and the digest of phase 5's bf16 ghost-BN
-    kernel step."""
+    """Print ``bf16_digests``, the digest of phase 5's bf16 ghost-BN kernel
+    step and, where the checkout has #7's float32 forms, of phase 13's
+    float32 ``bn_tile=0`` kernel step (cuDNN deterministic)."""
     print(f"bf16 output digests: {bf16_digests(torch, cs, tbk, dops)}",
           flush=True)
     cfg, params, state, batch = cs.flagship_train(torch)
-    loss, grads, _ = cs._grads(torch, cfg, params, state, batch["image"],
-                               batch["heatmap"])
+    x, t = batch["image"], batch["heatmap"]
+    loss, grads, _ = cs._grads(torch, cfg, params, state, x, t)
     print(f"bf16 ghost-BN kernel step digest "
+          f"{cs.step_digest(torch, loss, grads)}", flush=True)
+    if not hasattr(tbk, "f32_counts"):
+        return
+    f32 = dataclasses.replace(cfg, compute_dtype="float32", bn_tile=0,
+                              bn_dtype="float32")
+    torch.backends.cudnn.deterministic = True
+    try:
+        loss, grads, _ = cs._grads(torch, f32, params, state, x, t)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    print(f"float32 bn_tile=0 kernel step digest "
           f"{cs.step_digest(torch, loss, grads)}", flush=True)
 
 

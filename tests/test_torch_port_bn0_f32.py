@@ -7,18 +7,25 @@ exactly into three bf16 planes (``split_bf16x3``), six plane products a
 k16 step in the kernels' order (``gw_product3``; the dW product takes the
 same pairs). g W^T over Cout = 128 and dW = r^T g over the rows give the
 float64 product to float32 rounding; three passes with g rounded to bf16
-fail the float32 n-term limit. The dx mirror at float32 (the recompute,
-gate and jacobian unrounded) gives ``bwd_dx_plain``'s bits under one-hot
-cotangents, and not with a W plane dropped.
+fail the float32 n-term limit. The dx mirror at float32 (g's planes as
+the reduce's pre-pass writes them, ``split_planes_plain``, read back core
+matrix by core matrix as the kernel reads them; the recompute, gate and
+jacobian unrounded) gives ``bwd_dx_plain``'s bits under one-hot
+cotangents, at 128 outputs and at 192 and 256 (two halves of the
+planes), and not with a W plane dropped.
 
-(b) The float32 plans (``reduce_plan_f32``, ``dx_plan`` with ``f32``, and
+(b) The float32 plans (``reduce_plan_f32``, ``dx_f32_plan``, and
 ``apply``'s float32 product ``buf_ops.dot3_plan``) at every #7 call of the
 CU-Net-8 @256 float32 ``bn_tile=0`` step, read from the port's own forward
 (183 calls): each fits the H100's shared memory, covers every row and
-column once, and is a function of the shapes alone. ``apply``'s float32
-product takes any number of feature groups (a table past 16 goes to
-device memory), so the guard lets every ``order`` through, and one step
-at ``order`` 14 (17 groups at an up block's adapter) runs.
+column once, and is a function of the shapes alone; the plans of both
+backward kernels at float32 and bf16 at every call of the step at
+``neck_size * growth_rate`` and ``init_chan_num`` of 128 ... 256, and
+``check_kernel_dtype`` refusing up front what no plan takes.
+``apply``'s float32 product takes any number of feature groups (a table
+past 16 goes to device memory), so the guard lets every ``order``
+through, and one step at ``order`` 14 (17 groups at an up block's
+adapter) runs.
 
 (c) The float32 conv's autograd Function (``ops.layers._Conv2dF32``, the
 repair of the float32 conv's TF32 backward): its gradients are autograd's.
@@ -74,14 +81,15 @@ G_ONE_PASS = ((0, 2), (0, 1), (0, 0))
 # ---------------------------------------------------------------------------
 
 
-def planes_mirror(a, b, order=ORDER):
+def planes_mirror(a, b, order=ORDER, ap=None):
     """a (M, K) @ b (K, N) as the float32 kernels sum it: K zero-padded to
-    16, both split into three bf16 planes, and for each k16 step the plane
-    products (a plane, b plane) of ``order`` into one float32
-    accumulator."""
+    16, both split into three bf16 planes (``ap``: a's, given), and for
+    each k16 step the plane products (a plane, b plane) of ``order`` into
+    one float32 accumulator."""
     k = a.shape[1]
     kp = -(-k // 16) * 16
-    ap = split_bf16x3(torch.nn.functional.pad(a, (0, kp - k)))
+    if ap is None:
+        ap = split_bf16x3(torch.nn.functional.pad(a, (0, kp - k)))
     bp = split_bf16x3(torch.nn.functional.pad(b, (0, 0, 0, kp - k)))
     acc = torch.zeros(a.shape[0], b.shape[1])
     for k0 in range(0, kp, 16):
@@ -147,23 +155,45 @@ def test_dw_six_products_give_the_float64_product(m):
         assert one > limit
 
 
+def kernel_g_planes(g):
+    """g's three bf16 planes as ``bwd_dx``'s float32 kernel reads them:
+    written by the reduce's pre-pass (``split_planes_plain``, its layout:
+    per 64-row tile t and half h of 128 outputs, core matrix (n group,
+    m group) at ((n / 8) * 8 + m / 8) * 64 elements, one output's 8 rows a
+    core matrix row) and read back core matrix by core matrix, the outputs
+    padded to 16 (the halves' k16 steps in ascending order)."""
+    m, n = g.shape
+    planes = torch.full(tbk.split_planes_shape(m, n), float("nan"),
+                        dtype=torch.bfloat16)
+    tbk.split_planes_plain(g, planes)
+    tiles, halves = planes.shape[1], planes.shape[2] // (128 * 64)
+    cores = planes.view(3, tiles, halves, 16, 8, 8, 8)   # t h ng mg nr mr
+    full = cores.permute(0, 1, 4, 6, 2, 3, 5).reshape(3, tiles * 64,
+                                                      halves * 128)
+    return full[:, :m, :-(-n // 16) * 16]
+
+
 def mirror_bwd_dx_f32(xs, g, stat, bias, red, w, order=ORDER):
-    """``bwd_dx`` at float32 in torch: g W^T from the planes of both (k16
-    steps over Cout, ``order``), then the recompute, gate and jacobian in
-    float32, one rounding per operation, in the kernel's order."""
+    """``bwd_dx`` at float32 in torch: g W^T from the planes of both (g's as
+    the kernel reads them, ``kernel_g_planes``; k16 steps over Cout,
+    ``order``), then the recompute, gate and jacobian in float32, one
+    rounding per operation, in the kernel's order."""
     x = torch.cat(xs, 1)
-    gy = planes_mirror(g, w.t(), order)
+    gy = planes_mirror(g, w.t(), order, ap=kernel_g_planes(g))
     xh = (x - stat[0]) * stat[1]
     gy = torch.where(xh * stat[2] + bias > 0, gy, 0.0)
     return (stat[2] * stat[1]) * ((gy - red[0]) - xh * red[1])
 
 
 @pytest.mark.parametrize("widths,n", [([128, 128, 32, 32], 128),
-                                      ([40, 16, 24], 16)])
+                                      ([40, 16, 24], 16),
+                                      ([64, 40, 88], 192),
+                                      ([128, 32], 256)])
 def test_dx_mirror_is_exact_under_one_hot_cotangents(widths, n):
     """Row m's cotangent one-hot (1) at n_m = m % n: g_y = W[c, n_m] exactly
     (the pieces of W add back to it), so the mirror gives
-    ``bwd_dx_plain``'s float32 bits; a W plane dropped moves them."""
+    ``bwd_dx_plain``'s float32 bits, past 128 outputs across both halves of
+    g's planes; a W plane dropped moves them."""
     m, ctot = 512, sum(widths)
     gen = torch.Generator().manual_seed(ctot)
     xs = [torch.randn(m, c, generator=gen) * 2 for c in widths]
@@ -190,24 +220,39 @@ def test_dx_mirror_is_exact_under_one_hot_cotangents(widths, n):
 # ---------------------------------------------------------------------------
 
 
-@functools.lru_cache(maxsize=None)
-def _bn0_f32_calls():
-    """(M, Ctot, Cout, groups) of every #7 call of one CU-Net-8 @256
-    float32 ``bn_tile=0`` train forward at batch 24, read from the port's
-    forward at full width on eight 64 x 64 images (16 x 16 at the top of
-    each hourglass; at 1 x 1 the 8 rows still make a row tile): M scales
-    by 3 x 16 (the backward's two kernels take the forward's shapes)."""
+# (neck_size, growth_rate, init_chan_num) of a CU-Net-8 whose #7 calls
+# all have one cotangent width: 128 (the default's), 144, 160, 192, 256
+BN0_WIDTHS = {128: (4, 32, 128), 144: (3, 48, 144), 160: (5, 32, 160),
+              192: (4, 48, 192), 256: (4, 64, 256)}
+
+
+def _bn0_cfg(width=128, dtype="float32"):
     from cunet_tpu_torch.config import ModelConfig
+
+    neck, growth, init = BN0_WIDTHS[width]
+    return ModelConfig(layer_num=8, order=1, class_num=16, loss_num=8,
+                       neck_size=neck, growth_rate=growth,
+                       init_chan_num=init, compute_dtype=dtype,
+                       use_pallas=True, bn_tile=0)
+
+
+@functools.lru_cache(maxsize=None)
+def _bn0_f32_calls(width=128, dtype="float32"):
+    """(M, Ctot, Cout, groups) of every #7 call of one CU-Net-8 @256
+    ``bn_tile=0`` train forward at batch 24 (float32 by default; the
+    widths of ``BN0_WIDTHS[width]``), read from the port's forward on
+    eight 64 x 64 images (16 x 16 at the top of each hourglass; at 1 x 1
+    the 8 rows still make a row tile): M scales by 3 x 16 (the backward's
+    two kernels take the forward's shapes)."""
     from cunet_tpu_torch.models import init_cu_net
 
-    cfg = ModelConfig(layer_num=8, order=1, class_num=16, loss_num=8,
-                      compute_dtype="float32", use_pallas=True, bn_tile=0)
+    cfg = _bn0_cfg(width, dtype)
     params, state = init_cu_net(cfg, torch.Generator().manual_seed(0),
                                 device="cpu")
     calls = []
 
     def recorder(xs, vec, w, out, table=None):
-        assert xs[0].dtype == torch.float32
+        assert xs[0].dtype == getattr(torch, dtype)
         calls.append((48 * xs[0].shape[0], sum(x.shape[1] for x in xs),
                       w.shape[1], len(xs)))
         return tbk.apply_plain(xs, vec, w, out)
@@ -255,24 +300,90 @@ def test_f32_reduce_plans_fit_every_bn0_call():
         assert p.smem > SMEM_LIMIT // 2   # one an SM
 
 
-def test_f32_dx_plans_fit_every_bn0_call():
-    """Every (64-row step, 64-column group) once for any persistent grid;
-    shared memory: W's planes, the chunks, two float32 x / g stages, g's
-    three planes, within the H100's."""
+def _check_dx_f32_plan(m, ctot, n):
+    """``dx_f32_plan`` at one call: every (64-row step, 64-column group)
+    once for any persistent grid, a step one tile of g's planes (the
+    reduce's pre-pass's) in its halves; shared memory: W's three planes of
+    the group's columns, each warpgroup's g stage (a half's three planes)
+    and x stage (a step's rows), the BN constants and the x / dx chunks,
+    within the H100's."""
     R, C = tbk.DX_ROWS, tbk.DX_COLS
+    p = tbk.dx_f32_plan(m, ctot, n)
+    assert R == tbk.REDUCE_ROWS_F32
+    assert (p.ngrp - 1) * C < ctot <= p.ngrp * C
+    for grid in _grids(p.ngrp, p.items(m)):
+        assert (_items_once(p.steps(m), p.ngrp, grid) == 1).all()
+    assert p.np == -(-n // 16) * 16 and p.halves == -(-p.np // 128) <= 2
+    assert tbk.split_planes_shape(m, n) == (3, p.steps(m),
+                                            p.halves * 128 * R)
+    assert p.wpl == C * p.np * 2 and p.g_off == 3 * p.wpl
+    assert p.x_off == p.g_off + 2 * 3 * 128 * R * 2
+    assert p.kon_off == p.x_off + 2 * R * C * 4
+    assert p.ch_off == p.kon_off + 32 * C
+    assert p.smem == p.ch_off + 2 * (C // 8) * 16 <= SMEM_LIMIT
+    assert all(v % 128 == 0 for v in (p.wpl, p.g_off, p.x_off, p.kon_off))
+    return p
+
+
+def test_f32_dx_plans_fit_every_bn0_call():
+    """``dx_f32_plan`` (``_check_dx_f32_plan``) at every call of the
+    float32 step; r=64's calls in 128-column blocks."""
     for m, ctot, n, _ in sorted(set(_bn0_f32_calls())):
-        p = tbk.dx_plan(m, ctot, n, True)
-        assert (p.ngrp - 1) * C < ctot <= p.ngrp * C
-        for grid in _grids(p.ngrp, p.items(m)):
-            assert (_items_once(p.steps(m), p.ngrp, grid) == 1).all()
-        gs = (p.np + 8) * 2
-        assert p.tbl_off == 3 * C * gs
-        assert p.g_off >= R * (C * 4 + 16)
-        assert p.stage_bytes >= p.g_off + R * (p.np * 4 + 16)
-        assert p.gp_off == p.stage_off + 2 * p.stage_bytes
-        assert p.smem == p.gp_off + 3 * R * gs <= SMEM_LIMIT
-        assert all(v % 128 == 0 for v in (p.stage_off, p.g_off,
-                                          p.stage_bytes, p.gp_off))
+        _check_dx_f32_plan(m, ctot, n)
+
+
+@pytest.mark.parametrize("width", sorted(BN0_WIDTHS))
+def test_backward_plans_fit_every_bn0_call_at_width(width):
+    """At ``neck_size * growth_rate`` = ``init_chan_num`` = 128 ... 256 the
+    backward's plans at every #7 call of a float32 and of a bf16
+    ``bn_tile=0`` step (each step's calls read from its own forward):
+    ``dx_f32_plan`` and ``reduce_plan_f32``, ``dx_plan`` and
+    ``reduce_plan``, each within the H100's shared memory; and
+    ``check_kernel_dtype`` lets both configurations through."""
+    from cunet_tpu_torch.models.cu_net import check_kernel_dtype
+
+    f32, bf16 = (sorted(set(_bn0_f32_calls(width, dt)))
+                 for dt in ("float32", "bfloat16"))
+    assert f32 == bf16 and len(f32) > 10
+    assert {n for _, _, n, _ in f32} == {width}
+    for m, ctot, n, _ in f32:
+        _check_dx_f32_plan(m, ctot, n)
+        assert tbk.reduce_plan_f32(m, ctot, n).smem <= SMEM_LIMIT
+        assert tbk.dx_plan(m, ctot, n).smem <= SMEM_LIMIT
+        assert tbk.reduce_plan(m, ctot, n).smem <= SMEM_LIMIT
+    for dt in ("float32", "bfloat16"):
+        check_kernel_dtype(_bn0_cfg(width, dt), "cuda", train=True)
+
+
+@pytest.mark.parametrize("neck,growth,init,bn_tile,dtype", [
+    (5, 64, 128, 0, "float32"),      # neck_size * growth_rate = 320
+    (5, 64, 128, 0, "bfloat16"),
+    (4, 32, 320, 0, "bfloat16"),     # init_chan_num = 320
+    (4, 32, 264, 2, "float32"),      # a ghost-BN cotangent of 264
+])
+def test_check_kernel_dtype_refuses_what_no_plan_takes(neck, growth, init,
+                                                       bn_tile, dtype):
+    """Past 256 outputs no plan of #7's backward (at either dtype) nor of
+    the ghost-BN ``affine_dx[f32]`` takes the cotangent: training on the
+    card is refused up front with the width and the limit, where a step
+    would stop mid-way; on the CPU, in eval, or off the kernels it runs.
+    A float32 ``bn_tile=0`` model at ``growth_rate=48`` (192 outputs)
+    passes."""
+    from cunet_tpu_torch.models.cu_net import check_kernel_dtype
+
+    cfg = dataclasses.replace(_bn0_cfg(), neck_size=neck, growth_rate=growth,
+                              init_chan_num=init, bn_tile=bn_tile,
+                              compute_dtype=dtype)
+    wide = max(neck * growth, init)
+    with pytest.raises(NotImplementedError,
+                       match=rf"{wide} outputs.*at most 256"):
+        check_kernel_dtype(cfg, "cuda", train=True)
+    check_kernel_dtype(cfg, "cpu", train=True)
+    check_kernel_dtype(cfg, "cuda")
+    check_kernel_dtype(dataclasses.replace(cfg, use_pallas=False), "cuda",
+                       train=True)
+    check_kernel_dtype(dataclasses.replace(_bn0_cfg(), growth_rate=48),
+                       "cuda", train=True)
 
 
 def test_f32_apply_plans_fit_every_bn0_call():
@@ -363,8 +474,8 @@ def test_f32_plans_are_functions_of_the_shapes(monkeypatch):
 
     def plans():
         tbk.reduce_plan_f32.cache_clear()
-        tbk.dx_plan.cache_clear()
-        return [(tbk.reduce_plan_f32(*s), tbk.dx_plan(*s, True))
+        tbk.dx_f32_plan.cache_clear()
+        return [(tbk.reduce_plan_f32(*s), tbk.dx_f32_plan(*s))
                 for s in shapes]
 
     want = plans()

@@ -2064,8 +2064,8 @@ def _tb_f32_outputs(fns, feats, vec, stat, bias, w, g):
     return st, out, dw, sums, dxs
 
 
-# (past 128 outputs the float32 reduce takes two halves: 136 and 144
-# leave the second 8 and 16 wide; bwd_dx at float32 takes at most 144)
+# (past 128 outputs the float32 reduce and dx take two halves of g's
+# planes: 136 and 144 leave the second 8 and 16 wide)
 TB_F32_CASES = [(98304, [128, 128, 32, 32], 128),
                 (384, [128, 128, 32, 32], 128), (1000, [16, 24, 8, 8], 16),
                 (2056, [40, 16], 136), (216, [8] * 20, 16),
@@ -2076,14 +2076,15 @@ TB_F32_CASES = [(98304, [128, 128, 32, 32], 128),
 def test_train_bottleneck_kernels_f32(gen, m, widths, cout):
     """Each float32 form against its plain version within the float32
     n-term bound (the sums per feature group), counted as float32
-    launches (bwd_reduce two: the split of g and the reduce); apply over
+    launches (bwd_reduce two: the split of g and the reduce; bwd_dx called
+    without the reduce's planes two: the split and its kernel); apply over
     any number of groups (20 in the fifth case: the float32 product's
     table read from device memory)."""
     ops = _tb_f32(gen, m, widths, cout)
     tbk.reset_launch_counts()
     got = _tb_f32_outputs(tbk.KERNELS, *ops)
     assert tbk.f32_counts() == {"stats[f32]": 1, "apply[f32]": 1,
-                                "bwd_reduce[f32]": 2, "bwd_dx[f32]": 1}
+                                "bwd_reduce[f32]": 2, "bwd_dx[f32]": 2}
     want = _tb_f32_outputs([tbk.PLAIN[k] for k in tbk.KERNELS], *ops)
     _close_group_sums(got[0], want[0], m, widths)
     _close_f32(got[1], want[1], sum(widths))
@@ -2117,6 +2118,38 @@ def test_bwd_reduce_f32_two_halves(gen, cout):
     want = run(tbk.bwd_reduce_plain)
     _close_group_sums(got[0], want[0], m, widths, rows=True)
     _close_group_sums(got[1], want[1], m, widths)
+
+
+@pytest.mark.parametrize("cout", [160, 192, 256])
+def test_bwd_dx_f32_two_halves(gen, cout):
+    """bwd_dx at float32 past 144 outputs (two halves of g's planes, the
+    second 32, 64 and 128 wide): dx within the float32 Cout-term bound of
+    the plain version; on the planes bwd_reduce hands over (one float32
+    launch) bit for bit a call that splits g itself (two)."""
+    m, widths = 1000, [64, 40]
+    feats, _, stat, bias, w, g = _tb_f32(gen, m, widths, cout)
+    ctot = sum(widths)
+    planes = torch.empty(tbk.split_planes_shape(m, cout), device="cuda",
+                         dtype=torch.bfloat16)
+    _, sums = tbk.bwd_reduce(feats, g, stat, bias, w,
+                             torch.empty(ctot, cout, device="cuda"),
+                             torch.empty(2, ctot, device="cuda"),
+                             planes=planes)
+
+    def run(fn, **kw):
+        d = [torch.empty(m, c, device="cuda") for c in widths]
+        fn(feats, g, stat, bias, sums / m, w, d, **kw)
+        torch.cuda.synchronize()
+        return d
+
+    before = tbk.bwd_dx.f32_launches
+    handed = run(tbk.bwd_dx, planes=planes)
+    assert tbk.bwd_dx.f32_launches == before + 1
+    alone = run(tbk.bwd_dx)
+    assert tbk.bwd_dx.f32_launches == before + 3
+    for a, b, c in zip(handed, alone, run(tbk.bwd_dx_plain)):
+        assert torch.equal(a, b)
+        _close_f32(a, c, cout)
 
 
 @pytest.mark.parametrize("m,widths,cout", TB_F32_CASES[:3])

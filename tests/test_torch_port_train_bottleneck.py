@@ -3,9 +3,10 @@ against the JAX package's ``fused_train_bottleneck`` in interpret mode.
 
 - the port's ``fused_train_bottleneck`` (its four wrappers computing their
   plain versions on CPU tensors) against JAX's, on 1, 2 and 4 feature
-  groups of mixed widths, float32 and bfloat16: the forward's output, batch
-  mean and variance, and the gradients of the features, scale, bias and
-  weight under a fixed cotangent;
+  groups of mixed widths, float32 and bfloat16, and on two groups with 160
+  outputs (past the 144 the first float32 ``bwd_dx`` kernel took): the
+  forward's output, batch mean and variance, and the gradients of the
+  features, scale, bias and weight under a fixed cotangent;
 - what the autograd Function saves: the inputs, the parameters and the two
   statistics only (the counterpart of tests/test_train_kernel.py::
   test_memory_o1_residuals);
@@ -57,7 +58,8 @@ STEP_GRAD = dict(rtol=3e-3, atol=3e-3)
 STEP_STATE = dict(rtol=5e-4, atol=5e-4)
 LOSS_RTOL = 1e-4
 N, H, COUT = 2, 8, 16
-GROUPS = {1: [24], 2: [16, 12], 4: [32, 16, 8, 4]}
+GROUPS = {1: [24], 2: [16, 12], 4: [32, 16, 8, 4], "wide": [32, 24]}
+COUTS = {"wide": 160}    # outputs of a case, COUT where not listed
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -71,15 +73,15 @@ def _interpret():
         yield
 
 
-def _inputs(widths, n=N, h=H, seed=0):
+def _inputs(widths, n=N, h=H, seed=0, cout=COUT):
     rng = np.random.RandomState(seed)
     feats = [(rng.randn(n, h, h, c) * (0.5 + k) + 0.3 * k).astype(np.float32)
              for k, c in enumerate(widths)]
     ctot = sum(widths)
     scale = rng.uniform(0.5, 1.5, ctot).astype(np.float32)
     bias = (rng.randn(ctot) * 0.2).astype(np.float32)
-    w = (rng.randn(1, 1, ctot, COUT) * ctot ** -0.5).astype(np.float32)
-    ct = rng.randn(n, h, h, COUT).astype(np.float32)
+    w = (rng.randn(1, 1, ctot, cout) * ctot ** -0.5).astype(np.float32)
+    ct = rng.randn(n, h, h, cout).astype(np.float32)
     return feats, scale, bias, w, ct
 
 
@@ -127,12 +129,12 @@ def _port(feats, scale, bias, w, ct, dtype):
 
 @functools.lru_cache(maxsize=None)
 def _case(groups, dtype):
-    args = _inputs(GROUPS[groups])
+    args = _inputs(GROUPS[groups], cout=COUTS.get(groups, COUT))
     return _jax(*args, dtype), _port(*args, dtype), len(GROUPS[groups])
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("groups", [1, 2, 4])
+@pytest.mark.parametrize("groups", [1, 2, 4, "wide"])
 def test_forward_matches_jax(groups, dtype):
     (want, _), (got, _), _ = _case(groups, dtype)
     if dtype == "float32":
@@ -144,7 +146,7 @@ def test_forward_matches_jax(groups, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("groups", [1, 2, 4])
+@pytest.mark.parametrize("groups", [1, 2, 4, "wide"])
 def test_grads_match_jax(groups, dtype):
     (_, want), (_, got), g = _case(groups, dtype)
     for k, (a, b) in enumerate(zip(got, want)):

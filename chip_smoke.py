@@ -2400,12 +2400,14 @@ def phase_bn0_kernels(torch, tbk, dtype=None):
 
 
 @contextlib.contextmanager
-def tb_plain_swapped(tbk, plain=True):
-    """#7's four kernels swapped for their plain versions (``plain``) in
-    ``tbk``, which the autograd Function calls by name."""
-    saved = {k.__name__: getattr(tbk, k.__name__) for k in tbk.KERNELS}
+def tb_plain_swapped(tbk, plain=True, kernels=None):
+    """#7's four kernels (or ``kernels`` of them) swapped for their plain
+    versions (``plain``) in ``tbk``, which the autograd Function calls by
+    name."""
+    kernels = tbk.KERNELS if kernels is None else kernels
+    saved = {k.__name__: getattr(tbk, k.__name__) for k in kernels}
     if plain:
-        for k in tbk.KERNELS:
+        for k in kernels:
             setattr(tbk, k.__name__, tbk.PLAIN[k])
     try:
         yield
@@ -2577,6 +2579,10 @@ def phase_bn0_training(torch, tbk, tops, bops, dops, gpu):
     torch.backends.cudnn.deterministic = True
     try:
         compare_steps(torch, "bn0 training", cfg, params, state, x, t)
+        perms = [torch.randperm(x.shape[0], generator=torch.Generator()
+                                .manual_seed(17 + i)).cuda()
+                 for i in range(F32_STEP_PERMS)]
+        wide_bn0_step_check(torch, tbk, cfg, x, t, perms, *WIDER_BN0)
         l0, g0, peak0 = step_memory(torch, cfg, params, state, batch)
         for remat in ("layer", "block"):
             lr, gr, peak = step_memory(torch, dataclasses.replace(
@@ -3413,6 +3419,7 @@ FWD_F32_SOURCE = "cunet_tpu_torch/csrc/fwd_f32_kernels.cu"
 # #7's float32 input cotangents: a kernel of their own, on the g planes
 # bwd_reduce's pre-pass writes
 TB_DX_F32_SOURCE = "cunet_tpu_torch/csrc/tb_dx_f32_kernels.cu"
+CONV_F32_SOURCE = "cunet_tpu_torch/csrc/conv_f32_kernels.cu"
 TB_DX_F32_KERNEL = "tb_bwd_dx_f32_kernel"
 # the rows that run the float32 forward 1x1 (fw3_kernel): the per-tile and
 # QuanInput forms of affine_dot, #7's apply
@@ -3423,9 +3430,12 @@ FWD_F32_ROWS = ("affine_dot[f32,tile]", "affine_dot[f32,bits_i]",
 
 def f32_source(name):
     """The source of a float32 train form's kernel: the weight gradients',
-    affine_dx's and the forward 1x1's own files, the rest f32_kernels.cu's
-    product kernel."""
+    affine_dx's, the forward 1x1's and the two train convs' own files (the
+    convs at r <= 16 on f32_kernels.cu's product kernel, whose plan splits
+    K there), the rest f32_kernels.cu's product kernel."""
     base = name.split("[")[0]
+    if name in ("conv3x3[f32,tile]", "conv3x3_dx[f32]", CONV_WG):
+        return CONV_F32_SOURCE
     if base in ("affine_dw", "conv3x3_dw"):
         return DW_F32_SOURCE
     return {"affine_dx": DX_F32_SOURCE,
@@ -3444,6 +3454,16 @@ def fwd_kernel(row):
     """The kernels line's ``kernel`` key of a row of the float32 forward
     1x1 (its source holds other kernels too), else none."""
     return {"kernel": FWD_F32_KERNEL} if row in FWD_F32_ROWS else {}
+
+
+def conv_kernel(row):
+    """The kernels line's ``kernel`` key of the two train convs' rows: the
+    wgmma kernel where its plan takes the shape (r >= 32), dot3_kernel
+    below."""
+    if row not in ("conv3x3[f32,tile]", "conv3x3_dx[f32]"):
+        return {}
+    return {"kernel": "conv_f32_kernel (r >= 32; dot3_kernel of "
+                      f"{F32_SOURCE} at r <= 16)"}
 F32_PATH_REL_L2 = 1e-4   # a float32 kernel path vs the plain path
 # the f32 rows of the kernels line: the bf16 row whose TPU kernel each
 # replaces at float32
@@ -4113,6 +4133,86 @@ def wide_bwd_dx_check(torch, tbk, gen, strict=True):
     return out
 
 
+# #7's backward past the 256 outputs whose W planes a block keeps resident:
+# (r, outputs) of the up-block adapter (Ctot = 320); 512 at r=64 is timed
+WIDE_OUT_CASES = ((32, 320), (64, 512), (32, 1040))
+
+
+def wide_out_check(torch, tbk, gen, dtype, strict=True):
+    """#7's four kernels at ``dtype`` with ``WIDE_OUT_CASES`` outputs
+    (``apply``'s N and the backward's cotangent; the backward stages W's
+    planes a slice at a time) against their plain versions within their
+    limits (bf16's bound, or the float32 sum limits: ``apply``'s over
+    Ctot, ``stats``' over M); at float32 ``apply`` (the forward 1x1 in
+    several column blocks) bit for bit ``affine_dot``'s eval form over the
+    concat (``csrc/f32_kernels.cu::dot3_kernel``, the order of sums it
+    keeps), ``bwd_dx`` on the handed planes bit for bit called alone, and
+    the reduce's dW within ``F32_DW_REL`` sqrt(M) of float64. The r=64
+    case timed beside its plain version and bound. ``strict``: required
+    (else a checkout that takes no such width prints its failure).
+    Returns {label: within its limits}."""
+    from cunet_tpu_torch.kernels import buf_ops
+
+    tag = "[f32]" if dtype == torch.float32 else ""
+    out = {}
+    for r, cout in WIDE_OUT_CASES:
+        label = f"Ctot={sum(TB_WIDTHS)}->{cout} r={r}"
+        try:
+            o = tb_operands(torch, gen, r, dtype=dtype, cout=cout)
+            cases = {c[0]: c for c in tb_cases(torch, o)}
+            oks = []
+            for name in ("stats", "apply", "bwd_reduce", "bwd_dx"):
+                _, call, bounds, w, _, _ = cases[name]
+                kern = getattr(tbk, name)
+                got, want = call(kern), call(tbk.PLAIN[kern])
+                torch.cuda.synchronize()
+                err, share, ok = output_errors(torch, got, want, bounds)
+                text = ""
+                if name == "apply" and tag:
+                    d3 = torch.empty_like(got[0])
+                    buf_ops.affine_dot(torch.cat(o["feats"], 1), o["vec"],
+                                       o["wa"], d3)
+                    same = torch.equal(got[0], d3)
+                    ok = ok and same
+                    text += (f", bit for bit dot3_kernel over the concat: "
+                             f"{same}")
+                if name == "bwd_dx" and tag:
+                    f = o["feats"]
+                    alone = kern(f, o["g"], o["stat"], o["bias"], o["red"],
+                                 o["w"], [torch.empty_like(x) for x in f])
+                    same = all(torch.equal(a, b) for a, b in zip(got, alone))
+                    ok = ok and same
+                    text += f", called alone bit for bit the same: {same}"
+                if name == "bwd_reduce" and tag:
+                    rel = tb_dw_f64_rel(torch, tbk, o, kern)
+                    lim = F32_DW_REL * o["m"] ** 0.5
+                    ok = ok and rel["kernel"] <= lim
+                    text += (f", dW against float64 {rel['kernel']:.3g} "
+                             f"(plain {rel['plain']:.3g}, limit {lim:.3g})")
+                if r == 64:
+                    ms = cuda_time_ms(lambda: call(kern))
+                    plain_ms = cuda_time_ms(
+                        lambda: call(tbk.PLAIN[kern]), iters=3)
+                    bms, by = bound(w)
+                    text += (f", {ms * 1e3:.1f} us vs plain "
+                             f"{plain_ms * 1e3:.1f} us, bound "
+                             f"{bms * 1e3:.1f} us ({by})")
+                print(f"bn0 kernel train_bottleneck.{name}{tag} [{label}]: "
+                      f"max_abs_err {err:.4g} ({share:.3g} of its limit: "
+                      f"{ok}){text}", flush=True)
+                oks.append(ok)
+                del got, want
+            out[label] = all(oks)
+            del o
+        except (RuntimeError, ValueError) as e:
+            print(f"bn0 kernels train_bottleneck{tag} [{label}]: failed: "
+                  f"{e}", flush=True)
+            out[label] = False
+    require(all(out.values()) or not strict,
+            f"#7{tag} fails a wide output: {out}")
+    return out
+
+
 def drop_mask_f32_checks(torch, dops, results):
     """The mask kernel's float32 form at the bn_tile=0 shapes (batch 24,
     one tile of the whole batch, g=32): on ones the plain float32 masks
@@ -4178,6 +4278,8 @@ def phase_bn0_f32_kernels(torch, tbk, dops):
     wide_reduce_check(torch, tbk, gen)
     results["train_bottleneck.bwd_dx[f32]"]["wide"] = wide_bwd_dx_check(
         torch, tbk, gen)
+    results["train_bottleneck.bwd_dx[f32]"]["wide_out"] = wide_out_check(
+        torch, tbk, gen, torch.float32)
     drop_mask_f32_checks(torch, dops, results)
     return results
 
@@ -4254,7 +4356,7 @@ def step_leaves(torch, a, b):
 
 
 def f32_step_check(torch, label, cfg, params, state, x, t, swapped,
-                   counters, perms, quant=None, noise=0, **kw):
+                   counters, perms, quant=None, noise=0, strict=True, **kw):
     """Phase 13 (d) and 14 (b): the float32 kernel step against the swap
     step from the same state (``swapped()``: the path with its kernels'
     plain versions swapped in, none of ``counters``' kernels launching),
@@ -4275,7 +4377,10 @@ def f32_step_check(torch, label, cfg, params, state, x, t, swapped,
     controls): the kernels reround every product, which no permutation
     reaches. ``kw`` (dropout arguments) reach every step; threefry masks
     follow a sample's place in the batch, so their check takes no
-    permutations (``perms`` empty) and the noise controls alone."""
+    permutations (``perms`` empty) and the noise controls alone. Not
+    ``strict``: the leaves past their limits are printed, not required
+    (the caller holds the step otherwise). Returns (the kernel step, the
+    swap step, {leaf: (distance, limit)} past their limits)."""
     from cunet_tpu_torch.kernels import train_slot
     from cunet_tpu_torch.tools.f32_step_gap import (
         patched,
@@ -4358,45 +4463,132 @@ def f32_step_check(torch, label, cfg, params, state, x, t, swapped,
           f"largest share of its limit: "
           f"{max(got[n] / lim[n] for n in got):.3f}; over: {bad}",
           flush=True)
-    require(not bad, f"{label}: step off the swap step: {bad}")
+    require(not bad or not strict, f"{label}: step off the swap step: "
+                                   f"{bad}")
     lk2, gk2, _ = grads(cfg, x, t)
     same = lk2 == k[0] and all(torch.equal(k[1][n], gk2[n]) for n in gk2)
     print(f"{label}: repeated kernel step bit-identical: {same}",
           flush=True)
     require(same, f"{label}: the kernel step is not deterministic")
+    return k, s, bad
+
+
+def f64_step_hold(torch, label, cfg, params, state, x, t, k, s,
+                  strict=True):
+    """The kernel step ``k`` and the swap step ``s`` (``f32_step_check``'s)
+    each against the plain path's step in float64 (``f32_step_gap.
+    step_f64``: no operation rounds to float32): the loss, each grad leaf
+    and each BN running stat of the kernel step no farther from float64
+    than max(F32_STEP_CONTROL x the swap step's distance,
+    F32_STEP_FLOOR), so the kernels lose no accuracy that the plain
+    versions keep, however far a chaotic model carries either. Not
+    ``strict``: printed, not required. Returns {number: (distance,
+    limit)} past their limits."""
+    from cunet_tpu_torch.tools.f32_step_gap import rel, step_f64
+
+    ref = step_f64(cfg, params, state, x, t)
+
+    def dist(a):
+        (la, ga, sa), (lr, gr, sr) = a, ref
+        d = {"loss": abs(la - lr) / abs(lr)}
+        d.update({n: rel(ga[n], gr[n]) for n in gr if gr[n].norm() > 0})
+        d.update({n: rel(sa[n], sr[n]) for n in sr if sr[n].norm() > 0})
+        return d
+
+    dk, ds = dist(k), dist(s)
+    lim = {n: max(F32_STEP_CONTROL * ds[n], F32_STEP_FLOOR) for n in dk}
+    bad = {n: (dk[n], lim[n]) for n in dk if not dk[n] <= lim[n]}
+    ratio = {n: dk[n] / max(ds[n], 1e-30) for n in dk}
+    worst = sorted(ratio, key=ratio.get, reverse=True)[:3]
+    print(f"{label}: kernel and swap steps against float64: loss "
+          f"{dk['loss']:.4g} / {ds['loss']:.4g}; {len(dk) - len(bad)}/"
+          f"{len(dk)} of the loss, grad leaves and BN stats of the kernel "
+          f"step within max({F32_STEP_CONTROL:g} x the swap step's "
+          f"distance, {F32_STEP_FLOOR:g}); largest share of its limit "
+          f"{max(dk[n] / lim[n] for n in dk):.3f}; largest ratios "
+          + ", ".join(f"{n} {dk[n]:.4g} / {ds[n]:.4g}" for n in worst)
+          + f"; over: {bad}", flush=True)
+    require(not bad or not strict, f"{label}: kernel step farther from "
+                                   f"float64 than the swap step: {bad}")
+    return bad
 
 
 # the float32 bn_tile=0 model past bwd_dx's first float32 width:
 # growth_rate 48 (192 outputs at every bottleneck), cut to two slots
 WIDE_BN0_GROWTH, WIDE_BN0_LAYERS = 48, 2
+# neck_size, growth_rate of a model whose bottlenecks' #7 calls are 320
+# outputs wide, past the 256 whose W planes the backward keeps resident
+WIDER_BN0 = (5, 64)
 
 
-def wide_bn0_step_check(torch, tbk, cfg, x, t, perms):
-    """Phase 13 (d), wide: the float32 ``bn_tile=0`` step of a model with
-    ``growth_rate`` WIDE_BN0_GROWTH (every bottleneck's #7 call 192
-    outputs wide, two plane halves of g) at WIDE_BN0_LAYERS slots against
-    its swap step within max(2c, 1e-5) (``f32_step_check``), with #7's
-    float32 launches of the kernel step counted."""
+def wide_bn0_step_check(torch, tbk, cfg, x, t, perms, neck=None,
+                        growth=WIDE_BN0_GROWTH, aside=(), strict=True,
+                        f64=False):
+    """Phases 9 and 13 (d), wide: the ``bn_tile=0`` step of a model with
+    ``growth_rate`` ``growth`` (and ``neck_size`` ``neck``) at ``cfg``'s
+    dtype: at WIDE_BN0_GROWTH every bottleneck's #7 call 192 outputs wide
+    (two plane halves of g), at WIDER_BN0 320 (W's planes staged a slice
+    at a time), at WIDE_BN0_LAYERS slots, against its swap step within
+    max(2c, 1e-5), c over the batch permuted by ``perms``
+    (``f32_step_check``); #7's launches of the kernel steps counted. At
+    bf16 too the swap step (#7's plain versions swapped in) is the
+    reference: a two-slot model is too chaotic in bf16 for the plain
+    step's bands (the plain path rounds otherwise than #7 on purpose), at
+    128 outputs on the resident-W kernels as at 320. ``aside``: #7 kernels
+    on their plain versions in every step, the kernel step's too, so the
+    check holds the others. Not ``strict``: printed, not required. With
+    ``f64`` the kernel step is also held to float64 (``f64_step_hold``).
+    At float32 and 320 outputs the step on all four kernels parts from
+    its swap step and from float64 at ``hg.neck.layers.1`` on this batch,
+    from ``stats[f32]``'s sums (``tools/f32_step_gap.py --smoke_batch``:
+    ROADMAP.md queue C, PERF.md section 7), so the smoke requires that step
+    with ``stats`` aside and prints the full one."""
+    import types
+
     from cunet_tpu_torch.models import init_cu_net
 
-    wide = dataclasses.replace(cfg, growth_rate=WIDE_BN0_GROWTH,
+    wide = dataclasses.replace(cfg, growth_rate=growth,
+                               neck_size=neck or cfg.neck_size,
                                layer_num=WIDE_BN0_LAYERS,
                                loss_num=WIDE_BN0_LAYERS)
     params, state = init_cu_net(wide, torch.Generator().manual_seed(0))
-    label = (f"bn0 f32 training, growth_rate {WIDE_BN0_GROWTH} "
+    f32 = cfg.compute_dtype == "float32"
+    label = (f"bn0 {'f32' if f32 else 'bf16'} training, neck_size "
+             f"{wide.neck_size} x growth_rate {growth} "
              f"({wide.neck_size * wide.growth_rate} outputs), "
              f"{WIDE_BN0_LAYERS} slots")
+    swapped = tuple(k for k in tbk.KERNELS if k not in aside)
+    counters = types.SimpleNamespace(
+        reset_launch_counts=tbk.reset_launch_counts,
+        launch_counts=lambda: {k.__name__: k.launches for k in swapped})
+    if aside:
+        label += (f", {' and '.join(k.__name__ for k in aside)} on the "
+                  f"plain version in every step")
+    if not strict:
+        label += " (printed, not required)"
     tbk.reset_launch_counts()
-    f32_step_check(torch, label, wide, params, state, x, t,
-                   lambda: tb_plain_swapped(tbk), tbk, perms)
-    print(f"{label}: #7 float32 launches of the checks' kernel steps "
-          f"{tbk.f32_counts()}", flush=True)
+    with tb_plain_swapped(tbk, kernels=aside):
+        k, s, bad = f32_step_check(
+            torch, label, wide, params, state, x, t,
+            lambda: tb_plain_swapped(tbk, kernels=swapped), counters, perms,
+            strict=strict)
+        if f64:
+            bad64 = f64_step_hold(torch, label, wide, params, state, x, t,
+                                  k, s, strict=strict)
+    if not strict:
+        print(f"{label}: {len(bad)} numbers past the swap step's limits"
+              + (f", {len(bad64)} past float64's" if f64 else "")
+              + " (ROADMAP.md queue C: stats[f32]'s sums)", flush=True)
+    print(f"{label}: #7 launches of the checks' kernel steps "
+          f"{tbk.f32_counts() if f32 else tbk.launch_counts()}", flush=True)
 
 
 def phase_bn0_f32_training(torch, tbk, tops, bops, dops, gpu, bf16_times):
     """Phase 13 (b)-(e): the Function at float32; the conv repair;
     CU-Net-8 @256 at float32, bn_tile=0, on #7's float32 forms: the step
-    against the swap step (and, at growth 48, ``wide_bn0_step_check``),
+    against the swap step (and, at growth 48 and at 320 outputs,
+    ``wide_bn0_step_check``; at 320 with ``stats[f32]`` aside, the step
+    on all four kernels against its swap step and float64 printed),
     remat "layer" / "block" bit for bit, dropout through the mask kernel's
     float32 form bit for bit the plain mask's step, one W1/I8/G8 step,
     three main-path steps; step times and peak memory beside phase 9's
@@ -4430,6 +4622,10 @@ def phase_bn0_f32_training(torch, tbk, tops, bops, dops, gpu, bf16_times):
         f32_step_check(torch, "bn0 f32 training", cfg, params, state, x, t,
                        lambda: tb_plain_swapped(tbk), tbk, perms)
         wide_bn0_step_check(torch, tbk, cfg, x, t, perms)
+        wide_bn0_step_check(torch, tbk, cfg, x, t, perms, *WIDER_BN0,
+                            aside=(tbk.stats,))
+        wide_bn0_step_check(torch, tbk, cfg, x, t, perms, *WIDER_BN0,
+                            strict=False, f64=True)
         l0, g0, peak0 = step_memory(torch, cfg, params, state, batch)
         for remat in ("layer", "block"):
             lr, gr, peak = step_memory(torch, dataclasses.replace(
@@ -4937,12 +5133,19 @@ def wide_dw_check(torch, tops, gen):
 
 def wide_dx_check(torch, tops, gen):
     """``affine_dx[f32]`` at K = ``WIDE_DW_K`` <- 128 (order 14's intermedia
-    adapter, r=64, batch 24, tile 2) against its plain version within the
-    float32 n-term limit, timed beside the plain version, ``torch.mm`` of
-    the product alone and its bound."""
+    adapter, r=64, batch 24, tile 2) and at K = 192 <- 320 and 512 (a
+    cotangent past the 256 whose W planes a block keeps resident: W staged
+    a slice at a time) against its plain version within the float32
+    n-term limit, timed beside the plain version, ``torch.mm`` of the
+    product alone and its bound."""
+    for k, c in ((WIDE_DW_K, 128), (192, 320), (192, 512)):
+        _wide_dx_case(torch, tops, gen, k, c)
+
+
+def _wide_dx_case(torch, tops, gen, k, c):
     from cunet_tpu_torch.kernels.train_slot import _affine_vec
 
-    m, k, c = TRAIN_BATCH * 64 * 64, WIDE_DW_K, 128
+    m = TRAIN_BATCH * 64 * 64
     tiles = TRAIN_BATCH // BN_TILE
     x = torch.randn(m, k, generator=gen).cuda()
     st = tops.bn_stats_plain(x, torch.empty(tiles, 2, k, device="cuda"))
@@ -5048,9 +5251,10 @@ def bytes_digest(torch, ts):
 TB_F32_PRODUCTS = {"apply": 1, "bwd_reduce": 2, "bwd_dx": 1}
 
 
-def row_times(torch, pattern, tops, bops, tbk):
+def row_times(torch, pattern, tops, bops, tbk, eops=None):
     """``tools/kernel_times.py --rows PATTERN``: the kernel rows of phases
-    9 (a), 13 (a), 14 (a) and 15 (a) whose names match the regular
+    9 (a), 13 (a), 14 (a) and 15 (a) (and with ``eops`` 12 (a)'s float32
+    eval forms at batch 8, r = 64 ... 4) whose names match the regular
     expression ``pattern`` (``re.search``), from the phases' own case
     lists: #7's kernels at bf16 and their float32 forms at r = 64 ... 4
     (``tb_cases``, rows ``train_bottleneck.<name>`` and
@@ -5130,6 +5334,24 @@ def row_times(torch, pattern, tops, bops, tbk):
                           call, bounds, w, lib, prod, fma)
                 if r == 64:
                     outs.setdefault(row, []).extend(got)
+    # phase 12 (a)'s float32 eval forms (batch 8)
+    if eops is not None and hasattr(bops, "dot3_plan"):
+        gen12 = torch.Generator().manual_seed(12)
+        for (row, label, kern, plain_of, make_out, call, bnd, w, fma, lib,
+             prod) in f32_kernel_cases(torch, bops, eops, gen12, BATCH,
+                                       CONV_RES):
+            if not rx.search(row):
+                continue
+
+            def call1(f, make_out=make_out, call=call):
+                o = make_out()
+                call(f, o)
+                return [o]
+
+            got = run(row, label, kern, plain_of[kern], call1, [bnd], w,
+                      lib, prod, fma)
+            if " r=64 " in f" {label} ":
+                outs.setdefault(row, []).extend(got)
     wide = (("train_bottleneck.bwd_reduce[f32]", lambda: (
                  wide_reduce_check(torch, tbk, torch.Generator()
                                    .manual_seed(15)),
@@ -5138,6 +5360,14 @@ def row_times(torch, pattern, tops, bops, tbk):
             ("train_bottleneck.bwd_dx[f32]", lambda: wide_bwd_dx_check(
                 torch, tbk, torch.Generator().manual_seed(16),
                 strict=False)),
+            ("train_bottleneck.bwd_reduce[f32]|train_bottleneck.bwd_dx[f32]",
+             lambda: wide_out_check(torch, tbk, torch.Generator()
+                                    .manual_seed(17), torch.float32,
+                                    strict=False)),
+            ("train_bottleneck.bwd_reduce|train_bottleneck.bwd_dx",
+             lambda: wide_out_check(torch, tbk, torch.Generator()
+                                    .manual_seed(17), torch.bfloat16,
+                                    strict=False)),
             ("affine_dw[f32]", lambda: wide_dw_check(torch, tops, gen)),
             ("affine_dx[f32]", lambda: wide_dx_check(torch, tops, gen)),
             ("affine_dot[f32,tile]|train_bottleneck.apply[f32]",
@@ -5155,6 +5385,23 @@ def slot_f32_counts(tops, bops) -> dict:
     """Launches of the ten forms' float32 kernels, keyed by their rows."""
     counts = {**tops.f32_counts(), **bops.f32_counts()}
     return {row: counts[f"{name}[f32]"] for row, (name, _) in SLOT_F32.items()}
+
+
+# the float32 train convs' wgmma kernel (csrc/conv_f32_kernels.cu): its
+# row, the TPU functions its two forms replace
+CONV_WG = "conv3x3[f32,wgmma]"
+REPLACES[CONV_WG] = REPLACES["conv3x3[f32,tile]"]
+CONV_WG_ALSO = REPLACES["conv3x3_dx[f32]"]
+
+
+def conv_wg_counts(tops, bops) -> dict:
+    """Launches of the wgmma conv kernel by both its forms (the forward's
+    and the dx's), keyed by its row; none where the checkout has no such
+    kernel."""
+    if not hasattr(bops, "wg_counts"):
+        return {}
+    return {CONV_WG: bops.wg_counts()["conv3x3"]
+            + tops.wg_counts()["conv3x3_dx"]}
 
 
 def slot_plain_swapped():
@@ -5190,7 +5437,8 @@ def phase_slot_f32_training(torch, tops, bops, dops, gpu, bf16_times):
     forms = types.SimpleNamespace(
         reset_launch_counts=lambda: (tops.reset_launch_counts(),
                                      bops.reset_launch_counts()),
-        launch_counts=lambda: slot_f32_counts(tops, bops))
+        launch_counts=lambda: {**slot_f32_counts(tops, bops),
+                               **conv_wg_counts(tops, bops)})
     f32_drop = mask_counter(dops.drop_mask, f32=True)
     label = f"slot f32 training (tile {SLOT_F32_TILE})"
     perms = [tile_perm(torch, TRAIN_BATCH, SLOT_F32_TILE, torch.Generator()
@@ -6364,6 +6612,8 @@ def main() -> int:
             torch, tops, ops, dops, gpu)
         lap("7-8")
         tb_kernels = phase_bn0_kernels(torch, tbk)
+        tb_kernels["train_bottleneck.bwd_dx"]["wide_out"] = wide_out_check(
+            torch, tbk, torch.Generator().manual_seed(17), torch.bfloat16)
         tb_launches, bn0_times = phase_bn0_training(torch, tbk, tops, ops,
                                                     dops, gpu)
         lap("9")
@@ -6504,8 +6754,17 @@ def main() -> int:
             else f32_source(name)
         rows.append(row(name, src, r, slot_f32_launches[name],
                         launches_per_step=slot_f32_per_step[name],
-                        **fwd_kernel(name),
+                        **fwd_kernel(name), **conv_kernel(name),
                         one_hot_exact=r["one_hot_exact"]))
+    # the wgmma conv kernel: the forward form's r=64 numbers, the dx's
+    # beside them
+    dx = slot_f32_kernels["conv3x3_dx[f32]"]
+    rows.append(row(CONV_WG, CONV_F32_SOURCE,
+                    slot_f32_kernels["conv3x3[f32,tile]"],
+                    slot_f32_launches[CONV_WG],
+                    launches_per_step=slot_f32_per_step[CONV_WG],
+                    also_replaces=CONV_WG_ALSO,
+                    dx_form={k: dx[k] for k in keys}))
     for name, r in quant_f32_kernels.items():
         if name in QUANT_F32:
             src = f32_source(name)

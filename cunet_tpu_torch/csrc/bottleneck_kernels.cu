@@ -205,7 +205,8 @@ struct RdPlan {
   int stage_bytes;  //   bytes per stage,
   int g_off;        //   the g rows within a stage,
   int pl_off;       //   r's three planes,
-  int xh_off;       //   the gated x_hat
+  int xh_off;       //   the gated x_hat,
+  int w_off;        //   W's slice planes within a stage (streamed W)
 };
 
 // W's rows c0 .. c0 + ROWS (float32 (Ctot, N)) split once into three bf16
@@ -247,12 +248,12 @@ __device__ __forceinline__ void split_w_planes(unsigned char* smem,
 // three are below float32 rounding); the float32 reduce and dx sum in
 // that order on wgmma.)
 template <int MI>
-__device__ __forceinline__ void gw_product(float (&acc)[MI][2][4],
-                                           uint32_t gb, uint32_t wb, int np,
-                                           int wpl, int row0, int col0,
-                                           int lane) {
-  const int gs = np + 8, mat = lane >> 3;
-  for (int kk = 0; kk < np / 16; ++kk) {
+__device__ __forceinline__ void gw_product_n(float (&acc)[MI][2][4],
+                                             uint32_t gb, uint32_t wb, int nk,
+                                             int gs, int wpl, int row0,
+                                             int col0, int lane) {
+  const int mat = lane >> 3;
+  for (int kk = 0; kk < nk; ++kk) {
     uint32_t a[MI][4];
 #pragma unroll
     for (int i = 0; i < MI; ++i)
@@ -273,13 +274,30 @@ __device__ __forceinline__ void gw_product(float (&acc)[MI][2][4],
   }
 }
 
-template <int NB8>
+// The same over all np / 16 k16 steps, g and the planes at a row stride
+// of np + 8.
+template <int MI>
+__device__ __forceinline__ void gw_product(float (&acc)[MI][2][4],
+                                           uint32_t gb, uint32_t wb, int np,
+                                           int wpl, int row0, int col0,
+                                           int lane) {
+  gw_product_n<MI>(acc, gb, wb, np / 16, np + 8, wpl, row0, col0, lane);
+}
+
+// STREAM: np > kWideN, the outputs in slices of kSliceN (NB8 = 4): the
+// grid's z the dW slice; block z = 0 also takes g W^T and the sums, each
+// step's slices an item of its pipeline (g's rows and W's planes of the
+// slice, from the slice images ws of halo.cuh split_w_slices), one
+// accumulator over N in bwd_dx's order; a block z > 0 its own slice's g.
+// Two stages.
+template <int NB8, bool STREAM = false>
 __global__ void __launch_bounds__(kRdThreads, 2)
     tb_bwd_reduce_kernel(const long long* __restrict__ tbl, int G,
                          long long M, int Ctot, const bf16* __restrict__ g,
                          long long ldg, int N, const float* __restrict__ stat,
                          const float* __restrict__ bias,
-                         const float* __restrict__ w, RdPlan p,
+                         const float* __restrict__ w,
+                         const bf16* __restrict__ ws, RdPlan p,
                          float* __restrict__ dw_part,
                          float* __restrict__ sums_part) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -292,9 +310,15 @@ __global__ void __launch_bounds__(kRdThreads, 2)
   const long long rb = (long long)blockIdx.y * p.chunk;
   const long long re = rb + p.chunk < M ? rb + p.chunk : M;
   const int nsteps = (int)((re - rb + kRdRows - 1) / kRdRows);
-  const int np = p.np, gs = np + 8;     // g-plane / W-plane row stride
+  const int np = p.np;
+  // g-plane / W-plane row stride (a slice's when streamed)
+  const int gs = STREAM ? kSliceN + 8 : np + 8;
   const int wpl = kRdCols * gs * 2;     // bytes of one W plane
   float* sst = reinterpret_cast<float*>(smem + p.stat_off);
+  const int nh = STREAM ? (np + kSliceN - 1) / kSliceN : 1;
+  const int z = STREAM ? (int)blockIdx.z : 0;   // this block's dW slice
+  const int per = z == 0 ? nh : 1;              // items of a step
+  const int items = nsteps * per;
 
   // this thread's x vector: columns c0 + xv*8 .. +7, rows xr + 32h
   const int xv = tid & 7, xr = tid >> 3;
@@ -302,32 +326,43 @@ __global__ void __launch_bounds__(kRdThreads, 2)
   ColRef<bf16> xref{nullptr, 0};
   if (xc < Ctot) xref = col_ref<bf16>(tbl, G, xc);
 
-  // step st's x vectors and g rows into stage st % stages; a step past
-  // the chunk commits an empty group, so group st is always step st's
-  const auto issue = [&](int st) {
-    if (st >= nsteps) {
+  // item it (step it / per, its slice) into stage it % stages: the
+  // step's x vectors with its first item, the slice's g rows (and W's
+  // planes where streamed); an item past the chunk commits an empty group,
+  // so group it is always item it's
+  const auto issue = [&](int it) {
+    if (it >= items) {
       cp_async_commit();
       return;
     }
+    const int st = it / per, h = z + it - st * per;
     const long long m0 = rb + (long long)st * kRdRows;
-    const uint32_t base = s0 + p.stage_off + (st % p.stages) * p.stage_bytes;
+    const uint32_t base = s0 + p.stage_off + (it % p.stages) * p.stage_bytes;
+    if (it == st * per) {
 #pragma unroll
-    for (int h = 0; h < kRdRows / 32; ++h) {
-      const int r = xr + 32 * h;
-      const bool ok = xc < Ctot && m0 + r < re;
-      cp_async16(base + (r * XS + xv * 8) * 2,
-                 ok ? xref.x + (m0 + r) * xref.ld : g, ok ? 16 : 0);
+      for (int hh = 0; hh < kRdRows / 32; ++hh) {
+        const int r = xr + 32 * hh;
+        const bool ok = xc < Ctot && m0 + r < re;
+        cp_async16(base + (r * XS + xv * 8) * 2,
+                   ok ? xref.x + (m0 + r) * xref.ld : g, ok ? 16 : 0);
+      }
     }
-    const int gv = np / 8;
+    const int gv = (STREAM ? kSliceN : np) / 8, n0 = h * kSliceN;
     for (int i = tid; i < kRdRows * gv; i += kRdThreads) {
       const int r = i / gv, j = i - (i / gv) * gv;
-      const bool ok = m0 + r < re && j * 8 < N;
+      const bool ok = m0 + r < re && n0 + j * 8 < N;
       cp_async16(base + p.g_off + (r * gs + j * 8) * 2,
-                 ok ? g + (m0 + r) * ldg + j * 8 : g, ok ? 16 : 0);
+                 ok ? g + (m0 + r) * ldg + n0 + j * 8 : g, ok ? 16 : 0);
+    }
+    if (STREAM && z == 0) {
+      const bf16* src = ws + ((long long)blockIdx.x * nh + h) * 3 *
+                                 slice_plane(false);
+      for (int i = tid; i < 3 * wpl / 16; i += kRdThreads)
+        cp_async16(base + p.w_off + i * 16, src + i * 8, 16);
     }
     cp_async_commit();
   };
-  for (int st = 0; st + 1 < p.stages; ++st) issue(st);
+  for (int it = 0; it + 1 < p.stages; ++it) issue(it);
 
   // the columns' BN constants, and W's rows split into three planes once
   if (tid < kRdCols) {
@@ -338,7 +373,8 @@ __global__ void __launch_bounds__(kRdThreads, 2)
     sst[2 * kRdCols + tid] = ok ? stat[2 * Ctot + c] : 0.f;
     sst[3 * kRdCols + tid] = ok ? bias[c] : 0.f;
   }
-  split_w_planes<kRdCols>(smem, w, Ctot, N, c0, np, tid, kRdThreads);
+  if (!STREAM)
+    split_w_planes<kRdCols>(smem, w, Ctot, N, c0, np, tid, kRdThreads);
   __syncthreads();
   float mu[8], is[8], sc[8], bb[8];
 #pragma unroll
@@ -371,48 +407,56 @@ __global__ void __launch_bounds__(kRdThreads, 2)
   const int plb = kRdRows * PS * 2;                // bytes of one r plane
   float* xh = reinterpret_cast<float*>(smem + p.xh_off);
 
-  for (int st = 0; st < nsteps; ++st) {
-    issue(st + p.stages - 1);     // into the stage step st - 1 used
-    if (p.stages == 2) cp_async_wait<1>();   // step st has landed
+  float gw[kRdMI][2][4];   // g W^T of a step, over its slices
+  for (int it = 0; it < items; ++it) {
+    issue(it + p.stages - 1);     // into the stage item it - 1 used
+    if (p.stages == 2) cp_async_wait<1>();   // item it has landed
     else cp_async_wait<0>();
     __syncthreads();
+    const int st = it / per, h = z + it - st * per;
+    const bool first = it == st * per, last = it == st * per + per - 1;
+    const int npl = STREAM ? min(kSliceN, np - h * kSliceN) : np;
     const long long m0 = rb + (long long)st * kRdRows;
-    const uint32_t sb = s0 + p.stage_off + (st % p.stages) * p.stage_bytes;
+    const uint32_t sb = s0 + p.stage_off + (it % p.stages) * p.stage_bytes;
     const unsigned char* sx_ = smem + p.stage_off +
-                               (st % p.stages) * p.stage_bytes;
+                               (it % p.stages) * p.stage_bytes;
 
-    // the recompute, once per element: r's planes and the gated x_hat
+    // the recompute, once per element (with the step's first item): r's
+    // planes and the gated x_hat
+    if (first) {
 #pragma unroll
-    for (int h = 0; h < kRdRows / 32; ++h) {
-      const int r = xr + 32 * h;
-      const bool row_ok = m0 + r < re;
-      const bf16* xin = reinterpret_cast<const bf16*>(sx_) + r * XS + xv * 8;
-      float xf[8];
-      Pack8 in;
-      in.v = *reinterpret_cast<const uint4*>(xin);
+      for (int h = 0; h < kRdRows / 32; ++h) {
+        const int r = xr + 32 * h;
+        const bool row_ok = m0 + r < re;
+        const bf16* xin = reinterpret_cast<const bf16*>(sx_) + r * XS + xv * 8;
+        float xf[8];
+        Pack8 in;
+        in.v = *reinterpret_cast<const uint4*>(xin);
 #pragma unroll
-      for (int t = 0; t < 8; ++t) xf[t] = lo(in, t);
-      Pack8 o1, o2, o3;
-      float hv[8];
+        for (int t = 0; t < 8; ++t) xf[t] = lo(in, t);
+        Pack8 o1, o2, o3;
+        float hv[8];
 #pragma unroll
-      for (int t = 0; t < 8; ++t) {
-        const bool ok = row_ok && xc + t < Ctot;
-        const float xhat = xhat_of(xf[t], mu[t], is[t]);
-        const float y = ybn_of(xhat, sc[t], bb[t]);
-        const bool pass = ok && y > 0.f;
-        split3(pass ? y : 0.f, o1.u[t], o2.u[t], o3.u[t]);
-        hv[t] = pass ? xhat : __int_as_float(0x7fc00000);
+        for (int t = 0; t < 8; ++t) {
+          const bool ok = row_ok && xc + t < Ctot;
+          const float xhat = xhat_of(xf[t], mu[t], is[t]);
+          const float y = ybn_of(xhat, sc[t], bb[t]);
+          const bool pass = ok && y > 0.f;
+          split3(pass ? y : 0.f, o1.u[t], o2.u[t], o3.u[t]);
+          hv[t] = pass ? xhat : __int_as_float(0x7fc00000);
+        }
+        const int e = (r * PS + xv * 8) * 2;
+        *reinterpret_cast<uint4*>(smem + p.pl_off + e) = o1.v;
+        *reinterpret_cast<uint4*>(smem + p.pl_off + plb + e) = o2.v;
+        *reinterpret_cast<uint4*>(smem + p.pl_off + 2 * plb + e) = o3.v;
+        float* hp = xh + r * HS + xv * 8;
+        *reinterpret_cast<float4*>(hp) =
+            make_float4(hv[0], hv[1], hv[2], hv[3]);
+        *reinterpret_cast<float4*>(hp + 4) =
+            make_float4(hv[4], hv[5], hv[6], hv[7]);
       }
-      const int e = (r * PS + xv * 8) * 2;
-      *reinterpret_cast<uint4*>(smem + p.pl_off + e) = o1.v;
-      *reinterpret_cast<uint4*>(smem + p.pl_off + plb + e) = o2.v;
-      *reinterpret_cast<uint4*>(smem + p.pl_off + 2 * plb + e) = o3.v;
-      float* hp = xh + r * HS + xv * 8;
-      *reinterpret_cast<float4*>(hp) = make_float4(hv[0], hv[1], hv[2], hv[3]);
-      *reinterpret_cast<float4*>(hp + 4) =
-          make_float4(hv[4], hv[5], hv[6], hv[7]);
+      __syncthreads();
     }
-    __syncthreads();
 
     // B of the dW product: the n8 tiles of the staged g rows for the
     // step's 16-row slice ks
@@ -420,7 +464,7 @@ __global__ void __launch_bounds__(kRdThreads, 2)
 #pragma unroll
       for (int jp = 0; jp < NB8 / 2; ++jp) {
         uint32_t t4[4] = {0u, 0u, 0u, 0u};
-        if (nb0 + 16 * jp < np)
+        if (nb0 + 16 * jp < npl)
           ldsm_x4_t(t4, gb + ((ks * 16 + b_pix) * gs + nb0 + 16 * jp +
                               8 * (mat >> 1)) * 2);
         b[2 * jp][0] = t4[0];
@@ -428,7 +472,7 @@ __global__ void __launch_bounds__(kRdThreads, 2)
         b[2 * jp + 1][0] = t4[2];
         b[2 * jp + 1][1] = t4[3];
       }
-      if ((NB8 & 1) && nb0 + 8 * (NB8 - 1) < np)
+      if ((NB8 & 1) && nb0 + 8 * (NB8 - 1) < npl)
         ldsm_x2_t(b[NB8 - 1][0], b[NB8 - 1][1],
                   gb + ((ks * 16 + b_pix) * gs + nb0 + 8 * (NB8 - 1)) * 2);
     };
@@ -441,7 +485,7 @@ __global__ void __launch_bounds__(kRdThreads, 2)
                                         dc * 32 + 16 * i) * 2 + t_ofs);
 #pragma unroll
       for (int j = 0; j < NB8; ++j) {
-        if (nb0 + 8 * j >= np) continue;
+        if (nb0 + 8 * j >= npl) continue;
 #pragma unroll
         for (int i = 0; i < 2; ++i)
           mma16816(acc[i][j], a[i], b[j][0], b[j][1]);
@@ -449,55 +493,67 @@ __global__ void __launch_bounds__(kRdThreads, 2)
     };
 
     // dW += sum p_i(r)^T g over the step's rows: the three r planes
-    // times g
+    // times g (the block's slice's)
     const uint32_t gb_ = sb + p.g_off;
+    if (h == z) {
 #pragma unroll
-    for (int ks = 0; ks < kRdRows / 16; ++ks) {
-      uint32_t b[NB8][2] = {};
-      load_b(gb_, ks, b);
+      for (int ks = 0; ks < kRdRows / 16; ++ks) {
+        uint32_t b[NB8][2] = {};
+        load_b(gb_, ks, b);
 #pragma unroll
-      for (int k = 0; k < 3; ++k) dw_plane(k, ks, b);
+        for (int k = 0; k < 3; ++k) dw_plane(k, ks, b);
+      }
     }
 
-    // g W^T for the step's rows, gated; the two sums
-    float gw[kRdMI][2][4];
+    // g W^T for the step's rows (block z = 0), over its slices, gated
+    // after the last; the two sums
+    if (z == 0) {
+      if (first) {
 #pragma unroll
-    for (int i = 0; i < kRdMI; ++i)
+        for (int i = 0; i < kRdMI; ++i)
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
+          for (int j = 0; j < 2; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) gw[i][j][e] = 0.f;
-    gw_product<kRdMI>(gw, gb_, s0, np, wpl, gr0, gc * 16, lane);
-#pragma unroll
-    for (int i = 0; i < kRdMI; ++i)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float* hr = xh + (gr0 + 16 * i + (lane >> 2) + 8 * h) * HS +
-                          gc * 16 + 2 * (lane & 3);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          const float2 v = *reinterpret_cast<const float2*>(hr + 8 * j);
-          const float gv0 = gw[i][j][2 * h], gv1 = gw[i][j][2 * h + 1];
-          if (v.x == v.x) {
-            sg[2 * j] += gv0;
-            sx[2 * j] += __fmul_rn(gv0, v.x);
-          }
-          if (v.y == v.y) {
-            sg[2 * j + 1] += gv1;
-            sx[2 * j + 1] += __fmul_rn(gv1, v.y);
-          }
-        }
+            for (int e = 0; e < 4; ++e) gw[i][j][e] = 0.f;
       }
+      if (STREAM)
+        gw_product_n<kRdMI>(gw, gb_, sb + p.w_off, npl / 16, gs, wpl, gr0,
+                            gc * 16, lane);
+      else
+        gw_product<kRdMI>(gw, gb_, s0, np, wpl, gr0, gc * 16, lane);
+      if (last) {
+#pragma unroll
+        for (int i = 0; i < kRdMI; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float* hr = xh + (gr0 + 16 * i + (lane >> 2) + 8 * h) * HS +
+                              gc * 16 + 2 * (lane & 3);
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const float2 v = *reinterpret_cast<const float2*>(hr + 8 * j);
+              const float gv0 = gw[i][j][2 * h], gv1 = gw[i][j][2 * h + 1];
+              if (v.x == v.x) {
+                sg[2 * j] += gv0;
+                sx[2 * j] += __fmul_rn(gv0, v.x);
+              }
+              if (v.y == v.y) {
+                sg[2 * j + 1] += gv1;
+                sx[2 * j + 1] += __fmul_rn(gv1, v.y);
+              }
+            }
+          }
+      }
+    }
     __syncthreads();
   }
 
-  // the dW partial of this chunk
+  // the dW partial of this chunk (of the block's slice)
   float* dbase = dw_part + (long long)blockIdx.y * Ctot * N;
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int j = 0; j < NB8; ++j) {
-      const int n = nb0 + 8 * j + 2 * (lane & 3);
+      const int n = z * kSliceN + nb0 + 8 * j + 2 * (lane & 3);
       const int c = c0 + dc * 32 + 16 * i + (lane >> 2);
       if (n >= N) continue;
       if (c < Ctot)
@@ -517,7 +573,7 @@ __global__ void __launch_bounds__(kRdThreads, 2)
       sx[e] += __shfl_xor_sync(0xffffffffu, sx[e], o);
     }
   float* red = xh;      // free after the loop's last barrier
-  if (lane < 4)
+  if (z == 0 && lane < 4)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int col = gc * 16 + 8 * (e >> 1) + 2 * lane + (e & 1);
@@ -525,7 +581,7 @@ __global__ void __launch_bounds__(kRdThreads, 2)
       red[(1 * 2 + gr) * kRdCols + col] = sx[e];
     }
   __syncthreads();
-  if (tid < 2 * kRdCols) {
+  if (z == 0 && tid < 2 * kRdCols) {
     const int which = tid / kRdCols, col = tid % kRdCols, c = c0 + col;
     if (c < Ctot)
       sums_part[((long long)blockIdx.y * 2 + which) * Ctot + c] =
@@ -546,8 +602,9 @@ __global__ void __launch_bounds__(kRdThreads, 2)
 //   rows m (16 bytes a row: one output's 8 consecutive rows), core matrix
 //   (n / 8, m / 8 within the tile) at ((k * T + t) * 128 + (n / 8) * 8 +
 //   m / 8) * 128 bytes, zero past N and M (outputs padded to 128). A
-//   cotangent wider than 128 (up to 256) is stored in nh = 2 such halves a
-//   tile, half h of tile t where tile t * nh + h would be.
+//   cotangent wider than 128 is stored in nh = ceil(N / 128) such halves
+//   (slices past two) a tile, half h of tile t where tile t * nh + h would
+//   be.
 // - tb_bwd_reduce_f32_kernel: block (row chunk blockIdx.y, 64 concat
 //   columns blockIdx.x), two warpgroups, one block an SM, steps of kRfRows
 //   rows. Each step's float32 x vectors (through the feature table) and
@@ -577,11 +634,13 @@ __global__ void __launch_bounds__(kRdThreads, 2)
 //     in a fragment, which joins the running sum by one round-to-nearest
 //     float32 add (the tensor cores' float32 accumulation truncates;
 //     dw_f32_kernels.cu's order).
-//   Past 128 outputs (up to 256) the grid's z halves the outputs: block z
-//   takes dW of outputs 128z .. +128 (its g half of each step), and block
-//   0 alone g W^T and the sums, walking each step's two g halves as two
-//   items of its pipeline (k16 steps over N ascending, one accumulator, as
-//   at N <= 128).
+//   Past 128 outputs the grid's z halves the outputs: block z takes dW of
+//   outputs 128z .. +128 (its g half of each step), and block 0 alone g
+//   W^T and the sums, walking each step's g halves as items of its
+//   pipeline (k16 steps over N ascending, one accumulator, as at N <=
+//   128). Past kRfMaxN (STREAM) W's planes are no longer resident: block
+//   0's items stage the half's slice of them too (halo.cuh
+//   split_w_slices), exactly the card's 227 KB.
 //   Row chunks, steps and every order of summation depend on the shapes
 //   alone; each block writes one dW partial (of its outputs) and block
 //   z = 0 one sums partial, which train_ops.sum_rows adds in order.
@@ -592,7 +651,7 @@ __global__ void __launch_bounds__(kRdThreads, 2)
 constexpr int kRfRows = 64;            // rows of a step (a plane tile)
 constexpr int kRfXS = kRdCols + 4;     // staged x row stride, floats
 constexpr int kRfN = 128;              // outputs of a plane tile (padded)
-constexpr int kRfMaxN = 2 * kRfN;      // the widest cotangent
+constexpr int kRfMaxN = 2 * kRfN;      // the widest with W resident
 constexpr int kRfPlane = kRfN * kRfRows * 2;   // bytes of a plane tile
 
 inline int rf_up128(int b) {
@@ -605,20 +664,26 @@ inline int rf_up128(int b) {
 // and g's three plane tiles (the sums' reduction, 2 x 4 x kRdCols floats,
 // takes the first after the last step), then the columns' BN constants.
 struct RfLayout {
-  int wpl;          // bytes of one W plane
+  int wpl;          // bytes of one W plane (0: W streamed)
   int stage_off;    // the first buffer
   int g_off;        // g's plane tiles within a buffer
+  int sw_off;       // W's slice planes within a buffer (streamed W)
   int stage_bytes;  // bytes of a buffer
   int stat_off;     // [mean; inv_sigma; scale; bias] of the columns
   int bytes;
 };
 
+// Past kRfMaxN outputs W's planes do not stay resident: each buffer also
+// takes the item's slice of them (halo.cuh split_w_slices, core matrices,
+// 3 x 16 KB), exactly the card's 227 KB with the rest.
 inline RfLayout rf_layout(int np) {
+  const bool stream = np > kRfMaxN;
   RfLayout l;
-  l.wpl = kRdCols * np * 2;
+  l.wpl = stream ? 0 : kRdCols * np * 2;
   l.stage_off = rf_up128(3 * l.wpl);
   l.g_off = kRfRows * kRfXS * 4;
-  l.stage_bytes = rf_up128(l.g_off + 3 * kRfPlane);
+  l.sw_off = stream ? l.g_off + 3 * kRfPlane : 0;
+  l.stage_bytes = rf_up128(l.g_off + (stream ? 6 : 3) * kRfPlane);
   l.stat_off = l.stage_off + 2 * l.stage_bytes;
   l.bytes = l.stat_off + 4 * kRdCols * 4;
   return l;
@@ -626,15 +691,17 @@ inline RfLayout rf_layout(int np) {
 
 // g (M, N) float32 -> gp, its three planes in 64-row tiles of core
 // matrices (the header above), T = ceil(M / 64) tiles a plane, NH halves
-// of 128 outputs a tile (a template parameter, so the index arithmetic
-// below is shifts). Thread (t, n, mg) splits rows t*64 + mg*8 .. +8 of
-// output n; a warp's 32 outputs read each row coalesced.
+// (slices past two) of 128 outputs a tile. Thread (t, n, mg) splits rows
+// t*64 + mg*8 .. +8 of output n; a warp's 32 outputs read each row
+// coalesced.
 template <int NH>
 __global__ void __launch_bounds__(kThreads)
     tb_split_g_kernel(const float* __restrict__ g, long long ldg,
-                      long long M, int N, long long T,
+                      long long M, int N, long long T, int nhr,
                       bf16* __restrict__ gp) {
-  constexpr int nh = NH, nw = NH * kRfN;
+  // NH halves a tile (a constant, so the index arithmetic is shifts), or
+  // with NH = 0 nhr of them
+  const int nh = NH ? NH : nhr, nw = nh * kRfN;
   const long long total = T * nw * 8;
   for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
        i < total; i += (long long)gridDim.x * kThreads) {
@@ -698,19 +765,24 @@ __device__ __forceinline__ void wgmma_m64n128(float (&d)[64],
 }
 
 // NT8: k16 steps of g W^T over a g half (np / 16 where np <= kRfN). WIDE:
-// np > kRfN, two halves (NT8 = 8), grid z the dW half.
-template <int NT8, bool WIDE>
+// np > kRfN, halves of kRfN outputs (NT8 = 8), grid z the dW half: two
+// with W resident, or (STREAM, np > kRfMaxN) any number, W's planes
+// staged with each item's half from the slices of ws (halo.cuh
+// split_w_slices; the block's column block's images).
+template <int NT8, bool WIDE, bool STREAM = false>
 __global__ void __launch_bounds__(kRdThreads, 1)
     tb_bwd_reduce_f32_kernel(const long long* __restrict__ tbl, int G,
                              long long M, int Ctot,
                              const bf16* __restrict__ gp, long long T, int N,
                              const float* __restrict__ stat,
                              const float* __restrict__ bias,
-                             const float* __restrict__ w, long long chunk,
+                             const float* __restrict__ w,
+                             const bf16* __restrict__ ws, long long chunk,
                              RfLayout L, float* __restrict__ dw_part,
                              float* __restrict__ sums_part) {
   const int np = WIDE ? (N + 15) / 16 * 16 : 16 * NT8;
-  const int nh = WIDE ? 2 : 1;                 // g halves of a tile
+  // g halves of a tile
+  const int nh = STREAM ? (np + kRfN - 1) / kRfN : WIDE ? 2 : 1;
   const int z = WIDE ? (int)blockIdx.z : 0;    // this block's dW half
   // block z = 0 walks both halves of a step (g W^T reads all of N), a
   // block z > 0 its own
@@ -751,11 +823,18 @@ __global__ void __launch_bounds__(kRdThreads, 1)
       for (int i = tid; i < kRfPlane / 16; i += kRdThreads)
         cp_async16(base + L.g_off + k * kRfPlane + i * 16, src + i * 8, 16);
     }
+    if (STREAM && z == 0) {
+      // W's planes of the half (g W^T reads them)
+      const bf16* src =
+          ws + ((long long)blockIdx.x * nh + h) * 3 * slice_plane(true);
+      for (int i = tid; i < 3 * kRfPlane / 16; i += kRdThreads)
+        cp_async16(base + L.sw_off + i * 16, src + i * 8, 16);
+    }
     cp_async_commit();
   };
   issue(0);
-  if (z == 0) split_w_cores<kRdCols>(smem, w, Ctot, N, c0, np, tid,
-                                      kRdThreads);
+  if (!STREAM && z == 0)
+    split_w_cores<kRdCols>(smem, w, Ctot, N, c0, np, tid, kRdThreads);
 
   // the columns' BN constants [mean, inv_sigma, scale, bias] as one
   // 16-byte vector a column
@@ -826,7 +905,12 @@ __global__ void __launch_bounds__(kRdThreads, 1)
                         (lane & 7) * 16);
         const int kn = NT8 * h + kk;   // the k16 step within N
         const auto bd = [&](int pw) {
-          return smem_desc(s0 + pw * L.wpl + 2 * kn * 128, 128, np * 16);
+          return STREAM ? smem_desc(s0 + L.stage_off + (it & 1) *
+                                        L.stage_bytes + L.sw_off +
+                                        pw * kRfPlane + 2 * kk * 128,
+                                    128, kRfN * 16)
+                        : smem_desc(s0 + pw * L.wpl + 2 * kn * 128, 128,
+                                    np * 16);
         };
         const uint32_t (&ak)[3][4] = a[kk & 1];
         wgmma_fence();
@@ -1015,16 +1099,23 @@ struct DxPlan {
   int tbl_off;      // shared-memory byte offsets: the x then dx chunks,
   int stage_off;    //   the first x / g stage,
   int stage_bytes;  //   bytes per stage (two stages),
-  int g_off;        //   the g rows within a stage
+  int g_off;        //   the g rows within a stage,
+  int w_off;        //   W's slice planes within a stage (streamed W)
 };
 
+// STREAM: np > kWideN, each step walked in slices of kSliceN outputs, an
+// item of the pipeline each (g's rows and W's planes of the slice, from
+// the slice images ws of halo.cuh split_w_slices; the step's x with its
+// last slice), one accumulator over N.
+template <bool STREAM>
 __global__ void __launch_bounds__(kThreads, 2)
     tb_bwd_dx_kernel(const long long* __restrict__ tbl, int G, int M,
                      int Ctot, const bf16* __restrict__ g, long long ldg,
                      int N, const float* __restrict__ stat,
                      const float* __restrict__ bias,
                      const float* __restrict__ red,
-                     const float* __restrict__ w, DxPlan p) {
+                     const float* __restrict__ w,
+                     const bf16* __restrict__ ws, DxPlan p) {
   constexpr int XS = kDxCols + 8;      // x tile row stride
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t s0 = smem_u32(smem);
@@ -1034,29 +1125,41 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int first = blockIdx.x / p.ngrp, stride = gridDim.x / p.ngrp;
   if (first >= steps) return;
   const int Q = (steps - 1 - first) / stride + 1;
-  const int np = p.np, gs = np + 8, wpl = kDxCols * gs * 2;
+  const int np = p.np;
+  // g and W-plane row stride (a slice's when streamed), slices of a step
+  const int gs = STREAM ? kSliceN + 8 : np + 8, wpl = kDxCols * gs * 2;
+  const int nh = STREAM ? (np + kSliceN - 1) / kSliceN : 1;
   Chunk* ch = reinterpret_cast<Chunk*>(smem + p.tbl_off);   // x, then dx
 
   if (tid < 2 * kDxChunks)
     ch[tid] = table_chunk(tbl, G, Ctot, c0 + (tid % kDxChunks) * 8,
                           tid < kDxChunks ? 0 : 4);
   __syncthreads();
-  const auto issue = [&](int q) {
+  // item it (step it / nh, slice it % nh) into stage it & 1
+  const auto issue = [&](int it) {
+    const int q = it / nh, h = it - q * nh;
     const int m0 = (first + q * stride) * kDxRows;
-    const uint32_t base = s0 + p.stage_off + (q & 1) * p.stage_bytes;
-    load_chunks(base, ch, M, m0, kDxRows, kDxCols, tid, kThreads);
-    const int gv = np / 8;
+    const uint32_t base = s0 + p.stage_off + (it & 1) * p.stage_bytes;
+    if (h == nh - 1)
+      load_chunks(base, ch, M, m0, kDxRows, kDxCols, tid, kThreads);
+    const int gv = (STREAM ? kSliceN : np) / 8, n0 = h * kSliceN;
     for (int i = tid; i < kDxRows * gv; i += kThreads) {
       const int r = i / gv, j = i - r * gv;
-      const bool ok = m0 + r < M && j * 8 < N;
+      const bool ok = m0 + r < M && n0 + j * 8 < N;
       cp_async16(base + p.g_off + (r * gs + j * 8) * 2,
-                 ok ? g + (long long)(m0 + r) * ldg + j * 8 : g,
+                 ok ? g + (long long)(m0 + r) * ldg + n0 + j * 8 : g,
                  ok ? 16 : 0);
+    }
+    if (STREAM) {
+      const bf16* src = ws + ((long long)(c0 / kDxCols) * nh + h) * 3 *
+                                 slice_plane(false);
+      for (int i = tid; i < 3 * wpl / 16; i += kThreads)
+        cp_async16(base + p.w_off + i * 16, src + i * 8, 16);
     }
     cp_async_commit();
   };
   issue(0);
-  split_w_planes<kDxCols>(smem, w, Ctot, N, c0, np, tid, kThreads);
+  if (!STREAM) split_w_planes<kDxCols>(smem, w, Ctot, N, c0, np, tid, kThreads);
 
   // warp (wr, wc): rows wr*32 .. +32, columns wc*16 .. +16; this lane's
   // four columns wc*16 + 8j + 2(lane & 3) + e and their BN constants
@@ -1087,21 +1190,30 @@ __global__ void __launch_bounds__(kThreads, 2)
     return __fmul_rn(cf[j][e], v);
   };
 
-  for (int q = 0; q < Q; ++q) {
+  float acc[2][2][4];
+  for (int it = 0; it < Q * nh; ++it) {
     cp_async_wait<0>();
-    __syncthreads();   // step q (and the planes) landed; step q-1 stored
-    if (q + 1 < Q) issue(q + 1);
+    __syncthreads();   // item it (and the planes) landed; item it-1 done
+    if (it + 1 < Q * nh) issue(it + 1);
+    const int q = it / nh, h = it - q * nh;
     const int m0 = (first + q * stride) * kDxRows;
-    const int sb = p.stage_off + (q & 1) * p.stage_bytes;
-    float acc[2][2][4];
+    const int sb = p.stage_off + (it & 1) * p.stage_bytes;
+    if (h == 0) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+      for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
+        for (int j = 0; j < 2; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-    gw_product<2>(acc, s0 + sb + p.g_off, s0, np, wpl, wr * 32, wc * 16,
-                  lane);
+          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+    }
+    if (STREAM)
+      gw_product_n<2>(acc, s0 + sb + p.g_off, s0 + sb + p.w_off,
+                      min(kSliceN, np - h * kSliceN) / 16, gs, wpl, wr * 32,
+                      wc * 16, lane);
+    else
+      gw_product<2>(acc, s0 + sb + p.g_off, s0, np, wpl, wr * 32, wc * 16,
+                    lane);
+    if (h < nh - 1) continue;
 
     // the epilogue, each dx in place of its x
     bf16* xt = reinterpret_cast<bf16*>(smem + sb);
@@ -1137,38 +1249,43 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-template <int NB8>
+template <int NB8, bool STREAM = false>
 int launch_bwd_reduce(const long long* tbl, int G, long long M, int Ctot,
                       const bf16* g, long long ldg, int N, const float* stat,
-                      const float* bias, const float* w, const RdPlan& p,
-                      float* dw_part, float* sums_part, int smem,
-                      cudaStream_t st) {
+                      const float* bias, const float* w, const bf16* ws,
+                      const RdPlan& p, float* dw_part, float* sums_part,
+                      int smem, cudaStream_t st) {
   const cudaError_t e = cudaFuncSetAttribute(
-      tb_bwd_reduce_kernel<NB8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      tb_bwd_reduce_kernel<NB8, STREAM>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((unsigned)((Ctot + kRdCols - 1) / kRdCols),
-                  (unsigned)((M + p.chunk - 1) / p.chunk));
-  tb_bwd_reduce_kernel<NB8><<<grid, kRdThreads, smem, st>>>(
-      tbl, G, M, Ctot, g, ldg, N, stat, bias, w, p, dw_part, sums_part);
+                  (unsigned)((M + p.chunk - 1) / p.chunk),
+                  STREAM ? (p.np + kSliceN - 1) / kSliceN : 1);
+  tb_bwd_reduce_kernel<NB8, STREAM><<<grid, kRdThreads, smem, st>>>(
+      tbl, G, M, Ctot, g, ldg, N, stat, bias, w, ws, p, dw_part, sums_part);
   return (int)cudaGetLastError();
 }
 
-template <int NT8, bool WIDE>
+template <int NT8, bool WIDE, bool STREAM = false>
 int launch_bwd_reduce_f32(const long long* tbl, int G, long long M, int Ctot,
                           const bf16* gp, long long T, int N,
                           const float* stat, const float* bias,
-                          const float* w, long long chunk, const RfLayout& l,
-                          float* dw_part, float* sums_part, cudaStream_t st) {
+                          const float* w, const bf16* ws, long long chunk,
+                          const RfLayout& l, float* dw_part,
+                          float* sums_part, cudaStream_t st) {
   const cudaError_t e = cudaFuncSetAttribute(
-      tb_bwd_reduce_f32_kernel<NT8, WIDE>,
+      tb_bwd_reduce_f32_kernel<NT8, WIDE, STREAM>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, l.bytes);
   if (e != cudaSuccess) return (int)e;
+  const int np = (N + 15) / 16 * 16;
   const dim3 grid((unsigned)((Ctot + kRdCols - 1) / kRdCols),
-                  (unsigned)((M + chunk - 1) / chunk), WIDE ? 2 : 1);
-  tb_bwd_reduce_f32_kernel<NT8, WIDE><<<grid, kRdThreads, l.bytes, st>>>(
-      tbl, G, M, Ctot, gp, T, N, stat, bias, w, chunk, l, dw_part,
-      sums_part);
+                  (unsigned)((M + chunk - 1) / chunk),
+                  STREAM ? (np + kRfN - 1) / kRfN : WIDE ? 2 : 1);
+  tb_bwd_reduce_f32_kernel<NT8, WIDE, STREAM>
+      <<<grid, kRdThreads, l.bytes, st>>>(tbl, G, M, Ctot, gp, T, N, stat,
+                                          bias, w, ws, chunk, l, dw_part,
+                                          sums_part);
   return (int)cudaGetLastError();
 }
 
@@ -1185,21 +1302,30 @@ int stats(const void* tbl, int G, long long M, int Ctot, long long chunk,
 
 int bwd_reduce(const void* tbl, int G, long long M, int Ctot, const void* g,
                long long ldg, int N, const void* stat, const void* bias,
-               const void* w, const RdPlan& p, int smem, void* dw_part,
-               void* sums_part, void* stream) {
+               const void* w, void* ws, const RdPlan& p, int smem,
+               void* dw_part, void* sums_part, void* stream) {
   const auto* tp = static_cast<const long long*>(tbl);
   const auto* gp = static_cast<const bf16*>(g);
   const auto* sp = static_cast<const float*>(stat);
   const auto* bp = static_cast<const float*>(bias);
   const auto* wp = static_cast<const float*>(w);
+  auto* wsp = static_cast<bf16*>(ws);
   auto* dp = static_cast<float*>(dw_part);
   auto* rp = static_cast<float*>(sums_part);
   const auto st = static_cast<cudaStream_t>(stream);
+  if (p.np > kWideN) {
+    if (!ws || p.stages != 2) return (int)cudaErrorInvalidValue;
+    const int e = split_w_slices(wp, N, Ctot, N, false, wsp, st);
+    if (e) return e;
+    return launch_bwd_reduce<kSliceN / 32, true>(tp, G, M, Ctot, gp, ldg, N,
+                                                 sp, bp, wp, wsp, p, dp, rp,
+                                                 smem, st);
+  }
   switch ((p.np + 31) / 32) {
 #define CUNET_RD_NB8(n)                                                 \
   case n:                                                               \
     return launch_bwd_reduce<n>(tp, G, M, Ctot, gp, ldg, N, sp, bp, wp, \
-                                p, dp, rp, smem, st);
+                                wsp, p, dp, rp, smem, st);
     CUNET_RD_NB8(1) CUNET_RD_NB8(2) CUNET_RD_NB8(3) CUNET_RD_NB8(4)
     CUNET_RD_NB8(5) CUNET_RD_NB8(6) CUNET_RD_NB8(7) CUNET_RD_NB8(8)
 #undef CUNET_RD_NB8
@@ -1212,13 +1338,18 @@ int bwd_reduce(const void* tbl, int G, long long M, int Ctot, const void* g,
 int split_g(const float* g, long long ldg, long long M, int N, bf16* gp,
             cudaStream_t st) {
   const long long T = (M + kRfRows - 1) / kRfRows;
-  const int nh = N > kRfN ? 2 : 1;
+  const int nh = (N + kRfN - 1) / kRfN;
   const long long want = (T * nh * kRfN * 8 + kThreads - 1) / kThreads;
   const unsigned blocks = (unsigned)(want < 132 * 16 ? want : 132 * 16);
   if (nh == 2)
-    tb_split_g_kernel<2><<<blocks, kThreads, 0, st>>>(g, ldg, M, N, T, gp);
+    tb_split_g_kernel<2><<<blocks, kThreads, 0, st>>>(g, ldg, M, N, T, nh,
+                                                      gp);
+  else if (nh == 1)
+    tb_split_g_kernel<1><<<blocks, kThreads, 0, st>>>(g, ldg, M, N, T, nh,
+                                                      gp);
   else
-    tb_split_g_kernel<1><<<blocks, kThreads, 0, st>>>(g, ldg, M, N, T, gp);
+    tb_split_g_kernel<0><<<blocks, kThreads, 0, st>>>(g, ldg, M, N, T, nh,
+                                                      gp);
   return (int)cudaGetLastError();
 }
 
@@ -1252,38 +1383,44 @@ int cunet_tb_stats(const void* tbl, int G, long long M, int Ctot,
              : stats<bf16>(tbl, G, M, Ctot, chunk, part, stream);
 }
 
+// Past kWideN outputs W is split first into its slice images at ws
+// (halo.cuh split_w_slices, rows of kSliceN + 8; the caller's,
+// ceil(Ctot / 64) * ceil(N / 128) * 3 * 64 * 136 bf16).
 int cunet_tb_bwd_reduce(const void* tbl, int G, long long M, int Ctot,
                         const void* g, long long ldg, int N, const void* stat,
-                        const void* bias, const void* w, long long chunk,
-                        int np, int stages, int stat_off, int stage_off,
-                        int stage_bytes, int g_off, int pl_off, int xh_off,
-                        int smem, void* dw_part, void* sums_part,
-                        void* stream) {
+                        const void* bias, const void* w, void* ws,
+                        long long chunk, int np, int stages, int stat_off,
+                        int stage_off, int stage_bytes, int g_off, int pl_off,
+                        int xh_off, int w_off, int smem, void* dw_part,
+                        void* sums_part, void* stream) {
   const RdPlan p{chunk, np, stages, stat_off, stage_off, stage_bytes, g_off,
-                 pl_off, xh_off};
-  return bwd_reduce(tbl, G, M, Ctot, g, ldg, N, stat, bias, w, p, smem,
+                 pl_off, xh_off, w_off};
+  return bwd_reduce(tbl, G, M, Ctot, g, ldg, N, stat, bias, w, ws, p, smem,
                     dw_part, sums_part, stream);
 }
 
 // The reduce over float32 features and g: g split into its planes at gp
-// (3 x ceil(M / 64) x nh x 64 x 128 bf16, nh = 2 past 128 outputs, the
+// (3 x ceil(M / 64) x nh x 64 x 128 bf16, nh = ceil(N / 128) halves, the
 // caller's), then the reduce in row chunks of ``chunk``
 // (train_bottleneck.reduce_plan_f32; ``smem`` checked against the
-// kernel's layout).
+// kernel's layout). Past kRfMaxN outputs W is split first into its slice
+// images at ws (halo.cuh split_w_slices, core matrices; the caller's,
+// ceil(Ctot / 64) * nh * 3 * 64 * 128 bf16), which the reduce stages.
 int cunet_tb_bwd_reduce_f32(const void* tbl, int G, long long M, int Ctot,
                             const void* g, long long ldg, int N,
                             const void* stat, const void* bias,
-                            const void* w, void* gp, long long chunk, int np,
-                            int smem, void* dw_part, void* sums_part,
-                            void* stream) {
+                            const void* w, void* gp, void* ws,
+                            long long chunk, int np, int smem, void* dw_part,
+                            void* sums_part, void* stream) {
   const RfLayout l = rf_layout(np);
-  if (N % 8 || np % 16 || np < N || np - N >= 16 || np > kRfMaxN ||
+  const bool stream_w = np > kRfMaxN;
+  if (N % 8 || np % 16 || np < N || np - N >= 16 || (stream_w && !ws) ||
       chunk % kRfRows || chunk < 1 || l.bytes != smem)
     return (int)cudaErrorInvalidValue;
   const auto st = static_cast<cudaStream_t>(stream);
   auto* planes = static_cast<bf16*>(gp);
   const long long T = (M + kRfRows - 1) / kRfRows;
-  const int nh = np > kRfN ? 2 : 1;
+  const int nh = (np + kRfN - 1) / kRfN;
   const int e = split_g(static_cast<const float*>(g), ldg, M, N, planes, st);
   if (e) return e;
   const auto* tp = static_cast<const long long*>(tbl);
@@ -1292,16 +1429,23 @@ int cunet_tb_bwd_reduce_f32(const void* tbl, int G, long long M, int Ctot,
   const auto* wp = static_cast<const float*>(w);
   auto* dp = static_cast<float*>(dw_part);
   auto* rp = static_cast<float*>(sums_part);
+  auto* wsp = static_cast<bf16*>(ws);
+  if (stream_w) {
+    const int e2 = split_w_slices(wp, N, Ctot, N, true, wsp, st);
+    if (e2) return e2;
+    return launch_bwd_reduce_f32<kRfN / 16, true, true>(
+        tp, G, M, Ctot, planes, T, N, sp, bp, wp, wsp, chunk, l, dp, rp, st);
+  }
   if (nh == 2)
     return launch_bwd_reduce_f32<kRfN / 16, true>(tp, G, M, Ctot, planes, T,
-                                                  N, sp, bp, wp, chunk, l,
-                                                  dp, rp, st);
+                                                  N, sp, bp, wp, wsp, chunk,
+                                                  l, dp, rp, st);
   switch (np / 16) {
 #define CUNET_RF(n)                                                        \
   case n:                                                                  \
     return launch_bwd_reduce_f32<n, false>(tp, G, M, Ctot, planes, T, N,  \
-                                           sp, bp, wp, chunk, l, dp, rp,  \
-                                           st);
+                                           sp, bp, wp, wsp, chunk, l, dp, \
+                                           rp, st);
     CUNET_RF(1) CUNET_RF(2) CUNET_RF(3) CUNET_RF(4) CUNET_RF(5) CUNET_RF(6)
     CUNET_RF(7) CUNET_RF(8)
 #undef CUNET_RF
@@ -1314,28 +1458,39 @@ int cunet_tb_bwd_reduce_f32(const void* tbl, int G, long long M, int Ctot,
 // planes).
 int cunet_tb_split_g(const void* g, long long ldg, long long M, int N,
                      void* gp, void* stream) {
-  if (N % 8 || N < 8 || N > kRfMaxN) return (int)cudaErrorInvalidValue;
+  if (N % 8 || N < 8) return (int)cudaErrorInvalidValue;
   return split_g(static_cast<const float*>(g), ldg, M, N,
                  static_cast<bf16*>(gp), static_cast<cudaStream_t>(stream));
 }
 
+// Past kWideN outputs W is split first into its slice images at ws
+// (halo.cuh split_w_slices, rows of kSliceN + 8; the caller's,
+// ceil(Ctot / 64) * ceil(N / 128) * 3 * 64 * 136 bf16).
 int cunet_tb_bwd_dx(const void* tbl, int G, long long M, int Ctot,
                     const void* g, long long ldg, int N, const void* stat,
                     const void* bias, const void* red, const void* w,
-                    int ngrp, int np, int tbl_off, int stage_off,
-                    int stage_bytes, int g_off, int smem, void* stream) {
-  const DxPlan p{ngrp, np, tbl_off, stage_off, stage_bytes, g_off};
+                    void* ws, int ngrp, int np, int tbl_off, int stage_off,
+                    int stage_bytes, int g_off, int w_off, int smem,
+                    void* stream) {
+  const DxPlan p{ngrp, np, tbl_off, stage_off, stage_bytes, g_off, w_off};
+  const bool stream_w = np > kWideN;
+  if (stream_w && !ws) return (int)cudaErrorInvalidValue;
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (stream_w) {
+    const int e = split_w_slices(static_cast<const float*>(w), N, Ctot, N,
+                                 false, static_cast<bf16*>(ws), st);
+    if (e) return e;
+  }
   const int items = (int)((M + kDxRows - 1) / kDxRows) * p.ngrp;
+  auto kern = stream_w ? tb_bwd_dx_kernel<true> : tb_bwd_dx_kernel<false>;
   int grid = 0;
-  const int e = persistent_grid(tb_bwd_dx_kernel, items, kThreads, smem,
-                                p.ngrp, &grid);
+  const int e = persistent_grid(kern, items, kThreads, smem, p.ngrp, &grid);
   if (e) return e;
-  tb_bwd_dx_kernel<<<grid, kThreads, smem,
-                     static_cast<cudaStream_t>(stream)>>>(
+  kern<<<grid, kThreads, smem, st>>>(
       static_cast<const long long*>(tbl), G, (int)M, Ctot,
       static_cast<const bf16*>(g), ldg, N, static_cast<const float*>(stat),
       static_cast<const float*>(bias), static_cast<const float*>(red),
-      static_cast<const float*>(w), p);
+      static_cast<const float*>(w), static_cast<const bf16*>(ws), p);
   return (int)cudaGetLastError();
 }
 

@@ -36,10 +36,11 @@
 //   the gate) arrive by cp.async into two buffers, the next tile's
 //   loading while this one computes (a third buffer measured no faster,
 //   PERF.md section 6); one barrier a tile. A cotangent wider than 128
-//   (up to 256) arrives in slices of 128 depths, each an item of the
-//   pipeline with a barrier of its own, the chunks of every slice joining
-//   one running sum in ascending depth (the same order of sums); x comes
-//   with the tile's last slice.
+//   arrives in slices of 128 depths, each an item of the pipeline with a
+//   barrier of its own, the chunks of every slice joining one running sum
+//   in ascending depth (the same order of sums); x comes with the tile's
+//   last slice. Past kWideN (STREAM) W's planes come with each slice too
+//   (halo.cuh split_w_slices), none resident.
 // - Warpgroup wn owns the tile's 64 rows x 32 columns (wgmma m64n32k16),
 //   its warp wm 16 rows: the dy fragments are read as float32 pairs from
 //   the staged rows and split into their three planes in registers, two
@@ -73,9 +74,10 @@ constexpr int kDx3Slice = 128;  // depths of a staged slice of dy
 // slice of sw depths (sw + 8 floats; sw = np up to kDx3Slice) and
 // kDx3Rows x rows (kDx3XS floats).
 struct Dx3Layout {
-  int w_plane;      // bytes of one W plane
+  int w_plane;      // bytes of one W plane (0: W streamed)
   int stage_off;    // the first buffer
   int x_off;        // the x rows within a buffer
+  int sw_off;       // the slice's W planes within a buffer (streamed W)
   int stage_bytes;  // bytes of a buffer
   int bytes;
 };
@@ -84,13 +86,19 @@ inline int up128(int b) {
   return (b + 127) / 128 * 128;
 }
 
+// Past kWideN depths W's planes do not stay resident: each buffer also
+// takes its slice of them (halo.cuh split_w_slices, core matrices, 3 x 16
+// KB).
 inline Dx3Layout dx3_layout(int np) {
   Dx3Layout l;
+  const bool stream = np > kWideN;
   const int sw = np < kDx3Slice ? np : kDx3Slice;
-  l.w_plane = kDx3Cols * np * 2;
+  l.w_plane = stream ? 0 : kDx3Cols * np * 2;
   l.stage_off = up128(3 * l.w_plane);
   l.x_off = kDx3Rows * (sw + 8) * 4;
-  l.stage_bytes = up128(l.x_off + kDx3Rows * kDx3XS * 4);
+  l.sw_off = stream ? l.x_off + kDx3Rows * kDx3XS * 4 : 0;
+  l.stage_bytes = up128(l.x_off + kDx3Rows * kDx3XS * 4 +
+                        (stream ? 3 * kDx3Cols * kDx3Slice * 2 : 0));
   l.bytes = l.stage_off + 2 * l.stage_bytes;
   return l;
 }
@@ -111,14 +119,16 @@ struct Dx3Args {
   int M, N, K;
   int np;        // N padded to 16
   int nkb;       // column blocks of kDx3Cols
+  const bf16* ws;   // W's slice images (streamed W: halo.cuh split_w_slices)
   Dx3Layout L;
 };
 
 // NK: k16 steps of a slice (np / 16 where np <= kDx3Slice), so the
 // product loop unrolls whole and the next step's loads and splits overlap
 // this one's products. WIDE: np > kDx3Slice, walked in slices of
-// kDx3Slice depths (NK = 8), the last one np - kDx3Slice * (ns - 1) deep.
-template <int NK, bool STE, bool WIDE>
+// kDx3Slice depths (NK = 8), the last one np - kDx3Slice * (ns - 1) deep;
+// STREAM: np > kWideN, each slice's W planes staged with its dy.
+template <int NK, bool STE, bool WIDE, bool STREAM = false>
 __global__ void __launch_bounds__(kThreads, 1)
     dx3_kernel(const __grid_constant__ Dx3Args a) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -162,6 +172,12 @@ __global__ void __launch_bounds__(kThreads, 1)
                    ok ? 16 : 0);
       }
     }
+    if (STREAM) {
+      const bf16* src = a.ws + ((long long)(k0 / kDx3Cols) * ns + sl) * 3 *
+                                   slice_plane(true);
+      for (int i = tid; i < 3 * kDx3Cols * kDx3Slice / 8; i += kThreads)
+        cp_async16(base + L.sw_off + i * 16, src + i * 8, 16);
+    }
     cp_async_commit();
   };
   issue(0);
@@ -170,7 +186,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   // matrices: plane p's row kl, depths n .. n + 4 at p * w_plane +
   // ((kl / 8) * ng + n / 8) * 128 + (kl % 8) * 16 + (n % 8) * 2, zero past
   // K and N (all np depths, every slice's)
-  {
+  if (!STREAM) {
     const int wv = np / 4;
     for (int i = tid; i < kDx3Cols * wv; i += kThreads) {
       const int kl = i / wv, v = i - kl * wv;
@@ -192,10 +208,16 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int g = lane >> 2, q4 = lane & 3;
   const bool odd = q4 & 1;
   // B of the k16 step at depth kk, W plane pw: the core matrices of column
-  // groups 4wn .. 4wn + 3, depth groups kk / 8, kk / 8 + 1
-  const auto bdesc = [&](int pw, int kk) {
-    return smem_desc(s0 + pw * L.w_plane + (4 * wn * ng + kk / 8) * 128, 128,
-                     ng * 128);
+  // groups 4wn .. 4wn + 3, depth groups kk / 8, kk / 8 + 1 (streamed: of
+  // the slice's planes in buffer b, kk within the slice)
+  const auto bdesc = [&](int pw, int kk, int b) {
+    return STREAM ? smem_desc(s0 + L.stage_off + b * L.stage_bytes +
+                                  L.sw_off + pw * kDx3Cols * kDx3Slice * 2 +
+                                  (4 * wn * (kDx3Slice / 8) + kk / 8) * 128,
+                              128, kDx3Slice / 8 * 128)
+                  : smem_desc(s0 + pw * L.w_plane +
+                                  (4 * wn * ng + kk / 8) * 128,
+                              128, ng * 128);
   };
   // the epilogue: this lane's row of the tile and its four columns of each
   // n8 tile j, kl0 + 8j .. +4
@@ -236,12 +258,13 @@ __global__ void __launch_bounds__(kThreads, 1)
       split_pair(v3.x, v3.y, A[0][3], A[1][3], A[2][3]);
     };
     const auto k16 = [&](int kk, const uint32_t (&A)[3][4]) {
-      wgmma_m64n32(part, A[0], bdesc(2, kk));
-      wgmma_m64n32(part, A[1], bdesc(1, kk));
-      wgmma_m64n32(part, A[0], bdesc(1, kk));
-      wgmma_m64n32(part, A[2], bdesc(0, kk));
-      wgmma_m64n32(part, A[1], bdesc(0, kk));
-      wgmma_m64n32(part, A[0], bdesc(0, kk));
+      const int kb = STREAM ? kk - n0 : kk, b = it & 1;
+      wgmma_m64n32(part, A[0], bdesc(2, kb, b));
+      wgmma_m64n32(part, A[1], bdesc(1, kb, b));
+      wgmma_m64n32(part, A[0], bdesc(1, kb, b));
+      wgmma_m64n32(part, A[2], bdesc(0, kb, b));
+      wgmma_m64n32(part, A[1], bdesc(0, kb, b));
+      wgmma_m64n32(part, A[0], bdesc(0, kb, b));
     };
 #pragma unroll
     for (int c0 = 0; c0 < sw; c0 += 32) {
@@ -320,17 +343,20 @@ extern "C" {
 // row stride ldw as it lies, x (M, K) at ldx, the gate's per-tile vectors
 // (inv, shift, vstride, tile_rows as buf_ops._vec_args gives them), out
 // (M, K) at ldo; ste: QuanInput's straight-through gate too. The plan's
-// (train_ops.affine_dx_f32_plan): nkb column blocks, np = N padded to 16
-// (at most 2 kDx3Slice), ``smem`` bytes (checked against the kernel's
-// layout).
+// (train_ops.affine_dx_f32_plan): nkb column blocks, np = N padded to 16,
+// ``smem`` bytes (checked against the kernel's layout). Past kWideN W is
+// split first into its slice images at ws (halo.cuh split_w_slices, core
+// matrices; the caller's, nkb * ceil(N / 128) * 3 * 64 * 128 bf16).
 int cunet_dx_f32(const void* dy, long long ldd, long long M, int N,
                  const void* w, long long ldw, int K, const void* x,
                  long long ldx, const void* inv, const void* shift,
                  long long vstride, long long tile_rows, int ste, void* out,
-                 long long ldo, int nkb, int np, int smem, void* stream) {
+                 long long ldo, void* ws, int nkb, int np, int smem,
+                 void* stream) {
   const Dx3Layout l = dx3_layout(np);
+  const bool stream_w = np > kWideN;
   if (N % 4 || K % 4 || np % 16 || np < N || np - N >= 16 ||
-      np > 2 * kDx3Slice || vstride % 4 || tile_rows < 1 ||
+      (stream_w && !ws) || vstride % 4 || tile_rows < 1 ||
       nkb * kDx3Cols < K || (nkb - 1) * kDx3Cols >= K || l.bytes != smem ||
       M > 0x7fffffff ||
       (reinterpret_cast<uintptr_t>(inv) | reinterpret_cast<uintptr_t>(shift)) &
@@ -354,10 +380,20 @@ int cunet_dx_f32(const void* dy, long long ldd, long long M, int N,
   a.K = K;
   a.np = np;
   a.nkb = nkb;
+  a.ws = static_cast<const bf16*>(ws);
   a.L = l;
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (stream_w) {
+    const int e = split_w_slices(a.w, ldw, K, N, true,
+                                 static_cast<bf16*>(ws), st);
+    if (e) return e;
+  }
   const int items = (int)((M + kDx3Rows - 1) / kDx3Rows) * nkb;
   void (*kern)(Dx3Args) = nullptr;
-  if (np > kDx3Slice) {
+  if (stream_w) {
+    kern = ste ? dx3_kernel<kDx3Slice / 16, true, true, true>
+               : dx3_kernel<kDx3Slice / 16, false, true, true>;
+  } else if (np > kDx3Slice) {
     kern = ste ? dx3_kernel<kDx3Slice / 16, true, true>
                : dx3_kernel<kDx3Slice / 16, false, true>;
   } else {
@@ -375,7 +411,7 @@ int cunet_dx_f32(const void* dy, long long ldd, long long M, int N,
   int grid = 0;
   const int e = persistent_grid(kern, items, kThreads, smem, nkb, &grid);
   if (e) return e;
-  kern<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  kern<<<grid, kThreads, smem, st>>>(a);
   return (int)cudaGetLastError();
 }
 

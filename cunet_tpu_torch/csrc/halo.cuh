@@ -300,6 +300,78 @@ __device__ __forceinline__ void split_w_cores(unsigned char* smem,
   }
 }
 
+// A cotangent wider than kWideN (the widest whose W planes a block keeps
+// resident) is walked in slices of kSliceN depths (outputs of the
+// forward), and W's planes come a slice at a time from a pre-pass:
+// split_w_slices_kernel splits the float32 W (K rows, N depths, row stride
+// ldw) once into three bf16 planes, one image a (64-row block b, slice h)
+// at element ((b * nsl + h) * 3 + plane) * slice_plane(CORE), laid out as
+// the kernels stage it (the three planes of an image one contiguous
+// copy): CORE, core matrices of 8 rows x 8 depths (row r, depth d at
+// ((r / 8) * 16 + d / 8) * 64 + (r % 8) * 8 + d % 8, the K-major wgmma
+// operand of split_w_cores), else rows of kSliceN + 8 (row r, depth d at
+// r * (kSliceN + 8) + d, bwd_reduce's and bwd_dx's ldmatrix layout of
+// split_w_planes); zero past K and N.
+constexpr int kWideN = 256;
+constexpr int kSliceN = 128;
+constexpr int kSliceRows = 64;
+
+__host__ __device__ constexpr int slice_plane(bool core) {   // elements
+  return kSliceRows * (core ? kSliceN : kSliceN + 8);
+}
+
+template <bool CORE>
+__global__ void __launch_bounds__(kThreads)
+    split_w_slices_kernel(const float* __restrict__ w, long long ldw, int K,
+                          int N, int nsl, bf16* __restrict__ wp) {
+  constexpr int dg = CORE ? kSliceN / 8 : kSliceN / 8 + 1;   // depth groups
+  const int nb = (K + kSliceRows - 1) / kSliceRows;
+  const long long total = (long long)nb * nsl * kSliceRows * dg;
+  for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
+       i < total; i += (long long)gridDim.x * kThreads) {
+    const int g = (int)(i % dg);
+    const long long rest = i / dg;
+    const int r = (int)(rest % kSliceRows);
+    const long long bh = rest / kSliceRows;   // b * nsl + h
+    const int h = (int)(bh % nsl), b = (int)(bh / nsl);
+    const int k = b * kSliceRows + r, d0 = h * kSliceN + g * 8;
+    Pack8 p1, p2, p3;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const float v = k < K && g < kSliceN / 8 && d0 + e < N
+                          ? w[(long long)k * ldw + d0 + e]
+                          : 0.f;
+      split3(v, p1.u[e], p2.u[e], p3.u[e]);
+    }
+    constexpr int pl = slice_plane(CORE);
+    const long long img = bh * 3 * pl;
+    const int o = CORE ? ((r / 8) * 16 + g) * 64 + (r % 8) * 8
+                       : r * (kSliceN + 8) + g * 8;
+    *reinterpret_cast<uint4*>(wp + img + o) = p1.v;
+    *reinterpret_cast<uint4*>(wp + img + pl + o) = p2.v;
+    *reinterpret_cast<uint4*>(wp + img + 2 * pl + o) = p3.v;
+  }
+}
+
+// The pre-pass on the stream: W (K, N) at ldw into its slice images at wp
+// (ceil(K / 64) * nsl * 3 * slice_plane(core) bf16, nsl = ceil(N /
+// kSliceN)).
+inline int split_w_slices(const float* w, long long ldw, int K, int N,
+                          bool core, bf16* wp, cudaStream_t st) {
+  const int nsl = (N + kSliceN - 1) / kSliceN;
+  const long long nb = (K + kSliceRows - 1) / kSliceRows;
+  const long long want =
+      (nb * nsl * kSliceRows * (kSliceN / 8 + 1) + kThreads - 1) / kThreads;
+  const unsigned blocks = (unsigned)(want < 1024 ? want : 1024);
+  if (core)
+    split_w_slices_kernel<true><<<blocks, kThreads, 0, st>>>(w, ldw, K, N,
+                                                            nsl, wp);
+  else
+    split_w_slices_kernel<false><<<blocks, kThreads, 0, st>>>(w, ldw, K, N,
+                                                             nsl, wp);
+  return (int)cudaGetLastError();
+}
+
 // The BN recompute of the backward, one rounding per operation (the plain
 // version's elementwise ops): x_hat = (x - mean) * inv_sigma,
 // y = x_hat * scale + bias.

@@ -80,20 +80,26 @@ constexpr int kDfWg = 128;     // threads of a warpgroup
 // inv_sigma, scale, bias] and [red0, red1, scale * inv_sigma, 0], two
 // float4 a column), then the x and dx chunks.
 struct DfLayout {
-  int wpl;        // bytes of one W plane
+  int wpl;        // bytes of one W plane (0: W streamed)
   int g_off;      // warpgroup 0's g stage (warpgroup 1's follows)
   int x_off;      // warpgroup 0's x stage (warpgroup 1's follows)
+  int sw_off;     // warpgroup 0's W slice stage (streamed W; 1's follows)
   int kon_off;    // the BN constants
   int ch_off;     // the x chunks, then the dx chunks
   int bytes;
 };
 
+// Past kWideN outputs W's planes do not stay resident: each warpgroup
+// stages the slice of them its g half reads (halo.cuh split_w_slices,
+// core matrices, 3 x 16 KB) beside the half's g planes.
 inline DfLayout df_layout(int np) {
+  const bool stream = np > kWideN;
   DfLayout l;
-  l.wpl = kDfCols * np * 2;
+  l.wpl = stream ? 0 : kDfCols * np * 2;
   l.g_off = 3 * l.wpl;
   l.x_off = l.g_off + 2 * 3 * kDfPlane;
-  l.kon_off = l.x_off + 2 * kDfXBytes;
+  l.sw_off = l.x_off + 2 * kDfXBytes;
+  l.kon_off = l.sw_off + (stream ? 2 * 3 * kDfPlane : 0);
   l.ch_off = l.kon_off + kDfCols * 32;
   l.bytes = l.ch_off + 2 * kDfChunks * 16;
   return l;
@@ -122,17 +128,21 @@ __device__ __forceinline__ void wg_sync(int wg) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(1 + wg), "n"(kDfWg) : "memory");
 }
 
+// STREAM: np > kWideN, W's planes staged a half at a time from the slice
+// images ws (halo.cuh split_w_slices) of the block's column group.
+template <bool STREAM>
 __global__ void __launch_bounds__(kThreads, 1)
     tb_bwd_dx_f32_kernel(const long long* __restrict__ tbl, int G, int M,
                          int Ctot, const bf16* __restrict__ gp, int N,
                          const float* __restrict__ stat,
                          const float* __restrict__ bias,
                          const float* __restrict__ red,
-                         const float* __restrict__ w, DfLayout L) {
+                         const float* __restrict__ w,
+                         const bf16* __restrict__ ws, DfLayout L) {
   constexpr int J = kDfCols / 8;    // n8 column tiles of a block
   constexpr int XV = kDfCols / 4;   // 16-byte vectors of an x row
   const int np = (N + 15) / 16 * 16;
-  const int nh = np > kDfN ? 2 : 1;   // halves of a step
+  const int nh = (np + kDfN - 1) / kDfN;   // halves (slices) of a step
   extern __shared__ __align__(128) unsigned char smem[];
   const uint32_t s0 = smem_u32(smem);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -162,7 +172,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   // W's rows c0 .. c0 + kDfCols split once into three planes of core
   // matrices, made visible to wgmma
-  split_w_cores<kDfCols>(smem, w, Ctot, N, c0, np, tid, kThreads);
+  if (!STREAM) split_w_cores<kDfCols>(smem, w, Ctot, N, c0, np, tid, kThreads);
   fence_proxy_async();
   __syncthreads();
 
@@ -174,6 +184,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int g8 = lane >> 2, q4 = lane & 3, mat = lane >> 3;
   if (wg >= Q) return;
   const uint32_t gs = s0 + L.g_off + wg * 3 * kDfPlane;
+  const uint32_t wst = s0 + L.sw_off + wg * 3 * kDfPlane;   // (STREAM)
   const uint32_t xst = s0 + L.x_off + wg * kDfXBytes;
   unsigned char* xs = smem + (xst - s0);
   // half h of the block's step i: the three planes' core matrices of its
@@ -184,13 +195,20 @@ __global__ void __launch_bounds__(kThreads, 1)
   const auto issue_g = [&](int i, int h) {
     if (i < Q) {
       const long long t = first + (long long)i * stride;
-      const int per = (h == 0 ? min(np, kDfN) : np - kDfN) * 8;   // vectors
+      const int per = min(np - h * kDfN, kDfN) * 8;   // vectors
       const bf16* src = gp + (t * nh + h) * kDfTile;
 #pragma unroll
       for (int k = 0; k < 3; ++k)
         for (int v = wt; v < per; v += kDfWg)
           cp_async16(gs + k * kDfPlane + v * 16, src + k * plane + v * 8,
                      16);
+      if (STREAM) {
+        // W's planes of the half, of the block's column group
+        const bf16* wsrc =
+            ws + ((long long)(c0 / kDfCols) * nh + h) * 3 * slice_plane(true);
+        for (int v = wt; v < 3 * kDfPlane / 16; v += kDfWg)
+          cp_async16(wst + v * 16, wsrc + v * 8, 16);
+      }
     }
     cp_async_commit();
   };
@@ -225,7 +243,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       // 2kk + (mat >> 1), m group 2wq + (mat & 1)), B = W's planes; six
       // plane products a k16 step into one accumulator over N, the step's
       // first product with d's scale 0
-      const int nkk = (h == 0 ? min(np, kDfN) : np - kDfN) / 16;
+      const int nkk = min(np - h * kDfN, kDfN) / 16;
       uint32_t a[2][3][4];
 #pragma unroll
       for (int kk = 0; kk < kDfN / 16; ++kk) {
@@ -240,7 +258,10 @@ __global__ void __launch_bounds__(kThreads, 1)
                         (lane & 7) * 16);
         const int kn = (kDfN / 16) * h + kk;   // the k16 step within N
         const auto bd = [&](int pw) {
-          return smem_desc(s0 + pw * L.wpl + 2 * kn * 128, 128, np * 16);
+          return STREAM ? smem_desc(wst + pw * kDfPlane + 2 * kk * 128, 128,
+                                    kDfN * 16)
+                        : smem_desc(s0 + pw * L.wpl + 2 * kn * 128, 128,
+                                    np * 16);
         };
         const uint32_t (&ak)[3][4] = a[kk & 1];
         wgmma_fence();
@@ -252,7 +273,10 @@ __global__ void __launch_bounds__(kThreads, 1)
         wgmma_m64n64(acc, ak[0], bd(0));
         wgmma_commit();
       }
-      wg_sync(wg);   // the g stage read: the next half's copies may start
+      // the g stage read (and, streamed, the W stage, which the products
+      // read as they run): the next half's copies may start
+      if (STREAM) wgmma_wait<0>();
+      wg_sync(wg);
       if (h + 1 < nh) issue_g(i, h + 1);
       else issue_g(i + 2, 0);
       wgmma_wait<0>();
@@ -300,31 +324,41 @@ extern "C" {
 
 // bwd_dx's float32 form: the feature table tbl (G groups, the dx columns
 // filled), M rows, Ctot concat columns, g's planes gp (tb_split_g_kernel's
-// layout: 3 x ceil(M / 64) x nh x 64 x 128 bf16, nh = 2 past 128 outputs)
-// for N outputs, stat (3, Ctot) [mean; inv_sigma; scale], bias (Ctot,),
-// red (2, Ctot), w (Ctot, N) float32; ``smem`` the plan's
+// layout: 3 x ceil(M / 64) x nh x 64 x 128 bf16, nh = ceil(N / 128)
+// halves) for N outputs, stat (3, Ctot) [mean; inv_sigma; scale], bias
+// (Ctot,), red (2, Ctot), w (Ctot, N) float32; ``smem`` the plan's
 // (train_bottleneck.dx_f32_plan), checked against the kernel's layout.
+// Past kWideN outputs W is split first into its slice images at ws
+// (halo.cuh split_w_slices, core matrices; the caller's, ceil(Ctot / 64)
+// * nh * 3 * 64 * 128 bf16).
 int cunet_tb_bwd_dx_f32(const void* tbl, int G, long long M, int Ctot,
                         const void* gp, int N, const void* stat,
                         const void* bias, const void* red, const void* w,
-                        int smem, void* stream) {
+                        void* ws, int smem, void* stream) {
   const int np = (N + 15) / 16 * 16;
   const DfLayout l = df_layout(np);
-  if (N % 8 || N < 8 || np > 2 * kDfN || l.bytes != smem || M < 1 ||
-      M > 0x7fffffff || Ctot % 8 || Ctot < 8)
+  const bool stream_w = np > kWideN;
+  if (N % 8 || N < 8 || l.bytes != smem || M < 1 || M > 0x7fffffff ||
+      Ctot % 8 || Ctot < 8 || (stream_w && !ws))
     return (int)cudaErrorInvalidValue;
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (stream_w) {
+    const int e = split_w_slices(static_cast<const float*>(w), N, Ctot, N,
+                                 true, static_cast<bf16*>(ws), st);
+    if (e) return e;
+  }
   const int ngrp = (Ctot + kDfCols - 1) / kDfCols;
   const int items = (int)((M + kDfRows - 1) / kDfRows) * ngrp;
+  auto kern = stream_w ? tb_bwd_dx_f32_kernel<true>
+                       : tb_bwd_dx_f32_kernel<false>;
   int grid = 0;
-  const int e = persistent_grid(tb_bwd_dx_f32_kernel, items, kThreads, smem,
-                                ngrp, &grid);
+  const int e = persistent_grid(kern, items, kThreads, smem, ngrp, &grid);
   if (e) return e;
-  tb_bwd_dx_f32_kernel<<<grid, kThreads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
+  kern<<<grid, kThreads, smem, st>>>(
       static_cast<const long long*>(tbl), G, (int)M, Ctot,
       static_cast<const bf16*>(gp), N, static_cast<const float*>(stat),
       static_cast<const float*>(bias), static_cast<const float*>(red),
-      static_cast<const float*>(w), l);
+      static_cast<const float*>(w), static_cast<const bf16*>(ws), l);
   return (int)cudaGetLastError();
 }
 

@@ -801,6 +801,114 @@ def conv3x3_plan_f32(m: int, cb: int, g: int) -> Dot3Plan:
     return dataclasses.replace(p, splits=max(splits, 1))
 
 
+# The float32 train convs' wgmma kernel (csrc/conv_f32_kernels.cu): output
+# rows of a block (two warpgroups of 64), the depth of a chunk of K, the
+# padded output widths of its instances, the chunks of a W slice and the
+# slices in shared memory.
+CONV_F32_ROWS = 128
+CONV_F32_DEPTH = 32
+CONV_F32_NP = (32, 64, 128)
+CONV_F32_SLICE = 2
+CONV_F32_RING = 2
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvF32Plan:
+    """How ``csrc/conv_f32_kernels.cu`` cuts a float32 3x3 conv of M rows
+    (images W wide) of C channels into N outputs: persistent blocks over
+    runs of tiles of ``CONV_F32_ROWS`` rows, N padded to ``np_``; shared
+    memory: the halo ring's three bf16 planes (``halo_rows`` rows of C,
+    ``plane_bytes`` each) at 0, a 16-byte zero row at ``zero_off``,
+    ``CONV_F32_RING`` buffers of a slice of ``CONV_F32_SLICE`` chunks'
+    three W planes (``w_bytes`` a chunk) from ``w_off``, with ``gate`` the
+    dx's gate input tile (``CONV_F32_ROWS`` rows of np_ + 4 floats) at
+    ``g_off``; ``smem`` bytes in all."""
+    np_: int
+    halo_rows: int
+    plane_bytes: int
+    zero_off: int
+    w_off: int
+    w_bytes: int
+    g_off: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=None)
+def conv_f32_plan(m: int, h: int, w: int, c: int, n: int, gate: bool):
+    """The plan of the float32 train convs' ``wgmma`` kernel at these
+    shapes (the forward, or with ``gate`` the dx; a function of them
+    alone, cached), or None where the convs stay on ``dot3_kernel``: where
+    ``conv3x3_plan_f32`` splits K (small M; the split's partials sum in an
+    order of their own), C is neither 32 nor a multiple of 64 (a chunk of
+    K would straddle two taps, or the halo's swizzle not hold), N is past
+    128, or the halo planes and the buffers do not fit in
+    ``SMEM_LIMIT``."""
+    if conv3x3_plan_f32(m, c, n).splits > 1 or (c != 32 and c % 64) \
+            or n % 8 or n > CONV_F32_NP[-1]:
+        return None
+    np_ = next(b for b in CONV_F32_NP if n <= b)
+    halo_rows = CONV_F32_ROWS + 2 * w + 2
+    plane_bytes = halo_rows * c * 2
+    zero_off = 3 * plane_bytes
+    w_off = _up(zero_off + 16, 128)
+    w_bytes = 3 * CONV_F32_DEPTH * np_ * 2
+    g_off = w_off + CONV_F32_RING * CONV_F32_SLICE * w_bytes
+    smem = g_off + (CONV_F32_ROWS * (np_ + 4) * 4 if gate else 0)
+    if smem > SMEM_LIMIT:
+        return None
+    return ConvF32Plan(np_=np_, halo_rows=halo_rows, plane_bytes=plane_bytes,
+                       zero_off=zero_off, w_off=w_off, w_bytes=w_bytes,
+                       g_off=g_off, smem=smem)
+
+
+def launch_conv_f32(y, w3p, h, w, out, p, pro=None, gate=None, flip=False):
+    """Launch ``cunet_conv_f32`` (the operands checked by the caller) on
+    the plan ``p`` (``conv_f32_plan``): y (M, C) through the packed (9C,
+    N) ``w3p`` (with ``flip`` the forward's (9N, C) weight read as
+    ``train_ops.flip_w3`` of it), with ``pro`` = (inv, shift, vstride,
+    tile_rows) the forward's BN2 prologue, or with ``gate`` = (gx, inv,
+    shift, vstride, tile_rows) the dx's ReLU gate. The call launches two
+    kernels, the split of W into its planes, then the conv. Returns the
+    CUDA error code."""
+    m, c = y.shape
+    n = w3p.shape[0] // 9 if flip else w3p.shape[1]
+    _check_rows(m)
+    wp = torch.empty(27 * c * p.np_, device=y.device, dtype=BF16)
+    gx, ginv, gshift = None, 0, 0
+    if pro is not None:
+        inv, shift, vstride, tile_rows = pro
+    else:
+        inv = shift = 0
+        gx, ginv, gshift, vstride, tile_rows = gate
+    return build.lib().cunet_conv_f32(
+        y.data_ptr(), y.stride(0), m, h, w, c, w3p.data_ptr(), n, int(flip),
+        inv, shift, vstride, tile_rows, 0 if gx is None else gx.data_ptr(),
+        0 if gx is None else gx.stride(0), ginv, gshift, out.data_ptr(),
+        out.stride(0), wp.data_ptr(), p.np_, p.plane_bytes, p.zero_off,
+        p.w_off, p.g_off, p.smem, _stream(y))
+
+
+def _aligned(*ts) -> bool:
+    """Whether every tensor's rows start on 16 bytes (float32 rows of a
+    multiple of 4 elements from a 16-byte aligned pointer): the
+    ``wgmma`` conv's 16-byte loads and stores of its rows need it."""
+    return all(t.data_ptr() % 16 == 0 and t.stride(0) % 4 == 0 for t in ts)
+
+
+def conv_f32_route(m, h, w, c, n, gate, rows, inv, shift, vstride):
+    """The ``wgmma`` conv's plan where it takes a call of the two float32
+    train convs, else None (the call stays on ``dot3_kernel``): its plan
+    takes the shapes (``conv_f32_plan``) and the operands suit its 16-byte
+    loads and stores, the tensors ``rows`` (``_aligned``), the per-row
+    vectors' pointers ``inv`` and ``shift`` on 16 bytes and their row
+    stride ``vstride`` a multiple of 4 floats."""
+    p = conv_f32_plan(m, h, w, c, n, gate)
+    if p is None or not _aligned(*rows) or inv % 16 or shift % 16 \
+            or vstride % 4:
+        return None
+    return p
+
+
 def conv3x3_plan(m: int, h: int, w: int, cb: int, g: int) -> ConvPlan:
     """The kernel plan of ``conv3x3`` at these shapes (a function of them
     alone; the float32 form's is ``conv3x3_plan_f32``). The largest row
@@ -859,7 +967,16 @@ def conv3x3(y, w3p, b, h, w, out, *, vec=None, bits_i=0):
     ``conv3x3_plan_f32``), the BN2 prologue per row of the tap's source
     pixel (its image's tile), unrounded, then QuanInput's quantizer with
     ``bits_i`` (no bf16 rounding before it); K split across blocks where
-    the output tiles are few, the partials added in a fixed order.
+    the output tiles are few, the partials added in a fixed order. The
+    ghost-BN train forward (``vec``, no ``bits_i``) runs instead, where
+    ``conv_f32_route`` takes the call (no K split: r >= 32 on the main
+    path), the ``wgmma`` implicit GEMM of ``csrc/conv_f32_kernels.cu``:
+    the same sums bit for bit (each 32-deep chunk of K from zero, joined
+    in ascending k), the halo tile's prologue and three-plane split made
+    once an element. Bound by its six bf16 passes at r=64, batch 24 (44.0
+    us); measured there on an H100 80GB HBM3 at 700 W (PERF.md section
+    6): about 176 us (``dot3_kernel`` 348, ``F.conv2d`` of the conv alone
+    300).
     """
     m, c = y.shape
     g = w3p.shape[1]
@@ -903,7 +1020,9 @@ def _conv3x3_f32(y, w3p, b, h, w, out, vec, bits_i):
     """``conv3x3``'s float32 form: the float32 product kernel's implicit
     GEMM (``csrc/f32_kernels.cu``), with the per-tile BN2 prologue of the
     ghost-BN train forward where ``vec`` is given (TPU kernel #8's
-    ``_norm_relu`` + ``_conv3x3_t``; with ``bits_i`` its ``_quan``)."""
+    ``_norm_relu`` + ``_conv3x3_t``; with ``bits_i`` its ``_quan``); that
+    forward without ``bits_i`` on ``csrc/conv_f32_kernels.cu`` where
+    ``conv_f32_route`` takes the call, the same bits."""
     for name, t in (("y", y), ("out", out), ("w3", w3p)):
         _check_view(t, name, (F32,))
     if not w3p.is_contiguous():
@@ -913,6 +1032,16 @@ def _conv3x3_f32(y, w3p, b, h, w, out, vec, bits_i):
     if vec is not None:
         _check_vec(vec, "vec", c)
         pro = _vec_args(vec, m, c)
+    p = None if vec is None or bits_i else conv_f32_route(
+        m, h, w, c, w3p.shape[1], False, (y, out), *pro[:3])
+    if p is not None:
+        code = launch_conv_f32(y, w3p, h, w, out, p, pro=pro)
+        build.check(code, "conv3x3 (float32, wgmma)")
+        # the split of W, then the conv
+        conv3x3.launches += 2
+        conv3x3.f32_launches += 2
+        conv3x3.wg_launches += 1
+        return out
     code = launch_conv3x3_f32(y, w3p, h, w, out, pro, bits_i=bits_i)
     build.check(code, "conv3x3 (float32)")
     conv3x3.launches += 1
@@ -1043,6 +1172,8 @@ def reset_counts(kernels, options=()) -> None:
         k.launches = 0
         if hasattr(k, "f32_launches"):
             k.f32_launches = 0
+        if hasattr(k, "wg_launches"):
+            k.wg_launches = 0
     for k in options:
         k.option_launches = k.f32_option_launches = 0
 
@@ -1090,10 +1221,18 @@ def f32_counts() -> dict:
     return count_f32(KERNELS)
 
 
+def wg_counts() -> dict:
+    """Launches of ``csrc/conv_f32_kernels.cu``'s conv kernel by the
+    float32 forward conv (also in its ``launches`` and ``f32_launches``,
+    beside the split of W each call launches first)."""
+    return {"conv3x3": conv3x3.wg_launches}
+
+
 def f32_option_counts() -> dict:
     return count_f32_options(OPTIONS)
 
 
 for _k in KERNELS:
     _k.f32_launches = 0
+conv3x3.wg_launches = 0
 reset_launch_counts()

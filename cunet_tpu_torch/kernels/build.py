@@ -26,7 +26,7 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = ("buf_kernels.cu", "train_kernels.cu", "quant_kernels.cu",
            "bottleneck_kernels.cu", "eval_kernels.cu", "f32_kernels.cu",
            "dw_f32_kernels.cu", "dx_f32_kernels.cu", "fwd_f32_kernels.cu",
-           "tb_dx_f32_kernels.cu")
+           "tb_dx_f32_kernels.cu", "conv_f32_kernels.cu")
 HEADERS = ("common.cuh", "halo.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -108,9 +108,11 @@ def _declare(lib):
         "cunet_upsample2_f32": [P, L, P, L, I, I, I, I, P],
         "cunet_conv3x3_f32": [P, L, L, I, I, I, P, I, P, P, L, L, P, L, P,
                               P, P, L, I, I, I, I, I, P, P],
+        "cunet_conv_f32": [P, L, L, I, I, I, P, I, I, P, P, L, L, P, L, P,
+                           P, P, L, P, *[I] * 6, P],
         "cunet_fwd_f32": [P, P, P, I, P, L, P, P, L, L, I, P, L, I, P, L, L,
                           L, I, I, I, I, P],
-        "cunet_dx_f32": [P, L, L, I, P, L, I, P, L, P, P, L, L, I, P, L,
+        "cunet_dx_f32": [P, L, L, I, P, L, I, P, L, P, P, L, L, I, P, L, P,
                          *[I] * 3, P],
         "cunet_dw_f32": [P, L, I, I, I, I, I, P, P, L, I, I, P, L, I, P,
                          *[I] * 12, P],
@@ -138,13 +140,13 @@ def _declare(lib):
         "cunet_tb_fill_table": [P, I, P, P],
         "cunet_tb_stats": [P, I, L, I, L, P, I, P],
         "cunet_tb_apply": [P, I, L, I, P, P, P, I, P, L, *[I] * 11, P],
-        "cunet_tb_bwd_reduce": [P, I, L, I, P, L, I, P, P, P, L, *[I] * 9,
+        "cunet_tb_bwd_reduce": [P, I, L, I, P, L, I, P, P, P, P, L, *[I] * 10,
                                 P, P, P],
-        "cunet_tb_bwd_reduce_f32": [P, I, L, I, P, L, I, P, P, P, P, L, I, I,
-                                    P, P, P],
-        "cunet_tb_bwd_dx": [P, I, L, I, P, L, I, P, P, P, P, *[I] * 7, P],
+        "cunet_tb_bwd_reduce_f32": [P, I, L, I, P, L, I, P, P, P, P, P, L, I,
+                                    I, P, P, P],
+        "cunet_tb_bwd_dx": [P, I, L, I, P, L, I, P, P, P, P, P, *[I] * 8, P],
         "cunet_tb_split_g": [P, L, L, I, P, P],
-        "cunet_tb_bwd_dx_f32": [P, I, L, I, P, I, P, P, P, P, I, P],
+        "cunet_tb_bwd_dx_f32": [P, I, L, I, P, I, P, P, P, P, P, I, P],
         "cunet_table_dot": [P, P, P, I, P, P, I, I, L, P, P, P, P, P, P, I,
                             I, I, P, P, I, P, L, L, L, P, L, P],
         "cunet_table_dot_f32": [P, P, P, I, P, P, I, I, L, P, P, P, P, P, P,

@@ -88,15 +88,23 @@ TABLE_COLS = 6           # x ptr, x row stride, width, offset, dx ptr, dx ld
 # it aims at, two on each of the card's 132 SMs (one at float32, whose
 # staged float32 x, g's planes and W's take more than half an SM's shared
 # memory): a constant, so the chunks (and the order of every sum) depend
-# on the shapes alone; the float32 form's outputs a plane tile holds (csrc
-# kRfN: a half of the widest cotangent it takes, kRfMaxN)
+# on the shapes alone; the float32 form's outputs a plane tile's half holds
+# (csrc kRfN; a cotangent past two halves takes more of them)
 REDUCE_COLS = 64
 REDUCE_ROWS = 32
 REDUCE_BLOCKS = 264
 REDUCE_ROWS_F32 = 64
 REDUCE_BLOCKS_F32 = 132
 REDUCE_N_F32 = 128
-REDUCE_MAX_N_F32 = 256
+# the widest cotangent whose W planes the backward's blocks keep resident
+# (csrc/halo.cuh kWideN); past it every backward kernel stages W's planes
+# a slice of SLICE_N outputs at a time (kSliceN) from the slice images of
+# a pre-pass (split_w_slices), each plane a SLICE_ROWS-row block of the
+# slice: (SLICE_N + 8) x SLICE_ROWS bf16 for the bf16 kernels' rows,
+# SLICE_N x SLICE_ROWS for the float32 kernels' core matrices
+WIDE_N = 256
+SLICE_N = 128
+SLICE_ROWS = 64
 # bwd_dx: rows of a step and concat columns of a block (csrc kDxRows,
 # kDxCols; the float32 form's too, kDfRows, kDfCols: its steps are the
 # planes' tiles); a table chunk resolved into shared memory (csrc/halo.cuh
@@ -415,9 +423,18 @@ class ReducePlan:
     pl_off: int
     xh_off: int
     smem: int
+    w_off: int = 0
 
     def rows(self, s: int, m: int) -> range:
         return range(s * self.chunk, min(m, (s + 1) * self.chunk))
+
+
+def slice_images(k: int, n: int, core: bool) -> int:
+    """Elements (bf16) of the pre-pass's W slice images for a (K, N) W:
+    ceil(K / SLICE_ROWS) row blocks x ceil(N / SLICE_N) slices x three
+    planes."""
+    plane = SLICE_ROWS * (SLICE_N if core else SLICE_N + 8)
+    return -(-k // SLICE_ROWS) * -(-n // SLICE_N) * 3 * plane
 
 
 @functools.lru_cache(maxsize=None)
@@ -426,13 +443,28 @@ def reduce_plan(m: int, ctot: int, n: int) -> ReducePlan:
     (a function of them alone; cached): chunks of whole steps, as many as
     give ``REDUCE_BLOCKS`` blocks with the column blocks; two x / g stages
     where they fit in ``SMEM_LIMIT``, else one (more stages measured no
-    faster). Outputs up to 256 wide."""
+    faster). Past ``WIDE_N`` outputs the grid's z takes the dW slices of
+    ``SLICE_N`` outputs, each stage a slice of g's rows and (block z = 0)
+    W's planes at ``w_off``, two stages."""
     np_ = _up(n, 16)
-    if np_ > 256:
-        raise ValueError(f"bwd_reduce takes at most 256 outputs, got {n}")
     col_blocks = -(-ctot // REDUCE_COLS)
     want = max(1, REDUCE_BLOCKS // col_blocks)
     chunk = _up(-(-m // want), REDUCE_ROWS)
+    if np_ > WIDE_N:
+        gs = (SLICE_N + 8) * 2
+        stage_off = 4 * REDUCE_COLS * 4
+        g_off = REDUCE_ROWS * (REDUCE_COLS * 2 + 16)
+        w_off = _up(g_off + REDUCE_ROWS * gs, 128)
+        stage_bytes = _up(w_off + 3 * REDUCE_COLS * gs, 128)
+        pl_off = stage_off + 2 * stage_bytes
+        xh_off = pl_off + 3 * REDUCE_ROWS * (REDUCE_COLS + 8) * 2
+        return ReducePlan(chunk=chunk, chunks=-(-m // chunk),
+                          col_blocks=col_blocks, np=np_, stages=2,
+                          stat_off=0, stage_off=stage_off,
+                          stage_bytes=stage_bytes, g_off=g_off,
+                          pl_off=pl_off, xh_off=xh_off,
+                          smem=xh_off + REDUCE_ROWS * (REDUCE_COLS + 8) * 4,
+                          w_off=w_off)
     gs = (np_ + 8) * 2                        # bytes of a g / W-plane row
     xs = (REDUCE_COLS + 8) * 2                # bytes of an r-plane row
     stat_off = 3 * REDUCE_COLS * gs
@@ -465,9 +497,10 @@ class ReduceF32Plan:
     (``csrc/bottleneck_kernels.cu::rf_layout``): W's three planes in core
     matrices (``wpl`` bytes each) at 0, the buffers of ``stage_bytes``
     from ``stage_off`` (x rows of REDUCE_COLS + 4 floats, then g's three
-    plane tiles at ``g_off``; the first also the sums' reduction after the
-    last step), the columns' BN constants at ``stat_off``; ``smem`` bytes
-    in all."""
+    plane tiles at ``g_off``, past ``WIDE_N`` outputs W's slice planes at
+    ``sw_off`` in place of resident ones (``wpl`` 0); the first also the
+    sums' reduction after the last step), the columns' BN constants at
+    ``stat_off``; ``smem`` bytes in all."""
     chunk: int
     chunks: int
     col_blocks: int
@@ -479,6 +512,7 @@ class ReduceF32Plan:
     stage_bytes: int
     stat_off: int
     smem: int
+    sw_off: int = 0
 
     def rows(self, s: int, m: int) -> range:
         return range(s * self.chunk, min(m, (s + 1) * self.chunk))
@@ -494,19 +528,19 @@ def reduce_plan_f32(m: int, ctot: int, n: int) -> ReduceF32Plan:
     """The kernel plan of ``bwd_reduce`` over float32 features at these
     shapes (a function of them alone; cached): chunks of whole 64-row
     steps, as many as give ``REDUCE_BLOCKS_F32`` blocks (one an SM) with
-    the column blocks (of each output half). Cotangents up to
-    ``REDUCE_MAX_N_F32`` wide."""
+    the column blocks (of each output half). Past ``WIDE_N`` outputs W's
+    planes are staged a half at a time beside g's (exactly the card's
+    shared memory)."""
     np_ = _up(n, 16)
-    if np_ > REDUCE_MAX_N_F32:
-        raise ValueError(f"bwd_reduce at float32 takes at most "
-                         f"{REDUCE_MAX_N_F32} outputs, got {n}")
+    stream = np_ > WIDE_N
     col_blocks = -(-ctot // REDUCE_COLS)
     want = max(1, REDUCE_BLOCKS_F32 // col_blocks)
     chunk = _up(-(-m // want), REDUCE_ROWS_F32)
-    wpl = REDUCE_COLS * np_ * 2
+    wpl = 0 if stream else REDUCE_COLS * np_ * 2
     stage_off = _up(3 * wpl, 128)
     g_off = REDUCE_ROWS_F32 * (REDUCE_COLS + 4) * 4
-    stage_bytes = _up(g_off + 3 * REDUCE_ROWS_F32 * REDUCE_N_F32 * 2, 128)
+    plane = REDUCE_ROWS_F32 * REDUCE_N_F32 * 2
+    stage_bytes = _up(g_off + (6 if stream else 3) * plane, 128)
     stat_off = stage_off + 2 * stage_bytes
     smem = stat_off + 4 * REDUCE_COLS * 4
     if smem > SMEM_LIMIT:
@@ -517,13 +551,15 @@ def reduce_plan_f32(m: int, ctot: int, n: int) -> ReduceF32Plan:
                          halves=-(-np_ // REDUCE_N_F32), wpl=wpl,
                          stage_off=stage_off, g_off=g_off,
                          stage_bytes=stage_bytes, stat_off=stat_off,
-                         smem=smem)
+                         smem=smem,
+                         sw_off=g_off + 3 * plane if stream else 0)
 
 
 def split_planes_shape(m: int, n: int):
     """The shape of the float32 reduce's cotangent planes (bf16) for N
-    outputs: three planes of ceil(M / 64) tiles, each of one or two halves
-    of 16 x 8 core matrices of 8 outputs x 8 rows."""
+    outputs: three planes of ceil(M / 64) tiles, each of ceil(N / 128)
+    halves (slices past two) of 16 x 8 core matrices of 8 outputs x 8
+    rows."""
     halves = -(-_up(n, 16) // REDUCE_N_F32)
     return (3, -(-m // REDUCE_ROWS_F32),
             halves * REDUCE_N_F32 * REDUCE_ROWS_F32)
@@ -595,10 +631,20 @@ def bwd_reduce(xs, g, stat, bias, w, dw, sums, table=None, planes=None):
     plane tile by a descriptor), each k16 row group's six plane products
     in a fragment of its own joined by one float32 add. Twelve bf16
     passes in all (96.6 GFLOP: 97.7 us at 989 TFLOP/s at K=320 -> 128,
-    M=98,304). Past 128 outputs (up to 256) g's planes come in two halves
-    and the grid's z halves dW; one block of each pair takes g W^T and the
-    sums over both halves. The call launches two kernels and counts both
-    (``launches``, ``f32_launches``).
+    M=98,304). Past 128 outputs g's planes come in halves (slices past
+    two) and the grid's z takes dW a half each; one block of each column
+    block takes g W^T and the sums over every half. The call launches two
+    kernels and counts both (``launches``, ``f32_launches``).
+
+    Past ``WIDE_N`` outputs (either dtype) no block keeps W's planes
+    resident: a pre-pass (``csrc/halo.cuh`` ``split_w_slices``, a launch
+    of its own, counted) splits W once into slice images of ``SLICE_N``
+    outputs, and each item of a step stages its slice of W beside its
+    slice of g; the grid's z takes dW a slice each (bf16: ``reduce_plan``,
+    two stages), one accumulator of g W^T carried across the slices in
+    ``bwd_dx``'s order. Measured there on an H100 80GB HBM3 at 700 W
+    (PERF.md section 6): 1.6-1.7 ms at N = 512, r=64 (bound 195 / 391
+    us), against 0.21 / 0.23 at 128.
     """
     m = xs[0].shape[0]
     _check_rows(xs, m)
@@ -620,23 +666,26 @@ def bwd_reduce(xs, g, stat, bias, w, dw, sums, table=None, planes=None):
                           dtype=torch.float32)
     sums_part = torch.empty(p.chunks, 2, ctot, device=g.device,
                             dtype=torch.float32)
+    wide = p.np > WIDE_N
+    ws = _slices_of(wide, ctot, n, f32, g.device)
     if f32:
         code = build.lib().cunet_tb_bwd_reduce_f32(
             table.data_ptr(), len(xs), m, ctot, g.data_ptr(), g.stride(0), n,
             stat.data_ptr(), bias.data_ptr(), w.data_ptr(),
-            planes.data_ptr(), p.chunk, p.np, p.smem, dw_part.data_ptr(),
-            sums_part.data_ptr(), _stream(g))
+            planes.data_ptr(), _ptr(ws), p.chunk, p.np, p.smem,
+            dw_part.data_ptr(), sums_part.data_ptr(), _stream(g))
     else:
         code = build.lib().cunet_tb_bwd_reduce(
             table.data_ptr(), len(xs), m, ctot, g.data_ptr(), g.stride(0), n,
-            stat.data_ptr(), bias.data_ptr(), w.data_ptr(), p.chunk, p.np,
-            p.stages, p.stat_off, p.stage_off, p.stage_bytes, p.g_off,
-            p.pl_off, p.xh_off, p.smem, dw_part.data_ptr(),
+            stat.data_ptr(), bias.data_ptr(), w.data_ptr(), _ptr(ws),
+            p.chunk, p.np, p.stages, p.stat_off, p.stage_off, p.stage_bytes,
+            p.g_off, p.pl_off, p.xh_off, p.w_off, p.smem, dw_part.data_ptr(),
             sums_part.data_ptr(), _stream(g))
     build.check(code, "train_bottleneck.bwd_reduce")
-    # a float32 call launches two kernels, the split of g and the reduce
-    bwd_reduce.launches += 2 if f32 else 1
-    bwd_reduce.f32_launches += 2 if f32 else 0
+    # a float32 call launches two kernels, the split of g and the reduce;
+    # past WIDE_N outputs one more, the split of W into its slices
+    bwd_reduce.launches += (2 if f32 else 1) + wide
+    bwd_reduce.f32_launches += (2 + wide) if f32 else 0
     sum_rows(dw_part, dw)
     sum_rows(sums_part, sums)
     return dw, sums
@@ -664,7 +713,9 @@ class DxPlan:
     product's depth) zero-padded to ``np``; shared memory: the group's
     three W planes at 0, its x then dx table chunks at ``tbl_off``, two x
     / g stages of ``stage_bytes`` from ``stage_off`` (g at ``g_off``
-    within one); ``smem`` bytes in all."""
+    within one; past ``WIDE_N`` outputs a step's slices of ``SLICE_N``
+    are items of their own, each stage a slice of g's rows and of W's
+    planes, at ``w_off``, none resident); ``smem`` bytes in all."""
     ngrp: int
     np: int
     tbl_off: int
@@ -672,6 +723,7 @@ class DxPlan:
     stage_bytes: int
     g_off: int
     smem: int
+    w_off: int = 0
 
     def steps(self, m: int) -> int:
         return -(-m // DX_ROWS)
@@ -684,11 +736,19 @@ class DxPlan:
 def dx_plan(m: int, ctot: int, n: int) -> DxPlan:
     """The kernel plan of ``bwd_dx`` over bf16 features at these shapes (a
     function of them alone; cached): 64-column groups, 64-row steps, two
-    stages. Outputs up to 256 wide; at N <= 128 a block fits in
-    ``buf_ops.SMEM_PAIR`` and two share an SM."""
+    stages. At N <= 128 a block fits in ``buf_ops.SMEM_PAIR`` and two share
+    an SM; past ``WIDE_N`` W's planes are staged a slice at a time."""
     np_ = _up(n, 16)
-    if np_ > 256:
-        raise ValueError(f"bwd_dx takes at most 256 outputs, got {n}")
+    if np_ > WIDE_N:
+        gs = (SLICE_N + 8) * 2
+        stage_off = _up(2 * (DX_COLS // 8) * CHUNK_BYTES, 128)
+        g_off = _up(DX_ROWS * (DX_COLS * 2 + 16), 128)
+        w_off = _up(g_off + DX_ROWS * gs, 128)
+        stage_bytes = _up(w_off + 3 * DX_COLS * gs, 128)
+        return DxPlan(ngrp=-(-ctot // DX_COLS), np=np_, tbl_off=0,
+                      stage_off=stage_off, stage_bytes=stage_bytes,
+                      g_off=g_off, smem=stage_off + 2 * stage_bytes,
+                      w_off=w_off)
     gs = (np_ + 8) * 2                        # bytes of a g / W-plane row
     tbl_off = 3 * DX_COLS * gs
     stage_off = _up(tbl_off + 2 * (DX_COLS // 8) * CHUNK_BYTES, 128)
@@ -715,9 +775,10 @@ class DxF32Plan:
     (``csrc/tb_dx_f32_kernels.cu::df_layout``): the group's three W planes
     in core matrices (``wpl`` bytes each) at 0, each warpgroup's g stage
     (a half's three planes) from ``g_off`` and x stage (a step's rows)
-    from ``x_off``, the columns' BN constants at ``kon_off`` (32 bytes a
-    column), the x then dx table chunks at ``ch_off``; ``smem`` bytes in
-    all."""
+    from ``x_off``, past ``WIDE_N`` outputs each warpgroup's W stage (its
+    half's slice of W's planes, ``wpl`` 0) from ``sw_off``, the columns'
+    BN constants at ``kon_off`` (32 bytes a column), the x then dx table
+    chunks at ``ch_off``; ``smem`` bytes in all."""
     ngrp: int
     np: int
     halves: int
@@ -727,6 +788,7 @@ class DxF32Plan:
     kon_off: int
     ch_off: int
     smem: int
+    sw_off: int = 0
 
     def steps(self, m: int) -> int:
         return -(-m // DX_ROWS)
@@ -739,25 +801,38 @@ class DxF32Plan:
 def dx_f32_plan(m: int, ctot: int, n: int) -> DxF32Plan:
     """The kernel plan of ``bwd_dx`` over float32 features at these shapes
     (a function of them alone; cached): 64-column groups, 64-row steps,
-    each warpgroup's g stage a half of g's plane tile. Cotangents up to
-    ``REDUCE_MAX_N_F32`` wide, the float32 reduce's."""
+    each warpgroup's g stage a half of g's plane tile; past ``WIDE_N``
+    outputs W's planes staged beside it, a half at a time."""
     np_ = _up(n, 16)
-    if np_ > REDUCE_MAX_N_F32:
-        raise ValueError(f"bwd_dx at float32 takes at most "
-                         f"{REDUCE_MAX_N_F32} outputs, got {n}")
-    wpl = DX_COLS * np_ * 2
+    stream = np_ > WIDE_N
+    plane = REDUCE_N_F32 * DX_ROWS * 2
+    wpl = 0 if stream else DX_COLS * np_ * 2
     g_off = 3 * wpl
-    x_off = g_off + 2 * 3 * REDUCE_N_F32 * DX_ROWS * 2
-    kon_off = x_off + 2 * DX_ROWS * DX_COLS * 4
+    x_off = g_off + 2 * 3 * plane
+    sw_off = x_off + 2 * DX_ROWS * DX_COLS * 4
+    kon_off = sw_off + (2 * 3 * plane if stream else 0)
     ch_off = kon_off + DX_COLS * 32
     p = DxF32Plan(ngrp=-(-ctot // DX_COLS), np=np_,
                   halves=-(-np_ // REDUCE_N_F32), wpl=wpl, g_off=g_off,
                   x_off=x_off, kon_off=kon_off, ch_off=ch_off,
-                  smem=ch_off + 2 * (DX_COLS // 8) * CHUNK_BYTES)
+                  smem=ch_off + 2 * (DX_COLS // 8) * CHUNK_BYTES,
+                  sw_off=sw_off if stream else 0)
     if p.smem > SMEM_LIMIT:
         raise ValueError(f"bwd_dx at float32: {n} outputs do not fit "
                          f"{SMEM_LIMIT} bytes of shared memory")
     return p
+
+
+def _slices_of(wide, k, n, f32, device):
+    """The scratch for the pre-pass's W slice images of a (K, N) weight
+    past ``WIDE_N`` outputs (core matrices at float32), or None."""
+    if not wide:
+        return None
+    return torch.empty(slice_images(k, n, f32), device=device, dtype=BF16)
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
 
 
 def _planes_of(planes, f32, m, n, device):
@@ -812,8 +887,13 @@ def bwd_dx(xs, g, stat, bias, red, w, dxs, table=None, planes=None):
     warpgroups take alternate 64-row steps (one's epilogue beside the
     other's products), each with its own g stage (a half of the step's
     planes, by ``cp.async`` as soon as its products have read the last)
-    and x stage; dx in place of the staged x, out as 16-byte rows. Cotangents
-    up to 256 wide (two halves of the planes). Bound by its float32 bytes
+    and x stage; dx in place of the staged x, out as 16-byte rows. Past
+    128 outputs the planes come in halves (slices past two), past
+    ``WIDE_N`` each warpgroup staging W's slice beside g's (slice images
+    that this call's own launch of ``bwd_reduce``'s W pre-pass writes,
+    counted: a wide backward splits W twice; bf16:
+    ``dx_plan``, a step's slices items of their own, one accumulator
+    across them). Bound by its float32 bytes
     (302 MB: 90.2 us; the planes it reads make it 327 MB); its six bf16
     passes take 48.8 us, float32 FMA 120 us. Measured there on an H100
     80GB HBM3 at 700 W (PERF.md section 6): 163 us on the handed
@@ -834,16 +914,19 @@ def bwd_dx(xs, g, stat, bias, red, w, dxs, table=None, planes=None):
     table = feature_table(xs, dxs) if table is None \
         else _table_of(xs, table)
     n = g.shape[1]
+    wide = _up(n, 16) > WIDE_N
+    ws = _slices_of(wide, ctot, n, f32, g.device)
     if not f32:
         _planes_of(planes, f32, m, n, g.device)
         p = dx_plan(m, ctot, n)
         code = build.lib().cunet_tb_bwd_dx(
             table.data_ptr(), len(xs), m, ctot, g.data_ptr(), g.stride(0), n,
             stat.data_ptr(), bias.data_ptr(), red.data_ptr(), w.data_ptr(),
-            p.ngrp, p.np, p.tbl_off, p.stage_off, p.stage_bytes, p.g_off,
-            p.smem, _stream(g))
+            _ptr(ws), p.ngrp, p.np, p.tbl_off, p.stage_off, p.stage_bytes,
+            p.g_off, p.w_off, p.smem, _stream(g))
         build.check(code, "train_bottleneck.bwd_dx")
-        bwd_dx.launches += 1
+        # past WIDE_N outputs the split of W into its slices first
+        bwd_dx.launches += 1 + wide
         return dxs
     p = dx_f32_plan(m, ctot, n)
     if planes is None:
@@ -858,10 +941,10 @@ def bwd_dx(xs, g, stat, bias, red, w, dxs, table=None, planes=None):
     code = build.lib().cunet_tb_bwd_dx_f32(
         table.data_ptr(), len(xs), m, ctot, planes.data_ptr(), n,
         stat.data_ptr(), bias.data_ptr(), red.data_ptr(), w.data_ptr(),
-        p.smem, _stream(g))
+        _ptr(ws), p.smem, _stream(g))
     build.check(code, "train_bottleneck.bwd_dx")
-    bwd_dx.launches += 1
-    bwd_dx.f32_launches += 1
+    bwd_dx.launches += 1 + wide
+    bwd_dx.f32_launches += 1 + wide
     return dxs
 
 

@@ -65,10 +65,12 @@ from cunet_tpu_torch.kernels.buf_ops import (
     _check_view,
     _stream,
     _vec_args,
+    conv_f32_route,
     count_f32,
     count_f32_options,
     count_options,
     launch_conv3x3_f32,
+    launch_conv_f32,
     quantize_act,
     reset_counts,
     tile_affine,
@@ -87,12 +89,13 @@ AFFINE_DX_ITEMS = 132
 AFFINE_DX_MAX_NTW = 4
 # affine_dx at float32 (csrc/dx_f32_kernels.cu kDx3Rows, kDx3Cols,
 # kDx3Slice): rows of a tile, output columns of a block, the depths of a
-# staged slice of the cotangent, and the widest cotangent it takes (N
-# zero-padded to 16; two slices)
+# staged slice of the cotangent, and the widest cotangent whose W planes a
+# block keeps resident (N zero-padded to 16; two slices; csrc/halo.cuh
+# kWideN), past which they are staged with each slice
 AFFINE_DX_F32_ROWS = 64
 AFFINE_DX_F32_COLS = 64
 AFFINE_DX_F32_SLICE = 128
-AFFINE_DX_F32_MAX_N = 256
+AFFINE_DX_F32_WIDE_N = 256
 # affine_dw: the most blocks its plan aims at (two on each of the card's 132
 # SMs, one wave: a few more would put a third block on a few SMs and stretch
 # the launch by a block's time), and the fewest it takes before it cuts
@@ -467,8 +470,9 @@ class AffineDxF32Plan:
     columns x np_ in core matrices of 8 columns x 8 depths), then two
     buffers of ``stage_bytes`` from ``stage_off``, each a slice's float32
     dy rows (sw + 8 floats) and, at ``x_off``, the tile's x rows (the
-    block's columns + 4 floats); ``smem`` bytes in all
-    (``csrc/dx_f32_kernels.cu::dx3_layout``)."""
+    block's columns + 4 floats), past ``AFFINE_DX_F32_WIDE_N`` the slice's
+    W planes at ``sw_off`` in place of resident ones (``w_plane`` 0);
+    ``smem`` bytes in all (``csrc/dx_f32_kernels.cu::dx3_layout``)."""
     nkb: int
     np_: int
     sw: int
@@ -478,6 +482,7 @@ class AffineDxF32Plan:
     x_off: int
     stage_bytes: int
     smem: int
+    sw_off: int = 0
 
     def tiles(self, m: int) -> int:
         return -(-m // AFFINE_DX_F32_ROWS)
@@ -492,23 +497,23 @@ def affine_dx_f32_plan(k: int, n: int) -> AffineDxF32Plan:
     cotangent N wide (a function of the shapes alone; M sets only the
     items): two buffers (a third measured no faster at K=192 -> 128 and at
     the head, PERF.md section 6), two blocks an SM where N < 128, the
-    cotangent in 128-deep slices past 128. Raises past
-    ``AFFINE_DX_F32_MAX_N``."""
+    cotangent in 128-deep slices past 128, each with its W planes past
+    ``AFFINE_DX_F32_WIDE_N``."""
     np_ = _up(n, 16)
-    if np_ > AFFINE_DX_F32_MAX_N:
-        raise ValueError(f"affine_dx at float32 takes a cotangent at most "
-                         f"{AFFINE_DX_F32_MAX_N} wide, got {n}")
+    stream = np_ > AFFINE_DX_F32_WIDE_N
     sw = min(np_, AFFINE_DX_F32_SLICE)
-    w_plane = AFFINE_DX_F32_COLS * np_ * 2
+    w_plane = 0 if stream else AFFINE_DX_F32_COLS * np_ * 2
     stage_off = _up(3 * w_plane, 128)
     x_off = AFFINE_DX_F32_ROWS * (sw + 8) * 4
-    stage_bytes = _up(x_off + AFFINE_DX_F32_ROWS
-                      * (AFFINE_DX_F32_COLS + 4) * 4, 128)
+    sw_off = x_off + AFFINE_DX_F32_ROWS * (AFFINE_DX_F32_COLS + 4) * 4
+    stage_bytes = _up(sw_off + (3 * AFFINE_DX_F32_COLS * sw * 2
+                                if stream else 0), 128)
     return AffineDxF32Plan(nkb=-(-k // AFFINE_DX_F32_COLS), np_=np_, sw=sw,
                            slices=-(-np_ // sw), w_plane=w_plane,
                            stage_off=stage_off, x_off=x_off,
                            stage_bytes=stage_bytes,
-                           smem=stage_off + 2 * stage_bytes)
+                           smem=stage_off + 2 * stage_bytes,
+                           sw_off=sw_off if stream else 0)
 
 
 def _affine_dx_f32(dy, w, x, vec, out, ste):
@@ -523,13 +528,19 @@ def _affine_dx_f32(dy, w, x, vec, out, ste):
     m, n = dy.shape
     k = x.shape[1]
     p = affine_dx_f32_plan(k, n)
+    # past AFFINE_DX_F32_WIDE_N the scratch of W's slice images, which a
+    # launch of their own splits first
+    wide = p.np_ > AFFINE_DX_F32_WIDE_N
+    ws = torch.empty(p.nkb * p.slices * 3 * AFFINE_DX_F32_COLS * p.sw,
+                     device=dy.device, dtype=BF16) if wide else None
     code = build.lib().cunet_dx_f32(
         dy.data_ptr(), dy.stride(0), m, n, w.data_ptr(), w.stride(0), k,
         x.data_ptr(), x.stride(0), inv, shift, vstride, tile_rows, int(ste),
-        out.data_ptr(), out.stride(0), p.nkb, p.np_, p.smem, _stream(dy))
+        out.data_ptr(), out.stride(0), 0 if ws is None else ws.data_ptr(),
+        p.nkb, p.np_, p.smem, _stream(dy))
     build.check(code, "affine_dx (float32)")
-    affine_dx.launches += 1
-    affine_dx.f32_launches += 1
+    affine_dx.launches += 1 + wide
+    affine_dx.f32_launches += 1 + wide
     affine_dx.option_launches += bool(ste)
     affine_dx.f32_option_launches += bool(ste)
     return out
@@ -677,7 +688,11 @@ def conv3x3_dx(dy, w3p, b, h, w, x, vec, out, *, ste=False):
     warps split the 9*G reduction and add their sums in a fixed order. On
     an H100 80GB HBM3 at 700 W (PERF.md section 6, PR 9): 70 us at r=64
     (``conv2d_input`` 85, the WMMA kernel before it 110), 25.5 at r=32,
-    5.9 at r=4.
+    5.9 at r=4. Float32 (``_conv3x3_dx_f32``): ``dot3_kernel`` through
+    ``flip_w3``, or without ``ste`` where ``buf_ops.conv_f32_route`` takes
+    the call the ``wgmma`` implicit GEMM of ``csrc/conv_f32_kernels.cu``
+    (W read flipped as it is split), the same bits: about 149 us at r=64,
+    batch 24 (``dot3_kernel`` 345, ``conv2d_input`` 352).
     """
     m, g = dy.shape
     cb = x.shape[1]
@@ -720,9 +735,24 @@ def _conv3x3_dx_f32(dy, w3p, h, w, x, vec, out, ste):
     implicit GEMM (``buf_ops.launch_conv3x3_f32``) of dy through
     ``flip_w3(w3p)``, no prologue, the ReLU gate of x's per-tile BN2
     affine in its epilogue (after the split-K partials are added, where
-    the plan splits K; with ``ste`` also 0 where that affine is >= 1)."""
+    the plan splits K; with ``ste`` also 0 where that affine is >= 1);
+    without ``ste``, where ``buf_ops.conv_f32_route`` takes the call,
+    ``csrc/conv_f32_kernels.cu``'s, the same bits."""
     inv, shift, vstride, tile_rows = _f32_gate_operands(dy, w3p, x, vec,
                                                         out)
+    m, g = dy.shape
+    p = None if ste or not w3p.is_contiguous() else conv_f32_route(
+        m, h, w, g, w3p.shape[0] // 9, True, (dy, x, out), inv, shift,
+        vstride)
+    if p is not None:
+        # csrc/conv_f32_kernels.cu, W flipped as it is split
+        code = launch_conv_f32(dy, w3p, h, w, out, p, flip=True,
+                               gate=(x, inv, shift, vstride, tile_rows))
+        build.check(code, "conv3x3_dx (float32, wgmma)")
+        conv3x3_dx.launches += 2
+        conv3x3_dx.f32_launches += 2
+        conv3x3_dx.wg_launches += 1
+        return out
     code = launch_conv3x3_f32(dy, flip_w3(w3p), h, w, out,
                               pro=(0, 0, vstride, tile_rows),
                               gate=(x, inv, shift), ste=ste)
@@ -1499,10 +1529,18 @@ def f32_counts() -> dict:
     return count_f32(F32_FORMS)
 
 
+def wg_counts() -> dict:
+    """Launches of ``csrc/conv_f32_kernels.cu``'s conv kernel by the
+    float32 ``conv3x3_dx`` (also in its ``launches`` and ``f32_launches``,
+    beside the split of W each call launches first)."""
+    return {"conv3x3_dx": conv3x3_dx.wg_launches}
+
+
 def f32_option_counts() -> dict:
     return count_f32_options(OPTIONS)
 
 
 for _k in F32_FORMS:
     _k.f32_launches = 0
+conv3x3_dx.wg_launches = 0
 reset_launch_counts()

@@ -1,13 +1,16 @@
 """Where the float32 train step's paths part from each other.
 
     python -m cunet_tpu_torch.tools.f32_step_gap [--layers 2] [--size 64]
-        [--batch 4] [--full] [--bn_tile 0] [--device cuda] [--quant]
-        [--f64]
+        [--batch 4] [--full] [--neck_size N] [--growth_rate G] [--seed 0]
+        [--smoke_batch] [--bn_tile 0] [--device cuda] [--quant] [--f64]
+        [--cancel]
 
 One CU-Net train step at ``compute_dtype="float32"``, ``bn_dtype``
 float32, whole-batch BN (``--bn_tile 0``) or ghost-BN tiles of
-``--bn_tile`` images, from the port's init (seed 0) on one batch of random
-images and targets (cuDNN deterministic, TF32 off), on these paths:
+``--bn_tile`` images, from the port's init (``--seed``) on one batch of
+random images and targets (the same seed; with ``--smoke_batch``
+``chip_smoke.flagship_train``'s numpy images and Gaussian heatmaps
+instead; cuDNN deterministic, TF32 off), on these paths:
 
 - ``kernel``: ``use_pallas``: every bottleneck and adapter on #7's kernels
   (``bn_tile=0``), or every slot on the float32 forms of the slot kernels
@@ -27,7 +30,8 @@ images and targets (cuDNN deterministic, TF32 off), on these paths:
   ``.float()`` of the plain ops taken as ``.double()``, so no operation
   rounds to float32), the reference each float32 path is then held to
   leaf by leaf: a leaf where the kernel step lies more than 2x farther
-  from it than the swap step does is counted;
+  from it than the swap step does is counted, and the three largest
+  ratios' numbers printed for every run (the controls' spread);
 - with ``--quant``, every step is W1/I8/G8's (``QuantConfig(bits_w=1,
   bits_i=8, bits_g=8)``): the masters preprocessed once, the selected
   weights fake-quantized in each step, QuanInput in the forward; each
@@ -45,7 +49,19 @@ images and targets (cuDNN deterministic, TF32 off), on these paths:
   in half its elements, ``--perms`` seeds: the distance of a float32
   implementation that rounds where the kernels do; and ``only:<form>``:
   the swap step with one form of the ten on its kernel, how far each
-  kernel alone moves it.
+  kernel alone moves it;
+- with whole-batch BN, ``noise0`` ... : the swap step with the outputs of
+  ``stats`` and ``apply`` (#7's forward, whose kernels sum otherwise than
+  their plain versions) moved by one ulp in half their elements; and for
+  each of #7's four kernels ``only:<kernel>`` (the swap step with that
+  kernel alone on its kernel) and ``swap:<kernel>`` (the kernel step with
+  that kernel alone on its plain version): which kernel moves the step.
+
+With ``--cancel`` (whole-batch BN) it first prints the #7 calls of the
+kernel step whose single-pass variance E[x^2] - mean^2 cancels most (the
+largest mean^2 / var of a column, which multiplies the sums' relative
+rounding into the variance's) and those whose variance from ``stats``'
+sums lies farthest from float64, beside the plain version's.
 
 Prints, for each pair, the loss's relative difference, the gradients'
 relative L2 over all and per leaf (median, the stem's leaves, the worst
@@ -53,7 +69,10 @@ leaves against the control's), and the BN running stats'; "over 2x c0"
 counts the leaves over twice ``control0``'s deviation, "over 2x c" over
 twice the largest of the other controls' (for a control, of the others). The default
 sizes are the two-slot card test's; ``--full`` takes CU-Net-8's widths
-(``--layers 8 --size 256 --batch 24`` for the smoke's step). On the CPU
+(``--layers 8 --size 256 --batch 24`` for the smoke's step), and
+``--neck_size`` / ``--growth_rate`` override the bottlenecks' (``--full
+--layers 2 --size 256 --batch 24 --neck_size 5 --growth_rate 64``: the
+smoke's 320-output step). On the CPU
 ``kernel`` is ``swap`` (the wrappers take their plain versions there).
 """
 
@@ -63,6 +82,7 @@ import argparse
 import contextlib
 import dataclasses
 
+import numpy as np
 import torch
 
 from cunet_tpu_torch import ModelConfig, QuantConfig
@@ -99,6 +119,8 @@ SLOT_FORMS = ("bn_stats", "affine_dot", "conv3x3", "affine_dx", "affine_dw",
 ROUNDED = tuple(f for f in SLOT_FORMS if f != "maxpool2_bwd")
 # the plain quantizer, whatever ``pinned_codes`` puts in its place
 QUANTIZE = buf_ops.quantize_act
+# #7's statistics kernel, whatever ``report_cancel`` puts in its place
+STATS = tbk.stats
 
 
 def ulp_noise(fn, gen):
@@ -289,6 +311,14 @@ def main(argv=None) -> int:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--full", action="store_true",
                     help="CU-Net-8's widths (else the card test's)")
+    ap.add_argument("--neck_size", type=int, default=None)
+    ap.add_argument("--growth_rate", type=int, default=None)
+    ap.add_argument("--seed", type=int, default=0,
+                    help="the init's and the batch's seed")
+    ap.add_argument("--cancel", action="store_true",
+                    help="the #7 calls whose variance cancels most")
+    ap.add_argument("--smoke_batch", action="store_true",
+                    help="chip_smoke.py's training batch (its numpy seed 0)")
     ap.add_argument("--bn_tile", type=int, default=0,
                     help="ghost-BN tile in images (0: whole-batch BN)")
     ap.add_argument("--device", default="cuda")
@@ -311,11 +341,14 @@ def main(argv=None) -> int:
         cfg = ModelConfig(loss_num=2, neck_size=2, growth_rate=8,
                           init_chan_num=16, class_num=8, num_blocks=2,
                           **common)
+    cfg = dataclasses.replace(
+        cfg, neck_size=args.neck_size or cfg.neck_size,
+        growth_rate=args.growth_rate or cfg.growth_rate)
     dev = args.device
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
-    gen = torch.Generator().manual_seed(0)
+    gen = torch.Generator().manual_seed(args.seed)
     params, state = init_cu_net(cfg, gen, device=dev)
     quant = None
     if args.quant:
@@ -325,6 +358,14 @@ def main(argv=None) -> int:
     x = torch.rand(args.batch, args.size, args.size, 3, generator=gen).to(dev)
     t = torch.rand(args.batch, args.size // 4, args.size // 4, cfg.class_num,
                    generator=gen).to(dev)
+    if args.smoke_batch:
+        from cunet_tpu_torch.tools.kernel_times import _smoke
+
+        rng = np.random.RandomState(0)
+        x = torch.from_numpy(rng.rand(args.batch, args.size, args.size, 3)
+                             .astype(np.float32)).to(dev)
+        t = torch.from_numpy(_smoke().gaussian_heatmaps(
+            rng, args.batch, cfg.class_num, args.size // 4)).to(dev)
     slot = args.bn_tile > 0
     perms = [(tile_perm(args.batch, args.bn_tile, torch.Generator()
                         .manual_seed(17 + i)) if slot else
@@ -353,6 +394,8 @@ def main(argv=None) -> int:
             runs[name] = step(cfg, params, state, x, t, quant)
 
     runs = {}
+    if args.cancel and not slot:
+        report_cancel(lambda: step(cfg, params, state, x, t, quant))
     run("kernel", x, t)
     run("swap", x, t, swap)
     for i, q in enumerate(perms):
@@ -363,6 +406,17 @@ def main(argv=None) -> int:
             run(f"noise{i}", x, t, slot_swap(gen=gen))
         for name in SLOT_FORMS:
             run(f"only:{name}", x, t, slot_swap(only=name))
+    else:
+        for i in range(args.perms):
+            gen = torch.Generator(device=dev).manual_seed(23 + i)
+            run(f"noise{i}", x, t, {**swap, **{
+                k.__name__: ulp_noise(tbk.PLAIN[k], gen)
+                for k in (tbk.stats, tbk.apply)}})
+        for k in tbk.KERNELS:
+            name = k.__name__
+            run(f"only:{name}", x, t,
+                {n: f for n, f in swap.items() if n != name})
+            run(f"swap:{name}", x, t, {name: swap[name]})
     runs["plain"] = step(plain_cfg, params, state, x, t, quant)
     if not slot:
         with patched(bottleneck, batch_stats=batch_stats_single_pass):
@@ -371,10 +425,12 @@ def main(argv=None) -> int:
         if quant is not None:
             ap.error("--f64 takes the float model (no --quant)")
         runs["f64"] = step_f64(cfg, params, state, x, t)
-    widths = "CU-Net-8" if args.full else "card test"
+    widths = (f"{'CU-Net-8' if args.full else 'card test'} widths, "
+              f"neck_size {cfg.neck_size} x growth_rate {cfg.growth_rate}, "
+              f"seed {args.seed}")
     print(f"f32 step gap: layer_num {args.layers}, {args.size} x "
           f"{args.size}, batch {args.batch}, bn_tile {args.bn_tile}, "
-          f"{widths} widths, {'W1/I8/G8, ' if quant else ''}on {dev}; "
+          f"{widths}, {'W1/I8/G8, ' if quant else ''}on {dev}; "
           f"losses "
           + ", ".join(f"{k} {v[0]:.9g}" for k, v in runs.items()), flush=True)
 
@@ -384,9 +440,10 @@ def main(argv=None) -> int:
     controls = [f"control{i}" for i in range(args.perms)]
     dev_of = {c: {k: rel(runs[c][1][k], gs[k]) for k in keys}
               for c in controls}
-    pairs = [("kernel", "swap")] + [(c, "swap") for c in controls] + (
-        [(k, "swap") for k in runs if k.startswith(("noise", "only:"))]
-        + [("kernel", "plain"), ("swap", "plain")] if slot else [
+    pairs = [("kernel", "swap")] + [(c, "swap") for c in controls] + [
+        (k, "swap") for k in runs
+        if k.startswith(("noise", "only:", "swap:"))] + (
+        [("kernel", "plain"), ("swap", "plain")] if slot else [
             ("kernel", "plain"), ("swap", "plain"), ("plain1", "plain"),
             ("plain1", "swap")])
     for a, b in pairs:
@@ -413,6 +470,47 @@ def main(argv=None) -> int:
     if args.f64:
         report_f64(runs, keys, stat_keys)
     return 0
+
+
+def report_cancel(step_fn):
+    """Run ``step_fn`` with #7's ``stats`` recorded; print its five calls
+    whose single-pass variance E[x^2] - mean^2 cancels most (the largest
+    mean^2 / var of a column: the factor by which the sums' relative
+    rounding reaches the variance), then the five whose variance from the
+    kernel's sums lies farthest from the float64 two-pass variance of the
+    same features, each beside the plain version's (``stats_plain``)."""
+    calls = []
+
+    def var_of(sums, m):
+        mean = sums[0].double() / m
+        return sums[1].double() / m - mean * mean, mean
+
+    def rec(xs, out, table=None):
+        r = STATS(xs, out, table=table)
+        m = xs[0].shape[0]
+        var, mean = var_of(r, m)
+        cat = torch.cat([x.double() for x in xs], 1)
+        var64 = cat.var(0, unbiased=False)
+        plain, _ = var_of(tbk.stats_plain(xs, torch.empty_like(r)), m)
+        amp = mean * mean / var64.clamp_min(1e-30)
+        err = ((var - var64).abs() / var64.clamp_min(1e-30)).max().item()
+        perr = ((plain - var64).abs() / var64.clamp_min(1e-30)).max().item()
+        calls.append((amp.max().item(), m, r.shape[1], err, perr))
+        return r
+
+    # the kernel counts its launches on the module's ``stats``: this one
+    rec.launches = rec.f32_launches = 0
+    with patched(tbk, stats=rec):
+        step_fn()
+    for what, key in (("cancellation", 0), ("variance error", 3)):
+        top = sorted(range(len(calls)), key=lambda i: calls[i][key],
+                     reverse=True)[:5]
+        print(f"#7 stats calls by {what} (call: largest mean^2/var, M, Ctot, "
+              f"largest relative variance error from the kernel's sums / "
+              f"the plain version's): " + ", ".join(
+                  f"{i}: {calls[i][0]:.3g}, {calls[i][1]}, {calls[i][2]}, "
+                  f"{calls[i][3]:.3g} / {calls[i][4]:.3g}" for i in top)
+              + f" of {len(calls)} calls", flush=True)
 
 
 def report_codes(codes, perms):
@@ -460,6 +558,9 @@ def report_f64(runs, keys, stat_keys):
           f"largest ratios " + ", ".join(
               f"{n} {k[n]:.4g} / {s[n]:.4g} ({ratio[n]:.3g}x)"
               for n in worst), flush=True)
+    for n in worst[:3]:
+        print(f"{n} against f64, every run: " + ", ".join(
+            f"{name} {d[n]:.4g}" for name, d in dist.items()), flush=True)
 
 
 if __name__ == "__main__":

@@ -179,7 +179,8 @@ def main(argv=None) -> int:
     build.lib()
     print(f"build {time.perf_counter() - t0:.1f} s", flush=True)
     if args.rows is not None:
-        cs.row_times(torch, args.rows, train_ops, buf_ops, train_bottleneck)
+        cs.row_times(torch, args.rows, train_ops, buf_ops, train_bottleneck,
+                     eval_ops)
         _digests(torch, cs, train_bottleneck, drop_ops)
         return 0
     cs.phase_kernels(torch, buf_ops)

@@ -175,9 +175,10 @@ def kernel_g_planes(g):
 
 def mirror_bwd_dx_f32(xs, g, stat, bias, red, w, order=ORDER):
     """``bwd_dx`` at float32 in torch: g W^T from the planes of both (g's as
-    the kernel reads them, ``kernel_g_planes``; k16 steps over Cout,
-    ``order``), then the recompute, gate and jacobian in float32, one
-    rounding per operation, in the kernel's order."""
+    the kernel reads them, ``kernel_g_planes``; k16 steps over Cout
+    ascending, through every half or slice of 128 outputs, ``order``),
+    then the recompute, gate and jacobian in float32, one rounding per
+    operation, in the kernel's order."""
     x = torch.cat(xs, 1)
     gy = planes_mirror(g, w.t(), order, ap=kernel_g_planes(g))
     xh = (x - stat[0]) * stat[1]
@@ -188,12 +189,14 @@ def mirror_bwd_dx_f32(xs, g, stat, bias, red, w, order=ORDER):
 @pytest.mark.parametrize("widths,n", [([128, 128, 32, 32], 128),
                                       ([40, 16, 24], 16),
                                       ([64, 40, 88], 192),
-                                      ([128, 32], 256)])
+                                      ([128, 32], 256),
+                                      ([64, 40, 88], 320)])
 def test_dx_mirror_is_exact_under_one_hot_cotangents(widths, n):
     """Row m's cotangent one-hot (1) at n_m = m % n: g_y = W[c, n_m] exactly
     (the pieces of W add back to it), so the mirror gives
     ``bwd_dx_plain``'s float32 bits, past 128 outputs across both halves of
-    g's planes; a W plane dropped moves them."""
+    g's planes, past 256 across its three slices (W's planes staged with
+    each); a W plane dropped moves them."""
     m, ctot = 512, sum(widths)
     gen = torch.Generator().manual_seed(ctot)
     xs = [torch.randn(m, c, generator=gen) * 2 for c in widths]
@@ -221,16 +224,24 @@ def test_dx_mirror_is_exact_under_one_hot_cotangents(widths, n):
 
 
 # (neck_size, growth_rate, init_chan_num) of a CU-Net-8 whose #7 calls
-# all have one cotangent width: 128 (the default's), 144, 160, 192, 256
+# all have one cotangent width: 128 (the default's), 144, 160, 192, 256,
+# and past the 256 whose W planes the backward keeps resident 264, 320,
+# 512, 1040 (the last not a multiple of 128)
 BN0_WIDTHS = {128: (4, 32, 128), 144: (3, 48, 144), 160: (5, 32, 160),
-              192: (4, 48, 192), 256: (4, 64, 256)}
+              192: (4, 48, 192), 256: (4, 64, 256), 264: (3, 88, 264),
+              320: (5, 64, 320), 512: (4, 128, 512), 1040: (5, 208, 1040)}
 
 
 def _bn0_cfg(width=128, dtype="float32"):
+    """CU-Net-8 at ``BN0_WIDTHS[width]``; past 256 outputs CU-Net-2 (the
+    same calls but fewer: a wide model's weights take seconds to draw on
+    the CPU)."""
     from cunet_tpu_torch.config import ModelConfig
 
     neck, growth, init = BN0_WIDTHS[width]
-    return ModelConfig(layer_num=8, order=1, class_num=16, loss_num=8,
+    layers = 8 if width <= tbk.WIDE_N else 2
+    return ModelConfig(layer_num=layers, order=1, class_num=16,
+                       loss_num=layers,
                        neck_size=neck, growth_rate=growth,
                        init_chan_num=init, compute_dtype=dtype,
                        use_pallas=True, bn_tile=0)
@@ -243,7 +254,8 @@ def _bn0_f32_calls(width=128, dtype="float32"):
     widths of ``BN0_WIDTHS[width]``), read from the port's forward on
     eight 64 x 64 images (16 x 16 at the top of each hourglass; at 1 x 1
     the 8 rows still make a row tile): M scales by 3 x 16 (the backward's
-    two kernels take the forward's shapes)."""
+    two kernels take the forward's shapes). Past 256 outputs (a wide, slow
+    forward on the CPU) two images, M scaled by 12 x 16."""
     from cunet_tpu_torch.models import init_cu_net
 
     cfg = _bn0_cfg(width, dtype)
@@ -253,11 +265,13 @@ def _bn0_f32_calls(width=128, dtype="float32"):
 
     def recorder(xs, vec, w, out, table=None):
         assert xs[0].dtype == getattr(torch, dtype)
-        calls.append((48 * xs[0].shape[0], sum(x.shape[1] for x in xs),
-                      w.shape[1], len(xs)))
+        calls.append((24 // images * 16 * xs[0].shape[0],
+                       sum(x.shape[1] for x in xs), w.shape[1], len(xs)))
         return tbk.apply_plain(xs, vec, w, out)
 
-    x = torch.rand(8, 64, 64, 3, generator=torch.Generator().manual_seed(1))
+    images = 8 if width <= tbk.WIDE_N else 2
+    x = torch.rand(images, 64, 64, 3,
+                   generator=torch.Generator().manual_seed(1))
     with pytest.MonkeyPatch.context() as mp, torch.no_grad():
         mp.setattr(tbk, "apply", recorder)
         apply_cu_net(params, state, x, cfg=cfg, train=True)
@@ -313,15 +327,20 @@ def _check_dx_f32_plan(m, ctot, n):
     assert (p.ngrp - 1) * C < ctot <= p.ngrp * C
     for grid in _grids(p.ngrp, p.items(m)):
         assert (_items_once(p.steps(m), p.ngrp, grid) == 1).all()
-    assert p.np == -(-n // 16) * 16 and p.halves == -(-p.np // 128) <= 2
+    assert p.np == -(-n // 16) * 16 and p.halves == -(-p.np // 128)
     assert tbk.split_planes_shape(m, n) == (3, p.steps(m),
                                             p.halves * 128 * R)
-    assert p.wpl == C * p.np * 2 and p.g_off == 3 * p.wpl
+    # past WIDE_N no W plane is resident: each warpgroup stages its half's
+    wide = p.np > tbk.WIDE_N
+    assert p.wpl == (0 if wide else C * p.np * 2) and p.g_off == 3 * p.wpl
     assert p.x_off == p.g_off + 2 * 3 * 128 * R * 2
-    assert p.kon_off == p.x_off + 2 * R * C * 4
+    assert p.sw_off == (p.x_off + 2 * R * C * 4 if wide else 0)
+    assert p.kon_off == p.x_off + 2 * R * C * 4 + (2 * 3 * 128 * R * 2
+                                                   if wide else 0)
     assert p.ch_off == p.kon_off + 32 * C
     assert p.smem == p.ch_off + 2 * (C // 8) * 16 <= SMEM_LIMIT
-    assert all(v % 128 == 0 for v in (p.wpl, p.g_off, p.x_off, p.kon_off))
+    assert all(v % 128 == 0 for v in (p.wpl, p.g_off, p.x_off, p.kon_off,
+                                      p.sw_off))
     return p
 
 
@@ -334,11 +353,12 @@ def test_f32_dx_plans_fit_every_bn0_call():
 
 @pytest.mark.parametrize("width", sorted(BN0_WIDTHS))
 def test_backward_plans_fit_every_bn0_call_at_width(width):
-    """At ``neck_size * growth_rate`` = ``init_chan_num`` = 128 ... 256 the
+    """At ``neck_size * growth_rate`` = ``init_chan_num`` = 128 ... 1040 the
     backward's plans at every #7 call of a float32 and of a bf16
     ``bn_tile=0`` step (each step's calls read from its own forward):
     ``dx_f32_plan`` and ``reduce_plan_f32``, ``dx_plan`` and
-    ``reduce_plan``, each within the H100's shared memory; and
+    ``reduce_plan``, each within the H100's shared memory (past 256
+    outputs with W's planes staged, none resident); and
     ``check_kernel_dtype`` lets both configurations through."""
     from cunet_tpu_torch.models.cu_net import check_kernel_dtype
 
@@ -348,9 +368,12 @@ def test_backward_plans_fit_every_bn0_call_at_width(width):
     assert {n for _, _, n, _ in f32} == {width}
     for m, ctot, n, _ in f32:
         _check_dx_f32_plan(m, ctot, n)
-        assert tbk.reduce_plan_f32(m, ctot, n).smem <= SMEM_LIMIT
-        assert tbk.dx_plan(m, ctot, n).smem <= SMEM_LIMIT
-        assert tbk.reduce_plan(m, ctot, n).smem <= SMEM_LIMIT
+        wide = -(-n // 16) * 16 > tbk.WIDE_N
+        for p in (tbk.reduce_plan_f32(m, ctot, n), tbk.dx_plan(m, ctot, n),
+                  tbk.reduce_plan(m, ctot, n)):
+            assert p.smem <= SMEM_LIMIT
+            assert bool(getattr(p, "w_off", 0) or getattr(p, "sw_off", 0)
+                        or getattr(p, "wpl", 1) == 0) == wide
     for dt in ("float32", "bfloat16"):
         check_kernel_dtype(_bn0_cfg(width, dt), "cuda", train=True)
 
@@ -363,21 +386,30 @@ def test_backward_plans_fit_every_bn0_call_at_width(width):
 ])
 def test_check_kernel_dtype_refuses_what_no_plan_takes(neck, growth, init,
                                                        bn_tile, dtype):
-    """Past 256 outputs no plan of #7's backward (at either dtype) nor of
-    the ghost-BN ``affine_dx[f32]`` takes the cotangent: training on the
-    card is refused up front with the width and the limit, where a step
-    would stop mid-way; on the CPU, in eval, or off the kernels it runs.
+    """The configurations whose cotangents once passed every plan of #7's
+    backward (at either dtype) and of the ghost-BN ``affine_dx[f32]``, past
+    256 outputs: no plan refuses them now (W's planes staged a slice at a
+    time), so ``check_kernel_dtype`` lets their training on the card
+    through, as it does on the CPU, in eval and off the kernels; and each
+    plan that takes their widest cotangent fits the H100's shared memory.
     A float32 ``bn_tile=0`` model at ``growth_rate=48`` (192 outputs)
     passes."""
+    from cunet_tpu_torch.kernels import train_ops
     from cunet_tpu_torch.models.cu_net import check_kernel_dtype
 
     cfg = dataclasses.replace(_bn0_cfg(), neck_size=neck, growth_rate=growth,
                               init_chan_num=init, bn_tile=bn_tile,
                               compute_dtype=dtype)
     wide = max(neck * growth, init)
-    with pytest.raises(NotImplementedError,
-                       match=rf"{wide} outputs.*at most 256"):
-        check_kernel_dtype(cfg, "cuda", train=True)
+    check_kernel_dtype(cfg, "cuda", train=True)
+    if bn_tile:
+        plans = [train_ops.affine_dx_f32_plan(wide, wide)]
+    else:
+        shape = (tbk.DX_ROWS, wide, wide)
+        plans = ([tbk.reduce_plan_f32(*shape), tbk.dx_f32_plan(*shape)]
+                 if dtype == "float32"
+                 else [tbk.reduce_plan(*shape), tbk.dx_plan(*shape)])
+    assert all(p.smem <= SMEM_LIMIT for p in plans)
     check_kernel_dtype(cfg, "cpu", train=True)
     check_kernel_dtype(cfg, "cuda")
     check_kernel_dtype(dataclasses.replace(cfg, use_pallas=False), "cuda",

@@ -478,9 +478,14 @@ def test_reduce_plan_at_the_main_path():
     """K = 320 -> 128 at batch 24, r = 64: 52 chunks of 1920 rows x 5
     column blocks, 260 blocks, one wave of two blocks on each of the
     H100's 132 SMs (each block within half the SM's shared memory), two
-    stages; outputs past 256 raise."""
+    stages; past 256 outputs no W plane is resident: each of the two
+    stages takes a slice of W's planes beside g's, the grid's z the dW
+    slices."""
     p = train_bottleneck.reduce_plan(24 * 64 * 64, 320, 128)
     assert (p.chunk, p.chunks, p.col_blocks, p.stages) == (1920, 52, 5, 2)
     assert 2 * (p.smem + 1024) <= 233_472
-    with pytest.raises(ValueError):
-        train_bottleneck.reduce_plan(1000, 64, 264)
+    assert p.w_off == 0 and p.stat_off == 3 * 64 * (128 + 8) * 2
+    wide = train_bottleneck.reduce_plan(1000, 64, 264)
+    assert wide.stages == 2 and wide.stat_off == 0 and wide.w_off > 0
+    assert wide.stage_bytes >= wide.w_off + 3 * 64 * (128 + 8) * 2
+    assert wide.smem <= buf_ops.SMEM_LIMIT

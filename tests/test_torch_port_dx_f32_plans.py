@@ -58,9 +58,11 @@ def _step_shapes(order):
 
 # cotangents past 128 (a model whose neck_size * growth_rate or
 # init_chan_num is above 128): two slices of depth / two output halves,
-# the second 8, 64 and 128 wide
+# the second 8, 64 and 128 wide; past 256 (W's planes staged a slice at a
+# time) three, four and nine, the last 8, 64, 128 and 16 wide
 WIDE_SHAPES = [(m, k, n) for m in (BATCH * 64 * 64, BATCH * 16, 1000)
-               for k, n in ((192, 136), (320, 192), (1920, 256))]
+               for k, n in ((192, 136), (320, 192), (1920, 256), (192, 264),
+                            (320, 320), (320, 512), (320, 1040))]
 DX_SHAPES = sorted(set(_step_shapes(1)) | set(_step_shapes(14))
                    | set(WIDE_SHAPES))
 # #7's calls: every product but the heads (the whole-batch BN step's
@@ -101,7 +103,7 @@ def test_affine_dx_plan_covers_every_output_once(m, k, n):
     p = train_ops.affine_dx_f32_plan(k, n)
     R, C = train_ops.AFFINE_DX_F32_ROWS, train_ops.AFFINE_DX_F32_COLS
     assert (p.nkb - 1) * C < k <= p.nkb * C
-    assert p.np_ == -(-n // 16) * 16 <= train_ops.AFFINE_DX_F32_MAX_N
+    assert p.np_ == -(-n // 16) * 16
     # the slices of depth cover np_ once, each but the last sw deep
     assert p.sw == min(p.np_, train_ops.AFFINE_DX_F32_SLICE)
     depths = [range(s * p.sw, min(p.np_, (s + 1) * p.sw))
@@ -116,13 +118,17 @@ def test_affine_dx_plan_covers_every_output_once(m, k, n):
         for b in range(grid):
             hits[b // p.nkb::stride, b % p.nkb] += 1
         assert (hits == 1).all()
-    # the layout: W's planes (all np_ depths), then two buffers (a slice's
-    # dy rows at sw + 8 floats, x rows at C + 4), within the H100's shared
+    # the layout: W's planes (all np_ depths; none past WIDE_N, each
+    # buffer then the slice's at sw_off), then two buffers (a slice's dy
+    # rows at sw + 8 floats, x rows at C + 4), within the H100's shared
     # memory; two blocks an SM where N < 128 (the heads)
-    assert p.w_plane == C * p.np_ * 2
+    wide = p.np_ > train_ops.AFFINE_DX_F32_WIDE_N
+    assert p.w_plane == (0 if wide else C * p.np_ * 2)
     assert p.stage_off >= 3 * p.w_plane and p.stage_off % 128 == 0
     assert p.x_off == R * (p.sw + 8) * 4
-    assert p.stage_bytes >= p.x_off + R * (C + 4) * 4
+    assert p.sw_off == (p.x_off + R * (C + 4) * 4 if wide else 0)
+    assert p.stage_bytes >= p.x_off + R * (C + 4) * 4 + (
+        3 * C * p.sw * 2 if wide else 0)
     assert p.stage_bytes % 128 == 0
     assert p.smem == p.stage_off + 2 * p.stage_bytes <= SMEM_LIMIT
     assert (p.smem <= SMEM_PAIR) == (n < 128)
@@ -171,21 +177,24 @@ def test_reduce_plan_counts_every_row_and_output_once(m, ctot, n):
     assert (p.col_blocks - 1) * C < ctot <= p.col_blocks * C
     assert p.chunks * p.col_blocks <= max(tbk.REDUCE_BLOCKS_F32,
                                           p.col_blocks)
-    assert p.halves == -(-p.np // tbk.REDUCE_N_F32) <= 2
-    assert p.np <= tbk.REDUCE_MAX_N_F32
+    assert p.halves == -(-p.np // tbk.REDUCE_N_F32)
     dw, sums = _reduce_block_cover(p)
     assert (dw == 1).all() and (sums == 1).all()
     # the pre-pass's planes: a tile of every half of 128 outputs
     assert tbk.split_planes_shape(m, n) == (
         3, -(-m // R), p.halves * tbk.REDUCE_N_F32 * R)
-    # W's planes, two buffers of x rows and g's planes (the first also the
-    # sums' reduction, 2 x 4 x C floats, after the last step) and the BN
+    # W's planes (past WIDE_N none: each buffer a half's at sw_off), two
+    # buffers of x rows and g's planes (the first also the sums'
+    # reduction, 2 x 4 x C floats, after the last step) and the BN
     # constants: one block an SM
-    assert p.wpl == C * p.np * 2
+    wide = p.np > tbk.WIDE_N
+    assert p.wpl == (0 if wide else C * p.np * 2)
     assert p.stage_off == -(-3 * p.wpl // 128) * 128
     assert p.g_off == R * (C + 4) * 4
     tile = R * tbk.REDUCE_N_F32 * 2   # a plane tile
-    assert p.stage_bytes == -(-(p.g_off + 3 * tile) // 128) * 128
+    assert p.sw_off == (p.g_off + 3 * tile if wide else 0)
+    assert p.stage_bytes == -(-(p.g_off + (6 if wide else 3) * tile)
+                              // 128) * 128
     assert p.stage_bytes >= 8 * C * 4
     assert p.stat_off == p.stage_off + 2 * p.stage_bytes
     assert p.smem == p.stat_off + 4 * C * 4 <= SMEM_LIMIT
@@ -218,12 +227,18 @@ def test_plans_are_functions_of_the_shapes_alone(monkeypatch):
 
 
 def test_plans_raise_past_the_widest_cotangent():
+    """Up to 256 outputs W's planes stay resident; past the widest such
+    cotangent the plans no longer raise but stage them a slice at a time
+    (none resident), at any width."""
     assert train_ops.affine_dx_f32_plan(192, 256).slices == 2
+    assert train_ops.affine_dx_f32_plan(192, 256).w_plane > 0
     assert tbk.reduce_plan_f32(4096, 320, 256).halves == 2
-    with pytest.raises(ValueError, match="affine_dx"):
-        train_ops.affine_dx_f32_plan(192, 272)
-    with pytest.raises(ValueError, match="bwd_reduce"):
-        tbk.reduce_plan_f32(4096, 320, 272)
+    assert tbk.reduce_plan_f32(4096, 320, 256).wpl > 0
+    for n in (272, 1040):
+        p = train_ops.affine_dx_f32_plan(192, n)
+        assert p.slices == -(-n // 128) and p.w_plane == 0 < p.sw_off
+        p = tbk.reduce_plan_f32(4096, 320, n)
+        assert p.halves == -(-n // 128) and p.wpl == 0 < p.sw_off
 
 
 def reduce_dw_mirror(r, g, plan):

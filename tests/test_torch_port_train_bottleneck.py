@@ -4,9 +4,11 @@ against the JAX package's ``fused_train_bottleneck`` in interpret mode.
 - the port's ``fused_train_bottleneck`` (its four wrappers computing their
   plain versions on CPU tensors) against JAX's, on 1, 2 and 4 feature
   groups of mixed widths, float32 and bfloat16, and on two groups with 160
-  outputs (past the 144 the first float32 ``bwd_dx`` kernel took): the
-  forward's output, batch mean and variance, and the gradients of the
-  features, scale, bias and weight under a fixed cotangent;
+  outputs (past the 144 the first float32 ``bwd_dx`` kernel took) and, for
+  the gradients at float32, 320 (past the 256 whose W planes the
+  backward's kernels keep resident): the forward's output, batch mean and
+  variance, and the gradients of the features, scale, bias and weight
+  under a fixed cotangent;
 - what the autograd Function saves: the inputs, the parameters and the two
   statistics only (the counterpart of tests/test_train_kernel.py::
   test_memory_o1_residuals);
@@ -58,8 +60,12 @@ STEP_GRAD = dict(rtol=3e-3, atol=3e-3)
 STEP_STATE = dict(rtol=5e-4, atol=5e-4)
 LOSS_RTOL = 1e-4
 N, H, COUT = 2, 8, 16
-GROUPS = {1: [24], 2: [16, 12], 4: [32, 16, 8, 4], "wide": [32, 24]}
-COUTS = {"wide": 160}    # outputs of a case, COUT where not listed
+GROUPS = {1: [24], 2: [16, 12], 4: [32, 16, 8, 4], "wide": [32, 24],
+          "wider": [32, 24]}
+# outputs of a case, COUT where not listed: past the 144 the first float32
+# bwd_dx kernel took, and past the 256 whose W planes the backward's
+# kernels keep resident (three slices of 128)
+COUTS = {"wide": 160, "wider": 320}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -145,8 +151,9 @@ def test_forward_matches_jax(groups, dtype):
         np.testing.assert_allclose(a, b, **VAL)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("groups", [1, 2, 4, "wide"])
+@pytest.mark.parametrize("groups,dtype", [
+    (gr, dt) for gr in (1, 2, 4, "wide") for dt in ("float32", "bfloat16")]
+    + [("wider", "float32")])
 def test_grads_match_jax(groups, dtype):
     (_, want), (_, got), g = _case(groups, dtype)
     for k, (a, b) in enumerate(zip(got, want)):

@@ -3456,6 +3456,27 @@ def fwd_kernel(row):
     return {"kernel": FWD_F32_KERNEL} if row in FWD_F32_ROWS else {}
 
 
+# the kernels line's ``kernel`` key of the float32 statistics and
+# BN-jacobian rows: their kernels, whose sums end in float64
+# (``f32_sums_f64_checks`` holds them to float64)
+SUMS_KERNELS = {
+    "bn_stats[f32]": "bn_stats_f32_kernel (one pass of shifted sums, "
+                     "float64 partials, clusters of up to 16)",
+    "bn_bwd[f32]": "bn_bwd_f32_kernel (r=64: persistent clusters of 16, a "
+                   "block's rows in registers, sums traded by st.async); "
+                   "bn_bwd_kernel<float> where a portable cluster keeps a "
+                   "tile's rows (r <= 32)",
+    "train_bottleneck.stats[f32]": "tb_stats_f32_kernel + "
+                                   "tb_stats_sum_kernel (float64 sums)",
+}
+
+
+def sums_kernel(row):
+    """The kernels line's ``kernel`` key of a row of ``SUMS_KERNELS``, else
+    none."""
+    return {"kernel": SUMS_KERNELS[row]} if row in SUMS_KERNELS else {}
+
+
 def conv_kernel(row):
     """The kernels line's ``kernel`` key of the two train convs' rows: the
     wgmma kernel where its plan takes the shape (r >= 32), dot3_kernel
@@ -4356,7 +4377,7 @@ def step_leaves(torch, a, b):
 
 
 def f32_step_check(torch, label, cfg, params, state, x, t, swapped,
-                   counters, perms, quant=None, noise=0, strict=True, **kw):
+                   counters, perms, quant=None, noise=0, **kw):
     """Phase 13 (d) and 14 (b): the float32 kernel step against the swap
     step from the same state (``swapped()``: the path with its kernels'
     plain versions swapped in, none of ``counters``' kernels launching),
@@ -4377,10 +4398,9 @@ def f32_step_check(torch, label, cfg, params, state, x, t, swapped,
     controls): the kernels reround every product, which no permutation
     reaches. ``kw`` (dropout arguments) reach every step; threefry masks
     follow a sample's place in the batch, so their check takes no
-    permutations (``perms`` empty) and the noise controls alone. Not
-    ``strict``: the leaves past their limits are printed, not required
-    (the caller holds the step otherwise). Returns (the kernel step, the
-    swap step, {leaf: (distance, limit)} past their limits)."""
+    permutations (``perms`` empty) and the noise controls alone. Returns
+    (the kernel step, the swap step, {leaf: (distance, limit)} past their
+    limits)."""
     from cunet_tpu_torch.kernels import train_slot
     from cunet_tpu_torch.tools.f32_step_gap import (
         patched,
@@ -4463,7 +4483,7 @@ def f32_step_check(torch, label, cfg, params, state, x, t, swapped,
           f"largest share of its limit: "
           f"{max(got[n] / lim[n] for n in got):.3f}; over: {bad}",
           flush=True)
-    require(not bad or not strict, f"{label}: step off the swap step: "
+    require(not bad, f"{label}: step off the swap step: "
                                    f"{bad}")
     lk2, gk2, _ = grads(cfg, x, t)
     same = lk2 == k[0] and all(torch.equal(k[1][n], gk2[n]) for n in gk2)
@@ -4473,17 +4493,15 @@ def f32_step_check(torch, label, cfg, params, state, x, t, swapped,
     return k, s, bad
 
 
-def f64_step_hold(torch, label, cfg, params, state, x, t, k, s,
-                  strict=True):
+def f64_step_hold(torch, label, cfg, params, state, x, t, k, s):
     """The kernel step ``k`` and the swap step ``s`` (``f32_step_check``'s)
     each against the plain path's step in float64 (``f32_step_gap.
     step_f64``: no operation rounds to float32): the loss, each grad leaf
     and each BN running stat of the kernel step no farther from float64
     than max(F32_STEP_CONTROL x the swap step's distance,
     F32_STEP_FLOOR), so the kernels lose no accuracy that the plain
-    versions keep, however far a chaotic model carries either. Not
-    ``strict``: printed, not required. Returns {number: (distance,
-    limit)} past their limits."""
+    versions keep, however far a chaotic model carries either. Returns
+    {number: (distance, limit)} past their limits."""
     from cunet_tpu_torch.tools.f32_step_gap import rel, step_f64
 
     ref = step_f64(cfg, params, state, x, t)
@@ -4508,7 +4526,7 @@ def f64_step_hold(torch, label, cfg, params, state, x, t, k, s,
           f"{max(dk[n] / lim[n] for n in dk):.3f}; largest ratios "
           + ", ".join(f"{n} {dk[n]:.4g} / {ds[n]:.4g}" for n in worst)
           + f"; over: {bad}", flush=True)
-    require(not bad or not strict, f"{label}: kernel step farther from "
+    require(not bad, f"{label}: kernel step farther from "
                                    f"float64 than the swap step: {bad}")
     return bad
 
@@ -4522,8 +4540,7 @@ WIDER_BN0 = (5, 64)
 
 
 def wide_bn0_step_check(torch, tbk, cfg, x, t, perms, neck=None,
-                        growth=WIDE_BN0_GROWTH, aside=(), strict=True,
-                        f64=False):
+                        growth=WIDE_BN0_GROWTH, f64=False):
     """Phases 9 and 13 (d), wide: the ``bn_tile=0`` step of a model with
     ``growth_rate`` ``growth`` (and ``neck_size`` ``neck``) at ``cfg``'s
     dtype: at WIDE_BN0_GROWTH every bottleneck's #7 call 192 outputs wide
@@ -4534,17 +4551,12 @@ def wide_bn0_step_check(torch, tbk, cfg, x, t, perms, neck=None,
     bf16 too the swap step (#7's plain versions swapped in) is the
     reference: a two-slot model is too chaotic in bf16 for the plain
     step's bands (the plain path rounds otherwise than #7 on purpose), at
-    128 outputs on the resident-W kernels as at 320. ``aside``: #7 kernels
-    on their plain versions in every step, the kernel step's too, so the
-    check holds the others. Not ``strict``: printed, not required. With
-    ``f64`` the kernel step is also held to float64 (``f64_step_hold``).
-    At float32 and 320 outputs the step on all four kernels parts from
-    its swap step and from float64 at ``hg.neck.layers.1`` on this batch,
-    from ``stats[f32]``'s sums (``tools/f32_step_gap.py --smoke_batch``:
-    ROADMAP.md queue C, PERF.md section 7), so the smoke requires that step
-    with ``stats`` aside and prints the full one."""
-    import types
-
+    128 outputs on the resident-W kernels as at 320. With ``f64`` the
+    kernel step is also held to float64 (``f64_step_hold``): at float32
+    and 320 outputs on the smoke's batch, where ``stats[f32]``'s float32
+    sums once moved ``hg.neck.layers.1`` 4.7x farther from float64 than
+    the swap step (``tools/f32_step_gap.py --smoke_batch``, PERF.md
+    section 7); its float64 sums hold both limits."""
     from cunet_tpu_torch.models import init_cu_net
 
     wide = dataclasses.replace(cfg, growth_rate=growth,
@@ -4557,28 +4569,11 @@ def wide_bn0_step_check(torch, tbk, cfg, x, t, perms, neck=None,
              f"{wide.neck_size} x growth_rate {growth} "
              f"({wide.neck_size * wide.growth_rate} outputs), "
              f"{WIDE_BN0_LAYERS} slots")
-    swapped = tuple(k for k in tbk.KERNELS if k not in aside)
-    counters = types.SimpleNamespace(
-        reset_launch_counts=tbk.reset_launch_counts,
-        launch_counts=lambda: {k.__name__: k.launches for k in swapped})
-    if aside:
-        label += (f", {' and '.join(k.__name__ for k in aside)} on the "
-                  f"plain version in every step")
-    if not strict:
-        label += " (printed, not required)"
     tbk.reset_launch_counts()
-    with tb_plain_swapped(tbk, kernels=aside):
-        k, s, bad = f32_step_check(
-            torch, label, wide, params, state, x, t,
-            lambda: tb_plain_swapped(tbk, kernels=swapped), counters, perms,
-            strict=strict)
-        if f64:
-            bad64 = f64_step_hold(torch, label, wide, params, state, x, t,
-                                  k, s, strict=strict)
-    if not strict:
-        print(f"{label}: {len(bad)} numbers past the swap step's limits"
-              + (f", {len(bad64)} past float64's" if f64 else "")
-              + " (ROADMAP.md queue C: stats[f32]'s sums)", flush=True)
+    k, s, _ = f32_step_check(torch, label, wide, params, state, x, t,
+                             lambda: tb_plain_swapped(tbk), tbk, perms)
+    if f64:
+        f64_step_hold(torch, label, wide, params, state, x, t, k, s)
     print(f"{label}: #7 launches of the checks' kernel steps "
           f"{tbk.f32_counts() if f32 else tbk.launch_counts()}", flush=True)
 
@@ -4587,8 +4582,8 @@ def phase_bn0_f32_training(torch, tbk, tops, bops, dops, gpu, bf16_times):
     """Phase 13 (b)-(e): the Function at float32; the conv repair;
     CU-Net-8 @256 at float32, bn_tile=0, on #7's float32 forms: the step
     against the swap step (and, at growth 48 and at 320 outputs,
-    ``wide_bn0_step_check``; at 320 with ``stats[f32]`` aside, the step
-    on all four kernels against its swap step and float64 printed),
+    ``wide_bn0_step_check``; at 320 on all four kernels against its swap
+    step and against float64, both required),
     remat "layer" / "block" bit for bit, dropout through the mask kernel's
     float32 form bit for bit the plain mask's step, one W1/I8/G8 step,
     three main-path steps; step times and peak memory beside phase 9's
@@ -4623,9 +4618,7 @@ def phase_bn0_f32_training(torch, tbk, tops, bops, dops, gpu, bf16_times):
                        lambda: tb_plain_swapped(tbk), tbk, perms)
         wide_bn0_step_check(torch, tbk, cfg, x, t, perms)
         wide_bn0_step_check(torch, tbk, cfg, x, t, perms, *WIDER_BN0,
-                            aside=(tbk.stats,))
-        wide_bn0_step_check(torch, tbk, cfg, x, t, perms, *WIDER_BN0,
-                            strict=False, f64=True)
+                            f64=True)
         l0, g0, peak0 = step_memory(torch, cfg, params, state, batch)
         for remat in ("layer", "block"):
             lr, gr, peak = step_memory(torch, dataclasses.replace(
@@ -4892,6 +4885,89 @@ def im2col(torch, y, b, h, w):
     return torch.cat(cols, dim=-1).reshape(b * h * w, 9 * c)
 
 
+def f32_sums_f64_checks(torch, tops, tbk, strict=True):
+    """The sums of the float32 statistics and BN-jacobian kernels against
+    float64, beside their plain versions', at r=64, K=192, batch 24 on the
+    smoke's operands (x ~ N(0, 1)) and on a cancelling input (x ~ 4 +
+    N(0, 1): mean^2 / var ~ 16): ``bn_stats[f32]``'s mean (largest error
+    over a channel's float64 standard deviation) and variance (largest
+    relative error), at tiles 2 and 6; ``bn_bwd[f32]``'s dbn (largest
+    error over its largest value) and d_x, at tiles 2 and 6; #7's
+    ``stats[f32]``'s variance E[x^2] - mean^2 from its sums (largest
+    relative error; the concat of x's 128 and 64 columns). With
+    ``strict`` the two statistics kernels must lie no farther from
+    float64 than their plain versions (their sums are float64, rounded
+    once). Returns {row: [(case, kernel error, plain error)]}."""
+    m, k = TRAIN_BATCH * 64 * 64, 192
+    gen = torch.Generator().manual_seed(23)
+    out = {}
+
+    def note(row, case, kern_err, plain_err, what):
+        out.setdefault(row, []).append((case, kern_err, plain_err))
+        print(f"f64 sums {row} [{case}]: {what} from float64 "
+              f"{kern_err:.4g} (plain version {plain_err:.4g})", flush=True)
+
+    for name, shift in (("N(0,1)", 0.0), ("4+N(0,1)", 4.0)):
+        buf = torch.randn(m, 224, generator=gen).cuda() + shift
+        x = buf[:, :k]
+        x64 = x.double()
+        for tile in SLOT_F32_TILES:
+            tiles = TRAIN_BATCH // tile
+            case = f"K=192 r=64 tile {tile}, x ~ {name}"
+            xt = x64.view(tiles, -1, k)
+            mean64, var64 = xt.mean(1), xt.var(1, unbiased=False)
+            errs = []
+            for fn in (tops.bn_stats, tops.bn_stats_plain):
+                st = fn(x, torch.empty(tiles, 2, k, device="cuda")).double()
+                errs.append((((st[:, 0] - mean64) / var64.sqrt()).abs().max()
+                             .item(),
+                             ((st[:, 1] - var64) / var64).abs().max().item()))
+            note("bn_stats[f32]", case, errs[0][0], errs[1][0],
+                 "mean's largest error in standard deviations")
+            note("bn_stats[f32]", case, errs[0][1], errs[1][1],
+                 "variance's largest relative error")
+            st = tops.bn_stats_plain(x, torch.empty(tiles, 2, k,
+                                                    device="cuda"))
+            bn = torch.stack([torch.rand(k, generator=gen) + 0.5,
+                              torch.randn(k, generator=gen) * 0.3]).cuda()
+            d_a = torch.randn(m, k, generator=gen).cuda()
+            rstd = torch.rsqrt(st[:, 1].double() + 1e-5)
+            xh = (xt - st[:, 0, None].double()) * rstd[:, None]
+            da = d_a.double().view(tiles, -1, k)
+            sg, sb = (da * xh).sum(1, keepdim=True), da.sum(1, keepdim=True)
+            dx64 = (rstd[:, None] * bn[0].double() * (
+                da - sb / xt.shape[1] - xh * (sg / xt.shape[1]))).view(m, k)
+            dbn64 = torch.cat([sg, sb], 1).sum(0)
+            errs = []
+            for fn in (tops.bn_bwd, tops.bn_bwd_plain):
+                d_x, dbn = (torch.empty(m, k, device="cuda"),
+                            torch.empty(2, k, device="cuda"))
+                fn(x, d_a, st, bn, 1e-5, d_x, dbn)
+                errs.append((((dbn.double() - dbn64).abs().max(1).values
+                              / dbn64.abs().max(1).values).max().item(),
+                             ((d_x.double() - dx64).abs().max()
+                              / dx64.abs().max()).item()))
+            note("bn_bwd[f32]", case, errs[0][0], errs[1][0],
+                 "dbn's largest error over its largest value")
+            note("bn_bwd[f32]", case, errs[0][1], errs[1][1],
+                 "d_x's largest error over its largest value")
+        feats = [buf[:, :128], buf[:, 128:k]]
+        var64 = x64.var(0, unbiased=False)
+        errs = []
+        for fn in (tbk.stats, tbk.stats_plain):
+            sums = fn(feats, torch.empty(2, k, device="cuda")).double()
+            var = sums[1] / m - (sums[0] / m) ** 2
+            errs.append(((var - var64) / var64).abs().max().item())
+        note("train_bottleneck.stats[f32]", f"K=128+64 r=64, x ~ {name}",
+             errs[0], errs[1], "variance's largest relative error")
+        del buf, x, x64, d_a
+    for row in ("bn_stats[f32]", "train_bottleneck.stats[f32]"):
+        bad = [c for c in out[row] if not c[1] <= c[2]]
+        require(not bad or not strict, f"{row}: farther from float64 than "
+                                       f"its plain version: {bad}")
+    return out
+
+
 def slot_f32_exact_checks(torch, tops, bops, o, gen):
     """At the operands ``o`` of r=64, tile 2, under one-hot operands (a
     weight or cotangent with one 1 a column in distinct rows) each product
@@ -5020,7 +5096,7 @@ def slot_f32_exact_checks(torch, tops, bops, o, gen):
     return same
 
 
-def phase_slot_f32_kernels(torch, tops, bops):
+def phase_slot_f32_kernels(torch, tops, bops, tbk):
     """Phase 14 (a): the ten forms against their plain versions at float32
     (TF32 off) at every resolution r = 64 ... 4 and tiles 2 and 6 (a tile
     of 96 rows at r=4 does not divide a 128-row block), each output within
@@ -5030,7 +5106,9 @@ def phase_slot_f32_kernels(torch, tops, bops):
     and the float32 FMA time of its products; bit for bit under one-hot
     operands, one bf16 pass of dy caught; ``affine_dw[f32]`` and
     ``affine_dx[f32]`` at order 14's intermedia adapter width
-    (``wide_dw_check``, ``wide_dx_check``)."""
+    (``wide_dw_check``, ``wide_dx_check``); the sums of ``bn_stats[f32]``,
+    ``bn_bwd[f32]`` and #7's ``stats[f32]`` against float64
+    (``f32_sums_f64_checks``)."""
     gen = torch.Generator().manual_seed(18)
     plain = {**bops.PLAIN, **tops.PLAIN}
     results = {}
@@ -5081,6 +5159,7 @@ def phase_slot_f32_kernels(torch, tops, bops):
           flush=True)
     wide_dw_check(torch, tops, gen)
     wide_dx_check(torch, tops, gen)
+    f32_sums_f64_checks(torch, tops, tbk)
     from cunet_tpu_torch.kernels import train_bottleneck
 
     wide_fwd_check(torch, train_bottleneck, bops, gen)
@@ -5375,6 +5454,8 @@ def row_times(torch, pattern, tops, bops, tbk, eops=None):
     for rows, check in wide:
         if any(rx.search(row) for row in rows.split("|")):
             check()
+    if any(rx.search(row) for row in SUMS_KERNELS):
+        f32_sums_f64_checks(torch, tops, tbk, strict=False)
     print(f"row times: output digests of the rows matching {pattern!r} (#7 "
           f"at each r, the others at r=64): " + str(
               {row: bytes_digest(torch, ts) for row, ts in outs.items()}),
@@ -6638,7 +6719,7 @@ def main() -> int:
         tb_f32_launches, tb_f32_per_step = phase_bn0_f32_training(
             torch, tbk, tops, ops, dops, gpu, bn0_times)
         lap("13 (b)-(e)")
-        slot_f32_kernels = phase_slot_f32_kernels(torch, tops, ops)
+        slot_f32_kernels = phase_slot_f32_kernels(torch, tops, ops, tbk)
         lap("14 (a)")
         slot_f32_launches, slot_f32_per_step = phase_slot_f32_training(
             torch, tops, ops, dops, gpu, bf16_times)
@@ -6743,7 +6824,7 @@ def main() -> int:
             else TB_SOURCE
         rows.append(row(name, src, r, tb_f32_launches[name],
                         launches_per_step=tb_f32_per_step[name],
-                        **fwd_kernel(name),
+                        **fwd_kernel(name), **sums_kernel(name),
                         **({"kernel": TB_DX_F32_KERNEL}
                            if src == TB_DX_F32_SOURCE else {}),
                         **{k: r[k] for k in ("one_hot_exact", "dw_f64_rel",
@@ -6755,6 +6836,7 @@ def main() -> int:
         rows.append(row(name, src, r, slot_f32_launches[name],
                         launches_per_step=slot_f32_per_step[name],
                         **fwd_kernel(name), **conv_kernel(name),
+                        **sums_kernel(name),
                         one_hot_exact=r["one_hot_exact"]))
     # the wgmma conv kernel: the forward form's r=64 numbers, the dx's
     # beside them

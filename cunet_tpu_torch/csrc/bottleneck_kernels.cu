@@ -5,6 +5,7 @@
 // of buf_kernels.cu's affine_dot, they replace the four pallas_calls of
 // cunet_tpu/kernels/train_bottleneck.py::fused_train_bottleneck:
 //   tb_stats      <- _stats_kernel      (:49, called at :173)
+//                    (float32: tb_stats_f32 + tb_stats_sum)
 //   apply         <- _apply_kernel      (:66, called at :208)
 //   tb_bwd_reduce <- _bwd_reduce_kernel (:92, called at :268)
 //                    (float32: tb_split_g + tb_bwd_reduce_f32)
@@ -30,7 +31,8 @@
 // On a TPU the grid walks the rows in order and carries the reductions in
 // VMEM. Here every reduction over rows (the statistics, dW, the two BN sums)
 // writes per-block float32 partials that train_ops.sum_rows adds in a fixed
-// order: no atomics, and two identical calls give identical bits.
+// order (the float32 statistics: float64 partials, a sum kernel of their
+// own): no atomics, and two identical calls give identical bits.
 //
 // The backward's products keep the TPU kernel's float32 precision (dW =
 // r^T g and g_r = g W^T with the unrounded f32 W): one TF32 or bf16
@@ -44,11 +46,12 @@
 //
 // Each kernel takes bf16 features, or float32 ones (a model trained at
 // compute_dtype="float32", as the JAX package runs #7 at the features'
-// dtype). stats is a template on the element type: its float32 instance
-// reads 16-byte vectors of 4 columns. The reduce's float32 form is a
-// design of its own (tb_bwd_reduce_f32_kernel): g split once into its
-// planes by a pre-pass (tb_split_g_kernel), 64-row steps, one block an SM
-// whose warps split the two products between them. bwd_dx's float32 form
+// dtype). stats' float32 form (tb_stats_f32_kernel) reads 16-byte vectors
+// of 4 columns and adds short float32 sums into float64, its chunk
+// partials added by tb_stats_sum_kernel and rounded once. The reduce's
+// float32 form is a design of its own (tb_bwd_reduce_f32_kernel): g split
+// once into its planes by a pre-pass (tb_split_g_kernel), 64-row steps, one
+// block an SM whose warps split the two products between them. bwd_dx's float32 form
 // (tb_dx_f32_kernels.cu) reads the same planes. The bf16 kernels are the
 // code they were before the float32 forms.
 //
@@ -105,16 +108,16 @@ __device__ __forceinline__ void load_vec(const T* p,
 }
 
 // ---------------------------------------------------------------------------
-// tb_stats: part[s, 0, k] = sum, part[s, 1, k] = sum of squares of column k
-// of the concat over rows [s*chunk, (s+1)*chunk) (float32). Grid (S,
-// ceil(Ctot/64)); a block's 256 threads are 64 / V column vectors of V =
-// 16 / sizeof(T) columns (one 16-byte load: 8 bf16, 4 float32) x 32 (bf16)
-// or 16 (float32) row stripes, reduced in a fixed order in shared memory.
+// tb_stats (bf16 features): part[s, 0, k] = sum, part[s, 1, k] = sum of
+// squares of column k of the concat over rows [s*chunk, (s+1)*chunk)
+// (float32). Grid (S, ceil(Ctot/64)); a block's 256 threads are 64 / V
+// column vectors of V = 8 columns (one 16-byte load) x 32 row stripes,
+// reduced in a fixed order in shared memory.
 // ---------------------------------------------------------------------------
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
     tb_stats_kernel(const long long* __restrict__ tbl, int G, long long M,
                     int Ctot, long long chunk, float* __restrict__ part) {
+  using T = bf16;
   constexpr int V = 16 / sizeof(T);
   constexpr int kVecs = kStatCols / V;
   constexpr int kStripes = kThreads / kVecs;
@@ -152,6 +155,89 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = 0; i < kStripes; ++i) a += red[which][i][col];
     if (kk < Ctot) part[((long long)blockIdx.x * 2 + which) * Ctot + kk] = a;
   }
+}
+
+// ---------------------------------------------------------------------------
+// tb_stats at float32: the same blocks, 16 row stripes of 16-byte loads of
+// 4 columns. A thread loads kStatUnroll rows at once, sums them (and their
+// squares) in float32, and adds that short partial into float64; the
+// stripes in order and the chunk partials (part[s, 0 | 1, k], float64)
+// are float64 too, and tb_stats_sum_kernel adds the chunks in order and
+// rounds once. The sums then lie within about a rounding of float32 of
+// the exact ones. Float32 running sums over a thread's 128 rows (the
+// float32 form before) lost up to ~5 ulp, which the single-pass variance
+// E[x^2] - mean^2 multiplies by mean^2 / var (up to ~17 on the CU-Net-8
+// step: 5.2e-6 of the variance).
+// ---------------------------------------------------------------------------
+constexpr int kStatUnroll = 8;
+
+__global__ void __launch_bounds__(kThreads)
+    tb_stats_f32_kernel(const long long* __restrict__ tbl, int G,
+                        long long M, int Ctot, long long chunk,
+                        double* __restrict__ part) {
+  constexpr int V = 4;
+  constexpr int kVecs = kStatCols / V;
+  constexpr int kStripes = kThreads / kVecs;
+  __shared__ double red[2][kStripes][kStatCols];
+  const int cv = threadIdx.x % kVecs, rs = threadIdx.x / kVecs;
+  const int k = blockIdx.y * kStatCols + cv * V;
+  const long long rb = (long long)blockIdx.x * chunk;
+  const long long re = rb + chunk < M ? rb + chunk : M;
+  double s[V], q[V];
+#pragma unroll
+  for (int i = 0; i < V; ++i) s[i] = q[i] = 0.0;
+  if (k < Ctot) {
+    const ColRef<float> c = col_ref<float>(tbl, G, k);
+    for (long long r = rb + rs; r < re; r += kStatUnroll * kStripes) {
+      float v[kStatUnroll][V];
+#pragma unroll
+      for (int j = 0; j < kStatUnroll; ++j) {
+        const long long rr = r + j * kStripes;
+        if (rr < re) {
+          load_vec(c.x + rr * c.ld, v[j]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < V; ++i) v[j][i] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < V; ++i) {
+        float ps = 0.f, pq = 0.f;
+#pragma unroll
+        for (int j = 0; j < kStatUnroll; ++j) {
+          ps += v[j][i];
+          pq = fmaf(v[j][i], v[j][i], pq);
+        }
+        s[i] += (double)ps;
+        q[i] += (double)pq;
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < V; ++i) {
+    red[0][rs][cv * V + i] = s[i];
+    red[1][rs][cv * V + i] = q[i];
+  }
+  __syncthreads();
+  if (threadIdx.x < 2 * kStatCols) {
+    const int which = threadIdx.x / kStatCols, col = threadIdx.x % kStatCols;
+    const int kk = blockIdx.y * kStatCols + col;
+    double a = 0.0;
+    for (int i = 0; i < kStripes; ++i) a += red[which][i][col];
+    if (kk < Ctot) part[((long long)blockIdx.x * 2 + which) * Ctot + kk] = a;
+  }
+}
+
+// out[i] = float32(sum_s part[s, i]) over the S chunk partials in order,
+// in float64; i over the n = 2 Ctot outputs.
+__global__ void __launch_bounds__(kThreads)
+    tb_stats_sum_kernel(const double* __restrict__ part, int S, int n,
+                        float* __restrict__ out) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
+  double a = 0.0;
+  for (int s = 0; s < S; ++s) a += part[(long long)s * n + i];
+  out[i] = (float)a;
 }
 
 // ---------------------------------------------------------------------------
@@ -1289,14 +1375,29 @@ int launch_bwd_reduce_f32(const long long* tbl, int G, long long M, int Ctot,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
 int stats(const void* tbl, int G, long long M, int Ctot, long long chunk,
           void* part, void* stream) {
   const dim3 grid((unsigned)((M + chunk - 1) / chunk),
                   (unsigned)((Ctot + kStatCols - 1) / kStatCols));
-  tb_stats_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  tb_stats_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const long long*>(tbl), G, M, Ctot, chunk,
       static_cast<float*>(part));
+  return (int)cudaGetLastError();
+}
+
+// the float32 form: float64 chunk partials in part64, then their sum,
+// rounded once, into out (2, Ctot)
+int stats_f32(const void* tbl, int G, long long M, int Ctot, long long chunk,
+              void* part64, void* out, void* stream) {
+  const auto st = static_cast<cudaStream_t>(stream);
+  const int S = (int)((M + chunk - 1) / chunk);
+  const dim3 grid((unsigned)S, (unsigned)((Ctot + kStatCols - 1) / kStatCols));
+  auto* pp = static_cast<double*>(part64);
+  tb_stats_f32_kernel<<<grid, kThreads, 0, st>>>(
+      static_cast<const long long*>(tbl), G, M, Ctot, chunk, pp);
+  const int n = 2 * Ctot;
+  tb_stats_sum_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+      pp, S, n, static_cast<float*>(out));
   return (int)cudaGetLastError();
 }
 
@@ -1373,14 +1474,21 @@ int cunet_tb_fill_table(const void* host_tbl, int G, void* tbl,
   return (int)cudaGetLastError();
 }
 
-// The statistics kernel over bf16 features (f32 = 0) or float32 ones
-// (f32 = 1), the reduce and dx kernels over bf16 features and cotangent
-// (their float32 forms: cunet_tb_bwd_reduce_f32, cunet_tb_bwd_dx_f32);
-// every other operand is float32.
+// The statistics kernel over bf16 features: float32 chunk partials at part
+// (train_ops.sum_rows adds them); the reduce and dx kernels over bf16
+// features and cotangent (their float32 forms: cunet_tb_bwd_reduce_f32,
+// cunet_tb_bwd_dx_f32); every other operand is float32.
 int cunet_tb_stats(const void* tbl, int G, long long M, int Ctot,
-                   long long chunk, void* part, int f32, void* stream) {
-  return f32 ? stats<float>(tbl, G, M, Ctot, chunk, part, stream)
-             : stats<bf16>(tbl, G, M, Ctot, chunk, part, stream);
+                   long long chunk, void* part, void* stream) {
+  return stats(tbl, G, M, Ctot, chunk, part, stream);
+}
+
+// Over float32 features: float64 chunk partials at part64 (S, 2, Ctot),
+// their sum into out (2, Ctot); two launches.
+int cunet_tb_stats_f32(const void* tbl, int G, long long M, int Ctot,
+                       long long chunk, void* part64, void* out,
+                       void* stream) {
+  return stats_f32(tbl, G, M, Ctot, chunk, part64, out, stream);
 }
 
 // Past kWideN outputs W is split first into its slice images at ws

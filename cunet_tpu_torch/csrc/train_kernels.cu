@@ -31,8 +31,11 @@
 // bn_stats, bn_bwd, maxpool2_bwd and upsample2_bwd also take float32
 // stage inputs (a float32 model's ghost-BN training): bn_bwd and the two
 // pool kernels are templates on the element type, whose bf16 instances are
-// the kernels they were, bn_stats a float32 kernel of its own beside the
-// bf16 one; the float32 products of that step are in f32_kernels.cu.
+// the kernels they were, and where a tile's rows do not fit a portable
+// cluster (r=64) bn_bwd runs a persistent float32 kernel of its own
+// (bn_bwd_f32_kernel); bn_stats a float32 kernel of its own (one pass)
+// beside the bf16 one; the float32 products of that step are in
+// f32_kernels.cu and the *_f32_kernels.cu sources.
 // Each entry point launches on the stream it is given and returns
 // cudaGetLastError().
 
@@ -163,24 +166,33 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// F1 bn_stats at float32 (a float32 model's stage inputs): the same two
-// passes, with a tile's rows split across a cluster of cs blocks along y
-// (rank q owns rows [q*rpb, (q+1)*rpb)), so that the grid fills the SMs
-// and each thread's running sums stay as short as the bf16 kernel's (at
-// most rpb / 32 rows: 96 at r=64, tile 6; the plan is the wrapper's,
-// kernels/train_ops.py::stats_plan_f32). A block's sums (each stripe's,
-// then the stripes in order) go to its shared memory; after cluster.sync()
-// every block adds the cs partials in rank order through distributed
-// shared memory, first for the mean, then for the centred squares. The
-// order of every sum depends on the shapes alone. Grid (ceil(K/64), T*cs).
+// F1 bn_stats at float32 (a float32 model's stage inputs): one pass of
+// shifted sums, x read once. A tile's rows are split across a cluster of
+// cs blocks along y (rank q owns rows [q*rpb, (q+1)*rpb); the plan is the
+// wrapper's, kernels/train_ops.py::stats_plan_f32); a thread of a block's
+// 8 channel vectors x 32 row stripes sums d = x - x0 and d^2 over its
+// rows, x0 the mean of the tile's first kStatUnroll rows cut to 8
+// significant bits: near the data, so E[d^2] - E[d]^2 does not cancel
+// and the partials stay short, and cut so that x - x0 loses no constant
+// low bits of x0 (which would bias every row alike). kStatUnroll rows at
+// a time in float32 (their loads in flight together; the first rows' with
+// the shift's), each such partial added into float64; the stripes in
+// order, then (after cluster.sync()) the cluster's blocks in rank order
+// through distributed shared memory, in float64; rank 0 writes mean = x0
+// + E[d] and var = E[d^2] - E[d]^2, each rounded once to float32. The two
+// float32 passes of _stats (mean, then centred squares) read x twice,
+// which at r=64 came from HBM again. The order of every sum depends on
+// the shapes alone. Grid (ceil(K/64), T*cs).
 // ---------------------------------------------------------------------------
+constexpr int kStatUnroll = 8;   // rows a thread loads before it adds them
+constexpr int kMaxCluster = 16;  // blocks of a cluster (non-portable past 8)
+
 __global__ void __launch_bounds__(kThreads)
     bn_stats_f32_kernel(const float* __restrict__ x, long long ldx,
                         long long tile_rows, int K, int cs, int rpb,
                         float* __restrict__ out) {
-  __shared__ float red[kStatRows][kStatCols];
-  __shared__ float bsum[2][kStatCols];   // the block's [sum; centred squares]
-  __shared__ float mean_s[kStatCols];
+  __shared__ double red[2][kStatRows][kStatCols];
+  __shared__ double bsum[2][kStatCols];   // the block's [sum d; sum d^2]
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = cs > 1 ? (int)cluster.block_rank() : 0;
   const int t = blockIdx.y / cs;
@@ -190,65 +202,105 @@ __global__ void __launch_bounds__(kThreads)
   const long long r0 = (long long)rank * rpb;
   const long long r1 = tile_rows < r0 + rpb ? tile_rows : r0 + rpb;
   const float* base = x + (long long)t * tile_rows * ldx + k;
-  // (a lone block, launched as no cluster, reads its own partials)
-  const auto sync = [&] {
-    if (cs > 1)
-      cluster.sync();
-    else
-      __syncthreads();
+  float x0[8];
+  double s[8], q[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    x0[i] = 0.f;
+    s[i] = q[i] = 0.0;
+  }
+  // kStatUnroll rows from r, kStatRows apart, in flight together
+  const auto load = [&](long long r, float (&v)[kStatUnroll][8]) {
+#pragma unroll
+    for (int j = 0; j < kStatUnroll; ++j)
+      if (r + j * kStatRows < r1) load8f(base + (r + j * kStatRows) * ldx,
+                                         v[j]);
   };
-  // the block's sum of term(v, i) over its rows into bsum[which]
-  const auto block_sum = [&](int which, auto&& term) {
-    float acc[8];
+  const auto add = [&](long long r, float (&v)[kStatUnroll][8]) {
 #pragma unroll
-    for (int i = 0; i < 8; ++i) acc[i] = 0.f;
-    if (on)
-      for (long long r = r0 + rs; r < r1; r += kStatRows) {
-        float v[8];
-        load8f(base + r * ldx, v);
+    for (int i = 0; i < 8; ++i) {
+      float ps = 0.f, pq = 0.f;
 #pragma unroll
-        for (int i = 0; i < 8; ++i) acc[i] += term(v[i], i);
+      for (int j = 0; j < kStatUnroll; ++j) {
+        const float d = r + j * kStatRows < r1 ? v[j][i] - x0[i] : 0.f;
+        ps += d;
+        pq = fmaf(d, d, pq);
       }
-#pragma unroll
-    for (int i = 0; i < 8; ++i) red[rs][cv * 8 + i] = acc[i];
-    __syncthreads();
-    if (threadIdx.x < kStatCols) {
-      float s = 0.f;
-      for (int i = 0; i < kStatRows; ++i) s += red[i][threadIdx.x];
-      bsum[which][threadIdx.x] = s;
+      s[i] += (double)ps;
+      q[i] += (double)pq;
     }
   };
-  // the tile's sum: the cluster's partials in rank order
-  const auto tile_sum = [&](int which) {
-    float s = 0.f;
-    for (int q = 0; q < cs; ++q)
-      s += (cs > 1 ? cluster.map_shared_rank(bsum[which], q)
-                   : bsum[which])[threadIdx.x];
-    return s;
-  };
-
-  block_sum(0, [](float v, int) { return v; });
-  sync();
-  if (threadIdx.x < kStatCols)
-    mean_s[threadIdx.x] = tile_sum(0) / (float)tile_rows;
-  __syncthreads();
-  float mu[8];
+  if (on) {
+    float v[kStatUnroll][8];
+    long long r = r0 + rs;
+    load(r, v);
+    // the shift: the same in every block of the cluster
+    const int n0 = tile_rows < kStatUnroll ? (int)tile_rows : kStatUnroll;
+    for (int j = 0; j < n0; ++j) {
+      float w[8];
+      load8f(base + j * ldx, w);
 #pragma unroll
-  for (int i = 0; i < 8; ++i) mu[i] = mean_s[cv * 8 + i];
-  block_sum(1, [&](float v, int i) {
-    const float d = v - mu[i];
-    return d * d;
-  });
-  sync();
-  if (rank == 0 && threadIdx.x < kStatCols) {
-    const int kk = blockIdx.x * kStatCols + threadIdx.x;
-    const float s = tile_sum(1);
-    if (kk < K) {
-      out[((long long)t * 2) * K + kk] = mean_s[threadIdx.x];
-      out[((long long)t * 2 + 1) * K + kk] = s / (float)tile_rows;
+      for (int i = 0; i < 8; ++i) x0[i] += w[i];
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      x0[i] = __uint_as_float(__float_as_uint(x0[i] / (float)n0) &
+                              0xffff0000u);
+    if (r < r1) add(r, v);
+    for (r += kStatUnroll * kStatRows; r < r1;
+         r += kStatUnroll * kStatRows) {
+      load(r, v);
+      add(r, v);
     }
   }
-  sync();   // no block leaves while rank 0 reads its partial
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    red[0][rs][cv * 8 + i] = s[i];
+    red[1][rs][cv * 8 + i] = q[i];
+  }
+  __syncthreads();
+  if (threadIdx.x < 2 * kStatCols) {
+    const int which = threadIdx.x / kStatCols, col = threadIdx.x % kStatCols;
+    double a = 0.0;
+    for (int i = 0; i < kStatRows; ++i) a += red[which][i][col];
+    bsum[which][col] = a;
+  }
+  __syncthreads();
+  if (rs == 0)                    // the shift, for the mean
+#pragma unroll
+    for (int i = 0; i < 8; ++i) red[0][0][cv * 8 + i] = x0[i];
+  // (a lone block, launched as no cluster, reads its own partials)
+  if (cs > 1)
+    cluster.sync();
+  else
+    __syncthreads();
+  if (rank == 0 && threadIdx.x < kStatCols) {
+    const int kk = blockIdx.x * kStatCols + threadIdx.x;
+    double vs[kMaxCluster], vq[kMaxCluster];   // every rank's, loaded at once
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r) {
+      const double* b =
+          cs > 1 ? cluster.map_shared_rank(&bsum[0][0], r < cs ? r : 0)
+                 : &bsum[0][0];
+      vs[r] = r < cs ? b[threadIdx.x] : 0.0;
+      vq[r] = r < cs ? b[kStatCols + threadIdx.x] : 0.0;
+    }
+    double ds = 0.0, dq = 0.0;
+#pragma unroll
+    for (int r = 0; r < kMaxCluster; ++r)
+      if (r < cs) {
+        ds += vs[r];
+        dq += vq[r];
+      }
+    if (kk < K) {
+      const double md = ds / (double)tile_rows;
+      const double var = dq / (double)tile_rows - md * md;
+      out[((long long)t * 2) * K + kk] =
+          (float)((double)red[0][0][threadIdx.x] + md);
+      out[((long long)t * 2 + 1) * K + kk] = (float)(var > 0.0 ? var : 0.0);
+    }
+  }
+  if (cs > 1) cluster.sync();   // no block leaves while rank 0 reads it
 }
 
 // ---------------------------------------------------------------------------
@@ -499,6 +551,278 @@ __global__ void __launch_bounds__(kBnThreads, 1)
   } else {
     stream([&](int c) { finish(c * u, (c + 1) * u); });
   }
+}
+
+// ---------------------------------------------------------------------------
+// B2 bn_bwd at float32 where no portable cluster keeps a tile's rows on
+// chip (r=64 on the main path: a tile of 8,192 or 24,576 rows, 32 or 96
+// KB a channel of x and d_a): persistent clusters of cs blocks (16, past
+// the portable 8). An item is (tile t, channel block of cb); cluster c
+// walks the items c, c + G, c + 2G, ... (G clusters, as many as the card
+// holds at once); its rank q owns the tile's rows [q*rpb, (q+1)*rpb) of
+// the item's channels. Each block keeps p.slots (1 to 3) item buffers of x
+// and d_a in shared memory, each the landing place of one item's copies
+// (one cp.async group an item): a thread moves its rows of an item into
+// registers as it sums them (at most ROWS: 16 or 24) and, once it has sent
+// its sums to the cluster, refills that buffer with the item p.slots
+// ahead, so while it waits for the cluster's sums and writes d_x from its
+// registers, the next items' rows are on their way: HBM sees x and d_a
+// once, and the loads' latency under load (several us) is covered by
+// bytes in flight. A thread refills only what it read itself, so no
+// barrier guards the buffers; the next item's statistics are loaded an
+// item ahead and used only then.
+// The blocks trade their partial sums with st.async into every rank's
+// shared memory, each completing bytes on the receiver's mbarrier (one a
+// parity of the item, armed an item ahead): no cluster-wide barrier an
+// item, whose release would wait for the previous item's d_x stores to
+// reach memory (a cluster.sync() an item was slower: tools/bn_sweep.py).
+// A thread owns 4 channels of its rows (16 bytes), so one warp's copies
+// and stores cover whole 32-byte sectors (8 channels a thread, two 16-byte
+// halves, took twice the requests); blocks of 32 channels (128-byte rows,
+// tile 2) ran faster than 16 or 8. The two sums: each thread's rows in
+// float32 (rpb / stripes of them: 16 at tile 2, 24 at tile 6), then in
+// float64 the row stripes in groups of 8 in order, the groups in order and
+// the cluster's blocks in rank order; the tile's sums are rounded once:
+// rank 0 writes part[t], and sum_rows adds the tiles. The order of every
+// sum depends on the shapes alone (not on G or on which cluster takes an
+// item). p.rc = p.rpb (one buffer an item).
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// one arrival on bar, and bytes more awaited in its current phase
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// wait until the phase of bar with this parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+}
+
+// v into the shared memory of cluster rank r at the address local is at
+// here, its 8 bytes completed on rank r's copy of bar
+__device__ __forceinline__ void st_async_f64(const double* local, double v,
+                                             const uint64_t* bar, int r) {
+  uint32_t dst, mb;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(dst)
+               : "r"(smem_u32(local)), "r"(r));
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(mb)
+               : "r"(smem_u32(bar)), "r"(r));
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.b64 [%0], %1, "
+      "[%2];\n" ::"r"(dst),
+      "l"(__double_as_longlong(v)), "r"(mb)
+      : "memory");
+}
+
+template <bool ACC, int ROWS>
+__global__ void __launch_bounds__(kBnThreads, 1)
+    bn_bwd_f32_kernel(const float* __restrict__ x, long long ldx,
+                      const float* __restrict__ da, long long ldd,
+                      long long tile_rows, int T, int K,
+                      const float* __restrict__ stats,
+                      const float* __restrict__ gamma, float eps,
+                      float* __restrict__ dx, long long lddx,
+                      float* __restrict__ part, BnPlan p) {
+  static_assert(ROWS % 4 == 0, "pass 2 takes four rows at a time");
+  extern __shared__ __align__(128) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  // a thread owns a piece of 4 channels (16 bytes) of its rows, so the
+  // lanes of one copy or store cover whole 32-byte sectors
+  const int nv = p.cb / 4, stripes = kBnThreads / nv;
+  const int tid = threadIdx.x;
+  const int cv = tid % nv, rs = tid / nv;
+  const int nkb = (K + p.cb - 1) / p.cb, items = T * nkb;
+  const int clusters = gridDim.x / p.cs;
+  const long long left = tile_rows - (long long)rank * p.rpb;
+  const int n = left <= 0 ? 0 : (left < p.rpb ? (int)left : p.rpb);
+  const size_t buf = (size_t)p.rpb * p.cb;   // floats of a buffer
+  const int nb = p.slots, ns = 2 * p.cb;     // buffers; sums of a block
+  const int ng = kBnThreads / ns;            // stripe groups of a sum
+  float* xs = reinterpret_cast<float*>(smem);                  // [nb][buf]
+  float* ds = xs + nb * buf;                                   // [nb][buf]
+  float* red = ds + nb * buf;                      // [stripes][ns]
+  double* gred = reinterpret_cast<double*>(red + kBnThreads * 8);  // [ng][ns]
+  double* recv = gred + ng * ns;                   // [2][cs][ns]
+  double* tsum = recv + 2 * p.cs * ns;             // [ns]
+  uint64_t* bar = reinterpret_cast<uint64_t*>(tsum + ns);     // [2]
+  const uint32_t recv_bytes = (uint32_t)(p.cs * ns * sizeof(double));
+
+  // the first column of this thread's piece in item i (K or more: none)
+  const auto col = [&](int i) { return (i % nkb) * p.cb + cv * 4; };
+  const auto row0 = [&](int i) {
+    return (long long)(i / nkb) * tile_rows + (long long)rank * p.rpb;
+  };
+  const auto at = [&](int b, int jr) {
+    return b * buf + (size_t)jr * p.cb + cv * 4;
+  };
+  const auto issue = [&](int i, int b) {
+    const int k = col(i);
+    if (i < items && k < K) {
+      const long long r0 = row0(i);
+      for (int jr = rs; jr < n; jr += stripes) {
+        cp_async16(smem_u32(xs + at(b, jr)), x + (r0 + jr) * ldx + k, 16);
+        cp_async16(smem_u32(ds + at(b, jr)), da + (r0 + jr) * ldd + k, 16);
+      }
+    }
+    cp_async_commit();
+  };
+  // the next item's [mean; var; gamma] of this thread's channels, loaded
+  // an item ahead (their latency would stall the thread where they are
+  // used)
+  float st[3][4];
+  const auto load_stats = [&](int i) {
+    const int t = i / nkb, k = col(i);
+    const bool on = i < items && k < K;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      st[0][q] = on ? stats[((long long)t * 2) * K + k + q] : 0.f;
+      st[1][q] = on ? stats[((long long)t * 2 + 1) * K + k + q] : 0.f;
+      st[2][q] = on ? gamma[k + q] : 0.f;
+    }
+  };
+  const auto load4 = [](const float* a, float (&v)[4]) {
+    const float4 f = *reinterpret_cast<const float4*>(a);
+    v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
+  };
+
+  if (tid == 0) {                 // the receive barriers of items 0 and 1
+    mbar_init(&bar[0], 1);
+    mbar_init(&bar[1], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect(&bar[0], recv_bytes);
+    mbar_expect(&bar[1], recv_bytes);
+  }
+  cluster.sync();                 // armed in every block before any send
+  const int i0 = blockIdx.x / p.cs;
+  for (int a = 0; a < nb; ++a) issue(i0 + a * clusters, a);
+  load_stats(i0);
+  for (int j = 0, i = i0; i < items; ++j, i += clusters) {
+    const int b = j % nb, h = j & 1, t = i / nkb, k = col(i);
+    const bool on = k < K;
+    float mu[4], rstd[4], ig[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      mu[q] = st[0][q];
+      rstd[q] = rsqrtf(st[1][q] + eps);
+      ig[q] = on ? rstd[q] * st[2][q] : 0.f;
+    }
+    cp_async_wait_upto(nb - 1);
+    // pass 1: the thread's rows into registers, summed in float32
+    float xv[ROWS][4], d[ROWS][4], fg[4], fb[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) fg[q] = fb[q] = 0.f;
+#pragma unroll
+    for (int u = 0; u < ROWS; ++u) {
+      const int jr = rs + u * stripes;
+      if (!on || jr >= n) break;
+      load4(xs + at(b, jr), xv[u]);
+      load4(ds + at(b, jr), d[u]);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        fg[q] += d[u][q] * ((xv[u][q] - mu[q]) * rstd[q]);
+        fb[q] += d[u][q];
+      }
+    }
+    // the block's sums in float64: the stripes in ng groups of
+    // stripes / ng in order, then the groups in order
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      red[rs * ns + cv * 4 + q] = fg[q];
+      red[rs * ns + p.cb + cv * 4 + q] = fb[q];
+    }
+    __syncthreads();
+    {
+      const int o = tid % ns, g = tid / ns, per = stripes / ng;
+      double a = 0.0;
+      for (int r = g * per; r < (g + 1) * per; ++r) a += red[r * ns + o];
+      gred[g * ns + o] = a;
+    }
+    __syncthreads();
+    if (tid < ns) {               // the block's sums to every rank
+      double a = 0.0;
+      for (int g = 0; g < ng; ++g) a += gred[g * ns + tid];
+      double* slot = recv + (h * p.cs + rank) * ns + tid;
+      for (int r = 0; r < p.cs; ++r) st_async_f64(slot, a, &bar[h], r);
+    }
+    // the buffer is free: the item nb ahead into it (a thread refills only
+    // what it read itself; after the sends, so a copy that waits for room
+    // holds up no other rank: refilling each row as pass 1 read it was
+    // slower, tools/bn_sweep.py)
+    issue(i + nb * clusters, b);
+    load_stats(i + clusters);
+    if (ACC && on)                // d_x's rows into L2 while the sums trade
+      for (int jr = rs; jr < n; jr += stripes)
+        asm volatile("prefetch.global.L2 [%0];" ::"l"(
+            dx + (row0(i) + jr) * lddx + k));
+    if (tid < ns) {               // the tile's sums: the ranks' in order
+      mbar_wait(&bar[h], (uint32_t)(j >> 1) & 1u);
+      double s = 0.0;
+      for (int r = 0; r < p.cs; ++r) s += recv[(h * p.cs + r) * ns + tid];
+      tsum[tid] = s;
+      const int kk = (i % nkb) * p.cb + (tid % p.cb);
+      if (rank == 0 && kk < K)
+        part[((long long)t * 2 + tid / p.cb) * K + kk] = (float)s;
+    }
+    __syncthreads();
+    // every waiter is past this parity's phase: arm it for item j + 2
+    if (tid == 0) mbar_expect(&bar[h], recv_bytes);
+    if (!on) continue;
+    float mg[4], mb[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      mg[q] = (float)(tsum[cv * 4 + q] / (double)tile_rows);
+      mb[q] = (float)(tsum[p.cb + cv * 4 + q] / (double)tile_rows);
+    }
+    // pass 2: d_x from the registers; with ACC four rows at a time, their
+    // d_x loads (prefetched into L2 above) in flight together (a row at a
+    // time without ACC: the batch's registers slowed it at tile 6)
+    constexpr int kB = ACC ? 4 : 1;
+    const long long r0 = row0(i);
+#pragma unroll
+    for (int u0 = 0; u0 < ROWS; u0 += kB) {
+      float o[kB][4];
+#pragma unroll
+      for (int a = 0; a < kB; ++a) {
+        const int jr = rs + (u0 + a) * stripes;
+        if (ACC && jr < n) load4(dx + (r0 + jr) * lddx + k, o[a]);
+      }
+#pragma unroll
+      for (int a = 0; a < kB; ++a) {
+        const int u = u0 + a, jr = rs + u * stripes;
+        if (jr < n) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float xh = (xv[u][q] - mu[q]) * rstd[q];
+            const float v = ig[q] * (d[u][q] - mb[q] - xh * mg[q]);
+            o[a][q] = ACC ? o[a][q] + v : v;
+          }
+          *reinterpret_cast<float4*>(dx + (r0 + jr) * lddx + k) =
+              make_float4(o[a][0], o[a][1], o[a][2], o[a][3]);
+        }
+      }
+    }
+  }
+  cluster.sync();   // no block leaves while another may still send to it
 }
 
 // ---------------------------------------------------------------------------
@@ -1684,6 +2008,50 @@ int launch_bn_bwd(const XT* x, long long ldx, const float* da,
   return (int)cudaGetLastError();
 }
 
+// The float32 bn_bwd where its plan is persistent: as many clusters of
+// p.cs blocks along x as the card holds at once
+// (cudaOccupancyMaxActiveClusters), at most one an item.
+template <bool ACC>
+int launch_bn_bwd_f32(const float* x, long long ldx, const float* da,
+                      long long ldd, long long tile_rows, int T, int K,
+                      const float* stats, const float* gamma, float eps,
+                      float* dx, long long lddx, float* part,
+                      const BnPlan& p, int smem, cudaStream_t st) {
+  const int stripes = kBnThreads / (p.cb / 4);
+  const int rows = (p.rpb + stripes - 1) / stripes;
+  if (p.cb % 4 || rows > 24) return (int)cudaErrorInvalidValue;
+  const auto kern = rows > 16 ? bn_bwd_f32_kernel<ACC, 24>
+                              : bn_bwd_f32_kernel<ACC, 16>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess && p.cs > 8)
+    e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)p.cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)p.cs);
+  cfg.blockDim = dim3(kBnThreads);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int held = 0;
+  e = cudaOccupancyMaxActiveClusters(&held, kern, &cfg);
+  if (e != cudaSuccess) return (int)e;
+  if (held < 1) return (int)cudaErrorInvalidConfiguration;
+  const int items = T * ((K + p.cb - 1) / p.cb);
+  cfg.gridDim = dim3((unsigned)((held < items ? held : items) * p.cs));
+  e = cudaLaunchKernelEx(&cfg, kern, x, ldx, da, ldd, tile_rows, T, K, stats,
+                         gamma, eps, dx, lddx, part, p);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 template <int NT>
 int launch_conv3x3_dw(const bf16* x, long long ldx, int M, int H, int W,
                       int C, VecArgs v, const bf16* dy, long long ldd, int G,
@@ -1730,6 +2098,12 @@ int cunet_bn_stats(const void* x, long long ldx, long long M,
         static_cast<float*>(out));
     return (int)cudaGetLastError();
   }
+  if (cs > 8) {                     // past the portable cluster
+    const cudaError_t e = cudaFuncSetAttribute(
+        bn_stats_f32_kernel, cudaFuncAttributeNonPortableClusterSizeAllowed,
+        1);
+    if (e != cudaSuccess) return (int)e;
+  }
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = 1;
@@ -1749,11 +2123,40 @@ int cunet_bn_stats(const void* x, long long ldx, long long M,
 }
 
 // x bf16 (f32 = 0) or float32 (f32 = 1).
+// The clusters of cs blocks at smem bytes a block that the card holds at
+// once for the persistent float32 bn_bwd (cudaOccupancyMaxActiveClusters:
+// its grid), or minus a CUDA error.
+int cunet_bn_bwd_clusters(int cs, int smem) {
+  const auto kern = bn_bwd_f32_kernel<false, 16>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess && cs > 8)
+    e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)cs);
+  cfg.blockDim = dim3(kBnThreads);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int held = 0;
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(&held, kern, &cfg);
+  return e == cudaSuccess ? held : -(int)e;
+}
+
+// persistent = 1: the float32 x on bn_bwd_f32_kernel (its plan's rc = rpb,
+// slots = 2).
 int cunet_bn_bwd(const void* x, long long ldx, const void* da, long long ldd,
                  long long M, long long tile_rows, int K, const void* stats,
                  const void* gamma, float eps, void* dx, long long lddx,
                  int accumulate, void* part, int cb, int cs, int rpb, int rc,
-                 int slots, int smem, int f32, void* stream) {
+                 int slots, int smem, int f32, int persistent,
+                 void* stream) {
   const BnPlan p{cb, cs, rpb, rc, slots};
   const int T = (int)(M / tile_rows);
   const auto st = static_cast<cudaStream_t>(stream);
@@ -1762,6 +2165,14 @@ int cunet_bn_bwd(const void* x, long long ldx, const void* da, long long ldd,
   const auto* gp = static_cast<const float*>(gamma);
   auto* op = static_cast<float*>(dx);
   auto* pp = static_cast<float*>(part);
+  if (f32 && persistent) {
+    const auto* xp = static_cast<const float*>(x);
+    if (accumulate)
+      return launch_bn_bwd_f32<true>(xp, ldx, dp, ldd, tile_rows, T, K, sp,
+                                     gp, eps, op, lddx, pp, p, smem, st);
+    return launch_bn_bwd_f32<false>(xp, ldx, dp, ldd, tile_rows, T, K, sp, gp,
+                                    eps, op, lddx, pp, p, smem, st);
+  }
   if (f32) {
     const auto* xp = static_cast<const float*>(x);
     if (accumulate)

@@ -118,7 +118,8 @@ def _declare(lib):
                          *[I] * 12, P],
         "cunet_bn_stats": [P, L, L, L, I, P, I, I, I, P],
         "cunet_bn_bwd": [P, L, P, L, L, L, I, P, P, F, P, L, I, P,
-                         *[I] * 7, P],
+                         *[I] * 8, P],
+        "cunet_bn_bwd_clusters": [I, I],
         "cunet_dx": [P, L, L, I, P, I, I, P, L, P, P, L, L, I, P, L,
                      *[I] * 10, P],
         "cunet_conv3x3_dx": [P, L, L, I, I, I, P, I, P, L, P, P, L, L, I, P,
@@ -138,7 +139,8 @@ def _declare(lib):
         "cunet_conv3x3_i8": [P, L, L, I, I, I, P, I, F, P, L, I, P],
         "cunet_int8_matmul_dequant": [P, L, L, I, P, I, I, P, F, P, L, P],
         "cunet_tb_fill_table": [P, I, P, P],
-        "cunet_tb_stats": [P, I, L, I, L, P, I, P],
+        "cunet_tb_stats": [P, I, L, I, L, P, P],
+        "cunet_tb_stats_f32": [P, I, L, I, L, P, P, P],
         "cunet_tb_apply": [P, I, L, I, P, P, P, I, P, L, *[I] * 11, P],
         "cunet_tb_bwd_reduce": [P, I, L, I, P, L, I, P, P, P, P, L, *[I] * 10,
                                 P, P, P],

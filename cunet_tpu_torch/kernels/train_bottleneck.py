@@ -40,10 +40,11 @@ backward against the unrounded float32 W^T whose ReLU gate reads
 Every kernel takes bfloat16 or float32 features (one dtype a call; the
 cotangent and the outputs in it too): the float32 forms are the JAX
 package's #7 at ``compute_dtype="float32"``, float32 in, float32 products,
-float32 out. ``stats`` is the same kernel instantiated for float32
-(16-byte loads of 4 columns); ``bwd_reduce``'s float32 form is a kernel of
-its own (the cotangent split once into its three bf16 planes by a
-pre-pass, ``reduce_plan_f32``), and so is ``bwd_dx``'s
+float32 out. ``stats``' float32 form sums eight rows at a time in float32
+and those partials in float64 (16-byte loads of 4 columns, float64 chunk
+partials added and rounded once by a second kernel); ``bwd_reduce``'s
+float32 form is a kernel of its own (the cotangent split once into its
+three bf16 planes by a pre-pass, ``reduce_plan_f32``), and so is ``bwd_dx``'s
 (``csrc/tb_dx_f32_kernels.cu``, ``dx_f32_plan``), which reads the planes
 the reduce's pre-pass wrote: the Function hands them over (``planes=``),
 so the backward splits g once; ``apply`` is the float32 forward 1x1
@@ -196,9 +197,9 @@ def row_chunk(m: int) -> int:
     return min(ROW_CHUNK, max(64, -(-m // (64 * CHUNKS)) * 64))
 
 
-def _partials(m, *shape, device):
+def _partials(m, *shape, device, dtype=torch.float32):
     return torch.empty(-(-m // row_chunk(m)), *shape, device=device,
-                       dtype=torch.float32)
+                       dtype=dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -225,8 +226,14 @@ def stats(xs, out, table=None):
     Bound by reading the features once (62.9 MB at K=320, M=98,304: 18.8 us
     on the H100; 125.8 MB at float32: 37.6 us). Design: one block per
     (chunk of ``row_chunk(M)`` rows, 64 columns), 32 row stripes of 16-byte
-    loads per 8 columns (float32: 16 stripes per 4 columns), a fixed-order
-    reduction in shared memory, the chunk partials added by ``sum_rows``.
+    loads per 8 columns, a fixed-order reduction in shared memory, the
+    chunk partials added by ``sum_rows``. Float32 features: 16 stripes per
+    4 columns, eight rows a thread summed in float32 and added into
+    float64, the stripes and the chunks' float64 partials (the latter by a
+    second kernel, in order) in float64 and rounded once, so the
+    single-pass variance E[x^2] - mean^2 loses little more than that
+    rounding (float32 running sums lost up to ~5 ulp, which the variance
+    multiplies by mean^2 / var).
     """
     m = xs[0].shape[0]
     _check_rows(xs, m)
@@ -238,14 +245,20 @@ def stats(xs, out, table=None):
     _check_contig_f32(out, "out", xs[0].device)
     f32 = _is_f32(xs)
     table = _table_of(xs, table)
-    part = _partials(m, 2, ctot, device=out.device)
-    code = build.lib().cunet_tb_stats(table.data_ptr(), len(xs), m, ctot,
-                                      row_chunk(m), part.data_ptr(),
-                                      int(f32), _stream(out))
+    if f32:
+        part = _partials(m, 2, ctot, device=out.device, dtype=torch.float64)
+        code = build.lib().cunet_tb_stats_f32(
+            table.data_ptr(), len(xs), m, ctot, row_chunk(m),
+            part.data_ptr(), out.data_ptr(), _stream(out))
+    else:
+        part = _partials(m, 2, ctot, device=out.device)
+        code = build.lib().cunet_tb_stats(table.data_ptr(), len(xs), m, ctot,
+                                          row_chunk(m), part.data_ptr(),
+                                          _stream(out))
     build.check(code, "train_bottleneck.stats")
     stats.launches += 1
     stats.f32_launches += f32
-    return sum_rows(part, out)
+    return out if f32 else sum_rows(part, out)
 
 
 # ---------------------------------------------------------------------------

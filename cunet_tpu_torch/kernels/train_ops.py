@@ -25,8 +25,11 @@ Float32 forms (a float32 model's ghost-BN training, TPU kernels #8/#9 at
 ``compute_dtype="float32"``): every wrapper also takes float32 stage
 inputs, cotangents and outputs. ``bn_bwd``, ``maxpool2_bwd`` and
 ``upsample2_bwd`` are their kernels instantiated for float32 (two
-16-byte loads a vector of 8), ``bn_stats`` a float32 kernel that splits
-each tile's rows across a cluster of blocks (``stats_plan_f32``);
+16-byte loads a vector of 8; at r=64 ``bn_bwd``'s persistent float32
+kernel, a block's rows of an item in registers, its sums in float64),
+``bn_stats`` a float32
+kernel of one pass whose tiles are split across a cluster of blocks, its
+sums in float64 (``stats_plan_f32``);
 ``affine_dx`` a kernel of its own
 (``csrc/dx_f32_kernels.cu``, plan ``affine_dx_f32_plan``), ``conv3x3_dx``
 the float32 product kernel of ``csrc/f32_kernels.cu`` (``buf_ops``' float32
@@ -112,12 +115,23 @@ BN_BWD_BLOCKS = 132
 BN_BWD_MIN_ROWS = 128
 BN_BWD_CLUSTER = 8
 BN_BWD_RING = 4
-# bn_stats at float32: the blocks its plan aims at (one on each of the
-# card's 132 SMs), the fewest rows of a block split from its tile (8 a row
-# stripe), the most blocks of a cluster (the portable limit)
+# bn_bwd at float32 where no portable cluster keeps a tile's rows on chip
+# (r=64): persistent clusters of 16 blocks (non-portable; the H100 holds
+# seven at a time at one block an SM), the channel blocks tried, widest
+# first, until one item buffer fits in shared memory and a thread's rows
+# in its registers, and the most item buffers taken where they fit
+# (csrc/train_kernels.cu bn_bwd_f32_kernel)
+BN_F32_CLUSTER = 16
+BN_F32_CBS = (32, 16, 8)
+BN_F32_BUFFERS = 3
+BN_F32_ROWS = 24     # most rows of a thread (its registers hold them)
+# bn_stats at float32: the most blocks of its grid (one wave on the
+# card's 132 SMs: a second, partial wave was slower at r=64,
+# tools/bn_sweep.py), the fewest rows of a block split from its tile (8 a
+# row stripe), the clusters tried (non-portable past 8)
 STATS_F32_BLOCKS = 132
 STATS_F32_MIN_ROWS = 256
-STATS_F32_CLUSTER = 8
+STATS_F32_CLUSTERS = (2, 4, 8, 16)
 # conv3x3_dx: warps of a block, output rows a warp owns (csrc/
 # train_kernels.cu kDxWarps), and the items (tile, channel group) aimed at
 # before a smaller one is taken: about one per SM of the card's 132, a
@@ -189,18 +203,17 @@ def bn_stats_plain(x, out):
 def stats_plan_f32(m: int, tile_rows: int, k: int) -> tuple[int, int]:
     """(cs, rpb) of ``bn_stats`` at float32: each tile's rows split across
     a cluster of cs blocks of rpb rows (a multiple of the 32 row stripes;
-    the last block may hold fewer). The smallest cs whose grid reaches
-    ``STATS_F32_BLOCKS``, at most ``STATS_F32_CLUSTER``, and 1 where a
-    split block would hold fewer than ``STATS_F32_MIN_ROWS`` rows: r=64 at
-    tile 6 splits a tile's 24,576 rows into 8 blocks of 3,072, 96 rows a
-    thread. A function of the shapes alone, so is the order of every sum."""
+    the last block may hold fewer). The largest cs of
+    ``STATS_F32_CLUSTERS`` whose grid stays within ``STATS_F32_BLOCKS``
+    and whose blocks hold at least ``STATS_F32_MIN_ROWS`` rows (else 1):
+    r=64 at tile 2 splits a tile's 8,192 rows into 2 blocks of 4,096 (72
+    blocks), at tile 6 24,576 rows into 8 of 3,072 (96 blocks). A
+    function of the shapes alone, so is the order of every sum."""
     tiles, kb = m // tile_rows, -(-k // 64)
     best = (1, -(-tile_rows // 32) * 32)
-    for cs in range(2, STATS_F32_CLUSTER + 1):
-        if tiles * kb * best[0] >= STATS_F32_BLOCKS:
-            break
+    for cs in STATS_F32_CLUSTERS:
         rpb = -(-(-(-tile_rows // cs)) // 32) * 32
-        if rpb < STATS_F32_MIN_ROWS:
+        if tiles * kb * cs > STATS_F32_BLOCKS or rpb < STATS_F32_MIN_ROWS:
             break
         best = (cs, rpb)
     return best
@@ -214,13 +227,17 @@ def bn_stats(x, out):
     the rounded values.
 
     Replaces ``cunet_tpu/kernels/train_slot.py::_stats``. Bound by reading
-    x twice (the second pass mostly from L2). Design: one block per (tile,
-    64 channels), 32 row stripes of 16-byte loads, a fixed-order reduction
-    in shared memory. A float32 x runs a float32 kernel of the same two
-    passes whose tiles are split across clusters of blocks
-    (``stats_plan_f32``: the grid fills the SMs, a thread's running sums
-    stay short), the blocks' partials added in rank order through
-    distributed shared memory.
+    x once (the bf16 kernel's second pass mostly from L2). Design: one
+    block per (tile, 64 channels), 32 row stripes of 16-byte loads, a
+    fixed-order reduction in shared memory. A float32 x runs a float32
+    kernel of one pass whose tiles are split across clusters of blocks
+    (``stats_plan_f32``): each thread sums x - x0 and its square (x0 the
+    mean of the tile's first 8 rows cut to 8 significant bits), eight rows
+    in float32 at a time into float64, the
+    stripes and then the blocks (in rank order, through distributed shared
+    memory) in float64, and the mean and the variance E[d^2] - E[d]^2 are
+    rounded once: x read once, no farther from float64 than the two
+    float32 passes were (PERF.md section 6).
     """
     m, k = x.shape
     if out.dim() != 3 or tuple(out.shape[1:]) != (2, k) or m % out.shape[0]:
@@ -1267,13 +1284,16 @@ class BnBwdPlan:
     chunks of ``rc`` (rc / stripes rows a thread), ``slots`` chunk buffers
     of x and d_a in shared memory: every chunk where ``resident`` (kept for
     pass 2), else a ring both passes stream through; ``smem`` bytes in all
-    (the buffers, then the warps', the block's and the tile's sums)."""
+    (the buffers, then the warps', the block's and the tile's sums).
+    ``persistent``: the float32 kernel of ``slots`` item buffers (``rc``
+    = ``rpb``), its clusters walking the (tile, channel block) items."""
     cb: int
     cs: int
     rpb: int
     rc: int
     slots: int
     smem: int
+    persistent: bool = False
 
     @property
     def stripes(self) -> int:
@@ -1282,6 +1302,11 @@ class BnBwdPlan:
     @property
     def chunks(self) -> int:
         return -(-self.rpb // self.rc)
+
+    @property
+    def thread_rows(self) -> int:
+        """The persistent kernel's rows a thread (4 channels a thread)."""
+        return -(-self.rpb // (BN_BWD_THREADS // (self.cb // 4)))
 
     @property
     def resident(self) -> bool:
@@ -1317,6 +1342,25 @@ def _bn_bwd_layout(cb: int, cs: int, tile_rows: int,
                      smem=smem(slots, rc))
 
 
+def _bn_bwd_items(cb: int, cs: int, tile_rows: int) -> BnBwdPlan:
+    """The persistent float32 layout: a tile cut into cs blocks of cb
+    channels, the most item buffers of a block's rows of x and d_a, up to
+    ``BN_F32_BUFFERS``, that fit, float64 sums."""
+    rpb = -(-tile_rows // cs)
+    # the threads' float32 sums; in float64 the stripe groups', the ranks'
+    # received (two items) and the tile's; two mbarriers
+    sums = (BN_BWD_THREADS * 8 * 4 + BN_BWD_THREADS * 8
+            + (2 * cs + 1) * 2 * cb * 8 + 16)
+
+    def smem(n):
+        return n * rpb * cb * 8 + sums
+
+    n = next((n for n in range(BN_F32_BUFFERS, 1, -1)
+              if smem(n) <= SMEM_LIMIT), 1)
+    return BnBwdPlan(cb=cb, cs=cs, rpb=rpb, rc=rpb, slots=n, smem=smem(n),
+                     persistent=True)
+
+
 def bn_bwd_plan(m: int, tile_rows: int, k: int,
                 f32: bool = False) -> BnBwdPlan:
     """The kernel plan of ``bn_bwd`` at these shapes (a function of them
@@ -1328,7 +1372,13 @@ def bn_bwd_plan(m: int, tile_rows: int, k: int,
     narrowest channel block: smaller clusters and blocks were slower
     there (PERF.md section 6, PR 10). Where they are too many for shared
     memory, the ring in clusters of ``BN_BWD_CLUSTER``. With ``f32`` the
-    buffers hold float32 x (8 bytes an element with d_a, 6 at bf16)."""
+    buffers hold float32 x (8 bytes an element with d_a, 6 at bf16), and
+    where the ring would be taken (r=64 on the main path) the persistent
+    kernel instead, in clusters of ``BN_F32_CLUSTER``, of the widest of
+    ``BN_F32_CBS`` whose item buffer fits and whose rows fit a thread's
+    ``BN_F32_ROWS`` registers (tile 2: 32 channels, 512 rows a block, 16 a
+    thread; tile 6: 16 channels, 1,536 rows, 24 a thread; one buffer each:
+    wider rows beat more buffers, ``tools/bn_sweep.py``)."""
     tiles = m // tile_rows
     xb = 4 if f32 else 2
     cbs = [c for c in (64, 32) if k % c == 0] or [16]
@@ -1340,8 +1390,14 @@ def bn_bwd_plan(m: int, tile_rows: int, k: int,
             if p.resident and p.blocks(tiles, k) >= BN_BWD_BLOCKS:
                 return p
     p = _bn_bwd_layout(cbs[-1], 1, tile_rows, xb)
-    return p if p.resident else _bn_bwd_layout(cbs[-1], BN_BWD_CLUSTER,
-                                               tile_rows, xb)
+    if p.resident:
+        return p
+    p = _bn_bwd_layout(cbs[-1], BN_BWD_CLUSTER, tile_rows, xb)
+    for cb in BN_F32_CBS if f32 and not p.resident else ():
+        w = _bn_bwd_items(cb, BN_F32_CLUSTER, tile_rows)
+        if w.smem <= SMEM_LIMIT and w.thread_rows <= BN_F32_ROWS:
+            return w
+    return p
 
 
 def bn_bwd(x, d_a, stats, bn, eps, d_x, dbn, *, accumulate=False):
@@ -1370,7 +1426,13 @@ def bn_bwd(x, d_a, stats, bn, eps, d_x, dbn, *, accumulate=False):
     r=64, K=192 with its ``sum_rows`` (the kernel before it 321.7,
     ``native_batch_norm_backward`` 142.2), 4.9 at r=4. A float32 x runs
     the kernel at float32 (x staged as float32, ``bn_bwd_plan(...,
-    f32=True)``).
+    f32=True)``) where its rows fit, and where they do not (r=64) a
+    persistent float32 kernel: clusters of 16 blocks walk the (tile,
+    channel block) items, a block's rows of an item moved into registers
+    as they are summed and its buffer refilled with the next item's rows
+    while it trades the sums (st.async) and writes d_x, so HBM sees x and
+    d_a once; its sums float32 over a thread's rows, then float64, rounded
+    once a tile.
     """
     m, k = x.shape
     if tuple(d_a.shape) != (m, k) or tuple(d_x.shape) != (m, k) \
@@ -1397,7 +1459,8 @@ def bn_bwd(x, d_a, stats, bn, eps, d_x, dbn, *, accumulate=False):
         x.data_ptr(), x.stride(0), d_a.data_ptr(), d_a.stride(0), m,
         tile_rows, k, stats.data_ptr(), bn[0].data_ptr(), float(eps),
         d_x.data_ptr(), d_x.stride(0), int(accumulate), part.data_ptr(),
-        p.cb, p.cs, p.rpb, p.rc, p.slots, p.smem, int(f32), _stream(x))
+        p.cb, p.cs, p.rpb, p.rc, p.slots, p.smem, int(f32),
+        int(p.persistent), _stream(x))
     build.check(code, "bn_bwd")
     bn_bwd.launches += 1
     bn_bwd.f32_launches += f32

@@ -124,7 +124,8 @@ def bf16_digests(torch, cs, tbk, dops) -> dict:
 def _digests(torch, cs, tbk, dops) -> None:
     """Print ``bf16_digests``, the digest of phase 5's bf16 ghost-BN kernel
     step and, where the checkout has #7's float32 forms, of phase 13's
-    float32 ``bn_tile=0`` kernel step (cuDNN deterministic)."""
+    float32 ``bn_tile=0`` kernel step and of phase 14's float32 ghost-BN
+    kernel steps at tiles 2 and 6 (cuDNN deterministic)."""
     print(f"bf16 output digests: {bf16_digests(torch, cs, tbk, dops)}",
           flush=True)
     cfg, params, state, batch = cs.flagship_train(torch)
@@ -134,15 +135,17 @@ def _digests(torch, cs, tbk, dops) -> None:
           f"{cs.step_digest(torch, loss, grads)}", flush=True)
     if not hasattr(tbk, "f32_counts"):
         return
-    f32 = dataclasses.replace(cfg, compute_dtype="float32", bn_tile=0,
-                              bn_dtype="float32")
-    torch.backends.cudnn.deterministic = True
-    try:
-        loss, grads, _ = cs._grads(torch, f32, params, state, x, t)
-    finally:
-        torch.backends.cudnn.deterministic = False
-    print(f"float32 bn_tile=0 kernel step digest "
-          f"{cs.step_digest(torch, loss, grads)}", flush=True)
+    for tile in (0, *cs.SLOT_F32_TILES):
+        f32 = dataclasses.replace(cfg, compute_dtype="float32", bn_tile=tile,
+                                  bn_dtype="float32")
+        torch.backends.cudnn.deterministic = True
+        try:
+            loss, grads, _ = cs._grads(torch, f32, params, state, x, t)
+        finally:
+            torch.backends.cudnn.deterministic = False
+        what = "bn_tile=0" if tile == 0 else f"ghost-BN tile {tile}"
+        print(f"float32 {what} kernel step digest "
+              f"{cs.step_digest(torch, loss, grads)}", flush=True)
 
 
 def main(argv=None) -> int:
@@ -199,7 +202,8 @@ def main(argv=None) -> int:
     if hasattr(train_bottleneck, "f32_counts"):
         cs.phase_bn0_f32_kernels(torch, train_bottleneck, drop_ops)
     if hasattr(train_ops, "f32_counts"):
-        cs.phase_slot_f32_kernels(torch, train_ops, buf_ops)
+        cs.phase_slot_f32_kernels(torch, train_ops, buf_ops,
+                                  train_bottleneck)
     if hasattr(train_ops, "f32_option_counts"):
         cs.phase_quant_f32_kernels(torch, train_ops, buf_ops, quant_ops,
                                    eval_ops)

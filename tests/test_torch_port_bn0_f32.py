@@ -12,7 +12,11 @@ the reduce's pre-pass writes them, ``split_planes_plain``, read back core
 matrix by core matrix as the kernel reads them; the recompute, gate and
 jacobian unrounded) gives ``bwd_dx_plain``'s bits under one-hot
 cotangents, at 128 outputs and at 192 and 256 (two halves of the
-planes), and not with a W plane dropped.
+planes), and not with a W plane dropped. ``stats``' float32 sums
+(``tb_stats_f32_mirror``: 8-row float32 partials in float64, rounded
+once) against its plain version, JAX's ``_stats_kernel`` in interpret
+mode and float64, the variance they imply no farther from float64 than
+the plain version's.
 
 (b) The float32 plans (``reduce_plan_f32``, ``dx_f32_plan``, and
 ``apply``'s float32 product ``buf_ops.dot3_plan``) at every #7 call of the
@@ -216,6 +220,82 @@ def test_dx_mirror_is_exact_under_one_hot_cotangents(widths, n):
     dropped = tuple(p for p in ORDER if p[1] != 2)      # W's third plane
     assert not torch.equal(
         mirror_bwd_dx_f32(xs, g, stat, bias, red, w, dropped), want)
+
+
+def tb_stats_f32_mirror(x):
+    """#7's ``stats`` at float32 (``tb_stats_f32_kernel`` then
+    ``tb_stats_sum_kernel``) in torch over the concat x (M, Ctot): chunks
+    of ``row_chunk(M)`` rows; in a chunk each of 16 row stripes sums 8 of
+    its rows at a time (16 apart) in float32, the squares by fma, those
+    partials in float64; the stripes in order, then the chunks in order,
+    in float64, rounded once."""
+    m, c = x.shape
+    chunk = tbk.row_chunk(m)
+    S = -(-m // chunk)
+    span = -(-chunk // 128) * 128               # 8 rows x 16 stripes a step
+    xs = torch.nn.functional.pad(x, (0, 0, 0, S * chunk - m))
+    xs = torch.nn.functional.pad(xs.view(S, chunk, c),
+                                 (0, 0, 0, span - chunk))
+    v = xs.view(S, span // 128, 8, 16, c)
+    s = torch.zeros(S, 16, c, dtype=torch.float64)
+    q = torch.zeros_like(s)
+    for step in range(span // 128):
+        ps = torch.zeros(S, 16, c)
+        pq = torch.zeros_like(ps)
+        for j in range(8):
+            r = v[:, step, j]
+            ps = ps + r
+            pq = (r.double() * r.double() + pq.double()).float()   # fma
+        s, q = s + ps.double(), q + pq.double()
+    out = torch.zeros(2, c, dtype=torch.float64)
+    for i in range(S):                          # the chunks in order
+        part = torch.zeros(2, c, dtype=torch.float64)
+        for rs in range(16):                    # the stripes in order
+            part = part + torch.stack([s[i, rs], q[i, rs]])
+        out = out + part
+    return out.float()
+
+
+@pytest.mark.parametrize("shift", [0.0, 4.0])
+def test_stats_f32_sums_in_float64(shift):
+    """#7's ``stats`` at float32 in its kernel's order
+    (``tb_stats_f32_mirror``; M = 4,096: 64 chunks of 64 rows): within the
+    float32 limit of its plain version and of JAX's ``_stats_kernel`` in
+    interpret mode, each sum of squares within two float32 roundings of
+    float64 (the sums within that and the float32 roundings of their
+    8-row partials, 2^-24 sqrt(M) max|x|), and
+    the single-pass variance E[x^2] - mean^2 it implies no farther from
+    float64 than the plain version's, on x ~ N(0, 1) and on a cancelling
+    x ~ 4 + N(0, 1) (mean^2 / var ~ 16; the plain float32 sums lose
+    several ulp there, which the variance multiplies by 17)."""
+    rng = np.random.default_rng(7)
+    widths, m = (32, 32, 16, 16), 4096
+    xs = [torch.from_numpy((rng.standard_normal((m, w)) + shift)
+                           .astype(np.float32)) for w in widths]
+    x = torch.cat(xs, 1)
+    got = tb_stats_f32_mirror(x)
+    plain = tbk.stats_plain(xs, torch.empty(2, x.shape[1]))
+    jax_out = torch.from_numpy(np.array(jtb._stats(
+        [f.numpy() for f in xs], x.shape[1], jtb._row_tile(m), m,
+        interpret=True)))
+    for ref in (plain, jax_out):
+        lim = SUM_REL_PER_SQRT_N * m ** 0.5 * ref.abs().max(1).values
+        assert ((got - ref).abs().max(1).values <= lim).all()
+    x64 = x.double()
+    want = torch.stack([x64.sum(0), (x64 * x64).sum(0)])
+    err = (got.double() - want).abs()
+    assert (err[1] <= 2.0 ** -23 * want[1]).all()
+    # the sums cancel: their float32 partials' roundings scale with |x|
+    assert (err[0] <= 2.0 ** -23 * want[0].abs()
+            + 2.0 ** -24 * m ** 0.5 * x64.abs().max()).all()
+
+    def var_err(sums):
+        mean = sums[0].double() / m
+        var = sums[1].double() / m - mean * mean
+        var64 = x64.var(0, unbiased=False)
+        return ((var - var64).abs() / var64).max().item()
+
+    assert var_err(got) <= var_err(plain)
 
 
 # ---------------------------------------------------------------------------

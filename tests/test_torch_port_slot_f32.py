@@ -24,8 +24,13 @@ held to their plain versions within the float32 n-term limit
   test_torch_port_dw_f32_plans.py`` holds the plans' coverage and the 3x3
   form's staging);
 - F1 / F6: the statistics as ``stats_plan_f32`` splits a tile's rows
-  across a cluster of blocks (``stats_f32_mirror``), and the BN backward
-  at float32 (``bn_bwd_plan(..., f32=True)``);
+  across a cluster of blocks, one pass of shifted sums, float32 8-row
+  partials in float64 (``stats_f32_mirror``; against float64, the plain
+  version and JAX's ``_stats``, no farther from float64 than the plain
+  version on a cancelling input), and the BN backward at float32
+  (``bn_bwd_plan(..., f32=True)``; at r=64 the persistent kernel's order,
+  ``bn_bwd_f32_mirror``, against the plain version, JAX's ``_affine_bwd``
+  and float64);
 - F9 / F10: the pool's first-winner routing on float32 ties, and the
   unrounded 2x2 sum.
 
@@ -286,34 +291,118 @@ def test_weight_gradients_in_the_plans_split_order(form, r, tile):
     assert rel <= 2.0 ** -24 * m ** 0.5, rel
 
 
+def fma32(a, b, c):
+    """float32 fma(a, b, c): the exact product and sum, rounded once (in
+    float64 first: a float32 product is exact there)."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def bf16_cut(v):
+    """v with its low 16 bits cleared: 8 significant bits."""
+    return (v.view(torch.int32) & -65536).view(torch.float32)
+
+
 def stats_f32_mirror(x, tiles):
     """``bn_stats``' float32 kernel in torch: each tile's rows split as
-    ``stats_plan_f32`` splits them, each of the 32 row stripes of a block
-    a running float32 sum, the stripes added in order, then the blocks in
-    rank order; the mean, then the centred squares so summed."""
+    ``stats_plan_f32`` splits them; a shift x0 a channel, the tile's first
+    8 rows' float32 mean cut to 8 significant bits; each of a block's 32
+    row stripes sums d = x - x0 and d^2 over 8 of its rows at a time in
+    float32 (the square by fma), those partials in float64; the stripes in
+    order, the blocks in rank order, in float64; mean = x0 + E[d], var =
+    E[d^2] - E[d]^2, each rounded once to float32."""
     m, k = x.shape
     tr = m // tiles
     cs, rpb = train_ops.stats_plan_f32(m, tr, k)
     assert rpb % 32 == 0 and (cs - 1) * rpb < tr <= cs * rpb
+    xt = x.view(tiles, tr, k)
+    n0 = min(tr, 8)
+    acc = torch.zeros(tiles, k)
+    for j in range(n0):
+        acc = acc + xt[:, j]
+    x0 = bf16_cut(acc / n0)
+    span = -(-rpb // 256) * 256                 # 8 rows x 32 stripes a step
+    xs = F.pad(xt, (0, 0, 0, cs * rpb - tr))    # the ranks' rows, 0 past tr
+    xs = xs.view(tiles, cs, rpb, k)
     on = F.pad(torch.ones(tiles, tr, 1), (0, 0, 0, cs * rpb - tr))
-    xs = F.pad(x.view(tiles, tr, k), (0, 0, 0, cs * rpb - tr))
+    on = on.view(tiles, cs, rpb, 1)
+    xs = F.pad(xs, (0, 0, 0, span - rpb))
+    on = F.pad(on, (0, 0, 0, span - rpb))
+    # rows: step, j (8), stripe (32)
+    d = ((xs - x0[:, None, None]) * on).view(tiles, cs, span // 256, 8, 32,
+                                            k)
+    s = torch.zeros(tiles, cs, 32, k, dtype=torch.float64)
+    q = torch.zeros_like(s)
+    for step in range(span // 256):
+        ps = torch.zeros(tiles, cs, 32, k)
+        pq = torch.zeros_like(ps)
+        for j in range(8):
+            v = d[:, :, step, j]
+            ps = ps + v
+            pq = fma32(v, v, pq)
+        s, q = s + ps.double(), q + pq.double()
+    ds = torch.zeros(tiles, k, dtype=torch.float64)
+    dq = torch.zeros_like(ds)
+    for rank in range(cs):
+        bs = torch.zeros(tiles, k, dtype=torch.float64)
+        bq = torch.zeros_like(bs)
+        for i in range(32):                     # the stripes in order
+            bs, bq = bs + s[:, rank, i], bq + q[:, rank, i]
+        ds, dq = ds + bs, dq + bq
+    md = ds / tr
+    var = (dq / tr - md * md).clamp_min(0)
+    return torch.stack([(x0.double() + md).float(), var.float()], 1)
 
-    def tile_sum(v):                    # (tiles, cs * rpb, k), 0 past tr
-        v = v.view(tiles, cs, rpb // 32, 32, k)
-        acc = torch.zeros(tiles, cs, 32, k)
-        for j in range(rpb // 32):      # a stripe's running sum
-            acc = acc + v[:, :, j]
-        blk = torch.zeros(tiles, cs, k)
-        for i in range(32):             # the stripes in order
-            blk = blk + acc[:, :, i]
-        out = torch.zeros(tiles, k)
-        for q in range(cs):             # the cluster's blocks in rank order
-            out = out + blk[:, q]
-        return out
 
-    mean = tile_sum(xs) / tr
-    d = (xs - mean[:, None]) * on
-    return torch.stack([mean, tile_sum(d * d) / tr], 1)
+def bn_bwd_f32_mirror(x, d_a, st, bn, eps, plan):
+    """``bn_bwd``'s persistent float32 kernel in torch (``plan.persistent``):
+    a tile's rows split across the cluster's ranks (``plan.rows``); a
+    thread owns 4 channels of the rows ``rs + u * stripes`` of its rank
+    (stripes = 256 / (cb / 4)) and sums d_a * xh (by fma) and d_a over them
+    in float32; in float64 the stripes in groups of 8 in order, the groups
+    in order, the ranks in order; the tile's sums rounded once to float32
+    (``part``), dbn their sum over the tiles in tile order (``sum_rows``);
+    d_x = ig * (d_a - sb/m - xh * sg/m) with sb/m, sg/m rounded from
+    float64."""
+    tiles, k = st.shape[0], x.shape[1]
+    tr = x.shape[0] // tiles
+    stripes = 256 // (plan.cb // 4)
+    rstd = torch.rsqrt(st[:, 1] + eps)
+    d_x = torch.empty(x.shape)
+    part = torch.empty(tiles, 2, k)
+    for t in range(tiles):
+        sl = slice(t * tr, (t + 1) * tr)
+        xh = (x[sl] - st[t, 0]) * rstd[t]
+        da = d_a[sl]
+        tsum = torch.zeros(2, k, dtype=torch.float64)
+        for q in range(plan.cs):
+            rows = plan.rows(q, tr)
+            n = len(rows)
+            steps = -(-n // stripes)
+            pad = steps * stripes - n
+            dq = F.pad(da[rows.start:rows.stop], (0, 0, 0, pad))
+            xq = F.pad(xh[rows.start:rows.stop], (0, 0, 0, pad))
+            dq = dq.view(steps, stripes, k)
+            xq = xq.view(steps, stripes, k)
+            fg = torch.zeros(stripes, k)
+            fb = torch.zeros(stripes, k)
+            for u in range(steps):              # a thread's rows in order
+                fg = fma32(dq[u], xq[u], fg)
+                fb = fb + dq[u]
+            g = torch.stack([fg, fb]).double().view(2, stripes // 8, 8, k)
+            grp = torch.zeros(2, stripes // 8, k, dtype=torch.float64)
+            for i in range(8):                  # a group's stripes in order
+                grp = grp + g[:, :, i]
+            blk = torch.zeros(2, k, dtype=torch.float64)
+            for i in range(stripes // 8):       # the groups in order
+                blk = blk + grp[:, i]
+            tsum = tsum + blk                   # the ranks in order
+        part[t] = tsum.float()
+        mg, mb = (tsum / tr).float()
+        d_x[sl] = rstd[t] * bn[0, :k] * (da - mb - xh * mg)
+    dbn = torch.zeros(2, k)
+    for t in range(tiles):
+        dbn = dbn + part[t]
+    return d_x, dbn
 
 
 @pytest.mark.parametrize("m,tiles,k", [(24 * 4 * 4, 4, 160),
@@ -322,10 +411,12 @@ def stats_f32_mirror(x, tiles):
                                        (2 * 6 * 64 * 64, 2, 192)])
 def test_stats_and_bn_bwd_at_float32(m, tiles, k):
     """F1 / F6 on float32 x: ``bn_stats`` (two passes) and its kernel's
-    split sums (``stats_f32_mirror``, clusters of 1, 6 and 8 blocks here:
-    the last two tiles of 6 images at r=64) against float64, and
-    ``bn_bwd`` as its float32 plan splits it (``bn_bwd_mirror``) against
-    its plain version, each within its sum's limit."""
+    one pass of shifted sums (``stats_f32_mirror``, clusters of 1, 4 and
+    16 blocks here: the last two tiles of 6 images at r=64) against
+    float64, and ``bn_bwd`` as its float32 plan splits it
+    (``bn_bwd_mirror``; at r=64 also in the persistent kernel's order,
+    ``bn_bwd_f32_mirror``) against its plain version, each within its
+    sum's limit."""
     rng = np.random.default_rng(m + k)
     x = _rand(rng, m, k) * 1.7 + 0.3
     st = train_ops.bn_stats_plain(x, torch.empty(tiles, 2, k))
@@ -344,6 +435,89 @@ def test_stats_and_bn_bwd_at_float32(m, tiles, k):
     train_ops.bn_bwd_plain(x, d_a, st, bn, EPS, dx, dbn)
     assert (got_dx - dx).abs().max() <= _limit(m // tiles, dx)
     assert (got_dbn - dbn).abs().max() <= _limit(m, dbn)
+    assert plan.persistent == (m // tiles == 6 * 64 * 64)
+    if plan.persistent:
+        got_dx, got_dbn = bn_bwd_f32_mirror(x, d_a, st, bn, EPS, plan)
+        assert (got_dx - dx).abs().max() <= _limit(m // tiles, dx)
+        assert (got_dbn - dbn).abs().max() <= _limit(m, dbn)
+
+
+@pytest.mark.parametrize("shift", [0.0, 4.0])
+def test_bn_stats_f32_one_pass_against_float64_plain_and_jax(shift):
+    """``bn_stats``' float32 kernel (``stats_f32_mirror``) at a tile of 6
+    images at r=64 (24,576 rows, clusters of 16 blocks): within the float32
+    limit of its plain version and of JAX's ``_stats``, and no farther
+    from float64 than the plain version (the variance on x ~ N(0, 1) and
+    on a cancelling x ~ 4 + N(0, 1), mean^2 / var ~ 16; the mean on the
+    latter), its sums in float64 rounded once."""
+    from cunet_tpu.kernels.train_slot import _stats as jax_stats
+
+    tiles, tr, k = 2, 6 * 64 * 64, 64
+    assert train_ops.stats_plan_f32(tiles * tr, tr, k) == (16, 1536)
+    rng = np.random.default_rng(23)
+    x = _rand(rng, tiles * tr, k) + shift
+    got = stats_f32_mirror(x, tiles).double()
+    plain = train_ops.bn_stats_plain(x, torch.empty(tiles, 2, k)).double()
+    x64 = x.double().view(tiles, tr, k)
+    mean64, var64 = x64.mean(1), x64.var(1, unbiased=False)
+    jax = torch.stack([torch.from_numpy(np.stack(
+        [np.asarray(a) for a in jax_stats(x[t * tr:(t + 1) * tr].numpy())]))
+        for t in range(tiles)]).double()
+    for ref in (plain, jax):
+        assert (got - ref).abs().max() <= _limit(tr, ref)
+
+    def err(st):
+        return (((st[:, 0] - mean64) / var64.sqrt()).abs().max().item(),
+                ((st[:, 1] - var64) / var64).abs().max().item())
+
+    (gm, gv), (pm, pv) = err(got), err(plain)
+    assert gv <= pv and gv <= 2.0 ** -22
+    if shift:
+        assert gm <= pm
+
+
+@pytest.mark.parametrize("tr,k,cb,rows", [(64 * 64 * 2, 64, 32, 16),
+                                          (64 * 64 * 6, 32, 16, 24)])
+def test_bn_bwd_f32_persistent_order(tr, k, cb, rows):
+    """``bn_bwd``'s persistent float32 plan at a tile of 2 (6) images at
+    r=64: clusters of 16 blocks of 32 (16) channels, 16 (24) rows a thread
+    in registers, every row of the tile in one rank; the kernel's order of
+    sums (``bn_bwd_f32_mirror``) within the float32 limit of the plain
+    version and of JAX's ``_affine_bwd``, and dbn within 2^-24 sqrt(M)
+    relative L2 of float64."""
+    import jax.numpy as jnp
+
+    from cunet_tpu.kernels.train_slot import _affine_bwd
+
+    plan = train_ops.bn_bwd_plan(tr, tr, k, f32=True)
+    assert plan.persistent and (plan.cb, plan.cs) == (cb, 16)
+    assert plan.thread_rows == rows <= train_ops.BN_F32_ROWS
+    assert [i for q in range(plan.cs) for i in plan.rows(q, tr)] \
+        == list(range(tr))
+    rng = np.random.default_rng(tr + k)
+    x = _rand(rng, tr, k) * 1.7 + 0.3
+    d_a = _rand(rng, tr, k)
+    st = train_ops.bn_stats_plain(x, torch.empty(1, 2, k))
+    bn = torch.from_numpy(np.stack([rng.uniform(0.5, 1.5, k),
+                                    rng.standard_normal(k) * 0.3])
+                          .astype(np.float32))
+    got_dx, got_dbn = bn_bwd_f32_mirror(x, d_a, st, bn, EPS, plan)
+    dx, dbn = torch.empty(tr, k), torch.empty(2, k)
+    train_ops.bn_bwd_plain(x, d_a, st, bn, EPS, dx, dbn)
+    jdx, jdbn = _affine_bwd(
+        jnp.asarray(x.numpy()), jnp.asarray(bn.numpy()),
+        jnp.asarray(st[0, 0].numpy()), jnp.asarray(st[0, 1].numpy()),
+        jnp.asarray(d_a.numpy()), jnp.float32, EPS,
+        z=jnp.ones((tr, k), jnp.float32))
+    for ref_dx, ref_dbn in ((dx, dbn), (torch.from_numpy(np.array(jdx)),
+                                        torch.from_numpy(np.array(jdbn)))):
+        assert (got_dx - ref_dx).abs().max() <= _limit(tr, ref_dx)
+        assert (got_dbn - ref_dbn).abs().max() <= _limit(tr, ref_dbn)
+    rstd = torch.rsqrt(st[0, 1].double() + EPS)
+    xh = (x.double() - st[0, 0].double()) * rstd
+    dbn64 = torch.stack([(d_a.double() * xh).sum(0), d_a.double().sum(0)])
+    rel = ((got_dbn.double() - dbn64).norm() / dbn64.norm()).item()
+    assert rel <= 2.0 ** -24 * tr ** 0.5, rel
 
 
 def test_pool_and_upsample_backward_at_float32():

@@ -13,6 +13,14 @@ mirror of each kernel's split then sums each block's rows and adds the
 partials in the plan's rank or run order, and is held against the plain
 versions and against the JAX package's ``_affine_bwd`` / ``_dot_dw``
 within the float32 sum limit (PERF.md section 2).
+
+The float32 plans: ``bn_bwd_plan(..., f32=True)`` is the portable
+search's plan (a copy of it here, ``_portable_plan``) wherever that keeps
+a tile's rows in shared memory, and the bf16 plans are that search's
+everywhere; at r=64 (tiles of 2 and 6 images) the persistent kernel's
+clusters of 16 with a thread's rows in registers; ``stats_plan_f32`` one
+wave of whole row stripes. Every float32 step shape (tiles 1, 2, 6, order
+14's widths) is checked, and every plan is a function of the shapes alone.
 """
 
 import jax.numpy as jnp
@@ -179,6 +187,102 @@ def test_affine_dw_plan_fills_the_card_on_the_main_path():
     assert (p.kc, p.nkb, p.br, p.blocks) == (96, 2, 64, 256)
 
 
+def _portable_plan(m, tile_rows, k, xb):
+    """The plan search of the portable clusters as it stood before the
+    float32 kernel's persistent plan (1-8 blocks a tile, the ring past
+    them): what ``bn_bwd_plan`` must still give at bf16 everywhere, and at
+    float32 wherever it keeps a tile's rows in shared memory."""
+    def layout(cb, cs):
+        stripes = train_ops.BN_BWD_THREADS // (cb // 8)
+        rpb = -(-tile_rows // cs)
+        rc = stripes * -(-rpb // (stripes * 8))
+        slots = -(-rpb // rc)
+        sums = (2 * train_ops.BN_BWD_THREADS // 32 + 4) * cb * 4
+        if slots * rc * cb * (xb + 4) + sums > SMEM_LIMIT:
+            rc, slots = 2 * stripes, train_ops.BN_BWD_RING
+        return (cb, cs, rpb, rc, slots,
+                slots * rc * cb * (xb + 4) + sums)
+
+    tiles = m // tile_rows
+    cbs = [c for c in (64, 32) if k % c == 0] or [16]
+    for cb in cbs:
+        for cs in (1, 2, 4, 8):
+            p = layout(cb, cs)
+            if cs > 1 and p[2] < train_ops.BN_BWD_MIN_ROWS:
+                break
+            if p[4] >= -(-p[2] // p[3]) and \
+                    -(-k // cb) * tiles * cs >= train_ops.BN_BWD_BLOCKS:
+                return p
+    p = layout(cbs[-1], 1)
+    return p if p[4] >= -(-p[2] // p[3]) else layout(cbs[-1], 8)
+
+
+def _key(p):
+    return (p.cb, p.cs, p.rpb, p.rc, p.slots, p.smem)
+
+
+# (rows, tile rows, K) of the float32 ghost-BN step at tiles 1, 2 and 6
+# (batch 24): every stage width and order 14's intermedia adapter
+F32_MAIN = sorted({(24 * r * r, t * r * r, k) for t in (1, 2, 6)
+                   for r in RES for k in KS + (160 + 32 * 14, 128 * 15)})
+
+
+@pytest.mark.parametrize("f32", [False, True], ids=["bf16", "f32"])
+def test_bn_bwd_plans_unchanged_where_a_portable_cluster_fits(f32):
+    """bf16: every plan the portable search's, bit for bit the kernels
+    they were; float32: the same wherever that search keeps a tile's rows
+    in shared memory (r <= 32 on the main path), so only r=64 changes (to
+    the persistent kernel; a tail tile of 65,536 rows keeps the ring)."""
+    shapes = [_bn_shape(s) for s in BN_MAIN + BN_TAILS] + F32_MAIN
+    for m, tr, k in shapes:
+        old = _portable_plan(m, tr, k, 4 if f32 else 2)
+        p = train_ops.bn_bwd_plan(m, tr, k, f32)
+        if not f32:
+            assert _key(p) == old and not p.persistent
+        elif old[4] >= -(-old[2] // old[3]):
+            assert _key(p) == old and not p.persistent, (m, tr, k)
+        else:                   # persistent, or the ring where none fits
+            assert p.persistent or _key(p) == old, (m, tr, k)
+            assert p.persistent or tr > 6 * 4096
+
+
+@pytest.mark.parametrize("m,tr,k", F32_MAIN,
+                         ids=lambda v: str(v))
+def test_bn_bwd_f32_plan_keeps_every_tile_on_chip(m, tr, k):
+    """At every shape of the float32 step each tile's rows stay on chip:
+    resident in a portable cluster, or (r=64) on the persistent kernel's
+    clusters of ``BN_F32_CLUSTER``, its rows of a thread within
+    ``BN_F32_ROWS`` registers, every row of the tile in one rank, the
+    channel blocks covering K, shared memory within the H100's."""
+    p = train_ops.bn_bwd_plan(m, tr, k, True)
+    assert p.smem <= SMEM_LIMIT
+    assert [i for q in range(p.cs) for i in p.rows(q, tr)] == list(range(tr))
+    assert (-(-k // p.cb) - 1) * p.cb < k <= -(-k // p.cb) * p.cb
+    if not p.persistent:
+        assert p.resident and p.cs <= train_ops.BN_BWD_CLUSTER
+        return
+    assert tr in (2 * 4096, 6 * 4096)          # r=64, tiles 2 and 6
+    assert p.cs == train_ops.BN_F32_CLUSTER <= 16
+    assert p.cb in train_ops.BN_F32_CBS and p.cb % 4 == 0
+    assert p.rc == p.rpb and 1 <= p.slots <= train_ops.BN_F32_BUFFERS
+    assert p.thread_rows <= train_ops.BN_F32_ROWS
+    assert (p.cb, p.slots) == {2 * 4096: (32, 1), 6 * 4096: (16, 1)}[tr]
+
+
+@pytest.mark.parametrize("m,tr,k", F32_MAIN, ids=lambda v: str(v))
+def test_stats_plan_f32_is_one_wave_of_whole_row_stripes(m, tr, k):
+    """``bn_stats``' float32 plan: clusters of ``STATS_F32_CLUSTERS`` (1
+    where a split block would hold fewer than ``STATS_F32_MIN_ROWS``
+    rows), the grid within one wave of ``STATS_F32_BLOCKS``, every row of
+    a tile in one block, a block's rows whole stripes of 32."""
+    cs, rpb = train_ops.stats_plan_f32(m, tr, k)
+    assert cs == 1 or cs in train_ops.STATS_F32_CLUSTERS
+    assert rpb % 32 == 0 and (cs - 1) * rpb < tr <= cs * rpb
+    if cs > 1:
+        assert rpb >= train_ops.STATS_F32_MIN_ROWS
+        assert m // tr * -(-k // 64) * cs <= train_ops.STATS_F32_BLOCKS
+
+
 def test_plans_are_functions_of_the_shapes_alone(monkeypatch):
     """No device query: the same shapes give the same plans, and with every
     CUDA query broken the plans still come out (so the split of the sums,
@@ -186,6 +290,8 @@ def test_plans_are_functions_of_the_shapes_alone(monkeypatch):
     def plans():
         return ([train_ops.bn_bwd_plan(*_bn_shape(s))
                  for s in BN_MAIN + BN_TAILS]
+                + [train_ops.bn_bwd_plan(*s, True) for s in F32_MAIN]
+                + [train_ops.stats_plan_f32(*s) for s in F32_MAIN]
                 + [train_ops.affine_dw_plan(*_dw_shape(s))
                    for s in DW_MAIN + DW_TAILS])
 

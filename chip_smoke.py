@@ -166,8 +166,9 @@ Phases, each printing one line (or a few) before the last:
    "float32"``, ``bn_dtype="float32"``, ghost-BN tiles of 6 images (the
    reference's BN groups: bs 24 on 4 GPUs) and 2, ``use_pallas``: (a) the
    ten float32 forms of the slot kernels #8/#9 (``bn_stats``, per-tile
-   ``affine_dot`` / ``conv3x3``, ``affine_dx``, ``affine_dw``, ``bn_bwd``,
-   ``conv3x3_dx``, ``conv3x3_dw``, the pool / upsample backward) against
+   ``affine_dot`` / ``conv3x3``, ``affine_dx``, ``affine_dw``, ``bn_bwd``
+   writing d_x and adding into it, ``conv3x3_dx``, ``conv3x3_dw``, the
+   pool / upsample backward) against
    their plain versions at r = 64 ... 4 and tiles 2 and 6 within the
    float32 n-term limit, at r=64 a second call bit for bit the first,
    each timed at r=64, tile 2 beside its bound and library call; bit for
@@ -3463,9 +3464,9 @@ SUMS_KERNELS = {
     "bn_stats[f32]": "bn_stats_f32_kernel (one pass of shifted sums, "
                      "float64 partials, clusters of up to 16)",
     "bn_bwd[f32]": "bn_bwd_f32_kernel (r=64: persistent clusters of 16, a "
-                   "block's rows in registers, sums traded by st.async); "
-                   "bn_bwd_kernel<float> where a portable cluster keeps a "
-                   "tile's rows (r <= 32)",
+                   "block's rows in registers, sums traded by st.async, "
+                   "d_x staged where added into); bn_bwd_kernel<float> "
+                   "where a portable cluster keeps a tile's rows (r <= 32)",
     "train_bottleneck.stats[f32]": "tb_stats_f32_kernel + "
                                    "tb_stats_sum_kernel (float64 sums)",
 }
@@ -4751,14 +4752,18 @@ def slot_f32_operands(torch, tops, gen, r, tile):
     o["d_pool"] = randn(m // 4, c)
     if r < 64:
         o["d_up"] = randn(4 * m, c)
+    o["dx0"] = randn(m, 192)       # the d_x that bn_bwd adds into
     return o
 
 
 def slot_f32_cases(torch, tops, bops, o):
     """(row, kernel, label, call(fn) -> outputs, bounds, work, float32 FMA
     ms of the products, library call, product alone) of the ten forms at
-    the operands ``o``. Bounds: the float32 n-term sum, exact for the
-    pool's routing. Library calls at float32 with TF32 off: ``torch.
+    the operands ``o``, ``bn_bwd`` twice: writing d_x, and adding into a
+    random d_x (``accumulate``, as the slot backward does for a block's
+    skip adapter and bottleneck and for the head; the kernel's own
+    instances). Bounds: the float32 n-term sum, exact for the pool's
+    routing. Library calls at float32 with TF32 off: ``torch.
     var_mean``, ``native_batch_norm_backward`` on the ghost-tile layout,
     ``conv2d_input`` / ``conv2d_weight``, the 2x2 sum as ``avg_pool2d``;
     the 1x1 products and the forward conv have none (a BN prologue or a
@@ -4836,6 +4841,11 @@ def slot_f32_cases(torch, tops, bops, o):
          lambda: torch.ops.aten.native_batch_norm_backward(
              daf, xf, gamma, None, None, mean, rstd, True, 1e-5,
              [True, True, True]), None),
+        ("bn_bwd[f32]", tops.bn_bwd, f"K=192 r={r} accumulate",
+         lambda f: _bn_bwd_outs(f, o, empty, accumulate=True),
+         [("sum", tr), ("sum", m)],
+         work(4 * sz(m, 192, e=4) + vecb, 9 * m * 192, "f32"), None, None,
+         None),
         ("conv3x3_dx[f32]", tops.conv3x3_dx, f"32->128 r={r}",
          lambda f: [f(o["d_o"], o["w3"], n, r, r, o["yb"], o["vb"],
                       empty(m, cb))], [("sum", 9 * g)], wcdx,
@@ -4867,9 +4877,11 @@ def slot_f32_cases(torch, tops, bops, o):
     return cases
 
 
-def _bn_bwd_outs(f, o, empty):
-    d_x, dbn = empty(o["m"], 192), empty(2, 192)
-    f(o["x2"], o["d_a"], o["st2"], o["bn2"], 1e-5, d_x, dbn)
+def _bn_bwd_outs(f, o, empty, accumulate=False):
+    d_x = o["dx0"].clone() if accumulate else empty(o["m"], 192)
+    dbn = empty(2, 192)
+    f(o["x2"], o["d_a"], o["st2"], o["bn2"], 1e-5, d_x, dbn,
+      accumulate=accumulate)
     return [d_x, dbn]
 
 
@@ -4895,15 +4907,17 @@ def f32_sums_f64_checks(torch, tops, tbk, strict=True):
     error over its largest value) and d_x, at tiles 2 and 6; #7's
     ``stats[f32]``'s variance E[x^2] - mean^2 from its sums (largest
     relative error; the concat of x's 128 and 64 columns). With
-    ``strict`` the two statistics kernels must lie no farther from
-    float64 than their plain versions (their sums are float64, rounded
-    once). Returns {row: [(case, kernel error, plain error)]}."""
+    ``strict`` the two statistics kernels, and ``bn_bwd[f32]``'s dbn,
+    must lie no farther from float64 than their plain versions (their
+    sums are float64, rounded once; d_x, rounded from float32 products
+    of those sums, is printed). Returns {row: [(case, kernel error,
+    plain error, held)]}."""
     m, k = TRAIN_BATCH * 64 * 64, 192
     gen = torch.Generator().manual_seed(23)
     out = {}
 
-    def note(row, case, kern_err, plain_err, what):
-        out.setdefault(row, []).append((case, kern_err, plain_err))
+    def note(row, case, kern_err, plain_err, what, held=True):
+        out.setdefault(row, []).append((case, kern_err, plain_err, held))
         print(f"f64 sums {row} [{case}]: {what} from float64 "
               f"{kern_err:.4g} (plain version {plain_err:.4g})", flush=True)
 
@@ -4950,7 +4964,7 @@ def f32_sums_f64_checks(torch, tops, tbk, strict=True):
             note("bn_bwd[f32]", case, errs[0][0], errs[1][0],
                  "dbn's largest error over its largest value")
             note("bn_bwd[f32]", case, errs[0][1], errs[1][1],
-                 "d_x's largest error over its largest value")
+                 "d_x's largest error over its largest value", held=False)
         feats = [buf[:, :128], buf[:, 128:k]]
         var64 = x64.var(0, unbiased=False)
         errs = []
@@ -4961,8 +4975,8 @@ def f32_sums_f64_checks(torch, tops, tbk, strict=True):
         note("train_bottleneck.stats[f32]", f"K=128+64 r=64, x ~ {name}",
              errs[0], errs[1], "variance's largest relative error")
         del buf, x, x64, d_a
-    for row in ("bn_stats[f32]", "train_bottleneck.stats[f32]"):
-        bad = [c for c in out[row] if not c[1] <= c[2]]
+    for row in out:
+        bad = [c[:3] for c in out[row] if c[3] and not c[1] <= c[2]]
         require(not bad or not strict, f"{row}: farther from float64 than "
                                        f"its plain version: {bad}")
     return out

@@ -186,12 +186,22 @@ __global__ void __launch_bounds__(kThreads)
 // ---------------------------------------------------------------------------
 constexpr int kStatUnroll = 8;   // rows a thread loads before it adds them
 constexpr int kMaxCluster = 16;  // blocks of a cluster (non-portable past 8)
+constexpr int kStatPitch = 72;   // doubles a stripe's row of partials takes
+
+// Where channel col of a stripe's float64 partials lies in its row: the
+// 8 channels of a channel vector rotated by the vector's index, and rows
+// 72 doubles apart, so neither a warp's stores (8 vectors x 4 stripes,
+// one channel each) nor its loads (32 channels of one stripe) meet twice
+// in a bank. Only where the partials lie changes, not the order of a sum.
+__device__ __forceinline__ int stat_slot(int col) {
+  return 8 * (col >> 3) + ((col & 7) ^ (col >> 3));
+}
 
 __global__ void __launch_bounds__(kThreads)
     bn_stats_f32_kernel(const float* __restrict__ x, long long ldx,
                         long long tile_rows, int K, int cs, int rpb,
                         float* __restrict__ out) {
-  __shared__ double red[2][kStatRows][kStatCols];
+  __shared__ double red[2][kStatRows][kStatPitch];
   __shared__ double bsum[2][kStatCols];   // the block's [sum d; sum d^2]
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = cs > 1 ? (int)cluster.block_rank() : 0;
@@ -255,20 +265,21 @@ __global__ void __launch_bounds__(kThreads)
   }
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    red[0][rs][cv * 8 + i] = s[i];
-    red[1][rs][cv * 8 + i] = q[i];
+    red[0][rs][stat_slot(cv * 8 + i)] = s[i];
+    red[1][rs][stat_slot(cv * 8 + i)] = q[i];
   }
   __syncthreads();
   if (threadIdx.x < 2 * kStatCols) {
     const int which = threadIdx.x / kStatCols, col = threadIdx.x % kStatCols;
+    const int slot = stat_slot(col);
     double a = 0.0;
-    for (int i = 0; i < kStatRows; ++i) a += red[which][i][col];
+    for (int i = 0; i < kStatRows; ++i) a += red[which][i][slot];
     bsum[which][col] = a;
   }
   __syncthreads();
   if (rs == 0)                    // the shift, for the mean
 #pragma unroll
-    for (int i = 0; i < 8; ++i) red[0][0][cv * 8 + i] = x0[i];
+    for (int i = 0; i < 8; ++i) red[0][0][stat_slot(cv * 8 + i)] = x0[i];
   // (a lone block, launched as no cluster, reads its own partials)
   if (cs > 1)
     cluster.sync();
@@ -296,7 +307,7 @@ __global__ void __launch_bounds__(kThreads)
       const double md = ds / (double)tile_rows;
       const double var = dq / (double)tile_rows - md * md;
       out[((long long)t * 2) * K + kk] =
-          (float)((double)red[0][0][threadIdx.x] + md);
+          (float)((double)red[0][0][stat_slot(threadIdx.x)] + md);
       out[((long long)t * 2 + 1) * K + kk] = (float)(var > 0.0 ? var : 0.0);
     }
   }
@@ -560,17 +571,23 @@ __global__ void __launch_bounds__(kBnThreads, 1)
 // the portable 8). An item is (tile t, channel block of cb); cluster c
 // walks the items c, c + G, c + 2G, ... (G clusters, as many as the card
 // holds at once); its rank q owns the tile's rows [q*rpb, (q+1)*rpb) of
-// the item's channels. Each block keeps p.slots (1 to 3) item buffers of x
-// and d_a in shared memory, each the landing place of one item's copies
-// (one cp.async group an item): a thread moves its rows of an item into
-// registers as it sums them (at most ROWS: 16 or 24) and, once it has sent
-// its sums to the cluster, refills that buffer with the item p.slots
-// ahead, so while it waits for the cluster's sums and writes d_x from its
-// registers, the next items' rows are on their way: HBM sees x and d_a
-// once, and the loads' latency under load (several us) is covered by
-// bytes in flight. A thread refills only what it read itself, so no
-// barrier guards the buffers; the next item's statistics are loaded an
-// item ahead and used only then.
+// the item's channels. Each block keeps one item buffer of x and d_a in
+// shared memory, the landing place of one item's copies (one cp.async
+// group an item): a thread moves its rows of an item into registers as it
+// sums them (at most ROWS: 16 or 24) and, once it has sent its sums to the
+// cluster, refills the buffer with its next item, so while it waits for
+// the cluster's sums and writes d_x from its registers, the next item's
+// rows are on their way: HBM sees x and d_a once, and the loads' latency
+// under load (several us) is covered by bytes in flight. A thread refills
+// only what it read itself, so no barrier guards the buffer; the next
+// item's statistics are loaded an item ahead and used only then. (Two or
+// three buffers of narrower channel blocks, where they fit, were slower
+// than one of the widest block: PERF.md section 7.4.) The accumulating
+// form (ACC: d_x added into) stages its item's rows of d_x in a buffer of
+// their own, copied while the block's previous item is written and waited
+// for only before pass 2 (read from device memory in pass 2, d_x's loads
+// stalled the thread); its buffers of 12 bytes an element fit 32 channels
+// at tile 2 and 8 at tile 6, 16 and 12 rows a thread.
 // The blocks trade their partial sums with st.async into every rank's
 // shared memory, each completing bytes on the receiver's mbarrier (one a
 // parity of the item, armed an item ahead): no cluster-wide barrier an
@@ -585,7 +602,7 @@ __global__ void __launch_bounds__(kBnThreads, 1)
 // the cluster's blocks in rank order; the tile's sums are rounded once:
 // rank 0 writes part[t], and sum_rows adds the tiles. The order of every
 // sum depends on the shapes alone (not on G or on which cluster takes an
-// item). p.rc = p.rpb (one buffer an item).
+// item). p.rc = p.rpb (one buffer, an item's rows).
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
@@ -642,7 +659,6 @@ __global__ void __launch_bounds__(kBnThreads, 1)
                       const float* __restrict__ gamma, float eps,
                       float* __restrict__ dx, long long lddx,
                       float* __restrict__ part, BnPlan p) {
-  static_assert(ROWS % 4 == 0, "pass 2 takes four rows at a time");
   extern __shared__ __align__(128) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -655,12 +671,13 @@ __global__ void __launch_bounds__(kBnThreads, 1)
   const int clusters = gridDim.x / p.cs;
   const long long left = tile_rows - (long long)rank * p.rpb;
   const int n = left <= 0 ? 0 : (left < p.rpb ? (int)left : p.rpb);
-  const size_t buf = (size_t)p.rpb * p.cb;   // floats of a buffer
-  const int nb = p.slots, ns = 2 * p.cb;     // buffers; sums of a block
+  const size_t buf = (size_t)p.rpb * p.cb;   // floats of the buffer
+  const int ns = 2 * p.cb;                   // sums of a block
   const int ng = kBnThreads / ns;            // stripe groups of a sum
-  float* xs = reinterpret_cast<float*>(smem);                  // [nb][buf]
-  float* ds = xs + nb * buf;                                   // [nb][buf]
-  float* red = ds + nb * buf;                      // [stripes][ns]
+  float* xs = reinterpret_cast<float*>(smem);                  // [buf]
+  float* ds = xs + buf;                                        // [buf]
+  float* dxs = ds + buf;                           // ACC: [buf] of d_x
+  float* red = dxs + (ACC ? buf : 0);              // [stripes][ns]
   double* gred = reinterpret_cast<double*>(red + kBnThreads * 8);  // [ng][ns]
   double* recv = gred + ng * ns;                   // [2][cs][ns]
   double* tsum = recv + 2 * p.cs * ns;             // [ns]
@@ -672,17 +689,25 @@ __global__ void __launch_bounds__(kBnThreads, 1)
   const auto row0 = [&](int i) {
     return (long long)(i / nkb) * tile_rows + (long long)rank * p.rpb;
   };
-  const auto at = [&](int b, int jr) {
-    return b * buf + (size_t)jr * p.cb + cv * 4;
-  };
-  const auto issue = [&](int i, int b) {
+  const auto at = [&](int jr) { return (size_t)jr * p.cb + cv * 4; };
+  const auto issue = [&](int i) {
     const int k = col(i);
     if (i < items && k < K) {
       const long long r0 = row0(i);
       for (int jr = rs; jr < n; jr += stripes) {
-        cp_async16(smem_u32(xs + at(b, jr)), x + (r0 + jr) * ldx + k, 16);
-        cp_async16(smem_u32(ds + at(b, jr)), da + (r0 + jr) * ldd + k, 16);
+        cp_async16(smem_u32(xs + at(jr)), x + (r0 + jr) * ldx + k, 16);
+        cp_async16(smem_u32(ds + at(jr)), da + (r0 + jr) * ldd + k, 16);
       }
+    }
+    cp_async_commit();
+  };
+  // ACC: item i's rows of d_x into their own buffer, a group of their own
+  const auto issue_dx = [&](int i) {
+    const int k = col(i);
+    if (i < items && k < K) {
+      const long long r0 = row0(i);
+      for (int jr = rs; jr < n; jr += stripes)
+        cp_async16(smem_u32(dxs + at(jr)), dx + (r0 + jr) * lddx + k, 16);
     }
     cp_async_commit();
   };
@@ -714,10 +739,11 @@ __global__ void __launch_bounds__(kBnThreads, 1)
   }
   cluster.sync();                 // armed in every block before any send
   const int i0 = blockIdx.x / p.cs;
-  for (int a = 0; a < nb; ++a) issue(i0 + a * clusters, a);
+  issue(i0);
+  if (ACC) issue_dx(i0);
   load_stats(i0);
   for (int j = 0, i = i0; i < items; ++j, i += clusters) {
-    const int b = j % nb, h = j & 1, t = i / nkb, k = col(i);
+    const int h = j & 1, t = i / nkb, k = col(i);
     const bool on = k < K;
     float mu[4], rstd[4], ig[4];
 #pragma unroll
@@ -726,7 +752,12 @@ __global__ void __launch_bounds__(kBnThreads, 1)
       rstd[q] = rsqrtf(st[1][q] + eps);
       ig[q] = on ? rstd[q] * st[2][q] : 0.f;
     }
-    cp_async_wait_upto(nb - 1);
+    // this item's x and d_a (ACC: its d_x, the newer group, may still
+    // be on its way)
+    if (ACC)
+      cp_async_wait<1>();
+    else
+      cp_async_wait<0>();
     // pass 1: the thread's rows into registers, summed in float32
     float xv[ROWS][4], d[ROWS][4], fg[4], fb[4];
 #pragma unroll
@@ -735,8 +766,8 @@ __global__ void __launch_bounds__(kBnThreads, 1)
     for (int u = 0; u < ROWS; ++u) {
       const int jr = rs + u * stripes;
       if (!on || jr >= n) break;
-      load4(xs + at(b, jr), xv[u]);
-      load4(ds + at(b, jr), d[u]);
+      load4(xs + at(jr), xv[u]);
+      load4(ds + at(jr), d[u]);
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
         fg[q] += d[u][q] * ((xv[u][q] - mu[q]) * rstd[q]);
@@ -764,16 +795,12 @@ __global__ void __launch_bounds__(kBnThreads, 1)
       double* slot = recv + (h * p.cs + rank) * ns + tid;
       for (int r = 0; r < p.cs; ++r) st_async_f64(slot, a, &bar[h], r);
     }
-    // the buffer is free: the item nb ahead into it (a thread refills only
+    // the buffer is free: the next item into it (a thread refills only
     // what it read itself; after the sends, so a copy that waits for room
     // holds up no other rank: refilling each row as pass 1 read it was
     // slower, tools/bn_sweep.py)
-    issue(i + nb * clusters, b);
+    issue(i + clusters);
     load_stats(i + clusters);
-    if (ACC && on)                // d_x's rows into L2 while the sums trade
-      for (int jr = rs; jr < n; jr += stripes)
-        asm volatile("prefetch.global.L2 [%0];" ::"l"(
-            dx + (row0(i) + jr) * lddx + k));
     if (tid < ns) {               // the tile's sums: the ranks' in order
       mbar_wait(&bar[h], (uint32_t)(j >> 1) & 1u);
       double s = 0.0;
@@ -786,41 +813,38 @@ __global__ void __launch_bounds__(kBnThreads, 1)
     __syncthreads();
     // every waiter is past this parity's phase: arm it for item j + 2
     if (tid == 0) mbar_expect(&bar[h], recv_bytes);
-    if (!on) continue;
-    float mg[4], mb[4];
+    // ACC: this item's d_x (only the next item's x and d_a may still land;
+    // a thread reads only the rows it copied itself)
+    if (ACC) cp_async_wait<1>();
+    if (on) {
+      float mg[4], mb[4];
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      mg[q] = (float)(tsum[cv * 4 + q] / (double)tile_rows);
-      mb[q] = (float)(tsum[p.cb + cv * 4 + q] / (double)tile_rows);
-    }
-    // pass 2: d_x from the registers; with ACC four rows at a time, their
-    // d_x loads (prefetched into L2 above) in flight together (a row at a
-    // time without ACC: the batch's registers slowed it at tile 6)
-    constexpr int kB = ACC ? 4 : 1;
-    const long long r0 = row0(i);
-#pragma unroll
-    for (int u0 = 0; u0 < ROWS; u0 += kB) {
-      float o[kB][4];
-#pragma unroll
-      for (int a = 0; a < kB; ++a) {
-        const int jr = rs + (u0 + a) * stripes;
-        if (ACC && jr < n) load4(dx + (r0 + jr) * lddx + k, o[a]);
+      for (int q = 0; q < 4; ++q) {
+        mg[q] = (float)(tsum[cv * 4 + q] / (double)tile_rows);
+        mb[q] = (float)(tsum[p.cb + cv * 4 + q] / (double)tile_rows);
       }
+      // pass 2: d_x from the registers (ACC: added to the staged d_x)
+      const long long r0 = row0(i);
 #pragma unroll
-      for (int a = 0; a < kB; ++a) {
-        const int u = u0 + a, jr = rs + u * stripes;
+      for (int u = 0; u < ROWS; ++u) {
+        const int jr = rs + u * stripes;
         if (jr < n) {
+          float o[4];
+          if (ACC) load4(dxs + at(jr), o);
 #pragma unroll
           for (int q = 0; q < 4; ++q) {
             const float xh = (xv[u][q] - mu[q]) * rstd[q];
             const float v = ig[q] * (d[u][q] - mb[q] - xh * mg[q]);
-            o[a][q] = ACC ? o[a][q] + v : v;
+            o[q] = ACC ? o[q] + v : v;
           }
           *reinterpret_cast<float4*>(dx + (r0 + jr) * lddx + k) =
-              make_float4(o[a][0], o[a][1], o[a][2], o[a][3]);
+              make_float4(o[0], o[1], o[2], o[3]);
         }
       }
     }
+    // ACC: the d_x buffer is free: the next item's rows into it, on their
+    // way while that item's x and d_a are summed and its sums trade
+    if (ACC) issue_dx(i + clusters);
   }
   cluster.sync();   // no block leaves while another may still send to it
 }
@@ -2019,9 +2043,16 @@ int launch_bn_bwd_f32(const float* x, long long ldx, const float* da,
                       const BnPlan& p, int smem, cudaStream_t st) {
   const int stripes = kBnThreads / (p.cb / 4);
   const int rows = (p.rpb + stripes - 1) / stripes;
-  if (p.cb % 4 || rows > 24) return (int)cudaErrorInvalidValue;
-  const auto kern = rows > 16 ? bn_bwd_f32_kernel<ACC, 24>
-                              : bn_bwd_f32_kernel<ACC, 16>;
+  // the accumulating form holds at most 16 rows a thread (its plan): one
+  // instance
+  if (p.cb % 4 || rows > (ACC ? 16 : 24)) return (int)cudaErrorInvalidValue;
+  const auto kern = [rows] {
+    if constexpr (ACC)
+      return bn_bwd_f32_kernel<true, 16>;
+    else
+      return rows > 16 ? bn_bwd_f32_kernel<false, 24>
+                       : bn_bwd_f32_kernel<false, 16>;
+  }();
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e == cudaSuccess && p.cs > 8)
@@ -2123,34 +2154,8 @@ int cunet_bn_stats(const void* x, long long ldx, long long M,
 }
 
 // x bf16 (f32 = 0) or float32 (f32 = 1).
-// The clusters of cs blocks at smem bytes a block that the card holds at
-// once for the persistent float32 bn_bwd (cudaOccupancyMaxActiveClusters:
-// its grid), or minus a CUDA error.
-int cunet_bn_bwd_clusters(int cs, int smem) {
-  const auto kern = bn_bwd_f32_kernel<false, 16>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e == cudaSuccess && cs > 8)
-    e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)cs;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)cs);
-  cfg.blockDim = dim3(kBnThreads);
-  cfg.dynamicSmemBytes = (size_t)smem;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int held = 0;
-  if (e == cudaSuccess) e = cudaOccupancyMaxActiveClusters(&held, kern, &cfg);
-  return e == cudaSuccess ? held : -(int)e;
-}
-
 // persistent = 1: the float32 x on bn_bwd_f32_kernel (its plan's rc = rpb,
-// slots = 2).
+// one item buffer).
 int cunet_bn_bwd(const void* x, long long ldx, const void* da, long long ldd,
                  long long M, long long tile_rows, int K, const void* stats,
                  const void* gamma, float eps, void* dx, long long lddx,

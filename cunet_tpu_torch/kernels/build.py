@@ -119,7 +119,6 @@ def _declare(lib):
         "cunet_bn_stats": [P, L, L, L, I, P, I, I, I, P],
         "cunet_bn_bwd": [P, L, P, L, L, L, I, P, P, F, P, L, I, P,
                          *[I] * 8, P],
-        "cunet_bn_bwd_clusters": [I, I],
         "cunet_dx": [P, L, L, I, P, I, I, P, L, P, P, L, L, I, P, L,
                      *[I] * 10, P],
         "cunet_conv3x3_dx": [P, L, L, I, I, I, P, I, P, L, P, P, L, L, I, P,

@@ -233,7 +233,8 @@ def stats(xs, out, table=None):
     second kernel, in order) in float64 and rounded once, so the
     single-pass variance E[x^2] - mean^2 loses little more than that
     rounding (float32 running sums lost up to ~5 ulp, which the variance
-    multiplies by mean^2 / var).
+    multiplies by mean^2 / var). A float32 call launches two kernels and
+    counts both (``launches``, ``f32_launches``).
     """
     m = xs[0].shape[0]
     _check_rows(xs, m)
@@ -256,8 +257,9 @@ def stats(xs, out, table=None):
                                           row_chunk(m), part.data_ptr(),
                                           _stream(out))
     build.check(code, "train_bottleneck.stats")
-    stats.launches += 1
-    stats.f32_launches += f32
+    # a float32 call launches two kernels, the chunks' sums and their total
+    stats.launches += 1 + f32
+    stats.f32_launches += 2 * f32
     return out if f32 else sum_rows(part, out)
 
 

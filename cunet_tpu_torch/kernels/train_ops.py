@@ -118,13 +118,13 @@ BN_BWD_RING = 4
 # bn_bwd at float32 where no portable cluster keeps a tile's rows on chip
 # (r=64): persistent clusters of 16 blocks (non-portable; the H100 holds
 # seven at a time at one block an SM), the channel blocks tried, widest
-# first, until one item buffer fits in shared memory and a thread's rows
-# in its registers, and the most item buffers taken where they fit
-# (csrc/train_kernels.cu bn_bwd_f32_kernel)
+# first, until the item buffers fit in shared memory and a thread's rows
+# in its registers (csrc/train_kernels.cu bn_bwd_f32_kernel; 8 channels
+# only where d_x is added into at tile 6: its staged d_x takes the room)
 BN_F32_CLUSTER = 16
 BN_F32_CBS = (32, 16, 8)
-BN_F32_BUFFERS = 3
 BN_F32_ROWS = 24     # most rows of a thread (its registers hold them)
+BN_F32_ACC_ROWS = 16     # ... where d_x is added into
 # bn_stats at float32: the most blocks of its grid (one wave on the
 # card's 132 SMs: a second, partial wave was slower at r=64,
 # tools/bn_sweep.py), the fewest rows of a block split from its tile (8 a
@@ -1285,8 +1285,9 @@ class BnBwdPlan:
     of x and d_a in shared memory: every chunk where ``resident`` (kept for
     pass 2), else a ring both passes stream through; ``smem`` bytes in all
     (the buffers, then the warps', the block's and the tile's sums).
-    ``persistent``: the float32 kernel of ``slots`` item buffers (``rc``
-    = ``rpb``), its clusters walking the (tile, channel block) items."""
+    ``persistent``: the float32 kernel of one item buffer (``rc`` =
+    ``rpb``, ``slots`` = 1), its clusters walking the (tile, channel
+    block) items."""
     cb: int
     cs: int
     rpb: int
@@ -1342,27 +1343,23 @@ def _bn_bwd_layout(cb: int, cs: int, tile_rows: int,
                      smem=smem(slots, rc))
 
 
-def _bn_bwd_items(cb: int, cs: int, tile_rows: int) -> BnBwdPlan:
+def _bn_bwd_items(cb: int, cs: int, tile_rows: int,
+                  accumulate: bool = False) -> BnBwdPlan:
     """The persistent float32 layout: a tile cut into cs blocks of cb
-    channels, the most item buffers of a block's rows of x and d_a, up to
-    ``BN_F32_BUFFERS``, that fit, float64 sums."""
+    channels, one item buffer of a block's rows of x and d_a (with
+    ``accumulate`` also of d_x), float64 sums."""
     rpb = -(-tile_rows // cs)
-    # the threads' float32 sums; in float64 the stripe groups', the ranks'
-    # received (two items) and the tile's; two mbarriers
-    sums = (BN_BWD_THREADS * 8 * 4 + BN_BWD_THREADS * 8
-            + (2 * cs + 1) * 2 * cb * 8 + 16)
-
-    def smem(n):
-        return n * rpb * cb * 8 + sums
-
-    n = next((n for n in range(BN_F32_BUFFERS, 1, -1)
-              if smem(n) <= SMEM_LIMIT), 1)
-    return BnBwdPlan(cb=cb, cs=cs, rpb=rpb, rc=rpb, slots=n, smem=smem(n),
+    # the buffers; the threads' float32 sums; in float64 the stripe
+    # groups', the ranks' received (two items) and the tile's; two
+    # mbarriers
+    smem = (rpb * cb * (12 if accumulate else 8) + BN_BWD_THREADS * 8 * 4
+            + BN_BWD_THREADS * 8 + (2 * cs + 1) * 2 * cb * 8 + 16)
+    return BnBwdPlan(cb=cb, cs=cs, rpb=rpb, rc=rpb, slots=1, smem=smem,
                      persistent=True)
 
 
-def bn_bwd_plan(m: int, tile_rows: int, k: int,
-                f32: bool = False) -> BnBwdPlan:
+def bn_bwd_plan(m: int, tile_rows: int, k: int, f32: bool = False,
+                accumulate: bool = False) -> BnBwdPlan:
     """The kernel plan of ``bn_bwd`` at these shapes (a function of them
     alone). Channel blocks of 64 or 32 where they divide K (else 16). The
     widest channel block, then the smallest cluster (1-8 blocks a tile,
@@ -1375,10 +1372,12 @@ def bn_bwd_plan(m: int, tile_rows: int, k: int,
     buffers hold float32 x (8 bytes an element with d_a, 6 at bf16), and
     where the ring would be taken (r=64 on the main path) the persistent
     kernel instead, in clusters of ``BN_F32_CLUSTER``, of the widest of
-    ``BN_F32_CBS`` whose item buffer fits and whose rows fit a thread's
+    ``BN_F32_CBS`` whose item buffers fit and whose rows fit a thread's
     ``BN_F32_ROWS`` registers (tile 2: 32 channels, 512 rows a block, 16 a
-    thread; tile 6: 16 channels, 1,536 rows, 24 a thread; one buffer each:
-    wider rows beat more buffers, ``tools/bn_sweep.py``)."""
+    thread; tile 6: 16 channels, 1,536 rows, 24 a thread; one buffer:
+    wider rows beat more buffers of narrower ones, PERF.md section 7.4);
+    with ``accumulate`` d_x's buffer too and ``BN_F32_ACC_ROWS`` (tile 2:
+    32 channels; tile 6: 8, 12 rows a thread)."""
     tiles = m // tile_rows
     xb = 4 if f32 else 2
     cbs = [c for c in (64, 32) if k % c == 0] or [16]
@@ -1393,9 +1392,10 @@ def bn_bwd_plan(m: int, tile_rows: int, k: int,
     if p.resident:
         return p
     p = _bn_bwd_layout(cbs[-1], BN_BWD_CLUSTER, tile_rows, xb)
+    rows = BN_F32_ACC_ROWS if accumulate else BN_F32_ROWS
     for cb in BN_F32_CBS if f32 and not p.resident else ():
-        w = _bn_bwd_items(cb, BN_F32_CLUSTER, tile_rows)
-        if w.smem <= SMEM_LIMIT and w.thread_rows <= BN_F32_ROWS:
+        w = _bn_bwd_items(cb, BN_F32_CLUSTER, tile_rows, accumulate)
+        if w.smem <= SMEM_LIMIT and w.thread_rows <= rows:
             return w
     return p
 
@@ -1432,7 +1432,8 @@ def bn_bwd(x, d_a, stats, bn, eps, d_x, dbn, *, accumulate=False):
     as they are summed and its buffer refilled with the next item's rows
     while it trades the sums (st.async) and writes d_x, so HBM sees x and
     d_a once; its sums float32 over a thread's rows, then float64, rounded
-    once a tile.
+    once a tile. Adding into d_x it stages the item's d_x by cp.async too
+    (at tile 6 in blocks of 8 channels, where that buffer fits).
     """
     m, k = x.shape
     if tuple(d_a.shape) != (m, k) or tuple(d_x.shape) != (m, k) \
@@ -1453,7 +1454,7 @@ def bn_bwd(x, d_a, stats, bn, eps, d_x, dbn, *, accumulate=False):
     _check_contig_f32(bn, "bn", dev)
     _check_contig_f32(dbn, "dbn", dev)
     f32 = x.dtype == F32
-    p = bn_bwd_plan(m, tile_rows, k, f32)
+    p = bn_bwd_plan(m, tile_rows, k, f32, accumulate)
     part = torch.empty(stats.shape[0], 2, k, device=dev, dtype=torch.float32)
     code = build.lib().cunet_bn_bwd(
         x.data_ptr(), x.stride(0), d_a.data_ptr(), d_a.stride(0), m,

@@ -2076,14 +2076,15 @@ TB_F32_CASES = [(98304, [128, 128, 32, 32], 128),
 def test_train_bottleneck_kernels_f32(gen, m, widths, cout):
     """Each float32 form against its plain version within the float32
     n-term bound (the sums per feature group), counted as float32
-    launches (bwd_reduce two: the split of g and the reduce; bwd_dx called
-    without the reduce's planes two: the split and its kernel); apply over
+    launches (stats two: the chunks' sums and their total; bwd_reduce two:
+    the split of g and the reduce; bwd_dx called without the reduce's
+    planes two: the split and its kernel); apply over
     any number of groups (20 in the fifth case: the float32 product's
     table read from device memory)."""
     ops = _tb_f32(gen, m, widths, cout)
     tbk.reset_launch_counts()
     got = _tb_f32_outputs(tbk.KERNELS, *ops)
-    assert tbk.f32_counts() == {"stats[f32]": 1, "apply[f32]": 1,
+    assert tbk.f32_counts() == {"stats[f32]": 2, "apply[f32]": 1,
                                 "bwd_reduce[f32]": 2, "bwd_dx[f32]": 2}
     want = _tb_f32_outputs([tbk.PLAIN[k] for k in tbk.KERNELS], *ops)
     _close_group_sums(got[0], want[0], m, widths)

@@ -29,8 +29,8 @@ held to their plain versions within the float32 n-term limit
   version and JAX's ``_stats``, no farther from float64 than the plain
   version on a cancelling input), and the BN backward at float32
   (``bn_bwd_plan(..., f32=True)``; at r=64 the persistent kernel's order,
-  ``bn_bwd_f32_mirror``, against the plain version, JAX's ``_affine_bwd``
-  and float64);
+  ``bn_bwd_f32_mirror``, writing d_x and adding into it, against the
+  plain version, JAX's ``_affine_bwd`` and float64);
 - F9 / F10: the pool's first-winner routing on float32 ties, and the
   unrounded 2x2 sum.
 
@@ -353,7 +353,7 @@ def stats_f32_mirror(x, tiles):
     return torch.stack([(x0.double() + md).float(), var.float()], 1)
 
 
-def bn_bwd_f32_mirror(x, d_a, st, bn, eps, plan):
+def bn_bwd_f32_mirror(x, d_a, st, bn, eps, plan, d_x0=None):
     """``bn_bwd``'s persistent float32 kernel in torch (``plan.persistent``):
     a tile's rows split across the cluster's ranks (``plan.rows``); a
     thread owns 4 channels of the rows ``rs + u * stripes`` of its rank
@@ -362,7 +362,8 @@ def bn_bwd_f32_mirror(x, d_a, st, bn, eps, plan):
     in order, the ranks in order; the tile's sums rounded once to float32
     (``part``), dbn their sum over the tiles in tile order (``sum_rows``);
     d_x = ig * (d_a - sb/m - xh * sg/m) with sb/m, sg/m rounded from
-    float64."""
+    float64, or with ``d_x0`` (the accumulating instances) d_x0 plus that
+    in float32."""
     tiles, k = st.shape[0], x.shape[1]
     tr = x.shape[0] // tiles
     stripes = 256 // (plan.cb // 4)
@@ -399,6 +400,8 @@ def bn_bwd_f32_mirror(x, d_a, st, bn, eps, plan):
         part[t] = tsum.float()
         mg, mb = (tsum / tr).float()
         d_x[sl] = rstd[t] * bn[0, :k] * (da - mb - xh * mg)
+        if d_x0 is not None:
+            d_x[sl] += d_x0[sl]
     dbn = torch.zeros(2, k)
     for t in range(tiles):
         dbn = dbn + part[t]
@@ -518,6 +521,45 @@ def test_bn_bwd_f32_persistent_order(tr, k, cb, rows):
     dbn64 = torch.stack([(d_a.double() * xh).sum(0), d_a.double().sum(0)])
     rel = ((got_dbn.double() - dbn64).norm() / dbn64.norm()).item()
     assert rel <= 2.0 ** -24 * tr ** 0.5, rel
+
+
+@pytest.mark.parametrize("tr,k,cb,rows", [(64 * 64 * 2, 64, 32, 16),
+                                          (64 * 64 * 6, 32, 8, 12)])
+def test_bn_bwd_f32_persistent_accumulates(tr, k, cb, rows):
+    """The persistent float32 kernel's accumulating instance (a block's
+    skip adapter and bottleneck, the head: d_x added into) at a tile of 2
+    (6) images at r=64, its plan's 32 (8) channels a block, 16 (12) rows
+    a thread: the kernel's order of sums (``bn_bwd_f32_mirror``) adding
+    into a random d_x, within the float32 limit of the plain version with
+    ``accumulate`` and of JAX's ``_affine_bwd`` plus that d_x."""
+    import jax.numpy as jnp
+
+    from cunet_tpu.kernels.train_slot import _affine_bwd
+
+    plan = train_ops.bn_bwd_plan(tr, tr, k, f32=True, accumulate=True)
+    assert plan.persistent and (plan.cb, plan.cs) == (cb, 16)
+    assert plan.thread_rows == rows <= train_ops.BN_F32_ACC_ROWS
+    rng = np.random.default_rng(tr + k + 1)
+    x = _rand(rng, tr, k) * 1.7 + 0.3
+    d_a = _rand(rng, tr, k)
+    base = _rand(rng, tr, k)
+    st = train_ops.bn_stats_plain(x, torch.empty(1, 2, k))
+    bn = torch.from_numpy(np.stack([rng.uniform(0.5, 1.5, k),
+                                    rng.standard_normal(k) * 0.3])
+                          .astype(np.float32))
+    got_dx, got_dbn = bn_bwd_f32_mirror(x, d_a, st, bn, EPS, plan, base)
+    dx, dbn = base.clone(), torch.empty(2, k)
+    train_ops.bn_bwd_plain(x, d_a, st, bn, EPS, dx, dbn, accumulate=True)
+    jdx, jdbn = _affine_bwd(
+        jnp.asarray(x.numpy()), jnp.asarray(bn.numpy()),
+        jnp.asarray(st[0, 0].numpy()), jnp.asarray(st[0, 1].numpy()),
+        jnp.asarray(d_a.numpy()), jnp.float32, EPS,
+        z=jnp.ones((tr, k), jnp.float32))
+    for ref_dx, ref_dbn in ((dx, dbn),
+                            (base + torch.from_numpy(np.array(jdx)),
+                             torch.from_numpy(np.array(jdbn)))):
+        assert (got_dx - ref_dx).abs().max() <= _limit(tr, ref_dx)
+        assert (got_dbn - ref_dbn).abs().max() <= _limit(tr, ref_dbn)
 
 
 def test_pool_and_upsample_backward_at_float32():

@@ -264,9 +264,34 @@ def test_bn_bwd_f32_plan_keeps_every_tile_on_chip(m, tr, k):
     assert tr in (2 * 4096, 6 * 4096)          # r=64, tiles 2 and 6
     assert p.cs == train_ops.BN_F32_CLUSTER <= 16
     assert p.cb in train_ops.BN_F32_CBS and p.cb % 4 == 0
-    assert p.rc == p.rpb and 1 <= p.slots <= train_ops.BN_F32_BUFFERS
+    assert p.rc == p.rpb and p.slots == 1       # one item buffer
     assert p.thread_rows <= train_ops.BN_F32_ROWS
     assert (p.cb, p.slots) == {2 * 4096: (32, 1), 6 * 4096: (16, 1)}[tr]
+
+
+@pytest.mark.parametrize("m,tr,k", F32_MAIN, ids=lambda v: str(v))
+def test_bn_bwd_f32_accumulating_plan_stages_d_x(m, tr, k):
+    """With ``accumulate`` (d_x added into) the float32 plan is the one
+    without it wherever a portable cluster keeps a tile's rows; at r=64
+    the persistent kernel with d_x's item buffer beside x's and d_a's (12
+    bytes an element) in shared memory, at most ``BN_F32_ACC_ROWS`` rows
+    a thread (the kernel's one accumulating instance), every row of the
+    tile in one rank, the channel blocks covering K (tile 2: 32 channels;
+    tile 6: 8, where no block of 16 or more fits)."""
+    p = train_ops.bn_bwd_plan(m, tr, k, True, accumulate=True)
+    q = train_ops.bn_bwd_plan(m, tr, k, True)
+    assert p.smem <= SMEM_LIMIT
+    assert [i for r in range(p.cs) for i in p.rows(r, tr)] == list(range(tr))
+    assert (-(-k // p.cb) - 1) * p.cb < k <= -(-k // p.cb) * p.cb
+    if not q.persistent:
+        assert p == q
+        return
+    assert p.persistent and p.cb == {2 * 4096: 32, 6 * 4096: 8}[tr]
+    assert p.cb in train_ops.BN_F32_CBS
+    assert p.cs == train_ops.BN_F32_CLUSTER <= 16
+    assert p.rc == p.rpb and p.slots == 1
+    assert p.thread_rows <= train_ops.BN_F32_ACC_ROWS
+    assert p.smem > 12 * p.rpb * p.cb
 
 
 @pytest.mark.parametrize("m,tr,k", F32_MAIN, ids=lambda v: str(v))
@@ -291,6 +316,7 @@ def test_plans_are_functions_of_the_shapes_alone(monkeypatch):
         return ([train_ops.bn_bwd_plan(*_bn_shape(s))
                  for s in BN_MAIN + BN_TAILS]
                 + [train_ops.bn_bwd_plan(*s, True) for s in F32_MAIN]
+                + [train_ops.bn_bwd_plan(*s, True, True) for s in F32_MAIN]
                 + [train_ops.stats_plan_f32(*s) for s in F32_MAIN]
                 + [train_ops.affine_dw_plan(*_dw_shape(s))
                    for s in DW_MAIN + DW_TAILS])

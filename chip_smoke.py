@@ -33,7 +33,9 @@ Phases, each printing one line (or a few) before the last:
    that launch every kernel, and the step time, img/s and peak memory of
    both paths;
 6. int8 serving: the three int8 kernels against their plain versions at
-   the CU-Net-8 @256 int8 shapes and ragged ones (bit-identical); a
+   the CU-Net-8 @256 int8 shapes and ragged ones (bit-identical), the
+   whole-model pair (``csrc/i8_kernels.cu``) also at batches 64 and 256,
+   order 14's widest K, a streamed K and the 68-class head; a
    Predictor for the quantized CU-Net-8 (``bench.py``'s int8
    configuration: W1/I8/G8, ``int8_infer``, ``int8_impl="pallas"``;
    ``quant_eval_params`` of the port's init, seed 0) answers the three
@@ -254,6 +256,7 @@ ROOT = Path(__file__).resolve().parent
 SOURCE = "cunet_tpu_torch/csrc/buf_kernels.cu"
 TRAIN_SOURCE = "cunet_tpu_torch/csrc/train_kernels.cu"
 INT8_SOURCE = "cunet_tpu_torch/csrc/quant_kernels.cu"
+I8_SOURCE = "cunet_tpu_torch/csrc/i8_kernels.cu"   # the whole-model pair
 TB_SOURCE = "cunet_tpu_torch/csrc/bottleneck_kernels.cu"
 EVAL_SOURCE = "cunet_tpu_torch/csrc/eval_kernels.cu"
 BLOCK_SOURCE = "cunet_tpu_torch/kernels/fused_block.py"
@@ -1810,13 +1813,29 @@ def int8_kernel_cases(torch, gen, f32=False):
     work) of the three int8 kernels at the CU-Net-8 @256 int8 main-path shapes
     (c=128, g=32, Cb=128, cls=16, h0=64, batch 8; every bottleneck and
     adapter K), plus ragged cases: K not a multiple of 32, M not a multiple
-    of the 128-row tile, Cb not a multiple of 16, unaligned int8 rows. With
-    ``f32`` the float32 model's (activations and outputs float32; no
-    ``int8_matmul_dequant``, whose output is float32 at every dtype)."""
+    of the 128-row tile, Cb not a multiple of 16, unaligned int8 rows; then
+    the whole-model kernels at ``bench.py``'s batches 64 and 256, order
+    14's widest K (704 +BN2,q8 and 736), a K past the resident weight
+    (2048, streamed) and the 68-class head (72 columns). With ``f32`` the
+    float32 model's (activations and outputs float32; no
+    ``int8_matmul_dequant``, whose output is float32 at every dtype). The
+    whole-model kernels get their weights' K-major images where the
+    checkout packs them (``quant_ops.pack_w_i8`` / ``pack_w3_i8``, packed
+    once as the slots are marshalled), so a call is the kernel alone."""
+    from cunet_tpu_torch.kernels import quant_ops as qops
+
     dev = "cuda"
     c, g, cb, cls, h0, n = 128, 32, 128, 16, 64, BATCH
     s = 128.0                                   # 2^(bits_i - 1), bits_i 8
     act_dt, e = (torch.float32, 4) if f32 else (torch.bfloat16, 2)
+    pack = getattr(qops, "pack_w_i8", None)
+    pack3 = getattr(qops, "pack_w3_i8", None)
+
+    def wt(w):                                  # the image, where packed
+        return {"wt": pack(w)} if pack else {}
+
+    def wt3(w3):
+        return {"wt": pack3(w3)} if pack3 else {}
 
     def bf16(*shape, scale=1.0):                # an activation or output
         return (torch.randn(*shape, generator=gen) * scale).to(dev, act_dt)
@@ -1846,58 +1865,86 @@ def int8_kernel_cases(torch, gen, f32=False):
                     + (sz(2, nout, e=4) if v2 else 0) + sz(m, nout, e=out_e),
                     2 * m * k * nout, "int8")
 
-    for k, src in ((128, down), (160, down), (256, up), (288, up)):
-        v, w, v2 = vec(k), signs(k, cb), vec(cb, 0.01, 0.05, 0.3)
-        cases.append(("affine_dot_i8", f"K={k}->128 +BN2,q8 r=64",
-                      codes(m64, cb), lambda b: b,
-                      lambda f, b, src=src, k=k, v=v, w=w, v2=v2:
-                      f(src[:, :k], v, w, b, s=s, vec2=v2),
-                      dot_i8(m64, k, cb, 1, True)))
-    for k, src in ((192, down), (160, down), (320, up), (288, up)):
+    def bn2_case(label, m, k, src, nout=cb):   # BN2 + q8 into int8 rows
+        v, w, v2 = vec(k), signs(k, nout), vec(nout, 0.01, 0.05, 0.3)
+        cases.append(("affine_dot_i8", label, codes(m, nout), lambda b: b,
+                      lambda f, b, src=src, k=k, v=v, w=w, v2=v2, kw=wt(w):
+                      f(src[:, :k], v, w, b, s=s, vec2=v2, **kw),
+                      dot_i8(m, k, nout, 1, True)))
+
+    def adapter_case(label, m, k, src):         # into a buffer view
         v, w = vec(k), signs(k, c)
-        dst = bf16(m64, 2 * c + g + g)
-        cases.append(("affine_dot_i8", f"K={k}->128 r=64", dst,
+        cases.append(("affine_dot_i8", label, bf16(m, 2 * c + g + g),
                       lambda b: b[:, c:2 * c],
-                      lambda f, b, src=src, k=k, v=v, w=w:
-                      f(src[:, :k], v, w, b[:, c:2 * c], s=s),
-                      dot_i8(m64, k, c, 2)))
-    # head K=128 -> 16 into anchor slot 3 of the stacked head output
-    vh, wh = vec(c), signs(c, cls)
-    heads = bf16(n, 8, h0, h0, cls)
-    cases.append(("affine_dot_i8", "head K=128->16 r=64", heads,
-                  lambda b: b[:, 3],
-                  lambda f, b: f(down[:, :c], vh, wh,
-                                 b[:, 3].view(n, h0 * h0, cls), s=s),
-                  dot_i8(m64, c, cls, 2)))
+                      lambda f, b, src=src, k=k, v=v, w=w, kw=wt(w):
+                      f(src[:, :k], v, w, b[:, c:2 * c], s=s, **kw),
+                      dot_i8(m, k, c, 2)))
+
+    def head_case(label, ncls):                 # into anchor slot 3
+        vh, wh = vec(c), signs(c, ncls)
+        cases.append(("affine_dot_i8", label, bf16(n, 8, h0, h0, ncls),
+                      lambda b: b[:, 3],
+                      lambda f, b, vh=vh, wh=wh, kw=wt(wh):
+                      f(down[:, :c], vh, wh,
+                        b[:, 3].view(n, h0 * h0, ncls), s=s, **kw),
+                      dot_i8(m64, c, ncls, 2)))
+
+    def conv_case(label, m, r, b_):             # into the out32 slot
+        y = codes(m, cb).clamp_(min=0)          # relu'd codes
+        w3 = signs(9 * cb, g)
+        cases.append(("conv3x3_i8", label, bf16(m, c + 2 * g),
+                      lambda b: b[:, c + g:],
+                      lambda f, b, y=y, w3=w3, r=r, kw=wt3(w3):
+                      f(y, w3, b_, r, r, b[:, c + g:], s=s, **kw),
+                      work(sz(m, cb, e=1) + sz(9 * cb, g, e=1)
+                           + sz(m, g, e=e), 2 * m * 9 * cb * g, "int8")))
+
+    for k, src in ((128, down), (160, down), (256, up), (288, up)):
+        bn2_case(f"K={k}->128 +BN2,q8 r=64", m64, k, src)
+    for k, src in ((192, down), (160, down), (320, up), (288, up)):
+        adapter_case(f"K={k}->128 r=64", m64, k, src)
+    head_case(f"head K=128->{cls} r=64", cls)
     # ragged: K=40, M=1000 (7.8 row tiles), N=24, both epilogues
     xr = bf16(1000, 48, scale=0.5)
     vr, wr, v2r = vec(48), signs(48, 24), vec(24, 0.01, 0.05, 0.3)
     cases.append(("affine_dot_i8", "ragged K=40->24 M=1000 +BN2,q8",
                   codes(1000, 24), lambda b: b,
-                  lambda f, b: f(xr[:, :40], vr, wr, b, s=s, vec2=v2r),
+                  lambda f, b, kw=wt(wr):
+                  f(xr[:, :40], vr, wr, b, s=s, vec2=v2r, **kw),
                   dot_i8(1000, 40, 24, 1, True)))
     cases.append(("affine_dot_i8", "ragged K=40->24 M=1000",
                   bf16(1000, 40), lambda b: b[:, 8:32],
-                  lambda f, b: f(xr[:, :40], vr, wr, b[:, 8:32], s=s),
+                  lambda f, b, kw=wt(wr):
+                  f(xr[:, :40], vr, wr, b[:, 8:32], s=s, **kw),
                   dot_i8(1000, 40, 24, 2)))
     # conv3x3_i8: Cb=128 -> 32 into the out32 slot at r=64 and r=4
     for r in (64, 4):
-        m = n * r * r
-        y = codes(m, cb).clamp_(min=0)          # relu'd codes
-        w3 = signs(9 * cb, g)
-        cases.append(("conv3x3_i8", f"Cb=128->32 r={r}", bf16(m, c + 2 * g),
-                      lambda b: b[:, c + g:],
-                      lambda f, b, y=y, w3=w3, r=r:
-                      f(y, w3, n, r, r, b[:, c + g:], s=s),
-                      work(sz(m, cb, e=1) + sz(9 * cb, g, e=1)
-                           + sz(m, g, e=e), 2 * m * 9 * cb * g, "int8")))
+        conv_case(f"Cb=128->32 r={r}", n * r * r, r, n)
     # ragged conv: Cb=24 (byte loads), 3 images of 6x6 (M=108), G=8
     yr, w3r = codes(108, 24), signs(9 * 24, 8)
     cases.append(("conv3x3_i8", "ragged Cb=24->8 r=6 M=108", bf16(108, 16),
                   lambda b: b[:, 8:],
-                  lambda f, b: f(yr, w3r, 3, 6, 6, b[:, 8:], s=s),
+                  lambda f, b, kw=wt3(w3r):
+                  f(yr, w3r, 3, 6, 6, b[:, 8:], s=s, **kw),
                   work(sz(108, 24, e=1) + sz(216, 8, e=1) + sz(108, 8, e=e),
                        2 * 108 * 216 * 8, "int8")))
+    # the whole-model kernels at bench.py's batches 64 and 256 (r=64), order
+    # 14's widest K, a K past the resident weight, the 68-class head
+    for nb_ in (64, 256):
+        m = nb_ * h0 * h0
+        big = bf16(m, 2 * c + g + g, scale=0.5)
+        bn2_case(f"K=128->128 +BN2,q8 r=64 batch {nb_}", m, 128, big)
+        adapter_case(f"K=320->128 r=64 batch {nb_}", m, 320, big)
+        conv_case(f"Cb=128->32 r=64 batch {nb_}", m, 64, nb_)
+        del big
+    wide = bf16(m64, 2 * c + 15 * g + g, scale=0.5)   # the up buffer at 14
+    bn2_case("order 14 K=704->128 +BN2,q8 r=64", m64, 2 * c + 14 * g, wide)
+    adapter_case("order 14 K=736->128 r=64", m64, 2 * c + 15 * g, wide)
+    m32 = n * 32 * 32
+    deep = bf16(m32, 2048, scale=0.5)
+    bn2_case("streamed K=2048->128 +BN2,q8 r=32", m32, 2048, deep)
+    adapter_case("streamed K=2048->128 r=32", m32, 2048, deep)
+    head_case("head K=128->72 r=64 (68 classes)", 72)
     if f32:
         return cases
     # int8_matmul_dequant: the plain path's 1x1 convs at every K
@@ -5427,6 +5474,34 @@ def row_times(torch, pattern, tops, bops, tbk, eops=None):
                           call, bounds, w, lib, prod, fma)
                 if r == 64:
                     outs.setdefault(row, []).extend(got)
+    # the int8 whole-model kernels and their float32 forms (phase 6's and
+    # phase 15 (a)'s cases), bit for bit their plain versions
+    from cunet_tpu_torch.kernels import quant_ops as qops
+
+    for tag, seed in (("", 3), ("[f32]", 33)):
+        gen6 = torch.Generator().manual_seed(seed)
+        if not any(rx.search(f"{k.__name__}{tag}") for k in qops.F32_FORMS):
+            continue
+        for name, label, dst, sel, call, w in int8_kernel_cases(
+                torch, gen6, bool(tag)):
+            row, kern = f"{name}{tag}", getattr(qops, name)
+            if kern not in qops.F32_FORMS or not rx.search(row):
+                continue
+            k_buf, p_buf = dst.clone(), dst.clone()
+            call(kern, k_buf)
+            call(qops.PLAIN[kern], p_buf)
+            torch.cuda.synchronize()
+            got, want = sel(k_buf), sel(p_buf)
+            require(torch.equal(got, want), f"{row} [{label}] differs from "
+                                            f"its plain version")
+            ms = cuda_time_ms(lambda: call(kern, k_buf))
+            bms, by = bound(w)
+            print(f"row time {row} [{label}]: bit for bit its plain version, "
+                  f"{ms * 1e3:.1f} us, bound {bms * 1e3:.1f} us ({by})",
+                  flush=True)
+            if " r=64" in label and "batch" not in label:
+                outs.setdefault(row, []).append(got.clone())
+            del k_buf, p_buf, got, want
     # phase 12 (a)'s float32 eval forms (batch 8)
     if eops is not None and hasattr(bops, "dot3_plan"):
         gen12 = torch.Generator().manual_seed(12)
@@ -6679,7 +6754,9 @@ def main() -> int:
     build.lib()
     print(f"build: {build.library_path().name} in "
           f"{time.perf_counter() - t0:.1f} s (nvcc "
-          f"{'ran' if build.build_seconds is not None else 'skipped'})",
+          f"{'ran' if build.build_seconds is not None else 'skipped'}; "
+          f"each source done after, s: "
+          f"{ {k: round(v, 1) for k, v in build.source_seconds.items()} })",
           flush=True)
 
     clock = [time.perf_counter()]
@@ -6791,9 +6868,9 @@ def main() -> int:
                         r, launches.get(name, train_launches[name]),
                         **extra))
     for name, r in int8_kernels.items():
-        rows.append(row(name, INT8_SOURCE, r, int8_launches[name]
-                        if name != "int8_matmul_dequant"
-                        else plain_launches[name]))
+        rows.append(row(name, INT8_SOURCE, r, plain_launches[name])
+                    if name == "int8_matmul_dequant" else
+                    row(name, I8_SOURCE, r, int8_launches[name]))
     rows.append(row("drop_mask", TRAIN_SOURCE, drop_kernels["drop_mask"],
                     drop_launches["drop_mask"]))
     for name, r in option_kernels.items():
@@ -6872,7 +6949,7 @@ def main() -> int:
             n = many_launches[name]
             extra = dict(ms_16_groups=r["ms_16_groups"])
         else:
-            src, n = INT8_SOURCE, int8_f32_launches[name]
+            src, n = I8_SOURCE, int8_f32_launches[name]
             extra = dict(launches_per_path={
                 k: v.get(name, 0) for k, v in int8_f32_per_path.items()})
         rows.append(row(name, src, r, n, **extra))

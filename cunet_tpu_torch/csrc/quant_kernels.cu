@@ -1,28 +1,20 @@
-// Hand-written Hopper kernels of the int8 CU-Net forward: the quantized
-// whole-model forward (affine_dot_i8, conv3x3_i8; driven by
-// cunet_tpu_torch/kernels/model_buf.py) and the plain path's int8 1x1 conv
-// (int8_matmul_dequant; cunet_tpu_torch/kernels/quant_matmul.py).
+// The hand-written Hopper kernel of the plain int8 inference path: the
+// int8 1x1 conv int8_matmul_dequant (cunet_tpu_torch/kernels/
+// quant_matmul.py), counterpart of cunet_tpu/kernels/quant_matmul.py (TPU
+// kernel #10). The quantized whole-model forward's int8 kernels are in
+// i8_kernels.cu.
 //
 // Built by nvcc with the other sources of this directory into one shared
 // library with a plain C interface, loaded with ctypes
 // (cunet_tpu_torch/kernels/build.py).
 //
-// All three are the first, 128-row block tiling of affine_dot
-// (buf_kernels.cu, since redesigned) with int8 operands: 16x16x16 int8 WMMA fragments, int32 accumulators, a float32
-// epilogue in registers. Integer products accumulate exactly in any order,
-// the quantizer scale s = 2^(bits_i-1) is a power of two, and every float
-// rounding point matches the plain PyTorch version's (the BN affine rounds
-// after the product and after the sum), so each kernel is bit-identical to
-// its plain version.
+// The first, 128-row block tiling of affine_dot (buf_kernels.cu, since
+// redesigned) with int8 operands: 16x16x16 int8 WMMA fragments, int32
+// accumulators, a float32 epilogue in registers. Integer products
+// accumulate exactly in any order and the epilogue multiplies in JAX's
+// order, so the kernel is bit-identical to its plain version.
 //
-// affine_dot_i8 and conv3x3_i8 also serve a model at
-// compute_dtype="float32" (JAX's #1 runs its int8 branch at either dtype):
-// affine_dot_i8 reads a float32 buffer view (its prologue float32 from the
-// load on, as the TPU kernel's x.astype(f32)), and both write the
-// dequantized float32 product unrounded. The element type is a template
-// parameter; the bf16 instances are the code they were.
-//
-// Each entry point launches on the stream it is given and returns
+// The entry point launches on the stream it is given and returns
 // cudaGetLastError() so the wrapper can raise on a refused launch.
 
 #include "common.cuh"
@@ -114,42 +106,8 @@ __device__ __forceinline__ uint4 load16_i8(const i8* __restrict__ p,
   return u.v;
 }
 
-// The WAGE activation quantizer's int8 code: clip to +-(1 - 1/s), then
-// sign * floor(|y| * s + 0.5). |y| * s is exact (s is a power of two); the
-// add rounds once, as the plain version's does.
-__device__ __forceinline__ i8 q8(float y, float s) {
-  const float lim = 1.f - 1.f / s;
-  const float c = fminf(fmaxf(y, -lim), lim);
-  const float r = floorf(__fadd_rn(__fmul_rn(fabsf(c), s), 0.5f));
-  return (i8)(c < 0.f ? -r : r);
-}
-
-// Epilogues: each stores columns [n, n+8) of output row m from eight int32
-// sums ``a``. The dequant multiplies by 1/s, a power of two (exact).
-struct EpiBf16 {  // float(acc) / s, into a bf16 OutView (N % 8 == 0)
-  OutView out;
-  float inv_s;
-  __device__ void operator()(long long m, int n, int N, const int* a) const {
-    Pack8 o;
-#pragma unroll
-    for (int t = 0; t < 8; ++t) o.u[t] = hi(__fmul_rn((float)a[t], inv_s));
-    *reinterpret_cast<uint4*>(out_row(out, m) + n) = o.v;
-  }
-};
-
-struct EpiOutF32 {  // float(acc) / s, into a float32 view (N % 8 == 0)
-  OutViewOf<float> out;
-  float inv_s;
-  __device__ void operator()(long long m, int n, int N, const int* a) const {
-    float v[8];
-#pragma unroll
-    for (int t = 0; t < 8; ++t) v[t] = __fmul_rn((float)a[t], inv_s);
-    float* dst = out_row(out, m) + n;
-    *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
-    *reinterpret_cast<float4*>(dst + 4) = make_float4(v[4], v[5], v[6], v[7]);
-  }
-};
-
+// The epilogue: stores columns [n, n+8) of output row m from eight int32
+// sums ``a``.
 struct EpiF32 {  // (float(acc) * col_scale[n]) * x_scale, JAX's order
   float* out;
   long long ld;
@@ -159,22 +117,6 @@ struct EpiF32 {  // (float(acc) * col_scale[n]) * x_scale, JAX's order
     for (int t = 0; t < 8 && n + t < N; ++t)
       out[m * ld + n + t] =
           __fmul_rn(__fmul_rn((float)a[t], col_scale[n + t]), x_scale);
-  }
-};
-
-struct EpiQ8 {  // float(acc) / s, BN2 affine + ReLU, quantized to int8
-  i8* out;
-  long long ld;
-  float inv_s;
-  const float* inv2;
-  const float* shift2;
-  float s;
-  __device__ void operator()(long long m, int n, int N, const int* a) const {
-    for (int t = 0; t < 8 && n + t < N; ++t) {
-      const float y = __fmul_rn((float)a[t], inv_s);
-      out[m * ld + n + t] =
-          q8(fmaxf(affine(y, inv2[n + t], shift2[n + t]), 0.f), s);
-    }
   }
 };
 
@@ -201,116 +143,6 @@ __device__ __forceinline__ void store_tile_i8(SmemI8<BN, WARPS_N>& s, int wm,
       __syncwarp();
     }
   }
-}
-
-// ---------------------------------------------------------------------------
-// affine_dot_i8:
-//   out[m, n] = epi( sum_{k<K} q8(relu(x[m,k]*inv[k] + shift[k])) W[k,n] )
-// x is a bf16 or float32 (TX) buffer view (K % 8 == 0, 16-byte rows), W
-// int8.
-// ---------------------------------------------------------------------------
-template <int BN, int WARPS_N, class Epi, typename TX = bf16>
-__global__ void __launch_bounds__(kThreads)
-    affine_dot_i8_kernel(const TX* __restrict__ x, long long ldx,
-                         long long M, int K, const float* __restrict__ inv,
-                         const float* __restrict__ shift,
-                         const i8* __restrict__ w, int ldw, int N, float s,
-                         Epi epi) {
-  __shared__ SmemI8<BN, WARPS_N> sm;
-  const int warp = threadIdx.x / 32;
-  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-  const long long m0 = (long long)blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  AccI8<BN, WARPS_N> acc;
-  zero_acc<BN, WARPS_N>(acc);
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    // A tile: the BN affine + ReLU + quantizer of eight bf16 values per
-    // thread, stored as eight int8 codes
-    for (int c = threadIdx.x; c < BM * BK / 8; c += kThreads) {
-      const int r = c / (BK / 8), kc = (c % (BK / 8)) * 8;
-      const long long m = m0 + r;
-      const int k = k0 + kc;
-      union {
-        uint2 v;
-        i8 b[8];
-      } q;
-      q.v = make_uint2(0u, 0u);
-      if (m < M && k < K) {
-        if constexpr (sizeof(TX) == 2) {
-          Pack8 in;
-          in.v = *reinterpret_cast<const uint4*>(x + m * ldx + k);
-#pragma unroll
-          for (int t = 0; t < 8; ++t)
-            q.b[t] = q8(fmaxf(affine(lo(in, t), inv[k + t], shift[k + t]),
-                              0.f),
-                        s);
-        } else {
-          const float* src = x + m * ldx + k;
-          const float4 a = *reinterpret_cast<const float4*>(src);
-          const float4 b = *reinterpret_cast<const float4*>(src + 4);
-          const float v[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-#pragma unroll
-          for (int t = 0; t < 8; ++t)
-            q.b[t] = q8(fmaxf(affine(v[t], inv[k + t], shift[k + t]), 0.f),
-                        s);
-        }
-      }
-      *reinterpret_cast<uint2*>(&sm.a[kc / 16][r][kc % 16]) = q.v;
-    }
-    load_b_i8(sm, w, ldw, k0, K, n0, N);
-    __syncthreads();
-    mma_stage_i8(sm, wm, wn, acc);
-    __syncthreads();
-  }
-  store_tile_i8(sm, wm, wn, m0, n0, M, N, epi, acc);
-}
-
-// ---------------------------------------------------------------------------
-// conv3x3_i8: SAME 3x3 conv of (B*H*W, C) int8 rows as an implicit GEMM of
-// depth 9*C against the int8 HWIO weight viewed as (9*C, G); zero padding
-// per image; dequantized by 1/s into bf16 or float32 (Epi).
-// ---------------------------------------------------------------------------
-template <int BN, int WARPS_N, class Epi = EpiBf16>
-__global__ void __launch_bounds__(kThreads)
-    conv3x3_i8_kernel(const i8* __restrict__ y, long long ldy, long long M,
-                      int H, int W, int C, const i8* __restrict__ w, int G,
-                      Epi epi) {
-  __shared__ SmemI8<BN, WARPS_N> sm;
-  const int warp = threadIdx.x / 32;
-  const int wm = warp / WARPS_N, wn = warp % WARPS_N;
-  const long long m0 = (long long)blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const long long hw = (long long)H * W;
-  AccI8<BN, WARPS_N> acc;
-  zero_acc<BN, WARPS_N>(acc);
-
-  for (int tap = 0; tap < 9; ++tap) {
-    const int dy = tap / 3 - 1, dx = tap % 3 - 1;
-    for (int c0 = 0; c0 < C; c0 += BK) {
-      for (int c = threadIdx.x; c < BM * BK / 16; c += kThreads) {
-        const int r = c / (BK / 16), p = c % (BK / 16);
-        const long long m = m0 + r;
-        const int ch = c0 + p * 16;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (m < M && ch < C) {
-          const long long img = m / hw;
-          const int px = (int)(m - img * hw);
-          const int yy = px / W + dy, xx = px % W + dx;
-          if (yy >= 0 && yy < H && xx >= 0 && xx < W)
-            v = load16_i8(y + (img * hw + (long long)yy * W + xx) * ldy + ch,
-                          C - ch);
-        }
-        *reinterpret_cast<uint4*>(&sm.a[p][r][0]) = v;
-      }
-      // weight rows tap*C + [c0, c0+BK), masked at C
-      load_b_i8(sm, w + (long long)tap * C * G, G, c0, C, n0, G);
-      __syncthreads();
-      mma_stage_i8(sm, wm, wn, acc);
-      __syncthreads();
-    }
-  }
-  store_tile_i8(sm, wm, wn, m0, n0, M, G, epi, acc);
 }
 
 // ---------------------------------------------------------------------------
@@ -369,91 +201,6 @@ dim3 grid_of(long long M, int N, int BN) {
 }  // namespace
 
 extern "C" {
-
-// f32: x (and, without inv2, out) float32, else bf16.
-int cunet_affine_dot_i8(const void* x, long long ldx, long long M, int K,
-                        const void* inv, const void* shift, const void* w,
-                        int ldw, int N, float s, const void* inv2,
-                        const void* shift2, void* out, long long ldo,
-                        long long rows_per_img, long long img_stride,
-                        int f32, void* stream) {
-  const auto* xp = static_cast<const bf16*>(x);
-  const auto* xf = static_cast<const float*>(x);
-  const auto* ip = static_cast<const float*>(inv);
-  const auto* sp = static_cast<const float*>(shift);
-  const auto* wp = static_cast<const i8*>(w);
-  const auto st = static_cast<cudaStream_t>(stream);
-  if (inv2 && f32) {
-    const EpiQ8 epi{static_cast<i8*>(out), ldo, 1.f / s,
-                    static_cast<const float*>(inv2),
-                    static_cast<const float*>(shift2), s};
-#define LAUNCH(BN_, WN_)                                                    \
-  affine_dot_i8_kernel<BN_, WN_, EpiQ8, float>                              \
-      <<<grid_of(M, N, BN_), kThreads, 0, st>>>(xf, ldx, M, K, ip, sp, wp, \
-                                                ldw, N, s, epi)
-    CUNET_I8_DISPATCH(N, LAUNCH);
-#undef LAUNCH
-  } else if (f32) {
-    const EpiOutF32 epi{
-        OutViewOf<float>{static_cast<float*>(out), ldo, rows_per_img,
-                         img_stride},
-        1.f / s};
-#define LAUNCH(BN_, WN_)                                                    \
-  affine_dot_i8_kernel<BN_, WN_, EpiOutF32, float>                          \
-      <<<grid_of(M, N, BN_), kThreads, 0, st>>>(xf, ldx, M, K, ip, sp, wp, \
-                                                ldw, N, s, epi)
-    CUNET_I8_DISPATCH(N, LAUNCH);
-#undef LAUNCH
-  } else if (inv2) {
-    const EpiQ8 epi{static_cast<i8*>(out), ldo, 1.f / s,
-                    static_cast<const float*>(inv2),
-                    static_cast<const float*>(shift2), s};
-#define LAUNCH(BN_, WN_)                                                    \
-  affine_dot_i8_kernel<BN_, WN_, EpiQ8>                                     \
-      <<<grid_of(M, N, BN_), kThreads, 0, st>>>(xp, ldx, M, K, ip, sp, wp, \
-                                                ldw, N, s, epi)
-    CUNET_I8_DISPATCH(N, LAUNCH);
-#undef LAUNCH
-  } else {
-    const EpiBf16 epi{
-        OutView{static_cast<bf16*>(out), ldo, rows_per_img, img_stride},
-        1.f / s};
-#define LAUNCH(BN_, WN_)                                                    \
-  affine_dot_i8_kernel<BN_, WN_, EpiBf16>                                   \
-      <<<grid_of(M, N, BN_), kThreads, 0, st>>>(xp, ldx, M, K, ip, sp, wp, \
-                                                ldw, N, s, epi)
-    CUNET_I8_DISPATCH(N, LAUNCH);
-#undef LAUNCH
-  }
-  return (int)cudaGetLastError();
-}
-
-// f32: out float32, else bf16.
-int cunet_conv3x3_i8(const void* y, long long ldy, long long M, int H, int W,
-                     int C, const void* w, int G, float s, void* out,
-                     long long ldo, int f32, void* stream) {
-  const auto* yp = static_cast<const i8*>(y);
-  const auto* wp = static_cast<const i8*>(w);
-  const auto st = static_cast<cudaStream_t>(stream);
-  if (f32) {
-    const EpiOutF32 epi{OutViewOf<float>{static_cast<float*>(out), ldo, M, 0},
-                        1.f / s};
-#define LAUNCH(BN_, WN_)                                           \
-  conv3x3_i8_kernel<BN_, WN_, EpiOutF32>                           \
-      <<<grid_of(M, G, BN_), kThreads, 0, st>>>(yp, ldy, M, H, W, C, wp, \
-                                                 G, epi)
-    CUNET_I8_DISPATCH(G, LAUNCH);
-#undef LAUNCH
-    return (int)cudaGetLastError();
-  }
-  const EpiBf16 epi{OutView{static_cast<bf16*>(out), ldo, M, 0}, 1.f / s};
-#define LAUNCH(BN_, WN_)                                              \
-  conv3x3_i8_kernel<BN_, WN_><<<grid_of(M, G, BN_), kThreads, 0, st>>>( \
-      yp, ldy, M, H, W, C, wp, G, epi)
-  CUNET_I8_DISPATCH(G, LAUNCH);
-#undef LAUNCH
-  return (int)cudaGetLastError();
-}
 
 int cunet_int8_matmul_dequant(const void* x, long long ldx, long long M,
                               int K, const void* w, int ldw, int N,

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels of ``cunet_tpu_torch/csrc``.
 
 The sources are compiled by ``nvcc``, one process per source started
-together, and linked into one shared library with a plain C interface,
+together (``source_seconds`` keeps when each finished), and linked into
+one shared library with a plain C interface,
 loaded with ``ctypes``: no PyTorch header is compiled, which keeps the build
 short (an extension built against PyTorch's headers compiles them all). The build runs at the first CUDA launch (never at
 import: a machine without a card has no ``nvcc``) into
@@ -26,7 +27,7 @@ BUILD_DIR = _PKG / "_build"
 SOURCES = ("buf_kernels.cu", "train_kernels.cu", "quant_kernels.cu",
            "bottleneck_kernels.cu", "eval_kernels.cu", "f32_kernels.cu",
            "dw_f32_kernels.cu", "dx_f32_kernels.cu", "fwd_f32_kernels.cu",
-           "tb_dx_f32_kernels.cu", "conv_f32_kernels.cu")
+           "tb_dx_f32_kernels.cu", "conv_f32_kernels.cu", "i8_kernels.cu")
 HEADERS = ("common.cuh", "halo.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -35,6 +36,7 @@ NVCC_FLAGS = (
 
 _lib = None
 build_seconds = None   # wall time of this process's build; None if loaded
+source_seconds = {}    # each source's compile, from the build's start
 
 
 def _nvcc() -> str:
@@ -71,27 +73,36 @@ def build() -> Path:
         objs = [str(Path(work) / f"{Path(s).stem}.o") for s in SOURCES]
         cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(CSRC / s)]
                 for s, o in zip(SOURCES, objs)]
-        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
-                                  stderr=subprocess.PIPE, text=True)
-                 for c in cmds]
-        for cmd, proc in zip(cmds, procs):
-            _finish(cmd, proc)
+        logs = [open(Path(work) / f"{Path(s).stem}.log", "w+")
+                for s in SOURCES]
+        procs = [subprocess.Popen(c, stdout=f, stderr=subprocess.STDOUT,
+                                  text=True) for c, f in zip(cmds, logs)]
+        source_seconds.clear()
+        while len(source_seconds) < len(SOURCES):
+            for name, proc in zip(SOURCES, procs):
+                if name not in source_seconds and proc.poll() is not None:
+                    source_seconds[name] = time.perf_counter() - t0
+            time.sleep(0.05)
+        for cmd, proc, f in zip(cmds, procs, logs):
+            f.seek(0)
+            _finish(cmd, proc.returncode, f.read())
+            f.close()
         # link to a temporary name, then rename: a concurrent process never
         # loads a half-written library
         tmp = str(Path(work) / "lib.so")
         cmd = [nvcc, "-shared", "-o", tmp, *objs]
-        _finish(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                      stderr=subprocess.PIPE, text=True))
+        r = subprocess.run(cmd, stdout=subprocess.PIPE,
+                           stderr=subprocess.STDOUT, text=True)
+        _finish(cmd, r.returncode, r.stdout)
         os.replace(tmp, out)
     build_seconds = time.perf_counter() - t0
     return out
 
 
-def _finish(cmd, proc) -> None:
-    stdout, stderr = proc.communicate()
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{stdout}\n{stderr}")
+def _finish(cmd, returncode, output) -> None:
+    if returncode != 0:
+        raise RuntimeError(f"nvcc failed ({returncode}):\n"
+                           f"{' '.join(cmd)}\n{output}")
 
 
 def _declare(lib):
@@ -133,9 +144,9 @@ def _declare(lib):
         "cunet_sum_rows": [P, I, L, P, P],
         "cunet_maxpool2_bwd": [P, L, P, L, P, L, I, I, I, I, I, P],
         "cunet_upsample2_bwd": [P, L, P, L, I, I, I, I, I, P],
-        "cunet_affine_dot_i8": [P, L, L, I, P, P, P, I, I, F, P, P, P, L, L,
-                                L, I, P],
-        "cunet_conv3x3_i8": [P, L, L, I, I, I, P, I, F, P, L, I, P],
+        "cunet_affine_dot_i8": [P, L, L, I, P, P, P, L, I, F, P, P, P, L, L,
+                                L, *[I] * 18, P],
+        "cunet_conv3x3_i8": [P, L, L, I, I, I, P, I, F, P, L, *[I] * 13, P],
         "cunet_int8_matmul_dequant": [P, L, L, I, P, I, I, P, F, P, L, P],
         "cunet_tb_fill_table": [P, I, P, P],
         "cunet_tb_stats": [P, I, L, I, L, P, P],

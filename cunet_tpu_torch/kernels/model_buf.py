@@ -42,7 +42,12 @@ from cunet_tpu_torch.kernels.buf_ops import (
     pad_cols,
     upsample2,
 )
-from cunet_tpu_torch.kernels.quant_ops import affine_dot_i8, conv3x3_i8
+from cunet_tpu_torch.kernels.quant_ops import (
+    affine_dot_i8,
+    conv3x3_i8,
+    pack_w3_i8,
+    pack_w_i8,
+)
 from cunet_tpu_torch.quant.wage import scale_s
 
 
@@ -56,8 +61,11 @@ def marshal_slots(slot_args: Sequence[Dict], cfg: ModelConfig,
 
     With ``quant_bits_i`` (``slot_args(..., fold=False)`` of
     ``quant_eval_params`` weights) the bottleneck, adapter, head and 3x3
-    matrices are rounded to int8, the intermedia matrices stay in ``dtype``
-    and each block keeps BN2's full (2, Cb) [inv2; shift2] as ``vec2``;
+    matrices are rounded to int8 (each beside its K-major image for the
+    int8 kernels, ``quant_ops.pack_w_i8`` / ``pack_w3_i8``: ``wt_b``,
+    ``wt_a``, ``wt_s``, ``wt3``, the slot's ``wt_head``), the intermedia
+    matrices stay in ``dtype`` and each block keeps BN2's full (2, Cb)
+    [inv2; shift2] as ``vec2``;
     ``bn2_affine`` keeps it so for the float model too (``slot_args(...,
     fold=False)`` for the per-block eval, #5). Each slot's ``s`` is the
     activation quantizer's scale 2^(bits_i-1), or None for the float
@@ -108,16 +116,23 @@ def marshal_slots(slot_args: Sequence[Dict], cfg: ModelConfig,
             if "w_s" in ws:
                 b["vec_s"] = pad_vec(ws["vec_s"], kb + g)
                 b["w_s"] = pad_mat(mat(ws["w_s"]), kb + g).contiguous()
+            if quant_bits_i:
+                # the int8 kernels' K-major weight images, packed once
+                for key in ("w_b", "w_a", "w_s"):
+                    if key in b:
+                        b["wt" + key[1:]] = pack_w_i8(b[key])
+                b["wt3"] = pack_w3_i8(b["w3"])
             blocks.append(b)
         inter = None
         if sa["inter"] is not None:
             vec, w = sa["inter"]
             inter = (pad_vec(vec, ki), pad_mat(float_mat(w), ki).contiguous())
         vec, w = sa["head"]
-        out.append({"inter": inter, "blocks": blocks,
-                    "head": (vec.float().contiguous(),
-                             pad_cols(mat(w)).contiguous()),
+        head = (vec.float().contiguous(), pad_cols(mat(w)).contiguous())
+        out.append({"inter": inter, "blocks": blocks, "head": head,
                     "s": s_q})
+        if quant_bits_i:
+            out[-1]["wt_head"] = pack_w_i8(head[1])
     return out
 
 
@@ -167,16 +182,18 @@ def model_buf_infer(y_stem: torch.Tensor, slots: Sequence[Dict],
         buf[:, base + width * (order - 1):base + width * order].copy_(src)
 
     if s_q is not None:
-        def adapter(x, vec, w, out):
-            affine_dot_i8(x, vec, w, out, s=s_q)
+        def adapter(x, vec, w, out, wt):
+            affine_dot_i8(x, vec, w, out, s=s_q, wt=wt)
 
         def layer(x, ws, res_, out):
             y2 = y2_scratch[:x.shape[0]]
             affine_dot_i8(x, ws["vec_b"], ws["w_b"], y2, s=s_q,
-                          vec2=ws["vec2"])
-            conv3x3_i8(y2, ws["w3"], n, res_, res_, out, s=s_q)
+                          vec2=ws["vec2"], wt=ws["wt_b"])
+            conv3x3_i8(y2, ws["w3"], n, res_, res_, out, s=s_q,
+                       wt=ws["wt3"])
     else:
-        adapter = affine_dot
+        def adapter(x, vec, w, out, wt):
+            affine_dot(x, vec, w, out)
 
         def layer(x, ws, res_, out):
             y2 = y2_scratch[:x.shape[0]]
@@ -190,11 +207,12 @@ def model_buf_infer(y_stem: torch.Tensor, slots: Sequence[Dict],
         base = 2 * c if is_up else c
         kin = base + link * g
         layer(buf[:, :kin], ws, res_, buf[:, kin:kin + g])
-        adapter(buf[:, :kin + g], ws["vec_a"], ws["w_a"], ahead_out)
+        adapter(buf[:, :kin + g], ws["vec_a"], ws["w_a"], ahead_out,
+                ws.get("wt_a"))
         if "w_s" in ws:
             up_buf = bufs[nb + 1 + (nb - 1 - pos)]
             adapter(buf[:, :kin + g], ws["vec_s"], ws["w_s"],
-                    up_buf[:, c:2 * c])
+                    up_buf[:, c:2 * c], ws.get("wt_s"))
         # growth phase (i < order) leaves out32 where it landed, at FIFO
         # position ``link``; steady state rotates it in
         if order > 0 and i >= order:
@@ -237,5 +255,6 @@ def model_buf_infer(y_stem: torch.Tensor, slots: Sequence[Dict],
         if (i + 1) in anchors:
             vec, w = sl["head"]
             a = anchors.index(i + 1)
-            adapter(inter[:, :c], vec, w, out[:, a].view(n, h0 * h0, cls_pad))
+            adapter(inter[:, :c], vec, w, out[:, a].view(n, h0 * h0, cls_pad),
+                    sl.get("wt_head"))
     return out[..., :cfg.class_num]

@@ -64,7 +64,12 @@ and 6 and #7's ``apply[f32]`` (with both at K = 1,920 -> 136, ``apply``
 over 17 groups); ``--rows 'bwd_reduce\\[f32|affine_dx\\[f32'``
 ``bwd_reduce[f32]`` (with its dW against float64 and at Ctot = 1,920) and
 ``affine_dx[f32]`` / ``[f32,ste]`` (with K = 1,920); ``--rows '_dw\\['``
-the float32 weight gradients (with ``affine_dw[f32]`` at K = 1,920).
+the float32 weight gradients (with ``affine_dw[f32]`` at K = 1,920);
+``--rows 'affine_dot_i8|conv3x3_i8'`` the int8 whole-model kernels and
+their float32 forms at phase 6's cases (``int8_kernel_cases``: r=64 and
+the ragged cases at batch 8, r=64 at batches 64 and 256, order 14's
+widest K, a streamed K, both head widths), each bit for bit its plain
+version.
 """
 
 from __future__ import annotations
@@ -152,7 +157,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", type=Path, default=HERE)
     ap.add_argument("--rows", metavar="PATTERN",
-                    help="only the float32 kernel rows matching this regular "
+                    help="only the kernel rows matching this regular "
                          "expression, and the digests")
     args = ap.parse_args(argv)
     root = str(args.root.resolve())

@@ -63,7 +63,7 @@ from cunet_tpu_torch.train import intermediate_mse
 from test_torch_port_bf16_split import SUM_REL_PER_SQRT_N, split_bf16x3
 from test_torch_port_dropout_train import jax_seeds
 from test_torch_port_f32_forms import ORDER
-from test_torch_port_gemm_plans import _grids, _items_once
+from test_torch_port_gemm_plans import _grids, _items_once, one_thread
 from test_torch_port_train_bottleneck import (
     EPS,
     LOSS_RTOL,
@@ -327,15 +327,23 @@ def _bn0_cfg(width=128, dtype="float32"):
                        use_pallas=True, bn_tile=0)
 
 
-@functools.lru_cache(maxsize=None)
 def _bn0_f32_calls(width=128, dtype="float32"):
+    """``_bn0_calls_of(width, dtype)``: one forward per (width, dtype) in
+    a module, whichever way the caller spells the defaults."""
+    return _bn0_calls_of(width, dtype)
+
+
+@functools.lru_cache(maxsize=None)
+@one_thread()
+def _bn0_calls_of(width, dtype):
     """(M, Ctot, Cout, groups) of every #7 call of one CU-Net-8 @256
     ``bn_tile=0`` train forward at batch 24 (float32 by default; the
     widths of ``BN0_WIDTHS[width]``), read from the port's forward on
     eight 64 x 64 images (16 x 16 at the top of each hourglass; at 1 x 1
     the 8 rows still make a row tile): M scales by 3 x 16 (the backward's
     two kernels take the forward's shapes). Past 256 outputs (a wide, slow
-    forward on the CPU) two images, M scaled by 12 x 16."""
+    forward on the CPU) two images, M scaled by 12 x 16. On one intra-op
+    thread (``one_thread``)."""
     from cunet_tpu_torch.models import init_cu_net
 
     cfg = _bn0_cfg(width, dtype)

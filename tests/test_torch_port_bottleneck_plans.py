@@ -22,6 +22,7 @@ plus the table chunks) fits at every (M, Ctot, Cout) the CU-Net-8 @256
 width.
 """
 
+import functools
 import itertools
 
 import numpy as np
@@ -34,7 +35,7 @@ from cunet_tpu_torch.kernels.buf_ops import SMEM_LIMIT, SMEM_PAIR
 
 from test_torch_port_bf16_split import split_bf16x3
 from test_torch_port_conv_plans import REDUCE_SHAPES
-from test_torch_port_gemm_plans import _grids, _items_once
+from test_torch_port_gemm_plans import _grids, _items_once, one_thread
 
 R, C = tbk.DX_ROWS, tbk.DX_COLS
 # the shapes the mirror walks in full (M Ctot Cout up to ~63 M)
@@ -233,11 +234,14 @@ def test_dx_mirror_is_exact_under_one_hot_cotangents(shape, red_zero):
         assert not torch.equal(mirror_bwd_dx(*case, off=1)[0], want)
 
 
-def _bn0_apply_shapes(monkeypatch):
+@functools.lru_cache(maxsize=None)
+@one_thread()
+def _bn0_apply_shapes():
     """(M, Ctot, Cout) of every ``apply`` call of one CU-Net-8 @256
     ``bn_tile=0`` train forward at batch 24, read from the port's forward
     at full width on 64 x 64 images (16 x 16 at the top of each hourglass,
-    a quarter of 64 x 64): M scales by 16, Ctot and Cout do not."""
+    a quarter of 64 x 64): M scales by 16, Ctot and Cout do not. Recorded
+    once a module, on one intra-op thread (``one_thread``)."""
     from cunet_tpu_torch.config import ModelConfig
     from cunet_tpu_torch.models import apply_cu_net, init_cu_net
 
@@ -252,18 +256,18 @@ def _bn0_apply_shapes(monkeypatch):
                       w.shape[1]))
         return tbk.apply_plain(xs, vec, w, out)
 
-    monkeypatch.setattr(tbk, "apply", recorder)
     x = torch.rand(24, 64, 64, 3, generator=torch.Generator().manual_seed(1))
-    with torch.no_grad():
+    with pytest.MonkeyPatch.context() as mp, torch.no_grad():
+        mp.setattr(tbk, "apply", recorder)
         apply_cu_net(params, state, x, cfg=cfg, train=True)
-    return calls
+    return tuple(calls)
 
 
-def test_apply_plans_fit_the_bn0_step(monkeypatch):
+def test_apply_plans_fit_the_bn0_step():
     """183 ``apply`` calls a step (PERF.md's launch count), at r = 64 ... 4
     and Ctot up to 320: ``affine_dot_plan`` and the table chunks fit in
     shared memory at each, and the plan is ``affine_dot``'s own."""
-    calls = _bn0_apply_shapes(monkeypatch)
+    calls = _bn0_apply_shapes()
     assert len(calls) == 183
     assert {m for m, _, _ in calls} == {24 * r * r
                                          for r in (64, 32, 16, 8, 4)}

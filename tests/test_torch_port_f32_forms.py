@@ -48,6 +48,7 @@ from cunet_tpu_torch.models import apply_cu_net, init_cu_net
 from cunet_tpu_torch.models.cu_net import check_kernel_dtype
 
 from test_torch_port_bf16_split import SUM_REL_PER_SQRT_N, split_bf16x3
+from test_torch_port_gemm_plans import one_thread
 
 KERNEL = Path(__file__).resolve().parent.parent / \
     "cunet_tpu_torch/csrc/f32_kernels.cu"
@@ -162,11 +163,13 @@ def _record(monkeypatch, calls, module, name, shape_of):
     monkeypatch.setattr(module, name, rec)
 
 
+@one_thread()
 def _forward_calls(monkeypatch, class_num):
     """(kernel, M, K, N, nout, pool, W) of every 1x1 and 3x3 call the
     CU-Net-8 float32 forward makes on the whole-model, per-slot and
     per-block paths, at full width on one 64 x 64 image, with M and W
-    scaled to 256 x 256 (the rows by 16, the image width by 4)."""
+    scaled to 256 x 256 (the rows by 16, the image width by 4). On one
+    intra-op thread (``one_thread``)."""
     calls = []
 
     def dot(x, vec, w, out, **kw):

@@ -27,7 +27,9 @@ earlier search, ``resident_plan``), and the streamed partition's mirror
 joins the mirror cases.
 """
 
+import contextlib
 import dataclasses
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -283,14 +285,33 @@ def resident_plan(m, k, n):
     return best
 
 
-def _model_calls(monkeypatch, order, train, bn_tile=2):
+@contextlib.contextmanager
+def one_thread():
+    """One intra-op thread for the model init and forward that record call
+    shapes (a context manager, or a decorator): their thousands of small
+    ops each pay for a hand-off to the thread pool, and beside the other
+    tier-1 workers every pool is oversubscribed (one bn0 recording forward
+    with its plan checks: about 1 s alone, 256 s with five copies beside it
+    on eight cores; 1.3 s with one thread each)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
+@functools.lru_cache(maxsize=None)
+@one_thread()
+def _model_calls(order, train, bn_tile=2):
     """{(M, K, N)} of every ``affine_dot`` call (and with ``bn_tile=0``
     every #7 ``apply`` call) of a forward of CU-Net-8's widths (c=128,
     g=32, 16 classes) at ``order`` (layer_num max(8, order + 1)): eval on
     the whole-model path at batch 8, or the train forward at batch 24
     (ghost-BN tile 2, or ``bn_tile``), read from the port's forward on the
     CPU at 64 x 64 images (M scales by 16) and batch 1 or 2 (M scales to
-    the batch)."""
+    the batch). Recorded once a configuration, on one intra-op thread
+    (``one_thread``)."""
     from cunet_tpu_torch.config import ModelConfig
     from cunet_tpu_torch.models import apply_cu_net, init_cu_net
 
@@ -314,17 +335,16 @@ def _model_calls(monkeypatch, order, train, bn_tile=2):
                    w.shape[1]))
         return tbk.apply_plain(xs, vec, w, out)
 
-    for mod in ("buf_ops", "model_buf", "train_slot"):
-        target = getattr(__import__("cunet_tpu_torch.kernels." + mod,
-                                    fromlist=["x"]), "affine_dot", None)
-        if target is not None:
-            monkeypatch.setattr(f"cunet_tpu_torch.kernels.{mod}.affine_dot",
-                                dot)
-    monkeypatch.setattr(tbk, "apply", apply)
     x = torch.rand(n_img, 64, 64, 3, generator=torch.Generator().manual_seed(1))
-    with torch.no_grad():
+    with pytest.MonkeyPatch.context() as mp, torch.no_grad():
+        for mod in ("buf_ops", "model_buf", "train_slot"):
+            target = getattr(__import__("cunet_tpu_torch.kernels." + mod,
+                                        fromlist=["x"]), "affine_dot", None)
+            if target is not None:
+                mp.setattr(f"cunet_tpu_torch.kernels.{mod}.affine_dot", dot)
+        mp.setattr(tbk, "apply", apply)
         apply_cu_net(params, state, x, cfg=cfg, train=train)
-    return calls
+    return frozenset(calls)
 
 
 # (order, train, bn_tile): the eval whole-model forward and the ghost-BN
@@ -335,13 +355,13 @@ MODEL_RUNS = [(6, False, 2), (14, False, 2), (6, True, 2), (14, True, 2),
 
 @pytest.mark.parametrize("order,train,bn_tile", MODEL_RUNS,
                          ids=lambda v: str(v))
-def test_every_affine_dot_call_at_large_order_has_a_plan(
-        monkeypatch, order, train, bn_tile):
+def test_every_affine_dot_call_at_large_order_has_a_plan(order, train,
+                                                        bn_tile):
     """Each call plans within the H100's shared memory (``apply`` with its
     table chunks); the intermedia adapter streams (K = 128 (1 + order) >=
     888, from slot 7 at order 6), no other call does, and every call that
     planned before keeps that plan."""
-    calls = _model_calls(monkeypatch, order, train, bn_tile)
+    calls = _model_calls(order, train, bn_tile)
     ks = {k for _, k, _ in calls}
     assert 128 * (1 + order) in ks
     streamed = set()
